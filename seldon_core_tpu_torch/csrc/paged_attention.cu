@@ -1,8 +1,12 @@
-// Paged-attention decode read (s = 1) for Hopper, bf16 KV pool.
+// Paged-attention decode read (s = 1) for Hopper, bf16 or int8 KV pool.
 //
 // Replaces the TPU kernel seldon_core_tpu/ops/paged_attention.py
-// (paged_attention, Pallas body _kernel): decode attention over a paged KV
-// pool addressed through per-sequence block tables, online softmax in f32.
+// (paged_attention, Pallas body _kernel, both branches): decode attention
+// over a paged KV pool addressed through per-sequence block tables, online
+// softmax in f32. The int8 pool (the 5-tuple: int8 K/V plus a float32 scale
+// per position and kv head) is dequantized in f32 in registers as each
+// element is loaded, q * scale, exactly as the Pallas body's
+// kq.astype(f32) * ks; it moves about half the bytes of the bf16 pool.
 //
 // What bounds it on the card: bytes. Each (sequence, kv head) streams the K
 // and V rows of every page its block table names once, and does ~4 flops per
@@ -24,7 +28,10 @@
 //   * masking is exactly the reference's: a key attends iff pos <= qpos, and
 //     a masked logit is -FLT_MAX (finfo(float32).min), never -inf, so a row
 //     with nothing to attend (an all-NULL_PAGE table) averages V and stays
-//     finite instead of producing exp(-inf - -inf) = NaN.
+//     finite instead of producing exp(-inf - -inf) = NaN;
+//   * the page walk, masking and online softmax are one body for both
+//     pools: a template parameter (Bf16Pool / Int8Pool) is the element
+//     loader, K and V as float32.
 // No split across blocks, no TMA/wgmma: a simple kernel that is right first.
 //
 // Built with nvcc into a shared library with a plain C interface and loaded
@@ -53,11 +60,39 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-template <int HD>
+// Element loaders: K or V element ``elem`` of pool row ``row`` (row =
+// (page * ps + t) * kvh + kv_head, elem = row * HD + d) as float32. The pool
+// is read-only for the whole kernel, so every load goes through the
+// read-only data path (__ldg): a struct member cannot carry the
+// __restrict__ that lets the compiler pick it on its own.
+struct Bf16Pool {
+  const __nv_bfloat16* k;
+  const __nv_bfloat16* v;
+  __device__ __forceinline__ float key(size_t row, size_t elem) const {
+    return __bfloat162float(__ldg(k + elem));
+  }
+  __device__ __forceinline__ float value(size_t row, size_t elem) const {
+    return __bfloat162float(__ldg(v + elem));
+  }
+};
+
+struct Int8Pool {
+  const int8_t* k;
+  const float* k_scale;  // [P, ps, kvh]: one scale per row
+  const int8_t* v;
+  const float* v_scale;
+  __device__ __forceinline__ float key(size_t row, size_t elem) const {
+    return static_cast<float>(__ldg(k + elem)) * __ldg(k_scale + row);
+  }
+  __device__ __forceinline__ float value(size_t row, size_t elem) const {
+    return static_cast<float>(__ldg(v + elem)) * __ldg(v_scale + row);
+  }
+};
+
+template <int HD, class Pool>
 __global__ void __launch_bounds__(kThreads)
 paged_attention_decode_kernel(const __nv_bfloat16* __restrict__ q,      // [b, h, HD]
-                              const __nv_bfloat16* __restrict__ k_pool, // [P, ps, kvh, HD]
-                              const __nv_bfloat16* __restrict__ v_pool, // [P, ps, kvh, HD]
+                              const Pool pool,                          // K/V [P, ps, kvh, HD]
                               const int32_t* __restrict__ pos_pool,     // [P, ps]
                               const int32_t* __restrict__ block_tables, // [b, n_pages]
                               const int32_t* __restrict__ qpos,         // [b]
@@ -103,10 +138,10 @@ paged_attention_decode_kernel(const __nv_bfloat16* __restrict__ q,      // [b, h
     const size_t page = (size_t)bt_row[j];
     // 1. masked, scaled logits of this page's keys for every query head
     for (int t = warp; t < ps; t += kWarps) {
-      const __nv_bfloat16* krow = k_pool + ((page * ps + t) * kvh + kv_head) * HD;
+      const size_t row = (page * ps + t) * kvh + kv_head;
       float kr[kPerLane];
 #pragma unroll
-      for (int r = 0; r < kPerLane; ++r) kr[r] = __bfloat162float(krow[lane + 32 * r]);
+      for (int r = 0; r < kPerLane; ++r) kr[r] = pool.key(row, row * HD + lane + 32 * r);
       const bool attend = pos_pool[page * ps + t] <= qp;
       for (int g = 0; g < G; ++g) {
         float dot = 0.f;
@@ -144,9 +179,11 @@ paged_attention_decode_kernel(const __nv_bfloat16* __restrict__ q,      // [b, h
       const int g = e / HD;
       const int d = e % HD;
       const float* p = p_s + g * ps;
-      const __nv_bfloat16* vcol = v_pool + (page * ps * kvh + kv_head) * HD + d;
       float a = acc_s[e] * alpha_s[g];
-      for (int t = 0; t < ps; ++t) a += p[t] * __bfloat162float(vcol[(size_t)t * kvh * HD]);
+      for (int t = 0; t < ps; ++t) {
+        const size_t row = (page * ps + t) * kvh + kv_head;
+        a += p[t] * pool.value(row, row * HD + d);
+      }
       acc_s[e] = a;
     }
     __syncthreads();
@@ -158,47 +195,69 @@ paged_attention_decode_kernel(const __nv_bfloat16* __restrict__ q,      // [b, h
   }
 }
 
-template <int HD>
-cudaError_t launch(const void* q, const void* k_pool, const void* v_pool, const void* pos_pool,
+template <int HD, class Pool>
+cudaError_t launch(const void* q, const Pool& pool, const void* pos_pool,
                    const void* block_tables, const void* qpos, void* out, int b, int h, int kvh,
                    int ps, int n_pages, float scale, cudaStream_t stream) {
   const int G = h / kvh;
   const size_t smem = sizeof(float) * ((size_t)2 * G * HD + (size_t)G * ps + 3 * (size_t)G);
   if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(paged_attention_decode_kernel<HD>,
+    cudaError_t err = cudaFuncSetAttribute(paged_attention_decode_kernel<HD, Pool>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
   dim3 grid(kvh, b);
-  paged_attention_decode_kernel<HD><<<grid, kThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k_pool),
-      static_cast<const __nv_bfloat16*>(v_pool), static_cast<const int32_t*>(pos_pool),
+  paged_attention_decode_kernel<HD, Pool><<<grid, kThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), pool, static_cast<const int32_t*>(pos_pool),
       static_cast<const int32_t*>(block_tables), static_cast<const int32_t*>(qpos),
       static_cast<__nv_bfloat16*>(out), h, kvh, ps, n_pages, scale);
   return cudaGetLastError();
 }
 
+// Shapes are checked by the Python wrapper; only an unsupported head dim is
+// rejected here.
+template <class Pool>
+int launch_hd(int hd, const void* q, const Pool& pool, const void* pos_pool,
+              const void* block_tables, const void* qpos, void* out, int b, int h, int kvh,
+              int ps, int n_pages, float scale, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (hd) {
+    case 32:
+      return launch<32>(q, pool, pos_pool, block_tables, qpos, out, b, h, kvh, ps, n_pages,
+                        scale, s);
+    case 64:
+      return launch<64>(q, pool, pos_pool, block_tables, qpos, out, b, h, kvh, ps, n_pages,
+                        scale, s);
+    case 128:
+      return launch<128>(q, pool, pos_pool, block_tables, qpos, out, b, h, kvh, ps, n_pages,
+                         scale, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
-// Returns the cudaError_t of the launch (0 = success). Shapes are checked by
-// the Python wrapper; this entry point only rejects an unsupported head dim.
+// Each entry point returns the cudaError_t of the launch (0 = success).
 extern "C" int paged_attention_decode_bf16(const void* q, const void* k_pool, const void* v_pool,
                                            const void* pos_pool, const void* block_tables,
                                            const void* qpos, void* out, int b, int h, int kvh,
                                            int hd, int ps, int n_pages, float scale,
                                            void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (hd) {
-    case 32:
-      return launch<32>(q, k_pool, v_pool, pos_pool, block_tables, qpos, out, b, h, kvh, ps,
-                        n_pages, scale, s);
-    case 64:
-      return launch<64>(q, k_pool, v_pool, pos_pool, block_tables, qpos, out, b, h, kvh, ps,
-                        n_pages, scale, s);
-    case 128:
-      return launch<128>(q, k_pool, v_pool, pos_pool, block_tables, qpos, out, b, h, kvh, ps,
-                         n_pages, scale, s);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  const Bf16Pool pool{static_cast<const __nv_bfloat16*>(k_pool),
+                      static_cast<const __nv_bfloat16*>(v_pool)};
+  return launch_hd(hd, q, pool, pos_pool, block_tables, qpos, out, b, h, kvh, ps, n_pages, scale,
+                   stream);
+}
+
+extern "C" int paged_attention_decode_int8(const void* q, const void* k_pool, const void* k_scale,
+                                           const void* v_pool, const void* v_scale,
+                                           const void* pos_pool, const void* block_tables,
+                                           const void* qpos, void* out, int b, int h, int kvh,
+                                           int hd, int ps, int n_pages, float scale,
+                                           void* stream) {
+  const Int8Pool pool{static_cast<const int8_t*>(k_pool), static_cast<const float*>(k_scale),
+                      static_cast<const int8_t*>(v_pool), static_cast<const float*>(v_scale)};
+  return launch_hd(hd, q, pool, pos_pool, block_tables, qpos, out, b, h, kvh, ps, n_pages, scale,
+                   stream);
 }

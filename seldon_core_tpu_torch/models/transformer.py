@@ -18,10 +18,17 @@ What changes with the framework:
   matmul + softmax, as the JAX package leaves it to XLA.
 - ``fused_norm=True`` routes each block's residual add + ffn RMSNorm through
   ``ops/fused_norm.py`` (a Triton kernel on a card).
+- int8 KV caches (``kv_cache_dtype="int8"``) are the JAX package's 5-tuple
+  (k_q, k_scale, v_q, v_scale, pos): quantize on write, dequantize in the
+  model dtype on the plain read; the paged decode read dequantizes in
+  float32 inside the kernel.
+- Weight-only int8 (``Transformer.quantize_``): every projection and the
+  lm_head become ``ops/quantize.QuantizedTensor`` modules and go through
+  ``quantized_matmul`` — the W8A16 GEMM kernel on a card — where the JAX
+  package left the dequantizing matmul to XLA's fusion.
 
 Configurations that belong to later slices raise ``NotImplementedError``
-naming the slice: int8 KV caches, MoE FFNs, batched LoRA, ring attention and
-meshes.
+naming the slice: MoE FFNs, batched LoRA, ring attention and meshes.
 """
 
 from __future__ import annotations
@@ -36,6 +43,9 @@ from torch import nn
 
 from seldon_core_tpu_torch.device import resolve_device
 from seldon_core_tpu_torch.models.registry import register_model
+from seldon_core_tpu_torch.ops.quantize import (QuantizedTensor, _is_quantizable,
+                                                dequantize_array, quantize_array,
+                                                quantize_into_, quantized_matmul)
 
 # Sentinel position for empty/padded cache slots and padded prompt tokens:
 # larger than any real position, so causal masks (key_pos <= query_pos)
@@ -55,7 +65,7 @@ NULL_PAGE = 0
 TRASH_PAGE = 1
 RESERVED_PAGES = 2
 
-_INT8_KV = "int8 KV caches (the 5-tuple layout) arrive with the int8-KV slice of the port"
+_KV_QMAX = 127
 
 _DTYPES = {
     "bfloat16": torch.bfloat16, "bf16": torch.bfloat16,
@@ -85,6 +95,26 @@ def normalize_kv_cache_dtype(value) -> str:
     raise ValueError(
         f"unknown kv_cache_dtype {value!r}: expected one of {KV_CACHE_DTYPES}"
     )
+
+
+def quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric int8 quantization over the last (head_dim) axis:
+    x [..., hd] float -> (q int8 [..., hd], scale float32 [...]). One scale
+    per head per position; zero vectors get scale 1 (dequantize to exact
+    zeros). ``torch.round`` rounds half to even, as ``jnp.round`` does, so
+    the codes are bit-equal to the JAX package's. Written in few ops: on
+    the card each is a launch on the decode step's host-bound path."""
+    x32 = x.float()
+    amax = torch.linalg.vector_norm(x32, ord=float("inf"), dim=-1)   # max |x|
+    scale = torch.where(amax > 0, amax / _KV_QMAX, 1.0)
+    q = (x32 / scale[..., None]).round_().clamp_(-128, 127).to(torch.int8)
+    return q, scale
+
+
+def dequantize_kv(q: torch.Tensor, scale: torch.Tensor, dtype) -> torch.Tensor:
+    """Inverse of quantize_kv in ``dtype``: both operands cast, then
+    multiplied, as the JAX package does."""
+    return q.to(dtype) * scale[..., None].to(dtype)
 
 
 def normalize_kv_cache_layout(value) -> str:
@@ -222,18 +252,44 @@ def gather_paged_view(cache, block_tables: torch.Tensor, dtype: torch.dtype):
 
     The one copy of the block-table read semantics: the attention read below
     and ``ops/paged_attention.py``'s plain version (the CUDA kernel's parity
-    oracle) both address the pool through this gather."""
-    if len(cache) == 5:
-        raise NotImplementedError(_INT8_KV)
-    k_pool, v_pool, pos_pool = cache
+    oracle) both address the pool through this gather. An int8 pool
+    (5-tuple) is dequantized here in ``dtype``, as the JAX package does, so
+    the view feeds the same read as the dense layout's."""
     bt = block_tables.long()
     b = bt.shape[0]
-    ps = k_pool.shape[1]
+    ps = cache[0].shape[1]
     L = bt.shape[1] * ps
-    kvh, hd = k_pool.shape[2], k_pool.shape[3]
-    k_all = k_pool[bt].reshape(b, L, kvh, hd)
-    v_all = v_pool[bt].reshape(b, L, kvh, hd)
+    kvh, hd = cache[0].shape[2], cache[0].shape[3]
+    if len(cache) == 5:
+        kq_pool, ks_pool, vq_pool, vs_pool, pos_pool = cache
+        k_all = dequantize_kv(kq_pool[bt].reshape(b, L, kvh, hd),
+                              ks_pool[bt].reshape(b, L, kvh), dtype)
+        v_all = dequantize_kv(vq_pool[bt].reshape(b, L, kvh, hd),
+                              vs_pool[bt].reshape(b, L, kvh), dtype)
+    else:
+        k_pool, v_pool, pos_pool = cache
+        k_all = k_pool[bt].reshape(b, L, kvh, hd)
+        v_all = v_pool[bt].reshape(b, L, kvh, hd)
     return k_all, v_all, pos_pool[bt].reshape(b, L)
+
+
+def dense_view(cache, dtype):
+    """(k_all, v_all) of a dense cache: the buffers themselves, or an int8
+    cache dequantized in ``dtype``."""
+    if len(cache) == 5:
+        kq, ks, vq, vs, _ = cache
+        return dequantize_kv(kq, ks, dtype), dequantize_kv(vq, vs, dtype)
+    return cache[0], cache[1]
+
+
+def matmul(x: torch.Tensor, w, dtype: torch.dtype) -> torch.Tensor:
+    """``x @ w`` in ``dtype``, the one product every projection and the
+    lm_head go through: a float weight is cast to ``dtype``; a
+    ``QuantizedTensor`` goes through ``quantized_matmul`` (the int8 GEMM
+    kernel on a card, float32 accumulation, output in ``dtype``)."""
+    if isinstance(w, QuantizedTensor):
+        return quantized_matmul(x, w, dtype)
+    return x.to(dtype) @ w.to(dtype)
 
 
 def masked_attention(q: torch.Tensor, k_all: torch.Tensor, v_all: torch.Tensor,
@@ -285,7 +341,10 @@ class Attention(nn.Module):
         or a [b] tensor with s == 1: per-sequence offsets — decode) and
         returns (out, cache) with the cache tensors updated in place.
         pos_cache holds each slot's absolute position (PAD_POS when empty),
-        so causal masking is exact under right-padding.
+        so causal masking is exact under right-padding. The int8 layout
+        (k_q, k_scale, v_q, v_scale, pos_cache), with float32 [b, max_len,
+        kvh] scales, quantizes this call's K/V on write and attends the
+        values dequantized in the model dtype.
 
         With ``block_tables`` ([b, n_pages] int32) the cache tuple is a
         PAGED pool — [pages, page_size, kvh, hd] buffers shared by every
@@ -301,25 +360,29 @@ class Attention(nn.Module):
         hd = cfg.head_dim
         dt = cfg.dtype
 
-        q = (x @ self.wq.to(dt)).reshape(b, s, cfg.n_heads, hd)
-        k = (x @ self.wk.to(dt)).reshape(b, s, cfg.n_kv_heads, hd)
-        v = (x @ self.wv.to(dt)).reshape(b, s, cfg.n_kv_heads, hd)
+        q = matmul(x, self.wq, dt).reshape(b, s, cfg.n_heads, hd)
+        k = matmul(x, self.wk, dt).reshape(b, s, cfg.n_kv_heads, hd)
+        v = matmul(x, self.wv, dt).reshape(b, s, cfg.n_kv_heads, hd)
 
         cos, sin = rotary_embedding(positions, hd, cfg.rope_theta, cfg.rope_scaling)
         q = apply_rotary(q, cos, sin)
         k = apply_rotary(k, cos, sin)
 
-        if cache is not None and len(cache) == 5:
-            raise NotImplementedError(_INT8_KV)
+        if cache is not None:
+            # what each cache buffer stores for this call's tokens: the int8
+            # layout quantizes K and V on write (per head, per position)
+            if len(cache) == 5:
+                (kq, vq), (ks, vs) = quantize_kv(torch.stack((k, v)))
+                values = (kq, ks, vq, vs, positions)
+            else:
+                values = (k, v, positions)
         if cache is not None and block_tables is not None:
-            k_pool, v_pool, pos_pool = cache
-            ps = k_pool.shape[1]
+            ps = cache[0].shape[1]
             entry, off = paged_write_targets(block_tables, positions, ps)
             # In place: the JAX package donated the pool to the jitted step;
             # here the scatter writes straight into the shared pool tensors.
-            k_pool[entry, off] = k.to(k_pool.dtype)
-            v_pool[entry, off] = v.to(v_pool.dtype)
-            pos_pool[entry, off] = positions.to(pos_pool.dtype)
+            for buf, val in zip(cache, values):
+                buf[entry, off] = val.to(buf.dtype)
             new_cache = cache
             if s == 1:
                 from seldon_core_tpu_torch.ops.paged_attention import paged_attention
@@ -330,21 +393,19 @@ class Attention(nn.Module):
                 mask = pos_view[:, None, :] <= positions[:, :, None]
                 out = masked_attention(q, k_all, v_all, mask)
         elif cache is not None:
-            k_cache, v_cache, pos_cache = cache
+            pos_cache = cache[-1]
             if not torch.is_tensor(cache_index) or cache_index.dim() == 0:
                 # a scalar offset, clamped like lax.dynamic_update_slice
-                i = max(0, min(int(cache_index), k_cache.shape[1] - s))
+                i = max(0, min(int(cache_index), pos_cache.shape[1] - s))
                 # In place (the JAX package donated the cache to the step).
-                k_cache[:, i:i + s] = k.to(k_cache.dtype)
-                v_cache[:, i:i + s] = v.to(v_cache.dtype)
-                pos_cache[:, i:i + s] = positions.to(pos_cache.dtype)
+                for buf, val in zip(cache, values):
+                    buf[:, i:i + s] = val.to(buf.dtype)
             elif s == 1:
                 # per-sequence write offsets (continuous batching), in place
                 bidx = torch.arange(b, device=x.device)
                 idx = cache_index.long()
-                k_cache[bidx, idx] = k[:, 0].to(k_cache.dtype)
-                v_cache[bidx, idx] = v[:, 0].to(v_cache.dtype)
-                pos_cache[bidx, idx] = positions[:, 0].to(pos_cache.dtype)
+                for buf, val in zip(cache, values):
+                    buf[bidx, idx] = val[:, 0].to(buf.dtype)
             else:
                 raise NotImplementedError(
                     "per-sequence multi-token dense writes (the speculative "
@@ -353,13 +414,13 @@ class Attention(nn.Module):
             # pos_cache marks empty slots with PAD_POS, so one predicate
             # covers causality, the unfilled suffix and right-padding.
             mask = pos_cache[:, None, :] <= positions[:, :, None]
-            out = masked_attention(q, k_cache, v_cache, mask)
+            out = masked_attention(q, *dense_view(cache, dt), mask)
         else:
             mask = positions[:, None, :] <= positions[:, :, None]
             out = masked_attention(q, k, v, mask)
             new_cache = (k, v)
         out = out.reshape(b, s, cfg.n_heads * hd)
-        return out @ self.wo.to(dt), new_cache
+        return matmul(out, self.wo, dt), new_cache
 
 
 class DenseFFN(nn.Module):
@@ -373,9 +434,9 @@ class DenseFFN(nn.Module):
 
     def forward(self, x):
         dt = self.cfg.dtype
-        up = x @ self.w1.to(dt)
-        gate = x @ self.w3.to(dt)
-        return (F.silu(up) * gate) @ self.w2.to(dt)
+        up = matmul(x, self.w1, dt)
+        gate = matmul(x, self.w3, dt)
+        return matmul(F.silu(up) * gate, self.w2, dt)
 
 
 class TransformerBlock(nn.Module):
@@ -408,7 +469,8 @@ class TransformerBlock(nn.Module):
 class Transformer(nn.Module):
     """Llama-family decoder. Build with ``param_dtype`` = storage dtype of
     every parameter (float32 by default, as flax stores them) on ``device``;
-    fill with ``init_params`` or ``load_state_dict``."""
+    fill with ``init_params`` or ``load_state_dict``; ``quantize_`` turns
+    it into the weight-only int8 model."""
 
     def __init__(self, cfg: TransformerConfig, *, param_dtype=torch.float32,
                  device=None):
@@ -421,9 +483,33 @@ class Transformer(nn.Module):
         self.norm = RMSNorm(cfg.dim, cfg.norm_eps, **kw)
         if not cfg.tie_embeddings:
             self.lm_head = _param((cfg.dim, cfg.vocab_size), param_dtype, device)
+        # the float model's leaf order: init_params draws in it whether or
+        # not a leaf has been quantized since
+        self._leaf_names = tuple(name for name, _ in self.named_parameters())
 
     def layers(self) -> List[TransformerBlock]:
         return [getattr(self, f"layer_{i}") for i in range(self.cfg.n_layers)]
+
+    def _owner(self, name: str):
+        """(module holding leaf ``name``, the leaf's attribute name)."""
+        path, _, leaf = name.rpartition(".")
+        return (self.get_submodule(path) if path else self), leaf
+
+    @torch.no_grad()
+    def quantize_(self) -> "Transformer":
+        """Weight-only int8, in place (``ops/quantize.py``): every float
+        parameter of two or more dims becomes a ``QuantizedTensor`` module
+        at the same name, holding ``q`` and ``scale`` buffers and the leaf's
+        storage dtype as ``orig_dtype``; each float leaf is freed as soon as
+        its int8 copy exists. The norm weights stay float. On the meta
+        device it builds the int8 layout and allocates nothing."""
+        names = [n for n, p in self.named_parameters() if _is_quantizable(p)]
+        for name in names:
+            owner, leaf = self._owner(name)
+            qt = quantize_array(getattr(owner, leaf))
+            delattr(owner, leaf)
+            owner.add_module(leaf, qt)
+        return self
 
     @torch.no_grad()
     def init_params(self, generator: torch.Generator) -> None:
@@ -432,24 +518,64 @@ class Transformer(nn.Module):
         dtype (so a bf16-stored 7B model never holds a float32 copy of
         more than one leaf): normal(0.02) for the embedding and lm_head,
         ones for norm weights, lecun-normal (truncated normal, std
-        1/sqrt(fan_in)) for every projection. The same seed gives the same
-        weights on the same device type; a JAX checkpoint crosses over
-        through ``models/convert.py`` instead."""
-        for name, p in self.named_parameters():
-            leaf = name.rsplit(".", 1)[-1]
+        1/sqrt(fan_in)) for every projection. A leaf already quantized
+        (``quantize_`` on the meta device, then ``to_empty``) is drawn the
+        same way and quantized straight into its int8 buffers, so the float
+        tree never exists and the result equals ``init_params`` followed by
+        ``quantize_``. The same seed gives the same weights on the same
+        device type; a JAX checkpoint crosses over through
+        ``models/convert.py`` instead."""
+        for name in self._leaf_names:
+            owner, leaf = self._owner(name)
+            t = getattr(owner, leaf)
             if leaf == "weight":
-                p.fill_(1.0)
+                t.fill_(1.0)
                 continue
-            w = torch.empty(p.shape, dtype=torch.float32, device=p.device)
+            quantized = isinstance(t, QuantizedTensor)
+            w = torch.empty(t.shape, dtype=torch.float32,
+                            device=t.q.device if quantized else t.device)
             if leaf in ("tok_embeddings", "lm_head"):
                 w.normal_(0.0, 0.02, generator=generator)
             else:
                 # flax variance_scaling(1, "fan_in", "truncated_normal"):
                 # a [-2, 2] truncated unit normal times sqrt(1/fan_in)/0.8796
-                std = (1.0 / p.shape[0]) ** 0.5 / 0.87962566103423978
+                std = (1.0 / t.shape[0]) ** 0.5 / 0.87962566103423978
                 torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=generator)
                 w.mul_(std)
-            p.copy_(w)
+            if quantized:
+                quantize_into_(t, w)
+            else:
+                t.copy_(w)
+            del w  # freed before the next leaf is drawn: one float32 leaf at a time
+
+    def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
+        """Embedding rows of ``tokens`` in the compute dtype. int8
+        embeddings gather their int8 rows and dequantize them in
+        ``orig_dtype`` before the cast, which is ``emb.astype(dt)[tokens]``
+        of the dequantized table, row by row."""
+        emb = self.tok_embeddings
+        if isinstance(emb, QuantizedTensor):
+            rows = emb.q[tokens.long()].to(emb.orig_dtype) * emb.scale.to(emb.orig_dtype)
+            return rows.to(self.cfg.dtype)
+        return F.embedding(tokens.long(), emb).to(self.cfg.dtype)
+
+    def _logits(self, x: torch.Tensor) -> torch.Tensor:
+        """float32 logits ``x.float() @ head``. A tied head over int8
+        embeddings is ``[dim, vocab]`` with its scale on K (one per
+        embedding column), which the int8 GEMM kernel (scale per output
+        column) does not take: the CPU computes the plain product, a card
+        raises."""
+        if not self.cfg.tie_embeddings:
+            return matmul(x, self.lm_head, torch.float32)
+        emb = self.tok_embeddings
+        if isinstance(emb, QuantizedTensor):
+            if x.device.type != "cpu":
+                raise NotImplementedError(
+                    "a tied lm_head over int8 embeddings has its scale on K, which the "
+                    "int8 GEMM kernel (scale per output column) does not take; serve an "
+                    "untied model with quantize='int8' on the card")
+            emb = dequantize_array(emb)
+        return x.float() @ emb.float().t()
 
     def forward(self, tokens, positions=None, caches=None, cache_index=None,
                 block_tables=None, adapters=None, adapter_ids=None):
@@ -458,64 +584,62 @@ class Transformer(nn.Module):
         layer) switches the caches to the paged-pool layout — see
         Attention. Cache tensors are updated in place."""
         _check_adapters(adapters)
-        cfg = self.cfg
         b, s = tokens.shape
         if positions is None:
             positions = torch.arange(s, device=tokens.device)[None, :].expand(b, s)
-        x = F.embedding(tokens.long(), self.tok_embeddings).to(cfg.dtype)
+        x = self._embed(tokens)
         new_caches = []
         for i, layer in enumerate(self.layers()):
             layer_cache = caches[i] if caches is not None else None
             x, nc = layer(x, positions, layer_cache, cache_index, block_tables)
             new_caches.append(nc)
-        x = self.norm(x)
-        head = self.tok_embeddings.t() if cfg.tie_embeddings else self.lm_head
-        logits = x.float() @ head.float()
-        return logits, new_caches
+        return self._logits(self.norm(x)), new_caches
+
+
+def _cache_layers(cfg: TransformerConfig, lead: Tuple[int, int], kv_cache_dtype, device):
+    """One cache tuple per layer with leading dims ``lead``: the (k, v, pos)
+    triple in the model dtype, or with kv_cache_dtype="int8" the (k_q,
+    k_scale, v_q, v_scale, pos) 5-tuple — int8 values plus float32 [*lead,
+    kvh] per-head per-position scales, initialised to 1 so empty slots
+    dequantize to exact zeros. Positions start at PAD_POS (never
+    attended)."""
+    dev = resolve_device(device)
+    shape = (*lead, cfg.n_kv_heads, cfg.head_dim)
+    int8 = normalize_kv_cache_dtype(kv_cache_dtype or cfg.kv_cache_dtype) == "int8"
+
+    def layer():
+        pos = torch.full(lead, PAD_POS, dtype=torch.int32, device=dev)
+        if int8:
+            scale_shape = (*lead, cfg.n_kv_heads)
+            return (torch.zeros(shape, dtype=torch.int8, device=dev),
+                    torch.ones(scale_shape, dtype=torch.float32, device=dev),
+                    torch.zeros(shape, dtype=torch.int8, device=dev),
+                    torch.ones(scale_shape, dtype=torch.float32, device=dev), pos)
+        return (torch.zeros(shape, dtype=cfg.dtype, device=dev),
+                torch.zeros(shape, dtype=cfg.dtype, device=dev), pos)
+
+    return [layer() for _ in range(cfg.n_layers)]
 
 
 def init_kv_caches(cfg: TransformerConfig, batch: int, max_len: int,
                    kv_cache_dtype: Optional[str] = None, *, device=None):
-    """Dense KV caches: one (k, v, pos) triple per layer — [b, max_len, kvh,
-    hd] buffers plus a [b, max_len] position map whose empty slots hold
-    PAD_POS (never attended)."""
-    if normalize_kv_cache_dtype(kv_cache_dtype or cfg.kv_cache_dtype) == "int8":
-        raise NotImplementedError(_INT8_KV)
-    dev = resolve_device(device)
-    shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
-    return [
-        (
-            torch.zeros(shape, dtype=cfg.dtype, device=dev),
-            torch.zeros(shape, dtype=cfg.dtype, device=dev),
-            torch.full((batch, max_len), PAD_POS, dtype=torch.int32, device=dev),
-        )
-        for _ in range(cfg.n_layers)
-    ]
+    """Dense KV caches, one per layer: [b, max_len, kvh, hd] buffers plus a
+    [b, max_len] position map (see ``_cache_layers`` for the bf16 triple
+    and the int8 5-tuple)."""
+    return _cache_layers(cfg, (batch, max_len), kv_cache_dtype, device)
 
 
 def init_paged_kv_caches(cfg: TransformerConfig, num_pages: int,
                          page_size: int, kv_cache_dtype: Optional[str] = None,
                          *, device=None):
-    """Paged KV pools: one (k, v, pos) triple per layer with leading dims
-    [num_pages, page_size] — pages are shared by every sequence through
-    per-sequence block tables. Pages 0 and 1 are reserved (NULL_PAGE /
-    TRASH_PAGE). Position rows start at PAD_POS (never attended)."""
+    """Paged KV pools, one per layer, with leading dims [num_pages,
+    page_size] — pages are shared by every sequence through per-sequence
+    block tables. Pages 0 and 1 are reserved (NULL_PAGE / TRASH_PAGE)."""
     if num_pages <= RESERVED_PAGES:
         raise ValueError(
             f"paged KV pool needs > {RESERVED_PAGES} pages "
             f"(got {num_pages}; pages 0/1 are reserved)")
-    if normalize_kv_cache_dtype(kv_cache_dtype or cfg.kv_cache_dtype) == "int8":
-        raise NotImplementedError(_INT8_KV)
-    dev = resolve_device(device)
-    shape = (num_pages, page_size, cfg.n_kv_heads, cfg.head_dim)
-    return [
-        (
-            torch.zeros(shape, dtype=cfg.dtype, device=dev),
-            torch.zeros(shape, dtype=cfg.dtype, device=dev),
-            torch.full((num_pages, page_size), PAD_POS, dtype=torch.int32, device=dev),
-        )
-        for _ in range(cfg.n_layers)
-    ]
+    return _cache_layers(cfg, (num_pages, page_size), kv_cache_dtype, device)
 
 
 def kv_cache_bytes_per_token(cfg: TransformerConfig,
@@ -545,20 +669,22 @@ def _build(cfg: TransformerConfig, device, param_dtype) -> Transformer:
         raise NotImplementedError(
             "meshes (tensor/sequence parallelism) arrive with the "
             "parallelism slice of the port")
-    if cfg.kv_cache_dtype == "int8":
-        raise NotImplementedError(_INT8_KV)
     if param_dtype == "auto":  # store in the compute dtype (LLMServer's "auto")
         pdt = cfg.dtype
     else:
         pdt = to_torch_dtype(param_dtype) if param_dtype else torch.float32
-    return Transformer(cfg, param_dtype=pdt, device=resolve_device(device))
+    # "meta" builds the layout and allocates nothing (LLMServer quantizes
+    # the layout before any weight exists)
+    dev = torch.device("meta") if str(device) == "meta" else resolve_device(device)
+    return Transformer(cfg, param_dtype=pdt, device=dev)
 
 
 @register_model("transformer")
 def make_transformer(device=None, param_dtype=None, **kwargs):
-    """``device`` (default "cuda") and ``param_dtype`` (parameter storage:
-    float32 by default, "auto" = the compute dtype) are build options; every
-    other keyword is a TransformerConfig field."""
+    """``device`` (default "cuda"; "meta" allocates nothing) and
+    ``param_dtype`` (parameter storage: float32 by default, "auto" = the
+    compute dtype) are build options; every other keyword is a
+    TransformerConfig field."""
     dtype = kwargs.pop("dtype", "bfloat16")
     scaling = kwargs.pop("rope_scaling", None)
     if isinstance(scaling, dict):  # normalize to a hashable config field
@@ -593,7 +719,8 @@ __all__ = [
     "PAD_POS", "NULL_PAGE", "TRASH_PAGE", "RESERVED_PAGES",
     "TransformerConfig", "Transformer", "TransformerBlock", "Attention",
     "DenseFFN", "RMSNorm", "rms_norm", "rotary_embedding", "apply_rotary",
-    "paged_write_targets", "gather_paged_view", "masked_attention",
+    "paged_write_targets", "gather_paged_view", "dense_view", "masked_attention",
+    "matmul", "quantize_kv", "dequantize_kv",
     "init_kv_caches", "init_paged_kv_caches", "kv_cache_bytes_per_token",
     "normalize_kv_cache_dtype", "normalize_kv_cache_layout", "to_torch_dtype",
 ]

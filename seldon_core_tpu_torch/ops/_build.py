@@ -18,6 +18,8 @@ import threading
 from pathlib import Path
 from typing import Dict
 
+import torch
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -83,6 +85,22 @@ def load_library(name: str) -> ctypes.CDLL:
         return lib
 
 
+def launch(fn, device: torch.device, *args) -> None:
+    """Call the C entry point ``fn(*args, stream)`` on ``device``'s current
+    stream and raise if it returns a CUDA error (a refused launch never
+    runs, and a later synchronise would not report it). The device context
+    is switched only when ``device`` is not already current: on the serving
+    path this runs hundreds of times per decode step."""
+    stream = torch.cuda.current_stream(device).cuda_stream
+    if device.index == torch.cuda.current_device():
+        rc = fn(*args, stream)
+    else:
+        with torch.cuda.device(device):
+            rc = fn(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{fn.__name__} launch failed: cudaError {rc}")
+
+
 def build_all() -> Dict[str, ctypes.CDLL]:
     """Compile every kernel source (one nvcc process per source, all
     started before any is awaited) and load them. Returns name -> library."""
@@ -94,4 +112,4 @@ def build_all() -> Dict[str, ctypes.CDLL]:
     return {n: load_library(n) for n in names}
 
 
-__all__ = ["BUILD_DIR", "build_all", "build_logs", "load_library"]
+__all__ = ["BUILD_DIR", "build_all", "build_logs", "launch", "load_library"]

@@ -21,8 +21,10 @@ batch) and through the batcher (``submit(seed=)``): both start from
 ``seed_key(seed)`` and sample through ``sample_tokens``, one split per token.
 Greedy decoding (temperature <= 0) still advances the chain.
 
-Knobs that belong to later slices raise ``NotImplementedError`` naming the
-slice when set to a non-default value; none is ignored silently.
+Weight-only int8 (``quantize="int8"``) and the int8 KV cache
+(``kv_cache_dtype="int8"``) are served, alone or together, through every
+path below. Knobs that belong to later slices raise ``NotImplementedError``
+naming the slice when set to a non-default value; none is ignored silently.
 """
 
 from __future__ import annotations
@@ -200,8 +202,6 @@ class LLMServer(SeldonComponent):
             ("topology", topology is not None, "the parallelism slice"),
             ("tensor_parallel", int(tensor_parallel) > 1, "the parallelism slice"),
             ("sequence_parallel", int(sequence_parallel) > 1, "the parallelism slice"),
-            ("quantize", quantize, "the weight-only int8 slice"),
-            ("kv_cache_dtype", str(kv_cache_dtype).lower() == "int8", "the int8-KV slice"),
             ("decode_fuse_steps", int(decode_fuse_steps) > 1, "the decode_fuse_steps slice"),
             ("spec_mode", str(spec_mode or "off").lower() != "off",
              "the speculative-decoding slice"),
@@ -249,6 +249,10 @@ class LLMServer(SeldonComponent):
         self.len_buckets = tuple(len_buckets or DEFAULT_LEN_BUCKETS)
         self.batch_buckets = tuple(batch_buckets or DEFAULT_BATCH_BUCKETS)
         self.param_dtype = param_dtype
+        # weight-only int8 ("int8": every projection and the lm_head run
+        # through the W8A16 GEMM kernel); validated at load(), as the JAX
+        # package does
+        self.quantize = quantize
         self.kv_cache_dtype = kv_cache_dtype
         self.kv_cache_layout = kv_cache_layout
         self.kv_page_size = int(kv_page_size)
@@ -275,11 +279,18 @@ class LLMServer(SeldonComponent):
         weights; otherwise ``init_random=True`` draws them from a
         ``torch.Generator`` seeded with ``seed``. ``param_dtype`` "auto"
         stores the weights in the compute dtype, as the JAX package casts
-        them; "" keeps float32 storage with a cast per use."""
+        them; "" keeps float32 storage with a cast per use.
+
+        ``quantize="int8"`` quantizes after that cast, as the JAX package
+        orders it. A random or already-quantized (JAX ``quantize_params``
+        tree) model is quantized as a layout first, on the meta device, and
+        then filled leaf by leaf, so the float tree is never on the device:
+        at Llama-2-7B the peak is the int8 tree plus one float32 leaf. A
+        float JAX tree is loaded as floats and then quantized leaf by leaf."""
         if self.ready:
             return
         from seldon_core_tpu_torch.models import get_model
-        from seldon_core_tpu_torch.models.convert import params_from_jax
+        from seldon_core_tpu_torch.models.convert import has_quantized_leaves, params_from_jax
         from seldon_core_tpu_torch.models.transformer import (
             normalize_kv_cache_dtype, normalize_kv_cache_layout, to_torch_dtype)
 
@@ -287,19 +298,31 @@ class LLMServer(SeldonComponent):
         self.kv_cache_layout = normalize_kv_cache_layout(self.kv_cache_layout)
         if self.param_dtype and self.param_dtype != "auto":
             to_torch_dtype(self.param_dtype)  # ValueError on an unknown name
+        if self.quantize and self.quantize != "int8":
+            raise SeldonError(f"unsupported quantize={self.quantize!r} (int8 only)",
+                              status_code=500)
         if self.model_name is None:
             raise SeldonError("LLMServer needs model=<registry name>", status_code=500)
         if params is None and not self.init_random:
             raise SeldonError("No weights: pass init_random=True or load(params=...)",
                               status_code=500)
-        module = get_model(self.model_name, device=self.device,
+        quantized_tree = params is not None and has_quantized_leaves(params)
+        if quantized_tree and not self.quantize:
+            raise SeldonError("params hold int8 (quantized) leaves: load them with "
+                              "quantize='int8'", status_code=500)
+        layout_first = bool(self.quantize) and (params is None or quantized_tree)
+        module = get_model(self.model_name, device="meta" if layout_first else self.device,
                            param_dtype=self.param_dtype or None, **self.model_kwargs)
+        if layout_first:
+            module.quantize_().to_empty(device=self.device)
         if params is not None:
             params_from_jax(params, module)
         else:
             gen = torch.Generator(device=self.device)
             gen.manual_seed(self.seed)
             module.init_params(gen)
+        if self.quantize and not layout_first:
+            module.quantize_()
         module.eval()
         self._module = module
         self._cfg = module.cfg

@@ -8,7 +8,11 @@ and against itself, on the CPU at llama-tiny widths:
   mid-stream admission, chunked prefill) gives exactly ``generate()``'s
   greedy tokens, and a seeded sampled request gives ``generate(seed=)``'s;
 - page-pool exhaustion sheds the newest request with 503 and returns every
-  page; the stdlib REST server answers /ready and /v1/generate."""
+  page; the stdlib REST server answers /ready and /v1/generate;
+- int8 serving: greedy ``generate()`` equals JAX's for ``kv_cache_dtype=
+  "int8"``, ``quantize="int8"`` (weights from the JAX quantized tree) and
+  both; inside the port the int8 batcher equals ``generate()``, greedy and
+  seeded, with chunked prefill."""
 
 import json
 import threading
@@ -22,6 +26,7 @@ import torch
 import jax
 
 from seldon_core_tpu.servers.llmserver import LLMServer as JaxLLMServer
+from seldon_core_tpu_torch.contracts.payload import SeldonError
 from seldon_core_tpu_torch.runtime.batcher import ContinuousBatcher, PageAllocator
 from seldon_core_tpu_torch.runtime.resilience import ShedError
 from seldon_core_tpu_torch.servers.llmserver import LLMServer
@@ -267,8 +272,6 @@ def test_rest_generate_and_ready(jax_params):
     (dict(prefix_cache_size=4), "prefix"),
     (dict(lora_rank=4), "LoRA"),
     (dict(tensor_parallel=2), "parallelism"),
-    (dict(quantize="int8"), "int8"),
-    (dict(kv_cache_dtype="int8"), "int8-KV"),
     (dict(decode_fuse_steps=4), "decode_fuse_steps"),
 ])
 def test_later_slice_knobs_raise(kw, slice_name):
@@ -286,3 +289,67 @@ def test_rest_app_device_defaults_to_cuda(monkeypatch, server):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="cuda"):
         make_component_app(server)
+
+
+INT8_KNOBS = {"kv": dict(kv_cache_dtype="int8"), "weights": dict(quantize="int8"),
+              "both": dict(kv_cache_dtype="int8", quantize="int8")}
+
+
+@pytest.fixture(scope="module", params=sorted(INT8_KNOBS))
+def int8_pair(request):
+    """(JAX server, port server) with the same int8 knobs: the port's
+    weights are the JAX server's params (its quantized tree, for
+    quantize='int8') through params_from_jax."""
+    knobs = INT8_KNOBS[request.param]
+    js = JaxLLMServer(init_random=True, temperature=0.0, **COMMON, **knobs)
+    js.load()
+    tree = {"params": jax.tree_util.tree_map(np.asarray, js._params["params"])}
+    return request.param, js, port_server(tree, temperature=0.0, **knobs)
+
+
+def test_int8_generate_equals_jax(int8_pair):
+    _, jserver, server = int8_pair
+    assert server.generate(PROMPTS)["tokens"] == jserver.generate(PROMPTS)["tokens"]
+
+
+def test_int8_batcher_greedy_equals_generate(int8_pair):
+    """The int8 knobs through the paged batcher (chunked prefill over three
+    chunks, mid-stream admission) give generate()'s tokens exactly."""
+    _, _, server = int8_pair
+    expected = [server.generate([p])["tokens"][0] for p in PROMPTS]
+    outs, pages, _ = run_batch(server, PROMPTS, max_slots=2, prefill_chunk=8)
+    assert outs == expected
+    assert pages["kv_pages_in_use"] == 0
+
+
+def test_int8_batcher_seeded_equals_generate_seed(jax_params):
+    server = port_server(jax_params[1], temperature=0.8, top_k=20, quantize="int8",
+                         kv_cache_dtype="int8")
+    seeds = [42, 1234, 7]
+    expected = [server.generate([p], seed=sd)["tokens"][0] for p, sd in zip(PROMPTS, seeds)]
+    outs, _, _ = run_batch(server, PROMPTS, seeds=seeds, max_slots=3, prefill_chunk=8)
+    assert outs == expected
+
+
+def test_int8_server_random_init_equals_quantized_float_tree(jax_params):
+    """Random init with quantize='int8' builds the int8 layout first and
+    fills it leaf by leaf; the weights equal the float model's, drawn from
+    the same seed, quantized afterwards."""
+    s = LLMServer(device="cpu", init_random=True, quantize="int8", **COMMON)
+    s.load()
+    f = LLMServer(device="cpu", init_random=True, **COMMON)
+    f.load()
+    f._module.quantize_()
+    a, b = s._module.state_dict(), f._module.state_dict()
+    assert list(a) == list(b) and all(torch.equal(a[n], b[n]) for n in a)
+    assert not any(p.dtype == torch.float32 and p.dim() >= 2 for p in s._module.parameters())
+
+
+def test_quantize_knob_validation(jax_params):
+    with pytest.raises(SeldonError, match="int8 only"):
+        LLMServer(device="cpu", quantize="bogus", init_random=True, **COMMON).load()
+    jq = JaxLLMServer(init_random=True, quantize="int8", **COMMON)
+    jq.load()
+    tree = {"params": jax.tree_util.tree_map(np.asarray, jq._params["params"])}
+    with pytest.raises(SeldonError, match="quantize='int8'"):
+        port_server(tree)  # int8 leaves into a float server

@@ -68,6 +68,9 @@ def test_plain_matches_jax(seed, oracle):
 
 
 def test_plain_wrapper_counts_no_launch_and_rejects_prefill_and_int8():
+    """The plain version launches nothing; the wrapper rejects a prefill
+    query (s > 1) and a cache that is neither the bf16 triple nor the int8
+    5-tuple."""
     q, (k, v, pos), bt, qpos = make_case(0)
     cache = tuple(torch.from_numpy(a) for a in (k, v, pos))
     before = port.paged_attention.launches
@@ -77,8 +80,8 @@ def test_plain_wrapper_counts_no_launch_and_rejects_prefill_and_int8():
     with pytest.raises(ValueError):
         port.paged_attention(torch.zeros((B, 2, H, HD)), cache, torch.from_numpy(bt),
                              torch.from_numpy(qpos))
-    with pytest.raises(NotImplementedError):
-        port.paged_attention(torch.from_numpy(q), cache + (None, None),
+    with pytest.raises(ValueError, match="5-tuple"):
+        port.paged_attention(torch.from_numpy(q), cache + (None,),
                              torch.from_numpy(bt), torch.from_numpy(qpos))
 
 

@@ -193,7 +193,6 @@ def test_kv_bytes_per_token_matches_jax():
 
 @pytest.mark.parametrize("kw,what", [
     (dict(n_experts=4), "MoE"),
-    (dict(kv_cache_dtype="int8"), "int8"),
     (dict(attention_impl="ring"), "ring"),
 ])
 def test_later_slices_raise(kw, what):
@@ -205,8 +204,17 @@ def test_adapters_raise(models):
     _, _, tmod, _ = models
     with pytest.raises(NotImplementedError, match="LoRA"):
         tmod(torch.zeros((1, 2), dtype=torch.int64), adapters={}, adapter_ids=None)
-    with pytest.raises(NotImplementedError, match="int8"):
-        tt.init_paged_kv_caches(tmod.cfg, 4, PS, "int8", device="cpu")
+
+
+@pytest.mark.parametrize("kvd", ["bf16", "int8"])
+def test_dense_multi_token_per_sequence_write_raises(models, kvd):
+    """The s > 1 per-sequence dense write (the speculative verify step) is
+    a later slice's, for either cache dtype."""
+    _, _, tmod, _ = models
+    cache = tt.init_kv_caches(tmod.cfg, 1, 8, kvd, device="cpu")
+    with pytest.raises(NotImplementedError, match="speculative"):
+        tmod(torch.zeros((1, 2), dtype=torch.int64), positions=torch.tensor([[0, 1]]),
+             caches=cache, cache_index=torch.tensor([0]))
 
 
 def test_registry_names():
