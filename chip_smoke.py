@@ -17,7 +17,9 @@ Phases (any failure exits non-zero; nothing swallows an error):
    PyTorch call computes the same function, that call's: K1 paged attention
    over a bf16 and an int8 pool, K2 fused residual + RMSNorm, K4 the int8
    GEMM at every decode shape of the int8 7B model and at a 256-row
-   prefill chunk;
+   prefill chunk, K3 the folded-BN identity bottleneck chain at the four
+   ResNet-50 chains at batch 128 (beside it, for information, the eager
+   cuDNN chain of the same blocks: several PyTorch calls);
 4. serving phase, twice — the port's REST server in-process on an ephemeral
    port, an LLMServer at Llama-2-7B widths and depth (random weights from a
    seed, fused_norm=True, paged continuous batching over 8 slots), 8
@@ -31,10 +33,25 @@ Phases (any failure exits non-zero; nothing swallows an error):
    prompt is re-run through the private generate() and must give the same
    greedy tokens up to the first near-tie. The int8 run's device memory
    after load() must stay under INT8_LOAD_PEAK_GB: the int8 weights plus
-   one float32 leaf.
+   one float32 leaf;
+5. ResNet-50 forward phase — the folded model at full width and depth
+   (random live weights from a seed: no residual branch is switched off),
+   a forward at batch 128 through K3 (12 launches, one per identity block)
+   against the same weights through the cuDNN chain (pallas_stages=()),
+   within FWD_TOL of max|logit|, top-1 equal but for near-ties; device time
+   per forward, images/s, peak device memory;
+6. predict serving phase — the same weights written with the port's
+   export_checkpoint(use_orbax=False), a TorchServer built as the CLI builds
+   it (PREDICTIVE_UNIT_PARAMETERS, device="cuda"), the port's REST server
+   in-process: 4 concurrent POST /api/v0.1/predictions of 8 images (tensor
+   encoding) and one POST /predict (ndarray). Every response is 200 with
+   the JAX package's names and meta, its logits within FWD_TOL of the
+   in-process forward on the same images; K3's launches, zeroed just before
+   the requests and read just after, are requests x 12 exactly.
 
 The line before the last is the kernel table as JSON (K1 over a bf16 pool,
-K1 over an int8 pool, K2, K4; K2's launches are the two runs' together);
+K1 over an int8 pool, K2, K3, K4; K2's launches are the two LLM runs'
+together, K3's the predict serving run's);
 the last line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 port's package beside it, the script exits non-zero and prints no result.
 """
@@ -75,6 +92,25 @@ K1_TOL_REASON = ("vs the plain version on float32 copies of the inputs (an int8 
 K4_RTOL = 1e-5
 K4_TOL_REASON = (f"vs the plain version: within {K4_RTOL} * (|x| @ |q*scale|) elementwise "
                  "(float32 summation order), + 1 bf16 ulp for bf16 out")
+# K3 is held against its plain version (float32 sums of the same bf16
+# products, rounded at the same hand-offs): the two sum in different
+# orders, so a hand-off may round to the neighbouring bf16 and carry into
+# later blocks; within n_blocks bf16 ulps of max|plain| elementwise.
+K3_TOL_REASON = ("vs the plain version: within n_blocks bf16 ulps of max|plain| elementwise "
+                 "(float32 sums in another order: a hand-off may round to the neighbouring "
+                 "bf16, once per block)")
+# ResNet-50 chains at batch 128: (H = W, C, F, identity blocks)
+RESNET50_CHAINS = [(56, 256, 64, 2), (28, 512, 128, 3), (14, 1024, 256, 5), (7, 2048, 512, 2)]
+RESNET_BATCH = 128
+K3_PER_FORWARD = sum(n for *_, n in RESNET50_CHAINS)
+# Whole ResNet-50: the K3 forward against the cuDNN forward on the same
+# weights. The two round differently (K3 rounds acc + bias once, cuDNN the
+# conv and then a bf16 bias add) through 12 blocks; logits within FWD_TOL of
+# max|logit|, top-1 equal wherever the reference's top two are further apart
+# than that.
+FWD_TOL = 0.03
+PREDICT_REQUESTS = 4
+PREDICT_BATCH = 8
 # int8 weights (6.74 GB at 7B) plus one float32 leaf (the 0.52 GB embedding)
 INT8_LOAD_PEAK_GB = 8.0
 
@@ -584,6 +620,244 @@ def serve(label: str, card: str, knobs: dict):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# ResNet-50: K3, the forward, predict serving
+# ---------------------------------------------------------------------------
+def live_blocks(c, f, n_blocks, g, dev):
+    """Folded identity blocks drawn from ``g`` with live residual branches:
+    weights at 1/sqrt(fan_in), biases normal(0.1), b1 positive so the 3x3
+    conv's zero padding differs from relu(b1); every w3 non-zero."""
+    import torch
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device=dev) * scale
+
+    blocks = []
+    for _ in range(n_blocks):
+        blk = dict(w1=rnd(c, f, scale=c ** -0.5).to(torch.bfloat16).contiguous(),
+                   b1=0.05 + 0.1 * torch.rand((f,), generator=g, device=dev),
+                   w2=rnd(3, 3, f, f, scale=(9 * f) ** -0.5).to(torch.bfloat16).contiguous(),
+                   b2=rnd(f, scale=0.1),
+                   w3=rnd(f, c, scale=0.5 * f ** -0.5).to(torch.bfloat16).contiguous(),
+                   b3=rnd(c, scale=0.1))
+        if blk["w3"].abs().max().item() == 0:
+            fail("K3 weights: a w3 is all zero (the residual branch would be switched off)")
+        blocks.append(blk)
+    return blocks
+
+
+def k3_case(hw, c, f, n_blocks, seed, flush):
+    """One ResNet-50 identity chain at batch 128 through K3, against its
+    plain version, with the eager cuDNN chain of the same blocks beside it."""
+    import torch
+
+    from seldon_core_tpu_torch.models.resnet_infer import bottleneck, conv_weight
+    from seldon_core_tpu_torch.ops.fused_resnet import fused_identity_chain, identity_chain_ref
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.relu(torch.randn((RESNET_BATCH, hw, hw, c), generator=g, device=dev))
+    x = x.to(torch.bfloat16)
+    blocks = live_blocks(c, f, n_blocks, g, dev)
+    label = f"K3 {hw}x{hw}x{c} F={f} x{n_blocks} blocks, B={RESNET_BATCH}"
+    before = fused_identity_chain.launches
+    out = fused_identity_chain(x, blocks)
+    torch.cuda.synchronize()
+    if fused_identity_chain.launches != before + n_blocks:
+        fail(f"{label}: the wrapper did not count its {n_blocks} launches")
+    ref = identity_chain_ref(x, blocks)
+    diff = (out.float() - ref.float()).abs()
+    tol = n_blocks * bf16_ulp(ref.float().abs().max()).item()
+    err = diff.max().item()
+    if not torch.isfinite(out.float()).all() or err > tol:
+        fail(f"{label}: max_abs_err {err} > {tol} ({K3_TOL_REASON})")
+    # the cuDNN chain: F.conv2d on channels-last bf16 operands, bf16 bias
+    # add, relu — the folded flax graph's numerics, several PyTorch calls
+    cud = [{"Conv_0": {"w": conv_weight(b["w1"].reshape(1, 1, c, f), dev, torch.bfloat16),
+                       "b": b["b1"].to(torch.bfloat16)},
+            "Conv_1": {"w": conv_weight(b["w2"], dev, torch.bfloat16),
+                       "b": b["b2"].to(torch.bfloat16)},
+            "Conv_2": {"w": conv_weight(b["w3"].reshape(1, 1, f, c), dev, torch.bfloat16),
+                       "b": b["b3"].to(torch.bfloat16)}} for b in blocks]
+
+    def cudnn_chain():
+        y = x
+        for blk in cud:
+            y = bottleneck(y, blk, 1)
+        return y
+
+    cudnn_err = (cudnn_chain().float() - ref.float()).abs().max().item()
+    del out, ref, diff
+    ms = time_ms(lambda: fused_identity_chain(x, blocks), flush)
+    plain_ms = time_ms(lambda: identity_chain_ref(x, blocks), flush)
+    cudnn_ms = time_ms(cudnn_chain, flush)
+    # one read and one write of the chain's activation, the weights (bf16)
+    # and biases (float32) once; two flops per multiply-add
+    nbytes = 2 * x.numel() * 2 + n_blocks * ((2 * c * f + 9 * f * f) * 2 + (2 * f + c) * 4)
+    flops = 2 * RESNET_BATCH * hw * hw * (2 * c * f + 9 * f * f) * n_blocks
+    bytes_s, flops_s = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S
+    return dict(err=err, tol=tol, cudnn_err=cudnn_err, ms=ms, plain_ms=plain_ms,
+                cudnn_ms=cudnn_ms, library_ms=None, bound_ms=max(bytes_s, flops_s) * 1e3,
+                bound_by="bytes" if bytes_s >= flops_s else "operations")
+
+
+def check_logits(label, got, ref):
+    """``got`` within FWD_TOL * max|ref| of ``ref``; top-1 equal in every row
+    whose reference top two are further apart than that bound."""
+    import torch
+
+    got, ref = got.float(), ref.float()
+    if got.shape != ref.shape or not torch.isfinite(got).all():
+        fail(f"{label}: logits {tuple(got.shape)} not finite or not shaped {tuple(ref.shape)}")
+    bound = FWD_TOL * ref.abs().max().item()
+    err = (got - ref).abs().max().item()
+    if err > bound:
+        fail(f"{label}: max |logit diff| {err:.4g} > {FWD_TOL} x max|logit| = {bound:.4g}")
+    top2 = ref.topk(2, dim=-1).values
+    clear = (top2[:, 0] - top2[:, 1]) > bound
+    agree = got.argmax(-1) == ref.argmax(-1)
+    if (clear & ~agree).any():
+        fail(f"{label}: top-1 differs in a row whose reference margin exceeds {bound:.4g}")
+    return err, bound, int(clear.sum()), int((agree & clear).sum())
+
+
+def resnet_forward_phase(card):
+    """ResNet-50 folded at full width and depth, live seeded weights, a
+    forward at batch 128 through K3 and through the cuDNN chain."""
+    import torch
+
+    from seldon_core_tpu_torch.models import get_model
+    from seldon_core_tpu_torch.models.resnet_infer import resnet_serve_forward
+    from seldon_core_tpu_torch.ops.fused_resnet import fused_identity_chain
+
+    dev = torch.device("cuda")
+    torch.cuda.reset_peak_memory_stats()
+    model = get_model("resnet50", fused=True, device="cuda")
+    model.init_params(torch.Generator(device=dev).manual_seed(50))
+    for i, blk in enumerate(model.blocks()):
+        if blk.Conv_2.kernel.abs().max().item() == 0:
+            fail(f"ResNet-50 weights: BottleneckBlock_{i} Conv_2 is all zero")
+    g = torch.Generator(device=dev).manual_seed(51)
+    x = torch.randn((RESNET_BATCH, 224, 224, 3), generator=g, device=dev)
+    with torch.no_grad():
+        fused_identity_chain.launches = 0
+        logits = model(x)
+        torch.cuda.synchronize()
+        launches = fused_identity_chain.launches
+        if launches != K3_PER_FORWARD:
+            fail(f"ResNet-50 forward launched K3 {launches} times, expected {K3_PER_FORWARD}")
+        ref = resnet_serve_forward(model, x, pallas_stages=())
+        err, bound, clear, agree = check_logits("ResNet-50 K3 vs cuDNN forward", logits, ref)
+        ms = time_ms(lambda: model(x))
+        cudnn_ms = time_ms(lambda: resnet_serve_forward(model, x, pallas_stages=()))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"ResNet-50 folded forward, B={RESNET_BATCH} 224x224x3 bf16, random live weights: "
+          f"K3 forward {ms:.3f} ms = {RESNET_BATCH / ms * 1e3:.1f} images/s ({launches} K3 "
+          f"launches per forward); cuDNN-chain forward (pallas_stages=()) {cudnn_ms:.3f} ms = "
+          f"{RESNET_BATCH / cudnn_ms * 1e3:.1f} images/s; max |logit diff| {err:.4g} (bound "
+          f"{bound:.4g} = {FWD_TOL} x max|logit|), top-1 equal in {agree} of {clear} rows with a "
+          f"clear margin; peak device memory {peak_gb:.2f} GB [{card}]", flush=True)
+    return model, dict(ms=ms, cudnn_ms=cudnn_ms, err=err, peak_gb=peak_gb)
+
+
+def resnet_serving_phase(card, model):
+    """The folded ResNet-50 through the port's predict path: checkpoint ->
+    TorchServer (as the CLI builds it) -> REST /api/v0.1/predictions and
+    /predict. Returns K3's launches during the requests."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from seldon_core_tpu_torch.contracts.parameters import parse_parameters
+    from seldon_core_tpu_torch.ops.fused_resnet import fused_identity_chain
+    from seldon_core_tpu_torch.servers.torchserver import TorchServer, export_checkpoint
+    from seldon_core_tpu_torch.transport.rest import make_component_app, start
+
+    with tempfile.TemporaryDirectory(prefix="resnet50-ckpt-") as ckpt:
+        t0 = time.perf_counter()
+        export_checkpoint(ckpt, "resnet50", {"params": model.param_tree()},
+                          kwargs={"fused": True}, input_shape=[224, 224, 3], use_orbax=False)
+        export_s = time.perf_counter() - t0
+        unit_params = json.dumps([{"name": "model_uri", "value": ckpt, "type": "STRING"}])
+        t0 = time.perf_counter()
+        server = TorchServer(device="cuda", **parse_parameters(unit_params))
+        server.load()
+        load_s = time.perf_counter() - t0
+    rng = np.random.default_rng(7)
+    images = [np.round(rng.standard_normal((PREDICT_BATCH, 224, 224, 3)), 2).astype(np.float32)
+              for _ in range(PREDICT_REQUESTS)]
+    single = np.round(rng.standard_normal((1, 224, 224, 3)), 2).astype(np.float32)
+    bodies = [{"meta": {"puid": f"req-{i}"},
+               "data": {"tensor": {"shape": list(im.shape), "values": im.ravel().tolist()}}}
+              for i, im in enumerate(images)]
+    single_body = {"meta": {"puid": "req-nd"}, "data": {"ndarray": single.tolist()}}
+    httpd, _ = start(make_component_app(server, device="cuda"))
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    results, walls = [None] * PREDICT_REQUESTS, [None] * PREDICT_REQUESTS
+    try:
+        code, body = post(url + "/api/v0.1/predictions", bodies[0])   # warm-up, not counted
+        if code != 200:
+            fail(f"predict warm-up answered {code}: {body}")
+        torch.cuda.synchronize()
+
+        def client(i):
+            t = time.perf_counter()
+            results[i] = post(url + "/api/v0.1/predictions", bodies[i])
+            walls[i] = time.perf_counter() - t
+
+        fused_identity_chain.launches = 0
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(i,)) for i in range(PREDICT_REQUESTS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+        t1 = time.perf_counter()
+        nd = post(url + "/predict", single_body)
+        nd_wall = time.perf_counter() - t1
+        launches = fused_identity_chain.launches
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    n_requests = PREDICT_REQUESTS + 1
+    if launches != n_requests * K3_PER_FORWARD:
+        fail(f"predict serving: K3 launched {launches} times for {n_requests} requests, "
+             f"expected {n_requests} x {K3_PER_FORWARD}")
+    names = [f"t:{i}" for i in range(1000)]
+    for i, (res, im) in enumerate(zip(results + [nd], images + [single])):
+        if res is None:
+            fail(f"predict request {i} did not complete")
+        code, body = res
+        if code != 200:
+            fail(f"predict request {i} answered {code}: {body}")
+        data = body.get("data", {})
+        enc = "ndarray" if i == PREDICT_REQUESTS else "tensor"
+        if enc not in data or data.get("names") != names:
+            fail(f"predict request {i}: expected {enc} data with names t:0..t:999, got keys "
+                 f"{sorted(data)}")
+        puid = "req-nd" if i == PREDICT_REQUESTS else f"req-{i}"
+        if body.get("meta", {}).get("puid") != puid:
+            fail(f"predict request {i}: meta {body.get('meta')} does not echo puid {puid}")
+        got = (np.asarray(data["ndarray"]) if enc == "ndarray"
+               else np.asarray(data["tensor"]["values"]).reshape(data["tensor"]["shape"]))
+        if got.shape != (im.shape[0], 1000):
+            fail(f"predict request {i}: logits shaped {got.shape}")
+        with torch.no_grad():
+            want = model(torch.from_numpy(im).cuda())
+        check_logits(f"predict request {i} vs the in-process forward",
+                     torch.from_numpy(got), want.cpu())
+    print(f"predict serving (ResNet-50 folded, TorchServer from a msgpack checkpoint: export "
+          f"{export_s:.2f} s, load {load_s:.2f} s): {PREDICT_REQUESTS} concurrent POST "
+          f"/api/v0.1/predictions of {PREDICT_BATCH} images (tensor JSON) in "
+          f"{max(walls):.3f} s, request latency median {statistics.median(walls) * 1e3:.1f} ms "
+          f"max {max(walls) * 1e3:.1f} ms; POST /predict of 1 image (ndarray JSON) "
+          f"{nd_wall * 1e3:.1f} ms; K3 launches {launches} = {n_requests} requests x "
+          f"{K3_PER_FORWARD}; every response 200 with names t:0..t:999, puid echoed, logits "
+          f"within {FWD_TOL} x max|logit| of the in-process forward [{card}]", flush=True)
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -686,6 +960,21 @@ def main() -> int:
     print(f"K4 over one int8 decode step's {K4_PER_FORWARD} products (from the shapes above): "
           f"kernel {step_sum('ms'):.3f} ms, bound {step_sum('bound_ms'):.3f} ms, "
           f"torch.matmul on bf16 weights {step_sum('library_ms'):.3f} ms [{card}]", flush=True)
+    k3 = {}
+    for hw, c, f, n in RESNET50_CHAINS:
+        r = k3_case(hw, c, f, n, seed=hw, flush=flush)
+        k3[hw] = r
+        print(f"K3 fused_identity_chain {hw}x{hw}x{c} F={f} x{n} blocks, B={RESNET_BATCH} bf16: "
+              f"kernel_ms {r['ms']:.4f} plain_ms {r['plain_ms']:.4f} bound_ms "
+              f"{r['bound_ms']:.4f} ({r['bound_by']}) library_ms null (no single PyTorch "
+              f"call); the eager cuDNN chain (F.conv2d + bf16 bias + relu, {3 * n} convs: "
+              f"several calls) {r['cudnn_ms']:.4f} ms, its max diff from the plain version "
+              f"{r['cudnn_err']:.3e}; max_abs_err {r['err']:.3e} <= tolerance {r['tol']:.3e} "
+              f"({K3_TOL_REASON}) [{card}]", flush=True)
+    print(f"K3 over one ResNet-50 forward's {K3_PER_FORWARD} identity blocks at B="
+          f"{RESNET_BATCH}: kernel {sum(r['ms'] for r in k3.values()):.3f} ms, bound "
+          f"{sum(r['bound_ms'] for r in k3.values()):.3f} ms, cuDNN chain "
+          f"{sum(r['cudnn_ms'] for r in k3.values()):.3f} ms [{card}]", flush=True)
     del scratch
 
     # 4. serving phase: bf16, then int8 weights + int8 KV once the first is freed
@@ -695,6 +984,13 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     int8_launches = serve("int8", card, dict(quantize="int8", kv_cache_dtype="int8"))
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 5. ResNet-50 forward; 6. predict serving
+    model, _ = resnet_forward_phase(card)
+    k3_launches = resnet_serving_phase(card, model)
+    del model
 
     def entry(name, route, source, replaces, launches, r):
         return {"name": name, "route": route, "source": source, "replaces": replaces,
@@ -714,6 +1010,8 @@ def main() -> int:
         entry("fused_residual_rmsnorm", "triton", "seldon_core_tpu_torch/ops/fused_norm.py",
               "seldon_core_tpu/ops/fused_norm.py:137",
               bf16_launches["k2"] + int8_launches["k2"], k2[8]),
+        entry("fused_identity_chain", "cuda", "seldon_core_tpu_torch/csrc/fused_resnet.cu",
+              "seldon_core_tpu/ops/fused_resnet.py:239", k3_launches, k3[56]),
         entry("int8_matmul", "cuda", "seldon_core_tpu_torch/csrc/int8_matmul.cu",
               "seldon_core_tpu/ops/pallas_int8.py:127", int8_launches["k4"],
               k4["wq/wk/wv/wo"]),

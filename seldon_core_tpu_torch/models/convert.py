@@ -8,6 +8,11 @@ port keeps flax's names and layout — ``{"layer_0": {"attention": {"wq":
 shape, no transpose. Names and shapes are checked both ways: a JAX leaf the
 module has no parameter for, or a parameter the tree does not fill, raises.
 
+A ResNet tree crosses the same way: a folded ``{"params": ...}`` tree, or
+an unfused ``{"params", "batch_stats"}`` tree whose running statistics fill
+the BatchNorm buffers (``bn_init.mean`` is ``batch_stats["bn_init"]
+["mean"]``).
+
 A weight-only int8 tree (the JAX package's ``quantize_params``, passed
 through ``jax.tree_util.tree_map(np.asarray, ...)``) carries leaves with
 ``.q``, ``.scale`` and ``.orig_dtype``. The port cannot import that class,
@@ -25,6 +30,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from seldon_core_tpu_torch.models.resnet import BatchNorm
 from seldon_core_tpu_torch.models.transformer import to_torch_dtype
 from seldon_core_tpu_torch.ops.quantize import QuantizedTensor
 
@@ -45,28 +51,39 @@ def _is_quantized_leaf(leaf) -> bool:
 
 
 def _unwrap(tree: Dict[str, Any]) -> Dict[str, Any]:
-    """The bare params dict of ``tree`` (flax's ``{"params": ...}`` or the
-    dict itself); a ``"params_axes"`` entry (logical-axis metadata, no
-    weights) is skipped."""
+    """The flat leaves of ``tree``: flax's variables dict (``{"params":
+    ...}``, plus ``"batch_stats"`` for a BatchNorm model, whose leaves join
+    the params under the same module path) or the bare params dict; a
+    ``"params_axes"`` entry (logical-axis metadata, no weights) is
+    skipped."""
     if "params" in tree and isinstance(tree["params"], dict):
-        extra = set(tree) - {"params", "params_axes"}
+        extra = set(tree) - {"params", "params_axes", "batch_stats"}
         if extra:
             raise KeyError(f"unexpected top-level collections {sorted(extra)}")
-        return tree["params"]
-    return tree
+        flat = _flatten(tree["params"])
+        stats = _flatten(tree.get("batch_stats", {}))
+        clash = sorted(set(flat) & set(stats))
+        if clash:
+            raise KeyError(f"batch_stats leaves shadow params: {clash}")
+        flat.update(stats)
+        return flat
+    return _flatten(tree)
 
 
 def has_quantized_leaves(tree: Dict[str, Any]) -> bool:
     """True when the JAX tree holds weight-only int8 leaves."""
-    return any(_is_quantized_leaf(v) for v in _flatten(_unwrap(tree)).values())
+    return any(_is_quantized_leaf(v) for v in _unwrap(tree).values())
 
 
 def _copy(name: str, dst: torch.Tensor, src) -> None:
-    arr = np.asarray(src)
-    if tuple(arr.shape) != tuple(dst.shape):
-        raise ValueError(f"{name}: JAX shape {tuple(arr.shape)} != port shape "
+    """``src`` (a numpy array, or a tensor — the checkpoint reader gives
+    bfloat16 leaves as tensors) into ``dst``, cast to its dtype."""
+    if not isinstance(src, torch.Tensor):
+        src = torch.from_numpy(np.array(np.asarray(src), dtype=np.float32))
+    if tuple(src.shape) != tuple(dst.shape):
+        raise ValueError(f"{name}: JAX shape {tuple(src.shape)} != port shape "
                          f"{tuple(dst.shape)}")
-    dst.copy_(torch.from_numpy(np.array(arr, dtype=np.float32)))
+    dst.copy_(src)
 
 
 @torch.no_grad()
@@ -75,10 +92,14 @@ def params_from_jax(tree: Dict[str, Any], module: nn.Module) -> nn.Module:
     parameter's own storage dtype and device; each int8 leaf's ``q`` and
     ``scale`` into the quantized weight of the same name) and return the
     module. ``tree`` is either the bare params dict or flax's variables
-    dict ``{"params": ...}``."""
-    flat = _flatten(_unwrap(tree))
+    dict ``{"params": ...}`` (with ``"batch_stats"`` for an unfused
+    ResNet, whose running statistics fill its BatchNorm buffers)."""
+    flat = _unwrap(tree)
     targets: Dict[str, Any] = dict(module.named_parameters())
     targets.update((n, m) for n, m in module.named_modules() if isinstance(m, QuantizedTensor))
+    for name, m in module.named_modules():
+        if isinstance(m, BatchNorm):
+            targets.update((f"{name}.{b}", getattr(m, b)) for b in ("mean", "var"))
     leftover = sorted(set(flat) - set(targets))
     if leftover:
         raise KeyError(f"JAX params with no counterpart in the port: {leftover}")

@@ -1,0 +1,189 @@
+"""TorchServer: the port's counterpart of the JAX package's ``JAXServer``
+(``seldon_core_tpu/servers/jaxserver.py``), selected for
+``UnitImplementation.JAX_SERVER`` by ``servers.make_prepackaged_server``.
+
+Checkpoint layout at ``model_uri`` (what the JAX package's
+``export_checkpoint(use_orbax=False)`` writes, and this module's
+``export_checkpoint`` too):
+
+    config.json     {"model": "<registry name>", "kwargs": {...},
+                     "input_shape": [...], "input_dtype": "float32",
+                     "class_names": [...]}
+    params.msgpack  flax-serialized variables ({"params": ...}, plus
+                    "batch_stats" for an unfused ResNet)
+
+Serving path: request ndarray -> cast to ``input_dtype`` -> pad the batch to
+its bucket -> the model's forward on ``device`` -> slice back to the true
+batch -> host numpy. For a folded ResNet the forward is
+``models/resnet_infer.resnet_serve_forward`` with every identity chain on
+the hand-written K3 kernel: ``JAXServer`` serves XLA's graph of the flax
+module, and the port, which has no XLA, runs its own eager forward, in
+which the kernel is how the chain is computed (``pallas_stages=()`` on the
+same weights is the cuDNN chain, the kernel's yardstick).
+
+The mesh/sharding, int8 and param-dtype knobs of ``JAXServer`` arrive with
+later slices: setting one raises ``NotImplementedError`` naming its slice.
+The port reads no orbax checkpoint (the card's machine has no orbax).
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import os
+import threading
+from typing import Any, Dict, Optional, Sequence
+
+import numpy as np
+import torch
+
+from seldon_core_tpu_torch import storage
+from seldon_core_tpu_torch.codec.staging import DEFAULT_BUCKETS, stage_to_device
+from seldon_core_tpu_torch.components.component import SeldonComponent
+from seldon_core_tpu_torch.contracts.payload import SeldonError
+from seldon_core_tpu_torch.device import resolve_device
+
+logger = logging.getLogger(__name__)
+
+_LATER = {
+    "mesh": "meshes and sharding arrive with the parallelism slice",
+    "topology": "meshes and sharding arrive with the parallelism slice",
+    "param_sharding_rules": "meshes and sharding arrive with the parallelism slice",
+    "strict_sharding": "meshes and sharding arrive with the parallelism slice",
+    "tensor_parallel": "tensor parallelism arrives with the parallelism slice",
+    "quantize": "int8 predict models arrive with the int8-predict slice",
+    "param_dtype": "load-time param casts arrive with the int8-predict slice",
+}
+
+
+class TorchServer(SeldonComponent):
+    """One model from a checkpoint directory, served on ``device`` (default
+    "cuda": raises without a card; "cpu" only when asked). Constructor
+    arguments are ``JAXServer``'s, plus ``device``. Where ``JAXServer``
+    runs XLA's graph of the flax module, a folded ResNet here runs the
+    port's eager forward with every identity chain on the K3 kernel;
+    ``resnet_infer.resnet_serve_forward(module, x, pallas_stages=())`` is
+    the same weights through the cuDNN chain."""
+
+    def __init__(
+        self,
+        model_uri: str = "",
+        model: Optional[str] = None,
+        mesh: Optional[Any] = None,
+        topology: Optional[Any] = None,
+        param_sharding_rules: Optional[Any] = None,
+        batch_buckets: Optional[Sequence[int]] = None,
+        strict_sharding: bool = False,
+        tensor_parallel: int = 0,
+        quantize: str = "",
+        param_dtype: str = "",
+        device: Optional[str] = None,
+        **kwargs: Any,
+    ):
+        super().__init__(**kwargs)
+        knobs = dict(mesh=mesh, topology=topology, param_sharding_rules=param_sharding_rules,
+                     strict_sharding=strict_sharding, tensor_parallel=int(tensor_parallel) > 1,
+                     quantize=quantize, param_dtype=param_dtype)
+        for name, value in knobs.items():
+            if value:
+                raise NotImplementedError(f"TorchServer({name}=...): {_LATER[name]} of the port")
+        self.model_uri = model_uri
+        self.model_name = model
+        self.device = resolve_device(device)
+        self.batch_buckets = tuple(batch_buckets) if batch_buckets else DEFAULT_BUCKETS
+        self.ready = False
+        self._module = None
+        self._config: Dict[str, Any] = {}
+        self._load_lock = threading.Lock()
+
+    # ------------------------------------------------------------------
+    def load(self) -> None:
+        """config.json -> ``get_model(name, **kwargs)`` on the device ->
+        params.msgpack -> ``params_from_jax``; for a folded model, the
+        serving operands are built here, not per request."""
+        with self._load_lock:
+            if self.ready:
+                return
+            from seldon_core_tpu_torch.models import get_model
+            from seldon_core_tpu_torch.models.checkpoint import load_params
+            from seldon_core_tpu_torch.models.convert import params_from_jax
+
+            path = storage.download(self.model_uri)
+            cfg_path = os.path.join(path, "config.json")
+            if not os.path.exists(cfg_path):
+                raise SeldonError(f"TorchServer checkpoint missing config.json at {path}",
+                                  status_code=500)
+            with open(cfg_path) as f:
+                self._config = json.load(f)
+            for key in ("quantize", "param_dtype"):
+                if self._config.get(key):
+                    raise NotImplementedError(f"config.json {key}: {_LATER[key]} of the port")
+            name = self.model_name or self._config["model"]
+            module = get_model(name, device=self.device, **self._config.get("kwargs", {}))
+            params_from_jax(load_params(path), module)
+            if getattr(module, "fused", False) and hasattr(module, "serving_operands"):
+                module.serving_operands(self.device)
+            self._apply_kwargs = self._config.get("apply_kwargs", {})
+            self._module = module
+            self.ready = True
+            logger.info("TorchServer loaded model %s from %s on %s", name, path, self.device)
+
+    # ------------------------------------------------------------------
+    def predict(self, X: np.ndarray, names: Sequence[str], meta: Optional[Dict] = None):
+        if not self.ready:
+            self.load()
+        arr = np.asarray(X)
+        if arr.dtype != self.input_dtype:
+            arr = arr.astype(self.input_dtype)
+        x, true_n = stage_to_device(arr, self.device, pad=True, buckets=self.batch_buckets)
+        with torch.no_grad():
+            out = self._module(x, **self._apply_kwargs)
+        if isinstance(out, tuple):
+            out = out[0]
+        return out[:true_n].float().cpu().numpy()
+
+    def class_names(self):
+        return self._config.get("class_names")
+
+    @property
+    def input_dtype(self) -> np.dtype:
+        """Declared request dtype from the checkpoint config."""
+        return np.dtype(self._config.get("input_dtype", "float32"))
+
+
+def export_checkpoint(
+    out_dir: str,
+    model: str,
+    params: Any,
+    kwargs: Optional[Dict[str, Any]] = None,
+    input_shape: Optional[Sequence[int]] = None,
+    input_dtype: str = "float32",
+    apply_kwargs: Optional[Dict[str, Any]] = None,
+    class_names: Optional[Sequence[str]] = None,
+    use_orbax: bool = False,
+) -> str:
+    """Write a checkpoint directory ``JAXServer`` and ``TorchServer`` both
+    serve: config.json plus params.msgpack in flax's encoding. ``params``
+    is a nested dict of arrays or tensors (flax's variables dict). The port
+    writes no orbax checkpoint: ``use_orbax=True`` raises."""
+    if use_orbax:
+        raise NotImplementedError("the port writes no orbax checkpoint (no orbax on the card's "
+                                  "machine): use use_orbax=False")
+    from seldon_core_tpu_torch.models.checkpoint import dumps
+
+    os.makedirs(out_dir, exist_ok=True)
+    cfg: Dict[str, Any] = {"model": model, "kwargs": kwargs or {}, "input_dtype": input_dtype}
+    if input_shape is not None:
+        cfg["input_shape"] = list(input_shape)
+    if apply_kwargs:
+        cfg["apply_kwargs"] = apply_kwargs
+    if class_names:
+        cfg["class_names"] = list(class_names)
+    with open(os.path.join(out_dir, "config.json"), "w") as f:
+        json.dump(cfg, f)
+    with open(os.path.join(out_dir, "params.msgpack"), "wb") as f:
+        f.write(dumps(params))
+    return out_dir
+
+
+__all__ = ["TorchServer", "export_checkpoint"]

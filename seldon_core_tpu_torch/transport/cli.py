@@ -2,10 +2,13 @@
 
 ``python -m seldon_core_tpu_torch.transport.cli microservice <ModelFile> REST
 --port N [--device cuda|cpu]`` imports class ``<ModelFile>`` from module
-``<ModelFile>`` in the working directory (or a dotted ``pkg.mod.Class``),
-constructs it with ``device=...``, loads it and serves it over REST. The
-model class must accept a ``device`` keyword (an ``LLMServer`` subclass
-passes ``**kwargs`` through). gRPC and the other subcommands of
+``<ModelFile>`` in the working directory (or a dotted ``pkg.mod.Class``,
+e.g. ``seldon_core_tpu_torch.servers.torchserver.TorchServer``), constructs
+it with ``device=...`` and the typed parameters of
+``PREDICTIVE_UNIT_PARAMETERS`` (``[{"name": "model_uri", "value": "/ckpt",
+"type": "STRING"}]``), loads it and serves it over REST. The model class
+must accept a ``device`` keyword (``TorchServer`` does; an ``LLMServer``
+subclass passes ``**kwargs`` through). gRPC and the other subcommands of
 ``seldon_core_tpu.transport.cli`` arrive with later slices.
 """
 
@@ -30,6 +33,23 @@ def import_interface(name: str):
     return getattr(module, class_name)
 
 
+def build_component(interface_name: str, device: str):
+    """Construct ``interface_name`` with ``device`` and the typed
+    ``PREDICTIVE_UNIT_PARAMETERS``, and load it."""
+    from seldon_core_tpu_torch.contracts.parameters import parse_parameters
+
+    klass = import_interface(interface_name)
+    parameters = parse_parameters()
+    try:
+        component = klass(device=device, **parameters)
+    except TypeError as e:
+        raise SystemExit(f"{interface_name}(device=..., **{sorted(parameters)}) failed: {e} — "
+                         f"the model class must accept a device keyword and the unit "
+                         f"parameters") from e
+    component.load()
+    return component
+
+
 def run_microservice(args: argparse.Namespace) -> None:
     from seldon_core_tpu_torch.transport.rest import make_component_app, serve
 
@@ -39,13 +59,7 @@ def run_microservice(args: argparse.Namespace) -> None:
     if api != "REST":
         raise SystemExit(f"API type {api} is not ported yet (REST only; gRPC arrives "
                          f"with a later slice)")
-    klass = import_interface(args.interface_name)
-    try:
-        component = klass(device=args.device)
-    except TypeError as e:
-        raise SystemExit(f"{args.interface_name}(device=...) failed: {e} — the model "
-                         f"class must accept a device keyword") from e
-    component.load()
+    component = build_component(args.interface_name, args.device)
     port = args.port or int(os.environ.get("PREDICTIVE_UNIT_SERVICE_PORT", "5000"))
     serve(make_component_app(component, device=args.device), host=args.host, port=port)
 

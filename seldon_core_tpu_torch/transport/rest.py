@@ -1,9 +1,13 @@
 """REST transport of the port, on the standard library's
 ``http.server.ThreadingHTTPServer`` (the card's machine has no aiohttp).
 
-Port of the LLM surface of ``seldon_core_tpu/transport/rest.py``: ``/ready``,
-``/live`` and ``/health/status``, and ``POST /v1/generate`` with the JSON
-request and response schema of the JAX package, non-streaming:
+Port of two surfaces of ``seldon_core_tpu/transport/rest.py``: ``/ready``,
+``/live`` and ``/health/status``; the one-model predict routes ``/predict``
+and ``/api/v0.1/predictions`` (GET and POST) — a SeldonMessage in, through
+``components/dispatch.predict``, a SeldonMessage out, with the JAX
+package's body forms (raw JSON, form field ``json=``, query ``?json=``) and
+its ``{"status": ...}`` error payload; and ``POST /v1/generate`` with the
+JSON request and response schema of the JAX package, non-streaming:
 
     {"prompt": str|[ids], "max_new_tokens": N, "seed": S}
         one prompt; with the component's ``continuous_batching`` on it joins
@@ -17,7 +21,8 @@ A per-request ``temperature`` takes the private generate() path (the batch
 decodes every slot at the server's temperature), as does a seeded prompt
 the slot cache cannot hold whole. A page-exhaustion shed answers 503 with a
 ``Retry-After`` header. Streaming (SSE), tenants, SLO classes and adapters
-arrive with later slices and are refused with a status naming the slice.
+arrive with later slices and are refused with a status naming the slice,
+as are multipart predict bodies (415) and the framed binary wire (501).
 """
 
 from __future__ import annotations
@@ -27,8 +32,10 @@ import logging
 import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Optional, Tuple
+from urllib.parse import parse_qs, urlsplit
 
-from seldon_core_tpu_torch.contracts.payload import SeldonError, Status
+from seldon_core_tpu_torch.components import dispatch
+from seldon_core_tpu_torch.contracts.payload import SeldonError, SeldonMessage, Status
 from seldon_core_tpu_torch.device import resolve_device
 from seldon_core_tpu_torch.runtime.resilience import ShedError
 
@@ -78,6 +85,43 @@ def _generate(component: Any, body: Any) -> dict:
     return out
 
 
+PREDICT_ROUTES = ("/predict", "/api/v0.1/predictions")
+CONTENT_TYPE_FRAME = "application/x-seldon-frame"
+
+
+def parse_request(content_type: str, body: bytes, query: str) -> Any:
+    """A predict request's JSON: the raw body, a form field ``json=``, or
+    the query's ``?json=`` (the JAX package's ``parse_request`` less
+    multipart)."""
+    ctype = (content_type or "").split(";")[0].strip().lower()
+    if ctype.startswith("multipart/"):
+        raise SeldonError("multipart predict bodies arrive with the engine slice of the port; "
+                          "send JSON", status_code=415)
+    if ctype == CONTENT_TYPE_FRAME:
+        raise SeldonError("the framed binary wire (application/x-seldon-frame) arrives with "
+                          "the native-edge slice of the port; send JSON", status_code=501)
+    text = body.decode("utf-8", errors="replace")
+    if ctype == "application/x-www-form-urlencoded" and text:
+        qs = parse_qs(text)
+        if "json" in qs:
+            return _json_loads(qs["json"][0])
+        # fall through: clients (curl -d) often send raw JSON under the
+        # default form content type
+    if text:
+        return _json_loads(text)
+    qs = parse_qs(query)
+    if "json" in qs:
+        return _json_loads(qs["json"][0])
+    raise SeldonError("Empty request body")
+
+
+def _json_loads(text: str) -> Any:
+    try:
+        return json.loads(text)
+    except json.JSONDecodeError as e:
+        raise SeldonError(f"Invalid JSON body: {e}")
+
+
 def _error(e: Exception) -> Tuple[int, dict, dict]:
     if isinstance(e, SeldonError):
         headers = {}
@@ -115,19 +159,37 @@ def make_component_app(component: Any, device: Optional[str] = None):
             self.end_headers()
             self.wfile.write(data)
 
+        def _not_found(self, path: str):
+            self._send(404, {"status": Status(404, f"no route {path}", "NOT_FOUND",
+                                              "FAILURE").to_dict()})
+
+        def _predict(self, raw: bytes, query: str):
+            try:
+                body = parse_request(self.headers.get("Content-Type", ""), raw, query)
+                msg = dispatch.predict(component, SeldonMessage.from_dict(body))
+                self._send(200, msg.to_dict())
+            except Exception as e:  # the request boundary: answer, keep serving
+                code, payload, headers = _error(e)
+                self._send(code, payload, headers)
+
         def do_GET(self):
-            if self.path in ("/ready", "/live", "/health/status"):
+            url = urlsplit(self.path)
+            if url.path in ("/ready", "/live", "/health/status"):
                 self._send(200, {"status": "ok"})
+            elif url.path in PREDICT_ROUTES:
+                self._predict(b"", url.query)
             else:
-                self._send(404, {"status": Status(404, f"no route {self.path}", "NOT_FOUND",
-                                                  "FAILURE").to_dict()})
+                self._not_found(url.path)
 
         def do_POST(self):
             length = int(self.headers.get("Content-Length") or 0)
             raw = self.rfile.read(length) if length else b""
-            if self.path != "/v1/generate":
-                self._send(404, {"status": Status(404, f"no route {self.path}", "NOT_FOUND",
-                                                  "FAILURE").to_dict()})
+            url = urlsplit(self.path)
+            if url.path in PREDICT_ROUTES:
+                self._predict(raw, url.query)
+                return
+            if url.path != "/v1/generate":
+                self._not_found(url.path)
                 return
             try:
                 try:
@@ -160,4 +222,4 @@ def start(app, host: str = "127.0.0.1", port: int = 0):
     return httpd, thread
 
 
-__all__ = ["make_component_app", "serve", "start"]
+__all__ = ["make_component_app", "parse_request", "serve", "start"]

@@ -1,11 +1,12 @@
 """The PyTorch port stands alone: it imports no JAX and nothing of the JAX
 package, and it never falls back to the CPU on its own.
 
-- a subprocess with ``jax`` and ``seldon_core_tpu`` blocked from import
-  imports every module of ``seldon_core_tpu_torch`` and serves one CPU
-  ``generate()``;
+- a subprocess with ``jax``, ``flax``, ``msgpack`` and ``seldon_core_tpu``
+  blocked from import imports every module of ``seldon_core_tpu_torch``,
+  serves one CPU ``generate()``, and writes, loads and serves a ResNet
+  checkpoint through ``TorchServer``;
 - an AST walk over the package and ``chip_smoke.py`` finds no import of
-  ``jax`` or ``seldon_core_tpu`` / ``seldon_core_tpu.*``;
+  ``jax``, ``flax``, ``msgpack`` or ``seldon_core_tpu`` / ``seldon_core_tpu.*``;
 - ``LLMServer()`` with no ``device`` raises when no CUDA device is present.
 """
 
@@ -23,7 +24,7 @@ PORT = REPO / "seldon_core_tpu_torch"
 
 BLOCKED_RUN = r"""
 import importlib, pkgutil, sys
-for name in ("jax", "jaxlib", "flax", "optax", "orbax", "seldon_core_tpu"):
+for name in ("jax", "jaxlib", "flax", "optax", "orbax", "msgpack", "seldon_core_tpu"):
     sys.modules[name] = None  # any import of these now raises ImportError
 import seldon_core_tpu_torch
 mods = [m.name for m in pkgutil.walk_packages(seldon_core_tpu_torch.__path__,
@@ -35,6 +36,18 @@ s = LLMServer(model="llama-tiny", init_random=True, max_new_tokens=4, eos_id=-1,
               len_buckets=(16,), batch_buckets=(1,), device="cpu")
 out = s.generate(["hi"])
 assert len(out["tokens"][0]) == 4, out
+import tempfile, numpy as np, torch
+from seldon_core_tpu_torch.models import get_model
+from seldon_core_tpu_torch.servers.torchserver import TorchServer, export_checkpoint
+m = get_model("resnet18", num_classes=5, fused=True, device="cpu")
+m.init_params(torch.Generator().manual_seed(0))
+with tempfile.TemporaryDirectory() as d:
+    export_checkpoint(d, "resnet18", {"params": m.param_tree()},
+                      kwargs={"num_classes": 5, "fused": True}, input_shape=[32, 32, 3])
+    srv = TorchServer(model_uri=d, device="cpu")
+    srv.load()
+x = np.random.default_rng(0).standard_normal((3, 32, 32, 3)).astype(np.float32)
+assert srv.predict(x, []).shape == (3, 5)
 print("OK", len(mods))
 """
 
@@ -45,7 +58,7 @@ def test_port_runs_with_jax_blocked():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-4000:]
     n_modules = int(proc.stdout.split()[-1])
-    assert n_modules >= 15, proc.stdout
+    assert n_modules >= 30, proc.stdout
 
 
 def _imports(path: Path):
@@ -60,7 +73,7 @@ def _imports(path: Path):
 
 def _forbidden(name: str) -> bool:
     root = name.split(".")[0]
-    return root in ("jax", "jaxlib", "flax", "seldon_core_tpu")
+    return root in ("jax", "jaxlib", "flax", "msgpack", "seldon_core_tpu")
 
 
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"],
@@ -72,11 +85,17 @@ def test_no_jax_or_jax_package_imports(path):
 
 def test_default_device_raises_without_cuda(monkeypatch):
     from seldon_core_tpu_torch.device import resolve_device
+    from seldon_core_tpu_torch.models import get_model
     from seldon_core_tpu_torch.servers.llmserver import LLMServer
+    from seldon_core_tpu_torch.servers.torchserver import TorchServer
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="cuda"):
         LLMServer(model="llama-tiny", init_random=True)
+    with pytest.raises(RuntimeError, match="cuda"):
+        TorchServer(model_uri="/nowhere")
+    with pytest.raises(RuntimeError, match="cuda"):
+        get_model("resnet50", fused=True)
     with pytest.raises(RuntimeError, match="cuda"):
         resolve_device(None)
     assert resolve_device("cpu") == torch.device("cpu")

@@ -12,7 +12,10 @@ kernel rounds its float32 result once; K2 (fused residual + RMSNorm, bf16)
 ``y`` bit-equal and ``o`` within one bf16 ulp; K4 (int8 GEMM, float32
 accumulation) within 1e-5 * (|x| @ |q * scale|) elementwise of the plain
 version, the reach of float32 summation order, plus one bf16 ulp for bf16
-output."""
+output; K3 (folded-BN identity bottleneck chain, bf16 hand-offs, float32
+sums) within n_blocks bf16 ulps of max|plain| elementwise — the plain
+version sums the same bf16 products in float32 in another order, so a
+hand-off may round to the neighbouring bf16, once per block."""
 
 import numpy as np
 import pytest
@@ -20,7 +23,7 @@ import torch
 
 from seldon_core_tpu_torch.models.transformer import (NULL_PAGE, PAD_POS, RESERVED_PAGES,
                                                       quantize_kv)
-from seldon_core_tpu_torch.ops import fused_norm, int8_matmul, paged_attention
+from seldon_core_tpu_torch.ops import fused_norm, fused_resnet, int8_matmul, paged_attention
 
 pytestmark = pytest.mark.cuda
 
@@ -278,3 +281,89 @@ def test_int8_batcher_on_card_runs_every_kernel(dev):
     assert fused_norm.fused_residual_rmsnorm.launches > k2
     assert int8_matmul.int8_matmul.launches > k4
     assert b.page_stats()["kv_pages_in_use"] == 0
+
+
+def _k3_case(dev, b, h, w, c, f, n_blocks, seed):
+    """bf16 activations (relu of a normal draw) and live folded blocks:
+    weights at 1/sqrt(fan_in), b1 > 0 so the 3x3 conv's zero padding
+    differs from relu(b1), every w3 non-zero."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device=dev) * scale
+
+    x = torch.relu(rnd(b, h, w, c)).to(torch.bfloat16)
+    blocks = []
+    for _ in range(n_blocks):
+        blk = dict(w1=rnd(c, f, scale=c ** -0.5).to(torch.bfloat16),
+                   b1=0.1 + 0.3 * torch.rand((f,), generator=g, device=dev),
+                   w2=rnd(3, 3, f, f, scale=(9 * f) ** -0.5).to(torch.bfloat16),
+                   b2=rnd(f, scale=0.1),
+                   w3=rnd(f, c, scale=f ** -0.5).to(torch.bfloat16),
+                   b3=rnd(c, scale=0.1))
+        assert blk["w3"].abs().max().item() > 0
+        blocks.append(blk)
+    return x, blocks
+
+
+def _k3_within(out, ref, n_blocks):
+    """n_blocks bf16 ulps of max|ref|, elementwise."""
+    tol = n_blocks * float(_bf16_ulp(np.array(ref.float().abs().max().item())))
+    return (out.float() - ref.float()).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("b,h,w,c,f,n_blocks", [
+    (2, 56, 56, 256, 64, 2), (2, 28, 28, 512, 128, 1), (2, 14, 14, 1024, 256, 1),
+    (3, 7, 7, 2048, 512, 2),   # the masked 49-pixel tile, the whole image per CTA
+    (2, 10, 40, 128, 64, 1),   # bands of 4 rows: the last one cut by the image's end
+    (1, 5, 9, 64, 128, 3),     # the whole image and its halo (7 x 9 pixels) in one CTA
+])
+def test_fused_resnet_kernel_matches_plain(dev, b, h, w, c, f, n_blocks):
+    x, blocks = _k3_case(dev, b, h, w, c, f, n_blocks, seed=h + c + f)
+    before = fused_resnet.fused_identity_chain.launches
+    out = fused_resnet.fused_identity_chain(x, blocks)
+    torch.cuda.synchronize()
+    assert fused_resnet.fused_identity_chain.launches == before + n_blocks
+    assert out.dtype == torch.bfloat16 and out.shape == x.shape
+    assert torch.isfinite(out.float()).all()
+    ref = fused_resnet.identity_chain_ref(x, blocks)
+    assert _k3_within(out, ref, n_blocks)
+    # each block alone, on the plain chain's input: within one ulp
+    xi = x
+    for blk in blocks:
+        want = fused_resnet.identity_chain_ref(xi, [blk])
+        assert _k3_within(fused_resnet.fused_identity_chain(xi, [blk]), want, 1)
+        xi = want
+
+
+def test_fused_resnet_kernel_tolerance_catches_faults(dev):
+    """The kernel run on a tap-swapped w2 (a kernel that read two taps in
+    each other's place) lands outside the tolerance, and so does the plain
+    chain with y1's halo filled with relu(b1) instead of zero."""
+    x, blocks = _k3_case(dev, 2, 14, 14, 256, 64, 1, seed=3)
+    ref = fused_resnet.identity_chain_ref(x, blocks)
+    taps = blocks[0]["w2"].reshape(9, 64, 64)
+    swapped = dict(blocks[0], w2=taps[[1, 0, 2, 3, 4, 5, 6, 7, 8]].reshape(3, 3, 64, 64))
+    assert not _k3_within(fused_resnet.fused_identity_chain(x, [swapped]), ref, 1)
+    blk = blocks[0]
+    xp = torch.nn.functional.pad(x.float(), (0, 0, 1, 1, 1, 1))
+    y1 = torch.relu(xp @ blk["w1"].float() + blk["b1"]).to(torch.bfloat16).float()
+    taps = [y1[:, i:i + 14, j:j + 14] for i in range(3) for j in range(3)]
+    y2 = torch.relu(torch.cat(taps, -1) @ blk["w2"].float().reshape(-1, 64) + blk["b2"])
+    y = (y2.to(torch.bfloat16).float() @ blk["w3"].float() + blk["b3"]).to(torch.bfloat16)
+    assert not _k3_within(torch.relu(x + y), ref, 1)
+
+
+def test_fused_resnet_kernel_rejects_what_it_does_not_take(dev):
+    x, blocks = _k3_case(dev, 1, 7, 7, 64, 64, 1, seed=0)
+    with pytest.raises(TypeError):
+        fused_resnet.fused_identity_chain(x.float(), blocks)
+    with pytest.raises(TypeError):   # an f32 weight: operands are prepared at load
+        fused_resnet.fused_identity_chain(x, [dict(blocks[0], w1=blocks[0]["w1"].float())])
+    with pytest.raises(ValueError):  # C not a multiple of 64
+        fused_resnet.fused_identity_chain(x[..., :32].contiguous(),
+                                          [dict(blocks[0], w1=blocks[0]["w1"][:32].contiguous(),
+                                                w3=blocks[0]["w3"][:, :32].contiguous(),
+                                                b3=blocks[0]["b3"][:32].contiguous())])
+    with pytest.raises(ValueError, match="not divisible"):
+        fused_resnet.fused_identity_chain(x, blocks, group=2)
