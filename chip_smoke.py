@@ -3,6 +3,7 @@
 kernel of that path against its plain PyTorch version.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --k4-sweep   # only: build, then K4's prefill tiles x splits
 
 Phases (any failure exits non-zero; nothing swallows an error):
 
@@ -16,8 +17,11 @@ Phases (any failure exits non-zero; nothing swallows an error):
    larger of bytes / 3.35 TB/s and flops / 989 TFLOP/s) and, where one
    PyTorch call computes the same function, that call's: K1 paged attention
    over a bf16 and an int8 pool, K2 fused residual + RMSNorm, K4 the int8
-   GEMM at every decode shape of the int8 7B model and at a 256-row
-   prefill chunk, K3 the folded-BN identity bottleneck chain at the four
+   GEMM at every decode shape of the int8 7B model (the decode kernel) and
+   at 128- and 256-row prefill chunks of wq, w1, w2 and the lm_head (the
+   prefill kernel, TMA + wgmma, timed in turns with the decode kernel
+   called through its own entry point at the same shape and with the
+   library call), K3 the folded-BN identity bottleneck chain at the four
    ResNet-50 chains at batch 128 (beside it, for information, the eager
    cuDNN chain of the same blocks: several PyTorch calls);
 4. serving phase, twice — the port's REST server in-process on an ephemeral
@@ -27,9 +31,11 @@ Phases (any failure exits non-zero; nothing swallows an error):
    first is freed, with quantize="int8" and kv_cache_dtype="int8". In each
    run every kernel's launch count is zeroed just before and read just
    after, and each kernel of that run's path must have run its expected
-   number of times; every served token is held against a teacher-forced
-   prefill over its request's prompt and served tokens through the same
-   KV numerics (within TIE_TOL of the top logit at every step), and one
+   number of times (int8: K4's prefill kernel 225 times per prefill chunk,
+   its decode kernel 225 times per decode step); every served token is
+   held against a teacher-forced prefill over its request's prompt and
+   served tokens through the same KV numerics (within TIE_TOL of the top
+   logit at every step), and one
    prompt is re-run through the private generate() and must give the same
    greedy tokens up to the first near-tie. The int8 run's device memory
    after load() must stay under INT8_LOAD_PEAK_GB: the int8 weights plus
@@ -50,8 +56,8 @@ Phases (any failure exits non-zero; nothing swallows an error):
    the requests and read just after, are requests x 12 exactly.
 
 The line before the last is the kernel table as JSON (K1 over a bf16 pool,
-K1 over an int8 pool, K2, K3, K4; K2's launches are the two LLM runs'
-together, K3's the predict serving run's);
+K1 over an int8 pool, K2, K3, K4's decode kernel, K4's prefill kernel; K2's
+launches are the two LLM runs' together, K3's the predict serving run's);
 the last line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 port's package beside it, the script exits non-zero and prints no result.
 """
@@ -155,34 +161,45 @@ def spin_cycles(ms: float) -> int:
     return int(ms * _SPIN_CYCLES_PER_MS[0])
 
 
-def time_ms(fn, flush=None) -> float:
-    """Device time of one call: median of REPS, CUDA events around the
-    call. ``flush`` runs outside the timed region before each call (evicts
-    the 50 MB L2). A spin kernel queued ahead of the start event, three
-    times longer than the host takes to enqueue the call, keeps the card
-    busy meanwhile, so host launch overhead does not count as device time."""
+def time_turns(fns, flush=None):
+    """Device time of one call of each of ``fns``, measured in turns (one
+    call of each per round, REPS rounds): the median per function, CUDA
+    events around each call, and the host time to enqueue one call
+    (after a warm-up). ``flush`` runs outside the timed region before each
+    call (evicts the 50 MB L2). A spin kernel queued ahead of the start
+    event, three times longer than the host takes to enqueue the call,
+    keeps the card busy meanwhile, so host launch overhead does not count
+    as device time. Returns [(ms, enqueue_ms)] in the order of ``fns``."""
     import torch
 
-    fn()  # warm-up (and any lazy compile)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    fn()
-    enqueue_ms = (time.perf_counter() - t0) * 1e3
-    torch.cuda.synchronize()
-    spin = spin_cycles(max(3 * enqueue_ms, 1.0))
-    times = []
-    for _ in range(REPS):
-        if flush is not None:
-            flush()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(spin)
-        start.record()
+    spins, enqueue = [], []
+    for fn in fns:
+        fn()  # warm-up (and any lazy compile)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+        enqueue.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        spins.append(spin_cycles(max(3 * enqueue[-1], 1.0)))
+    times = [[] for _ in fns]
+    for _ in range(REPS):
+        for fn, spin, ts in zip(fns, spins, times):
+            if flush is not None:
+                flush()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(spin)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            ts.append(start.elapsed_time(end))
+    return [(statistics.median(ts), e) for ts, e in zip(times, enqueue)]
+
+
+def time_ms(fn, flush=None) -> float:
+    """Device time of one call (``time_turns`` of one function)."""
+    return time_turns([fn], flush)[0][0]
 
 
 # ---------------------------------------------------------------------------
@@ -330,10 +347,14 @@ def k2_case(rows, d, seed, flush):
 def k4_case(m, k, n, out_dtype, seed, flush):
     """The int8 GEMM at one shape: bf16 activations, int8 codes and
     per-column scales of the size quantize_array gives a lecun-normal
-    weight."""
+    weight. M >= PREFILL_MIN_M takes the prefill kernel; there the decode
+    kernel is also run through its own entry point (uncounted: a
+    measurement, not a route the server takes), checked and timed in turns
+    with the prefill kernel and the library call."""
     import torch
 
-    from seldon_core_tpu_torch.ops.int8_matmul import int8_matmul, int8_matmul_ref
+    from seldon_core_tpu_torch.ops.int8_matmul import (PREFILL_MIN_M, _decode_kernel,
+                                                       int8_matmul, int8_matmul_ref)
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed)
@@ -341,35 +362,104 @@ def k4_case(m, k, n, out_dtype, seed, flush):
     q = torch.randint(-128, 128, (k, n), generator=g, device=dev, dtype=torch.int8)
     scale = (torch.rand((n,), generator=g, device=dev) + 0.5) * (2.0 / 127 / k ** 0.5)
     label = f"K4 [{m},{k}]x[{k},{n}] -> {str(out_dtype).split('.')[-1]}"
-    before = int8_matmul.launches
+    prefill = m >= PREFILL_MIN_M
+    before, before_wgmma = int8_matmul.launches, int8_matmul.launches_wgmma
     out = int8_matmul(x, q, scale, out_dtype)
     torch.cuda.synchronize()
     if int8_matmul.launches != before + 1:
         fail(f"{label}: the wrapper did not count its launch")
+    if int8_matmul.launches_wgmma != before_wgmma + int(prefill):
+        fail(f"{label}: expected the {'prefill' if prefill else 'decode'} kernel's route")
     ref = int8_matmul_ref(x, q, scale, torch.float32)
     tol = K4_RTOL * (x.float().abs() @ (q.float() * scale).abs())
     if out_dtype == torch.bfloat16:
         tol += bf16_ulp(ref)
-    diff = (out.float() - ref).abs()
-    if not torch.isfinite(out.float()).all() or (diff > tol).any():
-        fail(f"{label}: max_abs_err {diff.max().item()} beyond {K4_TOL_REASON}")
-    err = diff.max().item()
-    del ref, tol, diff
-    ms = time_ms(lambda: int8_matmul(x, q, scale, out_dtype), flush)
-    plain_ms = time_ms(lambda: int8_matmul_ref(x, q, scale, out_dtype), flush)
+
+    def check(got, what):
+        diff = (got.float() - ref).abs()
+        if not torch.isfinite(got.float()).all() or (diff > tol).any():
+            fail(f"{label} ({what}): max_abs_err {diff.max().item()} beyond {K4_TOL_REASON}")
+        return diff.max().item()
+
+    err = check(out, "prefill kernel" if prefill else "decode kernel")
+    decode_err = check(_decode_kernel(x, q, scale, torch.empty_like(out)),
+                       "decode kernel") if prefill else None
+    del ref, tol
     # library yardstick: torch.matmul on a bf16 copy of the dequantized
     # weight (made here, not timed) — the product K4 must beat at decode by
     # reading half the weight bytes
     w_bf16 = q.to(torch.bfloat16) * scale.to(torch.bfloat16)
-    library_ms = time_ms(lambda: torch.matmul(x, w_bf16), flush)
+    fns = [lambda: int8_matmul(x, q, scale, out_dtype), lambda: torch.matmul(x, w_bf16)]
+    if prefill:
+        fns.append(lambda: _decode_kernel(x, q, scale, torch.empty_like(out)))
+    timed = time_turns(fns, flush)
+    plain_ms = time_ms(lambda: int8_matmul_ref(x, q, scale, out_dtype), flush)
     # x, the int8 weight and its scales read once, the output written once;
     # two flops per multiply-add
     out_size = 4 if out_dtype == torch.float32 else 2
     nbytes = m * k * 2 + k * n + n * 4 + m * n * out_size
     bytes_s, flops_s = nbytes / HBM_BYTES_PER_S, 2 * m * n * k / BF16_FLOPS_PER_S
-    return dict(err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+    return dict(err=err, ms=timed[0][0], enqueue_ms=timed[0][1], plain_ms=plain_ms,
+                library_ms=timed[1][0], decode_err=decode_err,
+                decode_ms=timed[2][0] if prefill else None,
+                decode_enqueue_ms=timed[2][1] if prefill else None,
                 bound_ms=max(bytes_s, flops_s) * 1e3,
                 bound_by="bytes" if bytes_s >= flops_s else "operations")
+
+
+K4_FAMILIES = [("wq/wk/wv/wo", 4096, 4096, "bfloat16"), ("w1/w3", 4096, 11008, "bfloat16"),
+               ("w2", 11008, 4096, "bfloat16"), ("lm_head", 4096, 32000, "float32")]
+
+
+def k4_sweep(card, flush):
+    """K4's prefill kernel at each prefill shape of the int8 7B model
+    (M = 128 and 256) over its tile widths (128, 256) and splits of K, all
+    of one shape timed in turns; each configuration is first held to the
+    K4 tolerance. The wrapper's own choice is marked. Prints one line per
+    configuration."""
+    import torch
+
+    from seldon_core_tpu_torch.ops.int8_matmul import (WG_BK, WG_BM, WG_BNS, _wgmma_kernel,
+                                                       _wgmma_plan, int8_matmul_ref)
+
+    dev = torch.device("cuda")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for m in (128, 256):
+        for name, k, n, dt in K4_FAMILIES:
+            dt = getattr(torch, dt)
+            g = torch.Generator(device=dev).manual_seed(m + n)
+            x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+            q = torch.randint(-128, 128, (k, n), generator=g, device=dev, dtype=torch.int8)
+            scale = (torch.rand((n,), generator=g, device=dev) + 0.5) * (2.0 / 127 / k ** 0.5)
+            ref = int8_matmul_ref(x, q, scale, torch.float32)
+            tol = K4_RTOL * (x.float().abs() @ (q.float() * scale).abs())
+            if dt == torch.bfloat16:
+                tol += bf16_ulp(ref)
+            steps = -(-k // WG_BK)
+            configs = []
+            for bn in WG_BNS:
+                for s in (1, 2, 3, 4, 5, 6, 8):
+                    per = -(-steps // s)
+                    if (bn, -(-steps // per), per) not in configs:
+                        configs.append((bn, -(-steps // per), per))
+            pick = _wgmma_plan(m, n, k, sms)
+            for plan in configs:
+                out = _wgmma_kernel(x, q, scale, torch.empty((m, n), dtype=dt, device=dev), plan)
+                if (((out.float() - ref).abs() > tol).any() or
+                        not torch.isfinite(out.float()).all()):
+                    fail(f"K4 sweep {name} M={m} (BN, splits, steps) {plan}: beyond "
+                         f"{K4_TOL_REASON}")
+            del ref, tol
+            timed = time_turns([
+                (lambda plan=plan: _wgmma_kernel(x, q, scale,
+                                                 torch.empty((m, n), dtype=dt, device=dev), plan))
+                for plan in configs], flush)
+            for (bn, s, per), (ms, _) in zip(configs, timed):
+                tiles = -(-m // WG_BM) * -(-n // bn)
+                print(f"K4 sweep {name} [{m},{k}]x[{k},{n}]: BN={bn} splits={s} ({per} steps "
+                      f"each, {tiles * s} CTAs) {ms:.4f} ms"
+                      f"{'  <- the wrapper picks this' if (bn, s, per) == pick else ''} [{card}]",
+                      flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -467,6 +557,7 @@ def serve(label: str, card: str, knobs: dict):
         paged_attention.launches_int8 = 0
         fused_residual_rmsnorm.launches = 0
         int8_matmul.launches = 0
+        int8_matmul.launches_wgmma = 0
         results = [None] * N_REQUESTS
 
         def client(i):
@@ -480,7 +571,8 @@ def serve(label: str, card: str, knobs: dict):
             t.join(600)
         wall = time.perf_counter() - t0
         launches = {"k1": paged_attention.launches, "k1_int8": paged_attention.launches_int8,
-                    "k2": fused_residual_rmsnorm.launches, "k4": int8_matmul.launches}
+                    "k2": fused_residual_rmsnorm.launches, "k4": int8_matmul.launches,
+                    "k4_wgmma": int8_matmul.launches_wgmma}
     finally:
         httpd.shutdown()
         httpd.server_close()
@@ -510,11 +602,19 @@ def serve(label: str, card: str, knobs: dict):
     if launches["k4"] != (K4_PER_FORWARD * forwards if quantized else 0):
         fail(f"[{label}] K4 launches {launches['k4']}: expected "
              f"{K4_PER_FORWARD if quantized else 0} x {forwards} forwards")
+    # every prefill chunk (128 rows) takes K4's prefill kernel, every decode
+    # step (8 rows) its decode kernel
+    k4_prefill = K4_PER_FORWARD * prefill_chunks if quantized else 0
+    if launches["k4_wgmma"] != k4_prefill:
+        fail(f"[{label}] K4 prefill-kernel launches {launches['k4_wgmma']} != {k4_prefill} "
+             f"({K4_PER_FORWARD if quantized else 0} x {prefill_chunks} prefill chunks)")
     print(f"[{label}] launches during the 8-request run: paged_attention ({k1_key}) "
           f"{k1_launches} ({decode_steps} decode steps x {n_layers} layers), "
           f"fused_residual_rmsnorm {launches['k2']} ({decode_steps} + {prefill_chunks} "
           f"forwards x {n_layers} layers), int8_matmul {launches['k4']} ({forwards} forwards "
-          f"x {K4_PER_FORWARD if quantized else 0})", flush=True)
+          f"x {K4_PER_FORWARD if quantized else 0}): prefill kernel {launches['k4_wgmma']} "
+          f"({prefill_chunks} chunks), decode kernel {launches['k4'] - launches['k4_wgmma']} "
+          f"({decode_steps} steps)", flush=True)
 
     svc = server._batcher_service
     pages = svc.batcher.page_stats()
@@ -902,6 +1002,10 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 print(f"  ptxas[{name}]: {line.strip()}")
+    if sys.argv[1:] == ["--k4-sweep"]:
+        scratch = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+        k4_sweep(card, lambda: scratch.fill_(1))
+        return 0
 
     # 3. kernel phase
     scratch = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
@@ -934,32 +1038,44 @@ def main() -> int:
               f"max_abs_err {r['err']:.3e} (y bit-equal, o within 1 bf16 ulp) [{card}]",
               flush=True)
     k4 = {}
-    bf16, f32 = torch.bfloat16, torch.float32
-    for label, (m, k, n, dt) in [
-        ("wq/wk/wv/wo", (8, 4096, 4096, bf16)),
-        ("w1/w3", (8, 4096, 11008, bf16)),
-        ("w2", (8, 11008, 4096, bf16)),
-        ("lm_head", (8, 4096, 32000, f32)),
-        ("w1 prefill", (256, 4096, 11008, bf16)),
-    ]:
-        r = k4_case(m, k, n, dt, seed=len(k4), flush=flush)
-        k4[label] = r
-        print(f"K4 int8_matmul {label} [{m},{k}]x[{k},{n}] -> {str(dt).split('.')[-1]}: "
-              f"kernel_ms {r['ms']:.4f} plain_ms {r['plain_ms']:.4f} bound_ms "
-              f"{r['bound_ms']:.4f} ({r['bound_by']}) library_ms {r['library_ms']:.4f} "
-              f"(torch.matmul on a dequantized bf16 copy of the weight) max_abs_err "
-              f"{r['err']:.3e} ({K4_TOL_REASON}) [{card}]", flush=True)
-    # one decode step's 225 products at 8 slots: 32 layers x (wq, wk, wv,
-    # wo, w1, w3, w2) + lm_head
+    for m in (8, 128, 256):   # 8 serving slots; a served prefill chunk; the default chunk
+        for name, k, n, dt in K4_FAMILIES:
+            label = name if m == 8 else f"{name} prefill M={m}"
+            dt = getattr(torch, dt)
+            r = k4_case(m, k, n, dt, seed=len(k4), flush=flush)
+            k4[label] = r
+            line = (f"K4 int8_matmul {label} [{m},{k}]x[{k},{n}] -> {str(dt).split('.')[-1]}: "
+                    f"kernel_ms {r['ms']:.4f} plain_ms {r['plain_ms']:.4f} bound_ms "
+                    f"{r['bound_ms']:.4f} ({r['bound_by']}) library_ms {r['library_ms']:.4f} "
+                    f"(torch.matmul on a dequantized bf16 copy of the weight) max_abs_err "
+                    f"{r['err']:.3e} ({K4_TOL_REASON})")
+            if r["decode_ms"] is not None:
+                line += (f"; prefill kernel (TMA + wgmma) vs the decode kernel at this shape, "
+                         f"in turns: {r['ms']:.4f} vs {r['decode_ms']:.4f} ms "
+                         f"({r['decode_ms'] / r['ms']:.2f}x faster), "
+                         f"{r['ms'] / r['library_ms']:.2f}x the library call, "
+                         f"{r['ms'] / r['bound_ms']:.2f}x the bound; decode kernel max_abs_err "
+                         f"{r['decode_err']:.3e}; host enqueue per call {r['enqueue_ms']:.4f} "
+                         f"vs {r['decode_enqueue_ms']:.4f} ms")
+            print(f"{line} [{card}]", flush=True)
+    # one forward's 225 products: 32 layers x (wq, wk, wv, wo, w1, w3, w2)
+    # + lm_head
     n_layers = LLAMA2_7B["n_layers"]
 
-    def step_sum(key):
-        return n_layers * (4 * k4["wq/wk/wv/wo"][key] + 2 * k4["w1/w3"][key]
-                           + k4["w2"][key]) + k4["lm_head"][key]
+    def step_sum(key, suffix=""):
+        return n_layers * (4 * k4["wq/wk/wv/wo" + suffix][key] + 2 * k4["w1/w3" + suffix][key]
+                           + k4["w2" + suffix][key]) + k4["lm_head" + suffix][key]
 
     print(f"K4 over one int8 decode step's {K4_PER_FORWARD} products (from the shapes above): "
           f"kernel {step_sum('ms'):.3f} ms, bound {step_sum('bound_ms'):.3f} ms, "
           f"torch.matmul on bf16 weights {step_sum('library_ms'):.3f} ms [{card}]", flush=True)
+    for m in (128, 256):
+        sfx = f" prefill M={m}"
+        print(f"K4 over one prefill forward's {K4_PER_FORWARD} products at M = {m} (from the "
+              f"shapes above): prefill kernel {step_sum('ms', sfx):.3f} ms, decode kernel "
+              f"{step_sum('decode_ms', sfx):.3f} ms, bound {step_sum('bound_ms', sfx):.3f} ms, "
+              f"torch.matmul on bf16 weights {step_sum('library_ms', sfx):.3f} ms [{card}]",
+              flush=True)
     k3 = {}
     for hw, c, f, n in RESNET50_CHAINS:
         r = k3_case(hw, c, f, n, seed=hw, flush=flush)
@@ -1013,8 +1129,12 @@ def main() -> int:
         entry("fused_identity_chain", "cuda", "seldon_core_tpu_torch/csrc/fused_resnet.cu",
               "seldon_core_tpu/ops/fused_resnet.py:239", k3_launches, k3[56]),
         entry("int8_matmul", "cuda", "seldon_core_tpu_torch/csrc/int8_matmul.cu",
-              "seldon_core_tpu/ops/pallas_int8.py:127", int8_launches["k4"],
-              k4["wq/wk/wv/wo"]),
+              "seldon_core_tpu/ops/pallas_int8.py:127",
+              int8_launches["k4"] - int8_launches["k4_wgmma"], k4["wq/wk/wv/wo"]),
+        entry("int8_matmul (prefill, wgmma)", "cuda",
+              "seldon_core_tpu_torch/csrc/int8_matmul_wgmma.cu",
+              "seldon_core_tpu/ops/pallas_int8.py:127", int8_launches["k4_wgmma"],
+              k4["w1/w3 prefill M=128"]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,5 @@
-"""Int8 weight-only matmul (W8A16 GEMM): a CUDA C++ kernel for Hopper, and
-its plain PyTorch version.
+"""Int8 weight-only matmul (W8A16 GEMM): two CUDA C++ kernels for Hopper,
+and their one plain PyTorch version.
 
 Replaces the TPU kernel ``seldon_core_tpu/ops/pallas_int8.py``
 (``int8_matmul``, Pallas body ``_kernel``): ``x @ (q * scale)`` with the
@@ -8,17 +8,24 @@ matrix unit, float32 accumulation. In the port it is the serving path of
 ``quantize="int8"``: every projection of the transformer and its lm_head go
 through ``ops/quantize.quantized_matmul`` -> ``int8_dense`` -> here.
 
-What bounds it on the card: at decode (M = 8 slots) bytes, the K x N int8
-weight read once; at a 256-token prefill chunk the tensor-core operations.
-The source note in ``csrc/int8_matmul.cu`` says how the design serves both,
-and why scaling in the epilogue computes the TPU kernel's function.
+Two routes, picked by ``_uses_wgmma`` from the shapes and alignment alone:
 
-The wrapper picks a split of K (``_split_k``): at decode the grid of 16 x 32
-output tiles is about one block per SM (N = 4096 gives 128 tiles on 132
-SMs), too few loads in flight to stream the weight, so the K range is cut
-into splits whose float32 partials a second small kernel sums, scales and
-casts. Once the output tiles alone fill the card several times over, there
-is one split and no workspace.
+* decode, M < 64 (``csrc/int8_matmul.cu``): bound by bytes, the K x N int8
+  weight read once. 16 x 32 output tiles; the wrapper picks a split of K
+  (``_split_k``): the tile grid is about one block per SM (N = 4096 gives
+  128 tiles on 132 SMs), too few loads in flight to stream the weight, so
+  the K range is cut into splits whose float32 partials a second small
+  kernel sums, scales and casts. It also takes what TMA cannot address:
+  N % 16 != 0, K % 8 != 0, or bases not 16-byte aligned.
+* prefill, M >= ``PREFILL_MIN_M`` (``csrc/int8_matmul_wgmma.cu``): a TMA
+  ring feeding ``wgmma``, the int8 tile converted to bf16 in shared memory.
+  Bound by bytes at M = 128, by operations at M = 256. ``_wgmma_plan``
+  picks the tile's width (128 x 128, or 128 x 256, which brings in half the
+  x bytes per weight byte) and the split of K, by a model of the kernel's
+  time fitted to measurements on the card.
+
+The source notes in ``csrc/`` say how each design serves its regime, and
+why scaling in the epilogue computes the TPU kernel's function.
 """
 
 from __future__ import annotations
@@ -28,10 +35,21 @@ import functools
 
 import torch
 
-# the kernel's tile (csrc/int8_matmul.cu: BM, BN, BK)
+# the decode kernel's tile (csrc/int8_matmul.cu: BM, BN, BK)
 BM, BN, BK = 16, 32, 128
-# blocks per SM the split of K aims at
+# blocks per SM the decode kernel's split of K aims at
 _WAVES = 4
+# the prefill kernel's tile rows, widths and depth (csrc/int8_matmul_wgmma.cu:
+# BM, BN, BK), and the smallest M it takes: the 64 rows of one wgmma
+WG_BM, WG_BNS, WG_BK = 128, (128, 256), 64
+PREFILL_MIN_M = 64
+# The prefill kernel's time model (``_wgmma_plan``), from its runs on an
+# NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py --k4-sweep): device time of
+# one 64-deep step of one CTA, by tile width; the rate at which a split's
+# float32 partials are written and read back; at most this many splits.
+_STEP_US = {128: 0.8, 256: 1.35}
+_PARTIAL_BYTES_PER_US = 3.5e6
+_MAX_SPLITS = 16
 _OUT_DTYPES = (torch.bfloat16, torch.float32)
 
 
@@ -44,14 +62,48 @@ def int8_matmul_ref(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
 
 
 def _split_k(m: int, n: int, k: int, sms: int):
-    """(splits, k tiles per split) for an [m, k] x [k, n] product on a card
-    of ``sms`` SMs: enough splits to put about ``_WAVES`` blocks on every
-    SM, never an empty one."""
+    """(splits, k tiles per split) for the decode kernel's [m, k] x [k, n]
+    product on a card of ``sms`` SMs: enough splits to put about
+    ``_WAVES`` blocks on every SM, never an empty one."""
     tiles = -(-m // BM) * -(-n // BN)
     k_tiles = max(-(-k // BK), 1)
     splits = min(k_tiles, max(1, -(-_WAVES * sms // tiles)))
     per = -(-k_tiles // splits)
     return -(-k_tiles // per), per
+
+
+@functools.lru_cache(maxsize=None)
+def _wgmma_plan(m: int, n: int, k: int, sms: int):
+    """(tile width, splits, 64-deep steps per split) for the prefill
+    kernel's [m, k] x [k, n] product on a card of ``sms`` SMs: the plan of
+    least modelled time. A CTA holds its SM alone (150-225 KB of shared
+    memory), so the busiest SM runs ceil(CTAs / sms) CTAs one after the
+    other, each ``per`` steps of ``_STEP_US``; every split past the first
+    adds its [m, n] float32 partial, written and read back. Never an empty
+    split; the narrower tile and the fewer splits on a tie. Cached: a
+    prefill forward asks for the same seven shapes 225 times."""
+    steps = max(-(-k // WG_BK), 1)
+    best = None
+    for bn in WG_BNS:
+        tiles = -(-m // WG_BM) * -(-n // bn)
+        for s in range(1, min(steps, _MAX_SPLITS) + 1):
+            per = -(-steps // s)
+            if -(-steps // per) != s:   # the same cut as a smaller split
+                continue
+            us = (-(-tiles * s // sms) * per * _STEP_US[bn]
+                  + (s > 1) * s * m * n * 8 / _PARTIAL_BYTES_PER_US)
+            if best is None or us < best[0]:
+                best = (us, bn, s, per)
+    return best[1:]
+
+
+def _uses_wgmma(m: int, n: int, k: int, x_ptr: int, q_ptr: int) -> bool:
+    """The route of an [m, k] x [k, n] product whose x and q start at
+    ``x_ptr`` and ``q_ptr``: the prefill kernel for M >= PREFILL_MIN_M where
+    TMA can address both operands (16-byte row strides: K % 8 == 0 and
+    N % 16 == 0; 16-byte aligned bases), the decode kernel otherwise."""
+    return (m >= PREFILL_MIN_M and k > 0 and k % 8 == 0 and n % 16 == 0
+            and x_ptr % 16 == 0 and q_ptr % 16 == 0)
 
 
 @functools.lru_cache(maxsize=None)
@@ -61,19 +113,51 @@ def _sm_count(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
-def _kernel_fn():
-    lib_fn = _kernel_fn.fn
-    if lib_fn is None:
-        from seldon_core_tpu_torch.ops._build import load_library
+@functools.lru_cache(maxsize=None)
+def _entry(lib: str, name: str, n_ints: int):
+    """The C entry point ``name`` of ``csrc/<lib>.cu``, built on first use:
+    (x, q, scale, out, partial, ``n_ints`` ints, stream)."""
+    from seldon_core_tpu_torch.ops._build import load_library
 
-        lib_fn = load_library("int8_matmul").int8_matmul_bf16
-        lib_fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-        lib_fn.restype = ctypes.c_int
-        _kernel_fn.fn = lib_fn
-    return lib_fn
+    fn = getattr(load_library(lib), name)
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
 
 
-_kernel_fn.fn = None
+def _launch(lib, name, x, q, scale, out, splits, per, *extra) -> torch.Tensor:
+    """Either kernel into ``out`` with K cut into ``splits`` of ``per``
+    steps (a float32 partial per split when there are several)."""
+    from seldon_core_tpu_torch.ops._build import launch
+
+    m, k = x.shape
+    n = q.shape[1]
+    partial = (torch.empty((splits, m, n), dtype=torch.float32, device=x.device)
+               if splits > 1 else None)
+    launch(_entry(lib, name, 6 + len(extra)), x.device, x.data_ptr(), q.data_ptr(),
+           scale.data_ptr(), out.data_ptr(), None if partial is None else partial.data_ptr(),
+           m, n, k, int(out.dtype == torch.float32), splits, per, *extra)
+    return out
+
+
+def _decode_kernel(x, q, scale, out) -> torch.Tensor:
+    """The decode kernel (16 x 32 tiles, split-K) into ``out``, at any M:
+    no checks, no count. The served path reaches it only through
+    ``int8_matmul``; ``chip_smoke.py`` also times it at prefill shapes
+    beside the prefill kernel."""
+    m, k = x.shape
+    return _launch("int8_matmul", "int8_matmul_bf16", x, q, scale, out,
+                   *_split_k(m, q.shape[1], k, _sm_count(x.device.index)))
+
+
+def _wgmma_kernel(x, q, scale, out, plan=None) -> torch.Tensor:
+    """The prefill kernel (TMA + wgmma, split-K) into ``out`` with ``plan``
+    = (tile width, splits, steps per split), by default ``_wgmma_plan``'s:
+    no checks, no count."""
+    m, k = x.shape
+    bn, splits, per = plan or _wgmma_plan(m, q.shape[1], k, _sm_count(x.device.index))
+    return _launch("int8_matmul_wgmma", "int8_matmul_wgmma_bf16", x, q, scale, out, splits, per,
+                   bn)
 
 
 def int8_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
@@ -82,10 +166,12 @@ def int8_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
     ``out_dtype`` (default ``x.dtype``): ``x @ (q * scale)`` with float32
     accumulation.
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel on
-    the current stream (no synchronisation), or raise. The kernel takes bf16
-    ``x`` and writes bf16 or float32: the lm_head's ``x.float() @ W`` is
-    bf16 in, float32 out, since ``x.float()`` of a bf16 ``x`` is exact."""
+    CPU tensors take the plain version; CUDA tensors launch one of the two
+    kernels on the current stream (no synchronisation), or raise. Both take
+    bf16 ``x`` and write bf16 or float32: the lm_head's ``x.float() @ W`` is
+    bf16 in, float32 out, since ``x.float()`` of a bf16 ``x`` is exact.
+    ``launches`` counts every launch, ``launches_wgmma`` those of the
+    prefill kernel."""
     if (x.dim() != 2 or q.dim() != 2 or x.shape[1] != q.shape[0]
             or tuple(scale.shape) != (q.shape[1],)):
         raise ValueError(f"int8_matmul: shapes x={tuple(x.shape)} q={tuple(q.shape)} "
@@ -110,19 +196,17 @@ def int8_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
     if m == 0 or n == 0:
         return out
-    from seldon_core_tpu_torch.ops._build import launch
-
-    splits, per = _split_k(m, n, k, _sm_count(x.device.index))
-    partial = (torch.empty((splits, m, n), dtype=torch.float32, device=x.device)
-               if splits > 1 else None)
-    launch(_kernel_fn(), x.device, x.data_ptr(), q.data_ptr(), scale.data_ptr(),
-           out.data_ptr(), None if partial is None else partial.data_ptr(), m, n, k,
-           int(out_dtype == torch.float32), splits, per)
+    if _uses_wgmma(m, n, k, x.data_ptr(), q.data_ptr()):
+        _wgmma_kernel(x, q, scale, out)
+        int8_matmul.launches_wgmma += 1
+    else:
+        _decode_kernel(x, q, scale, out)
     int8_matmul.launches += 1
     return out
 
 
 int8_matmul.launches = 0
+int8_matmul.launches_wgmma = 0
 
 
 def int8_dense(x: torch.Tensor, qt, out_dtype=None) -> torch.Tensor:

@@ -10,12 +10,13 @@ inside) within one bf16 ulp + 1e-5 of the plain version run on float32
 copies of the same inputs (an int8 pool dequantized in float32) — the
 kernel rounds its float32 result once; K2 (fused residual + RMSNorm, bf16)
 ``y`` bit-equal and ``o`` within one bf16 ulp; K4 (int8 GEMM, float32
-accumulation) within 1e-5 * (|x| @ |q * scale|) elementwise of the plain
-version, the reach of float32 summation order, plus one bf16 ulp for bf16
-output; K3 (folded-BN identity bottleneck chain, bf16 hand-offs, float32
-sums) within n_blocks bf16 ulps of max|plain| elementwise — the plain
-version sums the same bf16 products in float32 in another order, so a
-hand-off may round to the neighbouring bf16, once per block."""
+accumulation; its decode and its prefill kernel alike, split-K included)
+within 1e-5 * (|x| @ |q * scale|) elementwise of the plain version, the
+reach of float32 summation order, plus one bf16 ulp for bf16 output; K3
+(folded-BN identity bottleneck chain, bf16 hand-offs, float32 sums) within
+n_blocks bf16 ulps of max|plain| elementwise — the plain version sums the
+same bf16 products in float32 in another order, so a hand-off may round to
+the neighbouring bf16, once per block."""
 
 import numpy as np
 import pytest
@@ -209,18 +210,39 @@ def _assert_k4_close(out, x, q, scale):
 
 @pytest.mark.parametrize("m,k,n", [(1, 4096, 4096), (8, 4096, 11008), (8, 11008, 4096),
                                    (37, 1000, 200), (256, 4096, 1000), (8, 40, 33),
-                                   (3, 13, 17)])
+                                   (3, 13, 17), (64, 4096, 4096), (128, 4096, 11008),
+                                   (128, 11008, 4096), (256, 4096, 32000), (200, 4104, 1040),
+                                   (300, 4096, 1000)])
 @pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
 def test_int8_matmul_kernel_matches_plain(dev, m, k, n, out_dtype):
     """Ragged M, N not a multiple of the 32-wide tile, K not a multiple of
     the 128-deep step, the scalar-load path (N % 16 or K % 8 not 0) and the
-    split-K path (small grids) included."""
+    split-K path (small grids) included. M >= 64 with K % 8 == 0 and
+    N % 16 == 0 takes the prefill kernel (TMA + wgmma: its counter moves
+    too), ragged M, N and K included; the rest the decode kernel."""
     x, q, scale = _k4_case(dev, m, k, n, m + k + n)
     before = int8_matmul.int8_matmul.launches
+    before_wgmma = int8_matmul.int8_matmul.launches_wgmma
     out = int8_matmul.int8_matmul(x, q, scale, out_dtype)
     torch.cuda.synchronize()
     assert int8_matmul.int8_matmul.launches == before + 1
+    prefill = m >= 64 and k % 8 == 0 and n % 16 == 0
+    assert int8_matmul.int8_matmul.launches_wgmma == before_wgmma + prefill
     assert out.dtype == out_dtype and out.shape == (m, n)
+    _assert_k4_close(out, x, q, scale)
+
+
+@pytest.mark.parametrize("bn,splits", [(128, 1), (128, 3), (256, 1), (256, 3)])
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+def test_int8_matmul_prefill_kernel_tiles_and_splits(dev, bn, splits, out_dtype):
+    """The prefill kernel at each tile width, in one split and in several,
+    whichever the wrapper would pick: M, N and K off every tile."""
+    m, k, n = 272, 4104, 1040
+    x, q, scale = _k4_case(dev, m, k, n, bn + splits)
+    per = -(-(-(-k // int8_matmul.WG_BK)) // splits)
+    out = int8_matmul._wgmma_kernel(x, q, scale, torch.empty((m, n), dtype=out_dtype, device=dev),
+                                    (bn, splits, per))
+    torch.cuda.synchronize()
     _assert_k4_close(out, x, q, scale)
 
 

@@ -130,6 +130,76 @@ def test_split_k_covers_k_without_empty_splits(m, n, k):
         assert splits == 1
 
 
+# (K, N) of the int8 7B model's products: wq/wk/wv/wo, w1/w3, w2, lm_head
+_7B = [(4096, 4096), (4096, 11008), (11008, 4096), (4096, 32000)]
+
+
+@pytest.mark.parametrize("m,k,n,x_off,q_off,wgmma", [
+    *[(8, k, n, 0, 0, False) for k, n in _7B],        # every decode shape: 8 serving slots
+    *[(m, k, n, 0, 0, True) for m in (64, 128, 256) for k, n in _7B],
+    (63, 4096, 4096, 0, 0, False),     # under one wgmma's 64 rows
+    (200, 4104, 1040, 0, 0, True),     # M, N and K off the tile, still TMA-addressable
+    (300, 4096, 1000, 0, 0, False),    # N % 16 != 0
+    (128, 4100, 4096, 0, 0, False),    # K % 8 != 0
+    (128, 4096, 4096, 8, 0, False),    # x not 16-byte aligned
+    (128, 4096, 4096, 0, 4, False),    # q not 16-byte aligned
+    (128, 0, 16, 0, 0, False),         # K = 0
+])
+def test_int8_matmul_route(m, k, n, x_off, q_off, wgmma):
+    """The prefill kernel takes M >= 64 where TMA can address x and q;
+    everything else, every decode step included, takes the decode kernel."""
+    assert k4._uses_wgmma(m, n, k, (1 << 20) + x_off, (1 << 21) + q_off) is wgmma
+
+
+@pytest.mark.parametrize("m,k,n", [*[(m, k, n) for m in (128, 256) for k, n in _7B],
+                                   (64, 4096, 4096), (200, 4104, 1040), (1248, 4096, 32000),
+                                   (64, 8, 16)])
+def test_wgmma_plan_covers_every_tile_and_step(m, k, n):
+    """The prefill kernel's grid, walked as the kernel walks it: every
+    output tile and every 64-deep step of K exactly once, no empty split;
+    the plan is the least of the modelled times, and at the four M = 128
+    shapes it keeps at least 90 % of 132 SMs busy."""
+    sms = 132
+    bn, splits, per = k4._wgmma_plan(m, n, k, sms)
+    assert bn in k4.WG_BNS and 1 <= splits <= k4._MAX_SPLITS
+    steps = -(-k // k4.WG_BK)
+    covered = []
+    for z in range(splits):   # csrc/int8_matmul_wgmma.cu: kt0, n_steps
+        kt0 = z * per
+        n_steps = max(0, min(per, steps - kt0))
+        assert n_steps > 0
+        covered += range(kt0, kt0 + n_steps)
+    assert covered == list(range(steps))
+    rows = {r for bx in range(-(-m // k4.WG_BM)) for r in range(bx * k4.WG_BM, (bx + 1) * k4.WG_BM)}
+    cols = {c for by in range(-(-n // bn)) for c in range(by * bn, (by + 1) * bn)}
+    assert set(range(m)) <= rows and set(range(n)) <= cols
+
+    def modelled_us(bn, s):
+        tiles = -(-m // k4.WG_BM) * -(-n // bn)
+        p = -(-steps // s)
+        return (-(-tiles * s // sms) * p * k4._STEP_US[bn]
+                + (s > 1) * s * m * n * 8 / k4._PARTIAL_BYTES_PER_US)
+
+    assert modelled_us(bn, splits) == min(modelled_us(b, s) for b in k4.WG_BNS
+                                          for s in range(1, min(steps, k4._MAX_SPLITS) + 1))
+    if m == 128 and (k, n) in _7B:
+        assert -(-m // k4.WG_BM) * -(-n // bn) * splits >= 0.9 * sms
+
+
+@pytest.mark.parametrize("rows", [128, 256])
+def test_int8_dense_prefill_chunk_matches_jax(rows):
+    """A prefill chunk [1, rows, 4096] through int8_dense, the shape the
+    prefill kernel takes on a card, against the JAX package's int8_dense
+    (both on the CPU: the plain expression)."""
+    rng = np.random.default_rng(rows)
+    x = rng.standard_normal((1, rows, 4096)).astype(np.float32)
+    w = (rng.standard_normal((4096, 1024)) / 64).astype(np.float32)
+    want = jint8.int8_dense(jnp.asarray(x), jq.quantize_array(jnp.asarray(w)))
+    got = k4.int8_dense(torch.from_numpy(x), tq.quantize_array(torch.from_numpy(w)))
+    assert got.shape == (1, rows, 1024)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+
+
 @pytest.fixture(scope="module")
 def models():
     jmod = jax_get_model("transformer", **KW)
