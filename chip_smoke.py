@@ -4,6 +4,7 @@ kernel of that path against its plain PyTorch version.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --k4-sweep   # only: build, then K4's prefill tiles x splits
+    python3 chip_smoke.py --k1-sweep   # only: build, then K1's splits S at its six shapes
 
 Phases (any failure exits non-zero; nothing swallows an error):
 
@@ -16,7 +17,10 @@ Phases (any failure exits non-zero; nothing swallows an error):
    time (CUDA events, median of 25), its plain version's, its bound (the
    larger of bytes / 3.35 TB/s and flops / 989 TFLOP/s) and, where one
    PyTorch call computes the same function, that call's: K1 paged attention
-   over a bf16 and an int8 pool, K2 fused residual + RMSNorm, K4 the int8
+   over a bf16 and an int8 pool (at the split S its plan picks; one call
+   must put one kernel and nothing else on its stream, counted from a CUDA
+   graph of the call, whose replay must agree too), K2 fused
+   residual + RMSNorm, K4 the int8
    GEMM at every decode shape of the int8 7B model (the decode kernel) and
    at 128- and 256-row prefill chunks of wq, w1, w2 and the lm_head (the
    prefill kernel, TMA + wgmma, timed in turns with the decode kernel
@@ -202,21 +206,68 @@ def time_ms(fn, flush=None) -> float:
     return time_turns([fn], flush)[0][0]
 
 
+# cuGraphNodeGetType's CUgraphNodeType values (cuda.h)
+GRAPH_NODE_TYPES = ("kernel", "memcpy", "memset", "host", "graph", "empty", "wait_event",
+                    "event_record", "ext_semas_signal", "ext_semas_wait", "mem_alloc",
+                    "mem_free", "batch_mem_op", "conditional")
+
+
+def graph_nodes(fn):
+    """Every operation one call of ``fn`` puts on its stream: the call is
+    captured in a CUDA graph (after a warm-up call on the capture stream,
+    so that lazy set-up stays out of the graph) and the graph's nodes are
+    read with cuGraphGetNodes from libcuda. A call that synchronises with
+    the host fails the capture. Returns (node types, the output of one
+    replay of the graph)."""
+    import ctypes
+
+    import torch
+
+    libcuda = ctypes.CDLL("libcuda.so.1")
+
+    def check(rc, what):
+        if rc != 0:
+            fail(f"graph_nodes: {what} returned CUresult {rc}")
+
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(g, stream=stream):
+        out = fn()
+    raw = ctypes.c_void_p(g.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    check(libcuda.cuGraphGetNodes(raw, None, ctypes.byref(n)), "cuGraphGetNodes")
+    nodes = (ctypes.c_void_p * max(n.value, 1))()
+    check(libcuda.cuGraphGetNodes(raw, nodes, ctypes.byref(n)), "cuGraphGetNodes")
+    types = []
+    for node in nodes[:n.value]:
+        t = ctypes.c_int(-1)
+        check(libcuda.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(t)),
+              "cuGraphNodeGetType")
+        types.append(GRAPH_NODE_TYPES[t.value] if 0 <= t.value < len(GRAPH_NODE_TYPES)
+                     else str(t.value))
+    g.replay()
+    torch.cuda.synchronize()
+    return types, out.clone()
+
+
 # ---------------------------------------------------------------------------
 # Kernel phase
 # ---------------------------------------------------------------------------
-def k1_case(b, h, kvh, hd, ps, n_pages, ctx, null_row, seed, flush, kv="bf16"):
-    """Paged-attention decode at one shape: a pool of b * n_pages + 2 pages
-    with shuffled page ids, each sequence's positions written up to its
-    context, NULL tails in the tables, and optionally one all-NULL row.
+def k1_inputs(b, h, kvh, hd, ps, n_pages, ctx, null_row, seed, kv="bf16"):
+    """Paged-attention decode inputs at one shape: a pool of b * n_pages + 2
+    pages with shuffled page ids, each sequence's positions written up to
+    its context, NULL tails in the tables, and optionally one all-NULL row.
     ``kv="int8"`` stores the pool as the int8 write path does (the 5-tuple,
-    quantized per position and kv head)."""
+    quantized per position and kv head). Returns (q, cache, the cache on
+    float32 copies, tables, positions, pages each live row uses)."""
     import torch
-    import torch.nn.functional as F
 
     from seldon_core_tpu_torch.models.transformer import (NULL_PAGE, PAD_POS, RESERVED_PAGES,
-                                                          gather_paged_view, quantize_kv)
-    from seldon_core_tpu_torch.ops.paged_attention import paged_attention, paged_attention_ref
+                                                          quantize_kv)
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed)
@@ -243,11 +294,42 @@ def k1_case(b, h, kvh, hd, ps, n_pages, ctx, null_row, seed, flush, kv="bf16"):
     if kv == "int8":
         cache = (*quantize_kv(k_pool), *quantize_kv(v_pool), pos_pool)
         cache32 = cache          # the plain version dequantizes in q's dtype
-        counter = "launches_int8"
     else:
         cache = (k_pool, v_pool, pos_pool)
         cache32 = (k_pool.float(), v_pool.float(), pos_pool)
-        counter = "launches"
+    return q, cache, cache32, bt, positions, used
+
+
+def k1_check(label, out, ref32):
+    """K1's tolerance: within one bf16 ulp + K1_ATOL of the float32 plain
+    version, finite. Returns the max abs error."""
+    import torch
+
+    if not torch.isfinite(out.float()).all():
+        fail(f"{label}: non-finite output")
+    diff = (out.float() - ref32).abs()
+    err = diff.max().item()
+    if (diff > bf16_ulp(ref32) + K1_ATOL).any():
+        fail(f"{label}: max_abs_err {err} beyond 1 bf16 ulp + {K1_ATOL} of the float32 "
+             f"reference")
+    return err
+
+
+def k1_case(b, h, kvh, hd, ps, n_pages, ctx, null_row, seed, flush, kv="bf16"):
+    """K1 at one shape, at the split its plan picks: checked against the
+    plain version, one call one kernel (``graph_nodes``), timed beside the
+    plain version and SDPA."""
+    import torch
+    import torch.nn.functional as F
+
+    from seldon_core_tpu_torch.models.transformer import gather_paged_view
+    from seldon_core_tpu_torch.ops.paged_attention import (_split_plan, paged_attention,
+                                                           paged_attention_ref)
+
+    q, cache, cache32, bt, positions, used = k1_inputs(b, h, kvh, hd, ps, n_pages, ctx,
+                                                       null_row, seed, kv)
+    counter = "launches_int8" if kv == "int8" else "launches"
+    splits = _split_plan(b, kvh, h // kvh, n_pages, ps, hd, kv == "int8")
     label = f"K1 {kv} b={b} h={h} kvh={kvh} ctx={ctx}"
 
     before = getattr(paged_attention, counter)
@@ -258,18 +340,19 @@ def k1_case(b, h, kvh, hd, ps, n_pages, ctx, null_row, seed, flush, kv="bf16"):
     ref32 = paged_attention_ref(q.float(), cache32, bt, positions)
     ref_bf16 = paged_attention_ref(q, cache, bt, positions)
     torch.cuda.synchronize()
-    if not torch.isfinite(out.float()).all():
-        fail(f"{label}: non-finite output")
-    diff = (out.float() - ref32).abs()
-    err = diff.max().item()
-    if (diff > bf16_ulp(ref32) + K1_ATOL).any():
-        fail(f"{label}: max_abs_err {err} beyond 1 bf16 ulp + {K1_ATOL} of the float32 "
-             f"reference")
+    err = k1_check(label, out, ref32)
     # the bf16 plain chain, for information only: it rounds logits and
     # probabilities to bf16 between its matmuls
     err_bf16 = (out.float() - ref_bf16.float()).abs().max().item()
     if null_row is not None and not torch.isfinite(out[null_row].float()).all():
         fail(f"{label}: all-NULL row is not finite")
+    # one call, one launch: every operation one call puts on its stream,
+    # counted from a CUDA graph of the call; the replay must give the same
+    # answer
+    nodes, out_graph = graph_nodes(lambda: paged_attention(q, cache, bt, positions))
+    if nodes != ["kernel"]:
+        fail(f"{label}: one call put {len(nodes)} operations on its stream: {nodes}")
+    k1_check(f"{label} (CUDA graph replay)", out_graph, ref32)
 
     ms = time_ms(lambda: paged_attention(q, cache, bt, positions), flush)
     plain_ms = time_ms(lambda: paged_attention_ref(q, cache, bt, positions), flush)
@@ -302,8 +385,55 @@ def k1_case(b, h, kvh, hd, ps, n_pages, ctx, null_row, seed, flush, kv="bf16"):
     flops = 4 * live * h * ctx * hd
     bytes_s, flops_s = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S
     return dict(err=err, err_bf16=err_bf16, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                bound_ms=max(bytes_s, flops_s) * 1e3,
+                bound_ms=max(bytes_s, flops_s) * 1e3, splits=splits,
                 bound_by="bytes" if bytes_s >= flops_s else "operations")
+
+
+K1_SHAPES = [("ctx160", dict(b=8, h=32, kvh=32, ctx=160)),
+             ("ctx2048", dict(b=8, h=32, kvh=32, ctx=2048)),
+             ("gqa_ctx2048", dict(b=8, h=32, kvh=8, ctx=2048))]
+K1_FIXED = dict(hd=128, ps=64, n_pages=32, null_row=7)
+K1_SWEEP_SPLITS = (1, 2, 3, 4, 5, 6, 8, 10, 12, 16, 24, 32)
+
+
+def k1_sweep(card, flush):
+    """K1 at each of its six shapes (both pools x the three of K1_SHAPES)
+    over the splits S of K1_SWEEP_SPLITS, all S of one shape timed in
+    turns; each S is first held to K1's tolerance. Marks the plan's pick
+    and the fastest. Prints one line per (shape, S), and, for scale, the
+    rate of a plain 256 MB device-to-device copy on this card."""
+    import torch
+
+    src = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    dst = torch.empty_like(src)
+    ms = time_ms(lambda: dst.copy_(src), flush)
+    print(f"K1 sweep yardstick: a 256 MB device copy (read + write) takes {ms:.4f} ms = "
+          f"{2 * src.numel() / ms / 1e9:.3f} TB/s [{card}]", flush=True)
+    del src, dst
+    from seldon_core_tpu_torch.ops.paged_attention import (_split_plan, paged_attention,
+                                                           paged_attention_ref)
+
+    for kv in ("bf16", "int8"):
+        for label, kw in K1_SHAPES:
+            args = dict(K1_FIXED, **kw)
+            q, cache, cache32, bt, positions, _ = k1_inputs(seed=1, kv=kv, **args)
+            ref32 = paged_attention_ref(q.float(), cache32, bt, positions)
+            pick = _split_plan(args["b"], args["kvh"], args["h"] // args["kvh"],
+                               args["n_pages"], args["ps"], args["hd"], kv == "int8")
+            splits = sorted(set(K1_SWEEP_SPLITS) | {pick})
+            for s in splits:
+                k1_check(f"K1 sweep {kv} {label} S={s}",
+                         paged_attention(q, cache, bt, positions, _splits=s), ref32)
+            timed = time_turns([(lambda s=s: paged_attention(q, cache, bt, positions,
+                                                             _splits=s)) for s in splits],
+                               flush)
+            best = min(range(len(splits)), key=lambda i: timed[i][0])
+            for i, (s, (ms, _)) in enumerate(zip(splits, timed)):
+                ctas = args["b"] * args["kvh"] * s
+                print(f"K1 sweep {kv} {label} b={args['b']} h={args['h']} kvh={args['kvh']} "
+                      f"hd=128 ps=64 n_pages=32: S={s} ({ctas} CTAs) {ms:.4f} ms"
+                      f"{'  <- the plan picks this' if s == pick else ''}"
+                      f"{'  <- fastest' if i == best else ''} [{card}]", flush=True)
 
 
 def bf16_ulp(x):
@@ -617,6 +747,14 @@ def serve(label: str, card: str, knobs: dict):
           f"({decode_steps} steps)", flush=True)
 
     svc = server._batcher_service
+    from seldon_core_tpu_torch.ops.paged_attention import _split_plan
+
+    cfg = LLAMA2_7B
+    served_s = _split_plan(N_REQUESTS, cfg["n_kv_heads"], cfg["n_heads"] // cfg["n_kv_heads"],
+                           svc.batcher.n_pages, svc.batcher.page_size,
+                           cfg["dim"] // cfg["n_heads"], int8_kv)
+    print(f"[{label}] K1 split at the served shape (b={N_REQUESTS} slots, "
+          f"n_pages={svc.batcher.n_pages} of {svc.batcher.page_size}): S={served_s}", flush=True)
     pages = svc.batcher.page_stats()
     if pages["kv_pages_in_use"] != 0:
         fail(f"[{label}] pages still held after every request finished: {pages}")
@@ -645,19 +783,29 @@ def serve(label: str, card: str, knobs: dict):
     # the same step under torch.profiler: device time by kernel
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        step()
-        torch.cuda.synchronize()
-
     def dev_us(e):
         return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
 
-    # device-side rows only (kernels, copies); the host op that launched a
-    # kernel reports the same time again as its own
-    ops = sorted((e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")),
-                 key=dev_us, reverse=True)
+    # a trace may come back without a single device event (the profiler
+    # lost them: a step runs thousands of kernels); such a trace is taken
+    # again, up to 3 times
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            step()
+            torch.cuda.synchronize()
+        # device-side rows only (kernels, copies); the host op that launched
+        # a kernel reports the same time again as its own
+        ops = sorted((e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")),
+                     key=dev_us, reverse=True)
+        del prof
+        if ops:
+            break
     kernel_ms = sum(dev_us(e) for e in ops) / 1e3
-    del prof
+    # one K1 call is one kernel: a step runs exactly one per layer
+    k1_kernels = sum(e.count for e in ops if "paged_attention_decode_kernel" in e.key)
+    if k1_kernels != LLAMA2_7B["n_layers"]:
+        fail(f"[{label}] one decode step ran {k1_kernels} paged-attention kernels, expected "
+             f"one per layer ({LLAMA2_7B['n_layers']})")
 
     # every served token against a teacher-forced prefill over its own
     # request through the same KV numerics
@@ -712,7 +860,7 @@ def serve(label: str, card: str, knobs: dict):
           f"memory over the run {peak_gb:.2f} GB [{card}]", flush=True)
     print(f"[{label}] decode step at {N_REQUESTS} slots: host enqueue {step_host_ms:.3f} ms, "
           f"device time {kernel_ms:.3f} ms in {sum(e.count for e in ops)} kernels and copies "
-          f"(torch.profiler); reading the {weight_bytes / 1e9:.2f} GB of weights alone takes "
+          f"({k1_kernels} of them paged attention, one per layer; torch.profiler); reading the {weight_bytes / 1e9:.2f} GB of weights alone takes "
           f"{weight_bytes / HBM_BYTES_PER_S * 1e3:.2f} ms [{card}]", flush=True)
     for e in ops[:12]:
         print(f"  {dev_us(e) / 1e3:8.3f} ms  x{e.count:<5d} {e.key[:100]}")
@@ -1002,9 +1150,9 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 print(f"  ptxas[{name}]: {line.strip()}")
-    if sys.argv[1:] == ["--k4-sweep"]:
+    if sys.argv[1:] in (["--k4-sweep"], ["--k1-sweep"]):
         scratch = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
-        k4_sweep(card, lambda: scratch.fill_(1))
+        (k4_sweep if sys.argv[1] == "--k4-sweep" else k1_sweep)(card, lambda: scratch.fill_(1))
         return 0
 
     # 3. kernel phase
@@ -1015,20 +1163,18 @@ def main() -> int:
 
     k1 = {}
     for kv in ("bf16", "int8"):
-        for label, kw in [
-            ("ctx160", dict(b=8, h=32, kvh=32, ctx=160)),
-            ("ctx2048", dict(b=8, h=32, kvh=32, ctx=2048)),
-            ("gqa_ctx2048", dict(b=8, h=32, kvh=8, ctx=2048)),
-        ]:
-            r = k1_case(hd=128, ps=64, n_pages=32, null_row=7, seed=len(k1) % 3, flush=flush,
-                        kv=kv, **kw)
+        for label, kw in K1_SHAPES:
+            r = k1_case(seed=len(k1) % 3, flush=flush, kv=kv, **K1_FIXED, **kw)
             k1[kv, label] = r
             print(f"K1 paged_attention {kv} pool {label} b=8 h={kw['h']} kvh={kw['kvh']} "
-                  f"hd=128 ps=64 n_pages=32 (row 7 all-NULL): kernel_ms {r['ms']:.4f} "
-                  f"plain_ms {r['plain_ms']:.4f} bound_ms {r['bound_ms']:.4f} library_ms "
-                  f"{r['library_ms']:.4f} (SDPA on the bf16 view of the attended pages, "
-                  f"gathered untimed) max_abs_err {r['err']:.3e} ({K1_TOL_REASON}; vs the "
-                  f"bf16 plain chain {r['err_bf16']:.3e}) [{card}]", flush=True)
+                  f"hd=128 ps=64 n_pages=32 (row 7 all-NULL): S={r['splits']} (the plan's "
+                  f"split) kernel_ms {r['ms']:.4f} plain_ms {r['plain_ms']:.4f} bound_ms "
+                  f"{r['bound_ms']:.4f} library_ms {r['library_ms']:.4f} (SDPA on the bf16 "
+                  f"view of the attended pages, gathered untimed); kernel/library "
+                  f"{r['ms'] / r['library_ms']:.2f}x, kernel/bound "
+                  f"{r['ms'] / r['bound_ms']:.2f}x; one call = 1 kernel (CUDA graph of the call); "
+                  f"max_abs_err {r['err']:.3e} ({K1_TOL_REASON}; vs the bf16 plain chain "
+                  f"{r['err_bf16']:.3e}) [{card}]", flush=True)
     k2 = {}
     for rows in (8, 256):
         r = k2_case(rows, 4096, seed=rows, flush=flush)

@@ -9,13 +9,18 @@ v_q, v_scale, pos) 5-tuple of ``kv_cache_dtype="int8"``). The paged KV pool
 tables) bills device memory for pages actually written; the plain read
 gathers every sequence's whole logical view back into a contiguous buffer
 first. The kernel (``csrc/paged_attention.cu``) instead streams only the
-pages each block table names, once, and accumulates the masked softmax
-online in float32; an int8 pool is dequantized in float32 in registers as
-it is read (``q * scale``, as the Pallas body does).
+pages each block table names, once, with 16-byte loads, and accumulates the
+masked softmax online in float32; an int8 pool is read as int8 and scaled
+once per key (``s_k * (q . k_q)``, ``p * s_v``).
 
 What bounds it on the card: bytes — the K and V pages of every sequence,
 read once (a few flops per byte); the int8 pool moves about half of them.
-The source note in the ``.cu`` file says how the design serves that.
+The kernel splits each (sequence, kv head) over ``S`` CTAs, each a
+contiguous range of key chunks of the pages the row walks, and the CTA
+that finishes last merges the ``S`` partials in the same launch; ``S``
+comes from ``_split_plan``, a function of shapes only (the host never
+reads a position, so the step stays free of host syncs). The source note
+in the ``.cu`` file says how the design serves that.
 
 Numerics: masking uses the pooled position rows exactly like the dense path
 (masked logits are ``finfo(float32).min``, never -inf), GQA maps query head
@@ -30,10 +35,20 @@ read on gathered bytes.
 from __future__ import annotations
 
 import ctypes
+import math
+import threading
+from functools import lru_cache
+from typing import Dict, Optional, Tuple
 
 import torch
 
 _HEAD_DIMS = (32, 64, 128)
+# keys per chunk, the unit of the split: the largest power of two up to
+# this that divides the page size
+CHUNK_KEYS = 16
+# the split plan aims at this many CTAs per launch (fitted to
+# ``chip_smoke.py --k1-sweep`` on an H100; see ``_split_plan``)
+TARGET_CTAS = 256
 
 
 def paged_attention_ref(q, cache, block_tables, positions):
@@ -51,26 +66,72 @@ def paged_attention_ref(q, cache, block_tables, positions):
     return masked_attention(q, k_all, v_all, mask)
 
 
+def _chunk_keys(ps: int) -> int:
+    """Keys per chunk: the largest power of two <= CHUNK_KEYS dividing ps."""
+    return math.gcd(ps, CHUNK_KEYS)
+
+
+def _head_tile(G: int) -> int:
+    """Query heads per CTA: the least power of two >= G, at most 8 (a
+    larger G takes ceil(G / 8) head tiles, each reading K/V once)."""
+    return min(8, 1 << (G - 1).bit_length())
+
+
+@lru_cache(maxsize=256)
+def _split_plan(b: int, kvh: int, G: int, n_pages: int, ps: int, hd: int,
+                quantized: bool) -> int:
+    """S, the CTAs each (sequence, kv head, head tile) is split over: a pure
+    function of shapes the host knows, never of the positions. The kernel
+    spreads each row's walked chunks evenly over its S CTAs whatever the
+    context, so S is sized to fill the card: about TARGET_CTAS CTAs in all,
+    at least 1, at most the chunks of ``n_pages`` pages. Each CTA keeps
+    many loads in flight, so one CTA per (sequence, kv head) is enough
+    once there are that many: the sweep found S = 1 fastest, or within 2 %
+    of it, at b = 8 and 32 kv heads, and S = 4 at 8 kv heads. ``hd`` and
+    ``quantized`` do not move the pick at the measured shapes."""
+    pairs = b * kvh * -(-G // _head_tile(G))
+    n_chunks = n_pages * (ps // _chunk_keys(ps))
+    return max(1, min(-(-TARGET_CTAS // pairs), n_chunks))
+
+
 def _kernel_fn(quantized: bool):
     fns = _kernel_fn.fns
     if quantized not in fns:
         from seldon_core_tpu_torch.ops._build import load_library
 
         lib = load_library("paged_attention")
-        if quantized:
-            fn = lib.paged_attention_decode_int8
-            fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [
-                ctypes.c_float, ctypes.c_void_p]
-        else:
-            fn = lib.paged_attention_decode_bf16
-            fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [
-                ctypes.c_float, ctypes.c_void_p]
+        n_ptrs = 9 if quantized else 7
+        fn = (lib.paged_attention_decode_int8 if quantized
+              else lib.paged_attention_decode_bf16)
+        fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 6 + [ctypes.c_float]
+                       + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3)
         fn.restype = ctypes.c_int
         fns[quantized] = fn
     return fns[quantized]
 
 
 _kernel_fn.fns = {}
+
+# Arrival counters of split launches, per (device index, stream): zeroed
+# when made, and zero again after every launch (the last CTA of a pair
+# resets its own). One buffer per stream, so launches on two streams never
+# share a counter. Grown (a new zeroed buffer) when b * kvh * head tiles
+# outgrows it; never written by the host otherwise.
+_counters: Dict[Tuple[int, int], torch.Tensor] = {}
+_counters_lock = threading.Lock()
+
+
+def _counter_buffer(device: torch.device, stream: int, pairs: int) -> torch.Tensor:
+    key = (device.index, stream)
+    buf = _counters.get(key)
+    if buf is None or buf.numel() < pairs:
+        with _counters_lock:
+            buf = _counters.get(key)
+            if buf is None or buf.numel() < pairs:
+                buf = torch.zeros(max(pairs, 2 * (0 if buf is None else buf.numel())),
+                                  dtype=torch.int32, device=device)
+                _counters[key] = buf
+    return buf
 
 
 def _check(cache, q, block_tables, positions):
@@ -105,10 +166,15 @@ def _check(cache, q, block_tables, positions):
             raise ValueError("paged_attention: every input must be on q's device")
         if not t.is_contiguous():
             raise ValueError("paged_attention: inputs must be contiguous")
+    # rows are read as 16-byte vectors: a row is a multiple of 16 bytes for
+    # every supported head dim, so the pools' bases must be aligned
+    if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
+        raise ValueError("paged_attention kernel: the K and V pools must start on a "
+                         "16-byte boundary (it reads rows as 16-byte vectors)")
     return ps, kvh, n_pages
 
 
-def paged_attention(q, cache, block_tables, positions):
+def paged_attention(q, cache, block_tables, positions, *, _splits: Optional[int] = None):
     """q: [b, 1, h, hd]; cache: a paged pool — the bf16 triple ([pages,
     page_size, kvh, hd] K/V + [pages, page_size] int32 positions) or the
     int8 5-tuple (int8 K/V, float32 [pages, page_size, kvh] scales after
@@ -116,8 +182,11 @@ def paged_attention(q, cache, block_tables, positions):
     [b, 1] query positions. Returns [b, 1, h, hd] in q.dtype.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel on
-    the current stream (no synchronisation), or raise. ``launches`` counts
-    the bf16 kernel's launches, ``launches_int8`` the int8 kernel's.
+    the current stream (one launch, no synchronisation, no read of a
+    device value), or raise. ``launches`` counts the bf16 kernel's
+    launches, ``launches_int8`` the int8 kernel's. ``_splits`` forces the
+    kernel's split count S (1 .. the chunks of ``n_pages`` pages) in place
+    of ``_split_plan``'s; tests and the sweep use it.
 
     Precondition of the kernel (not of the plain version): it walks each
     row's table only up to the query position's page, index
@@ -143,15 +212,34 @@ def paged_attention(q, cache, block_tables, positions):
         raise ValueError(f"paged_attention: unsupported device {q.device}")
     ps, kvh, n_pages = _check(cache, q, block_tables, positions)
     quantized = len(cache) == 5
+    G = h // kvh
+    chunk = _chunk_keys(ps)
+    if _splits is None:
+        splits = _split_plan(b, kvh, G, n_pages, ps, hd, quantized)
+    else:
+        splits = int(_splits)
+        if not 1 <= splits <= min(n_pages * (ps // chunk), 65535):
+            raise ValueError(f"paged_attention: _splits={_splits} outside 1 .. "
+                             f"{n_pages * (ps // chunk)} chunks")
     qpos = positions.reshape(b)
     if qpos.dtype != torch.int32:
         qpos = qpos.to(torch.int32)
     from seldon_core_tpu_torch.ops._build import launch
 
+    tile = _head_tile(G)
     out = torch.empty((b, h, hd), dtype=q.dtype, device=q.device)
+    ws = counters = None
+    if splits > 1:
+        pairs = b * kvh * -(-G // tile)
+        ws = torch.empty(pairs * splits * tile * (hd + 2), dtype=torch.float32,
+                         device=q.device)
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        counters = _counter_buffer(q.device, stream, pairs)
     launch(_kernel_fn(quantized), q.device, q.data_ptr(), *(t.data_ptr() for t in cache),
            block_tables.data_ptr(), qpos.data_ptr(), out.data_ptr(), b, h, kvh, hd, ps,
-           n_pages, float(hd ** -0.5))
+           n_pages, float(hd ** -0.5), splits, chunk, tile,
+           None if ws is None else ws.data_ptr(),
+           None if counters is None else counters.data_ptr())
     if quantized:
         paged_attention.launches_int8 += 1
     else:

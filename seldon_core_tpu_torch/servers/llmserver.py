@@ -475,6 +475,41 @@ class LLMServer(SeldonComponent):
             results_text.append(self._tokenizer.decode(seq) if text_mode[i] else None)
         return {"tokens": results_tokens, "texts": results_text}
 
+    # ------------------------------------------------------------------
+    # SeldonComponent surface
+    # ------------------------------------------------------------------
+    def predict(self, X, names: Sequence[str], meta: Optional[Dict] = None):
+        """strData -> the generated text; jsonData ``{"prompts" | "prompt",
+        "max_new_tokens", "temperature", "seed"}`` -> ``{"texts", "tokens"}``;
+        an int array (rows right-padded with -1) -> int64 tokens, -1-padded."""
+        if isinstance(X, (bytes, bytearray)):
+            X = X.decode("utf-8")
+        if isinstance(X, str):
+            return self.generate([X])["texts"][0]
+        if isinstance(X, dict):
+            prompts = X.get("prompts") or X.get("prompt")
+            if prompts is None:
+                raise SeldonError("jsonData needs 'prompts'")
+            if isinstance(prompts, str):
+                prompts = [prompts]
+            out = self.generate(prompts, max_new_tokens=X.get("max_new_tokens"),
+                                temperature=X.get("temperature"), seed=X.get("seed"))
+            return {"texts": out["texts"], "tokens": out["tokens"]}
+        arr = np.atleast_2d(np.asarray(X, dtype=np.int64))
+        prompts = [row[row >= 0] for row in arr]  # -1 right-padding
+        out = self.generate(prompts)
+        width = max(len(t) for t in out["tokens"])
+        padded = np.full((len(prompts), width), -1, np.int64)
+        for i, t in enumerate(out["tokens"]):
+            padded[i, :len(t)] = t
+        return padded
+
+    def tags(self) -> Dict[str, Any]:
+        """``{"llm_requests": N}``: private ``generate()`` calls so far (the
+        prefix cache, and its keys, arrive with a later slice)."""
+        with self._lock:
+            return {"llm_requests": self._request_count}
+
 
 __all__ = ["ByteTokenizer", "LLMServer", "bucket", "sample_tokens", "seed_key",
            "split_keys"]

@@ -4,18 +4,19 @@
 --port N [--device cuda|cpu]`` imports class ``<ModelFile>`` from module
 ``<ModelFile>`` in the working directory (or a dotted ``pkg.mod.Class``,
 e.g. ``seldon_core_tpu_torch.servers.torchserver.TorchServer``), constructs
-it with ``device=...`` and the typed parameters of
-``PREDICTIVE_UNIT_PARAMETERS`` (``[{"name": "model_uri", "value": "/ckpt",
-"type": "STRING"}]``), loads it and serves it over REST. The model class
-must accept a ``device`` keyword (``TorchServer`` does; an ``LLMServer``
-subclass passes ``**kwargs`` through). gRPC and the other subcommands of
-``seldon_core_tpu.transport.cli`` arrive with later slices.
+it with the typed parameters of ``PREDICTIVE_UNIT_PARAMETERS``
+(``[{"name": "model_uri", "value": "/ckpt", "type": "STRING"}]``), plus
+``device=...`` when its constructor takes a ``device`` parameter or
+``**kwargs`` (``TorchServer`` and ``LLMServer`` do; a host-only user model
+need not), loads it and serves it over REST. gRPC and the other
+subcommands of ``seldon_core_tpu.transport.cli`` arrive with later slices.
 """
 
 from __future__ import annotations
 
 import argparse
 import importlib
+import inspect
 import logging
 import os
 import sys
@@ -33,20 +34,35 @@ def import_interface(name: str):
     return getattr(module, class_name)
 
 
+def takes_device(klass) -> bool:
+    """True when ``klass(...)`` accepts a ``device`` keyword: its
+    constructor names a ``device`` parameter or takes ``**kwargs``."""
+    try:
+        params = inspect.signature(klass).parameters.values()
+    except (TypeError, ValueError):  # no introspectable signature
+        return False
+    return any(p.kind == p.VAR_KEYWORD
+               or (p.name == "device" and p.kind in (p.POSITIONAL_OR_KEYWORD, p.KEYWORD_ONLY))
+               for p in params)
+
+
 def build_component(interface_name: str, device: str):
-    """Construct ``interface_name`` with ``device`` and the typed
-    ``PREDICTIVE_UNIT_PARAMETERS``, and load it."""
+    """Construct ``interface_name`` with the typed
+    ``PREDICTIVE_UNIT_PARAMETERS`` (and ``device`` when the class takes
+    it), and load it."""
     from seldon_core_tpu_torch.contracts.parameters import parse_parameters
 
     klass = import_interface(interface_name)
     parameters = parse_parameters()
+    if takes_device(klass):
+        parameters = dict(parameters, device=device)
     try:
-        component = klass(device=device, **parameters)
+        component = klass(**parameters)
     except TypeError as e:
-        raise SystemExit(f"{interface_name}(device=..., **{sorted(parameters)}) failed: {e} — "
-                         f"the model class must accept a device keyword and the unit "
-                         f"parameters") from e
-    component.load()
+        raise SystemExit(f"{interface_name}(**{sorted(parameters)}) failed: {e} — the model "
+                         f"class must accept the unit parameters") from e
+    if hasattr(component, "load"):
+        component.load()
     return component
 
 

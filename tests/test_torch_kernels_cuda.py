@@ -95,6 +95,133 @@ def test_paged_attention_kernel_matches_plain(dev, h, kvh, hd, kv):
     _assert_within_ulp(out, _ref32(q, cache, bt, qpos))
 
 
+def _k1_case(dev, b, h, kvh, hd, ps, n_pages, ctx, kv, seed):
+    """A pool with shuffled pages, each row's positions written up to its
+    context (0 = an all-NULL_PAGE row), NULL tails in the tables, query
+    positions at the last written position."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    pool = b * n_pages + RESERVED_PAGES
+    k = torch.randn((pool, ps, kvh, hd), generator=g, device=dev).to(torch.bfloat16)
+    v = torch.randn((pool, ps, kvh, hd), generator=g, device=dev).to(torch.bfloat16)
+    k[:RESERVED_PAGES] = 0
+    v[:RESERVED_PAGES] = 0
+    pos = torch.full((pool, ps), PAD_POS, dtype=torch.int32, device=dev)
+    bt = torch.full((b, n_pages), NULL_PAGE, dtype=torch.int32, device=dev)
+    perm = torch.randperm(pool - RESERVED_PAGES, generator=g, device=dev) + RESERVED_PAGES
+    for i, n in enumerate(ctx):
+        used = -(-n // ps)
+        pages = perm[i * n_pages:i * n_pages + used]
+        bt[i, :used] = pages.to(torch.int32)
+        for j in range(used):
+            m = min(ps, n - j * ps)
+            pos[int(pages[j]), :m] = torch.arange(j * ps, j * ps + m, device=dev,
+                                                  dtype=torch.int32)
+    qpos = torch.tensor([[max(n - 1, 0)] for n in ctx], dtype=torch.int32, device=dev)
+    q = torch.randn((b, 1, h, hd), generator=g, device=dev).to(torch.bfloat16)
+    cache = (k, v, pos) if kv == "bf16" else _int8_pool((k, v, pos))
+    return q, cache, bt, qpos
+
+
+@pytest.mark.parametrize("h,kvh,hd", [(8, 8, 128), (8, 2, 128), (16, 2, 128), (8, 2, 64),
+                                      (16, 2, 64), (4, 4, 32), (16, 2, 32), (12, 4, 64),
+                                      (24, 2, 32)])
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+def test_paged_attention_kernel_every_split(dev, h, kvh, hd, kv):
+    """The kernel at every forced S, 1 .. the chunks of the table (10 here:
+    5 pages of 32 keys, chunks of 16), against the plain version: G = 1, 4,
+    8 (and 3, 12: a head tile with idle heads, two head tiles), hd 32, 64,
+    128, a context that is not a multiple of the chunk, one of 1 key, a
+    full table, and an all-NULL row (every split empty or fully masked).
+    Each call is one launch and leaves the arrival counters at zero."""
+    b, ps, n_pages = 5, 32, 5
+    q, cache, bt, qpos = _k1_case(dev, b, h, kvh, hd, ps, n_pages, [70, 1, 0, 160, 33], kv,
+                                  seed=h + kvh + hd)
+    ref32 = _ref32(q, cache, bt, qpos)
+    counter = "launches" if kv == "bf16" else "launches_int8"
+    n_chunks = n_pages * ps // paged_attention._chunk_keys(ps)
+    assert n_chunks == 10
+    for splits in range(1, n_chunks + 1):
+        before = getattr(paged_attention.paged_attention, counter)
+        out = paged_attention.paged_attention(q, cache, bt, qpos, _splits=splits)
+        torch.cuda.synchronize()
+        assert getattr(paged_attention.paged_attention, counter) == before + 1
+        assert torch.isfinite(out.float()).all(), f"S={splits}"
+        _assert_within_ulp(out, ref32)
+    for buf in paged_attention._counters.values():
+        assert not buf.any()
+    with pytest.raises(ValueError, match="_splits"):
+        paged_attention.paged_attention(q, cache, bt, qpos, _splits=n_chunks + 1)
+
+
+def _graph_nodes(fn):
+    """The types of the nodes of a CUDA graph of one call of ``fn``
+    (cuGraphNodeGetType: 0 is a kernel): every operation the call puts on
+    its stream. A warm-up call on the capture stream keeps lazy set-up out
+    of the graph. Returns (node types, the output of one replay)."""
+    import ctypes
+
+    libcuda = ctypes.CDLL("libcuda.so.1")
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(g, stream=stream):
+        out = fn()
+    raw = ctypes.c_void_p(g.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    assert libcuda.cuGraphGetNodes(raw, None, ctypes.byref(n)) == 0
+    nodes = (ctypes.c_void_p * max(n.value, 1))()
+    assert libcuda.cuGraphGetNodes(raw, nodes, ctypes.byref(n)) == 0
+    types = []
+    for node in nodes[:n.value]:
+        t = ctypes.c_int(-1)
+        assert libcuda.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(t)) == 0
+        types.append(t.value)
+    g.replay()
+    torch.cuda.synchronize()
+    return types, out.clone()
+
+
+def test_paged_attention_kernel_is_one_launch_and_counters_grow(dev):
+    """One call is one kernel on its stream (the nodes of a CUDA graph of
+    the call), split or not, and the graph's replay agrees with the plain
+    version; the counter buffer is zero after a call, and a larger b * kvh
+    makes a new, larger zeroed buffer."""
+    q, cache, bt, qpos = _k1_case(dev, 2, 4, 4, 128, 64, 4, [200, 90], "bf16", seed=1)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for splits in (1, 3):
+        paged_attention.paged_attention(q, cache, bt, qpos, _splits=splits)
+        torch.cuda.synchronize()
+        before = paged_attention.paged_attention.launches
+        nodes, out = _graph_nodes(
+            lambda: paged_attention.paged_attention(q, cache, bt, qpos, _splits=splits))
+        assert nodes == [0], nodes
+        assert paged_attention.paged_attention.launches == before + 2
+        _assert_within_ulp(out, _ref32(q, cache, bt, qpos))
+    small = paged_attention._counters[(q.device.index, stream)]
+    assert small.numel() >= 2 * 4 and not small.any()
+    q, cache, bt, qpos = _k1_case(dev, 2 * small.numel(), 4, 4, 64, 16, 2,
+                                  [20] * (2 * small.numel()), "int8", seed=2)
+    out = paged_attention.paged_attention(q, cache, bt, qpos, _splits=2)
+    torch.cuda.synchronize()
+    grown = paged_attention._counters[(q.device.index, stream)]
+    assert grown is not small and grown.numel() >= q.shape[0] * 4 and not grown.any()
+    _assert_within_ulp(out, _ref32(q, cache, bt, qpos))
+
+
+def test_paged_attention_kernel_rejects_unaligned_pool(dev):
+    """A pool view whose base is not 16-byte aligned raises (rows are read
+    as 16-byte vectors)."""
+    q, (k, v, pos), bt, qpos = _k1_case(dev, 1, 4, 4, 32, 8, 2, [10], "bf16", seed=3)
+    flat = torch.empty(k.numel() + 4, dtype=torch.bfloat16, device=dev)
+    shifted = flat[4:].view(k.shape)   # contiguous, 8 bytes off
+    shifted.copy_(k)
+    with pytest.raises(ValueError, match="16-byte"):
+        paged_attention.paged_attention(q, (shifted, v, pos), bt, qpos)
+
+
 def test_paged_attention_kernel_walks_to_the_query_page(dev):
     """The kernel's precondition, pinned: it walks a row's table only up to
     the query position's page. A page past it that holds EARLIER positions

@@ -353,3 +353,125 @@ def test_quantize_knob_validation(jax_params):
     tree = {"params": jax.tree_util.tree_map(np.asarray, jq._params["params"])}
     with pytest.raises(SeldonError, match="quantize='int8'"):
         port_server(tree)  # int8 leaves into a float server
+
+
+# ---------------------------------------------------------------------------
+# LLMServer.predict / tags through components/dispatch (the /predict surface)
+# ---------------------------------------------------------------------------
+TINY = dict(model="llama-tiny", max_new_tokens=6, eos_id=-1, seed=5, len_buckets=(16, 32),
+            batch_buckets=(1, 4), temperature=0.0)
+PREDICT_BODIES = [
+    {"strData": "hello"},
+    {"jsonData": {"prompts": ["hi", "a longer prompt"], "max_new_tokens": 3}},
+    {"data": {"ndarray": [[5, 9, 17, -1, -1], [4, 2, 8, 20, 7]]}},
+]
+
+
+@pytest.fixture(scope="module")
+def tiny_pair():
+    """(JAX server, its params as numpy) on llama-tiny."""
+    from seldon_core_tpu.components import dispatch as jax_dispatch
+    from seldon_core_tpu.contracts.payload import SeldonMessage as JaxMessage
+
+    js = JaxLLMServer(init_random=True, **TINY)
+    js.load()
+    tree = {"params": jax.tree_util.tree_map(np.asarray, js._params["params"])}
+    return js, tree, jax_dispatch, JaxMessage
+
+
+def tiny_server(tree, **extra) -> LLMServer:
+    s = LLMServer(device="cpu", **dict(TINY, **extra))
+    s.load(params=tree)
+    return s
+
+
+@pytest.mark.parametrize("body", PREDICT_BODIES, ids=["strData", "jsonData", "ndarray"])
+def test_predict_payloads_equal_jax(tiny_pair, body):
+    """strData, jsonData with prompts and max_new_tokens, and a -1-padded
+    int array through the port's and the JAX package's dispatch.predict on
+    the same weights: equal responses (texts, tokens, -1 padding, meta tags
+    {"llm_requests": N})."""
+    from seldon_core_tpu_torch.components import dispatch
+    from seldon_core_tpu_torch.contracts.payload import SeldonMessage
+
+    js, tree, jax_dispatch, JaxMessage = tiny_pair
+    server = tiny_server(tree)
+    n0 = js.tags()["llm_requests"]
+    want = jax_dispatch.predict(js, JaxMessage.from_dict(body)).to_dict()
+    got = dispatch.predict(server, SeldonMessage.from_dict(body)).to_dict()
+    assert got["meta"]["tags"] == {"llm_requests": 1}
+    assert want["meta"]["tags"] == {"llm_requests": n0 + 1}
+    got["meta"]["tags"] = want["meta"]["tags"] = None
+    assert got == want
+    assert server.tags() == {"llm_requests": 1}
+    if "data" in body:
+        assert got["data"]["ndarray"][0][:3] != [-1, -1, -1]
+
+
+def test_predict_rejects_json_without_prompts(tiny_pair):
+    from seldon_core_tpu_torch.components import dispatch
+    from seldon_core_tpu_torch.contracts.payload import SeldonMessage
+
+    server = tiny_server(tiny_pair[1])
+    with pytest.raises(SeldonError, match="prompts"):
+        dispatch.predict(server, SeldonMessage.from_dict({"jsonData": {"max_new_tokens": 2}}))
+
+
+def test_rest_predict_llm(tiny_pair):
+    """POST /predict and /api/v0.1/predictions to an LLM answer with the
+    generated text, as the JAX package's dispatch does."""
+    js, tree, jax_dispatch, JaxMessage = tiny_pair
+    server = tiny_server(tree)
+    body = {"strData": "hello", "meta": {"puid": "p-1"}}
+    want = jax_dispatch.predict(js, JaxMessage.from_dict(body)).to_dict()
+    httpd, _ = start(make_component_app(server, device="cpu"))
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    try:
+        for route in ("/predict", "/api/v0.1/predictions"):
+            code, _, got = _post(url + route, body)
+            assert code == 200
+            assert got["strData"] == want["strData"] and got["meta"]["puid"] == "p-1"
+        code, _, got = _post(url + "/predict", {"jsonData": {"temperature": 0.0}})
+        assert code == 400 and got["status"]["status"] == "FAILURE"
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    assert server.tags() == {"llm_requests": 2}
+
+
+def test_predict_single_prompt_joins_the_batch(tiny_pair):
+    """A jsonData {"prompt", "max_new_tokens"} predict to a server with
+    continuous_batching slots goes through the shared batcher service (its
+    admissions move, generate() is not called) and returns generate()'s
+    tokens in the unbatched response shape; a seeded or multi-prompt body
+    keeps the private path."""
+    from seldon_core_tpu_torch.components import dispatch
+    from seldon_core_tpu_torch.contracts.payload import SeldonMessage
+
+    server = tiny_server(tiny_pair[1], continuous_batching=2, kv_page_size=8)
+    want = server.generate(["hello"], max_new_tokens=4)
+    try:
+        results = [None] * 3
+
+        def client(i):
+            results[i] = dispatch.predict(server, SeldonMessage.from_dict(
+                {"jsonData": {"prompt": "hello", "max_new_tokens": 4}})).to_dict()
+
+        threads = [threading.Thread(target=client, args=(i,)) for i in range(3)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(60)
+        svc = server._batcher_service
+        assert svc is not None and svc.batcher._admit_seq == 3
+        assert server.tags() == {"llm_requests": 1}   # only the generate() above
+        for got in results:
+            assert got["jsonData"] == {"texts": want["texts"], "tokens": want["tokens"]}
+            assert got["meta"]["tags"] == {"llm_requests": 1}
+        private = dispatch.predict(server, SeldonMessage.from_dict(
+            {"jsonData": {"prompt": "hello", "max_new_tokens": 4, "seed": 1}})).to_dict()
+        assert private["jsonData"]["tokens"] == want["tokens"]
+        assert svc.batcher._admit_seq == 3 and server.tags() == {"llm_requests": 2}
+    finally:
+        if server._batcher_service is not None:
+            server._batcher_service.close()
