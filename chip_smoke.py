@@ -5,6 +5,8 @@ kernel of that path against its plain PyTorch version.
     python3 chip_smoke.py
     python3 chip_smoke.py --k4-sweep   # only: build, then K4's prefill tiles x splits
     python3 chip_smoke.py --k1-sweep   # only: build, then K1's splits S at its six shapes
+    python3 chip_smoke.py --k3-sweep [rows.json]   # only: build, then K3's tile widths x
+                                                   # splits; rows to rows.json
 
 Phases (any failure exits non-zero; nothing swallows an error):
 
@@ -26,8 +28,13 @@ Phases (any failure exits non-zero; nothing swallows an error):
    prefill kernel, TMA + wgmma, timed in turns with the decode kernel
    called through its own entry point at the same shape and with the
    library call), K3 the folded-BN identity bottleneck chain at the four
-   ResNet-50 chains at batch 128 (beside it, for information, the eager
-   cuDNN chain of the same blocks: several PyTorch calls);
+   ResNet-50 chains at batch 128 and at the served batches 8 and 1, at its
+   plan's tile widths and splits (each conv an implicit GEMM on TMA +
+   wgmma, K split at the small batches; its launches as
+   ``expected_launches`` says; one call captured in a CUDA graph must hold
+   exactly those kernel nodes, and its replay must agree too), timed in
+   turns with, for information, the eager cuDNN chain of the same blocks
+   (several PyTorch calls);
 4. serving phase, twice — the port's REST server in-process on an ephemeral
    port, an LLMServer at Llama-2-7B widths and depth (random weights from a
    seed, fused_norm=True, paged continuous batching over 8 slots), 8
@@ -46,18 +53,21 @@ Phases (any failure exits non-zero; nothing swallows an error):
    one float32 leaf;
 5. ResNet-50 forward phase — the folded model at full width and depth
    (random live weights from a seed: no residual branch is switched off),
-   a forward at batch 128 through K3 (12 launches, one per identity block)
-   against the same weights through the cuDNN chain (pallas_stages=()),
-   within FWD_TOL of max|logit|, top-1 equal but for near-ties; device time
-   per forward, images/s, peak device memory;
+   a forward at batch 128 through K3 (its launches: the four chains'
+   ``expected_launches``) against the same weights through the cuDNN chain
+   (pallas_stages=()), within FWD_TOL of max|logit|, top-1 equal but for
+   near-ties; device time and host enqueue per forward both ways, in turns,
+   at batch 128 and at a served batch of 8; images/s, peak device memory;
 6. predict serving phase — the same weights written with the port's
    export_checkpoint(use_orbax=False), a TorchServer built as the CLI builds
    it (PREDICTIVE_UNIT_PARAMETERS, device="cuda"), the port's REST server
    in-process: 4 concurrent POST /api/v0.1/predictions of 8 images (tensor
    encoding) and one POST /predict (ndarray). Every response is 200 with
    the JAX package's names and meta, its logits within FWD_TOL of the
-   in-process forward on the same images; K3's launches, zeroed just before
-   the requests and read just after, are requests x 12 exactly.
+   cuDNN-chain forward on the same images (and of the in-process K3
+   forward); K3's launches, zeroed just before
+   the requests and read just after, are exactly what ``expected_launches``
+   gives for four forwards at batch 8 and one at batch 1.
 
 The line before the last is the kernel table as JSON (K1 over a bf16 pool,
 K1 over an int8 pool, K2, K3, K4's decode kernel, K4's prefill kernel; K2's
@@ -112,7 +122,7 @@ K3_TOL_REASON = ("vs the plain version: within n_blocks bf16 ulps of max|plain| 
 # ResNet-50 chains at batch 128: (H = W, C, F, identity blocks)
 RESNET50_CHAINS = [(56, 256, 64, 2), (28, 512, 128, 3), (14, 1024, 256, 5), (7, 2048, 512, 2)]
 RESNET_BATCH = 128
-K3_PER_FORWARD = sum(n for *_, n in RESNET50_CHAINS)
+K3_BLOCKS = sum(n for *_, n in RESNET50_CHAINS)
 # Whole ResNet-50: the K3 forward against the cuDNN forward on the same
 # weights. The two round differently (K3 rounds acc + bias once, cuDNN the
 # conv and then a bf16 bias add) through 12 blocks; logits within FWD_TOL of
@@ -894,33 +904,39 @@ def live_blocks(c, f, n_blocks, g, dev):
     return blocks
 
 
-def k3_case(hw, c, f, n_blocks, seed, flush):
-    """One ResNet-50 identity chain at batch 128 through K3, against its
-    plain version, with the eager cuDNN chain of the same blocks beside it."""
-    import torch
+def k3_forward_launches(batch, sms):
+    """The launches K3 adds in one ResNet-50 forward at ``batch``: the four
+    chains' ``expected_launches``."""
+    from seldon_core_tpu_torch.ops.fused_resnet import expected_launches
 
-    from seldon_core_tpu_torch.models.resnet_infer import bottleneck, conv_weight
-    from seldon_core_tpu_torch.ops.fused_resnet import fused_identity_chain, identity_chain_ref
+    return sum(expected_launches(batch, hw, hw, c, f, n, sms) for hw, c, f, n in RESNET50_CHAINS)
+
+
+def k3_count():
+    from seldon_core_tpu_torch.ops.fused_resnet import fused_identity_chain
+
+    return fused_identity_chain.launches
+
+
+def k3_chain_inputs(batch, hw, c, f, n_blocks, seed):
+    import torch
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed)
-    x = torch.relu(torch.randn((RESNET_BATCH, hw, hw, c), generator=g, device=dev))
-    x = x.to(torch.bfloat16)
-    blocks = live_blocks(c, f, n_blocks, g, dev)
-    label = f"K3 {hw}x{hw}x{c} F={f} x{n_blocks} blocks, B={RESNET_BATCH}"
-    before = fused_identity_chain.launches
-    out = fused_identity_chain(x, blocks)
-    torch.cuda.synchronize()
-    if fused_identity_chain.launches != before + n_blocks:
-        fail(f"{label}: the wrapper did not count its {n_blocks} launches")
-    ref = identity_chain_ref(x, blocks)
-    diff = (out.float() - ref.float()).abs()
-    tol = n_blocks * bf16_ulp(ref.float().abs().max()).item()
-    err = diff.max().item()
-    if not torch.isfinite(out.float()).all() or err > tol:
-        fail(f"{label}: max_abs_err {err} > {tol} ({K3_TOL_REASON})")
-    # the cuDNN chain: F.conv2d on channels-last bf16 operands, bf16 bias
-    # add, relu — the folded flax graph's numerics, several PyTorch calls
+    x = torch.relu(torch.randn((batch, hw, hw, c), generator=g, device=dev)).to(torch.bfloat16)
+    return x, live_blocks(c, f, n_blocks, g, dev)
+
+
+def cudnn_chain_fn(x, blocks):
+    """The eager cuDNN chain of the same blocks: F.conv2d on channels-last
+    bf16 operands, bf16 bias add, relu — the folded flax graph's numerics,
+    several PyTorch calls."""
+    import torch
+
+    from seldon_core_tpu_torch.models.resnet_infer import bottleneck, conv_weight
+
+    dev = x.device
+    c, f = blocks[0]["w1"].shape
     cud = [{"Conv_0": {"w": conv_weight(b["w1"].reshape(1, 1, c, f), dev, torch.bfloat16),
                        "b": b["b1"].to(torch.bfloat16)},
             "Conv_1": {"w": conv_weight(b["w2"], dev, torch.bfloat16),
@@ -928,25 +944,145 @@ def k3_case(hw, c, f, n_blocks, seed, flush):
             "Conv_2": {"w": conv_weight(b["w3"].reshape(1, 1, f, c), dev, torch.bfloat16),
                        "b": b["b3"].to(torch.bfloat16)}} for b in blocks]
 
-    def cudnn_chain():
+    def run():
         y = x
         for blk in cud:
             y = bottleneck(y, blk, 1)
         return y
 
+    return run
+
+
+def k3_case(batch, hw, c, f, n_blocks, seed, flush, sms):
+    """One ResNet-50 identity chain at ``batch`` through K3 under its plan,
+    against its plain version: its launches as ``expected_launches`` says,
+    and one call captured in a CUDA graph (exactly those kernel nodes, the
+    replay within tolerance); timed in turns with the eager cuDNN chain of
+    the same blocks."""
+    import torch
+
+    from seldon_core_tpu_torch.ops.fused_resnet import (_k3_plan, expected_launches,
+                                                        fused_identity_chain, identity_chain_ref)
+
+    x, blocks = k3_chain_inputs(batch, hw, c, f, n_blocks, seed)
+    label = f"K3 {hw}x{hw}x{c} F={f} x{n_blocks} blocks, B={batch}"
+    want = expected_launches(batch, hw, hw, c, f, n_blocks, sms)
+    before = k3_count()
+    out = fused_identity_chain(x, blocks)
+    torch.cuda.synchronize()
+    got = k3_count() - before
+    if got != want:
+        fail(f"{label}: {got} launches, expected_launches says {want}")
+    ref = identity_chain_ref(x, blocks)
+    tol = n_blocks * bf16_ulp(ref.float().abs().max()).item()
+
+    def err_of(y, what):
+        e = (y.float() - ref.float()).abs().max().item()
+        if not torch.isfinite(y.float()).all() or e > tol:
+            fail(f"{label}: {what} max_abs_err {e} > {tol} ({K3_TOL_REASON})")
+        return e
+
+    err = err_of(out, "the kernel")
+    nodes, replay = graph_nodes(lambda: fused_identity_chain(x, blocks))
+    if nodes != ["kernel"] * want:
+        fail(f"{label}: one chain call put {nodes} on its stream, expected {want} kernels")
+    graph_err = err_of(replay, "the CUDA graph's replay")
+    cudnn_chain = cudnn_chain_fn(x, blocks)
     cudnn_err = (cudnn_chain().float() - ref.float()).abs().max().item()
-    del out, ref, diff
-    ms = time_ms(lambda: fused_identity_chain(x, blocks), flush)
+    del out, ref, replay
+    timed = time_turns([lambda: fused_identity_chain(x, blocks), cudnn_chain], flush)
     plain_ms = time_ms(lambda: identity_chain_ref(x, blocks), flush)
-    cudnn_ms = time_ms(cudnn_chain, flush)
     # one read and one write of the chain's activation, the weights (bf16)
     # and biases (float32) once; two flops per multiply-add
+    m = batch * hw * hw
     nbytes = 2 * x.numel() * 2 + n_blocks * ((2 * c * f + 9 * f * f) * 2 + (2 * f + c) * 4)
-    flops = 2 * RESNET_BATCH * hw * hw * (2 * c * f + 9 * f * f) * n_blocks
+    flops = 2 * m * (2 * c * f + 9 * f * f) * n_blocks
     bytes_s, flops_s = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S
-    return dict(err=err, tol=tol, cudnn_err=cudnn_err, ms=ms, plain_ms=plain_ms,
-                cudnn_ms=cudnn_ms, library_ms=None, bound_ms=max(bytes_s, flops_s) * 1e3,
-                bound_by="bytes" if bytes_s >= flops_s else "operations")
+    # the design's own byte floor: per block x read twice, y1 and y2
+    # written and read back, out written
+    floor_ms = n_blocks * m * (3 * c + 4 * f) * 2 / HBM_BYTES_PER_S * 1e3
+    return dict(err=err, graph_err=graph_err, tol=tol, cudnn_err=cudnn_err,
+                ms=timed[0][0], cudnn_ms=timed[1][0], enqueue_ms=timed[0][1], plain_ms=plain_ms,
+                library_ms=None, bound_ms=max(bytes_s, flops_s) * 1e3,
+                bound_by="bytes" if bytes_s >= flops_s else "operations", floor_ms=floor_ms,
+                launches=want, plan=_k3_plan(batch, hw, hw, c, f, sms))
+
+
+K3_SWEEP_SPLITS = (1, 2, 3, 4, 6, 8)
+
+
+def k3_sweep(card, flush, rows_path=None):
+    """``--k3-sweep``: at the four ResNet-50 chains, at B = 128 and B = 8,
+    every tile width x split of each of K3's three convs (each conv alone
+    on the chain's first block, checked against its plain conv once, then
+    timed in turns with the others of its conv, without flushing L2: in the
+    chain its input was just written), then the chain through the plan and
+    the eager cuDNN chain in turns (L2 flushed).
+    The data behind ``ops/fused_resnet._k3_plan``; every row also goes to
+    ``rows_path`` as JSON, when given."""
+    import torch
+
+    from seldon_core_tpu_torch.ops.fused_resnet import (GEMM_BNS, _block_param_list, _conv_dims,
+                                                        _conv_gemm, _k3_plan, _conv3x3_same,
+                                                        fused_identity_chain)
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rows = []
+    for batch in (RESNET_BATCH, PREDICT_BATCH):
+        for hw, c, f, n_blocks in RESNET50_CHAINS:
+            x, blocks = k3_chain_inputs(batch, hw, c, f, n_blocks, seed=hw + batch)
+            m = batch * hw * hw
+            w1, b1, w2, b2, w3, b3 = _block_param_list(blocks[:1])
+            xm = x.view(m, c)
+            y1 = torch.relu(xm.float() @ w1.float() + b1).to(torch.bfloat16)
+            y2 = _conv3x3_same(y1.view(batch, hw, hw, f).float(), w2.float()).reshape(m, f)
+            y2 = torch.relu(y2 + b2).to(torch.bfloat16)
+            y3 = torch.relu((y2.float() @ w3.float() + b3).to(torch.bfloat16) + xm)
+            convs = [(1, xm, w1, b1, None, y1), (2, y1, w2, b2, None, y2), (3, y2, w3, b3, xm, y3)]
+            partial = torch.empty(max(K3_SWEEP_SPLITS) * m * max(c, f), dtype=torch.float32,
+                                  device=x.device)
+            plan = _k3_plan(batch, hw, hw, c, f, sms)
+            label = f"{hw}x{hw}x{c} F={f} B={batch}"
+            for (stage, a, wt, bias, resid, want), (_, n, steps), picked in zip(
+                    convs, _conv_dims(c, f), plan):
+                configs = []
+                for bn in GEMM_BNS:
+                    for s in K3_SWEEP_SPLITS:
+                        per = -(-steps // s)
+                        if n % bn == 0 and s <= steps and -(-steps // per) == s:
+                            configs.append((bn, s, per))
+                outs = [torch.empty_like(want) for _ in configs]
+                tol = bf16_ulp(want.float().abs().max()).item()
+                for cfg, o in zip(configs, outs):
+                    _conv_gemm(stage, a, wt, bias, resid, o, hw, hw, cfg, partial)
+                    e = (o.float() - want.float()).abs().max().item()
+                    if not e <= tol:
+                        fail(f"k3-sweep {label} conv {stage} {cfg}: max_abs_err {e} > 1 ulp {tol}")
+                timed = time_turns([
+                    (lambda cfg=cfg, o=o: _conv_gemm(stage, a, wt, bias, resid, o, hw, hw, cfg,
+                                                     partial)) for cfg, o in zip(configs, outs)])
+                best = min(range(len(configs)), key=lambda i: timed[i][0])
+                for cfg, (ms, enq) in zip(configs, timed):
+                    rows.append(dict(chain=hw, batch=batch, conv=stage, m=m, n=n, steps=steps,
+                                     bn=cfg[0], splits=cfg[1], per=cfg[2], ms=ms, enqueue_ms=enq,
+                                     plan=cfg == tuple(picked)))
+                print(f"k3-sweep {label} conv {stage} [{m},{steps * 64}]x[{steps * 64},{n}]: "
+                      + ", ".join(f"{cfg[0]}/{cfg[1]}{'*' if cfg == tuple(picked) else ''} "
+                                  f"{ms:.4f}" for cfg, (ms, _) in zip(configs, timed))
+                      + f"; fastest {configs[best]}, plan {tuple(picked)} [{card}]", flush=True)
+                del outs
+            cudnn_chain = cudnn_chain_fn(x, blocks)
+            timed = time_turns([lambda: fused_identity_chain(x, blocks), cudnn_chain], flush)
+            rows.append(dict(chain=hw, batch=batch, n_blocks=n_blocks, plan_ms=timed[0][0],
+                             cudnn_ms=timed[1][0], plan_enqueue_ms=timed[0][1]))
+            print(f"k3-sweep {label} x{n_blocks} blocks, in turns: K3 (plan) "
+                  f"{timed[0][0]:.4f} ms, cuDNN chain {timed[1][0]:.4f} ms; host enqueue "
+                  f"{timed[0][1]:.4f} ms [{card}]", flush=True)
+            del x, blocks, partial, convs, y1, y2, y3
+    if rows_path:
+        os.makedirs(os.path.dirname(os.path.abspath(rows_path)), exist_ok=True)
+        with open(rows_path, "w") as fh:
+            json.dump(dict(card=card, rows=rows), fh, indent=1)
 
 
 def check_logits(label, got, ref):
@@ -987,22 +1123,31 @@ def resnet_forward_phase(card):
             fail(f"ResNet-50 weights: BottleneckBlock_{i} Conv_2 is all zero")
     g = torch.Generator(device=dev).manual_seed(51)
     x = torch.randn((RESNET_BATCH, 224, 224, 3), generator=g, device=dev)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    want = k3_forward_launches(RESNET_BATCH, sms)
     with torch.no_grad():
         fused_identity_chain.launches = 0
         logits = model(x)
         torch.cuda.synchronize()
-        launches = fused_identity_chain.launches
-        if launches != K3_PER_FORWARD:
-            fail(f"ResNet-50 forward launched K3 {launches} times, expected {K3_PER_FORWARD}")
+        launches = k3_count()
+        if launches != want:
+            fail(f"ResNet-50 forward: {launches} K3 launches, expected_launches says {want}")
         ref = resnet_serve_forward(model, x, pallas_stages=())
         err, bound, clear, agree = check_logits("ResNet-50 K3 vs cuDNN forward", logits, ref)
-        ms = time_ms(lambda: model(x))
-        cudnn_ms = time_ms(lambda: resnet_serve_forward(model, x, pallas_stages=()))
+        # the forward both ways in turns, at B = 128 and at a served B = 8
+        x8 = x[:PREDICT_BATCH].contiguous()
+        timed = time_turns([lambda: model(x),
+                            lambda: resnet_serve_forward(model, x, pallas_stages=()),
+                            lambda: model(x8),
+                            lambda: resnet_serve_forward(model, x8, pallas_stages=())])
+    (ms, enq), (cudnn_ms, cudnn_enq), (ms8, enq8), (cudnn_ms8, cudnn_enq8) = timed
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     print(f"ResNet-50 folded forward, B={RESNET_BATCH} 224x224x3 bf16, random live weights: "
           f"K3 forward {ms:.3f} ms = {RESNET_BATCH / ms * 1e3:.1f} images/s ({launches} K3 "
-          f"launches per forward); cuDNN-chain forward (pallas_stages=()) {cudnn_ms:.3f} ms = "
-          f"{RESNET_BATCH / cudnn_ms * 1e3:.1f} images/s; max |logit diff| {err:.4g} (bound "
+          f"launches per forward; host enqueue {enq:.3f} ms); cuDNN-chain forward (pallas_stages=()) {cudnn_ms:.3f} ms = "
+          f"{RESNET_BATCH / cudnn_ms * 1e3:.1f} images/s (enqueue {cudnn_enq:.3f} ms), in "
+          f"turns; at B={PREDICT_BATCH}: K3 {ms8:.3f} ms (enqueue {enq8:.3f} ms), cuDNN chain "
+          f"{cudnn_ms8:.3f} ms (enqueue {cudnn_enq8:.3f} ms); max |logit diff| {err:.4g} (bound "
           f"{bound:.4g} = {FWD_TOL} x max|logit|), top-1 equal in {agree} of {clear} rows with a "
           f"clear margin; peak device memory {peak_gb:.2f} GB [{card}]", flush=True)
     return model, dict(ms=ms, cudnn_ms=cudnn_ms, err=err, peak_gb=peak_gb)
@@ -1018,6 +1163,7 @@ def resnet_serving_phase(card, model):
     import torch
 
     from seldon_core_tpu_torch.contracts.parameters import parse_parameters
+    from seldon_core_tpu_torch.models.resnet_infer import resnet_serve_forward
     from seldon_core_tpu_torch.ops.fused_resnet import fused_identity_chain
     from seldon_core_tpu_torch.servers.torchserver import TorchServer, export_checkpoint
     from seldon_core_tpu_torch.transport.rest import make_component_app, start
@@ -1064,15 +1210,19 @@ def resnet_serving_phase(card, model):
         t1 = time.perf_counter()
         nd = post(url + "/predict", single_body)
         nd_wall = time.perf_counter() - t1
-        launches = fused_identity_chain.launches
+        launches = k3_count()
     finally:
         httpd.shutdown()
         httpd.server_close()
-    n_requests = PREDICT_REQUESTS + 1
-    if launches != n_requests * K3_PER_FORWARD:
-        fail(f"predict serving: K3 launched {launches} times for {n_requests} requests, "
-             f"expected {n_requests} x {K3_PER_FORWARD}")
+    # the requests' batches pad to their buckets: 8 images stay 8, 1 stays 1
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    per8, per1 = k3_forward_launches(PREDICT_BATCH, sms), k3_forward_launches(1, sms)
+    want = PREDICT_REQUESTS * per8 + per1
+    if launches != want:
+        fail(f"predict serving: {launches} K3 launches for {PREDICT_REQUESTS} requests of "
+             f"{PREDICT_BATCH} images and one of 1, expected_launches says {want}")
     names = [f"t:{i}" for i in range(1000)]
+    errs = []
     for i, (res, im) in enumerate(zip(results + [nd], images + [single])):
         if res is None:
             fail(f"predict request {i} did not complete")
@@ -1091,18 +1241,26 @@ def resnet_serving_phase(card, model):
                else np.asarray(data["tensor"]["values"]).reshape(data["tensor"]["shape"]))
         if got.shape != (im.shape[0], 1000):
             fail(f"predict request {i}: logits shaped {got.shape}")
+        # the served logits against the cuDNN chain on the same weights (a
+        # computation independent of K3) and against the in-process forward
         with torch.no_grad():
-            want = model(torch.from_numpy(im).cuda())
-        check_logits(f"predict request {i} vs the in-process forward",
-                     torch.from_numpy(got), want.cpu())
+            xi = torch.from_numpy(im).cuda()
+            cudnn = resnet_serve_forward(model, xi, pallas_stages=()).cpu()
+            k3 = model(xi).cpu()
+        err, bound, _, _ = check_logits(f"predict request {i} vs the cuDNN-chain forward",
+                                        torch.from_numpy(got), cudnn)
+        check_logits(f"predict request {i} vs the in-process forward", torch.from_numpy(got), k3)
+        errs.append((err, bound))
     print(f"predict serving (ResNet-50 folded, TorchServer from a msgpack checkpoint: export "
           f"{export_s:.2f} s, load {load_s:.2f} s): {PREDICT_REQUESTS} concurrent POST "
           f"/api/v0.1/predictions of {PREDICT_BATCH} images (tensor JSON) in "
           f"{max(walls):.3f} s, request latency median {statistics.median(walls) * 1e3:.1f} ms "
           f"max {max(walls) * 1e3:.1f} ms; POST /predict of 1 image (ndarray JSON) "
-          f"{nd_wall * 1e3:.1f} ms; K3 launches {launches} = {n_requests} requests x "
-          f"{K3_PER_FORWARD}; every response 200 with names t:0..t:999, puid echoed, logits "
-          f"within {FWD_TOL} x max|logit| of the in-process forward [{card}]", flush=True)
+          f"{nd_wall * 1e3:.1f} ms; K3 launches {launches} = {PREDICT_REQUESTS} x {per8} + "
+          f"{per1}, as expected_launches says; every response 200 with names t:0..t:999, puid "
+          f"echoed, logits within {FWD_TOL} x max|logit| of the cuDNN-chain forward (max "
+          f"|diff| {max(e for e, _ in errs):.4g}, bound at least {min(b for _, b in errs):.4g})"
+          f" and of the in-process forward [{card}]", flush=True)
     return launches
 
 
@@ -1150,9 +1308,10 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 print(f"  ptxas[{name}]: {line.strip()}")
-    if sys.argv[1:] in (["--k4-sweep"], ["--k1-sweep"]):
+    sweeps = {"--k4-sweep": k4_sweep, "--k1-sweep": k1_sweep, "--k3-sweep": k3_sweep}
+    if len(sys.argv) >= 2 and sys.argv[1] in sweeps:
         scratch = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
-        (k4_sweep if sys.argv[1] == "--k4-sweep" else k1_sweep)(card, lambda: scratch.fill_(1))
+        sweeps[sys.argv[1]](card, lambda: scratch.fill_(1), *sys.argv[2:])
         return 0
 
     # 3. kernel phase
@@ -1223,20 +1382,29 @@ def main() -> int:
               f"torch.matmul on bf16 weights {step_sum('library_ms', sfx):.3f} ms [{card}]",
               flush=True)
     k3 = {}
-    for hw, c, f, n in RESNET50_CHAINS:
-        r = k3_case(hw, c, f, n, seed=hw, flush=flush)
-        k3[hw] = r
-        print(f"K3 fused_identity_chain {hw}x{hw}x{c} F={f} x{n} blocks, B={RESNET_BATCH} bf16: "
-              f"kernel_ms {r['ms']:.4f} plain_ms {r['plain_ms']:.4f} bound_ms "
-              f"{r['bound_ms']:.4f} ({r['bound_by']}) library_ms null (no single PyTorch "
-              f"call); the eager cuDNN chain (F.conv2d + bf16 bias + relu, {3 * n} convs: "
-              f"several calls) {r['cudnn_ms']:.4f} ms, its max diff from the plain version "
-              f"{r['cudnn_err']:.3e}; max_abs_err {r['err']:.3e} <= tolerance {r['tol']:.3e} "
-              f"({K3_TOL_REASON}) [{card}]", flush=True)
-    print(f"K3 over one ResNet-50 forward's {K3_PER_FORWARD} identity blocks at B="
-          f"{RESNET_BATCH}: kernel {sum(r['ms'] for r in k3.values()):.3f} ms, bound "
-          f"{sum(r['bound_ms'] for r in k3.values()):.3f} ms, cuDNN chain "
-          f"{sum(r['cudnn_ms'] for r in k3.values()):.3f} ms [{card}]", flush=True)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    # batch 128, then the served batches: 8 images a request and 1 (split K)
+    for batch in (RESNET_BATCH, PREDICT_BATCH, 1):
+        for hw, c, f, n in RESNET50_CHAINS:
+            r = k3_case(batch, hw, c, f, n, seed=hw + batch, flush=flush, sms=sms)
+            k3[batch, hw] = r
+            print(f"K3 fused_identity_chain {hw}x{hw}x{c} F={f} x{n} blocks, B={batch} bf16: "
+                  f"kernel_ms {r['ms']:.4f} ({r['launches']} launches; plan (width, splits, "
+                  f"steps per split) per conv {r['plan']}; host enqueue {r['enqueue_ms']:.4f} "
+                  f"ms) cudnn_ms {r['cudnn_ms']:.4f} (the eager cuDNN chain: F.conv2d + bf16 "
+                  f"bias + relu, {3 * n} convs, several calls; max diff from the plain version "
+                  f"{r['cudnn_err']:.3e}), in turns; plain_ms {r['plain_ms']:.4f} bound_ms "
+                  f"{r['bound_ms']:.4f} ({r['bound_by']}) library_ms null (no single PyTorch "
+                  f"call); the design's own byte floor (y1, y2 through device memory) "
+                  f"{r['floor_ms']:.4f} ms; max_abs_err {r['err']:.3e}, graph replay "
+                  f"{r['graph_err']:.3e} <= tolerance {r['tol']:.3e} ({K3_TOL_REASON}); one "
+                  f"call = {r['launches']} kernel nodes (CUDA graph of the call) [{card}]",
+                  flush=True)
+        rows = [k3[batch, hw] for hw, *_ in RESNET50_CHAINS]
+        print(f"K3 over one ResNet-50 forward's {K3_BLOCKS} identity blocks at B={batch}: "
+              f"kernel {sum(r['ms'] for r in rows):.3f} ms ({sum(r['launches'] for r in rows)} "
+              f"launches), cuDNN chain {sum(r['cudnn_ms'] for r in rows):.3f} ms, bound "
+              f"{sum(r['bound_ms'] for r in rows):.3f} ms [{card}]", flush=True)
     del scratch
 
     # 4. serving phase: bf16, then int8 weights + int8 KV once the first is freed
@@ -1252,6 +1420,8 @@ def main() -> int:
     # 5. ResNet-50 forward; 6. predict serving
     model, _ = resnet_forward_phase(card)
     k3_launches = resnet_serving_phase(card, model)
+    if k3_launches == 0:
+        fail("predict serving: K3 (csrc/fused_resnet_wgmma.cu) never launched")
     del model
 
     def entry(name, route, source, replaces, launches, r):
@@ -1272,8 +1442,8 @@ def main() -> int:
         entry("fused_residual_rmsnorm", "triton", "seldon_core_tpu_torch/ops/fused_norm.py",
               "seldon_core_tpu/ops/fused_norm.py:137",
               bf16_launches["k2"] + int8_launches["k2"], k2[8]),
-        entry("fused_identity_chain", "cuda", "seldon_core_tpu_torch/csrc/fused_resnet.cu",
-              "seldon_core_tpu/ops/fused_resnet.py:239", k3_launches, k3[56]),
+        entry("fused_identity_chain", "cuda", "seldon_core_tpu_torch/csrc/fused_resnet_wgmma.cu",
+              "seldon_core_tpu/ops/fused_resnet.py:239", k3_launches, k3[RESNET_BATCH, 56]),
         entry("int8_matmul", "cuda", "seldon_core_tpu_torch/csrc/int8_matmul.cu",
               "seldon_core_tpu/ops/pallas_int8.py:127",
               int8_launches["k4"] - int8_launches["k4_wgmma"], k4["wq/wk/wv/wo"]),

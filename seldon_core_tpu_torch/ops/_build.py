@@ -2,16 +2,20 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface (no PyTorch headers), so one
 ``nvcc`` call builds it in seconds into ``build/kernels/lib<name>-<hash>.so``
-at the repository root; the hash covers the source and the flags, so an
-edited source rebuilds and an unchanged one loads the existing library.
+at the repository root; the hash covers the source, the local headers it
+includes (``#include "..."``, found in ``csrc/``) and the flags, so an
+edited source or header rebuilds what includes it, and an unchanged one
+loads the existing library.
 Builds happen at first use, never at import. Target: ``sm_90a`` (Hopper).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -41,9 +45,23 @@ def _nvcc() -> str:
                        "the port's CUDA kernels are built from source at first use")
 
 
+_LOCAL_INCLUDE = re.compile(r'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.MULTILINE)
+
+
+def _with_headers(path: Path, seen: Dict[Path, bytes]) -> Dict[Path, bytes]:
+    """``path``'s bytes, then those of every local header it includes,
+    transitively, each once, in the order first included."""
+    if path not in seen:
+        text = seen[path] = path.read_bytes()
+        for inc in _LOCAL_INCLUDE.findall(text.decode()):
+            _with_headers(CSRC / inc, seen)
+    return seen
+
+
 def _library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    parts = _with_headers(CSRC / f"{name}.cu", {})
+    digest = hashlib.sha256(b"".join(parts.values())
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
@@ -101,6 +119,13 @@ def launch(fn, device: torch.device, *args) -> None:
         raise RuntimeError(f"{fn.__name__} launch failed: cudaError {rc}")
 
 
+@functools.lru_cache(maxsize=None)
+def sm_count(device_index: int) -> int:
+    """SMs of card ``device_index``, asked once: the kernels' plans size
+    their grids by it, hundreds of times per decode step."""
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
 def build_all() -> Dict[str, ctypes.CDLL]:
     """Compile every kernel source (one nvcc process per source, all
     started before any is awaited) and load them. Returns name -> library."""
@@ -112,4 +137,4 @@ def build_all() -> Dict[str, ctypes.CDLL]:
     return {n: load_library(n) for n in names}
 
 
-__all__ = ["BUILD_DIR", "build_all", "build_logs", "launch", "load_library"]
+__all__ = ["BUILD_DIR", "build_all", "build_logs", "launch", "load_library", "sm_count"]

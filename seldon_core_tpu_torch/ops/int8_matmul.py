@@ -107,13 +107,6 @@ def _uses_wgmma(m: int, n: int, k: int, x_ptr: int, q_ptr: int) -> bool:
 
 
 @functools.lru_cache(maxsize=None)
-def _sm_count(device_index: int) -> int:
-    """SMs of card ``device_index``, asked once: a decode step launches
-    this kernel 225 times."""
-    return torch.cuda.get_device_properties(device_index).multi_processor_count
-
-
-@functools.lru_cache(maxsize=None)
 def _entry(lib: str, name: str, n_ints: int):
     """The C entry point ``name`` of ``csrc/<lib>.cu``, built on first use:
     (x, q, scale, out, partial, ``n_ints`` ints, stream)."""
@@ -145,17 +138,21 @@ def _decode_kernel(x, q, scale, out) -> torch.Tensor:
     no checks, no count. The served path reaches it only through
     ``int8_matmul``; ``chip_smoke.py`` also times it at prefill shapes
     beside the prefill kernel."""
+    from seldon_core_tpu_torch.ops._build import sm_count
+
     m, k = x.shape
     return _launch("int8_matmul", "int8_matmul_bf16", x, q, scale, out,
-                   *_split_k(m, q.shape[1], k, _sm_count(x.device.index)))
+                   *_split_k(m, q.shape[1], k, sm_count(x.device.index)))
 
 
 def _wgmma_kernel(x, q, scale, out, plan=None) -> torch.Tensor:
     """The prefill kernel (TMA + wgmma, split-K) into ``out`` with ``plan``
     = (tile width, splits, steps per split), by default ``_wgmma_plan``'s:
     no checks, no count."""
+    from seldon_core_tpu_torch.ops._build import sm_count
+
     m, k = x.shape
-    bn, splits, per = plan or _wgmma_plan(m, q.shape[1], k, _sm_count(x.device.index))
+    bn, splits, per = plan or _wgmma_plan(m, q.shape[1], k, sm_count(x.device.index))
     return _launch("int8_matmul_wgmma", "int8_matmul_wgmma_bf16", x, q, scale, out, splits, per,
                    bn)
 

@@ -7,9 +7,12 @@ Tolerance: within n_blocks bf16 ulps of max|reference| elementwise. Both
 sides sum the same bf16 products in float32, in different orders, so a bf16
 hand-off may round to the neighbouring value once per block. The bound is
 tight enough to catch the two faults a port of this kernel is prone to,
-which the last tests show: a 3x3 halo filled with relu(b1) (the 1x1 conv run
-over a zero-padded x instead of padding y1) and two taps of w2 read in each
-other's place. The CUDA kernel itself runs only on a card:
+which the tests show: a 3x3 halo filled with relu(b1) (the 1x1 conv run
+over a zero-padded x instead of padding y1), two taps of w2 read in each
+other's place, and the kernel's wrap mask dropped. The kernel's tiling,
+flat tap shifts and masks are held here through ``gemm_chain_emulated``,
+its CPU emulation, and its plan as a pure function. The CUDA kernel itself
+runs only on a card:
 tests/test_torch_kernels_cuda.py."""
 
 import numpy as np
@@ -172,3 +175,89 @@ def test_tolerance_catches_seeded_faults(fault):
         swapped = [dict(pb[0], w2=taps[order].reshape(3, 3, 16, 16))] + pb[1:]
         out = port.fused_identity_chain(px, swapped)
     assert not within(out.float().numpy(), want, 2)
+
+
+@pytest.mark.parametrize("b,h,w,c,f", [
+    (3, 7, 7, 16, 8),     # 147 pixels: the second tile ragged, tiles cross image seams
+    (2, 5, 9, 32, 16),    # rows shorter than a tile: taps wrap and cross seams in every tile
+    (2, 10, 40, 16, 8),   # 800 pixels, 7 tiles, the last one ragged
+    (1, 5, 9, 16, 16),    # one image: shifts past both ends of the batch read TMA's zeros
+])
+@pytest.mark.parametrize("oracle", ["ref", "interpret"])
+def test_gemm_emulation_matches_jax(b, h, w, c, f, oracle):
+    """The kernel's arithmetic (128-row tiles over the flattened batch,
+    each tap a flat shift of y1 with zeros past the ends, the seam and wrap
+    masks, the three epilogues) against JAX's plain chain and its Pallas
+    kernel with every image of the batch stacked in one program (its own
+    seam masks), within n_blocks ulps."""
+    x, blocks = make_case(5, b, h, w, c, f, 2, live=True)
+    jx, jb = to_jax(x, blocks)
+    want = jax_ref(jx, jb) if oracle == "ref" else jax_kernel(jx, jb, group=b, interpret=True)
+    px, pb = to_port(x, blocks)
+    got = port.gemm_chain_emulated(px, pb)
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == (b, h, w, c)
+    assert within(got.float().numpy(), np.asarray(want, np.float32), 2)
+
+
+@pytest.mark.parametrize("b,h,w", [(3, 7, 7), (2, 10, 40)])
+def test_gemm_emulation_without_wrap_mask_fails_the_tolerance(b, h, w):
+    """The seeded fault: without the column mask, taps at a row's ends read
+    the neighbouring row's pixels — outside the tolerance, and only on the
+    first and last columns."""
+    x, blocks = make_case(6, b, h, w, 16, 8, 2, live=True)
+    jx, jb = to_jax(x, blocks)
+    want = np.asarray(jax_ref(jx, jb), np.float32)
+    px, pb = to_port(x, blocks)
+    assert within(port.gemm_chain_emulated(px, pb).float().numpy(), want, 2)
+    faulty = port.gemm_chain_emulated(px, pb, col_mask=False).float().numpy()
+    assert not within(faulty, want, 2)
+    # one block: the fault reaches only the pixels whose taps wrap
+    want1 = np.asarray(jax_ref(jx, jb[:1]), np.float32)
+    faulty1 = port.gemm_chain_emulated(px, pb[:1], col_mask=False).float().numpy()
+    assert within(faulty1[:, :, 1:-1], want1[:, :, 1:-1], 1)
+    assert not within(faulty1, want1, 1)
+
+
+def test_tap_keep_marks_seams_and_wraps():
+    """Tap bits of the stacked batch: the centre tap always; (-1, 0) not on
+    an image's first row (the previous image's last row sits there in the
+    flat order); (0, +1) not on a row's last column."""
+    keep = port._tap_keep(2, 3, 4)
+    assert keep.shape == (24, 9) and keep[:, 4].all()
+    p = torch.arange(24)
+    assert torch.equal(keep[:, 1], (p // 4) % 3 != 0)
+    assert torch.equal(keep[:, 5], p % 4 != 3)
+    assert torch.equal(port._tap_keep(2, 3, 4, col_mask=False)[:, 5], torch.ones(24, dtype=bool))
+
+
+@pytest.mark.parametrize("b", [1, 2, 8, 32, 128, 1024])
+@pytest.mark.parametrize("hw,c,f", [(56, 256, 64), (28, 512, 128), (14, 1024, 256),
+                                    (7, 2048, 512), (5, 64, 128)])
+@pytest.mark.parametrize("sms", [132, 114])
+def test_k3_plan_and_expected_launches(b, hw, c, f, sms):
+    """The plan as a pure function: per conv a tile width that divides N,
+    splits that cover K with none empty; expected_launches counts three
+    launches a block plus a reduce per split conv."""
+    convs = port._k3_plan(b, hw, hw, c, f, sms)
+    assert len(convs) == 3
+    dims = port._conv_dims(c, f)
+    assert dims == ((c, f, c // 64), (f, f, 9 * f // 64), (f, c, f // 64))
+    reduces = 0
+    for (bn, splits, per), (_, n, steps) in zip(convs, dims):
+        assert bn in port.GEMM_BNS and n % bn == 0
+        assert 1 <= splits <= steps and splits * per >= steps and (splits - 1) * per < steps
+        reduces += splits > 1
+    assert port.expected_launches(b, hw, hw, c, f, 3, sms) == 3 * (3 + reduces)
+    assert port._k3_plan(b, hw, hw, c, f, sms) == convs   # pure: the same answer
+
+
+def test_k3_plan_follows_the_sweep():
+    """Where the sweep's timings were clear, the plan picks as they did
+    (chip_smoke.py --k3-sweep, NVIDIA H100 80GB HBM3): one split at B = 128;
+    the widest tile for the 3x3 at 7x7; K split at 7x7 and 14x14 for B = 8,
+    whose 1x1 reduce at 7x7 has 4 row tiles."""
+    for hw, c, f in [(56, 256, 64), (28, 512, 128), (14, 1024, 256), (7, 2048, 512)]:
+        assert all(splits == 1 for _, splits, _ in port._k3_plan(128, hw, hw, c, f))
+    assert port._k3_plan(128, 7, 7, 2048, 512)[1][0] == 256
+    assert port._k3_plan(8, 7, 7, 2048, 512)[0][1] > 1
+    assert port._k3_plan(8, 14, 14, 1024, 256)[1][1] > 1

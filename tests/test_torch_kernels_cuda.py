@@ -461,18 +461,38 @@ def _k3_within(out, ref, n_blocks):
     return (out.float() - ref.float()).abs().max().item() <= tol
 
 
+def _k3_run(x, blocks, plan=None):
+    """One chain call, through the wrapper under its plan, or with ``plan``
+    (three (tile width, splits, steps per split)) forced on every block;
+    ``launches`` must grow by exactly ``expected_launches`` or, forced, by
+    the plan's count."""
+    b, h, w, c = x.shape
+    f = blocks[0]["w1"].shape[1]
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    before = fused_resnet.fused_identity_chain.launches
+    if plan is None:
+        out = fused_resnet.fused_identity_chain(x, blocks)
+        want = fused_resnet.expected_launches(b, h, w, c, f, len(blocks), sms)
+    else:
+        params = fused_resnet._block_param_list(blocks)
+        out = fused_resnet._gemm_chain(x, params, [plan] * len(blocks))
+        want = len(blocks) * sum(1 + (splits > 1) for _, splits, _ in plan)
+    torch.cuda.synchronize()
+    assert fused_resnet.fused_identity_chain.launches - before == want
+    return out
+
+
 @pytest.mark.parametrize("b,h,w,c,f,n_blocks", [
     (2, 56, 56, 256, 64, 2), (2, 28, 28, 512, 128, 1), (2, 14, 14, 1024, 256, 1),
-    (3, 7, 7, 2048, 512, 2),   # the masked 49-pixel tile, the whole image per CTA
-    (2, 10, 40, 128, 64, 1),   # bands of 4 rows: the last one cut by the image's end
-    (1, 5, 9, 64, 128, 3),     # the whole image and its halo (7 x 9 pixels) in one CTA
+    (3, 7, 7, 2048, 512, 2),   # tiles across image seams, the last one ragged
+    (2, 10, 40, 128, 64, 1),   # rows of 40: a tile holds 3.2 image rows
+    (1, 5, 9, 64, 128, 3),     # the whole image in one ragged tile
+    (1, 7, 7, 2048, 512, 1), (8, 7, 7, 2048, 512, 2),        # served batches: split K
+    (1, 14, 14, 1024, 256, 1), (8, 14, 14, 1024, 256, 2),
 ])
 def test_fused_resnet_kernel_matches_plain(dev, b, h, w, c, f, n_blocks):
     x, blocks = _k3_case(dev, b, h, w, c, f, n_blocks, seed=h + c + f)
-    before = fused_resnet.fused_identity_chain.launches
-    out = fused_resnet.fused_identity_chain(x, blocks)
-    torch.cuda.synchronize()
-    assert fused_resnet.fused_identity_chain.launches == before + n_blocks
+    out = _k3_run(x, blocks)
     assert out.dtype == torch.bfloat16 and out.shape == x.shape
     assert torch.isfinite(out.float()).all()
     ref = fused_resnet.identity_chain_ref(x, blocks)
@@ -485,15 +505,44 @@ def test_fused_resnet_kernel_matches_plain(dev, b, h, w, c, f, n_blocks):
         xi = want
 
 
+@pytest.mark.parametrize("bn", [64, 128, 256])
+@pytest.mark.parametrize("splits", [1, 2, 3, 8])
+def test_fused_resnet_gemm_every_width_and_split(dev, bn, splits):
+    """The kernel at every tile width and split the plan can pick
+    (splits capped at each conv's K steps), on a ragged odd-width batch:
+    198 pixels, two tiles, rows of 11."""
+    x, blocks = _k3_case(dev, 2, 9, 11, 512, 256, 2, seed=bn + splits)
+    plan = []
+    for _, _, steps in fused_resnet._conv_dims(512, 256):
+        per = -(-steps // min(splits, steps))
+        plan.append((bn, -(-steps // per), per))
+    out = _k3_run(x, blocks, plan=tuple(plan))
+    assert _k3_within(out, fused_resnet.identity_chain_ref(x, blocks), 2)
+
+
+@pytest.mark.parametrize("b,h,w,c,f", [(2, 14, 14, 256, 64), (8, 7, 7, 2048, 512)])
+def test_fused_resnet_chain_graph_holds_expected_launches(dev, b, h, w, c, f):
+    """One chain call captured in a CUDA graph holds exactly the expected
+    launches as kernel nodes and nothing else (its workspaces come from the
+    graph's pool), and the replay agrees with the plain version."""
+    x, blocks = _k3_case(dev, b, h, w, c, f, 2, seed=b)
+    nodes, out = _graph_nodes(lambda: fused_resnet.fused_identity_chain(x, blocks))
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert nodes == [0] * fused_resnet.expected_launches(b, h, w, c, f, 2, sms), nodes
+    assert _k3_within(out, fused_resnet.identity_chain_ref(x, blocks), 2)
+
+
 def test_fused_resnet_kernel_tolerance_catches_faults(dev):
     """The kernel run on a tap-swapped w2 (a kernel that read two taps in
     each other's place) lands outside the tolerance, and so does the plain
-    chain with y1's halo filled with relu(b1) instead of zero."""
+    chain with y1's halo filled with relu(b1) instead of zero, while the
+    kernel on the true weights stays inside."""
     x, blocks = _k3_case(dev, 2, 14, 14, 256, 64, 1, seed=3)
     ref = fused_resnet.identity_chain_ref(x, blocks)
+    assert _k3_within(_k3_run(x, blocks), ref, 1)
     taps = blocks[0]["w2"].reshape(9, 64, 64)
     swapped = dict(blocks[0], w2=taps[[1, 0, 2, 3, 4, 5, 6, 7, 8]].reshape(3, 3, 64, 64))
-    assert not _k3_within(fused_resnet.fused_identity_chain(x, [swapped]), ref, 1)
+    assert not _k3_within(_k3_run(x, [swapped]), ref, 1)
     blk = blocks[0]
     xp = torch.nn.functional.pad(x.float(), (0, 0, 1, 1, 1, 1))
     y1 = torch.relu(xp @ blk["w1"].float() + blk["b1"]).to(torch.bfloat16).float()
@@ -516,3 +565,6 @@ def test_fused_resnet_kernel_rejects_what_it_does_not_take(dev):
                                                 b3=blocks[0]["b3"][:32].contiguous())])
     with pytest.raises(ValueError, match="not divisible"):
         fused_resnet.fused_identity_chain(x, blocks, group=2)
+    with pytest.raises(ValueError, match="16-byte"):   # TMA needs aligned bases
+        flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=dev)
+        fused_resnet.fused_identity_chain(flat[1:].view(x.shape), blocks)
