@@ -4,6 +4,7 @@ kernel of that path against its plain PyTorch version.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --k4-sweep   # only: build, then K4's prefill tiles x splits
+    python3 chip_smoke.py --k4-decode-sweep   # only: build, then K4's decode strips x splits
     python3 chip_smoke.py --k1-sweep   # only: build, then K1's splits S at its six shapes
     python3 chip_smoke.py --k3-sweep [rows.json]   # only: build, then K3's tile widths x
                                                    # splits; rows to rows.json
@@ -23,9 +24,12 @@ Phases (any failure exits non-zero; nothing swallows an error):
    must put one kernel and nothing else on its stream, counted from a CUDA
    graph of the call, whose replay must agree too), K2 fused
    residual + RMSNorm, K4 the int8
-   GEMM at every decode shape of the int8 7B model (the decode kernel) and
-   at 128- and 256-row prefill chunks of wq, w1, w2 and the lm_head (the
-   prefill kernel, TMA + wgmma, timed in turns with the decode kernel
+   GEMM at every decode shape of the int8 7B model (the decode kernel; one
+   call must put one kernel and nothing else on its stream, counted from a
+   CUDA graph of the call whose replay must give the same bits, and two
+   calls must give the same bits) and at 128- and 256-row prefill chunks
+   of wq, w1, w2 and the lm_head (the prefill kernel, TMA + wgmma, timed
+   in turns with the decode kernel
    called through its own entry point at the same shape and with the
    library call), K3 the folded-BN identity bottleneck chain at the four
    ResNet-50 chains at batch 128 and at the served batches 8 and 1, at its
@@ -43,7 +47,9 @@ Phases (any failure exits non-zero; nothing swallows an error):
    run every kernel's launch count is zeroed just before and read just
    after, and each kernel of that run's path must have run its expected
    number of times (int8: K4's prefill kernel 225 times per prefill chunk,
-   its decode kernel 225 times per decode step); every served token is
+   its decode kernel 225 times per decode step, and one decode step's
+   torch.profiler trace must hold exactly 225 decode kernels and no
+   split-K reduce kernel); every served token is
    held against a teacher-forced prefill over its request's prompt and
    served tokens through the same KV numerics (within TIE_TOL of the top
    logit at every step), and one
@@ -494,7 +500,8 @@ def k4_case(m, k, n, out_dtype, seed, flush):
     import torch
 
     from seldon_core_tpu_torch.ops.int8_matmul import (PREFILL_MIN_M, _decode_kernel,
-                                                       int8_matmul, int8_matmul_ref)
+                                                       _decode_plan, int8_matmul,
+                                                       int8_matmul_ref)
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed)
@@ -524,6 +531,17 @@ def k4_case(m, k, n, out_dtype, seed, flush):
     err = check(out, "prefill kernel" if prefill else "decode kernel")
     decode_err = check(_decode_kernel(x, q, scale, torch.empty_like(out)),
                        "decode kernel") if prefill else None
+    if not prefill:
+        # one call, one launch: every operation one call puts on its
+        # stream, counted from a CUDA graph of the call, whose replay and a
+        # second call must give the same bits (splits merge in rank order)
+        nodes, out_graph = graph_nodes(lambda: int8_matmul(x, q, scale, out_dtype))
+        if nodes != ["kernel"]:
+            fail(f"{label}: one call put {len(nodes)} operations on its stream: {nodes}")
+        if not torch.equal(out_graph, out):
+            fail(f"{label}: the CUDA graph's replay differs from the eager call")
+        if not torch.equal(int8_matmul(x, q, scale, out_dtype), out):
+            fail(f"{label}: two calls on the same inputs differ")
     del ref, tol
     # library yardstick: torch.matmul on a bf16 copy of the dequantized
     # weight (made here, not timed) — the product K4 must beat at decode by
@@ -543,6 +561,8 @@ def k4_case(m, k, n, out_dtype, seed, flush):
                 library_ms=timed[1][0], decode_err=decode_err,
                 decode_ms=timed[2][0] if prefill else None,
                 decode_enqueue_ms=timed[2][1] if prefill else None,
+                plan=None if prefill else _decode_plan(
+                    m, n, k, torch.cuda.get_device_properties(0).multi_processor_count),
                 bound_ms=max(bytes_s, flops_s) * 1e3,
                 bound_by="bytes" if bytes_s >= flops_s else "operations")
 
@@ -600,6 +620,80 @@ def k4_sweep(card, flush):
                       f"each, {tiles * s} CTAs) {ms:.4f} ms"
                       f"{'  <- the wrapper picks this' if (bn, s, per) == pick else ''} [{card}]",
                       flush=True)
+
+
+def k4_decode_sweep(card, flush, clean_flush):
+    """K4's decode kernel at each decode shape of the int8 7B model, at
+    M = 8 (the serving slots) and M = 1, over its strip widths and cluster
+    sizes (splits of K), with torch.matmul on a dequantized bf16 copy of the
+    weight, all of one shape timed in turns; each configuration is first
+    held to the K4 tolerance. The wrapper's own choice is marked. Prints
+    one line per configuration: the data behind
+    ops/int8_matmul._decode_plan. Then, per shape, what is not the weight's
+    stream, in turns: the wrapper's grid launched with K = 0 (the ring's
+    set-up, the epilogue and the cluster's merge only) beside a trivial
+    PyTorch kernel (``out.zero_()``: the timing method's own floor), and
+    the wrapper's plan after a flush that reads the 64 MB instead of
+    writing it (no dirty lines to write back while the weight streams)."""
+    import torch
+
+    from seldon_core_tpu_torch.ops.int8_matmul import (DEC_MAX_SPLITS, DEC_STAGE_BYTES,
+                                                       DEC_WIDTHS, _decode_kernel, _decode_plan,
+                                                       _decode_rows, int8_matmul_ref)
+
+    dev = torch.device("cuda")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for m in (8, 1):
+        for name, k, n, dt in K4_FAMILIES:
+            dt = getattr(torch, dt)
+            g = torch.Generator(device=dev).manual_seed(m + n)
+            x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+            q = torch.randint(-128, 128, (k, n), generator=g, device=dev, dtype=torch.int8)
+            scale = (torch.rand((n,), generator=g, device=dev) + 0.5) * (2.0 / 127 / k ** 0.5)
+            ref = int8_matmul_ref(x, q, scale, torch.float32)
+            tol = K4_RTOL * (x.float().abs() @ (q.float() * scale).abs())
+            if dt == torch.bfloat16:
+                tol += bf16_ulp(ref)
+            configs = []
+            for bn in DEC_WIDTHS:
+                steps = max(-(-k // (DEC_STAGE_BYTES // bn)), 1)
+                for s in range(1, DEC_MAX_SPLITS + 1):
+                    per = -(-steps // s)
+                    if (bn, -(-steps // per), per) not in configs:
+                        configs.append((bn, -(-steps // per), per))
+            pick = _decode_plan(m, n, k, sms)
+            for plan in configs:
+                out = _decode_kernel(x, q, scale, torch.empty((m, n), dtype=dt, device=dev), plan)
+                if (((out.float() - ref).abs() > tol).any() or
+                        not torch.isfinite(out.float()).all()):
+                    fail(f"K4 decode sweep {name} M={m} (BN, splits, stages) {plan}: beyond "
+                         f"{K4_TOL_REASON}")
+            del ref, tol
+            w_bf16 = q.to(torch.bfloat16) * scale.to(torch.bfloat16)
+            timed = time_turns([
+                (lambda plan=plan: _decode_kernel(x, q, scale,
+                                                  torch.empty((m, n), dtype=dt, device=dev), plan))
+                for plan in configs] + [lambda: torch.matmul(x, w_bf16)], flush)
+            nbytes = m * k * 2 + k * n + n * 4 + m * n * (4 if dt == torch.float32 else 2)
+            bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            for (bn, s, per), (ms, _) in zip(configs, timed):
+                ctas = -(-m // _decode_rows(m)) * -(-n // bn) * s
+                print(f"K4 decode sweep {name} [{m},{k}]x[{k},{n}]: BN={bn} splits={s} ({per} "
+                      f"stages each, {ctas} CTAs) {ms:.4f} ms = {bound_ms / ms:.0%} of the bound "
+                      f"{bound_ms:.4f}"
+                      f"{'  <- the wrapper picks this' if (bn, s, per) == pick else ''} [{card}]",
+                      flush=True)
+            print(f"K4 decode sweep {name} [{m},{k}]x[{k},{n}]: torch.matmul on a bf16 copy of "
+                  f"the weight {timed[-1][0]:.4f} ms [{card}]", flush=True)
+            out = torch.empty((m, n), dtype=dt, device=dev)
+            fixed = time_turns([lambda: _decode_kernel(x[:, :0], q[:0], scale, out,
+                                                       pick[:2] + (1,)),
+                                lambda: out.zero_()], flush)
+            clean = time_turns([lambda: _decode_kernel(x, q, scale, out, pick)], clean_flush)
+            print(f"K4 decode sweep {name} [{m},{k}]x[{k},{n}]: the pick's grid at K = 0 "
+                  f"{fixed[0][0]:.4f} ms, out.zero_() {fixed[1][0]:.4f} ms (the floor), in "
+                  f"turns; the pick after a read-only flush {clean[0][0]:.4f} ms [{card}]",
+                  flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -816,6 +910,14 @@ def serve(label: str, card: str, knobs: dict):
     if k1_kernels != LLAMA2_7B["n_layers"]:
         fail(f"[{label}] one decode step ran {k1_kernels} paged-attention kernels, expected "
              f"one per layer ({LLAMA2_7B['n_layers']})")
+    # one K4 call is one kernel: an int8 step runs exactly one per product,
+    # and no split-K reduce kernel
+    k4_kernels = sum(e.count for e in ops if "int8_matmul_decode_kernel" in e.key)
+    reduces = [e.key for e in ops if "splitk_reduce" in e.key]
+    if k4_kernels != (K4_PER_FORWARD if quantized else 0) or reduces:
+        fail(f"[{label}] one decode step ran {k4_kernels} K4 decode kernels (expected "
+             f"{K4_PER_FORWARD if quantized else 0}) and {len(reduces)} kinds of split-K "
+             f"reduce kernel {reduces}")
 
     # every served token against a teacher-forced prefill over its own
     # request through the same KV numerics
@@ -870,7 +972,9 @@ def serve(label: str, card: str, knobs: dict):
           f"memory over the run {peak_gb:.2f} GB [{card}]", flush=True)
     print(f"[{label}] decode step at {N_REQUESTS} slots: host enqueue {step_host_ms:.3f} ms, "
           f"device time {kernel_ms:.3f} ms in {sum(e.count for e in ops)} kernels and copies "
-          f"({k1_kernels} of them paged attention, one per layer; torch.profiler); reading the {weight_bytes / 1e9:.2f} GB of weights alone takes "
+          f"({k1_kernels} of them paged attention, one per layer; {k4_kernels} K4 decode, one "
+          f"per product; torch.profiler); reading the {weight_bytes / 1e9:.2f} GB of weights "
+          f"alone takes "
           f"{weight_bytes / HBM_BYTES_PER_S * 1e3:.2f} ms [{card}]", flush=True)
     for e in ops[:12]:
         print(f"  {dev_us(e) / 1e3:8.3f} ms  x{e.count:<5d} {e.key[:100]}")
@@ -1308,10 +1412,13 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 print(f"  ptxas[{name}]: {line.strip()}")
-    sweeps = {"--k4-sweep": k4_sweep, "--k1-sweep": k1_sweep, "--k3-sweep": k3_sweep}
+    sweeps = {"--k4-sweep": k4_sweep, "--k4-decode-sweep": k4_decode_sweep,
+              "--k1-sweep": k1_sweep, "--k3-sweep": k3_sweep}
     if len(sys.argv) >= 2 and sys.argv[1] in sweeps:
         scratch = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
-        sweeps[sys.argv[1]](card, lambda: scratch.fill_(1), *sys.argv[2:])
+        extra = ([lambda: scratch.view(torch.int32).sum()] if sys.argv[1] == "--k4-decode-sweep"
+                 else [])
+        sweeps[sys.argv[1]](card, lambda: scratch.fill_(1), *extra, *sys.argv[2:])
         return 0
 
     # 3. kernel phase
@@ -1354,6 +1461,12 @@ def main() -> int:
                     f"{r['bound_ms']:.4f} ({r['bound_by']}) library_ms {r['library_ms']:.4f} "
                     f"(torch.matmul on a dequantized bf16 copy of the weight) max_abs_err "
                     f"{r['err']:.3e} ({K4_TOL_REASON})")
+            if r["decode_ms"] is None:
+                line += (f"; kernel/library {r['ms'] / r['library_ms']:.2f}x, kernel/bound "
+                         f"{r['ms'] / r['bound_ms']:.2f}x; plan (width, splits, stages) "
+                         f"{r['plan']}; one call = 1 kernel (CUDA graph of the call), bit-equal "
+                         f"to its replay and to a second call; host enqueue per call "
+                         f"{r['enqueue_ms']:.4f} ms")
             if r["decode_ms"] is not None:
                 line += (f"; prefill kernel (TMA + wgmma) vs the decode kernel at this shape, "
                          f"in turns: {r['ms']:.4f} vs {r['decode_ms']:.4f} ms "

@@ -11,12 +11,15 @@ through ``ops/quantize.quantized_matmul`` -> ``int8_dense`` -> here.
 Two routes, picked by ``_uses_wgmma`` from the shapes and alignment alone:
 
 * decode, M < 64 (``csrc/int8_matmul.cu``): bound by bytes, the K x N int8
-  weight read once. 16 x 32 output tiles; the wrapper picks a split of K
-  (``_split_k``): the tile grid is about one block per SM (N = 4096 gives
-  128 tiles on 132 SMs), too few loads in flight to stream the weight, so
-  the K range is cut into splits whose float32 partials a second small
-  kernel sums, scales and casts. It also takes what TMA cannot address:
-  N % 16 != 0, K % 8 != 0, or bases not 16-byte aligned.
+  weight read once. One launch per product: a CTA streams a strip of 128 or
+  256 weight columns over one split of K through a ring of 16 KB stages,
+  dequantizes in registers and multiplies on the tensor cores (``mma.sync``);
+  the splits of a strip form a thread block cluster and sum their float32
+  partials through distributed shared memory in rank order, so the call
+  allocates nothing but its output and gives the same bits every time.
+  ``_decode_plan`` picks the width and the split from the shapes, fitted to
+  ``chip_smoke.py --k4-decode-sweep``. It also takes what TMA cannot
+  address: N % 16 != 0, K % 8 != 0, or bases not 16-byte aligned.
 * prefill, M >= ``PREFILL_MIN_M`` (``csrc/int8_matmul_wgmma.cu``): a TMA
   ring feeding ``wgmma``, the int8 tile converted to bf16 in shared memory.
   Bound by bytes at M = 128, by operations at M = 256. ``_wgmma_plan``
@@ -35,10 +38,25 @@ import functools
 
 import torch
 
-# the decode kernel's tile (csrc/int8_matmul.cu: BM, BN, BK)
-BM, BN, BK = 16, 32, 128
-# blocks per SM the decode kernel's split of K aims at
-_WAVES = 4
+# The decode kernel (csrc/int8_matmul.cu): strip widths, weight bytes per
+# stage (a stage is 16384 / width rows of K), the most splits of K (the
+# cluster size), and the columns of a warp's slab.
+DEC_WIDTHS = (128, 256)
+DEC_STAGE_BYTES = 16384
+DEC_MAX_SPLITS = 8
+DEC_SLAB = 128
+# The decode plan's time model (``_decode_plan``), fitted to its runs on an
+# NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py --k4-decode-sweep): device
+# time of one 16 KB stage of an SM's CTA while every SM streams, by strip
+# width (the longer runs stream a little faster); a CTA's own start and
+# end (the ring's first fill, the epilogue); the cost of one more split
+# (its partial through distributed shared memory); and the share of the
+# SMs that a grid of clusters fills one CTA apiece (a cluster stays in one
+# GPC, so near the SM count some SMs get two).
+_DEC_STEP_US = {128: 0.66, 256: 0.64}
+_DEC_CTA_US = 1.0
+_DEC_SPLIT_US = 0.1
+_DEC_CLUSTER_SMS = 0.8
 # the prefill kernel's tile rows, widths and depth (csrc/int8_matmul_wgmma.cu:
 # BM, BN, BK), and the smallest M it takes: the 64 rows of one wgmma
 WG_BM, WG_BNS, WG_BK = 128, (128, 256), 64
@@ -61,15 +79,102 @@ def int8_matmul_ref(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
     return (x.float() @ (q.float() * scale.float())).to(out_dtype)
 
 
-def _split_k(m: int, n: int, k: int, sms: int):
-    """(splits, k tiles per split) for the decode kernel's [m, k] x [k, n]
-    product on a card of ``sms`` SMs: enough splits to put about
-    ``_WAVES`` blocks on every SM, never an empty one."""
-    tiles = -(-m // BM) * -(-n // BN)
-    k_tiles = max(-(-k // BK), 1)
-    splits = min(k_tiles, max(1, -(-_WAVES * sms // tiles)))
-    per = -(-k_tiles // splits)
-    return -(-k_tiles // per), per
+def _decode_rows(m: int) -> int:
+    """Rows of x per CTA of the decode kernel: one 8-row mma fragment up to
+    M = 8, two (16 rows) above; larger M takes more tiles of 16."""
+    return 8 if m <= 8 else 16
+
+
+@functools.lru_cache(maxsize=None)
+def _decode_plan(m: int, n: int, k: int, sms: int):
+    """(strip width, splits, stages per split) for the decode kernel's
+    [m, k] x [k, n] product on a card of ``sms`` SMs: the plan of least
+    modelled time. Every stage moves the same 16 KB of weight, and CTAs on
+    one SM share its stream, so the busiest SM runs ceil(CTAs / SMs filled)
+    CTAs, each ``_DEC_CTA_US`` plus ``per`` stages at ``_DEC_STEP_US`` (a
+    grid of clusters fills ``_DEC_CLUSTER_SMS`` of the SMs one apiece);
+    every split past the first adds ``_DEC_SPLIT_US``. Never an empty
+    split, at most DEC_MAX_SPLITS (one cluster); on a tie the fewer CTAs,
+    then the fewer splits. Cached: a decode step asks for the same four
+    shapes 225 times."""
+    best = None
+    for bn in DEC_WIDTHS:
+        steps = max(-(-k // (DEC_STAGE_BYTES // bn)), 1)
+        tiles = -(-m // _decode_rows(m)) * -(-n // bn)
+        for s in range(1, min(steps, DEC_MAX_SPLITS) + 1):
+            per = -(-steps // s)
+            if -(-steps // per) != s:   # the same cut as a smaller split
+                continue
+            filled = sms if s == 1 else int(_DEC_CLUSTER_SMS * sms)
+            us = (-(-tiles * s // filled) * (_DEC_CTA_US + per * _DEC_STEP_US[bn])
+                  + (s - 1) * _DEC_SPLIT_US)
+            key = (us, tiles * s, s, bn, per)
+            best = key if best is None or key < best else best
+    return best[3], best[2], best[4]
+
+
+def _frag_columns() -> torch.Tensor:
+    """The column of a 128-column slab that the decode kernel's mma
+    fragment f holds at row r, at register slot 16 * f + r: the byte order
+    of a lane's 16-byte loads (csrc/int8_matmul.cu, the column interleave)."""
+    return torch.tensor([16 * (r % 8) + 2 * f + r // 8 for f in range(8) for r in range(16)])
+
+
+def int8_matmul_emulated(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, plan, *,
+                         interleave: bool = True) -> torch.Tensor:
+    """The decode kernel's walk on the CPU, for the tests (nothing on the
+    served path calls it): float32 [M, N]. ``plan`` = (strip width, splits,
+    stages per split). For each tile of rows and strip of columns, each
+    split (a CTA) runs its stages in order; in a stage, warp w of a slab
+    adds the 16-deep slice w of the stage to its accumulators, which hold
+    the slab's columns in fragment order (``_frag_columns``). The epilogue
+    puts them back in column order, sums the slab's warps in order, then
+    the cluster's splits in rank order, and scales. ``interleave`` False
+    leaves the column order as the registers hold it (a seeded fault)."""
+    bn, splits, per = plan
+    bk = DEC_STAGE_BYTES // bn
+    warps = bk // 16
+    m, k = x.shape
+    n = q.shape[1]
+    mt = _decode_rows(m)
+    kp = max(splits * per * bk, k)
+    xp = torch.zeros(-(-m // mt) * mt, kp)
+    xp[:m, :k] = x.float()
+    qp = torch.zeros(kp, -(-n // bn) * bn)
+    qp[:k, :n] = q.float()
+    slots = _frag_columns()
+    out = torch.empty(m, n)
+    for m0 in range(0, m, mt):
+        for n0 in range(0, n, bn):
+            ranks = []
+            for split in range(splits):
+                cta = torch.zeros(mt, bn)
+                for c0 in range(0, bn, DEC_SLAB):
+                    cols = n0 + c0 + slots
+                    warp_sums = []
+                    for w in range(warps):
+                        acc = torch.zeros(mt, DEC_SLAB)
+                        for st in range(split * per, min((split + 1) * per, kp // bk)):
+                            rows = slice(st * bk + 16 * w, st * bk + 16 * w + 16)
+                            acc += xp[m0:m0 + mt, rows] @ qp[rows][:, cols]
+                        natural = torch.empty_like(acc)
+                        if interleave:
+                            natural[:, slots] = acc
+                        else:
+                            natural = acc
+                        warp_sums.append(natural)
+                    part = warp_sums[0]
+                    for ws in warp_sums[1:]:
+                        part = part + ws
+                    cta[:, c0:c0 + DEC_SLAB] = part
+                ranks.append(cta)
+            total = ranks[0]
+            for r in ranks[1:]:
+                total = total + r
+            hi_m, hi_n = min(m0 + mt, m), min(n0 + bn, n)
+            out[m0:hi_m, n0:hi_n] = (total[:hi_m - m0, :hi_n - n0]
+                                     * scale[n0:hi_n].float())
+    return out
 
 
 @functools.lru_cache(maxsize=None)
@@ -107,54 +212,51 @@ def _uses_wgmma(m: int, n: int, k: int, x_ptr: int, q_ptr: int) -> bool:
 
 
 @functools.lru_cache(maxsize=None)
-def _entry(lib: str, name: str, n_ints: int):
+def _entry(lib: str, name: str, n_ptrs: int, n_ints: int):
     """The C entry point ``name`` of ``csrc/<lib>.cu``, built on first use:
-    (x, q, scale, out, partial, ``n_ints`` ints, stream)."""
+    (``n_ptrs`` pointers, ``n_ints`` ints, stream)."""
     from seldon_core_tpu_torch.ops._build import load_library
 
     fn = getattr(load_library(lib), name)
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def _launch(lib, name, x, q, scale, out, splits, per, *extra) -> torch.Tensor:
-    """Either kernel into ``out`` with K cut into ``splits`` of ``per``
-    steps (a float32 partial per split when there are several)."""
-    from seldon_core_tpu_torch.ops._build import launch
+def _decode_kernel(x, q, scale, out, plan=None) -> torch.Tensor:
+    """The decode kernel into ``out``, at any M, with ``plan`` = (strip
+    width, splits, stages per split), by default ``_decode_plan``'s: one
+    launch, nothing allocated, no checks, no count. The served path reaches
+    it only through ``int8_matmul``; ``chip_smoke.py`` also times it at
+    prefill shapes beside the prefill kernel."""
+    from seldon_core_tpu_torch.ops._build import launch, sm_count
 
     m, k = x.shape
     n = q.shape[1]
-    partial = (torch.empty((splits, m, n), dtype=torch.float32, device=x.device)
-               if splits > 1 else None)
-    launch(_entry(lib, name, 6 + len(extra)), x.device, x.data_ptr(), q.data_ptr(),
-           scale.data_ptr(), out.data_ptr(), None if partial is None else partial.data_ptr(),
-           m, n, k, int(out.dtype == torch.float32), splits, per, *extra)
+    bn, splits, per = plan or _decode_plan(m, n, k, sm_count(x.device.index))
+    launch(_entry("int8_matmul", "int8_matmul_bf16", 4, 7), x.device, x.data_ptr(),
+           q.data_ptr(), scale.data_ptr(), out.data_ptr(), m, n, k,
+           int(out.dtype == torch.float32), bn, splits, per)
     return out
-
-
-def _decode_kernel(x, q, scale, out) -> torch.Tensor:
-    """The decode kernel (16 x 32 tiles, split-K) into ``out``, at any M:
-    no checks, no count. The served path reaches it only through
-    ``int8_matmul``; ``chip_smoke.py`` also times it at prefill shapes
-    beside the prefill kernel."""
-    from seldon_core_tpu_torch.ops._build import sm_count
-
-    m, k = x.shape
-    return _launch("int8_matmul", "int8_matmul_bf16", x, q, scale, out,
-                   *_split_k(m, q.shape[1], k, sm_count(x.device.index)))
 
 
 def _wgmma_kernel(x, q, scale, out, plan=None) -> torch.Tensor:
     """The prefill kernel (TMA + wgmma, split-K) into ``out`` with ``plan``
     = (tile width, splits, steps per split), by default ``_wgmma_plan``'s:
-    no checks, no count."""
-    from seldon_core_tpu_torch.ops._build import sm_count
+    no checks, no count. With several splits, each writes a float32
+    partial that a second kernel sums."""
+    from seldon_core_tpu_torch.ops._build import launch, sm_count
 
     m, k = x.shape
-    bn, splits, per = plan or _wgmma_plan(m, q.shape[1], k, sm_count(x.device.index))
-    return _launch("int8_matmul_wgmma", "int8_matmul_wgmma_bf16", x, q, scale, out, splits, per,
-                   bn)
+    n = q.shape[1]
+    bn, splits, per = plan or _wgmma_plan(m, n, k, sm_count(x.device.index))
+    partial = (torch.empty((splits, m, n), dtype=torch.float32, device=x.device)
+               if splits > 1 else None)
+    launch(_entry("int8_matmul_wgmma", "int8_matmul_wgmma_bf16", 5, 7), x.device, x.data_ptr(),
+           q.data_ptr(), scale.data_ptr(), out.data_ptr(),
+           None if partial is None else partial.data_ptr(),
+           m, n, k, int(out.dtype == torch.float32), splits, per, bn)
+    return out
 
 
 def int8_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,

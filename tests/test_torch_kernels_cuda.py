@@ -10,7 +10,7 @@ inside) within one bf16 ulp + 1e-5 of the plain version run on float32
 copies of the same inputs (an int8 pool dequantized in float32) — the
 kernel rounds its float32 result once; K2 (fused residual + RMSNorm, bf16)
 ``y`` bit-equal and ``o`` within one bf16 ulp; K4 (int8 GEMM, float32
-accumulation; its decode and its prefill kernel alike, split-K included)
+accumulation; its decode and its prefill kernel alike, split K included)
 within 1e-5 * (|x| @ |q * scale|) elementwise of the plain version, the
 reach of float32 summation order, plus one bf16 ulp for bf16 output; K3
 (folded-BN identity bottleneck chain, bf16 hand-offs, float32 sums) within
@@ -342,9 +342,9 @@ def _assert_k4_close(out, x, q, scale):
                                    (300, 4096, 1000)])
 @pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
 def test_int8_matmul_kernel_matches_plain(dev, m, k, n, out_dtype):
-    """Ragged M, N not a multiple of the 32-wide tile, K not a multiple of
-    the 128-deep step, the scalar-load path (N % 16 or K % 8 not 0) and the
-    split-K path (small grids) included. M >= 64 with K % 8 == 0 and
+    """Ragged M, N not a multiple of the decode kernel's strip, K not a
+    multiple of its stage, the scalar-load path (N % 16 or K % 8 not 0) and
+    split K (a cluster of CTAs) included. M >= 64 with K % 8 == 0 and
     N % 16 == 0 takes the prefill kernel (TMA + wgmma: its counter moves
     too), ragged M, N and K included; the rest the decode kernel."""
     x, q, scale = _k4_case(dev, m, k, n, m + k + n)
@@ -357,6 +357,58 @@ def test_int8_matmul_kernel_matches_plain(dev, m, k, n, out_dtype):
     assert int8_matmul.int8_matmul.launches_wgmma == before_wgmma + prefill
     assert out.dtype == out_dtype and out.shape == (m, n)
     _assert_k4_close(out, x, q, scale)
+
+
+def _offset(t, elems):
+    """A contiguous copy of ``t`` whose base sits ``elems`` elements past an
+    allocation's (16-byte aligned) start."""
+    buf = torch.empty(t.numel() + elems, dtype=t.dtype, device=t.device)
+    view = buf[elems:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+@pytest.mark.parametrize("m", [1, 8, 16, 17, 63])
+@pytest.mark.parametrize("bn,splits", [(bn, s) for bn in int8_matmul.DEC_WIDTHS
+                                       for s in range(1, int8_matmul.DEC_MAX_SPLITS + 1)])
+def test_int8_matmul_decode_kernel_every_plan(dev, m, bn, splits):
+    """The decode kernel at every strip width and cluster size that
+    ``_decode_plan`` can return, at one and two 16-row tiles, both output
+    dtypes: 16-byte copies (K = 7080, N = 1040: ragged strip and stage),
+    masked scalar loads (K % 8 and N % 16 not 0), and unaligned bases. K
+    has 56 stages of 128 rows and 111 of 64, which every split count from
+    1 to 8 cuts without an empty split."""
+    for k, n, x_off, q_off in ((7080, 1040, 0, 0), (7084, 1001, 0, 0), (7080, 1040, 1, 4)):
+        x, q, scale = _k4_case(dev, m, k, n, m + bn + splits)
+        x, q = _offset(x, x_off), _offset(q, q_off)
+        steps = -(-k // (int8_matmul.DEC_STAGE_BYTES // bn))
+        per = -(-steps // splits)
+        assert -(-steps // per) == splits
+        for out_dtype in (torch.bfloat16, torch.float32):
+            out = int8_matmul._decode_kernel(x, q, scale,
+                                             torch.empty((m, n), dtype=out_dtype, device=dev),
+                                             (bn, splits, per))
+            torch.cuda.synchronize()
+            _assert_k4_close(out, x, q, scale)
+
+
+@pytest.mark.parametrize("k,n", [(4096, 4096), (4096, 11008), (11008, 4096), (4096, 32000)])
+def test_int8_matmul_decode_is_one_launch_and_bit_stable(dev, k, n):
+    """At each decode shape of the int8 7B model (8 serving slots; the
+    lm_head writes float32): one call puts one kernel and nothing else on
+    its stream (the nodes of a CUDA graph of the call), the graph's replay
+    equals the eager call bit for bit, and two calls give the same bits
+    (the splits merge in rank order, no atomics)."""
+    out_dtype = torch.float32 if n == 32000 else torch.bfloat16
+    x, q, scale = _k4_case(dev, 8, k, n, k + n)
+    first = int8_matmul.int8_matmul(x, q, scale, out_dtype)
+    second = int8_matmul.int8_matmul(x, q, scale, out_dtype)
+    torch.cuda.synchronize()
+    _assert_k4_close(first, x, q, scale)
+    assert torch.equal(first, second)
+    nodes, replay = _graph_nodes(lambda: int8_matmul.int8_matmul(x, q, scale, out_dtype))
+    assert nodes == [0], nodes
+    assert torch.equal(replay, first)
 
 
 @pytest.mark.parametrize("bn,splits", [(128, 1), (128, 3), (256, 1), (256, 3)])

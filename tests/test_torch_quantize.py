@@ -117,21 +117,95 @@ def test_int8_matmul_rejects_bad_shapes():
             k4.int8_matmul(*args)
 
 
-@pytest.mark.parametrize("m,n,k", [(8, 4096, 4096), (8, 11008, 4096), (8, 4096, 11008),
-                                   (8, 32000, 4096), (256, 11008, 4096), (37, 1000, 40),
-                                   (1, 16, 0)])
-def test_split_k_covers_k_without_empty_splits(m, n, k):
-    splits, per = k4._split_k(m, n, k, 132)
-    k_tiles = max(-(-k // k4.BK), 1)
-    assert splits >= 1 and per >= 1
-    assert (splits - 1) * per < k_tiles <= splits * per
-    tiles = -(-m // k4.BM) * -(-n // k4.BN)
-    if tiles >= k4._WAVES * 132:
-        assert splits == 1
-
-
 # (K, N) of the int8 7B model's products: wq/wk/wv/wo, w1/w3, w2, lm_head
 _7B = [(4096, 4096), (4096, 11008), (11008, 4096), (4096, 32000)]
+# The decode kernel's plan (strip width, splits, stages per split) at the
+# four M = 8 decode shapes: the fastest of each shape's turn in
+# chip_smoke.py --k4-decode-sweep on an NVIDIA H100 80GB HBM3 at 700 W.
+_DECODE_SWEPT = {(4096, 4096): (128, 3, 11), (4096, 11008): (256, 2, 32),
+                 (11008, 4096): (256, 6, 29), (4096, 32000): (256, 1, 64)}
+
+
+@pytest.mark.parametrize("m,n,k", [(8, 4096, 4096), (8, 11008, 4096), (8, 4096, 11008),
+                                   (8, 32000, 4096), (256, 11008, 4096), (37, 1000, 40),
+                                   (1, 16, 0), (1, 4096, 4096), (16, 4096, 11008),
+                                   (17, 11008, 4096), (63, 32000, 4096)])
+def test_decode_plan_covers_every_strip_and_step(m, n, k):
+    """The decode kernel's grid (splits, row tiles, strips) in clusters of
+    (splits, 1, 1), walked as csrc/int8_matmul.cu walks it: every row, every
+    column strip and every stage of K exactly once, no empty split, the
+    cluster at most 8 CTAs and a divisor of the grid, the merge's shares
+    covering the tile once; at the four M = 8 decode shapes, the plan the
+    sweep found fastest."""
+    bn, splits, per = k4._decode_plan(m, n, k, 132)
+    assert bn in k4.DEC_WIDTHS and 1 <= splits <= k4.DEC_MAX_SPLITS and per >= 1
+    grid = (splits, -(-m // k4._decode_rows(m)), -(-n // bn))
+    assert grid[0] % splits == 0
+    bk = k4.DEC_STAGE_BYTES // bn
+    k_steps = -(-k // bk)
+    covered = []
+    for z in range(splits):   # kt0, n_steps
+        n_steps = max(0, min(per, k_steps - z * per))
+        assert n_steps > 0 or k == 0
+        covered += range(z * per, z * per + n_steps)
+    assert covered == list(range(k_steps))
+    rows = [r for y in range(grid[1]) for r in range(y * k4._decode_rows(m),
+                                                     (y + 1) * k4._decode_rows(m))]
+    cols = [c for z in range(grid[2]) for c in range(z * bn, (z + 1) * bn)]
+    assert rows[:m] == list(range(m)) and cols[:n] == list(range(n))
+    quads = k4._decode_rows(m) * bn // 4   # the merge: rank r sums quads [lo, hi)
+    shares = [i for r in range(splits) for i in range(r * quads // splits,
+                                                      (r + 1) * quads // splits)]
+    assert shares == list(range(quads))
+    if m == 8 and (k, n) in _7B:
+        assert (bn, splits, per) == _DECODE_SWEPT[(k, n)]
+
+
+def test_frag_columns_is_a_permutation_of_the_slab():
+    cols = k4._frag_columns()
+    assert sorted(cols.tolist()) == list(range(k4.DEC_SLAB))
+    # fragment 0 at rows g and g + 8: bytes 0 and 1 of lane group g's load
+    assert cols[:16].tolist() == [16 * (r % 8) + r // 8 for r in range(16)]
+
+
+# (m, k, n, plan): ragged M (one and two 16-row tiles), ragged N within a
+# strip and across strips, K off the stage, one split and several
+_EMULATED = [(1, 300, 200, (128, 3, 1)), (5, 1000, 300, (256, 4, 4)),
+             (16, 520, 136, (128, 5, 1)), (17, 700, 264, (256, 3, 4)),
+             (8, 1024, 384, (128, 1, 8)), (33, 200, 40, (256, 2, 2))]
+
+
+def _emulated_case(m, k, n):
+    rng = np.random.default_rng(m * 7 + k + n)
+    x = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32)).to(torch.bfloat16)
+    q = rng.integers(-128, 128, (k, n)).astype(np.int8)
+    scale = ((rng.random(n) + 0.5) / 127).astype(np.float32)
+    want = jint8.int8_matmul(jnp.asarray(x.float().numpy()), jnp.asarray(q), jnp.asarray(scale),
+                             interpret=True)
+    reach = x.float().abs() @ (torch.from_numpy(q).float() * torch.from_numpy(scale)).abs()
+    return x, torch.from_numpy(q), torch.from_numpy(scale), torch.from_numpy(np.array(want)), reach
+
+
+@pytest.mark.parametrize("m,k,n,plan", _EMULATED)
+def test_decode_kernel_walk_matches_jax(m, k, n, plan):
+    """The decode kernel's walk (strips, splits, the fragment's column
+    interleave, the rank-order merge) on bf16 x, int8 q and float32 scales
+    from a seed, against the JAX package's Pallas kernel in interpret mode:
+    within 1e-5 * (|x| @ |q * scale|) elementwise (float32 summation order),
+    as the card's kernel is held to its plain version."""
+    x, q, scale, want, reach = _emulated_case(m, k, n)
+    got = k4.int8_matmul_emulated(x, q, scale, plan)
+    assert got.shape == (m, n) and got.dtype == torch.float32
+    assert torch.all((got - want).abs() <= 1e-5 * reach)
+
+
+@pytest.mark.parametrize("m,k,n,plan", _EMULATED[:2])
+def test_decode_kernel_walk_catches_an_undone_interleave(m, k, n, plan):
+    """Seeded fault: the epilogue leaves the columns in register order. The
+    tolerance above must catch it (random inputs: the permutation shows)."""
+    x, q, scale, want, reach = _emulated_case(m, k, n)
+    got = k4.int8_matmul_emulated(x, q, scale, plan, interleave=False)
+    assert not torch.all((got - want).abs() <= 1e-5 * reach)
 
 
 @pytest.mark.parametrize("m,k,n,x_off,q_off,wgmma", [
