@@ -8,10 +8,11 @@ kernel of that path against its plain PyTorch version.
     python3 chip_smoke.py --k1-sweep   # only: build, then K1's splits S at its six shapes
     python3 chip_smoke.py --k3-sweep [rows.json]   # only: build, then K3's tile widths x
                                                    # splits; rows to rows.json
+    python3 chip_smoke.py --k2-sweep   # only: build, then K2's threads x slots a row
 
 Phases (any failure exits non-zero; nothing swallows an error):
 
-1. the card's name and power limit (nvidia-smi), torch/CUDA/triton versions,
+1. the card's name and power limit (nvidia-smi), torch and CUDA versions,
    TF32 off for float32 matmuls and convolutions;
 2. build the kernels from the sources in this checkout (ops/_build.py: one
    nvcc per CUDA source, all started together);
@@ -23,7 +24,15 @@ Phases (any failure exits non-zero; nothing swallows an error):
    over a bf16 and an int8 pool (at the split S its plan picks; one call
    must put one kernel and nothing else on its stream, counted from a CUDA
    graph of the call, whose replay must agree too), K2 fused
-   residual + RMSNorm, K4 the int8
+   residual + RMSNorm at [8, 128 and 256, 4096] bf16 (one launch, one CTA
+   a row at its plan; one call must be one kernel node of a CUDA graph,
+   whose replay and a second call must give the same bits; timed in turns
+   with a trivial kernel, ``out.zero_()``, which gives the timing floor,
+   and, for information, the two library calls ``x + h`` then
+   ``F.rms_norm``; its host enqueue per call; and what one call adds to a
+   dense stream after the product that makes h, cuBLAS in bf16 and K4 in
+   int8, in CUDA graphs, beside a trivial kernel),
+   K4 the int8
    GEMM at every decode shape of the int8 7B model (the decode kernel; one
    call must put one kernel and nothing else on its stream, counted from a
    CUDA graph of the call whose replay must give the same bits, and two
@@ -49,7 +58,9 @@ Phases (any failure exits non-zero; nothing swallows an error):
    number of times (int8: K4's prefill kernel 225 times per prefill chunk,
    its decode kernel 225 times per decode step, and one decode step's
    torch.profiler trace must hold exactly 225 decode kernels and no
-   split-K reduce kernel); every served token is
+   split-K reduce kernel; in both runs that trace must hold exactly one K2
+   kernel per layer, and K2's device time per call and the idle gap before
+   it on the card are read from it); every served token is
    held against a teacher-forced prefill over its request's prompt and
    served tokens through the same KV numerics (within TIE_TOL of the top
    logit at every step), and one
@@ -220,6 +231,80 @@ def time_turns(fns, flush=None):
 def time_ms(fn, flush=None) -> float:
     """Device time of one call (``time_turns`` of one function)."""
     return time_turns([fn], flush)[0][0]
+
+
+def enqueue_turns(fns, n=200):
+    """Host time to enqueue one call of each of ``fns``: the median over
+    ``n`` rounds, one call of each per round in turns, the card drained
+    between rounds (after a warm-up call of each)."""
+    import torch
+
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    times = [[] for _ in fns]
+    for _ in range(n):
+        for fn, ts in zip(fns, times):
+            t0 = time.perf_counter()
+            fn()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+    return [statistics.median(ts) for ts in times]
+
+
+STREAM_PAIRS = 32   # one per layer of the 7B model
+_CAPTURE_STREAM = []
+
+
+def stream_added_ms(product, fns):
+    """What one call of each of ``fns`` adds to a dense stream of work, as a
+    decode step captured in a CUDA graph would run it (no host gap between
+    launches): a graph of STREAM_PAIRS pairs, each a product h = product()
+    (as the wo projection makes K2's h) followed by one call fn(h), beside a
+    graph of the products alone. The graphs are replayed
+    REPS times in turns, CUDA events around each replay. Returns (the median
+    of each graph's replay less the products' alone, over STREAM_PAIRS; the
+    product's own time), in ms: a call's own time plus the idle gap its
+    launch leaves after the product, less what it runs early."""
+    import torch
+
+    if not _CAPTURE_STREAM:
+        # one side stream for every capture: cuBLAS keeps a workspace for
+        # each stream it has run on, for the life of the process
+        _CAPTURE_STREAM.append(torch.cuda.Stream())
+    stream = _CAPTURE_STREAM[0]
+    graphs = []
+    for fn in [None, *fns]:
+        def body(fn=fn):
+            for _ in range(STREAM_PAIRS):
+                hh = product()
+                if fn is not None:
+                    fn(hh)
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            body()
+        torch.cuda.synchronize()
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g, stream=stream):
+            body()
+        g.replay()
+        graphs.append(g)
+    torch.cuda.synchronize()
+    times = [[] for _ in graphs]
+    for _ in range(REPS):
+        for g, ts in zip(graphs, times):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            g.replay()
+            end.record()
+            end.synchronize()
+            ts.append(start.elapsed_time(end))
+    base = statistics.median(times[0])
+    for g in graphs:
+        g.reset()   # frees the graph and its memory pool now
+    return ([(statistics.median(ts) - base) / STREAM_PAIRS for ts in times[1:]],
+            base / STREAM_PAIRS)
 
 
 # cuGraphNodeGetType's CUgraphNodeType values (cuda.h)
@@ -459,35 +544,153 @@ def bf16_ulp(x):
     return torch.exp2(torch.floor(torch.log2(ax)) - 7)
 
 
-def k2_case(rows, d, seed, flush):
-    import torch
+K2_SHAPES = (8, 128, 256)   # rows at decode (8 slots), a served prefill chunk, the default chunk
+K2_D = LLAMA2_7B["dim"]
+K2_EPS = 1e-5
 
-    from seldon_core_tpu_torch.ops.fused_norm import fused_residual_rmsnorm, residual_rmsnorm_ref
+
+def k2_inputs(rows, d, seed):
+    """bf16 activations and a bf16 norm weight, as the served bf16 model
+    stores it."""
+    import torch
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed)
     x = torch.randn((rows, d), generator=g, device=dev).to(torch.bfloat16)
     hh = torch.randn((rows, d), generator=g, device=dev).to(torch.bfloat16)
-    w = (1.0 + 0.1 * torch.randn((d,), generator=g, device=dev)).float()
-    eps = 1e-5
+    w = (1.0 + 0.1 * torch.randn((d,), generator=g, device=dev)).to(torch.bfloat16)
+    return x, hh, w
+
+
+def k2_check(label, y, o, y_ref, o_ref):
+    """K2's tolerance: y bit-equal, o within one bf16 ulp. Returns the max
+    abs error of o."""
+    import torch
+
+    if not torch.equal(y, y_ref):
+        fail(f"{label}: residual sum y is not bit-equal to the plain version")
+    diff = (o.float() - o_ref.float()).abs()
+    if not torch.isfinite(o.float()).all() or (diff > bf16_ulp(o_ref)).any():
+        fail(f"{label}: normed output beyond 1 bf16 ulp (max abs {diff.max().item()})")
+    return diff.max().item()
+
+
+def k2_bound(rows, d):
+    """Read x and h, write y and o (bf16), read the bf16 weight; ~5 flops an
+    element. Returns (ms, what bounds it)."""
+    nbytes = 4 * rows * d * 2 + d * 2
+    bytes_s, flops_s = nbytes / HBM_BYTES_PER_S, 5 * rows * d / BF16_FLOPS_PER_S
+    return max(bytes_s, flops_s) * 1e3, "bytes" if bytes_s >= flops_s else "operations"
+
+
+def k2_case(rows, d, seed, flush):
+    """K2 at one shape, at its plan: checked against the plain version, one
+    call one kernel node (``graph_nodes``) whose replay and a second call give
+    the same bits; timed in turns with a trivial kernel (``out.zero_()``:
+    the timing floor) and, for information, the two library calls
+    ``x + h`` then ``F.rms_norm``; its host enqueue; and what it adds to a
+    dense stream after the product that makes h (``stream_added_ms``),
+    beside a trivial kernel."""
+    import torch
+    import torch.nn.functional as F
+
+    from seldon_core_tpu_torch.ops.fused_norm import (_launch_plan, fused_residual_rmsnorm,
+                                                      residual_rmsnorm_ref)
+    from seldon_core_tpu_torch.ops.int8_matmul import int8_matmul
+    from seldon_core_tpu_torch.ops.quantize import quantize_array
+
+    x, hh, w = k2_inputs(rows, d, seed)
+    label = f"K2 [{rows},{d}] bf16"
     before = fused_residual_rmsnorm.launches
-    y, o = fused_residual_rmsnorm(x, hh, w, eps)
+    y, o = fused_residual_rmsnorm(x, hh, w, K2_EPS)
     torch.cuda.synchronize()
     if fused_residual_rmsnorm.launches != before + 1:
-        fail("K2 wrapper did not count its launch")
-    y_ref, o_ref = residual_rmsnorm_ref(x, hh, w, eps)
-    if not torch.equal(y, y_ref):
-        fail(f"K2 [{rows},{d}]: residual sum y is not bit-equal to the plain version")
-    diff = (o.float() - o_ref.float()).abs()
-    if (diff > bf16_ulp(o_ref)).any():
-        fail(f"K2 [{rows},{d}]: normed output beyond 1 bf16 ulp (max abs {diff.max().item()})")
-    ms = time_ms(lambda: fused_residual_rmsnorm(x, hh, w, eps), flush)
-    plain_ms = time_ms(lambda: residual_rmsnorm_ref(x, hh, w, eps), flush)
-    nbytes = 4 * rows * d * 2 + d * 4          # read x, h; write y, o; weight
-    flops = 5 * rows * d
-    bound_ms = max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S) * 1e3
-    return dict(err=diff.max().item(), ms=ms, plain_ms=plain_ms, library_ms=None,
-                bound_ms=bound_ms, bound_by="bytes")
+        fail(f"{label}: the wrapper did not count its launch")
+    y_ref, o_ref = residual_rmsnorm_ref(x, hh, w, K2_EPS)
+    err = k2_check(label, y, o, y_ref, o_ref)
+    nodes, replay = graph_nodes(lambda: fused_residual_rmsnorm(x, hh, w, K2_EPS)[0]._base)
+    if nodes != ["kernel"]:
+        fail(f"{label}: one call put {len(nodes)} operations on its stream: {nodes}")
+    y2, o2 = fused_residual_rmsnorm(x, hh, w, K2_EPS)
+    if not (torch.equal(replay[0], y) and torch.equal(replay[1], o)):
+        fail(f"{label}: the CUDA graph's replay differs from the eager call")
+    if not (torch.equal(y2, y) and torch.equal(o2, o)):
+        fail(f"{label}: two calls on the same inputs differ")
+    zero = torch.empty_like(x)
+    timed = time_turns([lambda: fused_residual_rmsnorm(x, hh, w, K2_EPS),
+                        lambda: zero.zero_(),
+                        lambda: F.rms_norm(x + hh, (d,), w, K2_EPS)], flush)
+    plain_ms = time_ms(lambda: residual_rmsnorm_ref(x, hh, w, K2_EPS), flush)
+    enqueue_ms = enqueue_turns([lambda: fused_residual_rmsnorm(x, hh, w, K2_EPS)])[0]
+    # in a dense stream, after the product that makes h (bf16 through
+    # cuBLAS, int8 through K4): the kernel as served, and a trivial kernel
+    w_mm = (torch.randn((d, d), device=x.device) * d ** -0.5).to(torch.bfloat16)
+    qt = quantize_array(w_mm)
+    calls = [lambda h_in: fused_residual_rmsnorm(x, h_in, w, K2_EPS), lambda h_in: h_in.zero_()]
+    added, mm_ms = stream_added_ms(lambda: x @ w_mm, calls)
+    added8, mm8_ms = stream_added_ms(lambda: int8_matmul(x, qt.q, qt.scale), calls)
+    bound_ms, bound_by = k2_bound(rows, d)
+    return dict(err=err, ms=timed[0][0], floor_ms=timed[1][0], pair_ms=timed[2][0],
+                enqueue_ms=enqueue_ms, stream=added, mm_ms=mm_ms, stream8=added8, mm8_ms=mm8_ms,
+                plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
+                plan=_launch_plan(d, 8))
+
+
+K2_SWEEP_ROWS = (1, 8, 17, 64, 128, 256)
+# (threads, slots) of a row at d = 4096 in bf16 (512 16-byte vectors): one
+# chunk held in 512, 256 or 128 threads, and two chunks in 256, 128 or 64
+K2_SWEEP_PLANS = ((512, 1), (256, 2), (128, 4), (256, 1), (128, 2), (64, 4))
+
+
+def k2_sweep(card, flush):
+    """``--k2-sweep``: K2 at [rows, 4096] bf16 for each of K2_SWEEP_ROWS over
+    K2_SWEEP_PLANS (threads a row, 16-byte slots a thread), each first held
+    to K2's tolerance, all plans of one shape timed in turns beside a
+    trivial kernel (``out.zero_()``), then again as what each adds to a
+    dense stream after the product that makes h (``stream_added_ms``).
+    Marks the plan's pick and the fastest: the data behind
+    ``ops/fused_norm._launch_plan``."""
+    import torch
+
+    from seldon_core_tpu_torch.ops.fused_norm import _kernel, _launch_plan, residual_rmsnorm_ref
+
+    plans = [_launch_plan(K2_D, 8, p) for p in K2_SWEEP_PLANS]
+    pick = _launch_plan(K2_D, 8)
+    for rows in K2_SWEEP_ROWS:
+        x, hh, w = k2_inputs(rows, K2_D, rows)
+        y_ref, o_ref = residual_rmsnorm_ref(x, hh, w, K2_EPS)
+        outs = [torch.empty((2, rows, K2_D), dtype=x.dtype, device=x.device) for _ in plans]
+        for p, out in zip(plans, outs):
+            _kernel(x, hh, w, out[0], out[1], K2_EPS, p[:2])
+            torch.cuda.synchronize()
+            k2_check(f"K2 sweep [{rows},{K2_D}] plan {p}", out[0], out[1], y_ref, o_ref)
+        zero = torch.empty_like(x)
+        timed = time_turns([(lambda p=p, out=out: _kernel(x, hh, w, out[0], out[1], K2_EPS,
+                                                          p[:2]))
+                            for p, out in zip(plans, outs)] + [lambda: zero.zero_()], flush)
+        w_mm = (torch.randn((K2_D, K2_D), device=x.device) * K2_D ** -0.5).to(torch.bfloat16)
+
+        def in_stream(p):
+            def fn(h_in):
+                out = torch.empty((2, rows, K2_D), dtype=x.dtype, device=x.device)
+                _kernel(x, h_in, w, out[0], out[1], K2_EPS, p[:2])
+            return fn
+
+        added, _ = stream_added_ms(lambda: x @ w_mm, [in_stream(p) for p in plans]
+                                   + [lambda h_in: h_in.zero_()])
+        best = min(range(len(plans)), key=lambda i: timed[i][0])
+        best_stream = min(range(len(plans)), key=lambda i: added[i])
+        for i, (p, (ms, _), add) in enumerate(zip(plans, timed, added)):
+            threads, slots, chunks = p
+            print(f"K2 sweep [{rows},{K2_D}] bf16: {threads} threads x {slots} slots, "
+                  f"{chunks} chunk(s) ({rows} CTAs) {ms:.4f} ms, in a dense stream "
+                  f"{add:.4f} ms added"
+                  f"{'  <- the plan picks this' if p == pick else ''}"
+                  f"{'  <- fastest' if i == best else ''}"
+                  f"{'  <- fastest in the stream' if i == best_stream else ''} [{card}]",
+                  flush=True)
+        print(f"K2 sweep [{rows},{K2_D}]: trivial kernel (out.zero_()) {timed[-1][0]:.4f} ms, "
+              f"in the stream {added[-1]:.4f} ms added [{card}]", flush=True)
 
 
 def k4_case(m, k, n, out_dtype, seed, flush):
@@ -740,6 +943,78 @@ def teacher_logits(server, seqs):
     return logits
 
 
+K2_KERNEL = "fused_residual_rmsnorm_kernel"
+
+
+def dev_us(e):
+    return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+
+def k2_in_step(events, name):
+    """K2 in one traced step, from the device events' start and end times:
+    the calls (kernels whose name holds ``name``), and the medians over them
+    of the kernel's own time, of the idle gap on its stream between the end
+    of the operation before it and its start, and of the time from that
+    end to K2's end (what K2 adds to the step)."""
+    from torch.autograd import DeviceType
+
+    evs = sorted((e for e in events if e.device_type == DeviceType.CUDA
+                  and not getattr(e, "is_user_annotation", False)),
+                 key=lambda e: e.time_range.start)
+    prev_end, durs, gaps, adds = {}, [], [], []
+    for e in evs:
+        stream = getattr(e, "device_resource_id", 0)
+        if name in e.name:
+            durs.append(e.time_range.end - e.time_range.start)
+            if stream in prev_end:
+                gaps.append(e.time_range.start - prev_end[stream])
+                adds.append(e.time_range.end - prev_end[stream])
+        prev_end[stream] = e.time_range.end
+    med = (lambda v: statistics.median(v) / 1e3 if v else float("nan"))
+    return dict(calls=len(durs), ms=med(durs), total_ms=sum(durs) / 1e3, gap_ms=med(gaps),
+                added_ms=med(adds), gaps=len(gaps))
+
+
+def k2_line(k):
+    return (f"{k['calls']} K2 kernels, device time per call {k['ms']:.4f} ms (median; "
+            f"{k['total_ms']:.3f} ms in all), idle gap from the end of the operation before "
+            f"each to its start {k['gap_ms']:.4f} ms (median of {k['gaps']}), from that end to "
+            f"K2's end {k['added_ms']:.4f} ms")
+
+
+def profile_step(step, k2_name):
+    """One decode step: its host enqueue (median of REPS, after a warm-up),
+    then one torch.profiler trace of it. Returns (enqueue ms, device ms of
+    every kernel and copy, the trace's device rows by time, K2's numbers
+    from ``k2_in_step``). A trace may come back without a single device
+    event (the profiler lost them: a step runs thousands of kernels); such
+    a trace is taken again, up to 3 times."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    step()
+    enqueue = []
+    for _ in range(REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        enqueue.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            step()
+            torch.cuda.synchronize()
+        # device-side rows only (kernels, copies); the host op that launched
+        # a kernel reports the same time again as its own
+        ops = sorted((e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")),
+                     key=dev_us, reverse=True)
+        k2 = k2_in_step(prof.events(), k2_name)
+        del prof
+        if ops:
+            break
+    return (statistics.median(enqueue) * 1e3, sum(dev_us(e) for e in ops) / 1e3, ops, k2)
+
+
 def serve(label: str, card: str, knobs: dict):
     """One serving run of the port's main path at Llama-2-7B widths and
     depth with the LLMServer ``knobs`` of this run. Fails on any check;
@@ -779,7 +1054,7 @@ def serve(label: str, card: str, knobs: dict):
             if r.status != 200:
                 fail(f"[{label}] /ready answered {r.status}")
         texts = prompts(N_REQUESTS)
-        # warm-up request (cuBLAS handles, Triton specialisations), not counted
+        # warm-up request (cuBLAS handles, kernel builds), not counted
         code, body = post(url + "/v1/generate", {"prompt": "warm up", "max_new_tokens": 4})
         if code != 200:
             fail(f"[{label}] warm-up request answered {code}: {body}")
@@ -875,40 +1150,15 @@ def serve(label: str, card: str, knobs: dict):
             return server._decode_step_paged(b._caches, b._last_tok, b._next_pos, b._keys,
                                              b._temp, b._block_tables)
 
-    step()
-    enqueue = []
-    for _ in range(REPS):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        step()
-        enqueue.append(time.perf_counter() - t0)
-        torch.cuda.synchronize()
-    step_host_ms = statistics.median(enqueue) * 1e3
-    # the same step under torch.profiler: device time by kernel
-    from torch.profiler import ProfilerActivity, profile
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
-
-    # a trace may come back without a single device event (the profiler
-    # lost them: a step runs thousands of kernels); such a trace is taken
-    # again, up to 3 times
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            step()
-            torch.cuda.synchronize()
-        # device-side rows only (kernels, copies); the host op that launched
-        # a kernel reports the same time again as its own
-        ops = sorted((e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")),
-                     key=dev_us, reverse=True)
-        del prof
-        if ops:
-            break
-    kernel_ms = sum(dev_us(e) for e in ops) / 1e3
+    step_host_ms, kernel_ms, ops, k2_step = profile_step(step, K2_KERNEL)
     # one K1 call is one kernel: a step runs exactly one per layer
     k1_kernels = sum(e.count for e in ops if "paged_attention_decode_kernel" in e.key)
     if k1_kernels != LLAMA2_7B["n_layers"]:
         fail(f"[{label}] one decode step ran {k1_kernels} paged-attention kernels, expected "
+             f"one per layer ({LLAMA2_7B['n_layers']})")
+    # one K2 call is one kernel: a step runs exactly one per layer
+    if k2_step["calls"] != LLAMA2_7B["n_layers"]:
+        fail(f"[{label}] one decode step ran {k2_step['calls']} {K2_KERNEL} kernels, expected "
              f"one per layer ({LLAMA2_7B['n_layers']})")
     # one K4 call is one kernel: an int8 step runs exactly one per product,
     # and no split-K reduce kernel
@@ -918,7 +1168,6 @@ def serve(label: str, card: str, knobs: dict):
         fail(f"[{label}] one decode step ran {k4_kernels} K4 decode kernels (expected "
              f"{K4_PER_FORWARD if quantized else 0}) and {len(reduces)} kinds of split-K "
              f"reduce kernel {reduces}")
-
     # every served token against a teacher-forced prefill over its own
     # request through the same KV numerics
     served = [body["tokens"] for _, body in results]
@@ -973,11 +1222,15 @@ def serve(label: str, card: str, knobs: dict):
     print(f"[{label}] decode step at {N_REQUESTS} slots: host enqueue {step_host_ms:.3f} ms, "
           f"device time {kernel_ms:.3f} ms in {sum(e.count for e in ops)} kernels and copies "
           f"({k1_kernels} of them paged attention, one per layer; {k4_kernels} K4 decode, one "
-          f"per product; torch.profiler); reading the {weight_bytes / 1e9:.2f} GB of weights "
-          f"alone takes "
+          f"per product; {k2_step['calls']} K2, one per layer; torch.profiler); reading the "
+          f"{weight_bytes / 1e9:.2f} GB of weights alone takes "
           f"{weight_bytes / HBM_BYTES_PER_S * 1e3:.2f} ms [{card}]", flush=True)
+    print(f"[{label}] decode step, K2 in the trace: {k2_line(k2_step)} [{card}]", flush=True)
     for e in ops[:12]:
         print(f"  {dev_us(e) / 1e3:8.3f} ms  x{e.count:<5d} {e.key[:100]}")
+    for e in ops:
+        if K2_KERNEL in e.key:
+            print(f"  K2 row: {dev_us(e) / 1e3:8.3f} ms  x{e.count:<5d} {e.key[:100]}")
     server._batcher_service = None
     return launches
 
@@ -1389,14 +1642,9 @@ def main() -> int:
     # 1. the card
     card = card_line()
     print(card, flush=True)
-    try:
-        import triton
-        triton_version = triton.__version__
-    except ImportError:
-        fail("triton is not installed (K2 is a Triton kernel)")
-    print(f"torch {torch.__version__} cuda {torch.version.cuda} triton {triton_version} "
-          f"device {torch.cuda.get_device_name(0)} capability "
-          f"{torch.cuda.get_device_capability(0)}", flush=True)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} device "
+          f"{torch.cuda.get_device_name(0)} capability {torch.cuda.get_device_capability(0)}",
+          flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print(f"allow_tf32: matmul={torch.backends.cuda.matmul.allow_tf32} "
@@ -1413,7 +1661,7 @@ def main() -> int:
             if "registers" in line or "spill" in line or "smem" in line:
                 print(f"  ptxas[{name}]: {line.strip()}")
     sweeps = {"--k4-sweep": k4_sweep, "--k4-decode-sweep": k4_decode_sweep,
-              "--k1-sweep": k1_sweep, "--k3-sweep": k3_sweep}
+              "--k1-sweep": k1_sweep, "--k3-sweep": k3_sweep, "--k2-sweep": k2_sweep}
     if len(sys.argv) >= 2 and sys.argv[1] in sweeps:
         scratch = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
         extra = ([lambda: scratch.view(torch.int32).sum()] if sys.argv[1] == "--k4-decode-sweep"
@@ -1442,13 +1690,26 @@ def main() -> int:
                   f"max_abs_err {r['err']:.3e} ({K1_TOL_REASON}; vs the bf16 plain chain "
                   f"{r['err_bf16']:.3e}) [{card}]", flush=True)
     k2 = {}
-    for rows in (8, 256):
-        r = k2_case(rows, 4096, seed=rows, flush=flush)
+    for rows in K2_SHAPES:
+        r = k2_case(rows, K2_D, seed=rows, flush=flush)
         k2[rows] = r
-        print(f"K2 fused_residual_rmsnorm [{rows},4096] bf16: kernel_ms {r['ms']:.4f} "
-              f"plain_ms {r['plain_ms']:.4f} bound_ms {r['bound_ms']:.4f} library_ms null "
+        print(f"K2 fused_residual_rmsnorm [{rows},{K2_D}] bf16 (bf16 weight): plan (threads, "
+              f"slots, chunks) {r['plan']}; kernel_ms {r['ms']:.4f} trivial kernel "
+              f"(out.zero_(), the timing floor) "
+              f"{r['floor_ms']:.4f} x + h then F.rms_norm (two library calls, for information) "
+              f"{r['pair_ms']:.4f}, in turns; plain_ms {r['plain_ms']:.4f} bound_ms "
+              f"{r['bound_ms']:.4f} ({r['bound_by']}) library_ms null (no single PyTorch call); "
+              f"host enqueue per call {r['enqueue_ms']:.4f} ms (median of 200); one call = 1 "
+              f"kernel (CUDA graph of the call), bit-equal to its replay and to a second call; "
               f"max_abs_err {r['err']:.3e} (y bit-equal, o within 1 bf16 ulp) [{card}]",
               flush=True)
+        for what, key, mm in (("h = x @ W (cuBLAS, bf16)", "stream", "mm_ms"),
+                              ("h = int8_matmul(x, q, s) (K4)", "stream8", "mm8_ms")):
+            a = r[key]
+            print(f"K2 [{rows},{K2_D}] in a dense stream (a CUDA graph of {STREAM_PAIRS} x "
+                  f"[{what}, {r[mm]:.4f} ms; then one call]), added per call: kernel "
+                  f"{a[0]:.4f} ms, trivial kernel (h.zero_()) {a[1]:.4f} [{card}]",
+                  flush=True)
     k4 = {}
     for m in (8, 128, 256):   # 8 serving slots; a served prefill chunk; the default chunk
         for name, k, n, dt in K4_FAMILIES:
@@ -1552,7 +1813,7 @@ def main() -> int:
               "seldon_core_tpu_torch/csrc/paged_attention.cu",
               "seldon_core_tpu/ops/paged_attention.py:253", int8_launches["k1_int8"],
               k1["int8", "ctx160"]),
-        entry("fused_residual_rmsnorm", "triton", "seldon_core_tpu_torch/ops/fused_norm.py",
+        entry("fused_residual_rmsnorm", "cuda", "seldon_core_tpu_torch/csrc/fused_norm.cu",
               "seldon_core_tpu/ops/fused_norm.py:137",
               bf16_launches["k2"] + int8_launches["k2"], k2[8]),
         entry("fused_identity_chain", "cuda", "seldon_core_tpu_torch/csrc/fused_resnet_wgmma.cu",

@@ -17,7 +17,7 @@ What changes with the framework:
   plain PyTorch version on the CPU. Prefill (``s > 1``) is the plain masked
   matmul + softmax, as the JAX package leaves it to XLA.
 - ``fused_norm=True`` routes each block's residual add + ffn RMSNorm through
-  ``ops/fused_norm.py`` (a Triton kernel on a card).
+  ``ops/fused_norm.py`` (a CUDA C++ kernel on a card, ``csrc/fused_norm.cu``).
 - int8 KV caches (``kv_cache_dtype="int8"``) are the JAX package's 5-tuple
   (k_q, k_scale, v_q, v_scale, pos): quantize on write, dequantize in the
   model dtype on the plain read; the paged decode read dequantizes in

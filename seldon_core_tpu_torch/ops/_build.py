@@ -109,8 +109,10 @@ def launch(fn, device: torch.device, *args) -> None:
     runs, and a later synchronise would not report it). The device context
     is switched only when ``device`` is not already current: on the serving
     path this runs hundreds of times per decode step."""
-    stream = torch.cuda.current_stream(device).cuda_stream
-    if device.index == torch.cuda.current_device():
+    # the raw stream and device from PyTorch's C bindings: the public
+    # accessors build Python objects, a measurable host cost at this rate
+    stream = torch._C._cuda_getCurrentRawStream(device.index)
+    if device.index == torch._C._cuda_getDevice():
         rc = fn(*args, stream)
     else:
         with torch.cuda.device(device):

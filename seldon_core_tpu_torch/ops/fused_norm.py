@@ -1,33 +1,40 @@
-"""Fused residual-add + RMSNorm: a Triton kernel for Hopper, and its plain
+"""Fused residual-add + RMSNorm: a CUDA C++ kernel for Hopper, and its plain
 PyTorch version.
 
 Replaces the TPU kernel ``seldon_core_tpu/ops/fused_norm.py``
 (``fused_residual_rmsnorm``, Pallas body ``_kernel``). Each transformer block
 runs ``x = x + h`` followed by ``rms_norm(x)``; unfused, the activation makes
-two round trips through device memory. This kernel reads x and h once and
-writes the residual sum and the normed activation once.
+two round trips through device memory. The kernel (``csrc/fused_norm.cu``)
+reads x, h and the weight once and writes the residual sum and the normed
+activation once, in one launch.
 
-What bounds it on the card: bytes. Per row it moves 2 reads + 2 writes of
-``d`` model-dtype values (plus the ``d`` weights, which stay in L2) and does
-~5 flops per element — far below the ~295 flops/byte at which an H100 stops
-being memory bound. Design: one program per row, ``BLOCK = next_pow2(d)``
-with a masked tail, the whole row held in registers, so each element is
-loaded and stored exactly once; the sum of squares is a float32 in-register
-reduction divided by the real ``d``.
+At the served shapes ([8, 4096] at decode, [128, 4096] and [256, 4096] at
+prefill) the call is bound by its latency, not by its bytes: the launch
+after the previous kernel, one round trip to memory, the reduction across
+a row, and on the host its enqueue (the served decode step is host-bound).
+So one CTA takes one row, its threads hold the row in registers
+(``_launch_plan``, fitted to ``chip_smoke.py --k2-sweep``; a row wider
+than one CTA holds is walked in chunks), and the wrapper allocates once and
+passes the launch's integers as one cached C array.
+``fused_residual_rmsnorm_emulated`` walks the kernel's order of sums on the
+CPU for the tests.
 
 Numerics contract (as the JAX package's): the residual add happens in the
 model dtype (float32 add, rounded once to the model dtype — bit-equal to
-PyTorch's own add), the norm in float32 over the added value, the weight
-multiply in float32, the result cast back to the model dtype. ``y`` is
-therefore bit-equal to the plain version; ``o`` differs only by the
-reduction order of the mean, within one bf16 ulp.
+PyTorch's own add), the norm in float32 over the added value, divided by
+the true ``d``, the weight multiply in float32, the result cast back to the
+model dtype. ``y`` is therefore bit-equal to the plain version; ``o``
+differs only by the reduction order of the mean, within one bf16 ulp.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import torch
 
-tl = None  # triton.language, bound by _compiled() at first launch
+from seldon_core_tpu_torch.ops import _build
 
 
 def residual_rmsnorm_ref(x: torch.Tensor, h: torch.Tensor, weight: torch.Tensor,
@@ -40,42 +47,122 @@ def residual_rmsnorm_ref(x: torch.Tensor, h: torch.Tensor, weight: torch.Tensor,
     return y, (norm * weight).to(y.dtype)
 
 
-def _residual_rmsnorm_kernel(x_ptr, h_ptr, w_ptr, y_ptr, o_ptr, d, eps,
-                             BLOCK: tl.constexpr):
-    row = tl.program_id(0).to(tl.int64)
-    cols = tl.arange(0, BLOCK)
-    mask = cols < d
-    base = row * d
-    x = tl.load(x_ptr + base + cols, mask=mask, other=0.0)
-    h = tl.load(h_ptr + base + cols, mask=mask, other=0.0)
-    # residual add in the model dtype: float32 add, one rounding
-    y = (x.to(tl.float32) + h.to(tl.float32)).to(x.dtype)
-    tl.store(y_ptr + base + cols, y, mask=mask)
-    y32 = y.to(tl.float32)
-    # sum / d, not a mean over BLOCK: the masked tail adds zeros only
-    ms = tl.sum(y32 * y32, axis=0) / d
-    normed = y32 * (1.0 / tl.sqrt(ms + eps))
-    w = tl.load(w_ptr + cols, mask=mask, other=0.0).to(tl.float32)
-    tl.store(o_ptr + base + cols, (normed * w).to(x.dtype), mask=mask)
+# The kernel's limits (csrc/fused_norm.cu): 16-byte vectors a thread
+# holds in a chunk, threads a CTA, the widest row.
+SLOTS = (1, 2, 4)
+MAX_THREADS = 512
+MAX_D = 1 << 30
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
-_KERNEL = None
+@functools.lru_cache(maxsize=None)
+def _launch_plan(d: int, vec: int, plan=None):
+    """(threads, slots, chunks) of one launch for rows of ``d`` values in
+    16-byte vectors of ``vec``: ``plan`` = (threads, slots) as given, or
+    the fewest slots that hold the row in one chunk within 256 threads
+    (within 512 if four slots do not), threads a multiple of 32; a row
+    wider than 512 threads x 4 slots takes chunks of that. Fitted to
+    ``chip_smoke.py --k2-sweep`` on an H100 (``PERF.md`` §6): at d = 4096
+    in bf16, 256 threads x 2 slots. Raises on a plan the kernel does not
+    take."""
+    if not 0 < d <= MAX_D:
+        raise ValueError(f"fused_residual_rmsnorm: d = {d} outside 1..{MAX_D}")
+    nvec = -(-d // vec)
+    if plan is None:
+        plan = next(((threads, slots) for cap in (256, MAX_THREADS) for slots in SLOTS
+                     if (threads := 32 * -(-nvec // (32 * slots))) <= cap),
+                    (MAX_THREADS, SLOTS[-1]))
+    threads, slots = plan
+    if threads % 32 or not 32 <= threads <= MAX_THREADS or slots not in SLOTS:
+        raise ValueError(f"fused_residual_rmsnorm: plan {plan} is not (a multiple of 32 up "
+                         f"to {MAX_THREADS} threads, {SLOTS} slots)")
+    return threads, slots, -(-nvec // (threads * slots))
 
 
-def _compiled():
-    """The jitted kernel, built at first launch (triton is imported here,
-    never at module import, so the CPU tests can import this module)."""
-    global _KERNEL, tl
-    if _KERNEL is None:
-        import triton
-        import triton.language
-
-        tl = triton.language
-        _KERNEL = triton.jit(_residual_rmsnorm_kernel)
-    return _KERNEL
+def _xor_tree(lanes: torch.Tensor) -> torch.Tensor:
+    """Lane 0 of a warp's xor-shuffle sum over the last dim (32 lanes):
+    lane l adds lane l ^ m for m = 16, 8, 4, 2, 1, each add rounded."""
+    for m in (16, 8, 4, 2, 1):
+        lanes = lanes + lanes[..., torch.arange(32) ^ m]
+    return lanes[..., 0]
 
 
-_FLOATS = (torch.bfloat16, torch.float16, torch.float32)
+def fused_residual_rmsnorm_emulated(x: torch.Tensor, h: torch.Tensor, w: torch.Tensor,
+                                    eps: float, plan=None, *, fault: str | None = None):
+    """The kernel's walk on the CPU, for the tests (nothing on the served
+    path calls it): (y, o) in x's dtype, for x, h [..., d]. ``plan`` =
+    (threads, slots) as ``_launch_plan`` takes it. Each row's y = x + h is
+    rounded to x's dtype; its columns are 16-byte vectors of ``vec``
+    values, and slot i of thread t in chunk k holds vector (k * slots + i)
+    * threads + t. Each thread sums y * y in float32 in chunk, slot, then
+    element order (rounding each product and each sum); each warp adds its
+    lanes by the xor tree (16, 8, 4, 2, 1); the CTA adds its warps' sums by
+    the same tree (zeros past the last warp) and divides by the true d.
+    ``fault`` seeds what a wrong reduction would do: "warp" normalises each
+    warp's columns by its own warp's sum (no merge across warps),
+    "last_chunk" keeps only the last chunk's sum (a chunk loop that
+    restarts it)."""
+    d = x.shape[-1]
+    vec = 16 // x.element_size()
+    threads, slots, chunks = _launch_plan(d, vec, None if plan is None else tuple(plan))
+    y = (x.float() + h.float()).to(x.dtype)
+    y32 = y.float().reshape(-1, d)
+    rows = y32.shape[0]
+    sq = torch.zeros(rows, chunks * slots * threads * vec)
+    sq[:, :d] = y32 * y32
+    held = sq.reshape(rows, chunks, slots, threads, vec)
+    ss = torch.zeros(rows, threads)
+    for k in range(chunks):
+        if fault == "last_chunk":
+            ss = torch.zeros(rows, threads)
+        for i in range(slots):
+            for e in range(vec):
+                ss = ss + held[:, k, i, :, e]
+    warps = _xor_tree(ss.reshape(rows, threads // 32, 32))
+    padded = torch.zeros(rows, 32)
+    padded[:, :warps.shape[-1]] = warps
+    total = _xor_tree(padded)
+    if fault == "warp":   # each warp normalises its own columns by its own sum
+        warp_of = (torch.arange(d) // vec) % threads // 32
+        denom = warps[:, warp_of] / d
+    else:
+        denom = (total / d)[:, None]
+    inv = torch.rsqrt(denom + torch.tensor(eps, dtype=torch.float32))
+    o = ((y32 * inv) * w.float()).to(x.dtype)
+    return y, o.reshape(x.shape)
+
+
+@functools.lru_cache(maxsize=None)
+def _entry():
+    """The C entry point of ``csrc/fused_norm.cu``, built on first use."""
+    fn = _build.load_library("fused_norm").fused_residual_rmsnorm
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _launch_params(rows: int, d: int, x_dtype, w_dtype, plan):
+    """The entry point's int parameters for one shape, dtype pair and plan,
+    as a C array: (rows, d, x dtype, w dtype, threads, slots, chunks).
+    Built once and passed by address, since a forward makes the same call
+    once per layer and each ctypes argument costs host time. Returns (the
+    array, its address): the cache keeps it alive."""
+    threads, slots, chunks = _launch_plan(d, 16 // x_dtype.itemsize, plan)
+    params = (ctypes.c_int * 7)(rows, d, _DTYPE_CODES[x_dtype], _DTYPE_CODES[w_dtype], threads,
+                                slots, chunks)
+    return params, ctypes.addressof(params)
+
+
+def _kernel(x, h, weight, y, o, eps, plan=None):
+    """One launch into ``y`` and ``o`` with ``plan`` = (threads, slots), by
+    default ``_launch_plan``'s: no checks, no count. The served path
+    reaches this only through ``fused_residual_rmsnorm``; ``chip_smoke.py
+    --k2-sweep`` and the card tests call it at other plans."""
+    d = x.shape[-1]
+    _, params = _launch_params(x.numel() // d, d, x.dtype, weight.dtype, plan)
+    _build.launch(_entry(), x.device, x.data_ptr(), h.data_ptr(), weight.data_ptr(),
+                  y.data_ptr(), o.data_ptr(), eps, params)
 
 
 def fused_residual_rmsnorm(x: torch.Tensor, h: torch.Tensor, weight: torch.Tensor,
@@ -83,37 +170,34 @@ def fused_residual_rmsnorm(x: torch.Tensor, h: torch.Tensor, weight: torch.Tenso
     """x, h: [..., d] activations; weight: [d]. Returns (y, normed) =
     (x + h, rms_norm(x + h, weight, eps)), both in x.dtype.
 
-    CPU tensors take the plain version; CUDA tensors launch the Triton
-    kernel (one program per row) on the current stream, or raise."""
+    CPU tensors take the plain version; CUDA tensors launch the kernel on
+    the current stream (one launch, no synchronisation), or raise. ``y``
+    and ``normed`` are views of one allocation."""
     d = x.shape[-1]
     if h.shape != x.shape or tuple(weight.shape) != (d,):
         raise ValueError(f"shape mismatch: x {tuple(x.shape)}, h {tuple(h.shape)}, "
                          f"weight {tuple(weight.shape)}")
-    if x.device.type == "cpu":
+    dev = x.device
+    if dev.type == "cpu":
         return residual_rmsnorm_ref(x, h, weight, eps)
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_residual_rmsnorm: unsupported device {x.device}")
-    if h.device != x.device or weight.device != x.device:
+    if dev.type != "cuda":
+        raise ValueError(f"fused_residual_rmsnorm: unsupported device {dev}")
+    if h.device != dev or weight.device != dev:
         raise ValueError("fused_residual_rmsnorm: x, h and weight must share a device")
-    if x.dtype not in _FLOATS or h.dtype != x.dtype or weight.dtype not in _FLOATS:
+    if x.dtype not in _DTYPE_CODES or h.dtype != x.dtype or weight.dtype not in _DTYPE_CODES:
         raise TypeError(f"fused_residual_rmsnorm: dtypes x={x.dtype} h={h.dtype} "
                         f"weight={weight.dtype} not supported")
     if not (x.is_contiguous() and h.is_contiguous() and weight.is_contiguous()):
         raise ValueError("fused_residual_rmsnorm: x, h and weight must be contiguous")
-    y = torch.empty_like(x)
-    o = torch.empty_like(x)
-    rows = x.numel() // d if d else 0
-    if rows == 0:
+    y, o = x.new_empty((2, *x.shape)).unbind(0)
+    if x.numel() == 0:
         return y, o
-    block = 1 << max(d - 1, 0).bit_length()
-    num_warps = 4 if block <= 1024 else 8 if block <= 4096 else 16
-    with torch.cuda.device(x.device):
-        _compiled()[(rows,)](x, h, weight, y, o, d, float(eps),
-                             BLOCK=block, num_warps=num_warps)
+    _kernel(x, h, weight, y, o, eps)
     fused_residual_rmsnorm.launches += 1
     return y, o
 
 
 fused_residual_rmsnorm.launches = 0
 
-__all__ = ["fused_residual_rmsnorm", "residual_rmsnorm_ref"]
+
+__all__ = ["fused_residual_rmsnorm", "fused_residual_rmsnorm_emulated", "residual_rmsnorm_ref"]

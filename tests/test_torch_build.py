@@ -47,6 +47,7 @@ def test_the_flags_count(csrc, monkeypatch):
 
 
 @pytest.mark.parametrize("name,headers", [
+    ("fused_norm", []),
     ("fused_resnet_wgmma", ["hopper_wgmma.cuh"]),
     ("int8_matmul_wgmma", ["hopper_wgmma.cuh"]),
     ("int8_matmul", []),

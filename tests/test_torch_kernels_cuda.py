@@ -8,8 +8,9 @@ imports no JAX, so it also runs on a machine without it:
 Tolerances: K1 (paged attention, bf16 q and out, bf16 or int8 K/V, float32
 inside) within one bf16 ulp + 1e-5 of the plain version run on float32
 copies of the same inputs (an int8 pool dequantized in float32) — the
-kernel rounds its float32 result once; K2 (fused residual + RMSNorm, bf16)
-``y`` bit-equal and ``o`` within one bf16 ulp; K4 (int8 GEMM, float32
+kernel rounds its float32 result once; K2 (fused residual + RMSNorm, bf16,
+f16 or float32) ``y`` bit-equal and ``o`` within one ulp of its dtype
+(float32: 1e-6 + 1e-6 * |o|); K4 (int8 GEMM, float32
 accumulation; its decode and its prefill kernel alike, split K included)
 within 1e-5 * (|x| @ |q * scale|) elementwise of the plain version, the
 reach of float32 summation order, plus one bf16 ulp for bf16 output; K3
@@ -32,7 +33,7 @@ pytestmark = pytest.mark.cuda
 @pytest.fixture
 def dev():
     if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU: the port's CUDA/Triton kernels have no CPU mode")
+        pytest.skip("needs an NVIDIA GPU: the port's CUDA kernels have no CPU mode")
     return torch.device("cuda")
 
 
@@ -265,20 +266,148 @@ def test_paged_attention_kernel_rejects_what_it_does_not_take(dev):
         paged_attention.paged_attention(q, (int8[0], int8[1][:, :4], *int8[2:]), bt, qpos)
 
 
-@pytest.mark.parametrize("rows,d", [(8, 4096), (5, 200), (256, 4096)])
-def test_fused_norm_kernel_matches_plain(dev, rows, d):
-    g = torch.Generator(device=dev).manual_seed(rows + d)
-    x = torch.randn((rows, d), generator=g, device=dev).to(torch.bfloat16)
-    h = torch.randn((rows, d), generator=g, device=dev).to(torch.bfloat16)
-    w = torch.randn((d,), generator=g, device=dev)
+def _k2_inputs(dev, rows, d, x_dtype, w_dtype, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((rows, d), generator=g, device=dev).to(x_dtype)
+    h = torch.randn((rows, d), generator=g, device=dev).to(x_dtype)
+    w = (1.0 + 0.5 * torch.randn((d,), generator=g, device=dev)).to(w_dtype)
+    return x, h, w
+
+
+def _assert_k2_close(y, o, x, h, w):
+    """``y`` bit-equal to the plain version; ``o`` within one ulp of the
+    model dtype for bf16 and f16, and within 1e-6 + 1e-6 * |o| for float32
+    (rsqrtf is within 2 float32 ulps, and the mean's order moves o by ~2)."""
+    y_ref, o_ref = fused_norm.residual_rmsnorm_ref(x, h, w, 1e-5)
+    assert y.dtype == o.dtype == x.dtype and y.shape == o.shape == x.shape
+    assert torch.equal(y, y_ref)
+    ref = o_ref.float()
+    err = (o.float() - ref).abs()
+    if x.dtype == torch.float32:
+        tol = 1e-6 + 1e-6 * ref.abs()
+    else:
+        mant = 7 if x.dtype == torch.bfloat16 else 10
+        tiny = torch.finfo(x.dtype).tiny
+        tol = torch.exp2(torch.floor(torch.log2(ref.abs().clamp_min(tiny))) - mant)
+    assert torch.isfinite(o.float()).all() and torch.all(err <= tol), \
+        f"max err {err.max().item()} over tolerance"
+
+
+@pytest.mark.parametrize("rows", [1, 5, 8, 17, 128, 256])
+@pytest.mark.parametrize("d", [4096, 5120, 8192, 200, 130, 32768])
+@pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float16, torch.float32])
+@pytest.mark.parametrize("w_dtype", [torch.float32, torch.bfloat16])
+def test_fused_norm_kernel_matches_plain(dev, rows, d, x_dtype, w_dtype):
+    """At the plan's pick: 16-byte loads where d fills whole vectors, the
+    scalar instantiation where it does not (d = 200 of float32, 130), and a
+    row wider than one CTA holds walked in chunks (d = 32768; 8192 of
+    float32 fits one)."""
+    x, h, w = _k2_inputs(dev, rows, d, x_dtype, w_dtype, rows + d)
     before = fused_norm.fused_residual_rmsnorm.launches
     y, o = fused_norm.fused_residual_rmsnorm(x, h, w, 1e-5)
     torch.cuda.synchronize()
     assert fused_norm.fused_residual_rmsnorm.launches == before + 1
+    _assert_k2_close(y, o, x, h, w)
+
+
+K2_PLANS = [(32, 1), (64, 4), (128, 2), (256, 1), (256, 2), (512, 1), (512, 4)]
+
+
+@pytest.mark.parametrize("rows,d", [(1, 4096), (8, 4096), (17, 5120), (128, 4096),
+                                    (256, 4096), (5, 200), (3, 130)])
+@pytest.mark.parametrize("plan", K2_PLANS)
+def test_fused_norm_kernel_every_plan(dev, rows, d, plan):
+    """Every (threads, slots) the kernel takes, bf16 and float32
+    activations: rows in one chunk and in many (32 threads x 1 slot at
+    d = 4096 is 16 chunks), slots and warps past the row's end."""
+    for x_dtype in (torch.bfloat16, torch.float32):
+        x, h, w = _k2_inputs(dev, rows, d, x_dtype, torch.bfloat16, rows + d + plan[0])
+        out = torch.empty((2, rows, d), dtype=x_dtype, device=dev)
+        fused_norm._kernel(x, h, w, out[0], out[1], 1e-5, plan)
+        torch.cuda.synchronize()
+        _assert_k2_close(out[0], out[1], x, h, w)
+
+
+@pytest.mark.parametrize("d,offset", [(130, 130), (4096, 1), (4096, 0)])
+def test_fused_norm_kernel_misaligned_views(dev, d, offset):
+    """A contiguous view whose base is not 16-byte aligned (``x[1:]`` of a
+    ragged d; a flat offset of one element) takes the scalar path of the
+    same kernel, in one chunk and in several."""
+    for plan in (None, (32, 1)):
+        x, h, w = _k2_inputs(dev, 9, d, torch.bfloat16, torch.float32, d)
+        x, h = _offset(x, offset), _offset(h, offset)
+        out = torch.empty((2, 9, d), dtype=x.dtype, device=dev)
+        fused_norm._kernel(x, h, w, out[0], out[1], 1e-5, plan)
+        torch.cuda.synchronize()
+        _assert_k2_close(out[0], out[1], x, h, w)
+    base = _k2_inputs(dev, 9, 130, torch.bfloat16, torch.float32, 1)
+    x, h = base[0][1:], base[1][1:]
+    y, o = fused_norm.fused_residual_rmsnorm(x, h, base[2], 1e-5)
+    torch.cuda.synchronize()
+    _assert_k2_close(y, o, x, h, base[2])
+
+
+@pytest.mark.parametrize("rows", [1, 8, 128, 256])
+def test_fused_norm_is_one_launch_and_bit_stable(dev, rows):
+    """At the served width: one call puts one kernel and nothing else on its
+    stream (the nodes of a CUDA graph of the call), the graph's replay
+    equals the eager call bit for bit, and two calls give the same bits
+    (a fixed order of sums, no atomics)."""
+    x, h, w = _k2_inputs(dev, rows, 4096, torch.bfloat16, torch.bfloat16, rows)
+    y1, o1 = fused_norm.fused_residual_rmsnorm(x, h, w, 1e-5)
+    y2, o2 = fused_norm.fused_residual_rmsnorm(x, h, w, 1e-5)
+    torch.cuda.synchronize()
+    _assert_k2_close(y1, o1, x, h, w)
+    assert torch.equal(y1, y2) and torch.equal(o1, o2)
+    nodes, replay = _graph_nodes(lambda: fused_norm.fused_residual_rmsnorm(x, h, w, 1e-5)[0]._base)
+    assert nodes == [0], nodes
+    assert torch.equal(replay[0], y1) and torch.equal(replay[1], o1)
+
+
+def test_launch_enqueues_on_the_current_stream(dev):
+    """``_build.launch`` takes the stream from PyTorch's C bindings: under
+    ``torch.cuda.stream`` the kernel runs on that side stream (ordered
+    after work queued there, before an event recorded there), and under
+    ``torch.cuda.graph`` on the capture stream (it is captured, and the
+    replay writes the graph's output)."""
+    x, h, w = _k2_inputs(dev, 8, 4096, torch.bfloat16, torch.bfloat16, 3)
     y_ref, o_ref = fused_norm.residual_rmsnorm_ref(x, h, w, 1e-5)
-    assert torch.equal(y, y_ref)
-    o_ref32 = o_ref.float().cpu().numpy()
-    assert np.all(np.abs(o.float().cpu().numpy() - o_ref32) <= _bf16_ulp(o_ref32))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    out = torch.empty((2, 8, 4096), dtype=x.dtype, device=dev)
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(50_000_000)   # a late kernel on the side stream
+        hs = h.clone()                  # h written on the side stream, behind it
+        fused_norm._kernel(x, hs, w, out[0], out[1], 1e-5)
+        done = torch.cuda.Event()
+        done.record(side)
+    done.synchronize()
+    _assert_k2_close(out[0], out[1], x, h, w)
+    captured = torch.zeros((2, 8, 4096), dtype=x.dtype, device=dev)
+    g = torch.cuda.CUDAGraph()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.graph(g, stream=side):
+        fused_norm._kernel(x, h, w, captured[0], captured[1], 1e-5)
+    torch.cuda.synchronize()
+    assert not captured.any()           # captured, not run
+    g.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured[0], y_ref)
+    _assert_k2_close(captured[0], captured[1], x, h, w)
+
+
+def test_fused_norm_rejects_what_it_does_not_take(dev):
+    x = torch.zeros((2, 64), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(TypeError):
+        fused_norm.fused_residual_rmsnorm(x, x.float(), torch.ones(64, device=dev), 1e-5)
+    with pytest.raises(TypeError):
+        fused_norm.fused_residual_rmsnorm(x.to(torch.int32), x.to(torch.int32),
+                                          torch.ones(64, device=dev), 1e-5)
+    with pytest.raises(ValueError):
+        fused_norm.fused_residual_rmsnorm(x.t().contiguous().t(), x, torch.ones(64, device=dev),
+                                          1e-5)
+    with pytest.raises(ValueError):
+        fused_norm.fused_residual_rmsnorm(x, x, torch.ones(64), 1e-5)
 
 
 def test_batcher_on_card_runs_both_kernels(dev):
