@@ -48,26 +48,36 @@ Phases (any failure exits non-zero; nothing swallows an error):
    exactly those kernel nodes, and its replay must agree too), timed in
    turns with, for information, the eager cuDNN chain of the same blocks
    (several PyTorch calls);
-4. serving phase, twice — the port's REST server in-process on an ephemeral
+4. serving phase — the port's REST server in-process on an ephemeral
    port, an LLMServer at Llama-2-7B widths and depth (random weights from a
    seed, fused_norm=True, paged continuous batching over 8 slots), 8
-   concurrent POST /v1/generate requests: first in bf16, then, once the
-   first is freed, with quantize="int8" and kv_cache_dtype="int8". In each
-   run every kernel's launch count is zeroed just before and read just
-   after, and each kernel of that run's path must have run its expected
-   number of times (int8: K4's prefill kernel 225 times per prefill chunk,
-   its decode kernel 225 times per decode step, and one decode step's
-   torch.profiler trace must hold exactly 225 decode kernels and no
-   split-K reduce kernel; in both runs that trace must hold exactly one K2
-   kernel per layer, and K2's device time per call and the idle gap before
-   it on the card are read from it); every served token is
-   held against a teacher-forced prefill over its request's prompt and
-   served tokens through the same KV numerics (within TIE_TOL of the top
-   logit at every step), and one
-   prompt is re-run through the private generate() and must give the same
-   greedy tokens up to the first near-tie. The int8 run's device memory
-   after load() must stay under INT8_LOAD_PEAK_GB: the int8 weights plus
-   one float32 leaf;
+   concurrent POST /v1/generate requests, five runs: in bf16 with the
+   eager decode programs (the batcher's private ``_eager`` switch, for
+   comparison), through the decode graph (every dispatch one CUDA graph
+   replay, K = 1) and with decode_fuse_steps=FUSED_K (graphs of K = 1 and
+   K = 8 steps) on the same loaded weights; then, once bf16 is freed, with
+   quantize="int8" and kv_cache_dtype="int8", eager and through the graph.
+   Each batcher is built (its graphs warmed up and captured) under
+   ``set_sync_debug_mode("error")``. In each run every kernel's launch
+   count is zeroed just before and read just after (a replay adds what its
+   capture counted), and each kernel of that run's path must have run its
+   expected number of times (int8: K4's prefill kernel 225 times per
+   prefill chunk, its decode kernel 225 times per decode step); every
+   served token is held against a teacher-forced prefill over its
+   request's prompt and served tokens through the same KV numerics (within
+   TIE_TOL of the top logit at every step), and one prompt is re-run
+   through the private generate() and must give the same greedy tokens up
+   to the first near-tie; TTFT, step wall, tok/s, the host time per
+   dispatch and peak memory are printed. After each graph run the served
+   prompts are admitted again (loop stopped) and, on that live state, one
+   replay of each captured program must be bit-equal (tokens, pools, state)
+   to the same program run eagerly from identical copies; then the eager
+   step's host enqueue and torch.profiler trace (exactly one K1 and one K2
+   kernel per layer, 225 K4 decode kernels in int8 and no split-K reduce;
+   K2's device time and the idle gap before it) against each replay's host
+   time, its device time from CUDA events, and its trace (the same kernels
+   k times over). The int8 run's device memory after load() must stay
+   under INT8_LOAD_PEAK_GB: the int8 weights plus one float32 leaf;
 5. ResNet-50 forward phase — the folded model at full width and depth
    (random live weights from a seed: no residual branch is switched off),
    a forward at batch 128 through K3 (its launches: the four chains'
@@ -88,7 +98,7 @@ Phases (any failure exits non-zero; nothing swallows an error):
 
 The line before the last is the kernel table as JSON (K1 over a bf16 pool,
 K1 over an int8 pool, K2, K3, K4's decode kernel, K4's prefill kernel; K2's
-launches are the two LLM runs' together, K3's the predict serving run's);
+launches are the five LLM runs' together, K3's the predict serving run's);
 the last line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 port's package beside it, the script exits non-zero and prints no result.
 """
@@ -155,6 +165,8 @@ LLAMA2_7B = dict(vocab_size=32000, dim=4096, n_layers=32, n_heads=32, n_kv_heads
                  ffn_dim=11008, max_seq_len=4096, dtype="bfloat16")
 N_REQUESTS = 8
 MAX_NEW = 32
+# decode steps per dispatch in the fused serving run (decode_fuse_steps)
+FUSED_K = 8
 # K4 launches per forward of the int8 model: 7 projections x 32 layers +
 # the lm_head
 K4_PER_FORWARD = 7 * LLAMA2_7B["n_layers"] + 1
@@ -982,10 +994,11 @@ def k2_line(k):
             f"K2's end {k['added_ms']:.4f} ms")
 
 
-def profile_step(step, k2_name):
-    """One decode step: its host enqueue (median of REPS, after a warm-up),
-    then one torch.profiler trace of it. Returns (enqueue ms, device ms of
-    every kernel and copy, the trace's device rows by time, K2's numbers
+def profile_step(step, k2_name, reps=REPS):
+    """One decode dispatch (an eager step, or a graph replay): its host
+    time (median of ``reps`` calls, after a warm-up; the card drained before
+    each), then one torch.profiler trace of it. Returns (host ms, device ms
+    of every kernel and copy, the trace's device rows by time, K2's numbers
     from ``k2_in_step``). A trace may come back without a single device
     event (the profiler lost them: a step runs thousands of kernels); such
     a trace is taken again, up to 3 times."""
@@ -993,12 +1006,12 @@ def profile_step(step, k2_name):
     from torch.profiler import ProfilerActivity, profile
 
     step()
-    enqueue = []
-    for _ in range(REPS):
+    host = []
+    for _ in range(reps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         step()
-        enqueue.append(time.perf_counter() - t0)
+        host.append(time.perf_counter() - t0)
         torch.cuda.synchronize()
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1012,23 +1025,40 @@ def profile_step(step, k2_name):
         del prof
         if ops:
             break
-    return (statistics.median(enqueue) * 1e3, sum(dev_us(e) for e in ops) / 1e3, ops, k2)
+    return (statistics.median(host) * 1e3, sum(dev_us(e) for e in ops) / 1e3, ops, k2)
 
 
-def serve(label: str, card: str, knobs: dict):
-    """One serving run of the port's main path at Llama-2-7B widths and
-    depth with the LLMServer ``knobs`` of this run. Fails on any check;
-    returns the run's kernel launch counts."""
+def events_ms(fn) -> float:
+    """Device time of one call of ``fn`` from CUDA events around it, the
+    median of REPS calls (after a warm-up). For a graph replay this is the
+    graph's whole run, the gaps between its kernels included."""
     import torch
 
-    from seldon_core_tpu_torch.ops.fused_norm import fused_residual_rmsnorm
-    from seldon_core_tpu_torch.ops.int8_matmul import int8_matmul
-    from seldon_core_tpu_torch.ops.paged_attention import paged_attention
-    from seldon_core_tpu_torch.servers.llmserver import LLMServer
-    from seldon_core_tpu_torch.transport.rest import make_component_app, start
+    fn()
+    times = []
+    for _ in range(REPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
 
-    quantized = knobs.get("quantize") == "int8"
-    int8_kv = knobs.get("kv_cache_dtype") == "int8"
+
+def step_kernels(ops, name):
+    return sum(e.count for e in ops if name in e.key)
+
+
+def load_llm(label: str, card: str, knobs: dict):
+    """An LLMServer at Llama-2-7B widths and depth (random weights from a
+    seed, fused_norm=True, paged continuous batching over N_REQUESTS slots)
+    with the LLMServer ``knobs``, loaded. Returns (server, weight bytes)."""
+    import torch
+
+    from seldon_core_tpu_torch.servers.llmserver import LLMServer
+
     torch.cuda.reset_peak_memory_stats()
     before_gb = torch.cuda.memory_allocated() / 1e9
     t0 = time.perf_counter()
@@ -1044,9 +1074,182 @@ def serve(label: str, card: str, knobs: dict):
     print(f"[{label}] load_s {time.perf_counter() - t0:.2f} (Llama-2-7B widths, 32 layers, "
           f"random weights, {weight_bytes / 1e9:.3f} GB); peak device memory after load() "
           f"{load_peak_gb:.3f} GB ({before_gb:.3f} GB allocated before) [{card}]", flush=True)
-    if quantized and load_peak_gb > INT8_LOAD_PEAK_GB:
+    if knobs.get("quantize") == "int8" and load_peak_gb > INT8_LOAD_PEAK_GB:
         fail(f"[{label}] peak device memory after load() {load_peak_gb:.3f} GB > "
              f"{INT8_LOAD_PEAK_GB} GB: more than the int8 tree plus one float leaf")
+    return server, weight_bytes
+
+
+def admit_now(b, texts, ahead: int) -> None:
+    """Admit ``texts`` into the batcher's slots on this thread (its loop is
+    stopped), prefill each, and grow every slot's pages ``ahead`` positions
+    past its next write: live block tables and slot state for stepping the
+    programs directly, as the served run had them."""
+    from concurrent.futures import Future
+
+    from seldon_core_tpu_torch.runtime.batcher import _Request
+
+    for text in texts:
+        ids = b.server._tokenizer.encode(text)
+        if not b._admit_begin(_Request(ids, MAX_NEW, Future(), None, None, None)):
+            fail("step phase: no free slot for a re-admitted prompt")
+        while b._prefill is not None:
+            b._prefill_step()
+    for i, slot in enumerate(b._slots):
+        if not (slot.active and b._ensure_slot_pages(i, slot.dispatched_pos() + ahead)):
+            fail(f"step phase: slot {i} is not live")
+
+
+def state_copy(b):
+    return ([tuple(t.clone() for t in layer) for layer in b._caches], b._last_tok.clone(),
+            b._next_pos.clone(), b._keys.clone())
+
+
+def state_equal(b, copy) -> bool:
+    import torch
+
+    pools, last_tok, next_pos, keys = copy
+    return (torch.equal(b._last_tok, last_tok) and torch.equal(b._next_pos, next_pos)
+            and torch.equal(b._keys, keys)
+            and all(torch.equal(x, y) for la, lb in zip(b._caches, pools)
+                    for x, y in zip(la, lb)))
+
+
+def step_phase(label: str, card: str, server, b, texts, weight_bytes: int) -> dict:
+    """Where a decode dispatch's time goes, on live state: the served
+    prompts admitted again into the batcher (loop stopped), then (1) one
+    replay of each captured program against the same program run eagerly
+    from identical copies of the pools and slot state: tokens, pools and
+    state must be bit-equal; (2) the eager step's host enqueue and
+    torch.profiler device time (one K1 and one K2 kernel a layer, 225 K4
+    decode kernels in the int8 model, no split-K reduce), then each graph's
+    replay: its host time, its device time from CUDA events and from the
+    trace (the same kernels, k times over, where the trace sees them)."""
+    import torch
+
+    quantized = server.quantize == "int8"
+    n_layers = LLAMA2_7B["n_layers"]
+    k4_step = K4_PER_FORWARD if quantized else 0
+    admit_now(b, texts, ahead=768)
+    pool_gb = sum(t.numel() * t.element_size() for layer in b._caches for t in layer) / 1e9
+    for k in sorted(b._graphs):
+        copy = state_copy(b)
+        toks = b._graphs[k].replay().clone()
+        eager = server._get_decode_step_paged(b.S, b.n_pages, k)(*copy, b._temp,
+                                                                 b._block_tables)
+        torch.cuda.synchronize()
+        same_tokens = torch.equal(toks, eager)
+        same = same_tokens and state_equal(b, copy)
+        print(f"[{label}] replay vs eager, K = {k}, from identical copies of the pools "
+              f"({pool_gb:.2f} GB) and slot state, {b.S} live slots: tokens "
+              f"{'bit-equal' if same_tokens else 'DIFFER'}, tokens + pools + state "
+              f"{'bit-equal' if same else 'DIFFER'} [{card}]", flush=True)
+        if not same:
+            fail(f"[{label}] the K = {k} graph replay and the eager program differ")
+        del copy, eager
+    torch.cuda.empty_cache()
+
+    def eager_step(k):
+        prog = server._get_decode_step_paged(b.S, b.n_pages, k)
+        return lambda: prog(b._caches, b._last_tok, b._next_pos, b._keys, b._temp,
+                            b._block_tables)
+
+    host_e, dev_e, ops, k2_e = profile_step(eager_step(1), K2_KERNEL)
+    k1_kernels = step_kernels(ops, "paged_attention_decode_kernel")
+    k4_kernels = step_kernels(ops, "int8_matmul_decode_kernel")
+    reduces = [e.key for e in ops if "splitk_reduce" in e.key]
+    # one K1, one K2 call a layer, one K4 call a product: each one kernel
+    if k1_kernels != n_layers or k2_e["calls"] != n_layers:
+        fail(f"[{label}] one eager decode step ran {k1_kernels} paged-attention and "
+             f"{k2_e['calls']} {K2_KERNEL} kernels, expected one per layer ({n_layers})")
+    if k4_kernels != k4_step or reduces:
+        fail(f"[{label}] one eager decode step ran {k4_kernels} K4 decode kernels (expected "
+             f"{k4_step}) and {len(reduces)} kinds of split-K reduce kernel {reduces}")
+    n_e = sum(e.count for e in ops)
+    print(f"[{label}] eager decode step at {b.S} live slots: host enqueue {host_e:.3f} ms, "
+          f"device time {dev_e:.3f} ms in {n_e} kernels and copies ({k1_kernels} of them "
+          f"paged attention, one per layer; {k4_kernels} K4 decode, one per product; "
+          f"{k2_e['calls']} K2, one per layer; torch.profiler); reading the "
+          f"{weight_bytes / 1e9:.2f} GB of weights alone takes "
+          f"{weight_bytes / HBM_BYTES_PER_S * 1e3:.2f} ms [{card}]", flush=True)
+    print(f"[{label}] eager decode step, K2 in the trace: {k2_line(k2_e)} [{card}]", flush=True)
+    for e in ops[:12]:
+        print(f"  {dev_us(e) / 1e3:8.3f} ms  x{e.count:<5d} {e.key[:100]} [{card}]")
+    out = {"eager_host_ms": host_e, "eager_dev_ms": dev_e, "eager_kernels": n_e}
+    for k in sorted(b._graphs):
+        replay = b._graphs[k].replay
+        host_g, dev_g, ops_g, k2_g = profile_step(replay, K2_KERNEL)
+        ev_g = events_ms(replay)
+        n_g = sum(e.count for e in ops_g)
+        seen = (step_kernels(ops_g, "paged_attention_decode_kernel"), k2_g["calls"],
+                step_kernels(ops_g, "int8_matmul_decode_kernel"))
+        if ops_g and seen != (n_layers * k, n_layers * k, k4_step * k):
+            fail(f"[{label}] the K = {k} replay's trace holds (K1, K2, K4 decode) kernels "
+                 f"{seen}, expected {(n_layers * k, n_layers * k, k4_step * k)}")
+        traced = (f"torch.profiler {dev_g:.3f} ms in {n_g} kernels and copies "
+                  f"({dev_g / k:.3f} ms a step; K1, K2, K4 decode {seen})" if ops_g else
+                  "torch.profiler saw no device event in the replay")
+        print(f"[{label}] graph replay of K = {k} step(s) at {b.S} live slots: host time "
+              f"{host_g:.4f} ms (median of {REPS} replay() calls; the eager step's enqueue "
+              f"{host_e:.3f} ms), device time {ev_g:.3f} ms = {ev_g / k:.3f} ms a step (CUDA "
+              f"events around the replay, median of {REPS}); {traced} [{card}]", flush=True)
+        if ops_g:
+            print(f"[{label}] K = {k} replay, K2 in the trace: {k2_line(k2_g)} [{card}]",
+                  flush=True)
+        out[k] = {"host_ms": host_g, "dev_ms": ev_g, "traced_ms": dev_g if ops_g else None}
+        if k > 1:
+            host_ek = profile_step(eager_step(k), K2_KERNEL, reps=3)[0]
+            print(f"[{label}] the same K = {k} program run eagerly: host enqueue "
+                  f"{host_ek:.3f} ms (median of 3) against the replay's {host_g:.4f} ms "
+                  f"[{card}]", flush=True)
+            out[k]["eager_host_ms"] = host_ek
+    return out
+
+
+def serve(label: str, card: str, server, weight_bytes: int, fuse: int = 0,
+          eager: bool = False):
+    """One serving run of the port's main path through ``server`` (loaded by
+    ``load_llm``), its decode dispatches K = 1 and, with ``fuse`` > 1, K =
+    ``fuse`` steps: graph replays, or with ``eager`` the eager programs (the
+    batcher's private switch, for comparison). The batcher and its graphs
+    are built under ``set_sync_debug_mode("error")``. Fails on any check;
+    returns (the run's kernel launch counts, its metrics)."""
+    import gc
+
+    import torch
+
+    from seldon_core_tpu_torch.ops.fused_norm import fused_residual_rmsnorm
+    from seldon_core_tpu_torch.ops.int8_matmul import int8_matmul
+    from seldon_core_tpu_torch.ops.paged_attention import _split_plan, paged_attention
+    from seldon_core_tpu_torch.runtime.batcher import BatcherService
+    from seldon_core_tpu_torch.transport.rest import make_component_app, start
+
+    quantized = server.quantize == "int8"
+    int8_kv = server.kv_cache_dtype == "int8"
+    server.decode_fuse_steps = fuse
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        svc = BatcherService(server, max_slots=N_REQUESTS, _eager=eager)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    b = svc.batcher
+    want = [] if eager else sorted({1, fuse} if fuse > 1 else {1})
+    if sorted(b._graphs) != want:
+        fail(f"[{label}] batcher holds graphs of K = {sorted(b._graphs)}, expected {want}")
+    pool_gb = sum(t.numel() * t.element_size() for layer in b._caches for t in layer) / 1e9
+    what = ("the eager decode programs (the batcher's private _eager switch)" if eager else
+            f"decode graphs of K = {want} captured (warm-up and capture under "
+            f"set_sync_debug_mode('error'): no host sync)")
+    print(f"[{label}] batcher built in {build_s:.3f} s with {what}; device memory "
+          f"+{(torch.cuda.memory_allocated() - mem0) / 1e9:.3f} GB (the KV pool "
+          f"{pool_gb:.3f} GB, slot state, graph pools) [{card}]", flush=True)
+    server._batcher_service = svc
     httpd, _ = start(make_component_app(server, device="cuda"))
     url = f"http://127.0.0.1:{httpd.server_address[1]}"
     try:
@@ -1054,13 +1257,15 @@ def serve(label: str, card: str, knobs: dict):
             if r.status != 200:
                 fail(f"[{label}] /ready answered {r.status}")
         texts = prompts(N_REQUESTS)
-        # warm-up request (cuBLAS handles, kernel builds), not counted
+        # warm-up request (the prefill path's first use), not counted
         code, body = post(url + "/v1/generate", {"prompt": "warm up", "max_new_tokens": 4})
         if code != 200:
             fail(f"[{label}] warm-up request answered {code}: {body}")
         torch.cuda.synchronize()
-        server._ttft_times.clear()
-        server._decode_step_times.clear()
+        for series in (server._ttft_times, server._decode_step_times,
+                       server._decode_dispatch_times, server._decode_sync_times,
+                       server._decode_host_lag):
+            series.clear()
 
         paged_attention.launches = 0
         paged_attention.launches_int8 = 0
@@ -1117,57 +1322,41 @@ def serve(label: str, card: str, knobs: dict):
     if launches["k4_wgmma"] != k4_prefill:
         fail(f"[{label}] K4 prefill-kernel launches {launches['k4_wgmma']} != {k4_prefill} "
              f"({K4_PER_FORWARD if quantized else 0} x {prefill_chunks} prefill chunks)")
+    lag = list(server._decode_host_lag)
     print(f"[{label}] launches during the 8-request run: paged_attention ({k1_key}) "
           f"{k1_launches} ({decode_steps} decode steps x {n_layers} layers), "
           f"fused_residual_rmsnorm {launches['k2']} ({decode_steps} + {prefill_chunks} "
           f"forwards x {n_layers} layers), int8_matmul {launches['k4']} ({forwards} forwards "
           f"x {K4_PER_FORWARD if quantized else 0}): prefill kernel {launches['k4_wgmma']} "
           f"({prefill_chunks} chunks), decode kernel {launches['k4'] - launches['k4_wgmma']} "
-          f"({decode_steps} steps)", flush=True)
-
-    svc = server._batcher_service
-    from seldon_core_tpu_torch.ops.paged_attention import _split_plan
-
+          f"({decode_steps} steps) [{card}]", flush=True)
     cfg = LLAMA2_7B
     served_s = _split_plan(N_REQUESTS, cfg["n_kv_heads"], cfg["n_heads"] // cfg["n_kv_heads"],
-                           svc.batcher.n_pages, svc.batcher.page_size,
-                           cfg["dim"] // cfg["n_heads"], int8_kv)
+                           b.n_pages, b.page_size, cfg["dim"] // cfg["n_heads"], int8_kv)
     print(f"[{label}] K1 split at the served shape (b={N_REQUESTS} slots, "
-          f"n_pages={svc.batcher.n_pages} of {svc.batcher.page_size}): S={served_s}", flush=True)
-    pages = svc.batcher.page_stats()
+          f"n_pages={b.n_pages} of {b.page_size}): S={served_s} [{card}]", flush=True)
+    pages = b.page_stats()
     if pages["kv_pages_in_use"] != 0:
         fail(f"[{label}] pages still held after every request finished: {pages}")
     svc.close()
 
-    # where one decode step's time goes: the host time to enqueue it against
-    # its device time by kernel (the batcher's own state, 8 slots riding
-    # along). CUDA events cannot time this call: its ~2,000 launches fill
-    # the launch queue, so the card waits on the host inside any window.
-    b = svc.batcher
+    ttft = sorted(server._ttft_times)
+    steps = sorted(server._decode_step_times)
+    step_ms = statistics.median(steps) * 1e3
+    dispatch_ms = statistics.median(server._decode_dispatch_times) * 1e3
+    sync_ms = statistics.median(server._decode_sync_times) * 1e3
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    metrics = {"step_ms": step_ms, "ttft_med_ms": statistics.median(ttft) * 1e3,
+               "ttft_max_ms": ttft[-1] * 1e3, "peak_gb": peak_gb, "dispatch_ms": dispatch_ms,
+               "sync_ms": sync_ms, "wall_s": wall, "max_lag": max(lag)}
+    print(f"[{label}] serving: {N_REQUESTS} concurrent requests x {MAX_NEW} tokens in "
+          f"{wall:.3f} s; TTFT median {metrics['ttft_med_ms']:.1f} ms max "
+          f"{metrics['ttft_max_ms']:.1f} ms; decode step median {step_ms:.2f} ms = "
+          f"{N_REQUESTS / (step_ms / 1e3):.1f} tok/s at {N_REQUESTS} slots ({len(steps)} steps "
+          f"in {len(lag)} dispatches; host time per dispatch median {dispatch_ms:.3f} ms, "
+          f"host wait per drain median {sync_ms:.3f} ms, host lag up to {max(lag)} steps); "
+          f"peak device memory over the run {peak_gb:.2f} GB [{card}]", flush=True)
 
-    def step():
-        with torch.no_grad():
-            return server._decode_step_paged(b._caches, b._last_tok, b._next_pos, b._keys,
-                                             b._temp, b._block_tables)
-
-    step_host_ms, kernel_ms, ops, k2_step = profile_step(step, K2_KERNEL)
-    # one K1 call is one kernel: a step runs exactly one per layer
-    k1_kernels = sum(e.count for e in ops if "paged_attention_decode_kernel" in e.key)
-    if k1_kernels != LLAMA2_7B["n_layers"]:
-        fail(f"[{label}] one decode step ran {k1_kernels} paged-attention kernels, expected "
-             f"one per layer ({LLAMA2_7B['n_layers']})")
-    # one K2 call is one kernel: a step runs exactly one per layer
-    if k2_step["calls"] != LLAMA2_7B["n_layers"]:
-        fail(f"[{label}] one decode step ran {k2_step['calls']} {K2_KERNEL} kernels, expected "
-             f"one per layer ({LLAMA2_7B['n_layers']})")
-    # one K4 call is one kernel: an int8 step runs exactly one per product,
-    # and no split-K reduce kernel
-    k4_kernels = sum(e.count for e in ops if "int8_matmul_decode_kernel" in e.key)
-    reduces = [e.key for e in ops if "splitk_reduce" in e.key]
-    if k4_kernels != (K4_PER_FORWARD if quantized else 0) or reduces:
-        fail(f"[{label}] one decode step ran {k4_kernels} K4 decode kernels (expected "
-             f"{K4_PER_FORWARD if quantized else 0}) and {len(reduces)} kinds of split-K "
-             f"reduce kernel {reduces}")
     # every served token against a teacher-forced prefill over its own
     # request through the same KV numerics
     served = [body["tokens"] for _, body in results]
@@ -1194,9 +1383,10 @@ def serve(label: str, card: str, knobs: dict):
     # the batcher's greedy tokens against the private generate() path
     batched = served[0]
     private = server.generate([texts[0]])["tokens"][0]
-    t = next((i for i, (a, b) in enumerate(zip(batched, private)) if a != b), None)
+    t = next((i for i, (a, b_) in enumerate(zip(batched, private)) if a != b_), None)
     if t is None:
-        print(f"[{label}] batcher == generate(): greedy tokens equal for request 0", flush=True)
+        print(f"[{label}] batcher == generate(): greedy tokens equal for request 0 [{card}]",
+              flush=True)
     else:
         ids = server._tokenizer.encode(texts[0]) + batched[:t]
         row = teacher_logits(server, [ids])[0, -1].float()
@@ -1205,34 +1395,17 @@ def serve(label: str, card: str, knobs: dict):
         print(f"[{label}] batcher vs generate(): tokens equal for {t} of {MAX_NEW}, then "
               f"{batched[t]} vs {private[t]}; teacher-forced logit gaps to the top "
               f"{gaps[0]:.4f} / {gaps[1]:.4f} (tie tolerance {TIE_TOL}; logit std "
-              f"{row.std().item():.3f})", flush=True)
+              f"{row.std().item():.3f}) [{card}]", flush=True)
         if max(gaps) > TIE_TOL:
             fail(f"[{label}] batcher and generate() diverge at token {t} without a near-tie: "
                  f"{batched} vs {private}")
-
-    ttft = sorted(server._ttft_times)
-    steps = sorted(server._decode_step_times)
-    step_ms = statistics.median(steps) * 1e3
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    print(f"[{label}] serving: {N_REQUESTS} concurrent requests x {MAX_NEW} tokens in "
-          f"{wall:.3f} s; TTFT median {statistics.median(ttft) * 1e3:.1f} ms max "
-          f"{ttft[-1] * 1e3:.1f} ms; decode step median {step_ms:.2f} ms = "
-          f"{N_REQUESTS / (step_ms / 1e3):.1f} tok/s at {N_REQUESTS} slots; peak device "
-          f"memory over the run {peak_gb:.2f} GB [{card}]", flush=True)
-    print(f"[{label}] decode step at {N_REQUESTS} slots: host enqueue {step_host_ms:.3f} ms, "
-          f"device time {kernel_ms:.3f} ms in {sum(e.count for e in ops)} kernels and copies "
-          f"({k1_kernels} of them paged attention, one per layer; {k4_kernels} K4 decode, one "
-          f"per product; {k2_step['calls']} K2, one per layer; torch.profiler); reading the "
-          f"{weight_bytes / 1e9:.2f} GB of weights alone takes "
-          f"{weight_bytes / HBM_BYTES_PER_S * 1e3:.2f} ms [{card}]", flush=True)
-    print(f"[{label}] decode step, K2 in the trace: {k2_line(k2_step)} [{card}]", flush=True)
-    for e in ops[:12]:
-        print(f"  {dev_us(e) / 1e3:8.3f} ms  x{e.count:<5d} {e.key[:100]}")
-    for e in ops:
-        if K2_KERNEL in e.key:
-            print(f"  K2 row: {dev_us(e) / 1e3:8.3f} ms  x{e.count:<5d} {e.key[:100]}")
+    if not eager:
+        metrics["step"] = step_phase(label, card, server, b, texts, weight_bytes)
     server._batcher_service = None
-    return launches
+    del svc, b
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, metrics
 
 
 # ---------------------------------------------------------------------------
@@ -1781,15 +1954,38 @@ def main() -> int:
               f"{sum(r['bound_ms'] for r in rows):.3f} ms [{card}]", flush=True)
     del scratch
 
-    # 4. serving phase: bf16, then int8 weights + int8 KV once the first is freed
     import gc
 
-    bf16_launches = serve("bf16", card, {})
-    gc.collect()
-    torch.cuda.empty_cache()
-    int8_launches = serve("int8", card, dict(quantize="int8", kv_cache_dtype="int8"))
-    gc.collect()
-    torch.cuda.empty_cache()
+    # 4. serving phase: per model, the eager programs first, then the graphs;
+    # bf16 also with K = FUSED_K fused steps a dispatch; bf16 is freed before
+    # int8 weights + int8 KV load
+    runs = {}
+    for model, knobs, fuses in (("bf16", {}, (0, FUSED_K)),
+                                ("int8", dict(quantize="int8", kv_cache_dtype="int8"), (0,))):
+        server, weight_bytes = load_llm(model, card, knobs)
+        runs[f"{model} eager"] = serve(f"{model} eager", card, server, weight_bytes, eager=True)
+        for fuse in fuses:
+            label = model if fuse <= 1 else f"{model} K={fuse}"
+            runs[label] = serve(label, card, server, weight_bytes, fuse=fuse)
+        del server
+        gc.collect()
+        torch.cuda.empty_cache()
+    print("serving runs (Llama-2-7B, 8 concurrent requests x 32 tokens; step wall drain to "
+          f"drain; host = one dispatch's enqueue or replay on the same live state) [{card}]:",
+          flush=True)
+    for label, (_, m) in runs.items():
+        st = m.get("step", {})
+        graphs = " ".join(f"replay K={k} host {v['host_ms']:.4f} ms device {v['dev_ms']:.3f} ms;"
+                          for k, v in st.items() if isinstance(k, int))
+        eager = (f"eager step host {st['eager_host_ms']:.3f} ms device {st['eager_dev_ms']:.3f} "
+                 f"ms; " if st else "")
+        print(f"  {label:12s} step {m['step_ms']:.2f} ms = {N_REQUESTS / m['step_ms'] * 1e3:.1f} "
+              f"tok/s; TTFT {m['ttft_med_ms']:.1f} / {m['ttft_max_ms']:.1f} ms; peak "
+              f"{m['peak_gb']:.2f} GB; {eager}{graphs} [{card}]", flush=True)
+
+    def total(key, model):
+        return sum(launches[key] for label, (launches, _) in runs.items()
+                   if label.startswith(model))
 
     # 5. ResNet-50 forward; 6. predict serving
     model, _ = resnet_forward_phase(card)
@@ -1807,23 +2003,23 @@ def main() -> int:
     print(f"total_s {time.perf_counter() - t_start:.1f}", flush=True)
     print(json.dumps({"kernels": [
         entry("paged_attention", "cuda", "seldon_core_tpu_torch/csrc/paged_attention.cu",
-              "seldon_core_tpu/ops/paged_attention.py:253", bf16_launches["k1"],
+              "seldon_core_tpu/ops/paged_attention.py:253", total("k1", "bf16"),
               k1["bf16", "ctx160"]),
         entry("paged_attention (int8 pool)", "cuda",
               "seldon_core_tpu_torch/csrc/paged_attention.cu",
-              "seldon_core_tpu/ops/paged_attention.py:253", int8_launches["k1_int8"],
+              "seldon_core_tpu/ops/paged_attention.py:253", total("k1_int8", "int8"),
               k1["int8", "ctx160"]),
         entry("fused_residual_rmsnorm", "cuda", "seldon_core_tpu_torch/csrc/fused_norm.cu",
               "seldon_core_tpu/ops/fused_norm.py:137",
-              bf16_launches["k2"] + int8_launches["k2"], k2[8]),
+              total("k2", ""), k2[8]),
         entry("fused_identity_chain", "cuda", "seldon_core_tpu_torch/csrc/fused_resnet_wgmma.cu",
               "seldon_core_tpu/ops/fused_resnet.py:239", k3_launches, k3[RESNET_BATCH, 56]),
         entry("int8_matmul", "cuda", "seldon_core_tpu_torch/csrc/int8_matmul.cu",
               "seldon_core_tpu/ops/pallas_int8.py:127",
-              int8_launches["k4"] - int8_launches["k4_wgmma"], k4["wq/wk/wv/wo"]),
+              total("k4", "int8") - total("k4_wgmma", "int8"), k4["wq/wk/wv/wo"]),
         entry("int8_matmul (prefill, wgmma)", "cuda",
               "seldon_core_tpu_torch/csrc/int8_matmul_wgmma.cu",
-              "seldon_core_tpu/ops/pallas_int8.py:127", int8_launches["k4_wgmma"],
+              "seldon_core_tpu/ops/pallas_int8.py:127", total("k4_wgmma", "int8"),
               k4["w1/w3 prefill M=128"]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

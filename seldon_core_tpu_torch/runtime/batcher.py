@@ -15,23 +15,28 @@ program serves overlapping requests at arbitrary arrival times:
   decode loop never raises; a sole tenant that outgrows the pool stops with
   the tokens it has.
 
-Pipelined decode. Per-slot token, position and sampling-key state stay on
-the device and are threaded from one step into the next, so dispatching
-step t+1 never waits for step t's tokens. On a card this falls out of
-asynchronous launches: each dispatch enqueues the step's kernels, then a
-non-blocking copy of its tokens into pinned host memory and an event; the
-host reads step t's tokens (waiting on that event only) after step t+1 is
-already enqueued, so the device never idles on host bookkeeping. Up to
-``decode_pipeline_depth`` steps are in flight. A slot that finishes, or is
-freed and re-admitted, between a step's dispatch and its drain is detected
-by a per-slot generation counter and its trailing tokens are dropped, never
-surfaced. Their KV writes land in pages that are reset or rewritten strictly
-after them in stream order.
+Pipelined, fused decode. Per-slot token, position and sampling-key state
+stay on the device, updated in place by each dispatch, so dispatching one
+step never waits for the last one's tokens. A dispatch runs K steps
+(``decode_fuse_steps``; ``_pick_k`` falls back to K = 1 while a request
+waits or a prefill is mid-flight, or when a slot has fewer than K steps of
+room, so there are only two programs). On a card each dispatch is one
+replay of a CUDA graph of the K-step program, captured once when the
+batcher is built (``servers/step_graph.py``), then a non-blocking copy of
+its tokens into pinned host memory and an event; on the CPU the same
+program runs eagerly. The host reads a dispatch's tokens (waiting on that
+event only) after later ones are already enqueued, so the device never
+idles on host bookkeeping. Up to ``decode_pipeline_depth`` dispatches are
+in flight. A slot that finishes, or is freed and re-admitted, between a
+dispatch and its drain is detected by a per-slot generation counter and its
+trailing tokens are dropped, never surfaced; so are the tokens of a fused
+block past a slot's EOS, budget or cache length. Their KV writes land in
+pages that are reset or rewritten strictly after them in stream order.
 
 Every pool, block-table and slot-state update is an in-place tensor update
 enqueued on the same stream as the decode steps (the JAX package donated
 these buffers to jitted ops and relied on device program order in the same
-way).
+way), so a captured graph always reads and writes the same addresses.
 
 The loop runs on a dedicated thread; ``submit`` returns a
 ``concurrent.futures.Future``. There is no asyncio dependency.
@@ -62,6 +67,7 @@ from seldon_core_tpu_torch.runtime.resilience import DEFAULT_RETRY_AFTER_S, Shed
 from seldon_core_tpu_torch.servers.llmserver import (LLMServer, bucket,
                                                      sample_tokens, seed_key,
                                                      split_keys)
+from seldon_core_tpu_torch.servers.step_graph import StepGraph, capture_decode_steps
 
 logger = logging.getLogger(__name__)
 
@@ -217,16 +223,17 @@ class _Slot:
 
 
 class _InFlight:
-    """One dispatched decode step the host has not yet drained: its tokens
-    (a pinned host buffer being filled by an async copy on a card), the
-    event that marks the copy done, the per-slot (index, gen) snapshot taken
-    at dispatch, and the dispatch timestamp."""
+    """One dispatch of k decode steps the host has not yet drained: its
+    tokens [S, k] (a pinned host buffer being filled by an async copy on a
+    card), the event that marks the copy done, k, the per-slot (index, gen)
+    snapshot taken at dispatch, and the dispatch timestamp."""
 
-    __slots__ = ("tokens", "event", "snapshot", "t_dispatch")
+    __slots__ = ("tokens", "event", "k", "snapshot", "t_dispatch")
 
-    def __init__(self, tokens, event, snapshot, t_dispatch):
+    def __init__(self, tokens, event, k, snapshot, t_dispatch):
         self.tokens = tokens
         self.event = event
+        self.k = k
         self.snapshot = snapshot
         self.t_dispatch = t_dispatch
 
@@ -239,12 +246,19 @@ class ContinuousBatcher:
         max_len: Optional[int] = None,
         len_buckets: Optional[Sequence[int]] = None,
         pipeline_depth: Optional[int] = None,
+        fuse_steps: Optional[int] = None,
         layout: Optional[str] = None,
         page_size: Optional[int] = None,
         pool_pages: Optional[int] = None,
         prefill_chunk: Optional[int] = None,
         device: Optional[str] = None,
+        _eager: bool = False,
     ):
+        """``fuse_steps`` (default: the server's ``decode_fuse_steps``; 0 or
+        1 = single steps) is K, the steps one dispatch runs. On a card the
+        decode programs (K = 1 and K = ``fuse_steps``) are captured here as
+        CUDA graphs, before any request; ``_eager=True`` runs them eagerly
+        instead (a private switch for comparing the two)."""
         self.device = resolve_device(device)
         server.load()
         if server.device != self.device:
@@ -270,6 +284,8 @@ class ContinuousBatcher:
         self.eos_id = server.eos_id
         depth = pipeline_depth if pipeline_depth is not None else server.decode_pipeline_depth
         self.pipeline_depth = max(int(depth), 1)
+        fuse = fuse_steps if fuse_steps is not None else server.decode_fuse_steps
+        self.fuse_steps = max(int(fuse), 0)
         ps = int(page_size if page_size is not None else server.kv_page_size or 0) \
             or DEFAULT_PAGE_SIZE
         if ps <= 0:
@@ -316,6 +332,14 @@ class ContinuousBatcher:
         self._keys = torch.zeros((self.S,), dtype=torch.int64, device=dev)
         self._rng = seed_key(server.seed)
         self._temp = float(server.temperature)
+        # k -> the captured K-step program (the card's only decode path);
+        # empty where the programs run eagerly (the CPU, or _eager)
+        self._graphs: Dict[int, StepGraph] = {}
+        if self.device.type == "cuda" and not _eager:
+            ks = (1, self.fuse_steps) if self.fuse_steps > 1 else (1,)
+            self._graphs = capture_decode_steps(server, ks, self._caches, self._last_tok,
+                                                self._next_pos, self._keys, self._temp,
+                                                self._block_tables)
 
     # ------------------------------------------------------------------
     # Host <-> device staging
@@ -656,51 +680,85 @@ class ContinuousBatcher:
         return [i for i, s in enumerate(self._slots)
                 if s.active and s.disp_new < s.max_new and s.dispatched_pos() < self.max_len]
 
+    def _pick_k(self) -> int:
+        """Fused-step block size for the next dispatch. K > 1 only when no
+        request waits and no prefill is mid-flight (a fused block delays
+        admission by K steps) and every eligible slot has room for K steps
+        (so the block never overruns max_new or writes past the cache).
+        Falling back to 1 instead of an arbitrary clamp keeps the programs
+        at two (K = 1 and K = fuse_steps)."""
+        if self.fuse_steps <= 1 or self._prefill is not None or self._next_request() is not None:
+            return 1
+        eligible = self._dispatch_eligible()
+        if not eligible:
+            return 1
+        room = min(min(s.max_new - s.disp_new, self.max_len - s.dispatched_pos())
+                   for s in (self._slots[i] for i in eligible))
+        return self.fuse_steps if room >= self.fuse_steps else 1
+
     def _dispatch(self):
-        """Enqueue one decode step WITHOUT waiting for its tokens."""
-        # grow every eligible slot's pages to cover this dispatch's write;
-        # a shed inside the loop can deactivate a later slot of the snapshot
+        """Enqueue one dispatch of k decode steps WITHOUT waiting for its
+        tokens: a graph replay on a card, the eager program otherwise."""
+        k = self._pick_k()
+        # grow every eligible slot's pages to cover this dispatch's k writes,
+        # positions dispatched_pos() .. dispatched_pos() + k - 1; a shed
+        # inside the loop can deactivate a later slot of the snapshot
         for i in self._dispatch_eligible():
             if self._slots[i].active:
-                self._ensure_slot_pages(i, self._slots[i].dispatched_pos())
+                self._ensure_slot_pages(i, self._slots[i].dispatched_pos() + k - 1)
         if not self._dispatch_eligible():
             return
         t0 = time.perf_counter()
-        self._last_tok, self._next_pos, self._keys, toks = self.server._decode_step_paged(
-            self._caches, self._last_tok, self._next_pos, self._keys, self._temp,
-            self._block_tables)
+        if self._graphs:
+            toks = self._graphs[k].replay()
+        else:
+            toks = self.server._get_decode_step_paged(self.S, self.n_pages, k)(
+                self._caches, self._last_tok, self._next_pos, self._keys, self._temp,
+                self._block_tables)
+        self.server._decode_dispatch_times.append(time.perf_counter() - t0)
         host, event = self._stage_to_host(toks)
         snapshot = [(i, s.gen) for i, s in enumerate(self._slots) if s.active]
         for i, _ in snapshot:
-            self._slots[i].disp_new += 1
-        self._inflight.append(_InFlight(host, event, snapshot, t0))
+            self._slots[i].disp_new += k
+        self._inflight.append(_InFlight(host, event, k, snapshot, t0))
         self._inflight_hwm = max(self._inflight_hwm, len(self._inflight))
 
     def _drain_one(self):
-        """Consume the OLDEST in-flight step: wait for its tokens only, then
-        run all host bookkeeping (EOS, budgets, callbacks, slot release)
-        while later steps keep the device busy."""
+        """Consume the OLDEST in-flight dispatch: wait for its tokens only,
+        then run all host bookkeeping (EOS, budgets, callbacks, slot
+        release) while later dispatches keep the device busy."""
         rec: _InFlight = self._inflight.popleft()
+        # host lag in decode STEPS, not dispatch records: a fused record
+        # covers k steps, so depth 2 at K = 8 is a 16-step lag
+        lag = rec.k + sum(r.k for r in self._inflight)
+        t0 = time.perf_counter()
         if rec.event is not None:
             rec.event.synchronize()
-        arr = rec.tokens.numpy()
+        arr = rec.tokens.numpy()   # [S, k]
         now = time.perf_counter()
+        self.server._decode_sync_times.append(now - t0)
+        self.server._decode_host_lag.append(lag)
+        # drain to drain, floored at this record's dispatch so an idle gap
+        # does not count; a fused record's wall is shared by its k steps
         base = rec.t_dispatch if self._last_drain_t is None else max(
             self._last_drain_t, rec.t_dispatch)
-        self.server._decode_step_times.append(max(now - base, 0.0))
+        per_step = max(now - base, 0.0) / rec.k
+        self.server._decode_step_times.extend([per_step] * rec.k)
         self._last_drain_t = now
         for i, gen in rec.snapshot:
             slot = self._slots[i]
             if not slot.active or slot.gen != gen:
-                continue  # trailing run-ahead token of a gone occupant
+                continue  # trailing run-ahead tokens of a gone occupant
             if slot.n_new >= slot.max_new:
                 continue  # budget-exhausted slot riding along
-            tok = int(arr[i])
-            slot.tokens.append(tok)
-            slot.n_new += 1
-            if (tok == self.eos_id or slot.n_new >= slot.max_new
-                    or slot.host_pos() >= self.max_len):
-                self._finish(i)
+            for j in range(rec.k):
+                tok = int(arr[i, j])
+                slot.tokens.append(tok)
+                slot.n_new += 1
+                if (tok == self.eos_id or slot.n_new >= slot.max_new
+                        or slot.host_pos() >= self.max_len):
+                    self._finish(i)   # the rest of the block is dropped
+                    break
 
     # ------------------------------------------------------------------
     def _next_request(self) -> Optional[_Request]:
@@ -775,10 +833,11 @@ class BatcherService:
     """Owns a ContinuousBatcher so every transport thread reaches ONE shared
     batch: ``submit`` returns a Future, ``submit_sync`` blocks on it."""
 
-    def __init__(self, server: LLMServer, max_slots: int = 4):
+    def __init__(self, server: LLMServer, max_slots: int = 4, **batcher_kw: Any):
+        """``batcher_kw``: further ``ContinuousBatcher`` arguments."""
         self.batcher = ContinuousBatcher(server, max_slots=max_slots,
                                          max_len=server.continuous_batching_max_len,
-                                         device=server.device)
+                                         device=server.device, **batcher_kw)
 
     def submit(self, prompt: Any, max_new_tokens: Optional[int] = None,
                seed: Optional[int] = None, info: Optional[dict] = None) -> Future:

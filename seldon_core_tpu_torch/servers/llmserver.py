@@ -4,9 +4,15 @@ Port of ``seldon_core_tpu/servers/llmserver.py``: the same constructor
 arguments and defaults (plus ``device``), the byte tokenizer, ``load`` for a
 randomly initialised model or converted JAX weights, the private dense
 ``generate()`` path, and the paged chunked-prefill / decode-step programs the
-continuous batcher (``runtime/batcher.py``) drives. PyTorch runs eagerly, so
-the JAX package's compiled-program caches (``_get_prefill`` ...) become plain
-methods (``_prefill`` ...).
+continuous batcher (``runtime/batcher.py``) drives. Prefill and the dense
+``generate()`` decode run eagerly, as plain methods (``_prefill`` ...) in
+place of the JAX package's compiled-program caches (``_get_prefill`` ...).
+The paged decode step is the one compiled program the port keeps:
+``_get_decode_step_paged(slots, n_pages, k)`` returns the k-step program
+(``decode_fuse_steps``), cached under the JAX package's key. On the CPU the
+batcher calls it eagerly; on the card the batcher captures it once as a
+CUDA graph over its own buffers and replays it (``servers/step_graph.py``),
+one replay per dispatch of k steps.
 
 Sampling chain (a decision of the port). The JAX package chains
 ``jax.random`` keys: one split per generated token, the first token drawn at
@@ -202,7 +208,6 @@ class LLMServer(SeldonComponent):
             ("topology", topology is not None, "the parallelism slice"),
             ("tensor_parallel", int(tensor_parallel) > 1, "the parallelism slice"),
             ("sequence_parallel", int(sequence_parallel) > 1, "the parallelism slice"),
-            ("decode_fuse_steps", int(decode_fuse_steps) > 1, "the decode_fuse_steps slice"),
             ("spec_mode", str(spec_mode or "off").lower() != "off",
              "the speculative-decoding slice"),
             ("spec_k", spec_k, "the speculative-decoding slice"),
@@ -268,9 +273,19 @@ class LLMServer(SeldonComponent):
         self._request_count = 0
         self._lock = threading.Lock()
         # serving observability, appended by the batcher: time to first
-        # token per request and the drain-to-drain wall of each decode step
+        # token per request, the drain-to-drain wall of each decode step, and
+        # per dispatch the host time of the step call (enqueue or replay, no
+        # sync), per drain the host wait for its tokens, and the steps in
+        # flight at each drain (host lag, in steps: a fused record is k)
         self._ttft_times: Any = deque(maxlen=4096)
         self._decode_step_times: Any = deque(maxlen=4096)
+        self._decode_dispatch_times: Any = deque(maxlen=4096)
+        self._decode_sync_times: Any = deque(maxlen=4096)
+        self._decode_host_lag: Any = deque(maxlen=4096)
+        # the decode-step programs by ("pagedstep", slots, n_pages, k), and
+        # the one stream every batcher of this server captures its graphs on
+        self._decode_cache: Dict[tuple, Any] = {}
+        self._capture_stream: Optional[Any] = None
 
     # ------------------------------------------------------------------
     def load(self, params: Optional[Dict[str, Any]] = None) -> None:
@@ -333,7 +348,9 @@ class LLMServer(SeldonComponent):
                     self._cfg.vocab_size, self.device)
 
     # ------------------------------------------------------------------
-    # Forward programs (the JAX package's compiled stages, run eagerly)
+    # Forward programs (the JAX package's compiled stages): prefill and the
+    # dense decode run eagerly; the paged decode step of k fused steps runs
+    # eagerly on the CPU and as a CUDA graph replay on the card
     # ------------------------------------------------------------------
     def _prefill(self, tokens: torch.Tensor, positions: torch.Tensor, max_len: int):
         """Port of ``_get_prefill``: fresh dense caches of ``max_len``
@@ -374,17 +391,51 @@ class LLMServer(SeldonComponent):
                                  block_tables=block_row)
         return logits
 
-    def _decode_step_paged(self, pools, last_tok: torch.Tensor, next_pos: torch.Tensor,
-                           keys: torch.Tensor, temperature: float,
-                           block_tables: torch.Tensor):
-        """Port of ``_get_decode_step_paged`` (k = 1): one decode step over
-        every slot with the sampling state on the device. Returns the next
-        (last_tok, next_pos, keys) and the step's tokens [slots]; nothing is
-        read back to the host here."""
-        logits, _ = self._module(last_tok[:, None], positions=next_pos[:, None],
-                                 caches=pools, block_tables=block_tables)
-        keys, nxt = sample_tokens(keys, logits[:, -1], temperature, self.top_k)
-        return nxt, next_pos + 1, keys, nxt
+    def _get_decode_step_paged(self, slots: int, n_pages: int, k: int = 1):
+        """Port of ``_get_decode_step_paged``: the program of ``k`` decode
+        steps over the paged pool, cached under ``("pagedstep", slots,
+        n_pages, k)``. Its call ``step(pools, last_tok, next_pos, keys,
+        temperature, block_tables)`` runs the steps with the sampling state
+        on the device (one key split per step, ``sample_tokens``), leaves
+        ``last_tok``, ``next_pos`` and ``keys`` updated in place (the JAX
+        package donated them) and returns the tokens [slots, k]; the pools
+        are written in place, the block tables only read. Nothing is read
+        back to the host, so the same call is what a CUDA graph captures
+        (``servers/step_graph.py``)."""
+        slots, n_pages, k = int(slots), int(n_pages), int(k)
+        key = ("pagedstep", slots, n_pages, k)
+        with self._lock:
+            fn = self._decode_cache.get(key)
+        if fn is not None:
+            return fn
+        module, top_k = self._module, self.top_k
+
+        def step(pools, last_tok, next_pos, keys, temperature, block_tables):
+            if tuple(block_tables.shape) != (slots, n_pages) or last_tok.shape != (slots,):
+                raise ValueError(f"decode step {key}: block_tables {tuple(block_tables.shape)}, "
+                                 f"last_tok {tuple(last_tok.shape)}")
+            tokens = torch.empty((slots, k), dtype=torch.int64, device=last_tok.device)
+            for j in range(k):
+                logits, _ = module(last_tok[:, None], positions=next_pos[:, None], caches=pools,
+                                   block_tables=block_tables)
+                new_keys, nxt = sample_tokens(keys, logits[:, -1], temperature, top_k)
+                keys.copy_(new_keys)
+                last_tok.copy_(nxt)
+                next_pos.add_(1)
+                tokens[:, j] = nxt
+            return tokens
+
+        with self._lock:
+            return self._decode_cache.setdefault(key, step)
+
+    def _graph_stream(self) -> torch.cuda.Stream:
+        """The server's one capture stream (made at first use): every
+        batcher captures its decode graphs on it, so cuBLAS keeps one
+        workspace for them all."""
+        with self._lock:
+            if self._capture_stream is None:
+                self._capture_stream = torch.cuda.Stream(device=self.device)
+            return self._capture_stream
 
     # ------------------------------------------------------------------
     @torch.no_grad()

@@ -613,6 +613,198 @@ def test_int8_batcher_on_card_runs_every_kernel(dev):
     assert b.page_stats()["kv_pages_in_use"] == 0
 
 
+SMALL_LLM = dict(vocab_size=256, dim=128, n_layers=2, n_heads=4, n_kv_heads=2, ffn_dim=256,
+                 max_seq_len=128, dtype="bfloat16", fused_norm=True)
+INT8_KNOBS = {"bf16": {}, "int8": dict(quantize="int8", kv_cache_dtype="int8")}
+
+
+def _graph_batcher(dev, kv, **kw):
+    """A small GQA model (head_dim 32, 2 kv heads: K1 splits each pair over
+    several CTAs) and a 3-slot paged batcher on the card with K = 4, built
+    (its decode graphs captured) under ``set_sync_debug_mode("error")``:
+    any host sync in the warm-up or the capture raises."""
+    from seldon_core_tpu_torch.runtime.batcher import ContinuousBatcher
+    from seldon_core_tpu_torch.servers.llmserver import LLMServer
+
+    s = LLMServer(model="transformer", model_kwargs=SMALL_LLM, init_random=True,
+                  param_dtype="auto", max_new_tokens=12, eos_id=-1, len_buckets=(16,),
+                  temperature=kw.pop("temperature", 0.0), device="cuda", **INT8_KNOBS[kv])
+    s.load()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        b = ContinuousBatcher(s, max_slots=3, page_size=8, fuse_steps=4, device="cuda", **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return s, b
+
+
+def _admit(b, prompts):
+    """Admit ``prompts`` into the batcher's slots on this thread (its loop
+    never starts), prefill them, and grow each slot's pages 16 positions
+    ahead: live tables and state for direct steps."""
+    from concurrent.futures import Future
+
+    from seldon_core_tpu_torch.runtime.batcher import _Request
+
+    for p in prompts:
+        assert b._admit_begin(_Request(list(p), 12, Future(), None, None, None))
+        while b._prefill is not None:
+            b._prefill_step()
+    for i, slot in enumerate(b._slots):
+        if slot.active:
+            assert b._ensure_slot_pages(i, slot.dispatched_pos() + 16)
+
+
+def _state_copy(b):
+    return ([tuple(t.clone() for t in layer) for layer in b._caches], b._last_tok.clone(),
+            b._next_pos.clone(), b._keys.clone())
+
+
+def _assert_state_equal(b, copy):
+    pools, last_tok, next_pos, keys = copy
+    assert torch.equal(b._last_tok, last_tok) and torch.equal(b._next_pos, next_pos)
+    assert torch.equal(b._keys, keys)
+    for la, lb in zip(b._caches, pools):
+        for x, y in zip(la, lb):
+            assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+def test_decode_graph_replay_bit_equals_eager(dev, kv):
+    """From identical copies of pools and state (two live slots, one free
+    slot riding along on the TRASH page), one replay of each captured
+    program (K = 1 and K = 4) and one eager call of the same program give
+    bit-equal tokens, pools and state; K1's arrival counters read zero
+    after every replay; each replay adds to the launch counters exactly
+    what its capture counted (per step: one K1 and one K2 a layer, and in
+    the int8 model one K4 decode launch a product)."""
+    from seldon_core_tpu_torch.ops.paged_attention import _counters
+    from seldon_core_tpu_torch.servers.step_graph import launch_counts
+
+    s, b = _graph_batcher(dev, kv, temperature=0.7)
+    assert sorted(b._graphs) == [1, 4]
+    # made by the warm-up, outside the capture
+    assert (torch.cuda.current_device(), s._graph_stream().cuda_stream) in _counters
+    _admit(b, ([5, 9, 17, 2, 40, 3, 22, 8, 11, 60], [7, 7, 1]))
+    n_layers = SMALL_LLM["n_layers"]
+    for k in (1, 4, 1):
+        copy = _state_copy(b)
+        before = launch_counts()
+        toks = b._graphs[k].replay().clone()
+        after = launch_counts()
+        eager = s._get_decode_step_paged(b.S, b.n_pages, k)(*copy, b._temp, b._block_tables)
+        torch.cuda.synchronize()
+        assert torch.equal(toks, eager) and toks.shape == (3, k)
+        _assert_state_equal(b, copy)
+        for buf in _counters.values():
+            assert not buf.any()
+        delta = {key: n - before[key] for key, n in after.items() if n != before[key]}
+        assert delta == dict(b._graphs[k].counts)
+        k1 = paged_attention.paged_attention
+        assert delta[(k1, "launches_int8" if kv == "int8" else "launches")] == n_layers * k
+        assert delta[(fused_norm.fused_residual_rmsnorm, "launches")] == n_layers * k
+        k4 = delta.get((int8_matmul.int8_matmul, "launches"), 0)
+        assert k4 == ((7 * n_layers + 1) * k if kv == "int8" else 0)
+
+
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+def test_decode_graph_replay_reads_new_block_table(dev, kv):
+    """A block-table write between replays (slot 0's row pointed at slot
+    1's pages, in place) is what the next replay reads: it equals the eager
+    program on the new table, and differs from the eager program on the old
+    one."""
+    s, b = _graph_batcher(dev, kv)
+    _admit(b, ([5, 9, 17, 2, 40, 3, 22, 8, 11, 60], [7, 7, 1]))
+    prog = s._get_decode_step_paged(b.S, b.n_pages, 4)
+    old_table = b._block_tables.clone()
+    b._block_tables[0].copy_(b._block_tables[1])
+    new_copy, old_copy = _state_copy(b), _state_copy(b)
+    toks = b._graphs[4].replay().clone()
+    on_new = prog(*new_copy, b._temp, b._block_tables)
+    on_old = prog(*old_copy, b._temp, old_table)
+    torch.cuda.synchronize()
+    assert torch.equal(toks, on_new)
+    _assert_state_equal(b, new_copy)
+    assert not all(torch.equal(x, y) for la, lb in zip(new_copy[0], old_copy[0])
+                   for x, y in zip(la, lb))
+
+
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+def test_batcher_through_graphs_equals_eager_batcher(dev, kv):
+    """The same requests served through the graphs (K = 4, depth 2) and
+    through the eager programs (the private ``_eager`` switch): the same
+    tokens, since every program has fixed shapes (slots x one token) and
+    the kernels give the same bits for the same inputs."""
+    s, b = _graph_batcher(dev, kv, pipeline_depth=2)
+    from seldon_core_tpu_torch.runtime.batcher import ContinuousBatcher
+
+    prompts = ("hi", "hello there", "a", "four requests on three slots")
+    outs = {}
+    for name, batcher in (("graph", b), ("eager", ContinuousBatcher(
+            s, max_slots=3, page_size=8, fuse_steps=4, pipeline_depth=2, device="cuda",
+            _eager=True))):
+        assert bool(batcher._graphs) == (name == "graph")
+        try:
+            outs[name] = [f.result(120) for f in [batcher.submit(p) for p in prompts]]
+        finally:
+            batcher.close()
+        assert batcher.page_stats()["kv_pages_in_use"] == 0
+    assert [len(o) for o in outs["graph"]] == [12] * 4
+    assert outs["graph"] == outs["eager"]
+    assert max(s._decode_host_lag) > 4
+
+
+def test_capture_while_another_thread_generates(dev):
+    """Graphs are captured thread-locally: batchers built while another
+    thread runs the private ``generate()`` path (eager launches, its own
+    allocations and host syncs) capture, their replay is bit-equal to the
+    eager program, and the other thread's tokens equal a solo run's."""
+    import threading
+    import time
+
+    from seldon_core_tpu_torch.runtime.batcher import ContinuousBatcher
+    from seldon_core_tpu_torch.servers.llmserver import LLMServer
+
+    s = LLMServer(model="transformer", model_kwargs=SMALL_LLM, init_random=True,
+                  param_dtype="auto", max_new_tokens=12, eos_id=-1, len_buckets=(16,),
+                  device="cuda")
+    s.load()
+    solo = s.generate(["hello there"], max_new_tokens=8)["tokens"][0]
+    stop, outs, errors = threading.Event(), [], []
+
+    def spin():
+        try:
+            while not stop.is_set():
+                outs.append(s.generate(["hello there"], max_new_tokens=8)["tokens"][0])
+        except Exception as e:  # reported below
+            errors.append(e)
+
+    t = threading.Thread(target=spin)
+    t.start()
+    try:
+        deadline = time.monotonic() + 60
+        while not outs and not errors and time.monotonic() < deadline:
+            time.sleep(0.01)
+        batchers = [ContinuousBatcher(s, max_slots=3, page_size=8, fuse_steps=4,
+                                      device="cuda") for _ in range(3)]
+        seen = len(outs)
+    finally:
+        stop.set()
+        t.join(60)
+    assert not t.is_alive() and not errors, errors
+    assert seen >= 1 and len(outs) > seen and all(o == solo for o in outs)
+    b = batchers[-1]
+    _admit(b, ([5, 9, 17, 2, 40, 3, 22, 8, 11, 60], [7, 7, 1]))
+    for k in (1, 4):
+        copy = _state_copy(b)
+        toks = b._graphs[k].replay().clone()
+        eager = s._get_decode_step_paged(b.S, b.n_pages, k)(*copy, b._temp, b._block_tables)
+        torch.cuda.synchronize()
+        assert torch.equal(toks, eager)
+        _assert_state_equal(b, copy)
+
+
 def _k3_case(dev, b, h, w, c, f, n_blocks, seed):
     """bf16 activations (relu of a normal draw) and live folded blocks:
     weights at 1/sqrt(fan_in), b1 > 0 so the 3x3 conv's zero padding

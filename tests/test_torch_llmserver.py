@@ -272,7 +272,6 @@ def test_rest_generate_and_ready(jax_params):
     (dict(prefix_cache_size=4), "prefix"),
     (dict(lora_rank=4), "LoRA"),
     (dict(tensor_parallel=2), "parallelism"),
-    (dict(decode_fuse_steps=4), "decode_fuse_steps"),
 ])
 def test_later_slice_knobs_raise(kw, slice_name):
     with pytest.raises(NotImplementedError, match=slice_name):
