@@ -37,8 +37,10 @@ Phases (any failure exits non-zero; nothing swallows an error):
    call must put one kernel and nothing else on its stream, counted from a
    CUDA graph of the call whose replay must give the same bits, and two
    calls must give the same bits) and at 128- and 256-row prefill chunks
-   of wq, w1, w2 and the lm_head (the prefill kernel, TMA + wgmma, timed
-   in turns with the decode kernel
+   of wq, w1, w2 and the lm_head (the prefill kernel, TMA + wgmma; a CUDA
+   graph of one call must hold it and, where its plan splits K, the
+   split-K reduce, and its replay and a second call must give the same
+   bits; timed in turns with the decode kernel
    called through its own entry point at the same shape and with the
    library call), K3 the folded-BN identity bottleneck chain at the four
    ResNet-50 chains at batch 128 and at the served batches 8 and 1, at its
@@ -50,34 +52,48 @@ Phases (any failure exits non-zero; nothing swallows an error):
    (several PyTorch calls);
 4. serving phase — the port's REST server in-process on an ephemeral
    port, an LLMServer at Llama-2-7B widths and depth (random weights from a
-   seed, fused_norm=True, paged continuous batching over 8 slots), 8
-   concurrent POST /v1/generate requests, five runs: in bf16 with the
-   eager decode programs (the batcher's private ``_eager`` switch, for
-   comparison), through the decode graph (every dispatch one CUDA graph
-   replay, K = 1) and with decode_fuse_steps=FUSED_K (graphs of K = 1 and
-   K = 8 steps) on the same loaded weights; then, once bf16 is freed, with
-   quantize="int8" and kv_cache_dtype="int8", eager and through the graph.
-   Each batcher is built (its graphs warmed up and captured) under
-   ``set_sync_debug_mode("error")``. In each run every kernel's launch
-   count is zeroed just before and read just after (a replay adds what its
-   capture counted), and each kernel of that run's path must have run its
-   expected number of times (int8: K4's prefill kernel 225 times per
-   prefill chunk, its decode kernel 225 times per decode step); every
-   served token is held against a teacher-forced prefill over its
+   seed, fused_norm=True, paged continuous batching over 8 slots), five
+   runs: in bf16 with the eager prefill and decode programs (the batcher's
+   private ``_eager`` switch, for comparison), through the graphs (every
+   prefill chunk one replay of the CUDA graph of its chunk length, 32, 128
+   or 256; every decode dispatch one replay, K = 1) and with
+   decode_fuse_steps=FUSED_K (decode graphs of K = 1 and K = 8) on the
+   same loaded weights; then, once bf16 is freed, with quantize="int8" and
+   kv_cache_dtype="int8", eager and through the graphs. Each batcher is
+   built (its graphs warmed up and captured) under
+   ``set_sync_debug_mode("error")``; the graph pools' memory is read from
+   the allocator's snapshot. Each run serves 8 concurrent POST
+   /v1/generate requests (one chunk of 128 each), then a mixed admission
+   (prompts of about 600, 24 and 124 tokens: three chunks of 256, one of
+   32, one of 128). Around each set of requests every kernel's launch
+   count and the server's prefill counters are zeroed just before and
+   read just after (a replay adds what its capture counted): each kernel
+   of the path must have run its expected number of times (K2 once a
+   layer a forward; int8: K4 225 times a forward, on its prefill kernel
+   for a chunk of 64 rows or more, on its decode kernel otherwise), and
+   every chunk must have been a graph replay (or, eager, an eager run).
+   Every served token is held against a teacher-forced prefill over its
    request's prompt and served tokens through the same KV numerics (within
    TIE_TOL of the top logit at every step), and one prompt is re-run
    through the private generate() and must give the same greedy tokens up
    to the first near-tie; TTFT, step wall, tok/s, the host time per
-   dispatch and peak memory are printed. After each graph run the served
-   prompts are admitted again (loop stopped) and, on that live state, one
-   replay of each captured program must be bit-equal (tokens, pools, state)
-   to the same program run eagerly from identical copies; then the eager
-   step's host enqueue and torch.profiler trace (exactly one K1 and one K2
-   kernel per layer, 225 K4 decode kernels in int8 and no split-K reduce;
-   K2's device time and the idle gap before it) against each replay's host
-   time, its device time from CUDA events, and its trace (the same kernels
-   k times over). The int8 run's device memory after load() must stay
-   under INT8_LOAD_PEAK_GB: the int8 weights plus one float32 leaf;
+   dispatch, peak memory and the graph pools' memory are printed. After
+   each graph run the served prompts are admitted again (loop stopped)
+   and, on that live state, one replay of each captured decode program
+   must be bit-equal (tokens, pools, state) to the same program run
+   eagerly from identical copies; then the eager step's host enqueue and
+   torch.profiler trace (exactly one K1 and one K2 kernel per layer, 225
+   K4 decode kernels in int8 and no split-K reduce; K2's device time and
+   the idle gap before it) against each replay's host time, its device
+   time from CUDA events, and its trace (the same kernels k times over).
+   Then, per chunk length, a first and a later chunk on fresh pages of
+   the live pool: each replay must be bit-equal (logits, every pool
+   tensor) to the eager program from identical copies, one call and one
+   replay must launch what the path expects, and the chunk's host time
+   (eager enqueue against replay) and device time (CUDA events around the
+   replay against the profiler's kernel sum) are printed. The int8 run's
+   device memory after load() must stay under INT8_LOAD_PEAK_GB: the int8
+   weights plus one float32 leaf;
 5. ResNet-50 forward phase — the folded model at full width and depth
    (random live weights from a seed: no residual branch is switched off),
    a forward at batch 128 through K3 (its launches: the four chains'
@@ -114,6 +130,7 @@ import threading
 import time
 import urllib.error
 import urllib.request
+from typing import Optional
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate
 BF16_FLOPS_PER_S = 989e12     # H100 SXM dense bf16 tensor-core peak
@@ -167,6 +184,13 @@ N_REQUESTS = 8
 MAX_NEW = 32
 # decode steps per dispatch in the fused serving run (decode_fuse_steps)
 FUSED_K = 8
+# the chunk lengths the 7B batcher's admissions produce (its defaults:
+# buckets 32/128/512/2048, chunks of 256), one prefill graph each
+PREFILL_CHUNKS = (32, 128, 256)
+# the mixed admission: prompts of about 600, 24 and 124 tokens, run as three
+# chunks of 256, one of 32 and one of 128
+MIXED_LENGTHS = (600, 24, 124)
+MIXED_CHUNKS = (256, 256, 256, 32, 128)
 # K4 launches per forward of the int8 model: 7 projections x 32 layers +
 # the lm_head
 K4_PER_FORWARD = 7 * LLAMA2_7B["n_layers"] + 1
@@ -325,22 +349,73 @@ GRAPH_NODE_TYPES = ("kernel", "memcpy", "memset", "host", "graph", "empty", "wai
                     "mem_free", "batch_mem_op", "conditional")
 
 
+def cu_check(rc, what):
+    if rc != 0:
+        fail(f"libcuda: {what} returned CUresult {rc}")
+
+
+def graph_node_list(graph):
+    """(node handle, node type) of every node of ``graph``, a
+    torch.cuda.CUDAGraph captured with keep_graph=True, read with
+    cuGraphGetNodes and cuGraphNodeGetType from libcuda."""
+    import ctypes
+
+    libcuda = ctypes.CDLL("libcuda.so.1")
+    raw = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    cu_check(libcuda.cuGraphGetNodes(raw, None, ctypes.byref(n)), "cuGraphGetNodes")
+    nodes = (ctypes.c_void_p * max(n.value, 1))()
+    cu_check(libcuda.cuGraphGetNodes(raw, nodes, ctypes.byref(n)), "cuGraphGetNodes")
+    out = []
+    for node in nodes[:n.value]:
+        t = ctypes.c_int(-1)
+        cu_check(libcuda.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(t)),
+                 "cuGraphNodeGetType")
+        out.append((node, GRAPH_NODE_TYPES[t.value] if 0 <= t.value < len(GRAPH_NODE_TYPES)
+                    else str(t.value)))
+    return out
+
+
+def graph_kernel_names(graph):
+    """The function name (mangled, as the driver holds it) of every kernel
+    node of ``graph`` (as ``graph_node_list``), from
+    cuGraphKernelNodeGetParams and cuFuncGetName (cuKernelGetName where
+    the node holds a library kernel and no function)."""
+    import ctypes
+
+    libcuda = ctypes.CDLL("libcuda.so.1")
+
+    class Params(ctypes.Structure):   # CUDA_KERNEL_NODE_PARAMS_v2 (cuda.h)
+        _fields_ = ([("func", ctypes.c_void_p)]
+                    + [(f, ctypes.c_uint) for f in ("gx", "gy", "gz", "bx", "by", "bz", "smem")]
+                    + [(f, ctypes.c_void_p) for f in ("params", "extra", "kern", "ctx")])
+
+    names = []
+    for node, kind in graph_node_list(graph):
+        if kind != "kernel":
+            continue
+        p = Params()
+        cu_check(libcuda.cuGraphKernelNodeGetParams_v2(ctypes.c_void_p(node), ctypes.byref(p)),
+                 "cuGraphKernelNodeGetParams_v2")
+        name = ctypes.c_char_p()
+        if p.func:
+            cu_check(libcuda.cuFuncGetName(ctypes.byref(name), ctypes.c_void_p(p.func)),
+                     "cuFuncGetName")
+        else:
+            cu_check(libcuda.cuKernelGetName(ctypes.byref(name), ctypes.c_void_p(p.kern)),
+                     "cuKernelGetName")
+        names.append(name.value.decode())
+    return names
+
+
 def graph_nodes(fn):
     """Every operation one call of ``fn`` puts on its stream: the call is
     captured in a CUDA graph (after a warm-up call on the capture stream,
     so that lazy set-up stays out of the graph) and the graph's nodes are
-    read with cuGraphGetNodes from libcuda. A call that synchronises with
-    the host fails the capture. Returns (node types, the output of one
-    replay of the graph)."""
-    import ctypes
-
+    read back (``graph_node_list``). A call that synchronises with the host
+    fails the capture. Returns (node types, the output of one replay of the
+    graph)."""
     import torch
-
-    libcuda = ctypes.CDLL("libcuda.so.1")
-
-    def check(rc, what):
-        if rc != 0:
-            fail(f"graph_nodes: {what} returned CUresult {rc}")
 
     stream = torch.cuda.Stream()
     stream.wait_stream(torch.cuda.current_stream())
@@ -350,18 +425,7 @@ def graph_nodes(fn):
     g = torch.cuda.CUDAGraph(keep_graph=True)
     with torch.cuda.graph(g, stream=stream):
         out = fn()
-    raw = ctypes.c_void_p(g.raw_cuda_graph())
-    n = ctypes.c_size_t(0)
-    check(libcuda.cuGraphGetNodes(raw, None, ctypes.byref(n)), "cuGraphGetNodes")
-    nodes = (ctypes.c_void_p * max(n.value, 1))()
-    check(libcuda.cuGraphGetNodes(raw, nodes, ctypes.byref(n)), "cuGraphGetNodes")
-    types = []
-    for node in nodes[:n.value]:
-        t = ctypes.c_int(-1)
-        check(libcuda.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(t)),
-              "cuGraphNodeGetType")
-        types.append(GRAPH_NODE_TYPES[t.value] if 0 <= t.value < len(GRAPH_NODE_TYPES)
-                     else str(t.value))
+    types = [kind for _, kind in graph_node_list(g)]
     g.replay()
     torch.cuda.synchronize()
     return types, out.clone()
@@ -556,7 +620,7 @@ def bf16_ulp(x):
     return torch.exp2(torch.floor(torch.log2(ax)) - 7)
 
 
-K2_SHAPES = (8, 128, 256)   # rows at decode (8 slots), a served prefill chunk, the default chunk
+K2_SHAPES = (8, 32, 128, 256)   # rows at decode (8 slots); the served prefill chunks
 K2_D = LLAMA2_7B["dim"]
 K2_EPS = 1e-5
 
@@ -715,7 +779,7 @@ def k4_case(m, k, n, out_dtype, seed, flush):
     import torch
 
     from seldon_core_tpu_torch.ops.int8_matmul import (PREFILL_MIN_M, _decode_kernel,
-                                                       _decode_plan, int8_matmul,
+                                                       _decode_plan, _wgmma_plan, int8_matmul,
                                                        int8_matmul_ref)
 
     dev = torch.device("cuda")
@@ -746,17 +810,21 @@ def k4_case(m, k, n, out_dtype, seed, flush):
     err = check(out, "prefill kernel" if prefill else "decode kernel")
     decode_err = check(_decode_kernel(x, q, scale, torch.empty_like(out)),
                        "decode kernel") if prefill else None
-    if not prefill:
-        # one call, one launch: every operation one call puts on its
-        # stream, counted from a CUDA graph of the call, whose replay and a
-        # second call must give the same bits (splits merge in rank order)
-        nodes, out_graph = graph_nodes(lambda: int8_matmul(x, q, scale, out_dtype))
-        if nodes != ["kernel"]:
-            fail(f"{label}: one call put {len(nodes)} operations on its stream: {nodes}")
-        if not torch.equal(out_graph, out):
-            fail(f"{label}: the CUDA graph's replay differs from the eager call")
-        if not torch.equal(int8_matmul(x, q, scale, out_dtype), out):
-            fail(f"{label}: two calls on the same inputs differ")
+    # every operation one call puts on its stream, counted from a CUDA
+    # graph of the call (as a prefill-chunk or decode-step graph holds it):
+    # the decode kernel is one launch; the prefill kernel one, plus the
+    # split-K reduce when its plan splits (the float32 partial comes from
+    # the graph's pool). The replay and a second call must give the same
+    # bits (splits merge in rank order)
+    splits = _wgmma_plan(m, n, k, torch.cuda.get_device_properties(0).multi_processor_count)[1]
+    want_nodes = ["kernel"] * (1 + (prefill and splits > 1))
+    nodes, out_graph = graph_nodes(lambda: int8_matmul(x, q, scale, out_dtype))
+    if nodes != want_nodes:
+        fail(f"{label}: one call put {nodes} on its stream, expected {want_nodes}")
+    if not torch.equal(out_graph, out):
+        fail(f"{label}: the CUDA graph's replay differs from the eager call")
+    if not torch.equal(int8_matmul(x, q, scale, out_dtype), out):
+        fail(f"{label}: two calls on the same inputs differ")
     del ref, tol
     # library yardstick: torch.matmul on a bf16 copy of the dequantized
     # weight (made here, not timed) — the product K4 must beat at decode by
@@ -773,7 +841,7 @@ def k4_case(m, k, n, out_dtype, seed, flush):
     nbytes = m * k * 2 + k * n + n * 4 + m * n * out_size
     bytes_s, flops_s = nbytes / HBM_BYTES_PER_S, 2 * m * n * k / BF16_FLOPS_PER_S
     return dict(err=err, ms=timed[0][0], enqueue_ms=timed[0][1], plain_ms=plain_ms,
-                library_ms=timed[1][0], decode_err=decode_err,
+                library_ms=timed[1][0], decode_err=decode_err, nodes=len(nodes),
                 decode_ms=timed[2][0] if prefill else None,
                 decode_enqueue_ms=timed[2][1] if prefill else None,
                 plan=None if prefill else _decode_plan(
@@ -924,17 +992,29 @@ def post(url: str, body: dict, timeout: float = 600.0):
         return e.code, json.loads(e.read() or b"{}")
 
 
-def prompts(n: int):
+def prompt_text(i: int, length: int = 124) -> str:
+    """Request ``i``'s prompt: words appended until it is at least ``length``
+    - 4 bytes long, cut at ``length`` (the byte tokenizer: one token a
+    byte)."""
     words = ("tensor page kernel batch decode prefill stream cache token slot "
              "serve model layer head warp block").split()
-    out = []
-    for i in range(n):
-        text, j = f"request {i}:", i
-        while len(text) < 120:
-            text += " " + words[(j * 7 + len(text)) % len(words)]
-            j += 1
-        out.append(text[:124])
-    return out
+    text, j = f"request {i}:", i
+    while len(text) < length - 4:
+        text += " " + words[(j * 7 + len(text)) % len(words)]
+        j += 1
+    return text[:length]
+
+
+def prompts(n: int):
+    return [prompt_text(i) for i in range(n)]
+
+
+def chunks_of(b, n: int):
+    """The prefill chunks the batcher ``b`` runs for a prompt of ``n``
+    tokens: its chunk length (from its prompt bucket), once per chunk."""
+    _, plen = b._truncate_prompt([0] * n, MAX_NEW, None)
+    c = min(b.prefill_chunk, plen)
+    return [c] * -(-n // c)
 
 
 def teacher_logits(server, seqs):
@@ -1206,21 +1286,290 @@ def step_phase(label: str, card: str, server, b, texts, weight_bytes: int) -> di
     return out
 
 
+def zero_counts(server) -> None:
+    """Every kernel's launch counters, the server's prefill counters and
+    its serving series, set to 0 / emptied just before a run."""
+    from seldon_core_tpu_torch.ops.fused_norm import fused_residual_rmsnorm
+    from seldon_core_tpu_torch.ops.int8_matmul import int8_matmul
+    from seldon_core_tpu_torch.ops.paged_attention import paged_attention
+
+    paged_attention.launches = 0
+    paged_attention.launches_int8 = 0
+    fused_residual_rmsnorm.launches = 0
+    int8_matmul.launches = 0
+    int8_matmul.launches_wgmma = 0
+    server._prefill_replays = 0
+    server._prefill_eager = 0
+    for series in (server._ttft_times, server._decode_step_times,
+                   server._decode_dispatch_times, server._decode_sync_times,
+                   server._decode_host_lag):
+        series.clear()
+
+
+def read_counts(server) -> dict:
+    from seldon_core_tpu_torch.ops.fused_norm import fused_residual_rmsnorm
+    from seldon_core_tpu_torch.ops.int8_matmul import int8_matmul
+    from seldon_core_tpu_torch.ops.paged_attention import paged_attention
+
+    return {"k1": paged_attention.launches, "k1_int8": paged_attention.launches_int8,
+            "k2": fused_residual_rmsnorm.launches, "k4": int8_matmul.launches,
+            "k4_wgmma": int8_matmul.launches_wgmma, "replays": server._prefill_replays,
+            "eager": server._prefill_eager}
+
+
+def post_all(url: str, texts):
+    """POST one /v1/generate per text, all at once. Returns (the results,
+    the wall time)."""
+    results = [None] * len(texts)
+
+    def client(i):
+        results[i] = post(url + "/v1/generate", {"prompt": texts[i]})
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(len(texts))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    return results, time.perf_counter() - t0
+
+
+def served_tokens(label: str, results):
+    """The tokens of each response; fails unless every request answered 200
+    with MAX_NEW token ids in range."""
+    served = []
+    for i, res in enumerate(results):
+        if res is None:
+            fail(f"[{label}] request {i} did not complete")
+        code, body = res
+        if code != 200:
+            fail(f"[{label}] request {i} answered {code}: {body}")
+        toks = body.get("tokens")
+        if not isinstance(toks, list) or len(toks) != MAX_NEW:
+            fail(f"[{label}] request {i}: expected {MAX_NEW} tokens, got {toks!r}")
+        if not all(isinstance(t, int) and 0 <= t < LLAMA2_7B["vocab_size"] for t in toks):
+            fail(f"[{label}] request {i}: token ids out of range")
+        served.append(toks)
+    return served
+
+
+def check_launches(label: str, card: str, counts: dict, chunks, quantized: bool,
+                   int8_kv: bool, eager: bool) -> int:
+    """A run's launches against its work: one K1 a layer a decode step on
+    the pool's kernel and none on the other; one K2 a layer a forward
+    (decode steps and prefill ``chunks``); in the int8 model one K4 a
+    product a forward, on the prefill route (``launches_wgmma``) for the
+    chunks of 64 rows and more; every chunk a graph replay, or with
+    ``eager`` an eager run. Returns the decode steps."""
+    n_layers = LLAMA2_7B["n_layers"]
+    k1_key, idle_k1 = ("k1_int8", "k1") if int8_kv else ("k1", "k1_int8")
+    k1_launches = counts[k1_key]
+    if k1_launches == 0 or k1_launches % n_layers or counts[idle_k1]:
+        fail(f"[{label}] K1 launches {counts}: expected a positive multiple of {n_layers} "
+             f"on the {k1_key} kernel (one per layer per decode step) and none on the other")
+    decode_steps = k1_launches // n_layers
+    forwards = decode_steps + len(chunks)
+    if counts["k2"] != n_layers * forwards:
+        fail(f"[{label}] K2 launches {counts['k2']} != {n_layers} x ({decode_steps} decode "
+             f"steps + {len(chunks)} prefill chunks)")
+    per = K4_PER_FORWARD if quantized else 0
+    if counts["k4"] != per * forwards:
+        fail(f"[{label}] K4 launches {counts['k4']}: expected {per} x {forwards} forwards")
+    wide = sum(c >= 64 for c in chunks)
+    if counts["k4_wgmma"] != per * wide:
+        fail(f"[{label}] K4 prefill-kernel launches {counts['k4_wgmma']} != {per} x {wide} "
+             f"prefill chunks of 64 rows or more")
+    want = (0, len(chunks)) if eager else (len(chunks), 0)
+    if (counts["replays"], counts["eager"]) != want:
+        fail(f"[{label}] prefill chunks as (graph replays, eager runs) "
+             f"{(counts['replays'], counts['eager'])}, expected {want}")
+    print(f"[{label}] launches: paged_attention ({k1_key}) {k1_launches} ({decode_steps} decode "
+          f"steps x {n_layers} layers), fused_residual_rmsnorm {counts['k2']} ({decode_steps} + "
+          f"{len(chunks)} forwards x {n_layers} layers), int8_matmul {counts['k4']} ({forwards} "
+          f"forwards x {per}): prefill kernel {counts['k4_wgmma']} ({wide} chunks of >= 64 "
+          f"rows), decode kernel {counts['k4'] - counts['k4_wgmma']} ({decode_steps} steps + "
+          f"{len(chunks) - wide} chunks); prefill chunks {list(chunks)}: "
+          f"{counts['replays']} graph replays, {counts['eager']} eager runs [{card}]",
+          flush=True)
+    return decode_steps
+
+
+def teacher_check(label: str, card: str, server, texts, served) -> None:
+    """Every served token against a teacher-forced prefill over its own
+    request's prompt and served tokens, through the same KV numerics:
+    within TIE_TOL of the top logit at every step."""
+    import torch
+
+    seqs = [server._tokenizer.encode(t) + toks for t, toks in zip(texts, served)]
+    tf_logits = teacher_logits(server, seqs)
+    # row p - 1 + t of request i predicts its served token t
+    rows = torch.stack([tf_logits[i, len(seq) - MAX_NEW - 1:len(seq) - 1]
+                        for i, seq in enumerate(seqs)]).float()     # [N, MAX_NEW, vocab]
+    picked = rows.gather(2, torch.tensor(served, device="cuda")[:, :, None])[:, :, 0]
+    top2 = rows.topk(2, dim=-1).values
+    gaps = top2[:, :, 0] - picked
+    worst = gaps.max().item()
+    print(f"[{label}] teacher-forced check of all {len(texts)} x {MAX_NEW} served tokens "
+          f"(prompts of {[len(s) - MAX_NEW for s in seqs]} tokens): "
+          f"{int((gaps == 0).sum())} are the teacher-forced argmax, worst gap to the top "
+          f"logit {worst:.4f} (tie tolerance {TIE_TOL}); median top-1/top-2 margin "
+          f"{(top2[:, :, 0] - top2[:, :, 1]).median().item():.4f}, logit std "
+          f"{rows.std().item():.3f} [{card}]", flush=True)
+    if worst > TIE_TOL:
+        i, t = divmod(int(gaps.argmax()), MAX_NEW)
+        fail(f"[{label}] request {i} token {t}: served {served[i][t]} sits {worst:.4f} below "
+             f"the teacher-forced top logit (tolerance {TIE_TOL})")
+
+
+def graph_pool_gb(graphs) -> Optional[float]:
+    """Device memory held by the memory pools of ``graphs`` (ReplayGraph
+    objects; a shared pool counted once), from torch.cuda.memory_snapshot's
+    segments. None when no segment names one of the pools (not measured)."""
+    import torch
+
+    ids = {tuple(g.graph.pool()) for g in graphs}
+    if not ids:
+        return 0.0
+    sizes = [seg["total_size"] for seg in torch.cuda.memory_snapshot()
+             if tuple(seg.get("segment_pool_id", ())) in ids]
+    return sum(sizes) / 1e9 if sizes else None
+
+
+def gb_text(x: Optional[float]) -> str:
+    return "not measured" if x is None else f"{x:.3f} GB"
+
+
+def launches_of(fn):
+    """(K2, K4 prefill route, K4 decode route, K1) launches of one call of
+    ``fn`` (a replay adds what its capture counted), from the wrappers'
+    counters."""
+    from seldon_core_tpu_torch.servers.step_graph import launch_counts
+
+    before = launch_counts()
+    fn()
+    delta = {(f.__name__, name): n - before[f, name] for (f, name), n in launch_counts().items()}
+    wgmma = delta["int8_matmul", "launches_wgmma"]
+    return (delta["fused_residual_rmsnorm", "launches"], wgmma,
+            delta["int8_matmul", "launches"] - wgmma,
+            delta["paged_attention", "launches"] + delta["paged_attention", "launches_int8"])
+
+
+def prefill_phase(label: str, card: str, server, b) -> dict:
+    """One prefill chunk of each length the batcher captured, on live state
+    (after ``step_phase``: the pools hold the served prompts): fresh pages
+    of the pool, then a first chunk (C tokens of the served prompts' text at
+    positions 0..C-1) and a later one (C - 3 tokens at C.., padded,
+    attending over the first through the pool), each replayed through the
+    chunk's graph and run through the eager program from identical copies
+    of the pools: logits and every pool tensor must be bit-equal. Then, on
+    the later chunk's inputs: the launches of one call and of one replay
+    (one K2 a layer, no K1, and in the int8 model one K4 a product on the
+    route its M takes): the eager call's from the wrappers' counters, the
+    replayed graph's from its own kernel nodes by name, and what a replay
+    adds to the counters must equal those nodes; then the eager program's
+    host enqueue and
+    torch.profiler trace against the replay's host time, its device time
+    from CUDA events and its trace."""
+    import numpy as np
+    import torch
+
+    from seldon_core_tpu_torch.models.transformer import NULL_PAGE, PAD_POS
+
+    n_layers = LLAMA2_7B["n_layers"]
+    k4 = K4_PER_FORWARD if server.quantize == "int8" else 0
+    text = server._tokenizer.encode(" ".join(prompts(N_REQUESTS)))
+    out = {}
+    for C in sorted(b._prefill_graphs):
+        pages = b._allocator.alloc(-(-2 * C // b.page_size))
+        if pages is None:
+            fail(f"[{label}] prefill phase: no free pages for two chunks of {C}")
+        b._reset_pages(pages)
+        row = np.full((1, b.n_pages), NULL_PAGE, np.int32)
+        row[0, :len(pages)] = pages
+        b._row.copy_(b._to_device(row))
+        graph, prog = b._prefill_graphs[C], server._get_prefill_chunk(C, b.n_pages)
+        toks_view, pos_view = b._chunk_tokens[:, :C], b._chunk_pos[:, :C]
+        for start, n in ((0, C), (C, C - 3)):
+            toks = np.zeros((1, C), np.int64)
+            pos = np.full((1, C), PAD_POS, np.int32)
+            toks[0, :n] = text[start:start + n]
+            pos[0, :n] = np.arange(start, start + n)
+            toks_view.copy_(b._to_device(toks))
+            pos_view.copy_(b._to_device(pos))
+            copy = [tuple(t.clone() for t in layer) for layer in b._caches]
+            got = graph.replay().clone()
+            want = prog(copy, b._row, toks_view, pos_view)
+            torch.cuda.synchronize()
+            same_logits = torch.equal(got, want) and bool(torch.isfinite(got).all())
+            same = same_logits and all(torch.equal(x, y) for la, lb in zip(b._caches, copy)
+                                       for x, y in zip(la, lb))
+            print(f"[{label}] prefill chunk of {C} ({n} tokens at positions {start}.."
+                  f"{start + n - 1}): replay vs eager from identical copies of the pools: "
+                  f"logits {'bit-equal' if same_logits else 'DIFFER'}, logits + pools "
+                  f"{'bit-equal' if same else 'DIFFER'} [{card}]", flush=True)
+            if not same:
+                fail(f"[{label}] the chunk-{C} prefill graph's replay and the eager program "
+                     f"differ")
+            del copy, got, want
+        torch.cuda.empty_cache()
+        eager = (lambda: prog(b._caches, b._row, toks_view, pos_view))
+        # (K2, K4 prefill route, K4 decode route, K1): one eager call's
+        # launches from the wrappers' counters; the replayed graph's kernel
+        # nodes, by name; what one replay adds to the counters
+        want_k = (n_layers, k4 if C >= 64 else 0, 0 if C >= 64 else k4, 0)
+        names = graph_kernel_names(graph.graph)
+        in_graph = tuple(sum(key in n for n in names) for key in (
+            K2_KERNEL, "int8_matmul_wgmma_kernel", "int8_matmul_decode_kernel",
+            "paged_attention_decode_kernel"))
+        reduces = sum("splitk_reduce" in n for n in names)
+        for what, seen in (("eager program launched", launches_of(eager)),
+                           ("graph holds kernel nodes", in_graph),
+                           ("replay added to the counters", launches_of(graph.replay))):
+            if seen != want_k:
+                fail(f"[{label}] one chunk-{C} {what} (K2, K4 prefill, K4 decode, K1) "
+                     f"{seen}, expected {want_k}")
+        host_e, dev_e, ops_e, _ = profile_step(eager, K2_KERNEL)
+        host_g, dev_g, ops_g, _ = profile_step(graph.replay, K2_KERNEL)
+        ev_g = events_ms(graph.replay)
+        b._allocator.free(pages)
+        in_trace = tuple(step_kernels(ops_e, name) for name in (
+            "int8_matmul_wgmma_kernel", "int8_matmul_decode_kernel", "splitk_reduce"))
+        n_e = sum(e.count for e in ops_e)
+        traced_g = (f"torch.profiler {dev_g:.3f} ms in {sum(e.count for e in ops_g)} kernels "
+                    f"and copies" if ops_g else "torch.profiler saw no device event in the replay")
+        print(f"[{label}] prefill chunk of {C}: one call launches (K2, K4 prefill, K4 decode, "
+              f"K1) {want_k} (the wrappers' counters); the replayed graph holds as many of "
+              f"those kernel nodes, {reduces} split-K reduce nodes, {len(names)} kernel nodes "
+              f"in all (cuGraphGetNodes, by function name); eager program host "
+              f"enqueue {host_e:.3f} ms, device time {dev_e:.3f} ms in {n_e} kernels and copies "
+              f"(torch.profiler; it saw (K4 prefill, K4 decode, split-K reduce) "
+              f"{in_trace}); graph replay host time {host_g:.4f} ms "
+              f"(median of {REPS}), device time {ev_g:.3f} ms (CUDA events around the replay, "
+              f"median of {REPS}), {traced_g} [{card}]", flush=True)
+        for e in ops_e[:8]:
+            print(f"  {dev_us(e) / 1e3:8.3f} ms  x{e.count:<5d} {e.key[:100]} [{card}]")
+        out[C] = {"eager_host_ms": host_e, "eager_dev_ms": dev_e, "host_ms": host_g,
+                  "dev_ms": ev_g, "traced_ms": dev_g if ops_g else None}
+    return out
+
+
 def serve(label: str, card: str, server, weight_bytes: int, fuse: int = 0,
           eager: bool = False):
     """One serving run of the port's main path through ``server`` (loaded by
-    ``load_llm``), its decode dispatches K = 1 and, with ``fuse`` > 1, K =
-    ``fuse`` steps: graph replays, or with ``eager`` the eager programs (the
+    ``load_llm``): its prefill chunks graph replays (one graph per chunk
+    length) and its decode dispatches K = 1 and, with ``fuse`` > 1, K =
+    ``fuse`` steps, graph replays; or with ``eager`` the eager programs (the
     batcher's private switch, for comparison). The batcher and its graphs
-    are built under ``set_sync_debug_mode("error")``. Fails on any check;
-    returns (the run's kernel launch counts, its metrics)."""
+    are built under ``set_sync_debug_mode("error")``. Two sets of requests
+    through REST: the N_REQUESTS prompts (one chunk of 128 each), then the
+    mixed admission (MIXED_LENGTHS: three chunks of 256, one of 32, one of
+    128). Fails on any check; returns (the run's kernel launch counts, its
+    metrics)."""
     import gc
 
     import torch
 
-    from seldon_core_tpu_torch.ops.fused_norm import fused_residual_rmsnorm
-    from seldon_core_tpu_torch.ops.int8_matmul import int8_matmul
-    from seldon_core_tpu_torch.ops.paged_attention import _split_plan, paged_attention
+    from seldon_core_tpu_torch.ops.paged_attention import _split_plan
     from seldon_core_tpu_torch.runtime.batcher import BatcherService
     from seldon_core_tpu_torch.transport.rest import make_component_app, start
 
@@ -1242,94 +1591,65 @@ def serve(label: str, card: str, server, weight_bytes: int, fuse: int = 0,
     want = [] if eager else sorted({1, fuse} if fuse > 1 else {1})
     if sorted(b._graphs) != want:
         fail(f"[{label}] batcher holds graphs of K = {sorted(b._graphs)}, expected {want}")
+    want_chunks = [] if eager else sorted(PREFILL_CHUNKS)
+    if list(b._chunks) != sorted(PREFILL_CHUNKS) or sorted(b._prefill_graphs) != want_chunks:
+        fail(f"[{label}] batcher's chunk lengths {b._chunks} with prefill graphs "
+             f"{sorted(b._prefill_graphs)}, expected {sorted(PREFILL_CHUNKS)} and {want_chunks}")
     pool_gb = sum(t.numel() * t.element_size() for layer in b._caches for t in layer) / 1e9
-    what = ("the eager decode programs (the batcher's private _eager switch)" if eager else
-            f"decode graphs of K = {want} captured (warm-up and capture under "
-            f"set_sync_debug_mode('error'): no host sync)")
+    prefill_pool_gb = graph_pool_gb(b._prefill_graphs.values())
+    decode_pool_gb = graph_pool_gb(b._graphs.values())
+    what = ("the eager prefill and decode programs (the batcher's private _eager switch)"
+            if eager else
+            f"prefill graphs of chunks {want_chunks} (one shared pool, "
+            f"{gb_text(prefill_pool_gb)}) and decode graphs of K = {want} ({gb_text(decode_pool_gb)}"
+            f") captured (warm-up and capture under set_sync_debug_mode('error'): no host sync)")
     print(f"[{label}] batcher built in {build_s:.3f} s with {what}; device memory "
-          f"+{(torch.cuda.memory_allocated() - mem0) / 1e9:.3f} GB (the KV pool "
-          f"{pool_gb:.3f} GB, slot state, graph pools) [{card}]", flush=True)
+          f"+{(torch.cuda.memory_allocated() - mem0) / 1e9:.3f} GB allocated (the KV pool "
+          f"{pool_gb:.3f} GB, slot state, fixed buffers, graph outputs) [{card}]", flush=True)
     server._batcher_service = svc
     httpd, _ = start(make_component_app(server, device="cuda"))
     url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    texts = prompts(N_REQUESTS)
+    mixed = [prompt_text(100 + i, n) for i, n in enumerate(MIXED_LENGTHS)]
+    mixed_lens = [len(server._tokenizer.encode(t)) for t in mixed]
+    mixed_chunks = [c for n in mixed_lens for c in chunks_of(b, n)]
+    if mixed_chunks != list(MIXED_CHUNKS):
+        fail(f"[{label}] the mixed prompts run chunks {mixed_chunks}, expected {MIXED_CHUNKS}")
     try:
         with urllib.request.urlopen(url + "/ready", timeout=30) as r:
             if r.status != 200:
                 fail(f"[{label}] /ready answered {r.status}")
-        texts = prompts(N_REQUESTS)
-        # warm-up request (the prefill path's first use), not counted
+        # warm-up request (the first use of the REST path), not counted
         code, body = post(url + "/v1/generate", {"prompt": "warm up", "max_new_tokens": 4})
         if code != 200:
             fail(f"[{label}] warm-up request answered {code}: {body}")
         torch.cuda.synchronize()
-        for series in (server._ttft_times, server._decode_step_times,
-                       server._decode_dispatch_times, server._decode_sync_times,
-                       server._decode_host_lag):
-            series.clear()
-
-        paged_attention.launches = 0
-        paged_attention.launches_int8 = 0
-        fused_residual_rmsnorm.launches = 0
-        int8_matmul.launches = 0
-        int8_matmul.launches_wgmma = 0
-        results = [None] * N_REQUESTS
-
-        def client(i):
-            results[i] = post(url + "/v1/generate", {"prompt": texts[i]})
-
-        t0 = time.perf_counter()
-        threads = [threading.Thread(target=client, args=(i,)) for i in range(N_REQUESTS)]
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join(600)
-        wall = time.perf_counter() - t0
-        launches = {"k1": paged_attention.launches, "k1_int8": paged_attention.launches_int8,
-                    "k2": fused_residual_rmsnorm.launches, "k4": int8_matmul.launches,
-                    "k4_wgmma": int8_matmul.launches_wgmma}
+        zero_counts(server)
+        results, wall = post_all(url, texts)
+        launches = read_counts(server)
+        ttft = sorted(server._ttft_times)
+        steps = sorted(server._decode_step_times)
+        dispatch_ms = statistics.median(server._decode_dispatch_times) * 1e3
+        sync_ms = statistics.median(server._decode_sync_times) * 1e3
+        lag = list(server._decode_host_lag)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        # the mixed admission: one prompt of three chunks, one of 32 tokens,
+        # one of 124, all at once
+        zero_counts(server)
+        mixed_results, mixed_wall = post_all(url, mixed)
+        mixed_launches = read_counts(server)
+        mixed_ttft = sorted(server._ttft_times)
+        mixed_steps = sorted(server._decode_step_times)
+        mixed_peak_gb = torch.cuda.max_memory_allocated() / 1e9
     finally:
         httpd.shutdown()
         httpd.server_close()
-    for i, res in enumerate(results):
-        if res is None:
-            fail(f"[{label}] request {i} did not complete")
-        code, body = res
-        if code != 200:
-            fail(f"[{label}] request {i} answered {code}: {body}")
-        toks = body.get("tokens")
-        if not isinstance(toks, list) or len(toks) != MAX_NEW:
-            fail(f"[{label}] request {i}: expected {MAX_NEW} tokens, got {toks!r}")
-        if not all(isinstance(t, int) and 0 <= t < LLAMA2_7B["vocab_size"] for t in toks):
-            fail(f"[{label}] request {i}: token ids out of range")
-    n_layers = LLAMA2_7B["n_layers"]
-    k1_key, idle_k1 = ("k1_int8", "k1") if int8_kv else ("k1", "k1_int8")
-    k1_launches = launches[k1_key]
-    if k1_launches == 0 or k1_launches % n_layers or launches[idle_k1]:
-        fail(f"[{label}] K1 launches {launches}: expected a positive multiple of {n_layers} "
-             f"on the {k1_key} kernel (one per layer per decode step) and none on the other")
-    decode_steps = k1_launches // n_layers
-    prefill_chunks = N_REQUESTS  # every prompt fits one chunk
-    forwards = decode_steps + prefill_chunks
-    if launches["k2"] != n_layers * forwards:
-        fail(f"[{label}] K2 launches {launches['k2']} != {n_layers} x ({decode_steps} decode "
-             f"steps + {prefill_chunks} prefill chunks)")
-    if launches["k4"] != (K4_PER_FORWARD * forwards if quantized else 0):
-        fail(f"[{label}] K4 launches {launches['k4']}: expected "
-             f"{K4_PER_FORWARD if quantized else 0} x {forwards} forwards")
-    # every prefill chunk (128 rows) takes K4's prefill kernel, every decode
-    # step (8 rows) its decode kernel
-    k4_prefill = K4_PER_FORWARD * prefill_chunks if quantized else 0
-    if launches["k4_wgmma"] != k4_prefill:
-        fail(f"[{label}] K4 prefill-kernel launches {launches['k4_wgmma']} != {k4_prefill} "
-             f"({K4_PER_FORWARD if quantized else 0} x {prefill_chunks} prefill chunks)")
-    lag = list(server._decode_host_lag)
-    print(f"[{label}] launches during the 8-request run: paged_attention ({k1_key}) "
-          f"{k1_launches} ({decode_steps} decode steps x {n_layers} layers), "
-          f"fused_residual_rmsnorm {launches['k2']} ({decode_steps} + {prefill_chunks} "
-          f"forwards x {n_layers} layers), int8_matmul {launches['k4']} ({forwards} forwards "
-          f"x {K4_PER_FORWARD if quantized else 0}): prefill kernel {launches['k4_wgmma']} "
-          f"({prefill_chunks} chunks), decode kernel {launches['k4'] - launches['k4_wgmma']} "
-          f"({decode_steps} steps) [{card}]", flush=True)
+    served = served_tokens(label, results)
+    mixed_served = served_tokens(f"{label} mixed", mixed_results)
+    decode_steps = check_launches(label, card, launches, [128] * N_REQUESTS, quantized,
+                                  int8_kv, eager)
+    check_launches(f"{label} mixed", card, mixed_launches, MIXED_CHUNKS, quantized, int8_kv,
+                   eager)
     cfg = LLAMA2_7B
     served_s = _split_plan(N_REQUESTS, cfg["n_kv_heads"], cfg["n_heads"] // cfg["n_kv_heads"],
                            b.n_pages, b.page_size, cfg["dim"] // cfg["n_heads"], int8_kv)
@@ -1340,45 +1660,32 @@ def serve(label: str, card: str, server, weight_bytes: int, fuse: int = 0,
         fail(f"[{label}] pages still held after every request finished: {pages}")
     svc.close()
 
-    ttft = sorted(server._ttft_times)
-    steps = sorted(server._decode_step_times)
     step_ms = statistics.median(steps) * 1e3
-    dispatch_ms = statistics.median(server._decode_dispatch_times) * 1e3
-    sync_ms = statistics.median(server._decode_sync_times) * 1e3
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
     metrics = {"step_ms": step_ms, "ttft_med_ms": statistics.median(ttft) * 1e3,
                "ttft_max_ms": ttft[-1] * 1e3, "peak_gb": peak_gb, "dispatch_ms": dispatch_ms,
-               "sync_ms": sync_ms, "wall_s": wall, "max_lag": max(lag)}
+               "sync_ms": sync_ms, "wall_s": wall, "max_lag": max(lag),
+               "decode_steps": decode_steps, "prefill_pool_gb": prefill_pool_gb,
+               "decode_pool_gb": decode_pool_gb,
+               "mixed_ttft_ms": [t * 1e3 for t in mixed_ttft],
+               "mixed_step_ms": statistics.median(mixed_steps) * 1e3,
+               "mixed_peak_gb": mixed_peak_gb}
     print(f"[{label}] serving: {N_REQUESTS} concurrent requests x {MAX_NEW} tokens in "
           f"{wall:.3f} s; TTFT median {metrics['ttft_med_ms']:.1f} ms max "
           f"{metrics['ttft_max_ms']:.1f} ms; decode step median {step_ms:.2f} ms = "
           f"{N_REQUESTS / (step_ms / 1e3):.1f} tok/s at {N_REQUESTS} slots ({len(steps)} steps "
           f"in {len(lag)} dispatches; host time per dispatch median {dispatch_ms:.3f} ms, "
           f"host wait per drain median {sync_ms:.3f} ms, host lag up to {max(lag)} steps); "
-          f"peak device memory over the run {peak_gb:.2f} GB [{card}]", flush=True)
+          f"peak device memory over the run {peak_gb:.2f} GB; prefill graphs' pool "
+          f"{gb_text(prefill_pool_gb)}, decode graphs' pools {gb_text(decode_pool_gb)} "
+          f"[{card}]", flush=True)
+    print(f"[{label}] mixed admission: prompts of {mixed_lens} tokens (chunks "
+          f"{list(MIXED_CHUNKS)}) x {MAX_NEW} tokens in {mixed_wall:.3f} s; TTFT in arrival "
+          f"order of first tokens {', '.join(f'{t:.1f}' for t in metrics['mixed_ttft_ms'])} "
+          f"ms; decode step median {metrics['mixed_step_ms']:.2f} ms; peak device memory "
+          f"{mixed_peak_gb:.2f} GB [{card}]", flush=True)
 
-    # every served token against a teacher-forced prefill over its own
-    # request through the same KV numerics
-    served = [body["tokens"] for _, body in results]
-    seqs = [server._tokenizer.encode(texts[i]) + served[i] for i in range(N_REQUESTS)]
-    tf_logits = teacher_logits(server, seqs)
-    # row p - 1 + t of request i predicts its served token t
-    rows = torch.stack([tf_logits[i, len(seq) - MAX_NEW - 1:len(seq) - 1]
-                        for i, seq in enumerate(seqs)]).float()     # [N, MAX_NEW, vocab]
-    picked = rows.gather(2, torch.tensor(served, device="cuda")[:, :, None])[:, :, 0]
-    top2 = rows.topk(2, dim=-1).values
-    gaps = top2[:, :, 0] - picked
-    worst = gaps.max().item()
-    print(f"[{label}] teacher-forced check of all {N_REQUESTS} x {MAX_NEW} served tokens: "
-          f"{int((gaps == 0).sum())} are the teacher-forced argmax, worst gap to the top "
-          f"logit {worst:.4f} (tie tolerance {TIE_TOL}); median top-1/top-2 margin "
-          f"{(top2[:, :, 0] - top2[:, :, 1]).median().item():.4f}, logit std "
-          f"{rows.std().item():.3f} [{card}]", flush=True)
-    if worst > TIE_TOL:
-        i, t = divmod(int(gaps.argmax()), MAX_NEW)
-        fail(f"[{label}] request {i} token {t}: served {served[i][t]} sits {worst:.4f} below "
-             f"the teacher-forced top logit (tolerance {TIE_TOL})")
-    del tf_logits, rows
+    teacher_check(label, card, server, texts, served)
+    teacher_check(f"{label} mixed", card, server, mixed, mixed_served)
 
     # the batcher's greedy tokens against the private generate() path
     batched = served[0]
@@ -1401,11 +1708,13 @@ def serve(label: str, card: str, server, weight_bytes: int, fuse: int = 0,
                  f"{batched} vs {private}")
     if not eager:
         metrics["step"] = step_phase(label, card, server, b, texts, weight_bytes)
+        metrics["prefill"] = prefill_phase(label, card, server, b)
     server._batcher_service = None
     del svc, b
     gc.collect()
     torch.cuda.empty_cache()
-    return launches, metrics
+    total = {key: launches[key] + mixed_launches[key] for key in launches}
+    return total, metrics
 
 
 # ---------------------------------------------------------------------------
@@ -1884,7 +2193,7 @@ def main() -> int:
                   f"{a[0]:.4f} ms, trivial kernel (h.zero_()) {a[1]:.4f} [{card}]",
                   flush=True)
     k4 = {}
-    for m in (8, 128, 256):   # 8 serving slots; a served prefill chunk; the default chunk
+    for m in (8, 32, 128, 256):   # 8 serving slots; the served prefill chunks
         for name, k, n, dt in K4_FAMILIES:
             label = name if m == 8 else f"{name} prefill M={m}"
             dt = getattr(torch, dt)
@@ -1902,7 +2211,10 @@ def main() -> int:
                          f"to its replay and to a second call; host enqueue per call "
                          f"{r['enqueue_ms']:.4f} ms")
             if r["decode_ms"] is not None:
-                line += (f"; prefill kernel (TMA + wgmma) vs the decode kernel at this shape, "
+                line += (f"; one call = {r['nodes']} kernel node(s) of a CUDA graph of the "
+                         f"call (the kernel, + the split-K reduce when the plan splits), "
+                         f"bit-equal to its replay and to a second call"
+                         f"; prefill kernel (TMA + wgmma) vs the decode kernel at this shape, "
                          f"in turns: {r['ms']:.4f} vs {r['decode_ms']:.4f} ms "
                          f"({r['decode_ms'] / r['ms']:.2f}x faster), "
                          f"{r['ms'] / r['library_ms']:.2f}x the library call, "
@@ -1921,6 +2233,10 @@ def main() -> int:
     print(f"K4 over one int8 decode step's {K4_PER_FORWARD} products (from the shapes above): "
           f"kernel {step_sum('ms'):.3f} ms, bound {step_sum('bound_ms'):.3f} ms, "
           f"torch.matmul on bf16 weights {step_sum('library_ms'):.3f} ms [{card}]", flush=True)
+    print(f"K4 over one prefill forward's {K4_PER_FORWARD} products at M = 32 (from the "
+          f"shapes above): decode kernel {step_sum('ms', ' prefill M=32'):.3f} ms, bound "
+          f"{step_sum('bound_ms', ' prefill M=32'):.3f} ms, torch.matmul on bf16 weights "
+          f"{step_sum('library_ms', ' prefill M=32'):.3f} ms [{card}]", flush=True)
     for m in (128, 256):
         sfx = f" prefill M={m}"
         print(f"K4 over one prefill forward's {K4_PER_FORWARD} products at M = {m} (from the "
@@ -1979,9 +2295,16 @@ def main() -> int:
                           for k, v in st.items() if isinstance(k, int))
         eager = (f"eager step host {st['eager_host_ms']:.3f} ms device {st['eager_dev_ms']:.3f} "
                  f"ms; " if st else "")
+        chunks = " ".join(f"chunk {c}: eager host {v['eager_host_ms']:.3f} / kernels "
+                          f"{v['eager_dev_ms']:.3f} ms, replay host {v['host_ms']:.4f} / device "
+                          f"{v['dev_ms']:.3f} ms;" for c, v in m.get("prefill", {}).items())
         print(f"  {label:12s} step {m['step_ms']:.2f} ms = {N_REQUESTS / m['step_ms'] * 1e3:.1f} "
-              f"tok/s; TTFT {m['ttft_med_ms']:.1f} / {m['ttft_max_ms']:.1f} ms; peak "
-              f"{m['peak_gb']:.2f} GB; {eager}{graphs} [{card}]", flush=True)
+              f"tok/s; TTFT {m['ttft_med_ms']:.1f} / {m['ttft_max_ms']:.1f} ms; mixed TTFT "
+              f"{' / '.join(f'{t:.1f}' for t in m['mixed_ttft_ms'])} ms, step "
+              f"{m['mixed_step_ms']:.2f} ms; peak {m['peak_gb']:.2f} GB (mixed "
+              f"{m['mixed_peak_gb']:.2f}); graph pools: prefill {gb_text(m['prefill_pool_gb'])}, "
+              f"decode {gb_text(m['decode_pool_gb'])}; {eager}{graphs} {chunks} [{card}]",
+              flush=True)
 
     def total(key, model):
         return sum(launches[key] for label, (launches, _) in runs.items()

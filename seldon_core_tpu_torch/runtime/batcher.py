@@ -10,7 +10,8 @@ program serves overlapping requests at arbitrary arrival times:
   out by ``PageAllocator`` (host-side, lock-guarded) as sequences grow;
 - admission is FIFO; its prefill runs in chunks of ``prefill_chunk`` tokens
   interleaved with decode steps, written straight into the pool through the
-  slot's block-table row;
+  slot's block-table row (staged in one fixed row buffer; one admission
+  prefills at a time);
 - on page exhaustion the newest tenant is shed (503 + Retry-After) — the
   decode loop never raises; a sole tenant that outgrows the pool stops with
   the tokens it has.
@@ -21,10 +22,12 @@ step never waits for the last one's tokens. A dispatch runs K steps
 (``decode_fuse_steps``; ``_pick_k`` falls back to K = 1 while a request
 waits or a prefill is mid-flight, or when a slot has fewer than K steps of
 room, so there are only two programs). On a card each dispatch is one
-replay of a CUDA graph of the K-step program, captured once when the
-batcher is built (``servers/step_graph.py``), then a non-blocking copy of
-its tokens into pinned host memory and an event; on the CPU the same
-program runs eagerly. The host reads a dispatch's tokens (waiting on that
+replay of a CUDA graph of the K-step program, and each prefill chunk one
+replay of the graph of its chunk length, all captured once when the
+batcher is built (``servers/step_graph.py``); a dispatch's replay is
+followed by a non-blocking copy of its tokens into pinned host memory and
+an event. On the CPU the same programs run eagerly. The host reads a
+dispatch's tokens (waiting on that
 event only) after later ones are already enqueued, so the device never
 idles on host bookkeeping. Up to ``decode_pipeline_depth`` dispatches are
 in flight. A slot that finishes, or is freed and re-admitted, between a
@@ -49,7 +52,7 @@ import threading
 import time
 from collections import deque
 from concurrent.futures import Future
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -67,7 +70,8 @@ from seldon_core_tpu_torch.runtime.resilience import DEFAULT_RETRY_AFTER_S, Shed
 from seldon_core_tpu_torch.servers.llmserver import (LLMServer, bucket,
                                                      sample_tokens, seed_key,
                                                      split_keys)
-from seldon_core_tpu_torch.servers.step_graph import StepGraph, capture_decode_steps
+from seldon_core_tpu_torch.servers.step_graph import (ReplayGraph, capture_decode_steps,
+                                                      capture_prefill_chunks)
 
 logger = logging.getLogger(__name__)
 
@@ -170,15 +174,14 @@ class _Request:
 
 class _PrefillJob:
     """One chunked admission in progress: the slot it targets, the (already
-    truncated) prompt, the next write offset, and the device block-table row
-    its chunks write through. One job runs at a time; decode dispatches
-    interleave between its chunks."""
+    truncated) prompt, the next write offset and the chunk length. Its
+    chunks write through the batcher's fixed row buffer, so one job runs at
+    a time; decode dispatches interleave between its chunks."""
 
     __slots__ = ("slot", "ids", "L", "next", "chunk", "max_new", "fut",
-                 "info", "seed", "bt_row", "t_arrival")
+                 "info", "seed", "t_arrival")
 
-    def __init__(self, slot, ids, start, chunk, max_new, fut, info, seed, bt_row,
-                 t_arrival=None):
+    def __init__(self, slot, ids, start, chunk, max_new, fut, info, seed, t_arrival=None):
         self.slot = slot
         self.ids = ids
         self.L = len(ids)
@@ -188,7 +191,6 @@ class _PrefillJob:
         self.fut = fut
         self.info = info
         self.seed = seed
-        self.bt_row = bt_row         # device [1, n_pages] int32
         self.t_arrival = t_arrival
 
 
@@ -256,9 +258,11 @@ class ContinuousBatcher:
     ):
         """``fuse_steps`` (default: the server's ``decode_fuse_steps``; 0 or
         1 = single steps) is K, the steps one dispatch runs. On a card the
-        decode programs (K = 1 and K = ``fuse_steps``) are captured here as
-        CUDA graphs, before any request; ``_eager=True`` runs them eagerly
-        instead (a private switch for comparing the two)."""
+        decode programs (K = 1 and K = ``fuse_steps``) and a prefill-chunk
+        program per chunk length an admission can produce
+        (``_chunk_lengths``) are captured here as CUDA graphs, before any
+        request; ``_eager=True`` runs them eagerly instead (a private switch
+        for comparing the two)."""
         self.device = resolve_device(device)
         server.load()
         if server.device != self.device:
@@ -332,10 +336,23 @@ class ContinuousBatcher:
         self._keys = torch.zeros((self.S,), dtype=torch.int64, device=dev)
         self._rng = seed_key(server.seed)
         self._temp = float(server.temperature)
-        # k -> the captured K-step program (the card's only decode path);
-        # empty where the programs run eagerly (the CPU, or _eager)
-        self._graphs: Dict[int, StepGraph] = {}
+        # the prefill chunk's fixed inputs: the admitted job's block-table
+        # row, and its chunk's tokens and positions (a chunk of C uses the
+        # first C columns)
+        self._chunks = self._chunk_lengths()
+        cmax = max(self._chunks)
+        self._row = torch.full((1, self.n_pages), NULL_PAGE, dtype=torch.int32, device=dev)
+        self._chunk_tokens = torch.zeros((1, cmax), dtype=torch.int64, device=dev)
+        self._chunk_pos = torch.full((1, cmax), PAD_POS, dtype=torch.int32, device=dev)
+        # k -> the captured K-step program, chunk length -> the captured
+        # prefill chunk (the card's only paths); empty where the programs
+        # run eagerly (the CPU, or _eager)
+        self._graphs: Dict[int, ReplayGraph] = {}
+        self._prefill_graphs: Dict[int, ReplayGraph] = {}
         if self.device.type == "cuda" and not _eager:
+            self._prefill_graphs = capture_prefill_chunks(server, self._chunks, self._caches,
+                                                          self._row, self._chunk_tokens,
+                                                          self._chunk_pos)
             ks = (1, self.fuse_steps) if self.fuse_steps > 1 else (1,)
             self._graphs = capture_decode_steps(server, ks, self._caches, self._last_tok,
                                                 self._next_pos, self._keys, self._temp,
@@ -346,7 +363,10 @@ class ContinuousBatcher:
     # ------------------------------------------------------------------
     def _to_device(self, arr: np.ndarray) -> torch.Tensor:
         """A small host array on the device without stalling the stream:
-        a pinned copy moves asynchronously, in stream order."""
+        a pinned copy moves asynchronously, in stream order. Each call pins
+        a fresh host copy, which the pinned allocator keeps until its copy
+        has run: a reused staging buffer could be overwritten while its
+        copy still waits behind in-flight replays."""
         t = torch.from_numpy(np.ascontiguousarray(arr))
         if self.device.type == "cuda":
             return t.pin_memory().to(self.device, non_blocking=True)
@@ -417,8 +437,7 @@ class ContinuousBatcher:
             n = len(self.server._tokenizer.encode(prompt))
         else:
             n = int(np.asarray(prompt).size)
-        plen = min(bucket(n, self.len_buckets), self.server._cfg.max_seq_len,
-                   self.max_len - 1)
+        plen = min(bucket(n, self.len_buckets), self._plen_cap())
         max_new = int(max_new_tokens or self.server.max_new_tokens)
         return n <= plen and max_new <= self.max_len - n
 
@@ -441,11 +460,26 @@ class ContinuousBatcher:
                                    f"{timeout_s}s")
 
     # ------------------------------------------------------------------
+    def _plen_cap(self) -> int:
+        """The longest prompt a slot admits: the model's context, less one
+        position of the slot cache for a generated token."""
+        return min(self.server._cfg.max_seq_len, self.max_len - 1)
+
+    def _chunk_lengths(self) -> Tuple[int, ...]:
+        """Every chunk length an admission can produce: ``min(prefill_chunk,
+        plen)`` over every plen ``_truncate_prompt`` returns. A plen is a
+        bucket of ``len_buckets`` or, past the top bucket, a multiple of
+        it, clipped to ``_plen_cap``; every plen past ``min(prefill_chunk,
+        cap)`` gives that same chunk."""
+        longest = min(self.prefill_chunk, self._plen_cap())
+        top = self.len_buckets[-1]
+        plens = [*self.len_buckets, *(top * m for m in range(2, -(-longest // top) + 1))]
+        return tuple(sorted({min(p, longest) for p in plens}))
+
     def _truncate_prompt(self, ids: List[int], max_new: int, info: Optional[dict]):
         """Admission clipping: never beyond the model's context, and leave
         room for at least one generated token. Returns (ids, plen bucket)."""
-        plen = min(bucket(len(ids), self.len_buckets), self.server._cfg.max_seq_len,
-                   self.max_len - 1)
+        plen = min(bucket(len(ids), self.len_buckets), self._plen_cap())
         if len(ids) > plen:
             if info is not None:
                 info["truncated_prompt"] = {"prompt_tokens": len(ids),
@@ -534,15 +568,19 @@ class ContinuousBatcher:
         self._reset_pages(fresh)
         row = np.full((1, self.n_pages), NULL_PAGE, np.int32)
         row[0, :n0] = fresh
+        # the previous job's chunks and activation read the row before this
+        # write, in stream order
+        self._row.copy_(self._to_device(row))
         self._prefill = _PrefillJob(free, ids, 0, min(self.prefill_chunk, plen), req.max_new,
-                                    req.fut, req.info, req.seed, self._to_device(row),
-                                    t_arrival=req.t_arrival)
+                                    req.fut, req.info, req.seed, t_arrival=req.t_arrival)
         return True
 
     def _prefill_step(self):
         """One chunked-prefill dispatch: write the next ``chunk`` prompt
-        tokens into the pool through the job's block-table row. Only the
-        LAST chunk syncs (its logits seed the first token)."""
+        tokens into the pool through the job's block-table row, a replay of
+        the chunk length's graph on a card (a length without one raises),
+        the eager program otherwise. Only the LAST chunk syncs (its logits
+        seed the first token)."""
         job = self._prefill
         C = job.chunk
         start = job.next
@@ -552,17 +590,29 @@ class ContinuousBatcher:
         pos = np.full((1, C), PAD_POS, np.int32)
         toks[0, :n] = part
         pos[0, :n] = np.arange(start, start + n)
-        logits = self.server._prefill_chunk(self._caches, job.bt_row,
-                                            self._to_device(toks), self._to_device(pos))
+        self._chunk_tokens[:, :C] = self._to_device(toks)
+        self._chunk_pos[:, :C] = self._to_device(pos)
+        if self._prefill_graphs:
+            graph = self._prefill_graphs.get(C)
+            if graph is None:
+                raise RuntimeError(f"no prefill graph for a chunk of {C} tokens (captured: "
+                                   f"{sorted(self._prefill_graphs)})")
+            logits = graph.replay()
+            self.server._prefill_replays += 1
+        else:
+            logits = self.server._get_prefill_chunk(C, self.n_pages)(
+                self._caches, self._row, self._chunk_tokens[:, :C], self._chunk_pos[:, :C])
+            self.server._prefill_eager += 1
         job.next = start + n
         if job.next >= job.L:
             self._activate(job, logits[0, n - 1])
 
     def _activate(self, job: _PrefillJob, first_logits: torch.Tensor):
         """Paged admission, final phase: sample the first token, point the
-        slot's device block-table row at its pages, commit the slot."""
+        slot's device block-table row at its pages (copied from the fixed
+        row), commit the slot."""
         first, key = self._sample_first(first_logits, job.seed)
-        self._block_tables[job.slot].copy_(job.bt_row[0])
+        self._block_tables[job.slot].copy_(self._row[0])
         self._prefill = None
         self._commit_slot(job.slot, first, key, job.L, job.max_new, job.fut,
                           job.t_arrival)

@@ -4,15 +4,17 @@ Port of ``seldon_core_tpu/servers/llmserver.py``: the same constructor
 arguments and defaults (plus ``device``), the byte tokenizer, ``load`` for a
 randomly initialised model or converted JAX weights, the private dense
 ``generate()`` path, and the paged chunked-prefill / decode-step programs the
-continuous batcher (``runtime/batcher.py``) drives. Prefill and the dense
+continuous batcher (``runtime/batcher.py``) drives. The dense prefill and
 ``generate()`` decode run eagerly, as plain methods (``_prefill`` ...) in
 place of the JAX package's compiled-program caches (``_get_prefill`` ...).
-The paged decode step is the one compiled program the port keeps:
-``_get_decode_step_paged(slots, n_pages, k)`` returns the k-step program
-(``decode_fuse_steps``), cached under the JAX package's key. On the CPU the
-batcher calls it eagerly; on the card the batcher captures it once as a
-CUDA graph over its own buffers and replays it (``servers/step_graph.py``),
-one replay per dispatch of k steps.
+The batcher's two programs are kept as the JAX package keys them:
+``_get_prefill_chunk(chunk, n_pages)`` (one chunk of one prompt into the
+paged pool) and ``_get_decode_step_paged(slots, n_pages, k)`` (k decode
+steps, ``decode_fuse_steps``). On the CPU the batcher calls them eagerly;
+on the card it captures each once as a CUDA graph over its own buffers (a
+prefill graph per chunk length it can produce, decode graphs of K = 1 and
+K) and replays them (``servers/step_graph.py``): one replay per prefill
+chunk, one per dispatch of k steps.
 
 Sampling chain (a decision of the port). The JAX package chains
 ``jax.random`` keys: one split per generated token, the first token drawn at
@@ -282,9 +284,15 @@ class LLMServer(SeldonComponent):
         self._decode_dispatch_times: Any = deque(maxlen=4096)
         self._decode_sync_times: Any = deque(maxlen=4096)
         self._decode_host_lag: Any = deque(maxlen=4096)
-        # the decode-step programs by ("pagedstep", slots, n_pages, k), and
-        # the one stream every batcher of this server captures its graphs on
+        # prefill chunks the batcher ran: as graph replays (the card), and
+        # through the eager program (the CPU, or the private _eager switch)
+        self._prefill_replays = 0
+        self._prefill_eager = 0
+        # the decode-step programs by ("pagedstep", slots, n_pages, k), the
+        # prefill-chunk programs by ("pchunk", chunk, n_pages), and the one
+        # stream every batcher of this server captures its graphs on
         self._decode_cache: Dict[tuple, Any] = {}
+        self._prefill_cache: Dict[tuple, Any] = {}
         self._capture_stream: Optional[Any] = None
 
     # ------------------------------------------------------------------
@@ -348,9 +356,10 @@ class LLMServer(SeldonComponent):
                     self._cfg.vocab_size, self.device)
 
     # ------------------------------------------------------------------
-    # Forward programs (the JAX package's compiled stages): prefill and the
-    # dense decode run eagerly; the paged decode step of k fused steps runs
-    # eagerly on the CPU and as a CUDA graph replay on the card
+    # Forward programs (the JAX package's compiled stages): the dense
+    # prefill and decode run eagerly; the paged prefill chunk and the paged
+    # decode step of k fused steps run eagerly on the CPU and as CUDA graph
+    # replays on the card
     # ------------------------------------------------------------------
     def _prefill(self, tokens: torch.Tensor, positions: torch.Tensor, max_len: int):
         """Port of ``_get_prefill``: fresh dense caches of ``max_len``
@@ -381,15 +390,36 @@ class LLMServer(SeldonComponent):
             tok = nxt
         return torch.stack(out, dim=1)
 
-    def _prefill_chunk(self, pools, block_row: torch.Tensor, tokens: torch.Tensor,
-                       positions: torch.Tensor) -> torch.Tensor:
-        """Port of ``_get_prefill_chunk``: write one chunk of one sequence's
-        prompt into the paged pool (in place, through ``block_row`` [1,
-        n_pages]) while attending over its earlier chunks. Returns logits
-        [1, chunk, vocab]."""
-        logits, _ = self._module(tokens, positions=positions, caches=pools,
-                                 block_tables=block_row)
-        return logits
+    def _get_prefill_chunk(self, chunk: int, n_pages: int):
+        """Port of ``_get_prefill_chunk``: the program that writes one chunk
+        of one sequence's prompt into the paged pool while attending over
+        its earlier chunks, cached under ``("pchunk", chunk, n_pages)``. Its
+        call ``prefill(pools, block_row, tokens, positions)`` (``block_row``
+        [1, n_pages] int32, ``tokens`` [1, chunk] int64, ``positions`` [1,
+        chunk] int32, PAD_POS past the prompt) writes the pools in place and
+        returns logits [1, chunk, vocab]. Nothing is read back to the host,
+        so the same call is what a CUDA graph captures
+        (``servers/step_graph.py``)."""
+        chunk, n_pages = int(chunk), int(n_pages)
+        key = ("pchunk", chunk, n_pages)
+        with self._lock:
+            fn = self._prefill_cache.get(key)
+        if fn is not None:
+            return fn
+        module = self._module
+
+        def prefill(pools, block_row, tokens, positions):
+            if (tuple(block_row.shape) != (1, n_pages) or tuple(tokens.shape) != (1, chunk)
+                    or tuple(positions.shape) != (1, chunk)):
+                raise ValueError(f"prefill chunk {key}: block_row {tuple(block_row.shape)}, "
+                                 f"tokens {tuple(tokens.shape)}, positions "
+                                 f"{tuple(positions.shape)}")
+            logits, _ = module(tokens, positions=positions, caches=pools,
+                               block_tables=block_row)
+            return logits
+
+        with self._lock:
+            return self._prefill_cache.setdefault(key, prefill)
 
     def _get_decode_step_paged(self, slots: int, n_pages: int, k: int = 1):
         """Port of ``_get_decode_step_paged``: the program of ``k`` decode
@@ -430,8 +460,8 @@ class LLMServer(SeldonComponent):
 
     def _graph_stream(self) -> torch.cuda.Stream:
         """The server's one capture stream (made at first use): every
-        batcher captures its decode graphs on it, so cuBLAS keeps one
-        workspace for them all."""
+        batcher captures its prefill and decode graphs on it, so cuBLAS
+        keeps one workspace for them all."""
         with self._lock:
             if self._capture_stream is None:
                 self._capture_stream = torch.cuda.Stream(device=self.device)

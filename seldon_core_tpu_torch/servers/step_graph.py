@@ -1,28 +1,34 @@
-"""The paged decode step as a CUDA graph: captured once per batcher over the
-batcher's own buffers, replayed once per dispatch.
+"""The batcher's two programs as CUDA graphs: each captured once per
+batcher over the batcher's own buffers, then replayed, one replay per
+prefill chunk and one per decode dispatch.
 
-This is the port's counterpart of the JAX package's compiled step
-(``seldon_core_tpu/servers/llmserver.py`` ``_get_decode_step_paged``: a
-``lax.scan`` of k steps under ``jax.jit``, one dispatch per k steps). Eager
-PyTorch enqueues a step's ~2,000 kernels one by one from the host; a replay
-enqueues the captured k steps as one graph launch. The kernels inside are
-the port's own (K1 paged attention, K2 fused residual + RMSNorm, K4's decode
-GEMM), unchanged.
+These are the port's counterparts of the JAX package's compiled programs
+(``seldon_core_tpu/servers/llmserver.py``): ``_get_prefill_chunk(chunk,
+n_pages)``, one ``jax.jit`` per chunk length, and ``_get_decode_step_paged``,
+a ``lax.scan`` of k steps under ``jax.jit``, one dispatch per k steps. Eager
+PyTorch enqueues a forward's ~2,000 kernels one by one from the host; a
+replay enqueues the captured program as one graph launch. The kernels
+inside are the port's own (K1 paged attention in the decode step, K2 fused
+residual + RMSNorm, K4's two int8 GEMM routes), unchanged.
 
 What the capture relies on:
 
-- fixed addresses: the step reads and writes the batcher's pools, block
-  tables and per-slot state (``last_tok``, ``next_pos``, ``keys``), which the
-  step and the batcher update in place and never rebind; the temperature is
-  a constant of the capture (fixed per batcher);
+- fixed addresses: a decode step reads and writes the batcher's pools,
+  block tables and per-slot state (``last_tok``, ``next_pos``, ``keys``),
+  a prefill chunk the pools and the batcher's fixed row, token and position
+  buffers; the batcher updates all of them in place and never rebinds
+  them; the temperature is a constant of the capture (fixed per batcher);
 - a warm-up run of each program on the capture stream, before any capture,
   does every first-use set-up outside the graph: nvcc builds and library
   loads, the stream's cuBLAS workspace, K1's arrival counters of the stream.
-  The caller guarantees every block-table row is TRASH (a new batcher's
-  are), so the warm-up writes only the TRASH page; the slot state is
-  restored after it;
+  Every block-table row the warm-up reads is TRASH or NULL (a new batcher's
+  are; the prefill row is reset here), so it writes only the TRASH page;
+  the slot state is restored after it;
 - every kernel wrapper launches on the current stream (the capture stream
-  while capturing); what the step allocates comes from the graph's pool;
+  while capturing); what a program allocates comes from the graph's pool
+  (the prefill graphs share one, the decode graphs have one each), and
+  K4's TMA descriptors, encoded on the host at capture, hold addresses in
+  that pool and in the fixed weights;
 - the capture is thread-local (``capture_error_mode="thread_local"``):
   other threads (REST requests on the private ``generate()`` path) may
   launch work meanwhile;
@@ -39,7 +45,7 @@ There is no fallback: a capture that fails raises.
 from __future__ import annotations
 
 import contextlib
-from typing import Any, Dict, List, Sequence, Tuple
+from typing import Any, Callable, Dict, Iterator, List, Sequence, Tuple
 
 import torch
 
@@ -54,64 +60,122 @@ def launch_counts() -> Dict[Tuple[Any, str], int]:
             if name.startswith("launches")}
 
 
-class StepGraph:
-    """One captured program of ``k`` decode steps. ``replay()`` launches it
-    on the current stream, adds the launch counts its capture saw, and
-    returns its tokens buffer [slots, k]; the next replay overwrites that
-    buffer, so copy it out in stream order before then."""
+class ReplayGraph:
+    """One captured program. ``replay()`` launches it on the current
+    stream, adds the launch counts its capture saw, and returns its output
+    buffer (a decode step's tokens [slots, k], a prefill chunk's logits [1,
+    chunk, vocab]); the next replay of this graph, or of another graph
+    sharing its memory pool, overwrites that buffer, so read it in stream
+    order before then."""
 
-    def __init__(self, graph: torch.cuda.CUDAGraph, tokens: torch.Tensor, k: int,
+    def __init__(self, graph: torch.cuda.CUDAGraph, out: torch.Tensor,
                  counts: List[Tuple[Tuple[Any, str], int]]):
         self.graph = graph
-        self.tokens = tokens
-        self.k = k
+        self.out = out
         self.counts = counts
 
     def replay(self) -> torch.Tensor:
         self.graph.replay()
         for (fn, name), n in self.counts:
             setattr(fn, name, getattr(fn, name) + n)
-        return self.tokens
+        return self.out
+
+
+@contextlib.contextmanager
+def _on_capture_stream(server, device: torch.device) -> Iterator[None]:
+    """Run the body on the server's capture stream, ordered after the
+    current stream's work, and order the current stream after the body's.
+    One stream for every capture keeps cuBLAS on one workspace, and K1's
+    arrival counters of that stream are set up by the warm-up, outside the
+    graphs (module docstring)."""
+    stream = server._graph_stream()
+    current = torch.cuda.current_stream(device)
+    stream.wait_stream(current)
+    with torch.cuda.stream(stream):
+        yield
+    current.wait_stream(stream)
+
+
+def _capture(program: Callable[[], torch.Tensor], pool=None) -> ReplayGraph:
+    """Capture one call of ``program`` on the current stream (the capture
+    stream, after a warm-up), thread-locally, in ``pool`` (a fresh pool by
+    default). The captured graph is kept beside its executable
+    (``raw_cuda_graph()``), so that its kernel nodes can be read back. A
+    capture that fails raises."""
+    before = launch_counts()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    graph.capture_begin(pool=pool, capture_error_mode="thread_local")
+    try:
+        out = program()
+    except BaseException:
+        with contextlib.suppress(RuntimeError):
+            graph.capture_end()
+        raise
+    graph.capture_end()
+    graph.instantiate()
+    counts = [(key, n - before[key]) for key, n in launch_counts().items()
+              if n != before[key]]
+    return ReplayGraph(graph, out, counts)
 
 
 @torch.no_grad()
 def capture_decode_steps(server, ks: Sequence[int], pools, last_tok: torch.Tensor,
                          next_pos: torch.Tensor, keys: torch.Tensor, temperature: float,
-                         block_tables: torch.Tensor) -> Dict[int, StepGraph]:
+                         block_tables: torch.Tensor) -> Dict[int, ReplayGraph]:
     """Capture ``server._get_decode_step_paged(slots, n_pages, k)`` for each
     k of ``ks`` over these buffers, on the server's capture stream, after a
-    warm-up run of each (module docstring). Returns k -> StepGraph. The
-    current stream waits for the capture stream before this returns."""
+    warm-up run of each (module docstring). Returns k -> ReplayGraph (its
+    output: the tokens [slots, k]). The current stream waits for the
+    capture stream before this returns."""
     slots, n_pages = block_tables.shape
     programs = {k: server._get_decode_step_paged(slots, n_pages, k) for k in ks}
     args = (pools, last_tok, next_pos, keys, temperature, block_tables)
     state = (last_tok, next_pos, keys)
-    stream = server._graph_stream()
-    current = torch.cuda.current_stream(last_tok.device)
-    stream.wait_stream(current)
     graphs = {}
-    with torch.cuda.stream(stream):
+    with _on_capture_stream(server, last_tok.device):
         saved = [t.clone() for t in state]
         for k in ks:
             programs[k](*args)
         for t, s in zip(state, saved):
             t.copy_(s)
         for k in ks:
-            before = launch_counts()
-            graph = torch.cuda.CUDAGraph()
-            graph.capture_begin(capture_error_mode="thread_local")
-            try:
-                tokens = programs[k](*args)
-            except BaseException:
-                with contextlib.suppress(RuntimeError):
-                    graph.capture_end()
-                raise
-            graph.capture_end()
-            counts = [(key, n - before[key]) for key, n in launch_counts().items()
-                      if n != before[key]]
-            graphs[k] = StepGraph(graph, tokens, k, counts)
-    current.wait_stream(stream)
+            graphs[k] = _capture(lambda k=k: programs[k](*args))
     return graphs
 
 
-__all__ = ["StepGraph", "capture_decode_steps", "launch_counts"]
+@torch.no_grad()
+def capture_prefill_chunks(server, chunks: Sequence[int], pools, row: torch.Tensor,
+                           tokens: torch.Tensor, positions: torch.Tensor
+                           ) -> Dict[int, ReplayGraph]:
+    """Capture ``server._get_prefill_chunk(chunk, n_pages)`` for each chunk
+    length of ``chunks`` over the batcher's fixed buffers: the block-table
+    row ``row`` [1, n_pages] and the first ``chunk`` columns of ``tokens``
+    [1, Cmax] and ``positions`` [1, Cmax] (Cmax >= every chunk), on the
+    server's capture stream, after a warm-up run of each (module
+    docstring). The buffers are first reset to an all-NULL row, token 0 and
+    PAD_POS, so the warm-up writes only the TRASH page. Longest chunk
+    first, all in one memory pool: the graphs are replayed one at a time
+    on one stream, and each replay's logits are read before the next, so a
+    shorter chunk's transients may reuse a longer one's. Returns chunk ->
+    ReplayGraph (its output: the logits [1, chunk, vocab]). The current
+    stream waits for the capture stream before this returns."""
+    from seldon_core_tpu_torch.models.transformer import NULL_PAGE, PAD_POS
+
+    n_pages = row.shape[1]
+    order = sorted(chunks, reverse=True)
+    programs = {c: server._get_prefill_chunk(c, n_pages) for c in order}
+    args = {c: (pools, row, tokens[:, :c], positions[:, :c]) for c in order}
+    graphs = {}
+    with _on_capture_stream(server, row.device):
+        row.fill_(NULL_PAGE)
+        tokens.zero_()
+        positions.fill_(PAD_POS)
+        for c in order:
+            programs[c](*args[c])
+        pool = torch.cuda.graph_pool_handle()
+        for c in order:
+            graphs[c] = _capture(lambda c=c: programs[c](*args[c]), pool)
+    return graphs
+
+
+__all__ = ["ReplayGraph", "capture_decode_steps", "capture_prefill_chunks", "launch_counts"]

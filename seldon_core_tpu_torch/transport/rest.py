@@ -20,9 +20,15 @@ JSON request and response schema of the JAX package, non-streaming:
 A per-request ``temperature`` takes the private generate() path (the batch
 decodes every slot at the server's temperature), as does a seeded prompt
 the slot cache cannot hold whole. A page-exhaustion shed answers 503 with a
-``Retry-After`` header. Streaming (SSE), tenants, SLO classes and adapters
-arrive with later slices and are refused with a status naming the slice,
-as are multipart predict bodies (415) and the framed binary wire (501).
+``Retry-After`` header.
+
+Tenant and SLO class ride the ``Seldon-Tenant`` / ``Seldon-SLO-Class``
+headers, or the body fields ``tenant`` / ``slo_class`` (the body wins), as
+in the JAX package. An unknown class answers 400 on every branch. The
+port's FIFO admission serves the default class (``interactive``, or no
+class); a tenant or another known class answers 501 naming the LoRA/tenants
+slice, as do adapters. Streaming (SSE) answers 501 too, as do the framed
+binary wire; multipart predict bodies answer 415.
 """
 
 from __future__ import annotations
@@ -31,13 +37,14 @@ import json
 import logging
 import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Any, Optional, Tuple
+from typing import Any, Mapping, Optional, Tuple
 from urllib.parse import parse_qs, urlsplit
 
 from seldon_core_tpu_torch.components import dispatch
 from seldon_core_tpu_torch.contracts.payload import SeldonError, SeldonMessage, Status
 from seldon_core_tpu_torch.device import resolve_device
 from seldon_core_tpu_torch.runtime.resilience import ShedError
+from seldon_core_tpu_torch.runtime.scheduler import INTERACTIVE, normalize_slo_class
 
 logger = logging.getLogger(__name__)
 
@@ -45,19 +52,31 @@ _LATER = {
     "stream": "SSE streaming arrives with the streaming slice",
     "adapter": "adapters arrive with the LoRA/tenants slice",
     "tenant": "tenants arrive with the LoRA/tenants slice",
-    "slo_class": "SLO classes arrive with the LoRA/tenants slice",
+    "slo_class": "SLO classes other than 'interactive' arrive with the LoRA/tenants slice",
 }
 
 
-def _generate(component: Any, body: Any) -> dict:
-    """The /v1/generate handler body: returns the JSON response or raises
-    SeldonError (ShedError for a 503)."""
+def _generate(component: Any, body: Any, headers: Optional[Mapping[str, str]] = None) -> dict:
+    """The /v1/generate handler body (``headers``: the request's, read
+    case-insensitively): returns the JSON response or raises SeldonError
+    (ShedError for a 503)."""
     from seldon_core_tpu_torch.runtime.batcher import get_batcher_service
 
     if not isinstance(body, dict):
         raise SeldonError("body must be a JSON object", status_code=400)
+    headers = headers or {}
+    # the reference's precedence: the body field, then the header; a typo'd
+    # class fails on every branch before anything is refused or served
+    tenant = body.get("tenant") or headers.get("Seldon-Tenant")
+    try:
+        slo_class = normalize_slo_class(body.get("slo_class")
+                                        or headers.get("Seldon-SLO-Class"))
+    except ValueError as e:
+        raise SeldonError(str(e), status_code=400)
+    # FIFO admission serves the default class; anything else is refused
+    knobs = dict(body, tenant=tenant, slo_class=slo_class != INTERACTIVE)
     for key, why in _LATER.items():
-        if body.get(key):
+        if knobs.get(key):
             raise SeldonError(f"'{key}' is not served by this port yet: {why}",
                               status_code=501)
     max_new = body.get("max_new_tokens")
@@ -196,7 +215,7 @@ def make_component_app(component: Any, device: Optional[str] = None):
                     body = json.loads(raw or b"null")
                 except json.JSONDecodeError as e:
                     raise SeldonError(f"Invalid JSON body: {e}", status_code=400)
-                self._send(200, _generate(component, body))
+                self._send(200, _generate(component, body, self.headers))
             except Exception as e:  # the request boundary: answer, keep serving
                 code, payload, headers = _error(e)
                 self._send(code, payload, headers)

@@ -26,6 +26,7 @@ import torch
 from seldon_core_tpu_torch.models.transformer import (NULL_PAGE, PAD_POS, RESERVED_PAGES,
                                                       quantize_kv)
 from seldon_core_tpu_torch.ops import fused_norm, fused_resnet, int8_matmul, paged_attention
+from seldon_core_tpu_torch.ops._build import sm_count
 
 pytestmark = pytest.mark.cuda
 
@@ -154,14 +155,59 @@ def test_paged_attention_kernel_every_split(dev, h, kvh, hd, kv):
         paged_attention.paged_attention(q, cache, bt, qpos, _splits=n_chunks + 1)
 
 
-def _graph_nodes(fn):
-    """The types of the nodes of a CUDA graph of one call of ``fn``
-    (cuGraphNodeGetType: 0 is a kernel): every operation the call puts on
-    its stream. A warm-up call on the capture stream keeps lazy set-up out
-    of the graph. Returns (node types, the output of one replay)."""
+def _node_list(g):
+    """(node handle, cuGraphNodeGetType: 0 is a kernel) of every node of
+    ``g``, a torch.cuda.CUDAGraph captured with keep_graph=True."""
     import ctypes
 
     libcuda = ctypes.CDLL("libcuda.so.1")
+    raw = ctypes.c_void_p(g.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    assert libcuda.cuGraphGetNodes(raw, None, ctypes.byref(n)) == 0
+    nodes = (ctypes.c_void_p * max(n.value, 1))()
+    assert libcuda.cuGraphGetNodes(raw, nodes, ctypes.byref(n)) == 0
+    out = []
+    for node in nodes[:n.value]:
+        t = ctypes.c_int(-1)
+        assert libcuda.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(t)) == 0
+        out.append((node, t.value))
+    return out
+
+
+def _kernel_names(g):
+    """The function name (mangled) of every kernel node of ``g`` (as
+    ``_node_list``), from cuGraphKernelNodeGetParams and cuFuncGetName, or
+    cuKernelGetName where the node holds a library kernel."""
+    import ctypes
+
+    libcuda = ctypes.CDLL("libcuda.so.1")
+
+    class Params(ctypes.Structure):   # CUDA_KERNEL_NODE_PARAMS_v2 (cuda.h)
+        _fields_ = ([("func", ctypes.c_void_p)]
+                    + [(f, ctypes.c_uint) for f in ("gx", "gy", "gz", "bx", "by", "bz", "smem")]
+                    + [(f, ctypes.c_void_p) for f in ("params", "extra", "kern", "ctx")])
+
+    names = []
+    for node, kind in _node_list(g):
+        if kind != 0:
+            continue
+        p = Params()
+        assert libcuda.cuGraphKernelNodeGetParams_v2(ctypes.c_void_p(node),
+                                                     ctypes.byref(p)) == 0
+        name = ctypes.c_char_p()
+        if p.func:
+            assert libcuda.cuFuncGetName(ctypes.byref(name), ctypes.c_void_p(p.func)) == 0
+        else:
+            assert libcuda.cuKernelGetName(ctypes.byref(name), ctypes.c_void_p(p.kern)) == 0
+        names.append(name.value.decode())
+    return names
+
+
+def _graph_nodes(fn):
+    """The types of the nodes of a CUDA graph of one call of ``fn``
+    (``_node_list``): every operation the call puts on its stream. A
+    warm-up call on the capture stream keeps lazy set-up out of the graph.
+    Returns (node types, the output of one replay)."""
     stream = torch.cuda.Stream()
     stream.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(stream):
@@ -170,16 +216,7 @@ def _graph_nodes(fn):
     g = torch.cuda.CUDAGraph(keep_graph=True)
     with torch.cuda.graph(g, stream=stream):
         out = fn()
-    raw = ctypes.c_void_p(g.raw_cuda_graph())
-    n = ctypes.c_size_t(0)
-    assert libcuda.cuGraphGetNodes(raw, None, ctypes.byref(n)) == 0
-    nodes = (ctypes.c_void_p * max(n.value, 1))()
-    assert libcuda.cuGraphGetNodes(raw, nodes, ctypes.byref(n)) == 0
-    types = []
-    for node in nodes[:n.value]:
-        t = ctypes.c_int(-1)
-        assert libcuda.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(t)) == 0
-        types.append(t.value)
+    types = [kind for _, kind in _node_list(g)]
     g.replay()
     torch.cuda.synchronize()
     return types, out.clone()
@@ -554,6 +591,39 @@ def test_int8_matmul_prefill_kernel_tiles_and_splits(dev, bn, splits, out_dtype)
     _assert_k4_close(out, x, q, scale)
 
 
+@pytest.mark.parametrize("m", [128, 256])
+@pytest.mark.parametrize("splits", [1, 3])
+def test_int8_matmul_prefill_kernel_in_a_cuda_graph(dev, m, splits):
+    """K4's prefill route inside a CUDA graph, at the served chunk lengths
+    (M = 128, 256) and the 7B model's [4096, 11008] product, in one split
+    and in several: the graph holds the kernel, plus the split-K reduce
+    when it splits (its float32 partial comes from the graph's pool), and
+    its replay equals the eager call bit for bit. The wrapper's own plan
+    takes the same route in a graph."""
+    k, n = 4096, 11008
+    x, q, scale = _k4_case(dev, m, k, n, m + splits)
+    per = -(-(-(-k // int8_matmul.WG_BK)) // splits)
+    plan = (int8_matmul.WG_BNS[0], splits, per)
+
+    def call():
+        out = torch.empty((m, n), dtype=torch.bfloat16, device=dev)
+        return int8_matmul._wgmma_kernel(x, q, scale, out, plan)
+
+    eager = call()
+    torch.cuda.synchronize()
+    _assert_k4_close(eager, x, q, scale)
+    nodes, replay = _graph_nodes(call)
+    assert nodes == [0] * (1 + (splits > 1)), nodes
+    assert torch.equal(replay, eager)
+    wrapped = int8_matmul.int8_matmul(x, q, scale)
+    before = int8_matmul.int8_matmul.launches_wgmma
+    nodes, replay = _graph_nodes(lambda: int8_matmul.int8_matmul(x, q, scale))
+    assert int8_matmul.int8_matmul.launches_wgmma == before + 2   # warm-up and capture
+    wplan = int8_matmul._wgmma_plan(m, n, k, sm_count(dev.index))
+    assert nodes == [0] * (1 + (wplan[1] > 1)), (nodes, wplan)
+    assert torch.equal(replay, wrapped)
+
+
 def test_int8_matmul_kernel_rejects_what_it_does_not_take(dev):
     x, q, scale = _k4_case(dev, 2, 32, 16, 0)
     with pytest.raises(TypeError):
@@ -758,8 +828,9 @@ def test_batcher_through_graphs_equals_eager_batcher(dev, kv):
 def test_capture_while_another_thread_generates(dev):
     """Graphs are captured thread-locally: batchers built while another
     thread runs the private ``generate()`` path (eager launches, its own
-    allocations and host syncs) capture, their replay is bit-equal to the
-    eager program, and the other thread's tokens equal a solo run's."""
+    allocations and host syncs) capture their prefill and decode graphs,
+    a replay of each is bit-equal to the eager program, and the other
+    thread's tokens equal a solo run's."""
     import threading
     import time
 
@@ -796,6 +867,11 @@ def test_capture_while_another_thread_generates(dev):
     assert seen >= 1 and len(outs) > seen and all(o == solo for o in outs)
     b = batchers[-1]
     _admit(b, ([5, 9, 17, 2, 40, 3, 22, 8, 11, 60], [7, 7, 1]))
+    row, chunks = _chunk_job(b, 16, 0)
+    got, want, pools, _ = _replay_vs_eager(s, b, 16, row, *chunks[0])
+    assert torch.equal(got, want)
+    _assert_pools_equal(b, pools)
+    del pools
     for k in (1, 4):
         copy = _state_copy(b)
         toks = b._graphs[k].replay().clone()
@@ -803,6 +879,160 @@ def test_capture_while_another_thread_generates(dev):
         torch.cuda.synchronize()
         assert torch.equal(toks, eager)
         _assert_state_equal(b, copy)
+
+
+# a context of 512 and buckets 32 / 128 / 512 with chunks of 256: admissions
+# produce chunks of 32, 128 and 256, as the 7B server's defaults do
+PREFILL_LLM = dict(SMALL_LLM, max_seq_len=512)
+PREFILL_BATCH = dict(max_slots=3, page_size=8, max_len=600, len_buckets=(32, 128, 512),
+                     prefill_chunk=256)
+
+
+def _prefill_batcher(dev, kv, _eager=False):
+    """The small GQA model at a context of 512 and a 3-slot batcher whose
+    admissions produce chunks of 32, 128 and 256, built (every graph warmed
+    up and captured) under ``set_sync_debug_mode("error")``."""
+    from seldon_core_tpu_torch.runtime.batcher import ContinuousBatcher
+    from seldon_core_tpu_torch.servers.llmserver import LLMServer
+
+    s = LLMServer(model="transformer", model_kwargs=PREFILL_LLM, init_random=True,
+                  param_dtype="auto", max_new_tokens=12, eos_id=-1, device="cuda",
+                  **INT8_KNOBS[kv])
+    s.load()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        b = ContinuousBatcher(s, device="cuda", _eager=_eager, **PREFILL_BATCH)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return s, b
+
+
+def _chunk_job(b, C, seed):
+    """Fresh pages for two chunks of C, and their inputs: the first chunk
+    full (positions 0..C-1), the second of C - 3 tokens (padded), attending
+    over the first through the pool. Returns (row, [(tokens, positions)] x 2)
+    as host arrays."""
+    pages = b._allocator.alloc(-(-2 * C // b.page_size))
+    b._reset_pages(pages)
+    row = np.full((1, b.n_pages), NULL_PAGE, np.int32)
+    row[0, :len(pages)] = pages
+    ids = np.random.default_rng(seed).integers(1, 256, 2 * C - 3)
+    chunks = []
+    for start in (0, C):
+        part = ids[start:start + C]
+        toks = np.zeros((1, C), np.int64)
+        pos = np.full((1, C), PAD_POS, np.int32)
+        toks[0, :len(part)] = part
+        pos[0, :len(part)] = np.arange(start, start + len(part))
+        chunks.append((toks, pos))
+    return row, chunks
+
+
+def _replay_vs_eager(s, b, C, row, toks, pos):
+    """One replay of chunk C's graph on the staged inputs, and the eager
+    program on identical copies of the pools: returns (replay logits,
+    eager logits, the eager pools, the launch counts the replay added)."""
+    from seldon_core_tpu_torch.servers.step_graph import launch_counts
+
+    b._row.copy_(b._to_device(row))
+    b._chunk_tokens[:, :C].copy_(b._to_device(toks))
+    b._chunk_pos[:, :C].copy_(b._to_device(pos))
+    pools = [tuple(t.clone() for t in layer) for layer in b._caches]
+    before = launch_counts()
+    got = b._prefill_graphs[C].replay().clone()
+    after = launch_counts()
+    want = s._get_prefill_chunk(C, b.n_pages)(pools, b._row, b._chunk_tokens[:, :C],
+                                              b._chunk_pos[:, :C])
+    torch.cuda.synchronize()
+    return got, want, pools, {key: n - before[key] for key, n in after.items()
+                              if n != before[key]}
+
+
+def _assert_pools_equal(b, pools):
+    for la, lb in zip(b._caches, pools):
+        for x, y in zip(la, lb):
+            assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+def test_prefill_graph_replay_bit_equals_eager(dev, kv):
+    """The batcher holds one prefill graph per chunk length its admissions
+    produce (32, 128, 256), captured without a host sync. On live pools
+    (two prompts admitted through the graphs), each chunk length's first
+    and later chunk, replayed out of capture order (capture runs 256, 128,
+    32), gives logits and pools bit-equal to the eager program from
+    identical copies; each replay adds the launch counts its capture saw:
+    one K2 a layer and, in the int8 model, one K4 a product, on the prefill
+    route (``launches_wgmma``) for M >= 64; and each graph holds those
+    kernels as nodes, read back by function name, and no K1."""
+    s, b = _prefill_batcher(dev, kv)
+    assert sorted(b._prefill_graphs) == [32, 128, 256] == list(b._chunks)
+    replays = s._prefill_replays
+    _admit(b, ([5, 9, 17, 2, 40, 3, 22, 8, 11, 60] * 14, [7, 7, 1]))
+    assert s._prefill_replays == replays + 1 + 1 and s._prefill_eager == 0
+    n_layers, k4 = PREFILL_LLM["n_layers"], 7 * PREFILL_LLM["n_layers"] + 1
+    for C in (32, 256, 128, 32):
+        row, chunks = _chunk_job(b, C, C)
+        for toks, pos in chunks:
+            got, want, pools, delta = _replay_vs_eager(s, b, C, row, toks, pos)
+            assert got.shape == (1, C, PREFILL_LLM["vocab_size"])
+            assert torch.isfinite(got).all() and torch.equal(got, want)
+            _assert_pools_equal(b, pools)
+            assert delta == dict(b._prefill_graphs[C].counts)
+            assert delta[(fused_norm.fused_residual_rmsnorm, "launches")] == n_layers
+            assert delta.get((int8_matmul.int8_matmul, "launches"), 0) == (
+                k4 if kv == "int8" else 0)
+            assert delta.get((int8_matmul.int8_matmul, "launches_wgmma"), 0) == (
+                k4 if kv == "int8" and C >= 64 else 0)
+            assert not any(fn is paged_attention.paged_attention for fn, _ in delta)
+            del pools
+        names = _kernel_names(b._prefill_graphs[C].graph)
+        wgmma = k4 if kv == "int8" and C >= 64 else 0
+        assert [sum(key in n for n in names) for key in (
+            "fused_residual_rmsnorm_kernel", "int8_matmul_wgmma_kernel",
+            "int8_matmul_decode_kernel", "paged_attention_decode_kernel")] == [
+                n_layers, wgmma, (k4 if kv == "int8" else 0) - wgmma, 0]
+
+
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+def test_prefill_graph_replay_reads_new_inputs(dev, kv):
+    """Two jobs on different pages with different tokens, one after the
+    other through the same chunk graph: each replay equals the eager
+    program on its own row, tokens and positions, and the two replays'
+    logits differ."""
+    s, b = _prefill_batcher(dev, kv)
+    logits = []
+    for seed in (1, 2):
+        row, chunks = _chunk_job(b, 128, seed)
+        got, want, pools, _ = _replay_vs_eager(s, b, 128, row, *chunks[0])
+        assert torch.equal(got, want)
+        _assert_pools_equal(b, pools)
+        logits.append(got)
+        del pools
+    assert not torch.equal(logits[0], logits[1])
+
+
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+def test_batcher_through_prefill_graphs_equals_eager_batcher(dev, kv):
+    """Prompts of 1, 1, 2 and 2 chunks of 32, 128 and 256 tokens, served
+    through the graphs and through the eager programs (the private
+    ``_eager`` switch): the same tokens; every chunk of the first was a
+    replay, every chunk of the second an eager run."""
+    prompts = ("hi", "a prompt of more than thirty-two bytes, so its bucket is 128",
+               "x" * 300, [3, 4, 5] * 130)
+    outs = {}
+    for eager in (False, True):
+        s, b = _prefill_batcher(dev, kv, _eager=eager)
+        assert bool(b._prefill_graphs) == (not eager)
+        try:
+            outs[eager] = [f.result(120) for f in [b.submit(p) for p in prompts]]
+        finally:
+            b.close()
+        assert (s._prefill_replays, s._prefill_eager) == ((0, 6) if eager else (6, 0))
+        assert b.page_stats()["kv_pages_in_use"] == 0
+    assert [len(o) for o in outs[False]] == [12] * 4
+    assert outs[False] == outs[True]
 
 
 def _k3_case(dev, b, h, w, c, f, n_blocks, seed):
