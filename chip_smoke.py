@@ -91,7 +91,19 @@ Phases (any failure exits non-zero; nothing swallows an error):
    tensor) to the eager program from identical copies, one call and one
    replay must launch what the path expects, and the chunk's host time
    (eager enqueue against replay) and device time (CUDA events around the
-   replay against the profiler's kernel sum) are printed. The int8 run's
+   replay against the profiler's kernel sum) are printed. In each model's
+   graph run (K = 1) the private generate() path too (``generate_phase``):
+   the 8 texts greedy through the eager switch and through the decode
+   step's CUDA graph of (8, 160), bit-equal, every decode step a replay
+   and every call's K2 / K4 launches as expected (they join the kernel
+   table's counts); per-step wall, call wall, capture time, the dense
+   buffer's and the generate pool's memory; the step's replay against the
+   eager step on live state (host and device time; the graph's kernel
+   nodes by name); a call under another key and the first again, each
+   bit-equal to the eager switch and to a fresh buffer; a sampled call
+   (temperature 0.7, seed 11) bit-equal to eager; and two generate()
+   requests over REST while the batcher serves the 8, each answering its
+   solo tokens. The int8 run's
    device memory after load() must stay under INT8_LOAD_PEAK_GB: the int8
    weights plus one float32 leaf;
 5. ResNet-50 forward phase — the folded model at full width and depth
@@ -408,6 +420,14 @@ def graph_kernel_names(graph):
     return names
 
 
+def node_counts(names):
+    """(K2, K4 prefill route, K4 decode route, K1) among kernel names
+    (``graph_kernel_names``), in the order of ``launches_of``."""
+    return tuple(sum(key in n for n in names) for key in (
+        K2_KERNEL, "int8_matmul_wgmma_kernel", "int8_matmul_decode_kernel",
+        "paged_attention_decode_kernel"))
+
+
 def graph_nodes(fn):
     """Every operation one call of ``fn`` puts on its stream: the call is
     captured in a CUDA graph (after a warm-up call on the capture stream,
@@ -620,7 +640,10 @@ def bf16_ulp(x):
     return torch.exp2(torch.floor(torch.log2(ax)) - 7)
 
 
-K2_SHAPES = (8, 32, 128, 256)   # rows at decode (8 slots); the served prefill chunks
+# rows at decode (8 slots), the served prefill chunks, and generate()'s
+# calls: a decode step of 1, 4 (bucket of 2 texts) or 8 rows, a dense
+# prefill of 4 or 8 rows x 128
+K2_SHAPES = (1, 4, 8, 32, 128, 256, 512, 1024)
 K2_D = LLAMA2_7B["dim"]
 K2_EPS = 1e-5
 
@@ -852,6 +875,16 @@ def k4_case(m, k, n, out_dtype, seed, flush):
 
 K4_FAMILIES = [("wq/wk/wv/wo", 4096, 4096, "bfloat16"), ("w1/w3", 4096, 11008, "bfloat16"),
                ("w2", 11008, 4096, "bfloat16"), ("lm_head", 4096, 32000, "float32")]
+# the rows K4 takes on the main path: generate()'s decode steps of 1 and 4
+# rows, the 8 serving slots, the served prefill chunks (32 on the decode
+# route), generate()'s dense prefills of 4 and 8 rows x 128
+K4_SHAPES = (1, 4, 8, 32, 128, 256, 512, 1024)
+
+
+def k4_label(name: str, m: int) -> str:
+    if m == 8:
+        return name
+    return f"{name} M={m}" if m < 8 else f"{name} prefill M={m}"
 
 
 def k4_sweep(card, flush):
@@ -1019,7 +1052,7 @@ def chunks_of(b, n: int):
 
 def teacher_logits(server, seqs):
     """float32 logits of one batched prefill over right-padded ``seqs``
-    into fresh dense caches of the server's KV dtype (``server._prefill``):
+    into fresh dense caches of the server's KV dtype (``server._prefill_fresh``):
     the same K/V numerics the serving path runs (an int8 cache quantizes
     every position on write and attends the dequantized values). The
     causal mask keeps each row's padding out of its earlier positions."""
@@ -1031,7 +1064,7 @@ def teacher_logits(server, seqs):
         toks[i, :len(seq)] = torch.tensor(seq, device="cuda")
     pos = torch.arange(L, device="cuda")[None].expand(n, L)
     with torch.no_grad():
-        logits, _ = server._prefill(toks, pos, L)
+        logits, _ = server._prefill_fresh(toks, pos, L)
     return logits
 
 
@@ -1195,6 +1228,32 @@ def state_equal(b, copy) -> bool:
                     for x, y in zip(la, lb)))
 
 
+def draw_ms(server, b):
+    """Device time of one decode step's token pick at the batcher's b.S
+    slots over float32 logits [b.S, vocab], each as a CUDA graph of the pick
+    alone (CUDA events around its replay, median of REPS): ``sample_tokens``
+    with a 0-dim temperature tensor of 0 (the greedy and the sampled token
+    both made, one chosen on the device: ``generate()``'s form), and with
+    None (the greedy pick alone, chosen on the host: the greedy batcher's
+    form). Returns (tensor form ms, None form ms)."""
+    import torch
+
+    from seldon_core_tpu_torch.servers.llmserver import sample_tokens
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(3)
+    logits = torch.randn((b.S, LLAMA2_7B["vocab_size"]), generator=g, device=dev) * 3
+    keys = b._keys.clone()
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    out = []
+    for temp in (zero, None):
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            sample_tokens(keys, logits, temp, server.top_k)
+        out.append(events_ms(graph.replay))
+    return tuple(out)
+
+
 def step_phase(label: str, card: str, server, b, texts, weight_bytes: int) -> dict:
     """Where a decode dispatch's time goes, on live state: the served
     prompts admitted again into the batcher (loop stopped), then (1) one
@@ -1256,6 +1315,13 @@ def step_phase(label: str, card: str, server, b, texts, weight_bytes: int) -> di
     for e in ops[:12]:
         print(f"  {dev_us(e) / 1e3:8.3f} ms  x{e.count:<5d} {e.key[:100]} [{card}]")
     out = {"eager_host_ms": host_e, "eager_dev_ms": dev_e, "eager_kernels": n_e}
+    pick_ms, greedy_ms = draw_ms(server, b)
+    print(f"[{label}] the token pick of one decode step at {b.S} slots (a CUDA graph of it "
+          f"alone, CUDA events, median of {REPS}): sample_tokens with a 0-dim temperature of 0 "
+          f"(greedy and sampled tokens both made, one chosen on the device; generate()'s "
+          f"form) {pick_ms:.4f} ms, with None (the greedy pick alone, key split + argmax; the "
+          f"greedy batcher's form) {greedy_ms:.4f} ms [{card}]", flush=True)
+    out["draw_ms"] = (pick_ms, greedy_ms)
     for k in sorted(b._graphs):
         replay = b._graphs[k].replay
         host_g, dev_g, ops_g, k2_g = profile_step(replay, K2_KERNEL)
@@ -1518,9 +1584,7 @@ def prefill_phase(label: str, card: str, server, b) -> dict:
         # nodes, by name; what one replay adds to the counters
         want_k = (n_layers, k4 if C >= 64 else 0, 0 if C >= 64 else k4, 0)
         names = graph_kernel_names(graph.graph)
-        in_graph = tuple(sum(key in n for n in names) for key in (
-            K2_KERNEL, "int8_matmul_wgmma_kernel", "int8_matmul_decode_kernel",
-            "paged_attention_decode_kernel"))
+        in_graph = node_counts(names)
         reduces = sum("splitk_reduce" in n for n in names)
         for what, seen in (("eager program launched", launches_of(eager)),
                            ("graph holds kernel nodes", in_graph),
@@ -1551,6 +1615,245 @@ def prefill_phase(label: str, card: str, server, b) -> dict:
         out[C] = {"eager_host_ms": host_e, "eager_dev_ms": dev_e, "host_ms": host_g,
                   "dev_ms": ev_g, "traced_ms": dev_g if ops_g else None}
     return out
+
+
+def fresh_generate(server, texts, max_new: int):
+    """``server.generate(texts)`` through the eager programs over a dense
+    buffer made for this call alone (fresh ``init_kv_caches`` of its rows
+    x positions), the server's own buffer and generate graphs put back
+    afterwards untouched: the oracle for a call on the reused buffer."""
+    saved = (server._dense, dict(server._generate_graphs), server._generate_pool)
+    server._dense = None
+    try:
+        return server.generate(texts, max_new_tokens=max_new, _eager=True)
+    finally:
+        server._dense, graphs, server._generate_pool = saved
+        server._generate_graphs.clear()
+        server._generate_graphs.update(graphs)
+
+
+def generate_launches(server, rows: int, plen: int, max_new: int) -> dict:
+    """What one generate() call of ``rows`` x ``plen`` launches: one K2 a
+    layer a forward (the prefill and ``max_new`` - 1 decode steps, one
+    more where the call captures its graph after a warm-up step); in the
+    int8 model one K4 a product a forward, the prefill's on the prefill
+    route (``rows * plen`` >= 64), the steps' on the decode route; no K1."""
+    n_layers = LLAMA2_7B["n_layers"]
+    per = K4_PER_FORWARD if server.quantize == "int8" else 0
+    wide = per if rows * plen >= 64 else 0
+    return {"k1": 0, "k1_int8": 0, "k2": n_layers * max_new, "k4": per * max_new,
+            "k4_wgmma": wide}
+
+
+def generate_phase(label: str, card: str, server, url: str, texts) -> dict:
+    """The private generate() path on the served server (its batcher idle
+    until part 5), through the decode graphs:
+
+    1. the N_REQUESTS texts, greedy (batch bucket 8, plen 128, MAX_NEW
+       tokens: key (8, 160)), once through the private eager switch, then
+       twice through the graph (captured at the first): tokens bit-equal,
+       every decode step a replay, each call launching what
+       ``generate_launches`` says; per-step wall (``_decode_step_times``)
+       and call wall, the capture's host time, the dense buffer's and the
+       generate pool's GB, peak memory; then on the buffer's live state the
+       step's replay (host time; device time from CUDA events) against the
+       eager step (host enqueue; torch.profiler's kernel sum), each timed
+       call first re-pointing ``pos`` at the prompts' ends (one small copy);
+    2. reuse: one text with 8 new tokens (key (1, 136)), then the texts
+       again: each bit-equal to the eager switch and to a call on a fresh
+       buffer (``fresh_generate``);
+    3. sampled: the texts at temperature 0.7, seed 11, graph and eager
+       bit-equal;
+    4. the graph's kernel nodes by name (32 K2 a step, in int8 225 K4
+       decode, no K4 prefill, no K1), and what a replay adds to the
+       counters equal to them;
+    5. REST under load: while the N_REQUESTS prompts are served by the
+       batcher, one {"prompts": [2 texts]} and one {"prompt", "temperature":
+       0.7, "seed": 5} (both the generate() path: new keys, captured while
+       the batcher's thread replays) answer 200 with the tokens the same
+       requests get alone afterwards.
+
+    Returns the phase's numbers and the launches of the graph calls of
+    parts 1-3 (the generate path's share of the kernel table)."""
+    import torch
+
+    n_layers = LLAMA2_7B["n_layers"]
+    quantized = server.quantize == "int8"
+    k4 = K4_PER_FORWARD if quantized else 0
+    plen = 128
+    key = (N_REQUESTS, plen + MAX_NEW)
+    counted = {}
+
+    def call(texts_, max_new=MAX_NEW, eager=False, **kw):
+        """One generate() call: (its result, its wall, its per-step wall);
+        a graph call's launches are checked and summed into ``counted``,
+        and every decode step of it must be a replay."""
+        before = read_counts(server)
+        replays, n_eager = server._generate_replays, server._generate_eager
+        rows = 1 if len(texts_) == 1 else N_REQUESTS
+        # a first use captures the key's graph after one warm-up step
+        warm_up = int(not eager and (rows, plen + max_new) not in server._generate_graphs)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = server.generate(texts_, max_new_tokens=max_new, _eager=eager, **kw)
+        wall = time.perf_counter() - t0
+        step_s = server._decode_step_times[-1]
+        after = read_counts(server)
+        steps = (server._generate_replays - replays, server._generate_eager - n_eager)
+        want_steps = (0, max_new - 1) if eager else (max_new - 1, 0)
+        if steps != want_steps:
+            fail(f"[{label}] generate() ran (replayed, eager) decode steps {steps}, expected "
+                 f"{want_steps}")
+        if not eager:
+            delta = {k: after[k] - before[k] for k in after if k not in ("replays", "eager")}
+            want = generate_launches(server, rows, plen, max_new + warm_up)
+            if delta != want:
+                fail(f"[{label}] one generate() call of {len(texts_)} x {max_new} launched "
+                     f"{delta}, expected {want}")
+            for k, n in delta.items():
+                counted[k] = counted.get(k, 0) + n
+        return out, wall, step_s
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    eager, eager_wall, eager_step = call(texts, eager=True)
+    graph, first_wall, first_step = call(texts)
+    again, graph_wall, graph_step = call(texts)
+    if not (graph == eager == again):
+        fail(f"[{label}] generate() through its graph differs from the eager switch")
+    # an oracle apart from the programs the graph replays: the eager
+    # switch runs the same step program and kernels
+    teacher_check(f"{label} generate()", card, server, texts, graph["tokens"])
+    g = server._generate_graphs.get(key)
+    if g is None:
+        fail(f"[{label}] generate() holds graphs {sorted(server._generate_graphs)}, not {key}")
+    dense_gb = server._dense.nbytes() / 1e9
+    pool_gb = graph_pool_gb(server._generate_graphs.values())
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"[{label}] generate() of {N_REQUESTS} texts x {MAX_NEW} tokens, greedy (key {key}): "
+          f"tokens bit-equal through the graph and the eager switch; per-step wall "
+          f"(_decode_step_times: decode wall / {MAX_NEW - 1}, the sync included) eager "
+          f"{eager_step * 1e3:.3f} ms, graph {graph_step * 1e3:.3f} ms (first call, capture "
+          f"outside the wall, {first_step * 1e3:.3f}); call wall eager {eager_wall:.3f} s, "
+          f"graph {graph_wall:.3f} s (first {first_wall:.3f} s); capture of the key "
+          f"{g.capture_s * 1e3:.1f} ms of host (capture + instantiate); dense buffer "
+          f"{dense_gb:.3f} GB, generate pool {gb_text(pool_gb)}; peak device memory "
+          f"{peak_gb:.2f} GB [{card}]", flush=True)
+
+    # the step on the buffer's live state: replay against the eager program
+    d = server._dense
+    tok, pos, done, keys = d.state(N_REQUESTS)
+    start = (pos - (MAX_NEW - 1)).clone()
+    caches = d.caches(*key)
+    step = server._get_decode(*key)
+
+    def eager_step_fn():
+        pos.copy_(start)
+        return step(caches, tok, pos, done, keys, d.temperature)
+
+    def replay_fn():
+        pos.copy_(start)
+        return g.replay()
+
+    names = graph_kernel_names(g.graph)
+    in_graph = node_counts(names)
+    want_k = (n_layers, 0, k4, 0)
+    for what, seen in (("eager step launched", launches_of(eager_step_fn)),
+                       ("graph holds kernel nodes", in_graph),
+                       ("replay added to the counters", launches_of(replay_fn))):
+        if seen != want_k:
+            fail(f"[{label}] one generate step: {what} (K2, K4 prefill, K4 decode, K1) {seen}, "
+                 f"expected {want_k}")
+    host_e, dev_e, ops_e, k2_e = profile_step(eager_step_fn, K2_KERNEL)
+    host_g, dev_g, ops_g, _ = profile_step(replay_fn, K2_KERNEL)
+    ev_g = events_ms(replay_fn)
+    traced = (f"torch.profiler {dev_g:.3f} ms in {sum(e.count for e in ops_g)} kernels and "
+              f"copies" if ops_g else "torch.profiler saw no device event in the replay")
+    print(f"[{label}] generate step (key {key}) on live state: the graph holds (K2, K4 prefill, "
+          f"K4 decode, K1) {in_graph} kernel nodes of {len(names)} (by function name), as one "
+          f"eager step launches and one replay adds; eager step host enqueue {host_e:.3f} ms, "
+          f"device time {dev_e:.3f} ms in {sum(e.count for e in ops_e)} kernels and copies "
+          f"(torch.profiler; {k2_e['calls']} K2); graph replay host time {host_g:.4f} ms "
+          f"(median of {REPS}), device time {ev_g:.3f} ms (CUDA events, median of {REPS}), "
+          f"{traced} [{card}]", flush=True)
+    for e in ops_e[:10]:
+        print(f"  {dev_us(e) / 1e3:8.3f} ms  x{e.count:<5d} {e.key[:100]} [{card}]")
+
+    # 2. reuse of the buffer under another key, then the first key again
+    growths = server._dense_growths
+    one, one_wall, one_step = call(texts[:1], max_new=8)
+    one_eager = call(texts[:1], max_new=8, eager=True)[0]
+    one_fresh = fresh_generate(server, texts[:1], 8)
+    third = call(texts)[0]
+    third_fresh = fresh_generate(server, texts, MAX_NEW)
+    if not (one == one_eager == one_fresh) or not (third == eager == third_fresh):
+        fail(f"[{label}] generate() on the reused buffer differs from the eager switch or a "
+             f"fresh buffer")
+    if server._dense_growths != growths:
+        fail(f"[{label}] the dense buffer grew under a smaller key")
+    print(f"[{label}] generate() reuse: 1 text x 8 tokens (key (1, {plen + 8})), then the "
+          f"{N_REQUESTS} texts again: both bit-equal to the eager switch and to a fresh "
+          f"buffer; per-step wall of the 1-text call {one_step * 1e3:.3f} ms, call wall "
+          f"{one_wall:.3f} s; no growth ({growths} growths of the buffer on this server so "
+          f"far) [{card}]", flush=True)
+
+    # 3. sampled, seeded: the temperature is data of the graph
+    sampled, sampled_wall, sampled_step = call(texts, temperature=0.7, seed=11)
+    sampled_eager = call(texts, eager=True, temperature=0.7, seed=11)[0]
+    if sampled != sampled_eager or sampled == eager:
+        fail(f"[{label}] sampled generate(): graph == eager {sampled == sampled_eager}, "
+             f"== greedy {sampled == eager}")
+    print(f"[{label}] generate() sampled (temperature 0.7, seed 11): graph and eager switch "
+          f"bit-equal, unlike the greedy tokens; per-step wall {sampled_step * 1e3:.3f} ms "
+          f"[{card}]", flush=True)
+
+    # 5. REST under load: the batcher serves while generate() captures and
+    # replays on REST threads
+    bodies = [{"prompts": texts[:2]}, {"prompt": texts[2], "temperature": 0.7, "seed": 5}]
+    loaded = [None, None]
+    batched = [None]
+
+    def private(i):
+        loaded[i] = post(url + "/v1/generate", bodies[i])
+
+    threads = [threading.Thread(target=lambda: batched.__setitem__(0, post_all(url, texts)))]
+    threads += [threading.Thread(target=private, args=(i,)) for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    served_tokens(f"{label} under load", batched[0][0] if batched[0] else [None])
+    alone = [post(url + "/v1/generate", body) for body in bodies]
+    for i, (got, want) in enumerate(zip(loaded, alone)):
+        if got is None or got[0] != 200 or want[0] != 200 or got[1]["tokens"] != want[1]["tokens"]:
+            fail(f"[{label}] generate() request {bodies[i]} under load answered "
+                 f"{got and got[0]} with other tokens than alone ({want[0]})")
+    pool_gb = graph_pool_gb(server._generate_graphs.values())
+    print(f"[{label}] REST under load: {N_REQUESTS} batched requests (200) with one "
+          f"'prompts' request of 2 texts and one 'prompt' at temperature 0.7, seed 5, at "
+          f"once: both 200 with the tokens they get alone; generate graphs "
+          f"{sorted(server._generate_graphs)} in one pool ({gb_text(pool_gb)}) [{card}]",
+          flush=True)
+    # the graphs captured while the batcher's thread replayed: each counted
+    # its own kernels only, and a replay adds exactly its kernel nodes
+    for gkey, gg in sorted(server._generate_graphs.items()):
+        nodes = node_counts(graph_kernel_names(gg.graph))
+        with server._dense_lock:
+            server._dense.pos[:gkey[0]].zero_()   # the replay writes at position 0
+            added = launches_of(gg.replay)
+            torch.cuda.synchronize()
+        if not (nodes == added == want_k):
+            fail(f"[{label}] generate graph {gkey}: (K2, K4 prefill, K4 decode, K1) kernel "
+                 f"nodes {nodes}, a replay adds {added}, expected {want_k}")
+    print(f"[{label}] generate graphs {sorted(server._generate_graphs)}, two of them "
+          f"captured under load: each holds (K2, K4 prefill, K4 decode, K1) {want_k} kernel "
+          f"nodes, and a replay adds exactly those to the counters [{card}]", flush=True)
+    return {"eager_step_ms": eager_step * 1e3, "graph_step_ms": graph_step * 1e3,
+            "eager_wall_s": eager_wall, "graph_wall_s": graph_wall,
+            "capture_ms": g.capture_s * 1e3, "dense_gb": dense_gb, "pool_gb": pool_gb,
+            "peak_gb": peak_gb, "eager_host_ms": host_e, "eager_dev_ms": dev_e,
+            "host_ms": host_g, "dev_ms": ev_g, "graphs": len(server._generate_graphs),
+            "launches": counted}
 
 
 def serve(label: str, card: str, server, weight_bytes: int, fuse: int = 0,
@@ -1641,6 +1944,9 @@ def serve(label: str, card: str, server, weight_bytes: int, fuse: int = 0,
         mixed_ttft = sorted(server._ttft_times)
         mixed_steps = sorted(server._decode_step_times)
         mixed_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        # the private generate() path: in the graph runs of each model
+        gen = generate_phase(label, card, server, url, texts) if not eager and fuse <= 1 \
+            else None
     finally:
         httpd.shutdown()
         httpd.server_close()
@@ -1668,7 +1974,7 @@ def serve(label: str, card: str, server, weight_bytes: int, fuse: int = 0,
                "decode_pool_gb": decode_pool_gb,
                "mixed_ttft_ms": [t * 1e3 for t in mixed_ttft],
                "mixed_step_ms": statistics.median(mixed_steps) * 1e3,
-               "mixed_peak_gb": mixed_peak_gb}
+               "mixed_peak_gb": mixed_peak_gb, "generate": gen}
     print(f"[{label}] serving: {N_REQUESTS} concurrent requests x {MAX_NEW} tokens in "
           f"{wall:.3f} s; TTFT median {metrics['ttft_med_ms']:.1f} ms max "
           f"{metrics['ttft_max_ms']:.1f} ms; decode step median {step_ms:.2f} ms = "
@@ -1713,7 +2019,9 @@ def serve(label: str, card: str, server, weight_bytes: int, fuse: int = 0,
     del svc, b
     gc.collect()
     torch.cuda.empty_cache()
-    total = {key: launches[key] + mixed_launches[key] for key in launches}
+    gen_launches = gen["launches"] if gen else {}
+    total = {key: launches[key] + mixed_launches[key] + gen_launches.get(key, 0)
+             for key in launches}
     return total, metrics
 
 
@@ -2193,9 +2501,11 @@ def main() -> int:
                   f"{a[0]:.4f} ms, trivial kernel (h.zero_()) {a[1]:.4f} [{card}]",
                   flush=True)
     k4 = {}
-    for m in (8, 32, 128, 256):   # 8 serving slots; the served prefill chunks
+    # 8 serving slots; the served prefill chunks; generate()'s decode steps
+    # of 1 and 4 rows and dense prefills of 4 and 8 rows x 128
+    for m in K4_SHAPES:
         for name, k, n, dt in K4_FAMILIES:
-            label = name if m == 8 else f"{name} prefill M={m}"
+            label = k4_label(name, m)
             dt = getattr(torch, dt)
             r = k4_case(m, k, n, dt, seed=len(k4), flush=flush)
             k4[label] = r
@@ -2233,12 +2543,15 @@ def main() -> int:
     print(f"K4 over one int8 decode step's {K4_PER_FORWARD} products (from the shapes above): "
           f"kernel {step_sum('ms'):.3f} ms, bound {step_sum('bound_ms'):.3f} ms, "
           f"torch.matmul on bf16 weights {step_sum('library_ms'):.3f} ms [{card}]", flush=True)
-    print(f"K4 over one prefill forward's {K4_PER_FORWARD} products at M = 32 (from the "
-          f"shapes above): decode kernel {step_sum('ms', ' prefill M=32'):.3f} ms, bound "
-          f"{step_sum('bound_ms', ' prefill M=32'):.3f} ms, torch.matmul on bf16 weights "
-          f"{step_sum('library_ms', ' prefill M=32'):.3f} ms [{card}]", flush=True)
-    for m in (128, 256):
-        sfx = f" prefill M={m}"
+    for m, what in ((1, "generate() decode step"), (4, "generate() decode step"),
+                    (32, "prefill forward")):
+        sfx = k4_label("", m)
+        print(f"K4 over one {what}'s {K4_PER_FORWARD} products at M = {m} (from the "
+              f"shapes above): decode kernel {step_sum('ms', sfx):.3f} ms, bound "
+              f"{step_sum('bound_ms', sfx):.3f} ms, torch.matmul on bf16 weights "
+              f"{step_sum('library_ms', sfx):.3f} ms [{card}]", flush=True)
+    for m in (128, 256, 512, 1024):
+        sfx = k4_label("", m)
         print(f"K4 over one prefill forward's {K4_PER_FORWARD} products at M = {m} (from the "
               f"shapes above): prefill kernel {step_sum('ms', sfx):.3f} ms, decode kernel "
               f"{step_sum('decode_ms', sfx):.3f} ms, bound {step_sum('bound_ms', sfx):.3f} ms, "
@@ -2298,12 +2611,18 @@ def main() -> int:
         chunks = " ".join(f"chunk {c}: eager host {v['eager_host_ms']:.3f} / kernels "
                           f"{v['eager_dev_ms']:.3f} ms, replay host {v['host_ms']:.4f} / device "
                           f"{v['dev_ms']:.3f} ms;" for c, v in m.get("prefill", {}).items())
+        g = m.get("generate")
+        gen = (f"generate(): per-step wall eager {g['eager_step_ms']:.3f} / graph "
+               f"{g['graph_step_ms']:.3f} ms, replay host {g['host_ms']:.4f} / device "
+               f"{g['dev_ms']:.3f} ms vs eager step host {g['eager_host_ms']:.3f} / kernels "
+               f"{g['eager_dev_ms']:.3f} ms, dense buffer {g['dense_gb']:.3f} GB, pool "
+               f"{gb_text(g['pool_gb'])}, {g['graphs']} graphs;" if g else "")
         print(f"  {label:12s} step {m['step_ms']:.2f} ms = {N_REQUESTS / m['step_ms'] * 1e3:.1f} "
               f"tok/s; TTFT {m['ttft_med_ms']:.1f} / {m['ttft_max_ms']:.1f} ms; mixed TTFT "
               f"{' / '.join(f'{t:.1f}' for t in m['mixed_ttft_ms'])} ms, step "
               f"{m['mixed_step_ms']:.2f} ms; peak {m['peak_gb']:.2f} GB (mixed "
               f"{m['mixed_peak_gb']:.2f}); graph pools: prefill {gb_text(m['prefill_pool_gb'])}, "
-              f"decode {gb_text(m['decode_pool_gb'])}; {eager}{graphs} {chunks} [{card}]",
+              f"decode {gb_text(m['decode_pool_gb'])}; {eager}{graphs} {chunks} {gen} [{card}]",
               flush=True)
 
     def total(key, model):

@@ -600,25 +600,42 @@ def _cache_layers(cfg: TransformerConfig, lead: Tuple[int, int], kv_cache_dtype,
     """One cache tuple per layer with leading dims ``lead``: the (k, v, pos)
     triple in the model dtype, or with kv_cache_dtype="int8" the (k_q,
     k_scale, v_q, v_scale, pos) 5-tuple — int8 values plus float32 [*lead,
-    kvh] per-head per-position scales, initialised to 1 so empty slots
-    dequantize to exact zeros. Positions start at PAD_POS (never
-    attended)."""
+    kvh] per-head per-position scales; in the state ``reset_kv_caches``
+    sets."""
     dev = resolve_device(device)
     shape = (*lead, cfg.n_kv_heads, cfg.head_dim)
     int8 = normalize_kv_cache_dtype(kv_cache_dtype or cfg.kv_cache_dtype) == "int8"
 
     def layer():
-        pos = torch.full(lead, PAD_POS, dtype=torch.int32, device=dev)
+        pos = torch.empty(lead, dtype=torch.int32, device=dev)
         if int8:
             scale_shape = (*lead, cfg.n_kv_heads)
-            return (torch.zeros(shape, dtype=torch.int8, device=dev),
-                    torch.ones(scale_shape, dtype=torch.float32, device=dev),
-                    torch.zeros(shape, dtype=torch.int8, device=dev),
-                    torch.ones(scale_shape, dtype=torch.float32, device=dev), pos)
-        return (torch.zeros(shape, dtype=cfg.dtype, device=dev),
-                torch.zeros(shape, dtype=cfg.dtype, device=dev), pos)
+            return (torch.empty(shape, dtype=torch.int8, device=dev),
+                    torch.empty(scale_shape, dtype=torch.float32, device=dev),
+                    torch.empty(shape, dtype=torch.int8, device=dev),
+                    torch.empty(scale_shape, dtype=torch.float32, device=dev), pos)
+        return (torch.empty(shape, dtype=cfg.dtype, device=dev),
+                torch.empty(shape, dtype=cfg.dtype, device=dev), pos)
 
-    return [layer() for _ in range(cfg.n_layers)]
+    caches = [layer() for _ in range(cfg.n_layers)]
+    reset_kv_caches(caches)
+    return caches
+
+
+def reset_kv_caches(caches) -> None:
+    """Set caches, in place, to their empty state: K and V zero (int8
+    values too), int8 scales 1 so that empty slots dequantize to exact
+    zeros, positions PAD_POS (never attended)."""
+    for layer in caches:
+        if len(layer) == 5:
+            k, k_scale, v, v_scale, pos = layer
+            k_scale.fill_(1.0)
+            v_scale.fill_(1.0)
+        else:
+            k, v, pos = layer
+        k.zero_()
+        v.zero_()
+        pos.fill_(PAD_POS)
 
 
 def init_kv_caches(cfg: TransformerConfig, batch: int, max_len: int,
@@ -721,6 +738,6 @@ __all__ = [
     "DenseFFN", "RMSNorm", "rms_norm", "rotary_embedding", "apply_rotary",
     "paged_write_targets", "gather_paged_view", "dense_view", "masked_attention",
     "matmul", "quantize_kv", "dequantize_kv",
-    "init_kv_caches", "init_paged_kv_caches", "kv_cache_bytes_per_token",
+    "init_kv_caches", "init_paged_kv_caches", "reset_kv_caches", "kv_cache_bytes_per_token",
     "normalize_kv_cache_dtype", "normalize_kv_cache_layout", "to_torch_dtype",
 ]

@@ -40,13 +40,12 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import threading
 from typing import List, Sequence
 
 import torch
 import torch.nn.functional as F
 
-_count_lock = threading.Lock()
+from seldon_core_tpu_torch.ops import launches
 
 
 def _block_param_list(blocks: Sequence[dict]) -> List[torch.Tensor]:
@@ -314,8 +313,7 @@ def _gemm_chain(x: torch.Tensor, params: Sequence[torch.Tensor], plans) -> torch
         n = _conv_gemm(1, cur, w1, b1, None, a1, h, w, plan[0], partial)
         n += _conv_gemm(2, a1, w2, b2, None, a2, h, w, plan[1], partial)
         n += _conv_gemm(3, a2, w3, b3, cur, out.view(m, c), h, w, plan[2], partial)
-        with _count_lock:
-            fused_identity_chain.launches += n
+        launches.count(fused_identity_chain, n=n)
         cur = out.view(m, c)
     return out
 

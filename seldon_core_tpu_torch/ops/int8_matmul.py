@@ -38,6 +38,8 @@ import functools
 
 import torch
 
+from seldon_core_tpu_torch.ops import launches
+
 # The decode kernel (csrc/int8_matmul.cu): strip widths, weight bytes per
 # stage (a stage is 16384 / width rows of K), the most splits of K (the
 # cluster size), and the columns of a warp's slab.
@@ -297,10 +299,10 @@ def int8_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
         return out
     if _uses_wgmma(m, n, k, x.data_ptr(), q.data_ptr()):
         _wgmma_kernel(x, q, scale, out)
-        int8_matmul.launches_wgmma += 1
+        launches.count(int8_matmul, "launches_wgmma")
     else:
         _decode_kernel(x, q, scale, out)
-    int8_matmul.launches += 1
+    launches.count(int8_matmul)
     return out
 
 

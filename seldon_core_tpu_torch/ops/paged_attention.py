@@ -42,6 +42,8 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from seldon_core_tpu_torch.ops import launches
+
 _HEAD_DIMS = (32, 64, 128)
 # keys per chunk, the unit of the split: the largest power of two up to
 # this that divides the page size
@@ -240,10 +242,7 @@ def paged_attention(q, cache, block_tables, positions, *, _splits: Optional[int]
            n_pages, float(hd ** -0.5), splits, chunk, tile,
            None if ws is None else ws.data_ptr(),
            None if counters is None else counters.data_ptr())
-    if quantized:
-        paged_attention.launches_int8 += 1
-    else:
-        paged_attention.launches += 1
+    launches.count(paged_attention, "launches_int8" if quantized else "launches")
     return out.view(b, 1, h, hd)
 
 

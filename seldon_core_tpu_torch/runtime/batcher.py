@@ -335,7 +335,12 @@ class ContinuousBatcher:
         self._next_pos = torch.zeros((self.S,), dtype=torch.int32, device=dev)
         self._keys = torch.zeros((self.S,), dtype=torch.int64, device=dev)
         self._rng = seed_key(server.seed)
-        self._temp = float(server.temperature)
+        # fixed for the batcher's life: greedy (None) picks the argmax alone;
+        # a positive temperature is a 0-dim tensor on the device, as
+        # generate() passes it: the same division, so the same seed draws
+        # the same tokens on both paths (``sample_tokens``)
+        self._temp = (torch.full((), float(server.temperature), dtype=torch.float32, device=dev)
+                      if float(server.temperature) > 0 else None)
         # the prefill chunk's fixed inputs: the admitted job's block-table
         # row, and its chunk's tokens and positions (a chunk of C uses the
         # first C columns)

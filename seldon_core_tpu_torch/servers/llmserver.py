@@ -4,17 +4,20 @@ Port of ``seldon_core_tpu/servers/llmserver.py``: the same constructor
 arguments and defaults (plus ``device``), the byte tokenizer, ``load`` for a
 randomly initialised model or converted JAX weights, the private dense
 ``generate()`` path, and the paged chunked-prefill / decode-step programs the
-continuous batcher (``runtime/batcher.py``) drives. The dense prefill and
-``generate()`` decode run eagerly, as plain methods (``_prefill`` ...) in
-place of the JAX package's compiled-program caches (``_get_prefill`` ...).
-The batcher's two programs are kept as the JAX package keys them:
+continuous batcher (``runtime/batcher.py``) drives. The programs are kept
+as the JAX package keys them: ``generate()``'s ``_get_prefill(b, plen,
+max_len)`` (the dense prefill) and ``_get_decode(b, max_len)`` (one dense
+decode step, which the JAX package scans), the batcher's
 ``_get_prefill_chunk(chunk, n_pages)`` (one chunk of one prompt into the
 paged pool) and ``_get_decode_step_paged(slots, n_pages, k)`` (k decode
-steps, ``decode_fuse_steps``). On the CPU the batcher calls them eagerly;
-on the card it captures each once as a CUDA graph over its own buffers (a
-prefill graph per chunk length it can produce, decode graphs of K = 1 and
-K) and replays them (``servers/step_graph.py``): one replay per prefill
-chunk, one per dispatch of k steps.
+steps, ``decode_fuse_steps``). On the CPU every program runs eagerly. On
+the card (``servers/step_graph.py``) the batcher captures each of its two
+once as a CUDA graph over its own buffers (a prefill graph per chunk length
+it can produce, decode graphs of K = 1 and K) and replays them, one replay
+per prefill chunk, one per dispatch of k steps; ``generate()`` runs its
+prefill eagerly into the server's one dense buffer and replays the decode
+step's graph of (batch bucket, max_len), captured at first use, once per
+token.
 
 Sampling chain (a decision of the port). The JAX package chains
 ``jax.random`` keys: one split per generated token, the first token drawn at
@@ -39,6 +42,7 @@ from __future__ import annotations
 
 import logging
 import threading
+import time
 from collections import deque
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -115,22 +119,41 @@ def split_keys(keys):
     return _mix32(keys ^ 0x5BD1E995), _mix32(keys ^ 0x1B873593)
 
 
-def sample_tokens(keys: torch.Tensor, logits: torch.Tensor, temperature: float,
+def sample_tokens(keys: torch.Tensor, logits: torch.Tensor, temperature,
                   top_k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Port of ``_slot_sampler``: per row, split the key, then greedy
     (temperature <= 0) or a temperature/top-k categorical draw. keys: [b]
-    int64; logits: [b, vocab] float32. Returns (next keys, tokens [b])."""
-    keys, sub = split_keys(keys)
-    if temperature <= 0.0:
+    int64; logits: [b, vocab] float32. ``temperature`` is a 0-dim float32
+    tensor on the logits' device: both tokens are computed and the choice
+    is made on the device, as the JAX package's ``jnp.where`` makes it, so
+    a CUDA graph holds the temperature as data (``generate()``, whose
+    temperature is per call). ``None`` is greedy, chosen on the host by a
+    caller whose temperature is fixed at or below 0 (the batcher), which
+    skips the draw. A float is made into the tensor (for tests). The draw
+    divides by the tensor: on the card a tensor divided by a Python scalar
+    is a multiply by its reciprocal, which differs in the last bit, so
+    every caller passes the same form and the same seed gives the same
+    tokens on every path. Returns (next keys, tokens [b])."""
+    if temperature is None:
+        keys, _ = split_keys(keys)
         return keys, torch.argmax(logits, dim=-1)
+    if not torch.is_tensor(temperature):
+        temperature = torch.full((), float(temperature), dtype=torch.float32,
+                                 device=logits.device)
+    elif temperature.device != logits.device or temperature.dim() != 0:
+        raise ValueError(f"temperature must be a 0-dim tensor on {logits.device}, got "
+                         f"{tuple(temperature.shape)} on {temperature.device}")
+    keys, sub = split_keys(keys)
+    greedy = torch.argmax(logits, dim=-1)
     k = min(int(top_k), logits.shape[-1])
     topv, topi = torch.topk(logits, k, dim=-1)
     j = torch.arange(k, device=logits.device, dtype=torch.int64)
     bits = _mix32((sub[:, None] + j * _GOLDEN) & _M32)
     u = ((bits >> 8).to(torch.float32) + 0.5) * (1.0 / (1 << 24))  # in (0, 1)
     gumbel = -torch.log(-torch.log(u))
-    draw = torch.argmax(topv / max(float(temperature), 1e-6) + gumbel, dim=-1)
-    return keys, topi.gather(-1, draw[:, None])[:, 0]
+    draw = torch.argmax(topv / torch.clamp(temperature, min=1e-6) + gumbel, dim=-1)
+    sampled = topi.gather(-1, draw[:, None])[:, 0]
+    return keys, torch.where(temperature <= 0.0, greedy, sampled)
 
 
 def _row_keys(base_seed: int, n: int) -> List[int]:
@@ -138,6 +161,45 @@ def _row_keys(base_seed: int, n: int) -> List[int]:
     (the batcher's chain for the same seed), later rows fold their index in."""
     k0 = seed_key(base_seed)
     return [k0] + [_mix32(k0 ^ _mix32(i)) for i in range(1, n)]
+
+
+class _DenseBuffer:
+    """``generate()``'s dense KV caches and decode state: one per server,
+    reused by every call. Each cache tensor of each layer is one flat
+    tensor of ``capacity`` (rows x positions) entries of its own inner
+    shape (the layout of ``init_kv_caches``: the bf16 triple or the int8
+    5-tuple); the caches of a call of ``b`` rows and ``max_len`` positions
+    are the contiguous prefix of each, ``flat[:b * max_len * inner]`` viewed
+    as [b, max_len, ...], so every key starts at the same address and the
+    attention reads a contiguous tensor. Beside them, the decode state
+    ``tok``, ``pos``, ``done``, ``keys`` [bmax] (a call uses ``[:b]``), and
+    the 0-dim float32 ``temperature``."""
+
+    def __init__(self, cfg, kv_cache_dtype: str, capacity: int, bmax: int, device):
+        from seldon_core_tpu_torch.models.transformer import init_kv_caches
+
+        self.capacity = int(capacity)
+        caches = init_kv_caches(cfg, 1, self.capacity, kv_cache_dtype, device=device)
+        self.inner = [tuple(t.shape[2:] for t in layer) for layer in caches]
+        self.layers = [tuple(t.view(-1) for t in layer) for layer in caches]
+        self.tok = torch.zeros((bmax,), dtype=torch.int64, device=device)
+        self.pos = torch.zeros((bmax,), dtype=torch.int64, device=device)
+        self.done = torch.zeros((bmax,), dtype=torch.bool, device=device)
+        self.keys = torch.zeros((bmax,), dtype=torch.int64, device=device)
+        self.temperature = torch.zeros((), dtype=torch.float32, device=device)
+
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size() for layer in self.layers for t in layer)
+
+    def caches(self, b: int, max_len: int):
+        """The [b, max_len, ...] caches: contiguous prefix views."""
+        n = b * max_len
+        return [tuple(t[:n * shape.numel()].view(b, max_len, *shape)
+                      for t, shape in zip(layer, inner))
+                for layer, inner in zip(self.layers, self.inner)]
+
+    def state(self, b: int):
+        return self.tok[:b], self.pos[:b], self.done[:b], self.keys[:b]
 
 
 class LLMServer(SeldonComponent):
@@ -288,12 +350,26 @@ class LLMServer(SeldonComponent):
         # through the eager program (the CPU, or the private _eager switch)
         self._prefill_replays = 0
         self._prefill_eager = 0
-        # the decode-step programs by ("pagedstep", slots, n_pages, k), the
-        # prefill-chunk programs by ("pchunk", chunk, n_pages), and the one
-        # stream every batcher of this server captures its graphs on
+        # the decode programs by ("decode", b, max_len) and ("pagedstep",
+        # slots, n_pages, k), the prefill programs by ("prefill", b, plen,
+        # max_len) and ("pchunk", chunk, n_pages), and the one stream every
+        # batcher of this server captures its graphs on
         self._decode_cache: Dict[tuple, Any] = {}
         self._prefill_cache: Dict[tuple, Any] = {}
         self._capture_stream: Optional[Any] = None
+        # generate(): the dense buffer (grown on demand; growths counted),
+        # its decode graphs by (b, max_len) in one pool, captured on their
+        # own stream, and the lock a call holds from its prefill to its
+        # tokens' copy to the host; decode steps replayed (the card) and run
+        # through the eager program (the CPU, or the private _eager switch)
+        self._dense: Optional[_DenseBuffer] = None
+        self._dense_growths = 0
+        self._dense_lock = threading.Lock()
+        self._generate_graphs: Dict[Tuple[int, int], Any] = {}
+        self._generate_pool: Optional[Any] = None
+        self._gen_stream: Optional[Any] = None
+        self._generate_replays = 0
+        self._generate_eager = 0
 
     # ------------------------------------------------------------------
     def load(self, params: Optional[Dict[str, Any]] = None) -> None:
@@ -356,39 +432,88 @@ class LLMServer(SeldonComponent):
                     self._cfg.vocab_size, self.device)
 
     # ------------------------------------------------------------------
-    # Forward programs (the JAX package's compiled stages): the dense
-    # prefill and decode run eagerly; the paged prefill chunk and the paged
-    # decode step of k fused steps run eagerly on the CPU and as CUDA graph
-    # replays on the card
+    # Forward programs (the JAX package's compiled stages, under its keys):
+    # generate()'s dense prefill runs eagerly everywhere; its decode step,
+    # the paged prefill chunk and the paged decode step of k fused steps run
+    # eagerly on the CPU and as CUDA graph replays on the card
     # ------------------------------------------------------------------
-    def _prefill(self, tokens: torch.Tensor, positions: torch.Tensor, max_len: int):
-        """Port of ``_get_prefill``: fresh dense caches of ``max_len``
-        filled from offset 0. Returns (logits [b, plen, vocab], caches)."""
+    def _prefill_fresh(self, tokens: torch.Tensor, positions: torch.Tensor, max_len: int):
+        """The dense prefill into fresh ``init_kv_caches`` of ``max_len``,
+        filled from offset 0: the oracle of the served paths (independent
+        of the dense buffer ``generate()`` reuses). Returns (logits [b,
+        plen, vocab], caches)."""
         from seldon_core_tpu_torch.models.transformer import init_kv_caches
 
         caches = init_kv_caches(self._cfg, tokens.shape[0], max_len, self.kv_cache_dtype,
                                 device=self.device)
         return self._module(tokens, positions=positions, caches=caches, cache_index=0)
 
-    def _decode(self, caches, last_tok: torch.Tensor, true_len: torch.Tensor,
-                n_steps: int, keys: torch.Tensor, temperature: float) -> torch.Tensor:
-        """Port of ``_get_decode``: ``n_steps`` decode steps over the dense
-        caches (written in place), EOS-masked per sequence. Returns tokens
-        [b, n_steps] on the device."""
-        eos_id = self.eos_id
-        tok = last_tok
-        done = torch.zeros_like(last_tok, dtype=torch.bool)
-        out = []
-        for offset in range(n_steps):
-            pos = true_len + offset
-            logits, caches = self._module(tok[:, None], positions=pos[:, None],
-                                          caches=caches, cache_index=pos)
-            keys, nxt = sample_tokens(keys, logits[:, -1], temperature, self.top_k)
-            nxt = torch.where(done, torch.full_like(nxt, eos_id), nxt)
-            done = done | (nxt == eos_id)
-            out.append(nxt)
-            tok = nxt
-        return torch.stack(out, dim=1)
+    def _get_prefill(self, b: int, plen: int, max_len: int):
+        """Port of ``_get_prefill``: the dense prefill program, cached under
+        ``("prefill", b, plen, max_len)``. Its call ``prefill(caches, tokens,
+        positions)`` (caches [b, max_len, ...], ``tokens`` [b, plen] int64,
+        ``positions`` [b, plen], PAD_POS past each prompt) first resets the
+        caches in place to what ``init_kv_caches`` makes, then writes them
+        from offset 0, and returns the logits [b, plen, vocab]."""
+        from seldon_core_tpu_torch.models.transformer import reset_kv_caches
+
+        b, plen, max_len = int(b), int(plen), int(max_len)
+        key = ("prefill", b, plen, max_len)
+        with self._lock:
+            fn = self._prefill_cache.get(key)
+        if fn is not None:
+            return fn
+        module = self._module
+
+        def prefill(caches, tokens, positions):
+            if (tuple(caches[0][-1].shape) != (b, max_len) or tuple(tokens.shape) != (b, plen)
+                    or tuple(positions.shape) != (b, plen)):
+                raise ValueError(f"dense prefill {key}: caches {tuple(caches[0][-1].shape)}, "
+                                 f"tokens {tuple(tokens.shape)}, positions "
+                                 f"{tuple(positions.shape)}")
+            reset_kv_caches(caches)
+            logits, _ = module(tokens, positions=positions, caches=caches, cache_index=0)
+            return logits
+
+        with self._lock:
+            return self._prefill_cache.setdefault(key, prefill)
+
+    def _get_decode(self, b: int, max_len: int):
+        """Port of ``_get_decode``: one step of the dense decode, cached
+        under ``("decode", b, max_len)`` (the JAX package scans it
+        ``n_steps`` times in one program; ``generate()`` calls or replays
+        it once per token). Its call ``step(caches, tok, pos, done, keys,
+        temperature)`` feeds ``tok`` [b] at ``pos`` [b] (also the write
+        offset: the tensor-index branch, no host read), samples with
+        ``sample_tokens`` (one key split), masks the rows already ``done``
+        to EOS, leaves ``tok``, ``pos``, ``done`` and ``keys`` updated in
+        place and returns the tokens [b]. Nothing is read back to the
+        host, so the same call is what a CUDA graph captures
+        (``servers/step_graph.capture_generate_step``)."""
+        b, max_len = int(b), int(max_len)
+        key = ("decode", b, max_len)
+        with self._lock:
+            fn = self._decode_cache.get(key)
+        if fn is not None:
+            return fn
+        module, top_k, eos_id = self._module, self.top_k, self.eos_id
+
+        def step(caches, tok, pos, done, keys, temperature):
+            if tuple(caches[0][-1].shape) != (b, max_len) or tok.shape != (b,):
+                raise ValueError(f"dense decode step {key}: caches "
+                                 f"{tuple(caches[0][-1].shape)}, tok {tuple(tok.shape)}")
+            logits, _ = module(tok[:, None], positions=pos[:, None], caches=caches,
+                               cache_index=pos)
+            new_keys, nxt = sample_tokens(keys, logits[:, -1], temperature, top_k)
+            nxt = nxt.masked_fill(done, eos_id)
+            done.logical_or_(nxt == eos_id)
+            keys.copy_(new_keys)
+            tok.copy_(nxt)
+            pos.add_(1)
+            return nxt
+
+        with self._lock:
+            return self._decode_cache.setdefault(key, step)
 
     def _get_prefill_chunk(self, chunk: int, n_pages: int):
         """Port of ``_get_prefill_chunk``: the program that writes one chunk
@@ -467,6 +592,49 @@ class LLMServer(SeldonComponent):
                 self._capture_stream = torch.cuda.Stream(device=self.device)
             return self._capture_stream
 
+    def _generate_stream(self) -> torch.cuda.Stream:
+        """The capture stream of ``generate()``'s decode graphs (made at
+        first use), apart from the batchers' (``_graph_stream``): cuBLAS
+        binds one workspace per (handle, stream), and the batcher's thread
+        replays while REST threads run ``generate()``."""
+        with self._lock:
+            if self._gen_stream is None:
+                self._gen_stream = torch.cuda.Stream(device=self.device)
+            return self._gen_stream
+
+    def _dense_for(self, b: int, max_len: int) -> _DenseBuffer:
+        """The dense buffer, grown to hold ``b`` x ``max_len`` if it is
+        smaller. A growth drops every captured generate graph (they hold
+        the old addresses) and is counted. Called under ``_dense_lock``."""
+        need = int(b) * int(max_len)
+        if self._dense is None or self._dense.capacity < need:
+            if self._dense is not None:
+                self._dense_growths += 1
+            self._generate_graphs.clear()
+            self._generate_pool = None
+            self._dense = None   # the old buffer goes before the new one is made
+            self._dense = _DenseBuffer(self._cfg, self.kv_cache_dtype, need,
+                                       self.batch_buckets[-1], self.device)
+        return self._dense
+
+    def _generate_graph(self, b: int, max_len: int, dense: _DenseBuffer):
+        """The decode step of ``(b, max_len)`` as a CUDA graph over the
+        dense buffer's views, captured at first use on the generate stream,
+        in the one memory pool every generate graph shares (they replay one
+        at a time, under ``_dense_lock``, which the caller holds)."""
+        from seldon_core_tpu_torch.servers.step_graph import capture_generate_step
+
+        key = (int(b), int(max_len))
+        graph = self._generate_graphs.get(key)
+        if graph is None:
+            if self._generate_pool is None:
+                self._generate_pool = torch.cuda.graph_pool_handle()
+            graph = capture_generate_step(self, b, max_len, dense.caches(b, max_len),
+                                          *dense.state(b), dense.temperature,
+                                          self._generate_pool)
+            self._generate_graphs[key] = graph
+        return graph
+
     # ------------------------------------------------------------------
     @torch.no_grad()
     def generate(
@@ -475,9 +643,16 @@ class LLMServer(SeldonComponent):
         max_new_tokens: Optional[int] = None,
         temperature: Optional[float] = None,
         seed: Optional[int] = None,
+        _eager: bool = False,
     ) -> Dict[str, Any]:
         """prompts: list of strings or of int token lists/arrays. The
-        private, non-batched path (and the batcher's parity oracle)."""
+        private, non-batched path (and the batcher's parity oracle): the
+        dense prefill program over the server's dense buffer, the first
+        token sampled on the device, then ``max_new - 1`` decode steps: on
+        the card one replay each of the step's CUDA graph for (batch
+        bucket, max_len), captured at first use; the eager program on the
+        CPU, or on the card only under the private ``_eager`` switch. The
+        tokens reach the host in one copy at the end."""
         from seldon_core_tpu_torch.models.transformer import PAD_POS
 
         if not self.ready:
@@ -505,7 +680,7 @@ class LLMServer(SeldonComponent):
             out_tokens, out_texts = [], []
             for i in range(0, n, max_batch):
                 part = self.generate(prompts[i: i + max_batch], max_new_tokens=max_new,
-                                     temperature=temp, seed=seed)
+                                     temperature=temp, seed=seed, _eager=_eager)
                 out_tokens.extend(part["tokens"])
                 out_texts.extend(part["texts"])
             return {"tokens": out_tokens, "texts": out_texts}
@@ -525,26 +700,52 @@ class LLMServer(SeldonComponent):
             tokens[i, :L] = toks
             positions[i, :L] = np.arange(L)
             true_len[i] = L
-
-        dev = self.device
-        logits, caches = self._prefill(torch.from_numpy(tokens).to(dev),
-                                       torch.from_numpy(positions).to(dev), max_len)
-        true_len_t = torch.from_numpy(true_len).to(dev)
-        # next-token logits live at each sequence's last real slot
-        first_logits = logits[torch.arange(nb, device=dev), true_len_t - 1]
         # explicit seed => reproducible; otherwise vary per request
         with self._lock:
             request_index = self._request_count
             self._request_count += 1
         base = int(seed) if seed is not None else self.seed + request_index
-        keys = torch.tensor(_row_keys(base, nb), dtype=torch.int64, device=dev)
-        keys, first_tok = sample_tokens(keys, first_logits, temp, self.top_k)
 
-        out_tokens = [first_tok[:, None]]
-        if max_new > 1:
-            out_tokens.append(self._decode(caches, first_tok, true_len_t, max_new - 1,
-                                           keys, temp))
-        all_toks = torch.cat(out_tokens, dim=1).cpu().numpy()[:n]
+        dev = self.device
+        graphs = dev.type == "cuda" and not _eager
+        with self._dense_lock:
+            dense = self._dense_for(nb, max_len)
+            caches = dense.caches(nb, max_len)
+            tok, pos, done, keys = dense.state(nb)
+            logits = self._get_prefill(nb, plen, max_len)(
+                caches, torch.from_numpy(tokens).to(dev), torch.from_numpy(positions).to(dev))
+            true_len_t = torch.from_numpy(true_len).to(dev)
+            # next-token logits live at each sequence's last real slot
+            first_logits = logits[torch.arange(nb, device=dev), true_len_t - 1]
+            del logits
+            keys.copy_(torch.tensor(_row_keys(base, nb), dtype=torch.int64))
+            dense.temperature.fill_(temp)
+            new_keys, first = sample_tokens(keys, first_logits, dense.temperature, self.top_k)
+            keys.copy_(new_keys)
+            out = torch.empty((nb, max_new), dtype=torch.int64, device=dev)
+            out[:, 0] = first
+            if max_new > 1:
+                tok.copy_(first)
+                pos.copy_(true_len_t)
+                done.zero_()
+                step = self._get_decode(nb, max_len)
+                graph = self._generate_graph(nb, max_len, dense) if graphs else None
+                if dev.type == "cuda":
+                    torch.cuda.current_stream(dev).synchronize()
+                t0 = time.perf_counter()
+                for j in range(1, max_new):
+                    out[:, j] = (graph.replay() if graph is not None else
+                                 step(caches, tok, pos, done, keys, dense.temperature))
+                all_toks = out.cpu().numpy()[:n]
+                # as the JAX package records it: the decode wall, the sync
+                # to the host included, per step
+                self._decode_step_times.append((time.perf_counter() - t0) / (max_new - 1))
+                if graph is not None:
+                    self._generate_replays += max_new - 1
+                else:
+                    self._generate_eager += max_new - 1
+            else:
+                all_toks = out.cpu().numpy()[:n]
 
         results_tokens: List[List[int]] = []
         results_text: List[Optional[str]] = []

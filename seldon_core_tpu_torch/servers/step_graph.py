@@ -1,15 +1,19 @@
-"""The batcher's two programs as CUDA graphs: each captured once per
-batcher over the batcher's own buffers, then replayed, one replay per
-prefill chunk and one per decode dispatch.
+"""The server's programs as CUDA graphs, captured once over fixed buffers
+and then replayed: the batcher's two (one replay per prefill chunk and one
+per decode dispatch) and ``generate()``'s dense decode step (one replay per
+token).
 
 These are the port's counterparts of the JAX package's compiled programs
 (``seldon_core_tpu/servers/llmserver.py``): ``_get_prefill_chunk(chunk,
-n_pages)``, one ``jax.jit`` per chunk length, and ``_get_decode_step_paged``,
-a ``lax.scan`` of k steps under ``jax.jit``, one dispatch per k steps. Eager
-PyTorch enqueues a forward's ~2,000 kernels one by one from the host; a
-replay enqueues the captured program as one graph launch. The kernels
-inside are the port's own (K1 paged attention in the decode step, K2 fused
-residual + RMSNorm, K4's two int8 GEMM routes), unchanged.
+n_pages)``, one ``jax.jit`` per chunk length, ``_get_decode_step_paged``,
+a ``lax.scan`` of k steps under ``jax.jit``, one dispatch per k steps, and
+``_get_decode(b, max_len)``, a ``lax.scan`` of ``n_steps`` under
+``jax.jit``, of which the port captures one step per (batch bucket,
+max_len) and replays it ``n_steps`` times. Eager PyTorch enqueues a
+forward's ~2,000 kernels one by one from the host; a replay enqueues the
+captured program as one graph launch. The kernels inside are the port's
+own (K1 paged attention in the paged decode step, K2 fused residual +
+RMSNorm, K4's two int8 GEMM routes), unchanged.
 
 What the capture relies on:
 
@@ -17,7 +21,11 @@ What the capture relies on:
   block tables and per-slot state (``last_tok``, ``next_pos``, ``keys``),
   a prefill chunk the pools and the batcher's fixed row, token and position
   buffers; the batcher updates all of them in place and never rebinds
-  them; the temperature is a constant of the capture (fixed per batcher);
+  them; the temperature (a 0-dim device tensor, or None for greedy) is
+  fixed per batcher; a generate step reads and writes the server's dense
+  buffer (the contiguous prefix of each flat cache tensor, and the state
+  ``tok``, ``pos``, ``done``, ``keys``, ``temperature``), which a growth
+  replaces after dropping every generate graph;
 - a warm-up run of each program on the capture stream, before any capture,
   does every first-use set-up outside the graph: nvcc builds and library
   loads, the stream's cuBLAS workspace, K1's arrival counters of the stream.
@@ -32,12 +40,18 @@ What the capture relies on:
 - the capture is thread-local (``capture_error_mode="thread_local"``):
   other threads (REST requests on the private ``generate()`` path) may
   launch work meanwhile;
-- the wrappers count launches in Python, which a replay does not run, so a
-  replay adds the counts its capture saw;
+- the wrappers count launches in Python, which a replay does not run: a
+  capture records the kernels and launches none, so its thread counts
+  them into the capture's own tally (``ops/launches.tally``), and each
+  replay adds the tally. Launches of other threads meanwhile (a batcher
+  replaying while a REST thread captures) stay out of it;
 - cuBLAS binds one workspace per (thread's handle, stream), so graphs a
   thread captures on the server's stream share one workspace: replay them
   one at a time, as one batcher does on its one stream (a server serves
-  one batcher, ``runtime/batcher.get_batcher_service``).
+  one batcher, ``runtime/batcher.get_batcher_service``). ``generate()``'s
+  graphs are captured on a stream of their own, in one pool of their own,
+  and replayed one at a time under the server's ``_dense_lock``, while the
+  batcher's thread replays its own.
 
 There is no fallback: a capture that fails raises.
 """
@@ -45,9 +59,12 @@ There is no fallback: a capture that fails raises.
 from __future__ import annotations
 
 import contextlib
-from typing import Any, Callable, Dict, Iterator, List, Sequence, Tuple
+import time
+from typing import Any, Callable, Dict, Iterator, Optional, Sequence, Tuple
 
 import torch
+
+from seldon_core_tpu_torch.ops import launches
 
 
 def launch_counts() -> Dict[Tuple[Any, str], int]:
@@ -69,26 +86,25 @@ class ReplayGraph:
     order before then."""
 
     def __init__(self, graph: torch.cuda.CUDAGraph, out: torch.Tensor,
-                 counts: List[Tuple[Tuple[Any, str], int]]):
+                 counts: Dict[Tuple[Any, str], int], capture_s: float = 0.0):
         self.graph = graph
         self.out = out
         self.counts = counts
+        self.capture_s = capture_s   # host time of the capture and instantiation
 
     def replay(self) -> torch.Tensor:
         self.graph.replay()
-        for (fn, name), n in self.counts:
-            setattr(fn, name, getattr(fn, name) + n)
+        launches.add(self.counts)
         return self.out
 
 
 @contextlib.contextmanager
-def _on_capture_stream(server, device: torch.device) -> Iterator[None]:
-    """Run the body on the server's capture stream, ordered after the
-    current stream's work, and order the current stream after the body's.
-    One stream for every capture keeps cuBLAS on one workspace, and K1's
-    arrival counters of that stream are set up by the warm-up, outside the
-    graphs (module docstring)."""
-    stream = server._graph_stream()
+def _on_capture_stream(stream: torch.cuda.Stream, device: torch.device) -> Iterator[None]:
+    """Run the body on ``stream`` (a server's capture stream), ordered
+    after the current stream's work, and order the current stream after
+    the body's. One stream for every batcher capture keeps cuBLAS on one
+    workspace, and K1's arrival counters of that stream are set up by the
+    warm-up, outside the graphs (module docstring)."""
     current = torch.cuda.current_stream(device)
     stream.wait_stream(current)
     with torch.cuda.stream(stream):
@@ -100,28 +116,29 @@ def _capture(program: Callable[[], torch.Tensor], pool=None) -> ReplayGraph:
     """Capture one call of ``program`` on the current stream (the capture
     stream, after a warm-up), thread-locally, in ``pool`` (a fresh pool by
     default). The captured graph is kept beside its executable
-    (``raw_cuda_graph()``), so that its kernel nodes can be read back. A
-    capture that fails raises."""
-    before = launch_counts()
+    (``raw_cuda_graph()``), so that its kernel nodes can be read back. Its
+    launch counts are this thread's tally over the capture. A capture that
+    fails raises."""
+    t0 = time.perf_counter()
     graph = torch.cuda.CUDAGraph(keep_graph=True)
-    graph.capture_begin(pool=pool, capture_error_mode="thread_local")
-    try:
-        out = program()
-    except BaseException:
-        with contextlib.suppress(RuntimeError):
-            graph.capture_end()
-        raise
-    graph.capture_end()
+    with launches.tally() as counts:
+        graph.capture_begin(pool=pool, capture_error_mode="thread_local")
+        try:
+            out = program()
+        except BaseException:
+            with contextlib.suppress(RuntimeError):
+                graph.capture_end()
+            raise
+        graph.capture_end()
     graph.instantiate()
-    counts = [(key, n - before[key]) for key, n in launch_counts().items()
-              if n != before[key]]
-    return ReplayGraph(graph, out, counts)
+    return ReplayGraph(graph, out, counts, time.perf_counter() - t0)
 
 
 @torch.no_grad()
 def capture_decode_steps(server, ks: Sequence[int], pools, last_tok: torch.Tensor,
-                         next_pos: torch.Tensor, keys: torch.Tensor, temperature: float,
-                         block_tables: torch.Tensor) -> Dict[int, ReplayGraph]:
+                         next_pos: torch.Tensor, keys: torch.Tensor,
+                         temperature: Optional[torch.Tensor], block_tables: torch.Tensor
+                         ) -> Dict[int, ReplayGraph]:
     """Capture ``server._get_decode_step_paged(slots, n_pages, k)`` for each
     k of ``ks`` over these buffers, on the server's capture stream, after a
     warm-up run of each (module docstring). Returns k -> ReplayGraph (its
@@ -132,7 +149,7 @@ def capture_decode_steps(server, ks: Sequence[int], pools, last_tok: torch.Tenso
     args = (pools, last_tok, next_pos, keys, temperature, block_tables)
     state = (last_tok, next_pos, keys)
     graphs = {}
-    with _on_capture_stream(server, last_tok.device):
+    with _on_capture_stream(server._graph_stream(), last_tok.device):
         saved = [t.clone() for t in state]
         for k in ks:
             programs[k](*args)
@@ -166,7 +183,7 @@ def capture_prefill_chunks(server, chunks: Sequence[int], pools, row: torch.Tens
     programs = {c: server._get_prefill_chunk(c, n_pages) for c in order}
     args = {c: (pools, row, tokens[:, :c], positions[:, :c]) for c in order}
     graphs = {}
-    with _on_capture_stream(server, row.device):
+    with _on_capture_stream(server._graph_stream(), row.device):
         row.fill_(NULL_PAGE)
         tokens.zero_()
         positions.fill_(PAD_POS)
@@ -178,4 +195,31 @@ def capture_prefill_chunks(server, chunks: Sequence[int], pools, row: torch.Tens
     return graphs
 
 
-__all__ = ["ReplayGraph", "capture_decode_steps", "capture_prefill_chunks", "launch_counts"]
+@torch.no_grad()
+def capture_generate_step(server, b: int, max_len: int, caches, tok: torch.Tensor,
+                          pos: torch.Tensor, done: torch.Tensor, keys: torch.Tensor,
+                          temperature: torch.Tensor, pool) -> ReplayGraph:
+    """Capture ``server._get_decode(b, max_len)``, ``generate()``'s dense
+    decode step, over the dense buffer's views (``caches``, the state
+    ``tok``, ``pos``, ``done``, ``keys`` and the 0-dim ``temperature``), on
+    the server's generate stream, in ``pool`` (shared by every generate
+    graph: they replay one at a time, and each replay's tokens are copied
+    out in stream order before the next). A warm-up run first, then the
+    state restored; the warm-up's cache write at each row's ``pos`` is the
+    one the first replay makes again. Returns the ReplayGraph (its output:
+    the tokens [b]). The current stream waits for the capture stream before
+    this returns."""
+    program = server._get_decode(b, max_len)
+    args = (caches, tok, pos, done, keys, temperature)
+    state = (tok, pos, done, keys)
+    with _on_capture_stream(server._generate_stream(), tok.device):
+        saved = [t.clone() for t in state]
+        program(*args)
+        for t, s in zip(state, saved):
+            t.copy_(s)
+        graph = _capture(lambda: program(*args), pool)
+    return graph
+
+
+__all__ = ["ReplayGraph", "capture_decode_steps", "capture_generate_step",
+           "capture_prefill_chunks", "launch_counts"]

@@ -672,8 +672,8 @@ def test_int8_batcher_on_card_runs_every_kernel(dev):
     for p, o in zip(prompts, outs):
         ids = s._tokenizer.encode(p) + o
         with torch.no_grad():
-            logits, _ = s._prefill(torch.tensor([ids], device=dev),
-                                   torch.arange(len(ids), device=dev)[None], len(ids))
+            logits, _ = s._prefill_fresh(torch.tensor([ids], device=dev),
+                                         torch.arange(len(ids), device=dev)[None], len(ids))
         rows = logits[0, len(ids) - len(o) - 1:len(ids) - 1].float()
         picked = rows.gather(1, torch.tensor(o, device=dev)[:, None])[:, 0]
         assert (rows.max(-1).values - picked).max().item() <= 0.02
@@ -827,8 +827,9 @@ def test_batcher_through_graphs_equals_eager_batcher(dev, kv):
 
 def test_capture_while_another_thread_generates(dev):
     """Graphs are captured thread-locally: batchers built while another
-    thread runs the private ``generate()`` path (eager launches, its own
-    allocations and host syncs) capture their prefill and decode graphs,
+    thread runs the private ``generate()`` path eagerly (its private
+    ``_eager`` switch: eager launches, its own allocations and host syncs)
+    capture their prefill and decode graphs,
     a replay of each is bit-equal to the eager program, and the other
     thread's tokens equal a solo run's."""
     import threading
@@ -841,13 +842,14 @@ def test_capture_while_another_thread_generates(dev):
                   param_dtype="auto", max_new_tokens=12, eos_id=-1, len_buckets=(16,),
                   device="cuda")
     s.load()
-    solo = s.generate(["hello there"], max_new_tokens=8)["tokens"][0]
+    solo = s.generate(["hello there"], max_new_tokens=8, _eager=True)["tokens"][0]
     stop, outs, errors = threading.Event(), [], []
 
     def spin():
         try:
             while not stop.is_set():
-                outs.append(s.generate(["hello there"], max_new_tokens=8)["tokens"][0])
+                outs.append(s.generate(["hello there"], max_new_tokens=8,
+                                       _eager=True)["tokens"][0])
         except Exception as e:  # reported below
             errors.append(e)
 
@@ -1033,6 +1035,235 @@ def test_batcher_through_prefill_graphs_equals_eager_batcher(dev, kv):
         assert b.page_stats()["kv_pages_in_use"] == 0
     assert [len(o) for o in outs[False]] == [12] * 4
     assert outs[False] == outs[True]
+
+
+# ---------------------------------------------------------------------------
+# generate()'s dense decode step as a CUDA graph per (batch bucket, max_len)
+# ---------------------------------------------------------------------------
+def _gen_server(kv, **kw):
+    from seldon_core_tpu_torch.servers.llmserver import LLMServer
+
+    s = LLMServer(model="transformer", model_kwargs=SMALL_LLM, init_random=True,
+                  param_dtype="auto", max_new_tokens=8, eos_id=-1, len_buckets=(16,),
+                  device="cuda", **INT8_KNOBS[kv], **kw)
+    s.load()
+    return s
+
+
+GEN_PROMPTS = ["hello there", [5, 9, 17, 2, 40, 3, 22, 8, 11, 60], "a", "four", "tokens x",
+               [7, 7, 1], "the dense path", "b"]
+
+
+def _dense_copy(s, b, max_len):
+    d = s._dense
+    return ([tuple(t.clone() for t in layer) for layer in d.caches(b, max_len)],
+            *(t.clone() for t in d.state(b)))
+
+
+def _replay_vs_eager_step(s, b, max_len):
+    """One replay of the (b, max_len) generate graph on the dense buffer's
+    live state, and one eager step of the same program on identical copies:
+    tokens, caches and state bit-equal; the replay adds to the launch
+    counters what its capture counted. Returns that delta."""
+    from seldon_core_tpu_torch.servers.step_graph import launch_counts
+
+    d = s._dense
+    # the next write lands inside max_len: back every row off by one step
+    d.pos[:b].sub_(1)
+    copy = _dense_copy(s, b, max_len)
+    graph = s._generate_graphs[(b, max_len)]
+    before = launch_counts()
+    got = graph.replay().clone()
+    after = launch_counts()
+    want = s._get_decode(b, max_len)(*copy, d.temperature)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and got.shape == (b,)
+    for la, lb in zip(d.caches(b, max_len), copy[0]):
+        for x, y in zip(la, lb):
+            assert torch.equal(x, y)
+    for x, y in zip(d.state(b), copy[1:]):
+        assert torch.equal(x, y)
+    delta = {key: n - before[key] for key, n in after.items() if n != before[key]}
+    assert delta == dict(graph.counts)
+    return delta
+
+
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+def test_generate_graph_replay_bit_equals_eager(dev, kv):
+    """generate() through its decode graphs equals the private eager switch
+    (sampled, seeded) at two keys and after a growth of the dense buffer;
+    every decode step is a replay; one replay on live state is bit-equal to
+    the eager program on copies (tokens, caches, state) and adds one K2 a
+    layer (and in int8 one K4 a product), no K1."""
+    s = _gen_server(kv, temperature=0.7)
+    n_layers = SMALL_LLM["n_layers"]
+    k2 = (fused_norm.fused_residual_rmsnorm, "launches")
+    k4 = (int8_matmul.int8_matmul, "launches")
+    k1 = paged_attention.paged_attention
+    for prompts, max_new, key, growths in ((GEN_PROMPTS[:3], 8, (4, 24), 0),
+                                           (GEN_PROMPTS[:1], 4, (1, 20), 0),
+                                           (GEN_PROMPTS, 12, (8, 28), 1),
+                                           (GEN_PROMPTS[:3], 8, (4, 24), 1)):
+        replays, eager = s._generate_replays, s._generate_eager
+        got = s.generate(prompts, max_new_tokens=max_new, seed=5)
+        assert (s._generate_replays - replays, s._generate_eager - eager) == (max_new - 1, 0)
+        want = s.generate(prompts, max_new_tokens=max_new, seed=5, _eager=True)
+        assert s._generate_eager - eager == max_new - 1
+        assert got == want and [len(t) for t in got["tokens"]] == [max_new] * len(prompts)
+        assert s._dense_growths == growths and key in s._generate_graphs
+        delta = _replay_vs_eager_step(s, *key)
+        assert delta[k2] == n_layers
+        assert delta.get(k4, 0) == (7 * n_layers + 1 if kv == "int8" else 0)
+        assert (k1, "launches") not in delta and (k1, "launches_int8") not in delta
+    # the growth dropped the first graphs: (4, 24) was captured again
+    assert sorted(s._generate_graphs) == [(4, 24), (8, 28)]
+
+
+def test_sample_tokens_temperature_forms_on_card(dev):
+    """On CUDA logits, the temperature as generate() passes it (its dense
+    buffer's 0-dim tensor) and as the batcher holds it give the same tokens
+    and keys; a float is made into the same tensor. Dividing by a Python
+    float instead is a multiply by its reciprocal on the card (the trap
+    these forms avoid): the scores it gives are not the tensor division's."""
+    from seldon_core_tpu_torch.runtime.batcher import ContinuousBatcher
+    from seldon_core_tpu_torch.servers.llmserver import sample_tokens, seed_key
+
+    s = _gen_server("bf16", temperature=0.7)
+    s.generate(["hi"], max_new_tokens=2)
+    b = ContinuousBatcher(s, max_slots=2, page_size=8, device="cuda", _eager=True)
+    b.close()
+    g = torch.Generator(device=dev).manual_seed(0)
+    logits = torch.randn((64, 32000), generator=g, device=dev) * 3
+    keys = torch.tensor([seed_key(i) for i in range(64)], dtype=torch.int64, device=dev)
+    forms = (s._dense.temperature, b._temp, 0.7)
+    outs = [sample_tokens(keys, logits, t, s.top_k) for t in forms]
+    for k, t in outs[1:]:
+        assert torch.equal(k, outs[0][0]) and torch.equal(t, outs[0][1])
+    topv = torch.topk(logits, s.top_k, dim=-1).values
+    assert not torch.equal(topv / 0.7, topv / s._dense.temperature)
+
+
+def _could_draw(s, ids, key, temperature, tok, tol):
+    """Whether the sampled draw under the draw key ``key`` could pick
+    ``tok`` at the end of ``ids`` from logits within ``tol`` of a
+    teacher-forced fresh prefill's. The draw adds Gumbel noise by rank in
+    the top-k (``sample_tokens``), so a logit that moves by ``tol`` may take
+    any rank whose value lies within 2 ``tol`` of its own, and the noise of
+    that rank: ``tok`` could win if its best score over its ranks reaches
+    every other token's worst (a token that may fall out of the top-k has
+    none)."""
+    from seldon_core_tpu_torch.servers.llmserver import _GOLDEN, _M32, _mix32
+
+    dev = torch.device("cuda")
+    with torch.no_grad():
+        logits, _ = s._prefill_fresh(torch.tensor([ids], device=dev),
+                                     torch.arange(len(ids), device=dev)[None], len(ids))
+    v, order = torch.sort(logits[0, -1].float(), descending=True)
+    j = torch.arange(s.top_k, device=dev, dtype=torch.int64)
+    bits = _mix32((torch.tensor(key, device=dev) + j * _GOLDEN) & _M32)
+    u = ((bits >> 8).to(torch.float32) + 0.5) * (1.0 / (1 << 24))
+    noise = torch.full_like(v, float("-inf"))
+    noise[:s.top_k] = -torch.log(-torch.log(u))
+    near = (v[:, None] - v[None, :]).abs() <= 2 * tol          # [rank, rank it may take]
+    best = torch.where(near, noise[None, :], float("-inf")).max(dim=1).values
+    worst = torch.where(near, noise[None, :], float("inf")).min(dim=1).values
+    r = order.tolist().index(tok)
+    rivals = torch.cat([(v / temperature + worst)[:r], (v / temperature + worst)[r + 1:]])
+    return bool(v[r] / temperature + best[r] + 2 * tol / temperature >= rivals.max())
+
+
+def test_seeded_generate_graph_equals_graph_batcher_submit(dev):
+    """The same seed through generate()'s decode graph (row 0) and through
+    the graph batcher's submit(seed=) gives the same sampled tokens, up to
+    a teacher-forced near-tie: where they first differ, the draw could
+    give either token from logits within 0.02 of a teacher-forced prefill's
+    (``_could_draw``: the paged and the dense path compute the logits
+    through different kernels, and the noise goes by rank in the top-k)."""
+    from seldon_core_tpu_torch.runtime.batcher import ContinuousBatcher
+    from seldon_core_tpu_torch.servers.llmserver import seed_key, split_keys
+
+    s = _gen_server("bf16", temperature=0.7)
+    b = ContinuousBatcher(s, max_slots=3, page_size=8, device="cuda")
+    try:
+        assert b._graphs and b._prefill_graphs
+        for prompt, seed in (("hello there", 5), ([5, 9, 17, 2, 40, 3], 11), ("a", 12)):
+            served = b.submit(prompt, 8, seed=seed).result(120)
+            replays = s._generate_replays
+            private = s.generate([prompt], max_new_tokens=8, seed=seed)["tokens"][0]
+            assert s._generate_replays - replays == 7
+            t = next((i for i, (x, y) in enumerate(zip(served, private)) if x != y), None)
+            if t is None:
+                continue
+            key = seed_key(seed)
+            for _ in range(t + 1):
+                key, sub = split_keys(key)
+            ids = (s._tokenizer.encode(prompt) if isinstance(prompt, str) else prompt)
+            for tok in (served[t], private[t]):
+                assert _could_draw(s, ids + served[:t], sub, 0.7, tok, 0.02), (t, tok)
+    finally:
+        b.close()
+
+
+def test_generate_capture_while_a_batcher_captures(dev):
+    """generate() captures its decode graphs (on its own stream, in its own
+    pool) while another thread builds batchers (their prefill and decode
+    graphs captured on the server's batcher stream, their warm-ups
+    launching meanwhile): each generate() call equals the eager switch's
+    solo tokens; every graph of either thread counts its own kernel nodes,
+    by name, and nothing the other thread launched; and the last batcher's
+    decode replay is bit-equal to its eager program."""
+    import threading
+
+    from seldon_core_tpu_torch.runtime.batcher import ContinuousBatcher
+
+    s = _gen_server("bf16")
+    solo = {m: s.generate(GEN_PROMPTS[:3], max_new_tokens=m, _eager=True)
+            for m in range(2, 12)}
+    batchers, errors = [], []
+
+    def build():
+        try:
+            for _ in range(3):
+                batchers.append(ContinuousBatcher(s, max_slots=3, page_size=8, fuse_steps=4,
+                                                  device="cuda"))
+        except Exception as e:   # reported below
+            errors.append(e)
+
+    t = threading.Thread(target=build)
+    t.start()
+    seen = {}
+    try:
+        m = 2
+        while t.is_alive() or m < 4:
+            seen[m] = s.generate(GEN_PROMPTS[:3], max_new_tokens=m)
+            m = m + 1 if m < 11 else 2
+    finally:
+        t.join(120)
+    assert not t.is_alive() and not errors, errors
+    assert len(batchers) == 3
+    for m, out in seen.items():
+        assert out == solo[m]
+    assert all((4, 16 + m) in s._generate_graphs for m in seen)
+    k2 = (fused_norm.fused_residual_rmsnorm, "launches")
+    k1 = (paged_attention.paged_attention, "launches")
+    graphs = [*s._generate_graphs.values()]
+    for b in batchers:
+        graphs += [*b._graphs.values(), *b._prefill_graphs.values()]
+    for g in graphs:
+        names = _kernel_names(g.graph)
+        by_name = {k2: sum("fused_residual_rmsnorm_kernel" in n for n in names),
+                   k1: sum("paged_attention_decode_kernel" in n for n in names)}
+        assert g.counts == {key: n for key, n in by_name.items() if n}
+        assert g.counts[k2] % SMALL_LLM["n_layers"] == 0
+    b = batchers[-1]
+    _admit(b, ([5, 9, 17, 2, 40, 3, 22, 8, 11, 60], [7, 7, 1]))
+    for k in (1, 4):
+        copy = _state_copy(b)
+        toks = b._graphs[k].replay().clone()
+        eager = s._get_decode_step_paged(b.S, b.n_pages, k)(*copy, b._temp, b._block_tables)
+        torch.cuda.synchronize()
+        assert torch.equal(toks, eager)
+        _assert_state_equal(b, copy)
 
 
 def _k3_case(dev, b, h, w, c, f, n_blocks, seed):
