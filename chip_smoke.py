@@ -103,7 +103,24 @@ Phases (any failure exits non-zero; nothing swallows an error):
    bit-equal to the eager switch and to a fresh buffer; a sampled call
    (temperature 0.7, seed 11) bit-equal to eager; and two generate()
    requests over REST while the batcher serves the 8, each answering its
-   solo tokens. The int8 run's
+   solo tokens. In each graph run (bf16, bf16 K = 8, int8) the streaming
+   phase (``stream_phase``): N_REQUESTS concurrent SSE clients on the
+   run's prompts, each read event by event (launch counts zeroed before,
+   read after): each stream's token events equal its done tokens and pass
+   the teacher-forced check, every chunk and every decode dispatch is a
+   replay (``_prefill_replays``, ``_decode_replays``, none eager), one
+   /metrics scrape counts a TTFT a request and an inter-token gap a
+   credited token less one a request, and its page gauges equal
+   ``page_stats()``; a client that closes its socket after 4 events leaves
+   the loop alive (the handler's failed write counted as a 500) with every
+   page returned, and the next request is answered. Printed: the client's
+   time to first event beside the server's TTFT, the inter-event gap beside
+   the step wall, the events a burst, the streamed step beside the run's
+   non-streamed one, one client's arrival times. In the bf16 graph run also
+   the 1-slot stream service (built with its own graphs: capture time,
+   pools; one stream through it, teacher-forced) and one gRPC
+   Model/GenerateStream, whose events must equal SSE's (only a missing
+   grpcio or protobuf skips it, saying so). The int8 run's
    device memory after load() must stay under INT8_LOAD_PEAK_GB: the int8
    weights plus one float32 leaf;
 5. ResNet-50 forward phase — the folded model at full width and depth
@@ -1293,22 +1310,24 @@ def step_phase(label: str, card: str, server, b, texts, weight_bytes: int) -> di
         return lambda: prog(b._caches, b._last_tok, b._next_pos, b._keys, b._temp,
                             b._block_tables)
 
+    # what one eager step launches, from the wrappers' counters (a trace
+    # can lose events: a step runs ~2,000 kernels); the trace times it
+    k2_n, k4_wgmma, k4_kernels, k1_kernels = launches_of(eager_step(1))
     host_e, dev_e, ops, k2_e = profile_step(eager_step(1), K2_KERNEL)
-    k1_kernels = step_kernels(ops, "paged_attention_decode_kernel")
-    k4_kernels = step_kernels(ops, "int8_matmul_decode_kernel")
     reduces = [e.key for e in ops if "splitk_reduce" in e.key]
     # one K1, one K2 call a layer, one K4 call a product: each one kernel
-    if k1_kernels != n_layers or k2_e["calls"] != n_layers:
-        fail(f"[{label}] one eager decode step ran {k1_kernels} paged-attention and "
-             f"{k2_e['calls']} {K2_KERNEL} kernels, expected one per layer ({n_layers})")
-    if k4_kernels != k4_step or reduces:
-        fail(f"[{label}] one eager decode step ran {k4_kernels} K4 decode kernels (expected "
-             f"{k4_step}) and {len(reduces)} kinds of split-K reduce kernel {reduces}")
+    if k1_kernels != n_layers or k2_n != n_layers:
+        fail(f"[{label}] one eager decode step launched {k1_kernels} paged-attention and "
+             f"{k2_n} {K2_KERNEL} kernels, expected one per layer ({n_layers})")
+    if k4_kernels != k4_step or k4_wgmma or reduces:
+        fail(f"[{label}] one eager decode step launched {k4_kernels} K4 decode kernels "
+             f"(expected {k4_step}), {k4_wgmma} on the prefill route and "
+             f"{len(reduces)} kinds of split-K reduce kernel {reduces}")
     n_e = sum(e.count for e in ops)
     print(f"[{label}] eager decode step at {b.S} live slots: host enqueue {host_e:.3f} ms, "
-          f"device time {dev_e:.3f} ms in {n_e} kernels and copies ({k1_kernels} of them "
-          f"paged attention, one per layer; {k4_kernels} K4 decode, one per product; "
-          f"{k2_e['calls']} K2, one per layer; torch.profiler); reading the "
+          f"device time {dev_e:.3f} ms in {n_e} kernels and copies (torch.profiler); launched "
+          f"{k1_kernels} paged attention, one per layer; {k4_kernels} K4 decode, one per "
+          f"product; {k2_n} K2, one per layer (the wrappers' counters); reading the "
           f"{weight_bytes / 1e9:.2f} GB of weights alone takes "
           f"{weight_bytes / HBM_BYTES_PER_S * 1e3:.2f} ms [{card}]", flush=True)
     print(f"[{label}] eager decode step, K2 in the trace: {k2_line(k2_e)} [{card}]", flush=True)
@@ -1324,16 +1343,19 @@ def step_phase(label: str, card: str, server, b, texts, weight_bytes: int) -> di
     out["draw_ms"] = (pick_ms, greedy_ms)
     for k in sorted(b._graphs):
         replay = b._graphs[k].replay
+        # what the replay runs, from the graph's kernel nodes by name; the
+        # trace times it
+        seen = node_counts(graph_kernel_names(b._graphs[k].graph))
+        want = (n_layers * k, 0, k4_step * k, n_layers * k)
+        if seen != want:
+            fail(f"[{label}] the K = {k} graph holds (K2, K4 prefill, K4 decode, K1) kernel "
+                 f"nodes {seen}, expected {want}")
         host_g, dev_g, ops_g, k2_g = profile_step(replay, K2_KERNEL)
         ev_g = events_ms(replay)
         n_g = sum(e.count for e in ops_g)
-        seen = (step_kernels(ops_g, "paged_attention_decode_kernel"), k2_g["calls"],
-                step_kernels(ops_g, "int8_matmul_decode_kernel"))
-        if ops_g and seen != (n_layers * k, n_layers * k, k4_step * k):
-            fail(f"[{label}] the K = {k} replay's trace holds (K1, K2, K4 decode) kernels "
-                 f"{seen}, expected {(n_layers * k, n_layers * k, k4_step * k)}")
         traced = (f"torch.profiler {dev_g:.3f} ms in {n_g} kernels and copies "
-                  f"({dev_g / k:.3f} ms a step; K1, K2, K4 decode {seen})" if ops_g else
+                  f"({dev_g / k:.3f} ms a step; kernel nodes (K2, K4 prefill, K4 decode, K1) "
+                  f"{seen})" if ops_g else
                   "torch.profiler saw no device event in the replay")
         print(f"[{label}] graph replay of K = {k} step(s) at {b.S} live slots: host time "
               f"{host_g:.4f} ms (median of {REPS} replay() calls; the eager step's enqueue "
@@ -1366,7 +1388,7 @@ def zero_counts(server) -> None:
     int8_matmul.launches_wgmma = 0
     server._prefill_replays = 0
     server._prefill_eager = 0
-    for series in (server._ttft_times, server._decode_step_times,
+    for series in (server._ttft_times, server._inter_token_times, server._decode_step_times,
                    server._decode_dispatch_times, server._decode_sync_times,
                    server._decode_host_lag):
         series.clear()
@@ -1856,6 +1878,311 @@ def generate_phase(label: str, card: str, server, url: str, texts) -> dict:
             "launches": counted}
 
 
+# ---------------------------------------------------------------------------
+# Streaming: SSE on /v1/generate, the scrape, the 1-slot stream service, gRPC
+# ---------------------------------------------------------------------------
+# token events closer than this arrived in one drain's burst
+BURST_GAP_MS = 2.0
+
+
+def sse_client(url: str, body: dict, stop_after: Optional[int] = None):
+    """One streaming POST /v1/generate read event by event as it arrives
+    (``readline``). Returns (status, the time the request was sent, [(arrival
+    time, event)], the time the response's headers arrived: the server sends
+    them just before it submits the request); with ``stop_after`` the
+    client closes its socket after that many events."""
+    import http.client
+    from urllib.parse import urlsplit
+
+    u = urlsplit(url)
+    conn = http.client.HTTPConnection(u.hostname, u.port, timeout=600)
+    t0 = time.perf_counter()
+    conn.request("POST", "/v1/generate", json.dumps(dict(body, stream=True)),
+                 {"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    t_headers = time.perf_counter()
+    events = []
+    try:
+        if resp.status != 200:
+            return resp.status, t0, [(time.perf_counter(), resp.read().decode())], t_headers
+        while stop_after is None or len(events) < stop_after:
+            line = resp.readline()
+            if not line:
+                break
+            line = line.strip()
+            if line.startswith(b"data: "):
+                events.append((time.perf_counter(), json.loads(line[6:])))
+    finally:
+        resp.close()
+        conn.close()
+    return 200, t0, events, t_headers
+
+
+def streamed_tokens(label: str, res) -> list:
+    """The tokens of one finished stream; fails unless it answered 200 and
+    its token events equal its done event's MAX_NEW tokens."""
+    if res is None:
+        fail(f"[{label}] a stream did not complete")
+    code, _, events, _ = res
+    if code != 200 or not events:
+        fail(f"[{label}] a stream answered {code}: {events}")
+    done = events[-1][1]
+    toks = [e["token"] for _, e in events[:-1] if "token" in e]
+    if done.get("done") is not True or len(toks) != len(events) - 1:
+        fail(f"[{label}] a stream did not end with its done event: {done}")
+    if toks != done["tokens"] or len(toks) != MAX_NEW:
+        fail(f"[{label}] a stream's token events {toks} != its done tokens {done['tokens']} "
+             f"(expected {MAX_NEW})")
+    return toks
+
+
+def scrape(url: str) -> list:
+    """GET /metrics: [(sample name, its labels' text, value)], the
+    Prometheus text format parsed here (the card has no prometheus_client)."""
+    with urllib.request.urlopen(url + "/metrics", timeout=60) as r:
+        text = r.read().decode()
+    out = []
+    for line in text.splitlines():
+        if line and not line.startswith("#"):
+            sample, value = line.rsplit(" ", 1)
+            name, _, labels = sample.partition("{")
+            out.append((name, labels, float(value)))
+    return out
+
+
+def sample(samples: list, name: str, *labels: str) -> float:
+    """The sum of ``name``'s samples whose labels hold each of ``labels``."""
+    return sum(v for n, text, v in samples if n == name and all(x in text for x in labels))
+
+
+def stream_phase(label: str, card: str, server, b, url: str, texts, step_ms: float) -> dict:
+    """Streaming on the served path (the batcher's graphs): N_REQUESTS
+    concurrent SSE clients on the run's prompts, each read event by event.
+    Hard checks: each stream's token events equal its done tokens, which
+    pass the teacher-forced check; every prefill chunk and every decode
+    dispatch was a replay and each kernel launched what the path needs; one
+    scrape of /metrics (after this function has read the deques it times)
+    counts TTFT once a request and the inter-token gap once a credited
+    token less one a request, and its page gauges equal ``page_stats()``;
+    a client that closes its socket after 4 events leaves the loop alive
+    (``crashed`` None, the handler's write failed), every page returns, and
+    the next request is answered. Printed: the client's time to first event
+    beside the server's TTFT, the inter-event gap beside the step wall,
+    the events a burst, and the streamed step beside ``step_ms`` (this
+    run's non-streamed step). Returns (launches, numbers)."""
+    import torch
+
+    quantized = server.quantize == "int8"
+    torch.cuda.synchronize()
+    zero_counts(server)
+    server._decode_replays = server._decode_eager = 0
+    base = scrape(url)
+    results = [None] * len(texts)
+
+    def client(i):
+        results[i] = sse_client(url, {"prompt": texts[i]})
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(len(texts))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    wall = time.perf_counter() - t0
+    launches = read_counts(server)
+    decode = (server._decode_replays, server._decode_eager)
+    served = [streamed_tokens(label, r) for r in results]
+    ttft = sorted(server._ttft_times)
+    steps = sorted(server._decode_step_times)
+    n_gaps = len(server._inter_token_times)
+    pages = b.page_stats()
+    after = scrape(url)   # drains the deques read above
+    check_launches(label, card, launches, [128] * len(texts), quantized,
+                   server.kv_cache_dtype == "int8", eager=False)
+    if decode[0] == 0 or decode[1]:
+        fail(f"[{label}] decode dispatches (replays, eager) {decode}: expected replays only")
+    credited = len(texts) * MAX_NEW
+    seen = {k: sample(after, k) - sample(base, k) for k in (
+        "seldon_llm_ttft_seconds_count", "seldon_llm_inter_token_seconds_count")}
+    want = {"seldon_llm_ttft_seconds_count": len(texts),
+            "seldon_llm_inter_token_seconds_count": credited - len(texts)}
+    if seen != want or n_gaps != want["seldon_llm_inter_token_seconds_count"]:
+        fail(f"[{label}] the scrape counted {seen} ({n_gaps} gaps recorded), expected {want}")
+    gauges = (sample(after, "seldon_llm_kv_pages_in_use"),
+              sample(after, "seldon_llm_kv_pages_total"))
+    if gauges != (pages["kv_pages_in_use"], pages["kv_pages_total"]):
+        fail(f"[{label}] the scrape's page gauges (in use, total) {gauges} != page_stats "
+             f"{pages}")
+    teacher_check(label, card, server, texts, served)
+
+    ttfe = sorted((r[2][0][0] - r[1]) * 1e3 for r in results)
+    # from the headers (sent just before the submit) to the first event
+    after_headers = sorted((r[2][0][0] - r[3]) * 1e3 for r in results)
+    gaps = sorted((e1[0] - e0[0]) * 1e3 for r in results
+                  for e0, e1 in zip(r[2][:-2], r[2][1:-1]))
+    bursts = []
+    for r in results:
+        size = 1
+        for e0, e1 in zip(r[2][:-2], r[2][1:-1]):
+            if (e1[0] - e0[0]) * 1e3 < BURST_GAP_MS:
+                size += 1
+            else:
+                bursts.append(size)
+                size = 1
+        bursts.append(size)
+    streamed_step = statistics.median(steps) * 1e3
+    out = {"ttfe_med_ms": statistics.median(ttfe), "ttfe_max_ms": ttfe[-1],
+           "headers_to_first_med_ms": statistics.median(after_headers),
+           "headers_to_first_max_ms": after_headers[-1],
+           "ttft_med_ms": statistics.median(ttft) * 1e3, "ttft_max_ms": ttft[-1] * 1e3,
+           "gap_med_ms": statistics.median(gaps), "gap_p90_ms": gaps[int(0.9 * (len(gaps) - 1))],
+           "gap_max_ms": gaps[-1], "step_ms": streamed_step, "plain_step_ms": step_ms,
+           "burst_med": statistics.median(bursts), "burst_max": max(bursts), "wall_s": wall}
+    print(f"[{label}] streaming: {len(texts)} concurrent SSE clients x {MAX_NEW} tokens in "
+          f"{wall:.3f} s (chunked, one event a chunk, every chunk and dispatch a replay: "
+          f"{launches['replays']} chunks, {decode[0]} dispatches); client time to first event "
+          f"median {out['ttfe_med_ms']:.1f} / max {out['ttfe_max_ms']:.1f} ms (from the "
+          f"response headers, sent just before the submit: {out['headers_to_first_med_ms']:.1f} "
+          f"/ {out['headers_to_first_max_ms']:.1f} ms) beside the server's TTFT "
+          f"{out['ttft_med_ms']:.1f} / {out['ttft_max_ms']:.1f} ms; inter-event "
+          f"gap median {out['gap_med_ms']:.2f} / p90 {out['gap_p90_ms']:.2f} / max "
+          f"{out['gap_max_ms']:.2f} ms beside the streamed step wall median "
+          f"{streamed_step:.2f} ms; events a burst (arrivals under {BURST_GAP_MS} ms apart) "
+          f"median {out['burst_med']} max {out['burst_max']} ({len(bursts)} bursts); decode "
+          f"step median streamed {streamed_step:.2f} ms vs not streamed {step_ms:.2f} ms in "
+          f"this call; the scrape counted {seen['seldon_llm_ttft_seconds_count']:.0f} TTFTs "
+          f"and {seen['seldon_llm_inter_token_seconds_count']:.0f} gaps, page gauges "
+          f"{gauges} [{card}]", flush=True)
+    last = results[-1][2]
+    print(f"[{label}] the last client's {len(last)} events arrived at (ms after its first): "
+          f"{' '.join(f'{(t - last[0][0]) * 1e3:.1f}' for t, _ in last)} [{card}]", flush=True)
+
+    # a client that leaves after 4 events: its handler's next write fails
+    # and cancels the request, which decodes out with its result dropped
+    def failed_generates():
+        return sample(scrape(url), "seldon_api_executor_server_requests_total",
+                      'method="generate"', 'code="500"')
+
+    failed_before = failed_generates()
+    code, _, events, _ = sse_client(url, {"prompt": texts[0]}, stop_after=4)
+    if code != 200 or len(events) != 4:
+        fail(f"[{label}] the disconnecting client read {code}, {len(events)} events")
+    t0 = time.perf_counter()
+    failed_writes = 0.0
+    while time.perf_counter() - t0 < 120:
+        failed_writes = failed_generates() - failed_before
+        if failed_writes and b.page_stats()["kv_pages_in_use"] == 0:
+            break
+        time.sleep(0.05)
+    in_use = b.page_stats()["kv_pages_in_use"]
+    if b.crashed is not None or not b._thread.is_alive() or in_use or not failed_writes:
+        fail(f"[{label}] after a client disconnect: crashed {b.crashed!r}, loop alive "
+             f"{b._thread.is_alive()}, {in_use} pages in use, failed writes {failed_writes}")
+    code, body = post(url + "/v1/generate", {"prompt": texts[1], "max_new_tokens": 4})
+    if code != 200 or len(body.get("tokens", ())) != 4:
+        fail(f"[{label}] the request after a disconnect answered {code}: {body}")
+    print(f"[{label}] a client that closed its socket after 4 events: the handler's write "
+          f"failed ({failed_writes:.0f} more generate request counted as 500), the loop is alive "
+          f"(crashed None), 0 pages in use once it drained, and the next request answered "
+          f"200 with 4 tokens [{card}]", flush=True)
+    return launches, out
+
+
+def stream_service_phase(label: str, card: str, server, url: str, texts) -> dict:
+    """The 1-slot stream service a component without continuous batching
+    streams through (``runtime/batcher.ensure_stream_service``), built on
+    the served weights while the run's 8-slot service is set aside: its
+    capture time (prefill graphs a chunk length and the decode graph, under
+    ``set_sync_debug_mode("error")``) and graph pools; one stream through
+    it over REST, teacher-forced, its chunk and every decode dispatch a
+    replay."""
+    import torch
+
+    from seldon_core_tpu_torch.runtime.batcher import ensure_stream_service
+
+    shared, slots = server._batcher_service, server.continuous_batching
+    server._batcher_service, server.continuous_batching = None, 0
+    try:
+        torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            svc = ensure_stream_service(server)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        one = svc.batcher
+        if one.S != 1 or sorted(one._prefill_graphs) != sorted(PREFILL_CHUNKS) \
+                or sorted(one._graphs) != [1]:
+            fail(f"[{label}] the stream service has {one.S} slots, prefill graphs "
+                 f"{sorted(one._prefill_graphs)} and decode graphs {sorted(one._graphs)}")
+        kv_gb = sum(t.numel() * t.element_size() for layer in one._caches for t in layer) / 1e9
+        out = {"build_s": build_s, "prefill_pool_gb": graph_pool_gb(one._prefill_graphs.values()),
+               "decode_pool_gb": graph_pool_gb(one._graphs.values()), "kv_gb": kv_gb,
+               "added_gb": (torch.cuda.memory_allocated() - mem0) / 1e9}
+        replays = server._prefill_replays
+        server._decode_replays = server._decode_eager = 0
+        res = sse_client(url, {"prompt": texts[0]})
+        toks = streamed_tokens(f"{label} stream service", res)
+        decode = (server._decode_replays, server._decode_eager)
+        if server._prefill_replays != replays + 1:
+            fail(f"[{label}] the stream service's chunk was not a replay")
+        if decode[0] == 0 or decode[1]:
+            fail(f"[{label}] the stream service's decode dispatches (replays, eager) {decode}: "
+                 f"expected replays only")
+        svc.close()
+    finally:
+        server._batcher_service, server.continuous_batching = shared, slots
+    teacher_check(f"{label} stream service", card, server, texts[:1], [toks])
+    print(f"[{label}] 1-slot stream service (no continuous batching): built in "
+          f"{build_s:.3f} s (prefill graphs {sorted(PREFILL_CHUNKS)} and the K = 1 decode graph "
+          f"captured under set_sync_debug_mode('error')); graph pools prefill "
+          f"{gb_text(out['prefill_pool_gb'])}, decode {gb_text(out['decode_pool_gb'])}; its KV "
+          f"pool {kv_gb:.3f} GB; +{out['added_gb']:.3f} GB allocated; one stream through it: "
+          f"{MAX_NEW} events equal its done tokens, its chunk and {decode[0]} decode "
+          f"dispatches replays, time to first event "
+          f"{(res[2][0][0] - res[1]) * 1e3:.1f} ms [{card}]", flush=True)
+    return out
+
+
+def grpc_phase(label: str, card: str, server, url: str, text: str) -> None:
+    """One Model/GenerateStream through the port's gRPC server, its events
+    equal to an SSE stream's of the same prompt. Only a missing grpcio or
+    protobuf skips it, with a line that says so."""
+    try:
+        import grpc
+
+        from seldon_core_tpu_torch.contracts.payload import SeldonMessage
+        from seldon_core_tpu_torch.transport import proto_convert as pc
+        from seldon_core_tpu_torch.transport.grpc_server import make_component_server
+        from seldon_core_tpu_torch.transport.proto import prediction_pb2 as pb
+    except ImportError as e:
+        if (e.name or "").split(".")[0] not in ("grpc", "google"):
+            raise
+        print(f"[{label}] gRPC unverified on the card: the '{e.name}' module is not installed "
+              f"here, so Model/GenerateStream was not run [{card}]", flush=True)
+        return
+    srv = make_component_server(server, host="127.0.0.1", port=None)
+    port = srv.add_insecure_port("127.0.0.1:0")
+    srv.start()
+    try:
+        with grpc.insecure_channel(f"127.0.0.1:{port}") as channel:
+            rpc = channel.unary_stream("/seldon.protos.Model/GenerateStream",
+                                       request_serializer=lambda m: m.SerializeToString(),
+                                       response_deserializer=pb.SeldonMessage.FromString)
+            request = pc.message_to_proto(SeldonMessage.from_json_data({"prompt": text}))
+            got = [pc.message_from_proto(m).json_data for m in rpc(request, timeout=600)]
+    finally:
+        srv.stop(None)
+    want = [e for _, e in sse_client(url, {"prompt": text})[2]]
+    if got != want:
+        fail(f"[{label}] gRPC GenerateStream events differ from SSE's: {got} vs {want}")
+    print(f"[{label}] gRPC Model/GenerateStream: {len(got)} events, equal to the SSE "
+          f"stream's [{card}]", flush=True)
+
+
 def serve(label: str, card: str, server, weight_bytes: int, fuse: int = 0,
           eager: bool = False):
     """One serving run of the port's main path through ``server`` (loaded by
@@ -1947,6 +2274,15 @@ def serve(label: str, card: str, server, weight_bytes: int, fuse: int = 0,
         # the private generate() path: in the graph runs of each model
         gen = generate_phase(label, card, server, url, texts) if not eager and fuse <= 1 \
             else None
+        # streaming through the graphs: SSE, the scrape, a disconnect; in the
+        # bf16 graph run also the 1-slot stream service and gRPC
+        stream_launches, streamed = {}, None
+        if not eager:
+            stream_launches, streamed = stream_phase(f"{label} stream", card, server, b, url,
+                                                     texts, statistics.median(steps) * 1e3)
+            if label == "bf16":
+                streamed["service"] = stream_service_phase(label, card, server, url, texts)
+                grpc_phase(label, card, server, url, texts[0])
     finally:
         httpd.shutdown()
         httpd.server_close()
@@ -1974,7 +2310,7 @@ def serve(label: str, card: str, server, weight_bytes: int, fuse: int = 0,
                "decode_pool_gb": decode_pool_gb,
                "mixed_ttft_ms": [t * 1e3 for t in mixed_ttft],
                "mixed_step_ms": statistics.median(mixed_steps) * 1e3,
-               "mixed_peak_gb": mixed_peak_gb, "generate": gen}
+               "mixed_peak_gb": mixed_peak_gb, "generate": gen, "stream": streamed}
     print(f"[{label}] serving: {N_REQUESTS} concurrent requests x {MAX_NEW} tokens in "
           f"{wall:.3f} s; TTFT median {metrics['ttft_med_ms']:.1f} ms max "
           f"{metrics['ttft_max_ms']:.1f} ms; decode step median {step_ms:.2f} ms = "
@@ -2021,7 +2357,7 @@ def serve(label: str, card: str, server, weight_bytes: int, fuse: int = 0,
     torch.cuda.empty_cache()
     gen_launches = gen["launches"] if gen else {}
     total = {key: launches[key] + mixed_launches[key] + gen_launches.get(key, 0)
-             for key in launches}
+             + stream_launches.get(key, 0) for key in launches}
     return total, metrics
 
 
@@ -2617,12 +2953,19 @@ def main() -> int:
                f"{g['dev_ms']:.3f} ms vs eager step host {g['eager_host_ms']:.3f} / kernels "
                f"{g['eager_dev_ms']:.3f} ms, dense buffer {g['dense_gb']:.3f} GB, pool "
                f"{gb_text(g['pool_gb'])}, {g['graphs']} graphs;" if g else "")
+        sm = m.get("stream")
+        stream = (f"streamed: first event {sm['ttfe_med_ms']:.1f} / {sm['ttfe_max_ms']:.1f} ms "
+                  f"(server TTFT {sm['ttft_med_ms']:.1f} / {sm['ttft_max_ms']:.1f}), gap "
+                  f"{sm['gap_med_ms']:.2f} / {sm['gap_p90_ms']:.2f} / {sm['gap_max_ms']:.2f} ms, "
+                  f"burst median {sm['burst_med']} max {sm['burst_max']}, step "
+                  f"{sm['step_ms']:.2f} ms;" if sm else "")
         print(f"  {label:12s} step {m['step_ms']:.2f} ms = {N_REQUESTS / m['step_ms'] * 1e3:.1f} "
               f"tok/s; TTFT {m['ttft_med_ms']:.1f} / {m['ttft_max_ms']:.1f} ms; mixed TTFT "
               f"{' / '.join(f'{t:.1f}' for t in m['mixed_ttft_ms'])} ms, step "
               f"{m['mixed_step_ms']:.2f} ms; peak {m['peak_gb']:.2f} GB (mixed "
               f"{m['mixed_peak_gb']:.2f}); graph pools: prefill {gb_text(m['prefill_pool_gb'])}, "
-              f"decode {gb_text(m['decode_pool_gb'])}; {eager}{graphs} {chunks} {gen} [{card}]",
+              f"decode {gb_text(m['decode_pool_gb'])}; {eager}{graphs} {chunks} {gen} {stream} "
+              f"[{card}]",
               flush=True)
 
     def total(key, model):

@@ -1,0 +1,200 @@
+"""Prometheus metrics of the port, in the text exposition format.
+
+Port of the part of ``seldon_core_tpu/metrics/registry.py`` whose sources
+exist in the port: the API request counter and latency histogram, observed
+by the REST and gRPC routes, and the LLM serving series that
+``LLMServer.llm_stats`` feeds at scrape time (TTFT, inter-token gap, decode
+step / dispatch / sync walls, host lag, steps in flight, the KV page pool).
+Names, types, label names, HELP text and bucket bounds are the JAX
+package's, so a dashboard reads both. The JAX package builds on
+prometheus_client; the card's machine has none, so this module writes the
+format itself (``expose``), the same text on every machine.
+"""
+
+from __future__ import annotations
+
+import bisect
+import math
+import os
+import threading
+from typing import Any, Dict, List, Sequence, Tuple
+
+LATENCY_BUCKETS = (
+    0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0,
+)
+HOST_LAG_BUCKETS = (0, 1, 2, 3, 4, 6, 8, 16, 32)
+
+_BASE = ("deployment_name", "predictor_name")
+
+
+def _go_float(v: float) -> str:
+    """A sample value or bucket bound as the Prometheus text format writes
+    it (prometheus_client's ``floatToGoString``)."""
+    v = float(v)
+    if v == math.inf:
+        return "+Inf"
+    if v == -math.inf:
+        return "-Inf"
+    if math.isnan(v):
+        return "NaN"
+    s = repr(v)
+    dot = s.find(".")
+    if v > 0 and dot > 6:  # Go switches to exponents sooner than Python
+        mantissa = f"{s[0]}.{s[1:dot]}{s[dot + 1:]}".rstrip("0.")
+        return f"{mantissa}e+0{dot - 1}"
+    return s
+
+
+def _escape_label(v: str) -> str:
+    return v.replace("\\", r"\\").replace("\n", r"\n").replace('"', r'\"')
+
+
+class _Family:
+    """One metric family: its label sets, each a value (counter, gauge) or
+    per-bucket counts plus the sum (histogram). The registry's lock guards
+    every read and write."""
+
+    def __init__(self, name: str, help_text: str, kind: str, labelnames: Sequence[str],
+                 buckets: Sequence[float] = ()):
+        self.name = name
+        self.help = help_text
+        self.kind = kind
+        self.labelnames = tuple(labelnames)
+        self.bounds = tuple(float(b) for b in buckets) + ((math.inf,) if buckets else ())
+        self.children: Dict[Tuple[str, ...], Any] = {}
+
+    def child(self, labels: Tuple[str, ...]):
+        c = self.children.get(labels)
+        if c is None:
+            c = [0] * len(self.bounds) + [0.0] if self.kind == "histogram" else 0.0
+            self.children[labels] = c
+        return c
+
+    def lines(self) -> List[str]:
+        name = self.name if self.kind != "counter" else self.name + "_total"
+        help_text = self.help.replace("\\", r"\\").replace("\n", r"\n")
+        out = [f"# HELP {name} {help_text}", f"# TYPE {name} {self.kind}"]
+        for labels, c in self.children.items():
+            pairs = dict(zip(self.labelnames, labels))
+            if self.kind != "histogram":
+                out.append(f"{name}{{{self._labels(pairs)}}} {_go_float(c)}")
+                continue
+            cum = 0
+            for bound, n in zip(self.bounds, c):
+                cum += n
+                out.append(f"{name}_bucket{{{self._labels(dict(pairs, le=_go_float(bound)))}}} "
+                           f"{_go_float(cum)}")
+            out.append(f"{name}_count{{{self._labels(pairs)}}} {_go_float(cum)}")
+            out.append(f"{name}_sum{{{self._labels(pairs)}}} {_go_float(c[-1])}")
+        return out
+
+    @staticmethod
+    def _labels(pairs: Dict[str, str]) -> str:
+        return ",".join(f'{k}="{_escape_label(str(v))}"' for k, v in sorted(pairs.items()))
+
+
+class MetricsRegistry:
+    """The component app's series. ``observe_api_call`` and ``sync_llm``
+    may be called from any thread; ``expose`` renders one consistent
+    snapshot."""
+
+    def __init__(self, deployment: str = "", predictor: str = ""):
+        self.deployment = deployment or os.environ.get("DEPLOYMENT_NAME", "")
+        self.predictor = predictor or os.environ.get("PREDICTOR_ID", "")
+        self._lock = threading.Lock()
+        self._families: List[_Family] = []
+
+        def fam(name, help_text, kind, extra=(), buckets=()):
+            f = _Family(name, help_text, kind, _BASE + tuple(extra), buckets)
+            self._families.append(f)
+            return f
+
+        self._api = fam("seldon_api_executor_server_requests",
+                        "API requests by method and code", "counter", ("method", "code"))
+        self._latency = fam("seldon_api_executor_server_requests_seconds", "API latency",
+                            "histogram", ("method",), LATENCY_BUCKETS)
+        self._kv_pages_in_use = fam("seldon_llm_kv_pages_in_use",
+                                    "KV pages currently allocated to slots (paged layout)",
+                                    "gauge")
+        self._kv_pages_total = fam("seldon_llm_kv_pages_total",
+                                   "Total KV pages in the global pool (incl. the 2 reserved "
+                                   "pages)", "gauge")
+        self._kv_page_sheds = fam("seldon_llm_kv_page_sheds",
+                                  "Requests shed (503 + Retry-After / RESOURCE_EXHAUSTED) by KV "
+                                  "page-pool exhaustion", "counter")
+        self._decode_step = fam("seldon_llm_decode_step_seconds", "LLM decode step latency",
+                                "histogram", buckets=LATENCY_BUCKETS)
+        self._ttft = fam("seldon_llm_ttft_seconds",
+                         "Time from request submission to its first generated token "
+                         "(batcher path)", "histogram", buckets=LATENCY_BUCKETS)
+        self._inter_token = fam("seldon_llm_inter_token_seconds",
+                                "Gap before each surfaced token (batcher on_token path; "
+                                "fused/speculative blocks surface as bursts)", "histogram",
+                                buckets=LATENCY_BUCKETS)
+        self._decode_dispatch = fam("seldon_llm_decode_dispatch_seconds",
+                                    "Decode step dispatch wall (enqueue-only; the host does not "
+                                    "wait for tokens)", "histogram", buckets=LATENCY_BUCKETS)
+        self._decode_sync = fam("seldon_llm_decode_sync_seconds",
+                                "Host sync wall per drain (blocked reading the oldest "
+                                "in-flight step's tokens)", "histogram", buckets=LATENCY_BUCKETS)
+        self._decode_steps_in_flight = fam("seldon_llm_decode_steps_in_flight",
+                                           "Decode steps currently dispatched ahead of the host "
+                                           "(sampled at scrape)", "gauge")
+        self._decode_host_lag = fam("seldon_llm_decode_host_lag_steps",
+                                    "Steps the host trailed the device at each drain (>=2 means "
+                                    "the pipeline is actually ahead)", "histogram",
+                                    buckets=HOST_LAG_BUCKETS)
+
+    def _base(self) -> Tuple[str, str]:
+        return (self.deployment, self.predictor)
+
+    @staticmethod
+    def _observe(fam: _Family, labels: Tuple[str, ...], value: float) -> None:
+        c = fam.child(labels)
+        c[bisect.bisect_left(fam.bounds, value)] += 1
+        c[-1] += value
+
+    def observe_api_call(self, method: str, code: str, seconds: float) -> None:
+        """One request of ``method`` answered ``code`` after ``seconds``."""
+        with self._lock:
+            key = self._base() + (method, str(code))
+            self._api.children[key] = self._api.child(key) + 1.0
+            self._observe(self._latency, self._base() + (method,), seconds)
+
+    def sync_llm(self, component: Any) -> None:
+        """Refresh the LLM series from ``component.llm_stats()`` (a no-op
+        for a component without it): gauges set, the page-shed counter
+        caught up to the allocator's tally, and each drained observation
+        observed once."""
+        stats_fn = getattr(component, "llm_stats", None)
+        if stats_fn is None:
+            return
+        stats = stats_fn()
+        base = self._base()
+        with self._lock:
+            self._kv_pages_in_use.children[base] = float(stats.get("kv_pages_in_use", 0))
+            self._kv_pages_total.children[base] = float(stats.get("kv_pages_total", 0))
+            self._kv_page_sheds.children[base] = max(self._kv_page_sheds.child(base),
+                                                     float(stats.get("kv_page_sheds", 0)))
+            for fam, key in ((self._decode_step, "decode_step_times_s"),
+                             (self._ttft, "ttft_s"),
+                             (self._inter_token, "inter_token_s"),
+                             (self._decode_dispatch, "decode_dispatch_times_s"),
+                             (self._decode_sync, "decode_sync_times_s"),
+                             (self._decode_host_lag, "decode_host_lag_steps")):
+                fam.child(base)
+                for v in stats.get(key, ()):
+                    self._observe(fam, base, v)
+            self._decode_steps_in_flight.children[base] = float(
+                stats.get("decode_steps_in_flight", 0))
+
+    def expose(self) -> bytes:
+        """Every family in the Prometheus text format (version 0.0.4)."""
+        with self._lock:
+            lines = [line for fam in self._families for line in fam.lines()]
+        return ("\n".join(lines) + "\n").encode()
+
+
+CONTENT_TYPE = "text/plain; version=0.0.4; charset=utf-8"
+
+__all__ = ["CONTENT_TYPE", "HOST_LAG_BUCKETS", "LATENCY_BUCKETS", "MetricsRegistry"]

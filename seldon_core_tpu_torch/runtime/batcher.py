@@ -42,7 +42,15 @@ these buffers to jitted ops and relied on device program order in the same
 way), so a captured graph always reads and writes the same addresses.
 
 The loop runs on a dedicated thread; ``submit`` returns a
-``concurrent.futures.Future``. There is no asyncio dependency.
+``concurrent.futures.Future``. There is no asyncio dependency. Streaming:
+``submit(on_token=...)`` fires ``on_token(tok)`` from the loop thread for
+the prefill-sampled first token and for each token a drain credits (never
+EOS, never a dropped run-ahead token), and ``on_token(None)`` once when the
+request ends (done, shed, closed or crashed) before its future resolves.
+Every future completes through ``_resolve``, which does nothing when the
+future is already done: a client that cancels its future (a disconnect)
+leaves the loop running; its slot decodes out its bounded ``max_new`` and
+the result is dropped.
 """
 
 from __future__ import annotations
@@ -51,7 +59,7 @@ import logging
 import threading
 import time
 from collections import deque
-from concurrent.futures import Future
+from concurrent.futures import Future, InvalidStateError
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -158,18 +166,44 @@ class PageAllocator:
             return self.total, self.capacity - len(self._free), self.shed_total
 
 
+def _resolve(fut: Future, result: Any = None, exc: Optional[BaseException] = None) -> None:
+    """Complete ``fut`` unless it is already done: a client may cancel its
+    future at any time (a stream's disconnect), and the loop must never
+    raise for it."""
+    if fut.done():
+        return
+    try:
+        if exc is not None:
+            fut.set_exception(exc)
+        else:
+            fut.set_result(result)
+    except InvalidStateError:  # cancelled between the check and the set
+        pass
+
+
+def _emit(on_token, tok: Optional[int]) -> None:
+    """Fire a stream's callback; one that raises is logged and ignored."""
+    if on_token is None:
+        return
+    try:
+        on_token(tok)
+    except Exception:  # a client's callback must not stop the loop
+        logger.exception("on_token callback failed")
+
+
 class _Request:
     """One queued request (FIFO admission)."""
 
-    __slots__ = ("ids", "max_new", "fut", "info", "seed", "t_arrival")
+    __slots__ = ("ids", "max_new", "fut", "info", "seed", "t_arrival", "on_token")
 
-    def __init__(self, ids, max_new, fut, info, seed, t_arrival):
+    def __init__(self, ids, max_new, fut, info, seed, t_arrival, on_token=None):
         self.ids = ids
         self.max_new = max_new
         self.fut = fut
         self.info = info
         self.seed = seed
         self.t_arrival = t_arrival
+        self.on_token = on_token
 
 
 class _PrefillJob:
@@ -196,11 +230,16 @@ class _PrefillJob:
 
 class _Slot:
     __slots__ = ("future", "tokens", "true_len", "n_new", "max_new", "active",
-                 "gen", "disp_new", "pages", "prefilling", "admit_seq")
+                 "gen", "disp_new", "pages", "prefilling", "admit_seq", "on_token",
+                 "t_last")
 
     def __init__(self):
         self.active = False
         self.future: Optional[Future] = None
+        # the occupant's stream callback (from admission to release), and
+        # when its last token surfaced (the inter-token gap's start)
+        self.on_token: Optional[Any] = None
+        self.t_last: Optional[float] = None
         self.tokens: List[int] = []
         self.true_len = 0
         self.n_new = 0          # tokens the HOST has processed (drain side)
@@ -412,11 +451,15 @@ class ContinuousBatcher:
 
     # ------------------------------------------------------------------
     def submit(self, prompt: Any, max_new_tokens: Optional[int] = None,
-               seed: Optional[int] = None, info: Optional[dict] = None) -> Future:
+               seed: Optional[int] = None, info: Optional[dict] = None,
+               on_token: Optional[Any] = None) -> Future:
         """prompt: str or token sequence. Returns a Future of the generated
         token ids. ``seed`` pins the request's sampling chain to
         ``generate(..., seed=seed)``'s. ``info`` is filled at admission with
-        a ``truncated_prompt`` record when the slot cache cuts the prompt."""
+        a ``truncated_prompt`` record when the slot cache cuts the prompt.
+        ``on_token`` (optional) is called from the loop thread with each
+        token as it surfaces and with None once at the end; it should only
+        hand the token on (a queue put)."""
         if self._closed:
             raise ShedError("batcher closed; retry")
         if isinstance(prompt, str):
@@ -427,7 +470,7 @@ class ContinuousBatcher:
             raise ValueError("empty prompt")
         fut: Future = Future()
         req = _Request(ids, int(max_new_tokens or self.server.max_new_tokens), fut,
-                       info, seed, time.perf_counter())
+                       info, seed, time.perf_counter(), on_token)
         with self._pending_lock:
             self._pending.append(req)
         self._ensure_running()
@@ -522,8 +565,12 @@ class ContinuousBatcher:
         slot.max_new = max_new
         slot.n_new = 1
         slot.tokens = [first]
+        # the first token surfaces now: TTFT, and the start of the next
+        # token's gap
+        now = time.perf_counter()
         if t_arrival is not None:
-            self.server._ttft_times.append(time.perf_counter() - t_arrival)
+            self.server._ttft_times.append(now - t_arrival)
+        slot.t_last = now
         slot.gen += 1          # invalidates in-flight tokens for the old occupant
         slot.disp_new = 1      # the prefill-sampled first token counts
         self._admit_seq += 1
@@ -532,6 +579,8 @@ class ContinuousBatcher:
         self._last_tok[i] = first
         self._next_pos[i] = L
         self._keys[i] = key
+        if first != self.eos_id:
+            _emit(slot.on_token, first)
         if first == self.eos_id or max_new <= 1:
             self._finish(i)
 
@@ -570,6 +619,7 @@ class ContinuousBatcher:
         slot.pages = list(fresh)
         slot.prefilling = True
         slot.future = req.fut
+        slot.on_token = req.on_token
         self._reset_pages(fresh)
         row = np.full((1, self.n_pages), NULL_PAGE, np.int32)
         row[0, :n0] = fresh
@@ -678,7 +728,8 @@ class ContinuousBatcher:
                 self._pending.popleft()
         self._allocator.count_shed()
         logger.warning("shedding admission: %s", why)
-        req.fut.set_exception(self._shed_error(why))
+        _emit(req.on_token, None)
+        _resolve(req.fut, exc=self._shed_error(why))
 
     def _shed_slot(self, i: int, why: str):
         """Shed an ACTIVE slot mid-decode: its tokens are discarded and the
@@ -686,20 +737,23 @@ class ContinuousBatcher:
         slot = self._slots[i]
         self._allocator.count_shed()
         logger.warning("shedding slot %d after %d generated tokens: %s", i, slot.n_new, why)
-        fut = slot.future
+        fut, on_token = slot.future, slot.on_token
         # release BEFORE notifying: the shed client must never observe its
         # own pages as held
         self._release_slot(i)
+        _emit(on_token, None)
         if fut is not None:
-            fut.set_exception(self._shed_error(why))
+            _resolve(fut, exc=self._shed_error(why))
 
     def _shed_prefill_job(self, why: str):
         job = self._prefill
         self._prefill = None
         self._allocator.count_shed()
         logger.warning("shedding staged prefill (slot %d): %s", job.slot, why)
+        on_token = self._slots[job.slot].on_token
         self._release_slot(job.slot)
-        job.fut.set_exception(self._shed_error(why))
+        _emit(on_token, None)
+        _resolve(job.fut, exc=self._shed_error(why))
 
     def _release_slot(self, i: int):
         """Common slot teardown: owned pages back to the pool, the device
@@ -709,6 +763,7 @@ class ContinuousBatcher:
         slot.active = False
         slot.prefilling = False
         slot.future = None
+        slot.on_token = None
         if slot.pages:
             self._allocator.free(slot.pages)
             slot.pages = []
@@ -721,10 +776,11 @@ class ContinuousBatcher:
         toks = slot.tokens
         if self.eos_id in toks:
             toks = toks[: toks.index(self.eos_id)]
-        fut = slot.future
+        fut, on_token = slot.future, slot.on_token
         self._release_slot(i)
+        _emit(on_token, None)  # the stream's end, before the future resolves
         if fut is not None:
-            fut.set_result(toks)
+            _resolve(fut, toks)
 
     # ------------------------------------------------------------------
     # Pipelined decode: dispatch (producer) / drain (consumer)
@@ -766,10 +822,12 @@ class ContinuousBatcher:
         t0 = time.perf_counter()
         if self._graphs:
             toks = self._graphs[k].replay()
+            self.server._decode_replays += 1
         else:
             toks = self.server._get_decode_step_paged(self.S, self.n_pages, k)(
                 self._caches, self._last_tok, self._next_pos, self._keys, self._temp,
                 self._block_tables)
+            self.server._decode_eager += 1
         self.server._decode_dispatch_times.append(time.perf_counter() - t0)
         host, event = self._stage_to_host(toks)
         snapshot = [(i, s.gen) for i, s in enumerate(self._slots) if s.active]
@@ -810,6 +868,12 @@ class ContinuousBatcher:
                 tok = int(arr[i, j])
                 slot.tokens.append(tok)
                 slot.n_new += 1
+                # the gap before this token, at its drain: a fused block
+                # surfaces in one burst, so its trailing tokens read ~0
+                self.server._inter_token_times.append(now - slot.t_last)
+                slot.t_last = now
+                if tok != self.eos_id:
+                    _emit(slot.on_token, tok)
                 if (tok == self.eos_id or slot.n_new >= slot.max_new
                         or slot.host_pos() >= self.max_len):
                     self._finish(i)   # the rest of the block is dropped
@@ -872,16 +936,18 @@ class ContinuousBatcher:
         self._prefill = None
         for slot in self._slots:
             if slot.active or slot.prefilling:
-                if slot.future is not None and not slot.future.done():
-                    slot.future.set_exception(exc)
+                _emit(slot.on_token, None)
+                if slot.future is not None:
+                    _resolve(slot.future, exc=exc)
                 slot.active = slot.prefilling = False
                 slot.future = None
+                slot.on_token = None
         with self._pending_lock:
             pending = list(self._pending)
             self._pending.clear()
         for req in pending:
-            if not req.fut.done():
-                req.fut.set_exception(exc)
+            _emit(req.on_token, None)
+            _resolve(req.fut, exc=exc)
 
 
 class BatcherService:
@@ -895,8 +961,14 @@ class BatcherService:
                                          device=server.device, **batcher_kw)
 
     def submit(self, prompt: Any, max_new_tokens: Optional[int] = None,
-               seed: Optional[int] = None, info: Optional[dict] = None) -> Future:
-        return self.batcher.submit(prompt, max_new_tokens, seed=seed, info=info)
+               seed: Optional[int] = None, info: Optional[dict] = None,
+               on_token: Optional[Any] = None) -> Future:
+        """The Future of the final token list; ``on_token`` (optional)
+        fires per token from the batcher's loop thread, so a transport
+        thread pumps its response stream from it. Cancelling the Future (a
+        disconnect) is safe."""
+        return self.batcher.submit(prompt, max_new_tokens, seed=seed, info=info,
+                                   on_token=on_token)
 
     def submit_sync(self, prompt: Any, max_new_tokens: Optional[int] = None,
                     timeout_s: float = 600.0, seed: Optional[int] = None,
@@ -929,5 +1001,24 @@ def get_batcher_service(component: Any) -> Optional[BatcherService]:
     return svc
 
 
+def ensure_stream_service(component: Any) -> BatcherService:
+    """Streaming without continuous batching: one shared 1-slot service per
+    component, built under the same lock (never one per request). On a card
+    building it captures its own prefill and decode graphs. A component
+    with ``continuous_batching`` streams through its shared batch."""
+    svc = get_batcher_service(component)
+    if svc is not None:
+        return svc
+    with _service_init_lock:
+        svc = getattr(component, "_batcher_service", None)
+        if svc is None:
+            t0 = time.perf_counter()
+            svc = BatcherService(component, max_slots=1)
+            component._batcher_service = svc
+            logger.info("1-slot stream service built in %.3f s", time.perf_counter() - t0)
+    return svc
+
+
 __all__ = ["BatcherService", "ContinuousBatcher", "PageAllocator",
-           "DEFAULT_PAGE_SIZE", "DEFAULT_PREFILL_CHUNK", "get_batcher_service"]
+           "DEFAULT_PAGE_SIZE", "DEFAULT_PREFILL_CHUNK", "ensure_stream_service",
+           "get_batcher_service"]

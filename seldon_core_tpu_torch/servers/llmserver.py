@@ -337,19 +337,25 @@ class LLMServer(SeldonComponent):
         self._request_count = 0
         self._lock = threading.Lock()
         # serving observability, appended by the batcher: time to first
-        # token per request, the drain-to-drain wall of each decode step, and
+        # token per request, the gap before each later token at its drain
+        # (a fused block's trailing tokens read ~0), the drain-to-drain wall
+        # of each decode step, and
         # per dispatch the host time of the step call (enqueue or replay, no
         # sync), per drain the host wait for its tokens, and the steps in
         # flight at each drain (host lag, in steps: a fused record is k)
         self._ttft_times: Any = deque(maxlen=4096)
+        self._inter_token_times: Any = deque(maxlen=8192)
         self._decode_step_times: Any = deque(maxlen=4096)
         self._decode_dispatch_times: Any = deque(maxlen=4096)
         self._decode_sync_times: Any = deque(maxlen=4096)
         self._decode_host_lag: Any = deque(maxlen=4096)
-        # prefill chunks the batcher ran: as graph replays (the card), and
-        # through the eager program (the CPU, or the private _eager switch)
+        # prefill chunks and decode dispatches the batcher ran: as graph
+        # replays (the card), and through the eager programs (the CPU, or
+        # the private _eager switch)
         self._prefill_replays = 0
         self._prefill_eager = 0
+        self._decode_replays = 0
+        self._decode_eager = 0
         # the decode programs by ("decode", b, max_len) and ("pagedstep",
         # slots, n_pages, k), the prefill programs by ("prefill", b, plen,
         # max_len) and ("pchunk", chunk, n_pages), and the one stream every
@@ -791,6 +797,38 @@ class LLMServer(SeldonComponent):
         prefix cache, and its keys, arrive with a later slice)."""
         with self._lock:
             return {"llm_requests": self._request_count}
+
+    def llm_stats(self) -> Dict[str, Any]:
+        """The serving snapshot a /metrics scrape reads
+        (``metrics/registry.MetricsRegistry.sync_llm``): the page pool's
+        gauges and the steps in flight of the shared batcher (zeros without
+        one), and the TTFT, inter-token and decode series accumulated since
+        the last call, drained here so each is observed exactly once."""
+        def drain(dq) -> List[float]:
+            out: List[float] = []
+            while True:
+                try:
+                    out.append(dq.popleft())
+                except IndexError:
+                    return out
+
+        page_stats = {"kv_pages_total": 0, "kv_pages_in_use": 0, "kv_page_size": 0,
+                      "kv_page_sheds": 0}
+        in_flight = 0
+        svc = getattr(self, "_batcher_service", None)
+        if svc is not None:
+            page_stats = svc.batcher.page_stats()
+            in_flight = len(svc.batcher._inflight)
+        return {
+            **page_stats,
+            "decode_step_times_s": drain(self._decode_step_times),
+            "decode_dispatch_times_s": drain(self._decode_dispatch_times),
+            "decode_sync_times_s": drain(self._decode_sync_times),
+            "decode_host_lag_steps": drain(self._decode_host_lag),
+            "decode_steps_in_flight": in_flight,
+            "ttft_s": drain(self._ttft_times),
+            "inter_token_s": drain(self._inter_token_times),
+        }
 
 
 __all__ = ["ByteTokenizer", "LLMServer", "bucket", "sample_tokens", "seed_key",

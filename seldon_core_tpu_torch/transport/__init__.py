@@ -1,1 +1,2 @@
-"""Transports of the port: the standard-library REST server and the CLI."""
+"""Transports of the port: the standard-library REST server, the gRPC
+component server and the CLI."""

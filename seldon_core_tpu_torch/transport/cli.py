@@ -1,15 +1,20 @@
 """Command-line entry point of the port.
 
-``python -m seldon_core_tpu_torch.transport.cli microservice <ModelFile> REST
---port N [--device cuda|cpu]`` imports class ``<ModelFile>`` from module
+``python -m seldon_core_tpu_torch.transport.cli microservice <ModelFile>
+[REST|GRPC] --port N [--device cuda|cpu]`` imports class ``<ModelFile>`` from module
 ``<ModelFile>`` in the working directory (or a dotted ``pkg.mod.Class``,
 e.g. ``seldon_core_tpu_torch.servers.torchserver.TorchServer``), constructs
 it with the typed parameters of ``PREDICTIVE_UNIT_PARAMETERS``
 (``[{"name": "model_uri", "value": "/ckpt", "type": "STRING"}]``), plus
 ``device=...`` when its constructor takes a ``device`` parameter or
 ``**kwargs`` (``TorchServer`` and ``LLMServer`` do; a host-only user model
-need not), loads it and serves it over REST. gRPC and the other
-subcommands of ``seldon_core_tpu.transport.cli`` arrive with later slices.
+need not), loads it and serves it over REST (``transport/rest.py``) or gRPC
+(``transport/grpc_server.py``; without grpcio or protobuf installed it exits
+naming the missing module, with no fallback to REST). The gRPC server reads
+the pod's annotations from the downward-API file ``ANNOTATIONS_FILE``
+(``seldon.io/grpc-max-message-size``), as the JAX package's CLI does. The
+other subcommands of ``seldon_core_tpu.transport.cli`` arrive with later
+slices.
 """
 
 from __future__ import annotations
@@ -20,7 +25,25 @@ import inspect
 import logging
 import os
 import sys
-from typing import Optional
+from typing import Dict, Optional
+
+ANNOTATIONS_FILE = "/etc/podinfo/annotations"
+
+
+def load_annotations(path: str) -> Dict[str, str]:
+    """A k8s downward-API annotations file: ``key="value"`` lines (none
+    when the file is absent)."""
+    annotations: Dict[str, str] = {}
+    if not os.path.exists(path):
+        return annotations
+    with open(path) as f:
+        for line in f:
+            line = line.strip()
+            if not line or "=" not in line:
+                continue
+            key, _, value = line.partition("=")
+            annotations[key.strip()] = value.strip().strip('"')
+    return annotations
 
 
 def import_interface(name: str):
@@ -67,25 +90,34 @@ def build_component(interface_name: str, device: str):
 
 
 def run_microservice(args: argparse.Namespace) -> None:
-    from seldon_core_tpu_torch.transport.rest import make_component_app, serve
-
     logging.basicConfig(level=os.environ.get("SELDON_LOG_LEVEL", "INFO").upper(),
                         format="%(asctime)s %(levelname)s %(name)s: %(message)s")
     api = (args.api or "REST").upper()
-    if api != "REST":
-        raise SystemExit(f"API type {api} is not ported yet (REST only; gRPC arrives "
-                         f"with a later slice)")
+    if api not in ("REST", "GRPC"):
+        raise SystemExit(f"Unknown API type {api} (use REST or GRPC)")
+    if api == "GRPC":
+        try:  # before the model loads: a missing module fails fast
+            from seldon_core_tpu_torch.transport.grpc_server import serve_component
+        except ImportError as e:
+            raise SystemExit(f"the GRPC API needs the '{e.name}' module, which is not "
+                             f"installed: {e}") from e
     component = build_component(args.interface_name, args.device)
     port = args.port or int(os.environ.get("PREDICTIVE_UNIT_SERVICE_PORT", "5000"))
+    if api == "GRPC":
+        serve_component(component, host=args.host, port=port,
+                        annotations=load_annotations(ANNOTATIONS_FILE))
+        return
+    from seldon_core_tpu_torch.transport.rest import make_component_app, serve
+
     serve(make_component_app(component, device=args.device), host=args.host, port=port)
 
 
 def main(argv: Optional[list] = None) -> None:
     parser = argparse.ArgumentParser(prog="seldon-core-tpu-torch")
     sub = parser.add_subparsers(dest="command", required=True)
-    ms = sub.add_parser("microservice", help="serve one component over REST")
+    ms = sub.add_parser("microservice", help="serve one component over REST or gRPC")
     ms.add_argument("interface_name")
-    ms.add_argument("api", nargs="?", default=None, help="REST")
+    ms.add_argument("api", nargs="?", default=None, help="REST or GRPC")
     ms.add_argument("--port", type=int, default=None)
     ms.add_argument("--host", default="0.0.0.0")
     ms.add_argument("--device", default="cuda", choices=("cuda", "cpu"))

@@ -1,0 +1,218 @@
+"""gRPC component server of the port.
+
+Port of the component half of ``seldon_core_tpu/transport/grpc_server.py``
+(``make_component_server`` / ``serve_component``): the same services and
+method table as the JAX package, served through
+``grpc.method_handlers_generic_handler`` over the copied stubs
+(``transport/proto/prediction_pb2.py``):
+
+- ``Model/Predict`` through ``components/dispatch.predict``, so an LLM's
+  single-prompt jsonData joins its shared batch and a ``TorchServer``
+  answers as over REST;
+- ``Model/GenerateStream`` (unary-stream): the SSE contract of
+  ``/v1/generate`` on this transport — one jsonData ``{"token", "text"}``
+  per token, then the ``done`` event, with the same INVALID_ARGUMENT
+  rejections before the stream starts (``streaming.stream_service``);
+- every other rpc of the JAX table aborts UNIMPLEMENTED naming the slice
+  that brings it.
+
+Tenant and SLO class ride the ``seldon-tenant`` / ``seldon-slo-class``
+metadata (the jsonData fields win) under REST's rules. The maximum message
+size honours the ``seldon.io/grpc-max-message-size`` annotation. grpcio and
+protobuf are imported with this module: the CLI names whichever is missing.
+"""
+
+from __future__ import annotations
+
+import logging
+from concurrent import futures
+from typing import Any, Callable, Dict, Optional
+
+import grpc
+
+from seldon_core_tpu_torch.components import dispatch
+from seldon_core_tpu_torch.contracts.payload import SeldonError, SeldonMessage
+from seldon_core_tpu_torch.transport import proto_convert as pc
+from seldon_core_tpu_torch.transport.proto import prediction_pb2 as pb
+from seldon_core_tpu_torch.transport.streaming import (check_identity, stream_events,
+                                                       stream_service)
+
+logger = logging.getLogger(__name__)
+
+ANNOTATION_GRPC_MAX_MSG_SIZE = "seldon.io/grpc-max-message-size"
+DEFAULT_MAX_MSG_BYTES = 4 * 1024 * 1024
+MAX_WORKERS = 8
+
+_SERVICE_PACKAGE = "seldon.protos"
+
+_ENGINE_SLICE = "arrives with the engine slice of the port"
+_LATER_RPCS = {
+    "TransformInput": _ENGINE_SLICE,
+    "TransformOutput": _ENGINE_SLICE,
+    "Route": _ENGINE_SLICE,
+    "Aggregate": _ENGINE_SLICE,
+    "SendFeedback": _ENGINE_SLICE,
+    "DebugTimeline": "arrives with the tracing slice of the port",
+}
+
+
+def _abort(context: grpc.ServicerContext, e: Exception):
+    """The JAX package's status mapping: a shed is RESOURCE_EXHAUSTED,
+    another 503 UNAVAILABLE, a 501 UNIMPLEMENTED, other 5xx INTERNAL, 4xx
+    INVALID_ARGUMENT."""
+    if isinstance(e, SeldonError):
+        if e.status_code == 504 or e.reason == "DEADLINE_EXCEEDED":
+            code = grpc.StatusCode.DEADLINE_EXCEEDED
+        elif e.reason == "RESOURCE_EXHAUSTED":
+            code = grpc.StatusCode.RESOURCE_EXHAUSTED
+        elif e.status_code == 503:
+            code = grpc.StatusCode.UNAVAILABLE
+        elif e.status_code == 501:
+            code = grpc.StatusCode.UNIMPLEMENTED
+        elif e.status_code < 500:
+            code = grpc.StatusCode.INVALID_ARGUMENT
+        else:
+            code = grpc.StatusCode.INTERNAL
+        context.abort(code, e.message)
+    logger.exception("grpc handler error")
+    context.abort(grpc.StatusCode.INTERNAL, str(e))
+
+
+def _metadata_value(context: grpc.ServicerContext, name: str) -> Optional[str]:
+    """One invocation-metadata value by (lowercase) key, or None."""
+    for key, value in context.invocation_metadata() or ():
+        if key == name:
+            return value
+    return None
+
+
+def _component_methods(component: Any) -> Dict[str, Dict[str, tuple]]:
+    """service -> rpc name -> (handler, request class[, kind])."""
+
+    def predict(request, context):
+        try:
+            # single-prompt continuous batching lives in dispatch.predict
+            return pc.message_to_proto(dispatch.predict(component,
+                                                        pc.message_from_proto(request)))
+        except Exception as e:  # noqa: BLE001 — the request boundary
+            _abort(context, e)
+
+    def unimplemented(name: str) -> Callable:
+        def handler(request, context):
+            context.abort(grpc.StatusCode.UNIMPLEMENTED,
+                          f"{name} is not served by this port yet: it {_LATER_RPCS[name]}")
+        return handler
+
+    gen_stream = _make_generate_stream(component)
+    later = {name: unimplemented(name) for name in _LATER_RPCS}
+    return {
+        "Model": {"Predict": (predict, pb.SeldonMessage),
+                  "SendFeedback": (later["SendFeedback"], pb.Feedback),
+                  "GenerateStream": (gen_stream, pb.SeldonMessage, "unary_stream"),
+                  "DebugTimeline": (later["DebugTimeline"], pb.SeldonMessage)},
+        "Generic": {
+            "TransformInput": (later["TransformInput"], pb.SeldonMessage),
+            "TransformOutput": (later["TransformOutput"], pb.SeldonMessage),
+            "Route": (later["Route"], pb.SeldonMessage),
+            "Aggregate": (later["Aggregate"], pb.SeldonMessageList),
+            "SendFeedback": (later["SendFeedback"], pb.Feedback),
+        },
+        "Router": {"Route": (later["Route"], pb.SeldonMessage),
+                   "SendFeedback": (later["SendFeedback"], pb.Feedback)},
+        "Transformer": {"TransformInput": (later["TransformInput"], pb.SeldonMessage)},
+        "OutputTransformer": {"TransformOutput": (later["TransformOutput"], pb.SeldonMessage)},
+        "Combiner": {"Aggregate": (later["Aggregate"], pb.SeldonMessageList)},
+    }
+
+
+def _make_generate_stream(component: Any):
+    """Server-streaming generation, the JAX package's
+    ``_make_generate_stream``: request jsonData ``{"prompt": str|[ids],
+    "max_new_tokens": N, "seed": S}``; responses one jsonData event each,
+    the SSE events of ``streaming.stream_events``. A client that cancels closes
+    the generator, which cancels the request."""
+
+    def generate_stream(request, context):
+        if not hasattr(component, "generate"):
+            context.abort(grpc.StatusCode.UNIMPLEMENTED, "component has no generate() surface")
+        try:
+            msg = pc.message_from_proto(request)
+            body = msg.json_data if msg.which == "jsonData" else None
+            if not isinstance(body, dict) or body.get("prompt") is None:
+                raise SeldonError("jsonData needs 'prompt'", status_code=400)
+            # REST's rules on the metadata spellings of its headers
+            check_identity(body, _metadata_value(context, "seldon-tenant"),
+                           _metadata_value(context, "seldon-slo-class"))
+            prompt = body["prompt"]
+            if isinstance(prompt, list):  # protobuf carries numbers as floats
+                prompt = [int(t) for t in prompt]
+            max_new = body.get("max_new_tokens")
+            if max_new is not None:
+                max_new = int(max_new)
+            svc = stream_service(component, dict(body, prompt=prompt, max_new_tokens=max_new),
+                                 knob="streaming")
+            events = stream_events(component, prompt, max_new, seed=body.get("seed"), svc=svc)
+        except Exception as e:  # noqa: BLE001 — pre-stream rejection
+            _abort(context, e)
+        try:
+            for burst in events:
+                for event in burst:
+                    yield pc.message_to_proto(SeldonMessage.from_json_data(event))
+        except Exception as e:  # noqa: BLE001
+            _abort(context, e)
+        finally:
+            # a client that went away unwinds this generator with
+            # GeneratorExit: closing the events cancels its request
+            events.close()
+
+    return generate_stream
+
+
+def _generic_handlers(method_table: Dict[str, Dict[str, tuple]]):
+    handlers = []
+    for service, methods in method_table.items():
+        rpc_handlers = {}
+        for rpc_name, entry in methods.items():
+            fn, req_cls = entry[0], entry[1]
+            kind = entry[2] if len(entry) > 2 else "unary_unary"
+            make = (grpc.unary_stream_rpc_method_handler if kind == "unary_stream"
+                    else grpc.unary_unary_rpc_method_handler)
+            rpc_handlers[rpc_name] = make(fn, request_deserializer=req_cls.FromString,
+                                          response_serializer=lambda m: m.SerializeToString())
+        handlers.append(grpc.method_handlers_generic_handler(f"{_SERVICE_PACKAGE}.{service}",
+                                                             rpc_handlers))
+    return handlers
+
+
+def _server_options(annotations: Optional[Dict[str, str]]) -> list:
+    max_size = DEFAULT_MAX_MSG_BYTES
+    if annotations and ANNOTATION_GRPC_MAX_MSG_SIZE in annotations:
+        max_size = int(annotations[ANNOTATION_GRPC_MAX_MSG_SIZE])
+    return [("grpc.max_send_message_length", max_size),
+            ("grpc.max_receive_message_length", max_size)]
+
+
+def make_component_server(component: Any, port: Optional[int] = 5000, host: str = "0.0.0.0",
+                          annotations: Optional[Dict[str, str]] = None) -> grpc.Server:
+    """A gRPC server for ``component`` (not started); ``port=None`` binds
+    nothing (add a port, then ``start``). ``annotations``: the pod's, of
+    which ``seldon.io/grpc-max-message-size`` is read."""
+    server = grpc.server(futures.ThreadPoolExecutor(max_workers=MAX_WORKERS),
+                         options=_server_options(annotations))
+    for h in _generic_handlers(_component_methods(component)):
+        server.add_generic_rpc_handlers((h,))
+    if port is not None:
+        server.add_insecure_port(f"{host}:{port}")
+    return server
+
+
+def serve_component(component: Any, host: str = "0.0.0.0", port: int = 5000,
+                    annotations: Optional[Dict[str, str]] = None) -> None:
+    """Serve ``component`` over gRPC until terminated."""
+    server = make_component_server(component, port=port, host=host, annotations=annotations)
+    server.start()
+    logger.info("gRPC component server on %s:%d", host, port)
+    server.wait_for_termination()
+
+
+__all__ = ["ANNOTATION_GRPC_MAX_MSG_SIZE", "make_component_server", "serve_component"]

@@ -1,34 +1,49 @@
 """REST transport of the port, on the standard library's
 ``http.server.ThreadingHTTPServer`` (the card's machine has no aiohttp).
 
-Port of two surfaces of ``seldon_core_tpu/transport/rest.py``: ``/ready``,
-``/live`` and ``/health/status``; the one-model predict routes ``/predict``
-and ``/api/v0.1/predictions`` (GET and POST) — a SeldonMessage in, through
-``components/dispatch.predict``, a SeldonMessage out, with the JAX
-package's body forms (raw JSON, form field ``json=``, query ``?json=``) and
-its ``{"status": ...}`` error payload; and ``POST /v1/generate`` with the
-JSON request and response schema of the JAX package, non-streaming:
+Port of these surfaces of ``seldon_core_tpu/transport/rest.py``: ``/ready``,
+``/live`` and ``/health/status``; the scrape routes ``/metrics`` and
+``/prometheus`` (``metrics/registry.py``, the LLM series synced from
+``LLMServer.llm_stats`` at each scrape) and ``/seldon.json``
+(``transport/openapi.wrapper_spec``); the one-model predict routes
+``/predict`` and ``/api/v0.1/predictions`` (GET and POST) — a SeldonMessage
+in, through ``components/dispatch.predict``, a SeldonMessage out, with the
+JAX package's body forms (raw JSON, form field ``json=``, query ``?json=``)
+and its ``{"status": ...}`` error payload; and ``POST /v1/generate`` with the
+JSON request and response schema of the JAX package:
 
     {"prompt": str|[ids], "max_new_tokens": N, "seed": S}
         one prompt; with the component's ``continuous_batching`` on it joins
         the shared decode batch (runtime/batcher.py) -> {"tokens", "text"}
         (+ "truncated_prompt" when the slot cache cut the prompt)
+    {"prompt": ..., "stream": true}
+        Server-Sent Events as the batch decodes: one ``data: {"token",
+        "text"}`` event per token ("text" the decoded piece), then ``data:
+        {"done": true, "tokens", "text"}`` (+ "truncated_prompt"); an error
+        after the headers went out is one ``data: {"error": ...}`` event.
+        Chunked framing, one chunk per event, the events a drain surfaced
+        together in one write; Nagle off. A component
+        without ``continuous_batching`` streams through one shared 1-slot
+        service (``runtime/batcher.ensure_stream_service``). A client that
+        disconnects cancels its request; the batch serves on.
     {"prompts": [...], "max_new_tokens": N, "temperature": T, "seed": S}
         an explicit batch, served by one private generate() ->
-        {"tokens": [[...]], "texts": [...]}
+        {"tokens": [[...]], "texts": [...]} (``"stream"`` is ignored here,
+        as in the JAX package)
 
 A per-request ``temperature`` takes the private generate() path (the batch
 decodes every slot at the server's temperature), as does a seeded prompt
-the slot cache cannot hold whole. A page-exhaustion shed answers 503 with a
-``Retry-After`` header.
+the slot cache cannot hold whole; a stream has no such path, so both answer
+400 there. A page-exhaustion shed answers 503 with a ``Retry-After``
+header.
 
 Tenant and SLO class ride the ``Seldon-Tenant`` / ``Seldon-SLO-Class``
 headers, or the body fields ``tenant`` / ``slo_class`` (the body wins), as
 in the JAX package. An unknown class answers 400 on every branch. The
 port's FIFO admission serves the default class (``interactive``, or no
 class); a tenant or another known class answers 501 naming the LoRA/tenants
-slice, as do adapters. Streaming (SSE) answers 501 too, as do the framed
-binary wire; multipart predict bodies answer 415.
+slice, as do adapters. The framed binary wire answers 501; multipart
+predict bodies answer 415.
 """
 
 from __future__ import annotations
@@ -36,49 +51,34 @@ from __future__ import annotations
 import json
 import logging
 import threading
+import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Any, Mapping, Optional, Tuple
+from typing import Any, Iterator, List, Mapping, Optional, Tuple
 from urllib.parse import parse_qs, urlsplit
 
 from seldon_core_tpu_torch.components import dispatch
 from seldon_core_tpu_torch.contracts.payload import SeldonError, SeldonMessage, Status
 from seldon_core_tpu_torch.device import resolve_device
+from seldon_core_tpu_torch.metrics.registry import CONTENT_TYPE as PROM_CONTENT_TYPE
+from seldon_core_tpu_torch.metrics.registry import MetricsRegistry
 from seldon_core_tpu_torch.runtime.resilience import ShedError
-from seldon_core_tpu_torch.runtime.scheduler import INTERACTIVE, normalize_slo_class
+from seldon_core_tpu_torch.transport.streaming import (check_identity, stream_events,
+                                                       stream_service)
 
 logger = logging.getLogger(__name__)
 
-_LATER = {
-    "stream": "SSE streaming arrives with the streaming slice",
-    "adapter": "adapters arrive with the LoRA/tenants slice",
-    "tenant": "tenants arrive with the LoRA/tenants slice",
-    "slo_class": "SLO classes other than 'interactive' arrive with the LoRA/tenants slice",
-}
 
-
-def _generate(component: Any, body: Any, headers: Optional[Mapping[str, str]] = None) -> dict:
+def _generate(component: Any, body: Any, headers: Optional[Mapping[str, str]] = None):
     """The /v1/generate handler body (``headers``: the request's, read
-    case-insensitively): returns the JSON response or raises SeldonError
-    (ShedError for a 503)."""
+    case-insensitively): returns the JSON response, or for ``"stream":
+    true`` the generator of its events (``stream_events``, not started),
+    or raises SeldonError (ShedError for a 503)."""
     from seldon_core_tpu_torch.runtime.batcher import get_batcher_service
 
     if not isinstance(body, dict):
         raise SeldonError("body must be a JSON object", status_code=400)
     headers = headers or {}
-    # the reference's precedence: the body field, then the header; a typo'd
-    # class fails on every branch before anything is refused or served
-    tenant = body.get("tenant") or headers.get("Seldon-Tenant")
-    try:
-        slo_class = normalize_slo_class(body.get("slo_class")
-                                        or headers.get("Seldon-SLO-Class"))
-    except ValueError as e:
-        raise SeldonError(str(e), status_code=400)
-    # FIFO admission serves the default class; anything else is refused
-    knobs = dict(body, tenant=tenant, slo_class=slo_class != INTERACTIVE)
-    for key, why in _LATER.items():
-        if knobs.get(key):
-            raise SeldonError(f"'{key}' is not served by this port yet: {why}",
-                              status_code=501)
+    check_identity(body, headers.get("Seldon-Tenant"), headers.get("Seldon-SLO-Class"))
     max_new = body.get("max_new_tokens")
     if "prompts" in body:
         return component.generate(body["prompts"], max_new_tokens=max_new,
@@ -90,6 +90,9 @@ def _generate(component: Any, body: Any, headers: Optional[Mapping[str, str]] = 
     svc = None if "temperature" in body else get_batcher_service(component)
     if svc is not None and "seed" in body and not svc.batcher.accommodates(prompt, max_new):
         svc = None  # only a per-request-sized generate() reproduces it
+    if body.get("stream"):
+        svc = stream_service(component, body, svc)
+        return stream_events(component, prompt, max_new, seed=body.get("seed"), svc=svc)
     if svc is None:
         out = component.generate([prompt], max_new_tokens=max_new,
                                  temperature=body.get("temperature"), seed=body.get("seed"))
@@ -156,45 +159,103 @@ def make_component_app(component: Any, device: Optional[str] = None):
     """The request-handler class serving ``component`` (pass it to
     ``serve`` or ``start``). ``device`` (default "cuda") is the device this
     server is meant to run on: it must resolve (no card raises) and match
-    the component's, so a serving process never lands on the CPU unasked."""
+    the component's, so a serving process never lands on the CPU unasked.
+    Its registry (``Handler.metrics``) counts each predict and generate
+    request by code and latency."""
+    from seldon_core_tpu_torch.transport.openapi import wrapper_spec
+
     dev = resolve_device(device)
     comp_dev = getattr(component, "device", dev)
     if comp_dev != dev:
         raise ValueError(f"REST app device {dev} != component device {comp_dev}")
+    registry = MetricsRegistry()
 
     class Handler(BaseHTTPRequestHandler):
         protocol_version = "HTTP/1.1"
+        # small SSE writes must not wait for the client's delayed ACK
+        disable_nagle_algorithm = True
+        metrics = registry
 
         def log_message(self, fmt, *args):  # route access logs to logging
             logger.debug("%s " + fmt, self.address_string(), *args)
 
-        def _send(self, code: int, payload: Any, headers: Optional[dict] = None):
-            data = json.dumps(payload).encode()
+        def _send(self, code: int, payload: Any, headers: Optional[dict] = None,
+                  content_type: str = "application/json"):
+            data = payload if isinstance(payload, bytes) else json.dumps(payload).encode()
             self.send_response(code)
-            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Type", content_type)
             self.send_header("Content-Length", str(len(data)))
             for k, v in (headers or {}).items():
                 self.send_header(k, v)
             self.end_headers()
             self.wfile.write(data)
 
+        def _send_error(self, e: Exception, method: str, t0: float):
+            code, payload, headers = _error(e)
+            registry.observe_api_call(method, str(code), time.perf_counter() - t0)
+            self._send(code, payload, headers)
+
         def _not_found(self, path: str):
             self._send(404, {"status": Status(404, f"no route {path}", "NOT_FOUND",
                                               "FAILURE").to_dict()})
 
         def _predict(self, raw: bytes, query: str):
+            t0 = time.perf_counter()
             try:
                 body = parse_request(self.headers.get("Content-Type", ""), raw, query)
                 msg = dispatch.predict(component, SeldonMessage.from_dict(body))
-                self._send(200, msg.to_dict())
             except Exception as e:  # the request boundary: answer, keep serving
-                code, payload, headers = _error(e)
-                self._send(code, payload, headers)
+                self._send_error(e, "predict", t0)
+                return
+            registry.observe_api_call("predict", "200", time.perf_counter() - t0)
+            self._send(200, msg.to_dict())
+
+        def _write_events(self, events):
+            # one chunk an event (its size line, data and CRLF), a burst of
+            # events in one write
+            chunks = []
+            for event in events:
+                data = b"data: %s\n\n" % json.dumps(event).encode()
+                chunks.append(b"%x\r\n%s\r\n" % (len(data), data))
+            self.wfile.write(b"".join(chunks))
+
+        def _stream(self, events: Iterator[List[dict]], t0: float):
+            """Write ``events`` (bursts of them) as SSE, one chunk an event,
+            a burst in one write. A write to a client that went away
+            cancels the request (closing the generator) and ends the
+            handler; an error after the headers is one ``error`` event."""
+            code = "200"
+            try:
+                self.send_response(200)
+                self.send_header("Content-Type", "text/event-stream")
+                self.send_header("Cache-Control", "no-cache")
+                self.send_header("Transfer-Encoding", "chunked")
+                self.end_headers()
+                try:
+                    for burst in events:
+                        self._write_events(burst)
+                except (BrokenPipeError, ConnectionResetError):
+                    raise
+                except Exception as e:  # after the headers: an event, then the end
+                    code = str(getattr(e, "status_code", 500))
+                    self._write_events([{"error": str(e)}])
+                self.wfile.write(b"0\r\n\r\n")
+            except (BrokenPipeError, ConnectionResetError):
+                code = "500"  # the client went away mid-stream (the JAX package's label)
+                self.close_connection = True
+            finally:
+                events.close()
+                registry.observe_api_call("generate", code, time.perf_counter() - t0)
 
         def do_GET(self):
             url = urlsplit(self.path)
             if url.path in ("/ready", "/live", "/health/status"):
                 self._send(200, {"status": "ok"})
+            elif url.path in ("/metrics", "/prometheus"):
+                registry.sync_llm(component)
+                self._send(200, registry.expose(), content_type=PROM_CONTENT_TYPE)
+            elif url.path == "/seldon.json":
+                self._send(200, wrapper_spec())
             elif url.path in PREDICT_ROUTES:
                 self._predict(b"", url.query)
             else:
@@ -210,15 +271,21 @@ def make_component_app(component: Any, device: Optional[str] = None):
             if url.path != "/v1/generate":
                 self._not_found(url.path)
                 return
+            t0 = time.perf_counter()
             try:
                 try:
                     body = json.loads(raw or b"null")
                 except json.JSONDecodeError as e:
                     raise SeldonError(f"Invalid JSON body: {e}", status_code=400)
-                self._send(200, _generate(component, body, self.headers))
+                out = _generate(component, body, self.headers)
             except Exception as e:  # the request boundary: answer, keep serving
-                code, payload, headers = _error(e)
-                self._send(code, payload, headers)
+                self._send_error(e, "generate", t0)
+                return
+            if isinstance(out, dict):
+                registry.observe_api_call("generate", "200", time.perf_counter() - t0)
+                self._send(200, out)
+            else:
+                self._stream(out, t0)
 
     return Handler
 

@@ -1,0 +1,120 @@
+"""Streaming and request identity, shared by the port's transports (REST
+``/v1/generate`` with ``"stream": true`` and gRPC ``Model/GenerateStream``).
+
+- ``check_identity``: tenant and SLO class with the reference's precedence
+  and the port's refusals (400 for an unknown class, 501 naming the slice
+  for a tenant, another class or an adapter);
+- ``stream_service``: the service a stream joins, and the rejections that
+  come before a stream starts;
+- ``stream_events``: the events of one stream (the JAX package's SSE
+  events), in the bursts a drain surfaces them.
+"""
+
+from __future__ import annotations
+
+import queue
+from typing import Any, Iterator, List, Optional
+
+from seldon_core_tpu_torch.contracts.payload import SeldonError
+from seldon_core_tpu_torch.runtime.scheduler import INTERACTIVE, normalize_slo_class
+
+_LATER = {
+    "adapter": "adapters arrive with the LoRA/tenants slice",
+    "tenant": "tenants arrive with the LoRA/tenants slice",
+    "slo_class": "SLO classes other than 'interactive' arrive with the LoRA/tenants slice",
+}
+
+
+_END = object()
+
+
+def check_identity(body: dict, tenant: Optional[str], slo_class: Optional[str]) -> None:
+    """Tenant and SLO class with the reference's precedence: the body field,
+    then ``tenant`` / ``slo_class`` (a header's or metadata's value). An
+    unknown class raises 400, on every branch before anything is refused or
+    served; the FIFO admission serves the default class, so a tenant,
+    another class or an adapter raises 501 naming its slice."""
+    tenant = body.get("tenant") or tenant
+    try:
+        slo_class = normalize_slo_class(body.get("slo_class") or slo_class)
+    except ValueError as e:
+        raise SeldonError(str(e), status_code=400)
+    knobs = dict(body, tenant=tenant, slo_class=slo_class != INTERACTIVE)
+    for key, why in _LATER.items():
+        if knobs.get(key):
+            raise SeldonError(f"'{key}' is not served by this port yet: {why}",
+                              status_code=501)
+
+
+def stream_events(component: Any, prompt: Any, max_new: Optional[int],
+                  seed: Optional[int] = None, svc: Any = None) -> Iterator[List[dict]]:
+    """The events of one stream, as the batch decodes them: ``{"token",
+    "text"}`` per token (``text`` the decoded piece of a text prompt, else
+    None), then ``{"done": True, "tokens", "text"}`` (+ ``truncated_prompt``
+    when admission clipped the prompt). They come in bursts, a list at a
+    time: every token already queued when the caller wakes (a fused block's
+    tokens surface at one drain), so a transport writes a burst at once.
+    ``svc`` is the BatcherService to join; None streams through
+    ``ensure_stream_service``. The batcher's ``on_token`` only puts on a
+    queue; decoding and JSON happen on the caller's thread. Closing the
+    generator early (a disconnect) cancels the request; a failure raises
+    from it, after the tokens that came before it."""
+    from seldon_core_tpu_torch.runtime.batcher import ensure_stream_service
+
+    if svc is None:
+        svc = ensure_stream_service(component)
+    tokenizer = getattr(component, "_tokenizer", None)
+    text_mode = tokenizer is not None and isinstance(prompt, str)
+    q: queue.Queue = queue.Queue()
+    info: dict = {}
+    fut = svc.submit(prompt, max_new, on_token=q.put, seed=seed, info=info)
+    # a request that ends without its None (never, from the batcher) still
+    # ends the pump
+    fut.add_done_callback(lambda _f: q.put(_END))
+    try:
+        ended = False
+        while not ended:
+            burst = [q.get()]
+            while burst[-1] is not None and burst[-1] is not _END:
+                try:
+                    burst.append(q.get_nowait())
+                except queue.Empty:
+                    break
+            ended = burst[-1] is None or burst[-1] is _END
+            toks = burst[:-1] if ended else burst
+            if toks:
+                yield [{"token": t, "text": tokenizer.decode([t]) if text_mode else None}
+                       for t in toks]
+        toks = fut.result(timeout=600.0)
+        done = {"done": True, "tokens": toks,
+                "text": tokenizer.decode(toks) if text_mode else None}
+        if info.get("truncated_prompt"):
+            done["truncated_prompt"] = info["truncated_prompt"]
+        yield [done]
+    finally:
+        fut.cancel()  # a no-op once the request completed
+
+
+def stream_service(component: Any, body: dict, svc: Any = None, knob: str = "stream") -> Any:
+    """The service a stream of ``body`` joins: ``svc`` (the component's
+    shared batch), else the 1-slot stream service. Raises the rejections
+    that come before a stream starts (400): a per-request temperature (the
+    batch decodes at the server's), and a seeded prompt the slot cache
+    cannot hold whole (no private generate() path reproduces it there);
+    ``knob`` names what the client should drop, in the JAX package's words
+    for its transport."""
+    from seldon_core_tpu_torch.runtime.batcher import ensure_stream_service
+
+    if "temperature" in body:
+        raise SeldonError("streaming with per-request temperature is not supported; set it "
+                          "on the server", status_code=400)
+    if "seed" in body:
+        svc = svc if svc is not None else ensure_stream_service(component)
+        if not svc.batcher.accommodates(body.get("prompt"), body.get("max_new_tokens")):
+            raise SeldonError("seeded streaming prompt exceeds the batcher slot cache and "
+                              "would not reproduce generate(seed=...); raise "
+                              f"continuous_batching_max_len or drop {knob}", status_code=400)
+    return svc
+
+
+__all__ = ["check_identity", "stream_events", "stream_service"]

@@ -825,6 +825,49 @@ def test_batcher_through_graphs_equals_eager_batcher(dev, kv):
     assert max(s._decode_host_lag) > 4
 
 
+def test_sse_stream_through_graph_batcher(dev):
+    """A stream over REST through the graph batcher (K = 4, 3 slots): each
+    stream's token events equal its ``done`` tokens and its greedy tokens
+    equal the eager batcher's; every prefill chunk and every decode dispatch
+    was a graph replay."""
+    import http.client
+    import json
+
+    from seldon_core_tpu_torch.runtime.batcher import BatcherService, ContinuousBatcher
+    from seldon_core_tpu_torch.servers.llmserver import LLMServer
+    from seldon_core_tpu_torch.transport.rest import make_component_app, start
+
+    s = LLMServer(model="transformer", model_kwargs=SMALL_LLM, init_random=True,
+                  param_dtype="auto", max_new_tokens=12, eos_id=-1, len_buckets=(16,),
+                  continuous_batching=3, decode_fuse_steps=4, device="cuda")
+    s.load()
+    s._batcher_service = BatcherService(s, max_slots=3)
+    httpd, _ = start(make_component_app(s, device="cuda"))
+    prompts = ("hi", [5, 9, 17, 2, 40, 3, 22], "hello there")
+    streams = []
+    try:
+        for p in prompts:
+            conn = http.client.HTTPConnection("127.0.0.1", httpd.server_address[1], timeout=120)
+            conn.request("POST", "/v1/generate", json.dumps({"prompt": p, "stream": True}))
+            streams.append(conn.getresponse())
+        events = [[json.loads(line[6:]) for line in (raw.decode().strip() for raw in r)
+                   if line.startswith("data: ")] for r in streams]
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        s._batcher_service.close()
+    assert s._prefill_replays == len(prompts) and s._prefill_eager == 0
+    assert s._decode_replays > 0 and s._decode_eager == 0
+    eager = ContinuousBatcher(s, max_slots=3, fuse_steps=4, device="cuda", _eager=True)
+    try:
+        want = [f.result(120) for f in [eager.submit(p) for p in prompts]]
+    finally:
+        eager.close()
+    for ev, toks in zip(events, want):
+        assert ev[-1]["done"] is True and ev[-1]["tokens"] == toks
+        assert [e["token"] for e in ev[:-1]] == toks
+
+
 def test_capture_while_another_thread_generates(dev):
     """Graphs are captured thread-locally: batchers built while another
     thread runs the private ``generate()`` path eagerly (its private

@@ -247,8 +247,15 @@ def test_rest_generate_and_ready(jax_params):
         assert code == 200 and body == server.generate(["hello", "a"])
         code, _, body = _post(url + "/v1/generate", {"prompt": "hello", "temperature": 0.0})
         assert code == 200 and body["tokens"] == want["tokens"][0]
-        code, _, body = _post(url + "/v1/generate", {"prompt": "hello", "stream": True})
-        assert code == 501 and "stream" in body["status"]["info"]
+        req = urllib.request.Request(url + "/v1/generate",
+                                     data=json.dumps({"prompt": "hello", "stream": True}).encode(),
+                                     headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=60) as r:  # served as SSE
+            assert r.status == 200 and r.headers["Content-Type"] == "text/event-stream"
+            events = [json.loads(line[6:]) for line in (raw.decode().strip() for raw in r)
+                      if line.startswith("data: ")]
+        assert [e["token"] for e in events[:-1]] == want["tokens"][0]
+        assert events[-1] == {"done": True, "tokens": want["tokens"][0], "text": want["texts"][0]}
         code, _, body = _post(url + "/v1/generate", {"nothing": 1})
         assert code == 400 and body["status"]["status"] == "FAILURE"
         # a shed answers 503 + Retry-After: hold every page with no tenant

@@ -1,0 +1,240 @@
+"""The port's scrape routes and metrics (``seldon_core_tpu_torch/metrics/
+registry.py``, ``LLMServer.llm_stats``, ``transport/rest.py`` ``/metrics``,
+``/prometheus``, ``/seldon.json``) against the JAX package, on the CPU:
+
+- fed the same observations, the port's text (its own writer of the
+  Prometheus format), parsed with ``prometheus_client.parser``, equals the
+  JAX registry's on every family the port emits (names, types, HELP,
+  label names and values, bucket bounds, counts and sums); the JAX side is
+  fed through ``sync_llm`` on a stub whose ``llm_stats`` returns the same
+  dict; the port emits exactly the families whose source it has;
+- the same requests to the JAX app and the port's app count the same
+  request series by method and code;
+- live, after streams through the batcher: one scrape shows TTFT count =
+  requests, inter-token count = credited tokens less one a request, page
+  gauges = ``page_stats()``; ``llm_stats`` drains, so the next scrape adds
+  nothing; ``/prometheus`` serves the same text and ``/seldon.json`` the JAX
+  package's ``wrapper_spec``."""
+
+import asyncio
+import json
+import socket
+import threading
+import urllib.error
+import urllib.request
+
+import numpy as np
+import pytest
+from aiohttp import web
+from prometheus_client.parser import text_string_to_metric_families
+
+import jax
+
+from seldon_core_tpu.metrics.registry import MetricsRegistry as JaxRegistry
+from seldon_core_tpu.servers.llmserver import LLMServer as JaxLLMServer
+from seldon_core_tpu.transport.openapi import wrapper_spec as jax_wrapper_spec
+from seldon_core_tpu.transport.rest import make_component_app as jax_app
+from seldon_core_tpu_torch.metrics.registry import MetricsRegistry
+from seldon_core_tpu_torch.servers.llmserver import LLMServer
+from seldon_core_tpu_torch.transport.rest import make_component_app, start
+
+KW = dict(vocab_size=256, dim=32, n_layers=2, n_heads=2, n_kv_heads=2, ffn_dim=64,
+          max_seq_len=64, dtype="float32")
+COMMON = dict(model="transformer", model_kwargs=KW, max_new_tokens=6, len_buckets=(16,),
+              batch_buckets=(1, 4), temperature=0.0, eos_id=-1, seed=3, continuous_batching=2)
+TIMEOUT = 60
+
+PORT_FAMILIES = {
+    "seldon_api_executor_server_requests", "seldon_api_executor_server_requests_seconds",
+    "seldon_llm_kv_pages_in_use", "seldon_llm_kv_pages_total", "seldon_llm_kv_page_sheds",
+    "seldon_llm_decode_step_seconds", "seldon_llm_ttft_seconds",
+    "seldon_llm_inter_token_seconds", "seldon_llm_decode_dispatch_seconds",
+    "seldon_llm_decode_sync_seconds", "seldon_llm_decode_steps_in_flight",
+    "seldon_llm_decode_host_lag_steps",
+}
+
+
+def families(text):
+    return {f.name: f for f in text_string_to_metric_families(text)}
+
+
+def stats(seed, sheds):
+    """One ``llm_stats`` snapshot with random series (a fresh dict a call:
+    ``sync_llm`` consumes it)."""
+    rng = np.random.default_rng(seed)
+    return {
+        "kv_pages_total": 66, "kv_pages_in_use": int(rng.integers(0, 64)), "kv_page_size": 64,
+        "kv_page_sheds": sheds,
+        "decode_step_times_s": rng.uniform(0, 0.05, 7).tolist(),
+        "decode_dispatch_times_s": rng.exponential(0.001, 5).tolist() + [0.0005, 7.5],
+        "decode_sync_times_s": rng.uniform(0, 0.02, 5).tolist(),
+        "decode_host_lag_steps": [1, 2, 2, 8, 16, 40, 0],
+        "decode_steps_in_flight": int(rng.integers(0, 3)),
+        "ttft_s": rng.uniform(0, 2, 3).tolist() + [0.1],
+        "inter_token_s": rng.uniform(0, 0.03, 9).tolist() + [0.0, 0.0],
+    }
+
+
+class _Stub:
+    def __init__(self):
+        self.snapshots = []
+
+    def llm_stats(self):
+        return self.snapshots.pop(0)
+
+
+def test_registry_text_equals_jax():
+    port, ref, stub = MetricsRegistry(), JaxRegistry(), _Stub()
+    calls = [("predict", "200", 0.003), ("generate", "200", 0.42), ("generate", "400", 0.0005),
+             ("predict", "200", 2.5), ("generate", "503", 12.0)]
+    for reg in (port, ref):
+        for call in calls:
+            reg.observe_api_call(*call)
+    for seed, sheds in ((0, 1), (1, 3), (2, 2)):  # a tally never counts down
+        for reg in (port, ref):
+            stub.snapshots.append(stats(seed, sheds))
+            reg.sync_llm(stub)
+    got = families(port.expose().decode())
+    want = families(ref.expose().decode())
+    assert set(got) == PORT_FAMILIES
+    for name, fam in got.items():
+        assert (fam.type, fam.documentation, fam.samples) == \
+            (want[name].type, want[name].documentation, want[name].samples), name
+    assert got["seldon_llm_kv_page_sheds"].samples[0].value == 3
+
+
+def test_empty_registry_equals_jax():
+    got, want = families(MetricsRegistry().expose().decode()), families(
+        JaxRegistry().expose().decode())
+    for name, fam in got.items():
+        assert (fam.type, fam.documentation, fam.samples) == \
+            (want[name].type, want[name].documentation, want[name].samples), name
+
+
+def jax_threaded_app(comp):
+    app = jax_app(comp)
+    loop = asyncio.new_event_loop()
+    runner = web.AppRunner(app)
+    started = threading.Event()
+
+    def run():
+        asyncio.set_event_loop(loop)
+        loop.run_until_complete(runner.setup())
+        s = socket.socket()
+        s.bind(("127.0.0.1", 0))
+        run.port = s.getsockname()[1]
+        loop.run_until_complete(web.SockSite(runner, s).start())
+        started.set()
+        loop.run_forever()
+
+    threading.Thread(target=run, daemon=True).start()
+    assert started.wait(10)
+    return run.port, lambda: loop.call_soon_threadsafe(loop.stop)
+
+
+def get(port, path):
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=TIMEOUT) as r:
+        return r.status, r.headers.get("Content-Type"), r.read().decode()
+
+
+def post(port, body, path="/v1/generate"):
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=TIMEOUT) as r:
+            return r.status, r.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+@pytest.fixture(scope="module")
+def apps():
+    """(JAX app port, port app port, port server): the JAX LLMServer and its
+    port twin (the same weights), each behind its component app."""
+    j = JaxLLMServer(init_random=True, **COMMON)
+    j.load()
+    jport, jstop = jax_threaded_app(j)
+    p = LLMServer(device="cpu", **COMMON)
+    p.load(params={"params": jax.tree_util.tree_map(np.asarray, j._params["params"])})
+    httpd, _ = start(make_component_app(p, device="cpu"))
+    try:
+        yield jport, httpd.server_address[1], p
+    finally:
+        jstop()
+        httpd.shutdown()
+        httpd.server_close()
+        if getattr(p, "_batcher_service", None) is not None:
+            p._batcher_service.close()
+
+
+REQUESTS = [({"prompt": "hello"}, "/v1/generate"),
+            ({"prompt": [5, 9, 2], "stream": True}, "/v1/generate"),
+            ({"prompt": "hi", "temperature": 0.5, "stream": True}, "/v1/generate"),
+            ({"nothing": 1}, "/v1/generate"),
+            ({"jsonData": {"prompt": "hi"}}, "/predict"),
+            ({"jsonData": {}}, "/api/v0.1/predictions")]
+
+
+def test_request_series_equal_jax_app(apps):
+    jport, pport, _ = apps
+    for port in (jport, pport):
+        codes = [post(port, body, path)[0] for body, path in REQUESTS]
+        assert codes == [200, 200, 400, 400, 200, 400], port
+    got = families(get(pport, "/metrics")[2])
+    want = families(get(jport, "/metrics")[2])
+    for name in ("seldon_api_executor_server_requests",):
+        assert got[name].samples == want[name].samples
+    counts = [[s for s in fams["seldon_api_executor_server_requests_seconds"].samples
+               if s.name.endswith("_count")] for fams in (got, want)]
+    assert counts[0] == counts[1]
+
+
+def test_live_scrape_counts_the_streams(apps):
+    _, pport, server = apps
+    before = families(get(pport, "/metrics")[2])  # drains what earlier tests left
+    bodies = [{"prompt": "hello world", "stream": True},
+              {"prompt": [7, 7, 1, 2], "max_new_tokens": 9, "stream": True},
+              {"prompt": "abc", "max_new_tokens": 4}]
+    results = [None] * len(bodies)
+
+    def client(i):
+        results[i] = post(pport, bodies[i])
+
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(len(bodies))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(TIMEOUT)
+    assert all(r is not None and r[0] == 200 for r in results)
+    credited = sum(b.get("max_new_tokens", COMMON["max_new_tokens"]) for b in bodies)
+    code, ctype, text = get(pport, "/metrics")
+    assert code == 200 and ctype.startswith("text/plain")
+    fams = families(text)
+
+    def value(name, suffix="", scrape=None):
+        return next(s.value for s in (scrape or fams)[name].samples if s.name == name + suffix)
+
+    def added(name):  # histograms are cumulative: this run's observations
+        return value(name, "_count") - value(name, "_count", before)
+
+    assert added("seldon_llm_ttft_seconds") == len(bodies)
+    assert added("seldon_llm_inter_token_seconds") == credited - len(bodies)
+    pages = server._batcher_service.batcher.page_stats()
+    assert value("seldon_llm_kv_pages_in_use") == pages["kv_pages_in_use"] == 0
+    assert value("seldon_llm_kv_pages_total") == pages["kv_pages_total"]
+    assert value("seldon_llm_kv_page_sheds", "_total") == pages["kv_page_sheds"]
+    assert added("seldon_llm_decode_dispatch_seconds") > 0
+    # llm_stats drained the series: another scrape adds no observation
+    stats_now = server.llm_stats()
+    assert stats_now["ttft_s"] == [] and stats_now["inter_token_s"] == []
+    again = families(get(pport, "/prometheus")[2])
+    for name in ("seldon_llm_ttft_seconds", "seldon_llm_inter_token_seconds",
+                 "seldon_llm_decode_step_seconds"):
+        assert again[name].samples == fams[name].samples
+
+
+def test_seldon_json_is_the_wrapper_spec(apps):
+    jport, pport, _ = apps
+    code, ctype, text = get(pport, "/seldon.json")
+    assert code == 200 and ctype == "application/json"
+    assert json.loads(text) == jax_wrapper_spec() == json.loads(get(jport, "/seldon.json")[2])
