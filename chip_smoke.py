@@ -23,8 +23,12 @@ Phases (any failure exits non-zero; nothing swallows an error):
    PyTorch call computes the same function, that call's: K1 paged attention
    over a bf16 and an int8 pool (at the split S its plan picks; one call
    must put one kernel and nothing else on its stream, counted from a CUDA
-   graph of the call, whose replay must agree too), K2 fused
-   residual + RMSNorm at [8, 128 and 256, 4096] bf16 (one launch, one CTA
+   graph of the call, whose replay must agree too), and at the speculative
+   verify's folded rows (8 sequences x 5 columns = 40 rows, ctx 160), timed
+   in turns with the JAX package's verify read (gather each sequence's
+   whole table, then the masked einsum chain), K2 fused
+   residual + RMSNorm at [8, 40, 128 and 256, 4096] and [8 and 128, 2048] bf16 (one
+   launch, one CTA
    a row at its plan; one call must be one kernel node of a CUDA graph,
    whose replay and a second call must give the same bits; timed in turns
    with a trivial kernel, ``out.zero_()``, which gives the timing floor,
@@ -36,7 +40,8 @@ Phases (any failure exits non-zero; nothing swallows an error):
    GEMM at every decode shape of the int8 7B model (the decode kernel; one
    call must put one kernel and nothing else on its stream, counted from a
    CUDA graph of the call whose replay must give the same bits, and two
-   calls must give the same bits) and at 128- and 256-row prefill chunks
+   calls must give the same bits; M = 40 is the speculative verify's 8
+   slots x 5 columns) and at 128- and 256-row prefill chunks
    of wq, w1, w2 and the lm_head (the prefill kernel, TMA + wgmma; a CUDA
    graph of one call must hold it and, where its plan splits K, the
    split-K reduce, and its replay and a second call must give the same
@@ -122,7 +127,25 @@ Phases (any failure exits non-zero; nothing swallows an error):
    Model/GenerateStream, whose events must equal SSE's (only a missing
    grpcio or protobuf skips it, saying so). The int8 run's
    device memory after load() must stay under INT8_LOAD_PEAK_GB: the int8
-   weights plus one float32 leaf;
+   weights plus one float32 leaf. Speculative decoding (``spec_phase``, K =
+   SPEC_K = 4): (a) a ContinuousBatcher(spec_mode="ngram") on the loaded
+   bf16 server and (b) on the int8 one, then a bf16 server loaded beside
+   (c) a draft configured like the target (the perfect drafter) and (d) a
+   TinyLlama-1.1B-wide draft, both with batcher max_len SPEC_MAX_LEN and a
+   plain graph run first. Each serves the 8 requests through REST (counts
+   zeroed just before, read just after): every verify dispatch a replay
+   of the batcher's one spec graph; K1 one launch a layer a verify (its K
+   + 1 columns folded into rows), K2 one a layer of every forward and
+   draft prefill, K4 one a product; tokens teacher-forced and equal to the
+   plain batcher's up to a near-tie; (c) accepting at least
+   SPEC_PERFECT_ACCEPT. On live state a replay at full and at mixed caps
+   is bit-equal to the eager program (tokens, advance, state, history,
+   draft caches, pools but the TRASH page), and the graph's kernel nodes
+   and a replay's launches are as expected. Printed: acceptance, tokens a
+   forward, draft overhead, the step per dispatch and per token beside the
+   plain step, the replay's host and device time beside the eager
+   program's, the spec graph's pool, peak memory, and with a draft its
+   forwards' share of the step;
 5. ResNet-50 forward phase — the folded model at full width and depth
    (random live weights from a seed: no residual branch is switched off),
    a forward at batch 128 through K3 (its launches: the four chains'
@@ -223,6 +246,22 @@ MIXED_CHUNKS = (256, 256, 256, 32, 128)
 # K4 launches per forward of the int8 model: 7 projections x 32 layers +
 # the lm_head
 K4_PER_FORWARD = 7 * LLAMA2_7B["n_layers"] + 1
+# speculative decoding: drafts a verify step, and the verify's rows at the 8
+# slots (K + 1 columns each, folded into rows of one K1 call)
+SPEC_K = 4
+SPEC_ROWS = N_REQUESTS * (SPEC_K + 1)
+# the draft-model runs' batcher max_len: the dense draft cache holds 8 slots
+# x (max_len + 1) positions (at the default 4,128 a 7B-wide draft's would
+# take 17.3 GB)
+SPEC_MAX_LEN = 512
+# the second draft: TinyLlama-1.1B's published widths (its config.json;
+# Llama-2's tokenizer and vocab), random weights
+TINYLLAMA_1B = dict(vocab_size=32000, dim=2048, n_layers=22, n_heads=32, n_kv_heads=4,
+                    ffn_dim=5632, max_seq_len=2048, dtype="bfloat16", fused_norm=True)
+# the perfect drafter (a copy of the target) must verify nearly every draft:
+# only a near-tie between the dense draft read and the paged verify may
+# reject one
+SPEC_PERFECT_ACCEPT = 0.9
 
 
 def fail(msg: str) -> None:
@@ -603,6 +642,76 @@ def k1_case(b, h, kvh, hd, ps, n_pages, ctx, null_row, seed, flush, kv="bf16"):
                 bound_by="bytes" if bytes_s >= flops_s else "operations")
 
 
+def k1_verify_case(kv, flush, seqs=8, ctx=160):
+    """K1 at the speculative verify's folded shape: ``seqs`` sequences of
+    ``ctx`` keys and SPEC_K + 1 verify columns at positions ctx ..
+    ctx + SPEC_K (written, as the verify writes its columns before it
+    attends), folded into seqs * (SPEC_K + 1) query rows of one call, each
+    with its sequence's table and its own position (what
+    ``Transformer.forward(verify=True)`` passes). Checked against the plain
+    version on the same rows, one call one kernel; timed in turns with the
+    read the JAX package runs for the verify (``gather_paged_view`` over
+    each sequence's whole table, then ``masked_attention`` of its columns),
+    beside the plain version and SDPA over each sequence's attended view
+    (one call: seqs x columns queries, the mask pos <= column position)."""
+    import torch
+    import torch.nn.functional as F
+
+    from seldon_core_tpu_torch.models.transformer import gather_paged_view, masked_attention
+    from seldon_core_tpu_torch.ops.paged_attention import paged_attention, paged_attention_ref
+
+    h, hd, ps, n_pages = 32, 128, 64, 32
+    cols = SPEC_K + 1
+    q8, cache, cache32, bt8, _, used = k1_inputs(seqs, h, h, hd, ps, n_pages, ctx + cols, None,
+                                                 seed=41, kv=kv)
+    rows = seqs * cols
+    g = torch.Generator(device="cuda").manual_seed(42)
+    q = torch.randn((rows, 1, h, hd), generator=g, device="cuda").to(torch.bfloat16)
+    bt = bt8.repeat_interleave(cols, dim=0)
+    qpos = (ctx + torch.arange(cols, device="cuda", dtype=torch.int32)).repeat(seqs)[:, None]
+    label = f"K1 {kv} verify b={rows} (={seqs} x {cols} columns) h=kvh={h} ctx={ctx}"
+    counter = "launches_int8" if kv == "int8" else "launches"
+    before = getattr(paged_attention, counter)
+    out = paged_attention(q, cache, bt, qpos)
+    torch.cuda.synchronize()
+    if getattr(paged_attention, counter) != before + 1:
+        fail(f"{label}: the wrapper did not count its launch")
+    ref32 = paged_attention_ref(q.float(), cache32, bt, qpos)
+    err = k1_check(label, out, ref32)
+    nodes, out_graph = graph_nodes(lambda: paged_attention(q, cache, bt, qpos))
+    if nodes != ["kernel"]:
+        fail(f"{label}: one call put {len(nodes)} operations on its stream: {nodes}")
+    k1_check(f"{label} (CUDA graph replay)", out_graph, ref32)
+    # the JAX package's verify read: gather each sequence's whole table,
+    # then the masked einsum chain over its columns
+    qs = q.view(seqs, cols, h, hd)
+    pos_s = qpos.view(seqs, cols)
+
+    def jax_form():
+        k_all, v_all, pos_view = gather_paged_view(cache, bt8, q.dtype)
+        return masked_attention(qs, k_all, v_all, pos_view[:, None, :] <= pos_s[:, :, None])
+
+    form_err = (jax_form().float().reshape(rows, 1, h, hd) - ref32).abs().max().item()
+    timed = time_turns([lambda: paged_attention(q, cache, bt, qpos), jax_form], flush)
+    plain_ms = time_ms(lambda: paged_attention_ref(q, cache, bt, qpos), flush)
+    k_all, v_all, pos_view = gather_paged_view(cache, bt8[:, :used].contiguous(), q.dtype)
+    mask = (pos_view[:, None, :] <= pos_s[:, :, None])[:, None]           # [seqs, 1, cols, L]
+    qt, kt, vt = qs.transpose(1, 2), k_all.transpose(1, 2), v_all.transpose(1, 2)
+    library_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask),
+                         flush)
+    # each sequence's ctx + cols keys read once (shared by its columns), the
+    # position rows and table entries of its pages, q, the positions, out;
+    # each row's dot products over the keys it attends (ctx + j + 1)
+    kv_row = 2 * (hd + 4) if kv == "int8" else 2 * hd * 2
+    nbytes = (seqs * (ctx + cols) * h * kv_row + seqs * used * (ps * 4 + 4)
+              + 2 * rows * h * hd * 2 + rows * 4)
+    flops = 4 * h * hd * seqs * sum(ctx + j + 1 for j in range(cols))
+    bytes_s, flops_s = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S
+    return dict(err=err, ms=timed[0][0], jax_form_ms=timed[1][0], jax_form_err=form_err,
+                plain_ms=plain_ms, library_ms=library_ms, bound_ms=max(bytes_s, flops_s) * 1e3,
+                bound_by="bytes" if bytes_s >= flops_s else "operations", label=label)
+
+
 K1_SHAPES = [("ctx160", dict(b=8, h=32, kvh=32, ctx=160)),
              ("ctx2048", dict(b=8, h=32, kvh=32, ctx=2048)),
              ("gqa_ctx2048", dict(b=8, h=32, kvh=8, ctx=2048))]
@@ -659,8 +768,11 @@ def bf16_ulp(x):
 
 # rows at decode (8 slots), the served prefill chunks, and generate()'s
 # calls: a decode step of 1, 4 (bucket of 2 texts) or 8 rows, a dense
-# prefill of 4 or 8 rows x 128
-K2_SHAPES = (1, 4, 8, 32, 128, 256, 512, 1024)
+# prefill of 4 or 8 rows x 128; the speculative verify's 8 x (K + 1) = 40
+K2_SHAPES = (1, 4, 8, 32, 40, 128, 256, 512, 1024)
+# the TinyLlama-1.1B-wide draft at d = 2048: its forwards in the spec step
+# (8 rows) and its prompt prefill at admission (the 128-token bucket)
+K2_DRAFT = ((8, 2048), (128, 2048))
 K2_D = LLAMA2_7B["dim"]
 K2_EPS = 1e-5
 
@@ -894,13 +1006,16 @@ K4_FAMILIES = [("wq/wk/wv/wo", 4096, 4096, "bfloat16"), ("w1/w3", 4096, 11008, "
                ("w2", 11008, 4096, "bfloat16"), ("lm_head", 4096, 32000, "float32")]
 # the rows K4 takes on the main path: generate()'s decode steps of 1 and 4
 # rows, the 8 serving slots, the served prefill chunks (32 on the decode
-# route), generate()'s dense prefills of 4 and 8 rows x 128
-K4_SHAPES = (1, 4, 8, 32, 128, 256, 512, 1024)
+# route), the speculative verify's 8 x (K + 1) = 40 (the decode route),
+# generate()'s dense prefills of 4 and 8 rows x 128
+K4_SHAPES = (1, 4, 8, 32, 40, 128, 256, 512, 1024)
 
 
 def k4_label(name: str, m: int) -> str:
     if m == 8:
         return name
+    if m == SPEC_ROWS:
+        return f"{name} verify M={m}"
     return f"{name} M={m}" if m < 8 else f"{name} prefill M={m}"
 
 
@@ -2310,7 +2425,8 @@ def serve(label: str, card: str, server, weight_bytes: int, fuse: int = 0,
                "decode_pool_gb": decode_pool_gb,
                "mixed_ttft_ms": [t * 1e3 for t in mixed_ttft],
                "mixed_step_ms": statistics.median(mixed_steps) * 1e3,
-               "mixed_peak_gb": mixed_peak_gb, "generate": gen, "stream": streamed}
+               "mixed_peak_gb": mixed_peak_gb, "generate": gen, "stream": streamed,
+               "served": served}
     print(f"[{label}] serving: {N_REQUESTS} concurrent requests x {MAX_NEW} tokens in "
           f"{wall:.3f} s; TTFT median {metrics['ttft_med_ms']:.1f} ms max "
           f"{metrics['ttft_max_ms']:.1f} ms; decode step median {step_ms:.2f} ms = "
@@ -2359,6 +2475,399 @@ def serve(label: str, card: str, server, weight_bytes: int, fuse: int = 0,
     total = {key: launches[key] + mixed_launches[key] + gen_launches.get(key, 0)
              + stream_launches.get(key, 0) for key in launches}
     return total, metrics
+
+
+# ---------------------------------------------------------------------------
+# Speculative decoding: the spec step as one CUDA graph per batcher
+# ---------------------------------------------------------------------------
+def rest_serve(label: str, card: str, server, texts, **batcher_kw):
+    """``texts`` through REST, all at once, on a new BatcherService of
+    ``server`` with ``batcher_kw`` (built, its graphs warmed up and
+    captured, under ``set_sync_debug_mode("error")``), after one warm-up
+    request; every launch counter and the server's dispatch counters
+    zeroed just before the requests and read just after. Returns (the
+    closed batcher, the served tokens, the launch counts, metrics: the
+    step wall, the verify dispatches as (replays, eager runs), the host
+    time per dispatch, TTFT, the controller's counters over the requests,
+    peak memory)."""
+    import torch
+
+    from seldon_core_tpu_torch.runtime.batcher import BatcherService
+    from seldon_core_tpu_torch.transport.rest import make_component_app, start
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        svc = BatcherService(server, max_slots=N_REQUESTS, **batcher_kw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    b = svc.batcher
+    server._batcher_service = svc
+    httpd, _ = start(make_component_app(server, device="cuda"))
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    try:
+        code, body = post(url + "/v1/generate", {"prompt": "warm up", "max_new_tokens": 4})
+        if code != 200:
+            fail(f"[{label}] warm-up request answered {code}: {body}")
+        torch.cuda.synchronize()
+        zero_counts(server)
+        server._decode_replays = server._decode_eager = 0
+        before = b._spec.snapshot() if b._spec is not None else None
+        results, wall = post_all(url, texts)
+        launches = read_counts(server)
+        dispatches = (server._decode_replays, server._decode_eager)
+        after = b._spec.snapshot() if b._spec is not None else None
+        steps = sorted(server._decode_step_times)
+        metrics = {"step_ms": statistics.median(steps) * 1e3, "steps": len(steps),
+                   "dispatch_ms": statistics.median(server._decode_dispatch_times) * 1e3,
+                   "ttft_med_ms": statistics.median(server._ttft_times) * 1e3,
+                   "wall_s": wall, "build_s": build_s, "dispatches": dispatches,
+                   "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    served = served_tokens(label, results)
+    if b.page_stats()["kv_pages_in_use"] != 0:
+        fail(f"[{label}] pages still held after every request finished: {b.page_stats()}")
+    svc.close()
+    server._batcher_service = None
+    if before is not None:
+        d = {k: after[k] - before[k] for k in ("spec_accepted_drafts_total",
+                                               "spec_drafted_total", "spec_slot_steps_total",
+                                               "spec_tokens_total")}
+        drafted, acc = d["spec_drafted_total"], d["spec_accepted_drafts_total"]
+        metrics.update(accept=acc / drafted if drafted else 0.0,
+                       tokens_per_forward=d["spec_tokens_total"] / d["spec_slot_steps_total"],
+                       overhead=(drafted - acc) / (drafted + d["spec_slot_steps_total"]))
+    return b, served, launches, metrics
+
+
+def near_tie_check(label: str, card: str, server, texts, served, plain) -> int:
+    """Each request's served tokens against the plain batcher's: equal, or
+    equal up to a first difference where both tokens sit within TIE_TOL of
+    the top logit of a teacher-forced prefill. Returns the requests equal
+    throughout."""
+    equal = 0
+    for i, (a, b_) in enumerate(zip(served, plain)):
+        t = next((j for j, (x, y) in enumerate(zip(a, b_)) if x != y), None)
+        if t is None:
+            equal += 1
+            continue
+        row = teacher_logits(server, [server._tokenizer.encode(texts[i]) + a[:t]])[0, -1].float()
+        top = row.max().item()
+        gaps = (top - row[a[t]].item(), top - row[b_[t]].item())
+        print(f"[{label}] request {i}: tokens equal to the plain batcher's for {t} of "
+              f"{MAX_NEW}, then {a[t]} vs {b_[t]}; teacher-forced gaps to the top {gaps[0]:.4f} "
+              f"/ {gaps[1]:.4f} (tie tolerance {TIE_TOL}) [{card}]", flush=True)
+        if max(gaps) > TIE_TOL:
+            fail(f"[{label}] request {i} leaves the plain batcher's greedy tokens at {t} "
+                 f"without a near-tie")
+    return equal
+
+
+def spec_state(b, pools: bool):
+    """Copies of a spec batcher's slot state, history and draft caches (and
+    with ``pools`` its KV pools)."""
+    draft = None if b._draft_caches is None else [tuple(t.clone() for t in layer)
+                                                  for layer in b._draft_caches]
+    return ([tuple(t.clone() for t in layer) for layer in b._caches] if pools else None,
+            b._last_tok.clone(), b._next_pos.clone(), b._keys.clone(), b._hist.clone(), draft)
+
+
+def spec_restore(b, copy) -> None:
+    _, last_tok, next_pos, keys, hist, draft = copy
+    for t, c in ((b._last_tok, last_tok), (b._next_pos, next_pos), (b._keys, keys),
+                 (b._hist, hist)):
+        t.copy_(c)
+    for layer, saved in zip(b._draft_caches or (), draft or ()):
+        for t, c in zip(layer, saved):
+            t.copy_(c)
+
+
+def spec_equal(b, copy) -> bool:
+    """The batcher's state against ``copy`` (an eager run from identical
+    copies): slot state, history, draft caches, and every pool page but
+    TRASH, which absorbs the columns past each cap (several a row) in no
+    set order."""
+    import torch
+
+    from seldon_core_tpu_torch.models.transformer import TRASH_PAGE
+
+    pools, last_tok, next_pos, keys, hist, draft = copy
+    keep = torch.ones(b._caches[0][0].shape[0], dtype=torch.bool, device="cuda")
+    keep[TRASH_PAGE] = False
+    return (torch.equal(b._last_tok, last_tok) and torch.equal(b._next_pos, next_pos)
+            and torch.equal(b._keys, keys) and torch.equal(b._hist, hist)
+            and all(torch.equal(x[keep], y[keep]) for la, lb in zip(b._caches, pools)
+                    for x, y in zip(la, lb))
+            and all(torch.equal(x, y) for la, lb in zip(b._draft_caches or (), draft or ())
+                    for x, y in zip(la, lb)))
+
+
+def draft_check(label: str, card: str, server, b, prog, snap) -> None:
+    """The drafts of one eager spec step at full caps on live state (read
+    off the verify's input, ``[last_tok, d_1..d_K]``, by a forward pre-hook
+    on the target) against the draft model's own teacher-forced prefill
+    over each slot's history, last token and drafts, in fresh dense caches:
+    every draft must sit within TIE_TOL of that prefill's top logit. Runs
+    on copies of the state; the live state is left as ``snap``."""
+    import torch
+
+    from seldon_core_tpu_torch.models.transformer import init_kv_caches
+
+    spec_restore(b, snap)
+    b._draft_cap.fill_(SPEC_K)
+    copy = spec_state(b, pools=True)
+    fed = []
+    hook = server._module.register_forward_pre_hook(lambda mod, args: fed.append(args[0].clone()))
+    try:
+        prog(copy[0], *copy[1:4], b._temp, b._block_tables, copy[4], b._draft_cap, copy[5])
+    finally:
+        hook.remove()
+    if len(fed) != 1 or tuple(fed[0].shape) != (b.S, SPEC_K + 1):
+        fail(f"[{label}] the eager spec step fed the target {[tuple(t.shape) for t in fed]}, "
+             f"expected one verify of {(b.S, SPEC_K + 1)}")
+    drafts = fed[0][:, 1:]                                              # [S, K]
+    start = b._next_pos.long()                                          # last_tok's position
+    seqs = [b._hist[i, :int(start[i]) + 1].tolist() + drafts[i, :SPEC_K - 1].tolist()
+            for i in range(b.S)]
+    n, L = len(seqs), max(map(len, seqs))
+    toks = torch.zeros((n, L), dtype=torch.int64, device="cuda")
+    for i, seq in enumerate(seqs):
+        toks[i, :len(seq)] = torch.tensor(seq, device="cuda")
+    pos = torch.arange(L, device="cuda")[None].expand(n, L)
+    with torch.no_grad():
+        logits, _ = server._draft_module(
+            toks, positions=pos, caches=init_kv_caches(server._draft_cfg, n, L, device="cuda"),
+            cache_index=0)
+    # row start + j - 1 predicts draft j
+    rows = torch.stack([logits[i, int(start[i]):int(start[i]) + SPEC_K]
+                        for i in range(n)]).float()                    # [S, K, vocab]
+    picked = rows.gather(2, drafts[:, :, None])[:, :, 0]
+    top2 = rows.topk(2, dim=-1).values
+    gaps = top2[:, :, 0] - picked
+    worst = gaps.max().item()
+    print(f"[{label}] the {SPEC_K} drafts of one eager spec step on live state ({n} slots, "
+          f"{server._draft_cfg.n_kv_heads} draft kv heads) against the draft model's "
+          f"teacher-forced prefill over the same tokens: {int((gaps == 0).sum())} of "
+          f"{gaps.numel()} are its argmax, worst gap to the top logit {worst:.4f} (tie "
+          f"tolerance {TIE_TOL}); median top-1/top-2 margin "
+          f"{(top2[:, :, 0] - top2[:, :, 1]).median().item():.4f} [{card}]", flush=True)
+    if worst > TIE_TOL:
+        i, j = divmod(int(gaps.argmax()), SPEC_K)
+        fail(f"[{label}] slot {i} draft {j + 1}: {int(drafts[i, j])} sits {worst:.4f} below the "
+             f"draft model's teacher-forced top logit (tolerance {TIE_TOL})")
+    del copy
+    spec_restore(b, snap)
+
+
+def spec_phase(label: str, card: str, server, mode: str, plain: Optional[dict] = None):
+    """One speculative run on ``server`` (loaded): the N_REQUESTS prompts x
+    MAX_NEW tokens through REST on ContinuousBatcher(spec_mode=``mode``,
+    spec_k=SPEC_K), every verify dispatch a replay of the batcher's one spec
+    graph. Without ``plain`` (the plain graph run's step wall and served
+    tokens on this server) a plain batcher serves the same prompts first.
+    Fails unless every verify dispatch was a replay; each kernel launched
+    what the dispatches, chunks and admissions need; every served token is
+    within TIE_TOL of the teacher-forced top logit and equals the plain
+    greedy token up to a near-tie; the perfect drafter accepted at least
+    SPEC_PERFECT_ACCEPT; then, on live state (the prompts admitted again,
+    the loop stopped), a replay at full and at mixed caps is bit-equal to
+    the same program run eagerly from identical copies (tokens, advance,
+    state, history, draft caches, pools but TRASH), with a draft the K
+    drafts of one eager step are within TIE_TOL of the draft model's
+    teacher-forced top logit (``draft_check``), and the graph's kernel
+    nodes and a replay's launches are one K1 a layer of the target, one K2
+    a layer of every forward (the verify and, with a draft, its K + 1
+    forwards) and in int8 one K4 decode launch a product. Prints the
+    acceptance counters, the step wall per dispatch and per token beside
+    the plain step, the replay's host and device time against the eager
+    program's enqueue and kernel sum, the spec graph's pool and peak
+    memory, and with a draft the draft forwards' share of the step (their
+    own CUDA graph, events), and the end-to-end wall of the requests (and
+    tokens/s) beside the plain batcher's on this server: ``plain``'s, or
+    the plain run here. Returns ([(label, launch counts)], metrics)."""
+    import gc
+
+    import torch
+
+    quantized, int8_kv = server.quantize == "int8", server.kv_cache_dtype == "int8"
+    n_layers = LLAMA2_7B["n_layers"]
+    texts = prompts(N_REQUESTS)
+    records = []
+    if plain is None:
+        pb, pserved, plaunch, pm = rest_serve(f"{label} plain", card, server, texts,
+                                              spec_mode="off")
+        check_launches(f"{label} plain", card, plaunch,
+                       [c for t in texts for c in chunks_of(pb, len(t))], quantized, int8_kv,
+                       eager=False)
+        del pb
+        records.append((f"{label} plain", plaunch))
+        plain = {"step_ms": pm["step_ms"], "served": pserved, "wall_s": pm["wall_s"]}
+        print(f"[{label} plain] plain graph batcher on this server: decode step median "
+              f"{pm['step_ms']:.2f} ms over {pm['steps']} steps [{card}]", flush=True)
+    b, served, launches, m = rest_serve(label, card, server, texts, spec_mode=mode,
+                                        spec_k=SPEC_K)
+    records.append((label, launches))
+    if b._graphs or b._spec_graph is None:
+        fail(f"[{label}] spec batcher holds decode graphs {sorted(b._graphs)} and spec graph "
+             f"{b._spec_graph}: expected the spec graph alone")
+    replays, eager = m["dispatches"]
+    if replays == 0 or eager:
+        fail(f"[{label}] verify dispatches: {replays} replays, {eager} eager runs; every one "
+             f"must be a replay")
+    # launches over the requests: the verify dispatches, the prefill chunks,
+    # and with a draft its prompt prefill at each admission
+    dcfg = server._draft_cfg
+    draft_k2 = dcfg.n_layers if mode == "draft" and dcfg.fused_norm else 0
+    verify_k2 = n_layers + (SPEC_K + 1) * draft_k2
+    chunks = [c for t in texts for c in chunks_of(b, len(server._tokenizer.encode(t)))]
+    per = K4_PER_FORWARD if quantized else 0
+    wide = sum(c >= 64 for c in chunks)
+    k1_key, idle_k1 = ("k1_int8", "k1") if int8_kv else ("k1", "k1_int8")
+    want = {k1_key: replays * n_layers, idle_k1: 0,
+            "k2": replays * verify_k2 + len(chunks) * n_layers + len(texts) * draft_k2,
+            "k4": (replays + len(chunks)) * per, "k4_wgmma": wide * per,
+            "replays": len(chunks), "eager": 0}
+    if {k: launches[k] for k in want} != want:
+        fail(f"[{label}] launches {launches}, expected {want} ({replays} verify dispatches, "
+             f"chunks {chunks}, {len(texts)} admissions)")
+    print(f"[{label}] launches: paged_attention ({k1_key}) {launches[k1_key]} ({replays} verify "
+          f"replays x {n_layers} layers, the {SPEC_K + 1} columns folded into rows), "
+          f"fused_residual_rmsnorm {launches['k2']} ({replays} x {verify_k2} + {len(chunks)} "
+          f"chunks x {n_layers} + {len(texts)} draft prefills x {draft_k2}), int8_matmul "
+          f"{launches['k4']} (prefill kernel {launches['k4_wgmma']}); prefill chunks "
+          f"{launches['replays']} replays [{card}]", flush=True)
+    teacher_check(label, card, server, texts, served)
+    same = near_tie_check(label, card, server, texts, served, plain["served"])
+    if mode == "draft" and dcfg == server._cfg and m["accept"] < SPEC_PERFECT_ACCEPT:
+        fail(f"[{label}] the perfect drafter accepted {m['accept']:.3f} of its drafts "
+             f"(< {SPEC_PERFECT_ACCEPT})")
+    per_token = m["step_ms"] / m["tokens_per_forward"]
+    n_tok = N_REQUESTS * MAX_NEW
+    print(f"[{label}] end to end: {n_tok} tokens ({N_REQUESTS} concurrent requests x {MAX_NEW}, "
+          f"through REST, prefill included) in {m['wall_s']:.4f} s = "
+          f"{n_tok / m['wall_s']:.1f} tokens/s, against the plain graph batcher's "
+          f"{plain['wall_s']:.4f} s = {n_tok / plain['wall_s']:.1f} tokens/s for the same "
+          f"requests on this server ({plain['wall_s'] / m['wall_s']:.3f}x) [{card}]", flush=True)
+    print(f"[{label}] served {N_REQUESTS} x {MAX_NEW} tokens in {m['wall_s']:.3f} s: accept rate "
+          f"{m['accept']:.4f}, tokens per forward {m['tokens_per_forward']:.4f}, draft overhead "
+          f"{m['overhead']:.4f} (the controller's counters over these requests); step wall "
+          f"(drain to drain) {m['step_ms']:.2f} ms a verify dispatch ({m['steps']} "
+          f"dispatches), {per_token:.2f} ms a token a slot, against the plain step "
+          f"{plain['step_ms']:.2f} ms ({plain['step_ms'] / per_token:.2f}x); host time a "
+          f"dispatch {m['dispatch_ms']:.3f} ms; TTFT median {m['ttft_med_ms']:.1f} ms; built "
+          f"in {m['build_s']:.3f} s; {same} of {N_REQUESTS} requests equal to the plain "
+          f"batcher's tokens throughout; peak device memory {m['peak_gb']:.2f} GB [{card}]",
+          flush=True)
+
+    # live state: the prompts admitted again with the loop stopped
+    admit_now(b, texts, ahead=768)
+    prog = server._get_spec_step(b.S, SPEC_K, b.hist_len, mode=mode, n_pages=b.n_pages)
+    snap = spec_state(b, pools=False)
+    full = (SPEC_K,) * N_REQUESTS
+    for caps in (full, (4, 3, 2, 1, 0, 4, 2, 1)):
+        spec_restore(b, snap)
+        b._draft_cap.copy_(torch.tensor(caps, dtype=torch.int32, device="cuda"))
+        copy = spec_state(b, pools=True)
+        out = b._spec_graph.replay().clone()
+        ref = prog(copy[0], *copy[1:4], b._temp, b._block_tables, copy[4], b._draft_cap,
+                   copy[5])
+        torch.cuda.synchronize()
+        ok = torch.equal(out, ref) and spec_equal(b, copy)
+        print(f"[{label}] replay vs eager at caps {caps} on live state ({N_REQUESTS} slots), from "
+              f"identical copies: tokens + advance {out[:, SPEC_K + 1].tolist()}, state, "
+              f"history, draft caches and pools (but TRASH) {'bit-equal' if ok else 'DIFFER'} "
+              f"[{card}]", flush=True)
+        if not ok:
+            fail(f"[{label}] the spec graph's replay and the eager program differ at caps {caps}")
+        del copy, out, ref
+    if mode == "draft":
+        draft_check(label, card, server, b, prog, snap)
+    torch.cuda.empty_cache()
+    k4_want = K4_PER_FORWARD if quantized else 0
+    want_nodes = (verify_k2, 0, k4_want, n_layers)
+    seen = node_counts(graph_kernel_names(b._spec_graph.graph))
+    spec_restore(b, snap)
+    per_replay = launches_of(b._spec_graph.replay)
+    if seen != want_nodes or per_replay != want_nodes:
+        fail(f"[{label}] the spec graph holds (K2, K4 prefill, K4 decode, K1) kernel nodes "
+             f"{seen}, a replay launched {per_replay}, expected {want_nodes}")
+    b._draft_cap.copy_(torch.tensor(full, dtype=torch.int32, device="cuda"))
+
+    def eager_step():
+        return prog(b._caches, b._last_tok, b._next_pos, b._keys, b._temp, b._block_tables,
+                    b._hist, b._draft_cap, b._draft_caches)
+
+    spec_restore(b, snap)
+    host_e, dev_e, ops_e, _ = profile_step(eager_step, K2_KERNEL, reps=5)
+    spec_restore(b, snap)
+    host_g, dev_g, ops_g, _ = profile_step(b._spec_graph.replay, K2_KERNEL)
+    spec_restore(b, snap)
+    ev_g = events_ms(b._spec_graph.replay)
+    pool_gb = graph_pool_gb([b._spec_graph])
+    traced = f"{dev_g:.3f} ms" if ops_g else "no device event in the trace"
+    print(f"[{label}] spec step at full caps on live state: replay host {host_g:.4f} ms (median "
+          f"of {REPS}) vs the eager enqueue {host_e:.3f} ms (median of 5); replay device "
+          f"{ev_g:.3f} ms (CUDA events, median of {REPS}; traced {traced}) vs the eager "
+          f"program's kernel sum {dev_e:.3f} ms "
+          f"(torch.profiler, {sum(e.count for e in ops_e)} kernels and copies); graph kernel "
+          f"nodes (K2, K4 prefill, K4 decode, K1) {seen}; spec graph pool {gb_text(pool_gb)} "
+          f"[{card}]", flush=True)
+    for e in ops_e[:8]:
+        print(f"  {dev_us(e) / 1e3:8.3f} ms  x{e.count:<5d} {e.key[:100]} [{card}]")
+    m.update(replay_host_ms=host_g, replay_dev_ms=ev_g, eager_host_ms=host_e, eager_dev_ms=dev_e,
+             pool_gb=pool_gb, per_token_ms=per_token, plain_step_ms=plain["step_ms"],
+             plain_wall_s=plain["wall_s"])
+    if mode == "draft":
+        spec_restore(b, snap)
+        tok0, pos0, width = b._last_tok.clone(), b._next_pos.clone(), b.max_len
+
+        def drafts():
+            tok, pos = tok0, pos0
+            for _ in range(SPEC_K + 1):
+                logits, _ = server._draft_module(tok[:, None], positions=pos[:, None],
+                                                 caches=b._draft_caches,
+                                                 cache_index=pos.clamp(max=width))
+                tok, pos = torch.argmax(logits[:, -1], dim=-1), pos + 1
+            return tok
+
+        # their share of the eager step's trace: the same forwards traced
+        # eagerly once, their kernel sum against the eager step's
+        from torch.profiler import ProfilerActivity, profile
+
+        drafts()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            drafts()
+            torch.cuda.synchronize()
+        dev_d = sum(dev_us(e) for e in prof.key_averages()
+                    if str(e.device_type).endswith("CUDA")) / 1e3
+        del prof
+        stream = torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            drafts()
+        torch.cuda.synchronize()
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g, stream=stream):
+            drafts()
+        draft_ms = events_ms(g.replay)
+        del g
+        m.update(draft_ms=draft_ms, draft_eager_ms=dev_d)
+        print(f"[{label}] the {SPEC_K + 1} draft forwards ({dcfg.n_layers} layers, dim "
+              f"{dcfg.dim}) alone: eagerly {dev_d:.3f} ms of kernels (torch.profiler) = "
+              f"{dev_d / dev_e:.1%} of the eager spec step's {dev_e:.3f} ms; as a CUDA graph of "
+              f"their own {draft_ms:.3f} ms (CUDA events, median of {REPS}) = "
+              f"{draft_ms / ev_g:.1%} of the replay's {ev_g:.3f} ms [{card}]", flush=True)
+    del b
+    gc.collect()
+    torch.cuda.empty_cache()
+    return records, m
 
 
 # ---------------------------------------------------------------------------
@@ -2815,11 +3324,23 @@ def main() -> int:
                   f"{r['ms'] / r['bound_ms']:.2f}x; one call = 1 kernel (CUDA graph of the call); "
                   f"max_abs_err {r['err']:.3e} ({K1_TOL_REASON}; vs the bf16 plain chain "
                   f"{r['err_bf16']:.3e}) [{card}]", flush=True)
+    for kv in ("bf16", "int8"):
+        r = k1_verify_case(kv, flush)
+        k1[kv, "verify"] = r
+        print(f"{r['label']} hd=128 ps=64 n_pages=32 (the verify's folded rows): kernel_ms "
+              f"{r['ms']:.4f} vs the JAX package's verify read (gather each sequence's whole "
+              f"table, masked einsum of its {SPEC_K + 1} columns) {r['jax_form_ms']:.4f}, in "
+              f"turns ({r['jax_form_ms'] / r['ms']:.2f}x); plain_ms {r['plain_ms']:.4f} bound_ms "
+              f"{r['bound_ms']:.4f} ({r['bound_by']}) library_ms {r['library_ms']:.4f} (SDPA, "
+              f"{N_REQUESTS} sequences x {SPEC_K + 1} queries over each attended view, gathered "
+              f"untimed); one call = 1 kernel (CUDA graph of the call); max_abs_err "
+              f"{r['err']:.3e} ({K1_TOL_REASON}); the JAX form's {r['jax_form_err']:.3e} "
+              f"[{card}]", flush=True)
     k2 = {}
-    for rows in K2_SHAPES:
-        r = k2_case(rows, K2_D, seed=rows, flush=flush)
-        k2[rows] = r
-        print(f"K2 fused_residual_rmsnorm [{rows},{K2_D}] bf16 (bf16 weight): plan (threads, "
+    for rows, d in [(rows, K2_D) for rows in K2_SHAPES] + list(K2_DRAFT):
+        r = k2_case(rows, d, seed=rows if d == K2_D else rows + d, flush=flush)
+        k2[rows if d == K2_D else (rows, d)] = r
+        print(f"K2 fused_residual_rmsnorm [{rows},{d}] bf16 (bf16 weight): plan (threads, "
               f"slots, chunks) {r['plan']}; kernel_ms {r['ms']:.4f} trivial kernel "
               f"(out.zero_(), the timing floor) "
               f"{r['floor_ms']:.4f} x + h then F.rms_norm (two library calls, for information) "
@@ -2832,7 +3353,7 @@ def main() -> int:
         for what, key, mm in (("h = x @ W (cuBLAS, bf16)", "stream", "mm_ms"),
                               ("h = int8_matmul(x, q, s) (K4)", "stream8", "mm8_ms")):
             a = r[key]
-            print(f"K2 [{rows},{K2_D}] in a dense stream (a CUDA graph of {STREAM_PAIRS} x "
+            print(f"K2 [{rows},{d}] in a dense stream (a CUDA graph of {STREAM_PAIRS} x "
                   f"[{what}, {r[mm]:.4f} ms; then one call]), added per call: kernel "
                   f"{a[0]:.4f} ms, trivial kernel (h.zero_()) {a[1]:.4f} [{card}]",
                   flush=True)
@@ -2880,7 +3401,7 @@ def main() -> int:
           f"kernel {step_sum('ms'):.3f} ms, bound {step_sum('bound_ms'):.3f} ms, "
           f"torch.matmul on bf16 weights {step_sum('library_ms'):.3f} ms [{card}]", flush=True)
     for m, what in ((1, "generate() decode step"), (4, "generate() decode step"),
-                    (32, "prefill forward")):
+                    (32, "prefill forward"), (SPEC_ROWS, "speculative verify forward")):
         sfx = k4_label("", m)
         print(f"K4 over one {what}'s {K4_PER_FORWARD} products at M = {m} (from the "
               f"shapes above): decode kernel {step_sum('ms', sfx):.3f} ms, bound "
@@ -2924,7 +3445,7 @@ def main() -> int:
     # 4. serving phase: per model, the eager programs first, then the graphs;
     # bf16 also with K = FUSED_K fused steps a dispatch; bf16 is freed before
     # int8 weights + int8 KV load
-    runs = {}
+    runs, spec_runs, spec_launches = {}, {}, []
     for model, knobs, fuses in (("bf16", {}, (0, FUSED_K)),
                                 ("int8", dict(quantize="int8", kv_cache_dtype="int8"), (0,))):
         server, weight_bytes = load_llm(model, card, knobs)
@@ -2932,6 +3453,25 @@ def main() -> int:
         for fuse in fuses:
             label = model if fuse <= 1 else f"{model} K={fuse}"
             runs[label] = serve(label, card, server, weight_bytes, fuse=fuse)
+        # (a) / (b): the n-gram spec batcher on the same loaded server
+        server.decode_fuse_steps = 0
+        label = f"{model} spec ngram"
+        records, spec_runs[label] = spec_phase(label, card, server, "ngram",
+                                               plain=runs[model][1])
+        spec_launches += records
+        del server
+        gc.collect()
+        torch.cuda.empty_cache()
+    # (c) the perfect drafter (a draft configured like the target: a copy)
+    # and (d) a TinyLlama-1.1B-wide draft, each loaded beside a bf16 target
+    for label, draft_kw in (("bf16 spec draft perfect", dict(LLAMA2_7B, fused_norm=True)),
+                            ("bf16 spec draft tinyllama", TINYLLAMA_1B)):
+        server, _ = load_llm(label, card, dict(spec_mode="draft", spec_k=SPEC_K,
+                                               draft_model="transformer",
+                                               draft_model_kwargs=draft_kw,
+                                               continuous_batching_max_len=SPEC_MAX_LEN))
+        records, spec_runs[label] = spec_phase(label, card, server, "draft")
+        spec_launches += records
         del server
         gc.collect()
         torch.cuda.empty_cache()
@@ -2968,9 +3508,26 @@ def main() -> int:
               f"[{card}]",
               flush=True)
 
+    print(f"speculative runs (Llama-2-7B target, {N_REQUESTS} concurrent requests x {MAX_NEW} "
+          f"tokens, K = {SPEC_K}; step wall drain to drain a verify dispatch) [{card}]:",
+          flush=True)
+    for label, m in spec_runs.items():
+        draft = (f", draft forwards {m['draft_ms']:.3f} ms as a graph, "
+                 f"{m['draft_eager_ms']:.3f} ms of eager kernels" if "draft_ms" in m else "")
+        print(f"  {label:26s} wall {m['wall_s']:.4f} s vs plain {m['plain_wall_s']:.4f} s "
+              f"({m['plain_wall_s'] / m['wall_s']:.3f}x end to end); accept {m['accept']:.4f}, "
+              f"tokens/forward {m['tokens_per_forward']:.4f}, overhead {m['overhead']:.4f}; step "
+              f"{m['step_ms']:.2f} ms = {m['per_token_ms']:.2f} ms a token (plain step "
+              f"{m['plain_step_ms']:.2f} ms); replay device {m['replay_dev_ms']:.3f} ms vs eager "
+              f"kernels {m['eager_dev_ms']:.3f} ms, host {m['replay_host_ms']:.4f} vs "
+              f"{m['eager_host_ms']:.3f} ms; pool {gb_text(m['pool_gb'])}, peak "
+              f"{m['peak_gb']:.2f} GB{draft} [{card}]", flush=True)
+
     def total(key, model):
-        return sum(launches[key] for label, (launches, _) in runs.items()
-                   if label.startswith(model))
+        return (sum(launches[key] for label, (launches, _) in runs.items()
+                    if label.startswith(model))
+                + sum(launches[key] for label, launches in spec_launches
+                      if label.startswith(model)))
 
     # 5. ResNet-50 forward; 6. predict serving
     model, _ = resnet_forward_phase(card)

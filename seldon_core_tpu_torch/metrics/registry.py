@@ -4,7 +4,8 @@ Port of the part of ``seldon_core_tpu/metrics/registry.py`` whose sources
 exist in the port: the API request counter and latency histogram, observed
 by the REST and gRPC routes, and the LLM serving series that
 ``LLMServer.llm_stats`` feeds at scrape time (TTFT, inter-token gap, decode
-step / dispatch / sync walls, host lag, steps in flight, the KV page pool).
+step / dispatch / sync walls, host lag, steps in flight, the KV page pool,
+speculative decoding's acceptance counters).
 Names, types, label names, HELP text and bucket bounds are the JAX
 package's, so a dashboard reads both. The JAX package builds on
 prometheus_client; the card's machine has none, so this module writes the
@@ -23,6 +24,7 @@ LATENCY_BUCKETS = (
     0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0,
 )
 HOST_LAG_BUCKETS = (0, 1, 2, 3, 4, 6, 8, 16, 32)
+SPEC_ACCEPTED_BUCKETS = (1, 2, 3, 4, 5, 6, 8, 12, 16)
 
 _BASE = ("deployment_name", "predictor_name")
 
@@ -145,6 +147,29 @@ class MetricsRegistry:
                                     "the pipeline is actually ahead)", "histogram",
                                     buckets=HOST_LAG_BUCKETS)
 
+        # speculative decoding: accept rate and tokens per verify forward
+        # (> 1 = more than one token a KV-cache read), the per-slot EMA the
+        # draft-length controller steers by, the draft overhead
+        self._spec_accept_rate = fam("seldon_llm_spec_accept_rate",
+                                     "Aggregate draft-token acceptance rate (accepted drafts / "
+                                     "offered drafts, 0-1)", "gauge")
+        self._spec_accept_rate_slot = fam("seldon_llm_spec_accept_rate_per_slot",
+                                          "Per-slot draft acceptance-rate EMA (the draft-length "
+                                          "controller's steering signal)", "gauge", ("slot",))
+        self._spec_tokens_per_forward = fam("seldon_llm_spec_tokens_per_forward",
+                                            "Accepted tokens per verify forward (>1 = more than "
+                                            "one token per KV-cache read)", "gauge")
+        self._spec_accepted = fam("seldon_llm_spec_accepted_tokens_per_step",
+                                  "Tokens emitted by each drained verify step (1..K+1)",
+                                  "histogram", buckets=SPEC_ACCEPTED_BUCKETS)
+        self._spec_draft_overhead = fam("seldon_llm_spec_draft_overhead_fraction",
+                                        "Fraction of verify-forward token columns wasted on drafts "
+                                        "that lost verification (0-1)", "gauge")
+        self._spec_slot_steps = fam("seldon_llm_spec_slot_verify_steps",
+                                    "Per-slot verify steps drained: each verify forward "
+                                    "contributes one per active slot (divide by the active-slot "
+                                    "count for the forward/program count)", "counter")
+
     def _base(self) -> Tuple[str, str]:
         return (self.deployment, self.predictor)
 
@@ -164,8 +189,8 @@ class MetricsRegistry:
     def sync_llm(self, component: Any) -> None:
         """Refresh the LLM series from ``component.llm_stats()`` (a no-op
         for a component without it): gauges set, the page-shed counter
-        caught up to the allocator's tally, and each drained observation
-        observed once."""
+        caught up to the allocator's tally (the spec slot-step counter to
+        the controller's), and each drained observation observed once."""
         stats_fn = getattr(component, "llm_stats", None)
         if stats_fn is None:
             return
@@ -187,6 +212,17 @@ class MetricsRegistry:
                     self._observe(fam, base, v)
             self._decode_steps_in_flight.children[base] = float(
                 stats.get("decode_steps_in_flight", 0))
+            for fam, key in ((self._spec_accept_rate, "spec_accept_rate"),
+                             (self._spec_tokens_per_forward, "spec_tokens_per_forward"),
+                             (self._spec_draft_overhead, "spec_draft_overhead_fraction")):
+                fam.children[base] = float(stats.get(key, 0.0))
+            for slot, rate in enumerate(stats.get("spec_accept_rate_per_slot", ())):
+                self._spec_accept_rate_slot.children[base + (str(slot),)] = float(rate)
+            self._spec_accepted.child(base)
+            for v in stats.get("spec_accepted_per_step", ()):
+                self._observe(self._spec_accepted, base, v)
+            self._spec_slot_steps.children[base] = max(
+                self._spec_slot_steps.child(base), float(stats.get("spec_slot_steps_total", 0)))
 
     def expose(self) -> bytes:
         """Every family in the Prometheus text format (version 0.0.4)."""
@@ -197,4 +233,5 @@ class MetricsRegistry:
 
 CONTENT_TYPE = "text/plain; version=0.0.4; charset=utf-8"
 
-__all__ = ["CONTENT_TYPE", "HOST_LAG_BUCKETS", "LATENCY_BUCKETS", "MetricsRegistry"]
+__all__ = ["CONTENT_TYPE", "HOST_LAG_BUCKETS", "LATENCY_BUCKETS", "MetricsRegistry",
+           "SPEC_ACCEPTED_BUCKETS"]

@@ -14,8 +14,11 @@ What changes with the framework:
   into the cache tensors and return the same tuples.
 - The paged decode read (``s == 1`` with block tables) goes through
   ``ops/paged_attention.py``: the hand-written CUDA kernel on a card, its
-  plain PyTorch version on the CPU. Prefill (``s > 1``) is the plain masked
-  matmul + softmax, as the JAX package leaves it to XLA.
+  plain PyTorch version on the CPU. So does the speculative verify
+  (``verify=True``: s = K+1 columns a sequence), its columns folded into
+  rows of one call. A prefill chunk (``s > 1``) is the plain masked
+  matmul + softmax over the gathered view, as the JAX package leaves it to
+  XLA.
 - ``fused_norm=True`` routes each block's residual add + ffn RMSNorm through
   ``ops/fused_norm.py`` (a CUDA C++ kernel on a card, ``csrc/fused_norm.cu``).
 - int8 KV caches (``kv_cache_dtype="int8"``) are the JAX package's 5-tuple
@@ -334,7 +337,7 @@ class Attention(nn.Module):
         self.wo = _param((cfg.n_heads * hd, cfg.dim), param_dtype, device)
 
     def forward(self, x, positions, cache=None, cache_index=None,
-                block_tables=None, adapters=None, adapter_ids=None):
+                block_tables=None, adapters=None, adapter_ids=None, paged_rows=None):
         """x: [b, s, d]. With cache=(k_cache, v_cache, pos_cache) of
         [b, max_len, kvh, hd] / [b, max_len], writes this call's K/V at
         ``cache_index`` (an int: same offset for the whole batch — prefill;
@@ -351,7 +354,10 @@ class Attention(nn.Module):
         sequence. Each token writes at the pool coordinate its block table
         maps its position to; ``cache_index`` is ignored. Decode (s == 1)
         reads through ``ops.paged_attention``; a prefill chunk gathers the
-        logical view and runs the plain read.
+        logical view and runs the plain read. ``paged_rows`` (the verify's
+        folded (tables [b*s, n_pages], positions [b*s, 1]),
+        ``Transformer.forward(verify=True)``) reads every column through
+        ``ops.paged_attention`` as a row of its own.
 
         Without a cache: full causal attention, returns (out, (k, v))."""
         _check_adapters(adapters)
@@ -384,7 +390,16 @@ class Attention(nn.Module):
             for buf, val in zip(cache, values):
                 buf[entry, off] = val.to(buf.dtype)
             new_cache = cache
-            if s == 1:
+            if paged_rows is not None:
+                # the verify: each of the s columns a query row of its own,
+                # with its sequence's table and its own position, so K1
+                # masks "pos <= column position" exactly as the gathered read
+                from seldon_core_tpu_torch.ops.paged_attention import paged_attention
+
+                tables, qpos = paged_rows
+                out = paged_attention(q.reshape(b * s, 1, cfg.n_heads, hd), new_cache, tables,
+                                      qpos).reshape(b, s, cfg.n_heads, hd)
+            elif s == 1:
                 from seldon_core_tpu_torch.ops.paged_attention import paged_attention
 
                 out = paged_attention(q, new_cache, block_tables, positions)
@@ -408,8 +423,10 @@ class Attention(nn.Module):
                     buf[bidx, idx] = val[:, 0].to(buf.dtype)
             else:
                 raise NotImplementedError(
-                    "per-sequence multi-token dense writes (the speculative "
-                    "verify step) arrive with the speculative-decoding slice")
+                    "per-sequence multi-token dense writes (a speculative verify over "
+                    "a dense slot cache) arrive with the dense batcher layout "
+                    "(kv_cache_layout='dense'); the port's batcher verifies over the "
+                    "paged pool")
             new_cache = cache
             # pos_cache marks empty slots with PAD_POS, so one predicate
             # covers causality, the unfilled suffix and right-padding.
@@ -451,10 +468,10 @@ class TransformerBlock(nn.Module):
         self.ffn = DenseFFN(cfg, **kw)
 
     def forward(self, x, positions, cache=None, cache_index=None,
-                block_tables=None):
+                block_tables=None, paged_rows=None):
         cfg = self.cfg
         h, new_cache = self.attention(self.attention_norm(x), positions, cache,
-                                      cache_index, block_tables)
+                                      cache_index, block_tables, paged_rows=paged_rows)
         if cfg.fused_norm:
             # residual-add + RMSNorm in one pass over the activation
             from seldon_core_tpu_torch.ops.fused_norm import fused_residual_rmsnorm
@@ -578,20 +595,40 @@ class Transformer(nn.Module):
         return x.float() @ emb.float().t()
 
     def forward(self, tokens, positions=None, caches=None, cache_index=None,
-                block_tables=None, adapters=None, adapter_ids=None):
+                block_tables=None, adapters=None, adapter_ids=None, verify=False):
         """tokens: [b, s] int. Returns (logits [b, s, vocab] float32,
         new_caches). ``block_tables`` ([b, n_pages] int32, shared by every
         layer) switches the caches to the paged-pool layout — see
-        Attention. Cache tensors are updated in place."""
+        Attention. Cache tensors are updated in place.
+
+        ``verify=True`` (paged only) marks the call as a speculative verify:
+        each sequence's s columns are consecutive positions, the first
+        real, those past its draft cap PAD_POS. The attention then reads
+        through ``ops.paged_attention`` with the columns folded into b*s
+        rows (the tables repeated per column), where a prefill chunk
+        (``verify=False``, s > 1) gathers the whole view. A PAD_POS column
+        writes as PAD_POS (the TRASH page) but attends at its sequence's
+        last real position, so the kernel, which walks a table up to the
+        query's page, does not walk the whole table for it; its output is
+        never read."""
         _check_adapters(adapters)
         b, s = tokens.shape
         if positions is None:
             positions = torch.arange(s, device=tokens.device)[None, :].expand(b, s)
+        paged_rows = None
+        if verify:
+            if block_tables is None or caches is None:
+                raise ValueError("verify=True reads a paged pool: pass caches and block_tables")
+            real = positions != PAD_POS
+            last = torch.where(real, positions, torch.zeros_like(positions)).amax(
+                dim=1, keepdim=True)
+            qpos = torch.where(real, positions, last)
+            paged_rows = (block_tables.repeat_interleave(s, dim=0), qpos.reshape(b * s, 1))
         x = self._embed(tokens)
         new_caches = []
         for i, layer in enumerate(self.layers()):
             layer_cache = caches[i] if caches is not None else None
-            x, nc = layer(x, positions, layer_cache, cache_index, block_tables)
+            x, nc = layer(x, positions, layer_cache, cache_index, block_tables, paged_rows)
             new_caches.append(nc)
         return self._logits(self.norm(x)), new_caches
 

@@ -36,6 +36,23 @@ trailing tokens are dropped, never surfaced; so are the tokens of a fused
 block past a slot's EOS, budget or cache length. Their KV writes land in
 pages that are reset or rewritten strictly after them in stream order.
 
+Speculative decoding (``spec_mode`` "ngram" or "draft", ``spec_k`` = K).
+A dispatch is then one fused draft + verify step
+(``LLMServer._get_spec_step``; on a card one replay of its CUDA graph,
+captured once per batcher in place of the decode graphs): each slot
+advances 1..cap+1 tokens, a count the host learns only at drain. The
+dispatch computes each slot's cap on the host (``runtime/spec.
+SpecController``'s depth, the token budget and the cache edge), stages
+the caps into a fixed device buffer in stream order, grows the slot's
+pages to its furthest possible write, and books the pessimistic cap + 1
+tokens into the slot's dispatch-side count; the drain reconciles that to
+the actual advance, feeds the controller, and credits the accepted tokens
+under the same (slot, gen) mask and EOS / budget / cache-edge stops as a
+plain step (an EOS inside an accepted block drops the rest of it). The
+slot's prompt + generated history lives on the device (``hist``), seeded at
+admission; in draft mode so does a dense draft-model cache, prefilled at
+admission (eagerly). Fused steps do not combine with speculation.
+
 Every pool, block-table and slot-state update is an in-place tensor update
 enqueued on the same stream as the decode steps (the JAX package donated
 these buffers to jitted ops and relied on device program order in the same
@@ -71,15 +88,19 @@ from seldon_core_tpu_torch.models.transformer import (
     PAD_POS,
     RESERVED_PAGES,
     TRASH_PAGE,
+    init_kv_caches,
     init_paged_kv_caches,
     normalize_kv_cache_layout,
 )
 from seldon_core_tpu_torch.runtime.resilience import DEFAULT_RETRY_AFTER_S, ShedError
+from seldon_core_tpu_torch.runtime.spec import (DEFAULT_SPEC_K, SPEC_STATS_OFF,
+                                                SpecController, normalize_spec_mode)
 from seldon_core_tpu_torch.servers.llmserver import (LLMServer, bucket,
                                                      sample_tokens, seed_key,
                                                      split_keys)
 from seldon_core_tpu_torch.servers.step_graph import (ReplayGraph, capture_decode_steps,
-                                                      capture_prefill_chunks)
+                                                      capture_prefill_chunks,
+                                                      capture_spec_step)
 
 logger = logging.getLogger(__name__)
 
@@ -267,16 +288,19 @@ class _InFlight:
     """One dispatch of k decode steps the host has not yet drained: its
     tokens [S, k] (a pinned host buffer being filled by an async copy on a
     card), the event that marks the copy done, k, the per-slot (index, gen)
-    snapshot taken at dispatch, and the dispatch timestamp."""
+    snapshot taken at dispatch, and the dispatch timestamp. A spec step's
+    record has k = 1, tokens [S, K+2] (the tokens, then the advance) and
+    ``booked``: slot -> the tokens its dispatch booked (cap + 1)."""
 
-    __slots__ = ("tokens", "event", "k", "snapshot", "t_dispatch")
+    __slots__ = ("tokens", "event", "k", "snapshot", "t_dispatch", "booked")
 
-    def __init__(self, tokens, event, k, snapshot, t_dispatch):
+    def __init__(self, tokens, event, k, snapshot, t_dispatch, booked=None):
         self.tokens = tokens
         self.event = event
         self.k = k
         self.snapshot = snapshot
         self.t_dispatch = t_dispatch
+        self.booked = booked
 
 
 class ContinuousBatcher:
@@ -292,12 +316,17 @@ class ContinuousBatcher:
         page_size: Optional[int] = None,
         pool_pages: Optional[int] = None,
         prefill_chunk: Optional[int] = None,
+        spec_mode: Optional[str] = None,
+        spec_k: Optional[int] = None,
         device: Optional[str] = None,
         _eager: bool = False,
     ):
         """``fuse_steps`` (default: the server's ``decode_fuse_steps``; 0 or
-        1 = single steps) is K, the steps one dispatch runs. On a card the
-        decode programs (K = 1 and K = ``fuse_steps``) and a prefill-chunk
+        1 = single steps) is K, the steps one dispatch runs. ``spec_mode``
+        and ``spec_k`` (default: the server's; K = 0 means 4) turn each
+        dispatch into one speculative draft + verify step (module
+        docstring). On a card the decode programs (K = 1 and K =
+        ``fuse_steps``, or in spec mode the spec step) and a prefill-chunk
         program per chunk length an admission can produce
         (``_chunk_lengths``) are captured here as CUDA graphs, before any
         request; ``_eager=True`` runs them eagerly instead (a private switch
@@ -329,6 +358,28 @@ class ContinuousBatcher:
         self.pipeline_depth = max(int(depth), 1)
         fuse = fuse_steps if fuse_steps is not None else server.decode_fuse_steps
         self.fuse_steps = max(int(fuse), 0)
+        # speculative decoding, resolved from the server unless overridden;
+        # the per-slot controller adapts the offered draft length to what
+        # each slot's text accepts
+        mode = spec_mode if spec_mode is not None else server.spec_mode
+        self.spec_mode = normalize_spec_mode(mode)
+        k = spec_k if spec_k is not None else server.spec_k
+        self.spec_k = int(k or 0) or DEFAULT_SPEC_K
+        self._spec: Optional[SpecController] = None
+        if self.spec_mode != "off":
+            if self.fuse_steps > 1:
+                raise ValueError(
+                    f"decode_fuse_steps={self.fuse_steps} cannot combine with "
+                    f"spec_mode={self.spec_mode!r}: a fused dispatch runs a FIXED K steps "
+                    f"while a verify step advances each slot by a data-dependent "
+                    f"1..{self.spec_k + 1} tokens; run speculation with decode_fuse_steps=0 "
+                    f"(pipelining composes fine)")
+            if self.spec_k < 1:
+                raise ValueError(f"spec_k={self.spec_k} must be >= 1 when speculation is on")
+            if self.spec_mode == "draft" and server._draft_module is None:
+                raise ValueError("spec_mode='draft' needs the server loaded with a draft "
+                                 "model (draft_model=)")
+            self._spec = SpecController(self.S, self.spec_k)
         ps = int(page_size if page_size is not None else server.kv_page_size or 0) \
             or DEFAULT_PAGE_SIZE
         if ps <= 0:
@@ -354,6 +405,7 @@ class ContinuousBatcher:
         self._admit_seq = 0
         self._inflight: deque = deque()
         self._inflight_hwm = 0
+        self._last_admit_inflight = 0
         self._last_drain_t: Optional[float] = None
         self._wakeup = threading.Event()
         self._closed = False
@@ -388,19 +440,42 @@ class ContinuousBatcher:
         self._row = torch.full((1, self.n_pages), NULL_PAGE, dtype=torch.int32, device=dev)
         self._chunk_tokens = torch.zeros((1, cmax), dtype=torch.int64, device=dev)
         self._chunk_pos = torch.full((1, cmax), PAD_POS, dtype=torch.int32, device=dev)
+        # speculation's device state: each slot's prompt + generated tokens
+        # by position (one entry a cache position, plus a trash column for
+        # the writes the JAX package drops), the fixed per-dispatch cap
+        # buffer, and in draft mode the draft model's DENSE cache [S, max_len
+        # + 1] (its last column the trash column): the draft is small, so
+        # paging it would buy nothing and cost a second allocator
+        self.hist_len = self.max_len
+        self._hist: Optional[torch.Tensor] = None
+        self._draft_cap: Optional[torch.Tensor] = None
+        self._draft_caches = None
+        if self.spec_mode != "off":
+            self._hist = torch.zeros((self.S, self.hist_len + 1), dtype=torch.int64, device=dev)
+            self._draft_cap = torch.zeros((self.S,), dtype=torch.int32, device=dev)
+            if self.spec_mode == "draft":
+                self._draft_caches = init_kv_caches(server._draft_cfg, self.S,
+                                                    self.max_len + 1, device=dev)
         # k -> the captured K-step program, chunk length -> the captured
-        # prefill chunk (the card's only paths); empty where the programs
-        # run eagerly (the CPU, or _eager)
+        # prefill chunk, the captured spec step (the card's only paths);
+        # empty / None where the programs run eagerly (the CPU, or _eager)
         self._graphs: Dict[int, ReplayGraph] = {}
         self._prefill_graphs: Dict[int, ReplayGraph] = {}
+        self._spec_graph: Optional[ReplayGraph] = None
         if self.device.type == "cuda" and not _eager:
             self._prefill_graphs = capture_prefill_chunks(server, self._chunks, self._caches,
                                                           self._row, self._chunk_tokens,
                                                           self._chunk_pos)
-            ks = (1, self.fuse_steps) if self.fuse_steps > 1 else (1,)
-            self._graphs = capture_decode_steps(server, ks, self._caches, self._last_tok,
-                                                self._next_pos, self._keys, self._temp,
-                                                self._block_tables)
+            if self.spec_mode != "off":
+                self._spec_graph = capture_spec_step(
+                    server, self.spec_k, self.spec_mode, self._caches, self._last_tok,
+                    self._next_pos, self._keys, self._temp, self._block_tables, self._hist,
+                    self._draft_cap, self._draft_caches)
+            else:
+                ks = (1, self.fuse_steps) if self.fuse_steps > 1 else (1,)
+                self._graphs = capture_decode_steps(server, ks, self._caches, self._last_tok,
+                                                    self._next_pos, self._keys, self._temp,
+                                                    self._block_tables)
 
     # ------------------------------------------------------------------
     # Host <-> device staging
@@ -551,12 +626,16 @@ class ContinuousBatcher:
                                   self.server.top_k)
         return int(tok[0]), int(keys[0])
 
-    def _commit_slot(self, i: int, first: int, key: int, L: int, max_new: int,
+    def _commit_slot(self, i: int, first: int, key: int, ids: List[int], max_new: int,
                      fut: Future, t_arrival: Optional[float]):
         """Thread the new occupant's state into the device arrays and
-        surface the first token. The writes are stream-ordered after every
-        already-dispatched step, so in-flight steps still see (and waste
-        compute on) the old state while the next one picks up the new."""
+        surface the first token; in spec mode also seed the slot's history
+        (the prompt ``ids``, then the first token), reset its controller and
+        prefill its draft-cache row. The writes are stream-ordered after
+        every already-dispatched step, so in-flight steps still see (and
+        waste compute on) the old state while the next one picks up the
+        new."""
+        L = len(ids)
         slot = self._slots[i]
         slot.active = True
         slot.prefilling = False
@@ -575,14 +654,42 @@ class ContinuousBatcher:
         slot.disp_new = 1      # the prefill-sampled first token counts
         self._admit_seq += 1
         slot.admit_seq = self._admit_seq
+        # dispatches in flight at the latest admission (they finish on the
+        # old state first, in stream order)
+        self._last_admit_inflight = len(self._inflight)
         # in place, on the decode stream (the JAX package's donated set_slot)
         self._last_tok[i] = first
         self._next_pos[i] = L
         self._keys[i] = key
+        if self._spec is not None:
+            # the whole row: the previous occupant's tokens are retired
+            row = np.zeros((self.hist_len + 1,), np.int64)
+            row[:L] = ids
+            row[L] = first
+            self._hist[i].copy_(self._to_device(row))
+            self._spec.reset(i)
+            if self._draft_caches is not None:
+                self._draft_prefill_slot(i, ids)
         if first != self.eos_id:
             _emit(slot.on_token, first)
         if first == self.eos_id or max_new <= 1:
             self._finish(i)
+
+    def _draft_prefill_slot(self, i: int, ids: List[int]) -> None:
+        """Draft mode: the draft model's prompt prefill into slot ``i``'s row
+        of the dense draft cache (its first ``max_len`` columns), reset
+        first, so the previous occupant's rows are retired. Eager: the
+        draft is small. Its logits are discarded: drafting restarts from
+        the last accepted target token in every spec step."""
+        L = len(ids)
+        plen = min(bucket(L, self.len_buckets), self._plen_cap())
+        toks = np.zeros((1, plen), np.int64)
+        pos = np.full((1, plen), PAD_POS, np.int32)
+        toks[0, :L] = ids
+        pos[0, :L] = np.arange(L)
+        row = [tuple(t[i:i + 1, :self.max_len] for t in layer) for layer in self._draft_caches]
+        self.server._get_draft_prefill(1, plen, self.max_len)(row, self._to_device(toks),
+                                                              self._to_device(pos))
 
     def _reset_pages(self, pages: List[int]) -> None:
         """Position rows of newly allocated pages back to PAD_POS: a page off
@@ -669,7 +776,7 @@ class ContinuousBatcher:
         first, key = self._sample_first(first_logits, job.seed)
         self._block_tables[job.slot].copy_(self._row[0])
         self._prefill = None
-        self._commit_slot(job.slot, first, key, job.L, job.max_new, job.fut,
+        self._commit_slot(job.slot, first, key, job.ids, job.max_new, job.fut,
                           job.t_arrival)
 
     # ------------------------------------------------------------------
@@ -809,7 +916,10 @@ class ContinuousBatcher:
 
     def _dispatch(self):
         """Enqueue one dispatch of k decode steps WITHOUT waiting for its
-        tokens: a graph replay on a card, the eager program otherwise."""
+        tokens: a graph replay on a card, the eager program otherwise. In
+        spec mode, one spec step (``_dispatch_spec``)."""
+        if self._spec is not None:
+            return self._dispatch_spec()
         k = self._pick_k()
         # grow every eligible slot's pages to cover this dispatch's k writes,
         # positions dispatched_pos() .. dispatched_pos() + k - 1; a shed
@@ -835,6 +945,82 @@ class ContinuousBatcher:
             self._slots[i].disp_new += k
         self._inflight.append(_InFlight(host, event, k, snapshot, t0))
         self._inflight_hwm = max(self._inflight_hwm, len(self._inflight))
+
+    def _dispatch_spec(self):
+        """Enqueue one fused draft + verify step WITHOUT waiting for its
+        tokens. Each slot advances a data-dependent 1..cap+1 tokens known
+        only at drain, so the dispatch books the PESSIMISTIC cap + 1 into
+        ``disp_new`` (page growth and the budget / cache-edge caps must
+        cover the all-accepted case) and the drain reconciles it. The cap
+        clamps the drafts offered: the controller's depth, the remaining
+        budget (a step emits <= cap + 1) and the cache edge (writes reach
+        next_pos + cap). The caps reach the device through the fixed
+        ``_draft_cap`` buffer, in stream order."""
+        K = self.spec_k
+        caps = np.zeros((self.S,), np.int32)
+        for i in self._dispatch_eligible():
+            s = self._slots[i]
+            cap = min(self._spec.cap(i), K, s.max_new - s.disp_new - 1,
+                      (self.max_len - 1) - s.dispatched_pos())
+            caps[i] = max(int(cap), 0)
+        # pages to the step's furthest possible write; a shed inside the
+        # loop can deactivate a later slot of the snapshot
+        for i in self._dispatch_eligible():
+            if self._slots[i].active:
+                self._ensure_slot_pages(i, self._slots[i].dispatched_pos() + int(caps[i]))
+        if not self._dispatch_eligible():
+            return
+        self._draft_cap.copy_(self._to_device(caps))
+        t0 = time.perf_counter()
+        if self._spec_graph is not None:
+            out = self._spec_graph.replay()
+            self.server._decode_replays += 1
+        else:
+            out = self.server._get_spec_step(
+                self.S, K, self.hist_len, mode=self.spec_mode, layout="paged",
+                n_pages=self.n_pages)(self._caches, self._last_tok, self._next_pos, self._keys,
+                                      self._temp, self._block_tables, self._hist,
+                                      self._draft_cap, self._draft_caches)
+            self.server._decode_eager += 1
+        self.server._decode_dispatch_times.append(time.perf_counter() - t0)
+        host, event = self._stage_to_host(out)   # tokens and advance: one copy
+        snapshot = [(i, s.gen) for i, s in enumerate(self._slots) if s.active]
+        booked = {}
+        for i, _ in snapshot:
+            booked[i] = int(caps[i]) + 1
+            self._slots[i].disp_new += booked[i]
+        self._inflight.append(_InFlight(host, event, 1, snapshot, t0, booked))
+        self._inflight_hwm = max(self._inflight_hwm, len(self._inflight))
+
+    def _reconcile_spec(self, rec: _InFlight, i: int, arr: np.ndarray) -> int:
+        """Drain side of one spec step for live slot ``i``: reconcile its
+        pessimistic booking to the device's actual advance, feed the
+        controller, and return the advance, the count of tokens the drain
+        credits (an EOS inside the accepted block still cuts it there)."""
+        slot = self._slots[i]
+        adv = int(arr[i, self.spec_k + 1])
+        booked = rec.booked.get(i, 1)
+        # restore: dispatched_pos() == the device's next_pos + what later
+        # in-flight steps booked
+        slot.disp_new -= booked - adv
+        self._spec.observe(i, max(adv - 1, 0), booked - 1, adv)
+        self.server._spec_accepted.append(adv)
+        return adv
+
+    def spec_stats(self) -> dict:
+        """Speculation counters for ``llm_stats`` / the metrics: aggregate
+        acceptance rate, accepted tokens per verify forward, the per-slot
+        acceptance EMAs the controller steers by, and the draft-overhead
+        fraction. Zeros when speculation is off."""
+        if self._spec is None:
+            return dict(SPEC_STATS_OFF)
+        snap = self._spec.snapshot()
+        return {"spec_mode": self.spec_mode, "spec_k": self.spec_k,
+                "spec_accept_rate": snap["spec_accept_rate"],
+                "spec_tokens_per_forward": snap["spec_tokens_per_forward"],
+                "spec_slot_steps_total": snap["spec_slot_steps_total"],
+                "spec_accept_rate_per_slot": self._spec.rates(),
+                "spec_draft_overhead_fraction": snap["spec_draft_overhead_fraction"]}
 
     def _drain_one(self):
         """Consume the OLDEST in-flight dispatch: wait for its tokens only,
@@ -862,14 +1048,17 @@ class ContinuousBatcher:
             slot = self._slots[i]
             if not slot.active or slot.gen != gen:
                 continue  # trailing run-ahead tokens of a gone occupant
+            # a plain record carries k tokens a slot, a spec record 1..cap+1
+            n = rec.k if rec.booked is None else self._reconcile_spec(rec, i, arr)
             if slot.n_new >= slot.max_new:
                 continue  # budget-exhausted slot riding along
-            for j in range(rec.k):
+            for j in range(n):
                 tok = int(arr[i, j])
                 slot.tokens.append(tok)
                 slot.n_new += 1
-                # the gap before this token, at its drain: a fused block
-                # surfaces in one burst, so its trailing tokens read ~0
+                # the gap before this token, at its drain: a fused or
+                # accepted block surfaces in one burst, so its trailing
+                # tokens read ~0
                 self.server._inter_token_times.append(now - slot.t_last)
                 slot.t_last = now
                 if tok != self.eos_id:

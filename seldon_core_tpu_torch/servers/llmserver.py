@@ -10,14 +10,18 @@ max_len)`` (the dense prefill) and ``_get_decode(b, max_len)`` (one dense
 decode step, which the JAX package scans), the batcher's
 ``_get_prefill_chunk(chunk, n_pages)`` (one chunk of one prompt into the
 paged pool) and ``_get_decode_step_paged(slots, n_pages, k)`` (k decode
-steps, ``decode_fuse_steps``). On the CPU every program runs eagerly. On
-the card (``servers/step_graph.py``) the batcher captures each of its two
-once as a CUDA graph over its own buffers (a prefill graph per chunk length
-it can produce, decode graphs of K = 1 and K) and replays them, one replay
-per prefill chunk, one per dispatch of k steps; ``generate()`` runs its
-prefill eagerly into the server's one dense buffer and replays the decode
-step's graph of (batch bucket, max_len), captured at first use, once per
-token.
+steps, ``decode_fuse_steps``), and with speculative decoding
+(``spec_mode``) ``_get_spec_step(slots, spec_k, hist_len, mode=...)`` (one
+fused draft + verify step) and ``_get_draft_prefill(b, plen, max_len)``
+(the draft model's prompt prefill). On the CPU every program runs eagerly.
+On the card (``servers/step_graph.py``) the batcher captures its programs
+once as CUDA graphs over its own buffers (a prefill graph per chunk length
+it can produce, then decode graphs of K = 1 and K, or in spec mode the one
+spec step) and replays them, one replay per prefill chunk, one per
+dispatch; the draft prefill runs eagerly at admission; ``generate()`` runs
+its prefill eagerly into the server's one dense buffer and replays the
+decode step's graph of (batch bucket, max_len), captured at first use,
+once per token.
 
 Sampling chain (a decision of the port). The JAX package chains
 ``jax.random`` keys: one split per generated token, the first token drawn at
@@ -272,12 +276,10 @@ class LLMServer(SeldonComponent):
             ("topology", topology is not None, "the parallelism slice"),
             ("tensor_parallel", int(tensor_parallel) > 1, "the parallelism slice"),
             ("sequence_parallel", int(sequence_parallel) > 1, "the parallelism slice"),
-            ("spec_mode", str(spec_mode or "off").lower() != "off",
-             "the speculative-decoding slice"),
-            ("spec_k", spec_k, "the speculative-decoding slice"),
-            ("spec_ngram", spec_ngram, "the speculative-decoding slice"),
-            ("draft_model", draft_model or draft_model_uri or draft_model_kwargs,
-             "the speculative-decoding slice"),
+            ("draft_model_uri", draft_model_uri,
+             "checkpoint loading (the JAX_SERVER/engine predict slice): a speculative "
+             "draft is a registry model (draft_model=, draft_model_kwargs=) with random "
+             "weights, or JAX weights through load(draft_params=...)"),
             ("disaggregation", str(disaggregation or "off").lower() != "off",
              "the disaggregation slice"),
             ("prefill_devices/decode_devices/prefill_workers/handoff_transport/disagg_mesh",
@@ -331,6 +333,21 @@ class LLMServer(SeldonComponent):
         self.continuous_batching_max_len = int(continuous_batching_max_len) or None
         self.decode_pipeline_depth = int(decode_pipeline_depth)
         self.decode_fuse_steps = int(decode_fuse_steps)
+        # speculative decoding (runtime/batcher.py + _get_spec_step): "off",
+        # "ngram" (prompt lookup over each slot's history) or "draft" (a
+        # small draft model); validated at load(), as the JAX package does.
+        # spec_k: drafts a verify step (0 = default 4); spec_ngram: the
+        # longest n-gram the proposer matches (0 = default 3)
+        self.spec_mode = spec_mode
+        self.spec_k = int(spec_k)
+        self.spec_ngram = int(spec_ngram)
+        # the draft model: registry name + kwargs, random from the server
+        # seed or JAX weights through load(draft_params=...); its vocab must
+        # be the target's (proposals index the target's tokens)
+        self.draft_model = str(draft_model or "")
+        self.draft_model_kwargs = dict(draft_model_kwargs or {})
+        self._draft_module = None
+        self._draft_cfg = None
         self.seed = int(seed)
         self.ready = False
         self._eos_override = eos_id
@@ -349,6 +366,8 @@ class LLMServer(SeldonComponent):
         self._decode_dispatch_times: Any = deque(maxlen=4096)
         self._decode_sync_times: Any = deque(maxlen=4096)
         self._decode_host_lag: Any = deque(maxlen=4096)
+        # tokens each drained verify step emitted for each slot (1..K+1)
+        self._spec_accepted: Any = deque(maxlen=4096)
         # prefill chunks and decode dispatches the batcher ran: as graph
         # replays (the card), and through the eager programs (the CPU, or
         # the private _eager switch)
@@ -378,11 +397,18 @@ class LLMServer(SeldonComponent):
         self._generate_eager = 0
 
     # ------------------------------------------------------------------
-    def load(self, params: Optional[Dict[str, Any]] = None) -> None:
+    def load(self, params: Optional[Dict[str, Any]] = None,
+             draft_params: Optional[Dict[str, Any]] = None) -> None:
         """Build the model on ``self.device``. ``params`` (a JAX param tree
         of numpy arrays — ``models/convert.py``) fills it with converted
         weights; otherwise ``init_random=True`` draws them from a
-        ``torch.Generator`` seeded with ``seed``. ``param_dtype`` "auto"
+        ``torch.Generator`` seeded with ``seed``. The draft model
+        (``draft_model``) is built beside it the same way: from
+        ``draft_params`` through ``params_from_jax``, else drawn from a
+        generator seeded with ``seed``, so a draft configured like the
+        target is a bit-identical copy of a random target (the perfect
+        drafter). The draft is never quantized; it is stored as the target
+        is (``param_dtype``). ``param_dtype`` "auto"
         stores the weights in the compute dtype, as the JAX package casts
         them; "" keeps float32 storage with a cast per use.
 
@@ -406,6 +432,21 @@ class LLMServer(SeldonComponent):
         if self.quantize and self.quantize != "int8":
             raise SeldonError(f"unsupported quantize={self.quantize!r} (int8 only)",
                               status_code=500)
+        from seldon_core_tpu_torch.runtime.spec import normalize_spec_mode
+
+        self.spec_mode = normalize_spec_mode(self.spec_mode)
+        if self.spec_k < 0:
+            raise ValueError(f"spec_k={self.spec_k} must be >= 0 (0 = default draft "
+                             f"depth when speculation is on)")
+        if self.spec_ngram < 0:
+            raise ValueError(f"spec_ngram={self.spec_ngram} must be >= 0 (0 = default "
+                             f"3-gram prompt lookup)")
+        if self.spec_mode == "draft" and not self.draft_model:
+            raise ValueError("spec_mode='draft' needs a draft model: pass draft_model="
+                             "<registry name> (+ draft_model_kwargs)")
+        if draft_params is not None and not self.draft_model:
+            raise ValueError("load(draft_params=...) needs draft_model=<registry name> "
+                             "naming the draft's architecture")
         if self.model_name is None:
             raise SeldonError("LLMServer needs model=<registry name>", status_code=500)
         if params is None and not self.init_random:
@@ -431,11 +472,36 @@ class LLMServer(SeldonComponent):
         module.eval()
         self._module = module
         self._cfg = module.cfg
+        if self.draft_model:
+            self._load_draft(draft_params)
         self._tokenizer = ByteTokenizer()
         self.eos_id = self._eos_override if self._eos_override is not None else self._tokenizer.eos_id
         self.ready = True
         logger.info("LLMServer loaded %s (vocab=%d) on %s", self.model_name,
                     self._cfg.vocab_size, self.device)
+
+    def _load_draft(self, draft_params: Optional[Dict[str, Any]]) -> None:
+        """The draft model beside the target (``load``): its vocab must be
+        the target's, and it is never quantized (the JAX package only
+        casts it)."""
+        from seldon_core_tpu_torch.models import get_model
+        from seldon_core_tpu_torch.models.convert import params_from_jax
+
+        draft = get_model(self.draft_model, device=self.device,
+                          param_dtype=self.param_dtype or None, **self.draft_model_kwargs)
+        if draft.cfg.vocab_size != self._cfg.vocab_size:
+            raise ValueError(f"draft model vocab {draft.cfg.vocab_size} != target vocab "
+                             f"{self._cfg.vocab_size}: draft proposals index the target's "
+                             f"token space")
+        if draft_params is not None:
+            params_from_jax(draft_params, draft)
+        else:
+            gen = torch.Generator(device=self.device)
+            gen.manual_seed(self.seed)
+            draft.init_params(gen)
+        draft.eval()
+        self._draft_module = draft
+        self._draft_cfg = draft.cfg
 
     # ------------------------------------------------------------------
     # Forward programs (the JAX package's compiled stages, under its keys):
@@ -461,15 +527,32 @@ class LLMServer(SeldonComponent):
         ``positions`` [b, plen], PAD_POS past each prompt) first resets the
         caches in place to what ``init_kv_caches`` makes, then writes them
         from offset 0, and returns the logits [b, plen, vocab]."""
+        return self._dense_prefill(self._module, "prefill", b, plen, max_len)
+
+    def _get_draft_prefill(self, b: int, plen: int, max_len: int):
+        """Port of ``_get_draft_prefill``: ``_get_prefill``'s program over
+        the DRAFT model, cached under ``("draft_prefill", b, plen,
+        max_len)``: ``prefill(caches, tokens, positions)`` resets the draft
+        caches it is given ([b, max_len, ...]; the batcher passes its slot's
+        row of the dense draft cache) and writes them from offset 0. The
+        logits are discarded by the batcher: drafting always restarts from
+        the last accepted target token. It runs eagerly, at admission (the
+        draft is small)."""
+        if self._draft_module is None:
+            raise ValueError("no draft model loaded: pass draft_model=<registry name>")
+        return self._dense_prefill(self._draft_module, "draft_prefill", b, plen, max_len)
+
+    def _dense_prefill(self, module, name: str, b: int, plen: int, max_len: int):
+        """The dense prefill program of ``module`` under ``(name, b, plen,
+        max_len)`` (``_get_prefill``, ``_get_draft_prefill``)."""
         from seldon_core_tpu_torch.models.transformer import reset_kv_caches
 
         b, plen, max_len = int(b), int(plen), int(max_len)
-        key = ("prefill", b, plen, max_len)
+        key = (name, b, plen, max_len)
         with self._lock:
             fn = self._prefill_cache.get(key)
         if fn is not None:
             return fn
-        module = self._module
 
         def prefill(caches, tokens, positions):
             if (tuple(caches[0][-1].shape) != (b, max_len) or tuple(tokens.shape) != (b, plen)
@@ -585,6 +668,177 @@ class LLMServer(SeldonComponent):
                 next_pos.add_(1)
                 tokens[:, j] = nxt
             return tokens
+
+        with self._lock:
+            return self._decode_cache.setdefault(key, step)
+
+    def _get_spec_step(self, slots: int, spec_k: int, hist_len: int, *, mode: str = "ngram",
+                       layout: str = "paged", n_pages: int = 0, lora: bool = False):
+        """Port of ``_get_spec_step``: ONE dispatch drafts up to K tokens a
+        slot, verifies them in a single K+1-column target forward, and
+        accepts the longest prefix that agrees with the slot's sampling
+        chain, cached under ``("specstep", slots, spec_k, hist_len, mode,
+        layout, n_pages, lora)``. Its call ``step(pools, last_tok, next_pos,
+        keys, temperature, block_tables, hist, draft_cap, draft_caches=None)``
+        computes, in order:
+
+        - the proposer: ``mode="ngram"`` matches the longest (up to
+          ``spec_ngram``) trailing n-gram of the slot's history ``hist``
+          against every earlier position (longest match wins, the most
+          recent breaks ties) and proposes the K tokens that followed it;
+          ``mode="draft"`` runs K+1 greedy forwards of the draft model over
+          its dense cache ``draft_caches`` ([slots, max_len + 1, ...]), from
+          the last accepted token (no rng is drawn for drafting);
+        - the clamp of the offer to ``draft_cap`` [slots] int32 (the
+          batcher's acceptance-rate controller and its budget and cache
+          edges);
+        - the target forward over ``[last_tok, d_1..d_K]`` at positions
+          next_pos.. (PAD_POS past the cap), its attention through
+          ``ops.paged_attention`` with the columns folded into rows
+          (``Transformer.forward(verify=True)``);
+        - the chain-exact accept loop: column j's logits sampled with
+          ``sample_tokens`` give token j+1, the key is split only while
+          accepting, and a draft is accepted while the sample equals it;
+        - the history append (the fed token and the accepted samples; a
+          write past the history lands in its last column, a trash column:
+          ``hist`` is [slots, hist_len + 1]) and the reject repair: the
+          position rows of the columns that lost verification go back to
+          PAD_POS (the pool through ``paged_write_targets``, a column past
+          the table to TRASH; the draft cache by position, past its length
+          to its trash column).
+
+        ``last_tok``, ``next_pos``, ``keys`` and ``hist`` are updated in
+        place (the JAX package donated them), the pools and draft caches
+        written in place. It returns one int64 tensor [slots, K+2]: the
+        tokens [slots, K+1] and, in its last column, ``n_acc`` [slots], the
+        tokens each slot advanced (1..K+1): one buffer, so the batcher
+        stages both to the host in one copy. Nothing is read back to the
+        host, so the same call is what a CUDA graph captures
+        (``servers/step_graph.capture_spec_step``). A jnp ``mode="drop"``
+        scatter has no PyTorch twin: the writes that drop in the JAX
+        package land in trash columns here."""
+        from seldon_core_tpu_torch.models.transformer import (
+            PAD_POS, normalize_kv_cache_layout, paged_write_targets)
+        from seldon_core_tpu_torch.runtime.spec import DEFAULT_SPEC_NGRAM, normalize_spec_mode
+
+        mode = normalize_spec_mode(mode)
+        if mode == "off":
+            raise ValueError("_get_spec_step needs spec mode 'ngram' or 'draft'")
+        if normalize_kv_cache_layout(layout) != "paged":
+            raise NotImplementedError(
+                "a speculative step over a dense slot cache arrives with the dense batcher "
+                "layout (kv_cache_layout='dense'); the port's batcher verifies over the "
+                "paged pool")
+        if lora:
+            raise NotImplementedError(
+                "an adapted (LoRA) verify step arrives with the LoRA/tenants slice")
+        S, K, H, n_pages = int(slots), int(spec_k), int(hist_len), int(n_pages)
+        if K < 1:
+            raise ValueError(f"spec_k={K} must be >= 1")
+        draft = mode == "draft"
+        if draft and self._draft_module is None:
+            raise ValueError("spec mode 'draft' needs the server loaded with draft_model=")
+        key = ("specstep", S, K, H, mode, "paged", n_pages, False)
+        with self._lock:
+            fn = self._decode_cache.get(key)
+        if fn is not None:
+            return fn
+        module, dmodule, top_k = self._module, self._draft_module, self.top_k
+        ngram = max(self.spec_ngram or DEFAULT_SPEC_NGRAM, 1)
+
+        def propose_ngram(hist, next_pos, cap):
+            dev = hist.device
+            hv = hist[:, :H]
+            pos = next_pos.long()
+            idx = torch.arange(H, device=dev)
+            ok = torch.ones((S, H), dtype=torch.bool, device=dev)
+            length = torch.zeros((S, H), dtype=torch.int64, device=dev)
+            for j in range(ngram):
+                hj = hv[:, (idx - j).clamp(0, H - 1)]
+                cj = hv.gather(1, (pos - j).clamp(0, H - 1)[:, None])
+                ok = ok & (hj == cj) & ((idx - j) >= 0)[None, :] & ((pos - j) >= 0)[:, None]
+                length = length + ok
+            cand = idx[None, :] < pos[:, None]
+            score = torch.where(cand & (length > 0), length * H + idx[None, :], -1)
+            best = score.argmax(dim=1)
+            has = score.gather(1, best[:, None])[:, 0] >= 0
+            src = best[:, None] + torch.arange(1, K + 1, device=dev)[None, :]
+            drafts = hv.gather(1, src.clamp(0, H - 1))
+            dlen = torch.where(has, (src <= pos[:, None]).sum(dim=1), 0)
+            return drafts, torch.minimum(dlen, cap)
+
+        def propose_draft(draft_caches, last_tok, next_pos):
+            width = draft_caches[0][-1].shape[1] - 1   # column `width` is the trash column
+            tok, pos, out = last_tok, next_pos, []
+            for _ in range(K + 1):
+                logits, _ = dmodule(tok[:, None], positions=pos[:, None], caches=draft_caches,
+                                    cache_index=pos.clamp(max=width))
+                tok = torch.argmax(logits[:, -1], dim=-1)
+                out.append(tok)
+                pos = pos + 1
+            return torch.stack(out[:K], dim=1)
+
+        def step(pools, last_tok, next_pos, keys, temperature, block_tables, hist, draft_cap,
+                 draft_caches=None):
+            if (tuple(block_tables.shape) != (S, n_pages) or last_tok.shape != (S,)
+                    or tuple(hist.shape) != (S, H + 1) or draft_cap.shape != (S,)
+                    or (draft_caches is None) == draft):
+                raise ValueError(f"spec step {key}: block_tables {tuple(block_tables.shape)}, "
+                                 f"last_tok {tuple(last_tok.shape)}, hist {tuple(hist.shape)}, "
+                                 f"draft_cap {tuple(draft_cap.shape)}, draft caches "
+                                 f"{'given' if draft_caches is not None else 'missing'}")
+            dev = last_tok.device
+            cap = draft_cap.long().clamp(0, K)
+            if draft:
+                drafts, dlen = propose_draft(draft_caches, last_tok, next_pos), cap
+            else:
+                drafts, dlen = propose_ngram(hist, next_pos, cap)
+            cols = torch.arange(K + 1, device=dev, dtype=torch.int32)
+            tokens_in = torch.cat([last_tok[:, None], drafts], dim=1)
+            positions = torch.where(cols[None, :] <= dlen[:, None], next_pos[:, None] + cols,
+                                    PAD_POS)
+            logits, _ = module(tokens_in, positions=positions, caches=pools,
+                               block_tables=block_tables, verify=True)
+            # chain-exact accept loop: sample column j -> token j+1; the key
+            # advances ONLY while accepting
+            out = torch.zeros((S, K + 2), dtype=torch.int64, device=dev)
+            a = torch.zeros((S,), dtype=torch.int64, device=dev)
+            valid = torch.ones((S,), dtype=torch.bool, device=dev)
+            cur = keys
+            for j in range(K + 1):
+                split, sj = sample_tokens(cur, logits[:, j], temperature, top_k)
+                cur = torch.where(valid, split, cur)
+                a = a + valid
+                out[:, j] = torch.where(valid, sj, 0)
+                if j < K:
+                    valid = valid & (sj == tokens_in[:, j + 1]) & (dlen > j)
+            out[:, K + 1] = a
+            toks = out[:, :K + 1]
+            # history append: the fed token and the a accepted samples, at
+            # next_pos..next_pos + a; the rest (and any past H) to column H
+            wcols = torch.arange(K + 2, device=dev)
+            wpos = next_pos.long()[:, None] + wcols[None, :]
+            wpos = torch.where((wcols[None, :] <= a[:, None]) & (wpos < H), wpos, H)
+            hist.scatter_(1, wpos, torch.cat([last_tok[:, None], toks], dim=1))
+            hist[:, H].zero_()   # the trash column, written in no set order
+            # reject repair: columns a..K lost verification
+            rcols = cols[1:]
+            rej = rcols[None, :].long() >= a[:, None]
+            rpos = torch.where(rej, next_pos[:, None] + rcols, PAD_POS)
+            entry, off = paged_write_targets(block_tables, rpos, pools[0][0].shape[1])
+            pad = torch.full_like(rpos, PAD_POS)
+            for layer in pools:
+                layer[-1][entry, off] = pad
+            if draft:
+                width = draft_caches[0][-1].shape[1] - 1
+                rows = torch.arange(S, device=dev)[:, None]
+                dcol = torch.where(rej & (rpos < width), rpos, width).long()
+                for layer in draft_caches:
+                    layer[-1][rows, dcol] = pad
+            last_tok.copy_(toks.gather(1, (a - 1)[:, None])[:, 0])
+            next_pos.add_(a.to(next_pos.dtype))
+            keys.copy_(cur)
+            return out
 
         with self._lock:
             return self._decode_cache.setdefault(key, step)
@@ -801,9 +1055,13 @@ class LLMServer(SeldonComponent):
     def llm_stats(self) -> Dict[str, Any]:
         """The serving snapshot a /metrics scrape reads
         (``metrics/registry.MetricsRegistry.sync_llm``): the page pool's
-        gauges and the steps in flight of the shared batcher (zeros without
-        one), and the TTFT, inter-token and decode series accumulated since
-        the last call, drained here so each is observed exactly once."""
+        gauges, the steps in flight and the speculation counters of the
+        shared batcher (zeros without one, or with speculation off), and
+        the TTFT, inter-token, decode and accepted-tokens series
+        accumulated since the last call, drained here so each is observed
+        exactly once."""
+        from seldon_core_tpu_torch.runtime.spec import SPEC_STATS_OFF
+
         def drain(dq) -> List[float]:
             out: List[float] = []
             while True:
@@ -815,10 +1073,12 @@ class LLMServer(SeldonComponent):
         page_stats = {"kv_pages_total": 0, "kv_pages_in_use": 0, "kv_page_size": 0,
                       "kv_page_sheds": 0}
         in_flight = 0
+        spec_stats = dict(SPEC_STATS_OFF)
         svc = getattr(self, "_batcher_service", None)
         if svc is not None:
             page_stats = svc.batcher.page_stats()
             in_flight = len(svc.batcher._inflight)
+            spec_stats = svc.batcher.spec_stats()
         return {
             **page_stats,
             "decode_step_times_s": drain(self._decode_step_times),
@@ -826,6 +1086,8 @@ class LLMServer(SeldonComponent):
             "decode_sync_times_s": drain(self._decode_sync_times),
             "decode_host_lag_steps": drain(self._decode_host_lag),
             "decode_steps_in_flight": in_flight,
+            **spec_stats,
+            "spec_accepted_per_step": drain(self._spec_accepted),
             "ttft_s": drain(self._ttft_times),
             "inter_token_s": drain(self._inter_token_times),
         }

@@ -1,6 +1,7 @@
 """The server's programs as CUDA graphs, captured once over fixed buffers
-and then replayed: the batcher's two (one replay per prefill chunk and one
-per decode dispatch) and ``generate()``'s dense decode step (one replay per
+and then replayed: the batcher's (one replay per prefill chunk, and one per
+decode dispatch: the K-step decode program, or in spec mode the fused draft
++ verify step) and ``generate()``'s dense decode step (one replay per
 token).
 
 These are the port's counterparts of the JAX package's compiled programs
@@ -9,7 +10,9 @@ n_pages)``, one ``jax.jit`` per chunk length, ``_get_decode_step_paged``,
 a ``lax.scan`` of k steps under ``jax.jit``, one dispatch per k steps, and
 ``_get_decode(b, max_len)``, a ``lax.scan`` of ``n_steps`` under
 ``jax.jit``, of which the port captures one step per (batch bucket,
-max_len) and replays it ``n_steps`` times. Eager PyTorch enqueues a
+max_len) and replays it ``n_steps`` times, and ``_get_spec_step``, one
+``jax.jit`` per batcher shape, whose per-slot advance (1..K+1 tokens) the
+graph computes on the device and the host learns at drain. Eager PyTorch enqueues a
 forward's ~2,000 kernels one by one from the host; a replay enqueues the
 captured program as one graph launch. The kernels inside are the port's
 own (K1 paged attention in the paged decode step, K2 fused residual +
@@ -25,7 +28,10 @@ What the capture relies on:
   fixed per batcher; a generate step reads and writes the server's dense
   buffer (the contiguous prefix of each flat cache tensor, and the state
   ``tok``, ``pos``, ``done``, ``keys``, ``temperature``), which a growth
-  replaces after dropping every generate graph;
+  replaces after dropping every generate graph; a spec step also reads and
+  writes the batcher's token history ``hist``, its fixed ``draft_cap``
+  buffer (written by the host in stream order before each replay) and, in
+  draft mode, the dense draft caches;
 - a warm-up run of each program on the capture stream, before any capture,
   does every first-use set-up outside the graph: nvcc builds and library
   loads, the stream's cuBLAS workspace, K1's arrival counters of the stream.
@@ -221,5 +227,42 @@ def capture_generate_step(server, b: int, max_len: int, caches, tok: torch.Tenso
     return graph
 
 
+@torch.no_grad()
+def capture_spec_step(server, spec_k: int, mode: str, pools, last_tok: torch.Tensor,
+                      next_pos: torch.Tensor, keys: torch.Tensor,
+                      temperature: Optional[torch.Tensor], block_tables: torch.Tensor,
+                      hist: torch.Tensor, draft_cap: torch.Tensor, draft_caches=None
+                      ) -> ReplayGraph:
+    """Capture ``server._get_spec_step(slots, spec_k, hist_len, mode=mode,
+    n_pages=...)`` over the batcher's fixed buffers (the pools, the slot
+    state, the block tables, ``hist`` [slots, hist_len + 1], ``draft_cap``
+    [slots] and in draft mode the dense draft caches) on the server's
+    capture stream, in a pool of its own, after a warm-up run with
+    ``draft_cap`` zero (module docstring). The warm-up reads all-TRASH
+    block tables, so it writes only the TRASH page; the slot state and
+    ``hist`` are restored after it, and the draft caches reset (every
+    admission rewrites its slot's row). Returns the ReplayGraph (its
+    output: [slots, spec_k + 2], the tokens and, last, the advance). The
+    current stream waits for the capture stream before this returns."""
+    from seldon_core_tpu_torch.models.transformer import reset_kv_caches
+
+    slots, n_pages = block_tables.shape
+    program = server._get_spec_step(slots, spec_k, hist.shape[1] - 1, mode=mode,
+                                    layout="paged", n_pages=n_pages)
+    args = (pools, last_tok, next_pos, keys, temperature, block_tables, hist, draft_cap,
+            draft_caches)
+    state = (last_tok, next_pos, keys, hist)
+    with _on_capture_stream(server._graph_stream(), last_tok.device):
+        saved = [t.clone() for t in state]
+        draft_cap.zero_()
+        program(*args)
+        for t, s in zip(state, saved):
+            t.copy_(s)
+        if draft_caches is not None:
+            reset_kv_caches(draft_caches)
+        graph = _capture(lambda: program(*args))
+    return graph
+
+
 __all__ = ["ReplayGraph", "capture_decode_steps", "capture_generate_step",
-           "capture_prefill_chunks", "launch_counts"]
+           "capture_prefill_chunks", "capture_spec_step", "launch_counts"]

@@ -3,7 +3,8 @@ grpc_server.py``) against the JAX package's, on the CPU, with the JAX
 package's ``grpc_client`` as the client of both:
 
 - ``Model/GenerateStream`` events equal the JAX server's and the port's own
-  SSE events, for a text and an id prompt; its rejections before the
+  SSE events, for a text and an id prompt, and with speculation on (n-gram,
+  the perfect drafter) they equal SSE's and the done tokens; its rejections before the
   stream (a per-request temperature, a seeded prompt the slot cache cannot
   hold) are INVALID_ARGUMENT with JAX's message; a shed is
   RESOURCE_EXHAUSTED and a tenant UNIMPLEMENTED naming its slice;
@@ -297,3 +298,31 @@ def test_cli_grpc_reads_the_max_message_size_annotation(monkeypatch, tmp_path, a
             assert out.to_dict()["data"]["tensor"]["values"] == [2.0] * 1000
     finally:
         started["server"].stop(None)
+
+
+@pytest.mark.parametrize("mode", ["ngram", "draft"])
+def test_spec_generate_stream_equals_sse(mode):
+    """With speculation on, ``GenerateStream`` events equal SSE's, each
+    stream's token events are its done tokens, and those are the JAX
+    ``generate()``'s."""
+    j = JaxLLMServer(init_random=True, **COMMON)
+    j.load()
+    params = {"params": jax.tree_util.tree_map(np.asarray, j._params["params"])}
+    extra = dict(draft_model="transformer", draft_model_kwargs=KW) if mode == "draft" else {}
+    p = LLMServer(device="cpu", spec_mode=mode, spec_k=4, **dict(COMMON, **extra))
+    p.load(params=params, draft_params=params if mode == "draft" else None)
+    target, srv = served(make_component_server, p)
+    httpd, _ = start(make_component_app(p, device="cpu"))
+    body = {"prompt": IDS, "max_new_tokens": 9}
+    try:
+        got = stream(target, body)
+        rest = sse(httpd.server_address[1], body)
+    finally:
+        srv.stop(None)
+        httpd.shutdown()
+        httpd.server_close()
+        p._batcher_service.close()
+    assert got == rest
+    assert got[-1]["done"] is True
+    assert [e["token"] for e in got[:-1]] == got[-1]["tokens"]
+    assert got[-1]["tokens"] == j.generate([IDS], max_new_tokens=9)["tokens"][0]

@@ -825,6 +825,112 @@ def test_batcher_through_graphs_equals_eager_batcher(dev, kv):
     assert max(s._decode_host_lag) > 4
 
 
+def _spec_batcher(dev, kv, mode, **kw):
+    """The small model and a 3-slot paged spec batcher (K = 4) on the card,
+    built (its spec graph captured) under ``set_sync_debug_mode("error")``;
+    in draft mode the draft is configured like the target (a copy)."""
+    from seldon_core_tpu_torch.runtime.batcher import ContinuousBatcher
+    from seldon_core_tpu_torch.servers.llmserver import LLMServer
+
+    draft = dict(draft_model="transformer", draft_model_kwargs=SMALL_LLM) if mode == "draft" \
+        else {}
+    s = LLMServer(model="transformer", model_kwargs=SMALL_LLM, init_random=True,
+                  param_dtype="auto", max_new_tokens=12, eos_id=-1, len_buckets=(16,),
+                  temperature=kw.pop("temperature", 0.0), spec_mode=mode, spec_k=4,
+                  device="cuda", **draft, **INT8_KNOBS[kv])
+    s.load()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        b = ContinuousBatcher(s, max_slots=3, page_size=8, device="cuda", **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return s, b
+
+
+def _spec_copy(b):
+    draft = None if b._draft_caches is None else [tuple(t.clone() for t in layer)
+                                                  for layer in b._draft_caches]
+    return (*_state_copy(b), b._hist.clone(), draft)
+
+
+@pytest.mark.parametrize("mode,kv", [("ngram", "bf16"), ("ngram", "int8"), ("draft", "bf16")])
+def test_spec_graph_replay_bit_equals_eager(dev, mode, kv):
+    """Three live slots: from identical copies of the pools, slot state,
+    history and draft caches, one replay of the captured spec step and one
+    eager call of the same program, at three sets of caps written into the
+    fixed cap buffer, give bit-equal tokens and advance, state, history,
+    draft caches and pools (every page but TRASH, where the columns past a
+    cap land in no set order); each replay adds exactly what its capture
+    counted: per verify one K1 launch a layer (the K+1 columns folded into
+    rows), one K2 a layer (and one a layer of each of the K+1 draft
+    forwards), and in the int8 model one K4 decode launch a product (M =
+    15 rows). No decode graph is captured in spec mode."""
+    from seldon_core_tpu_torch.models.transformer import TRASH_PAGE
+    from seldon_core_tpu_torch.servers.step_graph import launch_counts
+
+    s, b = _spec_batcher(dev, kv, mode)
+    assert b._spec_graph is not None and not b._graphs
+    _admit(b, ([5, 9, 17, 2, 40, 3, 22, 8, 11, 60], [7, 7, 1, 7, 7, 1], [3, 3, 3, 3]))
+    assert all(slot.active for slot in b._slots)
+    n_layers = SMALL_LLM["n_layers"]
+    prog = s._get_spec_step(b.S, 4, b.hist_len, mode=mode, n_pages=b.n_pages)
+    for caps in ((4, 4, 4), (1, 0, 3), (4, 2, 4)):
+        b._draft_cap.copy_(torch.tensor(caps, dtype=torch.int32))
+        copy = _spec_copy(b)
+        before = launch_counts()
+        out = b._spec_graph.replay().clone()
+        after = launch_counts()
+        eager = prog(*copy[:4], b._temp, b._block_tables, copy[4], b._draft_cap, copy[5])
+        torch.cuda.synchronize()
+        assert out.shape == (3, 6) and torch.equal(out, eager)
+        adv = out[:, 5].cpu()
+        assert bool((adv >= 1).all()) and bool((adv <= torch.tensor(caps) + 1).all())
+        assert torch.equal(b._last_tok, copy[1]) and torch.equal(b._next_pos, copy[2])
+        assert torch.equal(b._keys, copy[3]) and torch.equal(b._hist, copy[4])
+        for la, lb in zip(b._caches, copy[0]):
+            for x, y in zip(la, lb):
+                keep = torch.ones(x.shape[0], dtype=torch.bool, device=dev)
+                keep[TRASH_PAGE] = False
+                assert torch.equal(x[keep], y[keep])
+        if mode == "draft":
+            for la, lb in zip(b._draft_caches, copy[5]):
+                for x, y in zip(la, lb):
+                    assert torch.equal(x, y)
+        delta = {key: n - before[key] for key, n in after.items() if n != before[key]}
+        assert delta == dict(b._spec_graph.counts)
+        k1 = paged_attention.paged_attention
+        assert delta[(k1, "launches_int8" if kv == "int8" else "launches")] == n_layers
+        drafts = 5 * n_layers if mode == "draft" else 0
+        assert delta[(fused_norm.fused_residual_rmsnorm, "launches")] == n_layers + drafts
+        k4 = delta.get((int8_matmul.int8_matmul, "launches"), 0)
+        assert k4 == (7 * n_layers + 1 if kv == "int8" else 0)
+
+
+@pytest.mark.parametrize("mode", ["ngram", "draft"])
+def test_spec_batcher_through_graph_equals_eager_batcher(dev, mode):
+    """The same requests through the spec graph and through the eager spec
+    program (the private ``_eager`` switch): the same tokens; every verify
+    dispatch of the graph batcher is a replay."""
+    from seldon_core_tpu_torch.runtime.batcher import ContinuousBatcher
+
+    s, b = _spec_batcher(dev, "bf16", mode, pipeline_depth=2)
+    prompts = ("hi", "hello there", "a", "four requests on three slots")
+    outs = {}
+    for name, batcher in (("graph", b), ("eager", ContinuousBatcher(
+            s, max_slots=3, page_size=8, pipeline_depth=2, device="cuda", _eager=True))):
+        s._decode_replays = s._decode_eager = 0
+        try:
+            outs[name] = [f.result(120) for f in [batcher.submit(p) for p in prompts]]
+        finally:
+            batcher.close()
+        assert batcher.page_stats()["kv_pages_in_use"] == 0
+        replays, eager = s._decode_replays, s._decode_eager
+        assert (replays > 0 and eager == 0) if name == "graph" else (replays == 0 and eager > 0)
+    assert [len(o) for o in outs["graph"]] == [12] * 4
+    assert outs["graph"] == outs["eager"]
+
+
 def test_sse_stream_through_graph_batcher(dev):
     """A stream over REST through the graph batcher (K = 4, 3 slots): each
     stream's token events equal its ``done`` tokens and its greedy tokens

@@ -274,7 +274,7 @@ def test_rest_generate_and_ready(jax_params):
 
 
 @pytest.mark.parametrize("kw,slice_name", [
-    (dict(spec_mode="ngram"), "speculative"),
+    (dict(draft_model_uri="file:///tmp/draft"), "speculative"),
     (dict(disaggregation="remote_prefill"), "disaggregation"),
     (dict(prefix_cache_size=4), "prefix"),
     (dict(lora_rank=4), "LoRA"),

@@ -10,6 +10,9 @@ registry.py``, ``LLMServer.llm_stats``, ``transport/rest.py`` ``/metrics``,
   dict; the port emits exactly the families whose source it has;
 - the same requests to the JAX app and the port's app count the same
   request series by method and code;
+- ``llm_stats``' speculation fields are zeros with speculation off; with
+  it on, a scrape after a request shows the ``seldon_llm_spec_*`` series
+  the batcher counted (the verify steps, each one's accepted tokens);
 - live, after streams through the batcher: one scrape shows TTFT count =
   requests, inter-token count = credited tokens less one a request, page
   gauges = ``page_stats()``; ``llm_stats`` drains, so the next scrape adds
@@ -50,7 +53,10 @@ PORT_FAMILIES = {
     "seldon_llm_decode_step_seconds", "seldon_llm_ttft_seconds",
     "seldon_llm_inter_token_seconds", "seldon_llm_decode_dispatch_seconds",
     "seldon_llm_decode_sync_seconds", "seldon_llm_decode_steps_in_flight",
-    "seldon_llm_decode_host_lag_steps",
+    "seldon_llm_decode_host_lag_steps", "seldon_llm_spec_accept_rate",
+    "seldon_llm_spec_accept_rate_per_slot", "seldon_llm_spec_tokens_per_forward",
+    "seldon_llm_spec_accepted_tokens_per_step", "seldon_llm_spec_draft_overhead_fraction",
+    "seldon_llm_spec_slot_verify_steps",
 }
 
 
@@ -72,6 +78,12 @@ def stats(seed, sheds):
         "decode_steps_in_flight": int(rng.integers(0, 3)),
         "ttft_s": rng.uniform(0, 2, 3).tolist() + [0.1],
         "inter_token_s": rng.uniform(0, 0.03, 9).tolist() + [0.0, 0.0],
+        "spec_mode": "ngram", "spec_k": 4, "spec_accept_rate": float(rng.uniform()),
+        "spec_tokens_per_forward": 1 + 4 * float(rng.uniform()),
+        "spec_slot_steps_total": 10 * sheds,
+        "spec_accept_rate_per_slot": rng.uniform(0, 1, 3).tolist(),
+        "spec_draft_overhead_fraction": float(rng.uniform()),
+        "spec_accepted_per_step": rng.integers(1, 6, 5).tolist() + [16, 17],
     }
 
 
@@ -238,3 +250,40 @@ def test_seldon_json_is_the_wrapper_spec(apps):
     code, ctype, text = get(pport, "/seldon.json")
     assert code == 200 and ctype == "application/json"
     assert json.loads(text) == jax_wrapper_spec() == json.loads(get(jport, "/seldon.json")[2])
+
+
+def test_llm_stats_spec_fields(apps):
+    """Speculation off: the spec fields are zeros. On (the n-gram batcher
+    behind the component app): one request's verify steps reach the
+    scrape, and llm_stats drains the accepted-tokens series."""
+    _, _, server = apps
+    off = server.llm_stats()
+    assert off["spec_mode"] == "off" and off["spec_k"] == 0
+    assert (off["spec_accept_rate"], off["spec_tokens_per_forward"],
+            off["spec_slot_steps_total"], off["spec_accept_rate_per_slot"],
+            off["spec_draft_overhead_fraction"], off["spec_accepted_per_step"]) == \
+        (0.0, 0.0, 0, [], 0.0, [])
+    j = JaxLLMServer(init_random=True, **COMMON)
+    j.load()
+    p = LLMServer(device="cpu", spec_mode="ngram", spec_k=4, **COMMON)
+    p.load(params={"params": jax.tree_util.tree_map(np.asarray, j._params["params"])})
+    httpd, _ = start(make_component_app(p, device="cpu"))
+    port = httpd.server_address[1]
+    try:
+        code, body = post(port, {"prompt": "abcabcabcabc"})
+        assert code == 200
+        assert json.loads(body)["tokens"] == j.generate(["abcabcabcabc"])["tokens"][0]
+        fams = families(get(port, "/metrics")[2])
+        steps = p._batcher_service.batcher.spec_stats()["spec_slot_steps_total"]
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        p._batcher_service.close()
+    assert steps > 0
+    value = {s.name: s.value for fam in fams.values() for s in fam.samples
+             if not s.labels.get("slot") and not s.labels.get("le")}
+    assert value["seldon_llm_spec_slot_verify_steps_total"] == steps
+    assert value["seldon_llm_spec_accepted_tokens_per_step_count"] == steps
+    assert value["seldon_llm_spec_tokens_per_forward"] >= 1.0
+    assert len([s for s in fams["seldon_llm_spec_accept_rate_per_slot"].samples]) == 2
+    assert p.llm_stats()["spec_accepted_per_step"] == []

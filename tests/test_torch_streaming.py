@@ -19,7 +19,9 @@ at a tiny width (greedy, float32, the JAX weights through
   the private path;
 - a client that disconnects mid-stream and a cancelled ``submit`` leave
   the batcher running (no ``InvalidStateError``), every page returns, and
-  the next request gets its solo tokens; a callback that raises is ignored.
+  the next request gets its solo tokens; a callback that raises is ignored;
+  so do they with speculation on, where a drain surfaces a block of
+  tokens (each token an event, the events equal to the done tokens).
 
 Every socket read has a timeout, so a hung stream fails instead of waiting
 out the run."""
@@ -464,3 +466,38 @@ def test_stream_events_come_in_bursts():
     bursts = list(stream_events(_Stub(None), "hi", 4, svc=_BurstSvc()))
     assert bursts == [[{"token": t, "text": chr(t)} for t in (104, 105, 106, 107)],
                       [{"done": True, "tokens": [104, 105, 106, 107], "text": "hijk"}]]
+
+
+@pytest.mark.parametrize("mode", ["ngram", "draft"])
+def test_spec_stream_and_cancelled_submit(params, mode):
+    """A speculative batcher (n-gram, or the perfect drafter: a draft with
+    the target's weights, so blocks of up to 5 tokens surface a drain):
+    a stream's ``on_token`` events are its done tokens, then None, and
+    equal ``generate()``; a future cancelled after its first token decodes
+    out and is dropped; the loop keeps serving and every page returns."""
+    extra = dict(draft_model="transformer", draft_model_kwargs=KW) if mode == "draft" else {}
+    server = LLMServer(device="cpu", spec_mode=mode, spec_k=4, **dict(COMMON, **extra))
+    server.load(params=params, draft_params=params if mode == "draft" else None)
+    b = ContinuousBatcher(server, max_slots=2, page_size=8, device="cpu")
+    solo = server.generate([IDS, "hello"], max_new_tokens=12)["tokens"]
+    try:
+        seen, cancelled, first = [], [], threading.Event()
+
+        def on_cancelled(tok):
+            cancelled.append(tok)
+            first.set()
+
+        gone = b.submit("hello", 12, on_token=on_cancelled)
+        assert first.wait(TIMEOUT)
+        gone.cancel()
+        done = b.submit(IDS, 12, on_token=seen.append).result(TIMEOUT)
+        assert wait_idle(b) == 0
+        assert b.submit("hello", 12).result(TIMEOUT) == solo[1]
+        assert b.crashed is None and gone.cancelled()
+        assert b.spec_stats()["spec_slot_steps_total"] > 0
+        if mode == "draft":
+            assert b.spec_stats()["spec_tokens_per_forward"] > 2.0
+    finally:
+        b.close()
+    assert done == solo[0] and seen == done + [None]
+    assert cancelled[-1:] == [None] and cancelled[:-1] == solo[1][:len(cancelled) - 1]
