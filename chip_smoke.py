@@ -9,6 +9,7 @@ kernel of that path against its plain PyTorch version.
     python3 chip_smoke.py --k3-sweep [rows.json]   # only: build, then K3's tile widths x
                                                    # splits; rows to rows.json
     python3 chip_smoke.py --k2-sweep   # only: build, then K2's threads x slots a row
+    python3 chip_smoke.py --prefix     # only: build, then the prefix phase (both models)
 
 Phases (any failure exits non-zero; nothing swallows an error):
 
@@ -145,7 +146,30 @@ Phases (any failure exits non-zero; nothing swallows an error):
    forward, draft overhead, the step per dispatch and per token beside the
    plain step, the replay's host and device time beside the eager
    program's, the spec graph's pool, peak memory, and with a draft its
-   forwards' share of the step;
+   forwards' share of the step. The radix prefix cache (``prefix_phase``),
+   once on a bf16 server and once on int8 weights + int8 KV, each loaded
+   with prefix_cache_size=PREFIX_CACHE_SIZE and a dense budget of one 7B
+   entry: N_REQUESTS conversations x PREFIX_TURNS turns over a
+   PREFIX_SYSTEM-token system prompt (PREFIX_USER user tokens a turn,
+   MAX_NEW answered) through REST, conversation 0's turn 1 alone, then the
+   other turns 1 at once, then turns 2 and 3 of all at once, through a
+   trie-on batcher and then the same requests through a trie-off one
+   (counts zeroed before each, read after): the trie's hit tokens, hit
+   blocks, CoW copies and bytes saved equal the traffic's arithmetic; every
+   chunk (only the uncached suffixes' with the trie on) and every CoW copy
+   a replay; launches as the steps and chunks give them; tokens
+   teacher-forced and equal to the trie-off run's up to a near-tie; one
+   scrape's prefix series equal ``llm_stats``; after the chat the pages in
+   use are the trie's, none after ``clear_prefix_cache()``; one CoW replay
+   on live pools bit-equal to the eager copy (positions PAD_POS past
+   n_valid, the source untouched), both timed; then generate()'s dense
+   entries: a 1,088-token prompt cold, again (an exact hit: no prefill
+   forward, tokens bit-equal, the entry unchanged by the decode graph), and
+   extended by PREFIX_DENSE_EXTRA tokens (a partial hit through
+   ``_get_extend``, equal to a cache-cleared call up to a near-tie).
+   Printed: TTFT per turn trie on vs off, chunks, peak pages, bytes saved,
+   the CoW replay's host and device time beside the eager copy's, each
+   dense call's prefill time and wall;
 5. ResNet-50 forward phase — the folded model at full width and depth
    (random live weights from a seed: no residual branch is switched off),
    a forward at batch 128 through K3 (its launches: the four chains'
@@ -166,7 +190,8 @@ Phases (any failure exits non-zero; nothing swallows an error):
 
 The line before the last is the kernel table as JSON (K1 over a bf16 pool,
 K1 over an int8 pool, K2, K3, K4's decode kernel, K4's prefill kernel; K2's
-launches are the five LLM runs' together, K3's the predict serving run's);
+launches are every LLM run's together (the speculative and prefix phases'
+included), K3's the predict serving run's);
 the last line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 port's package beside it, the script exits non-zero and prints no result.
 """
@@ -262,6 +287,22 @@ TINYLLAMA_1B = dict(vocab_size=32000, dim=2048, n_layers=22, n_heads=32, n_kv_he
 # only a near-tie between the dense draft read and the paged verify may
 # reject one
 SPEC_PERFECT_ACCEPT = 0.9
+# the prefix phase: N_REQUESTS conversations x PREFIX_TURNS turns over a
+# PREFIX_SYSTEM-token system prompt common to all, PREFIX_USER user tokens a
+# turn, MAX_NEW answered; conversation 0's turn 1 alone (cold, it fills the
+# trie), then the other turns 1 at once, then each later turn of all at once
+PREFIX_SYSTEM = 1024
+PREFIX_USER = 64
+PREFIX_TURNS = 3
+PREFIX_GROUPS = ([(0, 0)], [(c, 0) for c in range(1, N_REQUESTS)],
+                 *([(c, t) for c in range(N_REQUESTS)] for t in range(1, PREFIX_TURNS)))
+PREFIX_ORDER = [key for group in PREFIX_GROUPS for key in group]
+PREFIX_CACHE_SIZE = 64
+# generate()'s dense entries at 7B span the top length bucket + MAX_NEW
+# positions (1.09 GB in bf16: the 512 MB default budget caches nothing);
+# the phase's budget holds one; the partial hit extends the prompt by
+PREFIX_ENTRY_POSITIONS = 2048 + MAX_NEW
+PREFIX_DENSE_EXTRA = 96
 
 
 def fail(msg: str) -> None:
@@ -1174,10 +1215,11 @@ def prompts(n: int):
     return [prompt_text(i) for i in range(n)]
 
 
-def chunks_of(b, n: int):
-    """The prefill chunks the batcher ``b`` runs for a prompt of ``n``
-    tokens: its chunk length (from its prompt bucket), once per chunk."""
-    _, plen = b._truncate_prompt([0] * n, MAX_NEW, None)
+def chunks_of(b, n: int, prompt_len: Optional[int] = None):
+    """The prefill chunks the batcher ``b`` runs for ``n`` uncached tokens
+    of a prompt of ``prompt_len`` (default ``n``) tokens: its chunk length
+    (from the prompt's bucket), once per chunk."""
+    _, plen = b._truncate_prompt([0] * (prompt_len or n), MAX_NEW, None)
     c = min(b.prefill_chunk, plen)
     return [c] * -(-n // c)
 
@@ -1597,13 +1639,19 @@ def check_launches(label: str, card: str, counts: dict, chunks, quantized: bool,
     return decode_steps
 
 
+def prompt_ids(server, prompt) -> list:
+    """A request's prompt as token ids: a text through the byte tokenizer,
+    a token list as it is."""
+    return server._tokenizer.encode(prompt) if isinstance(prompt, str) else list(prompt)
+
+
 def teacher_check(label: str, card: str, server, texts, served) -> None:
     """Every served token against a teacher-forced prefill over its own
-    request's prompt and served tokens, through the same KV numerics:
-    within TIE_TOL of the top logit at every step."""
+    request's prompt (a text or token ids) and served tokens, through the
+    same KV numerics: within TIE_TOL of the top logit at every step."""
     import torch
 
-    seqs = [server._tokenizer.encode(t) + toks for t, toks in zip(texts, served)]
+    seqs = [prompt_ids(server, t) + toks for t, toks in zip(texts, served)]
     tf_logits = teacher_logits(server, seqs)
     # row p - 1 + t of request i predicts its served token t
     rows = torch.stack([tf_logits[i, len(seq) - MAX_NEW - 1:len(seq) - 1]
@@ -2557,7 +2605,7 @@ def near_tie_check(label: str, card: str, server, texts, served, plain) -> int:
         if t is None:
             equal += 1
             continue
-        row = teacher_logits(server, [server._tokenizer.encode(texts[i]) + a[:t]])[0, -1].float()
+        row = teacher_logits(server, [prompt_ids(server, texts[i]) + a[:t]])[0, -1].float()
         top = row.max().item()
         gaps = (top - row[a[t]].item(), top - row[b_[t]].item())
         print(f"[{label}] request {i}: tokens equal to the plain batcher's for {t} of "
@@ -2868,6 +2916,428 @@ def spec_phase(label: str, card: str, server, mode: str, plain: Optional[dict] =
     gc.collect()
     torch.cuda.empty_cache()
     return records, m
+
+
+# ---------------------------------------------------------------------------
+# the radix prefix cache: a multi-turn chat over a shared system prompt
+# ---------------------------------------------------------------------------
+def chat_tokens():
+    """The chat's byte-token pieces: a PREFIX_SYSTEM-token system prompt
+    common to every conversation, and per conversation and turn
+    PREFIX_USER user tokens, whose first token differs from every other
+    turn's (so no conversation matches another's turn)."""
+    words = ("you are a careful assistant serving tensor page kernel batch decode prefill "
+             "stream cache token slot model layer head warp block").split()
+    text, j = "system:", 0
+    while len(text) < PREFIX_SYSTEM:
+        text += " " + words[(j * 7 + len(text)) % len(words)]
+        j += 1
+    system = list(text.encode())[:PREFIX_SYSTEM]
+    users = [[[65 + PREFIX_TURNS * c + t] + list(
+        (f" conversation {c} turn {t}: " + " ".join(words[(c + t + k) % len(words)]
+                                                   for k in range(20))).encode())[:PREFIX_USER - 1]
+              for t in range(PREFIX_TURNS)] for c in range(N_REQUESTS)]
+    return system, users
+
+
+def prefix_entry_bytes(knobs: dict) -> int:
+    """One generate() dense entry at Llama-2-7B: PREFIX_ENTRY_POSITIONS
+    positions of the KV dtype's bytes (``kv_cache_bytes_per_token``)."""
+    import torch
+
+    from seldon_core_tpu_torch.models.transformer import (TransformerConfig,
+                                                          kv_cache_bytes_per_token)
+
+    cfg = TransformerConfig(**dict(LLAMA2_7B, dtype=torch.bfloat16))
+    return PREFIX_ENTRY_POSITIONS * kv_cache_bytes_per_token(
+        cfg, knobs.get("kv_cache_dtype") or "bf16")
+
+
+def prefix_expected(system, prompts, page_size):
+    """Each request's hit from the traffic's arithmetic: turn 1 of the
+    first conversation is cold; a later conversation's turn 1 shares the
+    system prompt (whole blocks, its user turn differs from the first
+    token); a turn t > 1 matches the conversation's previous history, its
+    prompt and every answered token but the last, in full blocks and a
+    copy-on-write tail. Returns [(k0, shared blocks, cow)] in order."""
+    out = []
+    for c, t in PREFIX_ORDER:
+        if t == 0:
+            k0 = 0 if c == 0 else len(system) // page_size * page_size
+        else:
+            k0 = len(prompts[c, t - 1]) + MAX_NEW - 1
+        out.append((k0, k0 // page_size, int(k0 % page_size != 0)))
+    return out
+
+
+def prefix_run(label: str, card: str, server, system, users, trie: bool, prompts=None):
+    """The chat through a new BatcherService (trie on or off; built under
+    ``set_sync_debug_mode("error")``) behind the REST app: conversation
+    0's turn 1 alone, then turn 1 of the others at once, then turns 2 and 3
+    of all at once, turn by turn. ``prompts`` (the trie-on run's) replays
+    the same requests; else each turn's prompt is the last one, its served
+    answer and the user's turn. After a warm-up request and a cleared
+    trie, every launch counter is zeroed just before the chat and read just
+    after. Returns (the batcher, its service, the prompts, the served
+    tokens, the launch counts, per group the TTFTs, the peak pages in use,
+    the trie's counters over the chat)."""
+    import torch
+
+    from seldon_core_tpu_torch.runtime.batcher import BatcherService
+    from seldon_core_tpu_torch.transport.rest import make_component_app, start
+
+    size = server.prefix_cache_size
+    server.prefix_cache_size = size if trie else 0
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        svc = BatcherService(server, max_slots=N_REQUESTS)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+        server.prefix_cache_size = size
+    b = svc.batcher
+    if (b._radix is not None) != trie or (b._cow_graph is not None) != trie:
+        fail(f"[{label}] trie {'on' if trie else 'off'}: batcher radix {b._radix}, CoW graph "
+             f"{b._cow_graph}")
+    # pages in use grow only at an allocation: its exact peak
+    peak = [0]
+    alloc = b._allocator.alloc
+
+    def counted(n):
+        got = alloc(n)
+        if got is not None:
+            peak[0] = max(peak[0], b._allocator.stats()[1])
+        return got
+
+    b._allocator.alloc = counted
+    server._batcher_service = svc
+    httpd, _ = start(make_component_app(server, device="cuda"))
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    prompts = dict(prompts or {})
+    served, ttfts = {}, []
+    try:
+        code, body = post(url + "/v1/generate", {"prompt": "warm up", "max_new_tokens": 4})
+        if code != 200:
+            fail(f"[{label}] warm-up request answered {code}: {body}")
+        server.clear_prefix_cache()
+        torch.cuda.synchronize()
+        before = b._radix.stats() if trie else None
+        zero_counts(server)
+        server._cow_replays = server._cow_eager = 0
+        peak[0] = 0
+        for group in PREFIX_GROUPS:
+            for c, t in group:
+                if (c, t) not in prompts:
+                    prompts[c, t] = (system + users[c][0] if t == 0 else
+                                     prompts[c, t - 1] + served[c, t - 1] + users[c][t])
+            server._ttft_times.clear()
+            results, _ = post_all(url, [prompts[key] for key in group])
+            for key, toks in zip(group, served_tokens(label, results)):
+                served[key] = toks
+            ttfts.append(sorted(server._ttft_times))
+        launches = read_counts(server)
+        launches["cow"] = (server._cow_replays, server._cow_eager)
+        after = b._radix.stats() if trie else None
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    counters = ({k: after[k] - before[k] for k in ("prefix_hit_blocks", "prefix_hit_tokens",
+                                                   "prefix_cow_copies", "prefix_bytes_saved")}
+                if trie else {})
+    return b, svc, prompts, served, launches, ttfts, peak[0], counters
+
+
+def prefix_phase(label: str, card: str, server) -> tuple:
+    """The radix prefix cache on the served path (Llama-2-7B, ``server``
+    loaded with the cache on): N_REQUESTS conversations x PREFIX_TURNS
+    turns over a PREFIX_SYSTEM-token system prompt, MAX_NEW answered a
+    turn, through the trie-on batcher and then the same requests through a
+    trie-off one on the same weights. Hard checks: served tokens teacher-
+    forced and equal to the trie-off run's up to a near-tie; the trie's
+    hit tokens, hit blocks, CoW copies and bytes saved equal the traffic's
+    arithmetic (``prefix_expected``); every chunk and every CoW a replay,
+    the chunks (PREFILL_CHUNKS' 256) as many as each request's uncached
+    suffix needs, the kernels' launches as the run's steps and chunks give
+    them; one CoW replay on live pools bit-equal to the eager
+    ``cow_page_copy`` (destination positions PAD_POS from n_valid on, the
+    source untouched); after the chat the pages in use are the trie's,
+    and none after ``clear_prefix_cache()``; one scrape's prefix series
+    equal ``llm_stats``. Then generate()'s dense entries
+    (``dense_prefix_check``). Returns (launch records, metrics)."""
+    import gc
+
+    import torch
+
+    from seldon_core_tpu_torch.models.transformer import PAD_POS
+    from seldon_core_tpu_torch.runtime.batcher import cow_page_copy
+    from seldon_core_tpu_torch.transport.rest import make_component_app, start
+
+    quantized, int8_kv = server.quantize == "int8", server.kv_cache_dtype == "int8"
+    system, users = chat_tokens()
+    b, svc, prompts, served, on_counts, on_ttft, on_peak, counters = prefix_run(
+        label, card, server, system, users, trie=True)
+    ps = b.page_size
+    expect = prefix_expected(system, prompts, ps)
+    bpt = b._radix.bytes_per_block // ps
+    want = {"prefix_hit_tokens": sum(k0 for k0, _, _ in expect),
+            "prefix_hit_blocks": sum(n + cow for _, n, cow in expect),
+            "prefix_cow_copies": sum(cow for *_, cow in expect),
+            "prefix_bytes_saved": sum(n for _, n, _ in expect) * ps * bpt}
+    if counters != want:
+        fail(f"[{label}] trie counters over the chat {counters} != the traffic's {want}")
+    # each request's chunk length is its prompt bucket's; its chunks cover
+    # the uncached suffix only
+    on_chunks = [c for key, (k0, _, _) in zip(PREFIX_ORDER, expect)
+                 for c in chunks_of(b, len(prompts[key]) - k0, len(prompts[key]))]
+    on_steps = check_launches(f"{label} trie on", card, on_counts, on_chunks, quantized,
+                              int8_kv, eager=False)
+    if on_counts["cow"] != (want["prefix_cow_copies"], 0):
+        fail(f"[{label}] CoW copies as (replays, eager runs) {on_counts['cow']}, expected "
+             f"({want['prefix_cow_copies']}, 0)")
+    for group in PREFIX_GROUPS:
+        teacher_check(f"{label} trie on", card, server, [prompts[k] for k in group],
+                      [served[k] for k in group])
+    # the pool holds the trie's pages and nothing else; the scrape agrees
+    httpd, _ = start(make_component_app(server, device="cuda"))
+    try:
+        samples = scrape(f"http://127.0.0.1:{httpd.server_address[1]}")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    stats = server.llm_stats()
+    for key, name in (("prefix_hit_blocks", "seldon_llm_prefix_hit_blocks_total"),
+                      ("prefix_cow_copies", "seldon_llm_prefix_cow_copies_total"),
+                      ("prefix_evicted_blocks", "seldon_llm_prefix_evicted_blocks_total"),
+                      ("prefix_bytes_saved", "seldon_llm_prefix_bytes_saved_total"),
+                      ("prefix_shared_pages", "seldon_llm_prefix_shared_pages"),
+                      ("prefix_cached_blocks", "seldon_llm_prefix_cached_blocks"),
+                      ("kv_pages_in_use", "seldon_llm_kv_pages_in_use"),
+                      ("kv_cache_bytes", "seldon_llm_kv_cache_bytes")):
+        if sample(samples, name) != stats[key]:
+            fail(f"[{label}] scrape {name} {sample(samples, name)} != llm_stats {key} "
+                 f"{stats[key]}")
+    if stats["kv_pages_in_use"] != stats["prefix_cached_blocks"] or stats["prefix_shared_pages"]:
+        fail(f"[{label}] after the chat: pages in use {stats['kv_pages_in_use']}, trie blocks "
+             f"{stats['prefix_cached_blocks']}, shared {stats['prefix_shared_pages']}")
+    # one CoW replay on live pools against the eager copy
+    tail = next(n for _, n in b._radix._iter_nodes() if len(n.key) < ps)
+    src, n_valid = tail.page, len(tail.key)
+    dst = b._allocator.alloc(1)[0]
+    src_before = [tuple(t[src].clone() for t in layer) for layer in b._caches]
+    replays = server._cow_replays
+    b._cow_copy(src, dst, n_valid)
+    if server._cow_replays != replays + 1:
+        fail(f"[{label}] the CoW copy was not a replay")
+    got = [tuple(t[dst].clone() for t in layer) for layer in b._caches]
+    for layer in b._caches:
+        for t in layer:
+            t[dst].fill_(3)
+    a = b._cow_args
+    cow_page_copy(b._caches, a[0:1], a[1:2], a[2:3])
+    torch.cuda.synchronize()
+    for layer, g, s0 in zip(b._caches, got, src_before):
+        if not all(torch.equal(t[dst], x) and torch.equal(t[src], y)
+                   for t, x, y in zip(layer, g, s0)):
+            fail(f"[{label}] CoW replay != the eager cow_page_copy on live pools (or the source "
+                 f"page changed)")
+        pos = layer[-1]
+        if not (torch.equal(pos[dst, :n_valid], pos[src, :n_valid])
+                and bool((pos[dst, n_valid:] == PAD_POS).all())):
+            fail(f"[{label}] CoW destination positions: not the source's up to {n_valid}, "
+                 f"PAD_POS after")
+    graph = b._cow_graph
+    (dev_replay, _), (dev_eager, _) = time_turns(
+        [graph.replay, lambda: cow_page_copy(b._caches, a[0:1], a[1:2], a[2:3])])
+    host_replay, host_eager = enqueue_turns(
+        [graph.replay, lambda: cow_page_copy(b._caches, a[0:1], a[1:2], a[2:3])], n=50)
+    page_bytes = sum(t[0].numel() * t.element_size() for layer in b._caches for t in layer)
+    cow = {"dev_ms": dev_replay, "eager_dev_ms": dev_eager, "host_ms": host_replay,
+           "eager_host_ms": host_eager, "bound_ms": 2 * page_bytes / HBM_BYTES_PER_S * 1e3,
+           "n_valid": n_valid, "page_mb": page_bytes / 1e6}
+    b._allocator.free([dst])
+    server.clear_prefix_cache()
+    if b.page_stats()["kv_pages_in_use"] != 0:
+        fail(f"[{label}] pages still held after clear_prefix_cache(): {b.page_stats()}")
+    saved_bytes = stats["prefix_bytes_saved"]
+    svc.close()
+    server._batcher_service = None
+    del b, svc, graph, got, src_before
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the same requests with the trie off
+    b, svc, _, plain, off_counts, off_ttft, off_peak, _ = prefix_run(
+        label, card, server, system, users, trie=False, prompts=prompts)
+    off_chunks = [c for key in PREFIX_ORDER for c in chunks_of(b, len(prompts[key]))]
+    off_steps = check_launches(f"{label} trie off", card, off_counts, off_chunks, quantized,
+                               int8_kv, eager=False)
+    if off_counts["cow"] != (0, 0) or b.page_stats()["kv_pages_in_use"] != 0:
+        fail(f"[{label}] trie off: CoW copies {off_counts['cow']}, pages {b.page_stats()}")
+    svc.close()
+    server._batcher_service = None
+    del b, svc
+    gc.collect()
+    torch.cuda.empty_cache()
+    equal = near_tie_check(f"{label} trie on vs off", card, server,
+                           [prompts[k] for k in PREFIX_ORDER], [served[k] for k in PREFIX_ORDER],
+                           [plain[k] for k in PREFIX_ORDER])
+    turns = ("turn 1, cold, alone", f"turn 1, {N_REQUESTS - 1} at once",
+             f"turn 2, {N_REQUESTS} at once", f"turn 3, {N_REQUESTS} at once")
+    ms = lambda ts: (statistics.median(ts) * 1e3, max(ts) * 1e3)
+    for name, on, off in zip(turns, on_ttft, off_ttft):
+        print(f"[{label}] TTFT {name}: median / max trie on {ms(on)[0]:.1f} / {ms(on)[1]:.1f} ms, "
+              f"trie off {ms(off)[0]:.1f} / {ms(off)[1]:.1f} ms "
+              f"({ms(off)[0] / ms(on)[0]:.2f}x) [{card}]", flush=True)
+    print(f"[{label}] chat of {N_REQUESTS} conversations x {PREFIX_TURNS} turns "
+          f"({PREFIX_SYSTEM}-token system prompt, {PREFIX_USER} user tokens a turn, {MAX_NEW} answered): prefill chunks "
+          f"of {sorted(set(on_chunks))} trie on {len(on_chunks)} vs off {len(off_chunks)} (all "
+          f"replays); decode "
+          f"steps {on_steps} vs {off_steps}; hits {want['prefix_hit_tokens']} tokens in "
+          f"{want['prefix_hit_blocks']} blocks, {want['prefix_cow_copies']} CoW copies (all "
+          f"replays), prefix_bytes_saved {saved_bytes} ({saved_bytes / 1e9:.3f} GB); peak pages "
+          f"in use on {on_peak} vs off {off_peak}; served tokens equal to the trie-off run's for "
+          f"{equal} of {len(PREFIX_ORDER)} requests (the rest near-ties) [{card}]", flush=True)
+    print(f"[{label}] CoW copy of one page ({cow['page_mb']:.1f} MB, {n_valid} of {ps} tokens "
+          f"valid), on live pools: replay device {cow['dev_ms']:.4f} ms vs the eager copy's "
+          f"{cow['eager_dev_ms']:.4f} ms (in turns; bound {cow['bound_ms']:.4f} ms, bytes: the "
+          f"page read and written), host {cow['host_ms']:.4f} vs {cow['eager_host_ms']:.4f} ms; "
+          f"bit-equal on the destination page, source untouched [{card}]", flush=True)
+    dense, dense_counts = dense_prefix_check(label, card, server, system, users)
+    metrics = {"on_ttft": [ms(t) for t in on_ttft], "off_ttft": [ms(t) for t in off_ttft],
+               "chunks": (len(on_chunks), len(off_chunks)), "peak": (on_peak, off_peak),
+               "saved_gb": saved_bytes / 1e9, "cow": cow, "dense": dense, "equal": equal}
+    return [(f"{label} trie on", on_counts), (f"{label} trie off", off_counts),
+            (f"{label} generate", dense_counts)], metrics
+
+
+def dense_prefix_check(label: str, card: str, server, system, users):
+    """generate()'s dense entries at 7B (one entry fits ``prefix_cache_bytes``):
+    the system prompt and a user turn (PREFIX_SYSTEM + PREFIX_USER tokens)
+    three ways: cold (a prefill, the entry stored), again (an exact hit:
+    the stored logits, no prefill forward, tokens bit-equal), and extended
+    by PREFIX_DENSE_EXTRA tokens (a partial hit: the entry copied in, the
+    suffix through ``_get_extend``), the last equal to a cache-cleared
+    call up to a near-tie. The stored entry is bit-equal to itself before
+    the exact hit's decode-graph replays into the dense buffer. Each call's
+    launches are its forwards' (K2 one a layer; int8 K4 one a product, on
+    the prefill route for the prefill or extend). Returns (metrics, the
+    launch counts of the calls)."""
+    import torch
+
+    n_layers = LLAMA2_7B["n_layers"]
+    per = K4_PER_FORWARD if server.quantize == "int8" else 0
+    prompt = system + users[0][0]
+    longer = prompt + (users[1][1] + users[2][2])[:PREFIX_DENSE_EXTRA]
+    # the (1, max_len) decode graph captured first, on a prompt sharing nothing
+    server.generate([[90] * 40], max_new_tokens=MAX_NEW)
+    server.clear_prefix_cache()
+    zero_counts(server)
+    calls = {}
+
+    def call(name, p, forwards, wide):
+        torch.cuda.synchronize()
+        out = {}
+
+        def run():
+            t0 = time.perf_counter()
+            out["tokens"] = server.generate([p], max_new_tokens=MAX_NEW)["tokens"][0]
+            out["wall_ms"] = (time.perf_counter() - t0) * 1e3
+
+        k2, k4w, k4d, k1 = launches_of(run)
+        decode_ms = server._decode_step_times[-1] * (MAX_NEW - 1) * 1e3
+        got = (k2, k4w, k4d, k1)
+        expect = (n_layers * (forwards + MAX_NEW - 1), per * wide,
+                  per * (forwards + MAX_NEW - 1 - wide), 0)
+        if got != expect:
+            fail(f"[{label}] generate() {name}: launches (K2, K4 prefill, K4 decode, K1) {got} "
+                 f"!= {expect}")
+        calls[name] = dict(out, prefill_ms=out["wall_ms"] - decode_ms, prompt=len(p))
+        return out["tokens"]
+
+    cold = call("cold", prompt, 1, 1)
+    if len(server._prefix_cache) != 1 or server._prefix_hits != 0:
+        fail(f"[{label}] generate() cold: {len(server._prefix_cache)} entries, "
+             f"{server._prefix_hits} hits")
+    (key, entry), = server._prefix_cache.items()
+    snap = [tuple(t.clone() for t in layer) for layer in entry[2]]
+    replays = server._generate_replays
+    if call("exact hit", prompt, 0, 0) != cold or server._prefix_hits != 1:
+        fail(f"[{label}] generate() exact hit: tokens differ from the cold call's, or no hit")
+    if server._generate_replays != replays + MAX_NEW - 1:
+        fail(f"[{label}] generate() exact hit: {server._generate_replays - replays} decode "
+             f"replays")
+    if not all(torch.equal(t, x) for layer, s0 in zip(entry[2], snap) for t, x in zip(layer, s0)):
+        fail(f"[{label}] the stored entry changed under the decode graph's replays")
+    dense_pos = server._dense.caches(1, entry[0])[0][-1][0]
+    if dense_pos[len(prompt)].item() != len(prompt):
+        fail(f"[{label}] the exact hit's decode did not write the dense buffer")
+    del snap
+    extended = call("partial hit", longer, 1, 1)
+    if server._prefix_hits != 2 or tuple(longer) not in server._prefix_cache:
+        fail(f"[{label}] generate() partial hit: hits {server._prefix_hits}, extended entry "
+             f"stored {tuple(longer) in server._prefix_cache}")
+    server.clear_prefix_cache()
+    fresh = call("cleared", longer, 1, 1)
+    counts = read_counts(server)
+    teacher_check(f"{label} generate", card, server, [prompt, longer], [cold, extended])
+    near_tie_check(f"{label} generate partial hit vs cleared", card, server, [longer],
+                   [extended], [fresh])
+    server.clear_prefix_cache()
+    print(f"[{label}] generate() with the prefix cache (max_len {entry[0]}, entry "
+          f"{entry[4] / 1e9:.3f} GB of a {server.prefix_cache_bytes / 1e9:.3f} GB budget): "
+          + "; ".join(f"{name} ({c['prompt']} tokens): prefill (the wall less the decode's) "
+                      f"{c['prefill_ms']:.1f} ms, wall {c['wall_ms']:.1f} ms"
+                      for name, c in calls.items())
+          + f"; exact hit bit-equal to cold, no prefill forward; the entry unchanged by the "
+          f"decode graph [{card}]", flush=True)
+    return calls, counts
+
+
+def release_server_memory() -> None:
+    """After a dropped server: collect it, return the cached blocks, and
+    free the cuBLAS workspaces PyTorch keeps for every stream it ever ran a
+    product on (32 MiB each; a server's capture and generate streams die
+    with it), so the next ``load_llm`` starts from what is really live."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch._C._cuda_clearCublasWorkspaces()
+
+
+def prefix_runs_phase(card: str):
+    """``prefix_phase`` on a bf16 server, then on int8 weights + int8 KV,
+    each loaded for it with the cache on (PREFIX_CACHE_SIZE entries, a
+    dense budget of one 7B entry) and dropped before the next. Returns
+    (launch records, label -> metrics)."""
+    records, runs = [], {}
+    for model, knobs in (("bf16", {}), ("int8", dict(quantize="int8", kv_cache_dtype="int8"))):
+        label = f"{model} prefix"
+        server, _ = load_llm(label, card, dict(
+            knobs, prefix_cache_size=PREFIX_CACHE_SIZE,
+            prefix_cache_bytes=int(1.5 * prefix_entry_bytes(knobs))))
+        recs, runs[label] = prefix_phase(label, card, server)
+        records += recs
+        del server
+        release_server_memory()
+    return records, runs
+
+
+def print_prefix_runs(card: str, runs: dict) -> None:
+    print(f"prefix runs (Llama-2-7B, {N_REQUESTS} conversations x {PREFIX_TURNS} turns over a "
+          f"{PREFIX_SYSTEM}-token system prompt; TTFT median / max, trie on vs off) [{card}]:",
+          flush=True)
+    for label, m in runs.items():
+        ttft = "; ".join(f"{on[0]:.1f} / {on[1]:.1f} vs {off[0]:.1f} / {off[1]:.1f} ms"
+                         for on, off in zip(m["on_ttft"], m["off_ttft"]))
+        c, d = m["cow"], m["dense"]
+        print(f"  {label:12s} TTFT by group (turn 1 alone, turn 1 x {N_REQUESTS - 1}, turn 2, "
+              f"turn 3): {ttft}; chunks {m['chunks'][0]} vs {m['chunks'][1]}; peak pages "
+              f"{m['peak'][0]} vs {m['peak'][1]}; bytes saved {m['saved_gb']:.3f} GB; CoW replay "
+              f"device {c['dev_ms']:.4f} ms host {c['host_ms']:.4f} ms vs eager "
+              f"{c['eager_dev_ms']:.4f} / {c['eager_host_ms']:.4f} ms; generate() prefill cold "
+              f"{d['cold']['prefill_ms']:.1f}, exact hit {d['exact hit']['prefill_ms']:.1f}, "
+              f"partial hit {d['partial hit']['prefill_ms']:.1f} ms [{card}]", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -3303,6 +3773,9 @@ def main() -> int:
                  else [])
         sweeps[sys.argv[1]](card, lambda: scratch.fill_(1), *extra, *sys.argv[2:])
         return 0
+    if sys.argv[1:] == ["--prefix"]:
+        print_prefix_runs(card, prefix_runs_phase(card)[1])
+        return 0
 
     # 3. kernel phase
     scratch = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
@@ -3440,8 +3913,6 @@ def main() -> int:
               f"{sum(r['bound_ms'] for r in rows):.3f} ms [{card}]", flush=True)
     del scratch
 
-    import gc
-
     # 4. serving phase: per model, the eager programs first, then the graphs;
     # bf16 also with K = FUSED_K fused steps a dispatch; bf16 is freed before
     # int8 weights + int8 KV load
@@ -3460,8 +3931,7 @@ def main() -> int:
                                                plain=runs[model][1])
         spec_launches += records
         del server
-        gc.collect()
-        torch.cuda.empty_cache()
+        release_server_memory()
     # (c) the perfect drafter (a draft configured like the target: a copy)
     # and (d) a TinyLlama-1.1B-wide draft, each loaded beside a bf16 target
     for label, draft_kw in (("bf16 spec draft perfect", dict(LLAMA2_7B, fused_norm=True)),
@@ -3473,8 +3943,9 @@ def main() -> int:
         records, spec_runs[label] = spec_phase(label, card, server, "draft")
         spec_launches += records
         del server
-        gc.collect()
-        torch.cuda.empty_cache()
+        release_server_memory()
+    records, prefix_runs = prefix_runs_phase(card)
+    spec_launches += records
     print("serving runs (Llama-2-7B, 8 concurrent requests x 32 tokens; step wall drain to "
           f"drain; host = one dispatch's enqueue or replay on the same live state) [{card}]:",
           flush=True)
@@ -3522,6 +3993,8 @@ def main() -> int:
               f"kernels {m['eager_dev_ms']:.3f} ms, host {m['replay_host_ms']:.4f} vs "
               f"{m['eager_host_ms']:.3f} ms; pool {gb_text(m['pool_gb'])}, peak "
               f"{m['peak_gb']:.2f} GB{draft} [{card}]", flush=True)
+
+    print_prefix_runs(card, prefix_runs)
 
     def total(key, model):
         return (sum(launches[key] for label, (launches, _) in runs.items()

@@ -4,8 +4,9 @@ Port of the part of ``seldon_core_tpu/metrics/registry.py`` whose sources
 exist in the port: the API request counter and latency histogram, observed
 by the REST and gRPC routes, and the LLM serving series that
 ``LLMServer.llm_stats`` feeds at scrape time (TTFT, inter-token gap, decode
-step / dispatch / sync walls, host lag, steps in flight, the KV page pool,
-speculative decoding's acceptance counters).
+step / dispatch / sync walls, host lag, steps in flight, the KV bytes,
+occupancy and page pool, speculative decoding's acceptance counters, the
+radix prefix cache's counters).
 Names, types, label names, HELP text and bucket bounds are the JAX
 package's, so a dashboard reads both. The JAX package builds on
 prometheus_client; the card's machine has none, so this module writes the
@@ -115,15 +116,50 @@ class MetricsRegistry:
                         "API requests by method and code", "counter", ("method", "code"))
         self._latency = fam("seldon_api_executor_server_requests_seconds", "API latency",
                             "histogram", ("method",), LATENCY_BUCKETS)
+        self._kv_cache_bytes = fam("seldon_llm_kv_cache_bytes",
+                                   "Resident KV-cache bytes (continuous-batching slot caches + "
+                                   "pinned prefix-cache entries)", "gauge")
+        self._kv_occupancy = fam("seldon_llm_kv_cache_occupancy",
+                                 "Fraction of continuous-batching cache slots occupied (0-1)",
+                                 "gauge")
+        self._kv_bytes_per_step = fam("seldon_llm_kv_bytes_per_step",
+                                      "KV-cache bytes streamed from HBM per decode step (dense "
+                                      "attention reads the whole static cache every step)",
+                                      "gauge")
         self._kv_pages_in_use = fam("seldon_llm_kv_pages_in_use",
                                     "KV pages currently allocated to slots (paged layout)",
                                     "gauge")
         self._kv_pages_total = fam("seldon_llm_kv_pages_total",
                                    "Total KV pages in the global pool (incl. the 2 reserved "
                                    "pages)", "gauge")
+        self._kv_page_fragmentation = fam("seldon_llm_kv_page_fragmentation",
+                                          "Internal fragmentation of allocated KV pages "
+                                          "(1 - tokens written / page tokens held, 0-1)", "gauge")
         self._kv_page_sheds = fam("seldon_llm_kv_page_sheds",
                                   "Requests shed (503 + Retry-After / RESOURCE_EXHAUSTED) by KV "
                                   "page-pool exhaustion", "counter")
+        # the radix prefix cache: hit blocks (block-table entries written
+        # instead of prefilled), pages live slots share now, CoW copies,
+        # evictions, and the KV bytes hits neither recomputed nor copied
+        self._prefix_hit_blocks = fam("seldon_llm_prefix_hit_blocks",
+                                      "Cached KV blocks served by radix prefix-cache hits (block-"
+                                      "table entries written instead of prefilled)", "counter")
+        self._prefix_shared_pages = fam("seldon_llm_prefix_shared_pages",
+                                        "Cached pages currently referenced by at least one live "
+                                        "slot (refcount > 1; sampled at scrape)", "gauge")
+        self._prefix_cached_blocks = fam("seldon_llm_prefix_cached_blocks",
+                                         "Token blocks resident in the radix prefix trie (sampled "
+                                         "at scrape)", "gauge")
+        self._prefix_cow_copies = fam("seldon_llm_prefix_cow_copies",
+                                      "Copy-on-write page copies (a slot continuing part-way into "
+                                      "a shared block pays one page copy)", "counter")
+        self._prefix_evicted_blocks = fam("seldon_llm_prefix_evicted_blocks",
+                                          "Trie blocks evicted (LRU-by-leaf on pool pressure, plus "
+                                          "in-place upgrades/clears)", "counter")
+        self._prefix_bytes_saved = fam("seldon_llm_prefix_bytes_saved",
+                                       "KV bytes radix hits served by sharing pages in place "
+                                       "(bytes neither recomputed by prefill nor copied)",
+                                       "counter")
         self._decode_step = fam("seldon_llm_decode_step_seconds", "LLM decode step latency",
                                 "histogram", buckets=LATENCY_BUCKETS)
         self._ttft = fam("seldon_llm_ttft_seconds",
@@ -190,17 +226,30 @@ class MetricsRegistry:
         """Refresh the LLM series from ``component.llm_stats()`` (a no-op
         for a component without it): gauges set, the page-shed counter
         caught up to the allocator's tally (the spec slot-step counter to
-        the controller's), and each drained observation observed once."""
+        the controller's, the prefix counters to the trie's), and each
+        drained observation observed once."""
         stats_fn = getattr(component, "llm_stats", None)
         if stats_fn is None:
             return
         stats = stats_fn()
         base = self._base()
         with self._lock:
-            self._kv_pages_in_use.children[base] = float(stats.get("kv_pages_in_use", 0))
-            self._kv_pages_total.children[base] = float(stats.get("kv_pages_total", 0))
-            self._kv_page_sheds.children[base] = max(self._kv_page_sheds.child(base),
-                                                     float(stats.get("kv_page_sheds", 0)))
+            for fam, key in ((self._kv_cache_bytes, "kv_cache_bytes"),
+                             (self._kv_occupancy, "kv_occupancy"),
+                             (self._kv_bytes_per_step, "kv_bytes_per_step"),
+                             (self._kv_pages_in_use, "kv_pages_in_use"),
+                             (self._kv_pages_total, "kv_pages_total"),
+                             (self._kv_page_fragmentation, "kv_page_fragmentation"),
+                             (self._prefix_shared_pages, "prefix_shared_pages"),
+                             (self._prefix_cached_blocks, "prefix_cached_blocks")):
+                fam.children[base] = float(stats.get(key, 0))
+            # counters catch up to the lifetime tallies (never count down)
+            for fam, key in ((self._kv_page_sheds, "kv_page_sheds"),
+                             (self._prefix_hit_blocks, "prefix_hit_blocks"),
+                             (self._prefix_cow_copies, "prefix_cow_copies"),
+                             (self._prefix_evicted_blocks, "prefix_evicted_blocks"),
+                             (self._prefix_bytes_saved, "prefix_bytes_saved")):
+                fam.children[base] = max(fam.child(base), float(stats.get(key, 0)))
             for fam, key in ((self._decode_step, "decode_step_times_s"),
                              (self._ttft, "ttft_s"),
                              (self._inter_token, "inter_token_s"),

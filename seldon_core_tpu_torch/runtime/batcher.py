@@ -53,6 +53,21 @@ slot's prompt + generated history lives on the device (``hist``), seeded at
 admission; in draft mode so does a dense draft-model cache, prefilled at
 admission (eagerly). Fused steps do not combine with speculation.
 
+Radix prefix cache (``prefix_cache_size`` > 0 on the server;
+``runtime/radix.py``). A trie of token blocks over the pool's pages: an
+admission pins the pages that already hold its prompt's longest cached
+prefix (capped at its length less one, so the last token always prefills),
+puts them at the head of its block-table row and prefills only the suffix,
+from ``k0``; a prefix that ends part-way into a cached block pays one
+copy-on-write page copy (``cow_page_copy``, on a card a replay of the
+batcher's one CoW graph) into a fresh page, which the slot then writes.
+Allocation evicts least-recently-matched trie leaves no slot references
+before it gives up. A finished slot inserts its prompt and every credited
+token but the last (whose KV write depends on how far the run-ahead went)
+back into the trie, which adopts its pages in place. The chunk and decode
+graphs are unchanged: a hit only changes what the row and position
+buffers they read hold.
+
 Every pool, block-table and slot-state update is an in-place tensor update
 enqueued on the same stream as the decode steps (the JAX package donated
 these buffers to jitted ops and relied on device program order in the same
@@ -90,15 +105,18 @@ from seldon_core_tpu_torch.models.transformer import (
     TRASH_PAGE,
     init_kv_caches,
     init_paged_kv_caches,
+    kv_cache_bytes_per_token,
     normalize_kv_cache_layout,
 )
+from seldon_core_tpu_torch.runtime.radix import RadixPrefixCache
 from seldon_core_tpu_torch.runtime.resilience import DEFAULT_RETRY_AFTER_S, ShedError
 from seldon_core_tpu_torch.runtime.spec import (DEFAULT_SPEC_K, SPEC_STATS_OFF,
                                                 SpecController, normalize_spec_mode)
 from seldon_core_tpu_torch.servers.llmserver import (LLMServer, bucket,
                                                      sample_tokens, seed_key,
                                                      split_keys)
-from seldon_core_tpu_torch.servers.step_graph import (ReplayGraph, capture_decode_steps,
+from seldon_core_tpu_torch.servers.step_graph import (ReplayGraph, capture_cow_copy,
+                                                      capture_decode_steps,
                                                       capture_prefill_chunks,
                                                       capture_spec_step)
 
@@ -113,8 +131,11 @@ class PageAllocator:
     pool (copied from the JAX package).
 
     Pages 0/1 are reserved (NULL/TRASH); the rest are handed out
-    lowest-id-first, all-or-nothing, at refcount 1. ``free`` is one uniform
-    decrement-and-free-on-zero. Every state transition happens under
+    lowest-id-first, all-or-nothing, at refcount 1. The radix prefix cache
+    (``runtime/radix.py``) shares pages between the trie and slot block
+    tables by growing the refcount (``retain``); ``free`` is one uniform
+    decrement-and-free-on-zero, so refcount 1 = trie-only (evictable), > 1
+    = a live slot references it. Every state transition happens under
     ``self._lock``. Over-freeing raises — a page freed past zero would be
     handed to two slots and silently cross-corrupt their KV."""
 
@@ -170,8 +191,15 @@ class PageAllocator:
                     self._free.append(p)
 
     def refs_of(self, page: int) -> int:
+        """Current refcount (0 = free): the trie's evictability probe."""
         with self._lock:
             return self._refs.get(page, 0)
+
+    def refs_map(self, pages: Sequence[int]) -> List[int]:
+        """Refcounts for many pages under ONE lock acquisition (the trie's
+        stats and eviction walks)."""
+        with self._lock:
+            return [self._refs.get(p, 0) for p in pages]
 
     def free_count(self) -> int:
         with self._lock:
@@ -185,6 +213,27 @@ class PageAllocator:
         """(total, in_use, shed_total) — one consistent snapshot."""
         with self._lock:
             return self.total, self.capacity - len(self._free), self.shed_total
+
+
+def cow_page_copy(pools, src: torch.Tensor, dst: torch.Tensor, n_valid: torch.Tensor) -> None:
+    """Copy-on-write page copy (the JAX package's donated jitted
+    ``cow_page_copy``), in place: for every layer, each value leaf of page
+    ``src`` (K and V; an int8 pool's K, K scales, V and V scales) is copied
+    into page ``dst`` whole, and the position row with offsets ``>=
+    n_valid`` set to PAD_POS, so a previous occupant's run-ahead positions
+    past the source's valid tokens are never attended. ``src``, ``dst``
+    and ``n_valid`` are int64 tensors of one element on the pools' device
+    (the batcher's fixed staging buffer): nothing is read back to the
+    host, so the same call is what a CUDA graph captures
+    (``servers/step_graph.capture_cow_copy``)."""
+    ps = pools[0][-1].shape[1]
+    keep = torch.arange(ps, device=n_valid.device) < n_valid
+    for layer in pools:
+        for pool in layer[:-1]:
+            pool.index_copy_(0, dst, pool.index_select(0, src))
+        pos = layer[-1]
+        row = torch.where(keep, pos.index_select(0, src)[0], PAD_POS)
+        pos.index_copy_(0, dst, row[None])
 
 
 def _resolve(fut: Future, result: Any = None, exc: Optional[BaseException] = None) -> None:
@@ -251,8 +300,8 @@ class _PrefillJob:
 
 class _Slot:
     __slots__ = ("future", "tokens", "true_len", "n_new", "max_new", "active",
-                 "gen", "disp_new", "pages", "prefilling", "admit_seq", "on_token",
-                 "t_last")
+                 "gen", "disp_new", "pages", "shared", "ids", "prefilling", "admit_seq",
+                 "on_token", "t_last")
 
     def __init__(self):
         self.active = False
@@ -269,12 +318,22 @@ class _Slot:
         # dispatch and its drain; disp_new is the DISPATCH-side token count
         self.gen = 0
         self.disp_new = 0
-        # owned page ids (host mirror of the slot's block-table row), whether
-        # a chunked prefill is mid-flight for it, and its admission sequence
+        # the OWNED page ids (host mirror of the owned tail of the slot's
+        # block-table row: freed, or adopted by the radix trie, at release),
+        # the SHARED trie pages the row leads with (a prefix hit: pinned at
+        # admission, unpinned at release, never written by this slot), the
+        # truncated prompt (inserted into the trie at completion), whether a
+        # chunked prefill is mid-flight for it, and its admission sequence
         # number (newest admitted sheds first on page exhaustion)
         self.pages: List[int] = []
+        self.shared: List[int] = []
+        self.ids: Optional[List[int]] = None
         self.prefilling = False
         self.admit_seq = 0
+
+    def covered_pages(self) -> int:
+        """Block-table entries pointing at real pages (shared + owned)."""
+        return len(self.shared) + len(self.pages)
 
     # the n-th generated token sits at position true_len + n - 1
     def host_pos(self) -> int:
@@ -326,11 +385,12 @@ class ContinuousBatcher:
         and ``spec_k`` (default: the server's; K = 0 means 4) turn each
         dispatch into one speculative draft + verify step (module
         docstring). On a card the decode programs (K = 1 and K =
-        ``fuse_steps``, or in spec mode the spec step) and a prefill-chunk
+        ``fuse_steps``, or in spec mode the spec step), a prefill-chunk
         program per chunk length an admission can produce
-        (``_chunk_lengths``) are captured here as CUDA graphs, before any
-        request; ``_eager=True`` runs them eagerly instead (a private switch
-        for comparing the two)."""
+        (``_chunk_lengths``) and, with the prefix cache on, the CoW page
+        copy are captured here as CUDA graphs, before any request;
+        ``_eager=True`` runs them eagerly instead (a private switch for
+        comparing the two)."""
         self.device = resolve_device(device)
         server.load()
         if server.device != self.device:
@@ -397,6 +457,14 @@ class ContinuousBatcher:
         chunk = int(prefill_chunk if prefill_chunk is not None else server.prefill_chunk or 0)
         self.prefill_chunk = chunk or DEFAULT_PREFILL_CHUNK
         self._allocator = PageAllocator(self.pool_pages, ps)
+        # the radix prefix cache over the pool, when the server opts in: a
+        # hit costs block-table entries (and one CoW page copy for a partial
+        # block), not a prefill
+        self._radix: Optional[RadixPrefixCache] = None
+        if int(server.prefix_cache_size) > 0:
+            self._radix = RadixPrefixCache(
+                self._allocator, ps,
+                bytes_per_block=ps * kv_cache_bytes_per_token(cfg, server.kv_cache_dtype))
 
         self._slots = [_Slot() for _ in range(self.S)]
         self._pending: deque = deque()
@@ -416,6 +484,10 @@ class ContinuousBatcher:
         dev = self.device
         self._caches = init_paged_kv_caches(cfg, self.pool_pages, ps, server.kv_cache_dtype,
                                             device=dev)
+        # the pool's bytes: what a decode step's attention may read at most
+        # (``kv_bytes_per_step``, set at each drain as the JAX package does)
+        self._cache_nbytes = sum(t.numel() * t.element_size()
+                                 for layer in self._caches for t in layer)
         # Block table, one row per slot, all-TRASH while a slot is free so
         # the ride-along decode writes of inactive slots land in the trash
         # page; rows switch to real pages at activation and back at release.
@@ -440,6 +512,9 @@ class ContinuousBatcher:
         self._row = torch.full((1, self.n_pages), NULL_PAGE, dtype=torch.int32, device=dev)
         self._chunk_tokens = torch.zeros((1, cmax), dtype=torch.int64, device=dev)
         self._chunk_pos = torch.full((1, cmax), PAD_POS, dtype=torch.int32, device=dev)
+        # the CoW copy's fixed inputs (source page, destination page, valid
+        # tokens), staged by the host in stream order before each copy
+        self._cow_args = torch.zeros((3,), dtype=torch.int64, device=dev)
         # speculation's device state: each slot's prompt + generated tokens
         # by position (one entry a cache position, plus a trash column for
         # the writes the JAX package drops), the fixed per-dispatch cap
@@ -462,10 +537,13 @@ class ContinuousBatcher:
         self._graphs: Dict[int, ReplayGraph] = {}
         self._prefill_graphs: Dict[int, ReplayGraph] = {}
         self._spec_graph: Optional[ReplayGraph] = None
+        self._cow_graph: Optional[ReplayGraph] = None
         if self.device.type == "cuda" and not _eager:
             self._prefill_graphs = capture_prefill_chunks(server, self._chunks, self._caches,
                                                           self._row, self._chunk_tokens,
                                                           self._chunk_pos)
+            if self._radix is not None:
+                self._cow_graph = capture_cow_copy(server, self._caches, self._cow_args)
             if self.spec_mode != "off":
                 self._spec_graph = capture_spec_step(
                     server, self.spec_k, self.spec_mode, self._caches, self._last_tok,
@@ -518,11 +596,31 @@ class ContinuousBatcher:
             hint *= 2
         return float(min(max(hint, base), max(30.0, base)))
 
-    def page_stats(self) -> dict:
-        """Pool gauges: total and in-use pages, page size, sheds so far."""
+    def page_stats(self, radix_stats: Optional[dict] = None) -> dict:
+        """Pool gauges: total and in-use pages, page size, sheds so far, and
+        internal fragmentation (1 - tokens written / page tokens held).
+        Each page's tokens count once: slots count their OWNED pages'
+        tokens, trie blocks (shared ones included) count whole, from
+        ``radix_stats`` (a ``RadixPrefixCache.stats()`` snapshot, to spare
+        a second trie walk a scrape) or a fresh walk."""
         total, in_use, sheds = self._allocator.stats()
+        ps = self.page_size
+        used = 0
+        for s in self._slots:
+            if s.active:
+                used += min(max(s.true_len + s.disp_new - len(s.shared) * ps, 0),
+                            len(s.pages) * ps)
+        job = self._prefill
+        if job is not None:
+            jslot = self._slots[job.slot]
+            used += min(max(job.next - len(jslot.shared) * ps, 0), len(jslot.pages) * ps)
+        if self._radix is not None:
+            rs = radix_stats if radix_stats is not None else self._radix.stats()
+            used += rs["prefix_cached_blocks"] * ps
+        frag = 1.0 - used / float(in_use * ps) if in_use > 0 else 0.0
         return {"kv_pages_total": total, "kv_pages_in_use": in_use,
-                "kv_page_size": self.page_size, "kv_page_sheds": sheds}
+                "kv_page_size": ps, "kv_page_fragmentation": max(0.0, min(1.0, frag)),
+                "kv_page_sheds": sheds}
 
     # ------------------------------------------------------------------
     def submit(self, prompt: Any, max_new_tokens: Optional[int] = None,
@@ -644,6 +742,8 @@ class ContinuousBatcher:
         slot.max_new = max_new
         slot.n_new = 1
         slot.tokens = [first]
+        # the truncated prompt feeds the trie's insertion at completion
+        slot.ids = list(ids)
         # the first token surfaces now: TTFT, and the start of the next
         # token's gap
         now = time.perf_counter()
@@ -699,11 +799,42 @@ class ContinuousBatcher:
         for layer in self._caches:
             layer[-1].index_fill_(0, ids, PAD_POS)
 
+    def _alloc_pages(self, n: int) -> Optional[List[int]]:
+        """Pool allocation with radix-eviction relief: when the free list
+        cannot cover ``n``, the trie evicts least-recently-matched leaves no
+        slot references before this gives up (cached prefixes are a cache,
+        live slots the tenants). Shedding starts only where eviction ends."""
+        got = self._allocator.alloc(n)
+        if got is not None or self._radix is None:
+            return got
+        if not self._radix.evict(n):
+            return None
+        return self._allocator.alloc(n)
+
+    def _cow_copy(self, src: int, dst: int, n_valid: int) -> None:
+        """Stage (src, dst, n_valid) into the fixed ``_cow_args`` buffer and
+        copy the page: a replay of the CoW graph on a card, the eager
+        program otherwise. In stream order, behind every step already
+        enqueued and before the job's first chunk."""
+        self._cow_args.copy_(self._to_device(np.asarray([src, dst, n_valid], np.int64)))
+        if self._cow_graph is not None:
+            self._cow_graph.replay()
+            self.server._cow_replays += 1
+        else:
+            a = self._cow_args
+            cow_page_copy(self._caches, a[0:1], a[1:2], a[2:3])
+            self.server._cow_eager += 1
+
     def _admit_begin(self, req: _Request) -> bool:
-        """Paged admission, phase 1 (host side, cheap): allocate the
-        prompt's pages, reset their positions, and stage a chunked-prefill
-        job. True when the request was CONSUMED (staged, or shed with 503);
-        False leaves it queued."""
+        """Paged admission, phase 1 (host side, cheap): match the prompt
+        against the radix trie (shared full blocks enter the block row as
+        they are; a prefix ending part-way into a cached block pays one CoW
+        page copy), allocate fresh pages for the rest, reset their
+        positions, and stage a chunked-prefill job over the uncached suffix
+        only, from ``k0``. The match is capped at L - 1 tokens, so the last
+        prompt token always prefills: its logits seed the first token (the
+        trie stores pages, never logits). True when the request was
+        CONSUMED (staged, or shed with 503); False leaves it queued."""
         free = next((i for i, s in enumerate(self._slots)
                      if not s.active and not s.prefilling), None)
         if free is None:
@@ -711,29 +842,59 @@ class ContinuousBatcher:
         ids, plen = self._truncate_prompt(req.ids, req.max_new, req.info)
         L = len(ids)
         n0 = -(-L // self.page_size)
-        fresh = self._allocator.alloc(n0)
+        k0, shared, cow = 0, [], None
+        if self._radix is not None:
+            k0, shared, cow = self._radix.match_and_pin(ids, limit=L - 1)
+        fresh = self._alloc_pages(n0 - len(shared))
+        if fresh is None and cow is not None:
+            # the CoW pin can be what starves the pool: its source page is
+            # unevictable while pinned, so on a minimum pool eviction may
+            # fall one page short. A partial-block match is an optimisation:
+            # drop it (the tail prefills as a miss, the full blocks stay
+            # shared) and retry, so an admission always fits an idle pool
+            self._allocator.free([cow[0]])
+            k0 -= cow[1]
+            cow = None
+            fresh = self._alloc_pages(n0 - len(shared))
         if fresh is None:
+            if shared:
+                self._allocator.free(shared)  # drop the pins: retry later
             # an admission always fits an empty pool (prompts cap at
-            # max_len-1 and the pool holds >= one max_len sequence), so with
-            # nothing in flight to free a page, shed now instead of waiting
+            # max_len-1, the pool holds >= one max_len sequence, and the
+            # trie yields its unreferenced blocks first), so with nothing in
+            # flight to free a page, shed now instead of waiting
             if not any(s.active or s.prefilling for s in self._slots):
                 self._shed_queued_request(
                     req, f"admission needs {n0} KV pages (pool capacity "
                          f"{self._allocator.capacity}, {self._allocator.stats()[1]} in use)")
                 return True
             return False
+        cow_dst = fresh[0] if cow is not None else None
+        plain = fresh[1:] if cow is not None else fresh
         slot = self._slots[free]
+        slot.shared = list(shared)
         slot.pages = list(fresh)
         slot.prefilling = True
         slot.future = req.fut
         slot.on_token = req.on_token
-        self._reset_pages(fresh)
+        # shared trie pages are live cached KV and never reset; the CoW
+        # destination is overwritten whole (values and masked positions)
+        if plain:
+            self._reset_pages(plain)
+        if cow is not None:
+            self._cow_copy(cow[0], cow_dst, cow[1])
+            # the copy is enqueued ahead of any reuse of its source: unpin
+            self._allocator.free([cow[0]])
         row = np.full((1, self.n_pages), NULL_PAGE, np.int32)
-        row[0, :n0] = fresh
+        row[0, :n0] = slot.shared + slot.pages
         # the previous job's chunks and activation read the row before this
         # write, in stream order
         self._row.copy_(self._to_device(row))
-        self._prefill = _PrefillJob(free, ids, 0, min(self.prefill_chunk, plen), req.max_new,
+        if k0:
+            # counted once per funded admission (a match that could not be
+            # funded retries every loop turn)
+            self._radix.record_hit(k0, len(shared), cow is not None)
+        self._prefill = _PrefillJob(free, ids, k0, min(self.prefill_chunk, plen), req.max_new,
                                     req.fut, req.info, req.seed, t_arrival=req.t_arrival)
         return True
 
@@ -791,8 +952,8 @@ class ContinuousBatcher:
         if not slot.active:
             return False
         need = min(last_write_pos, self.max_len - 1) // self.page_size + 1
-        while len(slot.pages) < need:
-            got = self._allocator.alloc(1)
+        while slot.covered_pages() < need:
+            got = self._alloc_pages(1)
             if got is None:
                 victim = self._pick_page_victim()
                 if victim is None:
@@ -809,7 +970,7 @@ class ContinuousBatcher:
                 continue
             page = got[0]
             self._reset_pages([page])
-            self._block_tables[i, len(slot.pages)] = page
+            self._block_tables[i, slot.covered_pages()] = page
             slot.pages.append(page)
         return True
 
@@ -863,27 +1024,43 @@ class ContinuousBatcher:
         _resolve(job.fut, exc=self._shed_error(why))
 
     def _release_slot(self, i: int):
-        """Common slot teardown: owned pages back to the pool, the device
-        block-table row back to trash (stream-ordered: in-flight steps
-        finish their reads first; reused pages are reset strictly after)."""
+        """Common slot teardown: page references dropped (owned pages back
+        to the pool, shared trie pins decremented: the trie keeps its own
+        reference), the device block-table row back to trash
+        (stream-ordered: in-flight steps finish their reads first; reused
+        pages are reset strictly after)."""
         slot = self._slots[i]
         slot.active = False
         slot.prefilling = False
         slot.future = None
         slot.on_token = None
+        slot.ids = None
         if slot.pages:
             self._allocator.free(slot.pages)
             slot.pages = []
+        if slot.shared:
+            self._allocator.free(slot.shared)
+            slot.shared = []
         self._block_tables[i].fill_(TRASH_PAGE)
 
     def _finish(self, i: int):
-        """Complete slot ``i``: release, THEN notify the client, so
-        completion is observable only after the pool is consistent."""
+        """Complete slot ``i``: insert its history into the trie, release,
+        THEN notify the client, so completion is observable only after the
+        pool is consistent."""
         slot = self._slots[i]
         toks = slot.tokens
         if self.eos_id in toks:
             toks = toks[: toks.index(self.eos_id)]
         fut, on_token = slot.future, slot.on_token
+        if self._radix is not None and slot.ids is not None:
+            # the prompt and every credited token but the last, in place:
+            # each of those was fed to a step that has run (its KV is
+            # written); the last one's write depends on the run-ahead
+            hist = slot.ids + slot.tokens[:max(slot.n_new - 1, 0)]
+            consumed = self._radix.insert(hist, slot.shared + slot.pages, len(slot.shared))
+            if consumed:
+                # adopted or deduplicated pages are no longer the slot's
+                slot.pages = [p for p in slot.pages if p not in consumed]
         self._release_slot(i)
         _emit(on_token, None)  # the stream's end, before the future resolves
         if fut is not None:
@@ -1037,6 +1214,7 @@ class ContinuousBatcher:
         now = time.perf_counter()
         self.server._decode_sync_times.append(now - t0)
         self.server._decode_host_lag.append(lag)
+        self.server._last_decode_kv_bytes = self._cache_nbytes
         # drain to drain, floored at this record's dispatch so an idle gap
         # does not count; a fused record's wall is shared by its k steps
         base = rec.t_dispatch if self._last_drain_t is None else max(

@@ -36,6 +36,14 @@ batch) and through the batcher (``submit(seed=)``): both start from
 ``seed_key(seed)`` and sample through ``sample_tokens``, one split per token.
 Greedy decoding (temperature <= 0) still advances the chain.
 
+Prefix caching (``prefix_cache_size`` > 0) is served on both paths, as the
+JAX package serves it: the batcher's radix trie over its page pool
+(``runtime/radix.py``), and for a one-prompt ``generate()`` dense entries of
+the longest prefilled prefix (``_prefix_lookup`` / ``_prefix_store``; an exact
+hit skips the prefill, a partial hit prefills the suffix through
+``_get_extend``). An entry is a copy of the dense buffer's caches taken
+before the first decode step, since ``generate()`` decodes in place.
+
 Weight-only int8 (``quantize="int8"``) and the int8 KV cache
 (``kv_cache_dtype="int8"``) are served, alone or together, through every
 path below. Knobs that belong to later slices raise ``NotImplementedError``
@@ -47,7 +55,7 @@ from __future__ import annotations
 import logging
 import threading
 import time
-from collections import deque
+from collections import OrderedDict, deque
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -165,6 +173,69 @@ def _row_keys(base_seed: int, n: int) -> List[int]:
     (the batcher's chain for the same seed), later rows fold their index in."""
     k0 = seed_key(base_seed)
     return [k0] + [_mix32(k0 ^ _mix32(i)) for i in range(1, n)]
+
+
+# terminal marker in the dense prefix-cache index trie: an object() can
+# never collide with an int token id
+_TERM = object()
+
+
+class _PrefixTrieIndex:
+    """Token trie over the dense prefix-cache entry keys (copied from the
+    JAX package), so ``_prefix_lookup`` walks the PROMPT once instead of
+    scanning every entry. ``candidates`` returns every stored key that is a
+    prefix of the probe, shortest to longest, in O(len(probe)) node steps;
+    the caller picks the longest one whose entry passes its predicates
+    (dtype, geometry). ``work`` counts node visits: the lookup's cost,
+    independent of the entry count. NOT thread-safe on its own: every call
+    happens under the server's ``_prefix_lock``."""
+
+    __slots__ = ("_root", "work")
+
+    def __init__(self):
+        self._root: Dict[Any, Any] = {}
+        self.work = 0
+
+    def add(self, key: Tuple[int, ...]) -> None:
+        node = self._root
+        for t in key:
+            node = node.setdefault(t, {})
+        node[_TERM] = key
+
+    def remove(self, key: Tuple[int, ...]) -> None:
+        path = [(None, self._root)]
+        node = self._root
+        for t in key:
+            nxt = node.get(t)
+            if nxt is None:
+                return
+            path.append((t, nxt))
+            node = nxt
+        node.pop(_TERM, None)
+        # prune now-empty suffix nodes so dead entries cost no walk time
+        for i in range(len(path) - 1, 0, -1):
+            tok, n = path[i]
+            if n:
+                break
+            del path[i - 1][1][tok]
+
+    def candidates(self, tokens: Sequence[int]) -> List[Tuple[int, ...]]:
+        node = self._root
+        out: List[Tuple[int, ...]] = []
+        self.work += 1
+        for t in tokens:
+            if _TERM in node:
+                out.append(node[_TERM])
+            node = node.get(t)
+            if node is None:
+                return out
+            self.work += 1
+        if _TERM in node:
+            out.append(node[_TERM])
+        return out
+
+    def clear(self) -> None:
+        self._root = {}
 
 
 class _DenseBuffer:
@@ -285,8 +356,6 @@ class LLMServer(SeldonComponent):
             ("prefill_devices/decode_devices/prefill_workers/handoff_transport/disagg_mesh",
              prefill_devices or decode_devices or prefill_workers or handoff_transport
              or disagg_mesh is not None, "the disaggregation slice"),
-            ("prefix_cache_size", prefix_cache_size or prefix_cache_bytes,
-             "the radix prefix-cache slice"),
             ("lora_rank", lora_rank or lora_adapters or int(lora_max_adapters) != 8,
              "the LoRA/tenants slice"),
             ("slo_class_weights/tenant_weights/tenant_quota(s)",
@@ -348,6 +417,24 @@ class LLMServer(SeldonComponent):
         self.draft_model_kwargs = dict(draft_model_kwargs or {})
         self._draft_module = None
         self._draft_cfg = None
+        # prefix caching (opt-in): the batcher's radix trie over its page
+        # pool (``runtime/radix.py``), and for a one-prompt generate() call
+        # dense entries of the longest previously prefilled token prefix,
+        # LRU-evicted past ``prefix_cache_size`` entries or past
+        # ``prefix_cache_bytes`` (512 MB by default whenever the cache is
+        # on). An entry is a COPY of the dense caches, taken before the
+        # first decode step: generate() decodes in place into one reused
+        # buffer (the JAX package may keep the cache object itself: its
+        # arrays are immutable)
+        self.prefix_cache_size = int(prefix_cache_size)
+        self.prefix_cache_bytes = int(prefix_cache_bytes) or (
+            512 * 1024 * 1024 if self.prefix_cache_size else 0)
+        self._prefix_cache: "OrderedDict[tuple, tuple]" = OrderedDict()
+        self._prefix_index = _PrefixTrieIndex()
+        self._prefix_bytes = 0
+        self._prefix_lock = threading.Lock()
+        self._prefix_hits = 0
+        self._prefix_overbudget_warned = False
         self.seed = int(seed)
         self.ready = False
         self._eos_override = eos_id
@@ -375,6 +462,12 @@ class LLMServer(SeldonComponent):
         self._prefill_eager = 0
         self._decode_replays = 0
         self._decode_eager = 0
+        # the batcher's copy-on-write page copies, replayed and run eagerly
+        self._cow_replays = 0
+        self._cow_eager = 0
+        # the KV bytes the last decode streamed a step (the batcher's pool,
+        # set at each drain; generate()'s caches, set at each call)
+        self._last_decode_kv_bytes = 0
         # the decode programs by ("decode", b, max_len) and ("pagedstep",
         # slots, n_pages, k), the prefill programs by ("prefill", b, plen,
         # max_len) and ("pchunk", chunk, n_pages), and the one stream every
@@ -528,6 +621,35 @@ class LLMServer(SeldonComponent):
         caches in place to what ``init_kv_caches`` makes, then writes them
         from offset 0, and returns the logits [b, plen, vocab]."""
         return self._dense_prefill(self._module, "prefill", b, plen, max_len)
+
+    def _get_extend(self, b: int, slen: int, max_len: int):
+        """Port of ``_get_extend``: the suffix prefill of a prefix-cache
+        continuation, cached under ``("extend", b, slen, max_len)``. Its call
+        ``extend(caches, tokens, positions, start)`` (caches [b, max_len,
+        ...] already holding the prefix, ``tokens`` [b, slen] int64,
+        ``positions`` [b, slen], PAD_POS past the suffix, ``start`` the int
+        write offset) writes the slen columns at ``start`` in place,
+        attending over the cached prefix, and returns the logits [b, slen,
+        vocab]. Eager everywhere, like ``_get_prefill``."""
+        b, slen, max_len = int(b), int(slen), int(max_len)
+        key = ("extend", b, slen, max_len)
+        with self._lock:
+            fn = self._prefill_cache.get(key)
+        if fn is not None:
+            return fn
+        module = self._module
+
+        def extend(caches, tokens, positions, start):
+            if (tuple(caches[0][-1].shape) != (b, max_len) or tuple(tokens.shape) != (b, slen)
+                    or tuple(positions.shape) != (b, slen)):
+                raise ValueError(f"extend {key}: caches {tuple(caches[0][-1].shape)}, tokens "
+                                 f"{tuple(tokens.shape)}, positions {tuple(positions.shape)}")
+            logits, _ = module(tokens, positions=positions, caches=caches,
+                               cache_index=int(start))
+            return logits
+
+        with self._lock:
+            return self._prefill_cache.setdefault(key, extend)
 
     def _get_draft_prefill(self, b: int, plen: int, max_len: int):
         """Port of ``_get_draft_prefill``: ``_get_prefill``'s program over
@@ -896,6 +1018,103 @@ class LLMServer(SeldonComponent):
         return graph
 
     # ------------------------------------------------------------------
+    # generate()'s dense prefix cache (the batcher's is its radix trie)
+    # ------------------------------------------------------------------
+    @staticmethod
+    def _entry_nbytes(caches, last_logits) -> int:
+        n = 0 if last_logits is None else last_logits.numel() * last_logits.element_size()
+        return n + sum(t.numel() * t.element_size() for layer in caches for t in layer)
+
+    def clear_prefix_cache(self) -> None:
+        """Drop every dense entry AND its byte accounting, and clear the
+        shared batcher's radix trie too: both layers read as cold
+        together."""
+        with self._prefix_lock:
+            self._prefix_cache.clear()
+            self._prefix_index.clear()
+            self._prefix_bytes = 0
+        radix = self._batcher_radix()
+        if radix is not None:
+            radix.clear()
+
+    def _batcher_radix(self):
+        """The shared batcher's radix trie, or None."""
+        svc = getattr(self, "_batcher_service", None)
+        return svc.batcher._radix if svc is not None else None
+
+    def _prefix_lookup(self, tokens: List[int], max_len: Optional[int] = None):
+        """Longest cached prefix of ``tokens`` of this server's KV dtype (and,
+        with ``max_len``, of exactly that cache length: the entry is copied
+        whole into the dense buffer's view of that geometry); returns
+        (prefix_len, entry_max_len, caches, last_logits) or None. An exact
+        full-prompt hit's stored logits skip the prefill. One walk of the
+        prompt down the index, under ``_prefix_lock``."""
+        with self._prefix_lock:
+            best = None
+            for key in self._prefix_index.candidates(tokens):
+                entry_max_len, entry_kvd, caches, last_logits, _nb = self._prefix_cache[key]
+                if entry_kvd != self.kv_cache_dtype:
+                    continue
+                if max_len is not None and entry_max_len != max_len:
+                    continue
+                # candidates arrive shortest -> longest: the last passer is
+                # the longest compatible prefix
+                best = (len(key), entry_max_len, caches, last_logits)
+            if best is not None:
+                self._prefix_cache.move_to_end(tuple(tokens[:best[0]]))
+                self._prefix_hits += 1
+            return best
+
+    def _prefix_store(self, tokens: List[int], max_len: int, caches, last_logits) -> None:
+        """Store a COPY of ``caches`` (the dense buffer's views, before any
+        decode step writes them) and ``last_logits`` under ``tokens``, then
+        evict least-recently-used entries past the count or byte budget. An
+        entry over the byte budget alone is not stored (warned once)."""
+        key = tuple(tokens)
+        nbytes = self._entry_nbytes(caches, last_logits)
+        if self.prefix_cache_bytes and nbytes > self.prefix_cache_bytes:
+            if not self._prefix_overbudget_warned:
+                self._prefix_overbudget_warned = True
+                logger.warning(
+                    "prefix cache entry (%d bytes) exceeds prefix_cache_bytes (%d); nothing "
+                    "will be cached — raise prefix_cache_bytes for this model size",
+                    nbytes, self.prefix_cache_bytes)
+            return
+        entry = ([tuple(t.clone() for t in layer) for layer in caches],
+                 None if last_logits is None else last_logits.clone())
+        with self._prefix_lock:
+            old = self._prefix_cache.pop(key, None)
+            if old is not None:
+                self._prefix_bytes -= old[-1]
+            else:
+                self._prefix_index.add(key)
+            self._prefix_cache[key] = (max_len, self.kv_cache_dtype, *entry, nbytes)
+            self._prefix_bytes += nbytes
+            while self._prefix_cache and (
+                    len(self._prefix_cache) > self.prefix_cache_size
+                    or (self.prefix_cache_bytes and self._prefix_bytes > self.prefix_cache_bytes)):
+                evicted, old = self._prefix_cache.popitem(last=False)
+                self._prefix_index.remove(evicted)
+                self._prefix_bytes -= old[-1]
+
+    def prefix_match_len(self, prompt: Any) -> int:
+        """Cached-prefix length (tokens) this server holds for ``prompt``:
+        the shared batcher's radix trie when one exists, else the dense
+        entry index. No device work, no pinning."""
+        if not self.ready:
+            return 0
+        if isinstance(prompt, str):
+            ids = self._tokenizer.encode(prompt)
+        else:
+            ids = [int(t) for t in np.asarray(prompt).ravel()]
+        radix = self._batcher_radix()
+        if radix is not None:
+            return radix.match_len(ids)
+        with self._prefix_lock:
+            cands = self._prefix_index.candidates(ids)
+            return len(cands[-1]) if cands else 0
+
+    # ------------------------------------------------------------------
     @torch.no_grad()
     def generate(
         self,
@@ -950,7 +1169,16 @@ class LLMServer(SeldonComponent):
         if longest > plen:
             logger.warning("prompt of %d tokens truncated to max_seq_len %d", longest, plen)
         token_lists = [t[-plen:] for t in token_lists]  # keep the prompt tail
-        max_len = min(plen + max_new, self._cfg.max_seq_len + max_new)
+        # one prompt with the prefix cache on: one cache length for every
+        # call (entries serve only their own geometry), never below the
+        # prompt's bucket; entries are looked up and stored for a 1-row call
+        single = self.prefix_cache_size > 0 and n == 1
+        use_prefix = single and nb == 1
+        if single:
+            max_len = (max(plen, min(self.len_buckets[-1], self._cfg.max_seq_len))
+                       + max(max_new, self.max_new_tokens))
+        else:
+            max_len = min(plen + max_new, self._cfg.max_seq_len + max_new)
 
         tokens = np.zeros((nb, plen), np.int64)
         positions = np.full((nb, plen), PAD_POS, np.int32)
@@ -972,12 +1200,18 @@ class LLMServer(SeldonComponent):
             dense = self._dense_for(nb, max_len)
             caches = dense.caches(nb, max_len)
             tok, pos, done, keys = dense.state(nb)
-            logits = self._get_prefill(nb, plen, max_len)(
-                caches, torch.from_numpy(tokens).to(dev), torch.from_numpy(positions).to(dev))
             true_len_t = torch.from_numpy(true_len).to(dev)
-            # next-token logits live at each sequence's last real slot
-            first_logits = logits[torch.arange(nb, device=dev), true_len_t - 1]
-            del logits
+            first_logits = self._prefill_prefix(token_lists[0], max_len, caches) \
+                if use_prefix else None
+            if first_logits is None:
+                logits = self._get_prefill(nb, plen, max_len)(
+                    caches, torch.from_numpy(tokens).to(dev),
+                    torch.from_numpy(positions).to(dev))
+                # next-token logits live at each sequence's last real slot
+                first_logits = logits[torch.arange(nb, device=dev), true_len_t - 1]
+                del logits
+                if use_prefix:
+                    self._prefix_store(token_lists[0], max_len, caches, first_logits)
             keys.copy_(torch.tensor(_row_keys(base, nb), dtype=torch.int64))
             dense.temperature.fill_(temp)
             new_keys, first = sample_tokens(keys, first_logits, dense.temperature, self.top_k)
@@ -985,6 +1219,7 @@ class LLMServer(SeldonComponent):
             out = torch.empty((nb, max_new), dtype=torch.int64, device=dev)
             out[:, 0] = first
             if max_new > 1:
+                self._last_decode_kv_bytes = self._entry_nbytes(caches, None)
                 tok.copy_(first)
                 pos.copy_(true_len_t)
                 done.zero_()
@@ -1017,6 +1252,39 @@ class LLMServer(SeldonComponent):
             results_text.append(self._tokenizer.decode(seq) if text_mode[i] else None)
         return {"tokens": results_tokens, "texts": results_text}
 
+    def _prefill_prefix(self, prompt: List[int], max_len: int, caches):
+        """generate()'s prefix-cache path for one prompt, into ``caches`` (the
+        dense buffer's [1, max_len] views; the caller holds ``_dense_lock``):
+        on an exact hit the entry's caches are copied in and its stored
+        first-token logits returned (no prefill runs); on a partial hit the
+        entry is copied in, the suffix prefilled at its offset
+        (``_get_extend``) and the extended prompt stored; on a miss None
+        (the caller prefills and stores)."""
+        from seldon_core_tpu_torch.models.transformer import PAD_POS
+
+        hit = self._prefix_lookup(prompt, max_len)
+        if hit is None:
+            return None
+        p0, _, entry, entry_logits = hit
+        for layer, stored in zip(caches, entry):
+            for t, e in zip(layer, stored):
+                t.copy_(e)
+        if p0 == len(prompt):
+            return entry_logits
+        suffix = prompt[p0:]
+        L = len(suffix)
+        slen = min(bucket(L, self.len_buckets), max_len - p0)
+        stoks = np.zeros((1, slen), np.int64)
+        spos = np.full((1, slen), PAD_POS, np.int32)
+        stoks[0, :L] = suffix
+        spos[0, :L] = np.arange(p0, p0 + L)
+        dev = self.device
+        logits = self._get_extend(1, slen, max_len)(
+            caches, torch.from_numpy(stoks).to(dev), torch.from_numpy(spos).to(dev), p0)
+        first_logits = logits[:, L - 1]
+        self._prefix_store(prompt, max_len, caches, first_logits)
+        return first_logits
+
     # ------------------------------------------------------------------
     # SeldonComponent surface
     # ------------------------------------------------------------------
@@ -1047,19 +1315,29 @@ class LLMServer(SeldonComponent):
         return padded
 
     def tags(self) -> Dict[str, Any]:
-        """``{"llm_requests": N}``: private ``generate()`` calls so far (the
-        prefix cache, and its keys, arrive with a later slice)."""
+        """``{"llm_requests": N}``: private ``generate()`` calls so far; with
+        the prefix cache on also ``prefix_cache_hits`` and
+        ``prefix_cache_entries`` (the dense entries)."""
         with self._lock:
-            return {"llm_requests": self._request_count}
+            out = {"llm_requests": self._request_count}
+        if self.prefix_cache_size:
+            with self._prefix_lock:
+                out["prefix_cache_hits"] = self._prefix_hits
+                out["prefix_cache_entries"] = len(self._prefix_cache)
+        return out
 
     def llm_stats(self) -> Dict[str, Any]:
         """The serving snapshot a /metrics scrape reads
         (``metrics/registry.MetricsRegistry.sync_llm``): the page pool's
-        gauges, the steps in flight and the speculation counters of the
-        shared batcher (zeros without one, or with speculation off), and
-        the TTFT, inter-token, decode and accepted-tokens series
-        accumulated since the last call, drained here so each is observed
-        exactly once."""
+        gauges (fragmentation included), slot occupancy, the resident KV
+        bytes (the batcher's pool plus the dense prefix entries), the KV
+        bytes the last decode read a step, the steps in flight, the
+        speculation counters and the radix trie's counters of the shared
+        batcher (zeros without one, or with either off), the dense prefix
+        cache's hits and entries, and the TTFT, inter-token, decode and
+        accepted-tokens series accumulated since the last call, drained
+        here so each is observed exactly once. The trie is walked once a
+        call."""
         from seldon_core_tpu_torch.runtime.spec import SPEC_STATS_OFF
 
         def drain(dq) -> List[float]:
@@ -1071,16 +1349,34 @@ class LLMServer(SeldonComponent):
                     return out
 
         page_stats = {"kv_pages_total": 0, "kv_pages_in_use": 0, "kv_page_size": 0,
-                      "kv_page_sheds": 0}
+                      "kv_page_fragmentation": 0.0, "kv_page_sheds": 0}
+        prefix_stats = dict.fromkeys(("prefix_cached_blocks", "prefix_shared_pages",
+                                      "prefix_hit_blocks", "prefix_hit_tokens",
+                                      "prefix_cow_copies", "prefix_evicted_blocks",
+                                      "prefix_bytes_saved"), 0)
         in_flight = 0
+        occupancy = 0.0
+        pool_bytes = 0
         spec_stats = dict(SPEC_STATS_OFF)
         svc = getattr(self, "_batcher_service", None)
         if svc is not None:
-            page_stats = svc.batcher.page_stats()
-            in_flight = len(svc.batcher._inflight)
-            spec_stats = svc.batcher.spec_stats()
+            batcher = svc.batcher
+            radix_stats = batcher._radix.stats() if batcher._radix is not None else None
+            if radix_stats is not None:
+                prefix_stats.update(radix_stats)
+            page_stats = batcher.page_stats(radix_stats=radix_stats)
+            in_flight = len(batcher._inflight)
+            occupancy = sum(1 for s in batcher._slots if s.active) / max(batcher.S, 1)
+            pool_bytes = batcher._cache_nbytes
+            spec_stats = batcher.spec_stats()
+        with self._prefix_lock:
+            prefix_bytes = self._prefix_bytes
+            hits, entries = self._prefix_hits, len(self._prefix_cache)
         return {
             **page_stats,
+            "kv_cache_bytes": pool_bytes + prefix_bytes,
+            "kv_occupancy": occupancy,
+            "kv_bytes_per_step": self._last_decode_kv_bytes,
             "decode_step_times_s": drain(self._decode_step_times),
             "decode_dispatch_times_s": drain(self._decode_dispatch_times),
             "decode_sync_times_s": drain(self._decode_sync_times),
@@ -1090,6 +1386,9 @@ class LLMServer(SeldonComponent):
             "spec_accepted_per_step": drain(self._spec_accepted),
             "ttft_s": drain(self._ttft_times),
             "inter_token_s": drain(self._inter_token_times),
+            **prefix_stats,
+            "prefix_cache_hits": hits,
+            "prefix_cache_entries": entries,
         }
 
 

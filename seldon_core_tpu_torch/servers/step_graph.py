@@ -1,8 +1,8 @@
 """The server's programs as CUDA graphs, captured once over fixed buffers
-and then replayed: the batcher's (one replay per prefill chunk, and one per
+and then replayed: the batcher's (one replay per prefill chunk, one per
 decode dispatch: the K-step decode program, or in spec mode the fused draft
-+ verify step) and ``generate()``'s dense decode step (one replay per
-token).
++ verify step, and with the prefix cache on one per copy-on-write page
+copy) and ``generate()``'s dense decode step (one replay per token).
 
 These are the port's counterparts of the JAX package's compiled programs
 (``seldon_core_tpu/servers/llmserver.py``): ``_get_prefill_chunk(chunk,
@@ -23,9 +23,11 @@ What the capture relies on:
 - fixed addresses: a decode step reads and writes the batcher's pools,
   block tables and per-slot state (``last_tok``, ``next_pos``, ``keys``),
   a prefill chunk the pools and the batcher's fixed row, token and position
-  buffers; the batcher updates all of them in place and never rebinds
-  them; the temperature (a 0-dim device tensor, or None for greedy) is
-  fixed per batcher; a generate step reads and writes the server's dense
+  buffers, the CoW copy the pools and the batcher's fixed ``_cow_args``
+  (source page, destination page, valid tokens); the batcher updates all
+  of them in place and never rebinds them; the temperature (a 0-dim device
+  tensor, or None for greedy) is fixed per batcher; a generate step reads
+  and writes the server's dense
   buffer (the contiguous prefix of each flat cache tensor, and the state
   ``tok``, ``pos``, ``done``, ``keys``, ``temperature``), which a growth
   replaces after dropping every generate graph; a spec step also reads and
@@ -87,11 +89,11 @@ class ReplayGraph:
     """One captured program. ``replay()`` launches it on the current
     stream, adds the launch counts its capture saw, and returns its output
     buffer (a decode step's tokens [slots, k], a prefill chunk's logits [1,
-    chunk, vocab]); the next replay of this graph, or of another graph
-    sharing its memory pool, overwrites that buffer, so read it in stream
-    order before then."""
+    chunk, vocab]; None for the in-place CoW copy); the next replay of
+    this graph, or of another graph sharing its memory pool, overwrites
+    that buffer, so read it in stream order before then."""
 
-    def __init__(self, graph: torch.cuda.CUDAGraph, out: torch.Tensor,
+    def __init__(self, graph: torch.cuda.CUDAGraph, out: Optional[torch.Tensor],
                  counts: Dict[Tuple[Any, str], int], capture_s: float = 0.0):
         self.graph = graph
         self.out = out
@@ -264,5 +266,30 @@ def capture_spec_step(server, spec_k: int, mode: str, pools, last_tok: torch.Ten
     return graph
 
 
-__all__ = ["ReplayGraph", "capture_decode_steps", "capture_generate_step",
+@torch.no_grad()
+def capture_cow_copy(server, pools, args: torch.Tensor) -> ReplayGraph:
+    """Capture ``runtime/batcher.cow_page_copy`` over the pools and the
+    batcher's fixed ``args`` [3] int64 (source page, destination page, valid
+    tokens: the host stages them in stream order before each replay), on
+    the server's capture stream, in a pool of its own (one page's
+    transients), after a warm-up run. ``args`` is set to (TRASH, TRASH, 0)
+    first, so the warm-up only rewrites the TRASH page. Eager, the copy is
+    a few launches a layer of host enqueue; a replay is one graph launch.
+    Returns the ReplayGraph (no output: the copy is in place). The current
+    stream waits for the capture stream before this returns."""
+    from seldon_core_tpu_torch.models.transformer import TRASH_PAGE
+    from seldon_core_tpu_torch.runtime.batcher import cow_page_copy
+
+    def program():
+        cow_page_copy(pools, args[0:1], args[1:2], args[2:3])
+
+    with _on_capture_stream(server._graph_stream(), args.device):
+        args.fill_(TRASH_PAGE)
+        args[2:].zero_()
+        program()
+        graph = _capture(program)
+    return graph
+
+
+__all__ = ["ReplayGraph", "capture_cow_copy", "capture_decode_steps", "capture_generate_step",
            "capture_prefill_chunks", "capture_spec_step", "launch_counts"]

@@ -4,7 +4,8 @@ package, and it never falls back to the CPU on its own.
 - a subprocess with ``jax``, ``flax``, ``msgpack`` and ``seldon_core_tpu``
   blocked from import imports every module of ``seldon_core_tpu_torch``
   (the gRPC server, its proto converters and copied stubs, the OpenAPI
-  spec and the metrics registry among them), serves one CPU ``generate()``, and writes, loads and serves a ResNet
+  spec, the metrics registry and the radix prefix cache among them),
+  serves one CPU ``generate()``, and writes, loads and serves a ResNet
   checkpoint through ``TorchServer``;
 - an AST walk over the package and ``chip_smoke.py`` finds no import of
   ``jax``, ``flax``, ``msgpack`` or ``seldon_core_tpu`` / ``seldon_core_tpu.*``;
@@ -34,7 +35,7 @@ for m in mods:
     importlib.import_module(m)
 need = {"seldon_core_tpu_torch.transport." + m for m in (
     "grpc_server", "proto_convert", "proto.prediction_pb2", "openapi", "streaming")}
-need.add("seldon_core_tpu_torch.metrics.registry")
+need |= {"seldon_core_tpu_torch.metrics.registry", "seldon_core_tpu_torch.runtime.radix"}
 assert need <= set(mods), need - set(mods)
 from seldon_core_tpu_torch.servers.llmserver import LLMServer
 s = LLMServer(model="llama-tiny", init_random=True, max_new_tokens=4, eos_id=-1,

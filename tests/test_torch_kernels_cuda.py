@@ -1551,3 +1551,133 @@ def test_fused_resnet_kernel_rejects_what_it_does_not_take(dev):
     with pytest.raises(ValueError, match="16-byte"):   # TMA needs aligned bases
         flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=dev)
         fused_resnet.fused_identity_chain(flat[1:].view(x.shape), blocks)
+
+
+# ---------------------------------------------------------------------------
+# the radix prefix cache: the CoW page copy as a CUDA graph, a hit's chunk,
+# and generate()'s dense entries under the decode graph
+# ---------------------------------------------------------------------------
+def _radix_batcher(dev, kv):
+    """The small GQA model with the prefix cache on and a 3-slot batcher of
+    pages of 8 (prefill, decode and CoW graphs captured under
+    ``set_sync_debug_mode("error")``)."""
+    from seldon_core_tpu_torch.runtime.batcher import ContinuousBatcher
+    from seldon_core_tpu_torch.servers.llmserver import LLMServer
+
+    s = LLMServer(model="transformer", model_kwargs=SMALL_LLM, init_random=True,
+                  param_dtype="auto", max_new_tokens=12, eos_id=-1, len_buckets=(16, 32),
+                  prefix_cache_size=4, device="cuda", **INT8_KNOBS[kv])
+    s.load()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        b = ContinuousBatcher(s, max_slots=3, page_size=8, prefill_chunk=16, device="cuda")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return s, b
+
+
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+def test_cow_graph_replay_bit_equals_eager(dev, kv):
+    """On live pools (a chat turn served, its blocks in the trie), one
+    replay of the CoW graph (a cached page into a fresh one, 5 of 8 tokens
+    valid) is bit-equal on every pool tensor to the eager ``cow_page_copy``
+    on identical copies; the destination's positions are the source's up
+    to ``n_valid`` and PAD_POS after; the graph launches no kernel of the
+    port's own, and a second replay with new staged arguments reads them."""
+    from seldon_core_tpu_torch.runtime.batcher import cow_page_copy
+
+    s, b = _radix_batcher(dev, kv)
+    assert b._cow_graph is not None
+    try:
+        b.submit(list(range(1, 20)), 6).result(120)
+    finally:
+        b.close()
+    src = next(iter(b._radix._root.children.values()))[0].page
+    for dst, n_valid in ((b._allocator.alloc(1)[0], 5), (b._allocator.alloc(1)[0], 8)):
+        pools = [tuple(t.clone() for t in layer) for layer in b._caches]
+        before = s._cow_replays
+        b._cow_copy(src, dst, n_valid)
+        assert s._cow_replays == before + 1
+        arg = lambda v: torch.tensor([v], dtype=torch.int64, device=dev)
+        cow_page_copy(pools, arg(src), arg(dst), arg(n_valid))
+        torch.cuda.synchronize()
+        _assert_pools_equal(b, pools)
+        pos = b._caches[0][-1]
+        assert torch.equal(pos[dst, :n_valid], pos[src, :n_valid])
+        assert (pos[dst, n_valid:] == PAD_POS).all()
+        assert dict(b._cow_graph.counts) == {}
+
+
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+def test_prefix_hit_chunk_replay_bit_equals_eager(dev, kv):
+    """A turn-2 admission hits turn 1's blocks (shared pages lead its row,
+    one CoW copy, the job starts at k0 > 0): its first chunk's replay gives
+    logits and pools bit-equal to the eager chunk program on identical
+    copies; then the whole turn through the graphs equals the same turn
+    through an eager twin batcher on the same weights, hit for hit."""
+    from concurrent.futures import Future
+
+    from seldon_core_tpu_torch.runtime.batcher import ContinuousBatcher, _Request
+
+    s, b = _radix_batcher(dev, kv)
+    turn1 = list(range(3, 28))   # 25 tokens: + 5 answered, 3 blocks and a tail of 6
+    try:
+        out = b.submit(turn1, 6).result(120)
+    finally:
+        b.close()
+    turn2 = turn1 + out + [7, 8, 9]
+    cows = s._cow_replays
+    assert b._admit_begin(_Request(list(turn2), 6, Future(), None, None, None))
+    job, slot = b._prefill, b._slots[b._prefill.slot]
+    assert job.next == len(turn1) + len(out) - 1 > 0 and s._cow_replays == cows + 1
+    row = b._row.cpu().numpy()
+    assert list(row[0, :len(slot.shared)]) == slot.shared and len(slot.shared) == 3
+    C = job.chunk
+    part = job.ids[job.next:job.next + C]
+    toks = np.zeros((1, C), np.int64)
+    pos = np.full((1, C), PAD_POS, np.int32)
+    toks[0, :len(part)] = part
+    pos[0, :len(part)] = np.arange(job.next, job.next + len(part))
+    got, want, pools, _ = _replay_vs_eager(s, b, C, row, toks, pos)
+    assert torch.isfinite(got).all() and torch.equal(got, want)
+    _assert_pools_equal(b, pools)
+    # the turn served end to end, graphs against an eager twin
+    outs = []
+    for eager in (False, True):
+        twin = ContinuousBatcher(s, max_slots=3, page_size=8, prefill_chunk=16, device="cuda",
+                                 _eager=eager)
+        try:
+            outs.append([twin.submit(p, 6).result(120) for p in (turn1, turn2)]
+                        + [twin._radix.stats()])
+        finally:
+            twin.close()
+    assert outs[0] == outs[1] and outs[0][0] == out
+    assert outs[0][2]["prefix_cow_copies"] == 1 and outs[0][2]["prefix_hit_tokens"] > 0
+
+
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+def test_dense_entry_unchanged_by_generate_graph_replays(dev, kv):
+    """generate() with the prefix cache on: a stored entry is a copy, so
+    the decode graph's replays into the one dense buffer (an exact hit,
+    then a partial hit through ``_get_extend``) leave it bit-equal to what
+    was stored; the exact hit's tokens equal the first call's and each
+    call's are the eager switch's."""
+    s = _gen_server(kv, prefix_cache_size=4)
+    prompt = [5, 9, 17, 2, 40, 3]   # with its 8 answered and 2 more: one bucket of 16
+    first = s.generate([prompt])["tokens"][0]
+    (key, entry), = s._prefix_cache.items()
+    snap = [tuple(t.clone() for t in layer) for layer in entry[2]], entry[3].clone()
+    replays = s._generate_replays
+    assert s.generate([prompt])["tokens"][0] == first
+    assert s._generate_replays == replays + 7 and s._prefix_hits == 1
+    longer = prompt + first + [4, 4]
+    got = s.generate([longer])["tokens"][0]
+    assert s._prefix_hits == 2 and len(s._prefix_cache) == 2
+    stored = s._prefix_cache[key]
+    for layer, before in zip(stored[2], snap[0]):
+        for t, b0 in zip(layer, before):
+            assert torch.equal(t, b0)
+    assert torch.equal(stored[3], snap[1])
+    s.clear_prefix_cache()
+    assert s.generate([longer], _eager=True)["tokens"][0] == got

@@ -276,7 +276,6 @@ def test_rest_generate_and_ready(jax_params):
 @pytest.mark.parametrize("kw,slice_name", [
     (dict(draft_model_uri="file:///tmp/draft"), "speculative"),
     (dict(disaggregation="remote_prefill"), "disaggregation"),
-    (dict(prefix_cache_size=4), "prefix"),
     (dict(lora_rank=4), "LoRA"),
     (dict(tensor_parallel=2), "parallelism"),
 ])

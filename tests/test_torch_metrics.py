@@ -17,7 +17,10 @@ registry.py``, ``LLMServer.llm_stats``, ``transport/rest.py`` ``/metrics``,
   requests, inter-token count = credited tokens less one a request, page
   gauges = ``page_stats()``; ``llm_stats`` drains, so the next scrape adds
   nothing; ``/prometheus`` serves the same text and ``/seldon.json`` the JAX
-  package's ``wrapper_spec``."""
+  package's ``wrapper_spec``;
+- with the prefix cache on, after a chat whose second turn hits the trie,
+  one scrape's ``seldon_llm_prefix_*`` and ``seldon_llm_kv_*`` values equal
+  ``llm_stats`` (and the JAX registry's text for that snapshot)."""
 
 import asyncio
 import json
@@ -56,7 +59,12 @@ PORT_FAMILIES = {
     "seldon_llm_decode_host_lag_steps", "seldon_llm_spec_accept_rate",
     "seldon_llm_spec_accept_rate_per_slot", "seldon_llm_spec_tokens_per_forward",
     "seldon_llm_spec_accepted_tokens_per_step", "seldon_llm_spec_draft_overhead_fraction",
-    "seldon_llm_spec_slot_verify_steps",
+    "seldon_llm_spec_slot_verify_steps", "seldon_llm_kv_cache_bytes",
+    "seldon_llm_kv_cache_occupancy", "seldon_llm_kv_bytes_per_step",
+    "seldon_llm_kv_page_fragmentation", "seldon_llm_prefix_hit_blocks",
+    "seldon_llm_prefix_shared_pages", "seldon_llm_prefix_cached_blocks",
+    "seldon_llm_prefix_cow_copies", "seldon_llm_prefix_evicted_blocks",
+    "seldon_llm_prefix_bytes_saved",
 }
 
 
@@ -70,7 +78,15 @@ def stats(seed, sheds):
     rng = np.random.default_rng(seed)
     return {
         "kv_pages_total": 66, "kv_pages_in_use": int(rng.integers(0, 64)), "kv_page_size": 64,
-        "kv_page_sheds": sheds,
+        "kv_page_sheds": sheds, "kv_page_fragmentation": float(rng.uniform()),
+        "kv_cache_bytes": int(rng.integers(1, 1 << 40)), "kv_occupancy": float(rng.uniform()),
+        "kv_bytes_per_step": int(rng.integers(1, 1 << 36)),
+        "prefix_cached_blocks": int(rng.integers(0, 64)),
+        "prefix_shared_pages": int(rng.integers(0, 16)),
+        "prefix_hit_blocks": 40 * sheds, "prefix_hit_tokens": 2560 * sheds,
+        "prefix_cow_copies": 3 * sheds, "prefix_evicted_blocks": 5 * sheds,
+        "prefix_bytes_saved": (1 << 35) * sheds,
+        "prefix_cache_hits": sheds, "prefix_cache_entries": 2,
         "decode_step_times_s": rng.uniform(0, 0.05, 7).tolist(),
         "decode_dispatch_times_s": rng.exponential(0.001, 5).tolist() + [0.0005, 7.5],
         "decode_sync_times_s": rng.uniform(0, 0.02, 5).tolist(),
@@ -287,3 +303,52 @@ def test_llm_stats_spec_fields(apps):
     assert value["seldon_llm_spec_tokens_per_forward"] >= 1.0
     assert len([s for s in fams["seldon_llm_spec_accept_rate_per_slot"].samples]) == 2
     assert p.llm_stats()["spec_accepted_per_step"] == []
+
+
+def test_live_scrape_prefix_series():
+    """A chat through the radix batcher behind the component app: turn 2
+    hits turn 1's blocks (one CoW copy), and one scrape's prefix and KV
+    gauges and counters equal ``llm_stats`` after it (lifetime counters,
+    no traffic between), as the JAX registry renders that snapshot."""
+    j = JaxLLMServer(init_random=True, **COMMON)
+    j.load()
+    knobs = dict(prefix_cache_size=4, kv_page_size=4, prefill_chunk=8)
+    p = LLMServer(device="cpu", **dict(COMMON, **knobs))
+    p.load(params={"params": jax.tree_util.tree_map(np.asarray, j._params["params"])})
+    httpd, _ = start(make_component_app(p, device="cpu"))
+    port = httpd.server_address[1]
+    try:
+        turn1 = [9, 8, 7, 6, 5, 4, 3, 2, 1, 11]
+        code, body = post(port, {"prompt": turn1})
+        assert code == 200
+        code, _ = post(port, {"prompt": turn1 + json.loads(body)["tokens"] + [30, 31]})
+        assert code == 200
+        fams = families(get(port, "/metrics")[2])
+        stats = p.llm_stats()
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        p._batcher_service.close()
+    value = {s.name: s.value for fam in fams.values() for s in fam.samples}
+    assert stats["prefix_hit_blocks"] > 0 and stats["prefix_cow_copies"] == 1
+    assert stats["kv_pages_in_use"] == stats["prefix_cached_blocks"] > 0
+    for key, name in (("prefix_hit_blocks", "seldon_llm_prefix_hit_blocks_total"),
+                      ("prefix_shared_pages", "seldon_llm_prefix_shared_pages"),
+                      ("prefix_cached_blocks", "seldon_llm_prefix_cached_blocks"),
+                      ("prefix_cow_copies", "seldon_llm_prefix_cow_copies_total"),
+                      ("prefix_evicted_blocks", "seldon_llm_prefix_evicted_blocks_total"),
+                      ("prefix_bytes_saved", "seldon_llm_prefix_bytes_saved_total"),
+                      ("kv_cache_bytes", "seldon_llm_kv_cache_bytes"),
+                      ("kv_occupancy", "seldon_llm_kv_cache_occupancy"),
+                      ("kv_bytes_per_step", "seldon_llm_kv_bytes_per_step"),
+                      ("kv_page_fragmentation", "seldon_llm_kv_page_fragmentation")):
+        assert value[name] == stats[key], name
+    assert stats["kv_cache_bytes"] == stats["kv_bytes_per_step"] == \
+        p._batcher_service.batcher._cache_nbytes
+    ref, stub = JaxRegistry(), _Stub()
+    stub.snapshots.append(dict(stats))
+    ref.sync_llm(stub)
+    want = families(ref.expose().decode())
+    for name in PORT_FAMILIES:
+        if name.startswith(("seldon_llm_prefix", "seldon_llm_kv")):
+            assert fams[name].samples == want[name].samples, name
