@@ -10,6 +10,8 @@ kernel of that path against its plain PyTorch version.
                                                    # splits; rows to rows.json
     python3 chip_smoke.py --k2-sweep   # only: build, then K2's threads x slots a row
     python3 chip_smoke.py --prefix     # only: build, then the prefix phase (both models)
+    python3 chip_smoke.py --lora       # only: build, then the LoRA, tenant and checkpoint
+                                       # phases
 
 Phases (any failure exits non-zero; nothing swallows an error):
 
@@ -169,7 +171,37 @@ Phases (any failure exits non-zero; nothing swallows an error):
    ``_get_extend``, equal to a cache-cleared call up to a near-tie).
    Printed: TTFT per turn trie on vs off, chunks, peak pages, bytes saved,
    the CoW replay's host and device time beside the eager copy's, each
-   dense call's prefill time and wall;
+   dense call's prefill time and wall. Batched LoRA (``lora_phase``), on a
+   bf16 server and on int8 weights + int8 KV, each at full depth with
+   three random rank-LORA_RANK adapters written as ``adapter.json`` +
+   ``weights.npz`` (numpy, seeded) and preloaded from file:// URIs, a pool
+   of LORA_MAX rows: the plain graph batcher on the same weights first (the
+   registry set aside), then the adapted one, N_REQUESTS requests over REST
+   (two a adapter, two base, each with a Seldon-Tenant): every chunk and
+   dispatch a replay, launches as the plain path's, every token
+   teacher-forced through its adapter, each request equal to itself alone
+   and the base requests to the plain batcher's up to a near-tie; a fourth
+   adapter loaded while requests decode (an evict of a pinned one refused)
+   leaves their tokens as the run without the load; the scrape's
+   ``seldon_llm_adapter_*`` equal ``llm_stats``; on live state an adapted
+   chunk replay and an adapted decode replay bit-equal to the eager adapted
+   programs, their kernel nodes equal to their launches; the decode step's
+   LoRA work alone as one CUDA graph (nodes, device time, kernels by name
+   from torch.profiler). Printed: the adapted step beside the plain one,
+   the graphs' nodes, the pool's bytes, TTFT, peak memory. Then the tenant
+   phase (``tenant_phase``) on the bf16 LoRA server: TENANT_FLOOD
+   batch-class requests from one tenant queued, one more over its quota
+   (503 + Retry-After), then interactive requests from another tenant while
+   a batch job is staged: a staged job preempted, the batch tokens equal to
+   a run without interactive traffic, the scrape's tenant series and TTFT
+   counts by class equal to the run's; interactive and batch TTFT printed.
+   Then the checkpoint phase (``checkpoint_phase``): a 7B-width model and a
+   TinyLlama-1.1B-width draft, both cut to CKPT_LAYERS layers, written with
+   the port's ``export_checkpoint`` and served by ``model_uri`` (tokens ==
+   ``load(params=...)``), by ``quantize="int8"`` from the same directory
+   (load peak checked; tokens == the int8 ``load(params=...)``) and with the
+   draft from ``draft_model_uri`` (== ``draft_params`` bit for bit); the
+   load times and the bytes read printed;
 5. ResNet-50 forward phase — the folded model at full width and depth
    (random live weights from a seed: no residual branch is switched off),
    a forward at batch 128 through K3 (its launches: the four chains'
@@ -190,8 +222,8 @@ Phases (any failure exits non-zero; nothing swallows an error):
 
 The line before the last is the kernel table as JSON (K1 over a bf16 pool,
 K1 over an int8 pool, K2, K3, K4's decode kernel, K4's prefill kernel; K2's
-launches are every LLM run's together (the speculative and prefix phases'
-included), K3's the predict serving run's);
+launches are every LLM run's together (the speculative, prefix, LoRA,
+tenant and checkpoint phases' included), K3's the predict serving run's);
 the last line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 port's package beside it, the script exits non-zero and prints no result.
 """
@@ -303,6 +335,24 @@ PREFIX_CACHE_SIZE = 64
 # the phase's budget holds one; the partial hit extends the prompt by
 PREFIX_ENTRY_POSITIONS = 2048 + MAX_NEW
 PREFIX_DENSE_EXTRA = 96
+# batched LoRA: three random adapters of rank LORA_RANK in a pool of
+# LORA_MAX rows (the identity row included), two requests each and two base;
+# A ~ N(0, 1 / d_in) and B ~ N(0, LORA_B_STD^2) at alpha LORA_ALPHA put a
+# delta at about a fifth of its base projection
+LORA_RANK = 8
+LORA_MAX = 8
+LORA_ALPHA = 16
+LORA_B_STD = 0.05
+LORA_NAMES = ("acme-support", "globex-legal", "initech-code")
+# the tenant phase: a flood of batch-class requests (three prefill chunks
+# each, so a staged job spans loop turns) and a few interactive ones
+TENANT_FLOOD = 16
+TENANT_INTERACTIVE = 4
+TENANT_PROMPT = 600
+# the checkpoint phase's depth cut: a 32-layer 7B bf16 tree is 13.5 GB on
+# disk and the msgpack reader holds the whole file and its leaves in host
+# memory at once
+CKPT_LAYERS = 4
 
 
 def fail(msg: str) -> None:
@@ -1188,14 +1238,20 @@ def k4_decode_sweep(card, flush, clean_flush):
 # ---------------------------------------------------------------------------
 # Serving phase
 # ---------------------------------------------------------------------------
-def post(url: str, body: dict, timeout: float = 600.0):
+def post(url: str, body: dict, timeout: float = 600.0, headers: Optional[dict] = None):
+    return post_headers(url, body, timeout, headers)[::2]
+
+
+def post_headers(url: str, body: dict, timeout: float = 600.0,
+                 headers: Optional[dict] = None):
+    """(status, response headers, JSON body) of one POST."""
     req = urllib.request.Request(url, data=json.dumps(body).encode(),
-                                 headers={"Content-Type": "application/json"})
+                                 headers={"Content-Type": "application/json", **(headers or {})})
     try:
         with urllib.request.urlopen(req, timeout=timeout) as r:
-            return r.status, json.loads(r.read())
+            return r.status, dict(r.headers), json.loads(r.read())
     except urllib.error.HTTPError as e:
-        return e.code, json.loads(e.read() or b"{}")
+        return e.code, dict(e.headers), json.loads(e.read() or b"{}")
 
 
 def prompt_text(i: int, length: int = 124) -> str:
@@ -1224,11 +1280,12 @@ def chunks_of(b, n: int, prompt_len: Optional[int] = None):
     return [c] * -(-n // c)
 
 
-def teacher_logits(server, seqs):
+def teacher_logits(server, seqs, adapter_ids=None):
     """float32 logits of one batched prefill over right-padded ``seqs``
     into fresh dense caches of the server's KV dtype (``server._prefill_fresh``):
     the same K/V numerics the serving path runs (an int8 cache quantizes
-    every position on write and attends the dequantized values). The
+    every position on write and attends the dequantized values); with
+    ``adapter_ids`` (one a sequence) each row through its LoRA adapter. The
     causal mask keeps each row's padding out of its earlier positions."""
     import torch
 
@@ -1238,7 +1295,9 @@ def teacher_logits(server, seqs):
         toks[i, :len(seq)] = torch.tensor(seq, device="cuda")
     pos = torch.arange(L, device="cuda")[None].expand(n, L)
     with torch.no_grad():
-        logits, _ = server._prefill_fresh(toks, pos, L)
+        ids = (None if adapter_ids is None
+               else torch.tensor(list(adapter_ids), dtype=torch.int64, device="cuda"))
+        logits, _ = server._prefill_fresh(toks, pos, L, adapter_ids=ids)
     return logits
 
 
@@ -1361,9 +1420,13 @@ def load_llm(label: str, card: str, knobs: dict):
     print(f"[{label}] load_s {time.perf_counter() - t0:.2f} (Llama-2-7B widths, 32 layers, "
           f"random weights, {weight_bytes / 1e9:.3f} GB); peak device memory after load() "
           f"{load_peak_gb:.3f} GB ({before_gb:.3f} GB allocated before) [{card}]", flush=True)
-    if knobs.get("quantize") == "int8" and load_peak_gb > INT8_LOAD_PEAK_GB:
+    # a LoRA pool is allocated at load() beside the weights
+    pool_gb = (server.adapter_registry.stats()["adapter_pool_bytes"] / 1e9
+               if server.adapter_registry is not None else 0.0)
+    if knobs.get("quantize") == "int8" and load_peak_gb > INT8_LOAD_PEAK_GB + pool_gb:
         fail(f"[{label}] peak device memory after load() {load_peak_gb:.3f} GB > "
-             f"{INT8_LOAD_PEAK_GB} GB: more than the int8 tree plus one float leaf")
+             f"{INT8_LOAD_PEAK_GB} GB + the adapter pool's {pool_gb:.3f} GB: more than the "
+             f"int8 tree plus one float leaf")
     return server, weight_bytes
 
 
@@ -1374,11 +1437,11 @@ def admit_now(b, texts, ahead: int) -> None:
     programs directly, as the served run had them."""
     from concurrent.futures import Future
 
-    from seldon_core_tpu_torch.runtime.batcher import _Request
+    from seldon_core_tpu_torch.runtime.scheduler import PendingRequest
 
     for text in texts:
         ids = b.server._tokenizer.encode(text)
-        if not b._admit_begin(_Request(ids, MAX_NEW, Future(), None, None, None)):
+        if not b._admit_begin(PendingRequest(ids=ids, max_new=MAX_NEW, fut=Future())):
             fail("step phase: no free slot for a re-admitted prompt")
         while b._prefill is not None:
             b._prefill_step()
@@ -1547,7 +1610,7 @@ def zero_counts(server) -> None:
     server._prefill_eager = 0
     for series in (server._ttft_times, server._inter_token_times, server._decode_step_times,
                    server._decode_dispatch_times, server._decode_sync_times,
-                   server._decode_host_lag):
+                   server._decode_host_lag, server._ttft_by_class):
         series.clear()
 
 
@@ -1645,14 +1708,15 @@ def prompt_ids(server, prompt) -> list:
     return server._tokenizer.encode(prompt) if isinstance(prompt, str) else list(prompt)
 
 
-def teacher_check(label: str, card: str, server, texts, served) -> None:
+def teacher_check(label: str, card: str, server, texts, served, adapter_ids=None) -> None:
     """Every served token against a teacher-forced prefill over its own
     request's prompt (a text or token ids) and served tokens, through the
-    same KV numerics: within TIE_TOL of the top logit at every step."""
+    same KV numerics (and, with ``adapter_ids``, each request's adapter):
+    within TIE_TOL of the top logit at every step."""
     import torch
 
     seqs = [prompt_ids(server, t) + toks for t, toks in zip(texts, served)]
-    tf_logits = teacher_logits(server, seqs)
+    tf_logits = teacher_logits(server, seqs, adapter_ids)
     # row p - 1 + t of request i predicts its served token t
     rows = torch.stack([tf_logits[i, len(seq) - MAX_NEW - 1:len(seq) - 1]
                         for i, seq in enumerate(seqs)]).float()     # [N, MAX_NEW, vocab]
@@ -2594,10 +2658,12 @@ def rest_serve(label: str, card: str, server, texts, **batcher_kw):
     return b, served, launches, metrics
 
 
-def near_tie_check(label: str, card: str, server, texts, served, plain) -> int:
+def near_tie_check(label: str, card: str, server, texts, served, plain,
+                   adapter_ids=None) -> int:
     """Each request's served tokens against the plain batcher's: equal, or
     equal up to a first difference where both tokens sit within TIE_TOL of
-    the top logit of a teacher-forced prefill. Returns the requests equal
+    the top logit of a teacher-forced prefill (through the request's
+    adapter, with ``adapter_ids``). Returns the requests equal
     throughout."""
     equal = 0
     for i, (a, b_) in enumerate(zip(served, plain)):
@@ -2605,7 +2671,8 @@ def near_tie_check(label: str, card: str, server, texts, served, plain) -> int:
         if t is None:
             equal += 1
             continue
-        row = teacher_logits(server, [prompt_ids(server, texts[i]) + a[:t]])[0, -1].float()
+        aid = None if adapter_ids is None else [adapter_ids[i]]
+        row = teacher_logits(server, [prompt_ids(server, texts[i]) + a[:t]], aid)[0, -1].float()
         top = row.max().item()
         gaps = (top - row[a[t]].item(), top - row[b_[t]].item())
         print(f"[{label}] request {i}: tokens equal to the plain batcher's for {t} of "
@@ -3726,6 +3793,730 @@ def resnet_serving_phase(card, model):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Batched LoRA, tenants and checkpoints
+# ---------------------------------------------------------------------------
+def lora_cfg():
+    """The 7B model's config (the adapter pool's shapes come from it)."""
+    from seldon_core_tpu_torch.models.transformer import TransformerConfig
+
+    return TransformerConfig(**{k: v for k, v in LLAMA2_7B.items() if k != "dtype"})
+
+
+def write_adapters(root: str, names, seed: int) -> dict:
+    """Random rank-LORA_RANK adapters at 7B widths, one directory each
+    (``adapter.json`` + ``weights.npz``, float32 factors from numpy's seeded
+    generator: A ~ N(0, 1 / d_in), B ~ N(0, LORA_B_STD^2), alpha LORA_ALPHA,
+    so a delta is about a fifth of its base projection). Returns name ->
+    file:// URI."""
+    import numpy as np
+
+    from seldon_core_tpu_torch.runtime.adapters import projection_dims
+
+    rng = np.random.default_rng(seed)
+    L, r = LLAMA2_7B["n_layers"], LORA_RANK
+    uris = {}
+    for name in names:
+        d = os.path.join(root, name)
+        os.makedirs(d)
+        arrays = {}
+        for proj, (din, dout) in projection_dims(lora_cfg()).items():
+            arrays[f"{proj}.A"] = rng.standard_normal((L, din, r), np.float32) / np.sqrt(din)
+            arrays[f"{proj}.B"] = rng.standard_normal((L, r, dout), np.float32) * LORA_B_STD
+        np.savez(os.path.join(d, "weights.npz"), **arrays)
+        with open(os.path.join(d, "adapter.json"), "w") as f:
+            json.dump({"rank": r, "alpha": LORA_ALPHA}, f)
+        uris[name] = "file://" + d
+    return uris
+
+
+def post_many(url: str, reqs):
+    """POST each (body, headers) of ``reqs`` to /v1/generate, all at once.
+    Returns (the (status, body) results, the wall time)."""
+    results = [None] * len(reqs)
+
+    def client(i):
+        results[i] = post(url + "/v1/generate", reqs[i][0], headers=reqs[i][1])
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(len(reqs))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    return results, time.perf_counter() - t0
+
+
+def build_service(label: str, server, **batcher_kw):
+    """A BatcherService of N_REQUESTS slots on ``server``, built (graphs
+    warmed up and captured) under ``set_sync_debug_mode("error")``, and the
+    REST app on it. Returns (service, httpd, url, build seconds)."""
+    import torch
+
+    from seldon_core_tpu_torch.runtime.batcher import BatcherService
+    from seldon_core_tpu_torch.transport.rest import make_component_app, start
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        svc = BatcherService(server, max_slots=N_REQUESTS, **batcher_kw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    server._batcher_service = svc
+    httpd, _ = start(make_component_app(server, device="cuda"))
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    code, body = post(url + "/v1/generate", {"prompt": "warm up", "max_new_tokens": 4})
+    if code != 200:
+        fail(f"[{label}] warm-up request answered {code}: {body}")
+    torch.cuda.synchronize()
+    return svc, httpd, url, build_s
+
+
+def stop_service(label: str, server, svc, httpd) -> None:
+    httpd.shutdown()
+    httpd.server_close()
+    if svc.batcher.page_stats()["kv_pages_in_use"] != 0:
+        fail(f"[{label}] pages still held after every request finished: "
+             f"{svc.batcher.page_stats()}")
+    svc.close()
+    server._batcher_service = None
+
+
+def lora_served_run(label: str, card: str, server, url: str, texts, assign, during=None):
+    """The N_REQUESTS requests over REST, request i with adapter
+    ``assign[i]`` (None = base) and tenant ``tenant-{i % 4}``, counts zeroed
+    just before and read just after; ``during`` (optional) runs on its own
+    thread meanwhile. Returns (served tokens, launch counts, decode
+    dispatches as (replays, eager), step walls, TTFTs, peak GB, wall)."""
+    import torch
+
+    reqs = [({"prompt": t} if a is None else {"prompt": t, "adapter": a},
+             {"Seldon-Tenant": f"tenant-{i % 4}"}) for i, (t, a) in enumerate(zip(texts, assign))]
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(server)
+    server._decode_replays = server._decode_eager = 0
+    side = threading.Thread(target=during) if during is not None else None
+    if side is not None:
+        side.start()
+    results, wall = post_many(url, reqs)
+    if side is not None:
+        side.join(600)
+    counts = read_counts(server)
+    out = (served_tokens(label, results), counts,
+           (server._decode_replays, server._decode_eager), sorted(server._decode_step_times),
+           sorted(server._ttft_times), torch.cuda.max_memory_allocated() / 1e9, wall)
+    return out
+
+
+def lora_live_checks(label: str, card: str, server, b, texts, assign) -> dict:
+    """On the adapted batcher's live state (its loop stopped): one chunk of
+    the first prompt (through its adapter) replayed against the eager
+    adapted chunk program from identical copies of the pools (logits and
+    pools bit-equal); the prompts admitted with their adapters, then one
+    replay of the decode graph against the eager adapted step from
+    identical copies (tokens, pools, state bit-equal). Each graph's K1, K2
+    and K4 kernel nodes by name must equal what one replay adds to the
+    launch counters. Then the replay's device time (CUDA events) and the
+    lora_delta chain's (``lora_chain``)."""
+    from concurrent.futures import Future
+
+    import numpy as np
+    import torch
+
+    from seldon_core_tpu_torch.models.transformer import PAD_POS
+    from seldon_core_tpu_torch.runtime.scheduler import PendingRequest
+
+    reg = server.adapter_registry
+    pool = reg.pool()
+
+    def request(i):
+        ids = server._tokenizer.encode(texts[i])
+        return ids, PendingRequest(ids=ids, max_new=MAX_NEW, fut=Future(),
+                                   adapter_id=reg.resolve_and_pin(assign[i]))
+
+    out = {}
+    # a chunk: stage request 0's job, then its first chunk replayed and eager
+    ids, req = request(0)
+    if not b._admit_begin(req):
+        fail(f"[{label}] no free slot for the chunk check")
+    job = b._prefill
+    C, n = job.chunk, min(job.chunk, len(ids))
+    toks = np.zeros((1, C), np.int64)
+    pos = np.full((1, C), PAD_POS, np.int32)
+    toks[0, :n] = ids[:n]
+    pos[0, :n] = np.arange(n)
+    b._chunk_tokens[:, :C] = torch.from_numpy(toks).cuda()
+    b._chunk_pos[:, :C] = torch.from_numpy(pos).cuda()
+    copy = [tuple(t.clone() for t in layer) for layer in b._caches]
+    graph = b._prefill_graphs[C]
+    got = graph.replay().clone()
+    want = server._get_prefill_chunk(C, b.n_pages, True)(
+        copy, b._row, b._chunk_tokens[:, :C], b._chunk_pos[:, :C], adapters=pool,
+        adapter_ids=b._chunk_adapter)
+    torch.cuda.synchronize()
+    same = torch.equal(got, want) and all(torch.equal(x, y) for la, lb in zip(b._caches, copy)
+                                          for x, y in zip(la, lb))
+    del copy, want
+    nodes = node_counts(graph_kernel_names(graph.graph))
+    added = launches_of(graph.replay)
+    print(f"[{label}] adapted chunk of {C} (adapter id {req.adapter_id}, chunk id buffer "
+          f"{int(b._chunk_adapter[0])}) replay vs the eager adapted program from identical "
+          f"copies of the pools: logits + pools {'bit-equal' if same else 'DIFFER'}; kernel nodes "
+          f"(K2, K4 prefill, K4 decode, K1) {nodes}, a replay adds {added}; "
+          f"{len(graph_node_list(graph.graph))} nodes in all [{card}]", flush=True)
+    if not same:
+        fail(f"[{label}] the adapted chunk replay and the eager program differ")
+    if nodes != added or nodes[0] != LLAMA2_7B["n_layers"]:
+        fail(f"[{label}] the adapted chunk graph's kernel nodes {nodes} != a replay's "
+             f"launches {added}")
+    while b._prefill is not None:
+        b._prefill_step()
+    for i in range(1, N_REQUESTS):
+        _, req = request(i)
+        if not b._admit_begin(req):
+            fail(f"[{label}] no free slot for a re-admitted prompt")
+        while b._prefill is not None:
+            b._prefill_step()
+    for i, slot in enumerate(b._slots):
+        if not (slot.active and b._ensure_slot_pages(i, slot.dispatched_pos() + 128)):
+            fail(f"[{label}] slot {i} is not live")
+    ids_now = b._adapter_ids.tolist()
+    want_ids = [reg.resolve(a) for a in assign]
+    if sorted(ids_now) != sorted(want_ids):
+        fail(f"[{label}] slot adapter ids {ids_now}, expected {sorted(want_ids)}")
+    graph = b._graphs[1]
+    copy = state_copy(b)
+    got = graph.replay().clone()
+    eager = server._get_decode_step_paged(b.S, b.n_pages, 1, True)(
+        *copy, b._temp, b._block_tables, adapters=pool, adapter_ids=b._adapter_ids)
+    torch.cuda.synchronize()
+    same_tokens = torch.equal(got, eager)
+    same = same_tokens and state_equal(b, copy)
+    del copy, eager
+    torch.cuda.empty_cache()
+    nodes = node_counts(graph_kernel_names(graph.graph))
+    added = launches_of(graph.replay)
+    n_nodes = len(graph_node_list(graph.graph))
+    print(f"[{label}] adapted decode replay vs the eager adapted step from identical copies, "
+          f"{b.S} live slots with adapter ids {ids_now}: tokens "
+          f"{'bit-equal' if same_tokens else 'DIFFER'}, tokens + pools + state "
+          f"{'bit-equal' if same else 'DIFFER'}; kernel nodes (K2, K4 prefill, K4 decode, K1) "
+          f"{nodes}, a replay adds {added}; {n_nodes} nodes in all [{card}]", flush=True)
+    if not same:
+        fail(f"[{label}] the adapted decode replay and the eager adapted step differ")
+    if nodes != added:
+        fail(f"[{label}] the adapted decode graph's kernel nodes {nodes} != a replay's "
+             f"launches {added}")
+    out["replay_dev_ms"] = events_ms(graph.replay)
+    out["nodes"] = n_nodes
+    out.update(lora_chain(label, card, server, b))
+    for i in range(b.S):   # drop the re-admissions (and their adapter pins)
+        b._release_slot(i)
+    return out
+
+
+def lora_chain(label: str, card: str, server, b) -> dict:
+    """The decode step's LoRA work alone: the 5 x 32 ``lora_delta`` calls
+    of one adapted decode step and their adds, at the step's shapes ([S, 1,
+    d_in] activations, the live pool, the slots' ids), captured as one CUDA
+    graph: its nodes, its device time (CUDA events around a replay) and,
+    from torch.profiler over one replay, its kernels by name (count and
+    device time)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from seldon_core_tpu_torch.models.transformer import lora_delta
+    from seldon_core_tpu_torch.runtime.adapters import projection_dims
+
+    pool = server.adapter_registry.pool()
+    dims = projection_dims(lora_cfg())
+    g = torch.Generator(device="cuda").manual_seed(5)
+    xs = {p: torch.randn((b.S, 1, din), generator=g, device="cuda").to(torch.bfloat16)
+          for p, (din, _) in dims.items()}
+    ys = {p: torch.randn((b.S, 1, dout), generator=g, device="cuda").to(torch.bfloat16)
+          for p, (_, dout) in dims.items()}
+
+    def chain():
+        for layer in range(LLAMA2_7B["n_layers"]):
+            for p in dims:
+                A, B = pool[p]
+                ys[p] + lora_delta(xs[p], A[:, layer], B[:, layer], b._adapter_ids,
+                                   pool["scale"])
+
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        chain()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph, stream=stream):
+        chain()
+    nodes = len(graph_node_list(graph))
+    ms = events_ms(graph.replay)
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            graph.replay()
+            torch.cuda.synchronize()
+        rows = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
+        if rows:
+            break
+    traced = sum(dev_us(e) for e in rows) / 1e3
+    kernels = sum(e.count for e in rows)
+    top = sorted(rows, key=dev_us, reverse=True)[:6]
+    print(f"[{label}] the decode step's LoRA work alone ({len(dims)} x "
+          f"{LLAMA2_7B['n_layers']} lora_delta calls and adds at {b.S} slots, live pool and "
+          f"ids) as one CUDA graph: {nodes} nodes, device time {ms:.3f} ms (CUDA events); "
+          f"torch.profiler over one replay: {kernels} kernels, {traced:.3f} ms; by name: "
+          + "; ".join(f"{e.key[:60]} x{e.count} {dev_us(e) / 1e3:.3f} ms" for e in top)
+          + f" [{card}]", flush=True)
+    return {"chain_nodes": nodes, "chain_ms": ms, "chain_traced_ms": traced,
+            "chain_kernels": kernels}
+
+
+def lora_phase(label: str, card: str, knobs: dict, root: str) -> tuple:
+    """Batched LoRA on a 7B server (random base weights, full depth) with
+    three random rank-LORA_RANK adapters preloaded from file:// URIs
+    (``lora_adapters``) and a pool of LORA_MAX rows: N_REQUESTS requests over
+    REST, two a adapter and two base, each with a Seldon-Tenant. Checks:
+    every chunk and dispatch a graph replay; launches as the plain path's;
+    every token teacher-forced through its adapter; each request equal to
+    itself served alone up to a near-tie; the base requests equal to the
+    plain (unadapted) graph batcher's on the same weights; the adapted
+    programs' replays bit-equal to the eager adapted programs on live state,
+    their kernel nodes equal to their launches; a fourth adapter loaded
+    while requests decode leaves their tokens as a run without the load
+    (and then serves), an evict while pinned returns False; the scrape's
+    adapter series equal ``llm_stats``. Returns (server, (label, launches)
+    records, metrics)."""
+    import torch
+
+    from seldon_core_tpu_torch.runtime.adapters import projection_dims
+
+    uris = write_adapters(root, LORA_NAMES, seed=7 + len(label))
+    server, weight_bytes = load_llm(label, card, dict(
+        knobs, lora_rank=LORA_RANK, lora_max_adapters=LORA_MAX, lora_adapters=uris))
+    reg = server.adapter_registry
+    quantized, int8_kv = server.quantize == "int8", server.kv_cache_dtype == "int8"
+    stats = reg.stats()
+    L, r = LLAMA2_7B["n_layers"], LORA_RANK
+    per_row = sum(din * r + r * dout for din, dout in projection_dims(lora_cfg()).values())
+    want_bytes = LORA_MAX * L * per_row * 2 + LORA_MAX * 4
+    if stats["adapter_loaded"] != 3 or stats["adapter_pool_bytes"] != want_bytes:
+        fail(f"[{label}] adapter pool {stats}, expected 3 loaded and {want_bytes} bytes")
+    texts = prompts(N_REQUESTS)
+    assign = [LORA_NAMES[i // 2] if i < 6 else None for i in range(N_REQUESTS)]
+    ids = [reg.resolve(a) for a in assign]
+    records, metrics = [], {"pool_bytes": stats["adapter_pool_bytes"]}
+    # the plain graph batcher on the same weights (the registry set aside)
+    server.adapter_registry = None
+    svc, httpd, url, _ = build_service(label, server)
+    try:
+        plain, counts, _, steps, _, _, _ = lora_served_run(f"{label} plain", card, server, url,
+                                                           texts, [None] * N_REQUESTS)
+        metrics["plain_step_ms"] = statistics.median(steps) * 1e3
+        metrics["plain_nodes"] = len(graph_node_list(svc.batcher._graphs[1].graph))
+    finally:
+        stop_service(f"{label} plain", server, svc, httpd)
+        server.adapter_registry = reg
+    records.append((f"{label} plain", counts))
+    check_launches(f"{label} plain", card, counts, [128] * N_REQUESTS, quantized, int8_kv, False)
+    del svc
+    torch.cuda.empty_cache()
+    svc, httpd, url, build_s = build_service(label, server)
+    b = svc.batcher
+    if not ("pagedstep", N_REQUESTS, b.n_pages, 1, True) in server._decode_cache:
+        fail(f"[{label}] the batcher did not capture the adapted decode program")
+    metrics["prefill_pool_gb"] = graph_pool_gb(b._prefill_graphs.values())
+    try:
+        served, counts, disp, steps, ttft, peak, wall = lora_served_run(label, card, server,
+                                                                         url, texts, assign)
+        records.append((label, counts))
+        check_launches(label, card, counts, [128] * N_REQUESTS, quantized, int8_kv, False)
+        if disp[1] != 0 or disp[0] == 0:
+            fail(f"[{label}] decode dispatches as (replays, eager) {disp}")
+        metrics.update(step_ms=statistics.median(steps) * 1e3, ttft_med_ms=statistics.median(
+            ttft) * 1e3, ttft_max_ms=ttft[-1] * 1e3, peak_gb=peak, wall_s=wall, build_s=build_s)
+        teacher_check(label, card, server, texts, served, ids)
+        base_equal = near_tie_check(f"{label} base vs plain", card, server, texts[6:],
+                                    served[6:], plain[6:])
+        adapted_differ = sum(s != p for s, p in zip(served[:6], plain[:6]))
+        if adapted_differ < 4:
+            fail(f"[{label}] only {adapted_differ} of 6 adapted requests differ from the base "
+                 f"model's tokens: the adapters do not act")
+        # each request alone through the same batcher
+        zero_counts(server)
+        solo = [svc.submit_sync(t, adapter=a, tenant="solo") for t, a in zip(texts, assign)]
+        records.append((f"{label} solo", read_counts(server)))
+        solo_equal = near_tie_check(f"{label} vs solo", card, server, texts, served, solo, ids)
+        # a fourth adapter loaded while the requests decode; an evict of a
+        # pinned adapter refused meanwhile
+        fourth = write_adapters(root, ["fourth"], seed=99 + len(label))["fourth"]
+        seen = {}
+
+        def load_midrun():
+            for _ in range(6000):
+                if sum(s.active for s in b._slots) == N_REQUESTS:
+                    break
+                time.sleep(0.0005)
+            seen["active"] = sum(s.active for s in b._slots)
+            seen["refs"] = reg.refs_of(LORA_NAMES[0])
+            seen["evict"] = reg.evict(LORA_NAMES[0])
+            t0 = time.perf_counter()
+            seen["row"] = reg.load_uri("fourth", fourth)
+            seen["load_s"] = time.perf_counter() - t0
+            seen["still"] = sum(s.active for s in b._slots)
+
+        again, counts, _, _, _, _, _ = lora_served_run(f"{label} mid-run load", card, server,
+                                                       url, texts, assign, during=load_midrun)
+        records.append((f"{label} mid-run load", counts))
+        print(f"[{label}] mid-run load: {seen['active']} slots active when adapter 'fourth' "
+              f"loaded into row {seen['row']} in {seen['load_s'] * 1e3:.1f} ms ({seen['still']} "
+              f"still active after); evict({LORA_NAMES[0]!r}) while pinned by {seen['refs']} "
+              f"returned {seen['evict']} [{card}]", flush=True)
+        if seen["evict"] is not False or seen["refs"] == 0 or seen["still"] == 0:
+            fail(f"[{label}] the mid-run load did not overlap pinned, decoding requests: {seen}")
+        midrun_equal = near_tie_check(f"{label} mid-run load vs without", card, server, texts,
+                                      again, served, ids)
+        code, body = post(url + "/v1/generate", {"prompt": texts[0], "adapter": "fourth"},
+                          headers={"Seldon-Tenant": "late"})
+        if code != 200:
+            fail(f"[{label}] a request of the mid-run adapter answered {code}: {body}")
+        teacher_check(f"{label} fourth", card, server, texts[:1], [body["tokens"]],
+                      [seen["row"]])
+        if reg.evict("fourth") is not True:
+            fail(f"[{label}] evict of the unpinned adapter 'fourth' refused")
+        scraped = scrape(url)
+        st = server.llm_stats()
+        got = {k: sample(scraped, "seldon_llm_" + k)
+               for k in ("adapter_loaded", "adapter_pool_bytes", "adapter_evictions_total")}
+        want = {k: float(st[k]) for k in got}
+        print(f"[{label}] scrape: {got}; llm_stats: {want} [{card}]", flush=True)
+        if got != want or want["adapter_evictions_total"] != 1 or want["adapter_loaded"] != 3:
+            fail(f"[{label}] the scrape's adapter series {got} != llm_stats {want}")
+        metrics.update(solo_equal=solo_equal, midrun_equal=midrun_equal,
+                       base_equal=base_equal, load_ms=seen["load_s"] * 1e3)
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    svc.close()
+    metrics.update(lora_live_checks(label, card, server, b, texts, assign))
+    server._batcher_service = None
+    del svc, b
+    torch.cuda.empty_cache()
+    print(f"[{label}] LoRA serving: {N_REQUESTS} requests (2 x 3 adapters + 2 base, rank "
+          f"{LORA_RANK}, pool of {LORA_MAX} rows {metrics['pool_bytes'] / 1e6:.1f} MB) x "
+          f"{MAX_NEW} tokens in {metrics['wall_s']:.3f} s; adapted decode step median "
+          f"{metrics['step_ms']:.2f} ms vs the plain graph batcher's {metrics['plain_step_ms']:.2f}"
+          f" ms on the same weights ({metrics['step_ms'] / metrics['plain_step_ms']:.3f}x); "
+          f"decode graph nodes {metrics['nodes']} vs {metrics['plain_nodes']}; TTFT median "
+          f"{metrics['ttft_med_ms']:.1f} ms max {metrics['ttft_max_ms']:.1f}; peak device "
+          f"memory {metrics['peak_gb']:.2f} GB; batcher built in {metrics['build_s']:.2f} s; "
+          f"equal to solo {solo_equal} of {N_REQUESTS}, to the run without the mid-run load "
+          f"{midrun_equal} of {N_REQUESTS}, base to plain {base_equal} of 2 [{card}]",
+          flush=True)
+    return server, records, metrics
+
+
+def tenant_phase(label: str, card: str, server) -> tuple:
+    """Weighted-fair admission on the bf16 LoRA server (class weights,
+    tenant weights, a quota for the flooding tenant): TENANT_FLOOD batch-class
+    requests of TENANT_PROMPT tokens (several prefill chunks each) from
+    one tenant, queued while admission is held, then one more from it over
+    its quota (503 + Retry-After), then admission released and, while a
+    batch job is staged, TENANT_INTERACTIVE interactive requests from
+    another tenant. Checks: at least one staged batch job preempted and no
+    active slot (the batch tokens equal a run without interactive traffic
+    up to a near-tie; every request teacher-forced); the scrape's
+    seldon_tenant_*_total and TTFT-by-class counts equal the run's. Returns
+    ((label, launches) records, metrics)."""
+    import torch
+
+    server.slo_class_weights = {"interactive": 4.0, "batch": 1.0}
+    server.tenant_weights = {"bulk-evals": 1.0, "chat-app": 2.0}
+    server.tenant_quotas = {"bulk-evals": TENANT_FLOOD}
+    flood = [prompt_text(200 + i, TENANT_PROMPT) for i in range(TENANT_FLOOD)]
+    chat = [prompt_text(300 + i) for i in range(TENANT_INTERACTIVE)]
+    batch_hdr = {"Seldon-Tenant": "bulk-evals", "Seldon-SLO-Class": "batch"}
+    chat_hdr = {"Seldon-Tenant": "chat-app", "Seldon-SLO-Class": "interactive"}
+    records = []
+    # the reference: the flood alone
+    svc, httpd, url, _ = build_service(label, server)
+    try:
+        zero_counts(server)
+        ref, _ = post_many(url, [({"prompt": t}, batch_hdr) for t in flood])
+        records.append((f"{label} reference", read_counts(server)))
+    finally:
+        stop_service(label, server, svc, httpd)
+    ref = served_tokens(f"{label} reference", ref)
+    svc, httpd, url, _ = build_service(label, server)
+    b = svc.batcher
+    gate = threading.Event()
+    admit = b._admit_pending
+    b._admit_pending = lambda: (gate.wait(), admit())
+    results = {}
+    try:
+        zero_counts(server)
+        scrape(url)    # drains the warm-up's series
+        threads = []
+        for i, t in enumerate(flood):
+            th = threading.Thread(target=lambda i=i, t=t: results.__setitem__(
+                i, post(url + "/v1/generate", {"prompt": t}, headers=batch_hdr)))
+            th.start()
+            threads.append(th)
+        for _ in range(20000):
+            if b._pending.depths()["batch"] == TENANT_FLOOD:
+                break
+            time.sleep(0.0005)
+        code, hdrs, body = post_headers(url + "/v1/generate", {"prompt": flood[0]},
+                                        headers=batch_hdr)
+        if code != 503 or int(hdrs.get("Retry-After", 0)) < 1:
+            fail(f"[{label}] the over-quota request answered {code} (Retry-After "
+                 f"{hdrs.get('Retry-After')}): {body}")
+        print(f"[{label}] {TENANT_FLOOD} batch requests queued; one more from the same tenant "
+              f"answered 503, Retry-After {hdrs['Retry-After']} s: {body['status']['info']} "
+              f"[{card}]", flush=True)
+        gate.set()
+        for _ in range(20000):
+            job = b._prefill
+            if job is not None and job.req.slo_class == "batch" and job.next > 0:
+                break
+            time.sleep(0.0002)
+        active_before = sum(s.active for s in b._slots)
+        chat_res, _ = post_many(url, [({"prompt": t}, chat_hdr) for t in chat])
+        for th in threads:
+            th.join(600)
+        counts = read_counts(server)
+        records.append((label, counts))
+        rows = {(r["tenant"], r["slo_class"]): r for r in b._pending.counters()}
+        ttft = {c: sorted(v for k, v in server._ttft_by_class if k == c)
+                for c in ("interactive", "batch")}
+        scraped = scrape(url)
+    finally:
+        gate.set()
+        httpd.shutdown()
+        httpd.server_close()
+    flood_served = served_tokens(f"{label} batch", [results[i] for i in range(TENANT_FLOOD)])
+    chat_served = served_tokens(f"{label} interactive", chat_res)
+    bulk, chat_row = rows[("bulk-evals", "batch")], rows[("chat-app", "interactive")]
+    print(f"[{label}] tallies: bulk-evals/batch {bulk}, chat-app/interactive {chat_row}; "
+          f"{active_before} slots active when the interactive requests came [{card}]",
+          flush=True)
+    if bulk["preempted"] < 1:
+        fail(f"[{label}] no staged batch job was preempted: {bulk}")
+    if bulk["admitted"] != TENANT_FLOOD or bulk["shed"] != 1 or chat_row["admitted"] != 4:
+        fail(f"[{label}] tallies {rows}")
+    teacher_check(f"{label} batch", card, server, flood, flood_served)
+    teacher_check(f"{label} interactive", card, server, chat, chat_served)
+    equal = near_tie_check(f"{label} batch vs without preemption", card, server, flood,
+                           flood_served, ref)
+    want = {("admitted", "bulk-evals"): TENANT_FLOOD, ("shed", "bulk-evals"): 1,
+            ("tokens", "bulk-evals"): TENANT_FLOOD * MAX_NEW,
+            ("admitted", "chat-app"): TENANT_INTERACTIVE,
+            ("tokens", "chat-app"): TENANT_INTERACTIVE * MAX_NEW}
+    got = {(k, t): sample(scraped, f"seldon_tenant_{k}_total", f'tenant="{t}"') for k, t in want}
+    ttft_counts = {c: sample(scraped, "seldon_llm_tenant_ttft_seconds_count",
+                             f'slo_class="{c}"') for c in ("interactive", "batch")}
+    print(f"[{label}] scrape: {got}; TTFT counts by class {ttft_counts} [{card}]", flush=True)
+    if got != {k: float(v) for k, v in want.items()} or ttft_counts != {
+            "interactive": float(TENANT_INTERACTIVE), "batch": float(TENANT_FLOOD)}:
+        fail(f"[{label}] the scrape's tenant series {got}, TTFT counts {ttft_counts}, expected "
+             f"{want}")
+    if sum(s.active for s in b._slots) or any(len(v) == 0 for v in ttft.values()):
+        fail(f"[{label}] slots still active after the run, or no TTFT: {ttft}")
+    stop_service(label, server, svc, httpd)
+    metrics = {"ttft_interactive_ms": statistics.median(ttft["interactive"]) * 1e3,
+               "ttft_batch_ms": statistics.median(ttft["batch"]) * 1e3,
+               "ttft_interactive_max_ms": ttft["interactive"][-1] * 1e3,
+               "ttft_batch_max_ms": ttft["batch"][-1] * 1e3, "preempted": bulk["preempted"],
+               "equal": equal}
+    print(f"[{label}] TTFT median / max: interactive {metrics['ttft_interactive_ms']:.1f} / "
+          f"{metrics['ttft_interactive_max_ms']:.1f} ms, batch {metrics['ttft_batch_ms']:.1f} / "
+          f"{metrics['ttft_batch_max_ms']:.1f} ms ({TENANT_FLOOD} batch requests of "
+          f"{TENANT_PROMPT} tokens, {TENANT_INTERACTIVE} interactive of 124); "
+          f"{bulk['preempted']} staged batch jobs preempted, batch tokens equal to the run "
+          f"without interactive traffic {equal} of {TENANT_FLOOD} [{card}]", flush=True)
+    del svc, b
+    return records, metrics
+
+
+def checkpoint_phase(card: str, root: str) -> tuple:
+    """LLM checkpoints: a 7B-width model cut to CKPT_LAYERS layers and a
+    TinyLlama-1.1B-width draft cut to CKPT_LAYERS layers, random bf16
+    leaves, written with the port's ``export_checkpoint`` (the JAX
+    package's msgpack format), then served three ways: ``model_uri`` over
+    REST (tokens equal to ``load(params=...)`` on the same arrays,
+    teacher-forced), ``quantize="int8"`` from the same directory (its
+    load peak under INT8_LOAD_PEAK_GB; tokens equal to the int8 ``load(
+    params=...)``), and ``spec_mode="draft"`` with ``draft_model_uri`` (the
+    draft equal to the one passed as ``draft_params``, bit for bit, and the
+    served tokens equal). Returns ((label, launches) records, metrics)."""
+    import gc
+
+    import torch
+
+    from seldon_core_tpu_torch.models import get_model
+    from seldon_core_tpu_torch.servers.llmserver import LLMServer
+    from seldon_core_tpu_torch.servers.torchserver import export_checkpoint
+
+    kw = dict(LLAMA2_7B, n_layers=CKPT_LAYERS, fused_norm=True)
+    dkw = dict(TINYLLAMA_1B, n_layers=CKPT_LAYERS)
+    dirs, trees, metrics = {}, {}, {}
+    for name, kwargs, seed in (("target", kw, 21), ("draft", dkw, 22)):
+        m = get_model("transformer", device="cuda", param_dtype="auto", **kwargs)
+        m.init_params(torch.Generator(device="cuda").manual_seed(seed))
+        t0 = time.perf_counter()
+        dirs[name] = export_checkpoint(os.path.join(root, name), "transformer",
+                                       {"params": m.param_tree()}, kwargs=kwargs)
+        nbytes = os.path.getsize(os.path.join(dirs[name], "params.msgpack"))
+        print(f"[ckpt] wrote the {name} ({kwargs['dim']} wide, {CKPT_LAYERS} layers, cut from "
+              f"{LLAMA2_7B['n_layers'] if name == 'target' else TINYLLAMA_1B['n_layers']}; bf16 "
+              f"leaves) with export_checkpoint: {nbytes / 1e9:.3f} GB in "
+              f"{time.perf_counter() - t0:.2f} s [{card}]", flush=True)
+        trees[name] = {"params": m.param_tree()}
+        metrics[f"{name}_bytes"] = nbytes
+    common = dict(init_random=False, continuous_batching=N_REQUESTS, max_new_tokens=MAX_NEW,
+                  temperature=0.0, eos_id=-1, seed=0, device="cuda", param_dtype="auto")
+    texts = prompts(N_REQUESTS)
+    records = []
+
+    def served_by(label, server):
+        svc, httpd, url, _ = build_service(label, server)
+        try:
+            zero_counts(server)
+            res, _ = post_all(url, texts)
+            records.append((label, read_counts(server)))
+        finally:
+            stop_service(label, server, svc, httpd)
+        return served_tokens(label, res)
+
+    def loaded(label, **extra):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated() / 1e9
+        t0 = time.perf_counter()
+        s = LLMServer(**dict(common, **extra))
+        s.load()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 1e9 - before
+        print(f"[{label}] load_s {dt:.2f}; peak device memory of the load {peak:.3f} GB "
+              f"[{card}]", flush=True)
+        return s, dt, peak
+
+    # 1. model_uri against load(params=...) on the same arrays
+    s, dt, _ = loaded("bf16 ckpt", model_uri="file://" + dirs["target"])
+    metrics["load_s"] = dt
+    by_uri = served_by("bf16 ckpt", s)
+    teacher_check("bf16 ckpt", card, s, texts, by_uri)
+    del s
+    release_server_memory()
+    s = LLMServer(model="transformer", model_kwargs=kw, **common)
+    s.load(params=trees["target"])
+    by_params = served_by("bf16 ckpt params", s)
+    del s
+    release_server_memory()
+    if by_uri != by_params:
+        fail("[bf16 ckpt] tokens served from model_uri differ from load(params=...)")
+    # 2. int8 from the same directory
+    s, dt, peak = loaded("int8 ckpt", model_uri=dirs["target"], quantize="int8")
+    metrics.update(int8_load_s=dt, int8_peak_gb=peak)
+    if peak > INT8_LOAD_PEAK_GB:
+        fail(f"[int8 ckpt] load peak {peak:.3f} GB > {INT8_LOAD_PEAK_GB} GB")
+    int8_uri = served_by("int8 ckpt", s)
+    teacher_check("int8 ckpt", card, s, texts, int8_uri)
+    del s
+    release_server_memory()
+    s = LLMServer(model="transformer", model_kwargs=kw, quantize="int8", **common)
+    s.load(params=trees["target"])
+    int8_params = served_by("int8 ckpt params", s)
+    del s
+    release_server_memory()
+    if int8_uri != int8_params:
+        fail("[int8 ckpt] int8 tokens from model_uri differ from the int8 load(params=...)")
+    # 3. the draft from its URI
+    spec = dict(spec_mode="draft", spec_k=SPEC_K, continuous_batching_max_len=SPEC_MAX_LEN)
+    s, dt, _ = loaded("bf16 ckpt draft", model_uri=dirs["target"],
+                      draft_model_uri="file://" + dirs["draft"], **spec)
+    metrics["draft_load_s"] = dt
+    t = LLMServer(model="transformer", model_kwargs=kw, draft_model="transformer",
+                  draft_model_kwargs=dkw, **dict(common, **spec))
+    t.load(params=trees["target"], draft_params=trees["draft"])
+    same = all(torch.equal(a, b_) for a, b_ in zip(s._draft_module.state_dict().values(),
+                                                  t._draft_module.state_dict().values()))
+    if not same or s._draft_cfg.n_layers != CKPT_LAYERS:
+        fail("[bf16 ckpt draft] the draft from draft_model_uri differs from draft_params")
+    del t
+    release_server_memory()
+    spec_tokens = served_by("bf16 ckpt draft", s)
+    near = near_tie_check("bf16 ckpt draft vs plain", card, s, texts, spec_tokens, by_uri)
+    del s, trees
+    gc.collect()
+    release_server_memory()
+    metrics["draft_equal"] = near
+    print(f"[ckpt] served from checkpoints ({CKPT_LAYERS} of 32 layers at Llama-2-7B widths): "
+          f"bf16 load {metrics['load_s']:.2f} s of {metrics['target_bytes'] / 1e9:.3f} GB, "
+          f"tokens == load(params=...); int8 load {metrics['int8_load_s']:.2f} s, peak "
+          f"{metrics['int8_peak_gb']:.3f} GB, tokens == int8 load(params=...); draft from its "
+          f"URI ({metrics['draft_bytes'] / 1e9:.3f} GB) == draft_params bit for bit, spec "
+          f"tokens equal to the plain batcher's {near} of {N_REQUESTS} [{card}]", flush=True)
+    return records, metrics
+
+
+def print_lora_runs(card: str, runs: dict) -> None:
+    print(f"LoRA, tenant and checkpoint runs (Llama-2-7B widths) [{card}]:", flush=True)
+    for label in ("bf16 lora", "int8 lora"):
+        m = runs[label]
+        print(f"  {label:10s} adapted step {m['step_ms']:.2f} ms vs plain {m['plain_step_ms']:.2f} "
+              f"ms; decode graph {m['nodes']} vs {m['plain_nodes']} nodes, replay "
+              f"{m['replay_dev_ms']:.3f} ms; the LoRA work alone {m['chain_ms']:.3f} ms "
+              f"({m['chain_nodes']} nodes, {m['chain_traced_ms']:.3f} ms traced); pool "
+              f"{m['pool_bytes'] / 1e6:.1f} MB; TTFT "
+              f"{m['ttft_med_ms']:.1f} / {m['ttft_max_ms']:.1f} ms; peak {m['peak_gb']:.2f} GB "
+              f"[{card}]", flush=True)
+    for label, counts in runs["launches"]:
+        print(f"  launches {label}: K1 {counts['k1']} (int8 pool {counts['k1_int8']}), K2 "
+              f"{counts['k2']}, K4 {counts['k4']} (prefill route {counts['k4_wgmma']}); chunks "
+              f"replayed {counts['replays']}, eager {counts['eager']} [{card}]", flush=True)
+    t, c = runs["bf16 tenant"], runs["ckpt"]
+    print(f"  bf16 tenant TTFT median interactive {t['ttft_interactive_ms']:.1f} ms, batch "
+          f"{t['ttft_batch_ms']:.1f} ms; {t['preempted']} preempted [{card}]", flush=True)
+    print(f"  checkpoint  load {c['load_s']:.2f} s ({c['target_bytes'] / 1e9:.3f} GB read), int8 "
+          f"{c['int8_load_s']:.2f} s (peak {c['int8_peak_gb']:.3f} GB), with the draft "
+          f"{c['draft_load_s']:.2f} s [{card}]", flush=True)
+
+
+def lora_runs_phase(card: str) -> tuple:
+    """The LoRA phase on bf16 (then the tenant phase on the same server)
+    and on int8 weights + int8 KV, then the checkpoint phase, each server
+    freed before the next. Returns ((label, launches) records, metrics by
+    run)."""
+    import shutil
+    import tempfile
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_lora_")
+    records, runs = [], {}
+    try:
+        for model, knobs in (("bf16", {}), ("int8", dict(quantize="int8",
+                                                         kv_cache_dtype="int8"))):
+            label = f"{model} lora"
+            server, recs, runs[label] = lora_phase(label, card, knobs, os.path.join(root, model))
+            records += recs
+            if model == "bf16":
+                recs, runs["bf16 tenant"] = tenant_phase("bf16 tenant", card, server)
+                records += recs
+            del server
+            release_server_memory()
+        recs, runs["ckpt"] = checkpoint_phase(card, os.path.join(root, "ckpt"))
+        records += recs
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    runs["launches"] = records
+    return records, runs
+
+
 def main() -> int:
     try:
         import torch
@@ -3775,6 +4566,9 @@ def main() -> int:
         return 0
     if sys.argv[1:] == ["--prefix"]:
         print_prefix_runs(card, prefix_runs_phase(card)[1])
+        return 0
+    if sys.argv[1:] == ["--lora"]:
+        print_lora_runs(card, lora_runs_phase(card)[1])
         return 0
 
     # 3. kernel phase
@@ -3946,6 +4740,8 @@ def main() -> int:
         release_server_memory()
     records, prefix_runs = prefix_runs_phase(card)
     spec_launches += records
+    records, lora_runs = lora_runs_phase(card)
+    spec_launches += records
     print("serving runs (Llama-2-7B, 8 concurrent requests x 32 tokens; step wall drain to "
           f"drain; host = one dispatch's enqueue or replay on the same live state) [{card}]:",
           flush=True)
@@ -3995,12 +4791,13 @@ def main() -> int:
               f"{m['peak_gb']:.2f} GB{draft} [{card}]", flush=True)
 
     print_prefix_runs(card, prefix_runs)
+    print_lora_runs(card, lora_runs)
 
-    def total(key, model):
-        return (sum(launches[key] for label, (launches, _) in runs.items()
-                    if label.startswith(model))
-                + sum(launches[key] for label, launches in spec_launches
-                      if label.startswith(model)))
+    def total(key):
+        # every run's: each counter is one kernel's (K1's bf16 and int8
+        # branches count apart), whichever model the run served
+        return (sum(launches[key] for launches, _ in runs.values())
+                + sum(launches[key] for _, launches in spec_launches))
 
     # 5. ResNet-50 forward; 6. predict serving
     model, _ = resnet_forward_phase(card)
@@ -4018,23 +4815,23 @@ def main() -> int:
     print(f"total_s {time.perf_counter() - t_start:.1f}", flush=True)
     print(json.dumps({"kernels": [
         entry("paged_attention", "cuda", "seldon_core_tpu_torch/csrc/paged_attention.cu",
-              "seldon_core_tpu/ops/paged_attention.py:253", total("k1", "bf16"),
+              "seldon_core_tpu/ops/paged_attention.py:253", total("k1"),
               k1["bf16", "ctx160"]),
         entry("paged_attention (int8 pool)", "cuda",
               "seldon_core_tpu_torch/csrc/paged_attention.cu",
-              "seldon_core_tpu/ops/paged_attention.py:253", total("k1_int8", "int8"),
+              "seldon_core_tpu/ops/paged_attention.py:253", total("k1_int8"),
               k1["int8", "ctx160"]),
         entry("fused_residual_rmsnorm", "cuda", "seldon_core_tpu_torch/csrc/fused_norm.cu",
               "seldon_core_tpu/ops/fused_norm.py:137",
-              total("k2", ""), k2[8]),
+              total("k2"), k2[8]),
         entry("fused_identity_chain", "cuda", "seldon_core_tpu_torch/csrc/fused_resnet_wgmma.cu",
               "seldon_core_tpu/ops/fused_resnet.py:239", k3_launches, k3[RESNET_BATCH, 56]),
         entry("int8_matmul", "cuda", "seldon_core_tpu_torch/csrc/int8_matmul.cu",
               "seldon_core_tpu/ops/pallas_int8.py:127",
-              total("k4", "int8") - total("k4_wgmma", "int8"), k4["wq/wk/wv/wo"]),
+              total("k4") - total("k4_wgmma"), k4["wq/wk/wv/wo"]),
         entry("int8_matmul (prefill, wgmma)", "cuda",
               "seldon_core_tpu_torch/csrc/int8_matmul_wgmma.cu",
-              "seldon_core_tpu/ops/pallas_int8.py:127", total("k4_wgmma", "int8"),
+              "seldon_core_tpu/ops/pallas_int8.py:127", total("k4_wgmma"),
               k4["w1/w3 prefill M=128"]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -6,7 +6,9 @@ by the REST and gRPC routes, and the LLM serving series that
 ``LLMServer.llm_stats`` feeds at scrape time (TTFT, inter-token gap, decode
 step / dispatch / sync walls, host lag, steps in flight, the KV bytes,
 occupancy and page pool, speculative decoding's acceptance counters, the
-radix prefix cache's counters).
+radix prefix cache's counters, the LoRA adapter pool's gauges, the
+per-(tenant, SLO class) admission, shed and token tallies and the TTFT by
+class).
 Names, types, label names, HELP text and bucket bounds are the JAX
 package's, so a dashboard reads both. The JAX package builds on
 prometheus_client; the card's machine has none, so this module writes the
@@ -205,6 +207,33 @@ class MetricsRegistry:
                                     "Per-slot verify steps drained: each verify forward "
                                     "contributes one per active slot (divide by the active-slot "
                                     "count for the forward/program count)", "counter")
+        # multi-tenant serving: the adapter pool's occupancy, churn and
+        # bytes; per-(tenant, class) admissions, sheds and tokens; TTFT by
+        # class
+        self._adapter_loaded = fam("seldon_llm_adapter_loaded",
+                                   "LoRA adapters currently resident in the dense pool "
+                                   "(identity row excluded)", "gauge")
+        self._adapter_evictions = fam("seldon_llm_adapter_evictions",
+                                      "Adapters evicted from the pool (refcount-zero rows freed "
+                                      "for reuse)", "counter")
+        self._adapter_pool_bytes = fam("seldon_llm_adapter_pool_bytes",
+                                       "HBM bytes held by the dense LoRA adapter pool (all rows, "
+                                       "loaded or free)", "gauge")
+        tenant_labels = ("tenant", "slo_class")
+        self._tenant_admitted = fam("seldon_tenant_admitted",
+                                    "Requests admitted into the continuous batch, by tenant and "
+                                    "SLO class", "counter", tenant_labels)
+        self._tenant_shed = fam("seldon_tenant_shed",
+                                "Requests shed (quota breach at push, page-exhaustion victim, "
+                                "staged-job shed), by tenant and SLO class", "counter",
+                                tenant_labels)
+        self._tenant_tokens = fam("seldon_tenant_tokens",
+                                  "Tokens generated and credited, by tenant and SLO class",
+                                  "counter", tenant_labels)
+        self._tenant_ttft = fam("seldon_llm_tenant_ttft_seconds",
+                                "Time to first token by SLO class (the interactive-isolation "
+                                "signal bench phase L gates on)", "histogram", ("slo_class",),
+                                LATENCY_BUCKETS)
 
     def _base(self) -> Tuple[str, str]:
         return (self.deployment, self.predictor)
@@ -272,6 +301,19 @@ class MetricsRegistry:
                 self._observe(self._spec_accepted, base, v)
             self._spec_slot_steps.children[base] = max(
                 self._spec_slot_steps.child(base), float(stats.get("spec_slot_steps_total", 0)))
+            self._adapter_loaded.children[base] = float(stats.get("adapter_loaded", 0))
+            self._adapter_pool_bytes.children[base] = float(stats.get("adapter_pool_bytes", 0))
+            self._adapter_evictions.children[base] = max(
+                self._adapter_evictions.child(base),
+                float(stats.get("adapter_evictions_total", 0)))
+            for row in stats.get("tenant_counters", ()):
+                labels = base + (row.get("tenant", ""), row.get("slo_class", ""))
+                for fam, key in ((self._tenant_admitted, "admitted"),
+                                 (self._tenant_shed, "shed"),
+                                 (self._tenant_tokens, "tokens")):
+                    fam.children[labels] = max(fam.child(labels), float(row.get(key, 0)))
+            for cls, seconds in stats.get("ttft_by_class", ()):
+                self._observe(self._tenant_ttft, base + (cls,), seconds)
 
     def expose(self) -> bytes:
         """Every family in the Prometheus text format (version 0.0.4)."""

@@ -18,8 +18,10 @@ through ``jax.tree_util.tree_map(np.asarray, ...)``) carries leaves with
 ``.q``, ``.scale`` and ``.orig_dtype``. The port cannot import that class,
 so such a leaf is recognised by those attributes; it fills the port's
 ``QuantizedTensor`` at the same name (``Transformer.quantize_`` builds that
-layout). A float leaf where the port holds a quantized weight, or the
-reverse, raises.
+layout). A float leaf where the port holds a quantized weight is quantized
+into it when the caller asks (``quantize_float=True``: the server's
+``quantize="int8"`` load of a float tree, leaf by leaf) and raises
+otherwise, as an int8 leaf where the port holds a float weight does.
 """
 
 from __future__ import annotations
@@ -32,7 +34,7 @@ from torch import nn
 
 from seldon_core_tpu_torch.models.resnet import BatchNorm
 from seldon_core_tpu_torch.models.transformer import to_torch_dtype
-from seldon_core_tpu_torch.ops.quantize import QuantizedTensor
+from seldon_core_tpu_torch.ops.quantize import QuantizedTensor, quantize_into_
 
 
 def _flatten(tree: Dict[str, Any], prefix: str = "") -> Dict[str, Any]:
@@ -87,13 +89,18 @@ def _copy(name: str, dst: torch.Tensor, src) -> None:
 
 
 @torch.no_grad()
-def params_from_jax(tree: Dict[str, Any], module: nn.Module) -> nn.Module:
+def params_from_jax(tree: Dict[str, Any], module: nn.Module,
+                    quantize_float: bool = False) -> nn.Module:
     """Copy a JAX param tree into ``module`` (each float leaf cast to the
     parameter's own storage dtype and device; each int8 leaf's ``q`` and
     ``scale`` into the quantized weight of the same name) and return the
     module. ``tree`` is either the bare params dict or flax's variables
     dict ``{"params": ...}`` (with ``"batch_stats"`` for an unfused
-    ResNet, whose running statistics fill its BatchNorm buffers)."""
+    ResNet, whose running statistics fill its BatchNorm buffers).
+    ``quantize_float=True`` quantizes a float leaf bound for a quantized
+    weight into it (``quantize_into_``: the codes of ``quantize_array`` of
+    the leaf in the weight's ``orig_dtype``), one float32 copy of one leaf
+    at a time; without it that leaf raises."""
     flat = _unwrap(tree)
     targets: Dict[str, Any] = dict(module.named_parameters())
     targets.update((n, m) for n, m in module.named_modules() if isinstance(m, QuantizedTensor))
@@ -108,6 +115,12 @@ def params_from_jax(tree: Dict[str, Any], module: nn.Module) -> nn.Module:
         raise KeyError(f"port parameters the JAX tree does not fill: {missing}")
     for name, dst in targets.items():
         src = flat[name]
+        if quantize_float and isinstance(dst, QuantizedTensor) and not _is_quantized_leaf(src):
+            w = torch.empty(dst.q.shape, dtype=torch.float32, device=dst.q.device)
+            _copy(name, w, src)
+            quantize_into_(dst, w)
+            del w
+            continue
         if isinstance(dst, QuantizedTensor) != _is_quantized_leaf(src):
             what = "a quantized" if isinstance(dst, QuantizedTensor) else "a float"
             raise TypeError(f"{name}: the port holds {what} weight, the JAX tree does not "

@@ -29,16 +29,21 @@ What changes with the framework:
   lm_head become ``ops/quantize.QuantizedTensor`` modules and go through
   ``quantized_matmul`` — the W8A16 GEMM kernel on a card — where the JAX
   package left the dequantizing matmul to XLA's fusion.
+- Batched LoRA (``adapters`` + ``adapter_ids``, the pool of
+  ``runtime/adapters.py``): ``lora_delta`` gathers each sequence's factors
+  and runs a ``torch.bmm`` pair, as the JAX package's einsum pair (no Pallas
+  kernel there either). The delta is added after the base product (K4 for
+  an int8 weight), in the compute dtype, on q, o and the FFN projections.
 
 Configurations that belong to later slices raise ``NotImplementedError``
-naming the slice: MoE FFNs, batched LoRA, ring attention and meshes.
+naming the slice: MoE FFNs, ring attention and meshes.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -318,11 +323,34 @@ def masked_attention(q: torch.Tensor, k_all: torch.Tensor, v_all: torch.Tensor,
     return torch.einsum("bhqk,bkhd->bqhd", probs, v_all.to(dt))
 
 
-def _check_adapters(adapters) -> None:
-    if adapters is not None:
-        raise NotImplementedError(
-            "batched LoRA adapters (lora_delta) arrive with the LoRA/tenants "
-            "slice of the port")
+def lora_delta(x: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
+               adapter_ids: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Batched low-rank delta of one adapted projection: gather each
+    sequence's factors from the adapter pool by its ``adapter_ids`` entry,
+    then ``(x @ A[id]) @ B[id] * scale[id]`` (the JAX package's
+    ``lora_delta``, its einsum pair as ``torch.bmm``).
+
+    x: [b, s, d_in]; A: [n_adapters, d_in, r]; B: [n_adapters, r, d_out];
+    adapter_ids: [b] int; scale: [n_adapters] float32 (alpha / rank). Row
+    0 is the identity (zero factors, zero scale), so an unadapted sequence
+    gets an exact-zero delta from the same program, and ``base + delta``
+    is ``base`` bitwise. Returns [b, s, d_out] in x's dtype. Nothing is
+    read back to the host: the same call is what a CUDA graph captures."""
+    dt = x.dtype
+    ids = adapter_ids.long()
+    a = A.index_select(0, ids).to(dt)                  # [b, d_in, r]   (the gather)
+    b = B.index_select(0, ids).to(dt)                  # [b, r, d_out]
+    s = scale.index_select(0, ids).to(dt)              # [b]
+    return torch.bmm(torch.bmm(x, a), b) * s[:, None, None]
+
+
+def _adapted(y: torch.Tensor, x: torch.Tensor, proj: str, adapters, adapter_ids):
+    """``y`` (the base product ``x @ w``) plus ``proj``'s LoRA delta when
+    ``adapters`` (one layer's slice of the pool) is given."""
+    if adapters is None:
+        return y
+    A, B = adapters[proj]
+    return y + lora_delta(x, A, B, adapter_ids, adapters["scale"])
 
 
 class Attention(nn.Module):
@@ -359,14 +387,20 @@ class Attention(nn.Module):
         ``Transformer.forward(verify=True)``) reads every column through
         ``ops.paged_attention`` as a row of its own.
 
+        ``adapters`` (this layer's slice of the LoRA pool, {proj: (A [N,
+        d_in, r], B [N, r, d_out]), "scale": [N]}) with ``adapter_ids``
+        [b] adds each sequence's delta to q (after ``wq``) and to the
+        output (after ``wo``), never to k or v: the KV written is the base
+        model's for every adapter.
+
         Without a cache: full causal attention, returns (out, (k, v))."""
-        _check_adapters(adapters)
         cfg = self.cfg
         b, s, _ = x.shape
         hd = cfg.head_dim
         dt = cfg.dtype
 
-        q = matmul(x, self.wq, dt).reshape(b, s, cfg.n_heads, hd)
+        q = _adapted(matmul(x, self.wq, dt), x, "wq", adapters,
+                     adapter_ids).reshape(b, s, cfg.n_heads, hd)
         k = matmul(x, self.wk, dt).reshape(b, s, cfg.n_kv_heads, hd)
         v = matmul(x, self.wv, dt).reshape(b, s, cfg.n_kv_heads, hd)
 
@@ -437,7 +471,7 @@ class Attention(nn.Module):
             out = masked_attention(q, k, v, mask)
             new_cache = (k, v)
         out = out.reshape(b, s, cfg.n_heads * hd)
-        return matmul(out, self.wo, dt), new_cache
+        return _adapted(matmul(out, self.wo, dt), out, "wo", adapters, adapter_ids), new_cache
 
 
 class DenseFFN(nn.Module):
@@ -449,11 +483,12 @@ class DenseFFN(nn.Module):
         self.w2 = _param((cfg.ffn_dim, cfg.dim), param_dtype, device)
         self.w3 = _param((cfg.dim, cfg.ffn_dim), param_dtype, device)
 
-    def forward(self, x):
+    def forward(self, x, adapters=None, adapter_ids=None):
         dt = self.cfg.dtype
-        up = matmul(x, self.w1, dt)
-        gate = matmul(x, self.w3, dt)
-        return matmul(F.silu(up) * gate, self.w2, dt)
+        up = _adapted(matmul(x, self.w1, dt), x, "w1", adapters, adapter_ids)
+        gate = _adapted(matmul(x, self.w3, dt), x, "w3", adapters, adapter_ids)
+        h = F.silu(up) * gate
+        return _adapted(matmul(h, self.w2, dt), h, "w2", adapters, adapter_ids)
 
 
 class TransformerBlock(nn.Module):
@@ -468,10 +503,11 @@ class TransformerBlock(nn.Module):
         self.ffn = DenseFFN(cfg, **kw)
 
     def forward(self, x, positions, cache=None, cache_index=None,
-                block_tables=None, paged_rows=None):
+                block_tables=None, paged_rows=None, adapters=None, adapter_ids=None):
         cfg = self.cfg
         h, new_cache = self.attention(self.attention_norm(x), positions, cache,
-                                      cache_index, block_tables, paged_rows=paged_rows)
+                                      cache_index, block_tables, adapters=adapters,
+                                      adapter_ids=adapter_ids, paged_rows=paged_rows)
         if cfg.fused_norm:
             # residual-add + RMSNorm in one pass over the activation
             from seldon_core_tpu_torch.ops.fused_norm import fused_residual_rmsnorm
@@ -480,7 +516,7 @@ class TransformerBlock(nn.Module):
         else:
             x = x + h
             ffn_in = self.ffn_norm(x)
-        return x + self.ffn(ffn_in), new_cache
+        return x + self.ffn(ffn_in, adapters, adapter_ids), new_cache
 
 
 class Transformer(nn.Module):
@@ -506,6 +542,22 @@ class Transformer(nn.Module):
 
     def layers(self) -> List[TransformerBlock]:
         return [getattr(self, f"layer_{i}") for i in range(self.cfg.n_layers)]
+
+    def param_tree(self) -> Dict[str, Any]:
+        """The float parameters as flax's nested ``params`` dict of tensors
+        (the layout ``export_checkpoint`` writes and ``params_from_jax``
+        reads); a quantized model has no float tree and raises."""
+        tree: Dict[str, Any] = {}
+        for name in self._leaf_names:
+            owner, leaf = self._owner(name)
+            t = getattr(owner, leaf)
+            if isinstance(t, QuantizedTensor):
+                raise TypeError(f"{name} is quantized: export the float model")
+            node = tree
+            for part in name.split(".")[:-1]:
+                node = node.setdefault(part, {})
+            node[leaf] = t
+        return tree
 
     def _owner(self, name: str):
         """(module holding leaf ``name``, the leaf's attribute name)."""
@@ -610,8 +662,16 @@ class Transformer(nn.Module):
         writes as PAD_POS (the TRASH page) but attends at its sequence's
         last real position, so the kernel, which walks a table up to the
         query's page, does not walk the whole table for it; its output is
-        never read."""
-        _check_adapters(adapters)
+        never read.
+
+        ``adapters`` (the LoRA pool of ``runtime/adapters.py``: {proj: (A
+        [N, L, d_in, r], B [N, L, r, d_out]), "scale": [N]}) with
+        ``adapter_ids`` ([b] int, 0 = the identity) adds each sequence's
+        low-rank delta on the q, o and FFN projections: each layer slices
+        its own factors out of the pool (``lora_delta``)."""
+        if adapters is not None and adapter_ids is None:
+            raise ValueError("adapters need adapter_ids (one id per "
+                             "sequence; 0 = identity)")
         b, s = tokens.shape
         if positions is None:
             positions = torch.arange(s, device=tokens.device)[None, :].expand(b, s)
@@ -628,7 +688,14 @@ class Transformer(nn.Module):
         new_caches = []
         for i, layer in enumerate(self.layers()):
             layer_cache = caches[i] if caches is not None else None
-            x, nc = layer(x, positions, layer_cache, cache_index, block_tables, paged_rows)
+            layer_adapters = None
+            if adapters is not None:
+                # this layer's factors: [N, L, ...] -> [N, ...] (views)
+                layer_adapters = {proj: (ab[0][:, i], ab[1][:, i])
+                                  for proj, ab in adapters.items() if proj != "scale"}
+                layer_adapters["scale"] = adapters["scale"]
+            x, nc = layer(x, positions, layer_cache, cache_index, block_tables, paged_rows,
+                          layer_adapters, adapter_ids)
             new_caches.append(nc)
         return self._logits(self.norm(x)), new_caches
 
@@ -774,7 +841,7 @@ __all__ = [
     "TransformerConfig", "Transformer", "TransformerBlock", "Attention",
     "DenseFFN", "RMSNorm", "rms_norm", "rotary_embedding", "apply_rotary",
     "paged_write_targets", "gather_paged_view", "dense_view", "masked_attention",
-    "matmul", "quantize_kv", "dequantize_kv",
+    "matmul", "lora_delta", "quantize_kv", "dequantize_kv",
     "init_kv_caches", "init_paged_kv_caches", "reset_kv_caches", "kv_cache_bytes_per_token",
     "normalize_kv_cache_dtype", "normalize_kv_cache_layout", "to_torch_dtype",
 ]

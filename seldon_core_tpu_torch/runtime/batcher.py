@@ -8,10 +8,15 @@ program serves overlapping requests at arbitrary arrival times:
 - KV lives in a GLOBAL pool of fixed-size pages (``init_paged_kv_caches``)
   addressed through a per-slot block table on the device; pages are handed
   out by ``PageAllocator`` (host-side, lock-guarded) as sequences grow;
-- admission is FIFO; its prefill runs in chunks of ``prefill_chunk`` tokens
-  interleaved with decode steps, written straight into the pool through the
-  slot's block-table row (staged in one fixed row buffer; one admission
-  prefills at a time);
+- admission is weighted-fair (``runtime/scheduler.py``: SLO classes and
+  tenants by stride scheduling, EDF by deadline within a tenant, per-tenant
+  quotas shedding at submit); its prefill runs in chunks of
+  ``prefill_chunk`` tokens interleaved with decode steps, written straight
+  into the pool through the slot's block-table row (staged in one fixed row
+  buffer; one admission prefills at a time). An interactive request
+  blocked by a staged batch-class prefill puts that job back in the queue
+  (preemption: a staged job only, never an active slot, at most once a
+  request);
 - on page exhaustion the newest tenant is shed (503 + Retry-After) — the
   decode loop never raises; a sole tenant that outgrows the pool stops with
   the tokens it has.
@@ -68,6 +73,18 @@ back into the trie, which adopts its pages in place. The chunk and decode
 graphs are unchanged: a hit only changes what the row and position
 buffers they read hold.
 
+Batched LoRA (the server's ``adapter_registry``, ``lora_rank`` > 0;
+``runtime/adapters.py``). Every program the batcher runs is then the
+adapted one: each slot's adapter id sits in the fixed ``_adapter_ids`` [S]
+buffer (written at commit, back to 0 at release), the prefill job's in the
+fixed ``_chunk_adapter`` [1] (written at staging), and each step gathers the
+slot's factors from the pool by id; id 0 is the identity, so base traffic
+rides the same program. A request pins its adapter from ``submit`` to its
+slot's release (or its shed), so the pool never rewrites a row a live slot
+gathers. The radix trie serves id-0 traffic only: an adapted admission
+neither matches nor inserts (its hidden states, and so its deeper KV,
+carry its deltas).
+
 Every pool, block-table and slot-state update is an in-place tensor update
 enqueued on the same stream as the decode steps (the JAX package donated
 these buffers to jitted ops and relied on device program order in the same
@@ -97,6 +114,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from seldon_core_tpu_torch.contracts.payload import SeldonError
 from seldon_core_tpu_torch.device import resolve_device
 from seldon_core_tpu_torch.models.transformer import (
     NULL_PAGE,
@@ -110,6 +128,8 @@ from seldon_core_tpu_torch.models.transformer import (
 )
 from seldon_core_tpu_torch.runtime.radix import RadixPrefixCache
 from seldon_core_tpu_torch.runtime.resilience import DEFAULT_RETRY_AFTER_S, ShedError
+from seldon_core_tpu_torch.runtime.scheduler import (BATCH, INTERACTIVE, PendingRequest,
+                                                     WeightedFairScheduler, normalize_slo_class)
 from seldon_core_tpu_torch.runtime.spec import (DEFAULT_SPEC_K, SPEC_STATS_OFF,
                                                 SpecController, normalize_spec_mode)
 from seldon_core_tpu_torch.servers.llmserver import (LLMServer, bucket,
@@ -261,50 +281,37 @@ def _emit(on_token, tok: Optional[int]) -> None:
         logger.exception("on_token callback failed")
 
 
-class _Request:
-    """One queued request (FIFO admission)."""
-
-    __slots__ = ("ids", "max_new", "fut", "info", "seed", "t_arrival", "on_token")
-
-    def __init__(self, ids, max_new, fut, info, seed, t_arrival, on_token=None):
-        self.ids = ids
-        self.max_new = max_new
-        self.fut = fut
-        self.info = info
-        self.seed = seed
-        self.t_arrival = t_arrival
-        self.on_token = on_token
-
-
 class _PrefillJob:
     """One chunked admission in progress: the slot it targets, the (already
-    truncated) prompt, the next write offset and the chunk length. Its
-    chunks write through the batcher's fixed row buffer, so one job runs at
-    a time; decode dispatches interleave between its chunks."""
+    truncated) prompt, the next write offset, the chunk length and the
+    scheduler's request (tenant, class, adapter; what a preemption puts
+    back). Its chunks write through the batcher's fixed row buffer, so one
+    job runs at a time; decode dispatches interleave between its chunks."""
 
-    __slots__ = ("slot", "ids", "L", "next", "chunk", "max_new", "fut",
-                 "info", "seed", "t_arrival")
+    __slots__ = ("slot", "ids", "L", "next", "chunk", "req")
 
-    def __init__(self, slot, ids, start, chunk, max_new, fut, info, seed, t_arrival=None):
+    def __init__(self, slot, ids, start, chunk, req: PendingRequest):
         self.slot = slot
         self.ids = ids
         self.L = len(ids)
         self.next = start            # first position the next chunk writes
         self.chunk = chunk
-        self.max_new = max_new
-        self.fut = fut
-        self.info = info
-        self.seed = seed
-        self.t_arrival = t_arrival
+        self.req = req
 
 
 class _Slot:
     __slots__ = ("future", "tokens", "true_len", "n_new", "max_new", "active",
                  "gen", "disp_new", "pages", "shared", "ids", "prefilling", "admit_seq",
-                 "on_token", "t_last")
+                 "on_token", "t_last", "tenant", "slo_class", "adapter_id")
 
     def __init__(self):
         self.active = False
+        # the occupant's tenant and SLO class (token / shed tallies, TTFT by
+        # class) and its adapter id (from commit to release; the slot owns
+        # the adapter's pin for that time)
+        self.tenant = ""
+        self.slo_class = INTERACTIVE
+        self.adapter_id = 0
         self.future: Optional[Future] = None
         # the occupant's stream callback (from admission to release), and
         # when its last token surfaced (the inter-token gap's start)
@@ -467,8 +474,14 @@ class ContinuousBatcher:
                 bytes_per_block=ps * kv_cache_bytes_per_token(cfg, server.kv_cache_dtype))
 
         self._slots = [_Slot() for _ in range(self.S)]
-        self._pending: deque = deque()
-        self._pending_lock = threading.Lock()
+        # weighted-fair admission over SLO classes and tenants, with the
+        # server's weights and quotas (runtime/scheduler.py)
+        self._pending = WeightedFairScheduler(
+            class_weights=server.slo_class_weights, tenant_weights=server.tenant_weights,
+            tenant_quota=server.tenant_quota, tenant_quotas=server.tenant_quotas)
+        # the server's LoRA adapter pool, or None (the programs are then the
+        # unadapted ones)
+        self._adapters = server.adapter_registry
         self._prefill: Optional[_PrefillJob] = None
         self._admit_seq = 0
         self._inflight: deque = deque()
@@ -515,6 +528,14 @@ class ContinuousBatcher:
         # the CoW copy's fixed inputs (source page, destination page, valid
         # tokens), staged by the host in stream order before each copy
         self._cow_args = torch.zeros((3,), dtype=torch.int64, device=dev)
+        # the adapted programs' fixed inputs: each slot's adapter id (0 =
+        # the identity; written at commit, reset at release) and the staged
+        # prefill job's id (written when the job is staged)
+        self._adapter_ids: Optional[torch.Tensor] = None
+        self._chunk_adapter: Optional[torch.Tensor] = None
+        if self._adapters is not None:
+            self._adapter_ids = torch.zeros((self.S,), dtype=torch.int64, device=dev)
+            self._chunk_adapter = torch.zeros((1,), dtype=torch.int64, device=dev)
         # speculation's device state: each slot's prompt + generated tokens
         # by position (one entry a cache position, plus a trash column for
         # the writes the JAX package drops), the fixed per-dispatch cap
@@ -541,19 +562,29 @@ class ContinuousBatcher:
         if self.device.type == "cuda" and not _eager:
             self._prefill_graphs = capture_prefill_chunks(server, self._chunks, self._caches,
                                                           self._row, self._chunk_tokens,
-                                                          self._chunk_pos)
+                                                          self._chunk_pos,
+                                                          lora=self._lora(self._chunk_adapter))
             if self._radix is not None:
                 self._cow_graph = capture_cow_copy(server, self._caches, self._cow_args)
             if self.spec_mode != "off":
                 self._spec_graph = capture_spec_step(
                     server, self.spec_k, self.spec_mode, self._caches, self._last_tok,
                     self._next_pos, self._keys, self._temp, self._block_tables, self._hist,
-                    self._draft_cap, self._draft_caches)
+                    self._draft_cap, self._draft_caches, lora=self._lora(self._adapter_ids))
             else:
                 ks = (1, self.fuse_steps) if self.fuse_steps > 1 else (1,)
                 self._graphs = capture_decode_steps(server, ks, self._caches, self._last_tok,
                                                     self._next_pos, self._keys, self._temp,
-                                                    self._block_tables)
+                                                    self._block_tables,
+                                                    lora=self._lora(self._adapter_ids))
+
+    def _lora(self, ids: Optional[torch.Tensor]) -> dict:
+        """The adapted programs' extra arguments: ``adapters`` (the pool)
+        and ``adapter_ids`` (``ids``, one of the fixed id buffers); empty
+        without an adapter pool."""
+        if self._adapters is None:
+            return {}
+        return {"adapters": self._adapters.pool(), "adapter_ids": ids}
 
     # ------------------------------------------------------------------
     # Host <-> device staging
@@ -587,8 +618,7 @@ class ContinuousBatcher:
         drain capacity is S slots per wave, so ``base x ceil(queued / S)``,
         doubled near page-pool exhaustion, clamped to [base, 30 s]."""
         base = float(DEFAULT_RETRY_AFTER_S)
-        with self._pending_lock:
-            queued = len(self._pending)
+        queued = len(self._pending)
         queued += sum(1 for s in self._slots if s.active or s.prefilling)
         hint = base * max(-(-queued // max(self.S, 1)), 1)
         total, in_use, _ = self._allocator.stats()
@@ -625,14 +655,25 @@ class ContinuousBatcher:
     # ------------------------------------------------------------------
     def submit(self, prompt: Any, max_new_tokens: Optional[int] = None,
                seed: Optional[int] = None, info: Optional[dict] = None,
-               on_token: Optional[Any] = None) -> Future:
+               on_token: Optional[Any] = None, tenant: Optional[str] = None,
+               slo_class: Optional[str] = None, adapter: Optional[str] = None,
+               deadline_s: Optional[float] = None) -> Future:
         """prompt: str or token sequence. Returns a Future of the generated
         token ids. ``seed`` pins the request's sampling chain to
         ``generate(..., seed=seed)``'s. ``info`` is filled at admission with
         a ``truncated_prompt`` record when the slot cache cuts the prompt.
         ``on_token`` (optional) is called from the loop thread with each
         token as it surfaces and with None once at the end; it should only
-        hand the token on (a queue put)."""
+        hand the token on (a queue put).
+
+        ``tenant`` names the traffic's owner, ``slo_class`` its class
+        ("interactive", the default, or "batch"; an unknown class raises
+        SeldonError 400), ``adapter`` a loaded LoRA adapter (unknown, or
+        given to a server without a pool: 400; resolved and pinned here, so
+        it cannot be evicted while the request is queued or decoding) and
+        ``deadline_s`` a latency budget that orders the request earliest
+        deadline first within its tenant. A tenant over its quota is shed
+        here: ShedError (503) with the backlog's Retry-After."""
         if self._closed:
             raise ShedError("batcher closed; retry")
         if isinstance(prompt, str):
@@ -641,11 +682,36 @@ class ContinuousBatcher:
             ids = [int(t) for t in np.asarray(prompt).ravel()]
         if not ids:
             raise ValueError("empty prompt")
+        try:
+            cls = normalize_slo_class(slo_class)
+        except ValueError as e:
+            raise SeldonError(str(e), status_code=400)
+        aid = 0
+        if adapter:
+            if self._adapters is None:
+                raise SeldonError(f"adapter {adapter!r} requested but the server has no "
+                                  f"adapter pool (set lora_rank > 0)", status_code=400)
+            # resolved and pinned at once, from the moment the request
+            # exists: unpinned exactly once, at its shed while queued or
+            # staged (_unpin_request), or at its slot's release
+            try:
+                aid = self._adapters.resolve_and_pin(adapter)
+            except KeyError as e:
+                raise SeldonError(str(e.args[0]), status_code=400)
+        now = time.perf_counter()
         fut: Future = Future()
-        req = _Request(ids, int(max_new_tokens or self.server.max_new_tokens), fut,
-                       info, seed, time.perf_counter(), on_token)
-        with self._pending_lock:
-            self._pending.append(req)
+        req = PendingRequest(
+            ids=ids, max_new=int(max_new_tokens or self.server.max_new_tokens), fut=fut,
+            on_token=on_token, info=info, seed=seed, t_arrival=now, tenant=str(tenant or ""),
+            slo_class=cls, adapter_id=aid,
+            deadline_t=(now + float(deadline_s)) if deadline_s is not None else None)
+        if not self._pending.push(req):
+            # the tenant is over its queued-request quota (the scheduler
+            # counted the shed against it)
+            if aid:
+                self._adapters.unpin(aid)
+            raise ShedError(f"tenant {req.tenant!r} over its admission quota",
+                            retry_after_s=self.retry_after_hint())
         self._ensure_running()
         self._wakeup.set()
         return fut
@@ -724,31 +790,41 @@ class ContinuousBatcher:
                                   self.server.top_k)
         return int(tok[0]), int(keys[0])
 
-    def _commit_slot(self, i: int, first: int, key: int, ids: List[int], max_new: int,
-                     fut: Future, t_arrival: Optional[float]):
+    def _commit_slot(self, i: int, first: int, key: int, ids: List[int], req: PendingRequest):
         """Thread the new occupant's state into the device arrays and
-        surface the first token; in spec mode also seed the slot's history
-        (the prompt ``ids``, then the first token), reset its controller and
-        prefill its draft-cache row. The writes are stream-ordered after
-        every already-dispatched step, so in-flight steps still see (and
-        waste compute on) the old state while the next one picks up the
-        new."""
+        surface the first token; its tenant, class and adapter id (the pin
+        moves from the request to the slot) ride the slot until release; in
+        spec mode also seed the slot's history (the prompt ``ids``, then the
+        first token), reset its controller and prefill its draft-cache row.
+        The writes are stream-ordered after every already-dispatched step,
+        so in-flight steps still see (and waste compute on) the old state
+        while the next one picks up the new."""
         L = len(ids)
+        max_new = req.max_new
         slot = self._slots[i]
         slot.active = True
         slot.prefilling = False
-        slot.future = fut
+        slot.future = req.fut
         slot.true_len = L
         slot.max_new = max_new
         slot.n_new = 1
         slot.tokens = [first]
+        slot.tenant = req.tenant
+        slot.slo_class = req.slo_class
+        slot.adapter_id = req.adapter_id
+        if self._adapter_ids is not None:
+            # fill_ on the element's view: a Python scalar assigned into a
+            # device tensor's element would synchronise the host
+            self._adapter_ids[i].fill_(slot.adapter_id)
         # the truncated prompt feeds the trie's insertion at completion
         slot.ids = list(ids)
         # the first token surfaces now: TTFT, and the start of the next
         # token's gap
         now = time.perf_counter()
-        if t_arrival is not None:
-            self.server._ttft_times.append(now - t_arrival)
+        if req.t_arrival is not None:
+            self.server._ttft_times.append(now - req.t_arrival)
+            self.server._ttft_by_class.append((slot.slo_class, now - req.t_arrival))
+        self._pending.count_tokens(slot.tenant, slot.slo_class, 1)
         slot.t_last = now
         slot.gen += 1          # invalidates in-flight tokens for the old occupant
         slot.disp_new = 1      # the prefill-sampled first token counts
@@ -825,7 +901,7 @@ class ContinuousBatcher:
             cow_page_copy(self._caches, a[0:1], a[1:2], a[2:3])
             self.server._cow_eager += 1
 
-    def _admit_begin(self, req: _Request) -> bool:
+    def _admit_begin(self, req: PendingRequest) -> bool:
         """Paged admission, phase 1 (host side, cheap): match the prompt
         against the radix trie (shared full blocks enter the block row as
         they are; a prefix ending part-way into a cached block pays one CoW
@@ -833,7 +909,8 @@ class ContinuousBatcher:
         positions, and stage a chunked-prefill job over the uncached suffix
         only, from ``k0``. The match is capped at L - 1 tokens, so the last
         prompt token always prefills: its logits seed the first token (the
-        trie stores pages, never logits). True when the request was
+        trie stores pages, never logits). An adapted request neither
+        matches nor (at completion) inserts. True when the request was
         CONSUMED (staged, or shed with 503); False leaves it queued."""
         free = next((i for i, s in enumerate(self._slots)
                      if not s.active and not s.prefilling), None)
@@ -843,7 +920,7 @@ class ContinuousBatcher:
         L = len(ids)
         n0 = -(-L // self.page_size)
         k0, shared, cow = 0, [], None
-        if self._radix is not None:
+        if self._radix is not None and req.adapter_id == 0:
             k0, shared, cow = self._radix.match_and_pin(ids, limit=L - 1)
         fresh = self._alloc_pages(n0 - len(shared))
         if fresh is None and cow is not None:
@@ -877,6 +954,8 @@ class ContinuousBatcher:
         slot.prefilling = True
         slot.future = req.fut
         slot.on_token = req.on_token
+        slot.tenant = req.tenant
+        slot.slo_class = req.slo_class
         # shared trie pages are live cached KV and never reset; the CoW
         # destination is overwritten whole (values and masked positions)
         if plain:
@@ -890,12 +969,13 @@ class ContinuousBatcher:
         # the previous job's chunks and activation read the row before this
         # write, in stream order
         self._row.copy_(self._to_device(row))
+        if self._chunk_adapter is not None:
+            self._chunk_adapter.fill_(req.adapter_id)
         if k0:
             # counted once per funded admission (a match that could not be
             # funded retries every loop turn)
             self._radix.record_hit(k0, len(shared), cow is not None)
-        self._prefill = _PrefillJob(free, ids, k0, min(self.prefill_chunk, plen), req.max_new,
-                                    req.fut, req.info, req.seed, t_arrival=req.t_arrival)
+        self._prefill = _PrefillJob(free, ids, k0, min(self.prefill_chunk, plen), req)
         return True
 
     def _prefill_step(self):
@@ -923,8 +1003,9 @@ class ContinuousBatcher:
             logits = graph.replay()
             self.server._prefill_replays += 1
         else:
-            logits = self.server._get_prefill_chunk(C, self.n_pages)(
-                self._caches, self._row, self._chunk_tokens[:, :C], self._chunk_pos[:, :C])
+            logits = self.server._get_prefill_chunk(C, self.n_pages, self._adapters is not None)(
+                self._caches, self._row, self._chunk_tokens[:, :C], self._chunk_pos[:, :C],
+                **self._lora(self._chunk_adapter))
             self.server._prefill_eager += 1
         job.next = start + n
         if job.next >= job.L:
@@ -934,11 +1015,10 @@ class ContinuousBatcher:
         """Paged admission, final phase: sample the first token, point the
         slot's device block-table row at its pages (copied from the fixed
         row), commit the slot."""
-        first, key = self._sample_first(first_logits, job.seed)
+        first, key = self._sample_first(first_logits, job.req.seed)
         self._block_tables[job.slot].copy_(self._row[0])
         self._prefill = None
-        self._commit_slot(job.slot, first, key, job.ids, job.max_new, job.fut,
-                          job.t_arrival)
+        self._commit_slot(job.slot, first, key, job.ids, job.req)
 
     # ------------------------------------------------------------------
     # Page accounting: growth, exhaustion shedding, release
@@ -990,10 +1070,21 @@ class ContinuousBatcher:
         return ShedError(f"kv page pool exhausted: {why}",
                          retry_after_s=self.retry_after_hint())
 
-    def _shed_queued_request(self, req: _Request, why: str):
-        with self._pending_lock:
-            if self._pending and self._pending[0] is req:
-                self._pending.popleft()
+    def _unpin_request(self, req: PendingRequest) -> None:
+        """Drop a queued or staged request's adapter pin: the request owns
+        it from submit until ``_commit_slot`` moves it to the slot, so every
+        terminal path before commit (a queued or staged shed, the crash
+        drain) comes here; the id goes to 0, so a path that fires twice
+        cannot unpin twice."""
+        if self._adapters is not None and req.adapter_id:
+            self._adapters.unpin(req.adapter_id)
+            req.adapter_id = 0
+
+    def _shed_queued_request(self, req: PendingRequest, why: str):
+        """Shed a request still in the scheduler: removed there (which books
+        the shed against its tenant), its adapter pin dropped, then 503."""
+        self._pending.remove(req)
+        self._unpin_request(req)
         self._allocator.count_shed()
         logger.warning("shedding admission: %s", why)
         _emit(req.on_token, None)
@@ -1004,6 +1095,7 @@ class ContinuousBatcher:
         client gets 503 + Retry-After."""
         slot = self._slots[i]
         self._allocator.count_shed()
+        self._pending.count_shed(slot.tenant, slot.slo_class)
         logger.warning("shedding slot %d after %d generated tokens: %s", i, slot.n_new, why)
         fut, on_token = slot.future, slot.on_token
         # release BEFORE notifying: the shed client must never observe its
@@ -1017,24 +1109,59 @@ class ContinuousBatcher:
         job = self._prefill
         self._prefill = None
         self._allocator.count_shed()
+        self._pending.count_shed(job.req.tenant, job.req.slo_class)
+        # before commit the request still owns its adapter pin: this shed is
+        # its end, so the pin ends here
+        self._unpin_request(job.req)
         logger.warning("shedding staged prefill (slot %d): %s", job.slot, why)
         on_token = self._slots[job.slot].on_token
         self._release_slot(job.slot)
         _emit(on_token, None)
-        _resolve(job.fut, exc=self._shed_error(why))
+        _resolve(job.req.fut, exc=self._shed_error(why))
+
+    def _preempt_for_interactive(self) -> bool:
+        """An interactive admission blocked by a staged batch-class prefill
+        job (the one staged at a time, or one holding the last free slot)
+        puts that job back into the scheduler: its pages (owned, shared trie
+        pins, a CoW copy) are released as a shed's are, and the request
+        keeps its sequence number, so it re-enters its tenant's queue where
+        it left, with the ``preempted`` flag that makes it immune to a second
+        preemption (so an interactive flood cannot livelock batch traffic).
+        It keeps its adapter pin (the slot never took it). Active slots are
+        never preempted. True when a job was put back."""
+        job = self._prefill
+        if job is None or job.req.slo_class != BATCH or job.req.preempted:
+            return False
+        self._prefill = None
+        logger.info("preempting the staged prefill (slot %d, tenant %r) for an interactive "
+                    "admission", job.slot, job.req.tenant)
+        self._release_slot(job.slot)
+        self._pending.push(job.req, requeue=True)
+        return True
 
     def _release_slot(self, i: int):
         """Common slot teardown: page references dropped (owned pages back
         to the pool, shared trie pins decremented: the trie keeps its own
-        reference), the device block-table row back to trash
-        (stream-ordered: in-flight steps finish their reads first; reused
-        pages are reset strictly after)."""
+        reference), the adapter pin dropped and the slot's device id back to
+        0, the device block-table row back to trash (stream-ordered:
+        in-flight steps finish their reads first; reused pages are reset
+        strictly after)."""
         slot = self._slots[i]
         slot.active = False
         slot.prefilling = False
         slot.future = None
         slot.on_token = None
         slot.ids = None
+        slot.tenant = ""
+        slot.slo_class = INTERACTIVE
+        if slot.adapter_id:
+            # the slot's pin held the adapter in the pool; the device id goes
+            # back to the identity in stream order, so the freed slot's
+            # ride-along compute gathers row 0, never a row a later load
+            # rewrites
+            self._adapters.unpin(slot.adapter_id)
+            self._adapter_ids[i].fill_(0)
+            slot.adapter_id = 0
         if slot.pages:
             self._allocator.free(slot.pages)
             slot.pages = []
@@ -1052,8 +1179,10 @@ class ContinuousBatcher:
         if self.eos_id in toks:
             toks = toks[: toks.index(self.eos_id)]
         fut, on_token = slot.future, slot.on_token
-        if self._radix is not None and slot.ids is not None:
-            # the prompt and every credited token but the last, in place:
+        if self._radix is not None and slot.ids is not None and slot.adapter_id == 0:
+            # base-adapter slots only (an adapted slot's KV carries its
+            # deltas from the second layer on). The prompt and every
+            # credited token but the last, in place:
             # each of those was fed to a step that has run (its KV is
             # written); the last one's write depends on the run-ahead
             hist = slot.ids + slot.tokens[:max(slot.n_new - 1, 0)]
@@ -1082,7 +1211,8 @@ class ContinuousBatcher:
         (so the block never overruns max_new or writes past the cache).
         Falling back to 1 instead of an arbitrary clamp keeps the programs
         at two (K = 1 and K = fuse_steps)."""
-        if self.fuse_steps <= 1 or self._prefill is not None or self._next_request() is not None:
+        if (self.fuse_steps <= 1 or self._prefill is not None
+                or self._pending.next_request() is not None):
             return 1
         eligible = self._dispatch_eligible()
         if not eligible:
@@ -1111,9 +1241,10 @@ class ContinuousBatcher:
             toks = self._graphs[k].replay()
             self.server._decode_replays += 1
         else:
-            toks = self.server._get_decode_step_paged(self.S, self.n_pages, k)(
+            toks = self.server._get_decode_step_paged(self.S, self.n_pages, k,
+                                                      self._adapters is not None)(
                 self._caches, self._last_tok, self._next_pos, self._keys, self._temp,
-                self._block_tables)
+                self._block_tables, **self._lora(self._adapter_ids))
             self.server._decode_eager += 1
         self.server._decode_dispatch_times.append(time.perf_counter() - t0)
         host, event = self._stage_to_host(toks)
@@ -1155,9 +1286,10 @@ class ContinuousBatcher:
         else:
             out = self.server._get_spec_step(
                 self.S, K, self.hist_len, mode=self.spec_mode, layout="paged",
-                n_pages=self.n_pages)(self._caches, self._last_tok, self._next_pos, self._keys,
-                                      self._temp, self._block_tables, self._hist,
-                                      self._draft_cap, self._draft_caches)
+                n_pages=self.n_pages, lora=self._adapters is not None)(
+                    self._caches, self._last_tok, self._next_pos, self._keys, self._temp,
+                    self._block_tables, self._hist, self._draft_cap, self._draft_caches,
+                    **self._lora(self._adapter_ids))
             self.server._decode_eager += 1
         self.server._decode_dispatch_times.append(time.perf_counter() - t0)
         host, event = self._stage_to_host(out)   # tokens and advance: one copy
@@ -1230,10 +1362,12 @@ class ContinuousBatcher:
             n = rec.k if rec.booked is None else self._reconcile_spec(rec, i, arr)
             if slot.n_new >= slot.max_new:
                 continue  # budget-exhausted slot riding along
+            credited, finish = 0, False
             for j in range(n):
                 tok = int(arr[i, j])
                 slot.tokens.append(tok)
                 slot.n_new += 1
+                credited += 1
                 # the gap before this token, at its drain: a fused or
                 # accepted block surfaces in one burst, so its trailing
                 # tokens read ~0
@@ -1243,18 +1377,31 @@ class ContinuousBatcher:
                     _emit(slot.on_token, tok)
                 if (tok == self.eos_id or slot.n_new >= slot.max_new
                         or slot.host_pos() >= self.max_len):
-                    self._finish(i)   # the rest of the block is dropped
+                    finish = True   # the rest of the block is dropped
                     break
+            if credited:
+                self._pending.count_tokens(slot.tenant, slot.slo_class, credited)
+            if finish:
+                self._finish(i)
 
     # ------------------------------------------------------------------
-    def _next_request(self) -> Optional[_Request]:
-        with self._pending_lock:
-            return self._pending[0] if self._pending else None
-
-    def _pop_request(self, req: _Request) -> None:
-        with self._pending_lock:
-            if self._pending and self._pending[0] is req:
-                self._pending.popleft()
+    def _admit_pending(self) -> None:
+        """Admission while a slot is free, in the scheduler's order (peek,
+        try, then commit: a failed admission keeps the request queued). One
+        prefill job stages at a time. An interactive head that finds a
+        staged batch-class job, or no free slot while such a job holds one,
+        preempts that job (``_preempt_for_interactive``) and tries again."""
+        while True:
+            req = self._pending.next_request()
+            if req is None:
+                return
+            if self._prefill is not None or not self._admit_begin(req):
+                if req.slo_class == INTERACTIVE and self._preempt_for_interactive():
+                    continue
+                return
+            # a shed inside _admit_begin already removed req (commit is then
+            # a no-op)
+            self._pending.commit(req)
 
     def _run(self):
         try:
@@ -1267,13 +1414,7 @@ class ContinuousBatcher:
 
     def _loop(self):
         while True:
-            # FIFO admission while a slot is free (peek, admit, then pop:
-            # a failed admit keeps the request at the head)
-            while self._prefill is None:
-                req = self._next_request()
-                if req is None or not self._admit_begin(req):
-                    break
-                self._pop_request(req)
+            self._admit_pending()
             # producer: keep pipeline_depth steps ahead of the host
             while len(self._inflight) < self.pipeline_depth and self._dispatch_eligible():
                 self._dispatch()
@@ -1292,7 +1433,7 @@ class ContinuousBatcher:
             if self._closed:
                 self._fail_all(ShedError("batcher closed; retry"))
                 return
-            if self._next_request() is not None:
+            if self._pending.next_request() is not None:
                 continue
             self._wakeup.wait(timeout=0.5)
             self._wakeup.clear()
@@ -1309,10 +1450,11 @@ class ContinuousBatcher:
                 slot.active = slot.prefilling = False
                 slot.future = None
                 slot.on_token = None
-        with self._pending_lock:
-            pending = list(self._pending)
-            self._pending.clear()
-        for req in pending:
+        for req in self._pending.drain_all():
+            try:
+                self._unpin_request(req)
+            except ValueError:
+                pass  # teardown must not mask the original error
             _emit(req.on_token, None)
             _resolve(req.fut, exc=exc)
 
@@ -1329,18 +1471,20 @@ class BatcherService:
 
     def submit(self, prompt: Any, max_new_tokens: Optional[int] = None,
                seed: Optional[int] = None, info: Optional[dict] = None,
-               on_token: Optional[Any] = None) -> Future:
+               on_token: Optional[Any] = None, **identity: Any) -> Future:
         """The Future of the final token list; ``on_token`` (optional)
         fires per token from the batcher's loop thread, so a transport
         thread pumps its response stream from it. Cancelling the Future (a
-        disconnect) is safe."""
+        disconnect) is safe. ``identity``: ``tenant``, ``slo_class``,
+        ``adapter``, ``deadline_s`` (``ContinuousBatcher.submit``)."""
         return self.batcher.submit(prompt, max_new_tokens, seed=seed, info=info,
-                                   on_token=on_token)
+                                   on_token=on_token, **identity)
 
     def submit_sync(self, prompt: Any, max_new_tokens: Optional[int] = None,
                     timeout_s: float = 600.0, seed: Optional[int] = None,
-                    info: Optional[dict] = None) -> List[int]:
-        return self.submit(prompt, max_new_tokens, seed=seed, info=info).result(timeout_s)
+                    info: Optional[dict] = None, **identity: Any) -> List[int]:
+        return self.submit(prompt, max_new_tokens, seed=seed, info=info,
+                           **identity).result(timeout_s)
 
     def close(self) -> None:
         self.batcher.close()

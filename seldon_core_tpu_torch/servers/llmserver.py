@@ -46,13 +46,26 @@ before the first decode step, since ``generate()`` decodes in place.
 
 Weight-only int8 (``quantize="int8"``) and the int8 KV cache
 (``kv_cache_dtype="int8"``) are served, alone or together, through every
-path below. Knobs that belong to later slices raise ``NotImplementedError``
-naming the slice when set to a non-default value; none is ignored silently.
+path below.
+
+Checkpoints (``model_uri``, ``draft_model_uri``): a directory of
+``config.json`` + ``params.msgpack``, the JAX package's
+``export_checkpoint(use_orbax=False)`` format, read without flax
+(``models/checkpoint.py``). Batched LoRA (``lora_rank`` > 0): the adapter
+pool of ``runtime/adapters.py``; every program the batcher runs is then the
+adapted one (``lora=True``), which serves base traffic (id 0) bit-equal to
+the unadapted program. ``generate()`` stays base-only, as in the JAX
+package. Weighted-fair admission (``slo_class_weights``, ``tenant_weights``,
+``tenant_quota(s)``) is the batcher's (``runtime/scheduler.py``). Knobs that
+belong to later slices raise ``NotImplementedError`` naming the slice when
+set to a non-default value; none is ignored silently.
 """
 
 from __future__ import annotations
 
+import json
 import logging
+import os
 import threading
 import time
 from collections import OrderedDict, deque
@@ -277,11 +290,26 @@ class _DenseBuffer:
         return self.tok[:b], self.pos[:b], self.done[:b], self.keys[:b]
 
 
+def _lora_args_bad(lora: bool, adapters, adapter_ids, rows: int) -> bool:
+    """True when an adapted program (``lora``) lacks its adapter pool or
+    its ``adapter_ids`` of ``rows`` entries, or a base program is given
+    either."""
+    if not lora:
+        return adapters is not None or adapter_ids is not None
+    return adapters is None or adapter_ids is None or tuple(adapter_ids.shape) != (rows,)
+
+
+def _lora_args_text(adapters, adapter_ids) -> str:
+    return ("none" if adapters is None else "given") + ", adapter_ids " + (
+        "none" if adapter_ids is None else str(tuple(adapter_ids.shape)))
+
+
 class LLMServer(SeldonComponent):
     """Serves a registered transformer-family model for text generation.
 
-    Parameters as the JAX package's (``model`` + ``init_random=True`` for a
-    randomly initialised model; weights of a JAX model cross over with
+    Parameters as the JAX package's (``model_uri`` for a checkpoint
+    directory, ``model`` + ``init_random=True`` for a randomly initialised
+    model; weights of a JAX model also cross over with
     ``load(params=<JAX param tree as numpy>)``), plus ``device``: "cuda" by
     default (raises without a card), "cpu" only when asked."""
 
@@ -340,27 +368,16 @@ class LLMServer(SeldonComponent):
     ):
         super().__init__(**kwargs)
         later = [
-            ("model_uri", model_uri, "checkpoint loading (the JAX_SERVER/engine "
-             "predict slice); JAX weights cross over with load(params=...)"),
             ("tokenizer", tokenizer != "bytes", "HF tokenizers (a later slice)"),
             ("mesh", mesh is not None, "the parallelism slice"),
             ("topology", topology is not None, "the parallelism slice"),
             ("tensor_parallel", int(tensor_parallel) > 1, "the parallelism slice"),
             ("sequence_parallel", int(sequence_parallel) > 1, "the parallelism slice"),
-            ("draft_model_uri", draft_model_uri,
-             "checkpoint loading (the JAX_SERVER/engine predict slice): a speculative "
-             "draft is a registry model (draft_model=, draft_model_kwargs=) with random "
-             "weights, or JAX weights through load(draft_params=...)"),
             ("disaggregation", str(disaggregation or "off").lower() != "off",
              "the disaggregation slice"),
             ("prefill_devices/decode_devices/prefill_workers/handoff_transport/disagg_mesh",
              prefill_devices or decode_devices or prefill_workers or handoff_transport
              or disagg_mesh is not None, "the disaggregation slice"),
-            ("lora_rank", lora_rank or lora_adapters or int(lora_max_adapters) != 8,
-             "the LoRA/tenants slice"),
-            ("slo_class_weights/tenant_weights/tenant_quota(s)",
-             slo_class_weights or tenant_weights or tenant_quota or tenant_quotas,
-             "the LoRA/tenants slice"),
         ]
         for name, value, slice_name in later:
             if value:
@@ -379,6 +396,10 @@ class LLMServer(SeldonComponent):
         if int(decode_fuse_steps) < 0:
             raise ValueError(f"decode_fuse_steps={decode_fuse_steps} must be >= 0 (0/1 = no fusing)")
         self.device = resolve_device(device)
+        # a checkpoint directory (local path or file:// URI) holding
+        # config.json + params.msgpack; ``model`` / ``model_kwargs`` override
+        # the file's name and kwargs, as in the JAX package
+        self.model_uri = model_uri
         self.model_name = model
         self.model_kwargs = dict(model_kwargs or {})
         self.init_random = bool(init_random)
@@ -415,8 +436,23 @@ class LLMServer(SeldonComponent):
         # be the target's (proposals index the target's tokens)
         self.draft_model = str(draft_model or "")
         self.draft_model_kwargs = dict(draft_model_kwargs or {})
+        self.draft_model_uri = draft_model_uri
         self._draft_module = None
         self._draft_cfg = None
+        # batched LoRA (runtime/adapters.py): lora_rank > 0 builds the
+        # adapter pool at load() (lora_max_adapters rows, the identity row
+        # included) and preloads ``lora_adapters`` (name -> local or file://
+        # URI); every program the batcher runs is then the adapted one
+        self.lora_rank = int(lora_rank)
+        self.lora_max_adapters = int(lora_max_adapters)
+        self.lora_adapters = dict(lora_adapters or {})
+        self.adapter_registry = None
+        # weighted-fair SLO admission (runtime/scheduler.py): class and
+        # tenant weights, per-tenant queued-request quotas (0 = unbounded)
+        self.slo_class_weights = dict(slo_class_weights or {})
+        self.tenant_weights = dict(tenant_weights or {})
+        self.tenant_quota = int(tenant_quota or 0)
+        self.tenant_quotas = dict(tenant_quotas or {})
         # prefix caching (opt-in): the batcher's radix trie over its page
         # pool (``runtime/radix.py``), and for a one-prompt generate() call
         # dense entries of the longest previously prefilled token prefix,
@@ -448,6 +484,8 @@ class LLMServer(SeldonComponent):
         # sync), per drain the host wait for its tokens, and the steps in
         # flight at each drain (host lag, in steps: a fused record is k)
         self._ttft_times: Any = deque(maxlen=4096)
+        # (slo_class, TTFT) per request, for seldon_llm_tenant_ttft_seconds
+        self._ttft_by_class: Any = deque(maxlen=4096)
         self._inter_token_times: Any = deque(maxlen=8192)
         self._decode_step_times: Any = deque(maxlen=4096)
         self._decode_dispatch_times: Any = deque(maxlen=4096)
@@ -494,29 +532,38 @@ class LLMServer(SeldonComponent):
              draft_params: Optional[Dict[str, Any]] = None) -> None:
         """Build the model on ``self.device``. ``params`` (a JAX param tree
         of numpy arrays — ``models/convert.py``) fills it with converted
-        weights; otherwise ``init_random=True`` draws them from a
-        ``torch.Generator`` seeded with ``seed``. The draft model
-        (``draft_model``) is built beside it the same way: from
-        ``draft_params`` through ``params_from_jax``, else drawn from a
-        generator seeded with ``seed``, so a draft configured like the
-        target is a bit-identical copy of a random target (the perfect
-        drafter). The draft is never quantized; it is stored as the target
-        is (``param_dtype``). ``param_dtype`` "auto"
+        weights; else ``model_uri`` names a checkpoint directory
+        (``config.json`` + ``params.msgpack``, read by
+        ``models/checkpoint.load_params``; the file's model name and kwargs
+        unless ``model`` / ``model_kwargs`` override them; an orbax
+        ``params/`` directory raises naming the format); else
+        ``init_random=True`` draws them from a ``torch.Generator`` seeded
+        with ``seed``. The draft model (``draft_model`` and/or
+        ``draft_model_uri``) is built beside it the same way: from
+        ``draft_params`` through ``params_from_jax``, else from its
+        checkpoint, else drawn from a generator seeded with ``seed``, so a
+        draft configured like the target is a bit-identical copy of a random
+        target (the perfect drafter). The draft is never quantized; it is
+        stored as the target is (``param_dtype``). ``param_dtype`` "auto"
         stores the weights in the compute dtype, as the JAX package casts
         them; "" keeps float32 storage with a cast per use.
 
         ``quantize="int8"`` quantizes after that cast, as the JAX package
-        orders it. A random or already-quantized (JAX ``quantize_params``
-        tree) model is quantized as a layout first, on the meta device, and
-        then filled leaf by leaf, so the float tree is never on the device:
-        at Llama-2-7B the peak is the int8 tree plus one float32 leaf. A
-        float JAX tree is loaded as floats and then quantized leaf by leaf."""
+        orders it. The model is quantized as a layout first, on the meta
+        device, and then filled leaf by leaf (a float leaf quantized into
+        its int8 buffers as it is copied in), so the float tree is never on
+        the device: at Llama-2-7B the peak is the int8 tree plus one float32
+        leaf, for random, converted and checkpointed weights alike.
+
+        ``lora_rank > 0`` builds the adapter pool (``runtime/adapters.py``)
+        and preloads ``lora_adapters``."""
         if self.ready:
             return
         from seldon_core_tpu_torch.models import get_model
         from seldon_core_tpu_torch.models.convert import has_quantized_leaves, params_from_jax
         from seldon_core_tpu_torch.models.transformer import (
             normalize_kv_cache_dtype, normalize_kv_cache_layout, to_torch_dtype)
+        from seldon_core_tpu_torch.runtime.scheduler import normalize_slo_class
 
         self.kv_cache_dtype = normalize_kv_cache_dtype(self.kv_cache_dtype)
         self.kv_cache_layout = normalize_kv_cache_layout(self.kv_cache_layout)
@@ -534,54 +581,93 @@ class LLMServer(SeldonComponent):
         if self.spec_ngram < 0:
             raise ValueError(f"spec_ngram={self.spec_ngram} must be >= 0 (0 = default "
                              f"3-gram prompt lookup)")
-        if self.spec_mode == "draft" and not self.draft_model:
+        has_draft = bool(self.draft_model or self.draft_model_uri)
+        if self.spec_mode == "draft" and not has_draft:
             raise ValueError("spec_mode='draft' needs a draft model: pass draft_model="
-                             "<registry name> (+ draft_model_kwargs)")
+                             "<registry name> (+ draft_model_kwargs) or draft_model_uri=")
         if draft_params is not None and not self.draft_model:
             raise ValueError("load(draft_params=...) needs draft_model=<registry name> "
                              "naming the draft's architecture")
-        if self.model_name is None:
-            raise SeldonError("LLMServer needs model=<registry name>", status_code=500)
-        if params is None and not self.init_random:
-            raise SeldonError("No weights: pass init_random=True or load(params=...)",
+        if self.lora_rank < 0:
+            raise ValueError(f"lora_rank={self.lora_rank} must be >= 0 (0 = adapters off)")
+        if self.lora_rank > 0 and int(self.model_kwargs.get("n_experts", 0) or 0) > 0:
+            raise ValueError("lora_rank > 0 does not support MoE FFNs: adapters "
+                             "target the dense q/o/FFN projections")
+        for cls in self.slo_class_weights:
+            normalize_slo_class(cls)  # unknown class names fail at load()
+        name, kwargs = self.model_name, dict(self.model_kwargs)
+        if self.model_uri and params is None:
+            name, kwargs, params = self._read_checkpoint(self.model_uri, name, kwargs)
+        if name is None:
+            raise SeldonError("LLMServer needs model_uri or model=<registry name>",
                               status_code=500)
+        if params is None and not self.init_random:
+            raise SeldonError("No weights: pass model_uri, init_random=True or "
+                              "load(params=...)", status_code=500)
         quantized_tree = params is not None and has_quantized_leaves(params)
         if quantized_tree and not self.quantize:
             raise SeldonError("params hold int8 (quantized) leaves: load them with "
                               "quantize='int8'", status_code=500)
-        layout_first = bool(self.quantize) and (params is None or quantized_tree)
-        module = get_model(self.model_name, device="meta" if layout_first else self.device,
-                           param_dtype=self.param_dtype or None, **self.model_kwargs)
+        layout_first = bool(self.quantize)
+        module = get_model(name, device="meta" if layout_first else self.device,
+                           param_dtype=self.param_dtype or None, **kwargs)
         if layout_first:
             module.quantize_().to_empty(device=self.device)
         if params is not None:
-            params_from_jax(params, module)
+            params_from_jax(params, module, quantize_float=layout_first)
+            del params
         else:
             gen = torch.Generator(device=self.device)
             gen.manual_seed(self.seed)
             module.init_params(gen)
-        if self.quantize and not layout_first:
-            module.quantize_()
         module.eval()
         self._module = module
         self._cfg = module.cfg
-        if self.draft_model:
+        if has_draft:
             self._load_draft(draft_params)
+        if self.lora_rank > 0:
+            from seldon_core_tpu_torch.runtime.adapters import AdapterRegistry
+
+            self.adapter_registry = AdapterRegistry(self._cfg, self.lora_rank,
+                                                    self.lora_max_adapters, device=self.device)
+            for aname, uri in self.lora_adapters.items():
+                self.adapter_registry.load_uri(aname, uri)
         self._tokenizer = ByteTokenizer()
         self.eos_id = self._eos_override if self._eos_override is not None else self._tokenizer.eos_id
         self.ready = True
-        logger.info("LLMServer loaded %s (vocab=%d) on %s", self.model_name,
-                    self._cfg.vocab_size, self.device)
+        logger.info("LLMServer loaded %s (vocab=%d) on %s", name, self._cfg.vocab_size,
+                    self.device)
+
+    @staticmethod
+    def _read_checkpoint(uri: str, name: Optional[str], kwargs: Dict[str, Any]):
+        """(model name, model kwargs, param tree) of the checkpoint at
+        ``uri`` (``storage.download``: a local path or file:// URI): the
+        file's name unless ``name`` is given, its kwargs under ``kwargs``,
+        and ``params.msgpack`` (flax's variables dict, or one holding only
+        the ``params`` collection; ``params_from_jax`` reads both)."""
+        from seldon_core_tpu_torch import storage
+        from seldon_core_tpu_torch.models.checkpoint import load_params
+
+        path = storage.download(uri)
+        with open(os.path.join(path, "config.json")) as f:
+            file_cfg = json.load(f)
+        return (name or file_cfg["model"], {**file_cfg.get("kwargs", {}), **kwargs},
+                load_params(path))
 
     def _load_draft(self, draft_params: Optional[Dict[str, Any]]) -> None:
-        """The draft model beside the target (``load``): its vocab must be
-        the target's, and it is never quantized (the JAX package only
-        casts it)."""
+        """The draft model beside the target (``load``): from
+        ``draft_params``, else ``draft_model_uri``'s checkpoint, else random.
+        Its vocab must be the target's, and it is never quantized (the JAX
+        package only casts it)."""
         from seldon_core_tpu_torch.models import get_model
         from seldon_core_tpu_torch.models.convert import params_from_jax
 
-        draft = get_model(self.draft_model, device=self.device,
-                          param_dtype=self.param_dtype or None, **self.draft_model_kwargs)
+        name, kwargs = self.draft_model or None, dict(self.draft_model_kwargs)
+        if self.draft_model_uri and draft_params is None:
+            name, kwargs, draft_params = self._read_checkpoint(self.draft_model_uri, name,
+                                                               kwargs)
+        draft = get_model(name, device=self.device, param_dtype=self.param_dtype or None,
+                          **kwargs)
         if draft.cfg.vocab_size != self._cfg.vocab_size:
             raise ValueError(f"draft model vocab {draft.cfg.vocab_size} != target vocab "
                              f"{self._cfg.vocab_size}: draft proposals index the target's "
@@ -602,16 +688,20 @@ class LLMServer(SeldonComponent):
     # the paged prefill chunk and the paged decode step of k fused steps run
     # eagerly on the CPU and as CUDA graph replays on the card
     # ------------------------------------------------------------------
-    def _prefill_fresh(self, tokens: torch.Tensor, positions: torch.Tensor, max_len: int):
+    def _prefill_fresh(self, tokens: torch.Tensor, positions: torch.Tensor, max_len: int,
+                       adapter_ids: Optional[torch.Tensor] = None):
         """The dense prefill into fresh ``init_kv_caches`` of ``max_len``,
         filled from offset 0: the oracle of the served paths (independent
-        of the dense buffer ``generate()`` reuses). Returns (logits [b,
-        plen, vocab], caches)."""
+        of the dense buffer ``generate()`` reuses); with ``adapter_ids`` ([b]
+        ids of the adapter pool) each row through its adapter. Returns
+        (logits [b, plen, vocab], caches)."""
         from seldon_core_tpu_torch.models.transformer import init_kv_caches
 
         caches = init_kv_caches(self._cfg, tokens.shape[0], max_len, self.kv_cache_dtype,
                                 device=self.device)
-        return self._module(tokens, positions=positions, caches=caches, cache_index=0)
+        lora = {} if adapter_ids is None else dict(adapters=self.adapter_registry.pool(),
+                                                   adapter_ids=adapter_ids)
+        return self._module(tokens, positions=positions, caches=caches, cache_index=0, **lora)
 
     def _get_prefill(self, b: int, plen: int, max_len: int):
         """Port of ``_get_prefill``: the dense prefill program, cached under
@@ -726,64 +816,75 @@ class LLMServer(SeldonComponent):
         with self._lock:
             return self._decode_cache.setdefault(key, step)
 
-    def _get_prefill_chunk(self, chunk: int, n_pages: int):
+    def _get_prefill_chunk(self, chunk: int, n_pages: int, lora: bool = False):
         """Port of ``_get_prefill_chunk``: the program that writes one chunk
         of one sequence's prompt into the paged pool while attending over
-        its earlier chunks, cached under ``("pchunk", chunk, n_pages)``. Its
-        call ``prefill(pools, block_row, tokens, positions)`` (``block_row``
-        [1, n_pages] int32, ``tokens`` [1, chunk] int64, ``positions`` [1,
-        chunk] int32, PAD_POS past the prompt) writes the pools in place and
-        returns logits [1, chunk, vocab]. Nothing is read back to the host,
-        so the same call is what a CUDA graph captures
-        (``servers/step_graph.py``)."""
-        chunk, n_pages = int(chunk), int(n_pages)
-        key = ("pchunk", chunk, n_pages)
+        its earlier chunks, cached under ``("pchunk", chunk, n_pages,
+        lora)``. Its call ``prefill(pools, block_row, tokens, positions)``
+        (``block_row`` [1, n_pages] int32, ``tokens`` [1, chunk] int64,
+        ``positions`` [1, chunk] int32, PAD_POS past the prompt) writes the
+        pools in place and returns logits [1, chunk, vocab]. ``lora=True``
+        is the adapted program: the call also takes ``adapters`` (the
+        adapter pool) and ``adapter_ids`` ([1] int: the sequence's id, 0 =
+        the identity). Nothing is read back to the host, so the same call is
+        what a CUDA graph captures (``servers/step_graph.py``)."""
+        chunk, n_pages, lora = int(chunk), int(n_pages), bool(lora)
+        key = ("pchunk", chunk, n_pages, lora)
         with self._lock:
             fn = self._prefill_cache.get(key)
         if fn is not None:
             return fn
         module = self._module
 
-        def prefill(pools, block_row, tokens, positions):
+        def prefill(pools, block_row, tokens, positions, adapters=None, adapter_ids=None):
             if (tuple(block_row.shape) != (1, n_pages) or tuple(tokens.shape) != (1, chunk)
-                    or tuple(positions.shape) != (1, chunk)):
+                    or tuple(positions.shape) != (1, chunk)
+                    or _lora_args_bad(lora, adapters, adapter_ids, 1)):
                 raise ValueError(f"prefill chunk {key}: block_row {tuple(block_row.shape)}, "
                                  f"tokens {tuple(tokens.shape)}, positions "
-                                 f"{tuple(positions.shape)}")
+                                 f"{tuple(positions.shape)}, adapters "
+                                 f"{_lora_args_text(adapters, adapter_ids)}")
             logits, _ = module(tokens, positions=positions, caches=pools,
-                               block_tables=block_row)
+                               block_tables=block_row, adapters=adapters,
+                               adapter_ids=adapter_ids)
             return logits
 
         with self._lock:
             return self._prefill_cache.setdefault(key, prefill)
 
-    def _get_decode_step_paged(self, slots: int, n_pages: int, k: int = 1):
+    def _get_decode_step_paged(self, slots: int, n_pages: int, k: int = 1, lora: bool = False):
         """Port of ``_get_decode_step_paged``: the program of ``k`` decode
         steps over the paged pool, cached under ``("pagedstep", slots,
-        n_pages, k)``. Its call ``step(pools, last_tok, next_pos, keys,
+        n_pages, k, lora)``. Its call ``step(pools, last_tok, next_pos, keys,
         temperature, block_tables)`` runs the steps with the sampling state
         on the device (one key split per step, ``sample_tokens``), leaves
         ``last_tok``, ``next_pos`` and ``keys`` updated in place (the JAX
         package donated them) and returns the tokens [slots, k]; the pools
-        are written in place, the block tables only read. Nothing is read
-        back to the host, so the same call is what a CUDA graph captures
-        (``servers/step_graph.py``)."""
-        slots, n_pages, k = int(slots), int(n_pages), int(k)
-        key = ("pagedstep", slots, n_pages, k)
+        are written in place, the block tables only read. ``lora=True`` is
+        the adapted program: the call also takes ``adapters`` (the adapter
+        pool) and ``adapter_ids`` ([slots] int, 0 = the identity). Nothing is
+        read back to the host, so the same call is what a CUDA graph
+        captures (``servers/step_graph.py``)."""
+        slots, n_pages, k, lora = int(slots), int(n_pages), int(k), bool(lora)
+        key = ("pagedstep", slots, n_pages, k, lora)
         with self._lock:
             fn = self._decode_cache.get(key)
         if fn is not None:
             return fn
         module, top_k = self._module, self.top_k
 
-        def step(pools, last_tok, next_pos, keys, temperature, block_tables):
-            if tuple(block_tables.shape) != (slots, n_pages) or last_tok.shape != (slots,):
+        def step(pools, last_tok, next_pos, keys, temperature, block_tables, adapters=None,
+                 adapter_ids=None):
+            if (tuple(block_tables.shape) != (slots, n_pages) or last_tok.shape != (slots,)
+                    or _lora_args_bad(lora, adapters, adapter_ids, slots)):
                 raise ValueError(f"decode step {key}: block_tables {tuple(block_tables.shape)}, "
-                                 f"last_tok {tuple(last_tok.shape)}")
+                                 f"last_tok {tuple(last_tok.shape)}, adapters "
+                                 f"{_lora_args_text(adapters, adapter_ids)}")
             tokens = torch.empty((slots, k), dtype=torch.int64, device=last_tok.device)
             for j in range(k):
                 logits, _ = module(last_tok[:, None], positions=next_pos[:, None], caches=pools,
-                                   block_tables=block_tables)
+                                   block_tables=block_tables, adapters=adapters,
+                                   adapter_ids=adapter_ids)
                 new_keys, nxt = sample_tokens(keys, logits[:, -1], temperature, top_k)
                 keys.copy_(new_keys)
                 last_tok.copy_(nxt)
@@ -802,7 +903,9 @@ class LLMServer(SeldonComponent):
         chain, cached under ``("specstep", slots, spec_k, hist_len, mode,
         layout, n_pages, lora)``. Its call ``step(pools, last_tok, next_pos,
         keys, temperature, block_tables, hist, draft_cap, draft_caches=None)``
-        computes, in order:
+        (``lora=True``: also ``adapters`` and ``adapter_ids`` [slots], which
+        only the target's verify reads; the drafts stay base) computes, in
+        order:
 
         - the proposer: ``mode="ngram"`` matches the longest (up to
           ``spec_ngram``) trailing n-gram of the slot's history ``hist``
@@ -851,16 +954,13 @@ class LLMServer(SeldonComponent):
                 "a speculative step over a dense slot cache arrives with the dense batcher "
                 "layout (kv_cache_layout='dense'); the port's batcher verifies over the "
                 "paged pool")
-        if lora:
-            raise NotImplementedError(
-                "an adapted (LoRA) verify step arrives with the LoRA/tenants slice")
-        S, K, H, n_pages = int(slots), int(spec_k), int(hist_len), int(n_pages)
+        S, K, H, n_pages, lora = int(slots), int(spec_k), int(hist_len), int(n_pages), bool(lora)
         if K < 1:
             raise ValueError(f"spec_k={K} must be >= 1")
         draft = mode == "draft"
         if draft and self._draft_module is None:
             raise ValueError("spec mode 'draft' needs the server loaded with draft_model=")
-        key = ("specstep", S, K, H, mode, "paged", n_pages, False)
+        key = ("specstep", S, K, H, mode, "paged", n_pages, lora)
         with self._lock:
             fn = self._decode_cache.get(key)
         if fn is not None:
@@ -901,14 +1001,16 @@ class LLMServer(SeldonComponent):
             return torch.stack(out[:K], dim=1)
 
         def step(pools, last_tok, next_pos, keys, temperature, block_tables, hist, draft_cap,
-                 draft_caches=None):
+                 draft_caches=None, adapters=None, adapter_ids=None):
             if (tuple(block_tables.shape) != (S, n_pages) or last_tok.shape != (S,)
                     or tuple(hist.shape) != (S, H + 1) or draft_cap.shape != (S,)
-                    or (draft_caches is None) == draft):
+                    or (draft_caches is None) == draft
+                    or _lora_args_bad(lora, adapters, adapter_ids, S)):
                 raise ValueError(f"spec step {key}: block_tables {tuple(block_tables.shape)}, "
                                  f"last_tok {tuple(last_tok.shape)}, hist {tuple(hist.shape)}, "
                                  f"draft_cap {tuple(draft_cap.shape)}, draft caches "
-                                 f"{'given' if draft_caches is not None else 'missing'}")
+                                 f"{'given' if draft_caches is not None else 'missing'}, "
+                                 f"adapters {_lora_args_text(adapters, adapter_ids)}")
             dev = last_tok.device
             cap = draft_cap.long().clamp(0, K)
             if draft:
@@ -920,7 +1022,8 @@ class LLMServer(SeldonComponent):
             positions = torch.where(cols[None, :] <= dlen[:, None], next_pos[:, None] + cols,
                                     PAD_POS)
             logits, _ = module(tokens_in, positions=positions, caches=pools,
-                               block_tables=block_tables, verify=True)
+                               block_tables=block_tables, adapters=adapters,
+                               adapter_ids=adapter_ids, verify=True)
             # chain-exact accept loop: sample column j -> token j+1; the key
             # advances ONLY while accepting
             out = torch.zeros((S, K + 2), dtype=torch.int64, device=dev)
@@ -1334,7 +1437,9 @@ class LLMServer(SeldonComponent):
         bytes the last decode read a step, the steps in flight, the
         speculation counters and the radix trie's counters of the shared
         batcher (zeros without one, or with either off), the dense prefix
-        cache's hits and entries, and the TTFT, inter-token, decode and
+        cache's hits and entries, the adapter pool's gauges, the
+        scheduler's per-(tenant, class) tallies and queue depth by class,
+        and the TTFT (also by class), inter-token, decode and
         accepted-tokens series accumulated since the last call, drained
         here so each is observed exactly once. The trie is walked once a
         call."""
@@ -1358,6 +1463,13 @@ class LLMServer(SeldonComponent):
         occupancy = 0.0
         pool_bytes = 0
         spec_stats = dict(SPEC_STATS_OFF)
+        adapter_stats = {"adapter_loaded": 0, "adapter_evictions_total": 0,
+                         "adapter_pool_bytes": 0}
+        if self.adapter_registry is not None:
+            snap = self.adapter_registry.stats()
+            adapter_stats = {k: snap[k] for k in adapter_stats}
+        tenant_counters: List[dict] = []
+        queue_by_class: Dict[str, int] = {}
         svc = getattr(self, "_batcher_service", None)
         if svc is not None:
             batcher = svc.batcher
@@ -1369,6 +1481,8 @@ class LLMServer(SeldonComponent):
             occupancy = sum(1 for s in batcher._slots if s.active) / max(batcher.S, 1)
             pool_bytes = batcher._cache_nbytes
             spec_stats = batcher.spec_stats()
+            tenant_counters = batcher._pending.counters()
+            queue_by_class = batcher._pending.depths()
         with self._prefix_lock:
             prefix_bytes = self._prefix_bytes
             hits, entries = self._prefix_hits, len(self._prefix_cache)
@@ -1389,6 +1503,10 @@ class LLMServer(SeldonComponent):
             **prefix_stats,
             "prefix_cache_hits": hits,
             "prefix_cache_entries": entries,
+            **adapter_stats,
+            "tenant_counters": tenant_counters,
+            "queue_by_class": queue_by_class,
+            "ttft_by_class": drain(self._ttft_by_class),
         }
 
 

@@ -33,7 +33,12 @@ What the capture relies on:
   replaces after dropping every generate graph; a spec step also reads and
   writes the batcher's token history ``hist``, its fixed ``draft_cap``
   buffer (written by the host in stream order before each replay) and, in
-  draft mode, the dense draft caches;
+  draft mode, the dense draft caches; an adapted program (the server has a
+  LoRA adapter pool) also reads the pool, whose rows loads and evicts
+  write in place (``runtime/adapters.py``), and a fixed id buffer: the
+  batcher's per-slot ``_adapter_ids`` [slots] (decode and spec steps) or
+  its staged job's ``_chunk_adapter`` [1] (prefill chunks), each written by
+  the host in stream order;
 - a warm-up run of each program on the capture stream, before any capture,
   does every first-use set-up outside the graph: nvcc builds and library
   loads, the stream's cuBLAS workspace, K1's arrival counters of the stream.
@@ -145,34 +150,38 @@ def _capture(program: Callable[[], torch.Tensor], pool=None) -> ReplayGraph:
 @torch.no_grad()
 def capture_decode_steps(server, ks: Sequence[int], pools, last_tok: torch.Tensor,
                          next_pos: torch.Tensor, keys: torch.Tensor,
-                         temperature: Optional[torch.Tensor], block_tables: torch.Tensor
-                         ) -> Dict[int, ReplayGraph]:
-    """Capture ``server._get_decode_step_paged(slots, n_pages, k)`` for each
-    k of ``ks`` over these buffers, on the server's capture stream, after a
-    warm-up run of each (module docstring). Returns k -> ReplayGraph (its
-    output: the tokens [slots, k]). The current stream waits for the
-    capture stream before this returns."""
+                         temperature: Optional[torch.Tensor], block_tables: torch.Tensor,
+                         lora: Optional[Dict[str, Any]] = None) -> Dict[int, ReplayGraph]:
+    """Capture ``server._get_decode_step_paged(slots, n_pages, k, lora)``
+    for each k of ``ks`` over these buffers, on the server's capture stream,
+    after a warm-up run of each (module docstring). ``lora`` (the adapted
+    program's ``adapters`` and ``adapter_ids`` keywords; empty or None for
+    the unadapted one). Returns k -> ReplayGraph (its output: the tokens
+    [slots, k]). The current stream waits for the capture stream before
+    this returns."""
+    lora = lora or {}
     slots, n_pages = block_tables.shape
-    programs = {k: server._get_decode_step_paged(slots, n_pages, k) for k in ks}
+    programs = {k: server._get_decode_step_paged(slots, n_pages, k, bool(lora)) for k in ks}
     args = (pools, last_tok, next_pos, keys, temperature, block_tables)
     state = (last_tok, next_pos, keys)
     graphs = {}
     with _on_capture_stream(server._graph_stream(), last_tok.device):
         saved = [t.clone() for t in state]
         for k in ks:
-            programs[k](*args)
+            programs[k](*args, **lora)
         for t, s in zip(state, saved):
             t.copy_(s)
         for k in ks:
-            graphs[k] = _capture(lambda k=k: programs[k](*args))
+            graphs[k] = _capture(lambda k=k: programs[k](*args, **lora))
     return graphs
 
 
 @torch.no_grad()
 def capture_prefill_chunks(server, chunks: Sequence[int], pools, row: torch.Tensor,
-                           tokens: torch.Tensor, positions: torch.Tensor
-                           ) -> Dict[int, ReplayGraph]:
-    """Capture ``server._get_prefill_chunk(chunk, n_pages)`` for each chunk
+                           tokens: torch.Tensor, positions: torch.Tensor,
+                           lora: Optional[Dict[str, Any]] = None) -> Dict[int, ReplayGraph]:
+    """Capture ``server._get_prefill_chunk(chunk, n_pages, lora)`` (``lora``:
+    the adapted program's keywords, as ``capture_decode_steps``) for each chunk
     length of ``chunks`` over the batcher's fixed buffers: the block-table
     row ``row`` [1, n_pages] and the first ``chunk`` columns of ``tokens``
     [1, Cmax] and ``positions`` [1, Cmax] (Cmax >= every chunk), on the
@@ -186,9 +195,10 @@ def capture_prefill_chunks(server, chunks: Sequence[int], pools, row: torch.Tens
     stream waits for the capture stream before this returns."""
     from seldon_core_tpu_torch.models.transformer import NULL_PAGE, PAD_POS
 
+    lora = lora or {}
     n_pages = row.shape[1]
     order = sorted(chunks, reverse=True)
-    programs = {c: server._get_prefill_chunk(c, n_pages) for c in order}
+    programs = {c: server._get_prefill_chunk(c, n_pages, bool(lora)) for c in order}
     args = {c: (pools, row, tokens[:, :c], positions[:, :c]) for c in order}
     graphs = {}
     with _on_capture_stream(server._graph_stream(), row.device):
@@ -196,10 +206,10 @@ def capture_prefill_chunks(server, chunks: Sequence[int], pools, row: torch.Tens
         tokens.zero_()
         positions.fill_(PAD_POS)
         for c in order:
-            programs[c](*args[c])
+            programs[c](*args[c], **lora)
         pool = torch.cuda.graph_pool_handle()
         for c in order:
-            graphs[c] = _capture(lambda c=c: programs[c](*args[c]), pool)
+            graphs[c] = _capture(lambda c=c: programs[c](*args[c], **lora), pool)
     return graphs
 
 
@@ -233,8 +243,8 @@ def capture_generate_step(server, b: int, max_len: int, caches, tok: torch.Tenso
 def capture_spec_step(server, spec_k: int, mode: str, pools, last_tok: torch.Tensor,
                       next_pos: torch.Tensor, keys: torch.Tensor,
                       temperature: Optional[torch.Tensor], block_tables: torch.Tensor,
-                      hist: torch.Tensor, draft_cap: torch.Tensor, draft_caches=None
-                      ) -> ReplayGraph:
+                      hist: torch.Tensor, draft_cap: torch.Tensor, draft_caches=None,
+                      lora: Optional[Dict[str, Any]] = None) -> ReplayGraph:
     """Capture ``server._get_spec_step(slots, spec_k, hist_len, mode=mode,
     n_pages=...)`` over the batcher's fixed buffers (the pools, the slot
     state, the block tables, ``hist`` [slots, hist_len + 1], ``draft_cap``
@@ -245,24 +255,26 @@ def capture_spec_step(server, spec_k: int, mode: str, pools, last_tok: torch.Ten
     ``hist`` are restored after it, and the draft caches reset (every
     admission rewrites its slot's row). Returns the ReplayGraph (its
     output: [slots, spec_k + 2], the tokens and, last, the advance). The
-    current stream waits for the capture stream before this returns."""
+    current stream waits for the capture stream before this returns.
+    ``lora``: the adapted verify's keywords, as ``capture_decode_steps``."""
     from seldon_core_tpu_torch.models.transformer import reset_kv_caches
 
+    lora = lora or {}
     slots, n_pages = block_tables.shape
     program = server._get_spec_step(slots, spec_k, hist.shape[1] - 1, mode=mode,
-                                    layout="paged", n_pages=n_pages)
+                                    layout="paged", n_pages=n_pages, lora=bool(lora))
     args = (pools, last_tok, next_pos, keys, temperature, block_tables, hist, draft_cap,
             draft_caches)
     state = (last_tok, next_pos, keys, hist)
     with _on_capture_stream(server._graph_stream(), last_tok.device):
         saved = [t.clone() for t in state]
         draft_cap.zero_()
-        program(*args)
+        program(*args, **lora)
         for t, s in zip(state, saved):
             t.copy_(s)
         if draft_caches is not None:
             reset_kv_caches(draft_caches)
-        graph = _capture(lambda: program(*args))
+        graph = _capture(lambda: program(*args, **lora))
     return graph
 
 

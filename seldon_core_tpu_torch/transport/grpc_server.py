@@ -17,7 +17,9 @@ method table as the JAX package, served through
   that brings it.
 
 Tenant and SLO class ride the ``seldon-tenant`` / ``seldon-slo-class``
-metadata (the jsonData fields win) under REST's rules. The maximum message
+metadata (the jsonData fields win) under REST's rules, with the jsonData
+``adapter`` and the call's deadline; a tenant over its quota is
+RESOURCE_EXHAUSTED. The maximum message
 size honours the ``seldon.io/grpc-max-message-size`` annotation. grpcio and
 protobuf are imported with this module: the CLI names whichever is missing.
 """
@@ -86,6 +88,24 @@ def _metadata_value(context: grpc.ServicerContext, name: str) -> Optional[str]:
     return None
 
 
+def _deadline_s(context: grpc.ServicerContext) -> Optional[float]:
+    """The client's gRPC deadline in seconds (``context.time_remaining()``),
+    else the ``seldon-deadline-ms`` metadata key, else None (the JAX
+    package's ``_deadline_from_context``)."""
+    try:
+        rem = context.time_remaining()
+    except Exception:  # noqa: BLE001 — no deadline support on this context
+        rem = None
+    if rem is not None and rem < 1e9:  # grpc reports a huge value for "none"
+        return rem
+    raw = _metadata_value(context, "seldon-deadline-ms")
+    try:
+        ms = float(raw) if raw is not None else 0.0
+    except ValueError:
+        return None
+    return ms / 1000.0 if ms > 0 else None
+
+
 def _component_methods(component: Any) -> Dict[str, Dict[str, tuple]]:
     """service -> rpc name -> (handler, request class[, kind])."""
 
@@ -141,8 +161,9 @@ def _make_generate_stream(component: Any):
             if not isinstance(body, dict) or body.get("prompt") is None:
                 raise SeldonError("jsonData needs 'prompt'", status_code=400)
             # REST's rules on the metadata spellings of its headers
-            check_identity(body, _metadata_value(context, "seldon-tenant"),
-                           _metadata_value(context, "seldon-slo-class"))
+            identity = check_identity(body, _metadata_value(context, "seldon-tenant"),
+                                      _metadata_value(context, "seldon-slo-class"),
+                                      _deadline_s(context))
             prompt = body["prompt"]
             if isinstance(prompt, list):  # protobuf carries numbers as floats
                 prompt = [int(t) for t in prompt]
@@ -151,7 +172,8 @@ def _make_generate_stream(component: Any):
                 max_new = int(max_new)
             svc = stream_service(component, dict(body, prompt=prompt, max_new_tokens=max_new),
                                  knob="streaming")
-            events = stream_events(component, prompt, max_new, seed=body.get("seed"), svc=svc)
+            events = stream_events(component, prompt, max_new, seed=body.get("seed"), svc=svc,
+                                   identity=identity)
         except Exception as e:  # noqa: BLE001 — pre-stream rejection
             _abort(context, e)
         try:

@@ -39,10 +39,10 @@ header.
 
 Tenant and SLO class ride the ``Seldon-Tenant`` / ``Seldon-SLO-Class``
 headers, or the body fields ``tenant`` / ``slo_class`` (the body wins), as
-in the JAX package. An unknown class answers 400 on every branch. The
-port's FIFO admission serves the default class (``interactive``, or no
-class); a tenant or another known class answers 501 naming the LoRA/tenants
-slice, as do adapters. The framed binary wire answers 501; multipart
+in the JAX package, and reach the batcher's weighted-fair admission with
+the body's ``adapter`` and a ``Seldon-Deadline-Ms`` budget. An unknown
+class answers 400 on every branch; a tenant over its quota 503 with a
+``Retry-After`` header. The framed binary wire answers 501; multipart
 predict bodies answer 415.
 """
 
@@ -68,37 +68,77 @@ from seldon_core_tpu_torch.transport.streaming import (check_identity, stream_ev
 logger = logging.getLogger(__name__)
 
 
+DEADLINE_HEADER = "Seldon-Deadline-Ms"
+
+
+def deadline_from_headers(headers: Mapping[str, str]) -> Optional[float]:
+    """``Seldon-Deadline-Ms: <float>``, the client's budget for the request,
+    in seconds; missing, garbage or non-positive means no deadline (the
+    JAX package's ``deadline_from_headers``)."""
+    raw = headers.get(DEADLINE_HEADER)
+    if raw is None:
+        return None
+    try:
+        ms = float(raw)
+    except (TypeError, ValueError):
+        return None
+    return ms / 1000.0 if ms > 0 else None
+
+
 def _generate(component: Any, body: Any, headers: Optional[Mapping[str, str]] = None):
     """The /v1/generate handler body (``headers``: the request's, read
     case-insensitively): returns the JSON response, or for ``"stream":
     true`` the generator of its events (``stream_events``, not started),
-    or raises SeldonError (ShedError for a 503)."""
-    from seldon_core_tpu_torch.runtime.batcher import get_batcher_service
+    or raises SeldonError (ShedError for a 503). The JAX package's rules:
+    tenant and class from the body or the ``Seldon-Tenant`` /
+    ``Seldon-SLO-Class`` headers (an unknown class is 400 on every branch);
+    an ``"adapter"`` serves only through a batcher (the shared batch, else
+    the 1-slot stream service), so with ``"prompts"``, with a per-request
+    temperature, or as a seeded prompt the slot cache cannot hold it is 400;
+    a tenant over its quota is 503 + Retry-After."""
+    from seldon_core_tpu_torch.runtime.batcher import ensure_stream_service, get_batcher_service
 
     if not isinstance(body, dict):
         raise SeldonError("body must be a JSON object", status_code=400)
     headers = headers or {}
-    check_identity(body, headers.get("Seldon-Tenant"), headers.get("Seldon-SLO-Class"))
+    identity = check_identity(body, headers.get("Seldon-Tenant"),
+                              headers.get("Seldon-SLO-Class"), deadline_from_headers(headers))
+    adapter = identity["adapter"]
     max_new = body.get("max_new_tokens")
     if "prompts" in body:
+        if adapter:
+            raise SeldonError("adapters serve through the continuous batch; use single-prompt "
+                              "requests (the 'prompts' batch runs a private base-model "
+                              "generate())", status_code=400)
         return component.generate(body["prompts"], max_new_tokens=max_new,
                                   temperature=body.get("temperature"),
                                   seed=body.get("seed"))
     prompt = body.get("prompt")
     if prompt is None:
         raise SeldonError("body needs 'prompt' or 'prompts'", status_code=400)
-    svc = None if "temperature" in body else get_batcher_service(component)
+    custom_sampling = "temperature" in body
+    if adapter and custom_sampling:
+        raise SeldonError("per-request temperature cannot join the shared batch, and adapters "
+                          "only serve through it — drop one", status_code=400)
+    svc = None if custom_sampling else get_batcher_service(component)
+    if svc is None and adapter:
+        svc = ensure_stream_service(component)
     if svc is not None and "seed" in body and not svc.batcher.accommodates(prompt, max_new):
+        if adapter:
+            raise SeldonError("seeded adapted prompt exceeds the batcher slot cache and would "
+                              "not reproduce; raise continuous_batching_max_len",
+                              status_code=400)
         svc = None  # only a per-request-sized generate() reproduces it
     if body.get("stream"):
         svc = stream_service(component, body, svc)
-        return stream_events(component, prompt, max_new, seed=body.get("seed"), svc=svc)
+        return stream_events(component, prompt, max_new, seed=body.get("seed"), svc=svc,
+                             identity=identity)
     if svc is None:
         out = component.generate([prompt], max_new_tokens=max_new,
                                  temperature=body.get("temperature"), seed=body.get("seed"))
         return {"tokens": out["tokens"][0], "text": out["texts"][0]}
     info: dict = {}
-    toks = svc.submit_sync(prompt, max_new, seed=body.get("seed"), info=info)
+    toks = svc.submit_sync(prompt, max_new, seed=body.get("seed"), info=info, **identity)
     tok = getattr(component, "_tokenizer", None)
     out = {"tokens": toks,
            "text": tok.decode(toks) if tok is not None and isinstance(prompt, str) else None}

@@ -1,9 +1,9 @@
 """Streaming and request identity, shared by the port's transports (REST
 ``/v1/generate`` with ``"stream": true`` and gRPC ``Model/GenerateStream``).
 
-- ``check_identity``: tenant and SLO class with the reference's precedence
-  and the port's refusals (400 for an unknown class, 501 naming the slice
-  for a tenant, another class or an adapter);
+- ``check_identity``: tenant, SLO class and adapter with the reference's
+  precedence (the body's field over the header or metadata; 400 for an
+  unknown class, on every branch);
 - ``stream_service``: the service a stream joins, and the rejections that
   come before a stream starts;
 - ``stream_events``: the events of one stream (the JAX package's SSE
@@ -16,38 +16,31 @@ import queue
 from typing import Any, Iterator, List, Optional
 
 from seldon_core_tpu_torch.contracts.payload import SeldonError
-from seldon_core_tpu_torch.runtime.scheduler import INTERACTIVE, normalize_slo_class
-
-_LATER = {
-    "adapter": "adapters arrive with the LoRA/tenants slice",
-    "tenant": "tenants arrive with the LoRA/tenants slice",
-    "slo_class": "SLO classes other than 'interactive' arrive with the LoRA/tenants slice",
-}
-
+from seldon_core_tpu_torch.runtime.scheduler import normalize_slo_class
 
 _END = object()
 
 
-def check_identity(body: dict, tenant: Optional[str], slo_class: Optional[str]) -> None:
-    """Tenant and SLO class with the reference's precedence: the body field,
-    then ``tenant`` / ``slo_class`` (a header's or metadata's value). An
-    unknown class raises 400, on every branch before anything is refused or
-    served; the FIFO admission serves the default class, so a tenant,
-    another class or an adapter raises 501 naming its slice."""
+def check_identity(body: dict, tenant: Optional[str], slo_class: Optional[str],
+                   deadline_s: Optional[float] = None) -> dict:
+    """The request's identity for ``submit``, with the reference's
+    precedence: the body's ``tenant`` / ``slo_class``, then ``tenant`` /
+    ``slo_class`` (a header's or metadata's value); the body's ``adapter``;
+    ``deadline_s`` (the client's budget, when it sent one). An unknown class
+    raises 400 here, on every branch, before anything is served."""
     tenant = body.get("tenant") or tenant
+    slo_class = body.get("slo_class") or slo_class
     try:
-        slo_class = normalize_slo_class(body.get("slo_class") or slo_class)
+        normalize_slo_class(slo_class)
     except ValueError as e:
         raise SeldonError(str(e), status_code=400)
-    knobs = dict(body, tenant=tenant, slo_class=slo_class != INTERACTIVE)
-    for key, why in _LATER.items():
-        if knobs.get(key):
-            raise SeldonError(f"'{key}' is not served by this port yet: {why}",
-                              status_code=501)
+    return {"tenant": tenant, "slo_class": slo_class, "adapter": body.get("adapter"),
+            "deadline_s": deadline_s}
 
 
 def stream_events(component: Any, prompt: Any, max_new: Optional[int],
-                  seed: Optional[int] = None, svc: Any = None) -> Iterator[List[dict]]:
+                  seed: Optional[int] = None, svc: Any = None,
+                  identity: Optional[dict] = None) -> Iterator[List[dict]]:
     """The events of one stream, as the batch decodes them: ``{"token",
     "text"}`` per token (``text`` the decoded piece of a text prompt, else
     None), then ``{"done": True, "tokens", "text"}`` (+ ``truncated_prompt``
@@ -55,7 +48,8 @@ def stream_events(component: Any, prompt: Any, max_new: Optional[int],
     time: every token already queued when the caller wakes (a fused block's
     tokens surface at one drain), so a transport writes a burst at once.
     ``svc`` is the BatcherService to join; None streams through
-    ``ensure_stream_service``. The batcher's ``on_token`` only puts on a
+    ``ensure_stream_service``; ``identity`` the tenant, class, adapter and
+    deadline (``check_identity``). The batcher's ``on_token`` only puts on a
     queue; decoding and JSON happen on the caller's thread. Closing the
     generator early (a disconnect) cancels the request; a failure raises
     from it, after the tokens that came before it."""
@@ -67,7 +61,7 @@ def stream_events(component: Any, prompt: Any, max_new: Optional[int],
     text_mode = tokenizer is not None and isinstance(prompt, str)
     q: queue.Queue = queue.Queue()
     info: dict = {}
-    fut = svc.submit(prompt, max_new, on_token=q.put, seed=seed, info=info)
+    fut = svc.submit(prompt, max_new, on_token=q.put, seed=seed, info=info, **(identity or {}))
     # a request that ends without its None (never, from the batcher) still
     # ends the pump
     fut.add_done_callback(lambda _f: q.put(_END))
@@ -102,7 +96,8 @@ def stream_service(component: Any, body: dict, svc: Any = None, knob: str = "str
     batch decodes at the server's), and a seeded prompt the slot cache
     cannot hold whole (no private generate() path reproduces it there);
     ``knob`` names what the client should drop, in the JAX package's words
-    for its transport."""
+    for its transport. An adapted stream is served like any other (its
+    adapter is resolved at submit)."""
     from seldon_core_tpu_torch.runtime.batcher import ensure_stream_service
 
     if "temperature" in body:

@@ -27,7 +27,8 @@ from seldon_core_tpu.models.transformer import init_paged_kv_caches as jax_init_
 from seldon_core_tpu.runtime.batcher import ContinuousBatcher as JaxContinuousBatcher
 from seldon_core_tpu.servers.llmserver import LLMServer as JaxLLMServer
 from seldon_core_tpu_torch.models.transformer import TRASH_PAGE, init_paged_kv_caches
-from seldon_core_tpu_torch.runtime.batcher import ContinuousBatcher, _PrefillJob, _Request
+from seldon_core_tpu_torch.runtime.batcher import ContinuousBatcher, _PrefillJob
+from seldon_core_tpu_torch.runtime.scheduler import PendingRequest
 from seldon_core_tpu_torch.servers.llmserver import LLMServer
 
 KW = dict(vocab_size=256, dim=64, n_layers=2, n_heads=4, n_kv_heads=2, ffn_dim=128,
@@ -139,10 +140,10 @@ def test_pick_k_is_one_while_pending_or_prefilling(server):
     slot = b._slots[0]
     slot.active, slot.true_len, slot.max_new, slot.disp_new = True, 5, 20, 1
     assert b._pick_k() == 4
-    b._pending.append(_Request([1, 2], 4, None, None, None, 0.0))
+    b._pending.push(PendingRequest(ids=[1, 2], max_new=4, fut=None, t_arrival=0.0))
     assert b._pick_k() == 1
-    b._pending.clear()
-    b._prefill = _PrefillJob(1, [1, 2], 0, 8, 4, None, None, None, None)
+    b._pending.drain_all()
+    b._prefill = _PrefillJob(1, [1, 2], 0, 8, PendingRequest(ids=[1, 2], max_new=4, fut=None))
     assert b._pick_k() == 1
     b._prefill = None
     slot.disp_new = 17   # room for 3 steps
@@ -174,7 +175,7 @@ def test_k_step_program_equals_k_single_steps(sampled_server):
     s = sampled_server
     prog4 = s._get_decode_step_paged(3, 4, 4)
     assert s._get_decode_step_paged(3, 4, 4) is prog4
-    assert ("pagedstep", 3, 4, 4) in s._decode_cache
+    assert ("pagedstep", 3, 4, 4, False) in s._decode_cache
     pools, last_tok, next_pos, keys, bt = _step_inputs(s)
     copies = ([tuple(t.clone() for t in layer) for layer in pools], last_tok.clone(),
               next_pos.clone(), keys.clone())

@@ -6,8 +6,8 @@ package's ``grpc_client`` as the client of both:
   SSE events, for a text and an id prompt, and with speculation on (n-gram,
   the perfect drafter) they equal SSE's and the done tokens; its rejections before the
   stream (a per-request temperature, a seeded prompt the slot cache cannot
-  hold) are INVALID_ARGUMENT with JAX's message; a shed is
-  RESOURCE_EXHAUSTED and a tenant UNIMPLEMENTED naming its slice;
+  hold) are INVALID_ARGUMENT with JAX's message; a page shed and a tenant's
+  quota shed are RESOURCE_EXHAUSTED, an unknown class INVALID_ARGUMENT;
 - ``Model/Predict`` gives JAX's payload for an LLM prompt (it joins the
   batch) and for a tiny host model, and a ``TorchServer`` answers as over
   REST;
@@ -116,12 +116,16 @@ def test_stream_rejections_equal_jax(servers, body):
     assert errors[0][0] == grpc.StatusCode.INVALID_ARGUMENT
 
 
-def test_stream_status_mapping(servers):
-    """A page-exhaustion shed is RESOURCE_EXHAUSTED; a tenant in the
-    metadata is UNIMPLEMENTED (the LoRA/tenants slice); an unknown class is
-    INVALID_ARGUMENT."""
+def test_stream_status_mapping(servers, monkeypatch):
+    """A page-exhaustion shed is RESOURCE_EXHAUSTED; so is a tenant over its
+    quota (one of its requests queued while admission is held); an unknown
+    class is INVALID_ARGUMENT."""
+    import threading
+
+    from seldon_core_tpu_torch.runtime.batcher import get_batcher_service
+
     _, ptarget, _, server = servers
-    batcher = server._batcher_service.batcher
+    batcher = get_batcher_service(server).batcher
     held = batcher._allocator.alloc(batcher._allocator.free_count())
     try:
         with pytest.raises(grpc.RpcError) as e:
@@ -129,9 +133,22 @@ def test_stream_status_mapping(servers):
         assert e.value.code() == grpc.StatusCode.RESOURCE_EXHAUSTED
     finally:
         batcher._allocator.free(held)
+    monkeypatch.setitem(batcher._pending._tenant_quotas, "acme", 1)
+    gate, admit = threading.Event(), batcher._admit_pending
+    monkeypatch.setattr(batcher, "_admit_pending", lambda: (gate.wait(), admit()))
+    try:
+        queued = server._batcher_service.submit(IDS, 4, tenant="acme")
+        with pytest.raises(grpc.RpcError) as e:
+            stream(ptarget, {"prompt": "hello"}, [("seldon-tenant", "acme")])
+        assert e.value.code() == grpc.StatusCode.RESOURCE_EXHAUSTED
+        assert "over its admission quota" in e.value.details()
+    finally:
+        gate.set()
+    # its solo tokens, through the batch (no private generate(): the Predict
+    # test reads that count)
+    assert queued.result(TIMEOUT) == server._batcher_service.submit_sync(IDS, 4)
     for metadata, code, text in (
-            ([("seldon-tenant", "acme")], grpc.StatusCode.UNIMPLEMENTED, "LoRA/tenants slice"),
-            ([("seldon-slo-class", "gold")], grpc.StatusCode.INVALID_ARGUMENT, "SLO class")):
+            ([("seldon-slo-class", "gold")], grpc.StatusCode.INVALID_ARGUMENT, "SLO class"),):
         with pytest.raises(grpc.RpcError) as e:
             stream(ptarget, {"prompt": "hello"}, metadata)
         assert e.value.code() == code and text in e.value.details()

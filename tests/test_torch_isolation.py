@@ -4,9 +4,11 @@ package, and it never falls back to the CPU on its own.
 - a subprocess with ``jax``, ``flax``, ``msgpack`` and ``seldon_core_tpu``
   blocked from import imports every module of ``seldon_core_tpu_torch``
   (the gRPC server, its proto converters and copied stubs, the OpenAPI
-  spec, the metrics registry and the radix prefix cache among them),
-  serves one CPU ``generate()``, and writes, loads and serves a ResNet
-  checkpoint through ``TorchServer``;
+  spec, the metrics registry, the radix prefix cache, the adapter pool and
+  the scheduler among them), serves one CPU ``generate()``, writes an LLM
+  checkpoint and serves it through ``LLMServer(model_uri=...)`` with an
+  adapter pool, and writes, loads and serves a ResNet checkpoint through
+  ``TorchServer``;
 - an AST walk over the package and ``chip_smoke.py`` finds no import of
   ``jax``, ``flax``, ``msgpack`` or ``seldon_core_tpu`` / ``seldon_core_tpu.*``;
 - ``LLMServer()`` with no ``device`` raises when no CUDA device is present.
@@ -35,7 +37,8 @@ for m in mods:
     importlib.import_module(m)
 need = {"seldon_core_tpu_torch.transport." + m for m in (
     "grpc_server", "proto_convert", "proto.prediction_pb2", "openapi", "streaming")}
-need |= {"seldon_core_tpu_torch.metrics.registry", "seldon_core_tpu_torch.runtime.radix"}
+need |= {"seldon_core_tpu_torch.metrics.registry", "seldon_core_tpu_torch.runtime.radix",
+         "seldon_core_tpu_torch.runtime.adapters", "seldon_core_tpu_torch.runtime.scheduler"}
 assert need <= set(mods), need - set(mods)
 from seldon_core_tpu_torch.servers.llmserver import LLMServer
 s = LLMServer(model="llama-tiny", init_random=True, max_new_tokens=4, eos_id=-1,
@@ -45,6 +48,12 @@ assert len(out["tokens"][0]) == 4, out
 import tempfile, numpy as np, torch
 from seldon_core_tpu_torch.models import get_model
 from seldon_core_tpu_torch.servers.torchserver import TorchServer, export_checkpoint
+with tempfile.TemporaryDirectory() as d:
+    export_checkpoint(d, "llama-tiny", {"params": s._module.param_tree()})
+    t = LLMServer(model_uri=d, max_new_tokens=4, eos_id=-1, len_buckets=(16,),
+                  batch_buckets=(1,), device="cpu", lora_rank=2, lora_max_adapters=2)
+    t.load()
+assert t.generate(["hi"]) == out and t.adapter_registry.stats()["adapter_capacity"] == 1
 m = get_model("resnet18", num_classes=5, fused=True, device="cpu")
 m.init_params(torch.Generator().manual_seed(0))
 with tempfile.TemporaryDirectory() as d:

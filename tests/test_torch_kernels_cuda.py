@@ -715,10 +715,10 @@ def _admit(b, prompts):
     ahead: live tables and state for direct steps."""
     from concurrent.futures import Future
 
-    from seldon_core_tpu_torch.runtime.batcher import _Request
+    from seldon_core_tpu_torch.runtime.scheduler import PendingRequest
 
     for p in prompts:
-        assert b._admit_begin(_Request(list(p), 12, Future(), None, None, None))
+        assert b._admit_begin(PendingRequest(ids=list(p), max_new=12, fut=Future()))
         while b._prefill is not None:
             b._prefill_step()
     for i, slot in enumerate(b._slots):
@@ -1618,7 +1618,8 @@ def test_prefix_hit_chunk_replay_bit_equals_eager(dev, kv):
     through an eager twin batcher on the same weights, hit for hit."""
     from concurrent.futures import Future
 
-    from seldon_core_tpu_torch.runtime.batcher import ContinuousBatcher, _Request
+    from seldon_core_tpu_torch.runtime.batcher import ContinuousBatcher
+    from seldon_core_tpu_torch.runtime.scheduler import PendingRequest
 
     s, b = _radix_batcher(dev, kv)
     turn1 = list(range(3, 28))   # 25 tokens: + 5 answered, 3 blocks and a tail of 6
@@ -1628,7 +1629,7 @@ def test_prefix_hit_chunk_replay_bit_equals_eager(dev, kv):
         b.close()
     turn2 = turn1 + out + [7, 8, 9]
     cows = s._cow_replays
-    assert b._admit_begin(_Request(list(turn2), 6, Future(), None, None, None))
+    assert b._admit_begin(PendingRequest(ids=list(turn2), max_new=6, fut=Future()))
     job, slot = b._prefill, b._slots[b._prefill.slot]
     assert job.next == len(turn1) + len(out) - 1 > 0 and s._cow_replays == cows + 1
     row = b._row.cpu().numpy()
@@ -1681,3 +1682,193 @@ def test_dense_entry_unchanged_by_generate_graph_replays(dev, kv):
     assert torch.equal(stored[3], snap[1])
     s.clear_prefix_cache()
     assert s.generate([longer], _eager=True)["tokens"][0] == got
+
+
+# ---------------------------------------------------------------------------
+# Batched LoRA: the adapted programs as CUDA graphs
+# ---------------------------------------------------------------------------
+
+LORA_RANK = 4
+
+
+def _lora_factors(cfg, seed):
+    from seldon_core_tpu_torch.runtime.adapters import projection_dims
+
+    rng = np.random.default_rng(seed)
+    return {p: (rng.standard_normal((cfg.n_layers, din, LORA_RANK)) / np.sqrt(din),
+                rng.standard_normal((cfg.n_layers, LORA_RANK, dout)) * 0.1)
+            for p, (din, dout) in projection_dims(cfg).items()}
+
+
+def _lora_batcher(dev, kv, lora_rank=LORA_RANK):
+    """``_graph_batcher``'s small model (the same seed, so the same weights)
+    with a LoRA pool of 5 rows holding adapters "a", "b", "c" (or none with
+    ``lora_rank=0``), and a 3-slot batcher whose prefill and decode graphs
+    are the adapted programs, built under ``set_sync_debug_mode("error")``."""
+    from seldon_core_tpu_torch.runtime.batcher import ContinuousBatcher
+    from seldon_core_tpu_torch.servers.llmserver import LLMServer
+
+    s = LLMServer(model="transformer", model_kwargs=SMALL_LLM, init_random=True,
+                  param_dtype="auto", max_new_tokens=12, eos_id=-1, len_buckets=(16,),
+                  device="cuda", lora_rank=lora_rank, lora_max_adapters=5, **INT8_KNOBS[kv])
+    s.load()
+    for i, name in enumerate(("a", "b", "c") if lora_rank else ()):
+        s.adapter_registry.load(name, _lora_factors(s._cfg, i), alpha=2 * LORA_RANK)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        b = ContinuousBatcher(s, max_slots=3, page_size=8, device="cuda")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return s, b
+
+
+def _request(s, ids, name):
+    from concurrent.futures import Future
+
+    from seldon_core_tpu_torch.runtime.scheduler import PendingRequest
+
+    reg = s.adapter_registry
+    return PendingRequest(ids=list(ids), max_new=12, fut=Future(),
+                          adapter_id=reg.resolve_and_pin(name) if reg is not None else 0)
+
+
+def _admit_adapted(s, b, prompts, names):
+    for p, name in zip(prompts, names):
+        assert b._admit_begin(_request(s, p, name))
+        while b._prefill is not None:
+            b._prefill_step()
+    for i, slot in enumerate(b._slots):
+        if slot.active:
+            assert b._ensure_slot_pages(i, slot.dispatched_pos() + 16)
+
+
+LORA_PROMPTS = ([5, 9, 17, 2, 40, 3, 22, 8, 11, 60], [7, 7, 1], [30, 31, 32, 33, 34])
+
+
+def _stage_chunk(b, ids):
+    """Stage the first chunk of the staged job (``_prefill_step``'s inputs)
+    and return its length."""
+    C = b._prefill.chunk
+    n = min(C, len(ids))
+    toks = torch.zeros((1, C), dtype=torch.int64)
+    pos = torch.full((1, C), PAD_POS, dtype=torch.int32)
+    toks[0, :n] = torch.tensor(ids[:n])
+    pos[0, :n] = torch.arange(n)
+    b._chunk_tokens[:, :C] = toks.cuda()
+    b._chunk_pos[:, :C] = pos.cuda()
+    return C
+
+
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+def test_lora_adapted_replays_bit_equal_eager(dev, kv):
+    """An adapted chunk's replay (the job's adapter id in the fixed
+    ``_chunk_adapter``) and an adapted decode replay (slots of adapters
+    "a", none and "c" in ``_adapter_ids``) are each bit-equal to the eager
+    adapted program from identical copies (logits or tokens, pools, state);
+    each replay adds what its capture counted, one K1 and K2 a layer."""
+    from seldon_core_tpu_torch.servers.step_graph import launch_counts
+
+    s, b = _lora_batcher(dev, kv)
+    pool = s.adapter_registry.pool()
+    assert b._adapters is not None and sorted(b._graphs) == [1]
+    assert b._admit_begin(_request(s, LORA_PROMPTS[0], "b"))
+    C = _stage_chunk(b, LORA_PROMPTS[0])
+    assert int(b._chunk_adapter[0]) == s.adapter_registry.resolve("b")
+    copy = [tuple(t.clone() for t in layer) for layer in b._caches]
+    got = b._prefill_graphs[C].replay().clone()
+    want = s._get_prefill_chunk(C, b.n_pages, True)(
+        copy, b._row, b._chunk_tokens[:, :C], b._chunk_pos[:, :C], adapters=pool,
+        adapter_ids=b._chunk_adapter)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    for la, lb in zip(b._caches, copy):
+        for x, y in zip(la, lb):
+            assert torch.equal(x, y)
+    b._prefill = None
+    b._release_slot(0)
+    _admit_adapted(s, b, LORA_PROMPTS, ("a", None, "c"))
+    reg = s.adapter_registry
+    assert b._adapter_ids.tolist() == [reg.resolve("a"), 0, reg.resolve("c")]
+    n_layers = SMALL_LLM["n_layers"]
+    for _ in range(2):
+        copy = _state_copy(b)
+        before = launch_counts()
+        toks = b._graphs[1].replay().clone()
+        after = launch_counts()
+        eager = s._get_decode_step_paged(b.S, b.n_pages, 1, True)(
+            *copy, b._temp, b._block_tables, adapters=pool, adapter_ids=b._adapter_ids)
+        torch.cuda.synchronize()
+        assert torch.equal(toks, eager)
+        _assert_state_equal(b, copy)
+        delta = {key: n - before[key] for key, n in after.items() if n != before[key]}
+        assert delta == dict(b._graphs[1].counts)
+        k1 = paged_attention.paged_attention
+        assert delta[(k1, "launches_int8" if kv == "int8" else "launches")] == n_layers
+        assert delta[(fused_norm.fused_residual_rmsnorm, "launches")] == n_layers
+
+
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+def test_lora_identity_through_adapted_graph_equals_plain_graph(dev, kv):
+    """Adapter id 0 through the adapted graphs gives what the unadapted
+    graphs of a server with the same weights give, bit for bit: a chunk's
+    logits and pools, then two decode replays' tokens, pools and state."""
+    s, b = _lora_batcher(dev, kv)
+    p, pb = _lora_batcher(dev, kv, lora_rank=0)
+    assert pb._adapters is None and b._adapters is not None
+    for srv, bat in ((s, b), (p, pb)):
+        assert bat._admit_begin(_request(srv, LORA_PROMPTS[0], None))
+        _stage_chunk(bat, LORA_PROMPTS[0])
+    got = b._prefill_graphs[16].replay().clone()
+    want = pb._prefill_graphs[16].replay().clone()
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    for bat in (b, pb):
+        bat._prefill = None
+        bat._release_slot(0)
+        _admit_adapted(bat.server, bat, LORA_PROMPTS, (None, None, None))
+    for _ in range(2):
+        assert torch.equal(b._graphs[1].replay(), pb._graphs[1].replay())
+    torch.cuda.synchronize()
+    _assert_state_equal(b, _state_copy(pb))
+
+
+def test_lora_row_written_in_place_is_read_by_the_next_replay(dev):
+    """The pool's addresses are captured, so a load writes its row in
+    place: an adapter evicted and its row reloaded with other factors
+    between two replays (as a load on a transport thread does) is what the
+    second replay reads. It equals the eager adapted step on the new row,
+    and its pools differ from a step over the old row's factors."""
+    s, b = _lora_batcher(dev, "bf16")
+    reg = s.adapter_registry
+    pool = reg.pool()
+    _admit_adapted(s, b, LORA_PROMPTS, ("a", None, None))
+    b._graphs[1].replay()
+    old_row = reg.resolve("c")
+    old = {p: (ab[0][old_row].clone(), ab[1][old_row].clone())
+           for p, ab in pool.items() if p != "scale"}
+    assert reg.evict("c") and reg.load("d", _lora_factors(s._cfg, 9), alpha=2 * LORA_RANK) == \
+        old_row
+    reg.pin(old_row)
+    b._slots[2].adapter_id = old_row
+    b._adapter_ids[2] = old_row
+    new_copy, old_copy = _state_copy(b), _state_copy(b)
+    toks = b._graphs[1].replay().clone()
+    prog = s._get_decode_step_paged(b.S, b.n_pages, 1, True)
+    on_new = prog(*new_copy, b._temp, b._block_tables, adapters=pool,
+                  adapter_ids=b._adapter_ids)
+    saved = {p: (ab[0][old_row].clone(), ab[1][old_row].clone())
+             for p, ab in pool.items() if p != "scale"}
+    for p, (a, b_) in old.items():
+        pool[p][0][old_row].copy_(a)
+        pool[p][1][old_row].copy_(b_)
+    on_old = prog(*old_copy, b._temp, b._block_tables, adapters=pool,
+                  adapter_ids=b._adapter_ids)
+    for p, (a, b_) in saved.items():
+        pool[p][0][old_row].copy_(a)
+        pool[p][1][old_row].copy_(b_)
+    torch.cuda.synchronize()
+    assert torch.equal(toks, on_new)
+    _assert_state_equal(b, new_copy)
+    assert not all(torch.equal(x, y) for la, lb in zip(new_copy[0], old_copy[0])
+                   for x, y in zip(la, lb))

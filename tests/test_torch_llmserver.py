@@ -274,9 +274,9 @@ def test_rest_generate_and_ready(jax_params):
 
 
 @pytest.mark.parametrize("kw,slice_name", [
-    (dict(draft_model_uri="file:///tmp/draft"), "speculative"),
+    (dict(prefill_workers=2), "disaggregation"),
     (dict(disaggregation="remote_prefill"), "disaggregation"),
-    (dict(lora_rank=4), "LoRA"),
+    (dict(tokenizer="hf"), "HF tokenizers"),
     (dict(tensor_parallel=2), "parallelism"),
 ])
 def test_later_slice_knobs_raise(kw, slice_name):

@@ -64,7 +64,9 @@ PORT_FAMILIES = {
     "seldon_llm_kv_page_fragmentation", "seldon_llm_prefix_hit_blocks",
     "seldon_llm_prefix_shared_pages", "seldon_llm_prefix_cached_blocks",
     "seldon_llm_prefix_cow_copies", "seldon_llm_prefix_evicted_blocks",
-    "seldon_llm_prefix_bytes_saved",
+    "seldon_llm_prefix_bytes_saved", "seldon_llm_adapter_loaded",
+    "seldon_llm_adapter_evictions", "seldon_llm_adapter_pool_bytes", "seldon_tenant_admitted",
+    "seldon_tenant_shed", "seldon_tenant_tokens", "seldon_llm_tenant_ttft_seconds",
 }
 
 
@@ -100,6 +102,14 @@ def stats(seed, sheds):
         "spec_accept_rate_per_slot": rng.uniform(0, 1, 3).tolist(),
         "spec_draft_overhead_fraction": float(rng.uniform()),
         "spec_accepted_per_step": rng.integers(1, 6, 5).tolist() + [16, 17],
+        "adapter_loaded": int(rng.integers(0, 7)), "adapter_evictions_total": 2 * sheds,
+        "adapter_pool_bytes": 252_706_848,
+        "tenant_counters": [{"tenant": t, "slo_class": c, "admitted": 3 * sheds,
+                             "shed": sheds, "tokens": 40 * sheds, "queued": 1, "preempted": 0}
+                            for t, c in (("", "interactive"), ("acme", "batch"))],
+        "queue_by_class": {"interactive": 1, "batch": 1},
+        "ttft_by_class": [("interactive", float(v)) for v in rng.uniform(0, 2, 2)]
+                         + [("batch", 0.3)],
     }
 
 

@@ -105,7 +105,7 @@ def test_prefill_chunk_program_equals_jax(jax_pair, server, C, kv):
     jpools = jax_init_paged(jserver._cfg, n_pool, ps, kv or None)
     prog = server._get_prefill_chunk(C, n_pages)
     assert server._get_prefill_chunk(C, n_pages) is prog
-    assert ("pchunk", C, n_pages) in server._prefill_cache
+    assert ("pchunk", C, n_pages, False) in server._prefill_cache
     jfn = jserver._get_prefill_chunk(C, n_pages)
     for start in (0, C):
         toks, pos, row, n = _chunk_inputs(ids, start, C, n_pages, pages)

@@ -6,8 +6,8 @@ package's aiohttp app, on the CPU, with the header cases of
 - both apps answer 400 for an unknown class, in a header or in the body, on
   the batcher branch, the ``"prompts"`` branch and the per-request
   temperature branch;
-- the port answers 501 for a tenant or the ``batch`` class (header or body;
-  its FIFO admission serves neither yet), naming the LoRA/tenants slice;
+- a tenant or the ``batch`` class (header or body) is served: the port's app
+  answers the JAX app's status and tokens on the same weights;
 - the port answers 200 for ``interactive`` (or its alias ``latency``), or no
   class, with the tokens of its private ``generate()``."""
 
@@ -16,7 +16,10 @@ import json
 import urllib.error
 import urllib.request
 
+import numpy as np
 import pytest
+
+import jax
 
 from seldon_core_tpu.servers.llmserver import LLMServer as JaxLLMServer
 from seldon_core_tpu.transport.rest import make_component_app as jax_app
@@ -96,7 +99,7 @@ def test_jax_app_unknown_class_is_400_on_every_branch():
     assert asyncio.run(go()) == [400] * len(UNKNOWN_CLASS)
 
 
-@pytest.mark.parametrize("body,headers", [
+SERVED = [
     ({"prompt": [5, 9, 2]}, {"Seldon-Tenant": "acme", "Seldon-SLO-Class": "batch"}),
     ({"prompt": [5, 9, 2]}, {"Seldon-Tenant": "acme"}),
     ({"prompt": [5, 9, 2], "tenant": "acme"}, {}),
@@ -104,12 +107,50 @@ def test_jax_app_unknown_class_is_400_on_every_branch():
     ({"prompt": [5, 9, 2], "slo_class": "bulk"}, {}),
     ({"prompts": [[5, 9, 2]], "slo_class": "batch"}, {}),
     ({"prompt": [5, 9, 2], "slo_class": "batch"}, {"Seldon-SLO-Class": "interactive"}),
-], ids=["tenant+batch header", "tenant header", "tenant body", "batch header", "bulk body",
-        "batch body prompts", "batch body over header"])
-def test_port_tenant_or_batch_class_is_501(port_url, body, headers):
-    code, payload = _post(port_url[0], body, headers)
-    assert code == 501, payload
-    assert "LoRA/tenants slice" in payload["status"]["info"]
+]
+
+
+@pytest.fixture(scope="module")
+def same_weights():
+    """(port URL, the JAX app's (status, body) for each SERVED case): the
+    JAX server and a port server on its weights, both batching."""
+    from aiohttp.test_utils import TestClient, TestServer
+
+    j = JaxLLMServer(**COMMON)
+    j.load()
+
+    async def go():
+        out = []
+        async with TestClient(TestServer(jax_app(j))) as client:
+            for body, headers in SERVED:
+                resp = await client.post("/v1/generate", json=body, headers=headers)
+                out.append((resp.status, await resp.json()))
+        j._batcher_service.close()
+        return out
+
+    want = asyncio.run(go())
+    server = LLMServer(device="cpu", **{k: v for k, v in COMMON.items() if k != "init_random"})
+    server.load(params={"params": jax.tree_util.tree_map(np.asarray, j._params["params"])})
+    httpd, _ = start(make_component_app(server, device="cpu"))
+    try:
+        yield f"http://127.0.0.1:{httpd.server_address[1]}", want
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        if getattr(server, "_batcher_service", None) is not None:
+            server._batcher_service.close()
+
+
+@pytest.mark.parametrize("case", range(len(SERVED)),
+                         ids=["tenant+batch header", "tenant header", "tenant body",
+                              "batch header", "bulk body", "batch body prompts",
+                              "batch body over header"])
+def test_port_tenant_or_batch_class_is_served(same_weights, case):
+    url, want = same_weights
+    body, headers = SERVED[case]
+    code, payload = _post(url, body, headers)
+    assert (code, payload) == want[case]
+    assert code == 200 and payload["tokens"]
 
 
 @pytest.mark.parametrize("body,headers", [

@@ -429,14 +429,39 @@ def test_draft_vocab_mismatch_rejected():
                   draft_model_kwargs=dict(KW, vocab_size=64), **COMMON).load()
 
 
-def test_draft_model_uri_names_checkpoint_loading():
-    with pytest.raises(NotImplementedError, match="checkpoint loading"):
-        LLMServer(device="cpu", spec_mode="draft", draft_model_uri="file:///tmp/draft", **COMMON)
+def test_draft_model_uri_names_checkpoint_loading(tmp_path):
+    """``draft_model_uri`` loads the draft's checkpoint (config.json +
+    params.msgpack; tests/test_torch_llm_checkpoint.py holds it to
+    ``draft_params`` and the JAX server); a missing one raises the storage
+    error naming the path."""
+    from seldon_core_tpu_torch.models import get_model
+    from seldon_core_tpu_torch.servers.torchserver import export_checkpoint
+    from seldon_core_tpu_torch.storage import StorageError
+
+    draft = get_model("transformer", device="cpu", **KW)
+    draft.init_params(torch.Generator().manual_seed(5))
+    export_checkpoint(str(tmp_path / "draft"), "transformer", {"params": draft.param_tree()},
+                      kwargs=KW)
+    s = LLMServer(device="cpu", spec_mode="draft", draft_model_uri=f"file://{tmp_path}/draft",
+                  init_random=True, **COMMON)
+    s.load()
+    for a, b in zip(s._draft_module.state_dict().values(), draft.state_dict().values()):
+        assert torch.equal(a, b)
+    with pytest.raises(StorageError, match="does not exist"):
+        LLMServer(device="cpu", spec_mode="draft", draft_model_uri=str(tmp_path / "none"),
+                  init_random=True, **COMMON).load()
 
 
 def test_lora_and_dense_spec_steps_name_their_slices(server):
-    with pytest.raises(NotImplementedError, match="LoRA/tenants"):
-        server._get_spec_step(S, K, MAX_LEN, n_pages=N_PAGES, lora=True)
+    """The adapted (``lora=True``) spec step is served under the JAX key and
+    refuses a call without the adapter pool (tests/test_torch_lora_batcher.py
+    serves it); the dense layout still names its slice."""
+    prog = server._get_spec_step(S, K, MAX_LEN, n_pages=N_PAGES, lora=True)
+    assert ("specstep", S, K, MAX_LEN, "ngram", "paged", N_PAGES, True) in server._decode_cache
+    with pytest.raises(ValueError, match="adapters none"):
+        prog(None, torch.zeros(S, dtype=torch.long), None, None, None,
+             torch.zeros((S, N_PAGES), dtype=torch.int32),
+             torch.zeros((S, MAX_LEN + 1), dtype=torch.long), torch.zeros(S, dtype=torch.int32))
     with pytest.raises(NotImplementedError, match="dense batcher layout"):
         server._get_spec_step(S, K, MAX_LEN, layout="dense")
 

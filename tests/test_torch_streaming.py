@@ -240,7 +240,8 @@ class _JaxShedSvc:
 
 
 class _PortShedSvc:
-    def submit(self, prompt, max_new_tokens=None, seed=None, info=None, on_token=None):
+    def submit(self, prompt, max_new_tokens=None, seed=None, info=None, on_token=None,
+               **identity):
         fut = Future()
         for tok in SHED_TOKENS + [None]:
             on_token(tok)

@@ -201,8 +201,10 @@ def test_later_slices_raise(kw, what):
 
 
 def test_adapters_raise(models):
+    """Adapters without ids raise, as the JAX package's forward does (the
+    adapted forward itself: tests/test_torch_lora.py)."""
     _, _, tmod, _ = models
-    with pytest.raises(NotImplementedError, match="LoRA"):
+    with pytest.raises(ValueError, match="adapter_ids"):
         tmod(torch.zeros((1, 2), dtype=torch.int64), adapters={}, adapter_ids=None)
 
 
