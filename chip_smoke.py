@@ -12,6 +12,10 @@ kernel of that path against its plain PyTorch version.
     python3 chip_smoke.py --prefix     # only: build, then the prefix phase (both models)
     python3 chip_smoke.py --lora       # only: build, then the LoRA, tenant and checkpoint
                                        # phases
+    python3 chip_smoke.py --predict    # only: build, the ResNet-50 forward, then the
+                                       # predict serving run (REST through TorchServer)
+    python3 chip_smoke.py --engine     # only: build, the ResNet-50 forward, then the
+                                       # engine phase (and its bf16 7B LLM component)
 
 Phases (any failure exits non-zero; nothing swallows an error):
 
@@ -218,12 +222,36 @@ Phases (any failure exits non-zero; nothing swallows an error):
    cuDNN-chain forward on the same images (and of the in-process K3
    forward); K3's launches, zeroed just before
    the requests and read just after, are exactly what ``expected_launches``
-   gives for four forwards at batch 8 and one at batch 1.
+   gives for four forwards at batch 8 and one at batch 1;
+7. engine phase (``engine_phase``; lines ``[engine] ...``) — the graph
+   engine (``runtime/engine.GraphEngine`` behind the engine app) over two
+   live ResNet-50 JAX_SERVER leaves (the forward phase's weights and a
+   second seed, each from a msgpack checkpoint): (a) an AVERAGE_COMBINER of
+   the two, fused into one composed call on the card, serving 4 concurrent
+   requests of 8 images and one of 1 (every response 200 with its puid and
+   the three units in requestPath, logits within FWD_TOL of the mean of the
+   two cuDNN-chain forwards, one fused run a request, K3 launched 2 x
+   ``expected_launches`` a request; the same requests through an unfused
+   engine over the same servers within ENGINE_FUSE_TOL; the latency beside
+   the component app's on one leaf, concurrent and then one request at a
+   time in turns; the fused call's device time beside two single
+   forwards); (b) a seeded EPSILON_GREEDY router over the two:
+   24 one-image predictions with feedback for the first 16 (routes = a
+   fresh seeded router's on the host, its counts = the rewards'
+   arithmetic, K3 launched for the routed leaf alone, the scrape's request
+   and feedback series); (d) /pause, /unpause, /ready, a spent
+   ``Seldon-Deadline-Ms`` (504) and gRPC ``Seldon/Predict`` equal to REST.
+   Its (c) runs inside the bf16 serving phase (``engine_llm_phase``, line
+   ``[bf16 engine] ...``): the loaded 7B server as a one-unit graph's
+   component, one jsonData predict through the engine app giving the
+   server's own component-app tokens, K1 and K2 launched, the LLM series
+   on the engine's /metrics.
 
 The line before the last is the kernel table as JSON (K1 over a bf16 pool,
 K1 over an int8 pool, K2, K3, K4's decode kernel, K4's prefill kernel; K2's
 launches are every LLM run's together (the speculative, prefix, LoRA,
-tenant and checkpoint phases' included), K3's the predict serving run's);
+tenant and checkpoint phases' and the engine's LLM request included), K3's
+the predict serving run's and the engine phase's);
 the last line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 port's package beside it, the script exits non-zero and prints no result.
 """
@@ -3794,6 +3822,470 @@ def resnet_serving_phase(card, model):
 
 
 # ---------------------------------------------------------------------------
+# The graph engine: a fused combiner and a bandit router over two ResNet-50
+# JAX_SERVER leaves, an LLM component, the control routes
+# ---------------------------------------------------------------------------
+# the fused combiner (a float32 mean on the card) against the same graph
+# unfused (each TorchServer's predict, a float64 mean on the host) over the
+# same servers, and gRPC against REST on one engine: the same kernels on the
+# same batch shapes (8 and 1 are buckets: nothing pads), so only the mean's
+# rounding differs; the card test holds the same comparison to the same bound
+ENGINE_FUSE_TOL = 1e-5
+ENGINE_TURNS = 2          # rounds of C E E C single requests in (a)'s latency turns
+ENGINE_BANDIT = dict(n_branches=2, epsilon=0.5, seed=5)
+ENGINE_ROUTED = (16, 8)   # predictions before the feedback, and after
+
+
+def graph_spec(root: dict):
+    from seldon_core_tpu_torch.contracts.graph import PredictorSpec
+
+    return PredictorSpec.from_dict({"name": "engine", "graph": root})
+
+
+def logits_of(body: dict):
+    import numpy as np
+
+    data = body.get("data", {})
+    if "tensor" in data:
+        return np.asarray(data["tensor"]["values"]).reshape(data["tensor"]["shape"])
+    return np.asarray(data["ndarray"])
+
+
+def concurrent_posts(url: str, bodies):
+    """POST every body at once; [(code, body, wall s)] in order."""
+    out = [None] * len(bodies)
+
+    def client(i):
+        t = time.perf_counter()
+        code, body = post(url, bodies[i])
+        out[i] = (code, body, time.perf_counter() - t)
+
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(len(bodies))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    if any(r is None for r in out):
+        fail(f"a request to {url} did not complete")
+    return out
+
+
+def engine_phase(card: str, model) -> int:
+    """The port's graph engine on the card (``runtime/engine.GraphEngine``
+    behind ``transport/rest.make_engine_app``), over two live folded
+    ResNet-50 ``JAX_SERVER`` leaves (``model``, seed 50, and a second one,
+    seed 52, each through a msgpack checkpoint):
+
+    (a) an AVERAGE_COMBINER of the two, fused: PREDICT_REQUESTS concurrent
+        requests of PREDICT_BATCH images (tensor JSON) and one of 1 image
+        (ndarray); every response 200 with its puid and all three units in
+        requestPath, logits within FWD_TOL of the mean of the two
+        cuDNN-chain forwards, one fused run a request (``_fused_calls``),
+        K3 launched 2 x ``expected_launches`` a request; the same requests
+        through an unfused engine over the same servers within
+        ENGINE_FUSE_TOL; the latency beside the component app's on one
+        leaf (concurrent, then one request at a time in turns), and the
+        fused call's device time beside two single forwards;
+    (b) a seeded EPSILON_GREEDY over the same leaves: ENGINE_ROUTED[0]
+        one-image predictions, feedback with rewards for each through
+        /api/v0.1/feedback, ENGINE_ROUTED[1] more: the routes a fresh
+        router with the same seed and the same feedback gives on the host,
+        the router's counts the rewards' arithmetic, K3 launched for the
+        routed leaf alone, and the scrape's request and feedback series;
+    (d) /pause (predictions and /ready 503) and /unpause, a spent
+        ``Seldon-Deadline-Ms`` (504), and gRPC ``Seldon/Predict`` equal to
+        REST's answer to (a)'s first request.
+
+    Returns K3's launches in (a) and (b)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from seldon_core_tpu_torch.analytics.routers import EpsilonGreedy
+    from seldon_core_tpu_torch.models import get_model
+    from seldon_core_tpu_torch.models.resnet_infer import resnet_serve_forward
+    from seldon_core_tpu_torch.ops.fused_resnet import fused_identity_chain
+    from seldon_core_tpu_torch.runtime.engine import GraphEngine
+    from seldon_core_tpu_torch.servers.torchserver import export_checkpoint
+    from seldon_core_tpu_torch.transport.rest import make_component_app, make_engine_app, start
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    model_b = get_model("resnet50", fused=True, device="cuda")
+    model_b.init_params(torch.Generator(device=dev).manual_seed(52))
+    models = [model, model_b]
+    for m in models:
+        if any(blk.Conv_2.kernel.abs().max().item() == 0 for blk in m.blocks()):
+            fail("engine phase: a ResNet-50 leaf has a Conv_2 that is all zero")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    per8, per1 = k3_forward_launches(PREDICT_BATCH, sms), k3_forward_launches(1, sms)
+    with tempfile.TemporaryDirectory(prefix="engine-ckpts-") as root:
+        leaves = []
+        for name, m in zip(("a", "b"), models):
+            path = os.path.join(root, name)
+            export_checkpoint(path, "resnet50", {"params": m.param_tree()},
+                              kwargs={"fused": True}, input_shape=[224, 224, 3])
+            leaves.append({"name": name, "type": "MODEL", "implementation": "JAX_SERVER",
+                           "modelUri": path})
+        combiner = {"name": "avg", "type": "COMBINER", "implementation": "AVERAGE_COMBINER",
+                    "children": leaves}
+        t0 = time.perf_counter()
+        fused = GraphEngine(graph_spec(combiner), device="cuda")
+        build_s = time.perf_counter() - t0
+    servers = {name: fused.state.unit_by_name(name).component for name in ("a", "b")}
+    unfused = GraphEngine(graph_spec(combiner), components=servers, fuse=False, device="cuda")
+    root_state = fused.state.root
+    if root_state.fused_fn is None or [u.name for u in root_state.fused_units] != \
+            ["avg", "a", "b"]:
+        fail(f"engine phase: the combiner did not fuse its two leaves "
+             f"({[u.name for u in root_state.fused_units]})")
+
+    rng = np.random.default_rng(17)
+    images = [np.round(rng.standard_normal((PREDICT_BATCH, 224, 224, 3)), 2).astype(np.float32)
+              for _ in range(PREDICT_REQUESTS)]
+    single = np.round(rng.standard_normal((1, 224, 224, 3)), 2).astype(np.float32)
+    bodies = [{"meta": {"puid": f"eng-{i}"},
+               "data": {"tensor": {"shape": list(im.shape), "values": im.ravel().tolist()}}}
+              for i, im in enumerate(images)]
+    single_body = {"meta": {"puid": "eng-nd"}, "data": {"ndarray": single.tolist()}}
+    handler = make_engine_app(fused, device="cuda")
+    httpd, _ = start(handler)
+    comp_httpd, _ = start(make_component_app(servers["a"], device="cuda"))
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    comp_url = f"http://127.0.0.1:{comp_httpd.server_address[1]}"
+    try:
+        # (a) the fused combiner
+        for u in (url, comp_url):  # warm-up, not counted
+            code, body = post(u + "/api/v0.1/predictions", bodies[0])
+            if code != 200:
+                fail(f"engine warm-up at {u} answered {code}: {body}")
+        torch.cuda.synchronize()
+        fused._fused_calls = 0
+        fused_identity_chain.launches = 0
+        results = concurrent_posts(url + "/api/v0.1/predictions", bodies)
+        t1 = time.perf_counter()
+        nd = post(url + "/api/v0.1/predictions", single_body)
+        nd_wall = time.perf_counter() - t1
+        launches_a = k3_count()
+        calls_a = fused._fused_calls
+        want_a = 2 * (PREDICT_REQUESTS * per8 + per1)
+        if launches_a != want_a:
+            fail(f"engine (a): {launches_a} K3 launches for {PREDICT_REQUESTS} requests of "
+                 f"{PREDICT_BATCH} images and one of 1 through two leaves, expected_launches "
+                 f"says {want_a}")
+        if calls_a != PREDICT_REQUESTS + 1:
+            fail(f"engine (a): {calls_a} fused runs for {PREDICT_REQUESTS + 1} requests")
+        comp = concurrent_posts(comp_url + "/api/v0.1/predictions", bodies)
+        errs, fuse_errs = [], []
+        for i, ((code, body, _), im) in enumerate(zip(results + [(*nd, nd_wall)],
+                                                     images + [single])):
+            puid = "eng-nd" if i == PREDICT_REQUESTS else f"eng-{i}"
+            meta = body.get("meta", {})
+            if code != 200 or meta.get("puid") != puid:
+                fail(f"engine (a) request {i}: {code}, meta {meta} (puid {puid} expected)")
+            if meta.get("requestPath") != {"avg": "AverageCombiner", "a": "TorchServer",
+                                           "b": "TorchServer"}:
+                fail(f"engine (a) request {i}: requestPath {meta.get('requestPath')}")
+            got = logits_of(body)
+            with torch.no_grad():
+                xi = torch.from_numpy(im).cuda()
+                ref = torch.stack([resnet_serve_forward(m, xi, pallas_stages=())
+                                   for m in models]).mean(0).cpu()
+            err, bound, _, _ = check_logits(f"engine (a) request {i} vs the mean of the two "
+                                            f"cuDNN-chain forwards", torch.from_numpy(got), ref)
+            errs.append((err, bound))
+            plain = logits_of(unfused.predict_sync(
+                seldon_message(body_for(im, puid))).to_dict())
+            fe = float(np.abs(got - plain).max())
+            if fe > ENGINE_FUSE_TOL * float(np.abs(plain).max()):
+                fail(f"engine (a) request {i}: fused vs unfused max |diff| {fe:.4g} > "
+                     f"{ENGINE_FUSE_TOL} x max|logit|")
+            fuse_errs.append(fe)
+        for code, body, _ in comp:
+            if code != 200:
+                fail(f"component app on leaf a answered {code}: {body}")
+        # what the graph adds: one request of PREDICT_BATCH images at a time,
+        # to the component app on leaf a and to the engine in turns (C E E C,
+        # ENGINE_TURNS rounds), and the client's encoding of that body and a
+        # parse of the same text timed apart
+        turns = {"component": [], "engine": []}
+        for _ in range(ENGINE_TURNS):
+            for side, u in (("component", comp_url), ("engine", url), ("engine", url),
+                            ("component", comp_url)):
+                t = time.perf_counter()
+                code, body = post(u + "/api/v0.1/predictions", bodies[0])
+                turns[side].append(time.perf_counter() - t)
+                if code != 200:
+                    fail(f"engine (a) turns: the {side} answered {code}: {body}")
+        t = time.perf_counter()
+        text = json.dumps(bodies[0])
+        encode_s = time.perf_counter() - t
+        t = time.perf_counter()
+        json.loads(text)
+        parse_s = time.perf_counter() - t
+        walls = [w for _, _, w in results]
+        comp_walls = [w for _, _, w in comp]
+        fused_fn = root_state.fused_fn
+        x8 = torch.from_numpy(images[0]).cuda()
+        with torch.inference_mode():
+            (fused_ms, fused_enq), (two_ms, two_enq) = time_turns(
+                [lambda: fused_fn(images[0]),
+                 lambda: (servers["a"]._module(x8), servers["b"]._module(x8))])
+        print(f"[engine] (a) AVERAGE_COMBINER over two JAX_SERVER ResNet-50 leaves (folded, "
+              f"live weights, msgpack checkpoints; engine built in {build_s:.2f} s), fused "
+              f"into one composed call on the card: {PREDICT_REQUESTS} concurrent POST "
+              f"/api/v0.1/predictions of {PREDICT_BATCH} images (tensor JSON), request "
+              f"latency median {statistics.median(walls) * 1e3:.1f} ms max "
+              f"{max(walls) * 1e3:.1f} ms, beside the component app on leaf a (one forward "
+              f"a request) median {statistics.median(comp_walls) * 1e3:.1f} ms max "
+              f"{max(comp_walls) * 1e3:.1f} ms; 1 image (ndarray JSON) {nd_wall * 1e3:.1f} ms; "
+              f"fused runs {calls_a} = requests; K3 launches {launches_a} = 2 x "
+              f"({PREDICT_REQUESTS} x {per8} + {per1}), as expected_launches says; logits "
+              f"within {FWD_TOL} x max|logit| of the mean of the two cuDNN-chain forwards "
+              f"(max |diff| {max(e for e, _ in errs):.4g}, bound at least "
+              f"{min(b for _, b in errs):.4g}); fused vs unfused (host float64 mean) max "
+              f"|diff| {max(fuse_errs):.3g} (<= {ENGINE_FUSE_TOL} x max|logit|); the fused "
+              f"call at B={PREDICT_BATCH} (staging + two forwards + the mean) {fused_ms:.3f} "
+              f"ms of device vs two single forwards {two_ms:.3f} ms, in turns (host enqueue "
+              f"{fused_enq:.3f} vs {two_enq:.3f} ms) [{card}]", flush=True)
+        eng_med = statistics.median(turns["engine"])
+        comp_med = statistics.median(turns["component"])
+        print(f"[engine] (a) one request of {PREDICT_BATCH} images (tensor JSON, "
+              f"{len(text)} bytes) at a time, in turns (component, engine, engine, component "
+              f"x {ENGINE_TURNS}): engine median {eng_med * 1e3:.1f} ms max "
+              f"{max(turns['engine']) * 1e3:.1f} ms, component app on leaf a median "
+              f"{comp_med * 1e3:.1f} ms max {max(turns['component']) * 1e3:.1f} ms, what the "
+              f"graph adds {(eng_med - comp_med) * 1e3:.1f} ms; of a request, the client's "
+              f"json.dumps of the body {encode_s * 1e3:.1f} ms and a json.loads of the same "
+              f"text {parse_s * 1e3:.1f} ms [{card}]", flush=True)
+
+        # (b) the bandit router
+        bandit = {"name": "router", "type": "ROUTER", "implementation": "EPSILON_GREEDY",
+                  "parameters": [{"name": k, "value": str(v),
+                                  "type": "FLOAT" if k == "epsilon" else "INT"}
+                                 for k, v in ENGINE_BANDIT.items()],
+                  "children": [dict(leaf) for leaf in leaves]}
+        routed = GraphEngine(graph_spec(bandit), components=servers, device="cuda")
+        b_httpd, _ = start(make_engine_app(routed, device="cuda"))
+        b_url = f"http://127.0.0.1:{b_httpd.server_address[1]}"
+        mirror = EpsilonGreedy(**ENGINE_BANDIT)
+        rewards = np.random.default_rng(3).uniform(0, 1, ENGINE_ROUTED[0]).round(3)
+        try:
+            fused_identity_chain.launches = 0
+            n_requests, routes, want_routes = 0, [], []
+            answers = []
+            for i in range(ENGINE_ROUTED[0]):
+                body = body_for(images[i % PREDICT_REQUESTS][i % PREDICT_BATCH:][:1],
+                                f"bandit-{i}")
+                code, resp = post(b_url + "/api/v0.1/predictions", body)
+                if code != 200:
+                    fail(f"engine (b) request {i} answered {code}: {resp}")
+                answers.append((body, resp))
+                routes.append(resp["meta"]["routing"]["router"])
+                want_routes.append(mirror.route(None, []))
+            for i, ((body, resp), reward) in enumerate(zip(answers, rewards)):
+                code, out = post(b_url + "/api/v0.1/feedback",
+                                 {"request": body, "response": resp, "reward": float(reward)})
+                if code != 200:
+                    fail(f"engine (b) feedback {i} answered {code}: {out}")
+                mirror.send_feedback(None, [], float(reward), None, routing=routes[i])
+            for i in range(ENGINE_ROUTED[1]):
+                body = body_for(images[i % PREDICT_REQUESTS][:1], f"bandit-late-{i}")
+                code, resp = post(b_url + "/api/v0.1/predictions", body)
+                if code != 200:
+                    fail(f"engine (b) late request {i} answered {code}: {resp}")
+                routes.append(resp["meta"]["routing"]["router"])
+                want_routes.append(mirror.route(None, []))
+                if resp["meta"]["tags"].get("bandit") != "EpsilonGreedy":
+                    fail(f"engine (b): response tags {resp['meta']['tags']} lack the router's")
+            launches_b = k3_count()
+            samples = scrape(b_url)
+        finally:
+            b_httpd.shutdown()
+            b_httpd.server_close()
+        n = sum(ENGINE_ROUTED)
+        if routes != want_routes:
+            fail(f"engine (b): routes {routes} differ from a fresh seeded router's "
+                 f"{want_routes}")
+        router = routed.state.root.component
+        first = np.asarray(routes[:ENGINE_ROUTED[0]])
+        want_pulls = [int((first == k).sum()) for k in range(2)]
+        want_sums = [float(rewards[first == k].sum()) for k in range(2)]
+        if router.pulls.tolist() != want_pulls or not np.allclose(router.reward_sum, want_sums,
+                                                                   rtol=0, atol=1e-9):
+            fail(f"engine (b): router pulls {router.pulls.tolist()} reward sums "
+                 f"{router.reward_sum.tolist()}, the rewards give {want_pulls} {want_sums}")
+        if launches_b != n * per1:
+            fail(f"engine (b): {launches_b} K3 launches for {n} one-image requests, each "
+                 f"through its routed leaf only: expected {n} x {per1}")
+        checks = {"predictions": (sample(samples, "seldon_api_executor_server_requests_total",
+                                         'method="predictions"', 'code="200"'), n),
+                  "feedback": (sample(samples, "seldon_api_executor_server_requests_total",
+                                      'method="feedback"', 'code="200"'), ENGINE_ROUTED[0]),
+                  "feedback events": (sample(samples, "seldon_api_model_feedback_total"),
+                                      ENGINE_ROUTED[0]),
+                  "reward": (round(sample(samples, "seldon_api_model_feedback_reward_total"),
+                                   6), round(float(np.abs(rewards).sum()), 6))}
+        for what, (got, want) in checks.items():
+            if got != want:
+                fail(f"engine (b): /metrics {what} {got}, expected {want}")
+        print(f"[engine] (b) EPSILON_GREEDY {ENGINE_BANDIT} over the same two leaves: "
+              f"{ENGINE_ROUTED[0]} one-image predictions, feedback with seeded rewards for "
+              f"each through /api/v0.1/feedback, {ENGINE_ROUTED[1]} more: routes {routes} = a "
+              f"fresh seeded router's on the host with the same feedback; router pulls "
+              f"{router.pulls.tolist()}, reward sums "
+              f"{[round(v, 6) for v in router.reward_sum.tolist()]} = the rewards' arithmetic; "
+              f"K3 launches {launches_b} = {n} x {per1} (the routed leaf alone); /metrics: "
+              f"{checks['predictions'][0]:.0f} predictions, {checks['feedback'][0]:.0f} "
+              f"feedback requests, seldon_api_model_feedback_total "
+              f"{checks['feedback events'][0]:.0f}, _reward_total {checks['reward'][0]} "
+              f"[{card}]", flush=True)
+
+        # (d) control routes, the deadline, gRPC
+        steps = [("/pause", 200), ("/api/v0.1/predictions", 503), ("/ready", 503),
+                 ("/unpause", 200), ("/ready", 200)]
+        seen = []
+        for path, want in steps:
+            if path.startswith("/api"):
+                code = post(url + path, single_body)[0]
+            else:
+                req = urllib.request.Request(url + path, method="POST" if "pause" in path
+                                             else "GET", data=b"" if "pause" in path else None)
+                try:
+                    with urllib.request.urlopen(req, timeout=60) as r:
+                        code = r.status
+                except urllib.error.HTTPError as e:
+                    code = e.code
+            seen.append(code)
+            if code != want:
+                fail(f"engine (d): {path} answered {code}, expected {want} ({seen})")
+        code, body = post(url + "/api/v0.1/predictions", bodies[0],
+                          headers={"Seldon-Deadline-Ms": "1"})
+        if code != 504 or body.get("status", {}).get("reason") != "DEADLINE_EXCEEDED":
+            fail(f"engine (d): Seldon-Deadline-Ms: 1 answered {code}: {body}")
+        grpc_line = engine_grpc_check(fused, bodies[0], results[0][1])
+        print(f"[engine] (d) /pause, predictions, /ready, /unpause, /ready answered {seen}; "
+              f"Seldon-Deadline-Ms: 1 on the 2-leaf graph answered 504 DEADLINE_EXCEEDED "
+              f"({body['status']['info']}); {grpc_line} [{card}]", flush=True)
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        comp_httpd.shutdown()
+        comp_httpd.server_close()
+    del fused, unfused, routed, servers, model_b, models
+    print(f"[engine] phase_s {time.perf_counter() - t_phase:.1f} [{card}]", flush=True)
+    return launches_a + launches_b
+
+
+def body_for(images, puid: str) -> dict:
+    return {"meta": {"puid": puid},
+            "data": {"tensor": {"shape": list(images.shape), "values": images.ravel().tolist()}}}
+
+
+def seldon_message(body: dict):
+    from seldon_core_tpu_torch.contracts.payload import SeldonMessage
+
+    return SeldonMessage.from_dict(body)
+
+
+def engine_grpc_check(engine, body: dict, rest_answer: dict) -> str:
+    """``Seldon/Predict`` on the gRPC engine server for ``body``: its
+    answer must equal REST's (meta exactly, logits within ENGINE_FUSE_TOL
+    of max|logit|: the same kernels on the same inputs). Only a missing
+    grpcio or protobuf skips it, with words that say so."""
+    import numpy as np
+
+    try:
+        import grpc
+
+        from seldon_core_tpu_torch.transport import proto_convert as pc
+        from seldon_core_tpu_torch.transport.grpc_server import make_engine_server
+        from seldon_core_tpu_torch.transport.proto import prediction_pb2 as pb
+    except ImportError as e:
+        if (e.name or "").split(".")[0] not in ("grpc", "google"):
+            raise
+        return f"gRPC unverified: the '{e.name}' module is not installed here"
+    # a request of 8 images is ~9.6 MB of proto: past gRPC's 4 MiB default
+    srv = make_engine_server(engine, host="127.0.0.1", port=None,
+                             annotations={"seldon.io/grpc-max-message-size": str(64 << 20)})
+    port = srv.add_insecure_port("127.0.0.1:0")
+    srv.start()
+    try:
+        with grpc.insecure_channel(f"127.0.0.1:{port}") as channel:
+            rpc = channel.unary_unary("/seldon.protos.Seldon/Predict",
+                                      request_serializer=lambda m: m.SerializeToString(),
+                                      response_deserializer=pb.SeldonMessage.FromString)
+            got = pc.message_from_proto(rpc(pc.message_to_proto(seldon_message(body)),
+                                            timeout=600)).to_dict()
+    finally:
+        srv.stop(None)
+    g, w = logits_of(got), logits_of(rest_answer)
+    err = float(np.abs(g - w).max())
+    if got["meta"] != rest_answer["meta"] or g.shape != w.shape or \
+            err > ENGINE_FUSE_TOL * float(np.abs(w).max()):
+        fail(f"engine (d): gRPC Seldon/Predict differs from REST: meta {got['meta']} vs "
+             f"{rest_answer['meta']}, logits max |diff| {err:.4g}")
+    return f"gRPC Seldon/Predict of (a)'s first request = REST's answer (max |diff| {err:.3g})"
+
+
+def engine_llm_phase(card: str, server) -> dict:
+    """(c) The loaded bf16 Llama-2-7B server as the one component of a
+    graph: one single-prompt jsonData predict through the engine app must
+    give the greedy tokens of the same server's own component app, its
+    kernels launched (K1 and K2: the engine path over the served LLM's
+    kernels), and the engine's /metrics must carry the LLM series.
+    Returns the launches of the engine request."""
+    from seldon_core_tpu_torch.runtime.engine import GraphEngine
+    from seldon_core_tpu_torch.transport.rest import make_engine_app, start
+
+    label = "bf16 engine"
+    svc, httpd, url, build_s = build_service(label, server)
+    engine = GraphEngine(graph_spec({"name": "llm", "type": "MODEL"}),
+                         components={"llm": server}, device="cuda")
+    e_httpd, _ = start(make_engine_app(engine, device="cuda"))
+    e_url = f"http://127.0.0.1:{e_httpd.server_address[1]}"
+    body = {"meta": {"puid": "llm-0"}, "jsonData": {"prompt": prompt_text(3),
+                                                     "max_new_tokens": MAX_NEW}}
+    try:
+        code, own = post(url + "/api/v0.1/predictions", body)
+        if code != 200:
+            fail(f"[{label}] the component app answered {code}: {own}")
+        zero_counts(server)
+        t0 = time.perf_counter()
+        code, got = post(e_url + "/api/v0.1/predictions", body)
+        wall = time.perf_counter() - t0
+        counts = read_counts(server)
+        samples = scrape(e_url)
+    finally:
+        e_httpd.shutdown()
+        e_httpd.server_close()
+        stop_service(label, server, svc, httpd)
+    if code != 200:
+        fail(f"[{label}] the engine app answered {code}: {got}")
+    tokens, want = got["jsonData"]["tokens"][0], own["jsonData"]["tokens"][0]
+    if tokens != want or len(tokens) != MAX_NEW:
+        fail(f"[{label}] the engine's tokens {tokens} differ from the component app's {want}")
+    if got["meta"].get("requestPath") != {"llm": "LLMServer"} or got["meta"]["puid"] != "llm-0":
+        fail(f"[{label}] meta {got['meta']}")
+    if counts["k1"] <= 0 or counts["k2"] <= 0:
+        fail(f"[{label}] the engine request launched K1 {counts['k1']} and K2 {counts['k2']} "
+             f"times")
+    ttft = sample(samples, "seldon_llm_ttft_seconds_count")
+    pages = sample(samples, "seldon_llm_kv_pages_total")
+    if ttft != 1 or pages <= 0:
+        fail(f"[{label}] the engine's /metrics: seldon_llm_ttft_seconds_count {ttft}, "
+             f"seldon_llm_kv_pages_total {pages}")
+    print(f"[{label}] (c) the bf16 Llama-2-7B server as a one-unit graph's component: one "
+          f"single-prompt jsonData predict through the engine app in {wall * 1e3:.1f} ms, "
+          f"{len(tokens)} greedy tokens = its own component app's answer; K1 {counts['k1']} "
+          f"and K2 {counts['k2']} launches (batcher built in {build_s:.2f} s); the engine's "
+          f"/metrics: seldon_llm_ttft_seconds_count {ttft:.0f}, seldon_llm_kv_pages_total "
+          f"{pages:.0f} [{card}]", flush=True)
+    return counts
+
+
+# ---------------------------------------------------------------------------
 # Batched LoRA, tenants and checkpoints
 # ---------------------------------------------------------------------------
 def lora_cfg():
@@ -4570,6 +5062,17 @@ def main() -> int:
     if sys.argv[1:] == ["--lora"]:
         print_lora_runs(card, lora_runs_phase(card)[1])
         return 0
+    if sys.argv[1:] == ["--predict"]:
+        model, _ = resnet_forward_phase(card)
+        resnet_serving_phase(card, model)
+        return 0
+    if sys.argv[1:] == ["--engine"]:
+        model, _ = resnet_forward_phase(card)
+        engine_phase(card, model)
+        del model
+        server, _ = load_llm("bf16", card, {})
+        engine_llm_phase(card, server)
+        return 0
 
     # 3. kernel phase
     scratch = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
@@ -4720,6 +5223,8 @@ def main() -> int:
             runs[label] = serve(label, card, server, weight_bytes, fuse=fuse)
         # (a) / (b): the n-gram spec batcher on the same loaded server
         server.decode_fuse_steps = 0
+        if model == "bf16":  # the engine phase's (c): the LLM as a graph's component
+            spec_launches.append(("bf16 engine", engine_llm_phase(card, server)))
         label = f"{model} spec ngram"
         records, spec_runs[label] = spec_phase(label, card, server, "ngram",
                                                plain=runs[model][1])
@@ -4804,6 +5309,8 @@ def main() -> int:
     k3_launches = resnet_serving_phase(card, model)
     if k3_launches == 0:
         fail("predict serving: K3 (csrc/fused_resnet_wgmma.cu) never launched")
+    # 7. the graph engine over ResNet-50 leaves: (a), (b), (d)
+    k3_launches += engine_phase(card, model)
     del model
 
     def entry(name, route, source, replaces, launches, r):

@@ -5,15 +5,16 @@ High-level methods receive arrays/bytes/str plus feature names and meta;
 ``*_raw`` escape hatches receive the full SeldonMessage;
 ``metrics()``/``tags()``/``class_names()``/``feature_names()`` enrich
 responses. The ``client_*`` helpers call a component's method when it
-defines one and fall back as the reference does. The JAX package's
-``jax_fn()`` fusion hook has no counterpart: there is no XLA graph to fuse
-into.
+defines one and fall back as the reference does. ``torch_fn()`` is the port
+of the JAX package's ``jax_fn()`` fusion hook: the graph engine composes a
+router-free subtree of components that expose it into one function on its
+device (``runtime/engine.py``).
 """
 
 from __future__ import annotations
 
 import logging
-from typing import Any, Dict, List, Optional, Sequence, Union
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
@@ -120,6 +121,13 @@ class SeldonComponent:
 
     def class_names(self) -> List[str]:
         raise NotImplementedError
+
+    # -- fusion hook ----------------------------------------------------
+    def torch_fn(self) -> Optional[Tuple[Callable[..., Any], Any]]:
+        """``(fn, params)`` where ``fn(params, x)`` takes and returns a
+        tensor on the component's device, or None. Lets the graph engine
+        run this unit inside one composed function with its neighbours."""
+        return None
 
 
 # ---------------------------------------------------------------------------

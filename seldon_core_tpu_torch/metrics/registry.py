@@ -2,7 +2,12 @@
 
 Port of the part of ``seldon_core_tpu/metrics/registry.py`` whose sources
 exist in the port: the API request counter and latency histogram, observed
-by the REST and gRPC routes, and the LLM serving series that
+by the REST and gRPC routes; the engine app's feedback and reward
+counters, the resilience series (admission sheds, deadline expiries and
+remaining budget, breaker state, transitions and rejections, in-flight and
+queued requests) and the components' in-band custom metrics
+(``register_custom``: each COUNTER / GAUGE / TIMER in a response's
+``meta.metrics`` becomes a family of its own); and the LLM serving series that
 ``LLMServer.llm_stats`` feeds at scrape time (TTFT, inter-token gap, decode
 step / dispatch / sync walls, host lag, steps in flight, the KV bytes,
 occupancy and page pool, speculative decoding's acceptance counters, the
@@ -27,6 +32,10 @@ LATENCY_BUCKETS = (
     0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0,
 )
 HOST_LAG_BUCKETS = (0, 1, 2, 3, 4, 6, 8, 16, 32)
+_CUSTOM_KINDS = {"COUNTER": "counter", "GAUGE": "gauge", "TIMER": "histogram"}
+# prometheus_client's default histogram buckets (the custom timers')
+DEFAULT_BUCKETS = (0.005, 0.01, 0.025, 0.05, 0.075, 0.1, 0.25, 0.5, 0.75, 1.0, 2.5, 5.0, 7.5,
+                   10.0)
 SPEC_ACCEPTED_BUCKETS = (1, 2, 3, 4, 5, 6, 8, 12, 16)
 
 _BASE = ("deployment_name", "predictor_name")
@@ -82,26 +91,29 @@ class _Family:
         for labels, c in self.children.items():
             pairs = dict(zip(self.labelnames, labels))
             if self.kind != "histogram":
-                out.append(f"{name}{{{self._labels(pairs)}}} {_go_float(c)}")
+                out.append(f"{name}{self._labels(pairs)} {_go_float(c)}")
                 continue
             cum = 0
             for bound, n in zip(self.bounds, c):
                 cum += n
-                out.append(f"{name}_bucket{{{self._labels(dict(pairs, le=_go_float(bound)))}}} "
+                out.append(f"{name}_bucket{self._labels(dict(pairs, le=_go_float(bound)))} "
                            f"{_go_float(cum)}")
-            out.append(f"{name}_count{{{self._labels(pairs)}}} {_go_float(cum)}")
-            out.append(f"{name}_sum{{{self._labels(pairs)}}} {_go_float(c[-1])}")
+            out.append(f"{name}_count{self._labels(pairs)} {_go_float(cum)}")
+            out.append(f"{name}_sum{self._labels(pairs)} {_go_float(c[-1])}")
         return out
 
     @staticmethod
     def _labels(pairs: Dict[str, str]) -> str:
-        return ",".join(f'{k}="{_escape_label(str(v))}"' for k, v in sorted(pairs.items()))
+        if not pairs:
+            return ""
+        return "{" + ",".join(f'{k}="{_escape_label(str(v))}"'
+                              for k, v in sorted(pairs.items())) + "}"
 
 
 class MetricsRegistry:
-    """The component app's series. ``observe_api_call`` and ``sync_llm``
-    may be called from any thread; ``expose`` renders one consistent
-    snapshot."""
+    """The component and engine apps' series. ``observe_*``, ``sync_*``
+    and ``register_custom`` may be called from any thread; ``expose``
+    renders one consistent snapshot."""
 
     def __init__(self, deployment: str = "", predictor: str = ""):
         self.deployment = deployment or os.environ.get("DEPLOYMENT_NAME", "")
@@ -118,6 +130,36 @@ class MetricsRegistry:
                         "API requests by method and code", "counter", ("method", "code"))
         self._latency = fam("seldon_api_executor_server_requests_seconds", "API latency",
                             "histogram", ("method",), LATENCY_BUCKETS)
+        self._feedback = fam("seldon_api_model_feedback", "Feedback events", "counter")
+        self._feedback_reward = fam("seldon_api_model_feedback_reward",
+                                    "Cumulative feedback reward", "counter")
+        # the resilience layer (runtime/resilience.py): sheds, deadlines,
+        # breaker states and transitions, admission occupancy
+        self._shed = fam("seldon_resilience_shed",
+                         "Requests shed at admission (503 + Retry-After / RESOURCE_EXHAUSTED)",
+                         "counter", ("transport",))
+        self._deadline_exceeded = fam("seldon_resilience_deadline_exceeded",
+                                      "Requests that exhausted their deadline budget", "counter",
+                                      ("transport",))
+        self._breaker_state = fam("seldon_resilience_breaker_state",
+                                  "Per-node circuit breaker state (0 closed, 1 half-open, 2 open)",
+                                  "gauge", ("node",))
+        self._breaker_transitions = fam("seldon_resilience_breaker_transitions",
+                                        "Per-node circuit breaker transitions by target state",
+                                        "counter", ("node", "to"))
+        self._breaker_rejected = fam("seldon_resilience_breaker_rejected",
+                                     "Calls rejected by an open circuit breaker", "counter",
+                                     ("node",))
+        self._inflight = fam("seldon_resilience_inflight", "Admitted requests currently in flight",
+                             "gauge", ("transport",))
+        self._queue_depth = fam("seldon_resilience_queue_depth",
+                                "Requests waiting in the admission queue", "gauge", ("transport",))
+        self._remaining_budget = fam("seldon_resilience_remaining_budget_seconds",
+                                     "Deadline budget remaining at response time", "histogram",
+                                     buckets=LATENCY_BUCKETS)
+        # custom in-band metrics, a family each, keyed by name and tag set
+        self._custom: Dict[str, _Family] = {}
+        self._bound_breakers: set = set()
         self._kv_cache_bytes = fam("seldon_llm_kv_cache_bytes",
                                    "Resident KV-cache bytes (continuous-batching slot caches + "
                                    "pinned prefix-cache entries)", "gauge")
@@ -251,6 +293,92 @@ class MetricsRegistry:
             self._api.children[key] = self._api.child(key) + 1.0
             self._observe(self._latency, self._base() + (method,), seconds)
 
+    def observe_prediction(self, engine: Any, response: Any, seconds: float) -> None:
+        """One engine prediction answered 200, and its in-band metrics."""
+        self.observe_api_call("predictions", "200", seconds)
+        self.register_custom(response)
+
+    def observe_feedback(self, feedback: Any) -> None:
+        with self._lock:
+            base = self._base()
+            self._feedback.children[base] = self._feedback.child(base) + 1.0
+            if feedback.reward:
+                self._feedback_reward.children[base] = (self._feedback_reward.child(base)
+                                                        + abs(feedback.reward))
+
+    def observe_deadline_exceeded(self, transport: str) -> None:
+        with self._lock:
+            key = self._base() + (transport,)
+            self._deadline_exceeded.children[key] = self._deadline_exceeded.child(key) + 1.0
+
+    def observe_remaining_budget(self, seconds: float) -> None:
+        with self._lock:
+            self._observe(self._remaining_budget, self._base(), max(seconds, 0.0))
+
+    def sync_resilience(self, engine: Any = None, admission: Any = None,
+                        transport: str = "rest") -> None:
+        """Refresh the breaker and admission series at scrape time; each
+        breaker's transition callback is wired to the transitions counter
+        on first sight (idempotent)."""
+        base = self._base()
+        if engine is not None and hasattr(engine, "breakers"):
+            for node, breaker in engine.breakers():
+                if id(breaker) not in self._bound_breakers:
+                    self._bound_breakers.add(id(breaker))
+
+                    def on_transition(name, to):
+                        with self._lock:
+                            key = base + (name, to)
+                            fam = self._breaker_transitions
+                            fam.children[key] = fam.child(key) + 1.0
+
+                    breaker.on_transition = on_transition
+                state = float(breaker.state_code())
+                with self._lock:
+                    self._breaker_state.children[base + (node,)] = state
+                    key = base + (node,)
+                    self._breaker_rejected.children[key] = max(
+                        self._breaker_rejected.child(key), float(breaker.rejected_total))
+        if admission is not None:
+            depth = float(admission.queue_depth())
+            with self._lock:
+                key = base + (transport,)
+                self._inflight.children[key] = float(admission.inflight)
+                self._queue_depth.children[key] = depth
+                self._shed.children[key] = max(self._shed.child(key), float(admission.shed_total))
+
+    def register_custom(self, response: Any) -> None:
+        """Register the COUNTER / GAUGE / TIMER metrics carried in a
+        response's meta: a family each, named by the metric's key, labelled
+        by its tags (no deployment labels), as prometheus_client builds
+        them in the JAX package. TIMER values arrive in milliseconds."""
+        with self._lock:
+            for m in response.meta.metrics:
+                tags = dict(sorted(m.tags.items()))
+                key = m.key + "|" + ",".join(f"{k}={v}" for k, v in tags.items())
+                fam = self._custom.get(key)
+                if fam is None:
+                    kind = _CUSTOM_KINDS.get(m.type)
+                    if kind is None:
+                        continue
+                    name = m.key[:-len("_total")] if (kind == "counter"
+                                                      and m.key.endswith("_total")) else m.key
+                    if any(f.name == name for f in self._families):
+                        raise ValueError(f"Duplicated timeseries in CollectorRegistry: {name}")
+                    fam = _Family(name, f"custom {m.type.lower()}", kind, tuple(tags),
+                                  DEFAULT_BUCKETS if kind == "histogram" else ())
+                    if not tags:
+                        fam.child(())  # an unlabelled family shows 0 from its creation
+                    self._custom[key] = fam
+                    self._families.append(fam)
+                labels = tuple(str(v) for v in tags.values())
+                if fam.kind == "counter":
+                    fam.children[labels] = fam.child(labels) + float(m.value)
+                elif fam.kind == "gauge":
+                    fam.children[labels] = float(m.value)
+                else:
+                    self._observe(fam, labels, float(m.value) / 1000.0)
+
     def sync_llm(self, component: Any) -> None:
         """Refresh the LLM series from ``component.llm_stats()`` (a no-op
         for a component without it): gauges set, the page-shed counter
@@ -324,5 +452,5 @@ class MetricsRegistry:
 
 CONTENT_TYPE = "text/plain; version=0.0.4; charset=utf-8"
 
-__all__ = ["CONTENT_TYPE", "HOST_LAG_BUCKETS", "LATENCY_BUCKETS", "MetricsRegistry",
-           "SPEC_ACCEPTED_BUCKETS"]
+__all__ = ["CONTENT_TYPE", "DEFAULT_BUCKETS", "HOST_LAG_BUCKETS", "LATENCY_BUCKETS",
+           "MetricsRegistry", "SPEC_ACCEPTED_BUCKETS"]

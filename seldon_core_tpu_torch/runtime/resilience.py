@@ -1,16 +1,258 @@
-"""Load shedding error of the port.
+"""Resilience primitives of the port: deadline budgets, circuit breakers,
+load shedding. Copied from ``seldon_core_tpu/runtime/resilience.py``, the
+parts the graph engine and its transports use:
 
-Copied from ``seldon_core_tpu/runtime/resilience.py`` (``ShedError``): the
-batcher raises it when the KV page pool is exhausted, and the REST layer
-renders it as 503 with a ``Retry-After`` header. Deadlines and the admission
-controller stay with the JAX package until a later slice ports them.
+- **Deadline**: a request-level time budget from the transport edge (REST
+  header ``Seldon-Deadline-Ms``, gRPC ``seldon-deadline-ms`` metadata or the
+  call's deadline) through the engine's node execution; an exhausted budget
+  stops the remaining nodes with 504 / ``DEADLINE_EXCEEDED``. It travels
+  in a contextvar, so the sync engine path (``GraphEngine.predict_sync`` on
+  a transport thread) reads it without signature changes.
+- **CircuitBreaker**: per node, closed -> open (after N consecutive
+  failures) -> half-open probe -> closed. The engine wraps asynchronous
+  node calls in one; a ROUTER reroutes around an open child and a COMBINER
+  drops open branches when the graph allows partial responses.
+- **AdmissionController**: bounded in-flight plus a bounded FIFO queue at
+  the transport edge; overflow sheds at once (503 + ``Retry-After`` /
+  ``RESOURCE_EXHAUSTED``). The port's transports run each request on a
+  thread of their own (the stdlib HTTP server, gRPC's pool), so admission
+  here is the JAX package's thread-blocking half (``acquire_sync``).
+- **ShedError**: the shed itself; the batcher raises it too when the KV
+  page pool is exhausted.
+
+Everything takes an injectable monotonic ``clock`` for deterministic
+tests. The replica fleet's ``RetryBudget`` and resume journal come with the
+fleet slice.
 """
 
 from __future__ import annotations
 
+import asyncio
+import threading
+import time
+from collections import deque
+from contextlib import contextmanager
+from contextvars import ContextVar
+from typing import Callable, Dict, Optional
+
 from seldon_core_tpu_torch.contracts.payload import SeldonError
 
+ANNOTATION_DEADLINE_DEFAULT = "seldon.io/deadline-default-ms"
+ANNOTATION_BREAKER_FAILURES = "seldon.io/circuit-breaker-max-failures"
+ANNOTATION_BREAKER_RESET = "seldon.io/circuit-breaker-reset-ms"
+ANNOTATION_ALLOW_PARTIAL = "seldon.io/allow-partial"
+ANNOTATION_MAX_INFLIGHT = "seldon.io/max-inflight"
+ANNOTATION_MAX_QUEUE = "seldon.io/max-queue"
+ANNOTATION_RETRY_AFTER = "seldon.io/shed-retry-after-s"
+
+DEADLINE_HEADER = "Seldon-Deadline-Ms"
+DEADLINE_GRPC_METADATA = "seldon-deadline-ms"
+
+DEFAULT_BREAKER_FAILURES = 5
+DEFAULT_BREAKER_RESET_S = 30.0
 DEFAULT_RETRY_AFTER_S = 1
+
+
+def _parse_float(annotations: Dict[str, str], key: str,
+                 default: Optional[float]) -> Optional[float]:
+    try:
+        return float(annotations[key])
+    except (KeyError, TypeError, ValueError):
+        return default
+
+
+def _parse_int(annotations: Dict[str, str], key: str, default: int) -> int:
+    try:
+        return int(annotations[key])
+    except (KeyError, TypeError, ValueError):
+        return default
+
+
+# ---------------------------------------------------------------------------
+# Deadline budgets
+# ---------------------------------------------------------------------------
+
+
+class DeadlineExceeded(SeldonError):
+    """Request budget exhausted: HTTP 504 / gRPC DEADLINE_EXCEEDED."""
+
+    def __init__(self, message: str):
+        super().__init__(message, status_code=504, reason="DEADLINE_EXCEEDED")
+
+
+class Deadline:
+    """A monotonic-clock time budget for one request. ``clock`` is any
+    zero-argument callable returning monotonic seconds."""
+
+    __slots__ = ("budget_s", "clock", "deadline_t")
+
+    def __init__(self, budget_s: float, clock: Callable[[], float] = time.monotonic):
+        self.budget_s = float(budget_s)
+        self.clock = clock
+        self.deadline_t = clock() + self.budget_s
+
+    @classmethod
+    def from_ms(cls, ms: float, clock: Callable[[], float] = time.monotonic) -> "Deadline":
+        return cls(float(ms) / 1000.0, clock=clock)
+
+    def remaining_s(self) -> float:
+        return self.deadline_t - self.clock()
+
+    def check(self, where: str = "") -> None:
+        rem = self.remaining_s()
+        if rem <= 0.0:
+            at = f" at {where}" if where else ""
+            raise DeadlineExceeded(
+                f"deadline exceeded{at}: budget {self.budget_s * 1000:.0f}ms "
+                f"overrun by {-rem * 1000:.0f}ms")
+
+
+# The in-flight request's deadline, set by a transport (or engine.predict
+# given one) and read by the engine before each node.
+DEADLINE: ContextVar[Optional[Deadline]] = ContextVar("seldon_deadline", default=None)
+
+
+def current_deadline() -> Optional[Deadline]:
+    return DEADLINE.get()
+
+
+@contextmanager
+def deadline_scope(deadline: Optional[Deadline]):
+    token = DEADLINE.set(deadline)
+    try:
+        yield deadline
+    finally:
+        DEADLINE.reset(token)
+
+
+# ---------------------------------------------------------------------------
+# Circuit breakers
+# ---------------------------------------------------------------------------
+
+CLOSED = "closed"
+OPEN = "open"
+HALF_OPEN = "half_open"
+
+_STATE_CODES = {CLOSED: 0, HALF_OPEN: 1, OPEN: 2}
+
+
+class BreakerOpen(SeldonError):
+    """Call rejected because the node's breaker is open."""
+
+    def __init__(self, node: str, retry_in_s: float):
+        super().__init__(
+            f"circuit breaker open for node {node!r} (retry in {max(retry_in_s, 0.0):.1f}s)",
+            status_code=503, reason="CIRCUIT_OPEN")
+        self.node = node
+        self.retry_in_s = max(retry_in_s, 0.0)
+
+
+class CircuitBreaker:
+    """Per-node breaker: closed -> open after ``failure_threshold``
+    consecutive failures -> half-open probe after ``reset_timeout_s`` ->
+    closed on the probe's success (open again on its failure). Thread-safe;
+    ``clock`` may be swapped after build."""
+
+    def __init__(self, name: str, failure_threshold: int = DEFAULT_BREAKER_FAILURES,
+                 reset_timeout_s: float = DEFAULT_BREAKER_RESET_S,
+                 clock: Callable[[], float] = time.monotonic):
+        self.name = name
+        self.failure_threshold = int(failure_threshold)
+        self.reset_timeout_s = float(reset_timeout_s)
+        self.clock = clock
+        self.state = CLOSED
+        self.consecutive_failures = 0
+        self.opened_at = 0.0
+        self._probe_inflight = False
+        self.transitions: Dict[str, int] = {CLOSED: 0, OPEN: 0, HALF_OPEN: 0}
+        self.rejected_total = 0
+        self.on_transition: Optional[Callable[[str, str], None]] = None
+        self._lock = threading.Lock()
+
+    def _transition(self, to: str) -> None:
+        self.state = to
+        self.transitions[to] += 1
+        if to == OPEN:
+            self.opened_at = self.clock()
+            self.consecutive_failures = 0
+        if to != HALF_OPEN:
+            self._probe_inflight = False
+        cb = self.on_transition
+        if cb is not None:
+            try:
+                cb(self.name, to)
+            except Exception:
+                pass  # observability must never fail the data path
+
+    def allow(self) -> bool:
+        """May a call proceed now? Consumes the half-open probe slot."""
+        with self._lock:
+            if self.state == CLOSED:
+                return True
+            if self.state == OPEN:
+                if self.clock() - self.opened_at >= self.reset_timeout_s:
+                    self._transition(HALF_OPEN)
+                else:
+                    self.rejected_total += 1
+                    return False
+            if self._probe_inflight:  # half-open: one probe at a time
+                self.rejected_total += 1
+                return False
+            self._probe_inflight = True
+            return True
+
+    def available(self) -> bool:
+        """Would a call be allowed, without consuming the probe slot?"""
+        with self._lock:
+            if self.state == CLOSED:
+                return True
+            if self.state == OPEN:
+                return self.clock() - self.opened_at >= self.reset_timeout_s
+            return not self._probe_inflight
+
+    def record_success(self) -> None:
+        with self._lock:
+            self.consecutive_failures = 0
+            if self.state != CLOSED:
+                self._transition(CLOSED)
+
+    def record_failure(self) -> None:
+        with self._lock:
+            if self.state == HALF_OPEN:
+                self._transition(OPEN)
+                return
+            self.consecutive_failures += 1
+            if self.state == CLOSED and 0 < self.failure_threshold <= self.consecutive_failures:
+                self._transition(OPEN)
+
+    def release_probe(self) -> None:
+        """The probe's outcome is unknown (cancelled): free the half-open
+        slot without judging the node."""
+        with self._lock:
+            if self.state == HALF_OPEN:
+                self._probe_inflight = False
+
+    def trip(self) -> None:
+        """Force open, whatever the failure count."""
+        with self._lock:
+            if self.state != OPEN:
+                self._transition(OPEN)
+
+    def retry_in_s(self) -> float:
+        with self._lock:
+            if self.state != OPEN:
+                return 0.0
+            return self.reset_timeout_s - (self.clock() - self.opened_at)
+
+    def state_code(self) -> int:
+        """0 closed, 1 half-open, 2 open (the metrics gauge's encoding)."""
+        with self._lock:
+            return _STATE_CODES[self.state]
+
+
+# ---------------------------------------------------------------------------
+# Admission control (load shedding)
+# ---------------------------------------------------------------------------
 
 
 class ShedError(SeldonError):
@@ -21,4 +263,157 @@ class ShedError(SeldonError):
         self.retry_after_s = retry_after_s
 
 
-__all__ = ["DEFAULT_RETRY_AFTER_S", "ShedError"]
+class AdmissionController:
+    """Bounded in-flight limit plus a bounded FIFO queue, shedding when
+    both are full. ``max_inflight <= 0`` disables it (the default).
+    Callers on their own thread ``acquire_sync()`` and ``release()``."""
+
+    def __init__(self, max_inflight: int = 0, max_queue: int = 0,
+                 retry_after_s: float = DEFAULT_RETRY_AFTER_S):
+        self.max_inflight = int(max_inflight)
+        self.max_queue = int(max_queue)
+        self.retry_after_s = float(retry_after_s)
+        self.inflight = 0
+        self.shed_total = 0
+        self.admitted_total = 0
+        self._waiters: deque = deque()  # threading.Event a waiter
+        self._lock = threading.Lock()
+
+    @classmethod
+    def from_annotations(cls, annotations: Optional[Dict[str, str]],
+                         env: Optional[Dict[str, str]] = None) -> "AdmissionController":
+        """Annotations win over env vars (SELDON_MAX_INFLIGHT /
+        SELDON_MAX_QUEUE / SELDON_SHED_RETRY_AFTER_S); both absent means
+        disabled."""
+        import os
+
+        env = dict(env if env is not None else os.environ)
+        ann = dict(annotations or {})
+
+        def pick(key: str, env_key: str, default: float) -> float:
+            for source, k in ((ann, key), (env, env_key)):
+                try:
+                    return float(source[k])
+                except (KeyError, TypeError, ValueError):
+                    continue
+            return default
+
+        return cls(
+            max_inflight=int(pick(ANNOTATION_MAX_INFLIGHT, "SELDON_MAX_INFLIGHT", 0)),
+            max_queue=int(pick(ANNOTATION_MAX_QUEUE, "SELDON_MAX_QUEUE", 0)),
+            retry_after_s=pick(ANNOTATION_RETRY_AFTER, "SELDON_SHED_RETRY_AFTER_S",
+                               DEFAULT_RETRY_AFTER_S))
+
+    @property
+    def enabled(self) -> bool:
+        return self.max_inflight > 0
+
+    def queue_depth(self) -> int:
+        with self._lock:
+            return len(self._waiters)
+
+    def _shed(self) -> ShedError:
+        """Build and count one shed; callers hold the lock."""
+        self.shed_total += 1
+        return ShedError(f"server at capacity: {self.inflight} in flight, "
+                         f"{len(self._waiters)}/{self.max_queue} queued",
+                         retry_after_s=self.retry_after_s)
+
+    def acquire_sync(self, timeout_s: Optional[float] = None) -> None:
+        """An immediate slot, else a place in the queue (blocking this
+        thread until a release hands it a slot), else ShedError."""
+        if not self.enabled:
+            return
+        with self._lock:
+            if self.inflight < self.max_inflight:
+                self.inflight += 1
+                self.admitted_total += 1
+                return
+            if len(self._waiters) >= self.max_queue:
+                raise self._shed()
+            event = threading.Event()
+            self._waiters.append(event)
+        if event.wait(timeout_s):
+            return
+        with self._lock:
+            try:
+                self._waiters.remove(event)
+            except ValueError:  # the grant raced the timeout: give the slot back
+                granted = True
+            else:
+                granted = False
+                err = self._shed()
+        if not granted:
+            raise err
+        self.release()
+        with self._lock:
+            err = self._shed()
+        raise err
+
+    def release(self) -> None:
+        """Finish one admitted request; hand its slot to the oldest waiter."""
+        if not self.enabled:
+            return
+        with self._lock:
+            if self._waiters:
+                self._waiters.popleft().set()
+                self.admitted_total += 1  # slot transferred, inflight unchanged
+                return
+            self.inflight = max(self.inflight - 1, 0)
+
+
+# ---------------------------------------------------------------------------
+# Engine-level config
+# ---------------------------------------------------------------------------
+
+
+class ResilienceConfig:
+    """Per-graph resilience settings, parsed from deployment annotations."""
+
+    __slots__ = ("breaker_failures", "breaker_reset_s", "allow_partial", "default_deadline_ms",
+                 "clock")
+
+    def __init__(self, breaker_failures: int = DEFAULT_BREAKER_FAILURES,
+                 breaker_reset_s: float = DEFAULT_BREAKER_RESET_S, allow_partial: bool = False,
+                 default_deadline_ms: Optional[float] = None,
+                 clock: Callable[[], float] = time.monotonic):
+        self.breaker_failures = breaker_failures
+        self.breaker_reset_s = breaker_reset_s
+        self.allow_partial = allow_partial
+        self.default_deadline_ms = default_deadline_ms
+        self.clock = clock
+
+    @classmethod
+    def from_annotations(cls, annotations: Optional[Dict[str, str]]) -> "ResilienceConfig":
+        ann = dict(annotations or {})
+        reset_ms = _parse_float(ann, ANNOTATION_BREAKER_RESET, DEFAULT_BREAKER_RESET_S * 1000.0)
+        return cls(
+            breaker_failures=_parse_int(ann, ANNOTATION_BREAKER_FAILURES,
+                                        DEFAULT_BREAKER_FAILURES),
+            breaker_reset_s=(reset_ms or 0.0) / 1000.0,
+            allow_partial=str(ann.get(ANNOTATION_ALLOW_PARTIAL, "")).lower()
+            in ("true", "1", "yes"),
+            default_deadline_ms=_parse_float(ann, ANNOTATION_DEADLINE_DEFAULT, None))
+
+    def make_breaker(self, name: str) -> Optional[CircuitBreaker]:
+        if self.breaker_failures <= 0:
+            return None
+        return CircuitBreaker(name, failure_threshold=self.breaker_failures,
+                              reset_timeout_s=self.breaker_reset_s, clock=self.clock)
+
+
+def failure_counts_for_breaker(exc: BaseException) -> bool:
+    """Which errors trip a breaker: infrastructure failures (5xx, timeouts,
+    transport errors); not client errors (4xx), not the breaker's own
+    rejections and not cancellation."""
+    if isinstance(exc, (BreakerOpen, asyncio.CancelledError)):
+        return False
+    if isinstance(exc, SeldonError):
+        return exc.status_code >= 500
+    return True
+
+
+__all__ = ["AdmissionController", "BreakerOpen", "CircuitBreaker", "DEADLINE_GRPC_METADATA",
+           "DEADLINE_HEADER", "DEFAULT_RETRY_AFTER_S", "Deadline", "DeadlineExceeded",
+           "ResilienceConfig", "ShedError", "current_deadline", "deadline_scope",
+           "failure_counts_for_breaker"]

@@ -14,7 +14,8 @@ Checkpoint layout at ``model_uri`` (what the JAX package's
 
 Serving path: request ndarray -> cast to ``input_dtype`` -> pad the batch to
 its bucket -> the model's forward on ``device`` -> slice back to the true
-batch -> host numpy. For a folded ResNet the forward is
+batch -> host numpy. ``torch_fn`` hands the same forward to the graph
+engine, which composes it with its neighbours on the device. For a folded ResNet the forward is
 ``models/resnet_infer.resnet_serve_forward`` with every identity chain on
 the hand-written K3 kernel: ``JAXServer`` serves XLA's graph of the flax
 module, and the port, which has no XLA, runs its own eager forward, in
@@ -141,6 +142,21 @@ class TorchServer(SeldonComponent):
         if isinstance(out, tuple):
             out = out[0]
         return out[:true_n].float().cpu().numpy()
+
+    def torch_fn(self):
+        """The fusion hook (``jax_fn`` of ``JAXServer``): ``(fn, module)``
+        where ``fn(module, x)`` is ``predict``'s forward on a float32 tensor
+        already on ``device``, without the bucket padding (as ``jax_fn``
+        applies the model to the batch it is given)."""
+        if not self.ready:
+            self.load()
+        apply_kwargs = self._apply_kwargs
+
+        def fn(module, x):
+            out = module(x, **apply_kwargs)
+            return out[0] if isinstance(out, tuple) else out
+
+        return fn, self._module
 
     def class_names(self):
         return self._config.get("class_names")

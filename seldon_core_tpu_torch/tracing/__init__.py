@@ -1,0 +1,28 @@
+"""The port's tracer: a no-op stand-in for ``seldon_core_tpu/tracing``.
+
+The graph engine opens a span per node (``get_tracer().span(...)``); here
+every span is a null context manager, so a node costs one call. The real
+tracer (W3C ``traceparent``, the flight recorder, ``/debug/timeline``)
+comes with the tracing slice of the port.
+"""
+
+from __future__ import annotations
+
+from contextlib import nullcontext
+
+
+class NoopTracer:
+    """A tracer that records nothing."""
+
+    def span(self, name: str, **attributes):
+        return nullcontext()
+
+
+_TRACER = NoopTracer()
+
+
+def get_tracer() -> NoopTracer:
+    return _TRACER
+
+
+__all__ = ["NoopTracer", "get_tracer"]

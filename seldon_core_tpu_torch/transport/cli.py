@@ -12,9 +12,17 @@ need not), loads it and serves it over REST (``transport/rest.py``) or gRPC
 (``transport/grpc_server.py``; without grpcio or protobuf installed it exits
 naming the missing module, with no fallback to REST). The gRPC server reads
 the pod's annotations from the downward-API file ``ANNOTATIONS_FILE``
-(``seldon.io/grpc-max-message-size``), as the JAX package's CLI does. The
-other subcommands of ``seldon_core_tpu.transport.cli`` arrive with later
-slices.
+(``seldon.io/grpc-max-message-size``), as the JAX package's CLI does.
+
+``python -m seldon_core_tpu_torch.transport.cli engine [--spec graph.json]
+[--api REST|GRPC] --port N [--device cuda|cpu]`` serves a predictor graph
+in-process (``runtime/engine.GraphEngine``) over the engine app
+(``transport/rest.make_engine_app``) or the gRPC engine server. The spec
+comes from ``--spec``, else ``ENGINE_PREDICTOR`` (base64 JSON) or
+``ENGINE_PREDICTOR_FILE``, else the reference engine's default one-unit
+SIMPLE_MODEL graph; the annotations file tunes admission, deadlines and
+breakers. ``--api IPC`` comes with the native-edge slice. The other
+subcommands of ``seldon_core_tpu.transport.cli`` arrive with later slices.
 """
 
 from __future__ import annotations
@@ -22,6 +30,7 @@ from __future__ import annotations
 import argparse
 import importlib
 import inspect
+import json
 import logging
 import os
 import sys
@@ -89,9 +98,13 @@ def build_component(interface_name: str, device: str):
     return component
 
 
-def run_microservice(args: argparse.Namespace) -> None:
+def setup_logging() -> None:
     logging.basicConfig(level=os.environ.get("SELDON_LOG_LEVEL", "INFO").upper(),
                         format="%(asctime)s %(levelname)s %(name)s: %(message)s")
+
+
+def run_microservice(args: argparse.Namespace) -> None:
+    setup_logging()
     api = (args.api or "REST").upper()
     if api not in ("REST", "GRPC"):
         raise SystemExit(f"Unknown API type {api} (use REST or GRPC)")
@@ -112,6 +125,56 @@ def run_microservice(args: argparse.Namespace) -> None:
     serve(make_component_app(component, device=args.device), host=args.host, port=port)
 
 
+DEFAULT_GRAPH = {"name": "default",
+                 "graph": {"name": "simple", "type": "MODEL", "implementation": "SIMPLE_MODEL"}}
+
+
+def load_spec(path: Optional[str]):
+    """The predictor spec from ``path``, else the environment
+    (``load_predictor_spec_from_env``), else the reference engine's default
+    one-unit SIMPLE_MODEL graph (`EnginePredictor.java:122-141`)."""
+    from seldon_core_tpu_torch.contracts.graph import PredictorSpec, load_predictor_spec_from_env
+
+    if path:
+        with open(path) as f:
+            return PredictorSpec.from_dict(json.load(f))
+    spec = load_predictor_spec_from_env()
+    return spec if spec is not None else PredictorSpec.from_dict(DEFAULT_GRAPH)
+
+
+def run_engine(args: argparse.Namespace) -> None:
+    setup_logging()
+    api = (args.api or "REST").upper()
+    if api == "IPC":
+        raise SystemExit("--api IPC (the shared-memory ring) arrives with the native-edge slice "
+                         "of the port; use REST or GRPC")
+    if api not in ("REST", "GRPC"):
+        raise SystemExit(f"Unknown API type {api} (use REST or GRPC)")
+    if api == "GRPC":
+        try:  # before the graph loads: a missing module fails fast
+            from seldon_core_tpu_torch.transport.grpc_server import serve_engine
+        except ImportError as e:
+            raise SystemExit(f"the GRPC API needs the '{e.name}' module, which is not "
+                             f"installed: {e}") from e
+    from seldon_core_tpu_torch.metrics.registry import MetricsRegistry
+    from seldon_core_tpu_torch.runtime.engine import GraphEngine
+
+    spec = load_spec(args.spec)
+    annotations = load_annotations(ANNOTATIONS_FILE)
+    engine = GraphEngine(spec, annotations=annotations, device=args.device)
+    metrics = MetricsRegistry(predictor=spec.name)
+    port = args.port or int(os.environ.get("ENGINE_SERVER_PORT", "8000"))
+    logging.getLogger(__name__).info("engine serving predictor %r on port %d (%s)", spec.name,
+                                     port, api)
+    if api == "GRPC":
+        serve_engine(engine, host=args.host, port=port, metrics=metrics, annotations=annotations)
+        return
+    from seldon_core_tpu_torch.transport.rest import make_engine_app, serve
+
+    serve(make_engine_app(engine, metrics=metrics, annotations=annotations, device=args.device),
+          host=args.host, port=port)
+
+
 def main(argv: Optional[list] = None) -> None:
     parser = argparse.ArgumentParser(prog="seldon-core-tpu-torch")
     sub = parser.add_subparsers(dest="command", required=True)
@@ -122,6 +185,13 @@ def main(argv: Optional[list] = None) -> None:
     ms.add_argument("--host", default="0.0.0.0")
     ms.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ms.set_defaults(func=run_microservice)
+    eng = sub.add_parser("engine", help="serve a predictor graph in-process")
+    eng.add_argument("--spec", default=None, help="path to a PredictorSpec JSON")
+    eng.add_argument("--api", default="REST", help="REST or GRPC")
+    eng.add_argument("--port", type=int, default=None)
+    eng.add_argument("--host", default="0.0.0.0")
+    eng.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    eng.set_defaults(func=run_engine)
     args = parser.parse_args(argv)
     args.func(args)
 

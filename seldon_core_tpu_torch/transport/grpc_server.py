@@ -1,20 +1,29 @@
-"""gRPC component server of the port.
-
-Port of the component half of ``seldon_core_tpu/transport/grpc_server.py``
-(``make_component_server`` / ``serve_component``): the same services and
-method table as the JAX package, served through
+"""gRPC servers of the port: ``seldon_core_tpu/transport/grpc_server.py``'s
+component server (``make_component_server`` / ``serve_component``) and
+engine server (``make_engine_server`` / ``serve_engine``), the same services
+and method tables as the JAX package, served through
 ``grpc.method_handlers_generic_handler`` over the copied stubs
-(``transport/proto/prediction_pb2.py``):
+(``transport/proto/prediction_pb2.py``).
+
+The component server:
 
 - ``Model/Predict`` through ``components/dispatch.predict``, so an LLM's
   single-prompt jsonData joins its shared batch and a ``TorchServer``
-  answers as over REST;
+  answers as over REST; ``Generic``, ``Router``, ``Transformer``,
+  ``OutputTransformer`` and ``Combiner``'s ``TransformInput``,
+  ``TransformOutput``, ``Route``, ``Aggregate`` and ``SendFeedback``
+  through the other dispatch methods;
 - ``Model/GenerateStream`` (unary-stream): the SSE contract of
   ``/v1/generate`` on this transport — one jsonData ``{"token", "text"}``
   per token, then the ``done`` event, with the same INVALID_ARGUMENT
   rejections before the stream starts (``streaming.stream_service``);
-- every other rpc of the JAX table aborts UNIMPLEMENTED naming the slice
-  that brings it.
+- ``Model/DebugTimeline`` aborts UNIMPLEMENTED naming the tracing slice.
+
+The engine server serves ``Seldon/Predict`` and ``Seldon/SendFeedback``
+through a ``runtime/engine.GraphEngine`` on the gRPC worker thread
+(``predict_sync``): admission sheds RESOURCE_EXHAUSTED, and the call's
+deadline (or ``seldon-deadline-ms`` metadata) spent before a node aborts
+DEADLINE_EXCEEDED.
 
 Tenant and SLO class ride the ``seldon-tenant`` / ``seldon-slo-class``
 metadata (the jsonData fields win) under REST's rules, with the jsonData
@@ -27,6 +36,7 @@ protobuf are imported with this module: the CLI names whichever is missing.
 from __future__ import annotations
 
 import logging
+import time
 from concurrent import futures
 from typing import Any, Callable, Dict, Optional
 
@@ -34,6 +44,10 @@ import grpc
 
 from seldon_core_tpu_torch.components import dispatch
 from seldon_core_tpu_torch.contracts.payload import SeldonError, SeldonMessage
+from seldon_core_tpu_torch.metrics.registry import MetricsRegistry
+from seldon_core_tpu_torch.runtime.resilience import (DEADLINE_GRPC_METADATA,
+                                                      AdmissionController, Deadline, ShedError,
+                                                      deadline_scope)
 from seldon_core_tpu_torch.transport import proto_convert as pc
 from seldon_core_tpu_torch.transport.proto import prediction_pb2 as pb
 from seldon_core_tpu_torch.transport.streaming import (check_identity, stream_events,
@@ -46,16 +60,6 @@ DEFAULT_MAX_MSG_BYTES = 4 * 1024 * 1024
 MAX_WORKERS = 8
 
 _SERVICE_PACKAGE = "seldon.protos"
-
-_ENGINE_SLICE = "arrives with the engine slice of the port"
-_LATER_RPCS = {
-    "TransformInput": _ENGINE_SLICE,
-    "TransformOutput": _ENGINE_SLICE,
-    "Route": _ENGINE_SLICE,
-    "Aggregate": _ENGINE_SLICE,
-    "SendFeedback": _ENGINE_SLICE,
-    "DebugTimeline": "arrives with the tracing slice of the port",
-}
 
 
 def _abort(context: grpc.ServicerContext, e: Exception):
@@ -98,7 +102,7 @@ def _deadline_s(context: grpc.ServicerContext) -> Optional[float]:
         rem = None
     if rem is not None and rem < 1e9:  # grpc reports a huge value for "none"
         return rem
-    raw = _metadata_value(context, "seldon-deadline-ms")
+    raw = _metadata_value(context, DEADLINE_GRPC_METADATA)
     try:
         ms = float(raw) if raw is not None else 0.0
     except ValueError:
@@ -106,42 +110,49 @@ def _deadline_s(context: grpc.ServicerContext) -> Optional[float]:
     return ms / 1000.0 if ms > 0 else None
 
 
+def _deadline(context: grpc.ServicerContext) -> Optional[Deadline]:
+    secs = _deadline_s(context)
+    return Deadline(secs) if secs is not None else None
+
+
 def _component_methods(component: Any) -> Dict[str, Dict[str, tuple]]:
     """service -> rpc name -> (handler, request class[, kind])."""
 
-    def predict(request, context):
-        try:
-            # single-prompt continuous batching lives in dispatch.predict
-            return pc.message_to_proto(dispatch.predict(component,
-                                                        pc.message_from_proto(request)))
-        except Exception as e:  # noqa: BLE001 — the request boundary
-            _abort(context, e)
-
-    def unimplemented(name: str) -> Callable:
+    def wrap(fn: Callable, req_from: Callable) -> Callable:
         def handler(request, context):
-            context.abort(grpc.StatusCode.UNIMPLEMENTED,
-                          f"{name} is not served by this port yet: it {_LATER_RPCS[name]}")
+            try:
+                return pc.message_to_proto(dispatch.resolve(fn(component, req_from(request))))
+            except Exception as e:  # noqa: BLE001 — the request boundary
+                _abort(context, e)
         return handler
 
+    def debug_timeline(request, context):
+        context.abort(grpc.StatusCode.UNIMPLEMENTED, "DebugTimeline is not served by this "
+                      "port yet: it arrives with the tracing slice of the port")
+
+    # single-prompt continuous batching lives in dispatch.predict itself
+    predict = wrap(dispatch.predict, pc.message_from_proto)
+    tin = wrap(dispatch.transform_input, pc.message_from_proto)
+    tout = wrap(dispatch.transform_output, pc.message_from_proto)
+    route = wrap(dispatch.route, pc.message_from_proto)
+    aggregate = wrap(dispatch.aggregate, pc.list_from_proto)
+    fb = wrap(dispatch.send_feedback, pc.feedback_from_proto)
     gen_stream = _make_generate_stream(component)
-    later = {name: unimplemented(name) for name in _LATER_RPCS}
     return {
-        "Model": {"Predict": (predict, pb.SeldonMessage),
-                  "SendFeedback": (later["SendFeedback"], pb.Feedback),
+        "Model": {"Predict": (predict, pb.SeldonMessage), "SendFeedback": (fb, pb.Feedback),
                   "GenerateStream": (gen_stream, pb.SeldonMessage, "unary_stream"),
-                  "DebugTimeline": (later["DebugTimeline"], pb.SeldonMessage)},
+                  "DebugTimeline": (debug_timeline, pb.SeldonMessage)},
         "Generic": {
-            "TransformInput": (later["TransformInput"], pb.SeldonMessage),
-            "TransformOutput": (later["TransformOutput"], pb.SeldonMessage),
-            "Route": (later["Route"], pb.SeldonMessage),
-            "Aggregate": (later["Aggregate"], pb.SeldonMessageList),
-            "SendFeedback": (later["SendFeedback"], pb.Feedback),
+            "TransformInput": (tin, pb.SeldonMessage),
+            "TransformOutput": (tout, pb.SeldonMessage),
+            "Route": (route, pb.SeldonMessage),
+            "Aggregate": (aggregate, pb.SeldonMessageList),
+            "SendFeedback": (fb, pb.Feedback),
         },
-        "Router": {"Route": (later["Route"], pb.SeldonMessage),
-                   "SendFeedback": (later["SendFeedback"], pb.Feedback)},
-        "Transformer": {"TransformInput": (later["TransformInput"], pb.SeldonMessage)},
-        "OutputTransformer": {"TransformOutput": (later["TransformOutput"], pb.SeldonMessage)},
-        "Combiner": {"Aggregate": (later["Aggregate"], pb.SeldonMessageList)},
+        "Router": {"Route": (route, pb.SeldonMessage), "SendFeedback": (fb, pb.Feedback)},
+        "Transformer": {"TransformInput": (tin, pb.SeldonMessage)},
+        "OutputTransformer": {"TransformOutput": (tout, pb.SeldonMessage)},
+        "Combiner": {"Aggregate": (aggregate, pb.SeldonMessageList)},
     }
 
 
@@ -237,4 +248,65 @@ def serve_component(component: Any, host: str = "0.0.0.0", port: int = 5000,
     server.wait_for_termination()
 
 
-__all__ = ["ANNOTATION_GRPC_MAX_MSG_SIZE", "make_component_server", "serve_component"]
+def make_engine_server(engine: Any, port: Optional[int] = 5001, host: str = "0.0.0.0",
+                       metrics: Optional[MetricsRegistry] = None,
+                       annotations: Optional[Dict[str, str]] = None,
+                       admission: Optional[AdmissionController] = None) -> grpc.Server:
+    """The Seldon external service over ``engine`` (not started; ``port=None``
+    binds nothing). ``admission`` bounds concurrent predictions (overflow
+    aborts RESOURCE_EXHAUSTED); by default from the annotations and env,
+    off unless configured."""
+    metrics = metrics or MetricsRegistry()
+    admission = admission or AdmissionController.from_annotations(annotations)
+
+    def predict(request, context):
+        t0 = time.perf_counter()
+        try:
+            admission.acquire_sync()
+        except ShedError as e:
+            _abort(context, e)
+        try:
+            msg = pc.message_from_proto(request)
+            with deadline_scope(_deadline(context)):
+                out = engine.predict_sync(msg)
+            metrics.observe_prediction(engine, out, time.perf_counter() - t0)
+            return pc.message_to_proto(out)
+        except Exception as e:  # noqa: BLE001 — the request boundary
+            if getattr(e, "status_code", None) == 504:
+                metrics.observe_deadline_exceeded("grpc")
+            _abort(context, e)
+        finally:
+            admission.release()
+
+    def send_feedback(request, context):
+        try:
+            fb = pc.feedback_from_proto(request)
+            out = engine.send_feedback_sync(fb)
+            metrics.observe_feedback(fb)
+            return pc.message_to_proto(out)
+        except Exception as e:  # noqa: BLE001 — the request boundary
+            _abort(context, e)
+
+    server = grpc.server(futures.ThreadPoolExecutor(max_workers=MAX_WORKERS),
+                         options=_server_options(annotations))
+    for h in _generic_handlers({"Seldon": {"Predict": (predict, pb.SeldonMessage),
+                                           "SendFeedback": (send_feedback, pb.Feedback)}}):
+        server.add_generic_rpc_handlers((h,))
+    if port is not None:
+        server.add_insecure_port(f"{host}:{port}")
+    return server
+
+
+def serve_engine(engine: Any, host: str = "0.0.0.0", port: int = 5001,
+                 metrics: Optional[MetricsRegistry] = None,
+                 annotations: Optional[Dict[str, str]] = None) -> None:
+    """Serve ``engine`` over gRPC until terminated."""
+    server = make_engine_server(engine, port=port, host=host, metrics=metrics,
+                                annotations=annotations)
+    server.start()
+    logger.info("gRPC engine server on %s:%d", host, port)
+    server.wait_for_termination()
+
+
+__all__ = ["ANNOTATION_GRPC_MAX_MSG_SIZE", "make_component_server", "make_engine_server",
+           "serve_component", "serve_engine"]

@@ -2,8 +2,7 @@
 
 Copied from ``seldon_core_tpu/transport/openapi.py`` (host-only; the port
 imports nothing of the JAX package): ``wrapper_spec``, the microservice
-API, built programmatically. The engine's spec arrives with the engine
-slice."""
+API, and ``engine_spec``, the engine's, built programmatically."""
 
 from __future__ import annotations
 
@@ -132,4 +131,13 @@ def wrapper_spec() -> Dict[str, Any]:
     return spec
 
 
-__all__ = ["wrapper_spec"]
+def engine_spec() -> Dict[str, Any]:
+    spec = _base("seldon-core-tpu engine API")
+    spec["paths"] = {
+        "/api/v0.1/predictions": _op("SeldonMessage", "Predict through the graph"),
+        "/api/v0.1/feedback": _op("Feedback", "Send feedback through the graph"),
+    }
+    return spec
+
+
+__all__ = ["engine_spec", "wrapper_spec"]

@@ -1,16 +1,20 @@
 """REST transport of the port, on the standard library's
 ``http.server.ThreadingHTTPServer`` (the card's machine has no aiohttp).
+Two apps, as in ``seldon_core_tpu/transport/rest.py``.
 
-Port of these surfaces of ``seldon_core_tpu/transport/rest.py``: ``/ready``,
-``/live`` and ``/health/status``; the scrape routes ``/metrics`` and
-``/prometheus`` (``metrics/registry.py``, the LLM series synced from
+**The component app** (``make_component_app``) serves one component:
+``/ready``, ``/live`` and ``/health/status``; the scrape routes ``/metrics``
+and ``/prometheus`` (``metrics/registry.py``, the LLM series synced from
 ``LLMServer.llm_stats`` at each scrape) and ``/seldon.json``
-(``transport/openapi.wrapper_spec``); the one-model predict routes
-``/predict`` and ``/api/v0.1/predictions`` (GET and POST) — a SeldonMessage
-in, through ``components/dispatch.predict``, a SeldonMessage out, with the
-JAX package's body forms (raw JSON, form field ``json=``, query ``?json=``)
-and its ``{"status": ...}`` error payload; and ``POST /v1/generate`` with the
-JSON request and response schema of the JAX package:
+(``transport/openapi.wrapper_spec``); the method routes (GET and POST)
+``/predict`` and ``/api/v0.1/predictions``, ``/transform-input``,
+``/transform-output``, ``/route``, ``/aggregate`` (a SeldonMessageList),
+``/send-feedback`` and ``/api/v0.1/feedback`` (a Feedback) — the body in,
+through ``components/dispatch``, a SeldonMessage out, with the JAX
+package's body forms (raw JSON, form field ``json=``, query ``?json=``,
+multipart parts) and its ``{"status": ...}`` error payload; and ``POST
+/v1/generate`` with the JSON request and response schema of the JAX
+package:
 
     {"prompt": str|[ids], "max_new_tokens": N, "seed": S}
         one prompt; with the component's ``continuous_batching`` on it joins
@@ -48,27 +52,30 @@ predict bodies answer 415.
 
 from __future__ import annotations
 
+import base64
 import json
 import logging
+import os
 import threading
 import time
+import urllib.request
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Any, Iterator, List, Mapping, Optional, Tuple
+from typing import Any, Callable, Dict, Iterator, List, Mapping, Optional, Tuple
 from urllib.parse import parse_qs, urlsplit
 
 from seldon_core_tpu_torch.components import dispatch
-from seldon_core_tpu_torch.contracts.payload import SeldonError, SeldonMessage, Status
+from seldon_core_tpu_torch.contracts.payload import (Feedback, SeldonError, SeldonMessage,
+                                                     SeldonMessageList, Status)
 from seldon_core_tpu_torch.device import resolve_device
 from seldon_core_tpu_torch.metrics.registry import CONTENT_TYPE as PROM_CONTENT_TYPE
 from seldon_core_tpu_torch.metrics.registry import MetricsRegistry
-from seldon_core_tpu_torch.runtime.resilience import ShedError
+from seldon_core_tpu_torch.runtime.resilience import (DEADLINE_HEADER, AdmissionController,
+                                                      Deadline, ShedError, current_deadline,
+                                                      deadline_scope)
 from seldon_core_tpu_torch.transport.streaming import (check_identity, stream_events,
                                                        stream_service)
 
 logger = logging.getLogger(__name__)
-
-
-DEADLINE_HEADER = "Seldon-Deadline-Ms"
 
 
 def deadline_from_headers(headers: Mapping[str, str]) -> Optional[float]:
@@ -151,14 +158,42 @@ PREDICT_ROUTES = ("/predict", "/api/v0.1/predictions")
 CONTENT_TYPE_FRAME = "application/x-seldon-frame"
 
 
+def _multipart(content_type: str, body: bytes) -> dict:
+    """A multipart body's parts as the JAX package reads them: a file
+    part's bytes (``binData`` base64-encoded, ``strData`` decoded, any
+    other part JSON), a plain field's text (``strData`` as is, any other
+    JSON)."""
+    from email.parser import BytesParser
+    from email.policy import HTTP
+
+    msg = BytesParser(policy=HTTP).parsebytes(
+        b"Content-Type: " + content_type.encode("latin-1") + b"\r\n\r\n" + body)
+    out: dict = {}
+    for part in msg.iter_parts() if msg.is_multipart() else ():
+        key = part.get_param("name", header="content-disposition")
+        if key is None:  # aiohttp's error, a 500 in the JAX package too
+            raise ValueError("Multipart field missing name.")
+        raw = part.get_payload(decode=True) or b""
+        if part.get_filename() is not None:
+            if key == "binData":
+                out[key] = base64.b64encode(raw).decode()
+            elif key == "strData":
+                out[key] = raw.decode()
+            else:
+                out[key] = _json_loads(raw.decode("utf-8", errors="replace"))
+        else:
+            text = raw.decode(part.get_content_charset() or "utf-8", errors="replace")
+            out[key] = text if key == "strData" else _json_loads(text)
+    return out
+
+
 def parse_request(content_type: str, body: bytes, query: str) -> Any:
-    """A predict request's JSON: the raw body, a form field ``json=``, or
-    the query's ``?json=`` (the JAX package's ``parse_request`` less
-    multipart)."""
+    """A request's JSON: the raw body, a form field ``json=``, multipart
+    parts, or the query's ``?json=`` (the JAX package's
+    ``parse_request``)."""
     ctype = (content_type or "").split(";")[0].strip().lower()
     if ctype.startswith("multipart/"):
-        raise SeldonError("multipart predict bodies arrive with the engine slice of the port; "
-                          "send JSON", status_code=415)
+        return _multipart(content_type, body)
     if ctype == CONTENT_TYPE_FRAME:
         raise SeldonError("the framed binary wire (application/x-seldon-frame) arrives with "
                           "the native-edge slice of the port; send JSON", status_code=501)
@@ -195,13 +230,53 @@ def _error(e: Exception) -> Tuple[int, dict, dict]:
     return 500, {"status": status.to_dict()}, {}
 
 
+class _Handler(BaseHTTPRequestHandler):
+    """What both apps' handlers share: the JSON and text answers, the
+    error payload and the request counter (``metrics``, set per app)."""
+
+    protocol_version = "HTTP/1.1"
+    # small SSE writes must not wait for the client's delayed ACK
+    disable_nagle_algorithm = True
+    metrics: MetricsRegistry
+
+    def log_message(self, fmt, *args):  # route access logs to logging
+        logger.debug("%s " + fmt, self.address_string(), *args)
+
+    def _send(self, code: int, payload: Any, headers: Optional[dict] = None,
+              content_type: str = "application/json"):
+        data = payload if isinstance(payload, bytes) else json.dumps(payload).encode()
+        self.send_response(code)
+        self.send_header("Content-Type", content_type)
+        self.send_header("Content-Length", str(len(data)))
+        for k, v in (headers or {}).items():
+            self.send_header(k, v)
+        self.end_headers()
+        self.wfile.write(data)
+
+    def _send_text(self, code: int, text: str):
+        self._send(code, text.encode(), content_type="text/plain; charset=utf-8")
+
+    def _send_error(self, e: Exception, method: str, t0: float):
+        code, payload, headers = _error(e)
+        self.metrics.observe_api_call(method, str(code), time.perf_counter() - t0)
+        self._send(code, payload, headers)
+
+    def _not_found(self, path: str):
+        self._send(404, {"status": Status(404, f"no route {path}", "NOT_FOUND",
+                                          "FAILURE").to_dict()})
+
+    def _body(self) -> bytes:
+        length = int(self.headers.get("Content-Length") or 0)
+        return self.rfile.read(length) if length else b""
+
+
 def make_component_app(component: Any, device: Optional[str] = None):
     """The request-handler class serving ``component`` (pass it to
     ``serve`` or ``start``). ``device`` (default "cuda") is the device this
     server is meant to run on: it must resolve (no card raises) and match
     the component's, so a serving process never lands on the CPU unasked.
-    Its registry (``Handler.metrics``) counts each predict and generate
-    request by code and latency."""
+    Its registry (``Handler.metrics``) counts each
+    method and generate request by code and latency."""
     from seldon_core_tpu_torch.transport.openapi import wrapper_spec
 
     dev = resolve_device(device)
@@ -210,45 +285,32 @@ def make_component_app(component: Any, device: Optional[str] = None):
         raise ValueError(f"REST app device {dev} != component device {comp_dev}")
     registry = MetricsRegistry()
 
-    class Handler(BaseHTTPRequestHandler):
-        protocol_version = "HTTP/1.1"
-        # small SSE writes must not wait for the client's delayed ACK
-        disable_nagle_algorithm = True
+    msg, lst, fbk = SeldonMessage.from_dict, SeldonMessageList.from_dict, Feedback.from_dict
+    routes: Dict[str, Tuple[Callable, Callable, str]] = {
+        "/predict": (dispatch.predict, msg, "predict"),
+        "/api/v0.1/predictions": (dispatch.predict, msg, "predict"),
+        "/transform-input": (dispatch.transform_input, msg, "transform_input"),
+        "/transform-output": (dispatch.transform_output, msg, "transform_output"),
+        "/route": (dispatch.route, msg, "route"),
+        "/aggregate": (dispatch.aggregate, lst, "aggregate"),
+        "/send-feedback": (dispatch.send_feedback, fbk, "send_feedback"),
+        "/api/v0.1/feedback": (dispatch.send_feedback, fbk, "send_feedback"),
+    }
+
+    class Handler(_Handler):
         metrics = registry
 
-        def log_message(self, fmt, *args):  # route access logs to logging
-            logger.debug("%s " + fmt, self.address_string(), *args)
-
-        def _send(self, code: int, payload: Any, headers: Optional[dict] = None,
-                  content_type: str = "application/json"):
-            data = payload if isinstance(payload, bytes) else json.dumps(payload).encode()
-            self.send_response(code)
-            self.send_header("Content-Type", content_type)
-            self.send_header("Content-Length", str(len(data)))
-            for k, v in (headers or {}).items():
-                self.send_header(k, v)
-            self.end_headers()
-            self.wfile.write(data)
-
-        def _send_error(self, e: Exception, method: str, t0: float):
-            code, payload, headers = _error(e)
-            registry.observe_api_call(method, str(code), time.perf_counter() - t0)
-            self._send(code, payload, headers)
-
-        def _not_found(self, path: str):
-            self._send(404, {"status": Status(404, f"no route {path}", "NOT_FOUND",
-                                              "FAILURE").to_dict()})
-
-        def _predict(self, raw: bytes, query: str):
+        def _method(self, route, raw: bytes, query: str):
+            fn, parser, name = route
             t0 = time.perf_counter()
             try:
                 body = parse_request(self.headers.get("Content-Type", ""), raw, query)
-                msg = dispatch.predict(component, SeldonMessage.from_dict(body))
+                out = dispatch.resolve(fn(component, parser(body)))
             except Exception as e:  # the request boundary: answer, keep serving
-                self._send_error(e, "predict", t0)
+                self._send_error(e, name, t0)
                 return
-            registry.observe_api_call("predict", "200", time.perf_counter() - t0)
-            self._send(200, msg.to_dict())
+            registry.observe_api_call(name, "200", time.perf_counter() - t0)
+            self._send(200, out.to_dict())
 
         def _write_events(self, events):
             # one chunk an event (its size line, data and CRLF), a burst of
@@ -296,17 +358,16 @@ def make_component_app(component: Any, device: Optional[str] = None):
                 self._send(200, registry.expose(), content_type=PROM_CONTENT_TYPE)
             elif url.path == "/seldon.json":
                 self._send(200, wrapper_spec())
-            elif url.path in PREDICT_ROUTES:
-                self._predict(b"", url.query)
+            elif url.path in routes:
+                self._method(routes[url.path], b"", url.query)
             else:
                 self._not_found(url.path)
 
         def do_POST(self):
-            length = int(self.headers.get("Content-Length") or 0)
-            raw = self.rfile.read(length) if length else b""
+            raw = self._body()
             url = urlsplit(self.path)
-            if url.path in PREDICT_ROUTES:
-                self._predict(raw, url.query)
+            if url.path in routes:
+                self._method(routes[url.path], raw, url.query)
                 return
             if url.path != "/v1/generate":
                 self._not_found(url.path)
@@ -330,8 +391,196 @@ def make_component_app(component: Any, device: Optional[str] = None):
     return Handler
 
 
+def _post_to_logger(url: str, pair: dict) -> None:
+    """POST one request/response pair to the request logger as a CloudEvent
+    (the reference's `PredictionService.java:162-191`); a failure is
+    logged, never raised."""
+    headers = {"Content-Type": "application/json", "CE-Type": "seldon.message.pair",
+               "CE-Source": "seldon-engine-tpu", "CE-SDep": os.environ.get("DEPLOYMENT_NAME", ""),
+               "CE-RequestId": (pair["response"].get("meta") or {}).get("puid", "")}
+    try:
+        req = urllib.request.Request(url, data=json.dumps(pair).encode(), headers=headers)
+        with urllib.request.urlopen(req, timeout=2) as r:
+            r.read()
+    except Exception as e:  # logging must never fail the request
+        logger.warning("request-logger post failed: %s", e)
+
+
+def make_engine_app(engine: Any, metrics: Optional[MetricsRegistry] = None,
+                    admission: Optional[AdmissionController] = None,
+                    annotations: Optional[dict] = None, device: Optional[str] = None):
+    """The request-handler class serving ``engine`` (a
+    ``runtime/engine.GraphEngine``; pass it to ``serve`` or ``start``).
+    ``device`` (default "cuda") must resolve and match the engine's.
+    ``admission`` bounds concurrent predictions (overflow sheds 503 +
+    Retry-After); by default it comes from the annotations and env
+    (``AdmissionController.from_annotations``), off unless configured. The
+    handler thread drives the graph (``predict_sync``) inside the request's
+    deadline scope. ``Handler.state`` holds the pause and ready flags."""
+    from seldon_core_tpu_torch.transport.openapi import engine_spec
+
+    dev = resolve_device(device)
+    if engine.device != dev:
+        raise ValueError(f"REST app device {dev} != engine device {engine.device}")
+    registry = metrics or MetricsRegistry()
+    admission = admission or AdmissionController.from_annotations(annotations)
+    state = {"paused": False, "ready": True}
+    log_requests = os.environ.get("SELDON_LOG_REQUESTS", "") == "1"
+    log_responses = os.environ.get("SELDON_LOG_RESPONSES", "") == "1"
+    logger_url = os.environ.get("REQUEST_LOGGER_URL", "")
+    profile_lock = threading.Lock()
+
+    def log_pair(req_dict: dict, resp_dict: dict) -> None:
+        if log_requests:
+            print(json.dumps({"request": req_dict}), flush=True)
+        if log_responses:
+            print(json.dumps({"response": resp_dict}), flush=True)
+        if logger_url:
+            threading.Thread(target=_post_to_logger, name="request-logger", daemon=True,
+                             args=(logger_url, {"request": req_dict, "response": resp_dict})
+                             ).start()
+
+    class Handler(_Handler):
+        metrics = registry
+
+        def _predictions(self, raw: bytes, query: str):
+            if state["paused"]:
+                self._send(503, {"status": {"code": 503, "info": "paused", "status": "FAILURE"}})
+                return
+            t0 = time.perf_counter()
+            try:
+                # admission before parsing: a shed stays cheap under load
+                admission.acquire_sync()
+            except ShedError as e:
+                self._send_error(e, "predictions", t0)
+                return
+            try:
+                # the budget starts before the body is parsed, as in the JAX app
+                secs = deadline_from_headers(self.headers)
+                deadline = Deadline(secs) if secs is not None else None
+                body = parse_request(self.headers.get("Content-Type", ""), raw, query)
+                msg = SeldonMessage.from_dict(body)
+                with deadline_scope(deadline):
+                    out = engine.predict_sync(msg)
+                    d = current_deadline()
+                    if d is not None:
+                        registry.observe_remaining_budget(d.remaining_s())
+                registry.observe_prediction(engine, out, time.perf_counter() - t0)
+                resp = out.to_dict()
+                if log_requests or log_responses or logger_url:
+                    log_pair(body, resp)
+                self._send(200, resp)
+            except Exception as e:  # the request boundary: answer, keep serving
+                if getattr(e, "status_code", 500) == 504:
+                    registry.observe_deadline_exceeded("rest")
+                self._send_error(e, "predictions", t0)
+            finally:
+                admission.release()
+
+        def _feedback(self, raw: bytes, query: str):
+            t0 = time.perf_counter()
+            try:
+                body = parse_request(self.headers.get("Content-Type", ""), raw, query)
+                fb = Feedback.from_dict(body)
+                out = engine.send_feedback_sync(fb)
+                registry.observe_feedback(fb)
+            except Exception as e:  # the request boundary: answer, keep serving
+                self._send_error(e, "feedback", t0)
+                return
+            registry.observe_api_call("feedback", "200", time.perf_counter() - t0)
+            self._send(200, out.to_dict())
+
+        def _control(self, path: str) -> bool:
+            """The routes both GET and POST reach; False for another path."""
+            if path == "/pause":
+                state["paused"] = True
+                self._send_text(200, "paused")
+            elif path == "/unpause":
+                state["paused"] = False
+                self._send_text(200, "unpaused")
+            else:
+                return False
+            return True
+
+        def do_GET(self):
+            url = urlsplit(self.path)
+            if self._control(url.path):
+                return
+            if url.path == "/ready":
+                if state["ready"] and not state["paused"]:
+                    self._send_text(200, "ready")
+                else:
+                    self._send_text(503, "not ready")
+            elif url.path == "/live":
+                self._send_text(200, "live")
+            elif url.path == "/ping":
+                self._send_text(200, "pong")
+            elif url.path in ("/metrics", "/prometheus"):
+                registry.sync_resilience(engine=engine, admission=admission, transport="rest")
+                for comp in engine._components.values():
+                    registry.sync_llm(comp)
+                self._send(200, registry.expose(), content_type=PROM_CONTENT_TYPE)
+            elif url.path == "/seldon.json":
+                self._send(200, engine_spec())
+            elif url.path == "/debug/timeline":
+                self._send(501, {"status": Status(501, "/debug/timeline arrives with the "
+                                                       "tracing slice of the port",
+                                                  "NOT_IMPLEMENTED", "FAILURE").to_dict()})
+            else:
+                self._not_found(url.path)
+
+        def do_POST(self):
+            raw = self._body()
+            url = urlsplit(self.path)
+            if url.path in ("/api/v0.1/predictions", "/predict"):
+                self._predictions(raw, url.query)
+            elif url.path in ("/api/v0.1/feedback", "/send-feedback"):
+                self._feedback(raw, url.query)
+            elif url.path == "/profile":
+                self._profile(url.query)
+            elif not self._control(url.path):
+                self._not_found(url.path)
+
+        def _profile(self, query: str):
+            """A ``torch.profiler`` trace (host, and the card's kernels on
+            CUDA) of ``?seconds=N`` (default 2, at most 60) written under
+            ``SELDON_PROFILE_DIR``; opt-in, one at a time."""
+            base = os.environ.get("SELDON_PROFILE_DIR", "")
+            if not base:
+                self._send(403, {"status": {"code": 403,
+                                            "info": "set SELDON_PROFILE_DIR to enable"}})
+                return
+            if not profile_lock.acquire(blocking=False):
+                self._send(409, {"status": {"code": 409, "info": "profile already running"}})
+                return
+            try:
+                try:
+                    seconds = float(parse_qs(query).get("seconds", ["2"])[0])
+                except ValueError:
+                    seconds = 2.0
+                if not (0 < seconds <= 60):  # also false for NaN
+                    seconds = 2.0
+                from torch.profiler import ProfilerActivity, profile
+
+                activities = [ProfilerActivity.CPU]
+                if engine.device.type == "cuda":
+                    activities.append(ProfilerActivity.CUDA)
+                out_dir = os.path.join(base, f"trace_{int(time.time())}")
+                os.makedirs(out_dir, exist_ok=True)
+                with profile(activities=activities) as prof:
+                    time.sleep(seconds)
+                prof.export_chrome_trace(os.path.join(out_dir, "trace.json"))
+            finally:
+                profile_lock.release()
+            self._send(200, {"trace_dir": out_dir, "seconds": seconds})
+
+    Handler.state = state
+    return Handler
+
+
 def serve(app, host: str = "0.0.0.0", port: int = 9000) -> None:
-    """Serve ``app`` (from ``make_component_app``) until interrupted."""
+    """Serve ``app`` (from ``make_component_app`` or ``make_engine_app``)
+    until interrupted."""
     with ThreadingHTTPServer((host, port), app) as httpd:
         logger.info("REST serving on %s:%d", host, httpd.server_address[1])
         httpd.serve_forever()
@@ -348,4 +597,4 @@ def start(app, host: str = "127.0.0.1", port: int = 0):
     return httpd, thread
 
 
-__all__ = ["make_component_app", "parse_request", "serve", "start"]
+__all__ = ["make_component_app", "make_engine_app", "parse_request", "serve", "start"]

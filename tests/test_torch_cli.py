@@ -111,3 +111,28 @@ def test_constructor_rejecting_the_parameters_exits(model_dir, monkeypatch):
                        json.dumps([{"name": "bogus", "value": "1", "type": "INT"}]))
     with pytest.raises(SystemExit, match="bogus"):
         cli.build_component("PortModel", "cpu")
+
+
+def test_engine_spec_sources_as_jax(tmp_path, monkeypatch):
+    """``engine``'s spec: ``--spec`` file, else ENGINE_PREDICTOR (base64),
+    else the reference's default SIMPLE_MODEL graph — the JAX CLI's
+    ``_load_spec`` on each source."""
+    import base64
+
+    monkeypatch.chdir(tmp_path)  # no ./deploymentdef.json here
+    monkeypatch.delenv("ENGINE_PREDICTOR", raising=False)
+    assert cli.load_spec(None).to_dict() == jax_cli._load_spec(None).to_dict()
+    graph = {"name": "g", "graph": {"name": "ab", "type": "ROUTER",
+                                    "implementation": "RANDOM_ABTEST",
+                                    "children": [{"name": "a", "type": "MODEL"}]}}
+    path = tmp_path / "spec.json"
+    path.write_text(json.dumps(graph))
+    assert cli.load_spec(str(path)).to_dict() == jax_cli._load_spec(str(path)).to_dict()
+    monkeypatch.setenv("ENGINE_PREDICTOR", base64.b64encode(json.dumps(graph).encode()).decode())
+    assert cli.load_spec(None).to_dict() == jax_cli._load_spec(None).to_dict()
+
+
+@pytest.mark.parametrize("api,match", [("IPC", "native-edge slice"), ("SOAP", "Unknown API")])
+def test_engine_refuses_other_apis(api, match):
+    with pytest.raises(SystemExit, match=match):
+        cli.main(["engine", "--api", api, "--device", "cpu"])

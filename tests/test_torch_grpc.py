@@ -11,8 +11,9 @@ package's ``grpc_client`` as the client of both:
 - ``Model/Predict`` gives JAX's payload for an LLM prompt (it joins the
   batch) and for a tiny host model, and a ``TorchServer`` answers as over
   REST;
-- every unported rpc of the JAX method table aborts UNIMPLEMENTED naming
-  its slice; the max-message-size annotation is honoured;
+- the transform, route, aggregate and feedback rpcs answer the JAX
+  component server's replies; ``DebugTimeline`` aborts UNIMPLEMENTED naming
+  the tracing slice; the max-message-size annotation is honoured;
 - the CLI's GRPC api serves with the annotations file's max message size,
   and without grpcio it exits naming the module."""
 
@@ -218,13 +219,19 @@ def test_predict_torchserver_answers_as_over_rest(tmp_path):
     assert got["data"]["tensor"]["shape"] == [2, 5]
 
 
+_X = {"data": {"ndarray": [[1.0, 2.0]]}, "meta": {"puid": "rpc"}}
+_FB = {"request": _X, "response": dict(_X, meta={"puid": "rpc", "routing": {"llm": 0}}),
+       "reward": 1.0}
+# the rpcs the engine slice serves now (each compared with the JAX
+# component server's reply) and the one still to come
 UNPORTED = [
-    ("Generic", "TransformInput", SeldonMessage(), "engine slice"),
-    ("Generic", "TransformOutput", SeldonMessage(), "engine slice"),
-    ("Router", "Route", SeldonMessage(), "engine slice"),
-    ("Combiner", "Aggregate", SeldonMessageList(messages=[SeldonMessage()]), "engine slice"),
-    ("Model", "SendFeedback", Feedback(reward=1.0), "engine slice"),
-    ("Generic", "SendFeedback", Feedback(reward=1.0), "engine slice"),
+    ("Generic", "TransformInput", SeldonMessage.from_dict(_X), None),
+    ("Generic", "TransformOutput", SeldonMessage.from_dict(_X), None),
+    ("Router", "Route", SeldonMessage.from_dict(_X), None),
+    ("Combiner", "Aggregate", SeldonMessageList(messages=[SeldonMessage.from_dict(_X)] * 2),
+     None),
+    ("Model", "SendFeedback", Feedback.from_dict(_FB), None),
+    ("Generic", "SendFeedback", Feedback.from_dict(_FB), None),
     ("Model", "DebugTimeline", SeldonMessage(), "tracing slice"),
 ]
 
@@ -232,11 +239,25 @@ UNPORTED = [
 @pytest.mark.parametrize("service,method,msg,slice_name", UNPORTED,
                          ids=[f"{s}/{m}" for s, m, *_ in UNPORTED])
 def test_unported_rpc_is_unimplemented(servers, service, method, msg, slice_name):
-    _, ptarget, _, _ = servers
-    with pytest.raises(grpc.RpcError) as e:
-        grpc_client.call_sync(ptarget, method, msg, service=service, timeout_s=TIMEOUT)
-    assert e.value.code() == grpc.StatusCode.UNIMPLEMENTED
-    assert slice_name in e.value.details() and method in e.value.details()
+    """The engine slice's rpcs of the JAX method table are served: each
+    answers what the JAX component server answers for the same LLM (its
+    reply, or its status code and details); DebugTimeline aborts
+    UNIMPLEMENTED naming the tracing slice."""
+    jtarget, ptarget, _, _ = servers
+
+    def call(target):
+        try:
+            return grpc_client.call_sync(target, method, msg, service=service,
+                                         timeout_s=TIMEOUT).to_dict()
+        except grpc.RpcError as e:
+            return e.code(), e.details()
+
+    got = call(ptarget)
+    if slice_name is None:
+        assert got == call(jtarget)
+        return
+    assert got[0] == grpc.StatusCode.UNIMPLEMENTED
+    assert slice_name in got[1] and method in got[1]
 
 
 def test_max_message_size_annotation_is_honoured():

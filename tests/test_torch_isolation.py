@@ -7,11 +7,15 @@ package, and it never falls back to the CPU on its own.
   spec, the metrics registry, the radix prefix cache, the adapter pool and
   the scheduler among them), serves one CPU ``generate()``, writes an LLM
   checkpoint and serves it through ``LLMServer(model_uri=...)`` with an
-  adapter pool, and writes, loads and serves a ResNet checkpoint through
-  ``TorchServer``;
+  adapter pool, writes, loads and serves a ResNet checkpoint through
+  ``TorchServer``, and boots the ``engine`` CLI on its default SIMPLE_MODEL
+  graph and serves a prediction through it (the graph engine, its
+  builtins, bandit routers, resilience and no-op tracer among the modules
+  it requires);
 - an AST walk over the package and ``chip_smoke.py`` finds no import of
   ``jax``, ``flax``, ``msgpack`` or ``seldon_core_tpu`` / ``seldon_core_tpu.*``;
-- ``LLMServer()`` with no ``device`` raises when no CUDA device is present.
+- ``LLMServer()``, ``GraphEngine()`` and ``make_engine_app()`` with no
+  ``device`` raise when no CUDA device is present.
 """
 
 import ast
@@ -39,6 +43,9 @@ need = {"seldon_core_tpu_torch.transport." + m for m in (
     "grpc_server", "proto_convert", "proto.prediction_pb2", "openapi", "streaming")}
 need |= {"seldon_core_tpu_torch.metrics.registry", "seldon_core_tpu_torch.runtime.radix",
          "seldon_core_tpu_torch.runtime.adapters", "seldon_core_tpu_torch.runtime.scheduler"}
+need |= {"seldon_core_tpu_torch." + m for m in (
+    "runtime.engine", "runtime.resilience", "components.builtin", "components.metrics",
+    "analytics.routers", "tracing", "contracts.graph")}
 assert need <= set(mods), need - set(mods)
 from seldon_core_tpu_torch.servers.llmserver import LLMServer
 s = LLMServer(model="llama-tiny", init_random=True, max_new_tokens=4, eos_id=-1,
@@ -63,6 +70,29 @@ with tempfile.TemporaryDirectory() as d:
     srv.load()
 x = np.random.default_rng(0).standard_normal((3, 32, 32, 3)).astype(np.float32)
 assert srv.predict(x, []).shape == (3, 5)
+# the engine CLI on its default SIMPLE_MODEL graph, over REST
+import json, socket, threading, time, urllib.request
+from seldon_core_tpu_torch.transport import cli
+sock = socket.socket()
+sock.bind(("127.0.0.1", 0))
+port = sock.getsockname()[1]
+sock.close()
+threading.Thread(target=cli.main, daemon=True, args=(
+    ["engine", "--device", "cpu", "--host", "127.0.0.1", "--port", str(port)],)).start()
+for _ in range(400):
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/ready", timeout=1) as r:
+            if r.status == 200:
+                break
+    except OSError:
+        time.sleep(0.05)
+req = urllib.request.Request(f"http://127.0.0.1:{port}/api/v0.1/predictions",
+                             data=json.dumps({"data": {"ndarray": [[1.0, 2.0]]}}).encode(),
+                             headers={"Content-Type": "application/json"})
+with urllib.request.urlopen(req, timeout=30) as r:
+    got = json.loads(r.read())
+assert got["meta"]["requestPath"] == {"simple": "SimpleModel"}, got
+assert got["data"]["names"] == ["class0", "class1", "class2"], got
 print("OK", len(mods))
 """
 
@@ -103,8 +133,18 @@ def test_default_device_raises_without_cuda(monkeypatch):
     from seldon_core_tpu_torch.models import get_model
     from seldon_core_tpu_torch.servers.llmserver import LLMServer
     from seldon_core_tpu_torch.servers.torchserver import TorchServer
+    from seldon_core_tpu_torch.contracts.graph import PredictorSpec
+    from seldon_core_tpu_torch.runtime.engine import GraphEngine
+    from seldon_core_tpu_torch.transport.rest import make_engine_app
 
+    spec = PredictorSpec.from_dict({"name": "p", "graph": {
+        "name": "m", "type": "MODEL", "implementation": "SIMPLE_MODEL"}})
+    cpu_engine = GraphEngine(spec, device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        GraphEngine(spec)
+    with pytest.raises(RuntimeError, match="cuda"):
+        make_engine_app(cpu_engine)
     with pytest.raises(RuntimeError, match="cuda"):
         LLMServer(model="llama-tiny", init_random=True)
     with pytest.raises(RuntimeError, match="cuda"):

@@ -1872,3 +1872,74 @@ def test_lora_row_written_in_place_is_read_by_the_next_replay(dev):
     _assert_state_equal(b, new_copy)
     assert not all(torch.equal(x, y) for la, lb in zip(new_copy[0], old_copy[0])
                    for x, y in zip(la, lb))
+
+
+# ---------------------------------------------------------------------------
+# the graph engine: a fused AVERAGE_COMBINER over two JAX_SERVER ResNets
+# ---------------------------------------------------------------------------
+def _engine_pair(dev, tmp_path):
+    """Two live folded ResNet-18 checkpoints (64x64, 10 classes) under an
+    AVERAGE_COMBINER: (fused engine, unfused engine, the two modules)."""
+    from seldon_core_tpu_torch.contracts.graph import PredictorSpec
+    from seldon_core_tpu_torch.models import get_model
+    from seldon_core_tpu_torch.runtime.engine import GraphEngine
+    from seldon_core_tpu_torch.servers.torchserver import export_checkpoint
+
+    children, models = [], []
+    for name, seed in (("a", 1), ("b", 2)):
+        m = get_model("resnet18", num_classes=10, fused=True, device=dev)
+        m.init_params(torch.Generator(device=dev).manual_seed(seed))
+        assert all(blk.Conv_2.kernel.abs().max().item() > 0 for blk in m.blocks())
+        path = str(tmp_path / name)
+        export_checkpoint(path, "resnet18", {"params": m.param_tree()},
+                          kwargs={"num_classes": 10, "fused": True}, input_shape=[64, 64, 3])
+        children.append({"name": name, "type": "MODEL", "implementation": "JAX_SERVER",
+                         "modelUri": path})
+        models.append(m)
+    spec = PredictorSpec.from_dict({"name": "p", "graph": {
+        "name": "avg", "type": "COMBINER", "implementation": "AVERAGE_COMBINER",
+        "children": children}})
+    return (GraphEngine(spec, device="cuda"), GraphEngine(spec, fuse=False, device="cuda"),
+            models)
+
+
+def _engine_logits(engine, x):
+    from seldon_core_tpu_torch.contracts.payload import SeldonMessage
+
+    out = engine.predict_sync(SeldonMessage.from_dict(
+        {"data": {"tensor": {"shape": list(x.shape), "values": x.ravel().tolist()}}})).to_dict()
+    t = out["data"]["tensor"]
+    return np.asarray(t["values"], np.float64).reshape(t["shape"]), out["meta"]
+
+
+@pytest.mark.parametrize("batch", [8, 1])
+def test_engine_fused_combiner_runs_k3_and_equals_unfused(dev, tmp_path, batch):
+    """Fused (one composed call on the card, the mean on the card) and
+    unfused (each TorchServer's predict, the mean in float64 on the host)
+    both run K3 ``expected_launches`` times per leaf forward, answer within
+    1e-5 of max|logit| of each other, and within 0.03 of max|logit| of the
+    mean of the two cuDNN-chain forwards on the same weights."""
+    from seldon_core_tpu_torch.models.resnet_infer import resnet_serve_forward
+
+    fused, unfused, models = _engine_pair(dev, tmp_path)
+    x = np.random.default_rng(batch).standard_normal((batch, 64, 64, 3)).round(3)
+    xt = torch.from_numpy(x.astype(np.float32)).to(dev)
+    with torch.no_grad():
+        before = fused_resnet.fused_identity_chain.launches
+        models[0](xt)
+        torch.cuda.synchronize()
+        per_forward = fused_resnet.fused_identity_chain.launches - before
+        ref = torch.stack([resnet_serve_forward(m, xt, pallas_stages=()) for m in models]
+                          ).mean(0).double().cpu().numpy()
+    assert per_forward > 0
+    got = {}
+    for name, engine in (("fused", fused), ("unfused", unfused)):
+        before = fused_resnet.fused_identity_chain.launches
+        got[name], meta = _engine_logits(engine, x)
+        assert fused_resnet.fused_identity_chain.launches - before == 2 * per_forward
+        assert meta["requestPath"] == {"avg": "AverageCombiner", "a": "TorchServer",
+                                       "b": "TorchServer"}
+    assert fused._fused_calls == 1 and unfused._fused_calls == 0
+    scale = np.abs(ref).max()
+    assert np.abs(got["fused"] - got["unfused"]).max() <= 1e-5 * scale
+    assert np.abs(got["fused"] - ref).max() <= 0.03 * scale

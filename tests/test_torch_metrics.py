@@ -67,6 +67,12 @@ PORT_FAMILIES = {
     "seldon_llm_prefix_bytes_saved", "seldon_llm_adapter_loaded",
     "seldon_llm_adapter_evictions", "seldon_llm_adapter_pool_bytes", "seldon_tenant_admitted",
     "seldon_tenant_shed", "seldon_tenant_tokens", "seldon_llm_tenant_ttft_seconds",
+    # the engine slice's: feedback, resilience
+    "seldon_api_model_feedback", "seldon_api_model_feedback_reward", "seldon_resilience_shed",
+    "seldon_resilience_deadline_exceeded", "seldon_resilience_breaker_state",
+    "seldon_resilience_breaker_transitions", "seldon_resilience_breaker_rejected",
+    "seldon_resilience_inflight", "seldon_resilience_queue_depth",
+    "seldon_resilience_remaining_budget_seconds",
 }
 
 
@@ -362,3 +368,73 @@ def test_live_scrape_prefix_series():
     for name in PORT_FAMILIES:
         if name.startswith(("seldon_llm_prefix", "seldon_llm_kv")):
             assert fams[name].samples == want[name].samples, name
+
+
+def test_engine_series_equal_jax():
+    """The engine app's series fed the same observations: predictions with
+    in-band custom metrics (counters with and without tags, a key ending
+    in _total, gauges, millisecond timers; a key under a second tag set
+    raises on both), feedback with rewards of both
+    signs, deadline expiries and remaining budgets, and scrape-time syncs
+    of breakers (transitions wired on first sight, rejections caught up)
+    and admission. Every family the port emits equals the JAX registry's."""
+    from seldon_core_tpu.contracts.payload import Feedback as JaxFeedback
+    from seldon_core_tpu.contracts.payload import SeldonMessage as JaxMessage
+    from seldon_core_tpu.runtime.resilience import CircuitBreaker as JaxBreaker
+    from seldon_core_tpu_torch.contracts.payload import Feedback, SeldonMessage
+    from seldon_core_tpu_torch.runtime.resilience import CircuitBreaker
+
+    metrics = [{"key": "mycounter", "type": "COUNTER", "value": 1.0},
+               {"key": "hits_total", "type": "COUNTER", "value": 2.5},
+               {"key": "tagged", "type": "COUNTER", "value": 3.0,
+                "tags": {"model": "a", "zone": "z"}},
+               {"key": "mygauge", "type": "GAUGE", "value": 100.0},
+               {"key": "mytimer", "type": "TIMER", "value": 20.6},
+               {"key": "slow", "type": "TIMER", "value": 7300.0, "tags": {"model": "b"}}]
+    clock = [0.0]
+
+    class Stub:
+        def __init__(self, breakers):
+            self._breakers = breakers
+
+        def breakers(self):
+            return self._breakers
+
+    class Admission:
+        inflight, shed_total = 2, 5
+
+        def queue_depth(self):
+            return 1
+
+    sides = []
+    for reg, msg, fb, breaker in ((MetricsRegistry(), SeldonMessage, Feedback, CircuitBreaker),
+                                  (JaxRegistry(), JaxMessage, JaxFeedback, JaxBreaker)):
+        engine = Stub([(n, breaker(n, failure_threshold=2, reset_timeout_s=5.0,
+                                   clock=lambda: clock[0])) for n in ("a", "b")])
+        for i in range(3):
+            reg.observe_prediction(engine, msg.from_dict({"meta": {"metrics": metrics[i:]}}),
+                                   0.002 * (i + 1))
+        for reward in (1.0, 0.0, -0.5, 0.25):
+            reg.observe_feedback(fb.from_dict({"reward": reward}))
+        for transport in ("rest", "grpc", "rest"):
+            reg.observe_deadline_exceeded(transport)
+        for s in (0.3, -1.0, 2.0):
+            reg.observe_remaining_budget(s)
+        reg.sync_resilience(engine=engine, admission=Admission(), transport="rest")
+        b = engine.breakers()[0][1]
+        b.record_failure()
+        b.record_failure()  # open
+        assert not b.allow() and not b.allow()  # two rejections
+        reg.sync_resilience(engine=engine, admission=Admission(), transport="grpc")
+        sides.append(families(reg.expose().decode()))
+        # one key under a second tag set is a second family of one name,
+        # which prometheus_client refuses
+        with pytest.raises(ValueError, match="Duplicated timeseries"):
+            reg.register_custom(msg.from_dict({"meta": {"metrics": [
+                {"key": "mycounter", "type": "COUNTER", "value": 1.0, "tags": {"k": "v"}}]}}))
+    got, want = sides
+    assert {"mycounter", "hits", "tagged", "mygauge", "mytimer", "slow"} <= set(got)
+    for name, fam in got.items():
+        assert (fam.type, fam.documentation, fam.samples) == \
+            (want[name].type, want[name].documentation, want[name].samples), name
+    assert got["seldon_resilience_breaker_rejected"].samples[0].value == 2
