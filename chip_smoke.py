@@ -16,6 +16,10 @@ kernel of that path against its plain PyTorch version.
                                        # predict serving run (REST through TorchServer)
     python3 chip_smoke.py --engine     # only: build, the ResNet-50 forward, then the
                                        # engine phase (and its bf16 7B LLM component)
+    python3 chip_smoke.py --remote     # only: build, the ResNet-50 forward, then the
+                                       # remote-leaf and micro-batch phases, persistence
+                                       # and the host-only servers
+    python3 chip_smoke.py --fleet      # only: build, then the replica-fleet phase
 
 Phases (any failure exits non-zero; nothing swallows an error):
 
@@ -245,13 +249,47 @@ Phases (any failure exits non-zero; nothing swallows an error):
    ``[bf16 engine] ...``): the loaded 7B server as a one-unit graph's
    component, one jsonData predict through the engine app giving the
    server's own component-app tokens, K1 and K2 launched, the LLM series
-   on the engine's /metrics.
+   on the engine's /metrics;
+8. remote, micro-batch, persistence and servers (``remote_phase``,
+   ``persistence_phase``, ``servers_phase``; lines ``[remote] ...``,
+   ``[persistence] ...``, ``[servers] ...``) — the forward phase's
+   ResNet-50 as one TorchServer behind the port's component app and gRPC
+   component server on 127.0.0.1: (a) engines whose leaf is local, a REST
+   endpoint and a GRPC endpoint, 4 concurrent requests of 8 images each
+   (remote logits equal to the local engine's, tolerance 0; meta equal but
+   the unit's image; K3 launched ``expected_launches`` a forward in this
+   process), the REST hop beside the local leaf one request at a time in
+   turns, and the failures: 503 REMOTE_NODE_UNAVAILABLE from a closed port
+   after the backoffs and after exactly ``retries`` connections to a
+   listener that closes each, 504 with no connection for a spent
+   ``Seldon-Deadline-Ms``; (b) ``MicroBatcher(max_batch=8)`` behind the
+   engine app, 8 one-image requests at once: one flush of 8 rows, K3 one
+   B = 8 forward's launches, each answer within FWD_TOL of its solo
+   answer; (d) the engine phase's seeded router snapshot through
+   ``FileStateStore`` and restored, its next 24 routes equal to the
+   router's that carried on; the prepackaged host-only servers: the
+   libraries this machine has, an SKLEARN_SERVER leaf equal to
+   ``predict_proba`` where joblib and sklearn are here, a clean load error
+   naming each absent library.
+   The replica fleet (``fleet_phase``, lines ``[fleet] ...``) runs after
+   the LoRA phases: two Llama-2-7B replicas (int8 weights from one seed,
+   bf16 KV, the prefix cache on) behind one ``ReplicaSet`` on the
+   component app, 8 conversations x 3 turns over two 1,024-token system
+   prompts: every pick the longest cached prefix, then the least load,
+   then the lowest index (each probe recorded), turns 2 and 3 on a replica
+   holding their system prompt, both replicas serving, every chunk and
+   dispatch a replay, tokens teacher-forced and equal to one server's run
+   up to a near-tie, the scrape equal to the merged ``llm_stats``, gRPC
+   GenerateStream equal to SSE, ``ReplicaSet.generate`` equal to each
+   replica's own, and a drain / collect / add cycle with a request in
+   flight.
 
 The line before the last is the kernel table as JSON (K1 over a bf16 pool,
 K1 over an int8 pool, K2, K3, K4's decode kernel, K4's prefill kernel; K2's
 launches are every LLM run's together (the speculative, prefix, LoRA,
-tenant and checkpoint phases' and the engine's LLM request included), K3's
-the predict serving run's and the engine phase's);
+tenant, checkpoint and fleet phases' and the engine's LLM request
+included), K3's the predict serving run's and the engine, remote and
+micro-batch phases');
 the last line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 port's package beside it, the script exits non-zero and prints no result.
 """
@@ -3870,7 +3908,7 @@ def concurrent_posts(url: str, bodies):
     return out
 
 
-def engine_phase(card: str, model) -> int:
+def engine_phase(card: str, model) -> tuple:
     """The port's graph engine on the card (``runtime/engine.GraphEngine``
     behind ``transport/rest.make_engine_app``), over two live folded
     ResNet-50 ``JAX_SERVER`` leaves (``model``, seed 50, and a second one,
@@ -3896,7 +3934,7 @@ def engine_phase(card: str, model) -> int:
         ``Seldon-Deadline-Ms`` (504), and gRPC ``Seldon/Predict`` equal to
         REST's answer to (a)'s first request.
 
-    Returns K3's launches in (a) and (b)."""
+    Returns K3's launches in (a) and (b), and (b)'s router."""
     import tempfile
 
     import numpy as np
@@ -4175,7 +4213,7 @@ def engine_phase(card: str, model) -> int:
         comp_httpd.server_close()
     del fused, unfused, routed, servers, model_b, models
     print(f"[engine] phase_s {time.perf_counter() - t_phase:.1f} [{card}]", flush=True)
-    return launches_a + launches_b
+    return launches_a + launches_b, router
 
 
 def body_for(images, puid: str) -> dict:
@@ -5009,6 +5047,712 @@ def lora_runs_phase(card: str) -> tuple:
     return records, runs
 
 
+# ---------------------------------------------------------------------------
+# Remote graph nodes, micro-batching, the replica fleet, persistence, servers
+# ---------------------------------------------------------------------------
+REMOTE_TURNS = 2          # rounds of L R R L single requests in (a)'s latency turns
+# a remote hop carries 8 images of JSON both ways while other requests parse
+# theirs: the hop's read timeouts are raised past the 5 s default
+REMOTE_ANNOTATIONS = {"seldon.io/rest-read-timeout": "120000",
+                      "seldon.io/grpc-read-timeout": "120000",
+                      "seldon.io/grpc-max-message-size": str(64 << 20)}
+MICRO_CLIENTS = 8         # one-image requests at once through the micro-batcher
+# a replica of the fleet: int8 weights (bf16 weights never reach K4) over a
+# bf16 KV pool of FLEET_POOL_PAGES pages of 64 positions (10.7 GB), the
+# prefix cache on
+FLEET_POOL_PAGES = 320
+FLEET_KNOBS = dict(quantize="int8", prefix_cache_size=PREFIX_CACHE_SIZE,
+                   kv_pool_pages=FLEET_POOL_PAGES)
+FLEET_SYSTEMS = 2         # system prompts A and B
+PERSIST_ROUTES = 24
+SERVER_LIBRARIES = ("joblib", "sklearn", "xgboost", "mlflow", "pandas")
+
+
+class _Listener:
+    """A listening socket on 127.0.0.1. ``accept_close``: a thread accepts
+    each connection, counts it and closes it at once; else nothing accepts
+    (a connect completes in the backlog and is never answered)."""
+
+    def __init__(self, accept_close: bool):
+        import socket
+
+        self.sock = socket.socket()
+        self.sock.bind(("127.0.0.1", 0))
+        self.sock.listen(16)
+        self.port = self.sock.getsockname()[1]
+        self.accepted = 0
+        if accept_close:
+            threading.Thread(target=self._serve, daemon=True).start()
+
+    def _serve(self):
+        while True:
+            try:
+                conn, _ = self.sock.accept()
+            except OSError:
+                return
+            self.accepted += 1
+            conn.close()
+
+    def pending(self) -> int:
+        """Connections waiting in the backlog (never accepted)."""
+        n = 0
+        self.sock.setblocking(False)
+        try:
+            while True:
+                conn, _ = self.sock.accept()
+                conn.close()
+                n += 1
+        except BlockingIOError:
+            return n
+
+    def close(self):
+        self.sock.close()
+
+
+def endpoint_unit(port: int, api: str) -> dict:
+    return {"name": "leaf", "type": "MODEL",
+            "endpoint": {"service_host": "127.0.0.1", "service_port": port, "type": api}}
+
+
+def remote_phase(card: str, model) -> int:
+    """Remote graph nodes and micro-batching over the forward phase's live
+    ResNet-50 weights (``model``), written as a msgpack checkpoint and served
+    by one ``TorchServer`` in this process:
+
+    (a) the leaf as a remote node: the port's component app (REST) and gRPC
+        component server on 127.0.0.1 over that server, and an engine app for
+        each of three engines with the same one-unit graph: the leaf local
+        (JAX_SERVER), over the REST endpoint, over the GRPC endpoint.
+        PREDICT_REQUESTS concurrent requests of PREDICT_BATCH images to each:
+        the remote answers' logits equal the local engine's exactly (float32
+        values cross JSON and proto unchanged), their meta the local's but
+        for the unit's image in requestPath (RemoteComponent), and K3, zeroed
+        before and read after each engine's requests, launched
+        ``expected_launches`` a forward. Then the REST remote engine beside
+        the local one, one request at a time in turns (L R R L x
+        REMOTE_TURNS). Failures: a closed port answers 503
+        REMOTE_NODE_UNAVAILABLE after the backoffs, a listener that closes
+        each connection sees exactly ``retries`` of them, and
+        ``Seldon-Deadline-Ms: 1`` answers 504 with no connection made to a
+        listener that never answers.
+    (b) ``make_engine_app(MicroBatcher(engine, max_batch=MICRO_CLIENTS))``
+        over the local engine: MICRO_CLIENTS threads each send one one-image
+        request at once; one flush of MICRO_CLIENTS rows (``batches`` 1,
+        ``batched_requests`` MICRO_CLIENTS), K3 launched one forward at B =
+        MICRO_CLIENTS's worth, each answer within FWD_TOL of the same image's
+        solo answer (the same requests through the plain engine app, at
+        once), top-1 equal but for near-ties.
+
+    Returns K3's launches in (a) and (b)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from seldon_core_tpu_torch.models.resnet_infer import resnet_serve_forward
+    from seldon_core_tpu_torch.ops.fused_resnet import fused_identity_chain
+    from seldon_core_tpu_torch.runtime.engine import GraphEngine
+    from seldon_core_tpu_torch.runtime.microbatch import MicroBatcher
+    from seldon_core_tpu_torch.servers.torchserver import TorchServer, export_checkpoint
+    from seldon_core_tpu_torch.transport.grpc_server import make_component_server
+    from seldon_core_tpu_torch.transport.rest import make_component_app, make_engine_app, start
+
+    t_phase = time.perf_counter()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    per8 = k3_forward_launches(PREDICT_BATCH, sms)
+    per_micro = k3_forward_launches(MICRO_CLIENTS, sms)
+    with tempfile.TemporaryDirectory(prefix="remote-ckpt-") as root:
+        path = os.path.join(root, "resnet50")
+        export_checkpoint(path, "resnet50", {"params": model.param_tree()},
+                          kwargs={"fused": True}, input_shape=[224, 224, 3])
+        server = TorchServer(model_uri=path, device="cuda")
+        server.load()
+    # the local leaf: the same TorchServer, registered under the unit's name
+    leaf = {"name": "leaf", "type": "MODEL", "implementation": "JAX_SERVER", "modelUri": path}
+    rng = np.random.default_rng(23)
+    images = [np.round(rng.standard_normal((PREDICT_BATCH, 224, 224, 3)), 2).astype(np.float32)
+              for _ in range(PREDICT_REQUESTS)]
+    bodies = [body_for(im, f"remote-{i}") for i, im in enumerate(images)]
+    one = body_for(images[0][:1], "remote-one")
+    servers, stops = [], []
+    try:
+        comp_httpd, _ = start(make_component_app(server, device="cuda"))
+        stops.append(comp_httpd)
+        grpc_srv = make_component_server(server, host="127.0.0.1", port=None,
+                                         annotations=REMOTE_ANNOTATIONS)
+        gport = grpc_srv.add_insecure_port("127.0.0.1:0")
+        grpc_srv.start()
+        servers.append(grpc_srv)
+        engines = {"local": GraphEngine(graph_spec(leaf), components={"leaf": server},
+                                        device="cuda"),
+                   "REST": GraphEngine(graph_spec(endpoint_unit(comp_httpd.server_address[1],
+                                                                "REST")),
+                                       annotations=REMOTE_ANNOTATIONS, device="cuda"),
+                   "GRPC": GraphEngine(graph_spec(endpoint_unit(gport, "GRPC")),
+                                       annotations=REMOTE_ANNOTATIONS, device="cuda")}
+        urls = {}
+        for name, engine in engines.items():
+            httpd, _ = start(make_engine_app(engine, device="cuda"))
+            stops.append(httpd)
+            urls[name] = f"http://127.0.0.1:{httpd.server_address[1]}/api/v0.1/predictions"
+        for name, u in urls.items():  # warm-up, not counted
+            code, body = post(u, one)
+            if code != 200:
+                fail(f"remote (a): warm-up through the {name} engine answered {code}: {body}")
+        answers, walls, launches = {}, {}, {}
+        for name, u in urls.items():
+            torch.cuda.synchronize()
+            fused_identity_chain.launches = 0
+            results = concurrent_posts(u, bodies)
+            launches[name] = k3_count()
+            for i, (code, body, _) in enumerate(results):
+                if code != 200 or body.get("meta", {}).get("puid") != f"remote-{i}":
+                    fail(f"remote (a): request {i} through the {name} engine answered {code}: "
+                         f"{str(body)[:300]}")
+            answers[name] = [body for _, body, _ in results]
+            walls[name] = [w for _, _, w in results]
+            if launches[name] != PREDICT_REQUESTS * per8:
+                fail(f"remote (a): {launches[name]} K3 launches in this process for "
+                     f"{PREDICT_REQUESTS} requests of {PREDICT_BATCH} images through the {name} "
+                     f"engine, expected_launches says {PREDICT_REQUESTS} x {per8}")
+        for api in ("REST", "GRPC"):
+            for i, (got, want) in enumerate(zip(answers[api], answers["local"])):
+                g, w = logits_of(got), logits_of(want)
+                if g.shape != w.shape or not np.array_equal(g, w):
+                    fail(f"remote (a): request {i} over {api}: logits differ from the local "
+                         f"engine's (max |diff| {float(np.abs(g - w).max()):.4g}; tolerance 0)")
+                gm, wm = dict(got["meta"]), dict(want["meta"])
+                if gm.pop("requestPath") != {"leaf": "RemoteComponent"} or \
+                        wm.pop("requestPath") != {"leaf": "TorchServer"} or gm != wm or \
+                        got["data"].get("names") != want["data"].get("names"):
+                    fail(f"remote (a): request {i} over {api}: meta {got['meta']} names "
+                         f"{got['data'].get('names')} vs the local {want['meta']} "
+                         f"{want['data'].get('names')}")
+        ref = torch.from_numpy(np.asarray(logits_of(answers["local"][0]), np.float32))
+        with torch.no_grad():
+            cudnn = resnet_serve_forward(model, torch.from_numpy(images[0]).cuda(),
+                                         pallas_stages=()).float().cpu()
+        err, bound, _, _ = check_logits("remote (a): the local engine vs the cuDNN-chain "
+                                        "forward", ref, cudnn)
+        turns = {"local": [], "REST": []}
+        for _ in range(REMOTE_TURNS):
+            for name in ("local", "REST", "REST", "local"):
+                t = time.perf_counter()
+                code, body = post(urls[name], bodies[0])
+                turns[name].append(time.perf_counter() - t)
+                if code != 200:
+                    fail(f"remote (a) turns: the {name} engine answered {code}")
+        print(f"[remote] (a) a ResNet-50 JAX_SERVER leaf (the forward phase's live weights, "
+              f"one TorchServer) as a remote node: {PREDICT_REQUESTS} concurrent requests of "
+              f"{PREDICT_BATCH} images through the local engine, over REST (the component "
+              f"app) and over GRPC (the component server), all on 127.0.0.1: remote logits "
+              f"equal to the local engine's exactly (tolerance 0; the local's within "
+              f"{FWD_TOL} x max|logit| of the cuDNN chain: {err:.4g} <= {bound:.4g}), meta "
+              f"equal but requestPath's image (RemoteComponent), K3 launches "
+              f"{launches['local']} / {launches['REST']} / {launches['GRPC']} = "
+              f"{PREDICT_REQUESTS} x {per8} each; request latency median / max local "
+              f"{statistics.median(walls['local']) * 1e3:.1f} / {max(walls['local']) * 1e3:.1f} "
+              f"ms, REST {statistics.median(walls['REST']) * 1e3:.1f} / "
+              f"{max(walls['REST']) * 1e3:.1f} ms, GRPC "
+              f"{statistics.median(walls['GRPC']) * 1e3:.1f} / {max(walls['GRPC']) * 1e3:.1f} "
+              f"ms [{card}]", flush=True)
+        lm, rm = statistics.median(turns["local"]), statistics.median(turns["REST"])
+        print(f"[remote] (a) one request of {PREDICT_BATCH} images at a time, in turns (L R R L "
+              f"x {REMOTE_TURNS}): local engine median {lm * 1e3:.1f} ms (spread "
+              f"{(max(turns['local']) - min(turns['local'])) * 1e3:.1f} ms), REST remote leaf "
+              f"median {rm * 1e3:.1f} ms (spread "
+              f"{(max(turns['REST']) - min(turns['REST'])) * 1e3:.1f} ms): the hop adds "
+              f"{(rm - lm) * 1e3:.1f} ms [{card}]", flush=True)
+
+        # failure paths: a closed port, a listener closing each connection,
+        # a spent deadline against a listener that never answers
+        closed = _Listener(accept_close=False)
+        closed_port = closed.port
+        closed.close()
+        closing, silent = _Listener(accept_close=True), _Listener(accept_close=False)
+        try:
+            fails = {}
+            for name, port in (("closed", closed_port), ("closing", closing.port),
+                               ("silent", silent.port)):
+                eng = GraphEngine(graph_spec(endpoint_unit(port, "REST")), device="cuda")
+                httpd, _ = start(make_engine_app(eng, device="cuda"))
+                stops.append(httpd)
+                u = f"http://127.0.0.1:{httpd.server_address[1]}/api/v0.1/predictions"
+                t = time.perf_counter()
+                if name == "silent":
+                    code, body = post(u, bodies[0], headers={"Seldon-Deadline-Ms": "1"})
+                else:  # a one-value body: the wall is the attempts and backoffs
+                    code, body = post(u, {"data": {"tensor": {"shape": [1, 1],
+                                                              "values": [1.0]}}})
+                fails[name] = (code, body.get("status", {}).get("reason"),
+                               time.perf_counter() - t)
+            retries = 3  # the reference's default, unannotated
+            backoffs = sum(0.05 * 2 ** a for a in range(retries - 1))
+            if fails["closed"][:2] != (503, "REMOTE_NODE_UNAVAILABLE") or \
+                    fails["closing"][:2] != (503, "REMOTE_NODE_UNAVAILABLE"):
+                fail(f"remote (a): a dead endpoint answered {fails['closed'][:2]} / "
+                     f"{fails['closing'][:2]}, expected 503 REMOTE_NODE_UNAVAILABLE")
+            if closing.accepted != retries:
+                fail(f"remote (a): {closing.accepted} attempts on a listener closing each "
+                     f"connection, expected {retries}")
+            if not backoffs <= fails["closed"][2] < backoffs + 1.0:
+                fail(f"remote (a): the closed port's 503 took {fails['closed'][2]:.3f} s, the "
+                     f"backoffs sum to {backoffs:.3f} s")
+            pending = silent.pending()
+            if fails["silent"][:2] != (504, "DEADLINE_EXCEEDED") or pending != 0:
+                fail(f"remote (a): Seldon-Deadline-Ms: 1 answered {fails['silent'][:2]} with "
+                     f"{pending} connection(s) made, expected 504 and none")
+        finally:
+            closing.close()
+            silent.close()
+        print(f"[remote] (a) failures: a closed port 503 REMOTE_NODE_UNAVAILABLE in "
+              f"{fails['closed'][2] * 1e3:.1f} ms (backoffs {backoffs * 1e3:.0f} ms); a listener "
+              f"closing each connection saw {closing.accepted} = retries attempts (503 in "
+              f"{fails['closing'][2] * 1e3:.1f} ms); Seldon-Deadline-Ms: 1 on a request of "
+              f"{PREDICT_BATCH} images 504 DEADLINE_EXCEEDED in "
+              f"{fails['silent'][2] * 1e3:.1f} ms with no connection made [{card}]", flush=True)
+
+        # (b) the micro-batcher over the local engine
+        micro_bodies = [body_for(images[i // PREDICT_BATCH][i % PREDICT_BATCH:][:1],
+                                 f"micro-{i}") for i in range(MICRO_CLIENTS)]
+        fused_identity_chain.launches = 0
+        solo = concurrent_posts(urls["local"], micro_bodies)
+        solo_launches = k3_count()
+        mb = MicroBatcher(engines["local"], max_batch=MICRO_CLIENTS, max_delay_ms=60_000.0)
+        mb_httpd, _ = start(make_engine_app(mb, device="cuda"))
+        stops.append(mb_httpd)
+        torch.cuda.synchronize()
+        fused_identity_chain.launches = 0
+        batched = concurrent_posts(
+            f"http://127.0.0.1:{mb_httpd.server_address[1]}/api/v0.1/predictions", micro_bodies)
+        micro_launches = k3_count()
+        if (mb.batches, mb.batched_requests) != (1, MICRO_CLIENTS):
+            fail(f"remote (b): {mb.batches} flushes of {mb.batched_requests} requests, expected "
+                 f"one of {MICRO_CLIENTS}")
+        if micro_launches != per_micro:
+            fail(f"remote (b): {micro_launches} K3 launches for {MICRO_CLIENTS} one-image "
+                 f"requests, one forward at B={MICRO_CLIENTS} is {per_micro}")
+        errs = []
+        for i, ((code, body, _), (scode, sbody, _)) in enumerate(zip(batched, solo)):
+            if code != 200 or scode != 200 or body["meta"]["puid"] != f"micro-{i}":
+                fail(f"remote (b) request {i}: {code} / {scode}: {str(body)[:300]}")
+            err, bound, _, _ = check_logits(
+                f"remote (b) request {i} vs its solo answer",
+                torch.from_numpy(np.asarray(logits_of(body), np.float32)),
+                torch.from_numpy(np.asarray(logits_of(sbody), np.float32)))
+            errs.append(err)
+        print(f"[remote] (b) MicroBatcher(max_batch={MICRO_CLIENTS}) behind the engine app: "
+              f"{MICRO_CLIENTS} threads each sending one one-image request at once -> "
+              f"{mb.batches} flush of {mb.batched_requests} rows, K3 launches {micro_launches} "
+              f"= one forward at B={MICRO_CLIENTS} (without the batcher: {solo_launches} = "
+              f"{MICRO_CLIENTS} x {k3_forward_launches(1, sms)}); each answer within "
+              f"{FWD_TOL} x max|logit| of its solo answer (max |diff| {max(errs):.4g}); "
+              f"request latency median / max {statistics.median([w for *_, w in batched]) * 1e3:.1f}"
+              f" / {max(w for *_, w in batched) * 1e3:.1f} ms, without the batcher "
+              f"{statistics.median([w for *_, w in solo]) * 1e3:.1f} / "
+              f"{max(w for *_, w in solo) * 1e3:.1f} ms; each request's ms with / without: "
+              f"{', '.join(f'{w * 1e3:.1f} / {sw * 1e3:.1f}' for (*_, w), (*_, sw) in zip(batched, solo))}"
+              f" [{card}]", flush=True)
+    finally:
+        for httpd in stops:
+            httpd.shutdown()
+            httpd.server_close()
+        for srv in servers:
+            srv.stop(None)
+    total = sum(launches.values()) + solo_launches + micro_launches
+    print(f"[remote] phase_s {time.perf_counter() - t_phase:.1f} [{card}]", flush=True)
+    return total
+
+
+def persistence_phase(card: str, router=None) -> None:
+    """(d) The engine phase's seeded EPSILON_GREEDY router (or, alone, one
+    with ENGINE_BANDIT and the same seeded feedback) snapshot through a
+    ``FileStateStore`` in a temporary directory and restored: its next
+    PERSIST_ROUTES routes equal the router's that carried on. Host only."""
+    import tempfile
+
+    import numpy as np
+
+    from seldon_core_tpu_torch.analytics.routers import EpsilonGreedy
+    from seldon_core_tpu_torch.runtime.persistence import FileStateStore
+
+    if router is None:
+        router = EpsilonGreedy(**ENGINE_BANDIT)
+        rewards = np.random.default_rng(3).uniform(0, 1, ENGINE_ROUTED[0]).round(3)
+        for reward in rewards:
+            router.send_feedback(None, [], float(reward), None, routing=router.route(None, []))
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="persist-") as root:
+        store = FileStateStore(root)
+        store.save("router", router)
+        restored = store.restore("router")
+    wall = time.perf_counter() - t0
+    got = [restored.route(None, []) for _ in range(PERSIST_ROUTES)]
+    want = [router.route(None, []) for _ in range(PERSIST_ROUTES)]
+    if got != want or restored.pulls.tolist() != router.pulls.tolist():
+        fail(f"persistence (d): the restored router routes {got}, the one that carried on "
+             f"{want}")
+    print(f"[persistence] (d) the seeded EPSILON_GREEDY router (pulls {router.pulls.tolist()}) "
+          f"snapshot through FileStateStore and restored in {wall * 1e3:.1f} ms: its next "
+          f"{PERSIST_ROUTES} routes {got} = the router's that carried on [{card}]", flush=True)
+
+
+def servers_phase(card: str) -> None:
+    """The host-only prepackaged servers: which of SERVER_LIBRARIES this
+    machine has; with joblib and sklearn, an SKLEARN_SERVER leaf in an
+    engine answering as the model's own ``predict_proba``; for each server
+    whose library is absent, its ``load()`` raising, naming it."""
+    import importlib.util
+    import tempfile
+
+    import numpy as np
+
+    from seldon_core_tpu_torch.contracts.graph import UnitImplementation
+    from seldon_core_tpu_torch.contracts.payload import SeldonError
+    from seldon_core_tpu_torch.runtime.engine import GraphEngine
+    from seldon_core_tpu_torch.servers import make_prepackaged_server
+
+    have = {lib: importlib.util.find_spec(lib) is not None for lib in SERVER_LIBRARIES}
+    lines = []
+    with tempfile.TemporaryDirectory(prefix="servers-") as root:
+        if have["joblib"] and have["sklearn"]:
+            import joblib
+            from sklearn.linear_model import LogisticRegression
+
+            rng = np.random.default_rng(0)
+            X = rng.normal(size=(64, 4))
+            clf = LogisticRegression().fit(X, (X[:, 0] + X[:, 1] > 0).astype(int))
+            joblib.dump(clf, os.path.join(root, "model.joblib"))
+            engine = GraphEngine(graph_spec({"name": "clf", "type": "MODEL",
+                                             "implementation": "SKLEARN_SERVER",
+                                             "modelUri": root}), device="cuda")
+            x = rng.normal(size=(5, 4)).round(3)
+            out = engine.predict_sync(seldon_message(body_for(x, "sk"))).to_dict()
+            got = logits_of(out)
+            if not np.array_equal(got, clf.predict_proba(x)):
+                fail(f"servers: the SKLEARN_SERVER leaf answered {got}, predict_proba "
+                     f"{clf.predict_proba(x)}")
+            lines.append("SKLEARN_SERVER leaf = predict_proba exactly")
+        cases = [("SKLEARN_SERVER", "joblib"), ("XGBOOST_SERVER", "xgboost"),
+                 ("MLFLOW_SERVER", "mlflow")]
+        for impl, lib in cases:
+            if have[lib]:
+                continue
+            try:
+                make_prepackaged_server(UnitImplementation(impl), root, {}).load()
+            except SeldonError as e:
+                if lib not in e.message:
+                    fail(f"servers: {impl} without {lib} raised without naming it: {e.message}")
+                lines.append(f"{impl} load() raised naming {lib}")
+                continue
+            fail(f"servers: {impl} loaded although {lib} is absent")
+    print(f"[servers] this machine has {', '.join(f'{k} {v}' for k, v in have.items())}; "
+          f"{'; '.join(lines)} [{card}]", flush=True)
+
+
+def fleet_chat():
+    """Two PREFIX_SYSTEM-token system prompts (A: ``chat_tokens``'s; B: its
+    bytes shifted) and, per conversation, PREFIX_TURNS user turns
+    (``chat_tokens``'s); conversations 0..3 open with A, 4..7 with B."""
+    system_a, users = chat_tokens()
+    system_b = [32 + (t - 32 + 17) % 95 if 32 <= t < 127 else t for t in system_a]
+    systems = [system_a, system_b]
+    per = N_REQUESTS // FLEET_SYSTEMS
+    return [systems[c // per] for c in range(N_REQUESTS)], users
+
+
+def fleet_phase(card: str) -> dict:
+    """(c) Two replicas at Llama-2-7B widths behind one ``ReplicaSet``,
+    served by the component app's ``/v1/generate``: each loaded with the
+    same seed (so the same weights, checked leaf by leaf), int8 weights over
+    a bf16 KV pool of FLEET_POOL_PAGES pages, the prefix cache on, a graph
+    batcher of N_REQUESTS slots each (built under
+    ``set_sync_debug_mode("error")``). Traffic: FLEET_SYSTEMS system
+    prompts of PREFIX_SYSTEM tokens, N_REQUESTS conversations (half on
+    each) x PREFIX_TURNS turns, every turn of all conversations at once.
+    Every dispatch's probes are recorded (each replica's cached-prefix
+    length and load): the choice is the longest prefix, then the least
+    load, then the lowest index; every turn 2 and 3 lands on a replica
+    holding its system prompt; both replicas serve; every chunk and
+    dispatch on both is a replay; tokens teacher-forced, and equal up to a
+    near-tie to one server's run of the same requests (replica 0 alone,
+    its cache cleared); the fleet app's scrape equals the merged
+    ``llm_stats``. Then one gRPC GenerateStream through the fleet equal to
+    SSE's, ``ReplicaSet.generate`` equal to each replica's own, and the
+    membership cycle: a drain while the replica holds a request in flight
+    (it completes; new traffic goes to the other only), ``collect_drained``
+    detaching it on the second idle sighting, ``add_replica`` bringing it
+    back (a new batcher on its first request). Returns the launches of the
+    chat (counts zeroed just before turn 1, read just after turn 3)."""
+    import gc
+
+    import torch
+
+    from seldon_core_tpu_torch.runtime.engine import ReplicaSet
+    from seldon_core_tpu_torch.servers.llmserver import LLMServer
+    from seldon_core_tpu_torch.transport.rest import make_component_app, start
+
+    class RecordingFleet(ReplicaSet):
+        """Records, for every prefix-aware pick, each dispatchable
+        replica's probe (match, load) and the choice."""
+
+        def __init__(self, replicas):
+            super().__init__(replicas)
+            self.records = []
+            self._rec_lock = threading.Lock()
+            self._last = threading.local()
+
+        def _probe(self, prompt, reps):
+            out = super()._probe(prompt, reps)
+            self._last.value = (prompt, reps, out)
+            return out
+
+        def pick_for(self, prompt):
+            chosen = super().pick_for(prompt)
+            ids, reps, out = self._last.value
+            with self._rec_lock:
+                self.records.append((tuple(ids), [replicas.index(r) for r in reps], out,
+                                     replicas.index(chosen)))
+            return chosen
+
+    label = "fleet"
+    t_phase = time.perf_counter()
+    release_server_memory()
+    torch.cuda.reset_peak_memory_stats()
+    replicas = []
+    for i in range(2):
+        t0 = time.perf_counter()
+        r = LLMServer(model="transformer", model_kwargs=dict(LLAMA2_7B, fused_norm=True),
+                      init_random=True, param_dtype="auto", continuous_batching=N_REQUESTS,
+                      max_new_tokens=MAX_NEW, temperature=0.0, eos_id=-1, seed=0,
+                      device="cuda", **FLEET_KNOBS)
+        r.load()
+        torch.cuda.synchronize()
+        print(f"[{label} replica {i}] load_s {time.perf_counter() - t0:.2f} (Llama-2-7B widths, "
+              f"int8 weights from seed 0); device memory allocated "
+              f"{torch.cuda.memory_allocated() / 1e9:.3f} GB [{card}]", flush=True)
+        replicas.append(r)
+    a_leaves = [*replicas[0]._module.parameters(), *replicas[0]._module.buffers()]
+    b_leaves = [*replicas[1]._module.parameters(), *replicas[1]._module.buffers()]
+    if len(a_leaves) != len(b_leaves) or not all(torch.equal(x, y)
+                                                 for x, y in zip(a_leaves, b_leaves)):
+        fail(f"[{label}] the two replicas drew different weights from one seed")
+    services = []
+    for i, r in enumerate(replicas):
+        svc, httpd, _, build_s = build_service(f"{label} replica {i}", r)
+        httpd.shutdown()
+        httpd.server_close()
+        r.clear_prefix_cache()
+        services.append((svc, build_s))
+    rs = RecordingFleet(replicas)
+    httpd, _ = start(make_component_app(rs, device="cuda"))
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    systems, users = fleet_chat()
+    prompts, served, ttfts = {}, {}, []
+    torch.cuda.synchronize()
+    for r in replicas:
+        zero_counts(r)
+        r._decode_replays = r._decode_eager = r._cow_replays = r._cow_eager = 0
+    before = [r._batcher_service.batcher._radix.stats() for r in replicas]
+    t_chat = time.perf_counter()
+    for t in range(PREFIX_TURNS):
+        for c in range(N_REQUESTS):
+            prompts[c, t] = (systems[c] + users[c][0] if t == 0 else
+                             prompts[c, t - 1] + served[c, t - 1] + users[c][t])
+        marks = [len(r._ttft_times) for r in replicas]
+        results, _ = post_all(url, [prompts[c, t] for c in range(N_REQUESTS)])
+        for c, toks in enumerate(served_tokens(label, results)):
+            served[c, t] = toks
+        ttfts.append(sorted(x for r, m in zip(replicas, marks)
+                            for x in list(r._ttft_times)[m:]))
+    chat_s = time.perf_counter() - t_chat
+    counts = {k: v for k, v in read_counts(replicas[0]).items() if k.startswith("k")}
+    after = [r._batcher_service.batcher._radix.stats() for r in replicas]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    samples = scrape(url)
+    merged = rs.llm_stats()
+    # dispatch: every pick the longest prefix, then the least load, then the
+    # lowest index; turns 2 and 3 on a replica holding their system prompt
+    by_prompt = {tuple(p): key for key, p in prompts.items()}
+    picks = {}
+    sys_len = PREFIX_SYSTEM // 64 * 64
+    for ids, reps, out, chosen in rs.records:
+        key = by_prompt.get(ids)
+        if key is None:
+            fail(f"[{label}] a dispatch of an unknown prompt ({len(ids)} tokens)")
+        best = min(range(len(reps)), key=lambda i: (-out[i][0], out[i][1], i))
+        if reps[best] != chosen:
+            fail(f"[{label}] conversation {key[0]} turn {key[1] + 1}: picked replica {chosen}, "
+                 f"the probes {out} say replica {reps[best]}")
+        if key[1] > 0 and out[reps.index(chosen)][0] < sys_len:
+            fail(f"[{label}] conversation {key[0]} turn {key[1] + 1} landed on replica "
+                 f"{chosen}, which holds {out[reps.index(chosen)][0]} of its tokens (its system "
+                 f"prompt is {PREFIX_SYSTEM})")
+        picks[key] = (chosen, out)
+    if len(picks) != N_REQUESTS * PREFIX_TURNS:
+        fail(f"[{label}] {len(picks)} dispatches recorded for "
+             f"{N_REQUESTS * PREFIX_TURNS} requests")
+    per_replica = [sum(1 for ch, _ in picks.values() if ch == i) for i in range(2)]
+    if min(per_replica) == 0:
+        fail(f"[{label}] one replica served nothing: requests by replica {per_replica}")
+    for i, r in enumerate(replicas):
+        if r._prefill_eager or r._decode_eager or r._cow_eager or not (
+                r._prefill_replays and r._decode_replays):
+            fail(f"[{label}] replica {i}: chunks {r._prefill_replays} replayed / "
+                 f"{r._prefill_eager} eager, dispatches {r._decode_replays} / "
+                 f"{r._decode_eager}, CoW {r._cow_replays} / {r._cow_eager}")
+    if counts["k1"] <= 0 or counts["k2"] <= 0 or counts["k4"] <= 0 or counts["k4_wgmma"] <= 0:
+        fail(f"[{label}] launches {counts}: K1, K2 and K4's decode and prefill kernels must "
+             f"all run")
+    hits = [a["prefix_hit_tokens"] - b["prefix_hit_tokens"] for a, b in zip(after, before)]
+    # the scrape reads the merged llm_stats
+    n_req = N_REQUESTS * PREFIX_TURNS
+    checks = {"ttft count": (sample(samples, "seldon_llm_ttft_seconds_count"), n_req),
+              "kv_pages_total": (sample(samples, "seldon_llm_kv_pages_total"),
+                                 merged["kv_pages_total"]),
+              "kv_pages_in_use": (sample(samples, "seldon_llm_kv_pages_in_use"),
+                                  merged["kv_pages_in_use"]),
+              "prefix_hit_blocks": (sample(samples, "seldon_llm_prefix_hit_blocks_total"),
+                                    merged["prefix_hit_blocks"])}
+    for what, (got, want) in checks.items():
+        if got != want:
+            fail(f"[{label}] the fleet app's /metrics {what} {got}, the merged llm_stats "
+                 f"{want}")
+    if merged["kv_pages_total"] != sum(r.llm_stats()["kv_pages_total"] for r in replicas):
+        fail(f"[{label}] merged kv_pages_total {merged['kv_pages_total']} is not the sum")
+    # tokens: teacher-forced, and one server's run of the same requests
+    for t in range(PREFIX_TURNS):
+        teacher_check(f"{label} turn {t + 1}", card, replicas[0],
+                      [prompts[c, t] for c in range(N_REQUESTS)],
+                      [served[c, t] for c in range(N_REQUESTS)])
+    solo_svc = replicas[0]._batcher_service
+    replicas[0].clear_prefix_cache()
+    equal = 0
+    for t in range(PREFIX_TURNS):
+        futs = [solo_svc.submit(prompts[c, t], MAX_NEW) for c in range(N_REQUESTS)]
+        plain = [f.result(600) for f in futs]
+        equal += near_tie_check(f"{label} turn {t + 1}", card, replicas[0],
+                                [prompts[c, t] for c in range(N_REQUESTS)],
+                                [served[c, t] for c in range(N_REQUESTS)], plain)
+    # gRPC GenerateStream vs SSE through the fleet, each from cold caches
+    text = prompt_text(11)
+    grpc_line = fleet_grpc_check(label, rs, replicas, url, text)
+    # ReplicaSet.generate = each replica's own generate()
+    gen = rs.generate([text], max_new_tokens=MAX_NEW)["tokens"][0]
+    own = [r.generate([text], max_new_tokens=MAX_NEW)["tokens"][0] for r in replicas]
+    if any(o != gen for o in own) or len(gen) != MAX_NEW:
+        fail(f"[{label}] ReplicaSet.generate {gen} vs the replicas' own {own}")
+    # membership: drain a replica holding a request in flight
+    member_line = fleet_membership(label, card, rs, replicas, url)
+    httpd.shutdown()
+    httpd.server_close()
+    for r in replicas:
+        svc = getattr(r, "_batcher_service", None)
+        if svc is not None:
+            svc.close()
+            r._batcher_service = None
+    ttft_text = "; ".join(f"turn {t + 1} {statistics.median(v) * 1e3:.1f} / {max(v) * 1e3:.1f}"
+                          for t, v in enumerate(ttfts))
+    print(f"[{label}] (c) two Llama-2-7B replicas (int8 weights from one seed, bf16 KV pool of "
+          f"{FLEET_POOL_PAGES} pages each, prefix cache on, batchers built in "
+          f"{' / '.join(f'{b:.2f}' for _, b in services)} s) behind one ReplicaSet on the "
+          f"component app: {N_REQUESTS} conversations x {PREFIX_TURNS} turns over "
+          f"{FLEET_SYSTEMS} system prompts of {PREFIX_SYSTEM} tokens in {chat_s:.2f} s; TTFT "
+          f"median / max ms {ttft_text}; requests by replica {per_replica}; hit tokens by "
+          f"replica {hits}; every pick the longest cached prefix, then the least load, then "
+          f"the lowest index ({len(picks)} probes recorded), every turn 2 and 3 on a replica "
+          f"holding its system prompt; every chunk and dispatch a replay (chunks "
+          f"{[r._prefill_replays for r in replicas]}, dispatches "
+          f"{[r._decode_replays for r in replicas]}, CoW {[r._cow_replays for r in replicas]}); "
+          f"launches {counts}; tokens teacher-forced, {equal} of {n_req} equal to replica 0 "
+          f"alone (the rest up to a near-tie); the scrape = the merged llm_stats "
+          f"({', '.join(f'{k} {v[0]:.0f}' for k, v in checks.items())}); peak device memory "
+          f"{peak_gb:.2f} GB [{card}]", flush=True)
+    print(f"[{label}] (c) {grpc_line}; ReplicaSet.generate = each replica's own generate() "
+          f"({MAX_NEW} tokens); {member_line} [{card}]", flush=True)
+    del rs, replicas, services
+    gc.collect()
+    release_server_memory()
+    print(f"[{label}] phase_s {time.perf_counter() - t_phase:.1f} [{card}]", flush=True)
+    return counts
+
+
+def fleet_grpc_check(label: str, rs, replicas, url: str, text: str) -> str:
+    """SSE and gRPC ``Model/GenerateStream`` of ``text`` through the fleet,
+    each after both replicas' caches are cleared (so both take the same
+    cold path on the same replica): equal events."""
+    from seldon_core_tpu_torch.contracts.payload import SeldonMessage
+    from seldon_core_tpu_torch.transport import grpc_client
+    from seldon_core_tpu_torch.transport.grpc_server import make_component_server
+
+    for r in replicas:
+        r.clear_prefix_cache()
+    sse = streamed_tokens(label, sse_client(url, {"prompt": text}))
+    for r in replicas:
+        r.clear_prefix_cache()
+    srv = make_component_server(rs, host="127.0.0.1", port=None)
+    port = srv.add_insecure_port("127.0.0.1:0")
+    srv.start()
+    try:
+        events = [m.json_data for m in grpc_client.call_stream(
+            f"127.0.0.1:{port}", "GenerateStream", SeldonMessage.from_json_data({"prompt": text}),
+            timeout_s=600)]
+    finally:
+        srv.stop(None)
+    toks = [e["token"] for e in events[:-1]]
+    if toks != sse or events[-1].get("tokens") != sse:
+        fail(f"[{label}] gRPC GenerateStream through the fleet {toks} differs from SSE's {sse}")
+    return f"one gRPC GenerateStream through the fleet = SSE's {len(sse)} tokens"
+
+
+def fleet_membership(label: str, card: str, rs, replicas, url: str) -> str:
+    """A request in flight on the replica it lands on; that replica drained
+    after its first token: it stays attached while busy, its request
+    completes, N_REQUESTS // 2 new requests all go to the other replica,
+    ``collect_drained`` detaches it on the second idle sighting, and after
+    ``add_replica`` a cold request builds its new batcher and is served."""
+    first = threading.Event()
+    ids = replicas[0]._tokenizer.encode(prompt_text(21))
+    n_before = len(rs.records)
+    fut = rs.submit(ids, MAX_NEW, on_token=lambda t: first.set())
+    if not first.wait(600):
+        fail(f"[{label}] membership: the in-flight request never produced a token")
+    x = replicas[rs.records[n_before][3]]
+    other = replicas[1 - replicas.index(x)]
+    if rs.drain_replica(x) is not x:
+        fail(f"[{label}] membership: drain_replica refused")
+    in_flight = not fut.done()
+    busy = [rs.collect_drained(), rs.collect_drained()]
+    n_mark = len(rs.records)
+    results, _ = post_all(url, [prompt_text(30 + i) for i in range(N_REQUESTS // 2)])
+    served_tokens(label, results)
+    went = {replicas[r[3]] is other for r in rs.records[n_mark:]}
+    toks = fut.result(600)
+    if not in_flight or busy != [[], []] or went != {True} or len(toks) != MAX_NEW:
+        fail(f"[{label}] membership: in flight at the drain {in_flight}, sweeps while busy "
+             f"{busy}, new traffic to the other replica {went}, the request's tokens {toks}")
+    svc = x._batcher_service
+    sweeps = [rs.collect_drained(), rs.collect_drained()]
+    if sweeps != [[], [x]] or rs.members() != [other] or x._batcher_service is not None:
+        fail(f"[{label}] membership: sweeps after idle {sweeps}, members {rs.members()}")
+    del svc
+    import gc
+
+    gc.collect()
+    rs.add_replica(x)
+    n_mark = len(rs.records)
+    # a prompt no cache holds a token of ("request ..." prompts share 8)
+    code, body = post(url + "/v1/generate", {"prompt": "zz " + prompt_text(40)})
+    if code != 200 or len(body.get("tokens", [])) != MAX_NEW or \
+            replicas[rs.records[n_mark][3]] is not x or x._batcher_service is None:
+        fail(f"[{label}] membership: after add_replica the cold request answered {code} on "
+             f"replica {rs.records[n_mark][3] if len(rs.records) > n_mark else None}")
+    return (f"membership: replica {replicas.index(x)} drained with a request in flight (it "
+            f"completed, {MAX_NEW} tokens), {N_REQUESTS // 2} new requests all on replica "
+            f"{replicas.index(other)}, collect_drained detached it on the second idle sweep, "
+            f"add_replica brought it back (a new batcher on its first request)")
+
+
 def main() -> int:
     try:
         import torch
@@ -5072,6 +5816,18 @@ def main() -> int:
         del model
         server, _ = load_llm("bf16", card, {})
         engine_llm_phase(card, server)
+        return 0
+    if sys.argv[1:] == ["--remote"]:
+        model, _ = resnet_forward_phase(card)
+        remote_phase(card, model)
+        del model
+        persistence_phase(card)
+        servers_phase(card)
+        print(f"total_s {time.perf_counter() - t_start:.1f}", flush=True)
+        return 0
+    if sys.argv[1:] == ["--fleet"]:
+        fleet_phase(card)
+        print(f"total_s {time.perf_counter() - t_start:.1f}", flush=True)
         return 0
 
     # 3. kernel phase
@@ -5247,6 +6003,8 @@ def main() -> int:
     spec_launches += records
     records, lora_runs = lora_runs_phase(card)
     spec_launches += records
+    # the replica fleet: two int8-weight 7B replicas behind one ReplicaSet
+    spec_launches.append(("fleet", fleet_phase(card)))
     print("serving runs (Llama-2-7B, 8 concurrent requests x 32 tokens; step wall drain to "
           f"drain; host = one dispatch's enqueue or replay on the same live state) [{card}]:",
           flush=True)
@@ -5310,8 +6068,13 @@ def main() -> int:
     if k3_launches == 0:
         fail("predict serving: K3 (csrc/fused_resnet_wgmma.cu) never launched")
     # 7. the graph engine over ResNet-50 leaves: (a), (b), (d)
-    k3_launches += engine_phase(card, model)
+    launches, router = engine_phase(card, model)
+    k3_launches += launches
+    # 8. the leaf as a remote node, and micro-batching; the router persisted
+    k3_launches += remote_phase(card, model)
     del model
+    persistence_phase(card, router)
+    servers_phase(card)
 
     def entry(name, route, source, replaces, launches, r):
         return {"name": name, "route": route, "source": source, "replaces": replaces,

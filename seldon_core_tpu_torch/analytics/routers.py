@@ -8,8 +8,10 @@ engine replays down the branch that served it.
 State is plain numpy and the draws come from ``np.random.default_rng(seed)``
 in the JAX package's order, so a seeded router routes exactly as the JAX
 package's does. The per-branch statistics surface in-band through
-``metrics()`` and ``tags()``. The replica-sync counters and snapshots of
-the JAX routers come with the replica and persistence slice.
+``metrics()`` and ``tags()``. A router pickles (``runtime/persistence``
+snapshots it) and shares its counters with its serving replicas through
+``ReplicaSync``: its own counts stay local, the other replicas' arrive as
+peer sums, and every decision reads both.
 """
 
 from __future__ import annotations
@@ -35,9 +37,29 @@ class _BanditRouter(SeldonComponent):
         self.pulls = np.zeros(self.n_branches, dtype=np.int64)
         self.reward_sum = np.zeros(self.n_branches, dtype=np.float64)
         self.fail_sum = np.zeros(self.n_branches, dtype=np.float64)
+        # the other replicas' counts (ReplicaSync installs their sum): this
+        # replica's feedback lands in the arrays above, decisions read both
+        self.peer_pulls = np.zeros(self.n_branches, dtype=np.int64)
+        self.peer_reward_sum = np.zeros(self.n_branches, dtype=np.float64)
+        self.peer_fail_sum = np.zeros(self.n_branches, dtype=np.float64)
         self._rng = np.random.default_rng(seed)
         self._lock = threading.Lock()
         self._last_branch: Optional[int] = None
+
+    # a lock does not pickle: dropped, and made anew on restore
+    def __getstate__(self):
+        state = dict(self.__dict__)
+        state.pop("_lock", None)
+        return state
+
+    def __setstate__(self, state):
+        self.__dict__.update(state)
+        self._lock = threading.Lock()
+        # a snapshot from before replica sync lacks the peer arrays
+        for name in ("peer_pulls", "peer_reward_sum", "peer_fail_sum"):
+            if name not in self.__dict__:
+                dtype = np.int64 if name == "peer_pulls" else np.float64
+                setattr(self, name, np.zeros(self.n_branches, dtype=dtype))
 
     def send_feedback(self, features: np.ndarray, feature_names: Sequence[str], reward: float,
                       truth: Optional[np.ndarray], routing: Optional[int] = None) -> None:
@@ -52,9 +74,68 @@ class _BanditRouter(SeldonComponent):
             self.reward_sum[branch] += r
             self.fail_sum[branch] += 1.0 - r
 
+    # ------------------------------------------------------- replica sync
+    def stats_snapshot(self) -> Dict[str, Any]:
+        """This replica's own statistics (not its peers')."""
+        with self._lock:
+            return {"pulls": self.pulls.copy(), "reward_sum": self.reward_sum.copy(),
+                    "fail_sum": self.fail_sum.copy()}
+
+    def reset_local_stats(self) -> None:
+        """Zero this replica's own counters (a fresh replica booted from a
+        shared-key snapshot: those counts are another replica's and must not
+        be republished under this one's key)."""
+        with self._lock:
+            self.pulls = np.zeros(self.n_branches, dtype=np.int64)
+            self.reward_sum = np.zeros(self.n_branches, dtype=np.float64)
+            self.fail_sum = np.zeros(self.n_branches, dtype=np.float64)
+
+    def _valid_snapshot(self, s: Dict[str, Any]) -> bool:
+        try:
+            return all(np.asarray(s[k]).shape == (self.n_branches,)
+                       for k in ("pulls", "reward_sum", "fail_sum"))
+        except (KeyError, TypeError):
+            return False
+
+    def load_stats_snapshot(self, s: Dict[str, Any]) -> bool:
+        """Install a snapshot as this replica's own counters (a boot resume);
+        False, and nothing changed, for one of another branch count."""
+        if not self._valid_snapshot(s):
+            return False
+        with self._lock:
+            self.pulls = np.asarray(s["pulls"], dtype=np.int64).copy()
+            self.reward_sum = np.asarray(s["reward_sum"], dtype=np.float64).copy()
+            self.fail_sum = np.asarray(s["fail_sum"], dtype=np.float64).copy()
+        return True
+
+    def apply_peer_stats(self, snapshots: Sequence[Dict[str, Any]]) -> None:
+        """The peer contribution becomes the sum of ``snapshots`` (each one
+        other replica's ``stats_snapshot()``); a snapshot of another branch
+        count (a stale key) is skipped."""
+        pulls = np.zeros(self.n_branches, dtype=np.int64)
+        reward = np.zeros(self.n_branches, dtype=np.float64)
+        fail = np.zeros(self.n_branches, dtype=np.float64)
+        for s in snapshots:
+            if not self._valid_snapshot(s):
+                continue
+            pulls += np.asarray(s["pulls"], dtype=np.int64)
+            reward += np.asarray(s["reward_sum"], dtype=np.float64)
+            fail += np.asarray(s["fail_sum"], dtype=np.float64)
+        with self._lock:
+            self.peer_pulls = pulls
+            self.peer_reward_sum = reward
+            self.peer_fail_sum = fail
+
+    def _totals(self):
+        """Local + peer (pulls, reward sums, fail sums); the caller holds
+        the lock."""
+        return (self.pulls + self.peer_pulls, self.reward_sum + self.peer_reward_sum,
+                self.fail_sum + self.peer_fail_sum)
+
     def branch_means(self) -> np.ndarray:
         with self._lock:
-            return self.reward_sum / np.maximum(self.pulls, 1)
+            pulls, reward, _ = self._totals()
+            return reward / np.maximum(pulls, 1)
 
     def tags(self) -> Dict[str, Any]:
         return {"bandit": type(self).__name__,
@@ -92,12 +173,13 @@ class EpsilonGreedy(_BanditRouter):
 
     def route(self, X: np.ndarray, names: Sequence[str]) -> int:
         with self._lock:
+            pulls, reward, _ = self._totals()
             if self._rng.random() < self.epsilon:
                 branch = int(self._rng.integers(self.n_branches))
-            elif self.pulls.sum() == 0:
+            elif pulls.sum() == 0:
                 branch = self.best_branch
             else:
-                branch = int(np.argmax(self.reward_sum / np.maximum(self.pulls, 1)))
+                branch = int(np.argmax(reward / np.maximum(pulls, 1)))
             self._last_branch = branch
             return branch
 
@@ -118,7 +200,8 @@ class ThompsonSampling(_BanditRouter):
 
     def route(self, X: np.ndarray, names: Sequence[str]) -> int:
         with self._lock:
-            theta = self._rng.beta(self.alpha0 + self.reward_sum, self.beta0 + self.fail_sum)
+            _, reward, fail = self._totals()
+            theta = self._rng.beta(self.alpha0 + reward, self.beta0 + fail)
             branch = int(np.argmax(theta))
             self._last_branch = branch
             return branch

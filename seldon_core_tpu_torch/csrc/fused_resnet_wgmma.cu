@@ -66,6 +66,8 @@
 // cuTensorMapEncodeTiled, a libcuda symbol fetched through the runtime's
 // entry-point query, so the library links against nothing but cudart.
 
+#include <mutex>
+
 #include "hopper_wgmma.cuh"
 
 namespace {
@@ -372,6 +374,29 @@ struct Args {
   int M, H, W, ka, n, splits, per, steps;
 };
 
+// Raise conv_gemm_kernel<STAGE, BN>'s dynamic shared-memory limit to the
+// deepest ring's size, once per device. The limit is the function's, shared
+// by every host thread: set per launch to the plan's own ring, a thread
+// launching a shallower ring lowered it under another's deeper one between
+// that one's set and its launch (cudaErrorInvalidValue under concurrent
+// forwards). Set once, under a lock, no set ever overlaps a launch.
+template <int STAGE, int BN>
+cudaError_t size_once() {
+  static std::mutex mu;
+  static uint64_t sized = 0;  // devices whose limit is set, one bit each; under mu
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
+  std::lock_guard<std::mutex> lock(mu);
+  if (sized >> dev & 1u) return cudaSuccess;
+  err = cudaFuncSetAttribute(conv_gemm_kernel<STAGE, BN>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem_bytes<BN>(Tile<BN>::kMaxStages));
+  if (err == cudaSuccess) sized |= 1ull << dev;
+  return err;
+}
+
 template <int STAGE, int BN>
 cudaError_t launch(const Args& g, cudaStream_t stream) {
   CUtensorMap ta, tb;
@@ -380,8 +405,7 @@ cudaError_t launch(const Args& g, cudaStream_t stream) {
     return cudaErrorInvalidValue;
   const int stages = g.per < Tile<BN>::kMaxStages ? g.per : Tile<BN>::kMaxStages;
   const int smem = smem_bytes<BN>(stages);
-  cudaError_t err = cudaFuncSetAttribute(conv_gemm_kernel<STAGE, BN>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaError_t err = size_once<STAGE, BN>();
   if (err != cudaSuccess) return err;
   const dim3 grid(g.n / BN, (g.M + BM - 1) / BM, g.splits);
   conv_gemm_kernel<STAGE, BN><<<grid, kThreads, smem, stream>>>(

@@ -198,24 +198,44 @@ typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                   const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
                                   CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
-// cuTensorMapEncodeTiled from libcuda, fetched once through the runtime
-// (libcudart does not export it; this way the library needs no -lcuda).
-EncodeTiledFn encode_tiled() {
-  static const EncodeTiledFn fn = []() -> EncodeTiledFn {
-    void* p = nullptr;
+// A libcuda symbol, fetched through the runtime (libcudart does not export
+// the driver API; this way the library needs no -lcuda); nullptr if absent.
+void* driver_entry(const char* name) {
+  void* p = nullptr;
 #if CUDART_VERSION >= 12050
-    cudaDriverEntryPointQueryResult status;
-    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
-                                         &status) != cudaSuccess ||
-        status != cudaDriverEntryPointSuccess)
-      return nullptr;
+  cudaDriverEntryPointQueryResult status;
+  if (cudaGetDriverEntryPointByVersion(name, &p, 12000, cudaEnableDefault, &status) !=
+          cudaSuccess ||
+      status != cudaDriverEntryPointSuccess)
+    return nullptr;
 #else
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault) != cudaSuccess)
-      return nullptr;
+  if (cudaGetDriverEntryPoint(name, &p, cudaEnableDefault) != cudaSuccess) return nullptr;
 #endif
-    return reinterpret_cast<EncodeTiledFn>(p);
-  }();
+  return p;
+}
+
+// cuTensorMapEncodeTiled, fetched once.
+EncodeTiledFn encode_tiled() {
+  static const EncodeTiledFn fn =
+      reinterpret_cast<EncodeTiledFn>(driver_entry("cuTensorMapEncodeTiled"));
   return fn;
+}
+
+typedef CUresult (*CtxGetCurrentFn)(CUcontext*);
+
+// Make the current device's primary context current on the calling thread
+// if it has none. cuTensorMapEncodeTiled fails on a thread without a
+// current context, and a host thread whose first CUDA call is this
+// library's (a server's request thread whose allocations all came from
+// PyTorch's cache) has none: the runtime binds one only at its first call
+// that needs it, which comes after the encoding.
+bool bind_context() {
+  static const CtxGetCurrentFn get =
+      reinterpret_cast<CtxGetCurrentFn>(driver_entry("cuCtxGetCurrent"));
+  CUcontext ctx = nullptr;
+  if (get != nullptr && get(&ctx) == CUDA_SUCCESS && ctx != nullptr) return true;
+  int dev = 0;
+  return cudaGetDevice(&dev) == cudaSuccess && cudaSetDevice(dev) == cudaSuccess;
 }
 
 // A 2-D row-major [rows, cols] tensor, boxes of box_rows x box_cols.
@@ -223,7 +243,7 @@ bool encode_2d(CUtensorMap* map, CUtensorMapDataType type, const void* base, uin
                uint64_t cols, uint64_t row_bytes, uint32_t box_rows, uint32_t box_cols,
                CUtensorMapSwizzle swizzle) {
   const EncodeTiledFn enc = encode_tiled();
-  if (enc == nullptr) return false;
+  if (enc == nullptr || !bind_context()) return false;
   const cuuint64_t dims[2] = {cols, rows};
   const cuuint64_t strides[1] = {row_bytes};
   const cuuint32_t box[2] = {box_cols, box_rows};

@@ -384,7 +384,9 @@ class MetricsRegistry:
         for a component without it): gauges set, the page-shed counter
         caught up to the allocator's tally (the spec slot-step counter to
         the controller's, the prefix counters to the trie's), and each
-        drained observation observed once."""
+        drained observation observed once. A replica fleet
+        (``runtime/engine.ReplicaSet``) is read through its merged
+        ``llm_stats``, as a solo server is."""
         stats_fn = getattr(component, "llm_stats", None)
         if stats_fn is None:
             return
@@ -434,12 +436,18 @@ class MetricsRegistry:
             self._adapter_evictions.children[base] = max(
                 self._adapter_evictions.child(base),
                 float(stats.get("adapter_evictions_total", 0)))
+            # a replica fleet's merged stats carry one row per replica for a
+            # (tenant, class): the series is their sum
+            tallies: Dict[Tuple[str, ...], List[float]] = {}
             for row in stats.get("tenant_counters", ()):
                 labels = base + (row.get("tenant", ""), row.get("slo_class", ""))
-                for fam, key in ((self._tenant_admitted, "admitted"),
-                                 (self._tenant_shed, "shed"),
-                                 (self._tenant_tokens, "tokens")):
-                    fam.children[labels] = max(fam.child(labels), float(row.get(key, 0)))
+                t = tallies.setdefault(labels, [0.0, 0.0, 0.0])
+                for j, key in enumerate(("admitted", "shed", "tokens")):
+                    t[j] += float(row.get(key, 0))
+            for labels, t in tallies.items():
+                for fam, v in zip((self._tenant_admitted, self._tenant_shed,
+                                   self._tenant_tokens), t):
+                    fam.children[labels] = max(fam.child(labels), v)
             for cls, seconds in stats.get("ttft_by_class", ()):
                 self._observe(self._tenant_ttft, base + (cls,), seconds)
 

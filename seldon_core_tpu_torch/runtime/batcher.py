@@ -1468,6 +1468,10 @@ class BatcherService:
         self.batcher = ContinuousBatcher(server, max_slots=max_slots,
                                          max_len=server.continuous_batching_max_len,
                                          device=server.device, **batcher_kw)
+        # submissions whose futures have not settled: a replica fleet
+        # detaches a drained replica only while this is 0
+        self._unsettled = 0
+        self._unsettled_lock = threading.Lock()
 
     def submit(self, prompt: Any, max_new_tokens: Optional[int] = None,
                seed: Optional[int] = None, info: Optional[dict] = None,
@@ -1477,8 +1481,27 @@ class BatcherService:
         thread pumps its response stream from it. Cancelling the Future (a
         disconnect) is safe. ``identity``: ``tenant``, ``slo_class``,
         ``adapter``, ``deadline_s`` (``ContinuousBatcher.submit``)."""
-        return self.batcher.submit(prompt, max_new_tokens, seed=seed, info=info,
-                                   on_token=on_token, **identity)
+        with self._unsettled_lock:
+            self._unsettled += 1
+        try:
+            fut = self.batcher.submit(prompt, max_new_tokens, seed=seed, info=info,
+                                      on_token=on_token, **identity)
+        except BaseException:
+            self._settled(None)
+            raise
+        fut.add_done_callback(self._settled)
+        return fut
+
+    def _settled(self, _fut) -> None:
+        with self._unsettled_lock:
+            self._unsettled -= 1
+
+    def is_idle(self) -> bool:
+        """No submission unsettled: nothing queued, prefilling or decoding
+        for a client (a replica fleet's detach gate; pages the prefix cache
+        keeps are not work)."""
+        with self._unsettled_lock:
+            return self._unsettled == 0
 
     def submit_sync(self, prompt: Any, max_new_tokens: Optional[int] = None,
                     timeout_s: float = 600.0, seed: Optional[int] = None,
@@ -1497,7 +1520,11 @@ def get_batcher_service(component: Any) -> Optional[BatcherService]:
     """The component's shared BatcherService, created on first use when the
     component opted in (``continuous_batching`` slots > 0); None otherwise.
     Creation is locked: two first requests racing would each allocate a
-    page pool and step the device."""
+    page pool and step the device. A replica fleet (``is_fleet``,
+    ``runtime/engine.ReplicaSet``) is its own service: it spreads submits
+    over its replicas' batchers and is never wrapped in one."""
+    if getattr(component, "is_fleet", False):
+        return component
     svc = getattr(component, "_batcher_service", None)
     if svc is not None:
         return svc
@@ -1516,7 +1543,8 @@ def ensure_stream_service(component: Any) -> BatcherService:
     """Streaming without continuous batching: one shared 1-slot service per
     component, built under the same lock (never one per request). On a card
     building it captures its own prefill and decode graphs. A component
-    with ``continuous_batching`` streams through its shared batch."""
+    with ``continuous_batching`` streams through its shared batch, a
+    replica fleet through itself (``get_batcher_service``)."""
     svc = get_batcher_service(component)
     if svc is not None:
         return svc

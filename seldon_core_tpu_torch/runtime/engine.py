@@ -18,9 +18,10 @@ the result comes back to the host once. ``_fused_calls`` counts its runs.
 
 A graph of local synchronous nodes is driven without an event loop
 (``predict_sync``); one that has an asynchronous component runs on
-``asyncio``. Remote nodes (a unit with an ``endpoint``) and replica sets (a
-list of components under one name) come with the remote-node slice of the
-port and raise ``NotImplementedError`` here.
+``asyncio``, its children fanned out concurrently. A unit with an
+``endpoint`` is a remote node (``runtime/remote.RemoteComponent``, an
+asynchronous component); a list of components under one name is one
+``ReplicaSet``: replicas behind least-loaded, prefix-aware dispatch.
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ import inspect
 import logging
 import secrets
 import threading
+from concurrent.futures import Future
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -56,8 +58,6 @@ logger = logging.getLogger(__name__)
 TAG_PARTIAL_RESPONSE = "seldon.io/partial-response"
 TAG_DROPPED_BRANCHES = "seldon.io/dropped-branches"
 TAG_REROUTED = "seldon.io/rerouted"
-
-REMOTE_SLICE = "the remote-node slice of the port (ROADMAP Queue A item 3b)"
 
 class _Suspended(Exception):
     """A graph coroutine suspended on real async work although
@@ -96,6 +96,319 @@ def make_puid() -> str:
     """Request id of the reference's SecureRandom 130-bit class
     (`service/PredictionService.java:77-83`)."""
     return secrets.token_hex(16)
+
+
+def replica_load(component: Any) -> Tuple[float, float]:
+    """A replica's load for least-loaded dispatch, from signals the batcher
+    already keeps: first the work ahead of a new request (queued requests
+    plus occupied or prefilling slots), then the page pool's in-use
+    fraction. A component without a batcher scores (0, 0)."""
+    svc = getattr(component, "_batcher_service", None)
+    if svc is None:
+        return (0.0, 0.0)
+    from seldon_core_tpu_torch.models.transformer import RESERVED_PAGES
+
+    b = svc.batcher
+    queued = len(b._pending) + sum(1 for s in b._slots if s.active or s.prefilling)
+    total, in_use, _ = b._allocator.stats()
+    return (float(queued), in_use / max(total - RESERVED_PAGES, 1))
+
+
+class ReplicaSet(SeldonComponent):
+    """N identical replicas behind one dispatcher, the JAX package's
+    ``ReplicaSet`` (the in-process form of the reference's scaled
+    Deployment behind the engine's service). A unit whose registered
+    component is a list resolves to one. Each request goes to the replica
+    that holds the longest cached prefix of its prompt (``pick_for``), then
+    the least loaded (``replica_load``), then the lowest index, so dispatch
+    is deterministic under equal load.
+
+    Membership: ``add_replica`` attaches a replica; ``drain_replica`` takes
+    one out of dispatch at once while it finishes its queued and in-flight
+    work; ``collect_drained`` detaches it (and closes and forgets its
+    batcher service) once it has been seen idle on two sweeps in a row, so a request picked just
+    before the drain is never closed under. Membership changes under a
+    lock; dispatch works on a snapshot.
+
+    The transports reach it as a batcher service (``get_batcher_service``
+    returns the fleet itself): ``submit`` picks a replica and joins its
+    shared batch. ``llm_stats`` merges the replicas' for the scrape.
+
+    A replica's failure propagates to the caller unchanged, as on a solo
+    server: health checks, ejection, the resume journal and the retry
+    budget are the fleet fault-tolerance slice (ROADMAP Queue A item 5)."""
+
+    is_fleet = True
+
+    def __init__(self, replicas: List[SeldonComponent]):
+        super().__init__()
+        if not replicas:
+            raise SeldonError("ReplicaSet needs >= 1 replica", status_code=500)
+        self.replicas = list(replicas)
+        self._draining: List[SeldonComponent] = []
+        # replicas seen idle on the previous collect sweep (by id)
+        self._idle_once: set = set()
+        self._lock = threading.Lock()
+        # one collect sweep at a time: two overlapping sweeps would count as
+        # two idle sightings an instant apart
+        self._collect_guard = threading.Lock()
+
+    # -- membership ------------------------------------------------------
+    def members(self) -> List[SeldonComponent]:
+        """Every attached replica, draining ones included."""
+        with self._lock:
+            return list(self.replicas)
+
+    def draining_members(self) -> List[SeldonComponent]:
+        with self._lock:
+            return list(self._draining)
+
+    def _dispatchable(self) -> List[SeldonComponent]:
+        """The replicas dispatch may target: those not draining, or every
+        replica when all drain (touching a draining replica beats
+        black-holing traffic)."""
+        with self._lock:
+            live = [r for r in self.replicas if r not in self._draining]
+            return live or list(self.replicas)
+
+    def add_replica(self, replica: SeldonComponent) -> None:
+        """Attach (and load) one replica; dispatchable at once."""
+        if hasattr(replica, "load"):
+            replica.load()
+        with self._lock:
+            self.replicas.append(replica)
+
+    def drain_replica(self, replica: Optional[SeldonComponent] = None
+                      ) -> Optional[SeldonComponent]:
+        """Start draining ``replica`` (default: the newest serving one, whose
+        caches are coldest). Returns it, or None when nothing may drain: the
+        last serving replica never does. Its ``drain()`` hook (on it or its
+        batcher service), where it has one, is told."""
+        with self._lock:
+            candidates = [r for r in self.replicas if r not in self._draining]
+            if len(candidates) <= 1:
+                return None
+            if replica is None:
+                replica = candidates[-1]
+            elif replica not in candidates:
+                return None
+            self._draining.append(replica)
+        hook = self._replica_hook(replica, "drain")
+        if hook is not None:
+            hook()
+        return replica
+
+    def undrain_replica(self) -> Optional[SeldonComponent]:
+        """Cancel the newest drain: the warm replica rejoins dispatch.
+        Returns it, or None when nothing drains."""
+        with self._lock:
+            if not self._draining:
+                return None
+            replica = self._draining.pop()
+            self._idle_once.discard(id(replica))
+        hook = self._replica_hook(replica, "resume")
+        if hook is not None:
+            hook()
+        return replica
+
+    @staticmethod
+    def _replica_hook(replica: SeldonComponent, name: str):
+        """``name`` on the replica, else on its batcher service."""
+        hook = getattr(replica, name, None)
+        if hook is not None:
+            return hook
+        svc = getattr(replica, "_batcher_service", None)
+        return getattr(svc, name, None) if svc is not None else None
+
+    def collect_drained(self) -> List[SeldonComponent]:
+        """Detach every draining replica seen idle (its ``is_idle()``, else
+        a zero ``replica_load``) on two sweeps in a row, re-checked after
+        removal (reattached if a submit landed), and close its batcher
+        service. A replica still holding work stays and serves it. A sweep
+        that overlaps another returns []."""
+        if not self._collect_guard.acquire(blocking=False):
+            return []
+        try:
+            return self._collect_locked()
+        finally:
+            self._collect_guard.release()
+
+    def _collect_locked(self) -> List[SeldonComponent]:
+        done = []
+        for r in self.draining_members():
+            idle_fn = self._replica_hook(r, "is_idle")
+
+            def idle() -> bool:
+                return idle_fn() if idle_fn is not None else replica_load(r) == (0.0, 0.0)
+
+            if not idle():
+                with self._lock:
+                    self._idle_once.discard(id(r))
+                continue
+            with self._lock:
+                first_sighting = id(r) not in self._idle_once
+                self._idle_once.add(id(r))
+            if first_sighting:
+                continue
+            with self._lock:
+                if r in self.replicas:
+                    self.replicas.remove(r)
+                if r in self._draining:
+                    self._draining.remove(r)
+            if not idle():
+                # a submit landed between the check and the removal
+                with self._lock:
+                    self.replicas.append(r)
+                    self._draining.append(r)
+                    self._idle_once.discard(id(r))
+                continue
+            with self._lock:
+                self._idle_once.discard(id(r))
+            svc = getattr(r, "_batcher_service", None)
+            if svc is not None:
+                # a replica added back builds a new service on first use
+                r._batcher_service = None
+                try:
+                    svc.close()
+                except Exception:  # detaching must not fail the sweep
+                    logger.exception("closing a drained replica's batcher")
+            done.append(r)
+        return done
+
+    def load(self) -> None:
+        for r in self.members():
+            if hasattr(r, "load"):
+                r.load()
+
+    # -- dispatch ----------------------------------------------------------
+    def pick(self) -> SeldonComponent:
+        """The least-loaded dispatchable replica now (lowest index on ties)."""
+        reps = self._dispatchable()
+        return min(enumerate(reps), key=lambda ir: (replica_load(ir[1]), ir[0]))[1]
+
+    def _probe(self, prompt: Any, reps: List[SeldonComponent]) -> List[Tuple[int, Tuple]]:
+        """Each replica's (cached-prefix length of ``prompt``, load)."""
+        out = []
+        for r in reps:
+            probe = getattr(r, "prefix_match_len", None)
+            match = int(probe(prompt)) if probe is not None and prompt is not None else 0
+            out.append((match, replica_load(r)))
+        return out
+
+    def pick_for(self, prompt: Any) -> SeldonComponent:
+        """Prefix-aware dispatch: the replica whose radix cache holds the
+        longest cached prefix of ``prompt`` (a hit there costs block-table
+        entries where another replica recomputes the prefill), then the
+        least loaded, then the lowest index. ``prefix_match_len`` is a
+        host-side probe under the replica's own locks."""
+        reps = self._dispatchable()
+        probes = self._probe(self._encode_once(prompt, reps), reps)
+        best = min(range(len(reps)), key=lambda i: (-probes[i][0], probes[i][1], i))
+        return reps[best]
+
+    def _encode_once(self, prompt: Any, reps: Optional[List[SeldonComponent]] = None):
+        """A text prompt's ids, tokenized once before the probes fan out
+        (replicas share the tokenizer by construction); any other prompt as
+        it is."""
+        if not isinstance(prompt, str):
+            return prompt
+        for r in (reps if reps is not None else self.members()):
+            tok = getattr(r, "_tokenizer", None)
+            if tok is not None:
+                return tok.encode(prompt)
+        return prompt
+
+    def loads(self) -> List[Tuple[float, float]]:
+        return [replica_load(r) for r in self.members()]
+
+    def prefix_match_len(self, prompt: Any) -> int:
+        """The longest cached prefix any replica holds (a fleet nests, or a
+        router reads its coverage, as one number)."""
+        reps = self.members()
+        prompt = self._encode_once(prompt, reps)
+        return max((m for m, _ in self._probe(prompt, reps)), default=0)
+
+    # -- the batcher-service surface the transports call -----------------
+    @property
+    def batcher(self):
+        """Transports call ``svc.batcher.accommodates``: the fleet answers."""
+        return self
+
+    def accommodates(self, prompt: Any, max_new_tokens: Optional[int] = None) -> bool:
+        """One dispatchable replica's answer (replicas are identical)."""
+        from seldon_core_tpu_torch.runtime.batcher import ensure_stream_service
+
+        for r in self._dispatchable():
+            if hasattr(r, "generate"):
+                return ensure_stream_service(r).batcher.accommodates(prompt, max_new_tokens)
+        return False
+
+    def submit(self, prompt: Any, max_new_tokens: Optional[int] = None,
+               seed: Optional[int] = None, info: Optional[dict] = None,
+               on_token: Optional[Any] = None, **identity: Any) -> Future:
+        """``BatcherService.submit`` on the replica ``pick_for`` chooses, with
+        the prompt tokenized once: the Future of the final token list, and
+        ``on_token`` fed from that replica's batcher."""
+        from seldon_core_tpu_torch.runtime.batcher import ensure_stream_service
+
+        ids = self._encode_once(prompt)
+        return ensure_stream_service(self.pick_for(ids)).submit(
+            ids, max_new_tokens, seed=seed, info=info, on_token=on_token, **identity)
+
+    # the JAX package's name for a submit from a thread that pumps
+    # ``on_token``; the port's submit does not block, so it is the same call
+    submit_stream = submit
+
+    def submit_sync(self, prompt: Any, max_new_tokens: Optional[int] = None,
+                    timeout_s: float = 600.0, seed: Optional[int] = None,
+                    info: Optional[dict] = None, **identity: Any) -> List[int]:
+        return self.submit(prompt, max_new_tokens, seed=seed, info=info,
+                           **identity).result(timeout_s)
+
+    # -- the component surface, delegated to the chosen replica ----------
+    def predict(self, X, names, meta=None):
+        return self.pick().predict(X, names, meta)
+
+    def generate(self, prompts=None, *a, **kw):
+        """Routed on the first prompt's cached prefix (a one-prompt request
+        is the chat shape prefix routing is for)."""
+        if prompts is not None and len(prompts) > 0:
+            return self.pick_for(prompts[0]).generate(prompts, *a, **kw)
+        return self.pick().generate(prompts, *a, **kw)
+
+    def tags(self) -> Dict[str, Any]:
+        from seldon_core_tpu_torch.components.component import client_custom_tags
+
+        reps = self.members()
+        out: Dict[str, Any] = {"replicas": len(reps)}
+        for i, r in enumerate(reps):
+            for k, v in client_custom_tags(r).items():
+                out[f"replica_{i}_{k}"] = v
+        return out
+
+    def llm_stats(self) -> Dict[str, Any]:
+        """The replicas' stats merged for the scrape: numbers sum (each
+        replica's counters and gauges), fractions average, drained lists
+        concatenate (each replica's deques drain once, as solo), other
+        values come from the first replica."""
+        stats_list = [r.llm_stats() for r in self.members() if hasattr(r, "llm_stats")]
+        if not stats_list:
+            return {}
+        fractions = ("kv_occupancy", "kv_page_fragmentation", "spec_accept_rate",
+                     "spec_tokens_per_forward", "spec_draft_overhead_fraction")
+        merged = dict(stats_list[0])
+        for stats in stats_list[1:]:
+            for k, v in stats.items():
+                cur = merged.get(k)
+                if isinstance(v, list) and isinstance(cur, list):
+                    merged[k] = cur + v
+                elif (isinstance(v, (int, float)) and isinstance(cur, (int, float))
+                      and not isinstance(v, bool)):
+                    merged[k] = cur + v
+        for k in fractions:  # a sum of fractions would pass 1
+            if isinstance(merged.get(k), (int, float)):
+                merged[k] = merged[k] / len(stats_list)
+        return merged
 
 
 @dataclass
@@ -200,16 +513,17 @@ class GraphEngine:
         if unit.name in self._components:
             comp = self._components[unit.name]
             if isinstance(comp, (list, tuple)):
-                raise NotImplementedError(
-                    f"unit {unit.name!r}: a list of components (replicas behind least-loaded "
-                    f"dispatch) arrives with {REMOTE_SLICE}")
+                # N replicas behind one dispatcher; cached, so a rebuild and
+                # the scrape walking _components see one ReplicaSet
+                comp = ReplicaSet(list(comp))
+                self._components[unit.name] = comp
         elif unit.implementation is not None and \
                 unit.implementation != UnitImplementation.UNKNOWN_IMPLEMENTATION:
             comp = self._make_implementation(unit)
         elif unit.endpoint is not None and unit.endpoint.service_host:
-            raise NotImplementedError(f"unit {unit.name!r}: a remote node (endpoint "
-                                      f"{unit.endpoint.service_host}:"
-                                      f"{unit.endpoint.service_port}) arrives with {REMOTE_SLICE}")
+            from seldon_core_tpu_torch.runtime.remote import RemoteComponent
+
+            comp = RemoteComponent(unit.endpoint, annotations=self._annotations or None)
         else:
             raise SeldonError(f"Cannot resolve component for unit {unit.name!r}: no registered "
                               f"component, implementation, or endpoint", reason="BAD_GRAPH",
@@ -595,4 +909,5 @@ class GraphEngine:
         return SeldonMessage()
 
 
-__all__ = ["GraphEngine", "PredictorState", "UnitState", "make_puid"]
+__all__ = ["GraphEngine", "PredictorState", "ReplicaSet", "UnitState", "make_puid",
+           "replica_load"]

@@ -21,8 +21,9 @@ parts the graph engine and its transports use:
   page pool is exhausted.
 
 Everything takes an injectable monotonic ``clock`` for deterministic
-tests. The replica fleet's ``RetryBudget`` and resume journal come with the
-fleet slice.
+tests. ``effective_timeout`` clamps a remote hop to the budget left. The
+replica fleet's ``RetryBudget`` and resume journal come with the fleet
+fault-tolerance slice.
 """
 
 from __future__ import annotations
@@ -123,6 +124,22 @@ def deadline_scope(deadline: Optional[Deadline]):
         yield deadline
     finally:
         DEADLINE.reset(token)
+
+
+def effective_timeout(per_hop_s: Optional[float],
+                      deadline: Optional[Deadline] = None) -> Optional[float]:
+    """``min(per-hop timeout, remaining budget)`` for one remote hop. Raises
+    DeadlineExceeded when the budget is already spent: a caller never starts
+    network work it cannot finish in time."""
+    if deadline is None:
+        deadline = current_deadline()
+    if deadline is None:
+        return per_hop_s
+    rem = deadline.remaining_s()
+    if rem <= 0.0:
+        raise DeadlineExceeded(f"deadline exceeded before remote hop: budget "
+                               f"{deadline.budget_s * 1000:.0f}ms already spent")
+    return rem if per_hop_s is None else min(per_hop_s, rem)
 
 
 # ---------------------------------------------------------------------------
@@ -416,4 +433,4 @@ def failure_counts_for_breaker(exc: BaseException) -> bool:
 __all__ = ["AdmissionController", "BreakerOpen", "CircuitBreaker", "DEADLINE_GRPC_METADATA",
            "DEADLINE_HEADER", "DEFAULT_RETRY_AFTER_S", "Deadline", "DeadlineExceeded",
            "ResilienceConfig", "ShedError", "current_deadline", "deadline_scope",
-           "failure_counts_for_breaker"]
+           "effective_timeout", "failure_counts_for_breaker"]

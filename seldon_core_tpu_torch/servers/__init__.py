@@ -1,9 +1,13 @@
 """Prepackaged servers of the port.
 
 ``make_prepackaged_server`` is the port of ``seldon_core_tpu.servers``'s
-selector: ``UnitImplementation.JAX_SERVER`` gives ``TorchServer``, the
-counterpart of ``JAXServer``. The other prepackaged servers (sklearn,
-xgboost, mlflow, the TF-Serving proxy) arrive with later slices.
+selector (the reference's `servers/{sklearnserver,xgboostserver,
+mlflowserver,tfserving}`, chosen by ``implementation`` + ``modelUri``):
+``JAX_SERVER`` gives ``TorchServer`` (the counterpart of ``JAXServer``, on
+the engine's device); ``SKLEARN_SERVER``, ``XGBOOST_SERVER``,
+``MLFLOW_SERVER`` and ``TENSORFLOW_SERVER`` (a proxy to TF-Serving) are
+host-only copies of the JAX package's, each importing its library at
+``load()`` and raising, naming it, where it is absent.
 """
 
 from __future__ import annotations
@@ -23,11 +27,22 @@ def make_prepackaged_server(implementation: UnitImplementation, model_uri: str,
         from seldon_core_tpu_torch.servers.torchserver import TorchServer
 
         return TorchServer(model_uri=model_uri, device=device, **parameters)
-    if implementation in (UnitImplementation.SKLEARN_SERVER, UnitImplementation.XGBOOST_SERVER,
-                          UnitImplementation.MLFLOW_SERVER,
-                          UnitImplementation.TENSORFLOW_SERVER):
-        raise NotImplementedError(f"{implementation.value} arrives with a later slice of the "
-                                  f"port (only JAX_SERVER -> TorchServer is ported)")
+    if implementation == UnitImplementation.SKLEARN_SERVER:
+        from seldon_core_tpu_torch.servers.sklearnserver import SKLearnServer
+
+        return SKLearnServer(model_uri=model_uri, **parameters)
+    if implementation == UnitImplementation.XGBOOST_SERVER:
+        from seldon_core_tpu_torch.servers.xgboostserver import XGBoostServer
+
+        return XGBoostServer(model_uri=model_uri, **parameters)
+    if implementation == UnitImplementation.MLFLOW_SERVER:
+        from seldon_core_tpu_torch.servers.mlflowserver import MLFlowServer
+
+        return MLFlowServer(model_uri=model_uri, **parameters)
+    if implementation == UnitImplementation.TENSORFLOW_SERVER:
+        from seldon_core_tpu_torch.servers.tfproxy import TFServingProxy
+
+        return TFServingProxy(model_uri=model_uri, **parameters)
     raise SeldonError(
         f"No prepackaged server for implementation {implementation}", reason="BAD_GRAPH"
     )

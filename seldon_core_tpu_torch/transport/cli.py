@@ -12,7 +12,12 @@ need not), loads it and serves it over REST (``transport/rest.py``) or gRPC
 (``transport/grpc_server.py``; without grpcio or protobuf installed it exits
 naming the missing module, with no fallback to REST). The gRPC server reads
 the pod's annotations from the downward-API file ``ANNOTATIONS_FILE``
-(``seldon.io/grpc-max-message-size``), as the JAX package's CLI does.
+(``seldon.io/grpc-max-message-size``), as the JAX package's CLI does. With
+``--persistence`` the component is restored from its persisted state where
+there is one (``runtime/persistence``: a directory, or Redis where
+``REDIS_SERVICE_HOST`` is set), snapshotted by a ``PersistenceThread``, and
+a stateful router (one with ``stats_snapshot``) shares its counters with
+its replicas through a ``ReplicaSync``.
 
 ``python -m seldon_core_tpu_torch.transport.cli engine [--spec graph.json]
 [--api REST|GRPC] --port N [--device cuda|cpu]`` serves a predictor graph
@@ -78,24 +83,64 @@ def takes_device(klass) -> bool:
                for p in params)
 
 
-def build_component(interface_name: str, device: str):
+def build_component(interface_name: str, device: str, persistence: bool = False):
     """Construct ``interface_name`` with the typed
     ``PREDICTIVE_UNIT_PARAMETERS`` (and ``device`` when the class takes
-    it), and load it."""
+    it), or with ``persistence`` restore it from its persisted state, and
+    load it; with ``persistence`` its persistence threads start
+    (``start_persistence``)."""
     from seldon_core_tpu_torch.contracts.parameters import parse_parameters
 
     klass = import_interface(interface_name)
     parameters = parse_parameters()
     if takes_device(klass):
         parameters = dict(parameters, device=device)
-    try:
-        component = klass(**parameters)
-    except TypeError as e:
-        raise SystemExit(f"{interface_name}(**{sorted(parameters)}) failed: {e} — the model "
-                         f"class must accept the unit parameters") from e
+    component = None
+    if persistence:
+        from seldon_core_tpu_torch.runtime.persistence import restore_component
+
+        component = restore_component(klass)
+    restored_shared = component is not None
+    if component is None:
+        try:
+            component = klass(**parameters)
+        except TypeError as e:
+            raise SystemExit(f"{interface_name}(**{sorted(parameters)}) failed: {e} — the "
+                             f"model class must accept the unit parameters") from e
     if hasattr(component, "load"):
         component.load()
+    if persistence:
+        start_persistence(component, restored_shared)
     return component
+
+
+def start_persistence(component, restored_shared: bool) -> list:
+    """A ``PersistenceThread`` for ``component`` and, for a stateful router,
+    a ``ReplicaSync`` sharing its counters with its replicas; both started.
+    A router restored from the shared key (persistence from before replica
+    sync) adopts those counts as its own only if its exclusive claim wins;
+    the other replicas zero theirs and learn them as peers."""
+    import atexit
+
+    from seldon_core_tpu_torch.runtime.persistence import PersistenceThread, ReplicaSync
+
+    thread = PersistenceThread(component)
+    thread.start()
+    threads = [thread]
+    if hasattr(component, "stats_snapshot"):
+        sync = ReplicaSync(component, store=thread.store)
+        if not sync.restore_own() and restored_shared and hasattr(component,
+                                                                  "reset_local_stats"):
+            if thread.store.save_if_absent(f"{sync.key}:legacy-claim", sync.rid):
+                logging.getLogger(__name__).info("adopted legacy persisted counters as "
+                                                 "replica %s", sync.rid)
+            else:
+                component.reset_local_stats()
+        sync.sync()  # publish and pull the peers now, not after one period
+        sync.start()
+        threads.append(sync)
+        atexit.register(sync.stop)  # a last publish at shutdown
+    return threads
 
 
 def setup_logging() -> None:
@@ -114,7 +159,8 @@ def run_microservice(args: argparse.Namespace) -> None:
         except ImportError as e:
             raise SystemExit(f"the GRPC API needs the '{e.name}' module, which is not "
                              f"installed: {e}") from e
-    component = build_component(args.interface_name, args.device)
+    component = (build_component(args.interface_name, args.device, persistence=True)
+                 if args.persistence else build_component(args.interface_name, args.device))
     port = args.port or int(os.environ.get("PREDICTIVE_UNIT_SERVICE_PORT", "5000"))
     if api == "GRPC":
         serve_component(component, host=args.host, port=port,
@@ -184,6 +230,8 @@ def main(argv: Optional[list] = None) -> None:
     ms.add_argument("--port", type=int, default=None)
     ms.add_argument("--host", default="0.0.0.0")
     ms.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    ms.add_argument("--persistence", action="store_true",
+                    help="restore the component's persisted state and snapshot it")
     ms.set_defaults(func=run_microservice)
     eng = sub.add_parser("engine", help="serve a predictor graph in-process")
     eng.add_argument("--spec", default=None, help="path to a PredictorSpec JSON")

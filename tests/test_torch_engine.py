@@ -1,7 +1,7 @@
 """The port's graph engine (``seldon_core_tpu_torch/runtime/engine.py``) held
 against the JAX package's ``GraphEngine`` on the CPU: every local-node
-scenario of ``tests/test_engine.py`` (its two remote-node tests wait for the
-remote-node slice) runs the same spec and the same seeded numpy request
+scenario of ``tests/test_engine.py`` (its two remote-node tests are held in
+``tests/test_torch_remote.py``) runs the same spec and the same seeded numpy request
 through both engines, fused and unfused.
 
 - Built-ins and host components answer bit-equal: the whole response dict,
@@ -20,7 +20,7 @@ through both engines, fused and unfused.
   a float64 mean on the host of the same logits).
 - Deadlines, breakers (a router reroutes around an open branch; with
   allow-partial a combiner drops it), a router's ``observe_outcome`` hook,
-  and the refusals of the remote-node slice.
+  and what the remote-node slice brought in place of its refusals.
 """
 
 import asyncio
@@ -465,20 +465,37 @@ def test_breaker_reroutes_away_from_a_failing_async_branch_as_jax():
 
 @pytest.mark.parametrize("case", ["replica list", "remote endpoint", "outlier detector",
                                   "sklearn server"])
-def test_later_slices_raise(case):
+def test_later_slices_raise(case, tmp_path):
+    """What a later slice serves raises naming it; the remote-node slice's
+    cases now build (a list is one cached ReplicaSet, an endpoint a
+    RemoteComponent, SKLEARN_SERVER loads its artifact), and the frame wire
+    format of a remote hop still raises naming the native-edge slice."""
+    from seldon_core_tpu_torch.runtime.engine import ReplicaSet
+    from seldon_core_tpu_torch.runtime.remote import RemoteComponent
+
     graph = {"name": "m", "type": "MODEL"}
-    comps = None
+    spec = lambda: PredictorSpec.from_dict({"name": "p", "graph": graph})  # noqa: E731
     if case == "replica list":
-        comps = {"m": [object(), object()]}
-    elif case == "remote endpoint":
+        eng = GraphEngine(spec(), components={"m": [object(), object()]}, device="cpu")
+        assert isinstance(eng._components["m"], ReplicaSet)
+        assert eng.state.root.component is eng._components["m"]
+        return
+    if case == "remote endpoint":
         graph["endpoint"] = {"service_host": "127.0.0.1", "service_port": 9, "type": "REST"}
-    elif case == "outlier detector":
+        eng = GraphEngine(spec(), device="cpu")
+        assert isinstance(eng.state.root.component, RemoteComponent) and eng.has_async_nodes
+        with pytest.raises(NotImplementedError, match="native-edge slice"):
+            GraphEngine(spec(), annotations={"seldon.io/wire-format": "frame"}, device="cpu")
+        return
+    if case == "outlier detector":
         graph["implementation"] = "MAHALANOBIS_OD"
-    else:
-        graph["implementation"] = "SKLEARN_SERVER"
-    with pytest.raises(NotImplementedError, match="slice"):
-        GraphEngine(PredictorSpec.from_dict({"name": "p", "graph": graph}), components=comps,
-                    device="cpu")
+        with pytest.raises(NotImplementedError, match="slice"):
+            GraphEngine(spec(), device="cpu")
+        return
+    graph["implementation"] = "SKLEARN_SERVER"
+    graph["modelUri"] = str(tmp_path)  # no model.joblib in it
+    with pytest.raises(SeldonError, match="sklearn model file not found"):
+        GraphEngine(spec(), device="cpu")
 
 
 def test_default_device_and_env_spec(monkeypatch):

@@ -1515,6 +1515,81 @@ def test_fused_resnet_chain_graph_holds_expected_launches(dev, b, h, w, c, f):
     assert _k3_within(out, fused_resnet.identity_chain_ref(x, blocks), 2)
 
 
+def test_fused_resnet_concurrent_threads_with_different_rings(dev):
+    """Two host threads launch the same convs at once under plans of
+    different ring depths (one K step per split: a one-stage ring; the
+    whole K range in one split: the deepest), as concurrent requests of a
+    served ResNet do at 56x56 and 28x28, each after a PyTorch op of its own
+    (a request's stem). The shared-memory limit is the kernel function's,
+    shared by the threads: every launch is taken, and each thread's answers
+    are bit-equal to its first, within one ulp of the plain chain."""
+    import threading
+
+    x, blocks = _k3_case(dev, 1, 14, 14, 256, 64, 1, seed=5)
+    params = fused_resnet._block_param_list(blocks)
+    ref = fused_resnet.identity_chain_ref(x, blocks)
+    plans = {"deep": ((64, 1, 4), (64, 1, 9), (64, 1, 1)),
+             "shallow": ((64, 4, 1), (64, 9, 1), (64, 1, 1))}
+    outs, errors = {}, []
+    start = threading.Barrier(len(plans))
+
+    def run(name):
+        try:
+            (x.float() + 1).sum().item()
+            start.wait()
+            outs[name] = [fused_resnet._gemm_chain(x, params, [plans[name]])
+                          for _ in range(1000)]
+        except Exception as exc:   # noqa: BLE001 - reported below
+            errors.append(f"{name}: {exc}")
+
+    threads = [threading.Thread(target=run, args=(name,)) for name in plans]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    torch.cuda.synchronize()
+    assert not errors, errors
+    for name, got in outs.items():
+        assert _k3_within(got[0], ref, 1), name
+        assert all(torch.equal(o, got[0]) for o in got), name
+
+
+def test_tma_kernels_from_a_thread_with_no_cuda_call(dev):
+    """K3 and K4's prefill route (both encode TMA tensor maps on the host)
+    called from a new host thread whose only CUDA work is theirs: its
+    workspaces come from PyTorch's cache, warmed by the same call on this
+    thread, so nothing has made a context current there. Both launch, and
+    give this thread's answers bit for bit."""
+    import threading
+
+    x, blocks = _k3_case(dev, 1, 14, 14, 256, 64, 1, seed=6)
+    m, k, n = 128, 4096, 1024
+    xq, q, scale = _k4_case(dev, m, k, n, 6)
+    plan = (128, 1, -(-k // int8_matmul.WG_BK))
+
+    def calls():
+        return (fused_resnet.fused_identity_chain(x, blocks),
+                int8_matmul._wgmma_kernel(xq, q, scale, out_k4, plan))
+
+    out_k4 = torch.empty((m, n), dtype=torch.bfloat16, device=dev)
+    want = [t.clone() for t in calls()]
+    torch.cuda.synchronize()
+    got, errors = [], []
+
+    def run():
+        try:
+            got.extend(calls())
+        except Exception as exc:   # noqa: BLE001 - reported below
+            errors.append(str(exc))
+
+    t = threading.Thread(target=run)
+    t.start()
+    t.join()
+    torch.cuda.synchronize()
+    assert not errors, errors
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
 def test_fused_resnet_kernel_tolerance_catches_faults(dev):
     """The kernel run on a tap-swapped w2 (a kernel that read two taps in
     each other's place) lands outside the tolerance, and so does the plain
@@ -1943,3 +2018,39 @@ def test_engine_fused_combiner_runs_k3_and_equals_unfused(dev, tmp_path, batch):
     scale = np.abs(ref).max()
     assert np.abs(got["fused"] - got["unfused"]).max() <= 1e-5 * scale
     assert np.abs(got["fused"] - ref).max() <= 0.03 * scale
+
+
+def test_fleet_two_replicas_equal_one(dev):
+    """Two small replicas on the card behind a ``ReplicaSet`` (the same seed
+    draws the same weights; graph batchers, the prefix cache on) give the
+    tokens one server's graph batcher gives for the same six prompts; both
+    replicas serve, every chunk and dispatch is a replay, and a follow-up
+    carrying a served prompt lands on the replica that holds it."""
+    from seldon_core_tpu_torch.runtime.batcher import BatcherService
+    from seldon_core_tpu_torch.runtime.engine import ReplicaSet
+    from seldon_core_tpu_torch.servers.llmserver import LLMServer
+
+    def server():
+        s = LLMServer(model="transformer", model_kwargs=SMALL_LLM, init_random=True,
+                      param_dtype="auto", max_new_tokens=12, eos_id=-1, len_buckets=(16,),
+                      temperature=0.0, continuous_batching=3, prefix_cache_size=8,
+                      kv_page_size=8, device="cuda")
+        s.load()
+        return s
+
+    solo, reps = server(), [server(), server()]
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(1, 255, size=int(n)).tolist() for n in (9, 14, 5, 20, 11, 7)]
+    svc = BatcherService(solo, max_slots=3)
+    want = [f.result(120) for f in [svc.submit(p, 12) for p in prompts]]
+    svc.close()
+    rs = ReplicaSet(reps)
+    futs = [rs.submit(p, 12) for p in prompts]
+    assert [f.result(120) for f in futs] == want
+    assert all(r._prefill_replays > 0 and r._decode_replays > 0 for r in reps)
+    assert all(r._prefill_eager == 0 and r._decode_eager == 0 for r in reps)
+    follow = prompts[3] + want[3] + [1, 2, 3]
+    owner = [r.prefix_match_len(follow) for r in reps]
+    assert max(owner) > 0 and rs.pick_for(follow) is reps[int(np.argmax(owner))]
+    for r in reps:
+        r._batcher_service.close()

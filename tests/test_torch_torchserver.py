@@ -326,8 +326,10 @@ def test_cli_builds_server_from_unit_parameters(ckpt, monkeypatch):
 def test_prepackaged_and_later_slice_knobs(ckpt):
     s = make_prepackaged_server(UnitImplementation.JAX_SERVER, ckpt["path"], device="cpu")
     assert isinstance(s, TorchServer) and s.model_uri == ckpt["path"]
-    with pytest.raises(NotImplementedError, match="SKLEARN_SERVER"):
-        make_prepackaged_server(UnitImplementation.SKLEARN_SERVER, ckpt["path"])
+    # SKLEARN_SERVER is served now: a checkpoint without model.joblib fails
+    # its load, naming the missing file
+    with pytest.raises(SeldonError, match="model.joblib"):
+        make_prepackaged_server(UnitImplementation.SKLEARN_SERVER, ckpt["path"]).load()
     for knob in (dict(quantize="int8"), dict(tensor_parallel=2), dict(mesh=object()),
                  dict(param_dtype="auto")):
         with pytest.raises(NotImplementedError, match="slice"):
