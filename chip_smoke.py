@@ -20,6 +20,7 @@ kernel of that path against its plain PyTorch version.
                                        # remote-leaf and micro-batch phases, persistence
                                        # and the host-only servers
     python3 chip_smoke.py --fleet      # only: build, then the replica-fleet phase
+    python3 chip_smoke.py --disagg     # only: build, then the disaggregation phase
 
 Phases (any failure exits non-zero; nothing swallows an error):
 
@@ -283,12 +284,31 @@ Phases (any failure exits non-zero; nothing swallows an error):
    GenerateStream equal to SSE, ``ReplicaSet.generate`` equal to each
    replica's own, and a drain / collect / add cycle with a request in
    flight.
+   The disaggregation phase (``disagg_phase``, lines ``[disagg ...]``) runs
+   after the fleet: Llama-2-7B at full width and depth through the
+   component app's ``/v1/generate``, local chunked prefill against prefill
+   workers on this card (their own threads, streams, staging pools and
+   chunk graphs, the server's weight tensors): (a) 8 prompts of mixed
+   length (two over 1,024 tokens), bf16, one worker — TTFT, the decode step
+   gap while the admissions run, the handoff walls, bytes a handoff, the
+   workers' staging and graph pools, the import's device time, host time
+   and launches beside two CUDA-graph forms of it measured for comparison;
+   (c) the same over the network transport on 127.0.0.1 —
+   frame bytes, encode / decode time, the scraped network bytes; (b) 8
+   streams decoding, then a burst of 4 prompts of ~2,000 tokens (12
+   slots), local and with 1 and 2 workers, each setting in 3 rounds — the
+   gap before and during the burst, the burst's TTFT, per round; (e) 4 chats over a 1,024-token system prompt
+   with the trie on — chunks a stage (the suffix only), hit tokens; (d)
+   int8 weights and KV. Tokens equal to local up to a near-tie (teacher
+   forced in (a)), every chunk a worker's replay, launches as the chunks
+   say, every page back.
 
 The line before the last is the kernel table as JSON (K1 over a bf16 pool,
 K1 over an int8 pool, K2, K3, K4's decode kernel, K4's prefill kernel; K2's
 launches are every LLM run's together (the speculative, prefix, LoRA,
-tenant, checkpoint and fleet phases' and the engine's LLM request
-included), K3's the predict serving run's and the engine, remote and
+tenant, checkpoint, fleet and disaggregation phases' and the engine's LLM
+request included; the workers' chunk replays count as every replay does), K3's
+the predict serving run's and the engine, remote and
 micro-batch phases');
 the last line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 port's package beside it, the script exits non-zero and prints no result.
@@ -4377,10 +4397,11 @@ def post_many(url: str, reqs):
     return results, time.perf_counter() - t0
 
 
-def build_service(label: str, server, **batcher_kw):
-    """A BatcherService of N_REQUESTS slots on ``server``, built (graphs
-    warmed up and captured) under ``set_sync_debug_mode("error")``, and the
-    REST app on it. Returns (service, httpd, url, build seconds)."""
+def build_service(label: str, server, slots: int = N_REQUESTS, **batcher_kw):
+    """A BatcherService of ``slots`` slots on ``server``, built (graphs
+    warmed up and captured, a prefill worker's too) under
+    ``set_sync_debug_mode("error")``, and the REST app on it. Returns
+    (service, httpd, url, build seconds)."""
     import torch
 
     from seldon_core_tpu_torch.runtime.batcher import BatcherService
@@ -4390,7 +4411,7 @@ def build_service(label: str, server, **batcher_kw):
     t0 = time.perf_counter()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        svc = BatcherService(server, max_slots=N_REQUESTS, **batcher_kw)
+        svc = BatcherService(server, max_slots=slots, **batcher_kw)
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
@@ -5753,6 +5774,548 @@ def fleet_membership(label: str, card: str, rs, replicas, url: str) -> str:
             f"add_replica brought it back (a new batcher on its first request)")
 
 
+# ---------------------------------------------------------------------------
+# Disaggregated prefill / decode (runtime/disagg.py): prefill workers on
+# streams and graphs of their own beside the decode batcher, on this card
+# ---------------------------------------------------------------------------
+# (a), (c), (d): 8 prompts of mixed length, two over 1,024 tokens (the 2048
+# bucket: chunks of 256)
+DISAGG_LENGTHS = (1400, 1100, 600, 300, 124, 124, 48, 24)
+# (b): DISAGG_STREAMS streams of DISAGG_STREAM_NEW tokens decoding, then a
+# burst of prompts of about 2,048 tokens; DISAGG_SLOTS_B slots, so the burst
+# is admitted while every stream decodes
+DISAGG_STREAMS = 8
+DISAGG_STREAM_NEW = 256
+DISAGG_BURST = (2000, 1980, 2040, 1960)
+DISAGG_SLOTS_B = DISAGG_STREAMS + len(DISAGG_BURST)
+# (b) runs each setting this many times, the order of the settings reversed
+# every other round, so a spread is read beside each number
+DISAGG_B_ROUNDS = 3
+# (e): DISAGG_CHATS conversations over one PREFIX_SYSTEM-token system prompt,
+# two turns of PREFIX_USER user tokens
+DISAGG_CHATS = 4
+
+
+def pctl(v, q: float) -> float:
+    """The q-quantile of ``v`` (nearest rank; nan when empty)."""
+    v = sorted(v)
+    return v[min(len(v) - 1, int(q * len(v)))] if v else float("nan")
+
+
+def disagg_service(label: str, server, slots: int = N_REQUESTS, **batcher_kw):
+    """``build_service`` (the peak memory counted from just before it) with
+    the batcher's drains and slot commits timestamped (host clock, after
+    each drain and at each commit): the decode step gaps of a window are the
+    gaps between its drains. Returns (service, httpd, url, build seconds,
+    drain times, commit times)."""
+    import gc
+
+    import torch
+
+    # the last run's batcher (held by its instrumentation's reference
+    # cycle) goes before this one is built
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    svc, httpd, url, build_s = build_service(label, server, slots=slots, **batcher_kw)
+    b = svc.batcher
+    drains, commits = [], []
+    real_drain, real_commit = b._drain_one, b._commit_slot
+
+    def drain():
+        real_drain()
+        drains.append(time.perf_counter())
+
+    def commit(*args, **kwargs):
+        commits.append(time.perf_counter())
+        return real_commit(*args, **kwargs)
+
+    b._drain_one, b._commit_slot = drain, commit
+    return svc, httpd, url, build_s, drains, commits
+
+
+def gaps_in(drains, t0: float, t1: float):
+    ts = [t for t in drains if t0 <= t <= t1]
+    return [b - a for a, b in zip(ts, ts[1:])]
+
+
+def zero_disagg_counts(server, b) -> None:
+    zero_counts(server)
+    server._handoff_times.clear()
+    if b._remote is not None:
+        for w in b._remote.workers:
+            w.replays = w.eager_runs = 0
+
+
+def read_disagg_counts(server, b) -> dict:
+    """``read_counts``, the prefill chunks the workers ran standing in for
+    the server's own where prefill is remote."""
+    counts = read_counts(server)
+    if b._remote is not None:
+        counts["replays"] = sum(w.replays for w in b._remote.workers)
+        counts["eager"] = sum(w.eager_runs for w in b._remote.workers) + counts["eager"]
+    return counts
+
+
+def import_cost(b, n_tokens: int) -> dict:
+    """The decode side's import of one handoff of ``n_tokens`` tokens, on
+    the batcher's pool: a bucket exported from fresh pages (the pow2 cover),
+    imported back into them. Device time in turns (``time_turns``: a spin
+    kernel ahead, so the launches' host gaps do not count) of four forms of
+    the same copy: the served eager import; the same copy over each
+    tensor's own elements; and two CUDA graphs of it captured here for this
+    bucket alone, ``graph`` (the copies from a landing buffer at a fixed
+    address: what a graph import costs if the bucket already lay there) and
+    ``graph+land`` (the bucket copied into the landing buffer first: what a
+    graph import costs when each handoff brings a fresh bucket, as the
+    workers' do); each form's host enqueue time, and the host time of one
+    served call. Launches a call: the kernel nodes of the captured copies
+    (a capture holds every launch; torch.profiler drops events, its count
+    is kept beside) plus the one copy of the targets to the card. Bounds,
+    bytes over the card's rate: the valid pages (their bucket rows read,
+    the pages written: what the function needs) and the whole bucket (what
+    it moves, its TRASH rows too). The pages are freed after."""
+    import numpy as np
+    import torch
+
+    from seldon_core_tpu_torch.models.transformer import NULL_PAGE, RESERVED_PAGES, TRASH_PAGE
+    from seldon_core_tpu_torch.servers.llmserver import _page_words
+
+    R = RESERVED_PAGES
+    n = -(-n_tokens // b.page_size)
+    pages = b._allocator.alloc(n)
+    graphs = []
+    try:
+        bucket, _ = b._export_pages(pages)
+        m = bucket[0][0].shape[0] - R
+        row = np.full((b.n_pages,), NULL_PAGE, np.int64)
+        row[:n] = pages
+        imp = b.server._get_handoff_import(b.n_pages, m)
+        tgt = np.where(np.arange(m) < n, row[:m], TRASH_PAGE).astype(np.int64)
+        tgt_dev = torch.from_numpy(tgt).cuda()
+        land = [tuple(t.clone() for t in layer) for layer in bucket]
+
+        def call():
+            imp(b._caches, bucket, row, n)
+
+        def native():   # the same copy, each tensor over its own elements
+            idx = torch.from_numpy(tgt).pin_memory().to("cuda", non_blocking=True)
+            for pool_layer, staged_layer in zip(b._caches, bucket):
+                for pool, st in zip(pool_layer, staged_layer):
+                    pool.index_copy_(0, idx, st[R:R + m])
+
+        def copies():   # the import's copies from the landing buffer
+            for pool_layer, staged_layer in zip(b._caches, land):
+                for pool, st in zip(pool_layer, staged_layer):
+                    _page_words(pool).index_copy_(0, tgt_dev, _page_words(st)[R:R + m])
+
+        def landed():   # the fresh bucket into the landing buffer, then the copies
+            for dst_layer, src_layer in zip(land, bucket):
+                for dst, src in zip(dst_layer, src_layer):
+                    dst.copy_(src)
+            copies()
+
+        stream = torch.cuda.Stream()
+        for fn in (copies, landed):
+            stream.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(stream):
+                fn()
+            torch.cuda.synchronize()
+            g = torch.cuda.CUDAGraph(keep_graph=True)
+            # thread-local: the service's threads stay live meanwhile
+            with torch.cuda.graph(g, stream=stream, capture_error_mode="thread_local"):
+                fn()
+            graphs.append(g)
+        nodes = [[kind for _, kind in graph_node_list(g)] for g in graphs]
+        (dev_ms, enq_ms), (native_ms, _), (graph_ms, graph_enq), (land_ms, land_enq) = \
+            time_turns([call, native, graphs[0].replay, graphs[1].replay])
+        host_ms, _, ops, _ = profile_step(call, "-")
+        torch.cuda.synchronize()
+    finally:
+        for g in graphs:
+            g.reset()
+        b._allocator.free(pages)
+    n_tensors = sum(len(layer) for layer in bucket)
+    page_bytes = sum(t[0].numel() * t.element_size() for layer in bucket for t in layer)
+    return {"pages": n, "bucket_pages": m, "bucket_bytes": page_bytes * (m + R),
+            "dev_ms": dev_ms, "native_ms": native_ms, "enqueue_ms": enq_ms, "host_ms": host_ms,
+            "graph_ms": graph_ms, "graph_enqueue_ms": graph_enq, "land_ms": land_ms,
+            "land_enqueue_ms": land_enq, "land_nodes": len(nodes[1]),
+            "land_max_bytes": page_bytes * (R + b.n_pages),
+            "bound_ms": 2 * n * page_bytes / HBM_BYTES_PER_S * 1e3,
+            "bound_bucket_ms": 2 * m * page_bytes / HBM_BYTES_PER_S * 1e3,
+            "launches": len(nodes[0]) + 1, "kernel_nodes": nodes[0].count("kernel"),
+            "n_tensors": n_tensors,
+            "profiler_launches": sum(e.count for e in ops),
+            "kernels": sorted({e.key for e in ops})}
+
+
+def disagg_run(label: str, card: str, server, texts, quantized: bool, int8_kv: bool,
+               **batcher_kw):
+    """``texts`` over REST (``POST /v1/generate``, all at once) on a new
+    8-slot service with ``batcher_kw`` (disaggregation and the transport).
+    Counts zeroed just before, read just after, checked against the chunks
+    the prompts make (every chunk a replay: the batcher's own graphs, or a
+    worker's). Returns (served tokens, counts, metrics: TTFT, the decode
+    step gaps while admissions run, the handoff walls and bytes, and with
+    remote prefill the workers' staging and graph-pool bytes, the import's
+    cost and, over the network, the frame numbers and the scrape)."""
+    import torch
+
+    from seldon_core_tpu_torch.codec import framing
+
+    svc, httpd, url, build_s, drains, commits = disagg_service(label, server, **batcher_kw)
+    b = svc.batcher
+    m = {"build_s": build_s}
+    try:
+        zero_disagg_counts(server, b)
+        framing.frame_stats()
+        del drains[:], commits[:]
+        h0 = b.handoff_stats()   # the warm-up request's handoff is not this run's
+        t0 = time.perf_counter()
+        results, m["wall_s"] = post_all(url, texts)
+        counts = read_disagg_counts(server, b)
+        gaps = gaps_in(drains, t0, max(commits))
+        h1 = b.handoff_stats()
+        m.update(ttft_med_ms=statistics.median(server._ttft_times) * 1e3,
+                 ttft_max_ms=max(server._ttft_times) * 1e3, gaps=len(gaps),
+                 gap_p50_ms=pctl(gaps, 0.5) * 1e3, gap_p99_ms=pctl(gaps, 0.99) * 1e3,
+                 peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                 handoff={k: h1[k] - h0[k] for k in h1 if k.endswith("_total")},
+                 network_total=h1["handoff_network_bytes_total"])
+        if b._remote is not None:
+            walls = sorted(server._handoff_times)
+            ws = b._remote.workers
+            m.update(handoff_med_ms=statistics.median(walls) * 1e3, handoff_max_ms=walls[-1] * 1e3,
+                     staging_gb=[w.staging_bytes() / 1e9 for w in ws],
+                     graph_gb=[graph_pool_gb(w.graphs().values()) for w in ws],
+                     shared_weights=all(w._params is server._module for w in ws) and all(
+                         p.data_ptr() == q.data_ptr() for w in ws for p, q in zip(
+                             w._params.parameters(), server._module.parameters())))
+            if not m["shared_weights"]:
+                fail(f"[{label}] a worker on the server's card holds weights of its own")
+            m["import"] = import_cost(b, max(len(prompt_ids(server, t)) for t in texts))
+            if b.handoff_transport == "network":
+                st = framing.frame_stats()
+                n = max(m["handoff"]["handoffs_total"], 1)
+                m.update(frame_bytes=m["handoff"]["handoff_network_bytes_total"] / n,
+                         encode_ms=statistics.median(st["frame_encode_times_s"]) * 1e3,
+                         decode_ms=statistics.median(st["frame_decode_times_s"]) * 1e3,
+                         scraped=sample(scrape(url), "seldon_llm_handoff_network_bytes_total"))
+                if m["scraped"] != m["network_total"]:
+                    fail(f"[{label}] scraped network bytes {m['scraped']} != the receiver's "
+                         f"{m['network_total']}")
+                # the same requests again: the pinned host buffers of each
+                # frame size are cached now (a first allocation pins pages)
+                server._ttft_times.clear()
+                again, _ = post_all(url, texts)
+                st = framing.frame_stats()
+                m.update(warm_ttft_med_ms=statistics.median(server._ttft_times) * 1e3,
+                         warm_ttft_max_ms=max(server._ttft_times) * 1e3,
+                         warm_encode_ms=statistics.median(st["frame_encode_times_s"]) * 1e3)
+                if served_tokens(label, again) != served_tokens(label, results):
+                    fail(f"[{label}] the repeated requests gave other tokens")
+    finally:
+        stop_service(label, server, svc, httpd)
+    served = served_tokens(label, results)
+    chunks = [c for t in texts for c in chunks_of(b, len(prompt_ids(server, t)))]
+    check_launches(label, card, counts, chunks, quantized, int8_kv, eager=False)
+    if b._remote is not None and m["handoff"]["handoffs_total"] != len(texts):
+        fail(f"[{label}] {m['handoff']['handoffs_total']} handoffs for {len(texts)} requests")
+    return served, counts, m
+
+
+def burst_texts():
+    """(b)'s stream prompts (124 tokens each) and burst prompts."""
+    return ([prompt_text(200 + i) for i in range(DISAGG_STREAMS)],
+            [prompt_text(300 + i, n) for i, n in enumerate(DISAGG_BURST)])
+
+
+def burst_run(label: str, card: str, server, **batcher_kw):
+    """(b) DISAGG_STREAMS streams of DISAGG_STREAM_NEW tokens over REST,
+    then, once all decode, the burst (DISAGG_BURST prompts at once) on a
+    DISAGG_SLOTS_B-slot service: the decode step gaps before the burst and
+    while it is admitted (from the burst to its last first token), and the
+    burst's TTFT. Returns (stream tokens, burst tokens, counts, metrics)."""
+    svc, httpd, url, build_s, drains, commits = disagg_service(
+        label, server, slots=DISAGG_SLOTS_B, **batcher_kw)
+    b = svc.batcher
+    streams, burst = burst_texts()
+    out = [None] * DISAGG_STREAMS
+
+    def stream(i):
+        out[i] = post(url + "/v1/generate", {"prompt": streams[i],
+                                            "max_new_tokens": DISAGG_STREAM_NEW})
+
+    try:
+        zero_disagg_counts(server, b)
+        threads = [threading.Thread(target=stream, args=(i,)) for i in range(DISAGG_STREAMS)]
+        for t in threads:
+            t.start()
+        deadline = time.perf_counter() + 120
+        while not (len(commits) >= DISAGG_STREAMS
+                   and sum(d > commits[DISAGG_STREAMS - 1] for d in drains) >= 20):
+            if time.perf_counter() > deadline:
+                fail(f"[{label}] the streams did not all start decoding")
+            time.sleep(0.005)
+        t_ready = commits[DISAGG_STREAMS - 1]
+        server._ttft_times.clear()
+        t_b = time.perf_counter()
+        results, _ = post_all(url, burst)
+        for t in threads:
+            t.join(600)
+        counts = read_disagg_counts(server, b)
+        steady = gaps_in(drains, t_ready, t_b)
+        during = gaps_in(drains, t_b, max(commits))
+        m = {"build_s": build_s, "steady_p50_ms": pctl(steady, 0.5) * 1e3,
+             "gap_p50_ms": pctl(during, 0.5) * 1e3, "gap_p99_ms": pctl(during, 0.99) * 1e3,
+             "gap_max_ms": max(during) * 1e3 if during else float("nan"), "gaps": len(during),
+             "ttft_med_ms": statistics.median(server._ttft_times) * 1e3,
+             "ttft_max_ms": max(server._ttft_times) * 1e3,
+             "window_s": max(commits) - t_b}
+    finally:
+        stop_service(label, server, svc, httpd)
+    for i, res in enumerate(out):
+        if res is None or res[0] != 200 or len(res[1].get("tokens", ())) != DISAGG_STREAM_NEW:
+            fail(f"[{label}] stream {i}: {res and (res[0], str(res[1])[:200])}")
+    stream_tokens = [res[1]["tokens"] for res in out]
+    burst_tokens = served_tokens(label, results)
+    chunks = [c for t in streams + burst for c in chunks_of(b, len(prompt_ids(server, t)))]
+    check_launches(label, card, counts, chunks, False, False, eager=False)
+    return stream_tokens, burst_tokens, counts, m
+
+
+def chat_run(label: str, card: str, server, stages, **batcher_kw):
+    """(e) The chat's stages over REST on an 8-slot service with the trie
+    on: stage i's token-id prompts are ``stages(i, tokens so far)``, sent at
+    once; per stage the prefill chunks run (the batcher's graphs, or the
+    workers') and the trie's hit tokens after it. Returns (prompts and
+    tokens per stage, chunks per stage, hit tokens per stage, counts)."""
+    svc, httpd, url, _, _, _ = disagg_service(label, server, **batcher_kw)
+    b = svc.batcher
+    prompts, toks, chunks, hits = [], [], [], []
+    try:
+        server.clear_prefix_cache()   # nothing of the warm-up request stays cached
+        zero_disagg_counts(server, b)
+        for i in range(3):
+            prompts.append(stages(i, toks))
+            before = read_disagg_counts(server, b)
+            results, _ = post_all(url, prompts[-1])
+            toks.append(served_tokens(label, results))
+            after = read_disagg_counts(server, b)
+            chunks.append(after["replays"] + after["eager"] - before["replays"] - before["eager"])
+            hits.append(b._radix.stats()["prefix_hit_tokens"])
+        counts = read_disagg_counts(server, b)
+        server.clear_prefix_cache()   # the trie's pages back to the pool
+    finally:
+        stop_service(label, server, svc, httpd)
+    return (prompts, toks), chunks, hits, counts
+
+
+def disagg_phase(card: str):
+    """The disaggregation slice on this card at Llama-2-7B width and depth
+    (``load_llm``: random weights from a seed), every service through the
+    component app's ``POST /v1/generate``:
+
+    (a) the 8 DISAGG_LENGTHS prompts on a bf16 server, local chunked
+        prefill, then ``remote_prefill`` with one worker (device transport):
+        tokens equal to local (or a near-tie) and teacher-forced; TTFT, the
+        decode step gaps while the admissions run, the handoff walls, the
+        bucket bytes, the staging pool and the worker graph pool, the
+        import's cost (device time, launches, host time);
+    (c) the same prompts over the network transport (127.0.0.1): tokens,
+        frame bytes, encode and decode time a handoff, the scraped network
+        bytes;
+    (b) the burst over live decode: local, then remote with 1 and 2 workers,
+        DISAGG_B_ROUNDS rounds (the settings' order reversed every other);
+    (e) the chat with the trie on, local and remote: chunks a stage, hit
+        tokens, tokens;
+    (d) int8 weights + int8 KV: local, then remote, tokens.
+
+    Returns the launch records of every served run (counts zeroed just
+    before each, read just after) and the metrics."""
+    import gc
+
+    import torch
+
+    t_phase = time.perf_counter()
+    records, runs = [], {}
+    release_server_memory()
+    server, _ = load_llm("disagg bf16", card, {})
+    texts = [prompt_text(100 + i, n) for i, n in enumerate(DISAGG_LENGTHS)]
+    local, counts, runs["a local"] = disagg_run("disagg (a) local", card, server, texts,
+                                                False, False, disaggregation="off")
+    records.append(("disagg (a) local", counts))
+    for key, kw in (("a remote", dict(prefill_workers=1)),
+                    ("c network", dict(prefill_workers=1, handoff_transport="network"))):
+        lab = f"disagg ({key})"
+        served, counts, runs[key] = disagg_run(lab, card, server, texts, False, False,
+                                               disaggregation="remote_prefill", **kw)
+        records.append((lab, counts))
+        runs[key]["equal"] = near_tie_check(lab, card, server, texts, served, local)
+        if key == "a remote":
+            teacher_check(lab, card, server, texts, served)
+        gc.collect()
+        torch.cuda.empty_cache()
+    streams, burst = burst_texts()
+    base = None
+    settings = (("b local", dict(disaggregation="off")),
+                ("b remote 1", dict(disaggregation="remote_prefill", prefill_workers=1)),
+                ("b remote 2", dict(disaggregation="remote_prefill", prefill_workers=2)))
+    for rnd in range(DISAGG_B_ROUNDS):
+        for key, kw in (settings if rnd % 2 == 0 else settings[::-1]):
+            lab = f"disagg ({key}, round {rnd})"
+            st, bt, counts, m = burst_run(lab, card, server, **kw)
+            records.append((lab, counts))
+            if base is None:
+                base = (st, bt)
+            else:
+                m["equal"] = (near_tie_check(lab, card, server, streams, st, base[0])
+                              + near_tie_check(lab, card, server, burst, bt, base[1]))
+            runs.setdefault(key, []).append(m)
+            gc.collect()
+            torch.cuda.empty_cache()
+    # (e): conversation 0's turn 1 alone (it fills the trie), the other turn
+    # 1s (hits on the system prompt), then every turn 2 (hits on the system
+    # prompt and its own turn 1), built on the local run's answers
+    server.prefix_cache_size = PREFIX_CACHE_SIZE
+    system = prompt_ids(server, prompt_text(400, PREFIX_SYSTEM))
+    turn1 = [system + prompt_ids(server, prompt_text(410 + c, PREFIX_USER))
+             for c in range(DISAGG_CHATS)]
+    user2 = [prompt_ids(server, prompt_text(420 + c, PREFIX_USER)) for c in range(DISAGG_CHATS)]
+    answers = {}
+
+    def stages(i, toks):
+        if i < 2:
+            return turn1[:1] if i == 0 else turn1[1:]
+        ans = answers.get("local") or (toks[0] + toks[1])
+        return [turn1[c] + ans[c] + user2[c] for c in range(DISAGG_CHATS)]
+
+    chats = {}
+    for key, kw in (("e local", dict(disaggregation="off")),
+                    ("e remote", dict(disaggregation="remote_prefill", prefill_workers=1))):
+        lab = f"disagg ({key})"
+        chats[key] = chat_run(lab, card, server, stages, **kw)
+        records.append((lab, chats[key][3]))
+        if key == "e local":
+            answers["local"] = chats[key][0][1][0] + chats[key][0][1][1]
+    server.prefix_cache_size = 0
+    (prompts_e, toks_r), (_, toks_l) = chats["e remote"][0], chats["e local"][0]
+    runs["e"] = {"chunks": {k: v[1] for k, v in chats.items()},
+                 "hits": {k: v[2] for k, v in chats.items()},
+                 "equal": sum(near_tie_check("disagg (e) remote", card, server, p, got, want)
+                              for p, got, want in zip(prompts_e, toks_r, toks_l)),
+                 "n": DISAGG_CHATS * 2}
+    full = [sum(-(-len(p) // PREFILL_CHUNKS[-1]) for p in stage) for stage in prompts_e]
+    if not all(r < f for r, f in zip(runs["e"]["chunks"]["e remote"][1:], full[1:])):
+        fail(f"[disagg (e) remote] chunks a stage {runs['e']['chunks']['e remote']}: the "
+             f"hits did not prefill their suffixes only (cold: {full})")
+    runs["e"]["cold_chunks"] = full
+    del server
+    release_server_memory()
+    server, _ = load_llm("disagg int8", card, dict(quantize="int8", kv_cache_dtype="int8"))
+    local8, counts, runs["d local"] = disagg_run("disagg (d) local", card, server, texts,
+                                                 True, True, disaggregation="off")
+    records.append(("disagg (d) local", counts))
+    served, counts, runs["d remote"] = disagg_run("disagg (d) remote", card, server, texts,
+                                                  True, True, disaggregation="remote_prefill",
+                                                  prefill_workers=1)
+    records.append(("disagg (d) remote", counts))
+    runs["d remote"]["equal"] = near_tie_check("disagg (d) remote", card, server, texts, served,
+                                               local8)
+    del server
+    release_server_memory()
+    runs["phase_s"] = time.perf_counter() - t_phase
+    return records, runs
+
+
+def print_disagg(card: str, runs: dict) -> None:
+    """The disaggregation phase's lines, each beside the card."""
+    def ms(x):
+        return f"{x:.1f}"
+
+    def gap_tail(r):   # p50 / p99 of the gaps, and what the p99 is
+        n = r["gaps"]
+        return (f"{r['gap_p50_ms']:.2f} / {r['gap_p99_ms']:.2f} ms ("
+                + (f"{n} gaps, so the p99 is their max)" if n < 100 else f"{n} gaps)"))
+
+    a_loc, a_rem, net = runs["a local"], runs["a remote"], runs["c network"]
+    print(f"[disagg (a)] Llama-2-7B bf16, {N_REQUESTS} requests of {list(DISAGG_LENGTHS)} tokens "
+          f"at once over REST, 8 slots: TTFT median / max local chunked prefill "
+          f"{ms(a_loc['ttft_med_ms'])} / {ms(a_loc['ttft_max_ms'])} ms, remote_prefill (1 "
+          f"worker, device transport) {ms(a_rem['ttft_med_ms'])} / {ms(a_rem['ttft_max_ms'])} "
+          f"ms; decode step gap while the admissions run p50 / p99 local "
+          f"{gap_tail(a_loc)}, remote {gap_tail(a_rem)}; "
+          f"handoff wall median / max {ms(a_rem['handoff_med_ms'])} / "
+          f"{ms(a_rem['handoff_max_ms'])} ms; bucket bytes a handoff "
+          f"{a_rem['handoff']['handoff_transfer_bytes_total'] / N_REQUESTS / 1e6:.1f} MB; tokens "
+          f"equal to local {a_rem['equal']} of {N_REQUESTS}; peak memory local "
+          f"{a_loc['peak_gb']:.2f} GB, remote {a_rem['peak_gb']:.2f} GB; worker staging pool "
+          f"{a_rem['staging_gb'][0]:.3f} GB, worker graph pool {gb_text(a_rem['graph_gb'][0])}; "
+          f"the worker's weights are the server's tensors (data_ptr equal) [{card}]", flush=True)
+    for tag, r in (("(a)", a_rem), ("(d) int8", runs["d remote"])):
+        imp = r["import"]
+        print(f"[disagg {tag}] the import of one handoff of {imp['pages']} pages (bucket of "
+              f"{imp['bucket_pages']}, {imp['bucket_bytes'] / 1e6:.1f} MB), device time in "
+              f"turns behind a spin kernel, median of {REPS}: served eager {imp['dev_ms']:.4f} "
+              f"ms (pages as 8-byte words; each tensor's own elements {imp['native_ms']:.4f}); "
+              f"as a CUDA graph from a landing buffer {imp['graph_ms']:.4f} ms, with the fresh "
+              f"bucket copied into it first {imp['land_ms']:.4f} ms ({imp['land_nodes']} nodes); "
+              f"bound {imp['bound_ms']:.4f} ms for the {imp['pages']} valid pages, "
+              f"{imp['bound_bucket_ms']:.4f} ms for the whole bucket (bytes); host enqueue eager "
+              f"{imp['enqueue_ms']:.4f} ms (a call with the card drained {imp['host_ms']:.4f}), "
+              f"graph {imp['graph_enqueue_ms']:.4f}, graph with the landing copy "
+              f"{imp['land_enqueue_ms']:.4f}; landing buffer {imp['bucket_bytes'] / 1e6:.1f} MB "
+              f"for this bucket, {imp['land_max_bytes'] / 1e6:.1f} MB for the largest; "
+              f"{imp['launches']} launches a call ({imp['kernel_nodes']} kernel nodes in a "
+              f"capture of the copies of {imp['n_tensors']} pool tensors, + the targets' copy "
+              f"to the card; torch.profiler saw {imp['profiler_launches']}, it drops events) "
+              f"[{card}]", flush=True)
+    print(f"[disagg (c)] network transport over 127.0.0.1, the same prompts: tokens equal to "
+          f"local {net['equal']} of {N_REQUESTS}; TTFT median / max {ms(net['ttft_med_ms'])} / "
+          f"{ms(net['ttft_max_ms'])} ms, the same requests again (pinned buffers cached) "
+          f"{ms(net['warm_ttft_med_ms'])} / {ms(net['warm_ttft_max_ms'])} ms; frame bytes a "
+          f"handoff {net['frame_bytes'] / 1e6:.1f} MB; encode {net['encode_ms']:.2f} ms (again "
+          f"{net['warm_encode_ms']:.2f}), decode {net['decode_ms']:.2f} ms a handoff "
+          f"(median); handoff wall median / max {ms(net['handoff_med_ms'])} / "
+          f"{ms(net['handoff_max_ms'])} ms; seldon_llm_handoff_network_bytes_total "
+          f"{net['scraped']:.0f} (scraped) [{card}]", flush=True)
+    for key in ("b local", "b remote 1", "b remote 2"):
+        for rnd, r in enumerate(runs[key]):
+            eq = (f"; tokens equal to local {r['equal']} of {DISAGG_SLOTS_B}" if "equal" in r
+                  else "")
+            print(f"[disagg ({key}, round {rnd})] {DISAGG_STREAMS} streams x "
+                  f"{DISAGG_STREAM_NEW} tokens decoding, then {len(DISAGG_BURST)} prompts of "
+                  f"{list(DISAGG_BURST)} tokens at once, {DISAGG_SLOTS_B} slots: decode step gap "
+                  f"before the burst p50 {r['steady_p50_ms']:.2f} ms, during it p50 / p99 "
+                  f"{gap_tail(r)} over {r['window_s']:.3f} s; burst TTFT median / max "
+                  f"{ms(r['ttft_med_ms'])} / {ms(r['ttft_max_ms'])} ms{eq} [{card}]", flush=True)
+        rs = runs[key]
+        print(f"[disagg ({key})] over {len(rs)} rounds: gap during the burst p50 "
+              f"{[round(r['gap_p50_ms'], 2) for r in rs]} ms (median "
+              f"{statistics.median(r['gap_p50_ms'] for r in rs):.2f}), max "
+              f"{[round(r['gap_max_ms'], 2) for r in rs]} ms (gaps {[r['gaps'] for r in rs]}); "
+              f"burst TTFT median {[round(r['ttft_med_ms'], 1) for r in rs]} ms, max "
+              f"{[round(r['ttft_max_ms'], 1) for r in rs]} ms [{card}]", flush=True)
+    e = runs["e"]
+    print(f"[disagg (e)] {DISAGG_CHATS} chats over one {PREFIX_SYSTEM}-token system prompt, the "
+          f"trie on: prefill chunks a stage (turn 1 of chat 0; the other turn 1s; every turn 2) "
+          f"local {e['chunks']['e local']}, remote {e['chunks']['e remote']} (cold "
+          f"{e['cold_chunks']}); hit tokens after each stage local {e['hits']['e local']}, "
+          f"remote {e['hits']['e remote']}; tokens equal to local {e['equal']} of {e['n']} "
+          f"[{card}]", flush=True)
+    d_loc, d_rem = runs["d local"], runs["d remote"]
+    print(f"[disagg (d)] int8 weights + int8 KV, the (a) prompts: tokens equal to local "
+          f"{d_rem['equal']} of {N_REQUESTS}; TTFT median / max local {ms(d_loc['ttft_med_ms'])} / "
+          f"{ms(d_loc['ttft_max_ms'])} ms, remote {ms(d_rem['ttft_med_ms'])} / "
+          f"{ms(d_rem['ttft_max_ms'])} ms; gap while admitting p50 / p99 local "
+          f"{gap_tail(d_loc)}, remote {gap_tail(d_rem)}; bucket bytes a handoff "
+          f"{d_rem['handoff']['handoff_transfer_bytes_total'] / N_REQUESTS / 1e6:.1f} MB; "
+          f"worker staging pool {d_rem['staging_gb'][0]:.3f} GB, graph pool "
+          f"{gb_text(d_rem['graph_gb'][0])} [{card}]", flush=True)
+    print(f"[disagg] phase_s {runs['phase_s']:.1f} [{card}]", flush=True)
+
+
 def main() -> int:
     try:
         import torch
@@ -5827,6 +6390,10 @@ def main() -> int:
         return 0
     if sys.argv[1:] == ["--fleet"]:
         fleet_phase(card)
+        print(f"total_s {time.perf_counter() - t_start:.1f}", flush=True)
+        return 0
+    if sys.argv[1:] == ["--disagg"]:
+        print_disagg(card, disagg_phase(card)[1])
         print(f"total_s {time.perf_counter() - t_start:.1f}", flush=True)
         return 0
 
@@ -6005,6 +6572,9 @@ def main() -> int:
     spec_launches += records
     # the replica fleet: two int8-weight 7B replicas behind one ReplicaSet
     spec_launches.append(("fleet", fleet_phase(card)))
+    # disaggregated prefill: workers beside the decode batcher on this card
+    records, disagg_runs = disagg_phase(card)
+    spec_launches += records
     print("serving runs (Llama-2-7B, 8 concurrent requests x 32 tokens; step wall drain to "
           f"drain; host = one dispatch's enqueue or replay on the same live state) [{card}]:",
           flush=True)
@@ -6055,6 +6625,7 @@ def main() -> int:
 
     print_prefix_runs(card, prefix_runs)
     print_lora_runs(card, lora_runs)
+    print_disagg(card, disagg_runs)
 
     def total(key):
         # every run's: each counter is one kernel's (K1's bf16 and int8

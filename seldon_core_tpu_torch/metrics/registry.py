@@ -227,6 +227,24 @@ class MetricsRegistry:
                                     "the pipeline is actually ahead)", "histogram",
                                     buckets=HOST_LAG_BUCKETS)
 
+        # disaggregated prefill/decode (runtime/disagg.py): the per-handoff
+        # wall, handoffs delivered, the staged + ready backlog, and the
+        # bytes the network transport received
+        self._handoff = fam("seldon_llm_handoff_seconds",
+                            "Per-admission prefill handoff wall: prefill-slice compute + D2D "
+                            "transfer + decode-side page import", "histogram",
+                            buckets=LATENCY_BUCKETS)
+        self._handoffs_total = fam("seldon_llm_handoffs",
+                                   "Prefill->decode KV handoffs delivered (disaggregated serving)",
+                                   "counter")
+        self._handoff_queue_depth = fam("seldon_llm_handoff_queue_depth",
+                                        "Admissions staged on the prefill slice or awaiting "
+                                        "import (sampled at scrape)", "gauge")
+        self._handoff_network_bytes = fam("seldon_llm_handoff_network_bytes",
+                                          "KV handoff frame bytes received over the network "
+                                          "transport (handoff_transport='network'; 0 on the "
+                                          "device_put fast path)", "counter")
+
         # speculative decoding: accept rate and tokens per verify forward
         # (> 1 = more than one token a KV-cache read), the per-slot EMA the
         # draft-length controller steers by, the draft overhead
@@ -400,21 +418,25 @@ class MetricsRegistry:
                              (self._kv_pages_total, "kv_pages_total"),
                              (self._kv_page_fragmentation, "kv_page_fragmentation"),
                              (self._prefix_shared_pages, "prefix_shared_pages"),
-                             (self._prefix_cached_blocks, "prefix_cached_blocks")):
+                             (self._prefix_cached_blocks, "prefix_cached_blocks"),
+                             (self._handoff_queue_depth, "handoff_queue_depth")):
                 fam.children[base] = float(stats.get(key, 0))
             # counters catch up to the lifetime tallies (never count down)
             for fam, key in ((self._kv_page_sheds, "kv_page_sheds"),
                              (self._prefix_hit_blocks, "prefix_hit_blocks"),
                              (self._prefix_cow_copies, "prefix_cow_copies"),
                              (self._prefix_evicted_blocks, "prefix_evicted_blocks"),
-                             (self._prefix_bytes_saved, "prefix_bytes_saved")):
+                             (self._prefix_bytes_saved, "prefix_bytes_saved"),
+                             (self._handoffs_total, "handoffs_total"),
+                             (self._handoff_network_bytes, "handoff_network_bytes_total")):
                 fam.children[base] = max(fam.child(base), float(stats.get(key, 0)))
             for fam, key in ((self._decode_step, "decode_step_times_s"),
                              (self._ttft, "ttft_s"),
                              (self._inter_token, "inter_token_s"),
                              (self._decode_dispatch, "decode_dispatch_times_s"),
                              (self._decode_sync, "decode_sync_times_s"),
-                             (self._decode_host_lag, "decode_host_lag_steps")):
+                             (self._decode_host_lag, "decode_host_lag_steps"),
+                             (self._handoff, "handoff_times_s")):
                 fam.child(base)
                 for v in stats.get(key, ()):
                     self._observe(fam, base, v)

@@ -85,6 +85,21 @@ gathers. The radix trie serves id-0 traffic only: an adapted admission
 neither matches nor inserts (its hidden states, and so its deeper KV,
 carry its deltas).
 
+Disaggregated prefill (``disaggregation="remote_prefill"`` on the server
+or here; ``runtime/disagg.py``). Admission then prefills nothing here:
+``_admit_remote`` reserves a slot, matches whole trie blocks (exported to the
+worker as a page bucket), allocates the suffix's pages, draws the first
+token's key and stages the job on a prefill worker; several jobs may be
+staged at once. Each loop turn drains the ready handoffs before it
+dispatches (``_consume_handoffs``): this stream waits on the handoff's
+event, the bucket is imported into the slot's pages (``LLMServer.
+_get_handoff_import``: one ``index_copy_`` a pool tensor, eager on the card
+too), and the slot commits with the first token the worker sampled. The
+batcher then captures no prefill graphs of its own: its workers capture
+theirs. A staged remote job sheds on page exhaustion after a local prefill
+job and before any active slot, and an interactive admission may preempt a
+staged batch-class one.
+
 Every pool, block-table and slot-state update is an in-place tensor update
 enqueued on the same stream as the decode steps (the JAX package donated
 these buffers to jitted ops and relied on device program order in the same
@@ -126,15 +141,18 @@ from seldon_core_tpu_torch.models.transformer import (
     kv_cache_bytes_per_token,
     normalize_kv_cache_layout,
 )
+from seldon_core_tpu_torch.runtime.disagg import (HANDOFF_TRANSPORTS, DisaggMesh, HandoffReceiver,
+                                                  PrefillRequest, PrefillWorkerPool,
+                                                  TransferQueue, normalize_disaggregation,
+                                                  same_device, staged_leaves)
 from seldon_core_tpu_torch.runtime.radix import RadixPrefixCache
 from seldon_core_tpu_torch.runtime.resilience import DEFAULT_RETRY_AFTER_S, ShedError
 from seldon_core_tpu_torch.runtime.scheduler import (BATCH, INTERACTIVE, PendingRequest,
                                                      WeightedFairScheduler, normalize_slo_class)
 from seldon_core_tpu_torch.runtime.spec import (DEFAULT_SPEC_K, SPEC_STATS_OFF,
                                                 SpecController, normalize_spec_mode)
-from seldon_core_tpu_torch.servers.llmserver import (LLMServer, bucket,
-                                                     sample_tokens, seed_key,
-                                                     split_keys)
+from seldon_core_tpu_torch.servers.llmserver import (LLMServer, bucket, first_token,
+                                                     seed_key, split_keys)
 from seldon_core_tpu_torch.servers.step_graph import (ReplayGraph, capture_cow_copy,
                                                       capture_decode_steps,
                                                       capture_prefill_chunks,
@@ -144,6 +162,17 @@ logger = logging.getLogger(__name__)
 
 DEFAULT_PAGE_SIZE = 64
 DEFAULT_PREFILL_CHUNK = 256
+
+
+def pow2_bucket(n: int, cap: int) -> int:
+    """Power-of-two page-bucket size covering ``n`` pages, capped at
+    ``cap`` (copied from the JAX package): the one rounding rule of every
+    staged-page transfer, the handoffs and the prefix exports, on both
+    sides."""
+    b = 1
+    while b < n:
+        b <<= 1
+    return min(b, cap)
 
 
 class PageAllocator:
@@ -299,6 +328,26 @@ class _PrefillJob:
         self.req = req
 
 
+class _RemoteJob:
+    """One admission staged on a prefill worker: the slot reserved for it
+    (which holds its pages), the (already truncated) prompt, the host block
+    row of its pages (NULL-padded; led by ``prefix_pages`` shared trie pages
+    the worker never recomputes, then the suffix pages the import fills)
+    and the scheduler's request. The handoff travels through the
+    TransferQueue; this is the decode side's half, keyed by ``job_id``."""
+
+    __slots__ = ("job_id", "slot", "ids", "L", "row", "prefix_pages", "req")
+
+    def __init__(self, job_id, slot, ids, row, prefix_pages, req: PendingRequest):
+        self.job_id = job_id
+        self.slot = slot
+        self.ids = ids
+        self.L = len(ids)
+        self.row = row
+        self.prefix_pages = int(prefix_pages)
+        self.req = req
+
+
 class _Slot:
     __slots__ = ("future", "tokens", "true_len", "n_new", "max_new", "active",
                  "gen", "disp_new", "pages", "shared", "ids", "prefilling", "admit_seq",
@@ -384,6 +433,10 @@ class ContinuousBatcher:
         prefill_chunk: Optional[int] = None,
         spec_mode: Optional[str] = None,
         spec_k: Optional[int] = None,
+        disaggregation: Optional[str] = None,
+        disagg_mesh: Optional[DisaggMesh] = None,
+        prefill_workers: Optional[int] = None,
+        handoff_transport: Optional[str] = None,
         device: Optional[str] = None,
         _eager: bool = False,
     ):
@@ -397,7 +450,10 @@ class ContinuousBatcher:
         (``_chunk_lengths``) and, with the prefix cache on, the CoW page
         copy are captured here as CUDA graphs, before any request;
         ``_eager=True`` runs them eagerly instead (a private switch for
-        comparing the two)."""
+        comparing the two). ``disaggregation``, ``disagg_mesh``,
+        ``prefill_workers`` and ``handoff_transport`` (default: the
+        server's) turn admission remote (module docstring); the workers are
+        built, their graphs captured, before this returns."""
         self.device = resolve_device(device)
         server.load()
         if server.device != self.device:
@@ -488,6 +544,23 @@ class ContinuousBatcher:
         self._inflight_hwm = 0
         self._last_admit_inflight = 0
         self._last_drain_t: Optional[float] = None
+        # disaggregated prefill (module docstring), resolved from the server
+        # unless overridden; the worker pool, its queue and (network
+        # transport) the receiver are built after the decode graphs
+        disagg = disaggregation if disaggregation is not None else server.disaggregation
+        self.disaggregation = normalize_disaggregation(disagg)
+        ht = (handoff_transport if handoff_transport is not None
+              else server.handoff_transport) or "device"
+        if ht not in HANDOFF_TRANSPORTS:
+            raise ValueError(f"unknown handoff_transport {ht!r}: expected one of "
+                             f"{HANDOFF_TRANSPORTS}")
+        self.handoff_transport = ht
+        self.disagg_mesh: Optional[DisaggMesh] = None
+        self._remote: Optional[PrefillWorkerPool] = None
+        self._transfer = None
+        self._receiver: Optional[HandoffReceiver] = None
+        self._remote_jobs: Dict[int, _RemoteJob] = {}
+        self._job_seq = 0
         self._wakeup = threading.Event()
         self._closed = False
         self._thread: Optional[threading.Thread] = None
@@ -560,10 +633,12 @@ class ContinuousBatcher:
         self._spec_graph: Optional[ReplayGraph] = None
         self._cow_graph: Optional[ReplayGraph] = None
         if self.device.type == "cuda" and not _eager:
-            self._prefill_graphs = capture_prefill_chunks(server, self._chunks, self._caches,
-                                                          self._row, self._chunk_tokens,
-                                                          self._chunk_pos,
-                                                          lora=self._lora(self._chunk_adapter))
+            # with disaggregation on, local prefill never runs: the workers
+            # capture the chunk graphs instead
+            if self.disaggregation == "off":
+                self._prefill_graphs = capture_prefill_chunks(
+                    server, self._chunks, self._caches, self._row, self._chunk_tokens,
+                    self._chunk_pos, lora=self._lora(self._chunk_adapter))
             if self._radix is not None:
                 self._cow_graph = capture_cow_copy(server, self._caches, self._cow_args)
             if self.spec_mode != "off":
@@ -577,6 +652,8 @@ class ContinuousBatcher:
                                                     self._next_pos, self._keys, self._temp,
                                                     self._block_tables,
                                                     lora=self._lora(self._adapter_ids))
+        if self.disaggregation != "off":
+            self._build_remote(disagg_mesh, prefill_workers)
 
     def _lora(self, ids: Optional[torch.Tensor]) -> dict:
         """The adapted programs' extra arguments: ``adapters`` (the pool)
@@ -585,6 +662,90 @@ class ContinuousBatcher:
         if self._adapters is None:
             return {}
         return {"adapters": self._adapters.pool(), "adapter_ids": ids}
+
+    # ------------------------------------------------------------------
+    # Disaggregated prefill: the worker pool, the import, the stats
+    # ------------------------------------------------------------------
+    def _build_remote(self, disagg_mesh: Optional[DisaggMesh],
+                      prefill_workers: Optional[int]) -> None:
+        """The device split and the prefill-worker pool, publishing into one
+        TransferQueue whose ``on_ready`` wakes the loop (with the network
+        transport, through a HandoffReceiver on 127.0.0.1). The decode
+        devices must hold this batcher's device (its pool lives there).
+        Without a mesh, ``prefill_devices`` (at least 1) workers share this
+        device. On a card every worker captures its chunk graphs, whatever
+        ``_eager`` says: the private switch covers this batcher's own
+        programs only."""
+        server = self.server
+        mesh = disagg_mesh if disagg_mesh is not None else server.disagg_mesh
+        if mesh is None:
+            mesh = DisaggMesh([self.device] * (server.prefill_devices or 1), [self.device])
+        if len(mesh.decode_devices) > 1:
+            raise NotImplementedError(
+                f"a decode slice of {len(mesh.decode_devices)} devices is not ported yet: it "
+                f"arrives with the parallelism slice (the batcher decodes on {self.device})")
+        if not any(same_device(d, self.device) for d in mesh.decode_devices):
+            raise ValueError(f"the decode slice must contain the server's device ({self.device}): "
+                             f"the batcher's slot pool lives there — put the PREFILL slice on the "
+                             f"other devices")
+        self.disagg_mesh = mesh
+        n_workers = (prefill_workers if prefill_workers is not None
+                     else server.prefill_workers) or len(mesh.prefill_devices)
+        devices = [mesh.prefill_devices[i % len(mesh.prefill_devices)]
+                   for i in range(int(n_workers))]
+        queue = TransferQueue()
+        queue.on_ready = self._wakeup.set
+        receiver_addr = None
+        if self.handoff_transport == "network":
+            self._receiver = HandoffReceiver(queue, self.device)
+            receiver_addr = self._receiver.addr
+        try:
+            self._remote = PrefillWorkerPool(
+                server, devices, self.device, layout="paged", max_len=self.max_len,
+                page_size=self.page_size, n_pages=self.n_pages,
+                prefill_chunk=self.prefill_chunk, chunks=self._chunks, queue=queue,
+                transport=self.handoff_transport, receiver_addr=receiver_addr)
+        except BaseException:
+            if self._receiver is not None:
+                self._receiver.close()
+            raise
+        self._transfer = queue
+
+    def handoff_stats(self) -> dict:
+        """Handoffs delivered, their bytes, the jobs staged or ready, and the
+        bytes the network receiver took in; all-off zeros without
+        disaggregation."""
+        if self._remote is None:
+            return {"disaggregation": "off", "handoffs_total": 0,
+                    "handoff_transfer_bytes_total": 0, "handoff_queue_depth": 0,
+                    "handoff_network_bytes_total": 0}
+        total, nbytes, depth = self._transfer.stats()
+        net = (self._receiver.stats()["handoff_network_bytes_total"]
+               if self._receiver is not None else 0)
+        return {"disaggregation": self.disaggregation, "handoffs_total": total,
+                "handoff_transfer_bytes_total": nbytes, "handoff_queue_depth": depth,
+                "handoff_network_bytes_total": net}
+
+    def _get_handoff_import(self, staged_pages: Optional[int] = None):
+        """The server's import of a bucket of ``staged_pages`` pages into
+        this batcher's pool (``LLMServer._get_handoff_import``)."""
+        return self.server._get_handoff_import(self.n_pages, staged_pages)
+
+    def _export_pages(self, pages: List[int]):
+        """The pool's ``pages`` as a handoff-shaped bucket (RESERVED_PAGES
+        leading rows, then the pages, TRASH padding to a power of two), a
+        gather on this stream, and the event recorded after it (None on the
+        CPU). The pool itself is untouched."""
+        b = pow2_bucket(len(pages), self.n_pages)
+        idx = np.full((RESERVED_PAGES + b,), TRASH_PAGE, np.int64)
+        idx[RESERVED_PAGES:RESERVED_PAGES + len(pages)] = pages
+        idx_t = self._to_device(idx)
+        bucket = [tuple(t.index_select(0, idx_t) for t in layer) for layer in self._caches]
+        event = None
+        if self.device.type == "cuda":
+            event = torch.cuda.Event()
+            event.record()
+        return bucket, event
 
     # ------------------------------------------------------------------
     # Host <-> device staging
@@ -745,6 +906,12 @@ class ContinuousBatcher:
             if thread.is_alive():
                 raise RuntimeError("batcher loop did not stop within "
                                    f"{timeout_s}s")
+        # the workers first (bounded joins): their last frames land before
+        # the receiver's listener goes
+        if self._remote is not None:
+            self._remote.close(timeout_s)
+        if self._receiver is not None:
+            self._receiver.close()
 
     # ------------------------------------------------------------------
     def _plen_cap(self) -> int:
@@ -776,19 +943,21 @@ class ContinuousBatcher:
                            "(slot cache max_len=%d)", len(ids), plen, self.max_len)
         return ids[-plen:], plen
 
-    def _sample_first(self, first_logits: torch.Tensor, seed: Optional[int]):
-        """First token from the prefill logits on generate()'s chain:
+    def _first_key(self, seed: Optional[int]) -> int:
+        """A request's first-token key on generate()'s chain:
         ``seed_key(seed)`` for a seeded request, else a fresh key split off
-        the batcher's own chain. Returns (token, next key) as host ints —
-        one sync per admission, not per token."""
+        the batcher's own chain (in admission order: at activation for a
+        local prefill, at staging for a remote one)."""
         if seed is not None:
-            key = seed_key(seed)
-        else:
-            self._rng, key = split_keys(self._rng)
-        keys = torch.tensor([key], dtype=torch.int64, device=self.device)
-        keys, tok = sample_tokens(keys, first_logits[None].float(), self._temp,
-                                  self.server.top_k)
-        return int(tok[0]), int(keys[0])
+            return seed_key(seed)
+        self._rng, key = split_keys(self._rng)
+        return key
+
+    def _sample_first(self, first_logits: torch.Tensor, seed: Optional[int]):
+        """First token from the prefill logits (``first_token``). Returns
+        (token, next key) as host ints — one sync per admission, not per
+        token."""
+        return first_token(first_logits, self._first_key(seed), self._temp, self.server.top_k)
 
     def _commit_slot(self, i: int, first: int, key: int, ids: List[int], req: PendingRequest):
         """Thread the new occupant's state into the device arrays and
@@ -1021,6 +1190,136 @@ class ContinuousBatcher:
         self._commit_slot(job.slot, first, key, job.ids, job.req)
 
     # ------------------------------------------------------------------
+    # Disaggregated admission: stage remote jobs, consume handoffs
+    # ------------------------------------------------------------------
+    def _admit_remote(self, req: PendingRequest) -> bool:
+        """Remote-prefill admission, the decode side's half (host work and
+        at most one page export): reserve a slot, match whole trie blocks
+        only (shared into the slot's row; their KV goes to the worker as an
+        exported bucket, so it computes only the suffix; capped at L - 1,
+        so the worker always computes the first token's logits), allocate
+        the suffix's pages, draw the first token's key and stage the job.
+        True when the request was consumed (staged, or shed with 503);
+        False leaves it queued."""
+        free = next((i for i, s in enumerate(self._slots)
+                     if not s.active and not s.prefilling), None)
+        if free is None:
+            return False
+        ids, plen = self._truncate_prompt(req.ids, req.max_new, req.info)
+        L = len(ids)
+        n0 = -(-L // self.page_size)
+        k0, shared = 0, []
+        if self._radix is not None and req.adapter_id == 0:
+            k0, shared, _ = self._radix.match_and_pin(ids, limit=L - 1, full_blocks_only=True)
+        pages = self._alloc_pages(n0 - len(shared))
+        if pages is None:
+            if shared:
+                self._allocator.free(shared)  # drop the pins: retry later
+            # a staged remote slot is prefilling: with nothing in flight
+            # anywhere, nothing will free a page, so shed now
+            if not any(s.active or s.prefilling for s in self._slots):
+                self._shed_queued_request(
+                    req, f"admission needs {n0} KV pages (pool capacity "
+                         f"{self._allocator.capacity}, {self._allocator.stats()[1]} in use)")
+                return True
+            return False
+        row = np.full((self.n_pages,), NULL_PAGE, np.int32)
+        row[:n0] = shared + pages
+        prefix, prefix_event = (self._export_pages(shared) if shared else (None, None))
+        slot = self._slots[free]
+        slot.pages = list(pages)
+        slot.shared = list(shared)
+        slot.prefilling = True
+        slot.future = req.fut
+        slot.on_token = req.on_token
+        slot.tenant = req.tenant
+        slot.slo_class = req.slo_class
+        self._job_seq += 1
+        job = _RemoteJob(self._job_seq, free, ids, row, len(shared), req)
+        self._remote_jobs[job.job_id] = job
+        if k0:
+            self._radix.record_hit(k0, len(shared), False)
+        self._remote.submit(PrefillRequest(
+            job.job_id, ids, plen, n0, prefix_len=k0, prefix_pages=len(shared),
+            prefix_staged=prefix, prefix_event=prefix_event, first_key=self._first_key(req.seed)))
+        return True
+
+    def _import_handoff(self, job: _RemoteJob, h) -> None:
+        """One handoff into the slot's pages: this stream waits for the
+        event the bucket was written under (no host wait), the bucket is
+        marked used on this stream (its memory is not reused before the
+        import has run), the suffix pages are imported and the slot's
+        block-table row written."""
+        if h.first_token is None or h.first_key is None:
+            raise ValueError(f"handoff for job {job.job_id} carries no first token")
+        staged = h.staged
+        if self.device.type == "cuda":
+            stream = torch.cuda.current_stream(self.device)
+            if h.event is not None:
+                stream.wait_event(h.event)
+            for t in staged_leaves(staged):
+                t.record_stream(stream)
+        n_suffix = -(-job.L // self.page_size) - job.prefix_pages
+        row_suffix = np.full((self.n_pages,), NULL_PAGE, np.int64)
+        row_suffix[:n_suffix] = job.row[job.prefix_pages:job.prefix_pages + n_suffix]
+        self._get_handoff_import(staged[0][0].shape[0] - RESERVED_PAGES)(
+            self._caches, staged, row_suffix, n_suffix)
+        self._block_tables[job.slot].copy_(self._to_device(job.row))
+
+    def _consume_handoffs(self) -> None:
+        """Drain every READY handoff: import it and commit its slot as a
+        local admission would, with the worker's first token. A worker's
+        error, or an import that raises, fails that request alone."""
+        while True:
+            h = self._transfer.pop()
+            if h is None:
+                return
+            job = self._remote_jobs.pop(h.job_id, None)
+            if job is None:
+                continue  # cancel removes READY records itself
+            if h.error is not None:
+                self._fail_remote_job(job, h.error)
+                continue
+            t0 = time.perf_counter()
+            try:
+                self._import_handoff(job, h)
+            except Exception as e:  # a poisoned handoff fails its request, not the batch
+                logger.exception("poisoned handoff (slot %d): %s", job.slot, e)
+                self._fail_remote_job(job, e)
+                continue
+            self.server._handoff_times.append(h.prefill_s + (time.perf_counter() - t0))
+            self._commit_slot(job.slot, h.first_token, h.first_key, job.ids, job.req)
+
+    def _fail_remote_job(self, job: _RemoteJob, exc: BaseException) -> None:
+        """Release a remote job's slot and pages, then fail its request."""
+        self._unpin_request(job.req)
+        on_token = self._slots[job.slot].on_token
+        self._release_slot(job.slot)  # before notifying, like _finish
+        _emit(on_token, None)
+        _resolve(job.req.fut, exc=exc)
+
+    def _shed_remote_job(self, job_id: int, why: str) -> None:
+        """Shed a staged remote admission (503): the queue's cancel makes it
+        exactly once (the READY handoff leaves with its payload, or the
+        worker's later put is refused), and this path alone frees its
+        decode-side pages."""
+        job = self._remote_jobs.pop(job_id, None)
+        if job is None:
+            return
+        self._transfer.cancel(job_id)
+        self._allocator.count_shed()
+        self._pending.count_shed(job.req.tenant, job.req.slo_class)
+        logger.warning("shedding staged remote prefill (slot %d): %s", job.slot, why)
+        self._fail_remote_job(job, self._shed_error(why))
+
+    def _fail_remote_jobs(self, exc: BaseException) -> None:
+        """Shutdown / crash: no staged request may leave its future hanging."""
+        for job_id in list(self._remote_jobs):
+            job = self._remote_jobs.pop(job_id)
+            self._transfer.cancel(job_id)
+            self._fail_remote_job(job, exc)
+
+    # ------------------------------------------------------------------
     # Page accounting: growth, exhaustion shedding, release
     # ------------------------------------------------------------------
     def _ensure_slot_pages(self, i: int, last_write_pos: int) -> bool:
@@ -1044,6 +1343,9 @@ class ContinuousBatcher:
                 if victim == "job":
                     self._shed_prefill_job("page pool exhausted by decode")
                     continue
+                if isinstance(victim, tuple):  # ("remote", job_id)
+                    self._shed_remote_job(victim[1], "page pool exhausted by decode")
+                    continue
                 self._shed_slot(victim, "page pool exhausted")
                 if victim == i:
                     return False
@@ -1056,11 +1358,15 @@ class ContinuousBatcher:
 
     def _pick_page_victim(self):
         """LIFO shed order on page exhaustion: the staged prefill job first
-        (it has produced nothing yet), then the most recently admitted
-        active slot, which may be the growing slot itself. None when there
-        is at most one tenant."""
+        (it has produced nothing yet), then the newest staged remote job
+        (``("remote", job_id)``: no client has a token yet either), then the
+        most recently admitted active slot, which may be the growing slot
+        itself. None when there is at most one tenant."""
         if self._prefill is not None:
             return "job"
+        if self._remote_jobs:
+            # insertion order: the last key is the newest
+            return ("remote", next(reversed(self._remote_jobs)))
         active = [j for j, s in enumerate(self._slots) if s.active and s.pages]
         if len(active) < 2:
             return None
@@ -1128,16 +1434,29 @@ class ContinuousBatcher:
         it left, with the ``preempted`` flag that makes it immune to a second
         preemption (so an interactive flood cannot livelock batch traffic).
         It keeps its adapter pin (the slot never took it). Active slots are
-        never preempted. True when a job was put back."""
+        never preempted. Without a local job, the newest staged batch-class
+        REMOTE job goes back the same way (its queue record cancelled:
+        exactly once against its worker). True when a job was put back."""
         job = self._prefill
-        if job is None or job.req.slo_class != BATCH or job.req.preempted:
-            return False
-        self._prefill = None
-        logger.info("preempting the staged prefill (slot %d, tenant %r) for an interactive "
-                    "admission", job.slot, job.req.tenant)
-        self._release_slot(job.slot)
-        self._pending.push(job.req, requeue=True)
-        return True
+        if job is not None and job.req.slo_class == BATCH and not job.req.preempted:
+            self._prefill = None
+            logger.info("preempting the staged prefill (slot %d, tenant %r) for an interactive "
+                        "admission", job.slot, job.req.tenant)
+            self._release_slot(job.slot)
+            self._pending.push(job.req, requeue=True)
+            return True
+        for job_id in reversed(list(self._remote_jobs)):
+            rjob = self._remote_jobs[job_id]
+            if rjob.req.slo_class != BATCH or rjob.req.preempted:
+                continue
+            del self._remote_jobs[job_id]
+            self._transfer.cancel(job_id)
+            logger.info("preempting the staged remote prefill (slot %d, tenant %r) for an "
+                        "interactive admission", rjob.slot, rjob.req.tenant)
+            self._release_slot(rjob.slot)
+            self._pending.push(rjob.req, requeue=True)
+            return True
+        return False
 
     def _release_slot(self, i: int):
         """Common slot teardown: page references dropped (owned pages back
@@ -1388,14 +1707,19 @@ class ContinuousBatcher:
     def _admit_pending(self) -> None:
         """Admission while a slot is free, in the scheduler's order (peek,
         try, then commit: a failed admission keeps the request queued). One
-        prefill job stages at a time. An interactive head that finds a
-        staged batch-class job, or no free slot while such a job holds one,
-        preempts that job (``_preempt_for_interactive``) and tries again."""
+        local prefill job stages at a time; remote jobs, while slots are
+        free. An interactive head that finds a staged batch-class job, or
+        no free slot while such a job holds one, preempts that job
+        (``_preempt_for_interactive``) and tries again."""
         while True:
             req = self._pending.next_request()
             if req is None:
                 return
-            if self._prefill is not None or not self._admit_begin(req):
+            if self._remote is not None:
+                admitted = self._admit_remote(req)
+            else:
+                admitted = self._prefill is None and self._admit_begin(req)
+            if not admitted:
                 if req.slo_class == INTERACTIVE and self._preempt_for_interactive():
                     continue
                 return
@@ -1415,6 +1739,10 @@ class ContinuousBatcher:
     def _loop(self):
         while True:
             self._admit_pending()
+            # disaggregated: every finished handoff joins before the next
+            # dispatch
+            if self._transfer is not None and self._transfer.ready_depth():
+                self._consume_handoffs()
             # producer: keep pipeline_depth steps ahead of the host
             while len(self._inflight) < self.pipeline_depth and self._dispatch_eligible():
                 self._dispatch()
@@ -1433,13 +1761,19 @@ class ContinuousBatcher:
             if self._closed:
                 self._fail_all(ShedError("batcher closed; retry"))
                 return
-            if self._pending.next_request() is not None:
+            # cleared before the checks, so a submit or a handoff that lands
+            # after them still ends the wait
+            self._wakeup.clear()
+            if self._transfer is not None and self._transfer.ready_depth():
+                continue
+            if self._pending.next_request() is not None and not self._remote_jobs:
                 continue
             self._wakeup.wait(timeout=0.5)
-            self._wakeup.clear()
 
     def _fail_all(self, exc: BaseException):
         """Shutdown/crash path: no request may leave its future hanging."""
+        if self._remote_jobs:
+            self._fail_remote_jobs(exc)
         self._inflight.clear()
         self._prefill = None
         for slot in self._slots:
@@ -1497,11 +1831,11 @@ class BatcherService:
             self._unsettled -= 1
 
     def is_idle(self) -> bool:
-        """No submission unsettled: nothing queued, prefilling or decoding
-        for a client (a replica fleet's detach gate; pages the prefix cache
-        keeps are not work)."""
+        """No submission unsettled and no remote prefill staged: nothing
+        queued, prefilling or decoding for a client (a replica fleet's
+        detach gate; pages the prefix cache keeps are not work)."""
         with self._unsettled_lock:
-            return self._unsettled == 0
+            return self._unsettled == 0 and not self.batcher._remote_jobs
 
     def submit_sync(self, prompt: Any, max_new_tokens: Optional[int] = None,
                     timeout_s: float = 600.0, seed: Optional[int] = None,
@@ -1560,4 +1894,4 @@ def ensure_stream_service(component: Any) -> BatcherService:
 
 __all__ = ["BatcherService", "ContinuousBatcher", "PageAllocator",
            "DEFAULT_PAGE_SIZE", "DEFAULT_PREFILL_CHUNK", "ensure_stream_service",
-           "get_batcher_service"]
+           "get_batcher_service", "pow2_bucket"]

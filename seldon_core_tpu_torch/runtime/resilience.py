@@ -34,7 +34,7 @@ import time
 from collections import deque
 from contextlib import contextmanager
 from contextvars import ContextVar
-from typing import Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional
 
 from seldon_core_tpu_torch.contracts.payload import SeldonError
 
@@ -283,13 +283,18 @@ class ShedError(SeldonError):
 class AdmissionController:
     """Bounded in-flight limit plus a bounded FIFO queue, shedding when
     both are full. ``max_inflight <= 0`` disables it (the default).
-    Callers on their own thread ``acquire_sync()`` and ``release()``."""
+    Callers on their own thread ``acquire_sync()`` and ``release()``.
+    ``retry_after_fn`` (optional, ``wire_retry_after`` sets it) refines each
+    shed's Retry-After from the live backlog; it is called outside the
+    lock, and one that raises leaves the configured constant."""
 
     def __init__(self, max_inflight: int = 0, max_queue: int = 0,
-                 retry_after_s: float = DEFAULT_RETRY_AFTER_S):
+                 retry_after_s: float = DEFAULT_RETRY_AFTER_S,
+                 retry_after_fn: Optional[Callable[[], float]] = None):
         self.max_inflight = int(max_inflight)
         self.max_queue = int(max_queue)
         self.retry_after_s = float(retry_after_s)
+        self.retry_after_fn = retry_after_fn
         self.inflight = 0
         self.shed_total = 0
         self.admitted_total = 0
@@ -336,6 +341,17 @@ class AdmissionController:
                          f"{len(self._waiters)}/{self.max_queue} queued",
                          retry_after_s=self.retry_after_s)
 
+    def _refine(self, err: ShedError) -> ShedError:
+        """The dynamic Retry-After on a shed built under the lock; called
+        outside it."""
+        fn = self.retry_after_fn
+        if fn is not None:
+            try:
+                err.retry_after_s = float(fn())
+            except Exception:  # a backoff hint must never mask the shed itself
+                pass
+        return err
+
     def acquire_sync(self, timeout_s: Optional[float] = None) -> None:
         """An immediate slot, else a place in the queue (blocking this
         thread until a release hands it a slot), else ShedError."""
@@ -346,10 +362,12 @@ class AdmissionController:
                 self.inflight += 1
                 self.admitted_total += 1
                 return
-            if len(self._waiters) >= self.max_queue:
-                raise self._shed()
-            event = threading.Event()
-            self._waiters.append(event)
+            err = self._shed() if len(self._waiters) >= self.max_queue else None
+            if err is None:
+                event = threading.Event()
+                self._waiters.append(event)
+        if err is not None:
+            raise self._refine(err)
         if event.wait(timeout_s):
             return
         with self._lock:
@@ -361,11 +379,11 @@ class AdmissionController:
                 granted = False
                 err = self._shed()
         if not granted:
-            raise err
+            raise self._refine(err)
         self.release()
         with self._lock:
             err = self._shed()
-        raise err
+        raise self._refine(err)
 
     def release(self) -> None:
         """Finish one admitted request; hand its slot to the oldest waiter."""
@@ -377,6 +395,25 @@ class AdmissionController:
                 self.admitted_total += 1  # slot transferred, inflight unchanged
                 return
             self.inflight = max(self.inflight - 1, 0)
+
+
+def retry_after_hint(component: Any, default_s: float = DEFAULT_RETRY_AFTER_S) -> float:
+    """A component's dynamic Retry-After for sheds: its shared batcher's
+    backlog hint (``ContinuousBatcher.retry_after_hint``), never below the
+    configured ``default_s``; ``default_s`` for a component without one."""
+    svc = getattr(component, "_batcher_service", None)
+    hint = getattr(getattr(svc, "batcher", None), "retry_after_hint", None)
+    if hint is None:
+        return float(default_s)
+    return max(float(hint()), float(default_s))
+
+
+def wire_retry_after(admission: "AdmissionController", component: Any) -> "AdmissionController":
+    """Install ``retry_after_hint`` of ``component`` as the admission
+    controller's ``retry_after_fn``, unless one is set already."""
+    if admission.retry_after_fn is None:
+        admission.retry_after_fn = lambda: retry_after_hint(component, admission.retry_after_s)
+    return admission
 
 
 # ---------------------------------------------------------------------------
@@ -433,4 +470,5 @@ def failure_counts_for_breaker(exc: BaseException) -> bool:
 __all__ = ["AdmissionController", "BreakerOpen", "CircuitBreaker", "DEADLINE_GRPC_METADATA",
            "DEADLINE_HEADER", "DEFAULT_RETRY_AFTER_S", "Deadline", "DeadlineExceeded",
            "ResilienceConfig", "ShedError", "current_deadline", "deadline_scope",
-           "effective_timeout", "failure_counts_for_breaker"]
+           "effective_timeout", "failure_counts_for_breaker", "retry_after_hint",
+           "wire_retry_after"]

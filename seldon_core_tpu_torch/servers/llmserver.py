@@ -181,6 +181,27 @@ def sample_tokens(keys: torch.Tensor, logits: torch.Tensor, temperature,
     return keys, torch.where(temperature <= 0.0, greedy, sampled)
 
 
+def first_token(first_logits: torch.Tensor, key: int, temperature, top_k: int) -> Tuple[int, int]:
+    """The first token of a request from its prefill's last-position logits
+    [vocab] (``sample_tokens`` on one row, from the host key ``key``).
+    Returns (token, next key) as host ints: the one sync of an admission,
+    made by the thread that calls this (the batcher's for a local
+    admission, a prefill worker's for a remote one)."""
+    keys = torch.tensor([key], dtype=torch.int64, device=first_logits.device)
+    keys, tok = sample_tokens(keys, first_logits[None].float(), temperature, top_k)
+    return int(tok[0]), int(keys[0])
+
+
+def _page_words(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous [pages, ...] tensor as [pages, words]: each page's
+    bytes as 8-byte words where they divide (a copy moves the same bits in
+    fewer, wider elements), else as [pages, elements]."""
+    flat = t.reshape(t.shape[0], -1)
+    if t.is_contiguous() and (flat.shape[1] * t.element_size()) % 8 == 0:
+        return flat.view(torch.int64)
+    return flat
+
+
 def _row_keys(base_seed: int, n: int) -> List[int]:
     """generate()'s per-row keys: row 0 starts the chain of ``base_seed``
     (the batcher's chain for the same seed), later rows fold their index in."""
@@ -367,17 +388,24 @@ class LLMServer(SeldonComponent):
         **kwargs: Any,
     ):
         super().__init__(**kwargs)
+        from seldon_core_tpu_torch.runtime.disagg import normalize_disaggregation
+
+        try:
+            disagg_on = normalize_disaggregation(disaggregation) != "off"
+        except ValueError:
+            disagg_on = False   # load() raises naming the value
+        if disagg_on and (int(tensor_parallel) > 1 or int(sequence_parallel) > 1
+                          or mesh is not None):
+            raise ValueError(
+                "disaggregation='remote_prefill' does not yet compose with tensor/sequence "
+                "parallelism or an explicit mesh: the batcher's slot pool is single-device per "
+                "slice — shard WITHIN a slice is a follow-up")
         later = [
             ("tokenizer", tokenizer != "bytes", "HF tokenizers (a later slice)"),
             ("mesh", mesh is not None, "the parallelism slice"),
             ("topology", topology is not None, "the parallelism slice"),
             ("tensor_parallel", int(tensor_parallel) > 1, "the parallelism slice"),
             ("sequence_parallel", int(sequence_parallel) > 1, "the parallelism slice"),
-            ("disaggregation", str(disaggregation or "off").lower() != "off",
-             "the disaggregation slice"),
-            ("prefill_devices/decode_devices/prefill_workers/handoff_transport/disagg_mesh",
-             prefill_devices or decode_devices or prefill_workers or handoff_transport
-             or disagg_mesh is not None, "the disaggregation slice"),
         ]
         for name, value, slice_name in later:
             if value:
@@ -471,6 +499,23 @@ class LLMServer(SeldonComponent):
         self._prefix_lock = threading.Lock()
         self._prefix_hits = 0
         self._prefix_overbudget_warned = False
+        # disaggregated prefill/decode (runtime/disagg.py): validated at
+        # load(), as the JAX package does. prefill_devices (or
+        # prefill_workers) = N puts N prefill workers on this server's
+        # device; disagg_mesh (a disagg.DisaggMesh) may name other devices;
+        # the batcher decodes on this server's one device, so
+        # decode_devices > 1 is refused at load() (the parallelism slice)
+        self.disaggregation = disaggregation
+        self.prefill_devices = int(prefill_devices)
+        self.decode_devices = int(decode_devices)
+        self.prefill_workers = int(prefill_workers)
+        self.handoff_transport = handoff_transport or ""
+        self.disagg_mesh = disagg_mesh
+        # per handoff: the worker's prefill and copy, then the decode-side import
+        self._handoff_times: Any = deque(maxlen=4096)
+        # the weights on another device, one module a device (``_params_on``)
+        self._device_params: Dict[Any, Any] = {}
+        self._device_params_lock = threading.Lock()
         self.seed = int(seed)
         self.ready = False
         self._eos_override = eos_id
@@ -588,11 +633,37 @@ class LLMServer(SeldonComponent):
         if draft_params is not None and not self.draft_model:
             raise ValueError("load(draft_params=...) needs draft_model=<registry name> "
                              "naming the draft's architecture")
+        from seldon_core_tpu_torch.runtime.disagg import normalize_disaggregation
+
+        self.disaggregation = normalize_disaggregation(self.disaggregation)
+        if self.prefill_devices < 0 or self.decode_devices < 0 or self.prefill_workers < 0:
+            raise ValueError(f"prefill_devices={self.prefill_devices} / decode_devices="
+                             f"{self.decode_devices} / prefill_workers={self.prefill_workers} "
+                             f"must be >= 0")
+        if self.decode_devices > 1:
+            raise NotImplementedError(
+                f"LLMServer(decode_devices={self.decode_devices}) is not ported yet: a decode "
+                f"slice over several devices arrives with the parallelism slice (the batcher "
+                f"decodes on the server's one device)")
         if self.lora_rank < 0:
             raise ValueError(f"lora_rank={self.lora_rank} must be >= 0 (0 = adapters off)")
+        if self.lora_rank > 0 and self.disaggregation != "off":
+            raise ValueError("lora_rank > 0 does not yet compose with "
+                             "disaggregation='remote_prefill': the adapter pool lives on the "
+                             "decode slice and prefill-slice workers would need committed "
+                             "replicas — a follow-up")
         if self.lora_rank > 0 and int(self.model_kwargs.get("n_experts", 0) or 0) > 0:
             raise ValueError("lora_rank > 0 does not support MoE FFNs: adapters "
                              "target the dense q/o/FFN projections")
+        # one device is allowed (the JAX package needs two): the workers
+        # then share the server's device (runtime/disagg.py)
+        if self.handoff_transport not in ("", "device", "network"):
+            raise ValueError(f"unknown handoff_transport {self.handoff_transport!r}: "
+                             "expected '', 'device' or 'network'")
+        if self.handoff_transport == "network" and self.disaggregation == "off":
+            raise ValueError("handoff_transport='network' only applies to "
+                             "disaggregation='remote_prefill' (there is no KV handoff without a "
+                             "prefill/decode split)")
         for cls in self.slo_class_weights:
             normalize_slo_class(cls)  # unknown class names fail at load()
         name, kwargs = self.model_name, dict(self.model_kwargs)
@@ -623,6 +694,7 @@ class LLMServer(SeldonComponent):
         module.eval()
         self._module = module
         self._cfg = module.cfg
+        self._model_build = (name, kwargs)
         if has_draft:
             self._load_draft(draft_params)
         if self.lora_rank > 0:
@@ -816,7 +888,96 @@ class LLMServer(SeldonComponent):
         with self._lock:
             return self._decode_cache.setdefault(key, step)
 
-    def _get_prefill_chunk(self, chunk: int, n_pages: int, lora: bool = False):
+    def _params_on(self, device):
+        """The weights on ``device``: this server's own module on its own
+        device (the prefill workers of one card share it: a second copy of
+        a 7B model's weights on the same card would be a waste of 13.5 GB),
+        else one copy a device, made at first use under a lock (the JAX
+        package's committed copies for its prefill slice)."""
+        from seldon_core_tpu_torch.runtime.disagg import same_device
+
+        device = torch.device(device)
+        if same_device(device, self.device):
+            return self._module
+        with self._device_params_lock:
+            module = self._device_params.get(device)
+            if module is None:
+                from seldon_core_tpu_torch.models import get_model
+
+                name, kwargs = self._model_build
+                module = get_model(name, device="meta", param_dtype=self.param_dtype or None,
+                                   **kwargs)
+                if self.quantize:
+                    module.quantize_()
+                module.to_empty(device=device)
+                module.load_state_dict(self._module.state_dict())
+                module.eval()
+                self._device_params[device] = module
+            return module
+
+    def _get_staging_pool_init(self, pool_pages: int, page_size: int):
+        """Port of ``_get_staging_pool_init``: a prefill worker's staging
+        page pool of ``pool_pages`` pages (``RESERVED_PAGES + n_pages``) in
+        this server's KV dtype (an int8 pool carries its scales), cached
+        under ``("staging_init", pool_pages, page_size)``. Its call takes
+        the device (default: the server's) and returns fresh pools."""
+        from seldon_core_tpu_torch.models.transformer import init_paged_kv_caches
+
+        key = ("staging_init", int(pool_pages), int(page_size))
+        with self._lock:
+            fn = self._prefill_cache.get(key)
+        if fn is not None:
+            return fn
+
+        def init(device=None):
+            return init_paged_kv_caches(self._cfg, int(pool_pages), int(page_size),
+                                        self.kv_cache_dtype, device=device or self.device)
+
+        with self._lock:
+            return self._prefill_cache.setdefault(key, init)
+
+    def _get_handoff_import(self, n_pages: int, staged_pages: Optional[int] = None):
+        """Port of ``_get_handoff_import``: the import of a staged page
+        bucket into a paged pool, cached under ``("handoff_import",
+        n_pages, m)``, m = ``min(staged_pages, n_pages)``. Its call
+        ``import_pages(pools, staged, block_row, n_valid)`` (``staged`` a
+        bucket of ``RESERVED_PAGES + m`` rows a tensor, ``block_row`` the
+        host block-table row of the destination pages, ``n_valid`` an int)
+        copies bucket row ``RESERVED_PAGES + j`` of every tensor of every
+        layer into pool page ``block_row[j]``, in place; rows ``j >=
+        n_valid`` and NULL entries go to TRASH_PAGE, as in the JAX package.
+        The targets are computed on the host and staged in one copy; then
+        one ``index_copy_`` a tensor over its pages seen as 8-byte words, on
+        the current stream (eager: its source is a fresh bucket each
+        handoff, which a graph could not read without a copy of its
+        own)."""
+        from seldon_core_tpu_torch.models.transformer import NULL_PAGE, RESERVED_PAGES, TRASH_PAGE
+
+        n_pages = int(n_pages)
+        m = n_pages if staged_pages is None else min(int(staged_pages), n_pages)
+        key = ("handoff_import", n_pages, m)
+        with self._lock:
+            fn = self._prefill_cache.get(key)
+        if fn is not None:
+            return fn
+
+        def import_pages(pools, staged, block_row, n_valid):
+            row = np.asarray(block_row, np.int64).reshape(-1)[:m]
+            j = np.arange(m)
+            tgt = torch.from_numpy(np.where((j < int(n_valid)) & (row != NULL_PAGE), row,
+                                            TRASH_PAGE).astype(np.int64))
+            dev = pools[0][0].device
+            tgt = tgt.pin_memory().to(dev, non_blocking=True) if dev.type == "cuda" else tgt
+            for pool_layer, staged_layer in zip(pools, staged):
+                for pool, st in zip(pool_layer, staged_layer):
+                    _page_words(pool).index_copy_(
+                        0, tgt, _page_words(st)[RESERVED_PAGES:RESERVED_PAGES + m])
+
+        with self._lock:
+            return self._prefill_cache.setdefault(key, import_pages)
+
+    def _get_prefill_chunk(self, chunk: int, n_pages: int, lora: bool = False,
+                           device: Optional[Any] = None):
         """Port of ``_get_prefill_chunk``: the program that writes one chunk
         of one sequence's prompt into the paged pool while attending over
         its earlier chunks, cached under ``("pchunk", chunk, n_pages,
@@ -827,14 +988,20 @@ class LLMServer(SeldonComponent):
         is the adapted program: the call also takes ``adapters`` (the
         adapter pool) and ``adapter_ids`` ([1] int: the sequence's id, 0 =
         the identity). Nothing is read back to the host, so the same call is
-        what a CUDA graph captures (``servers/step_graph.py``)."""
+        what a CUDA graph captures (``servers/step_graph.py``). ``device``
+        (a prefill worker's) other than the server's runs the same program
+        over the weights there (``_params_on``), cached under a key that
+        also names the device."""
+        from seldon_core_tpu_torch.runtime.disagg import same_device
+
         chunk, n_pages, lora = int(chunk), int(n_pages), bool(lora)
-        key = ("pchunk", chunk, n_pages, lora)
+        other = device is not None and not same_device(device, self.device)
+        key = ("pchunk", chunk, n_pages, lora) + ((str(torch.device(device)),) if other else ())
         with self._lock:
             fn = self._prefill_cache.get(key)
         if fn is not None:
             return fn
-        module = self._module
+        module = self._params_on(device) if other else self._module
 
         def prefill(pools, block_row, tokens, positions, adapters=None, adapter_ids=None):
             if (tuple(block_row.shape) != (1, n_pages) or tuple(tokens.shape) != (1, chunk)
@@ -1439,7 +1606,10 @@ class LLMServer(SeldonComponent):
         batcher (zeros without one, or with either off), the dense prefix
         cache's hits and entries, the adapter pool's gauges, the
         scheduler's per-(tenant, class) tallies and queue depth by class,
-        and the TTFT (also by class), inter-token, decode and
+        the handoff counters (``disaggregation``, ``handoffs_total``,
+        ``handoff_transfer_bytes_total``, ``handoff_queue_depth``,
+        ``handoff_network_bytes_total``: zeros with disaggregation off),
+        and the TTFT (also by class), inter-token, decode, handoff and
         accepted-tokens series accumulated since the last call, drained
         here so each is observed exactly once. The trie is walked once a
         call."""
@@ -1483,6 +1653,11 @@ class LLMServer(SeldonComponent):
             spec_stats = batcher.spec_stats()
             tenant_counters = batcher._pending.counters()
             queue_by_class = batcher._pending.depths()
+        handoff_stats = {"disaggregation": self.disaggregation or "off", "handoffs_total": 0,
+                         "handoff_transfer_bytes_total": 0, "handoff_queue_depth": 0,
+                         "handoff_network_bytes_total": 0}
+        if svc is not None:
+            handoff_stats.update(svc.batcher.handoff_stats())
         with self._prefix_lock:
             prefix_bytes = self._prefix_bytes
             hits, entries = self._prefix_hits, len(self._prefix_cache)
@@ -1507,8 +1682,10 @@ class LLMServer(SeldonComponent):
             "tenant_counters": tenant_counters,
             "queue_by_class": queue_by_class,
             "ttft_by_class": drain(self._ttft_by_class),
+            **handoff_stats,
+            "handoff_times_s": drain(self._handoff_times),
         }
 
 
-__all__ = ["ByteTokenizer", "LLMServer", "bucket", "sample_tokens", "seed_key",
+__all__ = ["ByteTokenizer", "LLMServer", "bucket", "first_token", "sample_tokens", "seed_key",
            "split_keys"]

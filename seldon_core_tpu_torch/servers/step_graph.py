@@ -64,7 +64,9 @@ What the capture relies on:
   one batcher, ``runtime/batcher.get_batcher_service``). ``generate()``'s
   graphs are captured on a stream of their own, in one pool of their own,
   and replayed one at a time under the server's ``_dense_lock``, while the
-  batcher's thread replays its own.
+  batcher's thread replays its own; so are each prefill worker's chunk
+  graphs (``runtime/disagg.PrefillWorker``: its own thread, stream and
+  pool), replayed while the batcher's decode graphs replay.
 
 There is no fallback: a capture that fails raises.
 """
@@ -179,14 +181,18 @@ def capture_decode_steps(server, ks: Sequence[int], pools, last_tok: torch.Tenso
 @torch.no_grad()
 def capture_prefill_chunks(server, chunks: Sequence[int], pools, row: torch.Tensor,
                            tokens: torch.Tensor, positions: torch.Tensor,
-                           lora: Optional[Dict[str, Any]] = None) -> Dict[int, ReplayGraph]:
+                           lora: Optional[Dict[str, Any]] = None,
+                           stream: Optional[torch.cuda.Stream] = None) -> Dict[int, ReplayGraph]:
     """Capture ``server._get_prefill_chunk(chunk, n_pages, lora)`` (``lora``:
     the adapted program's keywords, as ``capture_decode_steps``) for each chunk
-    length of ``chunks`` over the batcher's fixed buffers: the block-table
+    length of ``chunks`` over fixed buffers: the pools, the block-table
     row ``row`` [1, n_pages] and the first ``chunk`` columns of ``tokens``
-    [1, Cmax] and ``positions`` [1, Cmax] (Cmax >= every chunk), on the
-    server's capture stream, after a warm-up run of each (module
-    docstring). The buffers are first reset to an all-NULL row, token 0 and
+    [1, Cmax] and ``positions`` [1, Cmax] (Cmax >= every chunk), on
+    ``stream`` (default: the server's capture stream; a prefill worker
+    passes its own, so its replays have a cuBLAS workspace of their own
+    beside the batcher's), after a warm-up run of each (module
+    docstring). The programs are the ones over the weights on ``row``'s
+    device. The buffers are first reset to an all-NULL row, token 0 and
     PAD_POS, so the warm-up writes only the TRASH page. Longest chunk
     first, all in one memory pool: the graphs are replayed one at a time
     on one stream, and each replay's logits are read before the next, so a
@@ -198,10 +204,11 @@ def capture_prefill_chunks(server, chunks: Sequence[int], pools, row: torch.Tens
     lora = lora or {}
     n_pages = row.shape[1]
     order = sorted(chunks, reverse=True)
-    programs = {c: server._get_prefill_chunk(c, n_pages, bool(lora)) for c in order}
+    programs = {c: server._get_prefill_chunk(c, n_pages, bool(lora), device=row.device)
+                for c in order}
     args = {c: (pools, row, tokens[:, :c], positions[:, :c]) for c in order}
     graphs = {}
-    with _on_capture_stream(server._graph_stream(), row.device):
+    with _on_capture_stream(stream or server._graph_stream(), row.device):
         row.fill_(NULL_PAGE)
         tokens.zero_()
         positions.fill_(PAD_POS)

@@ -10,9 +10,10 @@ it with the typed parameters of ``PREDICTIVE_UNIT_PARAMETERS``
 ``**kwargs`` (``TorchServer`` and ``LLMServer`` do; a host-only user model
 need not), loads it and serves it over REST (``transport/rest.py``) or gRPC
 (``transport/grpc_server.py``; without grpcio or protobuf installed it exits
-naming the missing module, with no fallback to REST). The gRPC server reads
-the pod's annotations from the downward-API file ``ANNOTATIONS_FILE``
-(``seldon.io/grpc-max-message-size``), as the JAX package's CLI does. With
+naming the missing module, with no fallback to REST). Both read the pod's
+annotations from the downward-API file ``ANNOTATIONS_FILE`` (the REST app's
+admission gate, the gRPC server's ``seldon.io/grpc-max-message-size``), as
+the JAX package's CLI does. With
 ``--persistence`` the component is restored from its persisted state where
 there is one (``runtime/persistence``: a directory, or Redis where
 ``REDIS_SERVICE_HOST`` is set), snapshotted by a ``PersistenceThread``, and
@@ -168,7 +169,9 @@ def run_microservice(args: argparse.Namespace) -> None:
         return
     from seldon_core_tpu_torch.transport.rest import make_component_app, serve
 
-    serve(make_component_app(component, device=args.device), host=args.host, port=port)
+    serve(make_component_app(component, device=args.device,
+                             annotations=load_annotations(ANNOTATIONS_FILE)),
+          host=args.host, port=port)
 
 
 DEFAULT_GRAPH = {"name": "default",

@@ -48,6 +48,13 @@ the body's ``adapter`` and a ``Seldon-Deadline-Ms`` budget. An unknown
 class answers 400 on every branch; a tenant over its quota 503 with a
 ``Retry-After`` header. The framed binary wire answers 501; multipart
 predict bodies answer 415.
+
+The method routes pass the JAX app's admission gate
+(``runtime/resilience.AdmissionController``, from the annotations and env by
+default, off unless configured): past ``max_inflight`` calls and
+``max_queue`` waiters a call answers 503 with a ``Retry-After`` from the
+component's batcher backlog (``wire_retry_after``), and the scrape carries
+the ``seldon_resilience_*`` admission series.
 """
 
 from __future__ import annotations
@@ -71,7 +78,7 @@ from seldon_core_tpu_torch.metrics.registry import CONTENT_TYPE as PROM_CONTENT_
 from seldon_core_tpu_torch.metrics.registry import MetricsRegistry
 from seldon_core_tpu_torch.runtime.resilience import (DEADLINE_HEADER, AdmissionController,
                                                       Deadline, ShedError, current_deadline,
-                                                      deadline_scope)
+                                                      deadline_scope, wire_retry_after)
 from seldon_core_tpu_torch.transport.streaming import (check_identity, stream_events,
                                                        stream_service)
 
@@ -270,13 +277,20 @@ class _Handler(BaseHTTPRequestHandler):
         return self.rfile.read(length) if length else b""
 
 
-def make_component_app(component: Any, device: Optional[str] = None):
+def make_component_app(component: Any, device: Optional[str] = None,
+                       admission: Optional[AdmissionController] = None,
+                       annotations: Optional[dict] = None):
     """The request-handler class serving ``component`` (pass it to
     ``serve`` or ``start``). ``device`` (default "cuda") is the device this
     server is meant to run on: it must resolve (no card raises) and match
     the component's, so a serving process never lands on the CPU unasked.
     Its registry (``Handler.metrics``) counts each
-    method and generate request by code and latency."""
+    method and generate request by code and latency. ``admission`` bounds
+    the concurrent method calls (predict, transform, route, aggregate,
+    feedback; overflow sheds 503 + Retry-After, the component's batcher
+    backlog hint through ``wire_retry_after``); by default it comes from the
+    annotations and env (``AdmissionController.from_annotations``), off
+    unless configured. ``/v1/generate`` is not gated, as in the JAX app."""
     from seldon_core_tpu_torch.transport.openapi import wrapper_spec
 
     dev = resolve_device(device)
@@ -284,6 +298,8 @@ def make_component_app(component: Any, device: Optional[str] = None):
     if comp_dev != dev:
         raise ValueError(f"REST app device {dev} != component device {comp_dev}")
     registry = MetricsRegistry()
+    admission = admission or AdmissionController.from_annotations(annotations)
+    wire_retry_after(admission, component)
 
     msg, lst, fbk = SeldonMessage.from_dict, SeldonMessageList.from_dict, Feedback.from_dict
     routes: Dict[str, Tuple[Callable, Callable, str]] = {
@@ -304,11 +320,18 @@ def make_component_app(component: Any, device: Optional[str] = None):
             fn, parser, name = route
             t0 = time.perf_counter()
             try:
+                admission.acquire_sync()
+            except ShedError as e:
+                self._send_error(e, name, t0)
+                return
+            try:
                 body = parse_request(self.headers.get("Content-Type", ""), raw, query)
                 out = dispatch.resolve(fn(component, parser(body)))
             except Exception as e:  # the request boundary: answer, keep serving
                 self._send_error(e, name, t0)
                 return
+            finally:
+                admission.release()
             registry.observe_api_call(name, "200", time.perf_counter() - t0)
             self._send(200, out.to_dict())
 
@@ -354,6 +377,7 @@ def make_component_app(component: Any, device: Optional[str] = None):
             if url.path in ("/ready", "/live", "/health/status"):
                 self._send(200, {"status": "ok"})
             elif url.path in ("/metrics", "/prometheus"):
+                registry.sync_resilience(admission=admission, transport="rest")
                 registry.sync_llm(component)
                 self._send(200, registry.expose(), content_type=PROM_CONTENT_TYPE)
             elif url.path == "/seldon.json":

@@ -4,8 +4,10 @@ package, and it never falls back to the CPU on its own.
 - a subprocess with ``jax``, ``flax``, ``msgpack`` and ``seldon_core_tpu``
   blocked from import imports every module of ``seldon_core_tpu_torch``
   (the gRPC server, its proto converters and copied stubs, the OpenAPI
-  spec, the metrics registry, the radix prefix cache, the adapter pool and
-  the scheduler among them), serves one CPU ``generate()``, writes an LLM
+  spec, the metrics registry, the radix prefix cache, the adapter pool,
+  the scheduler, the disaggregation module and the frame codec among
+  them), serves one CPU ``generate()`` and the same prompt through a
+  disaggregated batcher over the network handoff, writes an LLM
   checkpoint and serves it through ``LLMServer(model_uri=...)`` with an
   adapter pool, writes, loads and serves a ResNet checkpoint through
   ``TorchServer``, and boots the ``engine`` CLI on its default SIMPLE_MODEL
@@ -45,13 +47,21 @@ need |= {"seldon_core_tpu_torch.metrics.registry", "seldon_core_tpu_torch.runtim
          "seldon_core_tpu_torch.runtime.adapters", "seldon_core_tpu_torch.runtime.scheduler"}
 need |= {"seldon_core_tpu_torch." + m for m in (
     "runtime.engine", "runtime.resilience", "components.builtin", "components.metrics",
-    "analytics.routers", "tracing", "contracts.graph")}
+    "analytics.routers", "tracing", "contracts.graph", "runtime.disagg", "codec.framing")}
 assert need <= set(mods), need - set(mods)
 from seldon_core_tpu_torch.servers.llmserver import LLMServer
 s = LLMServer(model="llama-tiny", init_random=True, max_new_tokens=4, eos_id=-1,
               len_buckets=(16,), batch_buckets=(1,), device="cpu")
 out = s.generate(["hi"])
 assert len(out["tokens"][0]) == 4, out
+from seldon_core_tpu_torch.runtime.batcher import ContinuousBatcher
+d = LLMServer(model="llama-tiny", init_random=True, max_new_tokens=4, eos_id=-1,
+              len_buckets=(16,), batch_buckets=(1,), device="cpu",
+              disaggregation="remote_prefill", handoff_transport="network")
+d.load()
+b = ContinuousBatcher(d, device="cpu", max_slots=2)
+assert b.submit("hi", 4).result(60) == out["tokens"][0]
+b.close()
 import tempfile, numpy as np, torch
 from seldon_core_tpu_torch.models import get_model
 from seldon_core_tpu_torch.servers.torchserver import TorchServer, export_checkpoint

@@ -2054,3 +2054,209 @@ def test_fleet_two_replicas_equal_one(dev):
     assert max(owner) > 0 and rs.pick_for(follow) is reps[int(np.argmax(owner))]
     for r in reps:
         r._batcher_service.close()
+
+
+# ---------------------------------------------------------------------------
+# Disaggregated prefill: workers on their own streams and graphs, the import
+# ---------------------------------------------------------------------------
+def _disagg_server(kv):
+    from seldon_core_tpu_torch.servers.llmserver import LLMServer
+
+    s = LLMServer(model="transformer", model_kwargs=PREFILL_LLM, init_random=True,
+                  param_dtype="auto", max_new_tokens=12, eos_id=-1, device="cuda",
+                  **INT8_KNOBS[kv])
+    s.load()
+    return s
+
+
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+def test_worker_chunk_graphs_bit_equal_local_beside_decode(dev, kv):
+    """A prefill worker captures its chunk graphs (32, 128, 256) on its own
+    thread and stream, in its own pool, while this thread replays a decode
+    graph on its own stream; a prompt of 300 tokens (two chunks of 256)
+    and one of 100 (one of 128) prefilled there, with decode replays
+    enqueued meanwhile, hand over buckets whose written pages are bit-equal
+    (values where held, positions everywhere) to the local chunk graphs'
+    pages for the same prompts, with the same first token; every chunk was a
+    replay on the worker (none eager), and the K2 / K4 launches it added
+    are its graphs' counts."""
+    from concurrent.futures import Future
+
+    from seldon_core_tpu_torch.runtime.disagg import PrefillRequest, PrefillWorker, TransferQueue
+    from seldon_core_tpu_torch.runtime.scheduler import PendingRequest
+    from seldon_core_tpu_torch.servers.step_graph import launch_counts
+
+    from seldon_core_tpu_torch.runtime.batcher import ContinuousBatcher
+
+    s = _disagg_server(kv)
+    b = ContinuousBatcher(s, device="cuda", **PREFILL_BATCH)
+    prompts = ([5, 9, 17, 2, 40, 3, 22, 8, 11, 60] * 30, list(range(3, 103)))
+    local = []
+    for ids in prompts:
+        assert b._admit_begin(PendingRequest(ids=list(ids), max_new=12, fut=Future()))
+        while b._prefill is not None:
+            b._prefill_step()
+        slot = next(sl for sl in b._slots if sl.active and sl.ids == list(ids))
+        local.append(([tuple(t[slot.pages].clone() for t in layer) for layer in b._caches],
+                      slot.tokens[0]))
+    for i, slot in enumerate(b._slots):
+        if slot.active:   # room for the decode replays below
+            assert b._ensure_slot_pages(i, slot.dispatched_pos() + 24)
+    q = TransferQueue()
+    w = PrefillWorker(
+        s, q, dev, dev, layout="paged", max_len=b.max_len, page_size=b.page_size,
+        n_pages=b.n_pages, prefill_chunk=b.prefill_chunk, chunks=b._chunks)
+    try:
+        assert sorted(w.graphs()) == [32, 128, 256] and w._stream != torch.cuda.current_stream()
+        before = launch_counts()
+        for job, ids in enumerate(prompts):
+            q.register(job)
+            w.submit(PrefillRequest(job, ids, 512 if len(ids) > 128 else 128,
+                                    first_key=b._first_key(None)))
+        for _ in range(20):
+            b._graphs[1].replay()    # decode on this thread's stream meanwhile
+        got = []
+        while len(got) < len(prompts):
+            h = q.pop()
+            if h is None:
+                continue
+            assert h.error is None, h.error
+            got.append(h)
+        torch.cuda.synchronize()
+        after = launch_counts()
+    finally:
+        w.close()
+        b.close()
+    assert (w.replays, w.eager_runs) == (3, 0)
+    for h, (pages, first), ids in zip(sorted(got, key=lambda h: h.job_id), local, prompts):
+        n0 = -(-len(ids) // b.page_size)
+        assert h.first_token == first
+        for layer, want in zip(h.staged, pages):
+            pos = layer[-1][RESERVED_PAGES:RESERVED_PAGES + n0]
+            assert torch.equal(pos, want[-1])
+            held = pos != PAD_POS
+            assert int(held.sum()) == len(ids)
+            for t, ref in zip(layer[:-1], want[:-1]):
+                assert torch.equal(t[RESERVED_PAGES:RESERVED_PAGES + n0][held], ref[held])
+    counts = {k: after[k] - before[k] for k in after}
+    k2_per = PREFILL_LLM["n_layers"]
+    decode_k2 = 20 * k2_per
+    assert counts[(fused_norm.fused_residual_rmsnorm, "launches")] == 3 * k2_per + decode_k2
+    if kv == "int8":
+        k4 = 7 * PREFILL_LLM["n_layers"] + 1
+        assert counts[(int8_matmul.int8_matmul, "launches_wgmma")] == 3 * k4
+
+
+def test_handoff_import_waits_on_the_worker_event(dev):
+    """A bucket written on a side stream behind a ~100 ms spin kernel, its
+    event recorded after: the batcher's import (``_import_handoff``)
+    returns to the host at once (no host wait) and, once the device is
+    done, the slot's pages hold the final values, not the ones the bucket
+    held before the spin; the slot's block-table row points at them."""
+    from seldon_core_tpu_torch.runtime.batcher import ContinuousBatcher, _RemoteJob
+    from seldon_core_tpu_torch.runtime.disagg import Handoff
+    from seldon_core_tpu_torch.runtime.scheduler import PendingRequest
+
+    s = _disagg_server("bf16")
+    b = ContinuousBatcher(s, device="cuda", disaggregation="remote_prefill", **PREFILL_BATCH)
+    try:
+        pages = b._allocator.alloc(3)
+        row = np.full((b.n_pages,), NULL_PAGE, np.int32)
+        row[:3] = pages
+        job = _RemoteJob(1, 0, list(range(20)), row, 0,
+                         PendingRequest(ids=list(range(20)), max_new=4, fut=None))
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            bucket = [tuple(torch.zeros((RESERVED_PAGES + 4, *t.shape[1:]), dtype=t.dtype,
+                                        device=dev) for t in layer) for layer in b._caches]
+            torch.cuda._sleep(200_000_000)
+            for layer in bucket:
+                for t in layer:
+                    t.fill_(7)
+            ev = torch.cuda.Event()
+            ev.record(side)
+        del layer, t
+        import time as _time
+
+        t0 = _time.perf_counter()
+        b._import_handoff(job, Handoff(1, staged=bucket, event=ev, first_token=3, first_key=5))
+        host_s = _time.perf_counter() - t0
+        del bucket
+        torch.cuda.synchronize()
+        assert host_s < 0.05
+        for layer in b._caches:
+            for t in layer:
+                assert bool((t[pages] == 7).all())
+        assert b._block_tables[0, :3].tolist() == pages
+    finally:
+        b.close()
+
+
+def test_tma_first_launch_on_a_fresh_worker_stream(dev):
+    """K4's prefill route (TMA tensor maps encoded on the host) as the
+    first CUDA work of a new host thread, on a stream of its own made there
+    (a prefill worker's case): it launches, on that stream, and gives this
+    thread's answer bit for bit."""
+    import threading
+
+    m, k, n = 128, 4096, 1024
+    xq, q, scale = _k4_case(dev, m, k, n, 9)
+    want = int8_matmul.int8_matmul(xq, q, scale, out_dtype=torch.bfloat16).clone()
+    before = int8_matmul.int8_matmul.launches_wgmma
+    torch.cuda.synchronize()
+    got, errors = [], []
+
+    def run():
+        try:
+            stream = torch.cuda.Stream(device=dev)
+            with torch.cuda.stream(stream):
+                out = int8_matmul.int8_matmul(xq, q, scale, out_dtype=torch.bfloat16)
+            stream.synchronize()
+            got.append(out)
+        except Exception as exc:   # noqa: BLE001 - reported below
+            errors.append(str(exc))
+
+    t = threading.Thread(target=run)
+    t.start()
+    t.join()
+    assert not errors, errors
+    assert torch.equal(got[0], want)
+    assert int8_matmul.int8_matmul.launches_wgmma == before + 1
+
+
+@pytest.mark.parametrize("kv,transport,workers", [("bf16", "device", 2), ("int8", "device", 1),
+                                                  ("bf16", "network", 1)])
+def test_disagg_batcher_on_card_equals_local(dev, kv, transport, workers):
+    """Prompts of 1 and 2 chunks of 32, 128 and 256 tokens through a graph
+    batcher with remote prefill (every chunk a replay on a worker, the
+    workers' graphs captured without a host sync) give the local graph
+    batcher's tokens; every page comes back."""
+    from seldon_core_tpu_torch.runtime.batcher import ContinuousBatcher
+
+    prompts = ("hi", "a prompt of more than thirty-two bytes, so its bucket is 128",
+               "x" * 300, [3, 4, 5] * 130)
+    s = _disagg_server(kv)
+    outs = {}
+    for mode in ("off", "remote_prefill"):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            b = ContinuousBatcher(s, device="cuda", disaggregation=mode,
+                                  handoff_transport=transport, prefill_workers=workers,
+                                  **PREFILL_BATCH)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        try:
+            outs[mode] = [f.result(120) for f in [b.submit(p) for p in prompts]]
+            if mode != "off":
+                ws = b._remote.workers
+                assert len(ws) == workers and not b._prefill_graphs
+                assert sum(w.replays for w in ws) == 6 and sum(w.eager_runs for w in ws) == 0
+                assert b.handoff_stats()["handoffs_total"] == 4
+                if transport == "network":
+                    assert b.handoff_stats()["handoff_network_bytes_total"] > 0
+            assert b.page_stats()["kv_pages_in_use"] == 0
+        finally:
+            b.close()
+    assert outs["remote_prefill"] == outs["off"]

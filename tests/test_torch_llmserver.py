@@ -274,8 +274,8 @@ def test_rest_generate_and_ready(jax_params):
 
 
 @pytest.mark.parametrize("kw,slice_name", [
-    (dict(prefill_workers=2), "disaggregation"),
-    (dict(disaggregation="remote_prefill"), "disaggregation"),
+    (dict(sequence_parallel=2), "parallelism"),
+    (dict(topology=object()), "parallelism"),
     (dict(tokenizer="hf"), "HF tokenizers"),
     (dict(tensor_parallel=2), "parallelism"),
 ])

@@ -67,6 +67,9 @@ PORT_FAMILIES = {
     "seldon_llm_prefix_bytes_saved", "seldon_llm_adapter_loaded",
     "seldon_llm_adapter_evictions", "seldon_llm_adapter_pool_bytes", "seldon_tenant_admitted",
     "seldon_tenant_shed", "seldon_tenant_tokens", "seldon_llm_tenant_ttft_seconds",
+    # the disaggregation slice's: the handoff series
+    "seldon_llm_handoff_seconds", "seldon_llm_handoffs", "seldon_llm_handoff_queue_depth",
+    "seldon_llm_handoff_network_bytes",
     # the engine slice's: feedback, resilience
     "seldon_api_model_feedback", "seldon_api_model_feedback_reward", "seldon_resilience_shed",
     "seldon_resilience_deadline_exceeded", "seldon_resilience_breaker_state",
@@ -116,6 +119,11 @@ def stats(seed, sheds):
         "queue_by_class": {"interactive": 1, "batch": 1},
         "ttft_by_class": [("interactive", float(v)) for v in rng.uniform(0, 2, 2)]
                          + [("batch", 0.3)],
+        "disaggregation": "remote_prefill", "handoffs_total": 4 * sheds,
+        "handoff_transfer_bytes_total": (1 << 30) * sheds,
+        "handoff_queue_depth": int(rng.integers(0, 4)),
+        "handoff_network_bytes_total": (1 << 31) * sheds,
+        "handoff_times_s": rng.uniform(0, 0.5, 3).tolist(),
     }
 
 
