@@ -19,7 +19,8 @@ kernel of that path against its plain PyTorch version.
     python3 chip_smoke.py --remote     # only: build, the ResNet-50 forward, then the
                                        # remote-leaf and micro-batch phases, persistence
                                        # and the host-only servers
-    python3 chip_smoke.py --fleet      # only: build, then the replica-fleet phase
+    python3 chip_smoke.py --fleet      # only: build, then the replica-fleet phase (its
+                                       # [fleet faults] part included)
     python3 chip_smoke.py --disagg     # only: build, then the disaggregation phase
 
 Phases (any failure exits non-zero; nothing swallows an error):
@@ -283,7 +284,17 @@ Phases (any failure exits non-zero; nothing swallows an error):
    up to a near-tie, the scrape equal to the merged ``llm_stats``, gRPC
    GenerateStream equal to SSE, ``ReplicaSet.generate`` equal to each
    replica's own, and a drain / collect / add cycle with a request in
-   flight.
+   flight. Its ``[fleet faults]`` part (``fleet_faults``) then kills the
+   busiest replica mid-decode under 8 SSE streams, greedy ((a)) and
+   seeded at temperature 0.8 ((b), on batchers rebuilt at that
+   temperature): every stream complete with one ``resumed`` event where
+   the survivor took over, equal to the survivor's unfaulted run up to a
+   near-tie, teacher-forced (the seeded draw with the fast-forwarded key),
+   the victim ejected with every page released, every re-admission and
+   decode a replay; (c) a half-open probe on the fleet's FaultClock
+   restarts the victim's loop on a new thread over its captured graphs and
+   reinstates it, with the survivor's tokens and every page back; (d) a
+   kill with the retry budget spent answers 503 with ``Retry-After``.
    The disaggregation phase (``disagg_phase``, lines ``[disagg ...]``) runs
    after the fleet: Llama-2-7B at full width and depth through the
    component app's ``/v1/generate``, local chunked prefill against prefill
@@ -2198,12 +2209,13 @@ def generate_phase(label: str, card: str, server, url: str, texts) -> dict:
 BURST_GAP_MS = 2.0
 
 
-def sse_client(url: str, body: dict, stop_after: Optional[int] = None):
+def sse_client(url: str, body: dict, stop_after: Optional[int] = None, on_event=None):
     """One streaming POST /v1/generate read event by event as it arrives
     (``readline``). Returns (status, the time the request was sent, [(arrival
     time, event)], the time the response's headers arrived: the server sends
     them just before it submits the request); with ``stop_after`` the
-    client closes its socket after that many events."""
+    client closes its socket after that many events; ``on_event(event)``
+    is called as each arrives."""
     import http.client
     from urllib.parse import urlsplit
 
@@ -2225,6 +2237,8 @@ def sse_client(url: str, body: dict, stop_after: Optional[int] = None):
             line = line.strip()
             if line.startswith(b"data: "):
                 events.append((time.perf_counter(), json.loads(line[6:])))
+                if on_event is not None:
+                    on_event(events[-1][1])
     finally:
         resp.close()
         conn.close()
@@ -5482,7 +5496,7 @@ def fleet_chat():
     return [systems[c // per] for c in range(N_REQUESTS)], users
 
 
-def fleet_phase(card: str) -> dict:
+def fleet_run(card: str) -> list:
     """(c) Two replicas at Llama-2-7B widths behind one ``ReplicaSet``,
     served by the component app's ``/v1/generate``: each loaded with the
     same seed (so the same weights, checked leaf by leaf), int8 weights over
@@ -5503,8 +5517,10 @@ def fleet_phase(card: str) -> dict:
     membership cycle: a drain while the replica holds a request in flight
     (it completes; new traffic goes to the other only), ``collect_drained``
     detaching it on the second idle sighting, ``add_replica`` bringing it
-    back (a new batcher on its first request). Returns the launches of the
-    chat (counts zeroed just before turn 1, read just after turn 3)."""
+    back (a new batcher on its first request); then the faults part
+    (``fleet_faults``). Returns the launch records of the chat (counts
+    zeroed just before turn 1, read just after turn 3) and of the faults
+    part."""
     import gc
 
     import torch
@@ -5665,6 +5681,7 @@ def fleet_phase(card: str) -> dict:
         fail(f"[{label}] ReplicaSet.generate {gen} vs the replicas' own {own}")
     # membership: drain a replica holding a request in flight
     member_line = fleet_membership(label, card, rs, replicas, url)
+    fault_counts = fleet_faults(card, rs, replicas, url)
     httpd.shutdown()
     httpd.server_close()
     for r in replicas:
@@ -5695,7 +5712,25 @@ def fleet_phase(card: str) -> dict:
     gc.collect()
     release_server_memory()
     print(f"[{label}] phase_s {time.perf_counter() - t_phase:.1f} [{card}]", flush=True)
-    return counts
+    return [("fleet", counts), ("fleet faults", fault_counts)]
+
+
+def fleet_phase(card: str) -> list:
+    """``fleet_run``, then its device memory checked: once the phase has
+    returned, nothing of the fleet (its replicas, pools and graphs) may
+    stay allocated, whatever held it (a dispatch thread, a crashed loop's
+    exception): the next phase loads its own model beside what is left."""
+    import torch
+
+    release_server_memory()
+    before = torch.cuda.memory_allocated()
+    records = fleet_run(card)
+    release_server_memory()
+    left = (torch.cuda.memory_allocated() - before) / 1e9
+    if left > 0.5:
+        fail(f"[fleet] {left:.3f} GB still allocated after the fleet phase returned")
+    print(f"[fleet] allocated after the phase returned: {left:+.3f} GB [{card}]", flush=True)
+    return records
 
 
 def fleet_grpc_check(label: str, rs, replicas, url: str, text: str) -> str:
@@ -5772,6 +5807,423 @@ def fleet_membership(label: str, card: str, rs, replicas, url: str) -> str:
             f"completed, {MAX_NEW} tokens), {N_REQUESTS // 2} new requests all on replica "
             f"{replicas.index(other)}, collect_drained detached it on the second idle sweep, "
             f"add_replica brought it back (a new batcher on its first request)")
+
+
+# ---------------------------------------------------------------------------
+# [fleet faults]: the fleet's fault tolerance on the fleet phase's replicas
+# ---------------------------------------------------------------------------
+FAULT_TEMPERATURE = 0.8
+FAULT_TOP_K = 20
+FAULT_SEEDS = tuple(range(301, 301 + N_REQUESTS))
+
+
+def kernel_counts() -> dict:
+    """Every kernel's launch counter now (the wrappers' tallies)."""
+    from seldon_core_tpu_torch.ops.fused_norm import fused_residual_rmsnorm
+    from seldon_core_tpu_torch.ops.int8_matmul import int8_matmul
+    from seldon_core_tpu_torch.ops.paged_attention import paged_attention
+
+    return {"k1": paged_attention.launches, "k1_int8": paged_attention.launches_int8,
+            "k2": fused_residual_rmsnorm.launches, "k4": int8_matmul.launches,
+            "k4_wgmma": int8_matmul.launches_wgmma}
+
+
+def zero_kernel_counts() -> None:
+    from seldon_core_tpu_torch.ops.fused_norm import fused_residual_rmsnorm
+    from seldon_core_tpu_torch.ops.int8_matmul import int8_matmul
+    from seldon_core_tpu_torch.ops.paged_attention import paged_attention
+
+    paged_attention.launches = paged_attention.launches_int8 = 0
+    fused_residual_rmsnorm.launches = 0
+    int8_matmul.launches = int8_matmul.launches_wgmma = 0
+
+
+def add_counts(total: dict, counts: dict) -> None:
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+
+
+def program_counts(r) -> list:
+    """A replica's [chunk replays, chunk eager runs, decode replays, decode
+    eager runs, CoW replays, CoW eager copies]."""
+    return [r._prefill_replays, r._prefill_eager, r._decode_replays, r._decode_eager,
+            r._cow_replays, r._cow_eager]
+
+
+def sampled_gaps(server, prompts_ids, tokens, seeds) -> list:
+    """The seeded draw, teacher-forced. The sampler ranks the top-k logits
+    over the temperature plus Gumbel noise that belongs to each RANK
+    position of the top k, drawn from the key ``fast_forward_key(seed,
+    n)`` (the key a slot holds after n tokens). Over a teacher-forced
+    prefill of request i's prompt and the tokens before its token n: 0 when
+    that token is the draw; else how far below the draw's score the token
+    scores at best at a rank whose teacher logit is within TIE_TOL of its
+    own (logits that close may sit in either order on the serving path's
+    numerics, and the noise goes with the rank); inf when no rank of the
+    top k is that close (it could not have been in the served top k)."""
+    import torch
+
+    from seldon_core_tpu_torch.servers.llmserver import (_GOLDEN, _M32, _mix32,
+                                                         fast_forward_key, split_keys)
+
+    logits = teacher_logits(server, [p + t for p, t in zip(prompts_ids, tokens)]).float()
+    temp = torch.clamp(torch.full((), float(server.temperature), dtype=torch.float32,
+                                  device="cuda"), min=1e-6)
+    k = min(int(server.top_k), logits.shape[-1])
+    j = torch.arange(k, device="cuda", dtype=torch.int64)
+    out = []
+    for i, (p, toks, seed) in enumerate(zip(prompts_ids, tokens, seeds)):
+        gaps = []
+        for n, tok in enumerate(toks):
+            row = logits[i, len(p) + n - 1]
+            _, sub = split_keys(fast_forward_key(seed, n))
+            topv, topi = torch.topk(row, k)
+            bits = _mix32((sub + j * _GOLDEN) & _M32)
+            u = ((bits >> 8).to(torch.float32) + 0.5) * (1.0 / (1 << 24))
+            noise = -torch.log(-torch.log(u))
+            score = topv / temp + noise
+            best = int(score.argmax())
+            if int(topi[best]) == int(tok):
+                gaps.append(0.0)
+                continue
+            near = (topv - row[int(tok)]).abs() <= TIE_TOL
+            gaps.append(float("inf") if not bool(near.any()) else max(
+                (score[best] - (row[int(tok)] / temp + noise[near]).max()).item(), 0.0))
+        out.append(gaps)
+    return out
+
+
+def sampled_check(label: str, card: str, server, texts, served, plain, seeds) -> int:
+    """Seeded sampled tokens: every served token the teacher-forced draw
+    with its fast-forwarded key, or a near-tie of it (``sampled_gaps``:
+    within 2 x TIE_TOL / temperature of the draw's score at a rank its
+    logit could take: its logit and the draw's may each sit TIE_TOL off
+    the teacher's); and each request equal to ``plain`` (the unfaulted
+    run), or equal up to a first difference where both tokens are such
+    near-ties. Returns the requests equal throughout."""
+    tol = 2 * TIE_TOL / float(server.temperature)
+    pids = [prompt_ids(server, t) for t in texts]
+    gaps = sampled_gaps(server, pids, served, seeds)
+    worst = max(max(g) for g in gaps)
+    drawn = sum(g == 0 for row in gaps for g in row)
+    print(f"[{label}] teacher-forced draw of all {len(texts)} x {MAX_NEW} served tokens with "
+          f"the fast-forwarded keys: {drawn} are the draw, the rest near-ties (a logit within "
+          f"{TIE_TOL} of a top-{server.top_k} rank); worst gap to the draw's score {worst:.4f} "
+          f"(tie tolerance {tol:.4f} = 2 x {TIE_TOL} / T) [{card}]", flush=True)
+    if worst > tol:
+        i = max(range(len(gaps)), key=lambda r: max(gaps[r]))
+        fail(f"[{label}] request {i} token {gaps[i].index(worst)}: served token sits {worst:.4f} "
+             f"below the teacher-forced draw (tolerance {tol:.4f})")
+    equal = 0
+    for i, (a, b_) in enumerate(zip(served, plain)):
+        t = next((j for j, (x, y) in enumerate(zip(a, b_)) if x != y), None)
+        if t is None:
+            equal += 1
+            continue
+        at = [sampled_gaps(server, [pids[i]], [tok[:t + 1]], [seeds[i]])[0][t] for tok in (a, b_)]
+        print(f"[{label}] request {i}: tokens equal to the unfaulted run's for {t} of "
+              f"{MAX_NEW}, then {a[t]} vs {b_[t]}; gaps to the teacher-forced draw "
+              f"{at[0]:.4f} / {at[1]:.4f} (tolerance {tol:.4f}) [{card}]", flush=True)
+        if max(at) > tol:
+            fail(f"[{label}] request {i} leaves the unfaulted run's tokens at {t} without a "
+                 f"near-tie")
+    return equal
+
+
+def fault_kill(label: str, card: str, rs, replicas, url: str, texts, seeds=None) -> dict:
+    """One kill: N_REQUESTS SSE streams of MAX_NEW tokens through the fleet
+    app (seeded when ``seeds`` is given); a ``BatcherKiller(busiest=True)``
+    on both batchers fires once every stream has 2 tokens. Checks: one kill;
+    every stream MAX_NEW tokens equal to its done event's, with no
+    duplicate and no hole, and at most one ``resumed`` event, whose
+    ``tokens_delivered`` is the token events before it (at least one stream
+    resumed); the victim ejected, its crash path leaving zero ``LeakSweep``
+    residue and its free pages as before the kill; the scrape's
+    ``seldon_fleet_resumes_total`` up by the markers, journal depth 0; on
+    both replicas every chunk, decode and CoW a replay (the survivor's
+    re-admissions included); tokens teacher-forced and equal to the
+    survivor's unfaulted run of the same requests up to a near-tie. Returns
+    the run's launches (zeroed before the streams, read after them), the
+    victim and survivor indices, the free pages before the kill, the loop
+    threads before it and the line's numbers."""
+    import torch
+
+    from seldon_core_tpu_torch.testing.faults import BatcherKiller, LeakSweep
+
+    batchers = [r._batcher_service.batcher for r in replicas]
+    for r in replicas:
+        r.clear_prefix_cache()
+    free_before = [b._allocator.free_count() for b in batchers]
+    progress = [0] * len(texts)
+    kill_t = []
+
+    class TimedKiller(BatcherKiller):
+        def __call__(self, b):
+            try:
+                super().__call__(b)
+            except Exception:
+                kill_t.append(time.perf_counter())
+                raise
+
+    killer = TimedKiller(trigger=lambda b: all(p >= 2 for p in progress),
+                         busiest=True).install(*batchers)
+    drains = [[] for _ in batchers]
+    for b, d in zip(batchers, drains):
+        def drain(_real=b._drain_one, _d=d):
+            _real()
+            _d.append(time.perf_counter())
+        b._drain_one = drain
+    progs = [program_counts(r) for r in replicas]
+    hits = [b._radix.stats()["prefix_hit_tokens"] for b in batchers]
+    resumes0 = sample(scrape(url), "seldon_fleet_resumes_total")
+    results = [None] * len(texts)
+
+    def client(i):
+        def on_event(ev):
+            if "token" in ev:
+                progress[i] += 1
+
+        body = {"prompt": texts[i]}
+        if seeds is not None:
+            body["seed"] = seeds[i]
+        results[i] = sse_client(url, body, on_event=on_event)
+
+    torch.cuda.synchronize()
+    zero_kernel_counts()
+    threads_before = [b._thread for b in batchers]
+    clients = [threading.Thread(target=client, args=(i,)) for i in range(len(texts))]
+    for t in clients:
+        t.start()
+    for t in clients:
+        t.join(600)
+    counts = kernel_counts()
+    for b in batchers:
+        b._chaos = None
+        del b._drain_one
+    if killer.kills != 1 or not kill_t:
+        fail(f"[{label}] the killer fired {killer.kills} times")
+    v = batchers.index(killer.killed)
+    victim, survivor = replicas[v], replicas[1 - v]
+    served, markers, resumed_idx, kill_to_marker, t_end = [], [], [], [], kill_t[0]
+    for i, res in enumerate(results):
+        if res is None or res[0] != 200:
+            fail(f"[{label}] stream {i} answered {res and res[0]}: {res and res[2]}")
+        events = res[2]
+        marks = [(k, e) for k, (_, e) in enumerate(events) if "resumed" in e]
+        evs = [(t, e) for k, (t, e) in enumerate(events) if "resumed" not in e]
+        toks = streamed_tokens(label, (200, res[1], evs, res[3]))
+        served.append(toks)
+        if len(marks) > 1:
+            fail(f"[{label}] stream {i} carries {len(marks)} resumed events")
+        if marks:
+            k, e = marks[0]
+            before = sum(1 for _, x in events[:k] if "token" in x)
+            if e.get("tokens_delivered") != before or e.get("resumed") is not True:
+                fail(f"[{label}] stream {i}: resumed event {e} after {before} token events")
+            markers.append(e["tokens_delivered"])
+            resumed_idx.append(i)
+            kill_to_marker.append(events[k][0] - kill_t[0])
+            t_end = max(t_end, events[k + 1][0])
+    if not markers:
+        fail(f"[{label}] the kill resumed no stream")
+    if rs.ejected_members() != [victim] or victim in rs._dispatchable():
+        fail(f"[{label}] the victim (replica {v}) is not the one ejected: "
+             f"{[replicas.index(r) for r in rs.ejected_members()]}")
+    vb = batchers[v]
+    killer.killed_thread.join(60)  # the crash path's end
+    if vb.crashed is None or vb._thread is not None:
+        fail(f"[{label}] the victim's loop: crashed {vb.crashed!r}, thread {vb._thread}")
+    residue = LeakSweep(vb).residue()
+    if any(residue.values()) or vb._allocator.free_count() != free_before[v]:
+        fail(f"[{label}] the victim's crash path left residue {residue}, free pages "
+             f"{vb._allocator.free_count()} (before the kill {free_before[v]})")
+    survivor_residue = LeakSweep(batchers[1 - v]).residue()
+    if any(survivor_residue.values()):
+        fail(f"[{label}] the survivor holds residue {survivor_residue} after every stream ended")
+    samples = scrape(url)
+    resumed = sample(samples, "seldon_fleet_resumes_total") - resumes0
+    depth = sample(samples, "seldon_fleet_resume_journal_depth")
+    if resumed != len(markers) or depth != 0:
+        fail(f"[{label}] the scrape: resumes {resumed} for {len(markers)} markers, journal "
+             f"depth {depth}")
+    delta = [[a - b for a, b in zip(program_counts(r), p)] for r, p in zip(replicas, progs)]
+    sd = delta[1 - v]
+    if any(d[1] or d[3] or d[5] for d in delta) or sd[0] < len(markers) or sd[2] <= 0:
+        fail(f"[{label}] (chunk replays, eager, decode replays, eager, CoW replays, eager) by "
+             f"replica {delta}: every program must be a replay, and the survivor's "
+             f"re-admissions chunk replays")
+    gaps = gaps_in(drains[1 - v], kill_t[0], t_end)
+    steady = gaps_in(drains[1 - v], kill_t[0] - 0.5, kill_t[0])
+    hit = batchers[1 - v]._radix.stats()["prefix_hit_tokens"] - hits[1 - v]
+    # tokens: teacher-forced, and the survivor's unfaulted run
+    if seeds is None:
+        teacher_check(label, card, survivor, texts, served)
+    survivor.clear_prefix_cache()
+    svc = survivor._batcher_service
+    futs = [svc.submit(t, MAX_NEW, seed=None if seeds is None else seeds[i])
+            for i, t in enumerate(texts)]
+    plain = [f.result(600) for f in futs]
+    equal = (near_tie_check(label, card, survivor, texts, served, plain) if seeds is None
+             else sampled_check(label, card, survivor, texts, served, plain, seeds))
+    return {"counts": counts, "victim": v, "free_before": free_before,
+            "threads_before": threads_before, "markers": markers, "resumed": resumed_idx,
+            "kill_to_marker_ms": [x * 1e3 for x in kill_to_marker],
+            "gaps_ms": [x * 1e3 for x in gaps], "steady_ms": [x * 1e3 for x in steady],
+            "equal": equal, "hit_tokens": hit, "survivor_chunks": sd[0]}
+
+
+def fault_line(label: str, card: str, what: str, r: dict) -> None:
+    gaps, steady = r["gaps_ms"], r["steady_ms"]
+    print(f"[{label}] {what}: {N_REQUESTS} SSE streams x {MAX_NEW} tokens, the busiest replica "
+          f"(replica {r['victim']}) killed once every stream had 2 tokens; {len(r['markers'])} "
+          f"streams (requests {r['resumed']}) resumed on the survivor after {r['markers']} "
+          f"tokens, one resumed event each, "
+          f"every stream {MAX_NEW} tokens with no duplicate and no hole; kill to the resumed "
+          f"event {' / '.join(f'{x:.1f}' for x in r['kill_to_marker_ms'])} ms; the survivor's "
+          f"decode gap while it re-admits p50 {pctl(gaps, 0.5):.2f} / max "
+          f"{max(gaps, default=float('nan')):.2f} ms ({len(gaps)} gaps; before the kill p50 "
+          f"{pctl(steady, 0.5):.2f} ms); its chunks {r['survivor_chunks']} replays (its own "
+          f"admissions and the re-admissions; prefix hit tokens {r['hit_tokens']}), every "
+          f"decode a replay, no eager program; "
+          f"the victim ejected, its crash path's LeakSweep residue all 0 and its free pages as "
+          f"before the kill; scrape seldon_fleet_resumes_total +{len(r['markers'])}, journal "
+          f"depth 0; tokens {r['equal']} of {N_REQUESTS} equal to the survivor's unfaulted run "
+          f"(the rest up to a near-tie); launches {r['counts']} [{card}]", flush=True)
+
+
+def fleet_faults(card: str, rs, replicas, url: str) -> dict:
+    """[fleet faults], on the fleet phase's two replicas behind its app:
+    (a) a kill under 8 greedy SSE streams (``fault_kill``); (c) the fleet's
+    FaultClock advanced past ``reinstate_after_s``: the next request
+    probes the victim, whose loop restarts on a new thread over the same
+    captured graphs (no new capture), answers the survivor's tokens for the
+    same request and is reinstated, with zero LeakSweep residue and its
+    free pages as before the kill; (b) both batchers rebuilt at
+    FAULT_TEMPERATURE / FAULT_TOP_K (the weights stay loaded), a kill
+    under 8 seeded streams, checked against the teacher-forced draw with
+    the fast-forwarded key; (d) with the retry budget spent, a kill
+    answers 503 with ``Retry-After``. Returns the launches of every run
+    (counts zeroed just before each, read just after)."""
+    import torch
+
+    from seldon_core_tpu_torch.runtime.resilience import RetryBudget
+    from seldon_core_tpu_torch.testing.faults import BatcherKiller, FaultClock, LeakSweep
+
+    label = "fleet faults"
+    t_part = time.perf_counter()
+    launches: dict = {}
+    # one clock for the fleet, its breakers and its budget, from now: the
+    # loops' heartbeats (monotonic) stay younger than it, and a probe waits
+    # for it to be advanced
+    clk = FaultClock(start=time.monotonic())
+    rs.clock = clk
+    for br in rs._health.values():
+        br.clock = clk
+    # a budget that covers every stream of a kill ((d) spends it)
+    rs.retry_budget = RetryBudget(ratio=1.0, min_retries=2 * N_REQUESTS, clock=clk)
+    # (a) greedy
+    texts = [prompt_text(60 + i) for i in range(N_REQUESTS)]
+    a = fault_kill(f"{label} (a)", card, rs, replicas, url, texts)
+    add_counts(launches, a["counts"])
+    fault_line(label, card, "(a) kill, greedy", a)
+    # (c) the probe reinstates (a)'s victim
+    v = a["victim"]
+    victim, survivor = replicas[v], replicas[1 - v]
+    vb = victim._batcher_service.batcher
+    graphs = (dict(vb._graphs), dict(vb._prefill_graphs), vb._cow_graph)
+    for r in replicas:
+        r.clear_prefix_cache()
+    text = prompt_text(80)
+    want = survivor._batcher_service.submit_sync(text, MAX_NEW)
+    survivor.clear_prefix_cache()
+    rein0 = sample(scrape(url), "seldon_fleet_reinstatements_total")
+    progs = program_counts(victim)
+    clk.advance(rs.reinstate_after_s + 0.1)
+    torch.cuda.synchronize()
+    zero_kernel_counts()
+    res = sse_client(url, {"prompt": text})
+    counts = kernel_counts()
+    add_counts(launches, counts)
+    got = streamed_tokens(f"{label} (c)", res)
+    first = next(t for t, e in res[2] if "token" in e)
+    # the probe's commit, the victim's only one since the kill (before a
+    # scrape drains the series)
+    ttft = victim._ttft_times[-1]
+    delta = [x - y for x, y in zip(program_counts(victim), progs)]
+    rein = sample(scrape(url), "seldon_fleet_reinstatements_total") - rein0
+    if got != want:
+        fail(f"[{label} (c)] the probe answered {got}, the survivor {want}")
+    if rs.ejected_members() != [] or rein != 1 or vb.crashed is not None:
+        fail(f"[{label} (c)] after the probe: ejected {rs.ejected_members()}, reinstatements "
+             f"+{rein}, crashed {vb.crashed!r}")
+    if vb._thread is None or not vb._thread.is_alive() or vb._thread is a["threads_before"][v]:
+        fail(f"[{label} (c)] the victim's loop did not restart on a new thread")
+    same = (all(vb._graphs[k] is g for k, g in graphs[0].items()) and vb._graphs.keys() ==
+            graphs[0].keys() and all(vb._prefill_graphs[k] is g for k, g in graphs[1].items())
+            and vb._prefill_graphs.keys() == graphs[1].keys() and vb._cow_graph is graphs[2])
+    if not same or delta[1] or delta[3] or delta[5] or delta[0] <= 0 or delta[2] <= 0:
+        fail(f"[{label} (c)] the restarted loop: same captured graphs {same}, (chunk replays, "
+             f"eager, decode replays, eager, CoW replays, eager) {delta}")
+    residue = LeakSweep(vb).residue()
+    victim.clear_prefix_cache()
+    if any(residue.values()) or vb._allocator.free_count() != a["free_before"][v]:
+        fail(f"[{label} (c)] after the probe: residue {residue}, free pages "
+             f"{vb._allocator.free_count()} (before the kill {a['free_before'][v]})")
+    print(f"[{label}] (c) reinstatement: the fleet's FaultClock advanced "
+          f"{rs.reinstate_after_s + 0.1:.1f} s; the next request probed replica {v}, whose loop "
+          f"restarted on a new thread over its captured graphs (no new capture; chunks "
+          f"{delta[0]}, decode dispatches {delta[2]} replayed, none eager) and answered the "
+          f"survivor's {MAX_NEW} tokens for the same request; reinstated (scrape "
+          f"seldon_fleet_reinstatements_total +1); LeakSweep residue {residue}, free pages "
+          f"{vb._allocator.free_count()} = before the kill; the probe's TTFT "
+          f"{(first - res[1]) * 1e3:.1f} ms at the client, {ttft * 1e3:.1f} ms on the server; "
+          f"launches {counts} "
+          f"[{card}]", flush=True)
+    # (b) seeded: both batchers rebuilt at the sampling temperature
+    builds = []
+    for r in replicas:
+        r._batcher_service.close()
+        r._batcher_service = None
+    release_server_memory()
+    for i, r in enumerate(replicas):
+        r.temperature, r.top_k = FAULT_TEMPERATURE, FAULT_TOP_K
+        with r._lock:
+            r._decode_cache.clear()  # the step programs hold top_k
+        svc, httpd, _, build_s = build_service(f"{label} replica {i}", r)
+        httpd.shutdown()
+        httpd.server_close()
+        builds.append(build_s)
+    texts = [prompt_text(70 + i) for i in range(N_REQUESTS)]
+    b = fault_kill(f"{label} (b)", card, rs, replicas, url, texts, seeds=FAULT_SEEDS)
+    add_counts(launches, b["counts"])
+    fault_line(label, card, f"(b) kill, seeded (temperature {FAULT_TEMPERATURE}, top_k "
+                            f"{FAULT_TOP_K}; batchers rebuilt at it in "
+                            f"{' / '.join(f'{x:.2f}' for x in builds)} s)", b)
+    # (d) the budget spent: the kill answers 503 with Retry-After
+    live = [r for r in replicas if r not in rs.ejected_members()]
+    rs.retry_budget = RetryBudget(ratio=0.0, min_retries=0, clock=clk)
+    for r in live:
+        r.clear_prefix_cache()
+    killer = BatcherKiller(trigger=lambda bt: any(s.active and s.n_new >= 2 for s in bt._slots))
+    killer.install(*(r._batcher_service.batcher for r in live))
+    shed0 = sample(scrape(url), "seldon_fleet_retry_budget_exhausted_total")
+    torch.cuda.synchronize()
+    zero_kernel_counts()
+    code, headers, body = post_headers(url + "/v1/generate", {"prompt": prompt_text(90)})
+    add_counts(launches, kernel_counts())
+    for r in live:
+        r._batcher_service.batcher._chaos = None
+    shed = int(sample(scrape(url), "seldon_fleet_retry_budget_exhausted_total") - shed0)
+    retry = headers.get("Retry-After")
+    if code != 503 or retry is None or killer.kills != 1 or shed != 1:
+        fail(f"[{label} (d)] a kill with the budget spent answered {code} (Retry-After "
+             f"{retry}), kills {killer.kills}, scrape exhausted +{shed}: {body}")
+    print(f"[{label}] (d) budget spent: the kill answered {code} with Retry-After {retry} "
+          f"({body.get('status', {}).get('info')}); scrape "
+          f"seldon_fleet_retry_budget_exhausted_total +{shed} [{card}]", flush=True)
+    print(f"[{label}] part_s {time.perf_counter() - t_part:.1f}; launches {launches} [{card}]",
+          flush=True)
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -6570,8 +7022,9 @@ def main() -> int:
     spec_launches += records
     records, lora_runs = lora_runs_phase(card)
     spec_launches += records
-    # the replica fleet: two int8-weight 7B replicas behind one ReplicaSet
-    spec_launches.append(("fleet", fleet_phase(card)))
+    # the replica fleet: two int8-weight 7B replicas behind one ReplicaSet,
+    # then its faults part on the same replicas
+    spec_launches += fleet_phase(card)
     # disaggregated prefill: workers beside the decode batcher on this card
     records, disagg_runs = disagg_phase(card)
     spec_launches += records

@@ -290,6 +290,29 @@ class MetricsRegistry:
         self._tenant_tokens = fam("seldon_tenant_tokens",
                                   "Tokens generated and credited, by tenant and SLO class",
                                   "counter", tenant_labels)
+        # the replica fleet's fault tolerance (runtime/engine.ReplicaSet's
+        # fleet_* tallies): ejections of dead replicas, reinstatements by a
+        # half-open probe, resumes and the tokens they skipped, refusals of a
+        # spent retry budget, and the journal entries open
+        self._fleet_ejections = fam(
+            "seldon_fleet_ejections", "Replicas ejected from fleet dispatch after an unplanned "
+            "death (crashed or wedged batcher loop, consecutive dispatch failures)", "counter")
+        self._fleet_reinstatements = fam(
+            "seldon_fleet_reinstatements", "Ejected replicas reinstated into fleet dispatch after "
+            "a successful half-open probe", "counter")
+        self._fleet_resumes = fam(
+            "seldon_fleet_resumes", "In-flight generations resumed bit-exactly on a surviving "
+            "replica after their replica died mid-stream", "counter")
+        self._fleet_resumed_tokens = fam(
+            "seldon_fleet_resumed_tokens", "Tokens already delivered at resume time (skipped, "
+            "never re-sent: the at-most-once streaming contract)", "counter")
+        self._fleet_budget_exhausted = fam(
+            "seldon_fleet_retry_budget_exhausted", "Recoveries refused because the fleet retry "
+            "budget was exhausted (degraded to 503 + Retry-After instead of amplifying load)",
+            "counter")
+        self._fleet_journal_depth = fam(
+            "seldon_fleet_resume_journal_depth", "Fleet resume-journal entries currently open "
+            "(fleet generations in flight with recovery records)", "gauge")
         self._tenant_ttft = fam("seldon_llm_tenant_ttft_seconds",
                                 "Time to first token by SLO class (the interactive-isolation "
                                 "signal bench phase L gates on)", "histogram", ("slo_class",),
@@ -419,7 +442,8 @@ class MetricsRegistry:
                              (self._kv_page_fragmentation, "kv_page_fragmentation"),
                              (self._prefix_shared_pages, "prefix_shared_pages"),
                              (self._prefix_cached_blocks, "prefix_cached_blocks"),
-                             (self._handoff_queue_depth, "handoff_queue_depth")):
+                             (self._handoff_queue_depth, "handoff_queue_depth"),
+                             (self._fleet_journal_depth, "fleet_resume_journal_depth")):
                 fam.children[base] = float(stats.get(key, 0))
             # counters catch up to the lifetime tallies (never count down)
             for fam, key in ((self._kv_page_sheds, "kv_page_sheds"),
@@ -428,7 +452,13 @@ class MetricsRegistry:
                              (self._prefix_evicted_blocks, "prefix_evicted_blocks"),
                              (self._prefix_bytes_saved, "prefix_bytes_saved"),
                              (self._handoffs_total, "handoffs_total"),
-                             (self._handoff_network_bytes, "handoff_network_bytes_total")):
+                             (self._handoff_network_bytes, "handoff_network_bytes_total"),
+                             (self._fleet_ejections, "fleet_ejections_total"),
+                             (self._fleet_reinstatements, "fleet_reinstatements_total"),
+                             (self._fleet_resumes, "fleet_resumes_total"),
+                             (self._fleet_resumed_tokens, "fleet_resumed_tokens_total"),
+                             (self._fleet_budget_exhausted,
+                              "fleet_retry_budget_exhausted_total")):
                 fam.children[base] = max(fam.child(base), float(stats.get(key, 0)))
             for fam, key in ((self._decode_step, "decode_step_times_s"),
                              (self._ttft, "ttft_s"),

@@ -105,6 +105,19 @@ enqueued on the same stream as the decode steps (the JAX package donated
 these buffers to jitted ops and relied on device program order in the same
 way), so a captured graph always reads and writes the same addresses.
 
+Liveness and crashes (what a replica fleet's health check reads,
+``runtime/engine.ReplicaSet.check_health``). The loop stamps ``heartbeat``
+(on the injectable ``clock``) at the top of every turn and then calls the
+``_chaos`` hook when one is installed (``testing/faults.BatcherKiller``: a
+hook that raises dies exactly where a device fault would). A loop that
+dies parks its exception in ``crashed``, waits for the work already on
+the stream, releases every slot's pages, pins and adapter through the
+normal release path, and fails every request; a submit to a dead loop
+starts a new one on a new thread (``crashed`` back to None), which
+replays the same captured graphs. If that wait itself fails (a sticky
+device error), nothing is released and every later loop dies at once:
+the pages and graphs of a broken context cannot be trusted.
+
 The loop runs on a dedicated thread; ``submit`` returns a
 ``concurrent.futures.Future``. There is no asyncio dependency. Streaming:
 ``submit(on_token=...)`` fires ``on_token(tok)`` from the loop thread for
@@ -119,6 +132,7 @@ the result is dropped.
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import threading
 import time
@@ -151,8 +165,8 @@ from seldon_core_tpu_torch.runtime.scheduler import (BATCH, INTERACTIVE, Pending
                                                      WeightedFairScheduler, normalize_slo_class)
 from seldon_core_tpu_torch.runtime.spec import (DEFAULT_SPEC_K, SPEC_STATS_OFF,
                                                 SpecController, normalize_spec_mode)
-from seldon_core_tpu_torch.servers.llmserver import (LLMServer, bucket, first_token,
-                                                     seed_key, split_keys)
+from seldon_core_tpu_torch.servers.llmserver import (LLMServer, bucket, fast_forward_key,
+                                                     first_token, seed_key, split_keys)
 from seldon_core_tpu_torch.servers.step_graph import (ReplayGraph, capture_cow_copy,
                                                       capture_decode_steps,
                                                       capture_prefill_chunks,
@@ -565,7 +579,15 @@ class ContinuousBatcher:
         self._closed = False
         self._thread: Optional[threading.Thread] = None
         self._thread_lock = threading.Lock()
+        # the health view a replica fleet reads (module docstring): the
+        # heartbeat each loop turn stamps on ``clock``, the exception a dead
+        # loop parked, and the fault hook called after each stamp; _broken
+        # is set when the crash path's wait on the stream failed
+        self.clock = time.monotonic
+        self.heartbeat: float = self.clock()
         self.crashed: Optional[BaseException] = None
+        self._chaos: Optional[Any] = None
+        self._broken: Optional[BaseException] = None
 
         dev = self.device
         self._caches = init_paged_kv_caches(cfg, self.pool_pages, ps, server.kv_cache_dtype,
@@ -818,10 +840,14 @@ class ContinuousBatcher:
                seed: Optional[int] = None, info: Optional[dict] = None,
                on_token: Optional[Any] = None, tenant: Optional[str] = None,
                slo_class: Optional[str] = None, adapter: Optional[str] = None,
-               deadline_s: Optional[float] = None) -> Future:
+               deadline_s: Optional[float] = None, resume_tokens: int = 0) -> Future:
         """prompt: str or token sequence. Returns a Future of the generated
         token ids. ``seed`` pins the request's sampling chain to
-        ``generate(..., seed=seed)``'s. ``info`` is filled at admission with
+        ``generate(..., seed=seed)``'s. ``resume_tokens`` > 0 marks a
+        fleet resume: ``prompt`` holds the original prompt and the tokens
+        already delivered, and a seeded sampled request draws its first
+        token ``resume_tokens`` splits down the chain (``_first_key``), so
+        it continues the interrupted generation. ``info`` is filled at admission with
         a ``truncated_prompt`` record when the slot cache cuts the prompt.
         ``on_token`` (optional) is called from the loop thread with each
         token as it surfaces and with None once at the end; it should only
@@ -865,7 +891,8 @@ class ContinuousBatcher:
             ids=ids, max_new=int(max_new_tokens or self.server.max_new_tokens), fut=fut,
             on_token=on_token, info=info, seed=seed, t_arrival=now, tenant=str(tenant or ""),
             slo_class=cls, adapter_id=aid,
-            deadline_t=(now + float(deadline_s)) if deadline_s is not None else None)
+            deadline_t=(now + float(deadline_s)) if deadline_s is not None else None,
+            resume_tokens=int(resume_tokens or 0))
         if not self._pending.push(req):
             # the tenant is over its queued-request quota (the scheduler
             # counted the shed against it)
@@ -943,21 +970,30 @@ class ContinuousBatcher:
                            "(slot cache max_len=%d)", len(ids), plen, self.max_len)
         return ids[-plen:], plen
 
-    def _first_key(self, seed: Optional[int]) -> int:
+    def _first_key(self, seed: Optional[int], resume_tokens: int = 0) -> int:
         """A request's first-token key on generate()'s chain:
         ``seed_key(seed)`` for a seeded request, else a fresh key split off
         the batcher's own chain (in admission order: at activation for a
-        local prefill, at staging for a remote one)."""
+        local prefill, at staging for a remote one). A seeded, sampled
+        resume after ``resume_tokens`` delivered tokens starts where the
+        interrupted slot's chain stood (``fast_forward_key``), so the token
+        drawn here is that generation's next one. Greedy needs no
+        fast-forward: its pick ignores the key. Local and remote admission
+        both take their key here."""
         if seed is not None:
+            if resume_tokens > 0 and self._temp is not None:
+                return fast_forward_key(seed, resume_tokens)
             return seed_key(seed)
         self._rng, key = split_keys(self._rng)
         return key
 
-    def _sample_first(self, first_logits: torch.Tensor, seed: Optional[int]):
+    def _sample_first(self, first_logits: torch.Tensor, seed: Optional[int],
+                      resume_tokens: int = 0):
         """First token from the prefill logits (``first_token``). Returns
         (token, next key) as host ints — one sync per admission, not per
         token."""
-        return first_token(first_logits, self._first_key(seed), self._temp, self.server.top_k)
+        return first_token(first_logits, self._first_key(seed, resume_tokens), self._temp,
+                           self.server.top_k)
 
     def _commit_slot(self, i: int, first: int, key: int, ids: List[int], req: PendingRequest):
         """Thread the new occupant's state into the device arrays and
@@ -1184,7 +1220,7 @@ class ContinuousBatcher:
         """Paged admission, final phase: sample the first token, point the
         slot's device block-table row at its pages (copied from the fixed
         row), commit the slot."""
-        first, key = self._sample_first(first_logits, job.req.seed)
+        first, key = self._sample_first(first_logits, job.req.seed, job.req.resume_tokens)
         self._block_tables[job.slot].copy_(self._row[0])
         self._prefill = None
         self._commit_slot(job.slot, first, key, job.ids, job.req)
@@ -1241,7 +1277,8 @@ class ContinuousBatcher:
             self._radix.record_hit(k0, len(shared), False)
         self._remote.submit(PrefillRequest(
             job.job_id, ids, plen, n0, prefix_len=k0, prefix_pages=len(shared),
-            prefix_staged=prefix, prefix_event=prefix_event, first_key=self._first_key(req.seed)))
+            prefix_staged=prefix, prefix_event=prefix_event,
+            first_key=self._first_key(req.seed, req.resume_tokens)))
         return True
 
     def _import_handoff(self, job: _RemoteJob, h) -> None:
@@ -1728,16 +1765,37 @@ class ContinuousBatcher:
             self._pending.commit(req)
 
     def _run(self):
-        try:
-            with torch.no_grad():
+        self.crashed = None  # a restarted loop is a recovered one
+        # a new thread's current device is the default one: make the
+        # batcher's current before any work (graph replays, the eager page
+        # resets, imports and copies)
+        on_device = (torch.cuda.device(self.device) if self.device.type == "cuda"
+                     else contextlib.nullcontext())
+        with torch.no_grad(), on_device:
+            try:
+                if self._broken is not None:
+                    raise RuntimeError(f"the batcher's device failed ({self._broken!r}): its "
+                                       f"pages and graphs cannot be trusted")
                 self._loop()
-        except Exception as e:  # the loop's boundary: fail every request
-            self.crashed = e
-            logger.exception("batcher loop died: %s", e)
-            self._fail_all(e)
+            except Exception as e:  # the loop's boundary: fail every request
+                # up first, so a fleet's health check ejects this replica
+                # before a failed request routes back through dispatch
+                self.crashed = e
+                logger.exception("batcher loop died: %s", e)
+                self._fail_all(e)
+                # under the thread lock, so a submit racing this end was
+                # either drained here and failed, or starts a new loop after
+                with self._thread_lock:
+                    if self._thread is threading.current_thread():
+                        self._thread = None
+                    stranded = self._pending.drain_all()
+                self._fail_requests(stranded, e)
 
     def _loop(self):
         while True:
+            self.heartbeat = self.clock()
+            if self._chaos is not None:
+                self._chaos(self)
             self._admit_pending()
             # disaggregated: every finished handoff joins before the next
             # dispatch
@@ -1770,21 +1828,50 @@ class ContinuousBatcher:
                 continue
             self._wakeup.wait(timeout=0.5)
 
+    def _quiesce(self) -> None:
+        """Wait for every dispatch, chunk and copy this batcher enqueued (a
+        no-op on the CPU): its slots' pages are read and written on the
+        stream until then."""
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+
     def _fail_all(self, exc: BaseException):
-        """Shutdown/crash path: no request may leave its future hanging."""
-        if self._remote_jobs:
-            self._fail_remote_jobs(exc)
+        """Shutdown/crash path: no request may leave its future hanging, and
+        no page, pin or adapter may stay held. The stream is waited on
+        first (the dispatches in flight still write the slots' pages), then
+        each slot is released as a finished one is, before its client is
+        told. When the wait fails the device is broken (``_broken``): the
+        requests fail, and the slots are cleared on the host only."""
         self._inflight.clear()
-        self._prefill = None
-        for slot in self._slots:
+        try:
+            self._quiesce()
+        except Exception as e:
+            logger.exception("the batcher's stream failed; its pages are not released: %s", e)
+            self._broken = e
+        if self._broken is None and self._remote_jobs:
+            self._fail_remote_jobs(exc)
+        job, self._prefill = self._prefill, None
+        if job is not None and self._broken is None:
+            # before commit the request owns its adapter pin
+            self._unpin_request(job.req)
+        for i, slot in enumerate(self._slots):
             if slot.active or slot.prefilling:
-                _emit(slot.on_token, None)
-                if slot.future is not None:
-                    _resolve(slot.future, exc=exc)
-                slot.active = slot.prefilling = False
-                slot.future = None
-                slot.on_token = None
-        for req in self._pending.drain_all():
+                fut, on_token = slot.future, slot.on_token
+                if self._broken is None:
+                    self._release_slot(i)
+                else:
+                    slot.active = slot.prefilling = False
+                    slot.future = slot.on_token = None
+                _emit(on_token, None)
+                if fut is not None:
+                    _resolve(fut, exc=exc)
+        # a staged remote job's slot is one of those (broken: its record goes)
+        self._remote_jobs.clear()
+        self._fail_requests(self._pending.drain_all(), exc)
+
+    def _fail_requests(self, reqs, exc: BaseException) -> None:
+        """Fail queued requests, each adapter pin dropped."""
+        for req in reqs:
             try:
                 self._unpin_request(req)
             except ValueError:
@@ -1814,7 +1901,8 @@ class BatcherService:
         fires per token from the batcher's loop thread, so a transport
         thread pumps its response stream from it. Cancelling the Future (a
         disconnect) is safe. ``identity``: ``tenant``, ``slo_class``,
-        ``adapter``, ``deadline_s`` (``ContinuousBatcher.submit``)."""
+        ``adapter``, ``deadline_s``, ``resume_tokens``
+        (``ContinuousBatcher.submit``)."""
         with self._unsettled_lock:
             self._unsettled += 1
         try:

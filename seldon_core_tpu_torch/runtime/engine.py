@@ -27,10 +27,14 @@ asynchronous component); a list of components under one name is one
 from __future__ import annotations
 
 import asyncio
+import concurrent.futures
 import inspect
 import logging
+import queue
 import secrets
 import threading
+import time
+import weakref
 from concurrent.futures import Future
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Tuple
@@ -49,8 +53,10 @@ from seldon_core_tpu_torch.contracts.payload import (Feedback, Meta, SeldonError
                                                      SeldonMessageList)
 from seldon_core_tpu_torch.device import resolve_device
 from seldon_core_tpu_torch.runtime.resilience import (BreakerOpen, CircuitBreaker, Deadline,
-                                                      ResilienceConfig, current_deadline,
-                                                      deadline_scope, failure_counts_for_breaker)
+                                                      ResilienceConfig, ResumeJournal,
+                                                      ResumeMarker, RetryBudget, ShedError,
+                                                      current_deadline, deadline_scope,
+                                                      failure_counts_for_breaker)
 from seldon_core_tpu_torch.tracing import get_tracer
 
 logger = logging.getLogger(__name__)
@@ -114,6 +120,77 @@ def replica_load(component: Any) -> Tuple[float, float]:
     return (float(queued), in_use / max(total - RESERVED_PAGES, 1))
 
 
+class _DispatchPool:
+    """Up to ``max_workers`` daemon threads running submitted calls, each
+    call's Future returned at once (``ThreadPoolExecutor``'s contract). A
+    thread starts only when no worker is idle. Daemon threads: a fleet
+    generation still waiting on a replica never holds up the interpreter's
+    exit. The workers hold no reference to the pool, nor to a call once it
+    has run, and they end when the pool is collected, so a dropped fleet's
+    replicas (and their device memory) go with it."""
+
+    def __init__(self, max_workers: int, name: str):
+        self.max_workers = int(max_workers)
+        self.name = name
+        self._work: queue.SimpleQueue = queue.SimpleQueue()
+        self._idle = threading.Semaphore(0)
+        self._lock = threading.Lock()
+        self._threads = [0]
+        weakref.finalize(self, _stop_workers, self._work, self._threads)
+
+    def submit(self, fn: Callable, *args: Any) -> Future:
+        fut: Future = Future()
+        self._work.put((fut, fn, args))
+        if not self._idle.acquire(blocking=False):
+            with self._lock:
+                if self._threads[0] < self.max_workers:
+                    self._threads[0] += 1
+                    threading.Thread(target=_dispatch_worker, args=(self._work, self._idle),
+                                     daemon=True,
+                                     name=f"{self.name}_{self._threads[0] - 1}").start()
+        return fut
+
+
+def _dispatch_worker(work: queue.SimpleQueue, idle: threading.Semaphore) -> None:
+    while True:
+        item = work.get()
+        if item is None:
+            return  # the pool was collected
+        fut, fn, args = item
+        if fut.set_running_or_notify_cancel():
+            try:
+                fut.set_result(fn(*args))
+            except BaseException as e:  # noqa: BLE001 — the caller's to see
+                fut.set_exception(e)
+        del item, fut, fn, args  # hold nothing of the call while idle
+        idle.release()
+
+
+def _stop_workers(work: queue.SimpleQueue, threads: List[int]) -> None:
+    for _ in range(threads[0]):
+        work.put(None)
+
+
+class _ResumeEntry:
+    """One fleet generation's recovery record: what re-admits it on a
+    surviving replica (its identity, the pinned seed, the tokenized prompt)
+    and the tokens DELIVERED so far, whose count is also the number of
+    splits to fast-forward its key by (the chain takes one a token). Batcher
+    threads append while the fleet's retry loop reads: every access goes
+    through ``ResumeJournal``, which holds the lock."""
+
+    __slots__ = ("prompt_ids", "max_new", "seed", "tenant", "slo_class", "adapter", "tokens")
+
+    def __init__(self, prompt_ids, max_new, seed, tenant, slo_class, adapter):
+        self.prompt_ids = prompt_ids
+        self.max_new = int(max_new)
+        self.seed = seed
+        self.tenant = tenant
+        self.slo_class = slo_class
+        self.adapter = adapter
+        self.tokens: List[int] = []
+
+
 class ReplicaSet(SeldonComponent):
     """N identical replicas behind one dispatcher, the JAX package's
     ``ReplicaSet`` (the in-process form of the reference's scaled
@@ -131,12 +208,23 @@ class ReplicaSet(SeldonComponent):
     lock; dispatch works on a snapshot.
 
     The transports reach it as a batcher service (``get_batcher_service``
-    returns the fleet itself): ``submit`` picks a replica and joins its
-    shared batch. ``llm_stats`` merges the replicas' for the scrape.
+    returns the fleet itself): ``submit`` runs one fleet generation on a
+    dispatch thread and returns its Future. ``llm_stats`` merges the
+    replicas' for the scrape and adds the fleet's own ``fleet_*`` tallies.
 
-    A replica's failure propagates to the caller unchanged, as on a solo
-    server: health checks, ejection, the resume journal and the retry
-    budget are the fleet fault-tolerance slice (ROADMAP Queue A item 5)."""
+    Fault tolerance. ``check_health`` ejects a replica whose batcher loop
+    crashed (``batcher.crashed``) or stopped stamping its heartbeat while
+    its thread lives (quarantine, unlike a drain: a dead loop cannot
+    drain). Each replica has a breaker (three consecutive infrastructure
+    failures eject it too); ``reinstate_after_s`` later a half-open probe
+    sends it real traffic, which restarts its loop, and a success
+    reinstates it. Every fleet generation is journaled token by token
+    (``ResumeJournal``); when its replica dies it re-admits on a survivor
+    with the prompt and the delivered tokens as its prompt and its key
+    fast-forwarded by their count, so the client's tokens equal an
+    unfaulted run's and none is delivered twice; a ``ResumeMarker`` tells
+    a stream where. Recoveries draw from ``retry_budget``; a spent budget
+    sheds 503 with ``Retry-After``."""
 
     is_fleet = True
 
@@ -152,6 +240,26 @@ class ReplicaSet(SeldonComponent):
         # one collect sweep at a time: two overlapping sweeps would count as
         # two idle sightings an instant apart
         self._collect_guard = threading.Lock()
+        # health: the clock the heartbeat test and the breakers read
+        # (injectable, so a test moves time by hand), the heartbeat age that
+        # counts as wedged (generous: a device step may block a turn), and
+        # the quarantine before a half-open probe
+        self.clock: Callable[[], float] = time.monotonic
+        self.heartbeat_timeout_s: float = 30.0
+        self.reinstate_after_s: float = 5.0
+        self._health: Dict[int, CircuitBreaker] = {}  # id(replica) -> breaker
+        self._ejected: List[SeldonComponent] = []
+        self._ejections_total = 0
+        self._reinstatements_total = 0
+        self._resumes_total = 0
+        self._resumed_tokens_total = 0
+        self._journal = ResumeJournal()
+        self.retry_budget = RetryBudget(clock=self.clock)
+        self._dispatch_pool: Optional[_DispatchPool] = None
+        # fleet generations in flight by replica (id), and the lock that
+        # makes a pick and its count one step
+        self._dispatched: Dict[int, int] = {}
+        self._pick_lock = threading.Lock()
 
     # -- membership ------------------------------------------------------
     def members(self) -> List[SeldonComponent]:
@@ -164,11 +272,16 @@ class ReplicaSet(SeldonComponent):
             return list(self._draining)
 
     def _dispatchable(self) -> List[SeldonComponent]:
-        """The replicas dispatch may target: those not draining, or every
-        replica when all drain (touching a draining replica beats
-        black-holing traffic)."""
+        """The replicas dispatch may target: those neither draining nor
+        ejected; else those not ejected; else every replica (touching a
+        draining replica, or a dead one, whose submit restarts its loop,
+        beats black-holing traffic)."""
         with self._lock:
-            live = [r for r in self.replicas if r not in self._draining]
+            live = [r for r in self.replicas
+                    if r not in self._draining and r not in self._ejected]
+            if live:
+                return live
+            live = [r for r in self.replicas if r not in self._ejected]
             return live or list(self.replicas)
 
     def add_replica(self, replica: SeldonComponent) -> None:
@@ -182,10 +295,12 @@ class ReplicaSet(SeldonComponent):
                       ) -> Optional[SeldonComponent]:
         """Start draining ``replica`` (default: the newest serving one, whose
         caches are coldest). Returns it, or None when nothing may drain: the
-        last serving replica never does. Its ``drain()`` hook (on it or its
-        batcher service), where it has one, is told."""
+        last serving replica never does, nor an ejected one (a dead loop
+        cannot drain). Its ``drain()`` hook (on it or its batcher service),
+        where it has one, is told."""
         with self._lock:
-            candidates = [r for r in self.replicas if r not in self._draining]
+            candidates = [r for r in self.replicas
+                          if r not in self._draining and r not in self._ejected]
             if len(candidates) <= 1:
                 return None
             if replica is None:
@@ -210,6 +325,101 @@ class ReplicaSet(SeldonComponent):
         if hook is not None:
             hook()
         return replica
+
+    # -- health: ejection and reinstatement --------------------------------
+    def ejected_members(self) -> List[SeldonComponent]:
+        with self._lock:
+            return list(self._ejected)
+
+    def _breaker_for(self, replica: SeldonComponent) -> CircuitBreaker:
+        """The replica's health breaker (made on first use): ejected means
+        not CLOSED, and reinstatement is its half-open probe. Its methods
+        are never called under ``self._lock`` (each breaker has a lock of
+        its own)."""
+        rid = id(replica)
+        with self._lock:
+            br = self._health.get(rid)
+            if br is None:
+                br = CircuitBreaker(f"replica-{rid:x}", failure_threshold=3,
+                                    reset_timeout_s=self.reinstate_after_s, clock=self.clock)
+                self._health[rid] = br
+        return br
+
+    def _eject(self, replica: SeldonComponent) -> bool:
+        with self._lock:
+            if replica in self.replicas and replica not in self._ejected:
+                self._ejected.append(replica)
+                self._ejections_total += 1
+                return True
+        return False
+
+    def check_health(self) -> List[SeldonComponent]:
+        """Eject every replica seen dead: its batcher loop crashed (an
+        exception parked in ``batcher.crashed``) or is wedged (its thread
+        alive but its heartbeat older than ``heartbeat_timeout_s`` on the
+        fleet's clock). Dispatch calls it before each generation and after
+        every failure, so a dead replica leaves dispatch within one loop
+        turn. Returns the replicas this sweep ejected."""
+        with self._lock:
+            candidates = [r for r in self.replicas if r not in self._ejected]
+        dead = []
+        for r in candidates:
+            svc = getattr(r, "_batcher_service", None)
+            if svc is None:
+                continue
+            b = svc.batcher
+            if getattr(b, "crashed", None) is not None:
+                dead.append(r)
+                continue
+            thread = getattr(b, "_thread", None)
+            hb = getattr(b, "heartbeat", None)
+            if (thread is not None and thread.is_alive() and hb is not None
+                    and self.heartbeat_timeout_s > 0
+                    and self.clock() - hb > self.heartbeat_timeout_s):
+                dead.append(r)
+        out = []
+        for r in dead:
+            self._breaker_for(r).trip()  # seen dead: open at once
+            if self._eject(r):
+                logger.warning("ejecting a dead replica from fleet dispatch")
+                out.append(r)
+        return out
+
+    def _record_dispatch_success(self, replica: SeldonComponent) -> None:
+        """A dispatch answered: close the replica's breaker and, if it was
+        a probe of an ejected replica, reinstate it."""
+        self._breaker_for(replica).record_success()
+        with self._lock:
+            if replica in self._ejected:
+                self._ejected.remove(replica)
+                self._reinstatements_total += 1
+
+    def _record_dispatch_failure(self, replica: SeldonComponent) -> None:
+        """An infrastructure failure of a dispatch: counted on the breaker
+        (consecutive failures open it, a failed probe opens it again), and
+        the replica ejected once the breaker is not CLOSED."""
+        br = self._breaker_for(replica)
+        br.record_failure()
+        if br.state_code() != 0:
+            self._eject(replica)
+
+    @staticmethod
+    def _recoverable(exc: BaseException) -> bool:
+        """Which dispatch failures a sibling may retry: infrastructure
+        deaths only. Backpressure (ShedError, BreakerOpen) passes through (a
+        retry adds to the load that caused it); client errors, cancellations
+        and timeouts (the original may still run: a retry could deliver
+        twice) are the caller's."""
+        if isinstance(exc, (ShedError, BreakerOpen)):
+            return False
+        if isinstance(exc, (asyncio.CancelledError, concurrent.futures.CancelledError,
+                            TimeoutError)):
+            return False
+        if isinstance(exc, SeldonError):
+            return exc.status_code >= 500
+        if isinstance(exc, (ValueError, TypeError, KeyError)):
+            return False
+        return True
 
     @staticmethod
     def _replica_hook(replica: SeldonComponent, name: str):
@@ -281,10 +491,19 @@ class ReplicaSet(SeldonComponent):
                 r.load()
 
     # -- dispatch ----------------------------------------------------------
+    def _load(self, replica: SeldonComponent) -> Tuple[float, float]:
+        """``replica_load``, its queued work counting the fleet generations
+        dispatched to the replica and not yet answered too: a generation
+        runs on a dispatch thread, so concurrent picks would otherwise all
+        read the same idle replica before any of them reaches its queue."""
+        queued, pages = replica_load(replica)
+        with self._lock:
+            return (queued + self._dispatched.get(id(replica), 0), pages)
+
     def pick(self) -> SeldonComponent:
         """The least-loaded dispatchable replica now (lowest index on ties)."""
         reps = self._dispatchable()
-        return min(enumerate(reps), key=lambda ir: (replica_load(ir[1]), ir[0]))[1]
+        return min(enumerate(reps), key=lambda ir: (self._load(ir[1]), ir[0]))[1]
 
     def _probe(self, prompt: Any, reps: List[SeldonComponent]) -> List[Tuple[int, Tuple]]:
         """Each replica's (cached-prefix length of ``prompt``, load)."""
@@ -292,7 +511,7 @@ class ReplicaSet(SeldonComponent):
         for r in reps:
             probe = getattr(r, "prefix_match_len", None)
             match = int(probe(prompt)) if probe is not None and prompt is not None else 0
-            out.append((match, replica_load(r)))
+            out.append((match, self._load(r)))
         return out
 
     def pick_for(self, prompt: Any) -> SeldonComponent:
@@ -345,15 +564,21 @@ class ReplicaSet(SeldonComponent):
 
     def submit(self, prompt: Any, max_new_tokens: Optional[int] = None,
                seed: Optional[int] = None, info: Optional[dict] = None,
-               on_token: Optional[Any] = None, **identity: Any) -> Future:
-        """``BatcherService.submit`` on the replica ``pick_for`` chooses, with
-        the prompt tokenized once: the Future of the final token list, and
-        ``on_token`` fed from that replica's batcher."""
-        from seldon_core_tpu_torch.runtime.batcher import ensure_stream_service
-
-        ids = self._encode_once(prompt)
-        return ensure_stream_service(self.pick_for(ids)).submit(
-            ids, max_new_tokens, seed=seed, info=info, on_token=on_token, **identity)
+               on_token: Optional[Any] = None, tenant: Optional[str] = None,
+               slo_class: Optional[str] = None, adapter: Optional[str] = None,
+               deadline_s: Optional[float] = None, timeout_s: float = 600.0) -> Future:
+        """``BatcherService.submit``'s surface for the fleet: one fleet
+        generation (``_fleet_submit_blocking``) on a dispatch thread (a pool
+        of 32). Returns the Future of the final token list; ``on_token`` is
+        fed from the serving replica's batcher, with a ``ResumeMarker``
+        where a generation resumed, and None once at the end."""
+        with self._lock:
+            pool = self._dispatch_pool
+            if pool is None:
+                pool = _DispatchPool(32, "fleet-dispatch")
+                self._dispatch_pool = pool
+        return pool.submit(self._fleet_submit_blocking, prompt, max_new_tokens, on_token, info,
+                           seed, tenant, slo_class, adapter, deadline_s, timeout_s)
 
     # the JAX package's name for a submit from a thread that pumps
     # ``on_token``; the port's submit does not block, so it is the same call
@@ -361,9 +586,125 @@ class ReplicaSet(SeldonComponent):
 
     def submit_sync(self, prompt: Any, max_new_tokens: Optional[int] = None,
                     timeout_s: float = 600.0, seed: Optional[int] = None,
-                    info: Optional[dict] = None, **identity: Any) -> List[int]:
-        return self.submit(prompt, max_new_tokens, seed=seed, info=info,
-                           **identity).result(timeout_s)
+                    info: Optional[dict] = None, on_token: Optional[Any] = None,
+                    **identity: Any) -> List[int]:
+        return self.submit(prompt, max_new_tokens, seed=seed, info=info, on_token=on_token,
+                           timeout_s=timeout_s, **identity).result()
+
+    def _pick_with_probe(self, prompt: Any) -> Tuple[SeldonComponent, bool]:
+        """One attempt's replica: an ejected one whose breaker grants a
+        half-open probe (reinstatement rides real traffic; the retry loop
+        absorbs a failed probe), else ``pick_for`` over the healthy ones."""
+        for r in self.ejected_members():
+            if self._breaker_for(r).allow():
+                return r, True
+        return self.pick_for(prompt), False
+
+    def _fleet_submit_blocking(self, prompt: Any, max_new_tokens: Optional[int] = None,
+                               on_token: Optional[Any] = None, info: Optional[dict] = None,
+                               seed: Optional[int] = None, tenant: Optional[str] = None,
+                               slo_class: Optional[str] = None, adapter: Optional[str] = None,
+                               deadline_s: Optional[float] = None,
+                               timeout_s: float = 600.0) -> List[int]:
+        """One fleet generation: journal it, dispatch it to the best
+        replica and, when that replica dies of an infrastructure failure,
+        resume it on a survivor.
+
+        An unseeded request gets a random seed before its first dispatch,
+        so greedy and sampled generations alike sit on one chain a resume
+        can fast-forward (``ContinuousBatcher._first_key``). Each token is
+        journaled before it is forwarded, so a resume skips exactly the
+        delivered prefix. The dead batcher's ``on_token(None)`` is swallowed
+        (the fleet sends the one None at the end), so a stream survives the
+        failover."""
+        from seldon_core_tpu_torch.runtime.batcher import ensure_stream_service
+
+        self.check_health()
+        self.retry_budget.note_request()
+        reps = self._dispatchable()
+        ids = self._encode_once(prompt, reps)
+        can_resume = not isinstance(ids, str)
+        prompt_ids = [int(t) for t in np.asarray(ids).ravel()] if can_resume else ids
+        if max_new_tokens is None:
+            max_new_tokens = next((int(r.max_new_tokens) for r in reps
+                                   if getattr(r, "max_new_tokens", None) is not None), None)
+        orig_max_new = int(max_new_tokens or 16)
+        if seed is None:
+            # pins the chain a resume replays (greedy output ignores it;
+            # unseeded sampled output stays random, now resumable)
+            seed = secrets.randbits(31)
+        jid = self._journal.record(_ResumeEntry(prompt_ids, orig_max_new, seed, tenant,
+                                                slo_class, adapter))
+
+        def wrapped(tok):
+            if tok is None:
+                return  # a dead batcher's end: the fleet sends the real one
+            if not isinstance(tok, ResumeMarker):
+                self._journal.append(jid, int(tok))
+            if on_token is not None:
+                on_token(tok)
+
+        try:
+            while True:
+                done = self._journal.delivered(jid)
+                n = len(done)
+                if n >= orig_max_new:
+                    return done  # the death raced the last token
+                submit_ids = prompt_ids + done if n > 0 else prompt_ids
+                if n > 0:
+                    self._note_resume(n)
+                    wrapped(ResumeMarker(n))
+                with self._pick_lock:
+                    replica, probing = self._pick_with_probe(submit_ids)
+                    self._count_dispatch(replica, 1)
+                try:
+                    toks = ensure_stream_service(replica).submit_sync(
+                        submit_ids, orig_max_new - n, timeout_s=timeout_s, info=info, seed=seed,
+                        tenant=tenant, slo_class=slo_class, adapter=adapter,
+                        deadline_s=deadline_s, on_token=wrapped, resume_tokens=n)
+                except BaseException as e:
+                    if probing:
+                        self._breaker_for(replica).release_probe()
+                    if not self._recoverable(e):
+                        raise
+                    self._record_dispatch_failure(replica)
+                    self.check_health()  # a crash ejects before the retry
+                    if self._journal.delivered(jid) and not can_resume:
+                        raise  # mid-stream with no token journal: no guess
+                    if not self.retry_budget.take():
+                        raise ShedError("fleet retry budget exhausted (correlated failures); "
+                                        "request not recovered",
+                                        retry_after_s=self.reinstate_after_s)
+                    continue
+                finally:
+                    self._count_dispatch(replica, -1)
+                self._record_dispatch_success(replica)
+                # the replica's result is authoritative for the tail
+                # (on_token leaves out EOS; the result does not)
+                return done + [int(t) for t in toks]
+        finally:
+            self._journal.discard(jid)
+            if on_token is not None:
+                try:
+                    on_token(None)
+                except Exception:
+                    pass
+
+    def _count_dispatch(self, replica: SeldonComponent, n: int) -> None:
+        with self._lock:
+            left = self._dispatched.get(id(replica), 0) + n
+            if left:
+                self._dispatched[id(replica)] = left
+            else:
+                self._dispatched.pop(id(replica), None)
+
+    def _note_resume(self, tokens_delivered: int) -> None:
+        """Count one mid-stream recovery, under an ``llm.resume`` span."""
+        with self._lock:
+            self._resumes_total += 1
+            self._resumed_tokens_total += tokens_delivered
+        with get_tracer().span("llm.resume", tokens_delivered=tokens_delivered):
+            pass
 
     # -- the component surface, delegated to the chosen replica ----------
     def predict(self, X, names, meta=None):
@@ -371,10 +712,31 @@ class ReplicaSet(SeldonComponent):
 
     def generate(self, prompts=None, *a, **kw):
         """Routed on the first prompt's cached prefix (a one-prompt request
-        is the chat shape prefix routing is for)."""
-        if prompts is not None and len(prompts) > 0:
-            return self.pick_for(prompts[0]).generate(prompts, *a, **kw)
-        return self.pick().generate(prompts, *a, **kw)
+        is the chat shape prefix routing is for). A recoverable failure
+        fails over once, to the least-loaded other replica, from the retry
+        budget: nothing was delivered, so the whole call is retried."""
+        self.retry_budget.note_request()
+        replica = (self.pick_for(prompts[0]) if prompts is not None and len(prompts) > 0
+                   else self.pick())
+        try:
+            out = replica.generate(prompts, *a, **kw)
+        except Exception as e:
+            if not self._recoverable(e):
+                raise
+            self._record_dispatch_failure(replica)
+            self.check_health()
+            siblings = [r for r in self._dispatchable() if r is not replica]
+            if not siblings:
+                raise
+            if not self.retry_budget.try_spend():
+                raise ShedError("fleet retry budget exhausted (correlated failures); generate "
+                                "not failed over", retry_after_s=self.reinstate_after_s)
+            alt = min(siblings, key=replica_load)
+            out = alt.generate(prompts, *a, **kw)
+            self._record_dispatch_success(alt)
+            return out
+        self._record_dispatch_success(replica)
+        return out
 
     def tags(self) -> Dict[str, Any]:
         from seldon_core_tpu_torch.components.component import client_custom_tags
@@ -390,7 +752,9 @@ class ReplicaSet(SeldonComponent):
         """The replicas' stats merged for the scrape: numbers sum (each
         replica's counters and gauges), fractions average, drained lists
         concatenate (each replica's deques drain once, as solo), other
-        values come from the first replica."""
+        values come from the first replica. The fleet's own ``fleet_*``
+        tallies are stamped after the merge, so no replica key shadows
+        them."""
         stats_list = [r.llm_stats() for r in self.members() if hasattr(r, "llm_stats")]
         if not stats_list:
             return {}
@@ -408,6 +772,14 @@ class ReplicaSet(SeldonComponent):
         for k in fractions:  # a sum of fractions would pass 1
             if isinstance(merged.get(k), (int, float)):
                 merged[k] = merged[k] / len(stats_list)
+        with self._lock:
+            merged["fleet_ejections_total"] = self._ejections_total
+            merged["fleet_reinstatements_total"] = self._reinstatements_total
+            merged["fleet_resumes_total"] = self._resumes_total
+            merged["fleet_resumed_tokens_total"] = self._resumed_tokens_total
+        merged["fleet_resume_journal_depth"] = self._journal.depth()
+        merged["fleet_retry_budget_exhausted_total"] = \
+            self.retry_budget.snapshot()["exhausted_total"]
         return merged
 
 

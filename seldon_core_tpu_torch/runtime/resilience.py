@@ -20,10 +20,13 @@ parts the graph engine and its transports use:
 - **ShedError**: the shed itself; the batcher raises it too when the KV
   page pool is exhausted.
 
+- **RetryBudget**, **ResumeJournal**, **ResumeMarker**: the replica
+  fleet's recovery (``runtime/engine.ReplicaSet``): a bounded budget of
+  re-dispatches, the token-granular journal of every fleet generation in
+  flight, and the in-band stream event of a resume.
+
 Everything takes an injectable monotonic ``clock`` for deterministic
-tests. ``effective_timeout`` clamps a remote hop to the budget left. The
-replica fleet's ``RetryBudget`` and resume journal come with the fleet
-fault-tolerance slice.
+tests. ``effective_timeout`` clamps a remote hop to the budget left.
 """
 
 from __future__ import annotations
@@ -34,7 +37,7 @@ import time
 from collections import deque
 from contextlib import contextmanager
 from contextvars import ContextVar
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 from seldon_core_tpu_torch.contracts.payload import SeldonError
 
@@ -467,8 +470,145 @@ def failure_counts_for_breaker(exc: BaseException) -> bool:
     return True
 
 
+# ---------------------------------------------------------------------------
+# Fleet fault tolerance: retry budget, resume journal, resume marker
+# ---------------------------------------------------------------------------
+
+DEFAULT_RETRY_BUDGET_RATIO = 0.2
+DEFAULT_RETRY_BUDGET_MIN = 3
+DEFAULT_RETRY_BUDGET_WINDOW_S = 10.0
+
+
+class RetryBudget:
+    """The fleet's bounded recovery budget (copied from the JAX package).
+    A resume or a pre-first-token failover re-dispatches work the fleet
+    already paid for once, so a correlated failure (half the replicas dying
+    at once) could double the offered load just as capacity halves. Every
+    recovery draws from this budget: a sliding-window fraction of recent
+    requests plus a small fixed floor; a spent budget is an honest shed
+    (503 + Retry-After), not amplification.
+
+    Retries granted inside any window never exceed ``ratio *
+    requests_in_window + min_retries``. Thread-safe."""
+
+    def __init__(self, ratio: float = DEFAULT_RETRY_BUDGET_RATIO,
+                 min_retries: int = DEFAULT_RETRY_BUDGET_MIN,
+                 window_s: float = DEFAULT_RETRY_BUDGET_WINDOW_S,
+                 clock: Callable[[], float] = time.monotonic):
+        self.ratio = float(ratio)
+        self.min_retries = int(min_retries)
+        self.window_s = float(window_s)
+        self.clock = clock
+        self._lock = threading.Lock()
+        self._requests: deque = deque()  # request timestamps
+        self._retries: deque = deque()   # granted-retry timestamps
+        self.exhausted_total = 0
+
+    def _prune(self, now: float) -> None:
+        horizon = now - self.window_s
+        while self._requests and self._requests[0] < horizon:
+            self._requests.popleft()
+        while self._retries and self._retries[0] < horizon:
+            self._retries.popleft()
+
+    def note_request(self) -> None:
+        """One request entered the fleet (grows the budget)."""
+        now = self.clock()
+        with self._lock:
+            self._prune(now)
+            self._requests.append(now)
+
+    def try_spend(self) -> bool:
+        """Grant one recovery if the window has budget left. False means
+        the caller sheds, and the refusal is counted."""
+        now = self.clock()
+        with self._lock:
+            self._prune(now)
+            if len(self._retries) < self.ratio * len(self._requests) + self.min_retries:
+                self._retries.append(now)
+                return True
+            self.exhausted_total += 1
+            return False
+
+    # the JAX package's second name for it (its leak sweep's acquire site)
+    take = try_spend
+
+    def snapshot(self) -> Dict[str, float]:
+        """One consistent view for the stats."""
+        now = self.clock()
+        with self._lock:
+            self._prune(now)
+            return {"requests_in_window": len(self._requests),
+                    "retries_in_window": len(self._retries),
+                    "exhausted_total": self.exhausted_total}
+
+
+class ResumeJournal:
+    """The fleet's token-granular recovery journal (copied from the JAX
+    package). ``record()`` opens an entry and the dispatch's ``finally``
+    must ``discard()`` it on every path. Batcher threads ``append`` while
+    the retry loop reads ``delivered()``; every access takes the journal's
+    lock, so a snapshot never tears. ``append`` and ``delivered`` on a
+    discarded id do nothing: a straggler token from a dead replica's loop
+    must not bring the entry back."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._entries: Dict[int, Any] = {}
+        self._seq = 0
+
+    def record(self, entry: Any) -> int:
+        """Open one entry; returns its id (owed a ``discard``)."""
+        with self._lock:
+            self._seq += 1
+            self._entries[self._seq] = entry
+            return self._seq
+
+    def append(self, jid: int, token: int) -> None:
+        """One delivered token, recorded BEFORE the client sees it, so a
+        resume skips exactly the delivered prefix (at most once)."""
+        with self._lock:
+            entry = self._entries.get(jid)
+            if entry is not None:
+                entry.tokens.append(int(token))
+
+    def delivered(self, jid: int) -> List[int]:
+        """The tokens delivered so far ([] after discard)."""
+        with self._lock:
+            entry = self._entries.get(jid)
+            return list(entry.tokens) if entry is not None else []
+
+    def get(self, jid: int) -> Optional[Any]:
+        """The live entry (None after discard), for tests."""
+        with self._lock:
+            return self._entries.get(jid)
+
+    def discard(self, jid: int) -> None:
+        """End the entry (idempotent)."""
+        with self._lock:
+            self._entries.pop(jid, None)
+
+    def depth(self) -> int:
+        """Entries open (``fleet_resume_journal_depth``)."""
+        with self._lock:
+            return len(self._entries)
+
+
+class ResumeMarker:
+    """In-band stream event, never a token: a recovered generation
+    re-attached after ``tokens_delivered`` delivered tokens. It rides
+    ``on_token``, so SSE sends one ``resumed`` event and gRPC one
+    ``resumed`` chunk where the failover happened."""
+
+    __slots__ = ("tokens_delivered",)
+
+    def __init__(self, tokens_delivered: int):
+        self.tokens_delivered = int(tokens_delivered)
+
+
 __all__ = ["AdmissionController", "BreakerOpen", "CircuitBreaker", "DEADLINE_GRPC_METADATA",
-           "DEADLINE_HEADER", "DEFAULT_RETRY_AFTER_S", "Deadline", "DeadlineExceeded",
-           "ResilienceConfig", "ShedError", "current_deadline", "deadline_scope",
+           "DEADLINE_HEADER", "DEFAULT_RETRY_AFTER_S", "DEFAULT_RETRY_BUDGET_RATIO", "Deadline",
+           "DeadlineExceeded", "ResilienceConfig", "ResumeJournal", "ResumeMarker",
+           "RetryBudget", "ShedError", "current_deadline", "deadline_scope",
            "effective_timeout", "failure_counts_for_breaker", "retry_after_hint",
            "wire_retry_after"]

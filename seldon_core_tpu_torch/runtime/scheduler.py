@@ -77,9 +77,10 @@ class PendingRequest:
     """One queued admission. ``seq`` is assigned at first push and
     survives requeue, so a preempted request re-enters its tenant queue at
     its original position; ``deadline_t`` is on the batcher's perf_counter
-    clock. The JAX package's ``trace`` (the flight recorder's) and
-    ``resume_tokens`` (fleet recovery) belong to slices the port has not
-    taken yet."""
+    clock. ``resume_tokens`` > 0 marks a fleet resume: ``ids`` then carry
+    the prompt and the tokens already delivered, and the first token's key
+    is fast-forwarded past them. The JAX package's ``trace`` (the flight
+    recorder's) belongs to the tracing slice."""
 
     ids: List[int]
     max_new: int
@@ -94,6 +95,7 @@ class PendingRequest:
     adapter_id: int = 0
     seq: int = 0
     preempted: bool = False
+    resume_tokens: int = 0
 
     def _order_key(self) -> Tuple[float, int]:
         # EDF within a tenant queue; deadline-less requests keep arrival

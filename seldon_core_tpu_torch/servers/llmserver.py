@@ -144,6 +144,18 @@ def split_keys(keys):
     return _mix32(keys ^ 0x5BD1E995), _mix32(keys ^ 0x1B873593)
 
 
+def fast_forward_key(seed: int, n_tokens: int) -> int:
+    """A seeded request's key after ``n_tokens`` generated tokens: the
+    chain takes exactly one split a token (the first token's at admission,
+    then one a decode step), so ``n_tokens`` splits from ``seed_key(seed)``
+    land on the key a slot held when it had delivered them. A fleet resume
+    draws its next token from it (``ContinuousBatcher._first_key``)."""
+    key = seed_key(seed)
+    for _ in range(int(n_tokens)):
+        key, _ = split_keys(key)
+    return key
+
+
 def sample_tokens(keys: torch.Tensor, logits: torch.Tensor, temperature,
                   top_k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Port of ``_slot_sampler``: per row, split the key, then greedy
@@ -1687,5 +1699,5 @@ class LLMServer(SeldonComponent):
         }
 
 
-__all__ = ["ByteTokenizer", "LLMServer", "bucket", "first_token", "sample_tokens", "seed_key",
-           "split_keys"]
+__all__ = ["ByteTokenizer", "LLMServer", "bucket", "fast_forward_key", "first_token",
+           "sample_tokens", "seed_key", "split_keys"]

@@ -16,7 +16,9 @@ The component server:
 - ``Model/GenerateStream`` (unary-stream): the SSE contract of
   ``/v1/generate`` on this transport — one jsonData ``{"token", "text"}``
   per token, then the ``done`` event, with the same INVALID_ARGUMENT
-  rejections before the stream starts (``streaming.stream_service``);
+  rejections before the stream starts (``streaming.stream_service``); a
+  replica fleet's resume is one jsonData ``{"resumed", "tokens_delivered"}``
+  chunk, and its spent retry budget RESOURCE_EXHAUSTED;
 - ``Model/DebugTimeline`` aborts UNIMPLEMENTED naming the tracing slice.
 
 The engine server serves ``Seldon/Predict`` and ``Seldon/SendFeedback``

@@ -24,7 +24,10 @@ package:
         Server-Sent Events as the batch decodes: one ``data: {"token",
         "text"}`` event per token ("text" the decoded piece), then ``data:
         {"done": true, "tokens", "text"}`` (+ "truncated_prompt"); an error
-        after the headers went out is one ``data: {"error": ...}`` event.
+        after the headers went out is one ``data: {"error": ...}`` event. On
+        a replica fleet whose replica died mid-stream, one ``data:
+        {"resumed": true, "tokens_delivered": n}`` event marks where a
+        survivor took over (never a token).
         Chunked framing, one chunk per event, the events a drain surfaced
         together in one write; Nagle off. A component
         without ``continuous_batching`` streams through one shared 1-slot
@@ -38,8 +41,8 @@ package:
 A per-request ``temperature`` takes the private generate() path (the batch
 decodes every slot at the server's temperature), as does a seeded prompt
 the slot cache cannot hold whole; a stream has no such path, so both answer
-400 there. A page-exhaustion shed answers 503 with a ``Retry-After``
-header.
+400 there. A page-exhaustion shed, and a fleet recovery refused by a
+spent retry budget, answer 503 with a ``Retry-After`` header.
 
 Tenant and SLO class ride the ``Seldon-Tenant`` / ``Seldon-SLO-Class``
 headers, or the body fields ``tenant`` / ``slo_class`` (the body wins), as

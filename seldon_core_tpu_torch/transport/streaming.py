@@ -16,6 +16,7 @@ import queue
 from typing import Any, Iterator, List, Optional
 
 from seldon_core_tpu_torch.contracts.payload import SeldonError
+from seldon_core_tpu_torch.runtime.resilience import ResumeMarker
 from seldon_core_tpu_torch.runtime.scheduler import normalize_slo_class
 
 _END = object()
@@ -43,8 +44,10 @@ def stream_events(component: Any, prompt: Any, max_new: Optional[int],
                   identity: Optional[dict] = None) -> Iterator[List[dict]]:
     """The events of one stream, as the batch decodes them: ``{"token",
     "text"}`` per token (``text`` the decoded piece of a text prompt, else
-    None), then ``{"done": True, "tokens", "text"}`` (+ ``truncated_prompt``
-    when admission clipped the prompt). They come in bursts, a list at a
+    None), ``{"resumed": True, "tokens_delivered": n}`` where a replica
+    fleet resumed the generation on a survivor after n delivered tokens (an
+    in-band event, never a token), then ``{"done": True, "tokens",
+    "text"}`` (+ ``truncated_prompt`` when admission clipped the prompt). They come in bursts, a list at a
     time: every token already queued when the caller wakes (a fused block's
     tokens surface at one drain), so a transport writes a burst at once.
     ``svc`` is the BatcherService to join; None streams through
@@ -77,8 +80,7 @@ def stream_events(component: Any, prompt: Any, max_new: Optional[int],
             ended = burst[-1] is None or burst[-1] is _END
             toks = burst[:-1] if ended else burst
             if toks:
-                yield [{"token": t, "text": tokenizer.decode([t]) if text_mode else None}
-                       for t in toks]
+                yield [_event(t, tokenizer if text_mode else None) for t in toks]
         toks = fut.result(timeout=600.0)
         done = {"done": True, "tokens": toks,
                 "text": tokenizer.decode(toks) if text_mode else None}
@@ -87,6 +89,14 @@ def stream_events(component: Any, prompt: Any, max_new: Optional[int],
         yield [done]
     finally:
         fut.cancel()  # a no-op once the request completed
+
+
+def _event(tok: Any, tokenizer: Any) -> dict:
+    """One stream event: a token (with its decoded piece when ``tokenizer``
+    is given), or a fleet's resume marker."""
+    if isinstance(tok, ResumeMarker):
+        return {"resumed": True, "tokens_delivered": tok.tokens_delivered}
+    return {"token": tok, "text": tokenizer.decode([tok]) if tokenizer is not None else None}
 
 
 def stream_service(component: Any, body: dict, svc: Any = None, knob: str = "stream") -> Any:

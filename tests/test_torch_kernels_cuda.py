@@ -2260,3 +2260,110 @@ def test_disagg_batcher_on_card_equals_local(dev, kv, transport, workers):
         finally:
             b.close()
     assert outs["remote_prefill"] == outs["off"]
+
+
+# ---------------------------------------------------------------------------
+# Fleet fault tolerance: a killed loop's crash path, and its restart on a new
+# thread over the same captured graphs
+# ---------------------------------------------------------------------------
+def _kill_mid_decode(b, prompt, after: int = 3):
+    """``prompt`` submitted with a ``BatcherKiller`` armed once ``after`` of
+    its tokens are out (dispatches still in flight behind them, at the
+    batcher's pipeline depth); returns the error the request failed with."""
+    from seldon_core_tpu_torch.testing.faults import BatcherKiller
+
+    got = []
+    killer = BatcherKiller(trigger=lambda _b: len(got) >= after).install(b)
+    fut = b.submit(prompt, 24, on_token=lambda t: got.append(t))
+    with pytest.raises(Exception, match="chaos") as e:
+        fut.result(120)
+    killer.killed_thread.join(120)  # the crash path's end
+    b._chaos = None
+    return e.value
+
+
+@pytest.mark.parametrize("mode", ["local", "remote_prefill"])
+def test_restarted_loop_replays_graphs_bit_equal(dev, mode):
+    """A graph batcher (K = 4, depth 2, the trie on; locally prefilled, or by
+    a prefill worker whose handoffs this batcher imports) serves four
+    requests, one a partial-block trie hit (a CoW replay); its loop is
+    killed mid-decode, with dispatches in flight: every page, pin and
+    adapter comes back (``LeakSweep`` residue all 0, the pool's free pages
+    as before) and the loop's thread is gone. The next submit restarts the
+    loop on a new thread, which replays the same captured graphs (no new
+    capture, nothing eager) and serves the same requests with the same
+    tokens as before the kill."""
+    from seldon_core_tpu_torch.runtime.batcher import ContinuousBatcher
+    from seldon_core_tpu_torch.servers.llmserver import LLMServer
+    from seldon_core_tpu_torch.testing.faults import LeakSweep
+
+    s = LLMServer(model="transformer", model_kwargs=SMALL_LLM, init_random=True,
+                  param_dtype="auto", max_new_tokens=24, eos_id=-1, len_buckets=(16, 32),
+                  temperature=0.7, prefix_cache_size=8, device="cuda")
+    s.load()
+    b = ContinuousBatcher(s, max_slots=3, page_size=8, fuse_steps=4, pipeline_depth=2,
+                          disaggregation="off" if mode == "local" else mode, device="cuda")
+    warm = list(range(1, 17))
+    prompts = [warm + [40, 41], warm[:12] + [77], [5, 9, 17, 2], "a text prompt"]
+    graphs = (dict(b._graphs), dict(b._prefill_graphs), b._cow_graph)
+    try:
+        assert b.submit(warm, 4, seed=1).result(120)
+        before = [f.result(120) for f in [b.submit(p, 24, seed=i) for i, p in
+                                          enumerate(prompts)]]
+        thread = b._thread
+        b._radix.clear()
+        free = b._allocator.free_count()
+        err = _kill_mid_decode(b, list(range(30, 50)))
+        assert b.crashed is err and b._thread is None and not thread.is_alive()
+        assert LeakSweep(b).residue() == dict.fromkeys(LeakSweep(b).residue(), 0)
+        assert b._allocator.free_count() == free and not b._inflight
+        eager = (s._prefill_eager, s._decode_eager, s._cow_eager)
+        replays = s._decode_replays
+        assert b.submit(warm, 4, seed=1).result(120)
+        after = [f.result(120) for f in [b.submit(p, 24, seed=i) for i, p in
+                                         enumerate(prompts)]]
+        assert after == before
+        assert b._thread is not None and b._thread is not thread and b.crashed is None
+        assert (s._prefill_eager, s._decode_eager, s._cow_eager) == eager == (0, 0, 0)
+        assert s._decode_replays > replays
+        assert (b._graphs, b._prefill_graphs, b._cow_graph) == graphs
+        assert all(b._graphs[k] is g for k, g in graphs[0].items())
+        assert all(b._prefill_graphs[k] is g for k, g in graphs[1].items())
+        b._radix.clear()
+        assert b.page_stats()["kv_pages_in_use"] == 0
+        LeakSweep(b).assert_clean("serving after the restart")
+    finally:
+        b.close()
+
+
+def test_crash_path_waits_for_the_stream_before_releasing(dev):
+    """The crash path waits on the batcher's stream before it releases the
+    dead slots: a kill with two K = 4 dispatches in flight (each still
+    writing its slots' pages) returns every page only once they ran, and a
+    request admitted into the same pages right after decodes the tokens a
+    fresh batcher gives it."""
+    from seldon_core_tpu_torch.runtime.batcher import ContinuousBatcher
+    from seldon_core_tpu_torch.testing.faults import LeakSweep
+
+    s, b = _graph_batcher(dev, "bf16", pipeline_depth=2)
+    fresh = ContinuousBatcher(s, max_slots=3, page_size=8, fuse_steps=4, device="cuda")
+    try:
+        want = fresh.submit([9, 8, 7, 6, 5], 12).result(120)
+    finally:
+        fresh.close()
+    waited = []
+    real = b._quiesce
+
+    def quiesce():
+        waited.append(len(b._inflight))
+        real()
+
+    b._quiesce = quiesce
+    try:
+        _kill_mid_decode(b, [5, 9, 17, 2, 40, 3, 22, 8, 11, 60])
+        assert waited == [0]  # the records were dropped, the stream waited on
+        LeakSweep(b).assert_clean("the kill")
+        assert b.page_stats()["kv_pages_in_use"] == 0
+        assert b.submit([9, 8, 7, 6, 5], 12).result(120) == want
+    finally:
+        b.close()

@@ -70,6 +70,10 @@ PORT_FAMILIES = {
     # the disaggregation slice's: the handoff series
     "seldon_llm_handoff_seconds", "seldon_llm_handoffs", "seldon_llm_handoff_queue_depth",
     "seldon_llm_handoff_network_bytes",
+    # the fleet fault-tolerance slice's: ReplicaSet's fleet_* tallies
+    "seldon_fleet_ejections", "seldon_fleet_reinstatements", "seldon_fleet_resumes",
+    "seldon_fleet_resumed_tokens", "seldon_fleet_retry_budget_exhausted",
+    "seldon_fleet_resume_journal_depth",
     # the engine slice's: feedback, resilience
     "seldon_api_model_feedback", "seldon_api_model_feedback_reward", "seldon_resilience_shed",
     "seldon_resilience_deadline_exceeded", "seldon_resilience_breaker_state",
@@ -124,6 +128,10 @@ def stats(seed, sheds):
         "handoff_queue_depth": int(rng.integers(0, 4)),
         "handoff_network_bytes_total": (1 << 31) * sheds,
         "handoff_times_s": rng.uniform(0, 0.5, 3).tolist(),
+        "fleet_ejections_total": sheds, "fleet_reinstatements_total": sheds - 1,
+        "fleet_resumes_total": 3 * sheds, "fleet_resumed_tokens_total": 17 * sheds,
+        "fleet_retry_budget_exhausted_total": 2 * sheds,
+        "fleet_resume_journal_depth": int(rng.integers(0, 4)),
     }
 
 

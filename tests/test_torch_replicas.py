@@ -288,7 +288,13 @@ def test_llm_replicas_generate_as_jax(jax_weights):
         expected = r1.generate([prompt], max_new_tokens=6)["tokens"][0]
         assert rs.generate([prompt], max_new_tokens=6)["tokens"][0] == expected
         assert jrs.generate([prompt], max_new_tokens=6)["tokens"][0] == expected
-    assert set(rs.llm_stats()) == set(r1.llm_stats())
+    # the replicas' keys, and the fleet's own fault-tolerance tallies, as
+    # the JAX fleet adds them
+    fleet_keys = {"fleet_ejections_total", "fleet_reinstatements_total", "fleet_resumes_total",
+                  "fleet_resumed_tokens_total", "fleet_resume_journal_depth",
+                  "fleet_retry_budget_exhausted_total"}
+    assert set(rs.llm_stats()) == set(r1.llm_stats()) | fleet_keys
+    assert set(jrs.llm_stats()) - set(jrs.replicas[0].llm_stats()) == fleet_keys
 
 
 def test_prefix_owner_routing_as_jax(jax_weights):
@@ -343,8 +349,9 @@ def test_drained_replica_finishes_then_detaches(jax_weights):
         gate.wait(TIMEOUT)
 
     fut = rs.submit(PROMPT, 24, on_token=hold)  # equal loads: replica 0
-    assert [getattr(r, "_batcher_service", None) is not None for r in reps] == [True, False]
+    # the fleet dispatches on a thread of its own: read once a token is out
     assert started.wait(TIMEOUT)
+    assert [getattr(r, "_batcher_service", None) is not None for r in reps] == [True, False]
     assert rs.drain_replica(reps[0]) is reps[0]
     assert rs.collect_drained() == [] and rs.collect_drained() == []  # busy
     assert rs.submit_sync([4, 5, 6], 6, timeout_s=TIMEOUT) == \
