@@ -22,6 +22,9 @@ kernel of that path against its plain PyTorch version.
     python3 chip_smoke.py --fleet      # only: build, then the replica-fleet phase (its
                                        # [fleet faults] part included)
     python3 chip_smoke.py --disagg     # only: build, then the disaggregation phase
+    python3 chip_smoke.py --tracing    # only: build, then the traced parts: [bf16 tracing],
+                                       # the fleet phase (its faults traced) and the
+                                       # disaggregation phase's traced (a) / (c) runs
 
 Phases (any failure exits non-zero; nothing swallows an error):
 
@@ -205,6 +208,19 @@ Phases (any failure exits non-zero; nothing swallows an error):
    a batch job is staged: a staged job preempted, the batch tokens equal to
    a run without interactive traffic, the scrape's tenant series and TTFT
    counts by class equal to the run's; interactive and batch TTFT printed.
+   Inside the bf16 serving phase, after its graph runs, the tracing phase
+   (``tracing_phase``, lines ``[bf16 tracing] ...``) on the same loaded
+   weights: a plain and a traced graph batcher (``tracing=True``: a flight
+   recorder) take the 8 requests over REST in turns, each with a sampled
+   W3C ``traceparent``, their admission gated so each turn runs one
+   schedule: tokens bit-equal (greedy, then seeded at T = 0.8), K1 / K2
+   launches equal, every chunk and dispatch a replay; each timeline's trace
+   id, token count, chunk events and TTFT exact; two unsampled requests
+   kept by the tail threshold; SSE ``X-Trace-Id`` and gRPC ``x-trace-id`` =
+   the done event's trace id; REST ``/debug/timeline`` = gRPC
+   ``DebugTimeline``; one span tree a retained request at an OTLP collector
+   on 127.0.0.1, no span dropped. Printed: the decode step wall and the
+   host time a dispatch, traced against plain.
    Then the checkpoint phase (``checkpoint_phase``): a 7B-width model and a
    TinyLlama-1.1B-width draft, both cut to CKPT_LAYERS layers, written with
    the port's ``export_checkpoint`` and served by ``model_uri`` (tokens ==
@@ -294,7 +310,12 @@ Phases (any failure exits non-zero; nothing swallows an error):
    decode a replay; (c) a half-open probe on the fleet's FaultClock
    restarts the victim's loop on a new thread over its captured graphs and
    reinstates it, with the survivor's tokens and every page back; (d) a
-   kill with the retry budget spent answers 503 with ``Retry-After``.
+   kill with the retry budget spent answers 503 with ``Retry-After``. The
+   part runs with the tracer on, its batchers rebuilt with flight
+   recorders: no timeline left open on either replica, each resumed
+   request's victim timeline completed "error" and its survivor timeline
+   with one ``resume`` event of the delivered tokens, ``llm.resume`` in its
+   trace; the split of kill -> resumed printed (``fault_timelines``).
    The disaggregation phase (``disagg_phase``, lines ``[disagg ...]``) runs
    after the fleet: Llama-2-7B at full width and depth through the
    component app's ``/v1/generate``, local chunked prefill against prefill
@@ -312,7 +333,9 @@ Phases (any failure exits non-zero; nothing swallows an error):
    with the trie on — chunks a stage (the suffix only), hit tokens; (d)
    int8 weights and KV. Tokens equal to local up to a near-tie (teacher
    forced in (a)), every chunk a worker's replay, launches as the chunks
-   say, every page back.
+   say, every page back. The remote runs of (a) and (c) are traced: every
+   timeline's handoff events in order, and the handoff's split printed
+   (``handoff_split``).
 
 The line before the last is the kernel table as JSON (K1 over a bf16 pool,
 K1 over an int8 pool, K2, K3, K4's decode kernel, K4's prefill kernel; K2's
@@ -327,6 +350,7 @@ port's package beside it, the script exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -441,6 +465,7 @@ LORA_MAX = 8
 LORA_ALPHA = 16
 LORA_B_STD = 0.05
 LORA_NAMES = ("acme-support", "globex-legal", "initech-code")
+LORA_MIDRUN_TRIES = 3   # runs allowed for the mid-run adapter load to overlap decoding
 # the tenant phase: a flood of batch-class requests (three prefill chunks
 # each, so a staged job spans loop turns) and a few interactive ones
 TENANT_FLOOD = 16
@@ -2209,13 +2234,15 @@ def generate_phase(label: str, card: str, server, url: str, texts) -> dict:
 BURST_GAP_MS = 2.0
 
 
-def sse_client(url: str, body: dict, stop_after: Optional[int] = None, on_event=None):
+def sse_client(url: str, body: dict, stop_after: Optional[int] = None, on_event=None,
+               headers: Optional[dict] = None, resp_headers: Optional[dict] = None):
     """One streaming POST /v1/generate read event by event as it arrives
     (``readline``). Returns (status, the time the request was sent, [(arrival
     time, event)], the time the response's headers arrived: the server sends
     them just before it submits the request); with ``stop_after`` the
     client closes its socket after that many events; ``on_event(event)``
-    is called as each arrives."""
+    is called as each arrives. ``headers`` go with the request; the
+    response's are copied into ``resp_headers`` when given."""
     import http.client
     from urllib.parse import urlsplit
 
@@ -2223,9 +2250,11 @@ def sse_client(url: str, body: dict, stop_after: Optional[int] = None, on_event=
     conn = http.client.HTTPConnection(u.hostname, u.port, timeout=600)
     t0 = time.perf_counter()
     conn.request("POST", "/v1/generate", json.dumps(dict(body, stream=True)),
-                 {"Content-Type": "application/json"})
+                 {"Content-Type": "application/json", **(headers or {})})
     resp = conn.getresponse()
     t_headers = time.perf_counter()
+    if resp_headers is not None:
+        resp_headers.update(resp.getheaders())
     events = []
     try:
         if resp.status != 200:
@@ -2508,6 +2537,418 @@ def grpc_phase(label: str, card: str, server, url: str, text: str) -> None:
         fail(f"[{label}] gRPC GenerateStream events differ from SSE's: {got} vs {want}")
     print(f"[{label}] gRPC Model/GenerateStream: {len(got)} events, equal to the SSE "
           f"stream's [{card}]", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# Tracing: W3C traceparent, the flight recorder, OTLP, /debug/timeline
+# ---------------------------------------------------------------------------
+TRACE_TAIL_TTFT_MS = "1"   # the tail threshold: every served TTFT is above it
+TRACE_TURNS = ("plain", "traced", "traced", "plain")   # greedy, in turns
+TRACE_TTFT_TOL_S = 1e-3
+
+
+class OTLPCollector:
+    """An OTLP/HTTP collector on 127.0.0.1 (the standard library's
+    http.server): every POST body to /v1/traces kept, parsed."""
+
+    def __init__(self):
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+        self.bodies = []
+        outer = self
+
+        class Handler(BaseHTTPRequestHandler):
+            def do_POST(self):
+                data = self.rfile.read(int(self.headers["Content-Length"]))
+                ok = self.path == "/v1/traces"
+                if ok:
+                    outer.bodies.append(json.loads(data))
+                self.send_response(200 if ok else 404)
+                self.send_header("Content-Length", "0")
+                self.end_headers()
+
+            def log_message(self, *args):
+                pass
+
+        self.httpd = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.thread = threading.Thread(target=self.httpd.serve_forever, daemon=True)
+        self.thread.start()
+        self.url = f"http://127.0.0.1:{self.httpd.server_address[1]}"
+
+    def spans(self) -> list:
+        return [s for b in self.bodies for rs in b["resourceSpans"]
+                for ss in rs["scopeSpans"] for s in ss["spans"]]
+
+    def close(self) -> None:
+        self.httpd.shutdown()
+        self.httpd.server_close()
+        self.thread.join(10)
+
+
+@contextlib.contextmanager
+def traced(collector: Optional[OTLPCollector] = None):
+    """The process tracer on for the block (exporting to ``collector`` when
+    given), then flushed and off again. The REST and gRPC apps hold the
+    tracer object itself, so the switch reaches apps built before it; a
+    batcher built inside the block carries a flight recorder."""
+    from seldon_core_tpu_torch.tracing import get_tracer
+    from seldon_core_tpu_torch.tracing.export import OTLPExporter
+
+    tr = get_tracer()
+    if tr.enabled:
+        fail("the tracer is on before a traced part: TRACING must be unset for chip_smoke")
+    tr.enabled = True
+    tr.exporter = OTLPExporter(collector.url, timeout_s=30.0) if collector is not None else None
+    try:
+        yield tr
+    finally:
+        tr.flush()
+        tr.enabled, tr.exporter = False, None
+        tr.drain()
+
+
+def gate_admission(b, n: int, timeout_s: float = 120.0) -> None:
+    """Installs a one-shot hook on the batcher's loop (its ``_chaos``, called
+    at the top of every turn): the next turn waits until ``n`` requests are
+    queued, then the hook removes itself. The loop decides from host state
+    alone, so a gated run admits, prefills and dispatches on the same
+    schedule whatever time its clients arrive at: two runs' launch counts
+    compare exactly."""
+    def hook(batcher):
+        t0 = time.perf_counter()
+        while len(batcher._pending) < n:
+            if time.perf_counter() - t0 > timeout_s:
+                batcher._chaos = None
+                raise RuntimeError(f"gate: {len(batcher._pending)} of {n} requests queued")
+            time.sleep(0.0002)
+        batcher._chaos = None
+
+    b._chaos = hook
+
+
+def trace_ids(i: int, turn: int):
+    """Request i's inbound (trace id, span id) in run ``turn``: unique."""
+    return f"{turn:08x}{i:08x}" + "7" * 16, f"{turn:04x}{i:04x}" + "5" * 8
+
+
+def traceparent(parent, sampled: bool = True) -> dict:
+    return {"traceparent": f"00-{parent[0]}-{parent[1]}-{'01' if sampled else '00'}"}
+
+
+def post_traced(url: str, bodies, parents, sampled: bool = True):
+    """One POST /v1/generate a body, all at once, request i with the W3C
+    traceparent of ``parents[i]``. Returns (results as (status, headers,
+    body), wall)."""
+    results = [None] * len(bodies)
+
+    def client(i):
+        results[i] = post_headers(url + "/v1/generate", bodies[i],
+                                  headers=traceparent(parents[i], sampled))
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(len(bodies))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    return results, time.perf_counter() - t0
+
+
+def check_timelines(label: str, server, b, texts, results, parents, sampling: str) -> dict:
+    """Each request's timeline in ``b``'s recorder, found by its inbound
+    trace id: status ``done``, ``sampling``, no event dropped, the token
+    events' sum = its tokens = the response's count, one ``prefill_chunk``
+    event a chunk its prompt runs, one ``first_token``; the TTFTs within
+    TRACE_TTFT_TOL_S of the batcher's own observations (``_ttft_times``,
+    both sorted). Returns {trace id: timeline}."""
+    by_id = {t["trace_id"]: t for t in b._flight.timelines(256)}
+    out = {}
+    for i, (res, parent) in enumerate(zip(results, parents)):
+        tl = by_id.get(parent[0])
+        if tl is None:
+            fail(f"[{label}] request {i}: no timeline for its trace id {parent[0]}")
+        code, _, body = res
+        if code != 200 or body.get("trace_id") != parent[0]:
+            fail(f"[{label}] request {i} answered {code} with trace_id {body.get('trace_id')}, "
+                 f"sent {parent[0]}")
+        kinds = [e["kind"] for e in tl["events"]]
+        chunks = chunks_of(b, len(prompt_ids(server, texts[i])))
+        if (tl["status"], tl["sampling"], tl["events_dropped"]) != ("done", sampling, 0) or \
+                not (tl["token_events_sum"] == tl["tokens"] == len(body["tokens"])) or \
+                kinds.count("prefill_chunk") != len(chunks) or kinds.count("first_token") != 1:
+            fail(f"[{label}] request {i}'s timeline: status {tl['status']}, sampling "
+                 f"{tl['sampling']} (want {sampling}), dropped {tl['events_dropped']}, token "
+                 f"events {tl['token_events_sum']} / credited {tl['tokens']} / served "
+                 f"{len(body['tokens'])}, chunks {kinds.count('prefill_chunk')} (the prompt "
+                 f"runs {len(chunks)}), first tokens {kinds.count('first_token')}")
+        out[parent[0]] = tl
+    got = sorted(t["ttft_s"] for t in out.values())
+    want = sorted(server._ttft_times)
+    if len(got) != len(want) or max(abs(x - y) for x, y in zip(got, want)) > TRACE_TTFT_TOL_S:
+        fail(f"[{label}] timeline TTFTs {got} vs the batcher's {want} (tolerance "
+             f"{TRACE_TTFT_TOL_S} s)")
+    return out
+
+
+def span_trees(label: str, collector: OTLPCollector, trees) -> int:
+    """``trees``: (timeline, the inbound span id). Each retained request's
+    spans at the collector form one tree in its trace: one root
+    ``llm.request <ingress>``, under the caller's span when head-sampled
+    (tail: no parent), every other span its child, one ``llm.step`` a step
+    event. Returns the trees checked."""
+    by_trace = {}
+    for s in collector.spans():
+        by_trace.setdefault(s["traceId"], []).append(s)
+    for tl, parent_span in trees:
+        mine = by_trace.get(tl["trace_id"], [])
+        roots = [s for s in mine if s["name"].startswith("llm.request")]
+        if len(roots) != 1:
+            fail(f"[{label}] trace {tl['trace_id']}: {len(roots)} roots among {len(mine)} spans")
+        root = roots[0]
+        want_parent = parent_span if tl["sampling"] == "head" else None
+        steps = sum(1 for e in tl["events"] if e["kind"] == "step")
+        if root["name"] != f"llm.request {tl['ingress']}" or \
+                root.get("parentSpanId") != want_parent or \
+                any(s.get("parentSpanId") != root["spanId"] for s in mine if s is not root) or \
+                sum(1 for s in mine if s["name"] == "llm.step") != steps:
+            fail(f"[{label}] trace {tl['trace_id']}'s spans do not form its request's tree "
+                 f"(root {root['name']!r} under {root.get('parentSpanId')}, want "
+                 f"{want_parent}; {len(mine)} spans, {steps} steps)")
+    return len(trees)
+
+
+def tracing_phase(card: str, server) -> list:
+    """[bf16 tracing] on a loaded bf16 server (graph batchers, K = 1). Two
+    services on it, built under ``set_sync_debug_mode("error")``: a plain
+    one (``tracing=False``) and a traced one (``tracing=True``, the TTFT
+    tail threshold set). The N_REQUESTS prompts go over REST in turns
+    (TRACE_TURNS), the tracer off for the plain turns, each turn's
+    admission gated (``gate_admission``) so every turn runs one schedule.
+    Checks: every turn's tokens bit-equal to the first plain turn's and its
+    K1 and K2 launches equal to it (``check_launches``: every chunk a
+    replay, none eager; no eager dispatch); the traced turns' timelines
+    (``check_timelines``, each request with a sampled inbound
+    traceparent); two requests with unsampled traceparents retained by the
+    tail threshold; an SSE stream's ``X-Trace-Id`` = its done event's trace
+    id = the inbound one, gRPC ``GenerateStream``'s ``x-trace-id`` initial
+    metadata likewise; REST ``/debug/timeline?n=8`` = gRPC
+    ``DebugTimeline`` with the server quiescent; at the OTLP collector one
+    span tree a retained request (``span_trees``), the scrape's
+    ``seldon_trace_spans_dropped_total`` 0 and its retained counts the
+    recorder's; then both services rebuilt at T = FAULT_TEMPERATURE, top_k
+    FAULT_TOP_K, and the seeded prompts once each way, bit-equal, with
+    equal K1 and K2 launches. Measured: each turn's decode step wall
+    median and host time a dispatch. Returns the launch records of every
+    turn."""
+    import grpc
+
+    import torch
+
+    from seldon_core_tpu_torch.contracts.payload import SeldonMessage
+    from seldon_core_tpu_torch.transport import proto_convert as pc
+    from seldon_core_tpu_torch.transport.grpc_server import make_component_server
+    from seldon_core_tpu_torch.transport.proto import prediction_pb2 as pb
+
+    label = "bf16 tracing"
+    t_phase = time.perf_counter()
+    texts = prompts(N_REQUESTS)
+    bodies = [{"prompt": t} for t in texts]
+    server.decode_fuse_steps = 0
+    top_k0 = server.top_k
+    collector = OTLPCollector()
+    records, turns, trees = [], [], []
+    svcs, httpds, urls = {}, [], {}
+
+    def build(temperature: float, top_k: int) -> None:
+        for svc in svcs.values():
+            svc.close()
+        server._batcher_service = None
+        svcs.clear()
+        server.temperature, server.top_k = temperature, top_k
+        with server._lock:
+            server._decode_cache.clear()  # the step programs hold top_k
+        release_server_memory()
+        builds = []
+        for mode in ("plain", "traced"):
+            if mode == "traced":
+                os.environ["TRACING_TAIL_TTFT_MS"] = TRACE_TAIL_TTFT_MS
+            try:
+                svc, httpd, url, build_s = build_service(f"{label} {mode}", server,
+                                                         tracing=mode == "traced")
+            finally:
+                os.environ.pop("TRACING_TAIL_TTFT_MS", None)
+            svcs[mode], urls[mode] = svc, url
+            httpds.append(httpd)
+            builds.append(build_s)
+        rec = svcs["traced"].batcher._flight
+        if svcs["plain"].batcher._flight is not None or rec is None or \
+                rec.tail_ttft_s != float(TRACE_TAIL_TTFT_MS) / 1e3:
+            fail(f"[{label}] the recorders: plain {svcs['plain'].batcher._flight}, traced {rec}")
+        print(f"[{label}] services built at temperature {temperature}: plain {builds[0]:.2f} s, "
+              f"traced {builds[1]:.2f} s (graphs captured under set_sync_debug_mode('error')) "
+              f"[{card}]", flush=True)
+
+    def run(mode: str, turn: int, reqs, tr) -> dict:
+        svc = svcs[mode]
+        server._batcher_service = svc
+        b = svc.batcher
+        parents = [trace_ids(i, turn) for i in range(len(reqs))]
+        torch.cuda.synchronize()
+        zero_counts(server)
+        server._decode_replays = server._decode_eager = 0
+        tr.enabled = mode == "traced"
+        gate_admission(b, len(reqs))
+        try:
+            results, wall = post_traced(urls[mode], reqs, parents)
+        finally:
+            tr.enabled = True
+        counts = read_counts(server)
+        if b._chaos is not None:
+            fail(f"[{label}] turn {turn}: the gate never opened")
+        served = served_tokens(f"{label} turn {turn}", [(c, body) for c, _, body in results])
+        steps = check_launches(f"{label} turn {turn} ({mode})", card, counts,
+                               [128] * len(reqs), False, False, False)
+        if server._decode_eager or server._decode_replays <= 0:
+            fail(f"[{label}] turn {turn}: decode dispatches replayed {server._decode_replays}, "
+                 f"eager {server._decode_eager}")
+        m = {"mode": mode, "step_ms": statistics.median(server._decode_step_times) * 1e3,
+             "dispatch_ms": statistics.median(server._decode_dispatch_times) * 1e3,
+             "steps": steps, "wall_s": wall, "counts": counts, "served": served}
+        if mode == "traced":
+            tls = check_timelines(f"{label} turn {turn}", server, b, texts, results, parents,
+                                  "head")
+            trees.extend((tls[tid], sid) for tid, sid in parents)
+        records.append((f"{label} turn {turn}", counts))
+        return m
+
+    def same(ref: dict, m: dict, what: str) -> None:
+        if m["served"] != ref["served"]:
+            fail(f"[{label}] {what}: a {m['mode']} turn's tokens differ from the plain turn's")
+        if (m["counts"]["k1"], m["counts"]["k2"]) != (ref["counts"]["k1"], ref["counts"]["k2"]):
+            fail(f"[{label}] {what}: a {m['mode']} turn's K1 / K2 launches {m['counts']['k1']} "
+                 f"/ {m['counts']['k2']} != the plain turn's {ref['counts']['k1']} / "
+                 f"{ref['counts']['k2']}")
+
+    try:
+        with traced(collector) as tr:
+            build(0.0, top_k0)
+            for turn, mode in enumerate(TRACE_TURNS):
+                turns.append(run(mode, turn, bodies, tr))
+            for m in turns[1:]:
+                same(turns[0], m, "greedy")
+            # the tail: two unsampled requests, retained by the TTFT threshold
+            b = svcs["traced"].batcher
+            server._batcher_service = svcs["traced"]
+            tail_parents = [trace_ids(i, 90) for i in range(2)]
+            zero_counts(server)
+            tail, _ = post_traced(urls["traced"], bodies[:2], tail_parents, sampled=False)
+            tls = check_timelines(f"{label} tail", server, b, texts[:2], tail, tail_parents,
+                                  "tail")
+            trees.extend((tls[tid], sid) for tid, sid in tail_parents)
+            # SSE, then gRPC: the trace id before the first token = the done event's
+            sse_parent, g_parent = trace_ids(0, 91), trace_ids(0, 92)
+            hdrs = {}
+            res = sse_client(urls["traced"], {"prompt": texts[0]}, resp_headers=hdrs,
+                             headers=traceparent(sse_parent))
+            streamed_tokens(f"{label} sse", res)
+            done = res[2][-1][1]
+            if not (hdrs.get("X-Trace-Id") == done.get("trace_id") == sse_parent[0]):
+                fail(f"[{label}] SSE X-Trace-Id {hdrs.get('X-Trace-Id')}, done event "
+                     f"{done.get('trace_id')}, sent {sse_parent[0]}")
+            gsrv = make_component_server(server, host="127.0.0.1", port=None)
+            gport = gsrv.add_insecure_port("127.0.0.1:0")
+            gsrv.start()
+            try:
+                with grpc.insecure_channel(f"127.0.0.1:{gport}") as channel:
+                    rpc = channel.unary_stream(
+                        "/seldon.protos.Model/GenerateStream",
+                        request_serializer=lambda m: m.SerializeToString(),
+                        response_deserializer=pb.SeldonMessage.FromString)
+                    call = rpc(pc.message_to_proto(SeldonMessage.from_json_data(
+                        {"prompt": texts[0]})), timeout=600,
+                        metadata=tuple(traceparent(g_parent).items()))
+                    md = dict(call.initial_metadata())
+                    events = [pc.message_from_proto(m).json_data for m in call]
+                if not (md.get("x-trace-id") == events[-1].get("trace_id") == g_parent[0]) \
+                        or events[-1]["tokens"] != done["tokens"]:
+                    fail(f"[{label}] gRPC x-trace-id {md.get('x-trace-id')}, done event "
+                         f"{events[-1].get('trace_id')}, sent {g_parent[0]}; tokens equal to "
+                         f"SSE's: {events[-1]['tokens'] == done['tokens']}")
+                # quiescent: REST /debug/timeline = gRPC DebugTimeline
+                with urllib.request.urlopen(urls["traced"] + "/debug/timeline?n=8",
+                                            timeout=60) as r:
+                    rest = json.loads(r.read())
+                with grpc.insecure_channel(f"127.0.0.1:{gport}") as channel:
+                    rpc = channel.unary_unary(
+                        "/seldon.protos.Model/DebugTimeline",
+                        request_serializer=lambda m: m.SerializeToString(),
+                        response_deserializer=pb.SeldonMessage.FromString)
+                    grep = pc.message_from_proto(rpc(pc.message_to_proto(
+                        SeldonMessage.from_json_data({"n": 8})), timeout=60)).json_data
+            finally:
+                gsrv.stop(None)
+            if grep != rest or len(rest["timelines"]) != 8 or not rest["tracing"]:
+                fail(f"[{label}] REST /debug/timeline?n=8 ({len(rest['timelines'])} timelines) "
+                     f"!= gRPC DebugTimeline ({len(grep.get('timelines', []))})")
+            by_id = {t["trace_id"]: t for t in b._flight.timelines(256)}
+            trees.extend((by_id[p[0]], p[1]) for p in (sse_parent, g_parent))
+            retained = dict(b._flight.snapshot()["retained"])
+            tr.flush()
+            samples = scrape(urls["traced"])
+            dropped = sample(samples, "seldon_trace_spans_dropped_total")
+            head = sample(samples, "seldon_llm_traces_retained_total", 'mode="head"')
+            tailn = sample(samples, "seldon_llm_traces_retained_total", 'mode="tail"')
+            n_trees = span_trees(label, collector, trees)
+            if dropped != 0 or tr.spans_dropped_total != 0 or tailn != 2 or \
+                    head != retained["head"] or retained["tail"] != 2:
+                fail(f"[{label}] scrape: spans dropped {dropped}, retained head {head} / tail "
+                     f"{tailn}; the recorder's {retained}")
+            posts, n_spans = len(collector.bodies), len(collector.spans())
+            # seeded: both services rebuilt at a sampling temperature
+            build(FAULT_TEMPERATURE, FAULT_TOP_K)
+            seeded = [dict(body, seed=FAULT_SEEDS[i]) for i, body in enumerate(bodies)]
+            s_plain = run("plain", 10, seeded, tr)
+            s_traced = run("traced", 11, seeded, tr)
+            same(s_plain, s_traced, "seeded")
+    finally:
+        for httpd in httpds:
+            httpd.shutdown()
+            httpd.server_close()
+        for svc in svcs.values():
+            svc.close()
+        server._batcher_service = None
+        server.temperature, server.top_k = 0.0, top_k0
+        with server._lock:
+            server._decode_cache.clear()
+        collector.close()
+
+    def ms(ms_list, key, fmt):
+        return " / ".join(format(m[key], fmt) for m in ms_list)
+
+    plain = [m for m in turns if m["mode"] == "plain"]
+    trace = [m for m in turns if m["mode"] == "traced"]
+    ratio = (statistics.mean(m["step_ms"] for m in trace)
+             / statistics.mean(m["step_ms"] for m in plain) - 1)
+    ref = turns[0]
+    print(f"[{label}] {N_REQUESTS} requests x {MAX_NEW} tokens over REST a turn, admission gated "
+          f"(one schedule every turn), turns {' / '.join(TRACE_TURNS)}: tokens bit-equal in "
+          f"every turn (greedy; seeded at T = {FAULT_TEMPERATURE}, one turn each way, too), K1 / "
+          f"K2 launches equal ({ref['counts']['k1']} / {ref['counts']['k2']}: {ref['steps']} "
+          f"decode steps), every chunk and dispatch a replay; decode step wall median traced "
+          f"{ms(trace, 'step_ms', '.3f')} ms vs plain {ms(plain, 'step_ms', '.3f')} ms "
+          f"({ratio:+.2%}); host time a dispatch median traced {ms(trace, 'dispatch_ms', '.4f')} "
+          f"ms vs plain {ms(plain, 'dispatch_ms', '.4f')} ms; seeded step wall traced "
+          f"{s_traced['step_ms']:.3f} vs plain {s_plain['step_ms']:.3f} ms [{card}]", flush=True)
+    print(f"[{label}] timelines: each request's trace id the inbound one, token events = tokens "
+          f"= the response's {MAX_NEW}, no event dropped, one prefill_chunk event a chunk, TTFT "
+          f"within {TRACE_TTFT_TOL_S * 1e3:.0f} ms of the batcher's; 2 unsampled requests "
+          f"retained by the tail threshold ({TRACE_TAIL_TTFT_MS} ms); SSE X-Trace-Id = its done "
+          f"event's, gRPC x-trace-id = its done event's; REST /debug/timeline?n=8 = gRPC "
+          f"DebugTimeline; OTLP: {posts} posts, {n_spans} spans, {n_trees} request trees each "
+          f"rooted at its ingress span; seldon_trace_spans_dropped_total 0, retained head "
+          f"{head:.0f} / tail {tailn:.0f}; phase_s {time.perf_counter() - t_phase:.1f} [{card}]",
+          flush=True)
+    return records
 
 
 def serve(label: str, card: str, server, weight_bytes: int, fuse: int = 0,
@@ -4734,17 +5175,30 @@ def lora_phase(label: str, card: str, knobs: dict, root: str) -> tuple:
             seen["load_s"] = time.perf_counter() - t0
             seen["still"] = sum(s.active for s in b._slots)
 
-        again, counts, _, _, _, _, _ = lora_served_run(f"{label} mid-run load", card, server,
-                                                       url, texts, assign, during=load_midrun)
-        records.append((f"{label} mid-run load", counts))
-        print(f"[{label}] mid-run load: {seen['active']} slots active when adapter 'fourth' "
-              f"loaded into row {seen['row']} in {seen['load_s'] * 1e3:.1f} ms ({seen['still']} "
-              f"still active after); evict({LORA_NAMES[0]!r}) while pinned by {seen['refs']} "
-              f"returned {seen['evict']} [{card}]", flush=True)
-        if seen["evict"] is not False or seen["refs"] == 0 or seen["still"] == 0:
-            fail(f"[{label}] the mid-run load did not overlap pinned, decoding requests: {seen}")
-        midrun_equal = near_tie_check(f"{label} mid-run load vs without", card, server, texts,
-                                      again, served, ids)
+        # the load's copies queue behind the decode replays in flight, so it
+        # can outlast the requests' last steps: a run whose load ended after
+        # every request is taken again (up to LORA_MIDRUN_TRIES runs, each
+        # one's tokens checked), the adapter evicted first; one run must
+        # overlap
+        for attempt in range(1, LORA_MIDRUN_TRIES + 1):
+            if attempt > 1:
+                reg.evict("fourth")
+            again, counts, _, _, _, _, _ = lora_served_run(
+                f"{label} mid-run load", card, server, url, texts, assign, during=load_midrun)
+            records.append((f"{label} mid-run load {attempt}", counts))
+            print(f"[{label}] mid-run load (run {attempt}): {seen['active']} slots active when "
+                  f"adapter 'fourth' loaded into row {seen['row']} in {seen['load_s'] * 1e3:.1f} "
+                  f"ms ({seen['still']} still active after); evict({LORA_NAMES[0]!r}) while "
+                  f"pinned by {seen['refs']} returned {seen['evict']} [{card}]", flush=True)
+            if seen["evict"] is not False or seen["refs"] == 0:
+                fail(f"[{label}] an evict while pinned was not refused: {seen}")
+            midrun_equal = near_tie_check(f"{label} mid-run load vs without", card, server,
+                                          texts, again, served, ids)
+            if seen["still"] > 0:
+                break
+        else:
+            fail(f"[{label}] in {LORA_MIDRUN_TRIES} runs the mid-run load never overlapped "
+                 f"pinned, decoding requests: {seen}")
         code, body = post(url + "/v1/generate", {"prompt": texts[0], "adapter": "fourth"},
                           headers={"Seldon-Tenant": "late"})
         if code != 200:
@@ -5942,10 +6396,13 @@ def fault_kill(label: str, card: str, rs, replicas, url: str, texts, seeds=None)
     ``seldon_fleet_resumes_total`` up by the markers, journal depth 0; on
     both replicas every chunk, decode and CoW a replay (the survivor's
     re-admissions included); tokens teacher-forced and equal to the
-    survivor's unfaulted run of the same requests up to a near-tie. Returns
-    the run's launches (zeroed before the streams, read after them), the
-    victim and survivor indices, the free pages before the kill, the loop
-    threads before it and the line's numbers."""
+    survivor's unfaulted run of the same requests up to a near-tie. With
+    the batchers' flight recorders on, each stream also carries a sampled
+    ``traceparent`` (``trace_ids``) and ``fault_timelines`` checks and
+    splits the timelines. Returns the run's launches (zeroed before the
+    streams, read after them), the victim and survivor indices, the free
+    pages before the kill, the loop threads before it and the line's
+    numbers."""
     import torch
 
     from seldon_core_tpu_torch.testing.faults import BatcherKiller, LeakSweep
@@ -5977,6 +6434,8 @@ def fault_kill(label: str, card: str, rs, replicas, url: str, texts, seeds=None)
     hits = [b._radix.stats()["prefix_hit_tokens"] for b in batchers]
     resumes0 = sample(scrape(url), "seldon_fleet_resumes_total")
     results = [None] * len(texts)
+    traced_run = batchers[0]._flight is not None
+    parents = [trace_ids(i, 200 if seeds is None else 201) for i in range(len(texts))]
 
     def client(i):
         def on_event(ev):
@@ -5986,7 +6445,8 @@ def fault_kill(label: str, card: str, rs, replicas, url: str, texts, seeds=None)
         body = {"prompt": texts[i]}
         if seeds is not None:
             body["seed"] = seeds[i]
-        results[i] = sse_client(url, body, on_event=on_event)
+        results[i] = sse_client(url, body, on_event=on_event,
+                                headers=traceparent(parents[i]) if traced_run else None)
 
     torch.cuda.synchronize()
     zero_kernel_counts()
@@ -6031,6 +6491,8 @@ def fault_kill(label: str, card: str, rs, replicas, url: str, texts, seeds=None)
              f"{[replicas.index(r) for r in rs.ejected_members()]}")
     vb = batchers[v]
     killer.killed_thread.join(60)  # the crash path's end
+    split = (fault_timelines(label, vb, batchers[1 - v], parents, resumed_idx, markers,
+                             kill_t[0]) if traced_run else None)
     if vb.crashed is None or vb._thread is not None:
         fail(f"[{label}] the victim's loop: crashed {vb.crashed!r}, thread {vb._thread}")
     residue = LeakSweep(vb).residue()
@@ -6069,7 +6531,81 @@ def fault_kill(label: str, card: str, rs, replicas, url: str, texts, seeds=None)
             "threads_before": threads_before, "markers": markers, "resumed": resumed_idx,
             "kill_to_marker_ms": [x * 1e3 for x in kill_to_marker],
             "gaps_ms": [x * 1e3 for x in gaps], "steady_ms": [x * 1e3 for x in steady],
-            "equal": equal, "hit_tokens": hit, "survivor_chunks": sd[0]}
+            "equal": equal, "hit_tokens": hit, "survivor_chunks": sd[0], "split": split}
+
+
+def fault_timelines(label: str, vb, sb, parents, resumed, markers, kill_t: float) -> dict:
+    """The traced kill's timelines. The victim's crash path left no open
+    segment, and every resumed request's victim timeline completed
+    "error"; on the survivor (no open segment either) each resumed request
+    has one timeline with a ``resume`` event, exactly one, whose tokens are
+    the tokens its client had, just before its ``first_token``; the fleet's
+    ``llm.resume`` span is in that request's trace, under its caller's
+    span. Returns the split of kill -> resumed, in ms on one clock (the
+    kill on perf_counter, the timelines' wall stamps mapped back through
+    the span clock): the victim's error completion, the survivor's submit,
+    its queue wait, admission to the first token (its chunks: count, host
+    enqueue wall), and the first token."""
+    from seldon_core_tpu_torch.tracing import get_tracer, now
+
+    offset = now() - time.perf_counter()   # wall - perf_counter (both monotonic)
+    kill_wall = kill_t + offset
+    if vb._flight.live_slots() or sb._flight.live_slots():
+        fail(f"[{label}] open segments after the kill: victim {vb._flight.live_slots()}, "
+             f"survivor {sb._flight.live_slots()}")
+    dead = {t["trace_id"]: t for t in vb._flight.timelines(256) if t["status"] == "error"}
+    ids = {p[0] for p in parents}
+    if not set(dead) <= ids or any(parents[i][0] not in dead for i in resumed):
+        fail(f"[{label}] the victim's error timelines {sorted(dead)} vs the resumed requests "
+             f"{[parents[i][0] for i in resumed]}")
+    spans = [s for s in get_tracer().drain()
+             if s.name == "llm.resume" and "tokens_delivered" in s.tags]
+    out = {"victim_error_ms": [], "submit_ms": [], "queue_ms": [], "admit_ms": [],
+           "chunks": [], "chunk_ms": [], "first_token_ms": []}
+    for i, n in zip(resumed, markers):
+        tid, sid = parents[i]
+        tls = [t for t in sb._flight.timelines(256) if t["trace_id"] == tid and
+               any(e["kind"] == "resume" for e in t["events"])]
+        if len(tls) != 1:
+            fail(f"[{label}] request {i}: {len(tls)} survivor timelines carry a resume event")
+        tl = tls[0]
+        kinds = [e["kind"] for e in tl["events"]]
+        res = [e for e in tl["events"] if e["kind"] == "resume"]
+        if len(res) != 1 or res[0]["tokens"] != n or \
+                kinds.index("resume") != kinds.index("first_token") - 1 or \
+                tl["status"] != "done" or \
+                not (tl["token_events_sum"] == tl["tokens"] == MAX_NEW - n):
+            fail(f"[{label}] request {i}'s survivor timeline: resume events {res} (its client "
+                 f"had {n} tokens), kinds {kinds}, status {tl['status']}, tokens {tl['tokens']}")
+        mine = [sp for sp in spans if sp.trace_id == tid]
+        if len(mine) != 1 or mine[0].parent_id != sid or mine[0].tags["tokens_delivered"] != n:
+            fail(f"[{label}] request {i}: llm.resume spans in its trace {mine}")
+        ev = {e["kind"]: e for e in tl["events"]}
+        chunks = [e for e in tl["events"] if e["kind"] == "prefill_chunk"]
+        end = dead[tid]["t_submit_wall"] + dead[tid]["total_s"]
+        out["victim_error_ms"].append((end - kill_wall) * 1e3)
+        out["submit_ms"].append((tl["t_submit_wall"] - kill_wall) * 1e3)
+        out["queue_ms"].append(tl["queue_wait_s"] * 1e3)
+        out["admit_ms"].append((ev["first_token"]["t_s"] - tl["queue_wait_s"]) * 1e3)
+        out["chunks"].append(len(chunks))
+        out["chunk_ms"].append(sum(e["dur_s"] for e in chunks) * 1e3)
+        out["first_token_ms"].append((tl["t_submit_wall"] + ev["first_token"]["t_s"]
+                                      - kill_wall) * 1e3)
+    return out
+
+
+def split_text(split: dict) -> str:
+    """A fault's kill -> resumed split, each figure over the resumed
+    requests as a range."""
+    def rng(key, fmt=".1f"):
+        xs = split[key]
+        return f"{format(min(xs), fmt)}–{format(max(xs), fmt)}"
+
+    return (f"split of kill -> resumed from the timelines (ms after the kill, host clock): the "
+            f"victim's error completion {rng('victim_error_ms')}, the survivor's submit "
+            f"{rng('submit_ms')}, its queue wait {rng('queue_ms')} ms, admission to the first "
+            f"token {rng('admit_ms')} ms ({rng('chunks', 'd')} chunks, enqueue "
+            f"{rng('chunk_ms', '.2f')} ms), the first token {rng('first_token_ms')}")
 
 
 def fault_line(label: str, card: str, what: str, r: dict) -> None:
@@ -6089,11 +6625,24 @@ def fault_line(label: str, card: str, what: str, r: dict) -> None:
           f"before the kill; scrape seldon_fleet_resumes_total +{len(r['markers'])}, journal "
           f"depth 0; tokens {r['equal']} of {N_REQUESTS} equal to the survivor's unfaulted run "
           f"(the rest up to a near-tie); launches {r['counts']} [{card}]", flush=True)
+    if r["split"] is not None:
+        print(f"[{label}] {what}, traced: no open segment on either replica, every resumed "
+              f"request's victim timeline completed \"error\", one survivor timeline with one "
+              f"resume event of the delivered tokens each, llm.resume in its trace; "
+              f"{split_text(r['split'])} [{card}]", flush=True)
 
 
 def fleet_faults(card: str, rs, replicas, url: str) -> dict:
-    """[fleet faults], on the fleet phase's two replicas behind its app:
-    (a) a kill under 8 greedy SSE streams (``fault_kill``); (c) the fleet's
+    """``fleet_faults_traced`` with the process tracer on (``traced``)."""
+    with traced():
+        return fleet_faults_traced(card, rs, replicas, url)
+
+
+def fleet_faults_traced(card: str, rs, replicas, url: str) -> dict:
+    """[fleet faults], on the fleet phase's two replicas behind its app,
+    both batchers rebuilt first with the tracer on (a flight recorder each):
+    (a) a kill under 8 greedy SSE streams (``fault_kill``, its timelines
+    checked and split by ``fault_timelines``); (c) the fleet's
     FaultClock advanced past ``reinstate_after_s``: the next request
     probes the victim, whose loop restarts on a new thread over the same
     captured graphs (no new capture), answers the survivor's tokens for the
@@ -6121,6 +6670,30 @@ def fleet_faults(card: str, rs, replicas, url: str) -> dict:
         br.clock = clk
     # a budget that covers every stream of a kill ((d) spends it)
     rs.retry_budget = RetryBudget(ratio=1.0, min_retries=2 * N_REQUESTS, clock=clk)
+
+    def rebuild(temperature: float, top_k: int) -> list:
+        """Both batchers rebuilt on the loaded weights, under the tracer;
+        returns the build seconds."""
+        builds = []
+        for r in replicas:
+            r._batcher_service.close()
+            r._batcher_service = None
+        release_server_memory()
+        for i, r in enumerate(replicas):
+            r.temperature, r.top_k = temperature, top_k
+            with r._lock:
+                r._decode_cache.clear()  # the step programs hold top_k
+            svc, httpd, _, build_s = build_service(f"{label} replica {i}", r)
+            httpd.shutdown()
+            httpd.server_close()
+            if svc.batcher._flight is None:
+                fail(f"[{label}] replica {i}'s batcher was built without a flight recorder")
+            builds.append(build_s)
+        return builds
+
+    builds = rebuild(replicas[0].temperature, replicas[0].top_k)
+    print(f"[{label}] both batchers rebuilt with the tracer on (a flight recorder each) in "
+          f"{' / '.join(f'{x:.2f}' for x in builds)} s [{card}]", flush=True)
     # (a) greedy
     texts = [prompt_text(60 + i) for i in range(N_REQUESTS)]
     a = fault_kill(f"{label} (a)", card, rs, replicas, url, texts)
@@ -6180,19 +6753,7 @@ def fleet_faults(card: str, rs, replicas, url: str) -> dict:
           f"launches {counts} "
           f"[{card}]", flush=True)
     # (b) seeded: both batchers rebuilt at the sampling temperature
-    builds = []
-    for r in replicas:
-        r._batcher_service.close()
-        r._batcher_service = None
-    release_server_memory()
-    for i, r in enumerate(replicas):
-        r.temperature, r.top_k = FAULT_TEMPERATURE, FAULT_TOP_K
-        with r._lock:
-            r._decode_cache.clear()  # the step programs hold top_k
-        svc, httpd, _, build_s = build_service(f"{label} replica {i}", r)
-        httpd.shutdown()
-        httpd.server_close()
-        builds.append(build_s)
+    builds = rebuild(FAULT_TEMPERATURE, FAULT_TOP_K)
     texts = [prompt_text(70 + i) for i in range(N_REQUESTS)]
     b = fault_kill(f"{label} (b)", card, rs, replicas, url, texts, seeds=FAULT_SEEDS)
     add_counts(launches, b["counts"])
@@ -6402,6 +6963,43 @@ def import_cost(b, n_tokens: int) -> dict:
             "kernels": sorted({e.key for e in ops})}
 
 
+def handoff_split(label: str, b) -> dict:
+    """Every timeline in ``b``'s recorder (a remote-prefill batcher): the
+    handoff events ``handoff_staged``, ``handoff_compute``,
+    ``handoff_transfer``, ``handoff_import`` in that order, then
+    ``first_token``. Returns the medians (ms) of: staged to the worker's
+    start, the worker's compute, compute end to the transfer's start
+    (network: the frame's encode and the wire), the transfer (device: the
+    move's enqueue; network: the receiver's decode and copies), its end to
+    the import's start (until the loop takes the handoff), the import, and
+    the import's end to the first token, over the timelines after the
+    first (the service's warm-up request), and the sum of the three walls
+    the handoff wall (``_handoff_times``) is made of: compute, transfer,
+    import."""
+    stages = ["handoff_staged", "handoff_compute", "handoff_transfer", "handoff_import"]
+    keys = ("wait_ms", "compute_ms", "ship_ms", "transfer_ms", "pickup_ms", "import_ms",
+            "commit_ms")
+    rows = {k: [] for k in keys}
+    tls = b._flight.timelines(256)
+    rows["wall_ms"] = []
+    for j, tl in enumerate(tls):
+        kinds = [e["kind"] for e in tl["events"]]
+        if [k for k in kinds if k.startswith("handoff")] != stages or \
+                kinds.index("handoff_import") > kinds.index("first_token"):
+            fail(f"[{label}] a remote request's events {kinds}")
+        if j == 0:
+            continue  # the warm-up request
+        ev = {e["kind"]: e for e in tl["events"]}
+        st, co, tr, im = (ev[k] for k in stages)
+        for key, v in zip(keys, (co["t_s"] - co["dur_s"] - st["t_s"], co["dur_s"],
+                                 tr["t_s"] - tr["dur_s"] - co["t_s"], tr["dur_s"],
+                                 im["t_s"] - im["dur_s"] - tr["t_s"], im["dur_s"],
+                                 ev["first_token"]["t_s"] - im["t_s"])):
+            rows[key].append(v * 1e3)
+        rows["wall_ms"].append((co["dur_s"] + tr["dur_s"] + im["dur_s"]) * 1e3)
+    return dict({k: statistics.median(v) for k, v in rows.items()}, n=len(tls) - 1)
+
+
 def disagg_run(label: str, card: str, server, texts, quantized: bool, int8_kv: bool,
                **batcher_kw):
     """``texts`` over REST (``POST /v1/generate``, all at once) on a new
@@ -6446,6 +7044,20 @@ def disagg_run(label: str, card: str, server, texts, quantized: bool, int8_kv: b
                              w._params.parameters(), server._module.parameters())))
             if not m["shared_weights"]:
                 fail(f"[{label}] a worker on the server's card holds weights of its own")
+            if b._flight is not None:
+                m["split"] = handoff_split(label, b)
+                sp = m["split"]
+                print(f"[{label}] traced: every timeline's handoff events staged, compute, "
+                      f"transfer, import in that order, then its first token; the handoff "
+                      f"split, median of {sp['n']} requests (host walls, ms): staged to the "
+                      f"worker's start {sp['wait_ms']:.2f}, compute (the chunks and the "
+                      f"first token's sync) {sp['compute_ms']:.2f}, compute end to the "
+                      f"transfer's start {sp['ship_ms']:.2f}, transfer {sp['transfer_ms']:.2f}, "
+                      f"to the import's start {sp['pickup_ms']:.2f}, import (host enqueue) "
+                      f"{sp['import_ms']:.2f}, to the first token {sp['commit_ms']:.2f}; "
+                      f"compute + transfer + import median {sp['wall_ms']:.2f} beside the "
+                      f"handoff wall median {statistics.median(server._handoff_times) * 1e3:.2f}"
+                      f" [{card}]", flush=True)
             m["import"] = import_cost(b, max(len(prompt_ids(server, t)) for t in texts))
             if b.handoff_transport == "network":
                 st = framing.frame_stats()
@@ -6564,7 +7176,7 @@ def chat_run(label: str, card: str, server, stages, **batcher_kw):
     return (prompts, toks), chunks, hits, counts
 
 
-def disagg_phase(card: str):
+def disagg_phase(card: str, traced_only: bool = False):
     """The disaggregation slice on this card at Llama-2-7B width and depth
     (``load_llm``: random weights from a seed), every service through the
     component app's ``POST /v1/generate``:
@@ -6584,6 +7196,10 @@ def disagg_phase(card: str):
         tokens, tokens;
     (d) int8 weights + int8 KV: local, then remote, tokens.
 
+    The remote runs of (a) and (c) run traced (``traced``): their batchers
+    carry flight recorders, whose timelines ``handoff_split`` checks and
+    splits. ``traced_only`` stops after them (``--tracing``).
+
     Returns the launch records of every served run (counts zeroed just
     before each, read just after) and the metrics."""
     import gc
@@ -6601,14 +7217,19 @@ def disagg_phase(card: str):
     for key, kw in (("a remote", dict(prefill_workers=1)),
                     ("c network", dict(prefill_workers=1, handoff_transport="network"))):
         lab = f"disagg ({key})"
-        served, counts, runs[key] = disagg_run(lab, card, server, texts, False, False,
-                                               disaggregation="remote_prefill", **kw)
+        with traced():   # the batcher built with a flight recorder: handoff_split
+            served, counts, runs[key] = disagg_run(lab, card, server, texts, False, False,
+                                                   disaggregation="remote_prefill", **kw)
         records.append((lab, counts))
         runs[key]["equal"] = near_tie_check(lab, card, server, texts, served, local)
         if key == "a remote":
             teacher_check(lab, card, server, texts, served)
         gc.collect()
         torch.cuda.empty_cache()
+    if traced_only:
+        del server
+        release_server_memory()
+        return records, runs
     streams, burst = burst_texts()
     base = None
     settings = (("b local", dict(disaggregation="off")),
@@ -6848,6 +7469,15 @@ def main() -> int:
         print_disagg(card, disagg_phase(card)[1])
         print(f"total_s {time.perf_counter() - t_start:.1f}", flush=True)
         return 0
+    if sys.argv[1:] == ["--tracing"]:
+        server, _ = load_llm("bf16", card, {})
+        tracing_phase(card, server)
+        del server
+        release_server_memory()
+        fleet_phase(card)
+        disagg_phase(card, traced_only=True)
+        print(f"total_s {time.perf_counter() - t_start:.1f}", flush=True)
+        return 0
 
     # 3. kernel phase
     scratch = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
@@ -7000,6 +7630,8 @@ def main() -> int:
         server.decode_fuse_steps = 0
         if model == "bf16":  # the engine phase's (c): the LLM as a graph's component
             spec_launches.append(("bf16 engine", engine_llm_phase(card, server)))
+            # request tracing and the flight recorder on the bf16 graph path
+            spec_launches += tracing_phase(card, server)
         label = f"{model} spec ngram"
         records, spec_runs[label] = spec_phase(label, card, server, "ngram",
                                                plain=runs[model][1])

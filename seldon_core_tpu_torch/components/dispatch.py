@@ -91,11 +91,17 @@ def _maybe_continuous_batch(component: Any, request: SeldonMessage) -> Optional[
         return None
     from seldon_core_tpu_torch.runtime.batcher import get_batcher_service
 
+    from seldon_core_tpu_torch.tracing import current_trace_context, get_tracer
+
     svc = get_batcher_service(component)
     if svc is None:
         return None
     info: dict = {}
-    toks = svc.submit_sync(body["prompt"], body.get("max_new_tokens"), info=info)
+    # join the transport's trace: its server span is active here, so the
+    # request's timeline roots under it (ingress: the span's name)
+    trace = current_trace_context() if get_tracer().enabled else None
+    kw = {"trace": trace} if trace is not None else {}
+    toks = svc.submit_sync(body["prompt"], body.get("max_new_tokens"), info=info, **kw)
     tokenizer = getattr(component, "_tokenizer", None)
     text = (tokenizer.decode(toks) if tokenizer is not None and isinstance(body["prompt"], str)
             else None)

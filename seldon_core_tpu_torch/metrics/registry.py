@@ -13,7 +13,9 @@ step / dispatch / sync walls, host lag, steps in flight, the KV bytes,
 occupancy and page pool, speculative decoding's acceptance counters, the
 radix prefix cache's counters, the LoRA adapter pool's gauges, the
 per-(tenant, SLO class) admission, shed and token tallies and the TTFT by
-class).
+class); and the tracer's export series that ``tracing.Tracer.export_stats``
+feeds at scrape time (spans dropped, export wall, request traces retained
+by sampling mode).
 Names, types, label names, HELP text and bucket bounds are the JAX
 package's, so a dashboard reads both. The JAX package builds on
 prometheus_client; the card's machine has none, so this module writes the
@@ -313,6 +315,21 @@ class MetricsRegistry:
         self._fleet_journal_depth = fam(
             "seldon_fleet_resume_journal_depth", "Fleet resume-journal entries currently open "
             "(fleet generations in flight with recovery records)", "gauge")
+        # the tracer (tracing/__init__.py, runtime/flight.py): spans lost to
+        # failed exports (a batch is re-enqueued once, the second failure
+        # drops it), each flush's export wall, and the request trees the
+        # flight recorder retained ('head' = the inbound sampled flag,
+        # 'tail' = past an unsampled flag by the latency thresholds)
+        self._trace_spans_dropped = fam(
+            "seldon_trace_spans_dropped", "Trace spans dropped after a failed OTLP export's "
+            "single bounded re-enqueue", "counter")
+        self._trace_export = fam("seldon_trace_export_seconds",
+                                 "OTLP trace export latency per flush (success or failure)",
+                                 "histogram", buckets=LATENCY_BUCKETS)
+        self._traces_retained = fam(
+            "seldon_llm_traces_retained", "Request traces materialized and exported, by sampling "
+            "mode (head = inbound sampled flag; tail = latency-threshold retention of an "
+            "unsampled request)", "counter", ("mode",))
         self._tenant_ttft = fam("seldon_llm_tenant_ttft_seconds",
                                 "Time to first token by SLO class (the interactive-isolation "
                                 "signal bench phase L gates on)", "histogram", ("slo_class",),
@@ -502,6 +519,28 @@ class MetricsRegistry:
                     fam.children[labels] = max(fam.child(labels), v)
             for cls, seconds in stats.get("ttft_by_class", ()):
                 self._observe(self._tenant_ttft, base + (cls,), seconds)
+
+    def sync_tracing(self, tracer: Any = None) -> None:
+        """Refresh the trace series from ``tracer`` (default: the process's)
+        at scrape time: export walls drained (each observed once), the
+        dropped and retained counters caught up to the tracer's lifetime
+        tallies."""
+        if tracer is None:
+            from seldon_core_tpu_torch.tracing import get_tracer
+
+            tracer = get_tracer()
+        stats = tracer.export_stats()
+        base = self._base()
+        with self._lock:
+            self._trace_export.child(base)
+            for seconds in stats.get("export_times_s", ()):
+                self._observe(self._trace_export, base, seconds)
+            self._trace_spans_dropped.children[base] = max(
+                self._trace_spans_dropped.child(base), float(stats.get("spans_dropped_total", 0)))
+            for mode, total in (stats.get("retained_total") or {}).items():
+                key = base + (str(mode),)
+                self._traces_retained.children[key] = max(self._traces_retained.child(key),
+                                                          float(total))
 
     def expose(self) -> bytes:
         """Every family in the Prometheus text format (version 0.0.4)."""

@@ -105,6 +105,21 @@ enqueued on the same stream as the decode steps (the JAX package donated
 these buffers to jitted ops and relied on device program order in the same
 way), so a captured graph always reads and writes the same addresses.
 
+Request-scoped tracing (``tracing=True``, or the tracer's ``TRACING=1``).
+The batcher then holds a flight recorder (``runtime/flight.py``) and every
+request records one timeline: its queue wait and admission (with a prefix
+hit, or the staging of a remote job), each prefill chunk (its host enqueue
+wall), the worker's handoff stages and the import, the first token (and a
+fleet resume before it), each drained step with the tokens it credited (a
+verify's offered and accepted drafts), page growth, sheds and preemptions,
+and how it ended ("done", "shed", "preempted", "error"). The loop thread
+writes them from host stamps it already takes: no event reads a device
+value and none takes a lock, so a traced replay is the untraced one. A
+completed request becomes a span tree rooted at the ingress's trace
+(``submit(trace=)``), fed to the tracer, and a timeline for
+``/debug/timeline``. Tracing off, ``_flight`` is None and each hook a None
+check.
+
 Liveness and crashes (what a replica fleet's health check reads,
 ``runtime/engine.ReplicaSet.check_health``). The loop stamps ``heartbeat``
 (on the injectable ``clock``) at the top of every turn and then calls the
@@ -112,7 +127,8 @@ Liveness and crashes (what a replica fleet's health check reads,
 hook that raises dies exactly where a device fault would). A loop that
 dies parks its exception in ``crashed``, waits for the work already on
 the stream, releases every slot's pages, pins and adapter through the
-normal release path, and fails every request; a submit to a dead loop
+normal release path (completing every open timeline "error" first), and
+fails every request; a submit to a dead loop
 starts a new one on a new thread (``crashed`` back to None), which
 replays the same captured graphs. If that wait itself fails (a sticky
 device error), nothing is released and every later loop dies at once:
@@ -159,6 +175,10 @@ from seldon_core_tpu_torch.runtime.disagg import (HANDOFF_TRANSPORTS, DisaggMesh
                                                   PrefillRequest, PrefillWorkerPool,
                                                   TransferQueue, normalize_disaggregation,
                                                   same_device, staged_leaves)
+from seldon_core_tpu_torch.runtime.flight import (EV_FIRST_TOKEN, EV_HANDOFF_IMPORT,
+                                                  EV_HANDOFF_STAGED, EV_PAGE_GROW,
+                                                  EV_PREFILL_CHUNK, EV_PREFIX_HIT, EV_RESUME,
+                                                  EV_SHED, EV_STEP, FlightRecorder)
 from seldon_core_tpu_torch.runtime.radix import RadixPrefixCache
 from seldon_core_tpu_torch.runtime.resilience import DEFAULT_RETRY_AFTER_S, ShedError
 from seldon_core_tpu_torch.runtime.scheduler import (BATCH, INTERACTIVE, PendingRequest,
@@ -171,6 +191,7 @@ from seldon_core_tpu_torch.servers.step_graph import (ReplayGraph, capture_cow_c
                                                       capture_decode_steps,
                                                       capture_prefill_chunks,
                                                       capture_spec_step)
+from seldon_core_tpu_torch.tracing import get_tracer, tail_thresholds
 
 logger = logging.getLogger(__name__)
 
@@ -451,6 +472,7 @@ class ContinuousBatcher:
         disagg_mesh: Optional[DisaggMesh] = None,
         prefill_workers: Optional[int] = None,
         handoff_transport: Optional[str] = None,
+        tracing: Optional[bool] = None,
         device: Optional[str] = None,
         _eager: bool = False,
     ):
@@ -467,7 +489,8 @@ class ContinuousBatcher:
         comparing the two). ``disaggregation``, ``disagg_mesh``,
         ``prefill_workers`` and ``handoff_transport`` (default: the
         server's) turn admission remote (module docstring); the workers are
-        built, their graphs captured, before this returns."""
+        built, their graphs captured, before this returns. ``tracing``
+        (default: the tracer's ``enabled``) builds the flight recorder."""
         self.device = resolve_device(device)
         server.load()
         if server.device != self.device:
@@ -588,6 +611,13 @@ class ContinuousBatcher:
         self.crashed: Optional[BaseException] = None
         self._chaos: Optional[Any] = None
         self._broken: Optional[BaseException] = None
+        # the flight recorder (module docstring), only with tracing on; the
+        # tail thresholds from the environment
+        self._tracer = get_tracer()
+        self._flight: Optional[FlightRecorder] = None
+        if self._tracer.enabled if tracing is None else bool(tracing):
+            tail_ttft_s, tail_gap_s = tail_thresholds()
+            self._flight = FlightRecorder(self.S, tail_ttft_s=tail_ttft_s, tail_gap_s=tail_gap_s)
 
         dev = self.device
         self._caches = init_paged_kv_caches(cfg, self.pool_pages, ps, server.kv_cache_dtype,
@@ -840,7 +870,8 @@ class ContinuousBatcher:
                seed: Optional[int] = None, info: Optional[dict] = None,
                on_token: Optional[Any] = None, tenant: Optional[str] = None,
                slo_class: Optional[str] = None, adapter: Optional[str] = None,
-               deadline_s: Optional[float] = None, resume_tokens: int = 0) -> Future:
+               deadline_s: Optional[float] = None, resume_tokens: int = 0,
+               trace: Optional[Any] = None) -> Future:
         """prompt: str or token sequence. Returns a Future of the generated
         token ids. ``seed`` pins the request's sampling chain to
         ``generate(..., seed=seed)``'s. ``resume_tokens`` > 0 marks a
@@ -860,7 +891,10 @@ class ContinuousBatcher:
         it cannot be evicted while the request is queued or decoding) and
         ``deadline_s`` a latency budget that orders the request earliest
         deadline first within its tenant. A tenant over its quota is shed
-        here: ShedError (503) with the backlog's Retry-After."""
+        here: ShedError (503) with the backlog's Retry-After. ``trace`` (a
+        ``tracing.TraceContext``) roots the request's timeline in its
+        ingress's trace; with the recorder on, a request without one is
+        recorded under a fresh trace id; off, it is ignored."""
         if self._closed:
             raise ShedError("batcher closed; retry")
         if isinstance(prompt, str):
@@ -889,7 +923,8 @@ class ContinuousBatcher:
         fut: Future = Future()
         req = PendingRequest(
             ids=ids, max_new=int(max_new_tokens or self.server.max_new_tokens), fut=fut,
-            on_token=on_token, info=info, seed=seed, t_arrival=now, tenant=str(tenant or ""),
+            on_token=on_token, info=info, seed=seed, t_arrival=now, trace=trace,
+            tenant=str(tenant or ""),
             slo_class=cls, adapter_id=aid,
             deadline_t=(now + float(deadline_s)) if deadline_s is not None else None,
             resume_tokens=int(resume_tokens or 0))
@@ -1031,6 +1066,11 @@ class ContinuousBatcher:
             self.server._ttft_by_class.append((slot.slo_class, now - req.t_arrival))
         self._pending.count_tokens(slot.tenant, slot.slo_class, 1)
         slot.t_last = now
+        if self._flight is not None:
+            if req.resume_tokens:
+                # a fleet resume: where the failover re-attached
+                self._flight.record(i, EV_RESUME, tokens=req.resume_tokens)
+            self._flight.record(i, EV_FIRST_TOKEN, tokens=1)
         slot.gen += 1          # invalidates in-flight tokens for the old occupant
         slot.disp_new = 1      # the prefill-sampled first token counts
         self._admit_seq += 1
@@ -1055,6 +1095,14 @@ class ContinuousBatcher:
             _emit(slot.on_token, first)
         if first == self.eos_id or max_new <= 1:
             self._finish(i)
+
+    @staticmethod
+    def _flight_tags(req: PendingRequest) -> Optional[dict]:
+        """The request's tenant identity on its timeline and root span; None
+        for untenanted base traffic (the single-tenant layout)."""
+        if not req.tenant and req.slo_class == INTERACTIVE and not req.adapter_id:
+            return None
+        return {"tenant": req.tenant, "slo_class": req.slo_class, "adapter_id": req.adapter_id}
 
     def _draft_prefill_slot(self, i: int, ids: List[int]) -> None:
         """Draft mode: the draft model's prompt prefill into slot ``i``'s row
@@ -1161,6 +1209,8 @@ class ContinuousBatcher:
         slot.on_token = req.on_token
         slot.tenant = req.tenant
         slot.slo_class = req.slo_class
+        if self._flight is not None:
+            self._flight.begin(free, req.trace, req.t_arrival, L, tags=self._flight_tags(req))
         # shared trie pages are live cached KV and never reset; the CoW
         # destination is overwritten whole (values and masked positions)
         if plain:
@@ -1180,6 +1230,9 @@ class ContinuousBatcher:
             # counted once per funded admission (a match that could not be
             # funded retries every loop turn)
             self._radix.record_hit(k0, len(shared), cow is not None)
+            if self._flight is not None:
+                self._flight.record(free, EV_PREFIX_HIT, tokens=k0,
+                                    blocks=len(shared) + (cow is not None))
         self._prefill = _PrefillJob(free, ids, k0, min(self.prefill_chunk, plen), req)
         return True
 
@@ -1198,6 +1251,7 @@ class ContinuousBatcher:
         pos = np.full((1, C), PAD_POS, np.int32)
         toks[0, :n] = part
         pos[0, :n] = np.arange(start, start + n)
+        t0 = time.perf_counter()
         self._chunk_tokens[:, :C] = self._to_device(toks)
         self._chunk_pos[:, :C] = self._to_device(pos)
         if self._prefill_graphs:
@@ -1213,6 +1267,11 @@ class ContinuousBatcher:
                 **self._lora(self._chunk_adapter))
             self.server._prefill_eager += 1
         job.next = start + n
+        if self._flight is not None:
+            # the host enqueue wall: the last chunk's logits sync comes after,
+            # in the gap before the first_token event
+            self._flight.record(job.slot, EV_PREFILL_CHUNK, start=start, tokens=n,
+                                dur_s=time.perf_counter() - t0)
         if job.next >= job.L:
             self._activate(job, logits[0, n - 1])
 
@@ -1275,8 +1334,15 @@ class ContinuousBatcher:
         self._remote_jobs[job.job_id] = job
         if k0:
             self._radix.record_hit(k0, len(shared), False)
+        if self._flight is not None:
+            self._flight.begin(free, req.trace, req.t_arrival, L, tags=self._flight_tags(req))
+            if k0:
+                self._flight.record(free, EV_PREFIX_HIT, tokens=k0, blocks=len(shared))
+            self._flight.record(free, EV_HANDOFF_STAGED, job_id=job.job_id,
+                                pages=n0 - len(shared))
         self._remote.submit(PrefillRequest(
-            job.job_id, ids, plen, n0, prefix_len=k0, prefix_pages=len(shared),
+            job.job_id, ids, plen, n0, record_events=self._flight is not None,
+            prefix_len=k0, prefix_pages=len(shared),
             prefix_staged=prefix, prefix_event=prefix_event,
             first_key=self._first_key(req.seed, req.resume_tokens)))
         return True
@@ -1317,6 +1383,10 @@ class ContinuousBatcher:
             if h.error is not None:
                 self._fail_remote_job(job, h.error)
                 continue
+            if self._flight is not None and h.events:
+                # the worker's stages, stamped before it published the
+                # handoff (ownership moved through the queue's lock)
+                self._flight.extend(job.slot, h.events)
             t0 = time.perf_counter()
             try:
                 self._import_handoff(job, h)
@@ -1324,11 +1394,18 @@ class ContinuousBatcher:
                 logger.exception("poisoned handoff (slot %d): %s", job.slot, e)
                 self._fail_remote_job(job, e)
                 continue
-            self.server._handoff_times.append(h.prefill_s + (time.perf_counter() - t0))
+            t1 = time.perf_counter()
+            self.server._handoff_times.append(h.prefill_s + (t1 - t0))
+            if self._flight is not None:
+                self._flight.record(job.slot, EV_HANDOFF_IMPORT, bytes=h.transfer_bytes,
+                                    dur_s=t1 - t0)
             self._commit_slot(job.slot, h.first_token, h.first_key, job.ids, job.req)
 
     def _fail_remote_job(self, job: _RemoteJob, exc: BaseException) -> None:
-        """Release a remote job's slot and pages, then fail its request."""
+        """Release a remote job's slot and pages, then fail its request (its
+        timeline completes "error", unless a shed completed it first)."""
+        if self._flight is not None:
+            self._flight.complete(job.slot, "error", 0, self._tracer)
         self._unpin_request(job.req)
         on_token = self._slots[job.slot].on_token
         self._release_slot(job.slot)  # before notifying, like _finish
@@ -1347,6 +1424,9 @@ class ContinuousBatcher:
         self._allocator.count_shed()
         self._pending.count_shed(job.req.tenant, job.req.slo_class)
         logger.warning("shedding staged remote prefill (slot %d): %s", job.slot, why)
+        if self._flight is not None:
+            self._flight.record(job.slot, EV_SHED, why=why)
+            self._flight.complete(job.slot, "shed", 0, self._tracer)
         self._fail_remote_job(job, self._shed_error(why))
 
     def _fail_remote_jobs(self, exc: BaseException) -> None:
@@ -1368,6 +1448,8 @@ class ContinuousBatcher:
         if not slot.active:
             return False
         need = min(last_write_pos, self.max_len - 1) // self.page_size + 1
+        n0_pages = slot.covered_pages()
+        t0_grow = time.perf_counter() if n0_pages < need else 0.0
         while slot.covered_pages() < need:
             got = self._alloc_pages(1)
             if got is None:
@@ -1391,6 +1473,11 @@ class ContinuousBatcher:
             self._reset_pages([page])
             self._block_tables[i, slot.covered_pages()] = page
             slot.pages.append(page)
+        if self._flight is not None and slot.covered_pages() > n0_pages:
+            # growth (and any shed it forced) ran between this slot's
+            # dispatches: the timeline shows it where the gap opened
+            self._flight.record(i, EV_PAGE_GROW, pages=slot.covered_pages() - n0_pages,
+                                dur_s=time.perf_counter() - t0_grow)
         return True
 
     def _pick_page_victim(self):
@@ -1441,6 +1528,9 @@ class ContinuousBatcher:
         self._pending.count_shed(slot.tenant, slot.slo_class)
         logger.warning("shedding slot %d after %d generated tokens: %s", i, slot.n_new, why)
         fut, on_token = slot.future, slot.on_token
+        if self._flight is not None:
+            self._flight.record(i, EV_SHED, why=why)
+            self._flight.complete(i, "shed", slot.n_new, self._tracer)
         # release BEFORE notifying: the shed client must never observe its
         # own pages as held
         self._release_slot(i)
@@ -1457,6 +1547,9 @@ class ContinuousBatcher:
         # its end, so the pin ends here
         self._unpin_request(job.req)
         logger.warning("shedding staged prefill (slot %d): %s", job.slot, why)
+        if self._flight is not None:
+            self._flight.record(job.slot, EV_SHED, why=why)
+            self._flight.complete(job.slot, "shed", 0, self._tracer)
         on_token = self._slots[job.slot].on_token
         self._release_slot(job.slot)
         _emit(on_token, None)
@@ -1479,6 +1572,7 @@ class ContinuousBatcher:
             self._prefill = None
             logger.info("preempting the staged prefill (slot %d, tenant %r) for an interactive "
                         "admission", job.slot, job.req.tenant)
+            self._complete_preempted(job.slot, "local prefill")
             self._release_slot(job.slot)
             self._pending.push(job.req, requeue=True)
             return True
@@ -1490,10 +1584,18 @@ class ContinuousBatcher:
             self._transfer.cancel(job_id)
             logger.info("preempting the staged remote prefill (slot %d, tenant %r) for an "
                         "interactive admission", rjob.slot, rjob.req.tenant)
+            self._complete_preempted(rjob.slot, "staged remote prefill")
             self._release_slot(rjob.slot)
             self._pending.push(rjob.req, requeue=True)
             return True
         return False
+
+    def _complete_preempted(self, i: int, what: str) -> None:
+        """A preempted job's timeline ends here; its request re-enters the
+        queue and records a new one when it is admitted again."""
+        if self._flight is not None:
+            self._flight.record(i, EV_SHED, why="preempted: " + what)
+            self._flight.complete(i, "preempted", 0, self._tracer)
 
     def _release_slot(self, i: int):
         """Common slot teardown: page references dropped (owned pages back
@@ -1535,6 +1637,10 @@ class ContinuousBatcher:
         if self.eos_id in toks:
             toks = toks[: toks.index(self.eos_id)]
         fut, on_token = slot.future, slot.on_token
+        if self._flight is not None:
+            # the tokens CREDITED (n_new), which the step events sum to; an
+            # EOS trim shortens the client's list, never this count
+            self._flight.complete(i, "done", slot.n_new, self._tracer)
         if self._radix is not None and slot.ids is not None and slot.adapter_id == 0:
             # base-adapter slots only (an adapted slot's KV carries its
             # deltas from the second layer on). The prompt and every
@@ -1737,6 +1843,17 @@ class ContinuousBatcher:
                     break
             if credited:
                 self._pending.count_tokens(slot.tenant, slot.slo_class, credited)
+                if self._flight is not None:
+                    # one event a slot a drain, before a finish completes
+                    # the timeline: the tokens credited, the dispatch time
+                    # (and a verify's offered and accepted drafts)
+                    if rec.booked is None:
+                        self._flight.record(i, EV_STEP, tokens=credited,
+                                            t_dispatch=rec.t_dispatch)
+                    else:
+                        self._flight.record(i, EV_STEP, tokens=credited,
+                                            offered=rec.booked.get(i, 1) - 1, accepted=n,
+                                            t_dispatch=rec.t_dispatch)
             if finish:
                 self._finish(i)
 
@@ -1848,6 +1965,11 @@ class ContinuousBatcher:
         except Exception as e:
             logger.exception("the batcher's stream failed; its pages are not released: %s", e)
             self._broken = e
+        if self._flight is not None:
+            # every open timeline ends once, here, whatever the wait gave
+            for i in self._flight.live_slots():
+                self._flight.complete(i, "error", self._slots[i].n_new if self._slots[i].active
+                                      else 0, self._tracer)
         if self._broken is None and self._remote_jobs:
             self._fail_remote_jobs(exc)
         job, self._prefill = self._prefill, None
@@ -1901,7 +2023,7 @@ class BatcherService:
         fires per token from the batcher's loop thread, so a transport
         thread pumps its response stream from it. Cancelling the Future (a
         disconnect) is safe. ``identity``: ``tenant``, ``slo_class``,
-        ``adapter``, ``deadline_s``, ``resume_tokens``
+        ``adapter``, ``deadline_s``, ``resume_tokens``, ``trace``
         (``ContinuousBatcher.submit``)."""
         with self._unsettled_lock:
             self._unsettled += 1

@@ -48,8 +48,17 @@ name another card; its workers get one copy of the weights a device, as
 the JAX package's ``_params_on`` makes. That path is not verified on a
 one-card machine.
 
-Not here: the dense-layout handoff (the batcher is paged), the flight
-recorder's handoff events (``Handoff.events`` stays empty), and
+The flight recorder's handoff events (``PrefillRequest.record_events``,
+set when the batcher records timelines): a worker stamps
+``handoff_compute`` (its prefill's host wall, the first token's sync
+included) and, on the device transport, ``handoff_transfer`` into the
+``Handoff`` before it publishes it; on the network transport the frame's
+metadata carries the worker's events and the receiver stamps
+``handoff_transfer`` (decode and copy onto the card). Stamps are host
+clock readings on this process's ``perf_counter``: no stamp waits on the
+device.
+
+Not here: the dense-layout handoff (the batcher is paged) and
 ``rebalance_disagg`` (the control plane's actuator)."""
 
 from __future__ import annotations
@@ -133,8 +142,8 @@ class PrefillRequest:
     pool's exported bucket of the ``prefix_pages`` matched blocks
     (``prefix_len`` tokens) and ``prefix_event`` the event its export was
     recorded under: the worker imports it into its staging pool and
-    computes only positions ``prefix_len..``. ``record_events`` is always
-    False here (the flight recorder is not ported)."""
+    computes only positions ``prefix_len..``. ``record_events``: stamp the
+    flight recorder's handoff events into the Handoff."""
 
     __slots__ = ("job_id", "ids", "plen", "n_pages", "record_events", "prefix_len",
                  "prefix_pages", "prefix_staged", "prefix_event", "first_key")
@@ -161,7 +170,9 @@ class Handoff:
     first sampled token and the key after it, the last position's logits
     (float32 host array), timing and bytes for the metrics. ``error``
     carries a worker-side failure instead of a payload: the batcher fails
-    that request with it. ``events`` stays empty (no flight recorder)."""
+    that request with it. ``events``: the flight recorder's (t, kind,
+    fields) stamps of the worker (and the receiver), when the request asked
+    for them."""
 
     __slots__ = ("job_id", "staged", "first_logits", "error", "prefill_s", "transfer_bytes",
                  "events", "first_token", "first_key", "event")
@@ -449,14 +460,19 @@ class PrefillWorker:
         return t
 
     def _prefill_one(self, req: PrefillRequest) -> Handoff:
+        from seldon_core_tpu_torch.runtime.flight import EV_HANDOFF_COMPUTE, EV_HANDOFF_TRANSFER
+
         t0 = time.perf_counter()
         staged, first_logits, first, key = self._prefill_paged(req)
         t1 = time.perf_counter()
+        events = ([(t1, EV_HANDOFF_COMPUTE, {"worker": self.name, "dur_s": t1 - t0})]
+                  if req.record_events else [])
         if self.transport == "network":
             # the bucket stays on this device: _frame_handoff takes it off
-            # the card in one bulk copy and ships it
+            # the card in one bulk copy and ships it (the receiver stamps
+            # the transfer)
             return Handoff(req.job_id, staged=staged, first_logits=first_logits,
-                           prefill_s=t1 - t0, first_token=first, first_key=key)
+                           prefill_s=t1 - t0, first_token=first, first_key=key, events=events)
         event = None
         if not same_device(self.device, self.decode_device):
             staged = [tuple(t.to(self.decode_device, non_blocking=True) for t in layer)
@@ -465,9 +481,14 @@ class PrefillWorker:
             event = torch.cuda.Event()
             event.record()
         nbytes = sum(t.numel() * t.element_size() for t in staged_leaves(staged))
+        t2 = time.perf_counter()
+        if req.record_events:
+            # the enqueue of the move (none on the same card): the decode
+            # stream waits on the event, no host does
+            events.append((t2, EV_HANDOFF_TRANSFER, {"bytes": nbytes, "dur_s": t2 - t1}))
         return Handoff(req.job_id, staged=staged, first_logits=first_logits,
-                       prefill_s=time.perf_counter() - t0, transfer_bytes=nbytes,
-                       first_token=first, first_key=key, event=event)
+                       prefill_s=t2 - t0, transfer_bytes=nbytes, first_token=first,
+                       first_key=key, event=event, events=events)
 
     def _chunk(self, C: int, staging) -> torch.Tensor:
         """One chunk of ``C`` tokens through the staged row and buffers: a
@@ -579,9 +600,10 @@ class PrefillWorker:
             fl_ref = len(tensors)
             tensors.append(handoff.first_logits)
         meta = {"kind": "KVHandoff", "job_id": handoff.job_id, "prefill_s": handoff.prefill_s,
-                "skeleton": skel, "first_logits_ref": fl_ref, "record_events": False,
-                "events": [], "first_token": handoff.first_token,
-                "first_key": handoff.first_key}
+                "skeleton": skel, "first_logits_ref": fl_ref,
+                "record_events": bool(handoff.events),
+                "events": [[t, kind, fields] for t, kind, fields in handoff.events],
+                "first_token": handoff.first_token, "first_key": handoff.first_key}
         return framing.encode_frame_parts(meta, tensors, path="handoff")
 
     def _send_frame(self, buffers: Sequence[Any]) -> None:
@@ -736,9 +758,13 @@ class HandoffReceiver:
         On a card the copies run on the receiver's stream and this thread
         waits for them (so the frame's buffer can go); their event rides
         the Handoff. A decode failure is an error handoff when the metadata
-        (the job id) survives, else None (dropped)."""
+        (the job id) survives, else None (dropped). With ``record_events`` in
+        the metadata, the worker's events ride on and the receiver stamps
+        ``handoff_transfer`` (decode and copies, this thread's wall)."""
         from seldon_core_tpu_torch.codec import framing
+        from seldon_core_tpu_torch.runtime.flight import EV_HANDOFF_TRANSFER
 
+        t0 = time.perf_counter()
         try:
             meta, tensors = framing.decode_frame(payload, path="handoff")
             if meta.get("kind") != "KVHandoff":
@@ -758,12 +784,16 @@ class HandoffReceiver:
             else:
                 moved = [_host_to(self.device, t) for t in tensors]
             staged = framing.tree_unskeleton(skel, moved)
+            t1 = time.perf_counter()
+            events = [(e[0], e[1], e[2]) for e in meta.get("events", ())]
+            if meta.get("record_events"):
+                events.append((t1, EV_HANDOFF_TRANSFER, {"bytes": len(payload), "dur_s": t1 - t0}))
             with self._lock:
                 self.network_bytes_total += len(payload)
             return Handoff(meta["job_id"], staged=staged, first_logits=first_logits,
                            prefill_s=meta.get("prefill_s", 0.0), transfer_bytes=len(payload),
                            first_token=meta.get("first_token"), first_key=meta.get("first_key"),
-                           event=event)
+                           event=event, events=events)
         except Exception as e:  # noqa: BLE001 — the receiver must not die
             job_id = None
             try:

@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import asyncio
 import concurrent.futures
+import contextvars
 import inspect
 import logging
 import queue
@@ -566,19 +567,25 @@ class ReplicaSet(SeldonComponent):
                seed: Optional[int] = None, info: Optional[dict] = None,
                on_token: Optional[Any] = None, tenant: Optional[str] = None,
                slo_class: Optional[str] = None, adapter: Optional[str] = None,
-               deadline_s: Optional[float] = None, timeout_s: float = 600.0) -> Future:
+               deadline_s: Optional[float] = None, timeout_s: float = 600.0,
+               trace: Optional[Any] = None) -> Future:
         """``BatcherService.submit``'s surface for the fleet: one fleet
         generation (``_fleet_submit_blocking``) on a dispatch thread (a pool
         of 32). Returns the Future of the final token list; ``on_token`` is
         fed from the serving replica's batcher, with a ``ResumeMarker``
-        where a generation resumed, and None once at the end."""
+        where a generation resumed, and None once at the end. The call runs
+        in a copy of the caller's context: a pool thread starts with an
+        empty one, and the active span (the hop's ``traceparent``) and
+        deadline must ride along. ``trace``: the request's
+        ``tracing.TraceContext``, passed to each replica it runs on."""
         with self._lock:
             pool = self._dispatch_pool
             if pool is None:
                 pool = _DispatchPool(32, "fleet-dispatch")
                 self._dispatch_pool = pool
-        return pool.submit(self._fleet_submit_blocking, prompt, max_new_tokens, on_token, info,
-                           seed, tenant, slo_class, adapter, deadline_s, timeout_s)
+        return pool.submit(contextvars.copy_context().run, self._fleet_submit_blocking, prompt,
+                           max_new_tokens, on_token, info, seed, tenant, slo_class, adapter,
+                           deadline_s, timeout_s, trace)
 
     # the JAX package's name for a submit from a thread that pumps
     # ``on_token``; the port's submit does not block, so it is the same call
@@ -605,7 +612,8 @@ class ReplicaSet(SeldonComponent):
                                seed: Optional[int] = None, tenant: Optional[str] = None,
                                slo_class: Optional[str] = None, adapter: Optional[str] = None,
                                deadline_s: Optional[float] = None,
-                               timeout_s: float = 600.0) -> List[int]:
+                               timeout_s: float = 600.0,
+                               trace: Optional[Any] = None) -> List[int]:
         """One fleet generation: journal it, dispatch it to the best
         replica and, when that replica dies of an infrastructure failure,
         resume it on a survivor.
@@ -652,7 +660,7 @@ class ReplicaSet(SeldonComponent):
                     return done  # the death raced the last token
                 submit_ids = prompt_ids + done if n > 0 else prompt_ids
                 if n > 0:
-                    self._note_resume(n)
+                    self._note_resume(n, trace)
                     wrapped(ResumeMarker(n))
                 with self._pick_lock:
                     replica, probing = self._pick_with_probe(submit_ids)
@@ -661,7 +669,8 @@ class ReplicaSet(SeldonComponent):
                     toks = ensure_stream_service(replica).submit_sync(
                         submit_ids, orig_max_new - n, timeout_s=timeout_s, info=info, seed=seed,
                         tenant=tenant, slo_class=slo_class, adapter=adapter,
-                        deadline_s=deadline_s, on_token=wrapped, resume_tokens=n)
+                        deadline_s=deadline_s, on_token=wrapped, resume_tokens=n,
+                        **({"trace": trace} if trace is not None else {}))
                 except BaseException as e:
                     if probing:
                         self._breaker_for(replica).release_probe()
@@ -698,13 +707,23 @@ class ReplicaSet(SeldonComponent):
             else:
                 self._dispatched.pop(id(replica), None)
 
-    def _note_resume(self, tokens_delivered: int) -> None:
-        """Count one mid-stream recovery, under an ``llm.resume`` span."""
+    def _note_resume(self, tokens_delivered: int, trace: Optional[Any] = None) -> None:
+        """Count one mid-stream recovery, under an ``llm.resume`` span in
+        the resumed request's own trace (its ``trace``): under its caller's
+        span when it had one, else a root of that trace. The JAX package
+        sends an all-zero parent id there, which its parser refuses, so its
+        span lands in a fresh trace."""
         with self._lock:
             self._resumes_total += 1
             self._resumed_tokens_total += tokens_delivered
-        with get_tracer().span("llm.resume", tokens_delivered=tokens_delivered):
-            pass
+        tp = None
+        if trace is not None:
+            flag = "01" if trace.sampled else "00"
+            tp = f"00-{trace.trace_id}-{trace.parent_span_id or secrets.token_hex(8)}-{flag}"
+        with get_tracer().span("llm.resume", traceparent=tp,
+                               tokens_delivered=tokens_delivered) as span:
+            if span is not None and trace is not None and trace.parent_span_id is None:
+                span.parent_id = None
 
     # -- the component surface, delegated to the chosen replica ----------
     def predict(self, X, names, meta=None):

@@ -79,8 +79,9 @@ class PendingRequest:
     its original position; ``deadline_t`` is on the batcher's perf_counter
     clock. ``resume_tokens`` > 0 marks a fleet resume: ``ids`` then carry
     the prompt and the tokens already delivered, and the first token's key
-    is fast-forwarded past them. The JAX package's ``trace`` (the flight
-    recorder's) belongs to the tracing slice."""
+    is fast-forwarded past them. ``trace`` is the request's
+    ``tracing.TraceContext`` from its ingress (or None): the flight
+    recorder roots the request's timeline and span tree at it."""
 
     ids: List[int]
     max_new: int
@@ -89,6 +90,7 @@ class PendingRequest:
     info: Optional[dict] = None
     seed: Optional[int] = None
     t_arrival: Optional[float] = None
+    trace: Optional[Any] = None
     tenant: str = ""
     slo_class: str = INTERACTIVE
     deadline_t: Optional[float] = None

@@ -1608,6 +1608,15 @@ class LLMServer(SeldonComponent):
                 out["prefix_cache_entries"] = len(self._prefix_cache)
         return out
 
+    def flight_recorder(self):
+        """The shared batcher's flight recorder (``runtime/flight.py``), or
+        None without a batcher service or with tracing off: the data of
+        ``/debug/timeline`` and gRPC ``DebugTimeline``."""
+        svc = getattr(self, "_batcher_service", None)
+        if svc is None:
+            return None
+        return svc.batcher._flight
+
     def llm_stats(self) -> Dict[str, Any]:
         """The serving snapshot a /metrics scrape reads
         (``metrics/registry.MetricsRegistry.sync_llm``): the page pool's

@@ -19,11 +19,19 @@ The component server:
   rejections before the stream starts (``streaming.stream_service``); a
   replica fleet's resume is one jsonData ``{"resumed", "tokens_delivered"}``
   chunk, and its spent retry budget RESOURCE_EXHAUSTED;
-- ``Model/DebugTimeline`` aborts UNIMPLEMENTED naming the tracing slice.
+- ``Model/DebugTimeline``: REST ``/debug/timeline``'s payload
+  (``observability/timeline.timeline_report``) as jsonData; request jsonData
+  ``{"n": K}`` bounds the timelines.
+
+Tracing: the ``traceparent`` metadata key (the REST header's gRPC
+spelling) roots each unary rpc's server span (``grpc:<rpc>``) and, for
+``GenerateStream``, the request's flight-recorder trace; a traced stream
+sends ``x-trace-id`` in its initial metadata, before the first token, and
+``trace_id`` in its done event.
 
 The engine server serves ``Seldon/Predict`` and ``Seldon/SendFeedback``
 through a ``runtime/engine.GraphEngine`` on the gRPC worker thread
-(``predict_sync``): admission sheds RESOURCE_EXHAUSTED, and the call's
+(``predict_sync``, under a ``grpc:predictions`` span): admission sheds RESOURCE_EXHAUSTED, and the call's
 deadline (or ``seldon-deadline-ms`` metadata) spent before a node aborts
 DEADLINE_EXCEEDED.
 
@@ -47,13 +55,15 @@ import grpc
 from seldon_core_tpu_torch.components import dispatch
 from seldon_core_tpu_torch.contracts.payload import SeldonError, SeldonMessage
 from seldon_core_tpu_torch.metrics.registry import MetricsRegistry
+from seldon_core_tpu_torch.observability.timeline import parse_n, timeline_report
 from seldon_core_tpu_torch.runtime.resilience import (DEADLINE_GRPC_METADATA,
                                                       AdmissionController, Deadline, ShedError,
                                                       deadline_scope)
+from seldon_core_tpu_torch.tracing import get_tracer, ingress_trace
 from seldon_core_tpu_torch.transport import proto_convert as pc
 from seldon_core_tpu_torch.transport.proto import prediction_pb2 as pb
-from seldon_core_tpu_torch.transport.streaming import (check_identity, stream_events,
-                                                       stream_service)
+from seldon_core_tpu_torch.transport.streaming import (TRACE_ID_HEADER, check_identity,
+                                                       stream_events, stream_service)
 
 logger = logging.getLogger(__name__)
 
@@ -94,6 +104,11 @@ def _metadata_value(context: grpc.ServicerContext, name: str) -> Optional[str]:
     return None
 
 
+def _traceparent_from_context(context: grpc.ServicerContext) -> Optional[str]:
+    """The inbound W3C ``traceparent`` metadata key, or None."""
+    return _metadata_value(context, "traceparent")
+
+
 def _deadline_s(context: grpc.ServicerContext) -> Optional[float]:
     """The client's gRPC deadline in seconds (``context.time_remaining()``),
     else the ``seldon-deadline-ms`` metadata key, else None (the JAX
@@ -120,25 +135,37 @@ def _deadline(context: grpc.ServicerContext) -> Optional[Deadline]:
 def _component_methods(component: Any) -> Dict[str, Dict[str, tuple]]:
     """service -> rpc name -> (handler, request class[, kind])."""
 
-    def wrap(fn: Callable, req_from: Callable) -> Callable:
+    tracer = get_tracer()
+
+    def wrap(fn: Callable, req_from: Callable, method_name: str) -> Callable:
         def handler(request, context):
             try:
-                return pc.message_to_proto(dispatch.resolve(fn(component, req_from(request))))
+                with tracer.span("grpc:" + method_name,
+                                 traceparent=_traceparent_from_context(context)):
+                    out = dispatch.resolve(fn(component, req_from(request)))
+                return pc.message_to_proto(out)
             except Exception as e:  # noqa: BLE001 — the request boundary
                 _abort(context, e)
         return handler
 
     def debug_timeline(request, context):
-        context.abort(grpc.StatusCode.UNIMPLEMENTED, "DebugTimeline is not served by this "
-                      "port yet: it arrives with the tracing slice of the port")
+        """REST ``/debug/timeline``'s payload as jsonData."""
+        try:
+            msg = pc.message_from_proto(request)
+            body = msg.json_data if msg.which == "jsonData" else None
+            n = parse_n(body.get("n") if isinstance(body, dict) else None)
+            return pc.message_to_proto(
+                SeldonMessage.from_json_data(timeline_report(component, n=n)))
+        except Exception as e:  # noqa: BLE001 — the request boundary
+            _abort(context, e)
 
     # single-prompt continuous batching lives in dispatch.predict itself
-    predict = wrap(dispatch.predict, pc.message_from_proto)
-    tin = wrap(dispatch.transform_input, pc.message_from_proto)
-    tout = wrap(dispatch.transform_output, pc.message_from_proto)
-    route = wrap(dispatch.route, pc.message_from_proto)
-    aggregate = wrap(dispatch.aggregate, pc.list_from_proto)
-    fb = wrap(dispatch.send_feedback, pc.feedback_from_proto)
+    predict = wrap(dispatch.predict, pc.message_from_proto, "predict")
+    tin = wrap(dispatch.transform_input, pc.message_from_proto, "transform_input")
+    tout = wrap(dispatch.transform_output, pc.message_from_proto, "transform_output")
+    route = wrap(dispatch.route, pc.message_from_proto, "route")
+    aggregate = wrap(dispatch.aggregate, pc.list_from_proto, "aggregate")
+    fb = wrap(dispatch.send_feedback, pc.feedback_from_proto, "send_feedback")
     gen_stream = _make_generate_stream(component)
     return {
         "Model": {"Predict": (predict, pb.SeldonMessage), "SendFeedback": (fb, pb.Feedback),
@@ -163,7 +190,10 @@ def _make_generate_stream(component: Any):
     ``_make_generate_stream``: request jsonData ``{"prompt": str|[ids],
     "max_new_tokens": N, "seed": S}``; responses one jsonData event each,
     the SSE events of ``streaming.stream_events``. A client that cancels closes
-    the generator, which cancels the request."""
+    the generator, which cancels the request. With tracing on, the
+    ``traceparent`` metadata roots the request's trace, whose id goes out in
+    the initial metadata (``x-trace-id``, before the first token: trailing
+    metadata never reaches a cancelled call) and in the done event."""
 
     def generate_stream(request, context):
         if not hasattr(component, "generate"):
@@ -185,10 +215,14 @@ def _make_generate_stream(component: Any):
                 max_new = int(max_new)
             svc = stream_service(component, dict(body, prompt=prompt, max_new_tokens=max_new),
                                  knob="streaming")
+            trace = ingress_trace(get_tracer(), _traceparent_from_context(context),
+                                  "grpc:GenerateStream")
             events = stream_events(component, prompt, max_new, seed=body.get("seed"), svc=svc,
-                                   identity=identity)
+                                   identity=identity, trace=trace)
         except Exception as e:  # noqa: BLE001 — pre-stream rejection
             _abort(context, e)
+        if trace is not None:
+            context.send_initial_metadata(((TRACE_ID_HEADER.lower(), trace.trace_id),))
         try:
             for burst in events:
                 for event in burst:
@@ -270,7 +304,9 @@ def make_engine_server(engine: Any, port: Optional[int] = 5001, host: str = "0.0
         try:
             msg = pc.message_from_proto(request)
             with deadline_scope(_deadline(context)):
-                out = engine.predict_sync(msg)
+                with get_tracer().span("grpc:predictions",
+                                       traceparent=_traceparent_from_context(context)):
+                    out = engine.predict_sync(msg)
             metrics.observe_prediction(engine, out, time.perf_counter() - t0)
             return pc.message_to_proto(out)
         except Exception as e:  # noqa: BLE001 — the request boundary

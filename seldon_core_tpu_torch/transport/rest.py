@@ -52,6 +52,17 @@ class answers 400 on every branch; a tenant over its quota 503 with a
 ``Retry-After`` header. The framed binary wire answers 501; multipart
 predict bodies answer 415.
 
+Tracing (``tracing/``, on with ``TRACING=1``): ``/v1/generate`` takes the
+inbound W3C ``traceparent`` (or starts a trace) as its ingress and hands it
+to the batcher, whose flight recorder roots the request's timeline and span
+tree there; the JSON answer carries ``trace_id``, a stream the
+``X-Trace-Id`` header (before its first event) and ``trace_id`` in its
+done event. The method routes and the engine's predictions open their
+server span from the inbound ``traceparent``. ``GET /debug/timeline?n=K``
+(both apps; the engine app's by component name) serves the recorder's
+recent timelines and the scaling snapshot (``observability/timeline.py``),
+and the scrape carries the tracer's export series.
+
 The method routes pass the JAX app's admission gate
 (``runtime/resilience.AdmissionController``, from the annotations and env by
 default, off unless configured): past ``max_inflight`` calls and
@@ -79,11 +90,13 @@ from seldon_core_tpu_torch.contracts.payload import (Feedback, SeldonError, Seld
 from seldon_core_tpu_torch.device import resolve_device
 from seldon_core_tpu_torch.metrics.registry import CONTENT_TYPE as PROM_CONTENT_TYPE
 from seldon_core_tpu_torch.metrics.registry import MetricsRegistry
+from seldon_core_tpu_torch.observability.timeline import parse_n, timeline_report
 from seldon_core_tpu_torch.runtime.resilience import (DEADLINE_HEADER, AdmissionController,
                                                       Deadline, ShedError, current_deadline,
                                                       deadline_scope, wire_retry_after)
-from seldon_core_tpu_torch.transport.streaming import (check_identity, stream_events,
-                                                       stream_service)
+from seldon_core_tpu_torch.tracing import get_tracer, ingress_trace
+from seldon_core_tpu_torch.transport.streaming import (TRACE_ID_HEADER, check_identity,
+                                                       stream_events, stream_service)
 
 logger = logging.getLogger(__name__)
 
@@ -102,17 +115,20 @@ def deadline_from_headers(headers: Mapping[str, str]) -> Optional[float]:
     return ms / 1000.0 if ms > 0 else None
 
 
-def _generate(component: Any, body: Any, headers: Optional[Mapping[str, str]] = None):
+def _generate(component: Any, body: Any, headers: Optional[Mapping[str, str]] = None,
+              trace: Any = None):
     """The /v1/generate handler body (``headers``: the request's, read
-    case-insensitively): returns the JSON response, or for ``"stream":
-    true`` the generator of its events (``stream_events``, not started),
-    or raises SeldonError (ShedError for a 503). The JAX package's rules:
+    case-insensitively; ``trace``: its ingress ``TraceContext`` or None):
+    returns the JSON response, or for ``"stream": true`` the generator of
+    its events (``stream_events``, not started), or raises SeldonError
+    (ShedError for a 503). The JAX package's rules:
     tenant and class from the body or the ``Seldon-Tenant`` /
     ``Seldon-SLO-Class`` headers (an unknown class is 400 on every branch);
     an ``"adapter"`` serves only through a batcher (the shared batch, else
     the 1-slot stream service), so with ``"prompts"``, with a per-request
     temperature, or as a seeded prompt the slot cache cannot hold it is 400;
-    a tenant over its quota is 503 + Retry-After."""
+    a tenant over its quota is 503 + Retry-After. A single prompt's answer
+    carries ``trace_id`` when there is a trace."""
     from seldon_core_tpu_torch.runtime.batcher import ensure_stream_service, get_batcher_service
 
     if not isinstance(body, dict):
@@ -149,16 +165,24 @@ def _generate(component: Any, body: Any, headers: Optional[Mapping[str, str]] = 
     if body.get("stream"):
         svc = stream_service(component, body, svc)
         return stream_events(component, prompt, max_new, seed=body.get("seed"), svc=svc,
-                             identity=identity)
+                             identity=identity, trace=trace)
     if svc is None:
         out = component.generate([prompt], max_new_tokens=max_new,
                                  temperature=body.get("temperature"), seed=body.get("seed"))
-        return {"tokens": out["tokens"][0], "text": out["texts"][0]}
+        answer = {"tokens": out["tokens"][0], "text": out["texts"][0]}
+        if trace is not None:
+            # no recorder ran, but the client still gets its correlation id
+            answer["trace_id"] = trace.trace_id
+        return answer
     info: dict = {}
+    if trace is not None:
+        identity["trace"] = trace
     toks = svc.submit_sync(prompt, max_new, seed=body.get("seed"), info=info, **identity)
     tok = getattr(component, "_tokenizer", None)
     out = {"tokens": toks,
            "text": tok.decode(toks) if tok is not None and isinstance(prompt, str) else None}
+    if trace is not None:
+        out["trace_id"] = trace.trace_id
     if info.get("truncated_prompt"):
         out["truncated_prompt"] = info["truncated_prompt"]
     return out
@@ -303,6 +327,7 @@ def make_component_app(component: Any, device: Optional[str] = None,
     registry = MetricsRegistry()
     admission = admission or AdmissionController.from_annotations(annotations)
     wire_retry_after(admission, component)
+    tracer = get_tracer()
 
     msg, lst, fbk = SeldonMessage.from_dict, SeldonMessageList.from_dict, Feedback.from_dict
     routes: Dict[str, Tuple[Callable, Callable, str]] = {
@@ -328,8 +353,11 @@ def make_component_app(component: Any, device: Optional[str] = None,
                 self._send_error(e, name, t0)
                 return
             try:
-                body = parse_request(self.headers.get("Content-Type", ""), raw, query)
-                out = dispatch.resolve(fn(component, parser(body)))
+                payload = parser(parse_request(self.headers.get("Content-Type", ""), raw, query))
+                # the inbound traceparent roots this request's server span
+                # in the caller's trace (its sampled flag honoured)
+                with tracer.span(name, traceparent=self.headers.get("traceparent")):
+                    out = dispatch.resolve(fn(component, payload))
             except Exception as e:  # the request boundary: answer, keep serving
                 self._send_error(e, name, t0)
                 return
@@ -347,16 +375,20 @@ def make_component_app(component: Any, device: Optional[str] = None,
                 chunks.append(b"%x\r\n%s\r\n" % (len(data), data))
             self.wfile.write(b"".join(chunks))
 
-        def _stream(self, events: Iterator[List[dict]], t0: float):
+        def _stream(self, events: Iterator[List[dict]], t0: float, trace: Any = None):
             """Write ``events`` (bursts of them) as SSE, one chunk an event,
-            a burst in one write. A write to a client that went away
-            cancels the request (closing the generator) and ends the
-            handler; an error after the headers is one ``error`` event."""
+            a burst in one write; with a ``trace``, its id in the
+            ``X-Trace-Id`` header, before the first token. A write to a
+            client that went away cancels the request (closing the
+            generator) and ends the handler; an error after the headers is
+            one ``error`` event."""
             code = "200"
             try:
                 self.send_response(200)
                 self.send_header("Content-Type", "text/event-stream")
                 self.send_header("Cache-Control", "no-cache")
+                if trace is not None:
+                    self.send_header(TRACE_ID_HEADER, trace.trace_id)
                 self.send_header("Transfer-Encoding", "chunked")
                 self.end_headers()
                 try:
@@ -382,9 +414,13 @@ def make_component_app(component: Any, device: Optional[str] = None,
             elif url.path in ("/metrics", "/prometheus"):
                 registry.sync_resilience(admission=admission, transport="rest")
                 registry.sync_llm(component)
+                registry.sync_tracing()
                 self._send(200, registry.expose(), content_type=PROM_CONTENT_TYPE)
             elif url.path == "/seldon.json":
                 self._send(200, wrapper_spec())
+            elif url.path == "/debug/timeline":
+                n = parse_n(parse_qs(url.query).get("n", [None])[0])
+                self._send(200, timeline_report(component, n=n))
             elif url.path in routes:
                 self._method(routes[url.path], b"", url.query)
             else:
@@ -400,12 +436,15 @@ def make_component_app(component: Any, device: Optional[str] = None,
                 self._not_found(url.path)
                 return
             t0 = time.perf_counter()
+            # the inbound traceparent (or a fresh trace) rides into the
+            # batcher, which roots the request's span tree at this ingress
+            trace = ingress_trace(tracer, self.headers.get("traceparent"), "rest:/v1/generate")
             try:
                 try:
                     body = json.loads(raw or b"null")
                 except json.JSONDecodeError as e:
                     raise SeldonError(f"Invalid JSON body: {e}", status_code=400)
-                out = _generate(component, body, self.headers)
+                out = _generate(component, body, self.headers, trace)
             except Exception as e:  # the request boundary: answer, keep serving
                 self._send_error(e, "generate", t0)
                 return
@@ -413,7 +452,7 @@ def make_component_app(component: Any, device: Optional[str] = None,
                 registry.observe_api_call("generate", "200", time.perf_counter() - t0)
                 self._send(200, out)
             else:
-                self._stream(out, t0)
+                self._stream(out, t0, trace)
 
     return Handler
 
@@ -456,6 +495,7 @@ def make_engine_app(engine: Any, metrics: Optional[MetricsRegistry] = None,
     log_responses = os.environ.get("SELDON_LOG_RESPONSES", "") == "1"
     logger_url = os.environ.get("REQUEST_LOGGER_URL", "")
     profile_lock = threading.Lock()
+    tracer = get_tracer()
 
     def log_pair(req_dict: dict, resp_dict: dict) -> None:
         if log_requests:
@@ -488,7 +528,10 @@ def make_engine_app(engine: Any, metrics: Optional[MetricsRegistry] = None,
                 body = parse_request(self.headers.get("Content-Type", ""), raw, query)
                 msg = SeldonMessage.from_dict(body)
                 with deadline_scope(deadline):
-                    out = engine.predict_sync(msg)
+                    # the graph's node spans (and a remote hop's traceparent)
+                    # hang under this server span
+                    with tracer.span("predictions", traceparent=self.headers.get("traceparent")):
+                        out = engine.predict_sync(msg)
                     d = current_deadline()
                     if d is not None:
                         registry.observe_remaining_budget(d.remaining_s())
@@ -509,7 +552,8 @@ def make_engine_app(engine: Any, metrics: Optional[MetricsRegistry] = None,
             try:
                 body = parse_request(self.headers.get("Content-Type", ""), raw, query)
                 fb = Feedback.from_dict(body)
-                out = engine.send_feedback_sync(fb)
+                with tracer.span("feedback"):
+                    out = engine.send_feedback_sync(fb)
                 registry.observe_feedback(fb)
             except Exception as e:  # the request boundary: answer, keep serving
                 self._send_error(e, "feedback", t0)
@@ -546,13 +590,15 @@ def make_engine_app(engine: Any, metrics: Optional[MetricsRegistry] = None,
                 registry.sync_resilience(engine=engine, admission=admission, transport="rest")
                 for comp in engine._components.values():
                     registry.sync_llm(comp)
+                registry.sync_tracing()
                 self._send(200, registry.expose(), content_type=PROM_CONTENT_TYPE)
             elif url.path == "/seldon.json":
                 self._send(200, engine_spec())
             elif url.path == "/debug/timeline":
-                self._send(501, {"status": Status(501, "/debug/timeline arrives with the "
-                                                       "tracing slice of the port",
-                                                  "NOT_IMPLEMENTED", "FAILURE").to_dict()})
+                # every in-process component's timelines and scaling snapshot
+                n = parse_n(parse_qs(url.query).get("n", [None])[0])
+                self._send(200, {name: timeline_report(comp, n=n)
+                                 for name, comp in engine._components.items()})
             else:
                 self._not_found(url.path)
 

@@ -7,7 +7,10 @@
 - ``stream_service``: the service a stream joins, and the rejections that
   come before a stream starts;
 - ``stream_events``: the events of one stream (the JAX package's SSE
-  events), in the bursts a drain surfaces them.
+  events), in the bursts a drain surfaces them; with a trace, its id in the
+  done event;
+- ``TRACE_ID_HEADER``: where a traced stream's id goes before its first
+  event (the SSE header; lower-cased, gRPC's initial metadata key).
 """
 
 from __future__ import annotations
@@ -20,6 +23,8 @@ from seldon_core_tpu_torch.runtime.resilience import ResumeMarker
 from seldon_core_tpu_torch.runtime.scheduler import normalize_slo_class
 
 _END = object()
+
+TRACE_ID_HEADER = "X-Trace-Id"
 
 
 def check_identity(body: dict, tenant: Optional[str], slo_class: Optional[str],
@@ -41,7 +46,7 @@ def check_identity(body: dict, tenant: Optional[str], slo_class: Optional[str],
 
 def stream_events(component: Any, prompt: Any, max_new: Optional[int],
                   seed: Optional[int] = None, svc: Any = None,
-                  identity: Optional[dict] = None) -> Iterator[List[dict]]:
+                  identity: Optional[dict] = None, trace: Any = None) -> Iterator[List[dict]]:
     """The events of one stream, as the batch decodes them: ``{"token",
     "text"}`` per token (``text`` the decoded piece of a text prompt, else
     None), ``{"resumed": True, "tokens_delivered": n}`` where a replica
@@ -52,7 +57,8 @@ def stream_events(component: Any, prompt: Any, max_new: Optional[int],
     tokens surface at one drain), so a transport writes a burst at once.
     ``svc`` is the BatcherService to join; None streams through
     ``ensure_stream_service``; ``identity`` the tenant, class, adapter and
-    deadline (``check_identity``). The batcher's ``on_token`` only puts on a
+    deadline (``check_identity``); ``trace`` the ingress's ``TraceContext``
+    (its ``trace_id`` rides the done event). The batcher's ``on_token`` only puts on a
     queue; decoding and JSON happen on the caller's thread. Closing the
     generator early (a disconnect) cancels the request; a failure raises
     from it, after the tokens that came before it."""
@@ -64,7 +70,10 @@ def stream_events(component: Any, prompt: Any, max_new: Optional[int],
     text_mode = tokenizer is not None and isinstance(prompt, str)
     q: queue.Queue = queue.Queue()
     info: dict = {}
-    fut = svc.submit(prompt, max_new, on_token=q.put, seed=seed, info=info, **(identity or {}))
+    identity = dict(identity or {})
+    if trace is not None:
+        identity["trace"] = trace
+    fut = svc.submit(prompt, max_new, on_token=q.put, seed=seed, info=info, **identity)
     # a request that ends without its None (never, from the batcher) still
     # ends the pump
     fut.add_done_callback(lambda _f: q.put(_END))
@@ -84,6 +93,8 @@ def stream_events(component: Any, prompt: Any, max_new: Optional[int],
         toks = fut.result(timeout=600.0)
         done = {"done": True, "tokens": toks,
                 "text": tokenizer.decode(toks) if text_mode else None}
+        if trace is not None:
+            done["trace_id"] = trace.trace_id
         if info.get("truncated_prompt"):
             done["truncated_prompt"] = info["truncated_prompt"]
         yield [done]
@@ -122,4 +133,4 @@ def stream_service(component: Any, body: dict, svc: Any = None, knob: str = "str
     return svc
 
 
-__all__ = ["check_identity", "stream_events", "stream_service"]
+__all__ = ["TRACE_ID_HEADER", "check_identity", "stream_events", "stream_service"]

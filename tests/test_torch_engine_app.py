@@ -16,7 +16,8 @@ package's (aiohttp, run on a thread of its own), each over its own
   ``/profile``: the same status codes and bodies (for the 504, its code,
   reason and status: its message carries the overrun in ms);
 - the port alone: an enabled ``/profile`` writes a ``torch.profiler``
-  trace, ``/debug/timeline`` answers 501 naming the tracing slice, the
+  trace, ``/debug/timeline`` (``?n=``) answers 200 with the JAX engine
+  app's payload (each component's report by name), the
   request and response pair is printed and POSTed to
   ``REQUEST_LOGGER_URL`` as a CloudEvent, and ``make_engine_app`` refuses
   the CPU unasked;
@@ -264,14 +265,17 @@ def test_spent_deadline_answers_504_as_jax(pair):
 
 
 def test_profile_debug_timeline_and_logging(pair, tmp_path, monkeypatch, capfd):
-    _, pport, _, _ = pair
+    jport, pport, _, _ = pair
     monkeypatch.setenv("SELDON_PROFILE_DIR", str(tmp_path))
     code, text, _ = request(pport, "/profile?seconds=0.2", method="POST", raw=b"")
     out = json.loads(text)
     assert code == 200 and out["seconds"] == 0.2
     assert os.path.getsize(os.path.join(out["trace_dir"], "trace.json")) > 0
-    code, text, _ = request(pport, "/debug/timeline")
-    assert code == 501 and "tracing slice" in json.loads(text)["status"]["info"]
+    for path in ("/debug/timeline", "/debug/timeline?n=3"):
+        code, text, _ = request(pport, path)
+        jcode, jtext, _ = request(jport, path)
+        assert (code, json.loads(text)) == (jcode, json.loads(jtext))
+        assert code == 200
 
     posted, got = [], threading.Event()
 

@@ -12,8 +12,8 @@ package's ``grpc_client`` as the client of both:
   batch) and for a tiny host model, and a ``TorchServer`` answers as over
   REST;
 - the transform, route, aggregate and feedback rpcs answer the JAX
-  component server's replies; ``DebugTimeline`` aborts UNIMPLEMENTED naming
-  the tracing slice; the max-message-size annotation is honoured;
+  component server's replies; ``DebugTimeline`` answers the component app's
+  ``/debug/timeline`` payload; the max-message-size annotation is honoured;
 - the CLI's GRPC api serves with the annotations file's max message size,
   and without grpcio it exits naming the module."""
 
@@ -222,8 +222,9 @@ def test_predict_torchserver_answers_as_over_rest(tmp_path):
 _X = {"data": {"ndarray": [[1.0, 2.0]]}, "meta": {"puid": "rpc"}}
 _FB = {"request": _X, "response": dict(_X, meta={"puid": "rpc", "routing": {"llm": 0}}),
        "reward": 1.0}
-# the rpcs the engine slice serves now (each compared with the JAX
-# component server's reply) and the one still to come
+# the rpcs the engine slice serves (each compared with the JAX component
+# server's reply), and DebugTimeline, compared with the REST app's
+# /debug/timeline on the same component
 UNPORTED = [
     ("Generic", "TransformInput", SeldonMessage.from_dict(_X), None),
     ("Generic", "TransformOutput", SeldonMessage.from_dict(_X), None),
@@ -232,18 +233,18 @@ UNPORTED = [
      None),
     ("Model", "SendFeedback", Feedback.from_dict(_FB), None),
     ("Generic", "SendFeedback", Feedback.from_dict(_FB), None),
-    ("Model", "DebugTimeline", SeldonMessage(), "tracing slice"),
+    ("Model", "DebugTimeline", SeldonMessage.from_json_data({"n": 4}), "/debug/timeline?n=4"),
 ]
 
 
-@pytest.mark.parametrize("service,method,msg,slice_name", UNPORTED,
+@pytest.mark.parametrize("service,method,msg,rest_path", UNPORTED,
                          ids=[f"{s}/{m}" for s, m, *_ in UNPORTED])
-def test_unported_rpc_is_unimplemented(servers, service, method, msg, slice_name):
+def test_unported_rpc_is_unimplemented(servers, service, method, msg, rest_path):
     """The engine slice's rpcs of the JAX method table are served: each
     answers what the JAX component server answers for the same LLM (its
-    reply, or its status code and details); DebugTimeline aborts
-    UNIMPLEMENTED naming the tracing slice."""
-    jtarget, ptarget, _, _ = servers
+    reply, or its status code and details); DebugTimeline answers the
+    REST app's ``/debug/timeline`` payload for the same component."""
+    jtarget, ptarget, rest_port, _ = servers
 
     def call(target):
         try:
@@ -253,11 +254,14 @@ def test_unported_rpc_is_unimplemented(servers, service, method, msg, slice_name
             return e.code(), e.details()
 
     got = call(ptarget)
-    if slice_name is None:
+    if rest_path is None:
         assert got == call(jtarget)
         return
-    assert got[0] == grpc.StatusCode.UNIMPLEMENTED
-    assert slice_name in got[1] and method in got[1]
+    with urllib.request.urlopen(f"http://127.0.0.1:{rest_port}{rest_path}",
+                                timeout=TIMEOUT) as r:
+        want = json.loads(r.read())
+    assert got["jsonData"] == want
+    assert set(want) == {"tracing", "tracer_enabled", "timelines", "scaling"}
 
 
 def test_max_message_size_annotation_is_honoured():

@@ -47,7 +47,8 @@ need |= {"seldon_core_tpu_torch.metrics.registry", "seldon_core_tpu_torch.runtim
          "seldon_core_tpu_torch.runtime.adapters", "seldon_core_tpu_torch.runtime.scheduler"}
 need |= {"seldon_core_tpu_torch." + m for m in (
     "runtime.engine", "runtime.resilience", "components.builtin", "components.metrics",
-    "analytics.routers", "tracing", "contracts.graph", "runtime.disagg", "codec.framing")}
+    "analytics.routers", "tracing", "contracts.graph", "runtime.disagg", "codec.framing",
+    "tracing.export", "runtime.flight", "observability.timeline")}
 assert need <= set(mods), need - set(mods)
 from seldon_core_tpu_torch.servers.llmserver import LLMServer
 s = LLMServer(model="llama-tiny", init_random=True, max_new_tokens=4, eos_id=-1,

@@ -2367,3 +2367,65 @@ def test_crash_path_waits_for_the_stream_before_releasing(dev):
         assert b.submit([9, 8, 7, 6, 5], 12).result(120) == want
     finally:
         b.close()
+
+
+def test_traced_loop_replays_bit_equal_and_adds_no_sync(dev):
+    """Two graph batchers over one server, the flight recorder on in one
+    (``tracing=True``) and off in the other, admit the same prompts on this
+    thread; then the loop's dispatch and drain run by hand on both, each
+    under ``set_sync_debug_mode("error")`` (a stream or device sync, or a
+    copy to the host, raises; the drain's event wait is the one wait
+    allowed): every replay leaves the two batchers' tokens, pools and state
+    bit-equal, and the traced timelines account for every token."""
+    from concurrent.futures import Future
+
+    from seldon_core_tpu_torch.runtime.batcher import ContinuousBatcher
+    from seldon_core_tpu_torch.runtime.scheduler import PendingRequest
+
+    s, traced = _graph_batcher(dev, "bf16", tracing=True, pipeline_depth=2)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        plain = ContinuousBatcher(s, max_slots=3, page_size=8, fuse_steps=4, pipeline_depth=2,
+                                  tracing=False, device="cuda")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert traced._flight is not None and plain._flight is None
+    prompts = ([5, 9, 17, 2, 40, 3, 22, 8, 11, 60], [7, 7, 1], [33, 34, 35, 36, 37])
+    futs = {}
+    for b in (traced, plain):
+        futs[b] = []
+        for p in prompts:
+            fut = Future()
+            futs[b].append(fut)
+            assert b._admit_begin(PendingRequest(ids=list(p), max_new=12, fut=fut))
+            while b._prefill is not None:
+                b._prefill_step()   # the last chunk syncs for the first token
+        for i, sl in enumerate(b._slots):  # every page the 12 tokens need, now
+            assert b._ensure_slot_pages(i, sl.dispatched_pos() + 16)
+    replays = s._decode_replays
+    steps = 0
+    while any(sl.active for b in (traced, plain) for sl in b._slots):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for b in (traced, plain):
+                while len(b._inflight) < b.pipeline_depth and b._dispatch_eligible():
+                    b._dispatch()
+                if b._inflight:
+                    b._drain_one()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        steps += 1
+        torch.cuda.synchronize()
+        _assert_state_equal(traced, _state_copy(plain))
+        assert [sl.tokens for sl in traced._slots] == [sl.tokens for sl in plain._slots]
+    assert steps > 3 and s._decode_replays > replays and s._decode_eager == 0
+    outs = [[f.result(0) for f in futs[b]] for b in (traced, plain)]
+    assert outs[0] == outs[1] and [len(o) for o in outs[0]] == [12] * 3
+    tls = traced._flight.timelines()
+    assert traced._flight.live_slots() == [] and len(tls) == 3
+    for tl, p in zip(sorted(tls, key=lambda t: t["prompt_tokens"], reverse=True),
+                     sorted(prompts, key=len, reverse=True)):
+        assert tl["token_events_sum"] == tl["tokens"] == 12 and tl["status"] == "done"
+        assert tl["prompt_tokens"] == len(p) and tl["events_dropped"] == 0
+    traced.close()
+    plain.close()

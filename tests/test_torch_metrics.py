@@ -74,6 +74,9 @@ PORT_FAMILIES = {
     "seldon_fleet_ejections", "seldon_fleet_reinstatements", "seldon_fleet_resumes",
     "seldon_fleet_resumed_tokens", "seldon_fleet_retry_budget_exhausted",
     "seldon_fleet_resume_journal_depth",
+    # the tracing slice's: the tracer's export series (empty until a
+    # sync_tracing)
+    "seldon_trace_spans_dropped", "seldon_trace_export_seconds", "seldon_llm_traces_retained",
     # the engine slice's: feedback, resilience
     "seldon_api_model_feedback", "seldon_api_model_feedback_reward", "seldon_resilience_shed",
     "seldon_resilience_deadline_exceeded", "seldon_resilience_breaker_state",
