@@ -4687,8 +4687,10 @@ def engine_phase(card: str, model) -> tuple:
         comp_httpd.shutdown()
         comp_httpd.server_close()
     del fused, unfused, routed, servers, model_b, models
+    # [controlplane] (b): a canary router over two ResNet-50 leaves
+    launches_cp = controlplane_canary(card, model)
     print(f"[engine] phase_s {time.perf_counter() - t_phase:.1f} [{card}]", flush=True)
-    return launches_a + launches_b, router
+    return launches_a + launches_b + launches_cp, router
 
 
 def body_for(images, puid: str) -> dict:
@@ -6136,6 +6138,8 @@ def fleet_run(card: str) -> list:
     # membership: drain a replica holding a request in flight
     member_line = fleet_membership(label, card, rs, replicas, url)
     fault_counts = fleet_faults(card, rs, replicas, url)
+    # [controlplane] (a): the autoscaler over the same fleet
+    cp_counts = controlplane_fleet(card, rs, replicas, url)
     httpd.shutdown()
     httpd.server_close()
     for r in replicas:
@@ -6166,7 +6170,7 @@ def fleet_run(card: str) -> list:
     gc.collect()
     release_server_memory()
     print(f"[{label}] phase_s {time.perf_counter() - t_phase:.1f} [{card}]", flush=True)
-    return [("fleet", counts), ("fleet faults", fault_counts)]
+    return [("fleet", counts), ("fleet faults", fault_counts), ("controlplane (a)", cp_counts)]
 
 
 def fleet_phase(card: str) -> list:
@@ -7230,6 +7234,8 @@ def disagg_phase(card: str, traced_only: bool = False):
         del server
         release_server_memory()
         return records, runs
+    # [controlplane] (c): rebalance_disagg under the autoscaler, on this server
+    records.append(("controlplane (c)", controlplane_rebalance(card, server, texts, local)))
     streams, burst = burst_texts()
     base = None
     settings = (("b local", dict(disaggregation="off")),
@@ -7389,6 +7395,730 @@ def print_disagg(card: str, runs: dict) -> None:
     print(f"[disagg] phase_s {runs['phase_s']:.1f} [{card}]", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# [controlplane]: the autoscaler over the fleet, canary and shadow routing,
+# rebalance_disagg on this card, validate / render / operator
+# ---------------------------------------------------------------------------
+CP_FLOOD = 3 * N_REQUESTS      # (a): the flood that holds queued work / slot >= 1
+CP_CANARY_LATENCY_S = 0.05     # (b): the faulty candidate's added latency
+CP_CANARY_REQUESTS = 40        # (b): one-image predictions a healthy candidate holds through
+CP_CANARY_MAX = 96             # (b): the slowed candidate's, at most, until it rolls back
+CP_STREAM_NEW = 256            # (c): the streams decoding through each swap
+
+
+class _ShiftedClock:
+    """The host's clock plus what a FaultClock has been advanced by: the
+    engine times each routed branch on it, so a FaultyComponent's injected
+    latency adds to the branch's real wall."""
+
+    def __init__(self, fault_clock):
+        self.fault_clock = fault_clock
+        self.start = fault_clock.now()
+
+    def __call__(self) -> float:
+        return time.perf_counter() + (self.fault_clock.now() - self.start)
+
+
+def controlplane_fleet(card: str, rs, replicas, url: str) -> dict:
+    """[controlplane] (a), on the fleet phase's ReplicaSet after its faults
+    part: both batchers rebuilt greedy, the fleet's health state reset, then
+    an ``Autoscaler`` (min 2, max 3 replicas, up after 2 ticks over one
+    queued request a slot, down after 2 ticks under 0.25, a 30 s cooldown on
+    a FaultClock) ticked by hand:
+
+    - a flood of CP_FLOOD requests over REST holds queued work per slot >= 1
+      for 2 ticks: SCALE_UP builds a third int8 replica from the same seed
+      (its weights equal replica 0's leaf by leaf), which takes a wave of
+      N_REQUESTS requests sent while the flood decodes, every chunk and
+      step of it a replay;
+    - quiet: SCALE_DOWN drains the newest replica, collected on its second
+      idle sighting;
+    - a ``BatcherKiller`` kills replica 0 under N_REQUESTS requests (they
+      resume on the survivor): the next tick is SCALE_UP with "ejected" in
+      its reason, and the warm spare (the collected third replica) comes
+      back and serves a wave;
+    - every request answers 200 with MAX_NEW tokens, equal to one server's
+      run of the same requests up to a near-tie; the fleet app's /metrics
+      carries ``seldon_autoscaler_*`` with the applied actions' tallies.
+
+    Returns the launches of the part (counts zeroed just before its first
+    request, read after its last)."""
+    import inspect
+
+    import torch
+
+    from seldon_core_tpu_torch.controlplane.autoscaler import (SCALE_DOWN, SCALE_UP,
+                                                               Autoscaler, AutoscalerConfig)
+    from seldon_core_tpu_torch.observability.timeline import scaling_snapshot
+    from seldon_core_tpu_torch.runtime.resilience import RetryBudget
+    from seldon_core_tpu_torch.servers.llmserver import LLMServer
+    from seldon_core_tpu_torch.testing.faults import BatcherKiller, FaultClock
+
+    label = "controlplane (a)"
+    t_part = time.perf_counter()
+    # the fleet as the chat left it: greedy batchers, nobody ejected
+    for r in replicas:
+        if r._batcher_service is not None:
+            r._batcher_service.close()
+            r._batcher_service = None
+    with rs._lock:
+        rs._ejected.clear()
+        rs._draining.clear()
+        rs._idle_once.clear()
+        rs._health.clear()
+    rs.clock = time.monotonic
+    rs.retry_budget = RetryBudget(ratio=1.0, min_retries=4 * N_REQUESTS)
+    release_server_memory()
+    top_k0 = inspect.signature(LLMServer).parameters["top_k"].default
+    for i, r in enumerate(replicas):
+        r.temperature, r.top_k = 0.0, top_k0
+        with r._lock:
+            r._decode_cache.clear()
+        _, httpd, _, _ = build_service(f"{label} replica {i}", r)
+        httpd.shutdown()
+        httpd.server_close()
+    base = list(replicas)
+    ref_leaves = [*base[0]._module.parameters(), *base[0]._module.buffers()]
+    spares, built = [], []
+
+    def factory():
+        if spares:
+            return spares.pop()
+        t0 = time.perf_counter()
+        r = LLMServer(model="transformer", model_kwargs=dict(LLAMA2_7B, fused_norm=True),
+                      init_random=True, param_dtype="auto", continuous_batching=N_REQUESTS,
+                      max_new_tokens=MAX_NEW, temperature=0.0, eos_id=-1, seed=0,
+                      device="cuda", **FLEET_KNOBS)
+        r.load()
+        leaves = [*r._module.parameters(), *r._module.buffers()]
+        if len(leaves) != len(ref_leaves) or not all(torch.equal(x, y)
+                                                     for x, y in zip(leaves, ref_leaves)):
+            fail(f"[{label}] the factory's replica drew other weights than replica 0")
+        built.append(time.perf_counter() - t0)
+        replicas.append(r)   # the recording fleet indexes its picks in this list
+        return r
+
+    clk = FaultClock()
+    # down on queued work alone: the prefix trie keeps finished requests' pages
+    auto = Autoscaler(rs, config=AutoscalerConfig(
+        min_replicas=2, max_replicas=3, up_queue_per_slot=1.0, up_stable_ticks=2,
+        down_queue_per_slot=0.25, down_page_pressure=1.0, down_stable_ticks=2,
+        cooldown_s=30.0), replica_factory=factory, clock=clk)
+    rs.autoscaler = auto   # the fleet app's scrape reads it (sync_controlplane)
+    decisions = []
+
+    def tick():
+        d = auto.tick()
+        decisions.append((d.action, d.target, d.reason))
+        clk.advance(1.0)
+        return d
+
+    texts = [prompt_text(700 + i) for i in range(CP_FLOOD)]
+    wave = [f"{chr(65 + i)}{chr(97 + i)} " + prompt_text(740 + i) for i in range(N_REQUESTS)]
+    killed = [f"{chr(75 + i)}{chr(107 + i)} " + prompt_text(760 + i) for i in range(N_REQUESTS)]
+    after = [f"{chr(85 + i % 5)}{chr(117 + i % 5)}{i} " + prompt_text(780 + i)
+             for i in range(N_REQUESTS)]
+    for r in replicas:
+        r.clear_prefix_cache()
+    torch.cuda.synchronize()
+    zero_kernel_counts()
+    out = {}
+
+    def post_bg(key, batch):
+        th = threading.Thread(target=lambda: out.__setitem__(key, post_all(url, batch)[0]))
+        th.start()
+        return th
+
+    # the flood: two ticks while queued work per slot >= 1
+    flood = post_bg("flood", texts)
+    deadline = time.perf_counter() + 120
+    while True:
+        snaps = [scaling_snapshot(r) for r in rs.members()]
+        queued = sum(s["queue_depth"] + s["active_slots"] for s in snaps)
+        if queued >= sum(max(s["total_slots"], 1) for s in snaps):
+            break
+        if time.perf_counter() > deadline:
+            fail(f"[{label}] the flood never filled the fleet's slots ({snaps})")
+        time.sleep(0.002)
+    t_up = time.perf_counter()
+    first, second = tick(), tick()
+    up_s = time.perf_counter() - t_up
+    if first.action != "hold" or second.action != SCALE_UP or len(rs.members()) != 3:
+        fail(f"[{label}] under the flood: {decisions} with {len(rs.members())} replicas")
+    third = rs.members()[-1]
+    third_rec = len(rs.records)
+    wave_th = post_bg("wave", wave)
+    flood.join(600)
+    wave_th.join(600)
+    took = sum(1 for rec in rs.records[third_rec:] if replicas[rec[3]] is third)
+    if took == 0 or third._prefill_eager or third._decode_eager or not (
+            third._prefill_replays and third._decode_replays):
+        fail(f"[{label}] the new replica took {took} requests: chunks "
+             f"{third._prefill_replays} replayed / {third._prefill_eager} eager, dispatches "
+             f"{third._decode_replays} / {third._decode_eager}")
+    # quiet: past the cooldown, two calm ticks drain the newest; collected on
+    # its second idle sighting
+    clk.advance(31.0)
+    tick()
+    down = tick()
+    drained = rs.draining_members()
+    if down.action != SCALE_DOWN or drained != [third] or third not in rs.members():
+        fail(f"[{label}] quiet: {decisions[-2:]}, draining {len(drained)}")
+    tick()
+    if third in rs.members() or third._batcher_service is not None:
+        fail(f"[{label}] the drained replica was not collected on its second idle sighting")
+    spares.append(third)
+    # a kill, then the next tick replaces the dead replica
+    clk.advance(31.0)
+    victim_b = base[0]._batcher_service.batcher
+    killer = BatcherKiller(trigger=lambda b: any(s.active and s.n_new >= 2 for s in b._slots))
+    killer.install(victim_b)
+    out["killed"] = post_all(url, killed)[0]
+    victim_b._chaos = None
+    replace = tick()
+    if killer.kills != 1 or replace.action != SCALE_UP or "ejected" not in replace.reason or \
+            rs.ejected_members() != [base[0]] or third not in rs.members():
+        fail(f"[{label}] after the kill ({killer.kills} kills): {decisions[-1]}, ejected "
+             f"{len(rs.ejected_members())}, the spare back {third in rs.members()}")
+    back_rec = len(rs.records)
+    out["after"] = post_all(url, after)[0]
+    back = sum(1 for rec in rs.records[back_rec:] if replicas[rec[3]] is third)
+    counts = kernel_counts()
+    stats = auto.autoscaler_stats()
+    samples = scrape(url)
+    # every client answered; tokens against one server's run
+    served = {k: served_tokens(f"{label} {k}", out[k]) for k in ("flood", "wave", "killed",
+                                                                  "after")}
+    solo = base[1]._batcher_service
+    base[1].clear_prefix_cache()
+    equal, n_req = 0, 0
+    for key, batch in (("flood", texts), ("wave", wave), ("killed", killed), ("after", after)):
+        plain = [f.result(600) for f in [solo.submit(t, MAX_NEW) for t in batch]]
+        equal += near_tie_check(f"{label} {key}", card, base[1], batch, served[key], plain)
+        n_req += len(batch)
+    want = {"scale_up": 2, "scale_down": 1, "collect": 1}
+    tallies = {a: stats[f"autoscaler_{a}s_total" if a != "collect" else
+                        "autoscaler_collected_total"] for a in want}
+    scraped = {a: sample(samples, "seldon_autoscaler_scale_events_total", f'action="{a}"')
+               for a in want}
+    if tallies != want or scraped != {a: float(v) for a, v in want.items()} or \
+            sample(samples, "seldon_autoscaler_replicas") != len(rs.members()):
+        fail(f"[{label}] tallies {tallies}, scrape {scraped}, expected {want}")
+    if counts["k1"] <= 0 or counts["k2"] <= 0 or counts["k4"] <= 0:
+        fail(f"[{label}] launches {counts}")
+    del rs.autoscaler
+    print(f"[{label}] the autoscaler over the fleet (greedy batchers rebuilt after the faults "
+          f"part): a flood of {CP_FLOOD} requests, ticks {[d[0] for d in decisions[:2]]} -> a "
+          f"third int8 replica from seed 0 (weights equal to replica 0's leaf by leaf; load "
+          f"{built[0]:.2f} s, the scale-up tick {up_s:.2f} s), which took {took} of a wave of "
+          f"{N_REQUESTS} (its chunks {third._prefill_replays} and dispatches "
+          f"{third._decode_replays} replays, none eager); quiet: {decisions[3][0]} drained it, "
+          f"collected on the next tick (its second idle sighting); a BatcherKiller kill of "
+          f"replica 0 under {N_REQUESTS} requests, then the next tick: {replace.action} "
+          f"('{replace.reason}'), the warm spare back, {back} of {N_REQUESTS} on it; "
+          f"{n_req} requests, all 200 with {MAX_NEW} tokens, {equal} equal to one server's "
+          f"run (the rest up to a near-tie); tallies = the scrape {scraped}; launches "
+          f"{counts}; part_s {time.perf_counter() - t_part:.1f} [{card}]", flush=True)
+    return counts
+
+
+def controlplane_canary(card: str, model) -> int:
+    """[controlplane] (b) canary: a ``CanaryRouter`` (fraction 0.25, windows
+    of 4, an evaluation every 4 candidate samples, its Mahalanobis detector
+    on the card) over two ResNet-50 ``JAX_SERVER`` leaves (``model``, seed
+    50, and seed 52, through checkpoints), each wrapped in a
+    ``FaultyComponent``; the engine times each routed branch on the host
+    clock plus the FaultClock's injected latency. A candidate CP_CANARY_LATENCY_S
+    slower rolls back within its evaluation windows: every request 200,
+    every later one on the baseline, the candidate untouched after, the
+    engine app's /metrics ``seldon_canary_phase`` 2 (within CP_CANARY_MAX
+    requests: a first window whose baseline caught a host hiccup may hold).
+    An unslowed candidate holds, or promotes after 3 clean evaluations,
+    through CP_CANARY_REQUESTS. Each evaluation's wall
+    (the fold and the frozen score on the card, with their copies to the
+    host) is timed. Returns K3's launches."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from seldon_core_tpu_torch.analytics.canary import PROMOTED, ROLLED_BACK, CanaryRouter
+    from seldon_core_tpu_torch.models import get_model
+    from seldon_core_tpu_torch.runtime.engine import GraphEngine
+    from seldon_core_tpu_torch.runtime.resilience import ResilienceConfig
+    from seldon_core_tpu_torch.servers.torchserver import TorchServer, export_checkpoint
+    from seldon_core_tpu_torch.testing.faults import FaultClock, FaultSchedule, FaultyComponent
+    from seldon_core_tpu_torch.transport.rest import make_engine_app, start
+
+    label = "controlplane (b) canary"
+    t_part = time.perf_counter()
+    dev = torch.device("cuda")
+    model_b = get_model("resnet50", fused=True, device="cuda")
+    model_b.init_params(torch.Generator(device=dev).manual_seed(52))
+    with tempfile.TemporaryDirectory(prefix="canary-ckpts-") as root:
+        leaves = []
+        for name, m in zip(("base", "cand"), (model, model_b)):
+            export_checkpoint(os.path.join(root, name), "resnet50", {"params": m.param_tree()},
+                              kwargs={"fused": True}, input_shape=[224, 224, 3])
+            s = TorchServer(model_uri=os.path.join(root, name), device="cuda")
+            s.load()
+            leaves.append(s)
+    del model_b
+    rng = np.random.default_rng(23)
+    images = [np.round(rng.standard_normal((1, 224, 224, 3)), 2).astype(np.float32)
+              for _ in range(8)]
+    graph = {"name": "cr", "type": "ROUTER",
+             "children": [{"name": "base", "type": "MODEL"}, {"name": "cand", "type": "MODEL"}]}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    per1 = k3_forward_launches(1, sms)
+    runs, launches = {}, 0
+    for case, latency, kw in (("slow", CP_CANARY_LATENCY_S, {}),
+                              ("healthy", 0.0, dict(promote_after=3))):
+        fc = FaultClock()
+        router = CanaryRouter(fraction=0.25, min_samples=4, eval_every=4, device="cuda", **kw)
+        evals = []
+        real_eval = router._evaluate_locked
+
+        def timed_eval(_real=real_eval, _evals=evals):
+            t0 = time.perf_counter()
+            _real()
+            _evals.append(time.perf_counter() - t0)
+
+        router._evaluate_locked = timed_eval
+        base = FaultyComponent(FaultSchedule.always_ok(), clock=fc, inner=leaves[0])
+        cand = FaultyComponent(FaultSchedule.always_ok(latency_s=latency), clock=fc,
+                               inner=leaves[1])
+        engine = GraphEngine(graph_spec(graph), components={"cr": router, "base": base,
+                                                            "cand": cand},
+                             resilience=ResilienceConfig(clock=_ShiftedClock(fc)), device="cuda")
+        httpd, _ = start(make_engine_app(engine, device="cuda"))
+        url = f"http://127.0.0.1:{httpd.server_address[1]}"
+        routes = []
+        for leaf in leaves:   # first-use effects out of the latency windows
+            for image in images[:3]:
+                leaf.predict(image, [])
+        try:
+            k3_0 = k3_count()
+            n = 0
+            for i in range(CP_CANARY_MAX if case == "slow" else CP_CANARY_REQUESTS):
+                code, resp = post(url + "/api/v0.1/predictions",
+                                  body_for(images[i % len(images)], f"canary-{case}-{i}"))
+                if code != 200:
+                    fail(f"[{label}] {case} request {i} answered {code}: {resp}")
+                routes.append(resp["meta"]["routing"]["cr"])
+                n += 1
+                if router.phase != "canary":
+                    break
+            cand_calls = cand.calls
+            for i in range(8 if case == "slow" else 0):
+                code, resp = post(url + "/api/v0.1/predictions",
+                                  body_for(images[i], f"canary-after-{i}"))
+                if code != 200 or resp["meta"]["routing"]["cr"] != 0:
+                    fail(f"[{label}] after the rollback request {i} answered {code}, routed "
+                         f"{resp.get('meta', {}).get('routing')}")
+                n += 1
+            k3 = k3_count() - k3_0
+            samples = scrape(url)
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+        if k3 != n * per1:
+            fail(f"[{label}] {case}: {k3} K3 launches for {n} one-image requests, each through "
+                 f"its routed leaf: expected {n} x {per1}")
+        launches += k3
+        phase = sample(samples, "seldon_canary_phase", 'node="cr"')
+        stats = router.canary_stats()
+        if case == "slow":
+            if router.phase != ROLLED_BACK or "outlier" not in router.rollback_reason or \
+                    cand.calls != cand_calls or phase != 2 or stats["canary_rollbacks_total"] != 1:
+                fail(f"[{label}] the slow candidate: phase {router.phase} "
+                     f"({router.rollback_reason!r}), scrape phase {phase}, candidate calls "
+                     f"{cand_calls} -> {cand.calls}")
+        elif router.phase not in ("canary", PROMOTED) or router.rollbacks_total or not evals:
+            fail(f"[{label}] the healthy candidate: phase {router.phase} "
+                 f"({router.rollback_reason!r}), {len(evals)} evaluations")
+        runs[case] = dict(n=n, routes=routes, phase=router.phase, reason=router.rollback_reason,
+                          evals=len(evals), eval_med_ms=statistics.median(evals) * 1e3,
+                          eval_max_ms=max(evals) * 1e3, scrape_phase=phase,
+                          cand_share=sum(routes) / max(len(routes), 1))
+        del engine, router
+    for case, r in runs.items():
+        print(f"[{label}] {case} candidate ({'+%.0f ms injected' % (CP_CANARY_LATENCY_S * 1e3) if case == 'slow' else 'no added latency'}): "
+              f"{r['n']} one-image predictions over REST, all 200, {r['cand_share']:.2f} of the "
+              f"canary's routes to the candidate; phase {r['phase']}"
+              f"{(' (' + repr(r['reason']) + ')') if r['reason'] else ''} after {r['evals']} "
+              f"evaluations, scrape seldon_canary_phase {r['scrape_phase']:.0f}; an evaluation "
+              f"(fold + frozen score of the candidate window: the detector's inverse on the "
+              f"card, its scores copied to the host, under the router's lock on the serving "
+              f"thread) median {r['eval_med_ms']:.3f} ms max {r['eval_max_ms']:.3f} ms [{card}]",
+              flush=True)
+    print(f"[{label}] K3 launches {launches}; part_s {time.perf_counter() - t_part:.1f} "
+          f"[{card}]", flush=True)
+    del leaves
+    release_server_memory()
+    return launches
+
+
+def controlplane_shadow(card: str, server) -> dict:
+    """[controlplane] (b) shadow: a ``ShadowNode`` over the loaded bf16 7B
+    server, mirroring every ``/v1/generate`` (no continuous batching: the
+    dense ``generate()`` path, its graphs) to a second 7B server loaded from
+    the same seed: divergence 0 and the mirrors counted on the scrape; the
+    primary alone, then the mirrored node, in turns: the mirror's added
+    wall on the primary's request; a shadow that raises on every call never
+    reaches the client (200, the primary's tokens, its errors counted).
+    Returns the launches of the mirrored requests."""
+    from seldon_core_tpu_torch.analytics.canary import ShadowNode
+    from seldon_core_tpu_torch.components.component import SeldonComponent
+    from seldon_core_tpu_torch.transport.rest import make_component_app, start
+
+    class Crasher(SeldonComponent):
+        def generate(self, *args, **kwargs):
+            raise RuntimeError("the shadow crashed")
+
+    label = "controlplane (b) shadow"
+    t_part = time.perf_counter()
+    twin, _ = load_llm(f"{label} twin", card, {})
+    slots = server.continuous_batching
+    server.continuous_batching = 0   # generate(): the primary's own dense path
+    texts = [prompt_text(820 + i) for i in range(4)]
+    node = ShadowNode(server, twin, mirror_fraction=1.0)
+    crash = ShadowNode(server, Crasher(), mirror_fraction=1.0)
+    apps = {}
+    try:
+        for key, comp in (("primary", server), ("mirrored", node), ("crashing", crash)):
+            httpd, _ = start(make_component_app(comp, device="cuda"))
+            apps[key] = (httpd, f"http://127.0.0.1:{httpd.server_address[1]}")
+        # first use captures each server's generate graph: warm both, untimed
+        for key in ("primary", "mirrored"):
+            post(apps[key][1] + "/v1/generate", {"prompt": texts[0]})
+        node.mirrors_total, node.latency_delta_s_sum = 0, 0.0   # the warm-up's mirror
+        walls = {"primary": [], "mirrored": []}
+        answers = {"primary": [], "mirrored": []}
+        zero_kernel_counts()
+        for i, text in enumerate(texts):
+            for key in (("primary", "mirrored") if i % 2 == 0 else ("mirrored", "primary")):
+                t0 = time.perf_counter()
+                code, body = post(apps[key][1] + "/v1/generate", {"prompt": text})
+                walls[key].append(time.perf_counter() - t0)
+                if code != 200 or len(body.get("tokens", ())) != MAX_NEW:
+                    fail(f"[{label}] {key} request {i} answered {code}: {str(body)[:200]}")
+                answers[key].append(body["tokens"])
+        counts = kernel_counts()
+        samples = scrape(apps["mirrored"][1])
+        code, crashed = post(apps["crashing"][1] + "/v1/generate", {"prompt": texts[1]})
+    finally:
+        for httpd, _ in apps.values():
+            httpd.shutdown()
+            httpd.server_close()
+        server.continuous_batching = slots
+    stats = node.shadow_stats()
+    if answers["mirrored"] != answers["primary"] or stats["shadow_mirrors_total"] != len(texts) \
+            or stats["shadow_divergences_total"] or stats["shadow_errors_total"]:
+        fail(f"[{label}] mirrored answers equal {answers['mirrored'] == answers['primary']}, "
+             f"stats {stats}")
+    if sample(samples, "seldon_shadow_mirrors_total") != len(texts) or \
+            sample(samples, "seldon_shadow_divergences_total") != 0:
+        fail(f"[{label}] the scrape's shadow series disagree with {stats}")
+    if code != 200 or crashed.get("tokens") != answers["primary"][1] or \
+            crash.shadow_stats()["shadow_errors_total"] != 1:
+        fail(f"[{label}] with a crashing shadow the client got {code}: {str(crashed)[:200]}")
+    if counts["k2"] <= 0:
+        fail(f"[{label}] launches {counts}")
+    p, m = statistics.median(walls["primary"]), statistics.median(walls["mirrored"])
+    print(f"[{label}] a ShadowNode over the bf16 Llama-2-7B server mirroring /v1/generate to a "
+          f"second 7B server from the same seed: {len(texts)} requests, {MAX_NEW} tokens each "
+          f"equal to the primary's alone, divergences 0, scrape seldon_shadow_mirrors_total "
+          f"{len(texts)}; request wall median primary alone {p * 1e3:.1f} ms, mirrored "
+          f"{m * 1e3:.1f} ms: the mirror adds {(m - p) * 1e3:.1f} ms on the primary's request "
+          f"(the shadow runs after it, on the request's thread; the node's latency delta sum "
+          f"{stats['shadow_latency_delta_s_sum'] * 1e3:.1f} ms); a shadow raising on every call: "
+          f"200 with the primary's tokens, shadow_errors_total 1; launches {counts}; part_s "
+          f"{time.perf_counter() - t_part:.1f} [{card}]", flush=True)
+    del node, crash, twin
+    release_server_memory()
+    return counts
+
+
+def _hold_pool(pool, held: list):
+    """Hold every worker of ``pool`` before each job until the returned
+    event is set; ``held`` counts the jobs waiting."""
+    gate = threading.Event()
+    for w in pool.workers:
+        real = w._prefill_one
+
+        def hold(req, _real=real):
+            held.append(req.job_id)
+            gate.wait(600)
+            return _real(req)
+
+        w._prefill_one = hold
+    return gate
+
+
+def local_tokens(label: str, server, texts) -> list:
+    """``texts`` over REST through a local (non-disaggregated) service,
+    stopped before this returns (so nothing of it outlives the call)."""
+    svc, httpd, url, _ = build_service(label, server, disaggregation="off")
+    try:
+        return served_tokens(label, post_all(url, texts)[0])
+    finally:
+        stop_service(label, server, svc, httpd)
+
+
+def controlplane_rebalance(card: str, server, texts, local=None) -> dict:
+    """[controlplane] (c) ``rebalance_disagg`` on this card: the bf16 7B
+    server disaggregated with 2 prefill workers (service of N_REQUESTS
+    slots), an ``Autoscaler(rebalance=True, min_decode_devices=0)`` over
+    its scaling snapshot (on one card the snapshot reports one decode
+    device, so the default floor of 1 would hold every long mix), ticked
+    by hand on a FaultClock. Two streams of CP_STREAM_NEW tokens decode
+    through both swaps. Up: the old pool's workers held, the DISAGG_LENGTHS
+    burst staged, two long-mix ticks move 2 -> 3 workers (the new pool's
+    graphs captured while the streams' decode graphs replay; the held jobs
+    released by the old pool's close and published into the same queue);
+    a second burst goes to the new workers, every chunk a replay. Down: one
+    request held on the 3-worker pool, two quiet ticks move back to 2.
+    Every burst request's tokens equal the local run's (``local``, else a
+    local service's) up to a near-tie; handoffs = the requests; the queue
+    ends empty; the card's memory after the part = before it. Returns the
+    launches (counts zeroed before the streams, read after the last
+    request)."""
+    import gc
+
+    import torch
+
+    import seldon_core_tpu_torch.runtime.batcher as batcher_mod
+    from seldon_core_tpu_torch.controlplane.autoscaler import (REBALANCE, Autoscaler,
+                                                               AutoscalerConfig)
+    from seldon_core_tpu_torch.runtime.engine import ReplicaSet
+    from seldon_core_tpu_torch.testing.faults import FaultClock
+
+    label = "controlplane (c)"
+    t_part = time.perf_counter()
+    if local is None:
+        local = local_tokens(f"{label} local", server, texts)
+    gc.collect()
+    release_server_memory()
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    builds = []
+    real_pool = batcher_mod.PrefillWorkerPool
+
+    class TimedPool(real_pool):
+        def __init__(self, *args, **kwargs):
+            t0 = time.perf_counter()
+            super().__init__(*args, **kwargs)
+            builds.append(time.perf_counter() - t0)
+
+    batcher_mod.PrefillWorkerPool = TimedPool
+    svc, httpd, url, build_s = build_service(label, server, disaggregation="remote_prefill",
+                                             prefill_workers=2)
+    b = svc.batcher
+    served = False
+    swaps, staged_at_swap = [], []
+    real_reb = b.rebalance_disagg
+
+    def timed_rebalance(n):
+        old = b._remote
+        real_close = old.close
+
+        def close(*args, **kwargs):   # the swap is done: release the outgoing pool
+            staged_at_swap.append(len(held) + old.backlog_depth())
+            gates[-1].set()
+            return real_close(*args, **kwargs)
+
+        old.close = close
+        t0 = time.perf_counter()
+        ok = real_reb(n)
+        swaps.append(time.perf_counter() - t0)
+        return ok
+
+    b.rebalance_disagg = timed_rebalance
+    clk = FaultClock()
+    auto = Autoscaler(ReplicaSet([server]), config=AutoscalerConfig(
+        min_replicas=1, max_replicas=1, rebalance=True, rebalance_backlog_high=1.0,
+        rebalance_backlog_low=1.0, rebalance_stable_ticks=2, rebalance_cooldown_s=30.0,
+        min_prefill_devices=1, min_decode_devices=0), clock=clk)
+    decisions, held, gates = [], [], []   # decisions: the rebalances actuated
+    real_act = auto._actuate_rebalance
+    auto._actuate_rebalance = lambda d: (decisions.append(d), real_act(d))[1]
+
+    def tick():
+        auto.tick()
+        clk.advance(1.0)
+
+    streams = [prompt_text(860 + i) for i in range(2)]
+    streamed_n = [0, 0]
+
+    def on_token(i):
+        def cb(_tok):
+            streamed_n[i] += 1
+        return cb
+
+    try:
+        h0 = b.handoff_stats()
+        torch.cuda.synchronize()
+        zero_kernel_counts()
+        stream_futs = [svc.submit(t, CP_STREAM_NEW, on_token=on_token(i))
+                       for i, t in enumerate(streams)]
+        deadline = time.perf_counter() + 120
+        while min(streamed_n) < 4:   # both streams decoding
+            if time.perf_counter() > deadline:
+                fail(f"[{label}] the streams never decoded")
+            time.sleep(0.002)
+        # up: the burst staged on the held 2-worker pool
+        gates.append(_hold_pool(b._remote, held))
+        burst = [svc.submit(t, MAX_NEW) for t in texts]
+        deadline = time.perf_counter() + 120
+        while b.handoff_stats()["handoff_queue_depth"] < 4:
+            if time.perf_counter() > deadline:
+                fail(f"[{label}] the burst was never staged: {b.handoff_stats()}")
+            time.sleep(0.002)
+        tick()
+        tick()
+        if auto.autoscaler_stats()["autoscaler_rebalances_total"] != 1 or \
+                len(b._remote.workers) != 3:
+            fail(f"[{label}] under the burst the split did not move: "
+                 f"{[(d.action, d.target, d.reason) for d in decisions]}")
+        pool3 = b._remote
+        pool3_bytes = (sum(w.staging_bytes() for w in pool3.workers) / 1e9,
+                       graph_pool_gb([g for w in pool3.workers for g in w.graphs().values()]))
+        up = [f.result(600) for f in burst]
+        second = [f.result(600) for f in [svc.submit(t, MAX_NEW) for t in texts]]
+        new_counts = (sum(w.replays for w in pool3.workers),
+                      sum(w.eager_runs for w in pool3.workers))
+        if new_counts[0] == 0 or new_counts[1]:
+            fail(f"[{label}] the new workers' chunks: {new_counts[0]} replays, {new_counts[1]} "
+                 f"eager")
+        # down: quiet, one job staged on the held 3-worker pool
+        held.clear()
+        gates.append(_hold_pool(b._remote, held))
+        clk.advance(31.0)
+        last = svc.submit(texts[0], MAX_NEW)
+        while b.handoff_stats()["handoff_queue_depth"] < 1:
+            time.sleep(0.002)
+        tick()
+        tick()
+        if auto.autoscaler_stats()["autoscaler_rebalances_total"] != 2 or \
+                len(b._remote.workers) != 2:
+            fail(f"[{label}] once quiet the split did not move back: "
+                 f"{[(d.action, d.target, d.reason) for d in decisions]}")
+        down = [last.result(600)]
+        streamed = [f.result(600) for f in stream_futs]
+        counts = kernel_counts()
+        h1 = b.handoff_stats()
+        released = all(w._staging is None and not w.graphs() for w in pool3.workers)
+        served = True
+    finally:
+        batcher_mod.PrefillWorkerPool = real_pool
+        for g in gates:
+            g.set()
+        if served:
+            stop_service(label, server, svc, httpd)
+        else:   # an error above: its own traceback, not the pages it left in flight
+            httpd.shutdown()
+            httpd.server_close()
+            svc.close()
+            server._batcher_service = None
+    # everything that reaches the batcher (its wrapped method, the futures'
+    # done callbacks) goes before the measure
+    del b.rebalance_disagg
+    del b, svc, auto, pool3, burst, stream_futs, last, real_act, real_reb, timed_rebalance
+    gc.collect()
+    release_server_memory()
+    torch.cuda.synchronize()
+    left = torch.cuda.memory_allocated() - mem0
+    n_req = len(streams) + 2 * len(texts) + 1
+    handoffs = h1["handoffs_total"] - h0["handoffs_total"]
+    if [(d.action, d.target) for d in decisions] != [(REBALANCE, 3), (REBALANCE, 2)] or \
+            staged_at_swap[0] < 1 or staged_at_swap[1] < 1 or not released:
+        fail(f"[{label}] decisions {[(d.action, d.target) for d in decisions]}, jobs staged on "
+             f"the outgoing pool at each swap {staged_at_swap}")
+    if handoffs != n_req or h1["handoff_queue_depth"] != 0:
+        fail(f"[{label}] {handoffs} handoffs for {n_req} requests, queue depth "
+             f"{h1['handoff_queue_depth']}")
+    if any(len(s) != CP_STREAM_NEW for s in streamed):
+        fail(f"[{label}] the streams' lengths {[len(s) for s in streamed]}")
+    if left > 1 << 20:
+        fail(f"[{label}] {left / 1e9:.3f} GB more allocated after the part than before it")
+    equal = (near_tie_check(f"{label} up", card, server, texts, up, local)
+             + near_tie_check(f"{label} second", card, server, texts, second, local)
+             + near_tie_check(f"{label} down", card, server, texts[:1], down, local[:1]))
+    if counts["k1"] <= 0 or counts["k2"] <= 0:
+        fail(f"[{label}] launches {counts}")
+    print(f"[{label}] rebalance_disagg under an Autoscaler(rebalance=True, "
+          f"min_decode_devices=0) on the bf16 Llama-2-7B server (service built in "
+          f"{build_s:.2f} s with 2 workers): rebalances to {[d.target for d in decisions]} "
+          f"('{decisions[0].reason}'; '{decisions[1].reason}'); 2 -> 3 under the burst of "
+          f"{len(texts)} with {staged_at_swap[0]} jobs staged on the outgoing pool, 3 -> 2 once "
+          f"quiet with {staged_at_swap[1]}; swap walls {' / '.join(f'{s:.3f}' for s in swaps)} "
+          f"s (the new pool's build and capture {' / '.join(f'{s:.3f}' for s in builds[1:])} s, "
+          f"the rest the old pool's drain and close); the 3-worker pool's staging "
+          f"{pool3_bytes[0]:.3f} GB and chunk graphs {gb_text(pool3_bytes[1])}, freed when "
+          f"it was swapped out; the new "
+          f"workers' chunks {new_counts[0]} replays, 0 eager; {CP_STREAM_NEW}-token streams "
+          f"decoded through both swaps; {n_req} requests = {handoffs} handoffs, queue 0; "
+          f"{equal} of {2 * len(texts) + 1} burst requests equal to the local run (the rest up "
+          f"to a near-tie); allocated after the part {left:+d} bytes; launches {counts}; part_s "
+          f"{time.perf_counter() - t_part:.1f} [{card}]", flush=True)
+    return counts
+
+
+def controlplane_host(card: str) -> None:
+    """[controlplane] (d) host-only: every ``deploy/examples/*.json``
+    through the port's CLI ``render --format json``, then ``operator --once``
+    over the same CRs into a temporary FileCluster: the objects equal the
+    rendered manifests (with the reconciler's owner label) and every CR's
+    status is Available. JSON CRs and JSON output need no PyYAML."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    from seldon_core_tpu_torch.controlplane.operator import OWNER_LABEL, FileCluster
+    from seldon_core_tpu_torch.transport.cli import main as cli
+
+    label = "controlplane (d)"
+    t_part = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    examples = os.path.join(here, "deploy", "examples")
+    files = sorted(f for f in os.listdir(examples) if f.endswith(".json"))
+    want = []
+    for fn in files:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            cli(["render", os.path.join(examples, fn), "--format", "json"])
+        with open(os.path.join(examples, fn)) as f:
+            name = json.load(f)["spec"]["name"]
+        for m in json.loads(buf.getvalue()):
+            m["metadata"].setdefault("labels", {})[OWNER_LABEL] = name
+            want.append(m)
+    with tempfile.TemporaryDirectory(prefix="operator-") as root:
+        crs = os.path.join(root, "crs")
+        shutil.copytree(examples, crs)
+        cli(["operator", "--crs", crs, "--cluster", os.path.join(root, "cluster"), "--once"])
+        got = FileCluster(os.path.join(root, "cluster")).list()
+        states = {}
+        for fn in os.listdir(os.path.join(crs, ".status")):
+            with open(os.path.join(crs, ".status", fn)) as f:
+                states[fn] = json.load(f)["state"]
+    key = lambda m: (m["kind"], m["metadata"]["namespace"], m["metadata"]["name"])  # noqa: E731
+    if sorted(got, key=key) != sorted(want, key=key) or set(states.values()) != {"Available"} \
+            or len(states) != len(files):
+        fail(f"[{label}] the operator's objects differ from render's, or statuses {states}")
+    try:
+        import yaml  # noqa: F401
+        has_yaml = "present"
+    except ImportError:
+        has_yaml = "absent"
+    print(f"[{label}] {len(files)} example CRs rendered through the port's CLI (render --format "
+          f"json: {len(want)} manifests, nvidia.com/gpu requested) and reconciled by operator "
+          f"--once into a FileCluster: objects = the rendered manifests, every status "
+          f"Available; PyYAML {has_yaml} on this machine; part_s "
+          f"{time.perf_counter() - t_part:.1f} [{card}]", flush=True)
+
+
 def main() -> int:
     try:
         import torch
@@ -7467,6 +8197,20 @@ def main() -> int:
         return 0
     if sys.argv[1:] == ["--disagg"]:
         print_disagg(card, disagg_phase(card)[1])
+        print(f"total_s {time.perf_counter() - t_start:.1f}", flush=True)
+        return 0
+    if sys.argv[1:] == ["--controlplane"]:
+        model, _ = resnet_forward_phase(card)
+        controlplane_canary(card, model)
+        del model
+        server, _ = load_llm("bf16", card, {})
+        controlplane_shadow(card, server)
+        controlplane_rebalance(card, server, [prompt_text(100 + i, n)
+                                              for i, n in enumerate(DISAGG_LENGTHS)])
+        del server
+        release_server_memory()
+        fleet_phase(card)
+        controlplane_host(card)
         print(f"total_s {time.perf_counter() - t_start:.1f}", flush=True)
         return 0
     if sys.argv[1:] == ["--tracing"]:
@@ -7630,6 +8374,8 @@ def main() -> int:
         server.decode_fuse_steps = 0
         if model == "bf16":  # the engine phase's (c): the LLM as a graph's component
             spec_launches.append(("bf16 engine", engine_llm_phase(card, server)))
+            # [controlplane] (b): a shadow node over the 7B component
+            spec_launches.append(("controlplane (b) shadow", controlplane_shadow(card, server)))
             # request tracing and the flight recorder on the bf16 graph path
             spec_launches += tracing_phase(card, server)
         label = f"{model} spec ngram"
@@ -7731,6 +8477,8 @@ def main() -> int:
     del model
     persistence_phase(card, router)
     servers_phase(card)
+    # [controlplane] (d): validate / render / operator through the CLI
+    controlplane_host(card)
 
     def entry(name, route, source, replaces, launches, r):
         return {"name": name, "route": route, "source": source, "replaces": replaces,

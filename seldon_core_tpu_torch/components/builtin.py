@@ -104,9 +104,11 @@ _OUTLIER_DETECTORS = (UnitImplementation.MAHALANOBIS_OD, UnitImplementation.ISOL
 
 
 def make_builtin(implementation: UnitImplementation,
-                 parameters: Optional[Dict[str, Any]] = None) -> SeldonComponent:
+                 parameters: Optional[Dict[str, Any]] = None,
+                 device: Any = None) -> SeldonComponent:
     """A built-in unit for a graph spec's implementation; ValueError when
-    the implementation is not a built-in (a prepackaged server)."""
+    the implementation is not a built-in (a prepackaged server). The
+    Mahalanobis detector keeps its state on ``device`` (the engine's)."""
     parameters = parameters or {}
     if implementation == UnitImplementation.SIMPLE_MODEL:
         return SimpleModel()
@@ -122,6 +124,10 @@ def make_builtin(implementation: UnitImplementation,
         cls = (EpsilonGreedy if implementation == UnitImplementation.EPSILON_GREEDY
                else ThompsonSampling)
         return cls(**parameters)
+    if implementation == UnitImplementation.MAHALANOBIS_OD:
+        from seldon_core_tpu_torch.analytics.outliers import MahalanobisOutlierDetector
+
+        return MahalanobisOutlierDetector(device=device, **parameters)
     if implementation in _OUTLIER_DETECTORS:
         raise NotImplementedError(f"{implementation.value} arrives with the analytics slice of "
                                   f"the port")

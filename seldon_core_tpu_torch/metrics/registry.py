@@ -15,7 +15,11 @@ radix prefix cache's counters, the LoRA adapter pool's gauges, the
 per-(tenant, SLO class) admission, shed and token tallies and the TTFT by
 class); and the tracer's export series that ``tracing.Tracer.export_stats``
 feeds at scrape time (spans dropped, export wall, request traces retained
-by sampling mode).
+by sampling mode); and the control plane's series that ``sync_controlplane``
+reads from an autoscaler, a canary router and a shadow node (replicas,
+draining replicas, applied scale events, canary phase, rollbacks and
+branch error rates, shadow mirrors, divergences, errors and largest
+divergence).
 Names, types, label names, HELP text and bucket bounds are the JAX
 package's, so a dashboard reads both. The JAX package builds on
 prometheus_client; the card's machine has none, so this module writes the
@@ -330,6 +334,39 @@ class MetricsRegistry:
             "seldon_llm_traces_retained", "Request traces materialized and exported, by sampling "
             "mode (head = inbound sampled flag; tail = latency-threshold retention of an "
             "unsampled request)", "counter", ("mode",))
+        # the control plane (controlplane/autoscaler.py, analytics/canary.py):
+        # the fleet shape the autoscaler drives and the actions it applied,
+        # the canary's phase, rollbacks and branch error rates, the shadow's
+        # mirrors, divergences and errors; synced at scrape time
+        self._autoscaler_replicas = fam(
+            "seldon_autoscaler_replicas", "Replicas currently attached to the autoscaled "
+            "ReplicaSet (draining included until detach)", "gauge")
+        self._autoscaler_draining = fam(
+            "seldon_autoscaler_draining_replicas", "Replicas draining toward detach (no fleet "
+            "traffic; in-flight work completing)", "gauge")
+        self._autoscaler_events = fam(
+            "seldon_autoscaler_scale_events", "Autoscaler actions applied, by kind (scale_up / "
+            "scale_down / rebalance / collect)", "counter", ("action",))
+        self._canary_phase = fam(
+            "seldon_canary_phase", "Canary rollout phase per router node (0 canary, 1 promoted, "
+            "2 rolled back)", "gauge", ("node",))
+        self._canary_rollbacks = fam("seldon_canary_rollbacks",
+                                     "Automatic or manual canary rollbacks", "counter", ("node",))
+        self._canary_error_rate = fam(
+            "seldon_canary_error_rate", "Windowed error rate per canary branch (baseline / "
+            "candidate)", "gauge", ("node", "branch"))
+        self._shadow_mirrors = fam(
+            "seldon_shadow_mirrors", "Requests mirrored to a shadow candidate (responses "
+            "discarded)", "counter", ("node",))
+        self._shadow_divergences = fam(
+            "seldon_shadow_divergences", "Mirrored requests whose shadow output diverged from "
+            "the primary's", "counter", ("node",))
+        self._shadow_errors = fam(
+            "seldon_shadow_errors", "Shadow-side failures (swallowed — the client never sees "
+            "them)", "counter", ("node",))
+        self._shadow_max_diff = fam(
+            "seldon_shadow_max_abs_diff", "Largest absolute output divergence observed on the "
+            "shadow path", "gauge", ("node",))
         self._tenant_ttft = fam("seldon_llm_tenant_ttft_seconds",
                                 "Time to first token by SLO class (the interactive-isolation "
                                 "signal bench phase L gates on)", "histogram", ("slo_class",),
@@ -541,6 +578,62 @@ class MetricsRegistry:
                 key = base + (str(mode),)
                 self._traces_retained.children[key] = max(self._traces_retained.child(key),
                                                           float(total))
+
+    def sync_controlplane(self, source: Any = None) -> None:
+        """Refresh the autoscaler, canary and shadow series at scrape time.
+        ``source`` is an engine (its graph's components are walked for
+        ``canary_stats`` and ``shadow_stats``, and ``engine.autoscaler``
+        read), a bare component (a fleet with an ``autoscaler`` attribute
+        among them), or an Autoscaler; anything without those surfaces is
+        a no-op. Counters catch up to the sources' lifetime tallies."""
+        if source is None:
+            return
+        named = []  # (node label, object)
+        state = getattr(source, "state", None)
+        if state is not None and hasattr(state, "walk"):
+            named = [(u.name, u.component) for u in state.walk() if u.component is not None]
+        else:
+            named.append((getattr(source, "name", "") or "", source))
+        autoscalers = [a for a in (source, getattr(source, "autoscaler", None))
+                       if a is not None and hasattr(a, "autoscaler_stats")]
+        base = self._base()
+
+        def catch_up(fam: _Family, key: Tuple[str, ...], value: float) -> None:
+            fam.children[key] = max(fam.child(key), float(value))
+
+        # the sources' stats take their own locks: read them before ours
+        auto_stats = [a.autoscaler_stats() for a in autoscalers]
+        node_stats = [(node, getattr(c, "canary_stats", lambda: None)(),
+                       getattr(c, "shadow_stats", lambda: None)()) for node, c in named]
+        with self._lock:
+            for stats in auto_stats:
+                self._autoscaler_replicas.children[base] = float(
+                    stats.get("autoscaler_replicas", 0))
+                self._autoscaler_draining.children[base] = float(
+                    stats.get("autoscaler_draining", 0))
+                for action, key in (("scale_up", "autoscaler_scale_ups_total"),
+                                    ("scale_down", "autoscaler_scale_downs_total"),
+                                    ("rebalance", "autoscaler_rebalances_total"),
+                                    ("collect", "autoscaler_collected_total")):
+                    catch_up(self._autoscaler_events, base + (action,), stats.get(key, 0))
+            for node, canary, shadow in node_stats:
+                if canary is not None:
+                    self._canary_phase.children[base + (node,)] = float(
+                        canary.get("canary_phase_code", 0))
+                    catch_up(self._canary_rollbacks, base + (node,),
+                             canary.get("canary_rollbacks_total", 0))
+                    for branch, key in (("baseline", "canary_baseline_error_rate"),
+                                        ("candidate", "canary_candidate_error_rate")):
+                        self._canary_error_rate.children[base + (node, branch)] = float(
+                            canary.get(key, 0.0))
+                if shadow is not None:
+                    key = base + (node,)
+                    catch_up(self._shadow_mirrors, key, shadow.get("shadow_mirrors_total", 0))
+                    catch_up(self._shadow_divergences, key,
+                             shadow.get("shadow_divergences_total", 0))
+                    catch_up(self._shadow_errors, key, shadow.get("shadow_errors_total", 0))
+                    self._shadow_max_diff.children[key] = float(
+                        shadow.get("shadow_max_abs_diff", 0.0))
 
     def expose(self) -> bytes:
         """Every family in the Prometheus text format (version 0.0.4)."""

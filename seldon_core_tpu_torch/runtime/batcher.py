@@ -594,6 +594,13 @@ class ContinuousBatcher:
         self.handoff_transport = ht
         self.disagg_mesh: Optional[DisaggMesh] = None
         self._remote: Optional[PrefillWorkerPool] = None
+        # the devices an explicit mesh offers (None: workers share this
+        # device); and the lock that makes a submit to the pool and a
+        # pool swap (rebalance_disagg) exclude each other
+        self._mesh_devices: Optional[List[torch.device]] = None
+        self._remote_lock = threading.Lock()
+        # the scale-down mark (drain / resume): advisory, admission goes on
+        self.draining = False
         self._transfer = None
         self._receiver: Optional[HandoffReceiver] = None
         self._remote_jobs: Dict[int, _RemoteJob] = {}
@@ -740,11 +747,14 @@ class ContinuousBatcher:
             raise ValueError(f"the decode slice must contain the server's device ({self.device}): "
                              f"the batcher's slot pool lives there — put the PREFILL slice on the "
                              f"other devices")
-        self.disagg_mesh = mesh
+        if disagg_mesh is not None or server.disagg_mesh is not None:
+            self._mesh_devices = list(mesh.prefill_devices)
         n_workers = (prefill_workers if prefill_workers is not None
                      else server.prefill_workers) or len(mesh.prefill_devices)
         devices = [mesh.prefill_devices[i % len(mesh.prefill_devices)]
                    for i in range(int(n_workers))]
+        # one entry a worker: the snapshot's prefill_devices is the count
+        self.disagg_mesh = DisaggMesh(devices, mesh.decode_devices)
         queue = TransferQueue()
         queue.on_ready = self._wakeup.set
         receiver_addr = None
@@ -762,6 +772,68 @@ class ContinuousBatcher:
                 self._receiver.close()
             raise
         self._transfer = queue
+
+    def max_prefill_workers(self) -> int:
+        """The ceiling of ``rebalance_disagg``: the batcher's slot count (a
+        staged job holds a decode slot, so more workers than slots are idle
+        by construction), and with an explicit mesh also its number of
+        prefill devices (one worker an entry)."""
+        if self._mesh_devices is None:
+            return self.S
+        return min(self.S, len(self._mesh_devices))
+
+    def rebalance_disagg(self, prefill_devices: int) -> bool:
+        """Move to ``prefill_devices`` prefill workers: the autoscaler's
+        device actuator (``controlplane/autoscaler.py``), the JAX package's
+        ``rebalance_disagg``. On one card the workers share the server's
+        device, so the count changes and the decode side stays this
+        batcher's one device.
+
+        Returns False, changing nothing, when disaggregation is off, the
+        count is below 1 or equal to the current one, or above
+        ``max_prefill_workers()``: the slot count on one card, and with an
+        explicit ``disagg_mesh`` also its number of prefill devices (one
+        worker an entry, the first N entries).
+
+        The swap: the new ``PrefillWorkerPool`` is built first, each worker
+        with its stream, staging pool and (on a card) chunk graphs captured
+        on its own thread while this batcher goes on replaying; a build
+        that fails closes what it built and raises, and the old pool keeps
+        serving. Then, under ``_remote_lock``, new admissions turn to the
+        new pool, which publishes into the same ``TransferQueue``; the old
+        pool's ``close()`` lets each worker finish its staged jobs before
+        its thread joins, waits on its stream and drops its graphs, staging
+        pool and buffers, so a handed-off job is never dropped and the
+        old pool's memory is free once it returns."""
+        if self._remote is None:
+            return False
+        n = int(prefill_devices)
+        if n < 1 or n == len(self._remote.workers) or n > self.max_prefill_workers():
+            return False
+        devices = (self._mesh_devices[:n] if self._mesh_devices is not None
+                   else [self.device] * n)
+        old = self._remote
+        new_pool = PrefillWorkerPool(
+            self.server, devices, self.device, layout="paged", max_len=self.max_len,
+            page_size=self.page_size, n_pages=self.n_pages, prefill_chunk=self.prefill_chunk,
+            chunks=self._chunks, queue=self._transfer, transport=old.transport,
+            receiver_addr=old.receiver_addr)
+        with self._remote_lock:
+            self._remote = new_pool
+            self.disagg_mesh = DisaggMesh(devices, self.disagg_mesh.decode_devices)
+        old.close()
+        logger.info("rebalanced the prefill workers from %d to %d", len(old.workers), n)
+        return True
+
+    def drain(self) -> None:
+        """Mark this batcher draining (a fleet's scale-down): advisory only.
+        Admission goes on, so nothing routed here fails; the fleet stops
+        dispatching to the replica and the scaling snapshot reports it."""
+        self.draining = True
+
+    def resume(self) -> None:
+        """Cancel a drain: the warm batcher rejoins fleet dispatch."""
+        self.draining = False
 
     def handoff_stats(self) -> dict:
         """Handoffs delivered, their bytes, the jobs staged or ready, and the
@@ -1340,11 +1412,13 @@ class ContinuousBatcher:
                 self._flight.record(free, EV_PREFIX_HIT, tokens=k0, blocks=len(shared))
             self._flight.record(free, EV_HANDOFF_STAGED, job_id=job.job_id,
                                 pages=n0 - len(shared))
-        self._remote.submit(PrefillRequest(
+        preq = PrefillRequest(
             job.job_id, ids, plen, n0, record_events=self._flight is not None,
             prefix_len=k0, prefix_pages=len(shared),
             prefix_staged=prefix, prefix_event=prefix_event,
-            first_key=self._first_key(req.seed, req.resume_tokens)))
+            first_key=self._first_key(req.seed, req.resume_tokens))
+        with self._remote_lock:  # never into a pool a rebalance is closing
+            self._remote.submit(preq)
         return True
 
     def _import_handoff(self, job: _RemoteJob, h) -> None:
@@ -2039,6 +2113,14 @@ class BatcherService:
     def _settled(self, _fut) -> None:
         with self._unsettled_lock:
             self._unsettled -= 1
+
+    def drain(self) -> None:
+        """The fleet's scale-down mark on this replica's batcher."""
+        self.batcher.drain()
+
+    def resume(self) -> None:
+        """A cancelled drain: the batcher rejoins fleet dispatch."""
+        self.batcher.resume()
 
     def is_idle(self) -> bool:
         """No submission unsettled and no remote prefill staged: nothing

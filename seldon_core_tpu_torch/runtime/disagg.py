@@ -58,8 +58,19 @@ metadata carries the worker's events and the receiver stamps
 clock readings on this process's ``perf_counter``: no stamp waits on the
 device.
 
-Not here: the dense-layout handoff (the batcher is paged) and
-``rebalance_disagg`` (the control plane's actuator)."""
+The pool swap (``ContinuousBatcher.rebalance_disagg``, the autoscaler's
+device actuator): a new ``PrefillWorkerPool`` is built on the batcher's
+``TransferQueue``, each worker's stream, staging pool and chunk graphs made
+on its own thread while the batcher's decode graphs replay; a failed build
+closes what it made and raises, and the old pool serves on. After the swap
+the old pool's ``close()`` lets each worker finish the jobs staged on it
+and publish them into the same queue before its thread joins, then waits
+on the worker's stream and drops its graphs, staging pool and buffers, so
+no handed-off job is dropped and the old pool's device memory is free when
+``close()`` returns (a worker whose thread outlived the join timeout keeps
+its state).
+
+Not here: the dense-layout handoff (the batcher is paged)."""
 
 from __future__ import annotations
 
@@ -375,6 +386,19 @@ class PrefillWorker:
             except OSError:
                 pass
             self._sock = None
+        if not self._thread.is_alive():
+            self._release()
+
+    def _release(self) -> None:
+        """Free the worker's device state once its thread is gone: its
+        stream is waited on (its last chunk and bucket copy have run), then
+        the graphs (and with them their memory pool), the staging pool and
+        the fixed buffers are dropped."""
+        if self._stream is not None:
+            self._stream.synchronize()
+        self._graphs = {}
+        self._staging = self._params = None
+        self._row = self._tokens = self._pos = self._temp = None
 
     # -- worker side ---------------------------------------------------
     @contextlib.contextmanager

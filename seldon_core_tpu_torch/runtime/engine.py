@@ -926,7 +926,7 @@ class GraphEngine:
     def _make_implementation(self, unit: PredictiveUnit) -> SeldonComponent:
         params = unit.parameters_dict()
         try:
-            return make_builtin(unit.implementation, params)
+            return make_builtin(unit.implementation, params, device=self.device)
         except ValueError:
             pass
         from seldon_core_tpu_torch.servers import make_prepackaged_server

@@ -27,8 +27,19 @@ in-process (``runtime/engine.GraphEngine``) over the engine app
 comes from ``--spec``, else ``ENGINE_PREDICTOR`` (base64 JSON) or
 ``ENGINE_PREDICTOR_FILE``, else the reference engine's default one-unit
 SIMPLE_MODEL graph; the annotations file tunes admission, deadlines and
-breakers. ``--api IPC`` comes with the native-edge slice. The other
-subcommands of ``seldon_core_tpu.transport.cli`` arrive with later slices.
+breakers. ``--api IPC`` comes with the native-edge slice.
+
+The control plane (host-only, the JAX CLI's arguments but ``--gpus`` and
+``--gpu-product`` in place of ``--tpu-chips`` and ``--tpu-topology``):
+``render <cr> [--format yaml|json]`` prints a CR's manifests
+(``controlplane/render.py``); ``operator --crs DIR [--cluster DIR |
+--kubectl] [--once]`` reconciles a directory of CRs into a ``FileCluster``
+(or through kubectl), one pass with ``--once``; ``render-chart <chart>
+[--values FILE]`` renders a ``deploy/charts`` chart without helm. PyYAML is
+imported where it is needed (a YAML CR, ``--format yaml``, a chart); where
+it is missing the command raises naming it, and JSON CRs with ``--format
+json`` need none. The other subcommands of the JAX package's CLI arrive
+with later slices.
 """
 
 from __future__ import annotations
@@ -224,6 +235,64 @@ def run_engine(args: argparse.Namespace) -> None:
           host=args.host, port=port)
 
 
+def _read_cr(path: str) -> dict:
+    """A CR file: JSON by its name (no YAML needed), anything else through
+    PyYAML (which also reads JSON)."""
+    with open(path) as f:
+        raw = f.read()
+    if path.endswith(".json"):
+        return json.loads(raw)
+    from seldon_core_tpu_torch.controlplane.charts import import_yaml
+
+    return import_yaml().safe_load(raw)
+
+
+def run_render(args: argparse.Namespace) -> None:
+    from seldon_core_tpu_torch.contracts.graph import SeldonDeploymentSpec
+    from seldon_core_tpu_torch.controlplane import render_manifests
+    from seldon_core_tpu_torch.controlplane.render import DEFAULT_ENGINE_IMAGE
+
+    sdep = SeldonDeploymentSpec.from_dict(_read_cr(args.file))
+    manifests = render_manifests(sdep, namespace=args.namespace,
+                                 engine_image=args.engine_image or DEFAULT_ENGINE_IMAGE,
+                                 gpus=args.gpus, gpu_product=args.gpu_product)
+    if args.format == "json":
+        print(json.dumps(manifests, indent=2))
+    else:
+        from seldon_core_tpu_torch.controlplane.charts import import_yaml
+
+        print(import_yaml().safe_dump_all(manifests, sort_keys=False))
+
+
+def run_operator(args: argparse.Namespace) -> None:
+    setup_logging()
+    from seldon_core_tpu_torch.controlplane.operator import (FileCluster, KubectlCluster,
+                                                              Operator, Reconciler)
+
+    cluster = KubectlCluster() if args.kubectl else FileCluster(args.cluster)
+    reconciler = Reconciler(cluster, namespace=args.namespace, engine_image=args.engine_image,
+                            gpus=args.gpus, gpu_product=args.gpu_product)
+    op = Operator(args.crs, reconciler, interval=args.interval, status_dir=args.status_dir)
+    if args.once:
+        op.run_once()
+    else:
+        op.run_forever()
+
+
+def run_render_chart(args: argparse.Namespace) -> None:
+    """Render a deploy/charts chart without the helm binary (the in-repo
+    subset renderer; ``helm template`` produces the same output)."""
+    from seldon_core_tpu_torch.controlplane.charts import import_yaml, render_chart
+
+    values = {}
+    if args.values:
+        with open(args.values) as f:
+            values = import_yaml().safe_load(f) or {}
+    for name, text in render_chart(args.chart, values, namespace=args.namespace):
+        print(f"---\n# Source: {os.path.basename(args.chart)}/templates/{name}")
+        print(text)
+
+
 def main(argv: Optional[list] = None) -> None:
     parser = argparse.ArgumentParser(prog="seldon-core-tpu-torch")
     sub = parser.add_subparsers(dest="command", required=True)
@@ -243,6 +312,32 @@ def main(argv: Optional[list] = None) -> None:
     eng.add_argument("--host", default="0.0.0.0")
     eng.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     eng.set_defaults(func=run_engine)
+    render = sub.add_parser("render", help="SeldonDeployment CR -> k8s manifests (operator logic)")
+    render.add_argument("file", help="CR or spec JSON/YAML file")
+    render.add_argument("--namespace", default="default")
+    render.add_argument("--engine-image", default=None)
+    render.add_argument("--gpus", type=int, default=1)
+    render.add_argument("--gpu-product", default=None)
+    render.add_argument("--format", default="yaml", choices=["yaml", "json"])
+    render.set_defaults(func=run_render)
+    op = sub.add_parser("operator", help="watch SeldonDeployment CRs and reconcile the cluster")
+    op.add_argument("--crs", required=True, help="directory of CR JSON/YAML files")
+    op.add_argument("--cluster", default="./cluster", help="FileCluster root dir")
+    op.add_argument("--kubectl", action="store_true", help="apply via kubectl instead")
+    op.add_argument("--namespace", default="default")
+    op.add_argument("--engine-image", default=None)
+    op.add_argument("--gpus", type=int, default=1)
+    op.add_argument("--gpu-product", default=None)
+    op.add_argument("--interval", type=float, default=2.0)
+    op.add_argument("--status-dir", default=None,
+                    help="status output dir (default <crs>/.status; set when --crs is read-only)")
+    op.add_argument("--once", action="store_true", help="single reconcile pass")
+    op.set_defaults(func=run_operator)
+    rc = sub.add_parser("render-chart", help="render a deploy/charts helm chart (no helm needed)")
+    rc.add_argument("chart", help="chart directory, e.g. deploy/charts/seldon-mab")
+    rc.add_argument("--values", default=None, help="values override YAML file")
+    rc.add_argument("--namespace", default="seldon-system")
+    rc.set_defaults(func=run_render_chart)
     args = parser.parse_args(argv)
     args.func(args)
 

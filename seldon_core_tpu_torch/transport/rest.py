@@ -414,6 +414,7 @@ def make_component_app(component: Any, device: Optional[str] = None,
             elif url.path in ("/metrics", "/prometheus"):
                 registry.sync_resilience(admission=admission, transport="rest")
                 registry.sync_llm(component)
+                registry.sync_controlplane(component)
                 registry.sync_tracing()
                 self._send(200, registry.expose(), content_type=PROM_CONTENT_TYPE)
             elif url.path == "/seldon.json":
@@ -590,6 +591,7 @@ def make_engine_app(engine: Any, metrics: Optional[MetricsRegistry] = None,
                 registry.sync_resilience(engine=engine, admission=admission, transport="rest")
                 for comp in engine._components.values():
                     registry.sync_llm(comp)
+                registry.sync_controlplane(engine)
                 registry.sync_tracing()
                 self._send(200, registry.expose(), content_type=PROM_CONTENT_TYPE)
             elif url.path == "/seldon.json":

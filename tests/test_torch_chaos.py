@@ -19,7 +19,9 @@ journal, the retry budget) held against the JAX package's on the CPU.
   one marker a resumed stream and no token twice, and greedy also equals
   the JAX package's ``generate()`` on the same weights (JAX
   ``tests/test_chaos.py:110``). The victim's crash path released every
-  page (``LeakSweep``), which the JAX package's does not.
+  page (``LeakSweep``), which the JAX package's does not. The port's
+  autoscaler reads the ejection on its next tick and replaces the replica
+  (``SCALE_UP``, "ejected" in its reason; JAX ``tests/test_chaos.py:206``).
 - Reinstatement on a ``FaultClock``; a broken device staying ejected; a
   poisoned handoff failing one request, not the batch.
 
@@ -499,6 +501,25 @@ def test_kill_busiest_replica_mid_decode_streams_equal_unfaulted(jax_ref, temper
             assert f"# TYPE {name}" in text and f"# TYPE {name}" in want, name
         line = [ln for ln in text.splitlines() if ln.startswith("seldon_fleet_resumes_total")]
         assert float(line[0].rsplit(" ", 1)[1]) == len(resumed)
+        # the autoscaler reads the ejection as a replace signal on its very
+        # next tick (no stability window), as the JAX package's does
+        from seldon_core_tpu_torch.controlplane.autoscaler import (SCALE_UP, Autoscaler,
+                                                                   AutoscalerConfig)
+
+        built = []
+
+        class Spare:
+            def load(self):
+                pass
+
+        auto = Autoscaler(fleet, config=AutoscalerConfig(min_replicas=1, max_replicas=4,
+                                                         up_stable_ticks=99, cooldown_s=0.0),
+                          replica_factory=lambda: built.append(Spare()) or built[-1])
+        assert sum(1 for s in auto.signals() if s.ejected) == 1
+        decision = auto.tick()
+        assert decision.action == SCALE_UP and "ejected" in decision.reason
+        assert decision.reason == "1 replica(s) ejected — replacing" and decision.target == 3
+        assert len(built) == 1 and len(fleet.members()) == 4  # corpse + 2 survivors + spare
     finally:
         close_fleet(fleet)
 

@@ -469,7 +469,8 @@ def test_later_slices_raise(case, tmp_path):
     """What a later slice serves raises naming it; the remote-node slice's
     cases now build (a list is one cached ReplicaSet, an endpoint a
     RemoteComponent, SKLEARN_SERVER loads its artifact), and the frame wire
-    format of a remote hop still raises naming the native-edge slice."""
+    format of a remote hop still raises naming the native-edge slice; a
+    MAHALANOBIS_OD unit builds its detector, VAE_OD still raises."""
     from seldon_core_tpu_torch.runtime.engine import ReplicaSet
     from seldon_core_tpu_torch.runtime.remote import RemoteComponent
 
@@ -488,8 +489,15 @@ def test_later_slices_raise(case, tmp_path):
             GraphEngine(spec(), annotations={"seldon.io/wire-format": "frame"}, device="cpu")
         return
     if case == "outlier detector":
+        # the control-plane slice serves the Mahalanobis detector (the canary
+        # router's); the other detectors still raise naming the analytics slice
+        from seldon_core_tpu_torch.analytics.outliers import MahalanobisOutlierDetector
+
         graph["implementation"] = "MAHALANOBIS_OD"
-        with pytest.raises(NotImplementedError, match="slice"):
+        assert isinstance(GraphEngine(spec(), device="cpu").state.root.component,
+                          MahalanobisOutlierDetector)
+        graph["implementation"] = "VAE_OD"
+        with pytest.raises(NotImplementedError, match="analytics slice"):
             GraphEngine(spec(), device="cpu")
         return
     graph["implementation"] = "SKLEARN_SERVER"

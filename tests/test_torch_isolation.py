@@ -49,6 +49,10 @@ need |= {"seldon_core_tpu_torch." + m for m in (
     "runtime.engine", "runtime.resilience", "components.builtin", "components.metrics",
     "analytics.routers", "tracing", "contracts.graph", "runtime.disagg", "codec.framing",
     "tracing.export", "runtime.flight", "observability.timeline")}
+need |= {"seldon_core_tpu_torch." + m for m in (
+    "controlplane", "controlplane.quantity", "controlplane.validate", "controlplane.render",
+    "controlplane.charts", "controlplane.operator", "controlplane.autoscaler",
+    "analytics.outliers", "analytics.canary")}
 assert need <= set(mods), need - set(mods)
 from seldon_core_tpu_torch.servers.llmserver import LLMServer
 s = LLMServer(model="llama-tiny", init_random=True, max_new_tokens=4, eos_id=-1,

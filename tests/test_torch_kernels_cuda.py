@@ -2262,6 +2262,96 @@ def test_disagg_batcher_on_card_equals_local(dev, kv, transport, workers):
     assert outs["remote_prefill"] == outs["off"]
 
 
+def test_rebalance_under_live_replays_new_pool_bit_equal_eager(dev):
+    """``rebalance_disagg`` 1 -> 2 -> 1 while the graph batcher decodes:
+    each new pool captures its chunk graphs on its workers' streams beside
+    the live decode replays; a 300-token prompt (two chunks of 256)
+    prefilled by a new pool hands over pages bit-equal (values where held,
+    positions everywhere) to the eager local prefill's, with the same first
+    token; every request's tokens equal the local eager batcher's; the new
+    workers' chunks are replays (none eager); the outgoing pools are
+    released, and the card's memory after the batcher closes is what it was
+    before it was built."""
+    from concurrent.futures import Future
+
+    from seldon_core_tpu_torch.runtime.batcher import ContinuousBatcher
+    from seldon_core_tpu_torch.runtime.scheduler import PendingRequest
+
+    s = _disagg_server("bf16")
+    long_ids = [5, 9, 17, 2, 40, 3, 22, 8, 11, 60] * 30
+    prompts = ["hi", "x" * 300, [3, 4, 5] * 50, "a prompt of more than thirty-two bytes"]
+    eager = ContinuousBatcher(s, device="cuda", disaggregation="off", _eager=True,
+                              **PREFILL_BATCH)
+    try:   # the long prompt's pages by the eager local prefill (no loop running)
+        assert eager._admit_begin(PendingRequest(ids=list(long_ids), max_new=12, fut=Future()))
+        while eager._prefill is not None:
+            eager._prefill_step()
+        slot = next(sl for sl in eager._slots if sl.active and sl.ids == long_ids)
+        local = ([tuple(t[slot.pages].clone() for t in layer) for layer in eager._caches],
+                 slot.tokens[0])
+    finally:
+        eager.close()
+    eager = ContinuousBatcher(s, device="cuda", disaggregation="off", _eager=True,
+                              **PREFILL_BATCH)
+    try:
+        want = [f.result(120) for f in [eager.submit(p) for p in prompts * 3]]
+    finally:
+        eager.close()
+    del eager, slot
+    import gc
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch._C._cuda_clearCublasWorkspaces()   # PyTorch's 32 MiB a stream it ran a product on
+    mem0 = torch.cuda.memory_allocated()
+    b = ContinuousBatcher(s, device="cuda", disaggregation="remote_prefill", prefill_workers=1,
+                          **PREFILL_BATCH)
+    handoffs = []    # (first token, a copy of the bucket), in publication order
+    real_put = b._transfer.put
+
+    def put(h):
+        if h.staged is not None and h.first_token is not None:
+            handoffs.append((h.first_token, [tuple(x.clone() for x in layer)
+                                             for layer in h.staged]))
+        return real_put(h)
+
+    b._transfer.put = put
+    try:
+        outs, pools = [], []
+        for n in (2, 1):
+            futs = [b.submit(p) for p in prompts]
+            old = b._remote
+            assert b.rebalance_disagg(n) and len(b._remote.workers) == n
+            assert all(w._staging is None and w.graphs() == {} for w in old.workers)
+            pools.append(b._remote)
+            outs += [f.result(120) for f in futs]
+        outs += [f.result(120) for f in [b.submit(p) for p in prompts]]
+        b.submit(long_ids, 12).result(120)     # alone: the last handoff published
+        ws = b._remote.workers
+        assert sum(w.replays for w in ws) > 0 and sum(w.eager_runs for w in ws) == 0
+        first, staged = handoffs[-1]
+        stats = b.handoff_stats()
+    finally:
+        b.close()
+    assert outs == want
+    assert stats["handoffs_total"] == 3 * len(prompts) + 1 and stats["handoff_queue_depth"] == 0
+    pages, tok = local
+    n0 = -(-len(long_ids) // PREFILL_BATCH["page_size"])
+    assert first == tok
+    for layer, ref in zip(staged, pages):
+        pos = layer[-1][RESERVED_PAGES:RESERVED_PAGES + n0]
+        assert torch.equal(pos, ref[-1])
+        held = pos != PAD_POS
+        for x, r in zip(layer[:-1], ref[:-1]):
+            assert torch.equal(x[RESERVED_PAGES:RESERVED_PAGES + n0][held], r[held])
+    del b, pools, handoffs, staged, layer, ws, old, put
+    gc.collect()
+    torch.cuda.synchronize()
+    torch._C._cuda_clearCublasWorkspaces()
+    # what may stay: K1's arrival counters, kept for each stream it met
+    assert torch.cuda.memory_allocated() - mem0 <= 1 << 20
+
+
 # ---------------------------------------------------------------------------
 # Fleet fault tolerance: a killed loop's crash path, and its restart on a new
 # thread over the same captured graphs

@@ -74,6 +74,12 @@ PORT_FAMILIES = {
     "seldon_fleet_ejections", "seldon_fleet_reinstatements", "seldon_fleet_resumes",
     "seldon_fleet_resumed_tokens", "seldon_fleet_retry_budget_exhausted",
     "seldon_fleet_resume_journal_depth",
+    # the control-plane slice's: the autoscaler, canary and shadow series
+    # (empty until a sync_controlplane)
+    "seldon_autoscaler_replicas", "seldon_autoscaler_draining_replicas",
+    "seldon_autoscaler_scale_events", "seldon_canary_phase", "seldon_canary_rollbacks",
+    "seldon_canary_error_rate", "seldon_shadow_mirrors", "seldon_shadow_divergences",
+    "seldon_shadow_errors", "seldon_shadow_max_abs_diff",
     # the tracing slice's: the tracer's export series (empty until a
     # sync_tracing)
     "seldon_trace_spans_dropped", "seldon_trace_export_seconds", "seldon_llm_traces_retained",
