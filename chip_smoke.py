@@ -424,6 +424,14 @@ MIXED_CHUNKS = (256, 256, 256, 32, 128)
 # K4 launches per forward of the int8 model: 7 projections x 32 layers +
 # the lm_head
 K4_PER_FORWARD = 7 * LLAMA2_7B["n_layers"] + 1
+
+
+def k4_per_forward(cfg) -> int:
+    """K4 launches of one int8 forward of the model ``cfg``: per layer wq,
+    wk, wv and wo, then w1, w3 and w2 (of each expert in an MoE layer), and
+    the lm_head (K4_PER_FORWARD at Llama-2-7B)."""
+    return cfg.n_layers * (4 + 3 * max(cfg.n_experts, 1)) + 1
+
 # speculative decoding: drafts a verify step, and the verify's rows at the 8
 # slots (K + 1 columns each, folded into rows of one K1 call)
 SPEC_K = 4
@@ -1283,9 +1291,10 @@ def k4_sweep(card, flush):
                       flush=True)
 
 
-def k4_decode_sweep(card, flush, clean_flush):
+def k4_decode_sweep(card, flush, clean_flush, model="7b"):
     """K4's decode kernel at each decode shape of the int8 7B model, at
-    M = 8 (the serving slots) and M = 1, over its strip widths and cluster
+    M = 8 (the serving slots) and M = 1 (``model`` "moe": at the MoE
+    products' shapes, MOE_K4, at M = 8), over its strip widths and cluster
     sizes (splits of K), with torch.matmul on a dequantized bf16 copy of the
     weight, all of one shape timed in turns; each configuration is first
     held to the K4 tolerance. The wrapper's own choice is marked. Prints
@@ -1304,8 +1313,11 @@ def k4_decode_sweep(card, flush, clean_flush):
 
     dev = torch.device("cuda")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    for m in (8, 1):
-        for name, k, n, dt in K4_FAMILIES:
+    families, rows = K4_FAMILIES, (8, 1)
+    if model == "moe":
+        families, rows = [(name, k, n, "bfloat16") for name, k, n in MOE_K4], (8,)
+    for m in rows:
+        for name, k, n, dt in families:
             dt = getattr(torch, dt)
             g = torch.Generator(device=dev).manual_seed(m + n)
             x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
@@ -1626,8 +1638,8 @@ def step_phase(label: str, card: str, server, b, texts, weight_bytes: int) -> di
     import torch
 
     quantized = server.quantize == "int8"
-    n_layers = LLAMA2_7B["n_layers"]
-    k4_step = K4_PER_FORWARD if quantized else 0
+    n_layers = server._cfg.n_layers
+    k4_step = k4_per_forward(server._cfg) if quantized else 0
     admit_now(b, texts, ahead=768)
     pool_gb = sum(t.numel() * t.element_size() for layer in b._caches for t in layer) / 1e9
     for k in sorted(b._graphs):
@@ -1687,7 +1699,8 @@ def step_phase(label: str, card: str, server, b, texts, weight_bytes: int) -> di
         replay = b._graphs[k].replay
         # what the replay runs, from the graph's kernel nodes by name; the
         # trace times it
-        seen = node_counts(graph_kernel_names(b._graphs[k].graph))
+        names = graph_kernel_names(b._graphs[k].graph)
+        seen = node_counts(names)
         want = (n_layers * k, 0, k4_step * k, n_layers * k)
         if seen != want:
             fail(f"[{label}] the K = {k} graph holds (K2, K4 prefill, K4 decode, K1) kernel "
@@ -1706,7 +1719,8 @@ def step_phase(label: str, card: str, server, b, texts, weight_bytes: int) -> di
         if ops_g:
             print(f"[{label}] K = {k} replay, K2 in the trace: {k2_line(k2_g)} [{card}]",
                   flush=True)
-        out[k] = {"host_ms": host_g, "dev_ms": ev_g, "traced_ms": dev_g if ops_g else None}
+        out[k] = {"host_ms": host_g, "dev_ms": ev_g, "traced_ms": dev_g if ops_g else None,
+                  "nodes": len(names)}
         if k > 1:
             host_ek = profile_step(eager_step(k), K2_KERNEL, reps=3)[0]
             print(f"[{label}] the same K = {k} program run eagerly: host enqueue "
@@ -1784,14 +1798,15 @@ def served_tokens(label: str, results):
 
 
 def check_launches(label: str, card: str, counts: dict, chunks, quantized: bool,
-                   int8_kv: bool, eager: bool) -> int:
+                   int8_kv: bool, eager: bool, cfg=None) -> int:
     """A run's launches against its work: one K1 a layer a decode step on
     the pool's kernel and none on the other; one K2 a layer a forward
     (decode steps and prefill ``chunks``); in the int8 model one K4 a
     product a forward, on the prefill route (``launches_wgmma``) for the
     chunks of 64 rows and more; every chunk a graph replay, or with
-    ``eager`` an eager run. Returns the decode steps."""
-    n_layers = LLAMA2_7B["n_layers"]
+    ``eager`` an eager run; ``cfg`` the model's config (default
+    Llama-2-7B's). Returns the decode steps."""
+    n_layers = cfg.n_layers if cfg else LLAMA2_7B["n_layers"]
     k1_key, idle_k1 = ("k1_int8", "k1") if int8_kv else ("k1", "k1_int8")
     k1_launches = counts[k1_key]
     if k1_launches == 0 or k1_launches % n_layers or counts[idle_k1]:
@@ -1802,7 +1817,7 @@ def check_launches(label: str, card: str, counts: dict, chunks, quantized: bool,
     if counts["k2"] != n_layers * forwards:
         fail(f"[{label}] K2 launches {counts['k2']} != {n_layers} x ({decode_steps} decode "
              f"steps + {len(chunks)} prefill chunks)")
-    per = K4_PER_FORWARD if quantized else 0
+    per = (k4_per_forward(cfg) if cfg else K4_PER_FORWARD) if quantized else 0
     if counts["k4"] != per * forwards:
         fail(f"[{label}] K4 launches {counts['k4']}: expected {per} x {forwards} forwards")
     wide = sum(c >= 64 for c in chunks)
@@ -1912,8 +1927,8 @@ def prefill_phase(label: str, card: str, server, b) -> dict:
 
     from seldon_core_tpu_torch.models.transformer import NULL_PAGE, PAD_POS
 
-    n_layers = LLAMA2_7B["n_layers"]
-    k4 = K4_PER_FORWARD if server.quantize == "int8" else 0
+    n_layers = server._cfg.n_layers
+    k4 = k4_per_forward(server._cfg) if server.quantize == "int8" else 0
     text = server._tokenizer.encode(" ".join(prompts(N_REQUESTS)))
     out = {}
     for C in sorted(b._prefill_graphs):
@@ -8119,6 +8134,471 @@ def controlplane_host(card: str) -> None:
           f"{time.perf_counter() - t_part:.1f} [{card}]", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# The MoE FFN: a Mixtral-8x7B-wide model served on one card
+# ---------------------------------------------------------------------------
+# mistralai/Mixtral-8x7B-v0.1 config.json; random weights from a seed
+MIXTRAL_8X7B = dict(vocab_size=32000, dim=4096, n_layers=32, n_heads=32, n_kv_heads=8,
+                    ffn_dim=14336, max_seq_len=32768, rope_theta=1e6, norm_eps=1e-5,
+                    n_experts=8, n_experts_per_token=2, dtype="bfloat16")
+# (label, LLMServer knobs, layers, why the depth is cut): (a) int8 weights,
+# bf16 KV, full depth; (b) bf16 weights, int8 KV, half the depth
+MOE_RUNS = (("moe int8", dict(quantize="int8"), 32, ""),
+            ("moe bf16", dict(kv_cache_dtype="int8"), 16,
+             "reduced to 16 of 32 layers: 32 layers of bf16 weights are 93.4 GB, more than "
+             "the card's 80 GB; 16 are 46.97 GB"))
+# K4's products that no Llama-2-7B forward has: the experts' w1 / w3 and w2,
+# and GQA's wk / wv (8 kv heads); at the rows of the 8 slots, a chunk of 32
+# and the chunks of 128 and 256
+MOE_K4 = (("expert w1/w3", 4096, 14336), ("expert w2", 14336, 4096), ("gqa wk/wv", 4096, 1024))
+MOE_K4_ROWS = (8, 32, 128, 256)
+MOE_IDLE_GB = 0.5         # device memory the card may hold when the phase starts
+# the int8 load's peak may pass the int8 tree plus its largest float32 leaf
+# by that leaf's bf16 rounding copy (quantize_into_) and this much
+MOE_LOAD_SLACK_GB = 0.25
+# a token's k-th and (k+1)-th gate logits closer than this (float32
+# recomputation) may pick either expert
+MOE_ROUTE_GAP = 1e-3
+
+
+def moe_load(label: str, card: str, knobs: dict, n_layers: int, why: str):
+    """An LLMServer at Mixtral-8x7B widths (random weights from a seed,
+    fused_norm=True, param_dtype="auto", paged continuous batching over
+    N_REQUESTS slots, the 7B runs' length buckets) at ``n_layers`` layers
+    with ``knobs``, loaded. Fails when an int8 load's peak passes the int8
+    tree plus its largest float32 leaf (an expert leaf) plus that leaf's
+    bf16 copy and MOE_LOAD_SLACK_GB. Returns (server, weight bytes, load
+    numbers)."""
+    import torch
+
+    from seldon_core_tpu_torch.servers.llmserver import LLMServer
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    server = LLMServer(model="transformer",
+                       model_kwargs=dict(MIXTRAL_8X7B, n_layers=n_layers, fused_norm=True),
+                       init_random=True, param_dtype="auto", continuous_batching=N_REQUESTS,
+                       max_new_tokens=MAX_NEW, temperature=0.0, eos_id=-1, seed=0,
+                       device="cuda", **knobs)
+    server.load()
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    weight_bytes = sum(t.numel() * t.element_size()
+                       for t in (*server._module.parameters(), *server._module.buffers()))
+    cfg = server._cfg
+    leaf = cfg.n_experts * cfg.dim * cfg.ffn_dim
+    limit = weight_bytes + leaf * 4 + leaf * 2 + MOE_LOAD_SLACK_GB * 1e9
+    print(f"[{label}] load_s {load_s:.2f} (Mixtral-8x7B widths, {n_layers} layers"
+          f"{'; ' + why if why else ''}; random weights; quantize={server.quantize or 'none'}, "
+          f"KV {server.kv_cache_dtype}): weights {weight_bytes / 1e9:.3f} GB, peak device "
+          f"memory during load() {peak / 1e9:.3f} GB (the largest float32 leaf, an expert's, "
+          f"{leaf * 4 / 1e9:.3f} GB) [{card}]", flush=True)
+    if server.quantize == "int8" and peak > limit:
+        fail(f"[{label}] load peak {peak / 1e9:.3f} GB > the int8 tree {weight_bytes / 1e9:.3f} "
+             f"GB + its largest float32 leaf {leaf * 4 / 1e9:.3f} GB + that leaf's bf16 copy "
+             f"{leaf * 2 / 1e9:.3f} GB + {MOE_LOAD_SLACK_GB} GB")
+    return server, weight_bytes, {"load_s": load_s, "load_peak_gb": peak / 1e9,
+                                  "weight_gb": weight_bytes / 1e9}
+
+
+def moe_service(label: str, card: str, server, fuse: int):
+    """A BatcherService of ``server`` with ``fuse`` steps a dispatch, built
+    (warm-up and capture) under set_sync_debug_mode("error"), served over
+    REST. Fails unless it holds decode graphs of K = 1 (and ``fuse``) and
+    prefill graphs of every chunk length. Returns (service, httpd, url)."""
+    import torch
+
+    from seldon_core_tpu_torch.runtime.batcher import BatcherService
+    from seldon_core_tpu_torch.transport.rest import make_component_app, start
+
+    server.decode_fuse_steps = fuse
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        svc = BatcherService(server, max_slots=N_REQUESTS)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    b = svc.batcher
+    want = sorted({1, fuse} if fuse > 1 else {1})
+    if sorted(b._graphs) != want or sorted(b._prefill_graphs) != sorted(PREFILL_CHUNKS):
+        fail(f"[{label}] graphs of K = {sorted(b._graphs)}, chunks "
+             f"{sorted(b._prefill_graphs)}: expected {want} and {sorted(PREFILL_CHUNKS)}")
+    print(f"[{label}] batcher built in {time.perf_counter() - t0:.3f} s: decode graphs of K = "
+          f"{want} ({gb_text(graph_pool_gb(b._graphs.values()))}), prefill graphs of chunks "
+          f"{sorted(PREFILL_CHUNKS)} ({gb_text(graph_pool_gb(b._prefill_graphs.values()))}), "
+          f"captured under set_sync_debug_mode('error'); KV pool "
+          f"{sum(t.numel() * t.element_size() for la in b._caches for t in la) / 1e9:.3f} GB "
+          f"({b.n_pages} pages of {b.page_size} a slot's table) [{card}]", flush=True)
+    server._batcher_service = svc
+    httpd, _ = start(make_component_app(server, device="cuda"))
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    code, body = post(url + "/v1/generate", {"prompt": "warm up", "max_new_tokens": 4})
+    if code != 200:
+        fail(f"[{label}] warm-up request answered {code}: {body}")
+    return svc, httpd, url
+
+
+def moe_requests(label: str, card: str, server, url: str, texts) -> tuple:
+    """The N_REQUESTS texts at once over REST /v1/generate, every counter
+    zeroed just before and read just after: every chunk a prefill-graph
+    replay and every dispatch a decode-graph replay (``check_launches`` at
+    the model's widths). Returns (served tokens, launch counts, metrics)."""
+    import torch
+
+    torch.cuda.synchronize()
+    zero_counts(server)
+    server._decode_replays = server._decode_eager = 0
+    results, wall = post_all(url, texts)
+    counts = read_counts(server)
+    dispatches = (server._decode_replays, server._decode_eager)
+    steps = sorted(server._decode_step_times)
+    m = {"wall_s": wall, "step_ms": statistics.median(steps) * 1e3,
+         "ttft_med_ms": statistics.median(server._ttft_times) * 1e3,
+         "ttft_max_ms": max(server._ttft_times) * 1e3,
+         "dispatch_ms": statistics.median(server._decode_dispatch_times) * 1e3,
+         "sync_ms": statistics.median(server._decode_sync_times) * 1e3,
+         "peak_gb": torch.cuda.max_memory_allocated() / 1e9, "steps": len(steps)}
+    served = served_tokens(label, results)
+    check_launches(label, card, counts, [128] * N_REQUESTS, server.quantize == "int8",
+                   server.kv_cache_dtype == "int8", eager=False, cfg=server._cfg)
+    if dispatches[0] == 0 or dispatches[1]:
+        fail(f"[{label}] decode dispatches as (graph replays, eager runs) {dispatches}: every "
+             f"dispatch must be a replay")
+    print(f"[{label}] {N_REQUESTS} requests x {MAX_NEW} tokens over REST in {wall:.3f} s: TTFT "
+          f"median {m['ttft_med_ms']:.1f} ms max {m['ttft_max_ms']:.1f} ms; decode step wall "
+          f"(drain to drain) median {m['step_ms']:.2f} ms = "
+          f"{N_REQUESTS / m['step_ms'] * 1e3:.1f} tok/s at {N_REQUESTS} slots ({len(steps)} "
+          f"steps in {dispatches[0]} dispatches, all graph replays; host time a dispatch median "
+          f"{m['dispatch_ms']:.3f} ms, host wait a drain {m['sync_ms']:.3f} ms); peak device "
+          f"memory since the load {m['peak_gb']:.2f} GB [{card}]", flush=True)
+    return served, counts, m
+
+
+def moe_generate(label: str, card: str, server, url: str, texts) -> tuple:
+    """One {"prompts": texts} request: generate() through its own decode
+    graph (captured at this first use): every decode step a replay.
+    Returns (tokens, launch counts, metrics)."""
+    import torch
+
+    zero_counts(server)
+    server._generate_replays = server._generate_eager = 0
+    t0 = time.perf_counter()
+    code, body = post(url + "/v1/generate", {"prompts": list(texts)})
+    wall = time.perf_counter() - t0
+    counts = read_counts(server)
+    if code != 200:
+        fail(f"[{label}] generate(): {{'prompts': ...}} answered {code}: {body}")
+    toks = body.get("tokens")
+    if not (isinstance(toks, list) and len(toks) == len(texts)
+            and all(len(t) == MAX_NEW for t in toks)):
+        fail(f"[{label}] generate(): expected {len(texts)} x {MAX_NEW} tokens, got {toks!r}")
+    reps = (server._generate_replays, server._generate_eager)
+    if reps != (MAX_NEW - 1, 0):
+        fail(f"[{label}] generate() decode steps as (replays, eager) {reps}, expected "
+             f"({MAX_NEW - 1}, 0)")
+    if counts["k2"] == 0 or counts["k1"] or counts["k1_int8"] or (
+            server.quantize == "int8") != (counts["k4"] > 0):
+        fail(f"[{label}] generate() launches {counts}")
+    step_ms = server._decode_step_times[-1] * 1e3
+    pool = graph_pool_gb(server._generate_graphs.values())
+    print(f"[{label}] generate(): {len(texts)} prompts x {MAX_NEW} tokens in one request, "
+          f"{wall:.3f} s (the decode graph captured in it); decode {step_ms:.2f} ms a step, "
+          f"{reps[0]} replays, {reps[1]} eager steps; dense buffer "
+          f"{server._dense.nbytes() / 1e9:.3f} GB, generate pool {gb_text(pool)}; launches "
+          f"{ {k: counts[k] for k in ('k2', 'k4', 'k4_wgmma')} } [{card}]", flush=True)
+    torch.cuda.synchronize()
+    return toks, counts, {"wall_s": wall, "step_ms": step_ms, "pool_gb": pool}
+
+
+def moe_route_check(label: str, card: str, server, texts, served) -> list:
+    """One teacher-forced prefill of the served sequences (prompts + served
+    tokens) with every layer's ``MoEFFN.gates`` recorded: the experts each
+    layer chose on the card against a float32 recomputation on the CPU
+    from the same activations (the dequantized router), equal except where
+    the k-th and (k+1)-th recomputed logits lie within MOE_ROUTE_GAP. Also
+    counts the tokens each layer routed to each expert. Returns the counts
+    summed over layers."""
+    import numpy as np
+    import torch
+
+    from seldon_core_tpu_torch.models.transformer import MoEFFN, dequantize_array
+    from seldon_core_tpu_torch.ops.quantize import QuantizedTensor
+
+    cfg = server._cfg
+    k = min(cfg.n_experts_per_token, cfg.n_experts)
+    seqs = [prompt_ids(server, t) + s for t, s in zip(texts, served)]
+    lens = torch.tensor([len(s) for s in seqs])
+    calls = []
+    real_gates = MoEFFN.gates
+
+    def recording(module, x):
+        gates, topi = real_gates(module, x)
+        calls.append((module, x.detach().float().cpu(), topi.cpu()))
+        return gates, topi
+
+    MoEFFN.gates = recording
+    try:
+        teacher_logits(server, seqs)
+    finally:
+        MoEFFN.gates = real_gates
+    if len(calls) != cfg.n_layers:
+        fail(f"[{label}] the routing check saw {len(calls)} MoE layers, expected {cfg.n_layers}")
+    real = (torch.arange(max(lens))[None] < lens[:, None]).reshape(-1).numpy()
+    counts = np.zeros(cfg.n_experts, np.int64)
+    differ = near = 0
+    for module, x, topi in calls:
+        router = module.router
+        router = dequantize_array(router) if isinstance(router, QuantizedTensor) else router
+        logits = (x.reshape(-1, cfg.dim).numpy().astype(np.float32)
+                  @ router.detach().float().cpu().numpy())[real]
+        order = np.argsort(-logits, axis=-1, kind="stable")
+        chosen = topi.reshape(-1, k).numpy()[real]
+        srt = np.take_along_axis(logits, order, -1)
+        tie = (srt[:, k - 1] - srt[:, k]) < MOE_ROUTE_GAP
+        same = (np.sort(chosen, -1) == np.sort(order[:, :k], -1)).all(-1)
+        differ += int((~same & ~tie).sum())
+        near += int((~same & tie).sum())
+        counts += np.bincount(chosen.reshape(-1), minlength=cfg.n_experts)
+    n_tok = int(real.sum())
+    print(f"[{label}] routing: {cfg.n_layers} layers x {n_tok} tokens of one teacher-forced "
+          f"prefill of the served sequences: the experts chosen on the card equal a float32 "
+          f"recomputation on the CPU from the same activations for all but {near} token-layers "
+          f"(each a near-tie, k-th and (k+1)-th logits within {MOE_ROUTE_GAP}) and {differ} "
+          f"others; tokens routed to each expert over the layers {counts.tolist()} (top-{k} of "
+          f"{cfg.n_experts}) [{card}]", flush=True)
+    if differ:
+        fail(f"[{label}] {differ} token-layers routed to other experts than the float32 "
+             f"recomputation without a near-tie")
+    return counts.tolist()
+
+
+def moe_split(label: str, card: str, server, b, weight_bytes: int) -> dict:
+    """Where one decode step's device time goes (a torch.profiler trace of
+    one K = 1 replay on the live state ``step_phase`` left): K4 on the
+    experts (in launch order, the 3 x e K4 kernels after each layer's K2),
+    the other K4, cuBLAS, K1, K2 and the rest; beside the step's byte bound
+    (its weights read once). A bf16 model's expert products are cuBLAS:
+    they are also timed alone, one layer's three batched products as a CUDA
+    graph at the step's rows, times the layers."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = server._cfg
+    replay = b._graphs[1].replay
+    replay()
+    torch.cuda.synchronize()
+    evs = []
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            replay()
+            torch.cuda.synchronize()
+        evs = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA
+                      and not getattr(e, "is_user_annotation", False)),
+                     key=lambda e: e.time_range.start)
+        del prof
+        if evs:
+            break
+    split = dict.fromkeys(("k4_experts", "k4_other", "cublas", "k1", "k2", "rest"), 0.0)
+    n = dict.fromkeys(split, 0)
+    left, last_k4 = 0, "k4_other"
+    for e in evs:
+        name = e.name
+        if K2_KERNEL in name:
+            key, left = "k2", 3 * cfg.n_experts
+        elif "paged_attention" in name:
+            key = "k1"
+        elif "splitk_reduce" in name:
+            key = last_k4
+        elif "int8_matmul" in name:
+            key = last_k4 = "k4_experts" if left > 0 else "k4_other"
+            left -= left > 0
+        elif any(t in name.lower() for t in ("gemm", "gemv", "nvjet", "cutlass", "xmma",
+                                              "cublas")):
+            key = "cublas"
+        else:
+            key = "rest"
+        split[key] += (e.time_range.end - e.time_range.start) / 1e3
+        n[key] += 1
+    total = sum(split.values())
+    bound = weight_bytes / HBM_BYTES_PER_S * 1e3
+    experts_alone = None
+    if server.quantize != "int8":
+        moe = server._module.layer_0.moe
+        dt = cfg.dtype
+        x2 = torch.randn((b.S, cfg.dim), device="cuda").to(dt)
+
+        def products():
+            h = torch.matmul(x2, moe.w1) * torch.matmul(x2, moe.w3)
+            return torch.matmul(h, moe.w2)
+
+        graph = torch.cuda.CUDAGraph()
+        products()
+        torch.cuda.synchronize()
+        with torch.cuda.graph(graph):
+            products()
+        experts_alone = events_ms(graph.replay) * cfg.n_layers
+        del graph
+    parts = ", ".join(f"{key} {split[key]:.3f} ms ({n[key]} kernels)" for key in split)
+    alone = ("" if experts_alone is None else
+             f"; the experts' three batched cuBLAS products of a layer alone (a CUDA graph at "
+             f"{b.S} rows, the multiply between them included) x {cfg.n_layers} layers "
+             f"{experts_alone:.3f} ms")
+    print(f"[{label}] one decode step's device time at {b.S} slots (torch.profiler, one K = 1 "
+          f"replay): {total:.3f} ms in {len(evs)} kernels = {parts}{alone}; byte bound (the "
+          f"{weight_bytes / 1e9:.2f} GB of weights read once at {HBM_BYTES_PER_S / 1e12:.2f} "
+          f"TB/s) {bound:.3f} ms, kernels/bound {total / bound:.2f}x [{card}]", flush=True)
+    return {"split": split, "kernels": len(evs), "total_ms": total, "bound_ms": bound,
+            "experts_alone_ms": experts_alone}
+
+
+def moe_kernel_cases(card: str, flush, b) -> dict:
+    """K4 at the new products' shapes (MOE_K4 x MOE_K4_ROWS, ``k4_case``:
+    against int8_matmul_ref within K4's tolerance, timed beside its bound
+    and torch.matmul on the bf16 weight) and K1 at the served GQA shape
+    (8 slots, 32 heads on 8 kv heads, the batcher ``b``'s table of
+    n_pages x page_size, 156 keys: a prompt of 124 and 32 tokens), both
+    pools. Returns the K4 rows by label."""
+    import torch
+
+    out = {}
+    for name, k, n in MOE_K4:
+        for m in MOE_K4_ROWS:
+            r = k4_case(m, k, n, torch.bfloat16, seed=m + k + n, flush=flush)
+            out[f"{name} M={m}"] = r
+            route = "prefill kernel (TMA + wgmma)" if r["decode_ms"] is not None else \
+                f"decode kernel, plan (width, splits, stages) {r['plan']}"
+            print(f"K4 int8_matmul MoE {name} [{m},{k}]x[{k},{n}] -> bfloat16 ({route}): "
+                  f"kernel_ms {r['ms']:.4f} plain_ms {r['plain_ms']:.4f} bound_ms "
+                  f"{r['bound_ms']:.4f} ({r['bound_by']}) library_ms {r['library_ms']:.4f} "
+                  f"(torch.matmul on a dequantized bf16 copy of the weight); kernel/bound "
+                  f"{r['ms'] / r['bound_ms']:.2f}x, kernel/library "
+                  f"{r['ms'] / r['library_ms']:.2f}x; max_abs_err {r['err']:.3e} "
+                  f"({K4_TOL_REASON}) [{card}]", flush=True)
+    for kv in ("bf16", "int8"):
+        r = k1_case(b=N_REQUESTS, h=MIXTRAL_8X7B["n_heads"], kvh=MIXTRAL_8X7B["n_kv_heads"],
+                    hd=MIXTRAL_8X7B["dim"] // MIXTRAL_8X7B["n_heads"], ps=b.page_size,
+                    n_pages=b.n_pages, ctx=124 + MAX_NEW, null_row=None, seed=5, flush=flush,
+                    kv=kv)
+        out[f"k1 {kv}"] = r
+        print(f"K1 paged_attention {kv} pool at the served GQA shape b={N_REQUESTS} h=32 "
+              f"kvh=8 hd=128 ps={b.page_size} n_pages={b.n_pages} ctx={124 + MAX_NEW}: "
+              f"S={r['splits']} kernel_ms {r['ms']:.4f} plain_ms {r['plain_ms']:.4f} bound_ms "
+              f"{r['bound_ms']:.4f} ({r['bound_by']}) library_ms {r['library_ms']:.4f} (SDPA); "
+              f"max_abs_err {r['err']:.3e} ({K1_TOL_REASON}) [{card}]", flush=True)
+    return out
+
+
+def moe_phase(card: str, ref_nodes: Optional[dict] = None) -> list:
+    """The [moe] phase: a Mixtral-8x7B-wide model through the port's main
+    path, in runs MOE_RUNS (each loaded for it and dropped after), each
+    served over REST through the graph batcher at K = 1 and at K = FUSED_K
+    and through generate() ({"prompts": ...}), with: every chunk and
+    dispatch a replay; decode and chunk replays bit-equal to the eager
+    programs on live state (``step_phase``, ``prefill_phase``); every
+    served token within TIE_TOL of a teacher-forced prefill's top logit;
+    the batcher's tokens == generate()'s up to a near-tie; the routing
+    against a float32 recomputation; the int8 load's peak. The K4 and K1
+    cases at the new shapes run once, after (a)'s first batcher.
+    ``ref_nodes`` (label -> kernel nodes of the 7B K = 1 decode graph, from
+    the serving phase) sets the step's kernels beside the 7B step's.
+    Returns launch records."""
+    import torch
+
+    t_phase = time.perf_counter()
+    release_server_memory()
+    held = torch.cuda.memory_allocated() / 1e9
+    reserved = torch.cuda.memory_reserved() / 1e9
+    print(f"[moe] device memory before the phase: {held:.3f} GB allocated, {reserved:.3f} GB "
+          f"reserved (at most {MOE_IDLE_GB} GB) [{card}]", flush=True)
+    if held > MOE_IDLE_GB:
+        fail(f"[moe] the card still holds {held:.3f} GB before the MoE loads")
+    scratch = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    records, summary = [], {}
+    for label, knobs, n_layers, why in MOE_RUNS:
+        t_run = time.perf_counter()
+        server, weight_bytes, load = moe_load(label, card, knobs, n_layers, why)
+        torch.cuda.reset_peak_memory_stats()
+        texts = prompts(N_REQUESTS)
+        run = dict(load)
+        for fuse in (0, FUSED_K):
+            sub = label if fuse == 0 else f"{label} K={fuse}"
+            svc, httpd, url = moe_service(sub, card, server, fuse)
+            b = svc.batcher
+            try:
+                served, counts, m = moe_requests(sub, card, server, url, texts)
+                records.append((sub, counts))
+                run[fuse] = m
+                if fuse == 0:
+                    run["decode_pool_gb"] = graph_pool_gb(b._graphs.values())
+                    run["prefill_pool_gb"] = graph_pool_gb(b._prefill_graphs.values())
+                    gen, gcounts, gm = moe_generate(sub, card, server, url, texts)
+                    records.append((f"{sub} generate", gcounts))
+                    run["generate"] = gm
+            finally:
+                httpd.shutdown()
+                httpd.server_close()
+                httpd = None     # the app it serves holds the server
+            if b.page_stats()["kv_pages_in_use"] != 0:
+                fail(f"[{sub}] pages still held after every request finished: "
+                     f"{b.page_stats()}")
+            svc.close()
+            server._batcher_service = None
+            teacher_check(sub, card, server, texts, served)
+            if fuse == 0:
+                equal = near_tie_check(f"{sub} batcher vs generate()", card, server, texts,
+                                       served, gen)
+                print(f"[{sub}] batcher vs generate(): {equal} of {N_REQUESTS} requests equal "
+                      f"throughout, the rest up to a near-tie [{card}]", flush=True)
+                run["routed"] = moe_route_check(sub, card, server, texts, served)
+                run["prefill"] = prefill_phase(sub, card, server, b)
+                if "kernels" not in summary:
+                    summary["kernels"] = moe_kernel_cases(card, lambda: scratch.fill_(1), b)
+            else:
+                run["step"] = step_phase(sub, card, server, b, texts, weight_bytes)
+                run["split"] = moe_split(sub, card, server, b, weight_bytes)
+            del svc, b
+            release_server_memory()
+        run["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        summary[label] = run
+        del server
+        release_server_memory()
+        left = torch.cuda.memory_allocated() / 1e9
+        print(f"[{label}] run_s {time.perf_counter() - t_run:.1f}; device memory after the "
+              f"server is dropped {left:.3f} GB [{card}]", flush=True)
+        if left > MOE_IDLE_GB:
+            fail(f"[{label}] the dropped server still holds {left:.3f} GB")
+    del scratch
+    for label, _, n_layers, why in MOE_RUNS:
+        run = summary[label]
+        k1, k8 = run[0], run[FUSED_K]
+        st = run["step"]
+        sp = run["split"]
+        ref = (ref_nodes or {}).get("int8" if "int8" in label else "bf16")
+        ref_text = (f"the Llama-2-7B {'int8' if 'int8' in label else 'bf16'} step's "
+                    f"{ref}" if ref else "the Llama-2-7B step's not measured in this call (the "
+                    "full run prints it)")
+        print(f"  {label} ({n_layers} layers{'; ' + why if why else ''}): load {run['load_s']:.1f} "
+              f"s, weights {run['weight_gb']:.3f} GB, load peak {run['load_peak_gb']:.3f} GB, "
+              f"peak over the run {run['peak_gb']:.3f} GB; TTFT median {k1['ttft_med_ms']:.1f} / "
+              f"max {k1['ttft_max_ms']:.1f} ms; step wall drain to drain K=1 "
+              f"{k1['step_ms']:.2f} ms = {N_REQUESTS / k1['step_ms'] * 1e3:.1f} tok/s, K={FUSED_K} "
+              f"{k8['step_ms']:.2f} ms = {N_REQUESTS / k8['step_ms'] * 1e3:.1f} tok/s; host a "
+              f"dispatch K=1 {k1['dispatch_ms']:.3f} ms, K={FUSED_K} {k8['dispatch_ms']:.3f} ms; "
+              f"replay device K=1 {st[1]['dev_ms']:.3f} ms; split {sp['split']}; kernels a step "
+              f"{st[1]['nodes']} graph kernel nodes ({ref_text}); byte bound "
+              f"{sp['bound_ms']:.3f} ms; generate() {run['generate']['step_ms']:.2f} ms a step; "
+              f"routed {run['routed']}; pools: decode {gb_text(run['decode_pool_gb'])}, prefill "
+              f"{gb_text(run['prefill_pool_gb'])}, generate {gb_text(run['generate']['pool_gb'])} "
+              f"[{card}]", flush=True)
+    print(f"[moe] phase_s {time.perf_counter() - t_phase:.1f} [{card}]", flush=True)
+    return records
+
+
 def main() -> int:
     try:
         import torch
@@ -8211,6 +8691,10 @@ def main() -> int:
         release_server_memory()
         fleet_phase(card)
         controlplane_host(card)
+        print(f"total_s {time.perf_counter() - t_start:.1f}", flush=True)
+        return 0
+    if sys.argv[1:] == ["--moe"]:
+        moe_phase(card)
         print(f"total_s {time.perf_counter() - t_start:.1f}", flush=True)
         return 0
     if sys.argv[1:] == ["--tracing"]:
@@ -8406,6 +8890,10 @@ def main() -> int:
     # disaggregated prefill: workers beside the decode batcher on this card
     records, disagg_runs = disagg_phase(card)
     spec_launches += records
+    # the MoE FFN: a Mixtral-8x7B-wide model, int8 weights at full depth,
+    # then bf16 weights at half depth
+    spec_launches += moe_phase(card, {m: runs[m][1]["step"][1]["nodes"]
+                                      for m in ("bf16", "int8")})
     print("serving runs (Llama-2-7B, 8 concurrent requests x 32 tokens; step wall drain to "
           f"drain; host = one dispatch's enqueue or replay on the same live state) [{card}]:",
           flush=True)

@@ -34,9 +34,13 @@ What changes with the framework:
   and runs a ``torch.bmm`` pair, as the JAX package's einsum pair (no Pallas
   kernel there either). The delta is added after the base product (K4 for
   an int8 weight), in the compute dtype, on q, o and the FFN projections.
+- MoE FFNs (``n_experts > 0``, ``MoEFFN``): the JAX package's dense
+  formulation, every expert over every token. Its einsums become one
+  batched product a projection over the expert axis (cuBLAS) for float
+  weights, and one int8 GEMM launch an expert a projection for int8 ones.
 
 Configurations that belong to later slices raise ``NotImplementedError``
-naming the slice: MoE FFNs, ring attention and meshes.
+naming the slice: ring attention and meshes.
 """
 
 from __future__ import annotations
@@ -51,6 +55,7 @@ from torch import nn
 
 from seldon_core_tpu_torch.device import resolve_device
 from seldon_core_tpu_torch.models.registry import register_model
+from seldon_core_tpu_torch.ops import int8_matmul as k4
 from seldon_core_tpu_torch.ops.quantize import (QuantizedTensor, _is_quantizable,
                                                 dequantize_array, quantize_array,
                                                 quantize_into_, quantized_matmul)
@@ -491,6 +496,81 @@ class DenseFFN(nn.Module):
         return _adapted(matmul(h, self.w2, dt), h, "w2", adapters, adapter_ids)
 
 
+def route(gate_logits: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k routing of ``gate_logits`` [..., e] float32: (dense gates
+    [..., e] float32, the chosen experts [..., k]). The k largest logits
+    in ``jax.lax.top_k``'s order: floats in their total order (-0 below
+    +0) and of equal values the lower index first, a stable descending
+    sort of the logits' bits as ordered integers (``torch.topk`` gives no
+    order for ties); then a softmax over them, scattered into gates that
+    are zero elsewhere. No host read and no shape that depends on the data,
+    so a CUDA graph captures it."""
+    bits = gate_logits.float().view(torch.int32)
+    key = bits ^ ((bits >> 31) & 0x7FFFFFFF)      # monotone in the float's total order
+    topi = torch.sort(key, dim=-1, descending=True, stable=True).indices[..., :k]
+    topv = gate_logits.gather(-1, topi)
+    gates = torch.zeros_like(gate_logits).scatter_(-1, topi, torch.softmax(topv, dim=-1))
+    return gates, topi
+
+
+class MoEFFN(nn.Module):
+    """Top-k token-choice mixture of experts, the JAX package's ``MoEFFN``:
+    ``router`` [dim, e], ``w1`` / ``w3`` [e, dim, ffn], ``w2`` [e, ffn,
+    dim]. Dense over experts, as there: every expert computes every token,
+    and each output is ``sum_e gate_e * w2[e](silu(w1[e] x) * w3[e] x)``
+    with gates zero outside the token's top k.
+
+    The router's logits are ``x.float() @ router.float()`` (an int8 router
+    dequantized in its ``orig_dtype`` first, as ``dequantize_params`` gives
+    it; it never reaches the int8 GEMM, whose x is bf16 and whose N = e is
+    too narrow for it), routed by ``route``. The experts run in the compute
+    dtype: float weights as one batched product a projection over the
+    expert axis (``torch.matmul``, cuBLAS on a card); int8 weights as one
+    int8 GEMM a projection an expert (``ops/int8_matmul``: ``q[e]`` of the
+    contiguous [e, K, N] codes is a contiguous [K, N] view, ``scale`` the
+    one [N] vector of the leaf, per output column across experts). The
+    experts' outputs y [e, tokens, dim] are rounded to the compute dtype,
+    then summed over e weighted by the gates in that dtype as one
+    contraction (``einsum``: float32 accumulation, one rounding), the JAX
+    package's last einsum."""
+
+    def __init__(self, cfg: TransformerConfig, *, param_dtype=torch.float32, device=None):
+        super().__init__()
+        self.cfg = cfg
+        e = cfg.n_experts
+        self.router = _param((cfg.dim, e), param_dtype, device)
+        self.w1 = _param((e, cfg.dim, cfg.ffn_dim), param_dtype, device)
+        self.w2 = _param((e, cfg.ffn_dim, cfg.dim), param_dtype, device)
+        self.w3 = _param((e, cfg.dim, cfg.ffn_dim), param_dtype, device)
+
+    def gates(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(dense gates [..., e] float32, chosen experts [..., k]) of ``x``."""
+        router = self.router
+        if isinstance(router, QuantizedTensor):
+            router = dequantize_array(router)
+        k = min(self.cfg.n_experts_per_token, self.cfg.n_experts)
+        return route(x.float() @ router.float(), k)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        dt = cfg.dtype
+        gates, _ = self.gates(x)
+        x2 = x.reshape(-1, cfg.dim).to(dt)
+        w1, w2, w3 = self.w1, self.w2, self.w3
+        if isinstance(w1, QuantizedTensor):
+            ys = []
+            for i in range(cfg.n_experts):
+                h = (F.silu(k4.int8_matmul(x2, w1.q[i], w1.scale, dt))
+                     * k4.int8_matmul(x2, w3.q[i], w3.scale, dt))
+                ys.append(k4.int8_matmul(h, w2.q[i], w2.scale, dt))
+            y = torch.stack(ys)                                            # [e, T, dim]
+        else:
+            h = F.silu(torch.matmul(x2, w1.to(dt))) * torch.matmul(x2, w3.to(dt))
+            y = torch.matmul(h, w2.to(dt))                                 # [e, T, dim]
+        out = torch.einsum("etd,te->td", y, gates.reshape(-1, cfg.n_experts).to(dt))
+        return out.reshape(x.shape)
+
+
 class TransformerBlock(nn.Module):
     def __init__(self, cfg: TransformerConfig, *, param_dtype=torch.float32,
                  device=None):
@@ -500,7 +580,11 @@ class TransformerBlock(nn.Module):
         self.attention_norm = RMSNorm(cfg.dim, cfg.norm_eps, **kw)
         self.attention = Attention(cfg, **kw)
         self.ffn_norm = RMSNorm(cfg.dim, cfg.norm_eps, **kw)
-        self.ffn = DenseFFN(cfg, **kw)
+        # the flax names: "moe" (MoEFFN) or "ffn" (DenseFFN)
+        if cfg.n_experts > 0:
+            self.moe = MoEFFN(cfg, **kw)
+        else:
+            self.ffn = DenseFFN(cfg, **kw)
 
     def forward(self, x, positions, cache=None, cache_index=None,
                 block_tables=None, paged_rows=None, adapters=None, adapter_ids=None):
@@ -516,6 +600,8 @@ class TransformerBlock(nn.Module):
         else:
             x = x + h
             ffn_in = self.ffn_norm(x)
+        if cfg.n_experts > 0:
+            return x + self.moe(ffn_in), new_cache
         return x + self.ffn(ffn_in, adapters, adapter_ids), new_cache
 
 
@@ -587,7 +673,9 @@ class Transformer(nn.Module):
         dtype (so a bf16-stored 7B model never holds a float32 copy of
         more than one leaf): normal(0.02) for the embedding and lm_head,
         ones for norm weights, lecun-normal (truncated normal, std
-        1/sqrt(fan_in)) for every projection. A leaf already quantized
+        1/sqrt(fan_in)) for every projection, fan_in the product of every
+        dim but the last (flax's: e * dim for an expert leaf [e, dim,
+        ffn]). A leaf already quantized
         (``quantize_`` on the meta device, then ``to_empty``) is drawn the
         same way and quantized straight into its int8 buffers, so the float
         tree never exists and the result equals ``init_params`` followed by
@@ -608,7 +696,7 @@ class Transformer(nn.Module):
             else:
                 # flax variance_scaling(1, "fan_in", "truncated_normal"):
                 # a [-2, 2] truncated unit normal times sqrt(1/fan_in)/0.8796
-                std = (1.0 / t.shape[0]) ** 0.5 / 0.87962566103423978
+                std = (1.0 / math.prod(t.shape[:-1])) ** 0.5 / 0.87962566103423978
                 torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=generator)
                 w.mul_(std)
             if quantized:
@@ -777,9 +865,6 @@ def kv_cache_bytes_per_token(cfg: TransformerConfig,
 
 
 def _build(cfg: TransformerConfig, device, param_dtype) -> Transformer:
-    if cfg.n_experts > 0:
-        raise NotImplementedError(
-            "MoE FFNs (MoEFFN) arrive with the MoE slice of the port")
     if cfg.attention_impl == "ring":
         raise NotImplementedError(
             "attention_impl='ring' (sequence-parallel ring attention) "
@@ -839,7 +924,7 @@ def make_llama_tiny(dtype: str = "float32", device=None, param_dtype=None, **kwa
 __all__ = [
     "PAD_POS", "NULL_PAGE", "TRASH_PAGE", "RESERVED_PAGES",
     "TransformerConfig", "Transformer", "TransformerBlock", "Attention",
-    "DenseFFN", "RMSNorm", "rms_norm", "rotary_embedding", "apply_rotary",
+    "DenseFFN", "MoEFFN", "route", "RMSNorm", "rms_norm", "rotary_embedding", "apply_rotary",
     "paged_write_targets", "gather_paged_view", "dense_view", "masked_attention",
     "matmul", "lora_delta", "quantize_kv", "dequantize_kv",
     "init_kv_caches", "init_paged_kv_caches", "reset_kv_caches", "kv_cache_bytes_per_token",

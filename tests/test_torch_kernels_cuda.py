@@ -525,6 +525,21 @@ def test_int8_matmul_kernel_matches_plain(dev, m, k, n, out_dtype):
     _assert_k4_close(out, x, q, scale)
 
 
+@pytest.mark.parametrize("m", [8, 32, 128, 256])
+@pytest.mark.parametrize("k,n", [(4096, 14336), (14336, 4096), (4096, 1024)])
+def test_int8_matmul_moe_shapes_match_plain(dev, m, k, n):
+    """K4 at the products of a Mixtral-8x7B-wide model (an expert's w1 /
+    w3 and w2, GQA's wk / wv), its weight an expert's [K, N] view of a
+    contiguous [e, K, N] buffer as ``MoEFFN`` passes it, against the plain
+    version within K4's tolerance."""
+    x, q, scale = _k4_case(dev, m, k, n, m + k + n)
+    experts = torch.stack([torch.zeros_like(q), q])
+    out = int8_matmul.int8_matmul(x, experts[1], scale)
+    torch.cuda.synchronize()
+    assert out.shape == (m, n) and out.dtype == torch.bfloat16
+    _assert_k4_close(out, x, q, scale)
+
+
 def _offset(t, elems):
     """A contiguous copy of ``t`` whose base sits ``elems`` elements past an
     allocation's (16-byte aligned) start."""
@@ -696,9 +711,10 @@ def _graph_batcher(dev, kv, **kw):
     from seldon_core_tpu_torch.runtime.batcher import ContinuousBatcher
     from seldon_core_tpu_torch.servers.llmserver import LLMServer
 
-    s = LLMServer(model="transformer", model_kwargs=SMALL_LLM, init_random=True,
-                  param_dtype="auto", max_new_tokens=12, eos_id=-1, len_buckets=(16,),
-                  temperature=kw.pop("temperature", 0.0), device="cuda", **INT8_KNOBS[kv])
+    s = LLMServer(model="transformer", model_kwargs=kw.pop("model_kwargs", SMALL_LLM),
+                  init_random=True, param_dtype="auto", max_new_tokens=12, eos_id=-1,
+                  len_buckets=(16,), temperature=kw.pop("temperature", 0.0), device="cuda",
+                  **INT8_KNOBS[kv])
     s.load()
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
@@ -776,6 +792,54 @@ def test_decode_graph_replay_bit_equals_eager(dev, kv):
         assert delta[(fused_norm.fused_residual_rmsnorm, "launches")] == n_layers * k
         k4 = delta.get((int8_matmul.int8_matmul, "launches"), 0)
         assert k4 == ((7 * n_layers + 1) * k if kv == "int8" else 0)
+
+
+SMALL_MOE = dict(SMALL_LLM, n_experts=4, n_experts_per_token=2)
+
+
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+def test_moe_decode_graph_replay_bit_equals_eager(dev, kv):
+    """The MoE model's decode step (4 experts, top 2; int8: the experts'
+    products one K4 launch each) captured as CUDA graphs of K = 1 and 4
+    under ``set_sync_debug_mode("error")``: each replay bit-equal to the
+    eager program from identical copies of pools and state, and adding to
+    the counters what its capture counted."""
+    from seldon_core_tpu_torch.servers.step_graph import launch_counts
+
+    s, b = _graph_batcher(dev, kv, model_kwargs=SMALL_MOE)
+    assert sorted(b._graphs) == [1, 4]
+    _admit(b, ([5, 9, 17, 2, 40, 3, 22, 8, 11, 60], [7, 7, 1]))
+    n_layers, e = SMALL_MOE["n_layers"], SMALL_MOE["n_experts"]
+    for k in (1, 4):
+        copy = _state_copy(b)
+        before = launch_counts()
+        toks = b._graphs[k].replay().clone()
+        after = launch_counts()
+        eager = s._get_decode_step_paged(b.S, b.n_pages, k)(*copy, b._temp, b._block_tables)
+        torch.cuda.synchronize()
+        assert torch.equal(toks, eager) and toks.shape == (3, k)
+        _assert_state_equal(b, copy)
+        delta = {key: n - before[key] for key, n in after.items() if n != before[key]}
+        assert delta == dict(b._graphs[k].counts)
+        k4 = delta.get((int8_matmul.int8_matmul, "launches"), 0)
+        assert k4 == ((n_layers * (4 + 3 * e) + 1) * k if kv == "int8" else 0)
+
+
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+def test_moe_decode_step_has_no_host_sync(dev, kv):
+    """The eager MoE decode step (routing, the experts, the combine) run
+    under ``set_sync_debug_mode("error")`` on live state: no host sync."""
+    s, b = _graph_batcher(dev, kv, model_kwargs=SMALL_MOE)
+    _admit(b, ([5, 9, 17, 2, 40, 3], [11, 60, 2]))
+    prog = s._get_decode_step_paged(b.S, b.n_pages, 1)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        toks = prog(b._caches, b._last_tok, b._next_pos, b._keys, b._temp, b._block_tables)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert toks.shape == (3, 1)
 
 
 @pytest.mark.parametrize("kv", ["bf16", "int8"])

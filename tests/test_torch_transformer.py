@@ -192,7 +192,6 @@ def test_kv_bytes_per_token_matches_jax():
 
 
 @pytest.mark.parametrize("kw,what", [
-    (dict(n_experts=4), "MoE"),
     (dict(attention_impl="ring"), "ring"),
 ])
 def test_later_slices_raise(kw, what):
