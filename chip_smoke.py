@@ -1798,26 +1798,29 @@ def served_tokens(label: str, results):
 
 
 def check_launches(label: str, card: str, counts: dict, chunks, quantized: bool,
-                   int8_kv: bool, eager: bool, cfg=None) -> int:
+                   int8_kv: bool, eager: bool, cfg=None, ranks: int = 1) -> int:
     """A run's launches against its work: one K1 a layer a decode step on
     the pool's kernel and none on the other; one K2 a layer a forward
     (decode steps and prefill ``chunks``); in the int8 model one K4 a
     product a forward, on the prefill route (``launches_wgmma``) for the
     chunks of 64 rows and more; every chunk a graph replay, or with
     ``eager`` an eager run; ``cfg`` the model's config (default
-    Llama-2-7B's). Returns the decode steps."""
+    Llama-2-7B's); ``ranks`` the mesh ranks (each runs every kernel at its
+    shard's shapes). Returns the decode steps."""
     n_layers = cfg.n_layers if cfg else LLAMA2_7B["n_layers"]
+    per_step = n_layers * ranks
     k1_key, idle_k1 = ("k1_int8", "k1") if int8_kv else ("k1", "k1_int8")
     k1_launches = counts[k1_key]
-    if k1_launches == 0 or k1_launches % n_layers or counts[idle_k1]:
-        fail(f"[{label}] K1 launches {counts}: expected a positive multiple of {n_layers} "
-             f"on the {k1_key} kernel (one per layer per decode step) and none on the other")
-    decode_steps = k1_launches // n_layers
+    if k1_launches == 0 or k1_launches % per_step or counts[idle_k1]:
+        fail(f"[{label}] K1 launches {counts}: expected a positive multiple of {per_step} "
+             f"on the {k1_key} kernel (one per layer per rank per decode step) and none on "
+             f"the other")
+    decode_steps = k1_launches // per_step
     forwards = decode_steps + len(chunks)
-    if counts["k2"] != n_layers * forwards:
-        fail(f"[{label}] K2 launches {counts['k2']} != {n_layers} x ({decode_steps} decode "
-             f"steps + {len(chunks)} prefill chunks)")
-    per = (k4_per_forward(cfg) if cfg else K4_PER_FORWARD) if quantized else 0
+    if counts["k2"] != per_step * forwards:
+        fail(f"[{label}] K2 launches {counts['k2']} != {n_layers} x {ranks} x ({decode_steps} "
+             f"decode steps + {len(chunks)} prefill chunks)")
+    per = ((k4_per_forward(cfg) if cfg else K4_PER_FORWARD) if quantized else 0) * ranks
     if counts["k4"] != per * forwards:
         fail(f"[{label}] K4 launches {counts['k4']}: expected {per} x {forwards} forwards")
     wide = sum(c >= 64 for c in chunks)
@@ -1828,9 +1831,10 @@ def check_launches(label: str, card: str, counts: dict, chunks, quantized: bool,
     if (counts["replays"], counts["eager"]) != want:
         fail(f"[{label}] prefill chunks as (graph replays, eager runs) "
              f"{(counts['replays'], counts['eager'])}, expected {want}")
+    of = f"{n_layers} layers" + (f" x {ranks} ranks" if ranks > 1 else "")
     print(f"[{label}] launches: paged_attention ({k1_key}) {k1_launches} ({decode_steps} decode "
-          f"steps x {n_layers} layers), fused_residual_rmsnorm {counts['k2']} ({decode_steps} + "
-          f"{len(chunks)} forwards x {n_layers} layers), int8_matmul {counts['k4']} ({forwards} "
+          f"steps x {of}), fused_residual_rmsnorm {counts['k2']} ({decode_steps} + "
+          f"{len(chunks)} forwards x {of}), int8_matmul {counts['k4']} ({forwards} "
           f"forwards x {per}): prefill kernel {counts['k4_wgmma']} ({wide} chunks of >= 64 "
           f"rows), decode kernel {counts['k4'] - counts['k4_wgmma']} ({decode_steps} steps + "
           f"{len(chunks) - wide} chunks); prefill chunks {list(chunks)}: "
@@ -3914,18 +3918,22 @@ def dense_prefix_check(label: str, card: str, server, system, users):
     return calls, counts
 
 
-def release_server_memory() -> None:
+def release_server_memory(workspaces: bool = True) -> None:
     """After a dropped server: collect it, return the cached blocks, and
     free the cuBLAS workspaces PyTorch keeps for every stream it ever ran a
     product on (32 MiB each; a server's capture and generate streams die
-    with it), so the next ``load_llm`` starts from what is really live."""
+    with it), so the next ``load_llm`` starts from what is really live.
+    ``workspaces=False`` keeps them: a live server's captured graphs hold
+    their workspace's address (the [parallel] phase beside its tp = 1
+    server)."""
     import gc
 
     import torch
 
     gc.collect()
     torch.cuda.empty_cache()
-    torch._C._cuda_clearCublasWorkspaces()
+    if workspaces:
+        torch._C._cuda_clearCublasWorkspaces()
 
 
 def prefix_runs_phase(card: str):
@@ -8242,11 +8250,12 @@ def moe_service(label: str, card: str, server, fuse: int):
     return svc, httpd, url
 
 
-def moe_requests(label: str, card: str, server, url: str, texts) -> tuple:
+def moe_requests(label: str, card: str, server, url: str, texts, ranks: int = 1) -> tuple:
     """The N_REQUESTS texts at once over REST /v1/generate, every counter
     zeroed just before and read just after: every chunk a prefill-graph
     replay and every dispatch a decode-graph replay (``check_launches`` at
-    the model's widths). Returns (served tokens, launch counts, metrics)."""
+    the model's widths, ``ranks`` mesh ranks). Returns (served tokens,
+    launch counts, metrics)."""
     import torch
 
     torch.cuda.synchronize()
@@ -8261,10 +8270,11 @@ def moe_requests(label: str, card: str, server, url: str, texts) -> tuple:
          "ttft_max_ms": max(server._ttft_times) * 1e3,
          "dispatch_ms": statistics.median(server._decode_dispatch_times) * 1e3,
          "sync_ms": statistics.median(server._decode_sync_times) * 1e3,
-         "peak_gb": torch.cuda.max_memory_allocated() / 1e9, "steps": len(steps)}
+         "peak_gb": torch.cuda.max_memory_allocated() / 1e9, "steps": len(steps),
+         "dispatches": dispatches[0]}
     served = served_tokens(label, results)
     check_launches(label, card, counts, [128] * N_REQUESTS, server.quantize == "int8",
-                   server.kv_cache_dtype == "int8", eager=False, cfg=server._cfg)
+                   server.kv_cache_dtype == "int8", eager=False, cfg=server._cfg, ranks=ranks)
     if dispatches[0] == 0 or dispatches[1]:
         fail(f"[{label}] decode dispatches as (graph replays, eager runs) {dispatches}: every "
              f"dispatch must be a replay")
@@ -8314,7 +8324,7 @@ def moe_generate(label: str, card: str, server, url: str, texts) -> tuple:
     return toks, counts, {"wall_s": wall, "step_ms": step_ms, "pool_gb": pool}
 
 
-def moe_route_check(label: str, card: str, server, texts, served) -> list:
+def moe_route_check(label: str, card: str, server, texts, served, ranks: int = 1) -> list:
     """One teacher-forced prefill of the served sequences (prompts + served
     tokens) with every layer's ``MoEFFN.gates`` recorded: the experts each
     layer chose on the card against a float32 recomputation on the CPU
@@ -8345,8 +8355,9 @@ def moe_route_check(label: str, card: str, server, texts, served) -> list:
         teacher_logits(server, seqs)
     finally:
         MoEFFN.gates = real_gates
-    if len(calls) != cfg.n_layers:
-        fail(f"[{label}] the routing check saw {len(calls)} MoE layers, expected {cfg.n_layers}")
+    if len(calls) != cfg.n_layers * ranks:
+        fail(f"[{label}] the routing check saw {len(calls)} MoE layer calls, expected "
+             f"{cfg.n_layers} x {ranks} ranks")
     real = (torch.arange(max(lens))[None] < lens[:, None]).reshape(-1).numpy()
     counts = np.zeros(cfg.n_experts, np.int64)
     differ = near = 0
@@ -8599,6 +8610,496 @@ def moe_phase(card: str, ref_nodes: Optional[dict] = None) -> list:
     return records
 
 
+# [parallel]: tensor, sequence and data parallelism over a mesh whose ranks
+# share this card (models/sharded.py): Llama-2-7B at tensor_parallel = 2
+# through the graph batcher (bf16; int8 weights + int8 KV), generate() on a
+# 4-rank {"data": 1, "seq": 2, "model": 2} mesh, Mixtral-8x7B widths cut to
+# PAR_MOE_LAYERS layers at tp = 2 (int8 weights), TorchServer over a mesh,
+# and K4 / K1 alone at the rank's shapes
+PAR_TP = 2
+PAR_GEN_MESH = {"data": 1, "seq": 2, "model": 2}
+PAR_MOE_LAYERS = 2
+# (label, K, N) of each product a rank runs: column shards cut N, row
+# shards K (Llama-2-7B at tp = 2, then at tp = 4; a Mixtral-8x7B expert's
+# w2 at tp = 2). A row shard runs with both outputs: bf16, and the float32
+# partials the served int8 ranks write (f32_partials)
+PAR_K4 = [("wq/wk/wv col tp=2", 4096, 2048), ("w1/w3 col tp=2", 4096, 5504),
+          ("lm_head col tp=2", 4096, 16000), ("wo row tp=2", 2048, 4096),
+          ("w2 row tp=2", 5504, 4096), ("Mixtral expert w2 row tp=2", 7168, 4096),
+          ("wq/wk/wv col tp=4", 4096, 1024),
+          ("w1/w3 col tp=4", 4096, 2752), ("lm_head col tp=4", 4096, 8000),
+          ("wo row tp=4", 1024, 4096), ("w2 row tp=4", 2752, 4096)]
+PAR_K4_ROWS = {"tp=2": (8, 32, 128, 256), "tp=4": (8, 128)}
+# K1 at a rank's heads: (label, h, kvh) — Llama-2-7B at tp = 2 and 4
+PAR_K1 = [("7B tp=2 rank", 16, 16), ("7B tp=4 rank", 8, 8)]
+
+
+def par_topology(n: int):
+    from seldon_core_tpu_torch.parallel.topology import Topology
+
+    return Topology(devices=["cuda"] * n)
+
+
+def par_load(label: str, card: str, knobs: dict, params=None, **kw):
+    """An LLMServer at Llama-2-7B widths and depth with ``knobs`` (and a
+    mesh in ``kw``), its weights ``params`` (another server's tree) or
+    random from the seed. Returns (server, weight bytes a rank)."""
+    import torch
+
+    from seldon_core_tpu_torch.servers.llmserver import LLMServer
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    server = LLMServer(model="transformer", model_kwargs=dict(LLAMA2_7B, fused_norm=True),
+                       init_random=True, param_dtype="auto",
+                       continuous_batching=kw.pop("continuous_batching", N_REQUESTS),
+                       max_new_tokens=MAX_NEW, temperature=0.0, eos_id=-1, seed=0,
+                       device="cuda", **knobs, **kw)
+    server.load(params=params)
+    torch.cuda.synchronize()
+    m = server._module
+    per_rank = (m.weight_bytes() if hasattr(m, "weight_bytes") else
+                [sum(t.numel() * t.element_size() for t in (*m.parameters(), *m.buffers()))])
+    mesh = getattr(server, "mesh", None)
+    print(f"[{label}] load_s {time.perf_counter() - t0:.2f} (Llama-2-7B widths, 32 layers, the "
+          f"weights {'of the loaded server' if params is not None else 'from the seed'}; "
+          f"quantize={server.quantize or 'none'}, KV {server.kv_cache_dtype}; mesh "
+          f"{dict(mesh.shape) if mesh is not None else None}, its ranks on one card): weight "
+          f"bytes a rank {[round(b / 1e9, 3) for b in per_rank]} GB; peak device memory during "
+          f"load() {torch.cuda.max_memory_allocated() / 1e9:.3f} GB [{card}]", flush=True)
+    return server, per_rank[0]
+
+
+def par_collective_ms(card: str, server, rows: int):
+    """One decode step's collectives alone at ``rows`` rows (the tp = 2
+    model's: an all-reduce of the embedding, two a layer, the logits'
+    all-gather, each over the 2 ranks' partials), as a CUDA graph: its
+    device time from torch.profiler (the kernels' sum) and from CUDA events
+    around the replay. Returns (profiler ms or None, events ms)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from seldon_core_tpu_torch.parallel import collectives
+
+    cfg = server._cfg
+    g = torch.Generator(device="cuda").manual_seed(9)
+    parts = [torch.randn((rows, 1, cfg.dim), generator=g, device="cuda").to(cfg.dtype)
+             for _ in range(PAR_TP)]
+    heads = [torch.randn((rows, 1, cfg.vocab_size // PAR_TP), generator=g, device="cuda")
+             for _ in range(PAR_TP)]
+
+    def step():
+        for _ in range(2 * cfg.n_layers + 1):
+            collectives.all_reduce(parts)
+        return collectives.all_gather(heads)[0]
+
+    step()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        step()
+    ev = events_ms(graph.replay)
+    prof_ms = None
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            graph.replay()
+            torch.cuda.synchronize()
+        evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        del prof
+        if evs:
+            prof_ms = sum(e.time_range.end - e.time_range.start for e in evs) / 1e3
+            break
+    del graph
+    return prof_ms, ev
+
+
+def par_replays(label: str, card: str, server, b, texts) -> dict:
+    """On live state (the served prompts admitted again, loop stopped):
+    the K = 1 decode replay and each chunk graph's replay against the same
+    sharded program run eagerly from identical copies of every rank's pools
+    and the slot state, bit for bit; the decode graph's kernel nodes by
+    name (one K1 and one K2 a layer a rank, one K4 a product a rank in the
+    int8 model) and all of them; the replay's device time (CUDA events)."""
+    import numpy as np
+    import torch
+
+    from seldon_core_tpu_torch.models.transformer import NULL_PAGE, PAD_POS
+
+    admit_now(b, texts, ahead=64)
+    copy = state_copy(b)
+    toks = b._graphs[1].replay().clone()
+    eager = server._get_decode_step_paged(b.S, b.n_pages, 1)(*copy, b._temp, b._block_tables)
+    torch.cuda.synchronize()
+    if not (torch.equal(toks, eager) and state_equal(b, copy)):
+        fail(f"[{label}] the decode replay and the eager sharded step differ")
+    del copy, eager
+    text = server._tokenizer.encode(" ".join(prompts(N_REQUESTS)))
+    for C in sorted(b._prefill_graphs):
+        pages = b._allocator.alloc(-(-C // b.page_size))
+        b._reset_pages(pages)
+        row = np.full((1, b.n_pages), NULL_PAGE, np.int32)
+        row[0, :len(pages)] = pages
+        b._row.copy_(b._to_device(row))
+        toks_c = np.zeros((1, C), np.int64)
+        toks_c[0] = text[:C]
+        b._chunk_tokens[:, :C].copy_(b._to_device(toks_c))
+        b._chunk_pos[:, :C].copy_(b._to_device(np.arange(C, dtype=np.int32)[None]))
+        copy = [tuple(t.clone() for t in layer) for layer in b._caches]
+        got = b._prefill_graphs[C].replay().clone()
+        want = server._get_prefill_chunk(C, b.n_pages)(copy, b._row, b._chunk_tokens[:, :C],
+                                                       b._chunk_pos[:, :C])
+        torch.cuda.synchronize()
+        if not (torch.equal(got, want) and all(torch.equal(x, y) for la, lb in
+                                               zip(b._caches, copy) for x, y in zip(la, lb))):
+            fail(f"[{label}] the chunk-{C} replay and the eager sharded chunk differ")
+        b._allocator.free(pages)
+        del copy, got, want
+    torch.cuda.empty_cache()
+    cfg = server._cfg
+    ranks = server.mesh.size if server.mesh is not None else 1
+    names = graph_kernel_names(b._graphs[1].graph)
+    seen = node_counts(names)
+    k4 = k4_per_forward(cfg) if server.quantize == "int8" else 0
+    want = (cfg.n_layers * ranks, 0, k4 * ranks, cfg.n_layers * ranks)
+    if seen != want:
+        fail(f"[{label}] the decode graph holds (K2, K4 prefill, K4 decode, K1) kernel nodes "
+             f"{seen}, expected {want}")
+    dev_ms = events_ms(b._graphs[1].replay)
+    print(f"[{label}] replay vs eager from identical copies of every rank's pools and the slot "
+          f"state: the K = 1 decode step and chunks {sorted(b._prefill_graphs)} bit-equal; the "
+          f"decode graph holds {len(names)} kernel nodes, (K2, K4 prefill, K4 decode, K1) "
+          f"{seen}; replay device time {dev_ms:.3f} ms (CUDA events, median of {REPS}) "
+          f"[{card}]", flush=True)
+    return {"nodes": len(names), "dev_ms": dev_ms}
+
+
+def par_serve(label: str, card: str, server, texts, ranks: int) -> tuple:
+    """``server``'s graph batcher over REST (``moe_service``), the
+    N_REQUESTS texts at once (``moe_requests``: every chunk and dispatch a
+    replay, the launches a rank's work times ``ranks``), then the replays
+    against the eager programs on live state. Returns (served tokens,
+    launch counts, metrics)."""
+    svc, httpd, url = moe_service(label, card, server, 0)
+    b = svc.batcher
+    try:
+        served, counts, m = moe_requests(label, card, server, url, texts, ranks=ranks)
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        httpd = None
+    if b.page_stats()["kv_pages_in_use"] != 0:
+        fail(f"[{label}] pages still held after every request finished: {b.page_stats()}")
+    svc.close()
+    server._batcher_service = None
+    m.update(par_replays(label, card, server, b, texts))
+    m["pool_gb"] = sum(t.numel() * t.element_size() for la in b._caches for t in la) / 1e9
+    del svc, b
+    release_server_memory(workspaces=False)
+    return served, counts, m
+
+
+def par_batcher_runs(card: str, base, texts, tree) -> tuple:
+    """(a): bf16, then int8 weights + int8 KV: the tp = 1 server's batcher
+    (``base``; int8: a copy of its weights quantized) and the tp = 2
+    server's, from the same weights; the tp = 2 tokens teacher-forced and
+    equal to the tp = 1 tokens up to a near-tie; the step's collectives."""
+    import torch
+
+    records, out = [], {}
+    for model, knobs in (("bf16", {}), ("int8", dict(quantize="int8", kv_cache_dtype="int8"))):
+        if model == "bf16":
+            ref = base
+        else:
+            ref, _ = par_load("parallel int8 tp=1", card, knobs, params=tree)
+        plain, pcounts, pm = par_serve(f"parallel {model} tp=1", card, ref, texts, 1)
+        if model != "bf16":
+            del ref
+            release_server_memory(workspaces=False)
+        server, rank_bytes = par_load(f"parallel {model} tp={PAR_TP}", card, knobs, params=tree,
+                                      tensor_parallel=PAR_TP, topology=par_topology(PAR_TP))
+        label = f"parallel {model} tp={PAR_TP}"
+        served, counts, m = par_serve(label, card, server, texts, PAR_TP)
+        records.append((label, counts))
+        teacher_check(label, card, server, texts, served)
+        equal = near_tie_check(f"{label} vs tp=1", card, server, texts, served, plain)
+        prof_ms, ev_ms = par_collective_ms(card, server, N_REQUESTS)
+        # K1 launches a decode dispatch (K = 1: a step), tp = 2 over tp = 1
+        k1 = "k1_int8" if model == "int8" else "k1"
+        ratio = (counts[k1] / m["dispatches"]) / (pcounts[k1] / pm["dispatches"])
+        out[model] = dict(m, tp1=pm, equal=equal, coll_prof_ms=prof_ms, coll_ev_ms=ev_ms,
+                          rank_gb=rank_bytes / 1e9, k1_ratio=ratio,
+                          peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+        print(f"[{label}] vs tp=1 on this card: tokens equal for {equal} of {N_REQUESTS} "
+              f"requests throughout, the rest up to a near-tie; step wall (drain to drain) "
+              f"median {m['step_ms']:.2f} ms vs {pm['step_ms']:.2f} ms; decode replay device "
+              f"{m['dev_ms']:.3f} vs {pm['dev_ms']:.3f} ms; graph kernel nodes a step "
+              f"{m['nodes']} vs {pm['nodes']}; K1 launches a step {ratio:.1f}x tp=1's; the "
+              f"step's collectives alone ({2 * server._cfg.n_layers + 1} all-reduces of "
+              f"[{N_REQUESTS}, 1, 4096] over {PAR_TP} partials + the logits' all-gather) "
+              f"{'not measured' if prof_ms is None else f'{prof_ms:.3f} ms'} (torch.profiler, "
+              f"kernels' sum), {ev_ms:.3f} ms (CUDA events); weights a rank "
+              f"{rank_bytes / 1e9:.3f} GB; KV pool {m['pool_gb']:.3f} GB (both ranks); peak "
+              f"device memory {out[model]['peak_gb']:.2f} GB [{card}]", flush=True)
+        if ratio != PAR_TP:
+            fail(f"[{label}] K1 launches a step {ratio}x tp=1's, expected {PAR_TP}x")
+        del server
+        release_server_memory(workspaces=False)
+    return records, out
+
+
+def par_generate(card: str, base, texts, tree) -> tuple:
+    """(b): generate() on the 4-rank {"data": 1, "seq": 2, "model": 2}
+    mesh over REST ({"prompts": texts}): every decode step a replay of its
+    graph (the rank loop captured), the tokens teacher-forced and equal to
+    the tp = 1 generate()'s up to a near-tie."""
+    from seldon_core_tpu_torch.transport.rest import make_component_app, start
+
+    label = "parallel generate seq=2 model=2"
+    # the eager switch: in the full run earlier phases freed the cuBLAS
+    # workspaces the tp = 1 server's generate graphs were captured over
+    want = base.generate(texts, _eager=True)["tokens"]
+    server, rank_bytes = par_load(label, card, {}, params=tree, continuous_batching=0,
+                                  mesh=par_topology(4).mesh(PAR_GEN_MESH))
+    httpd, _ = start(make_component_app(server, device="cuda"))
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    try:
+        toks, counts, gm = moe_generate(label, card, server, url, texts)
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        httpd = None
+    teacher_check(label, card, server, texts, toks)
+    equal = near_tie_check(f"{label} vs tp=1", card, server, texts, toks, want)
+    names = graph_kernel_names(next(iter(server._generate_graphs.values())).graph)
+    print(f"[{label}] vs the tp=1 generate(): {equal} of {N_REQUESTS} equal throughout, the "
+          f"rest up to a near-tie; decode graph {len(names)} kernel nodes a step (4 ranks); "
+          f"each rank's cache {server._dense.nbytes() / 4e9:.3f} GB of the dense buffer's "
+          f"{server._dense.nbytes() / 1e9:.3f} GB [{card}]", flush=True)
+    out = dict(gm, equal=equal, nodes=len(names), rank_gb=rank_bytes / 1e9)
+    del server
+    release_server_memory(workspaces=False)
+    return [(label, counts)], out
+
+
+def par_moe(card: str, texts) -> tuple:
+    """(c): Mixtral-8x7B widths cut to PAR_MOE_LAYERS layers, int8 weights,
+    at tp = 1 and tp = 2 (the same seed, the same weights): the tp = 2
+    graph batcher's tokens teacher-forced and equal to tp = 1's up to a
+    near-tie, and each rank's routing equal to a float32 recomputation."""
+    from seldon_core_tpu_torch.servers.llmserver import LLMServer
+
+    def load(label, **mesh_kw):
+        t0 = time.perf_counter()
+        server = LLMServer(model="transformer", model_kwargs=dict(
+            MIXTRAL_8X7B, n_layers=PAR_MOE_LAYERS, fused_norm=True), init_random=True,
+            param_dtype="auto", continuous_batching=N_REQUESTS, max_new_tokens=MAX_NEW,
+            temperature=0.0, eos_id=-1, seed=0, device="cuda", quantize="int8", **mesh_kw)
+        server.load()
+        print(f"[{label}] load_s {time.perf_counter() - t0:.2f} (Mixtral-8x7B widths reduced to "
+              f"{PAR_MOE_LAYERS} of 32 layers: the phase checks the sharded MoE layer, not the "
+              f"depth; random weights, int8) [{card}]", flush=True)
+        return server
+
+    ref = load("parallel moe tp=1")
+    plain, _, pm = par_serve("parallel moe tp=1", card, ref, texts, 1)
+    del ref
+    release_server_memory(workspaces=False)
+    label = f"parallel moe tp={PAR_TP}"
+    server = load(label, tensor_parallel=PAR_TP, topology=par_topology(PAR_TP))
+    served, counts, m = par_serve(label, card, server, texts, PAR_TP)
+    teacher_check(label, card, server, texts, served)
+    equal = near_tie_check(f"{label} vs tp=1", card, server, texts, served, plain)
+    routed = moe_route_check(label, card, server, texts, served, ranks=PAR_TP)
+    print(f"[{label}] vs tp=1: {equal} of {N_REQUESTS} equal throughout, the rest up to a "
+          f"near-tie; step wall {m['step_ms']:.2f} vs {pm['step_ms']:.2f} ms; graph kernel "
+          f"nodes a step {m['nodes']} vs {pm['nodes']}; routed {routed} [{card}]", flush=True)
+    del server
+    release_server_memory(workspaces=False)
+    return [(label, counts)], dict(m, tp1=pm, equal=equal, routed=routed)
+
+
+def par_kernel_cases(card: str, flush) -> dict:
+    """(e): K4 at every product a rank runs at tp = 2 and tp = 4 and K1 at
+    a rank's heads, both pools, each against its plain version."""
+    import torch
+
+    out = {}
+    for name, k, n in PAR_K4:
+        dts = ((torch.float32,) if name.startswith("lm_head") else
+               (torch.bfloat16, torch.float32) if " row " in name else (torch.bfloat16,))
+        for m, dt in [(m, dt) for m in PAR_K4_ROWS[name.split()[-1]] for dt in dts]:
+            r = k4_case(m, k, n, dt, seed=m + k + n + 1, flush=flush)
+            out[f"{name} M={m}" + (" f32" if " row " in name and dt == torch.float32
+                                   else "")] = r
+            route = ("prefill kernel (TMA + wgmma)" if r["decode_ms"] is not None else
+                     f"decode kernel, plan (width, splits, stages) {r['plan']}")
+            print(f"K4 int8_matmul shard {name} [{m},{k}]x[{k},{n}] -> "
+                  f"{str(dt).split('.')[-1]} ({route}): kernel_ms {r['ms']:.4f} plain_ms "
+                  f"{r['plain_ms']:.4f} bound_ms {r['bound_ms']:.4f} ({r['bound_by']}) "
+                  f"library_ms {r['library_ms']:.4f} (torch.matmul on a dequantized bf16 copy); "
+                  f"kernel/bound {r['ms'] / r['bound_ms']:.2f}x, kernel/library "
+                  f"{r['ms'] / r['library_ms']:.2f}x; max_abs_err {r['err']:.3e} "
+                  f"({K4_TOL_REASON}) [{card}]", flush=True)
+    for name, h, kvh in PAR_K1:
+        for kv in ("bf16", "int8"):
+            r = k1_case(b=N_REQUESTS, h=h, kvh=kvh, hd=128, ps=64, n_pages=4, ctx=124 + MAX_NEW,
+                        null_row=None, seed=h + kvh, flush=flush, kv=kv)
+            out[f"k1 {name} {kv}"] = r
+            print(f"K1 paged_attention {kv} pool at the {name}'s heads b={N_REQUESTS} h={h} "
+                  f"kvh={kvh} hd=128 ps=64 n_pages=4 ctx={124 + MAX_NEW}: S={r['splits']} "
+                  f"kernel_ms {r['ms']:.4f} plain_ms {r['plain_ms']:.4f} bound_ms "
+                  f"{r['bound_ms']:.4f} ({r['bound_by']}) library_ms {r['library_ms']:.4f} "
+                  f"(SDPA); max_abs_err {r['err']:.3e} ({K1_TOL_REASON}) [{card}]", flush=True)
+    return out
+
+
+def parallel_phase(card: str, base=None) -> tuple:
+    """The [parallel] phase, parts (a), (b), (c) and (e) ((d) is
+    ``parallel_predict``). ``base`` is the loaded tp = 1 bf16 7B server
+    (the serving phase's), else one is loaded. Returns (launch records,
+    summary)."""
+    import torch
+
+    t_phase = time.perf_counter()
+    release_server_memory(workspaces=False)
+    own = base is None
+    if own:
+        base, _ = load_llm("parallel bf16 tp=1", card, {})
+    base.decode_fuse_steps = 0
+    texts = prompts(N_REQUESTS)
+    tree = base._module.param_tree()
+    records, summary = [], {}
+    rec, summary["batcher"] = par_batcher_runs(card, base, texts, tree)
+    records += rec
+    rec, summary["generate"] = par_generate(card, base, texts, tree)
+    records += rec
+    del tree
+    if own:
+        del base
+    release_server_memory(workspaces=False)
+    rec, summary["moe"] = par_moe(card, texts)
+    records += rec
+    scratch = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    summary["kernels"] = par_kernel_cases(card, lambda: scratch.fill_(1))
+    del scratch
+    if own:
+        release_server_memory()
+    for model in ("bf16", "int8"):
+        r = summary["batcher"][model]
+        coll = ("not measured" if r["coll_prof_ms"] is None else f"{r['coll_prof_ms']:.3f} ms")
+        print(f"  parallel {model}: tp={PAR_TP} step wall {r['step_ms']:.2f} ms vs tp=1 "
+              f"{r['tp1']['step_ms']:.2f} ms; replay device {r['dev_ms']:.3f} vs "
+              f"{r['tp1']['dev_ms']:.3f} ms; kernel nodes a step {r['nodes']} vs "
+              f"{r['tp1']['nodes']}; collectives a step {coll} (torch.profiler) "
+              f"/ {r['coll_ev_ms']:.3f} ms (events); weights a rank {r['rank_gb']:.3f} GB; "
+              f"peak {r['peak_gb']:.2f} GB [{card}]", flush=True)
+    g = summary["generate"]
+    print(f"  parallel generate on {PAR_GEN_MESH}: {g['step_ms']:.2f} ms a decode step, "
+          f"{g['nodes']} kernel nodes a step, weights a rank {g['rank_gb']:.3f} GB [{card}]",
+          flush=True)
+    print(f"[parallel] phase_s {time.perf_counter() - t_phase:.1f} [{card}]", flush=True)
+    return records, summary
+
+
+def parallel_predict(card: str, model) -> int:
+    """(d): TorchServer with tensor_parallel = 2 over an explicit
+    co-located topology (the process topology, set for the call), reached
+    through a GraphEngine spec's typed parameters with strict_sharding: on
+    the folded ResNet-50 leaf ``model`` the strict error (no logical axes:
+    replicated), then over 'data' = 2 without it, its logits within FWD_TOL
+    of the unsharded forward; on a small transformer checkpoint, its logits
+    within FWD_TOL of the unsharded forward's (bf16 partials summed in
+    float32). Returns K3's launches."""
+    import asyncio
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from seldon_core_tpu_torch.contracts.payload import SeldonMessage
+    from seldon_core_tpu_torch.models import get_model
+    from seldon_core_tpu_torch.models.resnet_infer import resnet_serve_forward
+    from seldon_core_tpu_torch.ops.fused_resnet import fused_identity_chain
+    from seldon_core_tpu_torch.parallel.topology import set_topology
+    from seldon_core_tpu_torch.runtime.engine import GraphEngine
+    from seldon_core_tpu_torch.servers.torchserver import export_checkpoint
+
+    def unit(uri, strict):
+        return {"name": "m", "type": "MODEL", "implementation": "JAX_SERVER", "modelUri": uri,
+                "parameters": [{"name": "tensor_parallel", "value": str(PAR_TP), "type": "INT"},
+                               {"name": "strict_sharding", "value": str(strict).lower(),
+                                "type": "BOOL"}]}
+
+    prev = set_topology(par_topology(2 * PAR_TP))
+    try:
+        with tempfile.TemporaryDirectory(prefix="parallel-ckpt-") as root:
+            rn = os.path.join(root, "resnet50")
+            export_checkpoint(rn, "resnet50", {"params": model.param_tree()},
+                              kwargs={"fused": True}, input_shape=[224, 224, 3])
+            x = np.round(np.random.default_rng(8).standard_normal(
+                (PREDICT_BATCH, 224, 224, 3)), 2).astype(np.float32)
+            body = {"data": {"tensor": {"shape": list(x.shape), "values": x.ravel().tolist()}}}
+            try:
+                engine = GraphEngine(graph_spec(unit(rn, True)), device="cuda")
+                asyncio.run(engine.predict(SeldonMessage.from_dict(body)))
+                fail("[parallel] (d) strict_sharding on a replicated ResNet-50 did not raise")
+            except ValueError as e:
+                if "every param leaf is replicated" not in str(e):
+                    raise
+                strict_msg = str(e)
+            engine = GraphEngine(graph_spec(unit(rn, False)), device="cuda")
+            leaf = engine.state.root.component
+            fused_identity_chain.launches = 0
+            out = asyncio.run(engine.predict(SeldonMessage.from_dict(body))).to_dict()
+            k3 = k3_count()
+            got = torch.from_numpy(logits_of(out)).float()
+            with torch.no_grad():
+                ref = resnet_serve_forward(model, torch.from_numpy(x).cuda(),
+                                           pallas_stages=()).float().cpu()
+            err, bound, clear, agree = check_logits("[parallel] (d) ResNet-50 over data=2",
+                                                    got, ref)
+            if k3 == 0:
+                fail("[parallel] (d) K3 never launched over the 'data' ranks")
+            print(f"[parallel] (d) TorchServer tensor_parallel={PAR_TP} through a GraphEngine "
+                  f"spec over {dict(leaf.mesh.shape)} (4 ranks on this card): strict_sharding "
+                  f"on the ResNet-50 leaf raised ({strict_msg.split(' (report')[0]}); without "
+                  f"it, {PREDICT_BATCH} images in buckets {leaf.batch_buckets} ran each 'data' "
+                  f"rank's half through K3 ({k3} launches): max |logit diff| vs the unsharded "
+                  f"cuDNN chain {err:.4g} (bound {bound:.4g}), top-1 equal in {agree} of {clear} "
+                  f"clear rows [{card}]", flush=True)
+            del engine, leaf
+            tiny = get_model("transformer", device="cuda", **dict(
+                LLAMA2_7B, n_layers=2, dim=1024, n_heads=8, n_kv_heads=8, ffn_dim=2816))
+            tiny.init_params(torch.Generator(device="cuda").manual_seed(4))
+            tk = os.path.join(root, "tiny")
+            export_checkpoint(tk, "transformer", {"params": tiny.param_tree()},
+                              kwargs=dict(LLAMA2_7B, n_layers=2, dim=1024, n_heads=8,
+                                          n_kv_heads=8, ffn_dim=2816), input_shape=[16],
+                              input_dtype="int32")
+            engine = GraphEngine(graph_spec(unit(tk, True)), device="cuda")
+            toks = np.random.default_rng(9).integers(0, 32000, size=(4, 16))
+            body = {"data": {"tensor": {"shape": [4, 16], "values": toks.ravel().tolist()}}}
+            out = asyncio.run(engine.predict(SeldonMessage.from_dict(body))).to_dict()
+            got = torch.from_numpy(logits_of(out)).float()
+            with torch.no_grad():
+                ref = tiny(torch.from_numpy(toks).cuda())[0].float().cpu()
+            err, bound, clear, agree = check_logits(
+                "[parallel] (d) 2-layer transformer over tp=2", got.reshape(-1, 32000),
+                ref.reshape(-1, 32000))
+            print(f"[parallel] (d) a 2-layer transformer checkpoint (d=1024, 8 heads, vocab "
+                  f"32000) through the same spec with strict_sharding (it shards): logits "
+                  f"[4, 16, 32000], max |diff| vs the unsharded forward {err:.4g} (bound "
+                  f"{bound:.4g} = {FWD_TOL} x max|logit|: bf16 partials summed in float32), "
+                  f"top-1 equal in {agree} of {clear} clear rows [{card}]", flush=True)
+            del engine, tiny
+    finally:
+        set_topology(prev)
+    release_server_memory(workspaces=False)
+    return k3
+
+
 def main() -> int:
     try:
         import torch
@@ -8691,6 +9192,12 @@ def main() -> int:
         release_server_memory()
         fleet_phase(card)
         controlplane_host(card)
+        print(f"total_s {time.perf_counter() - t_start:.1f}", flush=True)
+        return 0
+    if sys.argv[1:] == ["--parallel"]:
+        parallel_phase(card)
+        model, _ = resnet_forward_phase(card)
+        parallel_predict(card, model)
         print(f"total_s {time.perf_counter() - t_start:.1f}", flush=True)
         return 0
     if sys.argv[1:] == ["--moe"]:
@@ -8847,6 +9354,7 @@ def main() -> int:
     # bf16 also with K = FUSED_K fused steps a dispatch; bf16 is freed before
     # int8 weights + int8 KV load
     runs, spec_runs, spec_launches = {}, {}, []
+    par_records, par_summary = [], {}
     for model, knobs, fuses in (("bf16", {}, (0, FUSED_K)),
                                 ("int8", dict(quantize="int8", kv_cache_dtype="int8"), (0,))):
         server, weight_bytes = load_llm(model, card, knobs)
@@ -8862,6 +9370,10 @@ def main() -> int:
             spec_launches.append(("controlplane (b) shadow", controlplane_shadow(card, server)))
             # request tracing and the flight recorder on the bf16 graph path
             spec_launches += tracing_phase(card, server)
+            # [parallel] (a), (b), (c), (e): meshes whose ranks share this card,
+            # the tp = 2 servers built from this server's weights
+            par_records, par_summary = parallel_phase(card, server)
+            spec_launches += par_records
         label = f"{model} spec ngram"
         records, spec_runs[label] = spec_phase(label, card, server, "ngram",
                                                plain=runs[model][1])
@@ -8962,6 +9474,8 @@ def main() -> int:
     k3_launches += launches
     # 8. the leaf as a remote node, and micro-batching; the router persisted
     k3_launches += remote_phase(card, model)
+    # [parallel] (d): TorchServer over a co-located mesh, through a spec
+    k3_launches += parallel_predict(card, model)
     del model
     persistence_phase(card, router)
     servers_phase(card)
@@ -8973,6 +9487,10 @@ def main() -> int:
                 "launches": launches, "max_abs_err": r["err"], "ms": r["ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                 "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
+
+    def par_total(key):
+        # the [parallel] runs' launches: every kernel at a rank's shapes
+        return sum(launches[key] for _, launches in par_records)
 
     print(f"total_s {time.perf_counter() - t_start:.1f}", flush=True)
     print(json.dumps({"kernels": [
@@ -8995,6 +9513,15 @@ def main() -> int:
               "seldon_core_tpu_torch/csrc/int8_matmul_wgmma.cu",
               "seldon_core_tpu/ops/pallas_int8.py:127", total("k4_wgmma"),
               k4["w1/w3 prefill M=128"]),
+        entry("paged_attention (tensor_parallel=2 rank: 16 heads)", "cuda",
+              "seldon_core_tpu_torch/csrc/paged_attention.cu",
+              "seldon_core_tpu/ops/paged_attention.py:253", par_total("k1"),
+              par_summary["kernels"]["k1 7B tp=2 rank bf16"]),
+        entry("int8_matmul (tensor_parallel=2 column shard: w1/w3 N=5504)", "cuda",
+              "seldon_core_tpu_torch/csrc/int8_matmul.cu",
+              "seldon_core_tpu/ops/pallas_int8.py:127",
+              par_total("k4") - par_total("k4_wgmma"),
+              par_summary["kernels"]["w1/w3 col tp=2 M=8"]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,392 @@
+"""The transformer over a mesh: tensor, sequence, expert and data
+parallelism run by one controller.
+
+The JAX package shards its transformer with GSPMD: params placed by
+logical axes (``parallel/sharding.py``), the dense KV cache by
+``_cache_shardings``, and XLA inserts the collectives. The port runs a
+co-located mesh (``parallel/mesh.py``: every rank on one device) from one
+thread: ``ShardedTransformer`` holds one rank-local ``Transformer`` a mesh
+rank, each with its own leaves (cut by ``shard_params``: contiguous
+copies, ranks that hold the same shard share it), and its forward loops
+over the ranks op by op, each rank's kernels at its shard's shapes, with
+the sums of ``parallel/collectives.py`` between them:
+
+- **'model'** (Megatron): each rank runs its ``h/tp`` query heads and
+  their KV heads (``kvh/tp``, or where ``kvh % tp != 0`` the one KV head its
+  query heads share: the q -> kv grouping is kept), and its ``ffn/tp``
+  columns. ``wo`` and ``w2`` are row shards whose partial outputs are
+  all-reduced (float32, rank order; int8 shards write their partials in
+  float32, ``f32_partials``) before K2 adds the residual on every rank. The embedding is vocab-parallel (each rank looks up the ids in its
+  range, zero elsewhere, then a sum); the logits are vocab shards gathered
+  before sampling. A dim the axis does not divide stays whole (replicated).
+- **'expert'**: MoE experts split over it (their ``mlp`` dim over
+  'model'); the router's logits are gathered before ``route``, each rank
+  weights its own experts, and the FFN output is summed over 'model' and
+  'expert'.
+- **'seq'**: a dense cache's positions split into ``sp`` contiguous ranges,
+  one tensor a rank; each rank writes the tokens whose cache slot falls in
+  its range and attends over its range, and the ranges' softmaxes merge by
+  log-sum-exp. Activations are replicated over 'seq' (each rank computes
+  them, as GSPMD does).
+- **'data'**: rows split into contiguous blocks where the axis divides the
+  batch, else every data rank runs every row.
+
+Caches: the model makes its own (``init_caches``, the call
+``Transformer`` answers with one set): a ``RankCaches``, a flat list of
+one layer tuple a (rank, layer), rank-major, so code that walks "every
+layer tuple" (a reset, a page copy, a byte count) walks every rank's, plus
+the global ``lead`` (rows, positions). Paged pools split only their KV
+heads.
+
+Not here (ROADMAP Queue A 9b): ranks on distinct devices (their
+transport), LoRA adapters and the speculative verify over a mesh.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Optional, Tuple
+
+import torch
+from torch import nn
+
+from seldon_core_tpu_torch.models.transformer import (
+    Transformer, TransformerConfig, attention_logits, cache_values, dense_view, init_kv_caches,
+    init_paged_kv_caches, write_dense)
+from seldon_core_tpu_torch.ops.quantize import QuantizedTensor, dequantize_array
+from seldon_core_tpu_torch.parallel import collectives
+from seldon_core_tpu_torch.parallel.sharding import DEFAULT_LOGICAL_RULES, shard_params
+
+
+class RankCaches(list):
+    """The caches of a sharded model: ``[rank * n_layers + layer]`` is that
+    rank's layer tuple (rank-local shapes); ``lead`` is the global (rows,
+    positions) a dense cache covers, (pages, page_size) for a pool."""
+
+    def __init__(self, layers, lead: Tuple[int, int]):
+        super().__init__(layers)
+        self.lead = tuple(int(x) for x in lead)
+
+
+def _split(n: int, size: int) -> bool:
+    return size > 1 and n % size == 0
+
+
+def head_layout(cfg: TransformerConfig, mesh) -> Tuple[int, int, bool, bool]:
+    """(query heads a rank, KV heads a rank, heads split, KV heads split)
+    under the default rules: the query heads split over 'model' where it
+    divides them; the KV heads too, else each rank keeps the one KV head
+    its query heads share (when they all share one), else every head stays
+    whole."""
+    tp = mesh.axis_size("model")
+    h, kvh = cfg.n_heads, cfg.n_kv_heads
+    if not _split(h, tp):
+        return h, kvh, False, False
+    h_l = h // tp
+    if _split(kvh, tp):
+        return h_l, kvh // tp, True, True
+    group = h // kvh
+    if group % h_l:
+        raise ValueError(
+            f"tensor_parallel={tp} splits {h} query heads into {h_l} a rank, which do not "
+            f"fall within one group of the {kvh} KV heads (group size {group}): choose a "
+            f"tensor_parallel that divides the KV heads, or whose query share lies in one group")
+    return h_l, 1, True, False
+
+
+def _kv_start(cfg: TransformerConfig, mesh, coords: Dict[str, int]) -> int:
+    """The first KV head rank ``coords`` holds."""
+    h_l, kvh_l, split_h, split_kv = head_layout(cfg, mesh)
+    m = coords.get("model", 0)
+    if split_kv:
+        return m * kvh_l
+    if split_h:
+        return (m * h_l) // (cfg.n_heads // cfg.n_kv_heads)
+    return 0
+
+
+def _select_columns(leaf, start: int, width: int):
+    """Columns ``[start, start + width)`` of a [K, N] leaf as a contiguous
+    copy (a quantized leaf's codes and scales alike)."""
+    if isinstance(leaf, QuantizedTensor):
+        return QuantizedTensor(leaf.q[:, start:start + width].contiguous(),
+                               leaf.scale[start:start + width].contiguous(), leaf.orig_dtype)
+    return leaf[:, start:start + width].contiguous()
+
+
+class ShardedTransformer(nn.Module):
+    """``model`` (a filled ``Transformer``: float, or quantized before
+    sharding as the JAX package orders it) over ``mesh``; ``rules`` are the
+    logical rules (default ``DEFAULT_LOGICAL_RULES``). Its ``cfg`` is the
+    model's; its forward takes ``Transformer.forward``'s
+    arguments with ``RankCaches`` for caches and returns the full logits."""
+
+    def __init__(self, model: Transformer, mesh, rules=None):
+        super().__init__()
+        mesh.require_colocated()
+        cfg = model.cfg
+        self.mesh = mesh
+        self.cfg = cfg
+        hd = cfg.head_dim
+        rules = tuple(rules) if rules is not None else DEFAULT_LOGICAL_RULES
+        self.rank_trees = shard_params(model.leaves(), mesh, model.logical_axes(), rules,
+                                       units={"heads": hd, "kv_heads": hd})
+        specs = self.rank_trees.specs
+        self.heads_split = specs["layer_0.attention.wq"][1] is not None
+        h_l, kvh_l, split_h, split_kv = head_layout(cfg, mesh)
+        if self.heads_split != split_h or (specs["layer_0.attention.wk"][1] is not None) != split_kv:
+            raise ValueError("custom sharding rules that split the query and KV heads "
+                             "differently from the default rules are not supported")
+        self.vocab_split = specs["tok_embeddings"][0] is not None
+        self.mlp_split = specs[f"layer_0.{'moe' if cfg.n_experts else 'ffn'}.w2"][
+            1 if cfg.n_experts else 0] is not None
+        self.expert_split = cfg.n_experts > 0 and specs["layer_0.moe.w1"][0] is not None
+        self.router_split = cfg.n_experts > 0 and specs["layer_0.moe.router"][1] is not None
+        tp, ep = mesh.axis_size("model"), mesh.axis_size("expert")
+        local = dataclasses.replace(
+            cfg, mesh=None, attn_head_dim=hd, n_heads=h_l, n_kv_heads=kvh_l,
+            ffn_dim=cfg.ffn_dim // tp if self.mlp_split else cfg.ffn_dim,
+            vocab_size=cfg.vocab_size // tp if self.vocab_split else cfg.vocab_size,
+            n_experts=cfg.n_experts // ep if self.expert_split else cfg.n_experts,
+            f32_partials=True)
+        self.local_cfg = local
+        ranks = []
+        for r, tree in enumerate(self.rank_trees):
+            if not split_kv and split_h:
+                start = _kv_start(cfg, mesh, mesh.coords(r))
+                tree = dict(tree)
+                for i in range(cfg.n_layers):
+                    for w in ("wk", "wv"):
+                        name = f"layer_{i}.attention.{w}"
+                        tree[name] = _select_columns(tree[name], start * hd, hd)
+            ranks.append(self._rank_module(local, tree))
+        self.ranks = nn.ModuleList(ranks)
+        self.eval()
+
+    @staticmethod
+    def _rank_module(local: TransformerConfig, tree: Dict[str, object]) -> Transformer:
+        """A rank-local ``Transformer`` whose leaves are ``tree``'s tensors
+        (no copy: built on the meta device, then each leaf installed)."""
+        module = Transformer(local, device=torch.device("meta"))
+        for name, t in tree.items():
+            owner, leaf = module._owner(name)
+            delattr(owner, leaf)
+            if isinstance(t, QuantizedTensor):
+                owner.add_module(leaf, t)
+            else:
+                owner.register_parameter(leaf, nn.Parameter(t, requires_grad=False))
+        return module
+
+    # ------------------------------------------------------------------
+    # The caches: ``Transformer``'s four calls, one set a rank
+    def init_caches(self, lead: Tuple[int, int], kv_cache_dtype: Optional[str] = None,
+                    device=None, paged: bool = False) -> RankCaches:
+        """Each rank's layer tuples at its local shapes, in the empty state:
+        its KV heads, and for a dense cache its ``cache_share`` of the
+        (rows, positions) ``lead``; a paged pool of (pages, page_size)
+        splits only its KV heads. ``device`` defaults to each rank's."""
+        kv_cfg = dataclasses.replace(self.cfg, n_kv_heads=self.local_cfg.n_kv_heads,
+                                     n_heads=self.local_cfg.n_kv_heads,
+                                     attn_head_dim=self.cfg.head_dim)
+        init = init_paged_kv_caches if paged else init_kv_caches
+        local = tuple(lead) if paged else self.cache_share(lead)
+        out: List[tuple] = []
+        for dev in self.mesh.rank_devices():
+            out += init(kv_cfg, *local, kv_cache_dtype,
+                        device=device if device is not None else dev)
+        return RankCaches(out, lead)
+
+    def cache_share(self, lead: Tuple[int, int]) -> Tuple[int, int]:
+        """A rank's share of a dense cache's (rows, positions): rows over
+        'data' and positions over 'seq', each where the axis divides it."""
+        rows, length = lead
+        dp, sp = self.mesh.axis_size("data"), self.mesh.axis_size("seq")
+        return (rows // dp if _split(rows, dp) else rows,
+                length // sp if _split(length, sp) else length)
+
+    @staticmethod
+    def wrap_caches(layers: List[tuple], lead: Tuple[int, int]) -> RankCaches:
+        """``layers`` (one tuple a (rank, layer), each at its
+        ``cache_share``) as the ``RankCaches`` of the global ``lead``."""
+        return RankCaches(layers, lead)
+
+    @staticmethod
+    def cache_lead(caches) -> Tuple[int, ...]:
+        """The global (rows, positions) or (pages, page_size) ``caches``
+        cover."""
+        return caches.lead
+
+    # ------------------------------------------------------------------
+    def _reduce(self, parts: List[torch.Tensor], axes) -> List[torch.Tensor]:
+        """All-reduce ``parts`` (one a rank) over the mesh ``axes`` into the
+        compute dtype (no axis: each part cast)."""
+        dt = self.cfg.dtype
+        if not axes:
+            return [p.to(dt) for p in parts]
+        out = list(parts)
+        for group in self.mesh.groups(axes):
+            for r, t in zip(group, collectives.all_reduce([parts[r] for r in group], dt)):
+                out[r] = t
+        return out
+
+    def _gather(self, parts: List[torch.Tensor], axes, dim: int = -1) -> List[torch.Tensor]:
+        out = list(parts)
+        for group in self.mesh.groups(axes):
+            for r, t in zip(group, collectives.all_gather([parts[r] for r in group], dim)):
+                out[r] = t
+        return out
+
+    def _rows(self, r: int, b: int) -> slice:
+        dp = self.mesh.axis_size("data")
+        if not _split(b, dp):
+            return slice(None)
+        d = self.mesh.coords(r).get("data", 0)
+        return slice(d * (b // dp), (d + 1) * (b // dp))
+
+    def _embed(self, r: int, tokens: torch.Tensor) -> torch.Tensor:
+        """Rank ``r``'s embedding rows: its vocab range's rows, zero for
+        ids outside it (vocab-parallel), or the whole lookup."""
+        module = self.ranks[r]
+        if not self.vocab_split:
+            return module._embed(tokens)
+        v_l = self.local_cfg.vocab_size
+        ids = tokens.long() - self.mesh.coords(r).get("model", 0) * v_l
+        inside = (ids >= 0) & (ids < v_l)
+        rows = module._embed(ids.clamp(0, v_l - 1))
+        return torch.where(inside[..., None], rows, torch.zeros_like(rows))
+
+    # ------------------------------------------------------------------
+    def forward(self, tokens, positions=None, caches=None, cache_index=None,
+                block_tables=None, adapters=None, adapter_ids=None, verify=False):
+        """``Transformer.forward`` over the mesh: tokens [b, s]; ``caches``
+        a ``RankCaches`` (updated in place); returns (logits [b, s, vocab]
+        float32, caches)."""
+        if adapters is not None or adapter_ids is not None or verify:
+            raise NotImplementedError(
+                "LoRA adapters and the speculative verify over a mesh arrive with "
+                "ROADMAP Queue A 9b")
+        cfg, mesh, L = self.cfg, self.mesh, self.cfg.n_layers
+        R = mesh.size
+        b, s = tokens.shape
+        if positions is None:
+            positions = torch.arange(s, device=tokens.device)[None, :].expand(b, s)
+        if caches is not None and len(caches) != R * L:
+            raise ValueError(f"sharded forward: {len(caches)} cache tuples for {R} ranks x "
+                             f"{L} layers")
+        seq_split = (caches is not None and block_tables is None
+                     and mesh.axis_size("seq") > 1
+                     and caches[0][-1].shape[1] * mesh.axis_size("seq") == caches.lead[1])
+        rows = [self._rows(r, b) for r in range(R)]
+        tok = [tokens[sl] for sl in rows]
+        pos = [positions[sl] for sl in rows]
+        tables = [None if block_tables is None else block_tables[sl] for sl in rows]
+        index = [cache_index[sl] if torch.is_tensor(cache_index) and cache_index.dim() == 1
+                 else cache_index for sl in rows]
+        xs = [self._embed(r, tok[r]) for r in range(R)]
+        if self.vocab_split:
+            xs = self._reduce(xs, ("model",))
+        for i in range(L):
+            layers = [self.ranks[r].layers()[i] for r in range(R)]
+            normed = [layers[r].attention_norm(xs[r]) for r in range(R)]
+            if seq_split:
+                hs = self._seq_attention(i, layers, normed, pos, caches, index)
+            else:
+                hs = [layers[r].attention(normed[r], pos[r],
+                                          None if caches is None else caches[r * L + i],
+                                          index[r], tables[r])[0] for r in range(R)]
+            hs = self._reduce(hs, ("model",) if self.heads_split else ())
+            ffn_in = []
+            for r in range(R):
+                if cfg.fused_norm:
+                    from seldon_core_tpu_torch.ops.fused_norm import fused_residual_rmsnorm
+
+                    xs[r], o = fused_residual_rmsnorm(xs[r], hs[r], layers[r].ffn_norm.weight,
+                                                      cfg.norm_eps)
+                else:
+                    xs[r] = xs[r] + hs[r]
+                    o = layers[r].ffn_norm(xs[r])
+                ffn_in.append(o)
+            if cfg.n_experts > 0:
+                fs = self._moe(layers, ffn_in)
+            else:
+                fs = [layers[r].ffn(ffn_in[r]) for r in range(R)]
+            fs = self._reduce(fs, (("model",) if self.mlp_split else ())
+                              + (("expert",) if self.expert_split else ()))
+            xs = [xs[r] + fs[r] for r in range(R)]
+        logits = [self.ranks[r]._logits(self.ranks[r].norm(xs[r])) for r in range(R)]
+        if self.vocab_split:
+            logits = self._gather(logits, ("model",))
+        firsts = {}
+        for r in range(R):
+            firsts.setdefault(rows[r].start, r)
+        if len(firsts) == 1:
+            return logits[0], caches
+        return torch.cat([logits[r] for _, r in sorted(firsts.items())], dim=0), caches
+
+    def _moe(self, layers, ffn_in: List[torch.Tensor]) -> List[torch.Tensor]:
+        """Each rank's MoE partial: the router's logits (gathered over
+        'expert' when it splits them), ``route`` over all experts, the
+        rank's experts weighted by their gates."""
+        from seldon_core_tpu_torch.models.transformer import route
+
+        R = self.mesh.size
+        cfg = self.cfg
+        k = min(cfg.n_experts_per_token, cfg.n_experts)
+        if self.router_split:
+            logits = []
+            for r in range(R):
+                router = layers[r].moe.router
+                if isinstance(router, QuantizedTensor):
+                    router = dequantize_array(router)
+                logits.append(ffn_in[r].float() @ router.float())
+            logits = self._gather(logits, ("expert",))
+            dense = [route(logits[r], k)[0] for r in range(R)]
+        else:   # the whole router on every rank: MoEFFN's own routing
+            dense = [layers[r].moe.gates(ffn_in[r])[0] for r in range(R)]
+        out = []
+        e_l = self.local_cfg.n_experts
+        for r in range(R):
+            gates = dense[r]
+            if self.expert_split:
+                e0 = self.mesh.coords(r).get("expert", 0) * e_l
+                gates = gates[..., e0:e0 + e_l]
+            out.append(layers[r].moe.combine(ffn_in[r], gates))
+        return out
+
+    def _seq_attention(self, i: int, layers, normed, pos, caches, index) -> List[torch.Tensor]:
+        """Attention over a dense cache whose positions split over 'seq':
+        every rank projects its heads and writes the tokens whose cache slot
+        lies in its range (``write_dense`` with the range), attends over its
+        range, and the ranges merge by log-sum-exp; then ``wo``."""
+        mesh, L, R = self.mesh, self.cfg.n_layers, self.mesh.size
+        dt = self.local_cfg.dtype
+        parts = []
+        for r in range(R):
+            att, p, cache = layers[r].attention, pos[r], caches[r * L + i]
+            q, k, v = att.project(normed[r], p)
+            span = cache[-1].shape[1]
+            write_dense(cache, cache_values(cache, k, v, p), index[r],
+                        lo=mesh.coords(r)["seq"] * span, total=caches.lead[1])
+            logits, v_all = attention_logits(q, *dense_view(cache, dt),
+                                             cache[-1][:, None, :] <= p[:, :, None])
+            parts.append(collectives.softmax_partial(logits, v_all))
+        outs: List[Optional[torch.Tensor]] = [None] * R
+        for group in mesh.groups(("seq",)):
+            for r, o in zip(group, collectives.softmax_merge([parts[r] for r in group], dt)):
+                outs[r] = o
+        return [layers[r].attention.output(outs[r].flatten(2)) for r in range(R)]
+
+    # ------------------------------------------------------------------
+    def weight_bytes(self) -> List[int]:
+        """Each rank's weight bytes (a shard shared by ranks counts in each)."""
+        out = []
+        for module in self.ranks:
+            n = 0
+            for t in module.leaves().values():
+                for a in ((t.q, t.scale) if isinstance(t, QuantizedTensor) else (t,)):
+                    n += a.numel() * a.element_size()
+            out.append(n)
+        return out
+
+
+__all__ = ["RankCaches", "ShardedTransformer", "head_layout"]

@@ -39,8 +39,11 @@ What changes with the framework:
   batched product a projection over the expert axis (cuBLAS) for float
   weights, and one int8 GEMM launch an expert a projection for int8 ones.
 
-Configurations that belong to later slices raise ``NotImplementedError``
-naming the slice: ring attention and meshes.
+A mesh (``parallel/mesh.py``) shards the filled model through
+``Transformer.shard`` (``models/sharded.py``: every rank's heads, ffn
+columns, vocab and experts, run by one controller; the table of logical
+axes is ``Transformer.logical_axes``). Ring attention raises
+``NotImplementedError`` naming ROADMAP Queue A 9b.
 """
 
 from __future__ import annotations
@@ -169,10 +172,17 @@ class TransformerConfig:
     # (ops/fused_norm.py).
     fused_norm: bool = False
     mesh: Any = None
+    # a rank-local config's head width (its n_heads is the rank's share);
+    # 0 = dim // n_heads
+    attn_head_dim: int = 0
+    # a rank-local config: int8 row-parallel products (wo, w2, the experts'
+    # w2 and their combine) write float32 partials, which the sharded
+    # model's all-reduce sums in float32 before the one rounding
+    f32_partials: bool = False
 
     @property
     def head_dim(self) -> int:
-        return self.dim // self.n_heads
+        return self.attn_head_dim or self.dim // self.n_heads
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
@@ -305,14 +315,19 @@ def matmul(x: torch.Tensor, w, dtype: torch.dtype) -> torch.Tensor:
     return x.to(dtype) @ w.to(dtype)
 
 
-def masked_attention(q: torch.Tensor, k_all: torch.Tensor, v_all: torch.Tensor,
-                     mask: torch.Tensor) -> torch.Tensor:
-    """The plain attention read every layout shares: q [b, s, h, hd],
-    k_all/v_all [b, L, kvh, hd], mask [b, s, L] (True = attend). GQA repeats
-    each kv head up to its group of query heads; logits are scaled in the
-    model dtype, masked with ``finfo(float32).min`` (never -inf, so a row
-    with nothing to attend stays finite), softmaxed in float32 and cast back
-    — the op order of the JAX package's einsum chain."""
+def _partial_dtype(cfg: TransformerConfig, w) -> torch.dtype:
+    """The dtype a row-parallel product (``wo``, ``w2``) writes: float32 for
+    an int8 weight of a rank-local config with ``f32_partials`` (K4 writes
+    float32 at no extra cost), else the compute dtype."""
+    return torch.float32 if cfg.f32_partials and isinstance(w, QuantizedTensor) else cfg.dtype
+
+
+def attention_logits(q: torch.Tensor, k_all: torch.Tensor, v_all: torch.Tensor,
+                     mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The first half of ``masked_attention``: the masked float32 logits
+    [b, h, s, L] and ``v_all`` with its heads repeated up to the query
+    heads (a sharded cache's ranks stop here and merge their ranges,
+    ``models/sharded.py``)."""
     dt = q.dtype
     h, hd = q.shape[2], q.shape[3]
     kvh = k_all.shape[2]
@@ -323,9 +338,73 @@ def masked_attention(q: torch.Tensor, k_all: torch.Tensor, v_all: torch.Tensor,
     scale = hd ** -0.5
     logits = torch.einsum("bqhd,bkhd->bhqk", q, k_all.to(dt)) * scale
     logits = logits.float()
-    logits = logits.masked_fill(~mask[:, None, :, :], torch.finfo(torch.float32).min)
+    return logits.masked_fill(~mask[:, None, :, :], torch.finfo(torch.float32).min), v_all
+
+
+def masked_attention(q: torch.Tensor, k_all: torch.Tensor, v_all: torch.Tensor,
+                     mask: torch.Tensor) -> torch.Tensor:
+    """The plain attention read every layout shares: q [b, s, h, hd],
+    k_all/v_all [b, L, kvh, hd], mask [b, s, L] (True = attend). GQA repeats
+    each kv head up to its group of query heads; logits are scaled in the
+    model dtype, masked with ``finfo(float32).min`` (never -inf, so a row
+    with nothing to attend stays finite), softmaxed in float32 and cast back
+    — the op order of the JAX package's einsum chain."""
+    dt = q.dtype
+    logits, v_all = attention_logits(q, k_all, v_all, mask)
     probs = torch.softmax(logits, dim=-1).to(dt)
     return torch.einsum("bhqk,bkhd->bqhd", probs, v_all.to(dt))
+
+
+def cache_values(cache, k: torch.Tensor, v: torch.Tensor, positions: torch.Tensor) -> tuple:
+    """What each buffer of ``cache`` stores for this call's tokens: (k, v,
+    positions), or for the int8 layout K and V quantized on write (per
+    head, per position) with their scales."""
+    if len(cache) == 5:
+        (kq, vq), (ks, vs) = quantize_kv(torch.stack((k, v)))
+        return (kq, ks, vq, vs, positions)
+    return (k, v, positions)
+
+
+def write_dense(cache, values, cache_index, lo: int = 0, total: Optional[int] = None) -> None:
+    """Write ``values`` (``cache_values``) into a dense cache in place (the
+    JAX package donated the cache to the step). ``cache_index`` is an int
+    (the same offset for the whole batch, clamped as
+    ``lax.dynamic_update_slice`` clamps; a prefill) or a [b] tensor with
+    s == 1 (per-sequence offsets; decode). ``lo`` / ``total``: the cache
+    holds positions [lo, lo + its length) of a cache of ``total``
+    positions (a 'seq' rank's range, ``models/sharded.py``); the tokens
+    whose slot falls outside it are not written."""
+    span = cache[-1].shape[1]
+    total = span if total is None else int(total)
+    b, s = values[-1].shape[:2]
+    if not torch.is_tensor(cache_index) or cache_index.dim() == 0:
+        start = max(0, min(int(cache_index), total - s))
+        a, e = max(start, lo), min(start + s, lo + span)
+        for buf, val in zip(cache, values):
+            if (a, e) == (start, start + s):
+                buf[:, a - lo:e - lo] = val.to(buf.dtype)
+            elif a < e:
+                buf[:, a - lo:e - lo] = val[:, a - start:e - start].to(buf.dtype)
+    elif s == 1:
+        bidx = torch.arange(b, device=cache_index.device)
+        idx = cache_index.long()
+        if (lo, total) == (0, span):
+            for buf, val in zip(cache, values):
+                buf[bidx, idx] = val[:, 0].to(buf.dtype)
+            return
+        at = idx - lo
+        inside = (at >= 0) & (at < span)
+        at = at.clamp(0, span - 1)
+        for buf, val in zip(cache, values):
+            new = val[:, 0].to(buf.dtype)
+            keep = inside.view(-1, *([1] * (new.dim() - 1)))
+            buf[bidx, at] = torch.where(keep, new, buf[bidx, at])
+    else:
+        raise NotImplementedError(
+            "per-sequence multi-token dense writes (a speculative verify over "
+            "a dense slot cache) arrive with the dense batcher layout "
+            "(kv_cache_layout='dense'); the port's batcher verifies over the "
+            "paged pool")
 
 
 def lora_delta(x: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
@@ -403,24 +482,9 @@ class Attention(nn.Module):
         b, s, _ = x.shape
         hd = cfg.head_dim
         dt = cfg.dtype
-
-        q = _adapted(matmul(x, self.wq, dt), x, "wq", adapters,
-                     adapter_ids).reshape(b, s, cfg.n_heads, hd)
-        k = matmul(x, self.wk, dt).reshape(b, s, cfg.n_kv_heads, hd)
-        v = matmul(x, self.wv, dt).reshape(b, s, cfg.n_kv_heads, hd)
-
-        cos, sin = rotary_embedding(positions, hd, cfg.rope_theta, cfg.rope_scaling)
-        q = apply_rotary(q, cos, sin)
-        k = apply_rotary(k, cos, sin)
-
+        q, k, v = self.project(x, positions, adapters, adapter_ids)
         if cache is not None:
-            # what each cache buffer stores for this call's tokens: the int8
-            # layout quantizes K and V on write (per head, per position)
-            if len(cache) == 5:
-                (kq, vq), (ks, vs) = quantize_kv(torch.stack((k, v)))
-                values = (kq, ks, vq, vs, positions)
-            else:
-                values = (k, v, positions)
+            values = cache_values(cache, k, v, positions)
         if cache is not None and block_tables is not None:
             ps = cache[0].shape[1]
             entry, off = paged_write_targets(block_tables, positions, ps)
@@ -447,36 +511,36 @@ class Attention(nn.Module):
                 mask = pos_view[:, None, :] <= positions[:, :, None]
                 out = masked_attention(q, k_all, v_all, mask)
         elif cache is not None:
-            pos_cache = cache[-1]
-            if not torch.is_tensor(cache_index) or cache_index.dim() == 0:
-                # a scalar offset, clamped like lax.dynamic_update_slice
-                i = max(0, min(int(cache_index), pos_cache.shape[1] - s))
-                # In place (the JAX package donated the cache to the step).
-                for buf, val in zip(cache, values):
-                    buf[:, i:i + s] = val.to(buf.dtype)
-            elif s == 1:
-                # per-sequence write offsets (continuous batching), in place
-                bidx = torch.arange(b, device=x.device)
-                idx = cache_index.long()
-                for buf, val in zip(cache, values):
-                    buf[bidx, idx] = val[:, 0].to(buf.dtype)
-            else:
-                raise NotImplementedError(
-                    "per-sequence multi-token dense writes (a speculative verify over "
-                    "a dense slot cache) arrive with the dense batcher layout "
-                    "(kv_cache_layout='dense'); the port's batcher verifies over the "
-                    "paged pool")
+            write_dense(cache, values, cache_index)
             new_cache = cache
             # pos_cache marks empty slots with PAD_POS, so one predicate
             # covers causality, the unfilled suffix and right-padding.
-            mask = pos_cache[:, None, :] <= positions[:, :, None]
+            mask = cache[-1][:, None, :] <= positions[:, :, None]
             out = masked_attention(q, *dense_view(cache, dt), mask)
         else:
             mask = positions[:, None, :] <= positions[:, :, None]
             out = masked_attention(q, k, v, mask)
             new_cache = (k, v)
-        out = out.reshape(b, s, cfg.n_heads * hd)
-        return _adapted(matmul(out, self.wo, dt), out, "wo", adapters, adapter_ids), new_cache
+        return self.output(out.reshape(b, s, cfg.n_heads * hd), adapters, adapter_ids), new_cache
+
+    def project(self, x, positions, adapters=None, adapter_ids=None):
+        """(q [b, s, h, hd], k, v [b, s, kvh, hd]) of ``x``: the three
+        projections (the LoRA delta on q only), rotary applied to q and k."""
+        cfg = self.cfg
+        b, s, _ = x.shape
+        hd, dt = cfg.head_dim, cfg.dtype
+        q = _adapted(matmul(x, self.wq, dt), x, "wq", adapters,
+                     adapter_ids).reshape(b, s, cfg.n_heads, hd)
+        k = matmul(x, self.wk, dt).reshape(b, s, cfg.n_kv_heads, hd)
+        v = matmul(x, self.wv, dt).reshape(b, s, cfg.n_kv_heads, hd)
+        cos, sin = rotary_embedding(positions, hd, cfg.rope_theta, cfg.rope_scaling)
+        return apply_rotary(q, cos, sin), apply_rotary(k, cos, sin), v
+
+    def output(self, out, adapters=None, adapter_ids=None):
+        """``wo`` over the attention output [b, s, h * hd] (float32
+        partials for an int8 row shard, ``f32_partials``)."""
+        return _adapted(matmul(out, self.wo, _partial_dtype(self.cfg, self.wo)), out, "wo",
+                        adapters, adapter_ids)
 
 
 class DenseFFN(nn.Module):
@@ -493,7 +557,8 @@ class DenseFFN(nn.Module):
         up = _adapted(matmul(x, self.w1, dt), x, "w1", adapters, adapter_ids)
         gate = _adapted(matmul(x, self.w3, dt), x, "w3", adapters, adapter_ids)
         h = F.silu(up) * gate
-        return _adapted(matmul(h, self.w2, dt), h, "w2", adapters, adapter_ids)
+        return _adapted(matmul(h, self.w2, _partial_dtype(self.cfg, self.w2)), h, "w2", adapters,
+                        adapter_ids)
 
 
 def route(gate_logits: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -552,22 +617,28 @@ class MoEFFN(nn.Module):
         return route(x.float() @ router.float(), k)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.combine(x, self.gates(x)[0])
+
+    def combine(self, x: torch.Tensor, gates: torch.Tensor) -> torch.Tensor:
+        """The experts' sum weighted by dense ``gates`` [..., e] (zero
+        outside each token's top k); a rank of a sharded model passes its
+        experts' columns of the gates."""
         cfg = self.cfg
         dt = cfg.dtype
-        gates, _ = self.gates(x)
         x2 = x.reshape(-1, cfg.dim).to(dt)
         w1, w2, w3 = self.w1, self.w2, self.w3
+        out_dt = _partial_dtype(cfg, w2)
         if isinstance(w1, QuantizedTensor):
             ys = []
             for i in range(cfg.n_experts):
                 h = (F.silu(k4.int8_matmul(x2, w1.q[i], w1.scale, dt))
                      * k4.int8_matmul(x2, w3.q[i], w3.scale, dt))
-                ys.append(k4.int8_matmul(h, w2.q[i], w2.scale, dt))
+                ys.append(k4.int8_matmul(h, w2.q[i], w2.scale, out_dt))
             y = torch.stack(ys)                                            # [e, T, dim]
         else:
             h = F.silu(torch.matmul(x2, w1.to(dt))) * torch.matmul(x2, w3.to(dt))
             y = torch.matmul(h, w2.to(dt))                                 # [e, T, dim]
-        out = torch.einsum("etd,te->td", y, gates.reshape(-1, cfg.n_experts).to(dt))
+        out = torch.einsum("etd,te->td", y, gates.reshape(-1, cfg.n_experts).to(out_dt))
         return out.reshape(x.shape)
 
 
@@ -628,6 +699,67 @@ class Transformer(nn.Module):
 
     def layers(self) -> List[TransformerBlock]:
         return [getattr(self, f"layer_{i}") for i in range(self.cfg.n_layers)]
+
+    def logical_axes(self) -> Dict[str, Tuple[str, ...]]:
+        """``{leaf name: logical axes}``: the names the JAX package's
+        transformer declares on each param (``param_with_axes``), which
+        ``parallel/sharding.py`` maps onto a mesh."""
+        table = {"tok_embeddings": ("vocab", "embed"), "norm.weight": ("embed",)}
+        if not self.cfg.tie_embeddings:
+            table["lm_head"] = ("embed", "vocab")
+        ffn = ({"moe.router": ("embed", "expert"), "moe.w1": ("expert", "embed", "mlp"),
+                "moe.w2": ("expert", "mlp", "embed"), "moe.w3": ("expert", "embed", "mlp")}
+               if self.cfg.n_experts > 0 else
+               {"ffn.w1": ("embed", "mlp"), "ffn.w2": ("mlp", "embed"),
+                "ffn.w3": ("embed", "mlp")})
+        per_layer = {"attention_norm.weight": ("embed",), "ffn_norm.weight": ("embed",),
+                     "attention.wq": ("embed", "heads"), "attention.wk": ("embed", "kv_heads"),
+                     "attention.wv": ("embed", "kv_heads"), "attention.wo": ("heads", "embed"),
+                     **ffn}
+        for i in range(self.cfg.n_layers):
+            table.update({f"layer_{i}.{k}": v for k, v in per_layer.items()})
+        return table
+
+    def leaves(self) -> Dict[str, Any]:
+        """``{leaf name: tensor or QuantizedTensor}`` of every weight, in
+        the float model's leaf order: the tree ``parallel/sharding.py``
+        cuts."""
+        return {name: getattr(*self._owner(name)) for name in self._leaf_names}
+
+    def shard(self, mesh, rules=None) -> "Any":
+        """This filled model over ``mesh`` (``models/sharded.py``): the
+        leaves cut by the rule table, one rank-local model a rank."""
+        from seldon_core_tpu_torch.models.sharded import ShardedTransformer
+
+        return ShardedTransformer(self, mesh, rules)
+
+    # The caches this model reads. A sharded model (``models/sharded.py``)
+    # answers the same four calls with one set a rank, so the servers and
+    # the batcher ask the model and never the config.
+    def init_caches(self, lead: Tuple[int, int], kv_cache_dtype: Optional[str] = None,
+                    device=None, paged: bool = False):
+        """Fresh caches: ``init_paged_kv_caches`` of ``lead`` = (pages,
+        page_size) when ``paged``, else ``init_kv_caches`` of (rows,
+        positions)."""
+        init = init_paged_kv_caches if paged else init_kv_caches
+        return init(self.cfg, *lead, kv_cache_dtype, device=device)
+
+    @staticmethod
+    def cache_share(lead: Tuple[int, int]) -> Tuple[int, int]:
+        """The (rows, positions) of a dense cache of ``lead`` that each of
+        this model's cache tuples holds: all of it."""
+        return tuple(lead)
+
+    @staticmethod
+    def wrap_caches(layers: List[tuple], lead: Tuple[int, int]):
+        """``layers`` (one tuple a layer, at ``cache_share(lead)``) as the
+        caches the forward takes."""
+        return layers
+
+    @staticmethod
+    def cache_lead(caches) -> Tuple[int, ...]:
+        """The (rows, positions) or (pages, page_size) ``caches`` cover."""
+        return tuple(caches[0][-1].shape)
 
     def param_tree(self) -> Dict[str, Any]:
         """The float parameters as flax's nested ``params`` dict of tensors
@@ -867,14 +999,15 @@ def kv_cache_bytes_per_token(cfg: TransformerConfig,
 def _build(cfg: TransformerConfig, device, param_dtype) -> Transformer:
     if cfg.attention_impl == "ring":
         raise NotImplementedError(
-            "attention_impl='ring' (sequence-parallel ring attention) "
-            "arrives with the parallelism slice of the port")
+            "attention_impl='ring' (sequence-parallel ring attention over a cache-less "
+            "forward, ops/ring_attention.py) arrives with ROADMAP Queue A 9b; the port "
+            "shards the served KV cache over 'seq' instead (LLMServer(sequence_parallel=))")
     if cfg.attention_impl != "full":
         raise ValueError(f"unknown attention_impl {cfg.attention_impl!r}")
     if cfg.mesh is not None:
-        raise NotImplementedError(
-            "meshes (tensor/sequence parallelism) arrive with the "
-            "parallelism slice of the port")
+        raise ValueError(
+            "TransformerConfig(mesh=...): the port shards a filled model, "
+            "Transformer.shard(mesh), which LLMServer(mesh=...) calls after loading")
     if param_dtype == "auto":  # store in the compute dtype (LLMServer's "auto")
         pdt = cfg.dtype
     else:
@@ -925,7 +1058,8 @@ __all__ = [
     "PAD_POS", "NULL_PAGE", "TRASH_PAGE", "RESERVED_PAGES",
     "TransformerConfig", "Transformer", "TransformerBlock", "Attention",
     "DenseFFN", "MoEFFN", "route", "RMSNorm", "rms_norm", "rotary_embedding", "apply_rotary",
-    "paged_write_targets", "gather_paged_view", "dense_view", "masked_attention",
+    "paged_write_targets", "gather_paged_view", "dense_view", "attention_logits",
+    "masked_attention", "cache_values", "write_dense",
     "matmul", "lora_delta", "quantize_kv", "dequantize_kv",
     "init_kv_caches", "init_paged_kv_caches", "reset_kv_caches", "kv_cache_bytes_per_token",
     "normalize_kv_cache_dtype", "normalize_kv_cache_layout", "to_torch_dtype",

@@ -167,11 +167,11 @@ from seldon_core_tpu_torch.models.transformer import (
     RESERVED_PAGES,
     TRASH_PAGE,
     init_kv_caches,
-    init_paged_kv_caches,
     kv_cache_bytes_per_token,
     normalize_kv_cache_layout,
 )
-from seldon_core_tpu_torch.runtime.disagg import (HANDOFF_TRANSPORTS, DisaggMesh, HandoffReceiver,
+from seldon_core_tpu_torch.parallel.mesh import DisaggregatedMesh
+from seldon_core_tpu_torch.runtime.disagg import (HANDOFF_TRANSPORTS, HandoffReceiver,
                                                   PrefillRequest, PrefillWorkerPool,
                                                   TransferQueue, normalize_disaggregation,
                                                   same_device, staged_leaves)
@@ -469,7 +469,7 @@ class ContinuousBatcher:
         spec_mode: Optional[str] = None,
         spec_k: Optional[int] = None,
         disaggregation: Optional[str] = None,
-        disagg_mesh: Optional[DisaggMesh] = None,
+        disagg_mesh: Optional[DisaggregatedMesh] = None,
         prefill_workers: Optional[int] = None,
         handoff_transport: Optional[str] = None,
         tracing: Optional[bool] = None,
@@ -501,6 +501,12 @@ class ContinuousBatcher:
             raise NotImplementedError(
                 "the dense batcher layout (kv_cache_layout='dense') arrives with "
                 "a later slice; this port's batcher is paged")
+        mesh = getattr(server, "mesh", None)
+        if mesh is not None and (mesh.axis_size("seq") > 1 or mesh.axis_size("data") > 1):
+            raise NotImplementedError(
+                f"the paged batcher over a mesh with 'seq' or 'data' above 1 ({mesh.shape}) "
+                f"arrives with ROADMAP Queue A 9b: it runs under 'model' (tensor parallelism) "
+                f"alone; generate() serves the other axes")
         self.server = server
         self.S = int(max_slots)
         cfg = server._cfg
@@ -586,13 +592,16 @@ class ContinuousBatcher:
         # transport) the receiver are built after the decode graphs
         disagg = disaggregation if disaggregation is not None else server.disaggregation
         self.disaggregation = normalize_disaggregation(disagg)
+        if self.disaggregation != "off" and mesh is not None:
+            raise ValueError("disaggregation='remote_prefill' does not yet compose with a mesh "
+                             "(ROADMAP Queue A 9b)")
         ht = (handoff_transport if handoff_transport is not None
               else server.handoff_transport) or "device"
         if ht not in HANDOFF_TRANSPORTS:
             raise ValueError(f"unknown handoff_transport {ht!r}: expected one of "
                              f"{HANDOFF_TRANSPORTS}")
         self.handoff_transport = ht
-        self.disagg_mesh: Optional[DisaggMesh] = None
+        self.disagg_mesh: Optional[DisaggregatedMesh] = None
         self._remote: Optional[PrefillWorkerPool] = None
         # the devices an explicit mesh offers (None: workers share this
         # device); and the lock that makes a submit to the pool and a
@@ -627,8 +636,8 @@ class ContinuousBatcher:
             self._flight = FlightRecorder(self.S, tail_ttft_s=tail_ttft_s, tail_gap_s=tail_gap_s)
 
         dev = self.device
-        self._caches = init_paged_kv_caches(cfg, self.pool_pages, ps, server.kv_cache_dtype,
-                                            device=dev)
+        self._caches = server._module.init_caches((self.pool_pages, ps), server.kv_cache_dtype,
+                                                  device=dev, paged=True)
         # the pool's bytes: what a decode step's attention may read at most
         # (``kv_bytes_per_step``, set at each drain as the JAX package does)
         self._cache_nbytes = sum(t.numel() * t.element_size()
@@ -725,7 +734,7 @@ class ContinuousBatcher:
     # ------------------------------------------------------------------
     # Disaggregated prefill: the worker pool, the import, the stats
     # ------------------------------------------------------------------
-    def _build_remote(self, disagg_mesh: Optional[DisaggMesh],
+    def _build_remote(self, disagg_mesh: Optional[DisaggregatedMesh],
                       prefill_workers: Optional[int]) -> None:
         """The device split and the prefill-worker pool, publishing into one
         TransferQueue whose ``on_ready`` wakes the loop (with the network
@@ -738,11 +747,12 @@ class ContinuousBatcher:
         server = self.server
         mesh = disagg_mesh if disagg_mesh is not None else server.disagg_mesh
         if mesh is None:
-            mesh = DisaggMesh([self.device] * (server.prefill_devices or 1), [self.device])
+            mesh = DisaggregatedMesh([self.device] * (server.prefill_devices or 1), [self.device],
+                                     shared=True)
         if len(mesh.decode_devices) > 1:
             raise NotImplementedError(
                 f"a decode slice of {len(mesh.decode_devices)} devices is not ported yet: it "
-                f"arrives with the parallelism slice (the batcher decodes on {self.device})")
+                f"arrives with ROADMAP Queue A 9b (the batcher decodes on {self.device})")
         if not any(same_device(d, self.device) for d in mesh.decode_devices):
             raise ValueError(f"the decode slice must contain the server's device ({self.device}): "
                              f"the batcher's slot pool lives there — put the PREFILL slice on the "
@@ -754,7 +764,7 @@ class ContinuousBatcher:
         devices = [mesh.prefill_devices[i % len(mesh.prefill_devices)]
                    for i in range(int(n_workers))]
         # one entry a worker: the snapshot's prefill_devices is the count
-        self.disagg_mesh = DisaggMesh(devices, mesh.decode_devices)
+        self.disagg_mesh = DisaggregatedMesh(devices, mesh.decode_devices, shared=True)
         queue = TransferQueue()
         queue.on_ready = self._wakeup.set
         receiver_addr = None
@@ -820,7 +830,8 @@ class ContinuousBatcher:
             receiver_addr=old.receiver_addr)
         with self._remote_lock:
             self._remote = new_pool
-            self.disagg_mesh = DisaggMesh(devices, self.disagg_mesh.decode_devices)
+            self.disagg_mesh = DisaggregatedMesh(devices, self.disagg_mesh.decode_devices,
+                                                 shared=True)
         old.close()
         logger.info("rebalanced the prefill workers from %d to %d", len(old.workers), n)
         return True

@@ -35,10 +35,10 @@ handoff:
   the tensors on the decode device in one copy each and publishes through the
   same ``TransferQueue.put``.
 
-Devices. The port has no topology module; a ``DisaggMesh`` holds the
-prefill and decode devices as ``torch.device`` lists, and the decode list
-is the server's one device (a decode slice of several devices, or
-``decode_devices > 1``, raises naming the parallelism slice). ``prefill_devices=N`` (or ``prefill_workers=N``)
+Devices. The split is ``parallel/mesh.DisaggregatedMesh``: the prefill
+and decode devices as ``torch.device`` lists, and the decode list is the
+server's one device (a decode slice of several devices, or
+``decode_devices > 1``, raises naming ROADMAP Queue A 9b). ``prefill_devices=N`` (or ``prefill_workers=N``)
 means N workers on the server's own device, each with its own stream,
 staging pool and graphs, sharing the server's weights (``LLMServer.
 _params_on`` returns the server's own tensors for its own device). This is
@@ -87,6 +87,8 @@ from typing import Any, Dict, Iterator, List, Optional, Sequence
 import numpy as np
 import torch
 
+from seldon_core_tpu_torch.parallel.mesh import same_device
+
 logger = logging.getLogger(__name__)
 
 DISAGGREGATION_MODES = ("off", "remote_prefill")
@@ -115,29 +117,6 @@ def normalize_disaggregation(value) -> str:
     if v in ("remote_prefill", "remote-prefill", "prefill", "disagg", "disaggregated"):
         return "remote_prefill"
     raise ValueError(f"unknown disaggregation {value!r}: expected one of {DISAGGREGATION_MODES}")
-
-
-class DisaggMesh:
-    """The split of the devices: ``prefill_devices`` (where workers run;
-    a device may repeat, one worker each) and ``decode_devices`` (the
-    batcher's: the server's one device; several raise in the batcher)."""
-
-    def __init__(self, prefill_devices: Sequence[Any], decode_devices: Sequence[Any]):
-        self.prefill_devices = [torch.device(d) for d in prefill_devices]
-        self.decode_devices = [torch.device(d) for d in decode_devices]
-        if not self.prefill_devices or not self.decode_devices:
-            raise ValueError("a disaggregated mesh needs >=1 device per role")
-
-
-def same_device(a: Any, b: Any) -> bool:
-    """Device equality with an index-less "cuda" read as the current card."""
-    a, b = torch.device(a), torch.device(b)
-    if a.type != b.type:
-        return False
-    if a.type != "cuda":
-        return True
-    cur = torch.cuda.current_device() if (a.index is None or b.index is None) else 0
-    return (cur if a.index is None else a.index) == (cur if b.index is None else b.index)
 
 
 def staged_leaves(staged) -> List[torch.Tensor]:
@@ -926,7 +905,7 @@ class PrefillWorkerPool:
             w.close(timeout_s=timeout_s)
 
 
-__all__ = ["DISAGGREGATION_MODES", "DisaggMesh", "HANDOFF_META_PROBE_BYTES", "HANDOFF_TRANSPORTS",
+__all__ = ["DISAGGREGATION_MODES", "HANDOFF_META_PROBE_BYTES", "HANDOFF_TRANSPORTS",
            "Handoff", "HandoffReceiver", "MAX_HANDOFF_FRAME_BYTES", "PrefillRequest",
            "PrefillWorker", "PrefillWorkerPool", "TransferQueue", "TruncatedStream",
            "normalize_disaggregation", "same_device", "staged_leaves"]

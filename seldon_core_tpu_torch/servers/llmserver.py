@@ -296,11 +296,12 @@ class _DenseBuffer:
     ``tok``, ``pos``, ``done``, ``keys`` [bmax] (a call uses ``[:b]``), and
     the 0-dim float32 ``temperature``."""
 
-    def __init__(self, cfg, kv_cache_dtype: str, capacity: int, bmax: int, device):
-        from seldon_core_tpu_torch.models.transformer import init_kv_caches
-
+    def __init__(self, module, kv_cache_dtype: str, capacity: int, bmax: int, device):
         self.capacity = int(capacity)
-        caches = init_kv_caches(cfg, 1, self.capacity, kv_cache_dtype, device=device)
+        # the model's own caches (a sharded model's: one flat tensor set a
+        # (rank, layer), each key's views at the rank's share)
+        self.module = module
+        caches = module.init_caches((1, self.capacity), kv_cache_dtype, device=device)
         self.inner = [tuple(t.shape[2:] for t in layer) for layer in caches]
         self.layers = [tuple(t.view(-1) for t in layer) for layer in caches]
         self.tok = torch.zeros((bmax,), dtype=torch.int64, device=device)
@@ -313,11 +314,14 @@ class _DenseBuffer:
         return sum(t.numel() * t.element_size() for layer in self.layers for t in layer)
 
     def caches(self, b: int, max_len: int):
-        """The [b, max_len, ...] caches: contiguous prefix views."""
-        n = b * max_len
-        return [tuple(t[:n * shape.numel()].view(b, max_len, *shape)
-                      for t, shape in zip(layer, inner))
-                for layer, inner in zip(self.layers, self.inner)]
+        """The [b, max_len, ...] caches: contiguous prefix views (of each
+        rank's share of [b, max_len] when the model is sharded)."""
+        rows, length = self.module.cache_share((b, max_len))
+        n = rows * length
+        views = [tuple(t[:n * shape.numel()].view(rows, length, *shape)
+                       for t, shape in zip(layer, inner))
+                 for layer, inner in zip(self.layers, self.inner)]
+        return self.module.wrap_caches(views, (b, max_len))
 
     def state(self, b: int):
         return self.tok[:b], self.pos[:b], self.done[:b], self.keys[:b]
@@ -412,17 +416,10 @@ class LLMServer(SeldonComponent):
                 "disaggregation='remote_prefill' does not yet compose with tensor/sequence "
                 "parallelism or an explicit mesh: the batcher's slot pool is single-device per "
                 "slice — shard WITHIN a slice is a follow-up")
-        later = [
-            ("tokenizer", tokenizer != "bytes", "HF tokenizers (a later slice)"),
-            ("mesh", mesh is not None, "the parallelism slice"),
-            ("topology", topology is not None, "the parallelism slice"),
-            ("tensor_parallel", int(tensor_parallel) > 1, "the parallelism slice"),
-            ("sequence_parallel", int(sequence_parallel) > 1, "the parallelism slice"),
-        ]
-        for name, value, slice_name in later:
-            if value:
-                raise NotImplementedError(
-                    f"LLMServer({name}=...) is not ported yet: it arrives with {slice_name}")
+        if tokenizer != "bytes":
+            raise NotImplementedError(
+                "LLMServer(tokenizer=...) is not ported yet: it arrives with HF tokenizers "
+                "(a later slice)")
         if int(kv_page_size) < 0:
             raise ValueError(f"kv_page_size={kv_page_size} must be >= 0 (0 = default page size)")
         if int(kv_pool_pages) < 0:
@@ -436,6 +433,14 @@ class LLMServer(SeldonComponent):
         if int(decode_fuse_steps) < 0:
             raise ValueError(f"decode_fuse_steps={decode_fuse_steps} must be >= 0 (0/1 = no fusing)")
         self.device = resolve_device(device)
+        # parallelism (``parallel/``, ``models/sharded.py``): an explicit
+        # mesh, or tensor_parallel / sequence_parallel, which build a
+        # ('data', 'seq', 'model') mesh over ``topology`` (default: the
+        # process topology) at load(); its ranks must share this device
+        self.mesh = mesh
+        self.topology = topology
+        self.tensor_parallel = int(tensor_parallel)
+        self.sequence_parallel = int(sequence_parallel)
         # a checkpoint directory (local path or file:// URI) holding
         # config.json + params.msgpack; ``model`` / ``model_kwargs`` override
         # the file's name and kwargs, as in the JAX package
@@ -514,9 +519,9 @@ class LLMServer(SeldonComponent):
         # disaggregated prefill/decode (runtime/disagg.py): validated at
         # load(), as the JAX package does. prefill_devices (or
         # prefill_workers) = N puts N prefill workers on this server's
-        # device; disagg_mesh (a disagg.DisaggMesh) may name other devices;
-        # the batcher decodes on this server's one device, so
-        # decode_devices > 1 is refused at load() (the parallelism slice)
+        # device; disagg_mesh (a parallel.mesh.DisaggregatedMesh) may name
+        # other devices; the batcher decodes on this server's one device, so
+        # decode_devices > 1 is refused at load() (ROADMAP Queue A 9b)
         self.disaggregation = disaggregation
         self.prefill_devices = int(prefill_devices)
         self.decode_devices = int(decode_devices)
@@ -655,8 +660,9 @@ class LLMServer(SeldonComponent):
         if self.decode_devices > 1:
             raise NotImplementedError(
                 f"LLMServer(decode_devices={self.decode_devices}) is not ported yet: a decode "
-                f"slice over several devices arrives with the parallelism slice (the batcher "
+                f"slice over several devices arrives with ROADMAP Queue A 9b (the batcher "
                 f"decodes on the server's one device)")
+        self._build_mesh()
         if self.lora_rank < 0:
             raise ValueError(f"lora_rank={self.lora_rank} must be >= 0 (0 = adapters off)")
         if self.lora_rank > 0 and self.disaggregation != "off":
@@ -704,6 +710,10 @@ class LLMServer(SeldonComponent):
             gen.manual_seed(self.seed)
             module.init_params(gen)
         module.eval()
+        if self.mesh is not None:
+            # quantized before sharding (the JAX package's order): each
+            # rank's int8 leaves are cuts of the whole leaf's codes
+            module = module.shard(self.mesh)
         self._module = module
         self._cfg = module.cfg
         self._model_build = (name, kwargs)
@@ -721,6 +731,23 @@ class LLMServer(SeldonComponent):
         self.ready = True
         logger.info("LLMServer loaded %s (vocab=%d) on %s", name, self._cfg.vocab_size,
                     self.device)
+
+    def _build_mesh(self) -> None:
+        """The serving mesh (``parallel/topology.build_serving_mesh``: ``{"data":
+        -1, "seq": sp, "model": tp}``), before any weight moves. LoRA and
+        speculative decoding over a mesh raise, naming ROADMAP Queue A 9b."""
+        from seldon_core_tpu_torch.parallel.topology import build_serving_mesh
+
+        self.mesh, self.topology = build_serving_mesh(
+            self.device, self.mesh, self.topology, self.tensor_parallel,
+            sequence_parallel=self.sequence_parallel)
+        if self.mesh is None:
+            return
+        for name, on in (("lora_rank > 0", self.lora_rank > 0),
+                         (f"spec_mode={self.spec_mode!r}", self.spec_mode != "off")):
+            if on:
+                raise NotImplementedError(
+                    f"LLMServer({name}) over a mesh arrives with ROADMAP Queue A 9b")
 
     @staticmethod
     def _read_checkpoint(uri: str, name: Optional[str], kwargs: Dict[str, Any]):
@@ -779,10 +806,8 @@ class LLMServer(SeldonComponent):
         of the dense buffer ``generate()`` reuses); with ``adapter_ids`` ([b]
         ids of the adapter pool) each row through its adapter. Returns
         (logits [b, plen, vocab], caches)."""
-        from seldon_core_tpu_torch.models.transformer import init_kv_caches
-
-        caches = init_kv_caches(self._cfg, tokens.shape[0], max_len, self.kv_cache_dtype,
-                                device=self.device)
+        caches = self._module.init_caches((tokens.shape[0], max_len), self.kv_cache_dtype,
+                                          device=self.device)
         lora = {} if adapter_ids is None else dict(adapters=self.adapter_registry.pool(),
                                                    adapter_ids=adapter_ids)
         return self._module(tokens, positions=positions, caches=caches, cache_index=0, **lora)
@@ -814,9 +839,9 @@ class LLMServer(SeldonComponent):
         module = self._module
 
         def extend(caches, tokens, positions, start):
-            if (tuple(caches[0][-1].shape) != (b, max_len) or tuple(tokens.shape) != (b, slen)
+            if (module.cache_lead(caches) != (b, max_len) or tuple(tokens.shape) != (b, slen)
                     or tuple(positions.shape) != (b, slen)):
-                raise ValueError(f"extend {key}: caches {tuple(caches[0][-1].shape)}, tokens "
+                raise ValueError(f"extend {key}: caches {module.cache_lead(caches)}, tokens "
                                  f"{tuple(tokens.shape)}, positions {tuple(positions.shape)}")
             logits, _ = module(tokens, positions=positions, caches=caches,
                                cache_index=int(start))
@@ -851,9 +876,9 @@ class LLMServer(SeldonComponent):
             return fn
 
         def prefill(caches, tokens, positions):
-            if (tuple(caches[0][-1].shape) != (b, max_len) or tuple(tokens.shape) != (b, plen)
+            if (module.cache_lead(caches) != (b, max_len) or tuple(tokens.shape) != (b, plen)
                     or tuple(positions.shape) != (b, plen)):
-                raise ValueError(f"dense prefill {key}: caches {tuple(caches[0][-1].shape)}, "
+                raise ValueError(f"dense prefill {key}: caches {module.cache_lead(caches)}, "
                                  f"tokens {tuple(tokens.shape)}, positions "
                                  f"{tuple(positions.shape)}")
             reset_kv_caches(caches)
@@ -884,9 +909,9 @@ class LLMServer(SeldonComponent):
         module, top_k, eos_id = self._module, self.top_k, self.eos_id
 
         def step(caches, tok, pos, done, keys, temperature):
-            if tuple(caches[0][-1].shape) != (b, max_len) or tok.shape != (b,):
+            if module.cache_lead(caches) != (b, max_len) or tok.shape != (b,):
                 raise ValueError(f"dense decode step {key}: caches "
-                                 f"{tuple(caches[0][-1].shape)}, tok {tuple(tok.shape)}")
+                                 f"{module.cache_lead(caches)}, tok {tuple(tok.shape)}")
             logits, _ = module(tok[:, None], positions=pos[:, None], caches=caches,
                                cache_index=pos)
             new_keys, nxt = sample_tokens(keys, logits[:, -1], temperature, top_k)
@@ -933,8 +958,6 @@ class LLMServer(SeldonComponent):
         this server's KV dtype (an int8 pool carries its scales), cached
         under ``("staging_init", pool_pages, page_size)``. Its call takes
         the device (default: the server's) and returns fresh pools."""
-        from seldon_core_tpu_torch.models.transformer import init_paged_kv_caches
-
         key = ("staging_init", int(pool_pages), int(page_size))
         with self._lock:
             fn = self._prefill_cache.get(key)
@@ -942,8 +965,9 @@ class LLMServer(SeldonComponent):
             return fn
 
         def init(device=None):
-            return init_paged_kv_caches(self._cfg, int(pool_pages), int(page_size),
-                                        self.kv_cache_dtype, device=device or self.device)
+            return self._module.init_caches((int(pool_pages), int(page_size)),
+                                            self.kv_cache_dtype, device=device or self.device,
+                                            paged=True)
 
         with self._lock:
             return self._prefill_cache.setdefault(key, init)
@@ -1277,7 +1301,7 @@ class LLMServer(SeldonComponent):
             self._generate_graphs.clear()
             self._generate_pool = None
             self._dense = None   # the old buffer goes before the new one is made
-            self._dense = _DenseBuffer(self._cfg, self.kv_cache_dtype, need,
+            self._dense = _DenseBuffer(self._module, self.kv_cache_dtype, need,
                                        self.batch_buckets[-1], self.device)
         return self._dense
 
@@ -1461,6 +1485,12 @@ class LLMServer(SeldonComponent):
                        + max(max_new, self.max_new_tokens))
         else:
             max_len = min(plen + max_new, self._cfg.max_seq_len + max_new)
+        if self.mesh is not None:
+            # round the cache length up to a multiple of the seq axis so the
+            # KV cache can actually shard over it
+            sp = self.mesh.axis_size("seq")
+            if sp > 1:
+                max_len = -(-max_len // sp) * sp
 
         tokens = np.zeros((nb, plen), np.int64)
         positions = np.full((nb, plen), PAD_POS, np.int32)

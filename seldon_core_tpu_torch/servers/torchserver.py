@@ -22,9 +22,18 @@ module, and the port, which has no XLA, runs its own eager forward, in
 which the kernel is how the chain is computed (``pallas_stages=()`` on the
 same weights is the cuDNN chain, the kernel's yardstick).
 
-The mesh/sharding, int8 and param-dtype knobs of ``JAXServer`` arrive with
-later slices: setting one raises ``NotImplementedError`` naming its slice.
-The port reads no orbax checkpoint (the card's machine has no orbax).
+A mesh (``mesh``, or ``tensor_parallel`` = tp building ``{"data": -1,
+"model": tp}`` over ``topology``, default the process topology) shards the
+model as ``JAXServer``'s ``shard_apply`` does (``parallel/sharding.py``):
+a transformer checkpoint runs the sharded cache-less forward
+(``models/sharded.py``); a ResNet declares no logical axes, so it
+replicates (``strict_sharding`` then raises, as in the JAX package) and
+each 'data' rank runs K3 on its block of the batch, whose buckets round up
+to multiples of the 'data' axis. The mesh's ranks must share the server's
+device (two-card meshes: ROADMAP Queue A 9b). The int8 and param-dtype
+knobs of ``JAXServer`` arrive with a later slice: setting one raises
+``NotImplementedError`` naming it. The port reads no orbax checkpoint (the
+card's machine has no orbax).
 """
 
 from __future__ import annotations
@@ -43,15 +52,11 @@ from seldon_core_tpu_torch.codec.staging import DEFAULT_BUCKETS, stage_to_device
 from seldon_core_tpu_torch.components.component import SeldonComponent
 from seldon_core_tpu_torch.contracts.payload import SeldonError
 from seldon_core_tpu_torch.device import resolve_device
+from seldon_core_tpu_torch.parallel.topology import build_serving_mesh
 
 logger = logging.getLogger(__name__)
 
 _LATER = {
-    "mesh": "meshes and sharding arrive with the parallelism slice",
-    "topology": "meshes and sharding arrive with the parallelism slice",
-    "param_sharding_rules": "meshes and sharding arrive with the parallelism slice",
-    "strict_sharding": "meshes and sharding arrive with the parallelism slice",
-    "tensor_parallel": "tensor parallelism arrives with the parallelism slice",
     "quantize": "int8 predict models arrive with the int8-predict slice",
     "param_dtype": "load-time param casts arrive with the int8-predict slice",
 }
@@ -82,18 +87,23 @@ class TorchServer(SeldonComponent):
         **kwargs: Any,
     ):
         super().__init__(**kwargs)
-        knobs = dict(mesh=mesh, topology=topology, param_sharding_rules=param_sharding_rules,
-                     strict_sharding=strict_sharding, tensor_parallel=int(tensor_parallel) > 1,
-                     quantize=quantize, param_dtype=param_dtype)
-        for name, value in knobs.items():
+        for name, value in (("quantize", quantize), ("param_dtype", param_dtype)):
             if value:
                 raise NotImplementedError(f"TorchServer({name}=...): {_LATER[name]} of the port")
         self.model_uri = model_uri
+        self.mesh = mesh
+        self.topology = topology
+        self.param_sharding_rules = param_sharding_rules
+        self.strict_sharding = bool(strict_sharding)
+        # spec-reachable: a typed unit parameter builds the ('data', 'model')
+        # serving mesh at load()
+        self.tensor_parallel = int(tensor_parallel)
         self.model_name = model
         self.device = resolve_device(device)
         self.batch_buckets = tuple(batch_buckets) if batch_buckets else DEFAULT_BUCKETS
         self.ready = False
         self._module = None
+        self._run = None
         self._config: Dict[str, Any] = {}
         self._load_lock = threading.Lock()
 
@@ -120,11 +130,25 @@ class TorchServer(SeldonComponent):
                 if self._config.get(key):
                     raise NotImplementedError(f"config.json {key}: {_LATER[key]} of the port")
             name = self.model_name or self._config["model"]
+            self.mesh, self.topology = build_serving_mesh(self.device, self.mesh, self.topology,
+                                                          self.tensor_parallel)
             module = get_model(name, device=self.device, **self._config.get("kwargs", {}))
             params_from_jax(load_params(path), module)
             if getattr(module, "fused", False) and hasattr(module, "serving_operands"):
                 module.serving_operands(self.device)
             self._apply_kwargs = self._config.get("apply_kwargs", {})
+            if self.mesh is not None:
+                from seldon_core_tpu_torch.parallel.sharding import shard_apply
+
+                dp = self.mesh.axis_size("data")
+                if dp > 1:
+                    self.batch_buckets = tuple(sorted({-(-b // dp) * dp
+                                                       for b in self.batch_buckets}))
+                self._run, module = shard_apply(_apply, module, self.mesh,
+                                                rules=self.param_sharding_rules,
+                                                strict=self.strict_sharding)
+            else:
+                self._run = lambda x, **kw: _apply(module, x, **kw)
             self._module = module
             self.ready = True
             logger.info("TorchServer loaded model %s from %s on %s", name, path, self.device)
@@ -138,9 +162,7 @@ class TorchServer(SeldonComponent):
             arr = arr.astype(self.input_dtype)
         x, true_n = stage_to_device(arr, self.device, pad=True, buckets=self.batch_buckets)
         with torch.no_grad():
-            out = self._module(x, **self._apply_kwargs)
-        if isinstance(out, tuple):
-            out = out[0]
+            out = self._run(x, **self._apply_kwargs)
         return out[:true_n].float().cpu().numpy()
 
     def torch_fn(self):
@@ -150,11 +172,10 @@ class TorchServer(SeldonComponent):
         applies the model to the batch it is given)."""
         if not self.ready:
             self.load()
-        apply_kwargs = self._apply_kwargs
+        apply_kwargs, run = self._apply_kwargs, self._run
 
         def fn(module, x):
-            out = module(x, **apply_kwargs)
-            return out[0] if isinstance(out, tuple) else out
+            return run(x, **apply_kwargs)
 
         return fn, self._module
 
@@ -165,6 +186,12 @@ class TorchServer(SeldonComponent):
     def input_dtype(self) -> np.dtype:
         """Declared request dtype from the checkpoint config."""
         return np.dtype(self._config.get("input_dtype", "float32"))
+
+
+def _apply(module, x, **kwargs):
+    """The forward's output (a transformer's logits without its caches)."""
+    out = module(x, **kwargs)
+    return out[0] if isinstance(out, tuple) else out
 
 
 def export_checkpoint(

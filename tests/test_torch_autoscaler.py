@@ -46,7 +46,8 @@ from seldon_core_tpu_torch.controlplane import autoscaler as auto
 from seldon_core_tpu_torch.metrics.registry import MetricsRegistry
 from seldon_core_tpu_torch.observability.timeline import scaling_snapshot
 from seldon_core_tpu_torch.runtime.batcher import ContinuousBatcher, get_batcher_service
-from seldon_core_tpu_torch.runtime.disagg import DisaggMesh, PrefillWorker
+from seldon_core_tpu_torch.parallel.mesh import DisaggregatedMesh
+from seldon_core_tpu_torch.runtime.disagg import PrefillWorker
 from seldon_core_tpu_torch.runtime.engine import ReplicaSet
 from seldon_core_tpu_torch.servers.llmserver import LLMServer
 from seldon_core_tpu_torch.testing.faults import FaultClock
@@ -428,7 +429,7 @@ def test_rebalance_refusals_change_nothing(pair):
         assert not off.rebalance_disagg(2)
     finally:
         off.close()
-    mesh = ContinuousBatcher(p, device="cpu", disagg_mesh=DisaggMesh(["cpu", "cpu"], ["cpu"]),
+    mesh = ContinuousBatcher(p, device="cpu", disagg_mesh=DisaggregatedMesh(["cpu", "cpu"], ["cpu"]),
                              **BKW)
     try:
         assert mesh.max_prefill_workers() == 2       # an explicit mesh: its entries

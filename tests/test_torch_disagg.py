@@ -585,26 +585,27 @@ def test_one_device_accepted_and_weights_shared():
 
 
 def test_decode_devices_must_hold_the_server_device(pairs):
-    from seldon_core_tpu_torch.runtime.disagg import DisaggMesh
+    from seldon_core_tpu_torch.parallel.mesh import DisaggregatedMesh
 
     _, p = pairs("float")
     with pytest.raises(ValueError, match="decode slice must contain"):
-        ContinuousBatcher(p, device="cpu", disagg_mesh=DisaggMesh(["cpu"], ["meta"]), **BKW)
+        ContinuousBatcher(p, device="cpu", disagg_mesh=DisaggregatedMesh(["cpu"], ["meta"]),
+                          **BKW)
 
 
 def test_multi_device_decode_refused(pairs):
     """The batcher decodes on the server's one device: a decode slice of
     several devices (decode_devices > 1, or a mesh naming two) raises
-    naming the parallelism slice instead of decoding on one of them."""
-    from seldon_core_tpu_torch.runtime.disagg import DisaggMesh
+    naming ROADMAP Queue A 9b instead of decoding on one of them."""
+    from seldon_core_tpu_torch.parallel.mesh import DisaggregatedMesh
 
-    with pytest.raises(NotImplementedError, match="parallelism slice"):
+    with pytest.raises(NotImplementedError, match="Queue A 9b"):
         LLMServer(device="cpu", **dict(COMMON, decode_devices=2, init_random=True)).load()
     LLMServer(device="cpu", **dict(COMMON, decode_devices=1, init_random=True)).load()
     _, p = pairs("float")
-    with pytest.raises(NotImplementedError, match="parallelism slice"):
-        ContinuousBatcher(p, device="cpu", disagg_mesh=DisaggMesh(["cpu"], ["cpu", "cpu"]),
-                          **BKW)
+    with pytest.raises(NotImplementedError, match="Queue A 9b"):
+        ContinuousBatcher(p, device="cpu",
+                          disagg_mesh=DisaggregatedMesh(["cpu"], ["cpu", "cpu"]), **BKW)
 
 
 # --------------------------------------------------------------- metrics

@@ -5,8 +5,9 @@ package, and it never falls back to the CPU on its own.
   blocked from import imports every module of ``seldon_core_tpu_torch``
   (the gRPC server, its proto converters and copied stubs, the OpenAPI
   spec, the metrics registry, the radix prefix cache, the adapter pool,
-  the scheduler, the disaggregation module and the frame codec among
-  them), serves one CPU ``generate()`` and the same prompt through a
+  the scheduler, the disaggregation module, the frame codec and the
+  parallel package among them), serves one CPU ``generate()``, one over a
+  co-located {"seq": 2, "model": 2} mesh, and the same prompt through a
   disaggregated batcher over the network handoff, writes an LLM
   checkpoint and serves it through ``LLMServer(model_uri=...)`` with an
   adapter pool, writes, loads and serves a ResNet checkpoint through
@@ -53,12 +54,20 @@ need |= {"seldon_core_tpu_torch." + m for m in (
     "controlplane", "controlplane.quantity", "controlplane.validate", "controlplane.render",
     "controlplane.charts", "controlplane.operator", "controlplane.autoscaler",
     "analytics.outliers", "analytics.canary")}
+need |= {"seldon_core_tpu_torch." + m for m in (
+    "parallel", "parallel.topology", "parallel.mesh", "parallel.multihost",
+    "parallel.sharding", "parallel.collectives", "models.sharded")}
 assert need <= set(mods), need - set(mods)
 from seldon_core_tpu_torch.servers.llmserver import LLMServer
 s = LLMServer(model="llama-tiny", init_random=True, max_new_tokens=4, eos_id=-1,
               len_buckets=(16,), batch_buckets=(1,), device="cpu")
 out = s.generate(["hi"])
 assert len(out["tokens"][0]) == 4, out
+from seldon_core_tpu_torch.parallel.topology import Topology
+tp = LLMServer(model="llama-tiny", init_random=True, max_new_tokens=4, eos_id=-1,
+               len_buckets=(16,), batch_buckets=(1,), device="cpu", tensor_parallel=2,
+               sequence_parallel=2, topology=Topology(devices=["cpu"] * 4))
+assert len(tp.generate(["hi"])["tokens"][0]) == 4
 from seldon_core_tpu_torch.runtime.batcher import ContinuousBatcher
 d = LLMServer(model="llama-tiny", init_random=True, max_new_tokens=4, eos_id=-1,
               len_buckets=(16,), batch_buckets=(1,), device="cpu",

@@ -2583,3 +2583,96 @@ def test_traced_loop_replays_bit_equal_and_adds_no_sync(dev):
         assert tl["prompt_tokens"] == len(p) and tl["events_dropped"] == 0
     traced.close()
     plain.close()
+
+
+# ------------------------------------------------- tensor-parallel shards
+# K4 at Llama-2-7B's shard shapes (models/sharded.py): the column shards
+# (wq / wk / wv N = 4096 / tp, w1 / w3 N = 11008 / tp, lm_head N = 32000 /
+# tp) and the row shards (wo K = 4096 / tp, w2 K = 11008 / tp) at tp = 2
+# and tp = 4 (w2's K = 2752: a multiple of 64, not of 128)
+TP_SHARDS = [(4096, 2048), (4096, 5504), (4096, 16000), (2048, 4096), (5504, 4096),
+             (4096, 1024), (4096, 2752), (4096, 8000), (1024, 4096), (2752, 4096)]
+# the row shards an int8 rank writes as float32 partials (f32_partials):
+# wo and w2 at tp = 2 and 4, and a Mixtral-8x7B expert's w2 at tp = 2
+TP_ROW_SHARDS = [(2048, 4096), (5504, 4096), (1024, 4096), (2752, 4096), (7168, 4096)]
+
+
+@pytest.mark.parametrize("m", [8, 32, 128, 256])
+@pytest.mark.parametrize("k,n", TP_SHARDS, ids=lambda v: str(v))
+def test_int8_matmul_tp_shard_shapes_match_plain(dev, m, k, n):
+    """Each shard a contiguous [K, N] copy, both routes (M >= 64: the
+    prefill kernel), within K4's tolerance of the plain version."""
+    x, q, scale = _k4_case(dev, m, k, n, m + k + n)
+    out = int8_matmul.int8_matmul(x, q, scale)
+    torch.cuda.synchronize()
+    _assert_k4_close(out, x, q, scale)
+
+
+@pytest.mark.parametrize("m", [8, 32, 128, 256])
+@pytest.mark.parametrize("k,n", TP_ROW_SHARDS, ids=lambda v: str(v))
+def test_int8_matmul_tp_row_shards_float32_match_plain(dev, m, k, n):
+    """The float32 store of a row shard's partial, the output the served
+    int8 ranks launch K4 with, at decode and prefill M (both routes)."""
+    x, q, scale = _k4_case(dev, m, k, n, m + k + n)
+    out = int8_matmul.int8_matmul(x, q, scale, torch.float32)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.float32
+    _assert_k4_close(out, x, q, scale)
+
+
+@pytest.mark.parametrize("h,kvh", [(16, 16), (8, 8), (16, 4)],
+                         ids=["7b-tp2", "7b-tp4", "mixtral-tp2"])
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+def test_paged_attention_tp_shard_heads_match_plain(dev, h, kvh, kv):
+    """K1 at a rank's heads (hd 128, pages of 64), within K1's tolerance."""
+    q, cache, bt, qpos = _k1_case(dev, 8, h, kvh, 128, 64, 4,
+                                  [200, 64, 1, 129, 0, 255, 30, 100], kv, h + kvh)
+    out = paged_attention.paged_attention(q, cache, bt, qpos)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out.float()).all()
+    _assert_within_ulp(out, _ref32(q, cache, bt, qpos))
+
+
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+def test_tp2_decode_graph_replay_bit_equals_eager(dev, kv):
+    """The batcher over a co-located tp = 2 mesh (two ranks on this card):
+    one replay of each captured program (K = 1 and 4) is bit-equal to the
+    eager program from identical copies of every rank's pools and the
+    state, and adds what its capture counted: per step one K1 and one K2 a
+    layer a rank, and in the int8 model one K4 launch a product a rank."""
+    from seldon_core_tpu_torch.parallel.topology import Topology
+    from seldon_core_tpu_torch.runtime.batcher import ContinuousBatcher
+    from seldon_core_tpu_torch.servers.llmserver import LLMServer
+    from seldon_core_tpu_torch.servers.step_graph import launch_counts
+
+    s = LLMServer(model="transformer", model_kwargs=SMALL_LLM, init_random=True,
+                  param_dtype="auto", max_new_tokens=12, eos_id=-1, len_buckets=(16,),
+                  device="cuda", tensor_parallel=2,
+                  topology=Topology(devices=["cuda"] * 2), **INT8_KNOBS[kv])
+    s.load()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        b = ContinuousBatcher(s, max_slots=3, page_size=8, fuse_steps=4, device="cuda")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert sorted(b._graphs) == [1, 4] and len(b._caches) == 2 * SMALL_LLM["n_layers"]
+    _admit(b, ([5, 9, 17, 2, 40, 3, 22, 8, 11, 60], [7, 7, 1]))
+    n = SMALL_LLM["n_layers"] * 2
+    for k in (1, 4):
+        copy = _state_copy(b)
+        before = launch_counts()
+        toks = b._graphs[k].replay().clone()
+        after = launch_counts()
+        eager = s._get_decode_step_paged(b.S, b.n_pages, k)(*copy, b._temp, b._block_tables)
+        torch.cuda.synchronize()
+        assert torch.equal(toks, eager) and toks.shape == (3, k)
+        _assert_state_equal(b, copy)
+        delta = {key: c - before[key] for key, c in after.items() if c != before[key]}
+        assert delta == dict(b._graphs[k].counts)
+        k1 = paged_attention.paged_attention
+        assert delta[(k1, "launches_int8" if kv == "int8" else "launches")] == n * k
+        assert delta[(fused_norm.fused_residual_rmsnorm, "launches")] == n * k
+        k4 = delta.get((int8_matmul.int8_matmul, "launches"), 0)
+        assert k4 == ((7 * SMALL_LLM["n_layers"] + 1) * 2 * k if kv == "int8" else 0)
+    b.close()

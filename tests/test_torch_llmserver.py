@@ -273,15 +273,32 @@ def test_rest_generate_and_ready(jax_params):
         server._batcher_service.close()
 
 
+def _two_devices():
+    from seldon_core_tpu_torch.parallel.topology import Topology
+
+    return Topology(devices=["cpu", "meta"])
+
+
 @pytest.mark.parametrize("kw,slice_name", [
-    (dict(sequence_parallel=2), "parallelism"),
-    (dict(topology=object()), "parallelism"),
+    (dict(sequence_parallel=2), "Queue A 9b"),
+    (dict(topology="two devices", tensor_parallel=2, sequence_parallel=1), "Queue A 9b"),
     (dict(tokenizer="hf"), "HF tokenizers"),
-    (dict(tensor_parallel=2), "parallelism"),
+    (dict(tensor_parallel=2), "Queue A 9b"),
 ])
 def test_later_slice_knobs_raise(kw, slice_name):
+    """The knobs of later slices raise naming them: the HF tokenizer at
+    construction; parallelism knobs over ranks on distinct devices (a CPU
+    and a meta device here) at load(), naming two-card meshes, before any
+    weight moves (the co-located meshes are tests/test_torch_parallel.py's)."""
+    if "tokenizer" in kw:
+        with pytest.raises(NotImplementedError, match=slice_name):
+            LLMServer(device="cpu", **dict(COMMON, **kw))
+        return
+    kw = dict(kw, topology=_two_devices())
+    s = LLMServer(device="cpu", init_random=True, **dict(COMMON, **kw))
     with pytest.raises(NotImplementedError, match=slice_name):
-        LLMServer(device="cpu", **dict(COMMON, **kw))
+        s.load()
+    assert not s.ready
 
 
 def test_dense_batcher_layout_raises(jax_params):

@@ -330,10 +330,19 @@ def test_prepackaged_and_later_slice_knobs(ckpt):
     # its load, naming the missing file
     with pytest.raises(SeldonError, match="model.joblib"):
         make_prepackaged_server(UnitImplementation.SKLEARN_SERVER, ckpt["path"]).load()
-    for knob in (dict(quantize="int8"), dict(tensor_parallel=2), dict(mesh=object()),
-                 dict(param_dtype="auto")):
+    for knob in (dict(quantize="int8"), dict(param_dtype="auto")):
         with pytest.raises(NotImplementedError, match="slice"):
             TorchServer(model_uri=ckpt["path"], device="cpu", **knob)
+    # a mesh over ranks on distinct devices raises at load(), naming
+    # two-card meshes (co-located meshes: tests/test_torch_tensor_parallel.py)
+    from seldon_core_tpu_torch.parallel.topology import Topology
+
+    two = Topology(devices=["cpu", "meta"])
+    for knob in (dict(tensor_parallel=2, topology=two), dict(mesh=two.serving_mesh(2))):
+        s = TorchServer(model_uri=ckpt["path"], device="cpu", **knob)
+        with pytest.raises(NotImplementedError, match="Queue A 9b"):
+            s.load()
+        assert not s.ready
     with pytest.raises(NotImplementedError, match="orbax"):
         export_checkpoint("/unused", "resnet18", {}, use_orbax=True)
 
