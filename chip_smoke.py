@@ -1589,14 +1589,15 @@ def state_copy(b):
             b._next_pos.clone(), b._keys.clone())
 
 
-def state_equal(b, copy) -> bool:
+def state_equal(b, copy, pools: bool = True) -> bool:
+    """The slot state against ``copy`` and, with ``pools``, every pool."""
     import torch
 
-    pools, last_tok, next_pos, keys = copy
+    pool_copy, last_tok, next_pos, keys = copy
     return (torch.equal(b._last_tok, last_tok) and torch.equal(b._next_pos, next_pos)
             and torch.equal(b._keys, keys)
-            and all(torch.equal(x, y) for la, lb in zip(b._caches, pools)
-                    for x, y in zip(la, lb)))
+            and (not pools or all(torch.equal(x, y) for la, lb in zip(b._caches, pool_copy)
+                                  for x, y in zip(la, lb))))
 
 
 def draw_ms(server, b):
@@ -1735,10 +1736,13 @@ def zero_counts(server) -> None:
     its serving series, set to 0 / emptied just before a run."""
     from seldon_core_tpu_torch.ops.fused_norm import fused_residual_rmsnorm
     from seldon_core_tpu_torch.ops.int8_matmul import int8_matmul
-    from seldon_core_tpu_torch.ops.paged_attention import paged_attention
+    from seldon_core_tpu_torch.ops.paged_attention import (paged_attention,
+                                                           paged_attention_partial)
 
     paged_attention.launches = 0
     paged_attention.launches_int8 = 0
+    paged_attention_partial.launches = 0
+    paged_attention_partial.launches_int8 = 0
     fused_residual_rmsnorm.launches = 0
     int8_matmul.launches = 0
     int8_matmul.launches_wgmma = 0
@@ -1753,9 +1757,12 @@ def zero_counts(server) -> None:
 def read_counts(server) -> dict:
     from seldon_core_tpu_torch.ops.fused_norm import fused_residual_rmsnorm
     from seldon_core_tpu_torch.ops.int8_matmul import int8_matmul
-    from seldon_core_tpu_torch.ops.paged_attention import paged_attention
+    from seldon_core_tpu_torch.ops.paged_attention import (paged_attention,
+                                                           paged_attention_partial)
 
     return {"k1": paged_attention.launches, "k1_int8": paged_attention.launches_int8,
+            "k1p": paged_attention_partial.launches,
+            "k1p_int8": paged_attention_partial.launches_int8,
             "k2": fused_residual_rmsnorm.launches, "k4": int8_matmul.launches,
             "k4_wgmma": int8_matmul.launches_wgmma, "replays": server._prefill_replays,
             "eager": server._prefill_eager}
@@ -1798,7 +1805,8 @@ def served_tokens(label: str, results):
 
 
 def check_launches(label: str, card: str, counts: dict, chunks, quantized: bool,
-                   int8_kv: bool, eager: bool, cfg=None, ranks: int = 1) -> int:
+                   int8_kv: bool, eager: bool, cfg=None, ranks: int = 1,
+                   partial: bool = False) -> int:
     """A run's launches against its work: one K1 a layer a decode step on
     the pool's kernel and none on the other; one K2 a layer a forward
     (decode steps and prefill ``chunks``); in the int8 model one K4 a
@@ -1806,15 +1814,22 @@ def check_launches(label: str, card: str, counts: dict, chunks, quantized: bool,
     chunks of 64 rows and more; every chunk a graph replay, or with
     ``eager`` an eager run; ``cfg`` the model's config (default
     Llama-2-7B's); ``ranks`` the mesh ranks (each runs every kernel at its
-    shard's shapes). Returns the decode steps."""
+    shard's shapes); ``partial``: a 'seq' mesh, whose K1 launches are its
+    partial mode's, and none the one-rank read's. Returns the decode
+    steps."""
     n_layers = cfg.n_layers if cfg else LLAMA2_7B["n_layers"]
     per_step = n_layers * ranks
     k1_key, idle_k1 = ("k1_int8", "k1") if int8_kv else ("k1", "k1_int8")
+    idle = [idle_k1]
+    if partial:
+        idle, k1_key = [k1_key, idle_k1, "k1p" if int8_kv else "k1p_int8"], "k1p" + k1_key[2:]
+    elif "k1p" in counts:
+        idle += ["k1p", "k1p_int8"]
     k1_launches = counts[k1_key]
-    if k1_launches == 0 or k1_launches % per_step or counts[idle_k1]:
+    if k1_launches == 0 or k1_launches % per_step or any(counts[k] for k in idle):
         fail(f"[{label}] K1 launches {counts}: expected a positive multiple of {per_step} "
              f"on the {k1_key} kernel (one per layer per rank per decode step) and none on "
-             f"the other")
+             f"{idle}")
     decode_steps = k1_launches // per_step
     forwards = decode_steps + len(chunks)
     if counts["k2"] != per_step * forwards:
@@ -2031,8 +2046,8 @@ def generate_launches(server, rows: int, plen: int, max_new: int) -> dict:
     n_layers = LLAMA2_7B["n_layers"]
     per = K4_PER_FORWARD if server.quantize == "int8" else 0
     wide = per if rows * plen >= 64 else 0
-    return {"k1": 0, "k1_int8": 0, "k2": n_layers * max_new, "k4": per * max_new,
-            "k4_wgmma": wide}
+    return {"k1": 0, "k1_int8": 0, "k1p": 0, "k1p_int8": 0, "k2": n_layers * max_new,
+            "k4": per * max_new, "k4_wgmma": wide}
 
 
 def generate_phase(label: str, card: str, server, url: str, texts) -> dict:
@@ -8151,10 +8166,12 @@ MIXTRAL_8X7B = dict(vocab_size=32000, dim=4096, n_layers=32, n_heads=32, n_kv_he
                     n_experts=8, n_experts_per_token=2, dtype="bfloat16")
 # (label, LLMServer knobs, layers, why the depth is cut): (a) int8 weights,
 # bf16 KV, full depth; (b) bf16 weights, int8 KV, half the depth
-MOE_RUNS = (("moe int8", dict(quantize="int8"), 32, ""),
-            ("moe bf16", dict(kv_cache_dtype="int8"), 16,
-             "reduced to 16 of 32 layers: 32 layers of bf16 weights are 93.4 GB, more than "
-             "the card's 80 GB; 16 are 46.97 GB"))
+MOE_RUNS = (("moe int8", dict(quantize="int8"), 8,
+             "reduced to 8 of 32 layers: the phase checks the MoE layer, not the depth, and "
+             "the whole run stays inside its time limit"),
+            ("moe bf16", dict(kv_cache_dtype="int8"), 8,
+             "reduced to 8 of 32 layers (32 layers of bf16 weights are 93.4 GB, more than "
+             "the card's 80 GB), as the int8 run"))
 # K4's products that no Llama-2-7B forward has: the experts' w1 / w3 and w2,
 # and GQA's wk / wv (8 kv heads); at the rows of the 8 slots, a chunk of 32
 # and the chunks of 128 and 256
@@ -8250,12 +8267,13 @@ def moe_service(label: str, card: str, server, fuse: int):
     return svc, httpd, url
 
 
-def moe_requests(label: str, card: str, server, url: str, texts, ranks: int = 1) -> tuple:
+def moe_requests(label: str, card: str, server, url: str, texts, ranks: int = 1,
+                 partial: bool = False) -> tuple:
     """The N_REQUESTS texts at once over REST /v1/generate, every counter
     zeroed just before and read just after: every chunk a prefill-graph
     replay and every dispatch a decode-graph replay (``check_launches`` at
-    the model's widths, ``ranks`` mesh ranks). Returns (served tokens,
-    launch counts, metrics)."""
+    the model's widths, ``ranks`` mesh ranks, K1's ``partial`` mode on a
+    'seq' mesh). Returns (served tokens, launch counts, metrics)."""
     import torch
 
     torch.cuda.synchronize()
@@ -8274,7 +8292,8 @@ def moe_requests(label: str, card: str, server, url: str, texts, ranks: int = 1)
          "dispatches": dispatches[0]}
     served = served_tokens(label, results)
     check_launches(label, card, counts, [128] * N_REQUESTS, server.quantize == "int8",
-                   server.kv_cache_dtype == "int8", eager=False, cfg=server._cfg, ranks=ranks)
+                   server.kv_cache_dtype == "int8", eager=False, cfg=server._cfg, ranks=ranks,
+                   partial=partial)
     if dispatches[0] == 0 or dispatches[1]:
         fail(f"[{label}] decode dispatches as (graph replays, eager runs) {dispatches}: every "
              f"dispatch must be a replay")
@@ -8717,27 +8736,59 @@ def par_collective_ms(card: str, server, rows: int):
 
 def par_replays(label: str, card: str, server, b, texts) -> dict:
     """On live state (the served prompts admitted again, loop stopped):
-    the K = 1 decode replay and each chunk graph's replay against the same
-    sharded program run eagerly from identical copies of every rank's pools
-    and the slot state, bit for bit; the decode graph's kernel nodes by
-    name (one K1 and one K2 a layer a rank, one K4 a product a rank in the
-    int8 model) and all of them; the replay's device time (CUDA events)."""
+    the K = 1 decode replay and each chunk graph's replay (the adapted
+    programs on an adapter pool, slot 0's pages of its data rank's pools
+    for a chunk) against the same sharded program run eagerly from
+    identical copies of every rank's pools and the slot state, bit for bit
+    (the pools on every page but TRASH),
+    and with a prefix trie a copy-on-write replay against the eager copy;
+    the decode graph's kernel nodes by name (one K1 and one K2 a layer a
+    rank, one K4 a product a rank in the int8 model) and all of them; the
+    replay's device time (CUDA events)."""
     import numpy as np
     import torch
 
-    from seldon_core_tpu_torch.models.transformer import NULL_PAGE, PAD_POS
+    from seldon_core_tpu_torch.models.transformer import NULL_PAGE, PAD_POS, TRASH_PAGE
+    from seldon_core_tpu_torch.runtime.batcher import cow_page_copy
+
+    lora = bool(b._lora(None))
+    # every page but TRASH: over 'seq' (and 'data', for a chunk) the ranks
+    # that do not hold a token's page write it there, several to one
+    # offset, in no set order
+    keep = torch.ones(b._caches[0][0].shape[0], dtype=torch.bool, device="cuda")
+    keep[TRASH_PAGE] = False
+
+    def pools_equal(copy):
+        return all(torch.equal(x[keep], y[keep]) for la, lb in zip(b._caches, copy)
+                   for x, y in zip(la, lb))
 
     admit_now(b, texts, ahead=64)
     copy = state_copy(b)
     toks = b._graphs[1].replay().clone()
-    eager = server._get_decode_step_paged(b.S, b.n_pages, 1)(*copy, b._temp, b._block_tables)
+    eager = server._get_decode_step_paged(b.S, b.n_pages, 1, lora)(
+        *copy, b._temp, b._block_tables, **b._lora(b._adapter_ids))
     torch.cuda.synchronize()
-    if not (torch.equal(toks, eager) and state_equal(b, copy)):
+    if not (torch.equal(toks, eager) and state_equal(b, copy, pools=False)
+            and pools_equal(copy[0])):
         fail(f"[{label}] the decode replay and the eager sharded step differ")
     del copy, eager
+    if b._cow_graph is not None:
+        # a full page of slot 0 copied into a fresh page of the same pool
+        src = b._slots[0].pages[0]
+        dst = b._alloc_pages(0, 0, 1)[0]
+        b._cow_args.copy_(torch.tensor([src, dst, b.page_size - 3], device="cuda"))
+        copy = [tuple(t.clone() for t in layer) for layer in b._caches]
+        b._cow_graph.replay()
+        a = b._cow_args
+        cow_page_copy(copy, a[0:1], a[1:2], a[2:3], server._module)
+        torch.cuda.synchronize()
+        if not all(torch.equal(x, y) for la, lb in zip(b._caches, copy) for x, y in zip(la, lb)):
+            fail(f"[{label}] the copy-on-write replay and the eager sharded copy differ")
+        b._allocator.free([dst])
+        del copy
     text = server._tokenizer.encode(" ".join(prompts(N_REQUESTS)))
     for C in sorted(b._prefill_graphs):
-        pages = b._allocator.alloc(-(-C // b.page_size))
+        pages = b._alloc_pages(0, 0, -(-C // b.page_size))
         b._reset_pages(pages)
         row = np.full((1, b.n_pages), NULL_PAGE, np.int32)
         row[0, :len(pages)] = pages
@@ -8748,11 +8799,11 @@ def par_replays(label: str, card: str, server, b, texts) -> dict:
         b._chunk_pos[:, :C].copy_(b._to_device(np.arange(C, dtype=np.int32)[None]))
         copy = [tuple(t.clone() for t in layer) for layer in b._caches]
         got = b._prefill_graphs[C].replay().clone()
-        want = server._get_prefill_chunk(C, b.n_pages)(copy, b._row, b._chunk_tokens[:, :C],
-                                                       b._chunk_pos[:, :C])
+        want = server._get_prefill_chunk(C, b.n_pages, lora)(
+            copy, b._row, b._chunk_tokens[:, :C], b._chunk_pos[:, :C],
+            **b._lora(b._chunk_adapter))
         torch.cuda.synchronize()
-        if not (torch.equal(got, want) and all(torch.equal(x, y) for la, lb in
-                                               zip(b._caches, copy) for x, y in zip(la, lb))):
+        if not (torch.equal(got, want) and pools_equal(copy)):
             fail(f"[{label}] the chunk-{C} replay and the eager sharded chunk differ")
         b._allocator.free(pages)
         del copy, got, want
@@ -8768,27 +8819,32 @@ def par_replays(label: str, card: str, server, b, texts) -> dict:
              f"{seen}, expected {want}")
     dev_ms = events_ms(b._graphs[1].replay)
     print(f"[{label}] replay vs eager from identical copies of every rank's pools and the slot "
-          f"state: the K = 1 decode step and chunks {sorted(b._prefill_graphs)} bit-equal; the "
+          f"state: the K = 1 decode step"
+          f"{', a copy-on-write copy' if b._cow_graph is not None else ''} and chunks "
+          f"{sorted(b._prefill_graphs)} bit-equal; the "
           f"decode graph holds {len(names)} kernel nodes, (K2, K4 prefill, K4 decode, K1) "
           f"{seen}; replay device time {dev_ms:.3f} ms (CUDA events, median of {REPS}) "
           f"[{card}]", flush=True)
     return {"nodes": len(names), "dev_ms": dev_ms}
 
 
-def par_serve(label: str, card: str, server, texts, ranks: int) -> tuple:
+def par_serve(label: str, card: str, server, texts, ranks: int, partial: bool = False) -> tuple:
     """``server``'s graph batcher over REST (``moe_service``), the
     N_REQUESTS texts at once (``moe_requests``: every chunk and dispatch a
-    replay, the launches a rank's work times ``ranks``), then the replays
-    against the eager programs on live state. Returns (served tokens,
-    launch counts, metrics)."""
+    replay, the launches a rank's work times ``ranks``, K1's ``partial``
+    mode on a 'seq' mesh), then the replays against the eager programs on
+    live state. Returns (served tokens, launch counts, metrics)."""
     svc, httpd, url = moe_service(label, card, server, 0)
     b = svc.batcher
     try:
-        served, counts, m = moe_requests(label, card, server, url, texts, ranks=ranks)
+        served, counts, m = moe_requests(label, card, server, url, texts, ranks=ranks,
+                                         partial=partial)
     finally:
         httpd.shutdown()
         httpd.server_close()
         httpd = None
+    if b._radix is not None:
+        b._radix.clear()   # the trie's pages back to the pool
     if b.page_stats()["kv_pages_in_use"] != 0:
         fail(f"[{label}] pages still held after every request finished: {b.page_stats()}")
     svc.close()
@@ -8829,6 +8885,7 @@ def par_batcher_runs(card: str, base, texts, tree) -> tuple:
         k1 = "k1_int8" if model == "int8" else "k1"
         ratio = (counts[k1] / m["dispatches"]) / (pcounts[k1] / pm["dispatches"])
         out[model] = dict(m, tp1=pm, equal=equal, coll_prof_ms=prof_ms, coll_ev_ms=ev_ms,
+                          served_tp1=plain,
                           rank_gb=rank_bytes / 1e9, k1_ratio=ratio,
                           peak_gb=torch.cuda.max_memory_allocated() / 1e9)
         print(f"[{label}] vs tp=1 on this card: tokens equal for {equal} of {N_REQUESTS} "
@@ -8921,8 +8978,9 @@ def par_moe(card: str, texts) -> tuple:
 
 
 def par_kernel_cases(card: str, flush) -> dict:
-    """(e): K4 at every product a rank runs at tp = 2 and tp = 4 and K1 at
-    a rank's heads, both pools, each against its plain version."""
+    """(e): K4 at every product a rank runs at tp = 2 and tp = 4, K1 at a
+    rank's heads, both pools, K1's partial mode at a 'seq' rank's, and the
+    tied int8 head through K4, each against its plain version."""
     import torch
 
     out = {}
@@ -8952,11 +9010,338 @@ def par_kernel_cases(card: str, flush) -> dict:
                   f"kernel_ms {r['ms']:.4f} plain_ms {r['plain_ms']:.4f} bound_ms "
                   f"{r['bound_ms']:.4f} ({r['bound_by']}) library_ms {r['library_ms']:.4f} "
                   f"(SDPA); max_abs_err {r['err']:.3e} ({K1_TOL_REASON}) [{card}]", flush=True)
+    for kv in ("bf16", "int8"):
+        out[f"k1p seq2 rank {kv}"] = par_k1_partial_case(kv, flush)
+    out["tied llama-tiny"] = par_tied_head_case("llama-tiny", 256, 64, flush)
+    out["tied 7b-wide"] = par_tied_head_case("7B-wide", LLAMA2_7B["vocab_size"],
+                                             LLAMA2_7B["dim"], flush)
     return out
 
 
+# The paged graph batcher on the other serving meshes, (f)-(j): Llama-2-7B
+# widths and depth, the ranks on this card
+PAR_DATA_MESH = {"data": 2, "model": 2}
+PAR_SEQ_MESH = {"data": 1, "seq": 2, "model": 2}
+PAR_ADAPTERS = 3
+
+
+def par_mesh(card: str, label: str, knobs: dict, tree, axes: dict, plain, tp2: dict,
+             **server_kw) -> tuple:
+    """(f) / (g): the graph batcher over ``axes`` with ``knobs`` over REST
+    (``par_serve``: every chunk and dispatch a replay, bit-equal to the
+    eager sharded programs on live state, K1 launches a step = ranks x
+    layers, every page back); the tokens teacher-forced and equal to tp =
+    1's (``plain``) up to a near-tie; the step wall, replay device time and
+    graph nodes beside tp = 2's (``tp2``). Returns ([(label, counts)],
+    metrics)."""
+    import math
+
+    ranks = math.prod(axes.values())
+    server, rank_bytes = par_load(label, card, knobs, params=tree,
+                                  mesh=par_topology(ranks).mesh(axes), **server_kw)
+    texts = prompts(N_REQUESTS)
+    served, counts, m = par_serve(label, card, server, texts, ranks,
+                                  partial=axes.get("seq", 1) > 1)
+    teacher_check(label, card, server, texts, served)
+    equal = near_tie_check(f"{label} vs tp=1", card, server, texts, served, plain)
+    print(f"[{label}] vs tp=1: {equal} of {N_REQUESTS} equal throughout, the rest up to a "
+          f"near-tie; step wall {m['step_ms']:.2f} ms vs tp=2 {tp2['step_ms']:.2f} ms; replay "
+          f"device {m['dev_ms']:.3f} vs {tp2['dev_ms']:.3f} ms; graph kernel nodes a step "
+          f"{m['nodes']} vs {tp2['nodes']}; weights a rank {rank_bytes / 1e9:.3f} GB; KV pools "
+          f"{m['pool_gb']:.3f} GB ({server._module.page_pools()} (data, seq) pools) [{card}]",
+          flush=True)
+    del server
+    release_server_memory(workspaces=False)
+    return [(label, counts)], dict(m, equal=equal, rank_gb=rank_bytes / 1e9)
+
+
+def par_adapter_weights(names) -> dict:
+    """Random rank-LORA_RANK factors at 7B widths (``write_adapters``'
+    distributions, numpy's seeded generator), in memory."""
+    import numpy as np
+
+    from seldon_core_tpu_torch.runtime.adapters import projection_dims
+
+    rng = np.random.default_rng(25)
+    L, r = LLAMA2_7B["n_layers"], LORA_RANK
+    return {name: {proj: (rng.standard_normal((L, din, r), np.float32) / np.sqrt(din),
+                          rng.standard_normal((L, r, dout), np.float32) * LORA_B_STD)
+                   for proj, (din, dout) in projection_dims(lora_cfg()).items()}
+            for name in names}
+
+
+def par_lora(card: str, tree, tp2: dict) -> tuple:
+    """(h): PAR_ADAPTERS adapters and base traffic in one batch at tp = 1
+    and tp = 2 (the same weights and factors), over REST through the
+    adapted graph batcher: every chunk and dispatch a replay, K1 / K2
+    launches a step = ranks x layers; the tokens teacher-forced through
+    each request's adapter and tp = 2's equal to tp = 1's up to a near-tie;
+    tp = 2's replays bit-equal to the eager adapted programs on live
+    state. Returns ([(label, counts)], metrics)."""
+    import statistics
+
+    names = [f"tenant-{i}" for i in range(PAR_ADAPTERS)]
+    weights = par_adapter_weights(names)
+    texts = prompts(N_REQUESTS)
+    assign = [None if i % 4 == 3 else names[i % PAR_ADAPTERS] for i in range(N_REQUESTS)]
+    served, records, out = {}, [], {}
+    for tp in (1, PAR_TP):
+        label = f"parallel lora tp={tp}"
+        mesh_kw = {} if tp == 1 else dict(tensor_parallel=tp, topology=par_topology(tp))
+        server, _ = par_load(label, card, {}, params=tree, lora_rank=LORA_RANK,
+                             lora_max_adapters=PAR_ADAPTERS + 1, **mesh_kw)
+        for name in names:
+            server.adapter_registry.load(name, weights[name], alpha=LORA_ALPHA)
+        svc, httpd, url, _ = build_service(label, server)
+        b = svc.batcher
+        try:
+            served[tp], counts, disp, steps, _, peak, wall = lora_served_run(
+                label, card, server, url, texts, assign)
+        finally:
+            stop_service(label, server, svc, httpd)
+        check_launches(label, card, counts, [128] * N_REQUESTS, False, False, eager=False,
+                       cfg=server._cfg, ranks=tp)
+        if disp[0] == 0 or disp[1]:
+            fail(f"[{label}] decode dispatches as (replays, eager) {disp}: every dispatch must "
+                 f"be a replay")
+        ids = [0 if a is None else server.adapter_registry.resolve(a) for a in assign]
+        teacher_check(label, card, server, texts, served[tp], adapter_ids=ids)
+        m = {"step_ms": statistics.median(steps) * 1e3, "wall_s": wall, "peak_gb": peak}
+        if tp > 1:
+            records.append((label, counts))
+            m["equal"] = near_tie_check(f"{label} vs tp=1", card, server, texts, served[tp],
+                                        served[1], adapter_ids=ids)
+            m.update(par_replays(label, card, server, b, texts))
+        out[tp] = m
+        del server, svc, b
+        release_server_memory(workspaces=False)
+    m = out[PAR_TP]
+    print(f"[parallel lora tp={PAR_TP}] {PAR_ADAPTERS} adapters of rank {LORA_RANK} + base: "
+          f"{m['equal']} of {N_REQUESTS} equal to tp=1 throughout, the rest up to a near-tie; "
+          f"step wall {m['step_ms']:.2f} ms vs tp=1 adapted {out[1]['step_ms']:.2f} ms and tp=2 "
+          f"plain {tp2['step_ms']:.2f} ms; replay device {m['dev_ms']:.3f} vs tp=2 plain "
+          f"{tp2['dev_ms']:.3f} ms; graph kernel nodes a step {m['nodes']} vs {tp2['nodes']} "
+          f"[{card}]", flush=True)
+    return records, dict(m, tp1=out[1])
+
+
+def par_spec(card: str, tree, plain, tp2: dict) -> tuple:
+    """(i): n-gram speculation at tp = 2 over REST: every verify dispatch a
+    replay of the spec graph, K1 launches = verify dispatches x layers x
+    ranks (the K + 1 columns folded into rows at a rank's heads); the
+    tokens teacher-forced and equal to tp = 1's plain greedy (``plain``) up
+    to a near-tie; on live state a replay at full caps bit-equal to the
+    eager sharded spec step from identical copies. Returns ([(label,
+    counts)], metrics)."""
+    import torch
+
+    label = f"parallel spec ngram tp={PAR_TP}"
+    server, _ = par_load(label, card, {}, params=tree, tensor_parallel=PAR_TP,
+                         topology=par_topology(PAR_TP))
+    texts = prompts(N_REQUESTS)
+    b, served, launches, m = rest_serve(label, card, server, texts, spec_mode="ngram",
+                                        spec_k=SPEC_K)
+    replays, eager = m["dispatches"]
+    n = server._cfg.n_layers * PAR_TP
+    want = {"k1": replays * n, "k1_int8": 0, "k1p": 0, "k1p_int8": 0,
+            "k2": (replays + N_REQUESTS) * n, "replays": N_REQUESTS, "eager": 0}
+    if (b._graphs or b._spec_graph is None or replays == 0 or eager
+            or {k: launches[k] for k in want} != want):
+        fail(f"[{label}] verify dispatches (replays, eager) {m['dispatches']}, launches "
+             f"{launches}, expected {want}")
+    teacher_check(label, card, server, texts, served)
+    equal = near_tie_check(f"{label} vs tp=1 plain", card, server, texts, served, plain)
+    admit_now(b, texts, ahead=768)
+    prog = server._get_spec_step(b.S, SPEC_K, b.hist_len, mode="ngram", n_pages=b.n_pages)
+    b._draft_cap.fill_(SPEC_K)
+    copy = spec_state(b, pools=True)
+    out = b._spec_graph.replay().clone()
+    ref = prog(copy[0], *copy[1:4], b._temp, b._block_tables, copy[4], b._draft_cap, copy[5])
+    torch.cuda.synchronize()
+    if not (torch.equal(out, ref) and spec_equal(b, copy)):
+        fail(f"[{label}] the spec graph's replay and the eager sharded spec step differ")
+    del copy, out, ref
+    nodes = len(graph_kernel_names(b._spec_graph.graph))
+    dev_ms = events_ms(b._spec_graph.replay)
+    print(f"[{label}] accept {m['accept']:.4f}, tokens a forward {m['tokens_per_forward']:.4f}; "
+          f"{equal} of {N_REQUESTS} equal to tp=1's plain greedy throughout, the rest up to a "
+          f"near-tie; verify replay bit-equal to the eager sharded step at caps {SPEC_K}; step "
+          f"wall {m['step_ms']:.2f} ms a verify dispatch vs tp=2 plain {tp2['step_ms']:.2f} ms; "
+          f"replay device {dev_ms:.3f} vs {tp2['dev_ms']:.3f} ms; graph kernel nodes {nodes} vs "
+          f"{tp2['nodes']} [{card}]", flush=True)
+    del server, b
+    release_server_memory(workspaces=False)
+    return [(label, launches)], dict(m, equal=equal, dev_ms=dev_ms, nodes=nodes)
+
+
+def par_decode_slice(card: str, base, plain) -> tuple:
+    """(j): ``decode_devices=2`` on the tp = 1 server ``base``, disaggregated
+    (one prefill worker on this card): the decode slice names the card
+    twice and decodes on it; over REST every dispatch a replay and the
+    tokens equal to tp = 1's local batcher (``plain``) up to a near-tie;
+    the scaling snapshot counts 2 decode devices, so the autoscaler's
+    ``decide_rebalance`` moves a backlog up under the default
+    ``min_decode_devices``, and ``rebalance_disagg`` to its target serves
+    the same requests again. Returns ([(label, counts)], metrics)."""
+    import statistics
+
+    from seldon_core_tpu_torch.controlplane import autoscaler as auto
+    from seldon_core_tpu_torch.observability.timeline import scaling_snapshot
+
+    label = "parallel disagg decode_devices=2"
+    texts = prompts(N_REQUESTS)
+    base.decode_devices = 2
+    records, served = [], []
+    try:
+        svc, httpd, url, build_s = build_service(label, base, disaggregation="remote_prefill",
+                                                 prefill_workers=1)
+        b = svc.batcher
+        try:
+            for turn in (0, 1):
+                zero_counts(base)
+                base._decode_replays = base._decode_eager = 0
+                results, wall = post_all(url, texts)
+                served.append(served_tokens(label, results))
+                counts = read_counts(base)
+                disp = (base._decode_replays, base._decode_eager)
+                if disp[0] == 0 or disp[1]:
+                    fail(f"[{label}] decode dispatches as (replays, eager) {disp}")
+                records.append((f"{label} turn {turn}", counts))
+                snap = scaling_snapshot(base, batcher=b)
+                if (snap["decode_devices"], snap["prefill_devices"]) != (2, 1 + turn):
+                    fail(f"[{label}] scaling snapshot {snap}: expected 2 decode and "
+                         f"{1 + turn} prefill devices")
+                if turn == 0:
+                    step_ms = statistics.median(base._decode_step_times) * 1e3
+                    sig = [auto.ReplicaSignals.from_scaling(dict(snap, handoff_queue_depth=6))]
+                    d, _ = auto.decide_rebalance(sig, auto.AutoscalerConfig(
+                        rebalance=True, rebalance_stable_ticks=1, rebalance_cooldown_s=0.0),
+                        auto.ControllerState(), 0.0)
+                    if (d.action, d.target) != (auto.REBALANCE, 2) or not b.rebalance_disagg(
+                            d.target):
+                        fail(f"[{label}] decide_rebalance on the backlog: {d}")
+        finally:
+            stop_service(label, base, svc, httpd)
+    finally:
+        base.decode_devices = 0
+    equal = [near_tie_check(f"{label} turn {t} vs tp=1 local", card, base, texts, served[t],
+                            plain) for t in (0, 1)]
+    print(f"[{label}] decode slice of 2 (this card twice), decoding on it: built in "
+          f"{build_s:.3f} s; {equal} of {N_REQUESTS} equal to the local batcher throughout, the "
+          f"rest up to a near-tie; step wall {step_ms:.2f} ms; the snapshot's decode_devices 2 "
+          f"let decide_rebalance move the backlog up (REBALANCE to 2 prefill workers), and "
+          f"rebalance_disagg served the second turn [{card}]", flush=True)
+    return records, {"step_ms": step_ms, "equal": equal}
+
+
+def par_k1_partial_case(kv: str, flush) -> dict:
+    """K1's partial mode at a {seq 2, model 2} rank's heads (b = 8, h = kvh
+    = 16, hd 128, pages of 64, 4 a row, ctx 156; row 7 one page of 41 keys,
+    so 'seq' rank 1 holds none of it): each rank's columns through the
+    kernel, the two merged by ``softmax_merge``, held to K1's tolerance of
+    the plain version over the whole table, the empty rank's state (max
+    -FLT_MAX, sum 0) checked; rank 0's launch timed beside its plain
+    version and SDPA over its keys."""
+    import torch
+    import torch.nn.functional as F
+
+    from seldon_core_tpu_torch.models.transformer import NULL_PAGE, gather_paged_view
+    from seldon_core_tpu_torch.ops.paged_attention import (paged_attention_partial,
+                                                           paged_attention_partial_ref,
+                                                           paged_attention_ref)
+    from seldon_core_tpu_torch.parallel.collectives import softmax_merge
+
+    b, h, kvh, hd, ps, n_pages, ctx, sp = 8, 16, 16, 128, 64, 4, 124 + MAX_NEW, 2
+    q, cache, cache32, bt, positions, used = k1_inputs(b, h, kvh, hd, ps, n_pages, ctx, None,
+                                                       seed=71, kv=kv)
+    bt[7, 1:] = NULL_PAGE
+    positions[7] = 40
+    label = f"K1 partial {kv} sp={sp} b={b} h={h} kvh={kvh} ctx={ctx}"
+    tables = [bt[:, s::sp].contiguous() for s in range(sp)]
+    counter = "launches_int8" if kv == "int8" else "launches"
+    before = getattr(paged_attention_partial, counter)
+    parts = [paged_attention_partial(q, cache, tables[s], positions, sp, s) for s in range(sp)]
+    torch.cuda.synchronize()
+    if getattr(paged_attention_partial, counter) != before + sp:
+        fail(f"{label}: the wrapper did not count its launches")
+    m1, l1, acc1 = parts[1]
+    if not ((l1[7] == 0).all() and (acc1[7] == 0).all() and (m1[7] < -1e38).all()):
+        fail(f"{label}: the rank holding no page of row 7 did not write the empty state")
+    ref32 = paged_attention_ref(q.float(), cache32, bt, positions)
+    merged = softmax_merge(parts, torch.float32)[0]
+    err = k1_check(label, merged.to(torch.bfloat16), ref32)
+    t0 = tables[0]
+    ms = time_ms(lambda: paged_attention_partial(q, cache, t0, positions, sp, 0), flush)
+    plain_ms = time_ms(lambda: paged_attention_partial_ref(q, cache, t0, positions, sp, 0), flush)
+    walked = -(-used // sp)          # rank 0's pages of a full row
+    k_all, v_all, pos_view = gather_paged_view(cache, t0[:, :walked].contiguous(), q.dtype)
+    qs, ks, vs = q.transpose(1, 2), k_all.transpose(1, 2), v_all.transpose(1, 2)
+    mask = (pos_view <= positions)[:, None, None, :]
+    library_ms = time_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask),
+                         flush)
+    # rank 0's work: the keys of its pages each row attends (pages 0 and 2
+    # of a full row: 64 + 28 keys; row 7: 41), their position rows and table
+    # entries, q, the positions and the float32 state out
+    keys = (b - 1) * (ps + ctx - 2 * ps) + 41
+    kv_row = 2 * (hd + 4) if kv == "int8" else 2 * hd * 2
+    nbytes = (keys * kvh * kv_row + ((b - 1) * walked + 1) * (ps * 4 + 4) + b * h * hd * 2
+              + b * 4 + b * h * (hd + 2) * 4)
+    flops = 4 * h * keys * hd
+    bytes_s, flops_s = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S
+    print(f"{label}: rank 0 kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} bound_ms "
+          f"{max(bytes_s, flops_s) * 1e3:.4f} library_ms {library_ms:.4f} (SDPA over its keys); "
+          f"merged over {sp} ranks max_abs_err {err:.3e} ({K1_TOL_REASON}); the empty rank's "
+          f"state checked", flush=True)
+    return dict(err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=max(bytes_s, flops_s) * 1e3,
+                bound_by="bytes" if bytes_s >= flops_s else "operations")
+
+
+def par_tied_head_case(name: str, vocab: int, dim: int, flush) -> dict:
+    """The tied int8 head through K4 (``tied_int8_logits``: the transposed
+    int8 copy, the K scale folded into the activations as a bf16 head and
+    remainder, 2M rows of one launch) at M = 8, against its plain version
+    ``x.float() @ dequantize(emb).float().t()`` within K4's tolerance;
+    timed beside it and torch.matmul on a dequantized bf16 copy."""
+    import torch
+
+    from seldon_core_tpu_torch.models.transformer import tied_int8_logits, tied_int8_logits_ref
+    from seldon_core_tpu_torch.ops.int8_matmul import int8_matmul
+    from seldon_core_tpu_torch.ops.quantize import quantize_array
+
+    g = torch.Generator(device="cuda").manual_seed(vocab + dim)
+    emb = quantize_array(torch.randn((vocab, dim), generator=g, device="cuda") * 0.02)
+    head_t = (emb.q.t().contiguous(), torch.ones(vocab, dtype=torch.float32, device="cuda"))
+    x = torch.randn((8, 1, dim), generator=g, device="cuda").to(torch.bfloat16)
+    before = int8_matmul.launches
+    got = tied_int8_logits(x, emb, head_t)
+    torch.cuda.synchronize()
+    if int8_matmul.launches != before + 1:
+        fail(f"tied int8 head {name}: expected one K4 launch, {int8_matmul.launches - before}")
+    want = tied_int8_logits_ref(x, emb)
+    tol = K4_RTOL * (x.float().abs() @ (emb.q.float() * emb.scale).abs().t())
+    diff = (got - want).abs()
+    err = diff.max().item()
+    if not torch.isfinite(got).all() or (diff > tol).any():
+        fail(f"tied int8 head {name}: max_abs_err {err} beyond {K4_TOL_REASON}")
+    ms = time_ms(lambda: tied_int8_logits(x, emb, head_t), flush)
+    plain_ms = time_ms(lambda: tied_int8_logits_ref(x, emb), flush)
+    w = (emb.q.float() * emb.scale).to(torch.bfloat16).t()
+    library_ms = time_ms(lambda: x @ w, flush)
+    # the int8 codes once, the scale, x and the float32 logits
+    nbytes = vocab * dim + dim * 4 + 8 * dim * 2 + 8 * vocab * 4
+    bytes_s, flops_s = nbytes / HBM_BYTES_PER_S, 2 * 8 * vocab * dim / BF16_FLOPS_PER_S
+    print(f"tied int8 head {name} [8,{dim}] x [{dim},{vocab}] -> float32 (K4 on the transposed "
+          f"codes, 16 rows): kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} bound_ms "
+          f"{max(bytes_s, flops_s) * 1e3:.4f} library_ms {library_ms:.4f} (torch.matmul on a "
+          f"dequantized bf16 copy); max_abs_err {err:.3e} ({K4_TOL_REASON})", flush=True)
+    return dict(err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=max(bytes_s, flops_s) * 1e3,
+                bound_by="bytes" if bytes_s >= flops_s else "operations")
+
+
 def parallel_phase(card: str, base=None) -> tuple:
-    """The [parallel] phase, parts (a), (b), (c) and (e) ((d) is
+    """The [parallel] phase, parts (a), (f)-(j), (b), (c) and (e) ((d) is
     ``parallel_predict``). ``base`` is the loaded tp = 1 bf16 7B server
     (the serving phase's), else one is loaded. Returns (launch records,
     summary)."""
@@ -8972,6 +9357,21 @@ def parallel_phase(card: str, base=None) -> tuple:
     tree = base._module.param_tree()
     records, summary = [], {}
     rec, summary["batcher"] = par_batcher_runs(card, base, texts, tree)
+    records += rec
+    bf16, int8 = summary["batcher"]["bf16"], summary["batcher"]["int8"]
+    rec, summary["data2"] = par_mesh(card, "parallel bf16 data=2 model=2", {}, tree,
+                                     PAR_DATA_MESH, bf16["served_tp1"], bf16,
+                                     prefix_cache_size=8)
+    records += rec
+    rec, summary["seq2"] = par_mesh(card, "parallel int8 seq=2 model=2",
+                                    dict(quantize="int8", kv_cache_dtype="int8"), tree,
+                                    PAR_SEQ_MESH, int8["served_tp1"], int8)
+    records += rec
+    rec, summary["lora"] = par_lora(card, tree, bf16)
+    records += rec
+    rec, summary["spec"] = par_spec(card, tree, bf16["served_tp1"], bf16)
+    records += rec
+    rec, summary["slice"] = par_decode_slice(card, base, bf16["served_tp1"])
     records += rec
     rec, summary["generate"] = par_generate(card, base, texts, tree)
     records += rec
@@ -8995,6 +9395,16 @@ def parallel_phase(card: str, base=None) -> tuple:
               f"{r['tp1']['nodes']}; collectives a step {coll} (torch.profiler) "
               f"/ {r['coll_ev_ms']:.3f} ms (events); weights a rank {r['rank_gb']:.3f} GB; "
               f"peak {r['peak_gb']:.2f} GB [{card}]", flush=True)
+    for key, what in (("data2", f"bf16 {PAR_DATA_MESH}"), ("seq2", f"int8 {PAR_SEQ_MESH}"),
+                      ("lora", f"LoRA x {PAR_ADAPTERS} tp={PAR_TP}"),
+                      ("spec", f"n-gram spec tp={PAR_TP} (a verify dispatch)")):
+        r = summary[key]
+        ref = summary["batcher"]["int8" if key == "seq2" else "bf16"]
+        print(f"  parallel {what}: step wall {r['step_ms']:.2f} ms vs tp={PAR_TP} "
+              f"{ref['step_ms']:.2f} ms; replay device {r['dev_ms']:.3f} vs {ref['dev_ms']:.3f} "
+              f"ms; kernel nodes a step {r['nodes']} vs {ref['nodes']} [{card}]", flush=True)
+    print(f"  parallel decode_devices=2 (tp=1, disaggregated): step wall "
+          f"{summary['slice']['step_ms']:.2f} ms [{card}]", flush=True)
     g = summary["generate"]
     print(f"  parallel generate on {PAR_GEN_MESH}: {g['step_ms']:.2f} ms a decode step, "
           f"{g['nodes']} kernel nodes a step, weights a rank {g['rank_gb']:.3f} GB [{card}]",
@@ -9493,7 +9903,7 @@ def main() -> int:
         return sum(launches[key] for _, launches in par_records)
 
     print(f"total_s {time.perf_counter() - t_start:.1f}", flush=True)
-    print(json.dumps({"kernels": [
+    kernels = [
         entry("paged_attention", "cuda", "seldon_core_tpu_torch/csrc/paged_attention.cu",
               "seldon_core_tpu/ops/paged_attention.py:253", total("k1"),
               k1["bf16", "ctx160"]),
@@ -9522,7 +9932,15 @@ def main() -> int:
               "seldon_core_tpu/ops/pallas_int8.py:127",
               par_total("k4") - par_total("k4_wgmma"),
               par_summary["kernels"]["w1/w3 col tp=2 M=8"]),
-    ]}), flush=True)
+        entry("paged_attention partial mode (int8 pool, a 'seq' rank: 16 heads)", "cuda",
+              "seldon_core_tpu_torch/csrc/paged_attention.cu",
+              "seldon_core_tpu/ops/paged_attention.py:253", par_total("k1p_int8"),
+              par_summary["kernels"]["k1p seq2 rank int8"]),
+    ]
+    idle = [k["name"] for k in kernels if k["launches"] == 0]
+    if idle:
+        fail(f"kernels of the main path launched no time in the run: {idle}")
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

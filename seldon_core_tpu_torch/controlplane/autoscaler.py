@@ -24,10 +24,11 @@ The decisions are pure functions of (signals, config, history), equal to
 the JAX package's (action, target and reason string;
 ``tests/test_torch_autoscaler.py``); ``decide_rebalance`` is the JAX
 package's unchanged, including its ``decode_devices >
-min_decode_devices`` guard on the upward move.  The snapshot of a one-card
-disaggregated batcher reports ``decode_devices`` = 1, so with the default
-``min_decode_devices`` = 1 the upward move never fires there: a one-card
-deployment that wants it sets ``min_decode_devices=0``.
+min_decode_devices`` guard on the upward move.  The snapshot counts the
+batcher's decode slice: a one-card batcher with ``decode_devices=1``
+reports 1, so with the default ``min_decode_devices`` = 1 the upward move
+never fires there; ``decode_devices=2`` (the card named twice, decoding on
+it) reports 2 and lets it, as does ``min_decode_devices=0``.
 
 ``tick()`` checks the fleet's health first (a replica dead since the last
 tick reads as ejected in this tick's signals), decides under ``_lock``,

@@ -58,7 +58,17 @@
 //     (m = -FLT_MAX, l = its key count) counts its keys with weight 1 while
 //     no split holds a real logit, and weight 0 once one does;
 //   * one templated body for both pools: the pool type (Bf16Pool / Int8Pool)
-//     supplies the 16-byte loads, the unpacking and the per-key scales.
+//     supplies the 16-byte loads, the unpacking and the per-key scales;
+//   * partial mode, for a pool whose sequence pages are spread over 'seq'
+//     ranks (models/sharded.py): a rank's table holds global page indices
+//     offset, offset + stride, ... of each sequence, so the walk stops after
+//     the pages up to the query's page among those, none where the rank
+//     holds no page of the row (every CTA empty: m = -FLT_MAX, l = 0, which
+//     merges to nothing). Instead of bf16 out it writes each (row, head)'s
+//     unnormalised f32 accumulator and (m, l), m in natural-log units, the
+//     state the in-launch combine already holds, for
+//     parallel/collectives.softmax_merge to combine the ranks. With stride 1,
+//     offset 0 and no partial buffers the launch is the one-rank read.
 //
 // Built with nvcc into a shared library with a plain C interface and loaded
 // with ctypes (ops/_build.py); pointers and the stream arrive as void*.
@@ -74,6 +84,7 @@ namespace {
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // Asynchronous global -> shared copies (cp.async); src_size 0 writes zeros
 // and reads nothing. kL1: through L1 (.ca) or around it (.cg).
@@ -194,7 +205,10 @@ paged_attention_decode_kernel(const __nv_bfloat16* __restrict__ q,      // [b, h
                               __nv_bfloat16* __restrict__ out,          // [b, h, HD]
                               float* __restrict__ workspace,            // S > 1 only
                               unsigned int* __restrict__ counters,      // [pairs], S > 1 only
-                              int h, int kvh, int ps, int n_pages, int chunk, float scale) {
+                              float* __restrict__ part_acc,             // [b, h, HD], partial
+                              float2* __restrict__ part_ml,             // [b, h], partial
+                              int h, int kvh, int ps, int n_pages, int chunk, float scale,
+                              int stride, int offset) {
   constexpr int E = Pool::kPerVec;      // elements per lane per row
   constexpr int LPK = HD / E;           // lanes per key row
   constexpr int KPW = 32 / LPK;         // keys per warp load instruction
@@ -232,10 +246,13 @@ paged_attention_decode_kernel(const __nv_bfloat16* __restrict__ q,      // [b, h
   // Page j of a sequence holds positions [j*ps, (j+1)*ps) or PAD_POS (the
   // batcher resets a page's positions when it hands the page out), so no
   // page past the query position's page has a key to attend: stop there.
-  // At least one page is read, so a row with nothing to attend still
-  // averages V (as the reference's all-masked softmax does).
+  // Table entry i is the sequence's page offset + i * stride. Outside
+  // partial mode at least one page is read, so a row with nothing to attend
+  // still averages V (as the reference's all-masked softmax does).
   const int qp = qpos[seq];
-  const int last_page = max(1, min(n_pages, qp / ps + 1));
+  const int gp = qp / ps;
+  int last_page = gp >= offset ? min(n_pages, (gp - offset) / stride + 1) : 0;
+  if (part_acc == nullptr) last_page = max(1, last_page);
   const int n_chunks = last_page * (ps / chunk);
   const int per = (n_chunks + S - 1) / S;
   const int c0 = split * per;
@@ -468,7 +485,14 @@ paged_attention_decode_kernel(const __nv_bfloat16* __restrict__ q,      // [b, h
       }
     }
     if (S == 1) {
-      if (g < gv) out[((size_t)seq * h + head0 + g) * HD + d] = __float2bfloat16(A / L);
+      const size_t row = (size_t)seq * h + head0 + g;
+      if (g >= gv) continue;
+      if (part_acc != nullptr) {
+        part_acc[row * HD + d] = A;
+        if (d == 0) part_ml[row] = make_float2(M * kLn2, L);
+      } else {
+        out[row * HD + d] = __float2bfloat16(A / L);
+      }
     } else {
       ws.acc(pair, split)[e] = A;
       if (d == 0) ws.ml(pair, split)[g] = make_float2(M, L);
@@ -498,7 +522,13 @@ paged_attention_decode_kernel(const __nv_bfloat16* __restrict__ q,      // [b, h
       L = fmaf(ml.y, w, L);
       A = fmaf(__ldcg(ws.acc(pair, s) + e), w, A);
     }
-    out[((size_t)seq * h + head0 + g) * HD + e % HD] = __float2bfloat16(A / L);
+    const size_t row = (size_t)seq * h + head0 + g;
+    if (part_acc != nullptr) {
+      part_acc[row * HD + e % HD] = A;
+      if (e % HD == 0) part_ml[row] = make_float2(M * kLn2, L);
+    } else {
+      out[row * HD + e % HD] = __float2bfloat16(A / L);
+    }
   }
   if (tid == 0) counters[pair] = 0u;  // zero again for the next launch
 }
@@ -507,7 +537,8 @@ template <int HD, class Pool, int GT>
 cudaError_t launch(const void* q, const Pool& pool, const void* pos_pool,
                    const void* block_tables, const void* qpos, void* out, int b, int h, int kvh,
                    int ps, int n_pages, float scale, int splits, int chunk, void* workspace,
-                   void* counters, cudaStream_t stream) {
+                   void* counters, int stride, int offset, void* part_acc, void* part_ml,
+                   cudaStream_t stream) {
   constexpr int LPK = HD / Pool::kPerVec;
   using Stage = StageLayout<(32 / LPK) * kKeysPerLane, LPK * 16>;
   constexpr int kRings = kWarps * kStages * Stage::kBytes;
@@ -529,7 +560,8 @@ cudaError_t launch(const void* q, const Pool& pool, const void* pos_pool,
       static_cast<const __nv_bfloat16*>(q), pool, static_cast<const int32_t*>(pos_pool),
       static_cast<const int32_t*>(block_tables), static_cast<const int32_t*>(qpos),
       static_cast<__nv_bfloat16*>(out), static_cast<float*>(workspace),
-      static_cast<unsigned int*>(counters), h, kvh, ps, n_pages, chunk, scale);
+      static_cast<unsigned int*>(counters), static_cast<float*>(part_acc),
+      static_cast<float2*>(part_ml), h, kvh, ps, n_pages, chunk, scale, stride, offset);
   return cudaGetLastError();
 }
 
@@ -537,10 +569,12 @@ template <int HD, class Pool>
 cudaError_t launch_gt(int head_tile, const void* q, const Pool& pool, const void* pos_pool,
                       const void* block_tables, const void* qpos, void* out, int b, int h,
                       int kvh, int ps, int n_pages, float scale, int splits, int chunk,
-                      void* workspace, void* counters, cudaStream_t s) {
+                      void* workspace, void* counters, int stride, int offset, void* part_acc,
+                      void* part_ml, cudaStream_t s) {
 #define PA_LAUNCH(GT)                                                                     \
   launch<HD, Pool, GT>(q, pool, pos_pool, block_tables, qpos, out, b, h, kvh, ps, n_pages, \
-                       scale, splits, chunk, workspace, counters, s)
+                       scale, splits, chunk, workspace, counters, stride, offset, part_acc, \
+                       part_ml, s)
   switch (head_tile) {
     case 1: return PA_LAUNCH(1);
     case 2: return PA_LAUNCH(2);
@@ -553,27 +587,30 @@ cudaError_t launch_gt(int head_tile, const void* q, const Pool& pool, const void
 
 // Shapes and dtypes are checked by the Python wrapper; here only what would
 // make the launch itself wrong is rejected: an unsupported head dim or head
-// tile, a chunk that does not divide the page, S < 1, or S > 1 without a
-// workspace and counters.
+// tile, a chunk that does not divide the page, S < 1, S > 1 without a
+// workspace and counters, a stride < 1 or offset outside [0, stride), or
+// only one of the two partial outputs.
 template <class Pool>
 int launch_hd(int hd, const void* q, const Pool& pool, const void* pos_pool,
               const void* block_tables, const void* qpos, void* out, int b, int h, int kvh,
               int ps, int n_pages, float scale, int splits, int chunk, int head_tile,
-              void* workspace, void* counters, void* stream) {
+              void* workspace, void* counters, int stride, int offset, void* part_acc,
+              void* part_ml, void* stream) {
   if (kvh < 1 || h % kvh || ps < 1 || chunk < 1 || ps % chunk || splits < 1 ||
-      (splits > 1 && (workspace == nullptr || counters == nullptr)))
+      (splits > 1 && (workspace == nullptr || counters == nullptr)) || stride < 1 ||
+      offset < 0 || offset >= stride || (part_acc == nullptr) != (part_ml == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (hd) {
-    case 32:
-      return launch_gt<32>(head_tile, q, pool, pos_pool, block_tables, qpos, out, b, h, kvh, ps,
-                           n_pages, scale, splits, chunk, workspace, counters, s);
-    case 64:
-      return launch_gt<64>(head_tile, q, pool, pos_pool, block_tables, qpos, out, b, h, kvh, ps,
-                           n_pages, scale, splits, chunk, workspace, counters, s);
-    case 128:
-      return launch_gt<128>(head_tile, q, pool, pos_pool, block_tables, qpos, out, b, h, kvh,
-                            ps, n_pages, scale, splits, chunk, workspace, counters, s);
+#define PA_HD(HD)                                                                           \
+  case HD:                                                                                  \
+    return launch_gt<HD>(head_tile, q, pool, pos_pool, block_tables, qpos, out, b, h, kvh, ps, \
+                         n_pages, scale, splits, chunk, workspace, counters, stride, offset,  \
+                         part_acc, part_ml, s);
+    PA_HD(32)
+    PA_HD(64)
+    PA_HD(128)
+#undef PA_HD
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -586,17 +623,22 @@ int launch_hd(int hd, const void* q, const Pool& pool, const void* pos_pool,
 // chunk (divides ps); head_tile: query heads per CTA (1, 2, 4 or 8);
 // workspace: pairs * S * head_tile * (hd + 2) floats and counters: pairs
 // zeroed uint32 (pairs = b * kvh * ceil(h / kvh / head_tile)), both unused
-// when S == 1.
+// when S == 1. stride / offset: the global page indices a table entry
+// names (1 / 0 for a whole table); part_acc ([b, h, hd] f32) and part_ml
+// ([b, h] float2: m, l): the partial mode's outputs, out unused (both null:
+// the bf16 out).
 extern "C" int paged_attention_decode_bf16(const void* q, const void* k_pool, const void* v_pool,
                                            const void* pos_pool, const void* block_tables,
                                            const void* qpos, void* out, int b, int h, int kvh,
                                            int hd, int ps, int n_pages, float scale, int splits,
                                            int chunk, int head_tile, void* workspace,
-                                           void* counters, void* stream) {
+                                           void* counters, int stride, int offset, void* part_acc,
+                                           void* part_ml, void* stream) {
   const Bf16Pool pool{static_cast<const __nv_bfloat16*>(k_pool),
                       static_cast<const __nv_bfloat16*>(v_pool)};
   return launch_hd(hd, q, pool, pos_pool, block_tables, qpos, out, b, h, kvh, ps, n_pages, scale,
-                   splits, chunk, head_tile, workspace, counters, stream);
+                   splits, chunk, head_tile, workspace, counters, stride, offset, part_acc,
+                   part_ml, stream);
 }
 
 extern "C" int paged_attention_decode_int8(const void* q, const void* k_pool, const void* k_scale,
@@ -605,9 +647,11 @@ extern "C" int paged_attention_decode_int8(const void* q, const void* k_pool, co
                                            const void* qpos, void* out, int b, int h, int kvh,
                                            int hd, int ps, int n_pages, float scale, int splits,
                                            int chunk, int head_tile, void* workspace,
-                                           void* counters, void* stream) {
+                                           void* counters, int stride, int offset, void* part_acc,
+                                           void* part_ml, void* stream) {
   const Int8Pool pool{static_cast<const int8_t*>(k_pool), static_cast<const float*>(k_scale),
                       static_cast<const int8_t*>(v_pool), static_cast<const float*>(v_scale)};
   return launch_hd(hd, q, pool, pos_pool, block_tables, qpos, out, b, h, kvh, ps, n_pages, scale,
-                   splits, chunk, head_tile, workspace, counters, stream);
+                   splits, chunk, head_tile, workspace, counters, stride, offset, part_acc,
+                   part_ml, stream);
 }

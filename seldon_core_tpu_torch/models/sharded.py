@@ -34,25 +34,50 @@ the sums of ``parallel/collectives.py`` between them:
 Caches: the model makes its own (``init_caches``, the call
 ``Transformer`` answers with one set): a ``RankCaches``, a flat list of
 one layer tuple a (rank, layer), rank-major, so code that walks "every
-layer tuple" (a reset, a page copy, a byte count) walks every rank's, plus
-the global ``lead`` (rows, positions). Paged pools split only their KV
-heads.
+layer tuple" (a byte count) walks every rank's, plus the global ``lead``
+(rows, positions) or (pages, page_size).
+
+Paged pools (the batcher's): each (data, seq) rank pair owns a pool of its
+own pages (its 'model' ranks hold their KV heads of it), and the pages
+share ONE id space partitioned by pool: pool p = data * sp + seq holds the
+global ids ``RESERVED_PAGES + p * cap ..`` (cap = a pool's pages less the
+reserved ones), at local ids ``RESERVED_PAGES ..``; NULL_PAGE and
+TRASH_PAGE are every pool's own. The batcher's block table names global
+ids; a data rank's slots take pages of its pools only, and a sequence's
+page j lies on seq rank ``j mod sp`` (round robin: page growth adds one
+page to one rank). The forward cuts one table a rank from it
+(``rank_tables``: the rank's rows, its columns ``seq::sp``, ids made
+local, another pool's page TRASH_PAGE), and code that writes a pool
+directly asks ``pool_ranks``. Under 'seq' each rank writes the tokens of
+its pages and attends over them (a decode or a verify through K1's
+partial mode, a chunk through the gathered view), and the ranks merge by
+log-sum-exp. A batch 'data' does not divide (the one-row prefill chunk)
+runs on every data rank, the others' writes land in their TRASH_PAGE,
+and each row's logits come from the rank that owns its first page.
+
+LoRA (``adapters``, the pool of ``runtime/adapters.py``): each rank reads
+views of the one pool, so a row written in place reaches every rank.
+On a column-parallel projection (q, w1, w3) a rank adds ``x A B[:, its
+columns]``; on a row-parallel one (o, w2) it adds ``x_r A[its rows] B``,
+a share of the delta, so the delta enters the float32 all-reduce once.
 
 Not here (ROADMAP Queue A 9b): ranks on distinct devices (their
-transport), LoRA adapters and the speculative verify over a mesh.
+transport).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
 
 from seldon_core_tpu_torch.models.transformer import (
-    Transformer, TransformerConfig, attention_logits, cache_values, dense_view, init_kv_caches,
-    init_paged_kv_caches, write_dense)
+    PAD_POS, RESERVED_PAGES, TRASH_PAGE, Transformer, TransformerConfig, attention_logits,
+    cache_values, dense_view, gather_paged_view, init_kv_caches, init_paged_kv_caches,
+    paged_write_targets, write_dense)
 from seldon_core_tpu_torch.ops.quantize import QuantizedTensor, dequantize_array
 from seldon_core_tpu_torch.parallel import collectives
 from seldon_core_tpu_torch.parallel.sharding import DEFAULT_LOGICAL_RULES, shard_params
@@ -132,16 +157,23 @@ class ShardedTransformer(nn.Module):
         self.rank_trees = shard_params(model.leaves(), mesh, model.logical_axes(), rules,
                                        units={"heads": hd, "kv_heads": hd})
         specs = self.rank_trees.specs
-        self.heads_split = specs["layer_0.attention.wq"][1] is not None
+
+        def cut(name: str, dim: int) -> bool:
+            # the leaf's dim splits over axes of more than one rank
+            axes = specs[name][dim]
+            axes = (axes,) if isinstance(axes, str) else tuple(axes or ())
+            return math.prod(mesh.axis_size(a) for a in axes) > 1
+
+        self.heads_split = cut("layer_0.attention.wq", 1)
         h_l, kvh_l, split_h, split_kv = head_layout(cfg, mesh)
-        if self.heads_split != split_h or (specs["layer_0.attention.wk"][1] is not None) != split_kv:
+        if self.heads_split != split_h or cut("layer_0.attention.wk", 1) != split_kv:
             raise ValueError("custom sharding rules that split the query and KV heads "
                              "differently from the default rules are not supported")
-        self.vocab_split = specs["tok_embeddings"][0] is not None
-        self.mlp_split = specs[f"layer_0.{'moe' if cfg.n_experts else 'ffn'}.w2"][
-            1 if cfg.n_experts else 0] is not None
-        self.expert_split = cfg.n_experts > 0 and specs["layer_0.moe.w1"][0] is not None
-        self.router_split = cfg.n_experts > 0 and specs["layer_0.moe.router"][1] is not None
+        self.vocab_split = cut("tok_embeddings", 0)
+        self.mlp_split = cut(f"layer_0.{'moe' if cfg.n_experts else 'ffn'}.w2",
+                             1 if cfg.n_experts else 0)
+        self.expert_split = cfg.n_experts > 0 and cut("layer_0.moe.w1", 0)
+        self.router_split = cfg.n_experts > 0 and cut("layer_0.moe.router", 1)
         tp, ep = mesh.axis_size("model"), mesh.axis_size("expert")
         local = dataclasses.replace(
             cfg, mesh=None, attn_head_dim=hd, n_heads=h_l, n_kv_heads=kvh_l,
@@ -189,12 +221,120 @@ class ShardedTransformer(nn.Module):
                                      n_heads=self.local_cfg.n_kv_heads,
                                      attn_head_dim=self.cfg.head_dim)
         init = init_paged_kv_caches if paged else init_kv_caches
-        local = tuple(lead) if paged else self.cache_share(lead)
+        local = self.pool_share(lead) if paged else self.cache_share(lead)
         out: List[tuple] = []
         for dev in self.mesh.rank_devices():
             out += init(kv_cfg, *local, kv_cache_dtype,
                         device=device if device is not None else dev)
         return RankCaches(out, lead)
+
+    def page_pools(self) -> int:
+        """The paged pools the mesh holds: one a (data, seq) rank pair."""
+        return self.mesh.axis_size("data") * self.mesh.axis_size("seq")
+
+    def pool_share(self, lead: Tuple[int, int]) -> Tuple[int, int]:
+        """A rank's pool of the global (pages, page_size) ``lead``: the
+        pages past the reserved ones split evenly over ``page_pools()``."""
+        pages, ps = lead
+        n = self.page_pools()
+        if (pages - RESERVED_PAGES) % n:
+            raise ValueError(f"a paged pool of {pages} pages does not split into {n} (data, seq) "
+                             f"pools of equal size beyond the {RESERVED_PAGES} reserved pages")
+        return (pages - RESERVED_PAGES) // n + RESERVED_PAGES, ps
+
+    def _pool(self, r: int) -> int:
+        c = self.mesh.coords(r)
+        return c.get("data", 0) * self.mesh.axis_size("seq") + c.get("seq", 0)
+
+    @staticmethod
+    def _cap(caches) -> int:
+        return caches[0][-1].shape[0] - RESERVED_PAGES
+
+    def local_pages(self, r: int, pages: torch.Tensor, cap: int) -> torch.Tensor:
+        """Rank ``r``'s ids of the global page ids ``pages`` (pools of
+        ``cap`` pages past the reserved ones): its own pool's pages at local
+        ids, NULL_PAGE and TRASH_PAGE as they are, any other pool's page
+        TRASH_PAGE. One pool: ``pages`` itself."""
+        if self.page_pools() == 1:
+            return pages
+        local = pages - self._pool(r) * cap
+        mine = (local >= RESERVED_PAGES) & (local < RESERVED_PAGES + cap)
+        return torch.where(mine, local,
+                           torch.where(pages < RESERVED_PAGES, pages, TRASH_PAGE).to(pages.dtype))
+
+    def pool_ranks(self, caches, pages: torch.Tensor):
+        """[(layer tuples, page ids)] (``Transformer.pool_ranks``): every
+        rank's layers with its ids of ``pages``; one pool: all of them at
+        ``pages``."""
+        if self.page_pools() == 1:
+            return [(caches, pages)]
+        L, cap = self.cfg.n_layers, self._cap(caches)
+        return [(caches[r * L:(r + 1) * L], self.local_pages(r, pages, cap))
+                for r in range(self.mesh.size)]
+
+    def rank_tables(self, block_tables: torch.Tensor, caches, rows) -> List[torch.Tensor]:
+        """Each rank's block table: its ``rows`` of the global table, under
+        'seq' its columns ``seq::sp``, at its local ids (``local_pages``)."""
+        sp, cap = self.mesh.axis_size("seq"), self._cap(caches)
+        out = []
+        for r, sl in enumerate(rows):
+            t = block_tables[sl]
+            if sp > 1:
+                t = t[:, self.mesh.coords(r)["seq"]::sp]
+            t = self.local_pages(r, t, cap)
+            out.append(t if t.is_contiguous() else t.contiguous())
+        return out
+
+    def _owner_rows(self, block_tables: torch.Tensor, caches) -> torch.Tensor:
+        """[b] the data rank owning each row: the one whose pools hold its
+        first page."""
+        first = block_tables[:, 0].long() - RESERVED_PAGES
+        per_data = self._cap(caches) * self.mesh.axis_size("seq")
+        return torch.div(first.clamp(min=0), per_data, rounding_mode="floor")
+
+    def _rank_adapters(self, adapters) -> List[Optional[dict]]:
+        """Each rank's views of the LoRA pool (module docstring): B's
+        columns of a column-parallel projection, A's rows of a row-parallel
+        one, where 'model' splits the base weight."""
+        R = self.mesh.size
+        if adapters is None:
+            return [None] * R
+        hd, tp = self.cfg.head_dim, self.mesh.axis_size("model")
+        width = {"wq": hd * self.local_cfg.n_heads if self.heads_split else 0,
+                 "wo": hd * self.local_cfg.n_heads if self.heads_split else 0,
+                 "w1": self.local_cfg.ffn_dim if self.mlp_split else 0,
+                 "w2": self.local_cfg.ffn_dim if self.mlp_split else 0}
+        width["w3"] = width["w1"]
+        out = []
+        for r in range(R):
+            m = self.mesh.coords(r).get("model", 0)
+            view = {"scale": adapters["scale"]}
+            for proj, ab in adapters.items():
+                if proj == "scale":
+                    continue
+                A, B = ab
+                w = width.get(proj, 0)
+                if w and tp > 1 and proj in ("wo", "w2"):
+                    A = A[:, :, m * w:(m + 1) * w]
+                elif w and tp > 1:
+                    B = B[..., m * w:(m + 1) * w]
+                view[proj] = (A, B)
+            out.append(view)
+        return out
+
+    @staticmethod
+    def _layer_adapters(view: Optional[dict], i: int) -> Optional[dict]:
+        if view is None:
+            return None
+        out = {proj: (ab[0][:, i], ab[1][:, i]) for proj, ab in view.items() if proj != "scale"}
+        out["scale"] = view["scale"]
+        return out
+
+    def prepare_head_(self) -> "ShardedTransformer":
+        """Every rank's ``Transformer.prepare_head_``."""
+        for module in self.ranks:
+            module.prepare_head_()
+        return self
 
     def cache_share(self, lead: Tuple[int, int]) -> Tuple[int, int]:
         """A rank's share of a dense cache's (rows, positions): rows over
@@ -259,12 +399,11 @@ class ShardedTransformer(nn.Module):
     def forward(self, tokens, positions=None, caches=None, cache_index=None,
                 block_tables=None, adapters=None, adapter_ids=None, verify=False):
         """``Transformer.forward`` over the mesh: tokens [b, s]; ``caches``
-        a ``RankCaches`` (updated in place); returns (logits [b, s, vocab]
-        float32, caches)."""
-        if adapters is not None or adapter_ids is not None or verify:
-            raise NotImplementedError(
-                "LoRA adapters and the speculative verify over a mesh arrive with "
-                "ROADMAP Queue A 9b")
+        a ``RankCaches`` (updated in place), ``block_tables`` the global
+        table of a paged pool (module docstring); returns (logits [b, s,
+        vocab] float32, caches)."""
+        if adapters is not None and adapter_ids is None:
+            raise ValueError("adapters need adapter_ids (one id per sequence; 0 = identity)")
         cfg, mesh, L = self.cfg, self.mesh, self.cfg.n_layers
         R = mesh.size
         b, s = tokens.shape
@@ -273,27 +412,48 @@ class ShardedTransformer(nn.Module):
         if caches is not None and len(caches) != R * L:
             raise ValueError(f"sharded forward: {len(caches)} cache tuples for {R} ranks x "
                              f"{L} layers")
-        seq_split = (caches is not None and block_tables is None
-                     and mesh.axis_size("seq") > 1
-                     and caches[0][-1].shape[1] * mesh.axis_size("seq") == caches.lead[1])
+        if verify and (block_tables is None or caches is None):
+            raise ValueError("verify=True reads a paged pool: pass caches and block_tables")
+        sp = mesh.axis_size("seq")
+        seq_split = (caches is not None and block_tables is None and sp > 1
+                     and caches[0][-1].shape[1] * sp == caches.lead[1])
         rows = [self._rows(r, b) for r in range(R)]
         tok = [tokens[sl] for sl in rows]
         pos = [positions[sl] for sl in rows]
-        tables = [None if block_tables is None else block_tables[sl] for sl in rows]
+        tables = ([None] * R if block_tables is None
+                  else self.rank_tables(block_tables, caches, rows))
+        folded = [None] * R
+        if verify:
+            # Transformer.forward's fold: each column a row of its own, a
+            # PAD_POS column attending at its sequence's last real position
+            real = positions != PAD_POS
+            last = torch.where(real, positions, torch.zeros_like(positions)).amax(
+                dim=1, keepdim=True)
+            qpos = torch.where(real, positions, last)
+            folded = [(tables[r].repeat_interleave(s, dim=0), qpos[rows[r]].reshape(-1, 1))
+                      for r in range(R)]
         index = [cache_index[sl] if torch.is_tensor(cache_index) and cache_index.dim() == 1
                  else cache_index for sl in rows]
+        ids = [None if adapter_ids is None else adapter_ids[sl] for sl in rows]
+        views = self._rank_adapters(adapters)
         xs = [self._embed(r, tok[r]) for r in range(R)]
         if self.vocab_split:
             xs = self._reduce(xs, ("model",))
         for i in range(L):
             layers = [self.ranks[r].layers()[i] for r in range(R)]
+            la = [self._layer_adapters(views[r], i) for r in range(R)]
             normed = [layers[r].attention_norm(xs[r]) for r in range(R)]
             if seq_split:
-                hs = self._seq_attention(i, layers, normed, pos, caches, index)
+                hs = self._seq_attention(i, layers, normed, pos, caches, index, la, ids)
+            elif block_tables is not None and sp > 1:
+                hs = self._paged_seq_attention(i, layers, normed, pos, caches, tables, folded,
+                                               la, ids)
             else:
                 hs = [layers[r].attention(normed[r], pos[r],
                                           None if caches is None else caches[r * L + i],
-                                          index[r], tables[r])[0] for r in range(R)]
+                                          index[r], tables[r], adapters=la[r],
+                                          adapter_ids=ids[r], paged_rows=folded[r])[0]
+                      for r in range(R)]
             hs = self._reduce(hs, ("model",) if self.heads_split else ())
             ffn_in = []
             for r in range(R):
@@ -309,19 +469,30 @@ class ShardedTransformer(nn.Module):
             if cfg.n_experts > 0:
                 fs = self._moe(layers, ffn_in)
             else:
-                fs = [layers[r].ffn(ffn_in[r]) for r in range(R)]
+                fs = [layers[r].ffn(ffn_in[r], la[r], ids[r]) for r in range(R)]
             fs = self._reduce(fs, (("model",) if self.mlp_split else ())
                               + (("expert",) if self.expert_split else ()))
             xs = [xs[r] + fs[r] for r in range(R)]
         logits = [self.ranks[r]._logits(self.ranks[r].norm(xs[r])) for r in range(R)]
         if self.vocab_split:
             logits = self._gather(logits, ("model",))
-        firsts = {}
+        firsts: Dict[Optional[int], int] = {}
         for r in range(R):
             firsts.setdefault(rows[r].start, r)
-        if len(firsts) == 1:
+        if len(firsts) > 1:
+            return torch.cat([logits[r] for _, r in sorted(firsts.items())], dim=0), caches
+        dp = mesh.axis_size("data")
+        if block_tables is None or dp == 1:
             return logits[0], caches
-        return torch.cat([logits[r] for _, r in sorted(firsts.items())], dim=0), caches
+        # rows every data rank ran over its own pools: each row's logits
+        # from the rank owning its pages
+        owner = self._owner_rows(block_tables, caches)[:, None, None]
+        out = logits[0]
+        for r in range(R):
+            d = mesh.coords(r).get("data", 0)
+            if d and all(mesh.coords(q).get("data", 0) != d for q in range(r)):
+                out = torch.where(owner == d, logits[r], out)
+        return out, caches
 
     def _moe(self, layers, ffn_in: List[torch.Tensor]) -> List[torch.Tensor]:
         """Each rank's MoE partial: the router's logits (gathered over
@@ -353,7 +524,8 @@ class ShardedTransformer(nn.Module):
             out.append(layers[r].moe.combine(ffn_in[r], gates))
         return out
 
-    def _seq_attention(self, i: int, layers, normed, pos, caches, index) -> List[torch.Tensor]:
+    def _seq_attention(self, i: int, layers, normed, pos, caches, index, la,
+                       ids) -> List[torch.Tensor]:
         """Attention over a dense cache whose positions split over 'seq':
         every rank projects its heads and writes the tokens whose cache slot
         lies in its range (``write_dense`` with the range), attends over its
@@ -363,18 +535,58 @@ class ShardedTransformer(nn.Module):
         parts = []
         for r in range(R):
             att, p, cache = layers[r].attention, pos[r], caches[r * L + i]
-            q, k, v = att.project(normed[r], p)
+            q, k, v = att.project(normed[r], p, la[r], ids[r])
             span = cache[-1].shape[1]
             write_dense(cache, cache_values(cache, k, v, p), index[r],
                         lo=mesh.coords(r)["seq"] * span, total=caches.lead[1])
             logits, v_all = attention_logits(q, *dense_view(cache, dt),
                                              cache[-1][:, None, :] <= p[:, :, None])
             parts.append(collectives.softmax_partial(logits, v_all))
+        return self._merge_seq(layers, parts, la, ids)
+
+    def _merge_seq(self, layers, parts, la, ids) -> List[torch.Tensor]:
+        """The 'seq' ranks' (max, sum, acc) merged by log-sum-exp, then
+        ``wo`` on each rank."""
+        R, dt = self.mesh.size, self.local_cfg.dtype
         outs: List[Optional[torch.Tensor]] = [None] * R
-        for group in mesh.groups(("seq",)):
+        for group in self.mesh.groups(("seq",)):
             for r, o in zip(group, collectives.softmax_merge([parts[r] for r in group], dt)):
                 outs[r] = o
-        return [layers[r].attention.output(outs[r].flatten(2)) for r in range(R)]
+        return [layers[r].attention.output(outs[r].flatten(2), la[r], ids[r]) for r in range(R)]
+
+    def _paged_seq_attention(self, i: int, layers, normed, pos, caches, tables, folded, la,
+                             ids) -> List[torch.Tensor]:
+        """Attention over a paged pool whose sequences' pages spread over
+        'seq' (module docstring): every rank projects its heads, writes the
+        tokens of its own pages, and takes its share of the softmax: a
+        decode step (s = 1) or a verify (its columns ``folded`` into rows)
+        through K1's partial mode, a chunk through the gathered view of its
+        pages; then the ranks merge."""
+        from seldon_core_tpu_torch.ops.paged_attention import paged_attention_partial
+
+        mesh, L, R = self.mesh, self.cfg.n_layers, self.mesh.size
+        sp, dt = mesh.axis_size("seq"), self.local_cfg.dtype
+        parts = []
+        for r in range(R):
+            att, p, cache, table = layers[r].attention, pos[r], caches[r * L + i], tables[r]
+            seq = mesh.coords(r)["seq"]
+            q, k, v = att.project(normed[r], p, la[r], ids[r])
+            entry, off = paged_write_targets(table, p, cache[0].shape[1], sp, seq)
+            for buf, val in zip(cache, cache_values(cache, k, v, p)):
+                buf[entry, off] = val.to(buf.dtype)
+            b, s, h, hd = q.shape
+            if folded[r] is not None:
+                m, l, acc = paged_attention_partial(q.reshape(b * s, 1, h, hd), cache,
+                                                    *folded[r], sp, seq)
+                parts.append((m.reshape(b, s, h).transpose(1, 2),
+                              l.reshape(b, s, h).transpose(1, 2), acc.reshape(b, s, h, hd)))
+            elif s == 1:
+                parts.append(paged_attention_partial(q, cache, table, p, sp, seq))
+            else:
+                k_all, v_all, pos_view = gather_paged_view(cache, table, dt)
+                parts.append(collectives.softmax_partial(*attention_logits(
+                    q, k_all, v_all, pos_view[:, None, :] <= p[:, :, None])))
+        return self._merge_seq(layers, parts, la, ids)
 
     # ------------------------------------------------------------------
     def weight_bytes(self) -> List[int]:

@@ -250,19 +250,27 @@ class RMSNorm(nn.Module):
 
 
 def paged_write_targets(block_tables: torch.Tensor, positions: torch.Tensor,
-                        page_size: int) -> Tuple[torch.Tensor, torch.Tensor]:
+                        page_size: int, stride: int = 1,
+                        offset: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
     """(page, offset) pool coordinates for writing each token's KV.
 
     ``block_tables``: [b, n_pages] page ids; ``positions``: [b, s] absolute
     token positions (PAD_POS for padding). Tokens whose position falls past
     the table, or whose table entry is NULL_PAGE, are redirected to
     TRASH_PAGE: the null page's PAD_POS position row is an invariant no
-    write may break. Returns int64 index tensors."""
+    write may break. ``stride`` / ``offset``: the table of one 'seq' rank
+    (``models/sharded.py``), whose entry i is the sequence's page ``offset
+    + i * stride``; a token on another rank's page goes to TRASH_PAGE.
+    Returns int64 index tensors."""
     p = positions.long()
     bt = block_tables.long()
     n_pages = bt.shape[1]
     page_idx = torch.div(p, page_size, rounding_mode="floor")
-    valid = (p >= 0) & (page_idx < n_pages)
+    valid = p >= 0
+    if stride > 1:
+        valid = valid & (torch.remainder(page_idx, stride) == offset)
+        page_idx = torch.div(page_idx, stride, rounding_mode="floor")
+    valid = valid & (page_idx < n_pages)
     entry = torch.gather(bt, 1, page_idx.clamp(0, n_pages - 1))
     entry = torch.where(valid & (entry != NULL_PAGE), entry,
                         torch.full_like(entry, TRASH_PAGE))
@@ -313,6 +321,38 @@ def matmul(x: torch.Tensor, w, dtype: torch.dtype) -> torch.Tensor:
     if isinstance(w, QuantizedTensor):
         return quantized_matmul(x, w, dtype)
     return x.to(dtype) @ w.to(dtype)
+
+
+def tied_int8_logits_ref(x: torch.Tensor, emb: QuantizedTensor) -> torch.Tensor:
+    """Plain version of a tied head over int8 embeddings ``emb`` [vocab,
+    dim] (scale [dim], on K of the head): float32 ``x.float() @
+    dequantize(emb).float().t()``."""
+    return x.float() @ dequantize_array(emb).float().t()
+
+
+def tied_int8_logits(x: torch.Tensor, emb: QuantizedTensor, head_t) -> torch.Tensor:
+    """float32 logits of a tied head over int8 embeddings. The head is
+    ``[dim, vocab]`` with its scale on K, which K4 (one scale a column of
+    N) does not take, so the card reads ``head_t``: the transposed int8
+    codes [dim, vocab] and a scale of ones [vocab] (``Transformer.
+    prepare_head_``), with the K scale folded into the activations. ``x *
+    scale`` in float32 is split into a bf16 head and the bf16 rounding of
+    its remainder, both as rows of one K4 launch (2M rows, float32 out),
+    and the two halves summed: the products keep about 16 bits of the
+    float32 ``x * scale``, inside K4's float32 summation tolerance of the
+    plain version. CPU tensors take ``tied_int8_logits_ref``."""
+    if x.device.type == "cpu":
+        return tied_int8_logits_ref(x, emb)
+    if head_t is None:
+        raise RuntimeError("a tied int8 head on the card reads the transposed copy "
+                           "Transformer.prepare_head_() makes once the weights are in")
+    lead = x.shape[:-1]
+    xs = x.reshape(-1, x.shape[-1]).float() * emb.scale.float()
+    hi = xs.to(torch.bfloat16)
+    lo = (xs - hi.float()).to(torch.bfloat16)
+    m = hi.shape[0]
+    out = k4.int8_matmul(torch.cat([hi, lo]), head_t[0], head_t[1], torch.float32)
+    return (out[:m] + out[m:]).reshape(*lead, -1)
 
 
 def _partial_dtype(cfg: TransformerConfig, w) -> torch.dtype:
@@ -761,6 +801,14 @@ class Transformer(nn.Module):
         """The (rows, positions) or (pages, page_size) ``caches`` cover."""
         return tuple(caches[0][-1].shape)
 
+    @staticmethod
+    def pool_ranks(caches, pages: torch.Tensor):
+        """[(layer tuples, page ids)]: where the pool's pages ``pages`` (an
+        int tensor of any shape) lie, for code that writes the pool directly
+        (a page reset, a copy-on-write copy, the verify's reject repair):
+        here the one pool at the same ids."""
+        return [(caches, pages)]
+
     def param_tree(self) -> Dict[str, Any]:
         """The float parameters as flax's nested ``params`` dict of tensors
         (the layout ``export_checkpoint`` writes and ``params_from_jax``
@@ -848,22 +896,26 @@ class Transformer(nn.Module):
             return rows.to(self.cfg.dtype)
         return F.embedding(tokens.long(), emb).to(self.cfg.dtype)
 
+    @torch.no_grad()
+    def prepare_head_(self) -> "Transformer":
+        """A tied head over int8 embeddings: make the transposed int8 copy
+        its card route reads (``tied_int8_logits``), once the weights are
+        in (``LLMServer.load``). A plain attribute, not a buffer: the
+        state dict stays the weights'. Anything else: nothing to do."""
+        emb = self.tok_embeddings
+        if self.cfg.tie_embeddings and isinstance(emb, QuantizedTensor):
+            self._head_t = (emb.q.t().contiguous(),
+                            torch.ones(emb.q.shape[0], dtype=torch.float32, device=emb.q.device))
+        return self
+
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
-        """float32 logits ``x.float() @ head``. A tied head over int8
-        embeddings is ``[dim, vocab]`` with its scale on K (one per
-        embedding column), which the int8 GEMM kernel (scale per output
-        column) does not take: the CPU computes the plain product, a card
-        raises."""
+        """float32 logits ``x.float() @ head``; a tied head over int8
+        embeddings through ``tied_int8_logits``."""
         if not self.cfg.tie_embeddings:
             return matmul(x, self.lm_head, torch.float32)
         emb = self.tok_embeddings
         if isinstance(emb, QuantizedTensor):
-            if x.device.type != "cpu":
-                raise NotImplementedError(
-                    "a tied lm_head over int8 embeddings has its scale on K, which the "
-                    "int8 GEMM kernel (scale per output column) does not take; serve an "
-                    "untied model with quantize='int8' on the card")
-            emb = dequantize_array(emb)
+            return tied_int8_logits(x, emb, getattr(self, "_head_t", None))
         return x.float() @ emb.float().t()
 
     def forward(self, tokens, positions=None, caches=None, cache_index=None,
@@ -1060,7 +1112,8 @@ __all__ = [
     "DenseFFN", "MoEFFN", "route", "RMSNorm", "rms_norm", "rotary_embedding", "apply_rotary",
     "paged_write_targets", "gather_paged_view", "dense_view", "attention_logits",
     "masked_attention", "cache_values", "write_dense",
-    "matmul", "lora_delta", "quantize_kv", "dequantize_kv",
+    "matmul", "lora_delta", "quantize_kv", "dequantize_kv", "tied_int8_logits",
+    "tied_int8_logits_ref",
     "init_kv_caches", "init_paged_kv_caches", "reset_kv_caches", "kv_cache_bytes_per_token",
     "normalize_kv_cache_dtype", "normalize_kv_cache_layout", "to_torch_dtype",
 ]

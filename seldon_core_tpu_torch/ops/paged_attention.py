@@ -30,6 +30,17 @@ different reduction order; the plain version dequantizes an int8 pool in the
 model dtype, as the JAX package's gather does); the port's paged == dense
 bit-exactness on the CPU is carried by the plain version, which is the dense
 read on gathered bytes.
+
+Partial mode (``paged_attention_partial``): a pool of one 'seq' rank of a
+sharded model (``models/sharded.py``) holds pages ``offset, offset +
+stride, ...`` of each sequence (round robin over the ranks), and its table
+names only those. The same kernel, launched with the rank's (stride,
+offset), stops its walk after the rank's pages up to the query's page and
+writes, in place of the bf16 output, each (row, head)'s float32
+unnormalised accumulator with its running max and sum: the state
+``parallel/collectives.softmax_merge`` combines over the ranks. A rank
+holding no page of a row writes max = -FLT_MAX, sum 0, and merges to
+nothing.
 """
 
 from __future__ import annotations
@@ -66,6 +77,24 @@ def paged_attention_ref(q, cache, block_tables, positions):
     k_all, v_all, pos_view = gather_paged_view(cache, block_tables, q.dtype)
     mask = pos_view[:, None, :] <= positions[:, :, None]
     return masked_attention(q, k_all, v_all, mask)
+
+
+def paged_attention_partial_ref(q, cache, block_tables, positions, stride: int = 1,
+                                offset: int = 0):
+    """Plain version of the partial mode: the rank's logical view gathered
+    through its table (``gather_paged_view``), the masked float32 logits
+    (``attention_logits``) and their (max [b, h, 1], sum [b, h, 1], acc [b,
+    1, h, hd]) by ``collectives.softmax_partial``, all float32. It reads
+    every table entry (``stride`` and ``offset`` only let the kernel stop
+    early: entries past the query's page hold later positions or PAD_POS,
+    which the mask drops)."""
+    from seldon_core_tpu_torch.models.transformer import attention_logits, gather_paged_view
+    from seldon_core_tpu_torch.parallel.collectives import softmax_partial
+
+    del stride, offset
+    k_all, v_all, pos_view = gather_paged_view(cache, block_tables, q.dtype)
+    logits, v_rep = attention_logits(q, k_all, v_all, pos_view[:, None, :] <= positions[:, :, None])
+    return softmax_partial(logits, v_rep)
 
 
 def _chunk_keys(ps: int) -> int:
@@ -106,7 +135,8 @@ def _kernel_fn(quantized: bool):
         fn = (lib.paged_attention_decode_int8 if quantized
               else lib.paged_attention_decode_bf16)
         fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 6 + [ctypes.c_float]
-                       + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3)
+                       + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
+                       + [ctypes.c_void_p] * 3)
         fn.restype = ctypes.c_int
         fns[quantized] = fn
     return fns[quantized]
@@ -212,6 +242,46 @@ def paged_attention(q, cache, block_tables, positions, *, _splits: Optional[int]
         return paged_attention_ref(q, cache, block_tables, positions)
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention: unsupported device {q.device}")
+    out = torch.empty((b, h, hd), dtype=q.dtype, device=q.device)
+    _launch(q, cache, block_tables, positions, _splits, 1, 0, out, None, None)
+    launches.count(paged_attention, "launches_int8" if len(cache) == 5 else "launches")
+    return out.view(b, 1, h, hd)
+
+
+def paged_attention_partial(q, cache, block_tables, positions, stride: int = 1, offset: int = 0,
+                            *, _splits: Optional[int] = None):
+    """The partial mode (module docstring): ``paged_attention``'s inputs,
+    ``block_tables`` a 'seq' rank's table whose entry i is its sequence's
+    page ``offset + i * stride``. Returns (max [b, h, 1], sum [b, h, 1], acc
+    [b, 1, h, hd]), float32, ``collectives.softmax_partial``'s form. CPU
+    tensors take ``paged_attention_partial_ref``; CUDA tensors launch the
+    kernel (its own counters ``launches`` and ``launches_int8``) or
+    raise."""
+    if len(cache) not in (3, 5):
+        raise ValueError(f"paged_attention_partial: cache must be a 3- or 5-tuple, got "
+                         f"{len(cache)}")
+    b, s, h, hd = q.shape
+    if s != 1:
+        raise ValueError(f"paged_attention_partial is the decode (s=1) read, got s={s}")
+    stride, offset = int(stride), int(offset)
+    if stride < 1 or not 0 <= offset < stride:
+        raise ValueError(f"paged_attention_partial: stride={stride}, offset={offset}: need "
+                         f"stride >= 1 and 0 <= offset < stride")
+    if q.device.type == "cpu":
+        return paged_attention_partial_ref(q, cache, block_tables, positions, stride, offset)
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_attention_partial: unsupported device {q.device}")
+    acc = torch.empty((b, h, hd), dtype=torch.float32, device=q.device)
+    ml = torch.empty((b, h, 2), dtype=torch.float32, device=q.device)
+    _launch(q, cache, block_tables, positions, _splits, stride, offset, None, acc, ml)
+    launches.count(paged_attention_partial, "launches_int8" if len(cache) == 5 else "launches")
+    return ml[..., 0:1], ml[..., 1:2], acc.view(b, 1, h, hd)
+
+
+def _launch(q, cache, block_tables, positions, _splits, stride, offset, out, part_acc, part_ml):
+    """One launch of the kernel on the current stream: the bf16 ``out``, or
+    the partial mode's ``part_acc`` / ``part_ml``."""
+    b, _, h, hd = q.shape
     ps, kvh, n_pages = _check(cache, q, block_tables, positions)
     quantized = len(cache) == 5
     G = h // kvh
@@ -229,7 +299,6 @@ def paged_attention(q, cache, block_tables, positions, *, _splits: Optional[int]
     from seldon_core_tpu_torch.ops._build import launch
 
     tile = _head_tile(G)
-    out = torch.empty((b, h, hd), dtype=q.dtype, device=q.device)
     ws = counters = None
     if splits > 1:
         pairs = b * kvh * -(-G // tile)
@@ -237,16 +306,17 @@ def paged_attention(q, cache, block_tables, positions, *, _splits: Optional[int]
                          device=q.device)
         stream = torch.cuda.current_stream(q.device).cuda_stream
         counters = _counter_buffer(q.device, stream, pairs)
+    ptr = (lambda t: None if t is None else t.data_ptr())
     launch(_kernel_fn(quantized), q.device, q.data_ptr(), *(t.data_ptr() for t in cache),
-           block_tables.data_ptr(), qpos.data_ptr(), out.data_ptr(), b, h, kvh, hd, ps,
-           n_pages, float(hd ** -0.5), splits, chunk, tile,
-           None if ws is None else ws.data_ptr(),
-           None if counters is None else counters.data_ptr())
-    launches.count(paged_attention, "launches_int8" if quantized else "launches")
-    return out.view(b, 1, h, hd)
+           block_tables.data_ptr(), qpos.data_ptr(), ptr(out), b, h, kvh, hd, ps, n_pages,
+           float(hd ** -0.5), splits, chunk, tile, ptr(ws), ptr(counters), stride, offset,
+           ptr(part_acc), ptr(part_ml))
 
 
 paged_attention.launches = 0
 paged_attention.launches_int8 = 0
+paged_attention_partial.launches = 0
+paged_attention_partial.launches_int8 = 0
 
-__all__ = ["paged_attention", "paged_attention_ref"]
+__all__ = ["paged_attention", "paged_attention_partial", "paged_attention_partial_ref",
+           "paged_attention_ref"]

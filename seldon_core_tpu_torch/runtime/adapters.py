@@ -29,6 +29,12 @@ back to 0. The write is ordered before the first dispatch that can gather
 the row: ``load`` synchronises its stream before the name resolves, so no
 request can pin the row until its values are on the device.
 
+Over a mesh (``models/sharded.py``) the pool stays one set of tensors on
+the server's device: each rank reads views of it (B's columns of a
+column-parallel projection, A's rows of a row-parallel one), so a row
+written in place reaches every rank's captured graphs, and the pins are
+the pool's as without a mesh.
+
 Every public method takes ``self._lock``: loads and evicts come from
 transport threads, pins from ``submit`` and the batcher's loop, ``stats``
 from scrapes.

@@ -85,6 +85,20 @@ gathers. The radix trie serves id-0 traffic only: an adapted admission
 neither matches nor inserts (its hidden states, and so its deeper KV,
 carry its deltas).
 
+Meshes (a server sharded over a co-located mesh, ``models/sharded.py``).
+The slots split into one contiguous block a 'data' rank (``max_slots``
+must divide), each data rank owning its slots' pages; a sequence's page j
+lies on 'seq' rank ``j mod sp`` (round robin, so page growth adds one page
+to one rank); every (data, seq) pair has its own pool, its 'model' ranks
+holding their KV heads of it. The pages share one id space partitioned by
+pool (``PageAllocator(pools=)``): the host logic, the block table and the
+trie keep global ids, admission, growth and the LIFO shed draw on the
+slot's data rank's pools, and the model cuts each rank's table from the
+global one inside the same programs and graphs. The trie is one a data
+rank (``RankedPrefixCache``); an admission takes a free slot of the data
+rank whose trie holds the longest prefix of its prompt, then of the rank
+with the most free slots. ``page_stats`` sums the pools.
+
 Disaggregated prefill (``disaggregation="remote_prefill"`` on the server
 or here; ``runtime/disagg.py``). Admission then prefills nothing here:
 ``_admit_remote`` reserves a slot, matches whole trie blocks (exported to the
@@ -152,7 +166,7 @@ import contextlib
 import logging
 import threading
 import time
-from collections import deque
+from collections import Counter, deque
 from concurrent.futures import Future, InvalidStateError
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -179,7 +193,7 @@ from seldon_core_tpu_torch.runtime.flight import (EV_FIRST_TOKEN, EV_HANDOFF_IMP
                                                   EV_HANDOFF_STAGED, EV_PAGE_GROW,
                                                   EV_PREFILL_CHUNK, EV_PREFIX_HIT, EV_RESUME,
                                                   EV_SHED, EV_STEP, FlightRecorder)
-from seldon_core_tpu_torch.runtime.radix import RadixPrefixCache
+from seldon_core_tpu_torch.runtime.radix import RadixPrefixCache, RankedPrefixCache
 from seldon_core_tpu_torch.runtime.resilience import DEFAULT_RETRY_AFTER_S, ShedError
 from seldon_core_tpu_torch.runtime.scheduler import (BATCH, INTERACTIVE, PendingRequest,
                                                      WeightedFairScheduler, normalize_slo_class)
@@ -221,18 +235,31 @@ class PageAllocator:
     decrement-and-free-on-zero, so refcount 1 = trie-only (evictable), > 1
     = a live slot references it. Every state transition happens under
     ``self._lock``. Over-freeing raises — a page freed past zero would be
-    handed to two slots and silently cross-corrupt their KV."""
+    handed to two slots and silently cross-corrupt their KV.
 
-    def __init__(self, total_pages: int, page_size: int):
+    ``pools`` > 1 partitions the one id space (``total_pages`` ids) into
+    that many pools of equal size, pool p holding ids ``RESERVED_PAGES + p
+    * cap`` onward: the (data, seq) pools of a sharded model
+    (``models/sharded.py``). ``alloc(n, pool)`` draws from one,
+    ``alloc_pools`` from several at once, and refcounts stay global."""
+
+    def __init__(self, total_pages: int, page_size: int, pools: int = 1):
         if total_pages <= RESERVED_PAGES:
             raise ValueError(
                 f"page pool needs > {RESERVED_PAGES} pages (got {total_pages})")
         self.total = int(total_pages)
         self.page_size = int(page_size)
+        self.pools = int(pools)
+        if self.pools < 1 or (self.total - RESERVED_PAGES) % self.pools:
+            raise ValueError(f"{self.total - RESERVED_PAGES} pages do not split into "
+                             f"{self.pools} pools")
+        self.pool_cap = (self.total - RESERVED_PAGES) // self.pools
         self._lock = threading.Lock()
         # pop() from the tail hands out the lowest free id: deterministic
         # placement makes parity tests reproducible
-        self._free = list(range(self.total - 1, RESERVED_PAGES - 1, -1))
+        self._free = [list(range(RESERVED_PAGES + (p + 1) * self.pool_cap - 1,
+                                 RESERVED_PAGES + p * self.pool_cap - 1, -1))
+                      for p in range(self.pools)]
         self._refs: Dict[int, int] = {}   # page -> refcount (allocated only)
         self.shed_total = 0
 
@@ -240,16 +267,27 @@ class PageAllocator:
     def capacity(self) -> int:
         return self.total - RESERVED_PAGES
 
-    def alloc(self, n: int) -> Optional[List[int]]:
-        """n pages at refcount 1, all-or-nothing; None when the pool
-        can't cover it."""
+    def pool_of(self, page: int) -> int:
+        return (page - RESERVED_PAGES) // self.pool_cap
+
+    def alloc(self, n: int, pool: int = 0) -> Optional[List[int]]:
+        """n pages of ``pool`` at refcount 1, all-or-nothing; None when the
+        pool can't cover it."""
+        got = self.alloc_pools({pool: n})
+        return None if got is None else got[pool]
+
+    def alloc_pools(self, counts: Dict[int, int]) -> Optional[Dict[int, List[int]]]:
+        """``{pool: n}`` pages at refcount 1, all-or-nothing across the
+        pools: ``{pool: pages}``, or None."""
         with self._lock:
-            if n > len(self._free):
+            if any(n > len(self._free[p]) for p, n in counts.items()):
                 return None
-            pages = [self._free.pop() for _ in range(n)]
-            for p in pages:
-                self._refs[p] = 1
-            return pages
+            out = {}
+            for p, n in counts.items():
+                out[p] = [self._free[p].pop() for _ in range(n)]
+                for page in out[p]:
+                    self._refs[page] = 1
+            return out
 
     def retain(self, pages: Sequence[int]) -> None:
         """Add one reference to each (already-allocated) page."""
@@ -261,8 +299,9 @@ class PageAllocator:
                 self._refs[p] += 1
 
     def free(self, pages: Sequence[int]) -> None:
-        """Drop one reference per page; a page rejoins the free list when
-        its count reaches zero. Raises on a page not currently allocated."""
+        """Drop one reference per page; a page rejoins its pool's free list
+        when its count reaches zero. Raises on a page not currently
+        allocated."""
         with self._lock:
             for p in pages:
                 rc = self._refs.get(p)
@@ -272,7 +311,7 @@ class PageAllocator:
                     self._refs[p] = rc - 1
                 else:
                     del self._refs[p]
-                    self._free.append(p)
+                    self._free[self.pool_of(p)].append(p)
 
     def refs_of(self, page: int) -> int:
         """Current refcount (0 = free): the trie's evictability probe."""
@@ -285,21 +324,44 @@ class PageAllocator:
         with self._lock:
             return [self._refs.get(p, 0) for p in pages]
 
-    def free_count(self) -> int:
+    def free_count(self, pools: Optional[Sequence[int]] = None) -> int:
+        """Free pages in all; with ``pools``, the fewest any of them has."""
         with self._lock:
-            return len(self._free)
+            if pools is None:
+                return sum(len(f) for f in self._free)
+            return min(len(self._free[p]) for p in pools)
 
     def count_shed(self) -> None:
         with self._lock:
             self.shed_total += 1
 
     def stats(self):
-        """(total, in_use, shed_total) — one consistent snapshot."""
+        """(total, in_use, shed_total) — one consistent snapshot, the pools
+        summed."""
         with self._lock:
-            return self.total, self.capacity - len(self._free), self.shed_total
+            return (self.total, self.capacity - sum(len(f) for f in self._free),
+                    self.shed_total)
 
 
-def cow_page_copy(pools, src: torch.Tensor, dst: torch.Tensor, n_valid: torch.Tensor) -> None:
+class PoolView:
+    """The allocator as a data rank's prefix trie sees it: its refcounts,
+    and the free pages of its own (data, seq) pools (``free_count``, the
+    fewest any of them has, which is what the trie's eviction waits for)."""
+
+    def __init__(self, allocator: PageAllocator, pools: Sequence[int]):
+        self._a = allocator
+        self.pools = list(pools)
+        self.retain = allocator.retain
+        self.free = allocator.free
+        self.refs_of = allocator.refs_of
+        self.refs_map = allocator.refs_map
+
+    def free_count(self) -> int:
+        return self._a.free_count(self.pools)
+
+
+def cow_page_copy(pools, src: torch.Tensor, dst: torch.Tensor, n_valid: torch.Tensor,
+                  module=None) -> None:
     """Copy-on-write page copy (the JAX package's donated jitted
     ``cow_page_copy``), in place: for every layer, each value leaf of page
     ``src`` (K and V; an int8 pool's K, K scales, V and V scales) is copied
@@ -309,15 +371,22 @@ def cow_page_copy(pools, src: torch.Tensor, dst: torch.Tensor, n_valid: torch.Te
     and ``n_valid`` are int64 tensors of one element on the pools' device
     (the batcher's fixed staging buffer): nothing is read back to the
     host, so the same call is what a CUDA graph captures
-    (``servers/step_graph.capture_cow_copy``)."""
+    (``servers/step_graph.capture_cow_copy``). ``module`` (the server's
+    model) places the global page ids in a sharded model's pools
+    (``pool_ranks``): each rank copies within its own, the others' copies
+    land in their TRASH page."""
     ps = pools[0][-1].shape[1]
     keep = torch.arange(ps, device=n_valid.device) < n_valid
-    for layer in pools:
-        for pool in layer[:-1]:
-            pool.index_copy_(0, dst, pool.index_select(0, src))
-        pos = layer[-1]
-        row = torch.where(keep, pos.index_select(0, src)[0], PAD_POS)
-        pos.index_copy_(0, dst, row[None])
+    ranks = [(pools, src, dst)] if module is None else [
+        (layers, s_, d_) for (layers, s_), (_, d_) in zip(module.pool_ranks(pools, src),
+                                                         module.pool_ranks(pools, dst))]
+    for layers, s_, d_ in ranks:
+        for layer in layers:
+            for pool in layer[:-1]:
+                pool.index_copy_(0, d_, pool.index_select(0, s_))
+            pos = layer[-1]
+            row = torch.where(keep, pos.index_select(0, s_)[0], PAD_POS)
+            pos.index_copy_(0, d_, row[None])
 
 
 def _resolve(fut: Future, result: Any = None, exc: Optional[BaseException] = None) -> None:
@@ -502,13 +571,16 @@ class ContinuousBatcher:
                 "the dense batcher layout (kv_cache_layout='dense') arrives with "
                 "a later slice; this port's batcher is paged")
         mesh = getattr(server, "mesh", None)
-        if mesh is not None and (mesh.axis_size("seq") > 1 or mesh.axis_size("data") > 1):
-            raise NotImplementedError(
-                f"the paged batcher over a mesh with 'seq' or 'data' above 1 ({mesh.shape}) "
-                f"arrives with ROADMAP Queue A 9b: it runs under 'model' (tensor parallelism) "
-                f"alone; generate() serves the other axes")
         self.server = server
         self.S = int(max_slots)
+        # over a mesh (module docstring, "Meshes"): the slots split into
+        # one contiguous block a 'data' rank, a sequence's pages round robin
+        # over the 'seq' ranks, one page pool a (data, seq) pair
+        self._dp = mesh.axis_size("data") if mesh is not None else 1
+        self._sp = mesh.axis_size("seq") if mesh is not None else 1
+        if self.S % self._dp:
+            raise ValueError(f"max_slots={self.S} does not split over the mesh's {self._dp} "
+                             f"'data' ranks: each owns an equal block of slots")
         cfg = server._cfg
         self.len_buckets = tuple(len_buckets or server.len_buckets)
         if max_len is not None and int(max_len) <= 0:
@@ -553,24 +625,34 @@ class ContinuousBatcher:
         self.page_size = ps
         self.n_pages = -(-self.max_len // ps)   # pages per slot
         pool = int(pool_pages if pool_pages is not None else server.kv_pool_pages or 0)
-        # 0 = fully provisioned (never sheds on pages); smaller pools oversubscribe
-        self.pool_pages = pool or (self.S * self.n_pages + RESERVED_PAGES)
-        if self.pool_pages - RESERVED_PAGES < self.n_pages:
+        # 0 = fully provisioned (never sheds on pages); smaller pools
+        # oversubscribe. Over a mesh the pages past the reserved ones split
+        # evenly into the (data, seq) pools: one id space, pool_pages ids
+        n_pools = self._dp * self._sp
+        per_seq = -(-self.n_pages // self._sp)   # a sequence's pages on one seq rank, at most
+        cap = ((pool - RESERVED_PAGES) // n_pools if pool
+               else self.S // self._dp * per_seq)
+        self.pool_pages = RESERVED_PAGES + n_pools * cap
+        if cap < per_seq:
             raise ValueError(
-                f"kv_pool_pages={self.pool_pages} cannot hold even one "
+                f"kv_pool_pages={pool or self.pool_pages} cannot hold even one "
                 f"max_len sequence ({self.n_pages} pages of {ps} tokens "
-                f"+ {RESERVED_PAGES} reserved)")
+                f"+ {RESERVED_PAGES} reserved"
+                + (f", over {n_pools} (data, seq) pools" if n_pools > 1 else "") + ")")
         chunk = int(prefill_chunk if prefill_chunk is not None else server.prefill_chunk or 0)
         self.prefill_chunk = chunk or DEFAULT_PREFILL_CHUNK
-        self._allocator = PageAllocator(self.pool_pages, ps)
+        self._allocator = PageAllocator(self.pool_pages, ps, n_pools)
         # the radix prefix cache over the pool, when the server opts in: a
         # hit costs block-table entries (and one CoW page copy for a partial
-        # block), not a prefill
-        self._radix: Optional[RadixPrefixCache] = None
+        # block), not a prefill. One trie a 'data' rank, over its own pools
+        self._radix = None
         if int(server.prefix_cache_size) > 0:
-            self._radix = RadixPrefixCache(
-                self._allocator, ps,
-                bytes_per_block=ps * kv_cache_bytes_per_token(cfg, server.kv_cache_dtype))
+            bpb = ps * kv_cache_bytes_per_token(cfg, server.kv_cache_dtype)
+            tries = [RadixPrefixCache(
+                self._allocator if n_pools == 1 else
+                PoolView(self._allocator, range(d * self._sp, (d + 1) * self._sp)),
+                ps, bytes_per_block=bpb) for d in range(self._dp)]
+            self._radix = tries[0] if self._dp == 1 else RankedPrefixCache(tries)
 
         self._slots = [_Slot() for _ in range(self.S)]
         # weighted-fair admission over SLO classes and tenants, with the
@@ -741,18 +823,17 @@ class ContinuousBatcher:
         transport, through a HandoffReceiver on 127.0.0.1). The decode
         devices must hold this batcher's device (its pool lives there).
         Without a mesh, ``prefill_devices`` (at least 1) workers share this
-        device. On a card every worker captures its chunk graphs, whatever
-        ``_eager`` says: the private switch covers this batcher's own
-        programs only."""
+        device, and the decode slice is ``decode_devices`` (at least 1)
+        entries of it. A decode slice of several devices decodes on this
+        batcher's one, as the JAX batcher decodes on the default device
+        inside its slice; the scaling snapshot counts the slice. On a card
+        every worker captures its chunk graphs, whatever ``_eager`` says:
+        the private switch covers this batcher's own programs only."""
         server = self.server
         mesh = disagg_mesh if disagg_mesh is not None else server.disagg_mesh
         if mesh is None:
-            mesh = DisaggregatedMesh([self.device] * (server.prefill_devices or 1), [self.device],
-                                     shared=True)
-        if len(mesh.decode_devices) > 1:
-            raise NotImplementedError(
-                f"a decode slice of {len(mesh.decode_devices)} devices is not ported yet: it "
-                f"arrives with ROADMAP Queue A 9b (the batcher decodes on {self.device})")
+            mesh = DisaggregatedMesh([self.device] * (server.prefill_devices or 1),
+                                     [self.device] * (server.decode_devices or 1), shared=True)
         if not any(same_device(d, self.device) for d in mesh.decode_devices):
             raise ValueError(f"the decode slice must contain the server's device ({self.device}): "
                              f"the batcher's slot pool lives there — put the PREFILL slice on the "
@@ -1206,22 +1287,39 @@ class ContinuousBatcher:
     def _reset_pages(self, pages: List[int]) -> None:
         """Position rows of newly allocated pages back to PAD_POS: a page off
         the free list still holds its previous owner's positions, which
-        another sequence's mask would otherwise attend. In place."""
+        another sequence's mask would otherwise attend. In place, in the
+        pools that hold them (``pool_ranks``)."""
         ids = self._to_device(np.asarray(pages, np.int64))
-        for layer in self._caches:
-            layer[-1].index_fill_(0, ids, PAD_POS)
+        for layers, local in self.server._module.pool_ranks(self._caches, ids):
+            for layer in layers:
+                layer[-1].index_fill_(0, local, PAD_POS)
 
-    def _alloc_pages(self, n: int) -> Optional[List[int]]:
-        """Pool allocation with radix-eviction relief: when the free list
-        cannot cover ``n``, the trie evicts least-recently-matched leaves no
-        slot references before this gives up (cached prefixes are a cache,
-        live slots the tenants). Shedding starts only where eviction ends."""
-        got = self._allocator.alloc(n)
-        if got is not None or self._radix is None:
-            return got
-        if not self._radix.evict(n):
+    def _data_rank(self, i: int) -> int:
+        """The 'data' rank owning slot ``i`` (contiguous blocks of slots)."""
+        return i // (self.S // self._dp)
+
+    def _trie(self, d: int):
+        """Data rank ``d``'s prefix trie."""
+        return self._radix.tries[d] if isinstance(self._radix, RankedPrefixCache) else self._radix
+
+    def _alloc_pages(self, i: int, start: int, n: int) -> Optional[List[int]]:
+        """Pages for slot ``i``'s block-table columns ``start .. start + n``,
+        each from the pool its column names (the slot's data rank, seq rank
+        ``column mod sp``), all or none, with radix-eviction relief: when
+        the free lists cannot cover them, the slot's trie evicts
+        least-recently-matched leaves no slot references before this gives
+        up (cached prefixes are a cache, live slots the tenants). Shedding
+        starts only where eviction ends."""
+        d = self._data_rank(i)
+        pools = [d * self._sp + j % self._sp for j in range(start, start + n)]
+        counts = Counter(pools)
+        got = self._allocator.alloc_pools(counts)
+        if got is None and self._radix is not None and self._trie(d).evict(
+                max(counts.values())):
+            got = self._allocator.alloc_pools(counts)
+        if got is None:
             return None
-        return self._allocator.alloc(n)
+        return [got[p].pop(0) for p in pools]
 
     def _cow_copy(self, src: int, dst: int, n_valid: int) -> None:
         """Stage (src, dst, n_valid) into the fixed ``_cow_args`` buffer and
@@ -1234,8 +1332,34 @@ class ContinuousBatcher:
             self.server._cow_replays += 1
         else:
             a = self._cow_args
-            cow_page_copy(self._caches, a[0:1], a[1:2], a[2:3])
+            cow_page_copy(self._caches, a[0:1], a[1:2], a[2:3], self.server._module)
             self.server._cow_eager += 1
+
+    def _free_slot(self, ids: Optional[List[int]] = None, adapter_id: int = 0) -> Optional[int]:
+        """The slot an admission takes: the lowest free one; over 'data'
+        ranks, the lowest free slot of the rank whose trie holds the longest
+        prefix of ``ids``, then of the rank with the most free slots."""
+        free = [i for i, s in enumerate(self._slots) if not s.active and not s.prefilling]
+        if not free or self._dp == 1 or ids is None:
+            return free[0] if free else None
+        first: Dict[int, int] = {}
+        n_free: Counter = Counter()
+        for i in free:
+            first.setdefault(self._data_rank(i), i)
+            n_free[self._data_rank(i)] += 1
+
+        def key(d):
+            hit = (self._trie(d).match_len(ids)
+                   if self._radix is not None and adapter_id == 0 else 0)
+            return (-hit, -n_free[d], d)
+
+        return first[min(first, key=key)]
+
+    def _rank_busy(self, d: int) -> bool:
+        """A slot of data rank ``d`` is active or prefilling (so one will
+        free pages of its pools)."""
+        return any((s.active or s.prefilling) and self._data_rank(i) == d
+                   for i, s in enumerate(self._slots))
 
     def _admit_begin(self, req: PendingRequest) -> bool:
         """Paged admission, phase 1 (host side, cheap): match the prompt
@@ -1248,17 +1372,17 @@ class ContinuousBatcher:
         trie stores pages, never logits). An adapted request neither
         matches nor (at completion) inserts. True when the request was
         CONSUMED (staged, or shed with 503); False leaves it queued."""
-        free = next((i for i, s in enumerate(self._slots)
-                     if not s.active and not s.prefilling), None)
-        if free is None:
+        if self._free_slot() is None:
             return False
         ids, plen = self._truncate_prompt(req.ids, req.max_new, req.info)
+        free = self._free_slot(ids, req.adapter_id)
+        d = self._data_rank(free)
         L = len(ids)
         n0 = -(-L // self.page_size)
         k0, shared, cow = 0, [], None
         if self._radix is not None and req.adapter_id == 0:
-            k0, shared, cow = self._radix.match_and_pin(ids, limit=L - 1)
-        fresh = self._alloc_pages(n0 - len(shared))
+            k0, shared, cow = self._trie(d).match_and_pin(ids, limit=L - 1)
+        fresh = self._alloc_pages(free, len(shared), n0 - len(shared))
         if fresh is None and cow is not None:
             # the CoW pin can be what starves the pool: its source page is
             # unevictable while pinned, so on a minimum pool eviction may
@@ -1268,15 +1392,16 @@ class ContinuousBatcher:
             self._allocator.free([cow[0]])
             k0 -= cow[1]
             cow = None
-            fresh = self._alloc_pages(n0 - len(shared))
+            fresh = self._alloc_pages(free, len(shared), n0 - len(shared))
         if fresh is None:
             if shared:
                 self._allocator.free(shared)  # drop the pins: retry later
             # an admission always fits an empty pool (prompts cap at
             # max_len-1, the pool holds >= one max_len sequence, and the
             # trie yields its unreferenced blocks first), so with nothing in
-            # flight to free a page, shed now instead of waiting
-            if not any(s.active or s.prefilling for s in self._slots):
+            # flight on the slot's data rank to free a page, shed now
+            # instead of waiting
+            if not self._rank_busy(d):
                 self._shed_queued_request(
                     req, f"admission needs {n0} KV pages (pool capacity "
                          f"{self._allocator.capacity}, {self._allocator.stats()[1]} in use)")
@@ -1312,7 +1437,7 @@ class ContinuousBatcher:
         if k0:
             # counted once per funded admission (a match that could not be
             # funded retries every loop turn)
-            self._radix.record_hit(k0, len(shared), cow is not None)
+            self._trie(d).record_hit(k0, len(shared), cow is not None)
             if self._flight is not None:
                 self._flight.record(free, EV_PREFIX_HIT, tokens=k0,
                                     blocks=len(shared) + (cow is not None))
@@ -1379,8 +1504,7 @@ class ContinuousBatcher:
         the suffix's pages, draw the first token's key and stage the job.
         True when the request was consumed (staged, or shed with 503);
         False leaves it queued."""
-        free = next((i for i, s in enumerate(self._slots)
-                     if not s.active and not s.prefilling), None)
+        free = self._free_slot()
         if free is None:
             return False
         ids, plen = self._truncate_prompt(req.ids, req.max_new, req.info)
@@ -1389,7 +1513,7 @@ class ContinuousBatcher:
         k0, shared = 0, []
         if self._radix is not None and req.adapter_id == 0:
             k0, shared, _ = self._radix.match_and_pin(ids, limit=L - 1, full_blocks_only=True)
-        pages = self._alloc_pages(n0 - len(shared))
+        pages = self._alloc_pages(free, len(shared), n0 - len(shared))
         if pages is None:
             if shared:
                 self._allocator.free(shared)  # drop the pins: retry later
@@ -1536,9 +1660,9 @@ class ContinuousBatcher:
         n0_pages = slot.covered_pages()
         t0_grow = time.perf_counter() if n0_pages < need else 0.0
         while slot.covered_pages() < need:
-            got = self._alloc_pages(1)
+            got = self._alloc_pages(i, slot.covered_pages(), 1)
             if got is None:
-                victim = self._pick_page_victim()
+                victim = self._pick_page_victim(self._data_rank(i))
                 if victim is None:
                     logger.warning("kv page pool exhausted with no shed candidate: "
                                    "slot %d ends at %d generated tokens", i, slot.n_new)
@@ -1565,18 +1689,20 @@ class ContinuousBatcher:
                                 dur_s=time.perf_counter() - t0_grow)
         return True
 
-    def _pick_page_victim(self):
-        """LIFO shed order on page exhaustion: the staged prefill job first
-        (it has produced nothing yet), then the newest staged remote job
+    def _pick_page_victim(self, d: int = 0):
+        """LIFO shed order on page exhaustion of data rank ``d``'s pools,
+        among what holds pages there: the staged prefill job first (it has
+        produced nothing yet), then the newest staged remote job
         (``("remote", job_id)``: no client has a token yet either), then the
         most recently admitted active slot, which may be the growing slot
         itself. None when there is at most one tenant."""
-        if self._prefill is not None:
+        if self._prefill is not None and self._data_rank(self._prefill.slot) == d:
             return "job"
         if self._remote_jobs:
             # insertion order: the last key is the newest
             return ("remote", next(reversed(self._remote_jobs)))
-        active = [j for j, s in enumerate(self._slots) if s.active and s.pages]
+        active = [j for j, s in enumerate(self._slots)
+                  if s.active and s.pages and self._data_rank(j) == d]
         if len(active) < 2:
             return None
         return max(active, key=lambda j: self._slots[j].admit_seq)
@@ -1733,7 +1859,8 @@ class ContinuousBatcher:
             # each of those was fed to a step that has run (its KV is
             # written); the last one's write depends on the run-ahead
             hist = slot.ids + slot.tokens[:max(slot.n_new - 1, 0)]
-            consumed = self._radix.insert(hist, slot.shared + slot.pages, len(slot.shared))
+            consumed = self._trie(self._data_rank(i)).insert(hist, slot.shared + slot.pages,
+                                                             len(slot.shared))
             if consumed:
                 # adopted or deduplicated pages are no longer the slot's
                 slot.pages = [p for p in slot.pages if p not in consumed]

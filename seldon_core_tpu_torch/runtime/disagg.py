@@ -36,9 +36,12 @@ handoff:
   same ``TransferQueue.put``.
 
 Devices. The split is ``parallel/mesh.DisaggregatedMesh``: the prefill
-and decode devices as ``torch.device`` lists, and the decode list is the
-server's one device (a decode slice of several devices, or
-``decode_devices > 1``, raises naming ROADMAP Queue A 9b). ``prefill_devices=N`` (or ``prefill_workers=N``)
+and decode devices as ``torch.device`` lists. The decode list holds the
+server's device and decodes there: ``decode_devices=N`` names N entries
+of it on one card, an explicit slice of several devices decodes on the
+server's one, as the JAX batcher decodes on the default device inside its
+slice, and the scaling snapshot counts the slice (what the autoscaler's
+``min_decode_devices`` guard reads). ``prefill_devices=N`` (or ``prefill_workers=N``)
 means N workers on the server's own device, each with its own stream,
 staging pool and graphs, sharing the server's weights (``LLMServer.
 _params_on`` returns the server's own tensors for its own device). This is

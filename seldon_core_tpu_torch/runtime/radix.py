@@ -62,7 +62,7 @@ from __future__ import annotations
 import threading
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
-__all__ = ["RadixPrefixCache"]
+__all__ = ["RadixPrefixCache", "RankedPrefixCache"]
 
 
 class _Node:
@@ -431,3 +431,34 @@ class RadixPrefixCache:
                 "prefix_evicted_blocks": self.evicted_blocks_total,
                 "prefix_bytes_saved": self.bytes_saved_total,
             }
+
+
+class RankedPrefixCache:
+    """The prefix trie of a batcher whose slots split over 'data' ranks
+    (``runtime/batcher.py``): one ``RadixPrefixCache`` a data rank, keyed
+    so, each over its rank's pools (``tries[d]``, its allocator a
+    ``PoolView``), so a hit's pages always lie in the admitted slot's own
+    pools. Under 'seq' a node's page lies on the seq rank its depth names
+    (``depth mod sp``, the round robin a block table follows), so a path of
+    k blocks covers a sequence's first k pages on every seq rank. The
+    probes a server makes (``match_len``: the longest over the ranks,
+    ``stats``: the ranks summed, ``clear``) cover every rank."""
+
+    def __init__(self, tries: Sequence[RadixPrefixCache]):
+        self.tries = list(tries)
+        self.page_size = self.tries[0].page_size
+        self.bytes_per_block = self.tries[0].bytes_per_block
+
+    def match_len(self, ids: Sequence[int]) -> int:
+        return max(t.match_len(ids) for t in self.tries)
+
+    def clear(self) -> None:
+        for t in self.tries:
+            t.clear()
+
+    def stats(self) -> Dict[str, Any]:
+        out: Dict[str, Any] = {}
+        for t in self.tries:
+            for k, v in t.stats().items():
+                out[k] = out.get(k, 0) + v
+        return out

@@ -520,8 +520,10 @@ class LLMServer(SeldonComponent):
         # load(), as the JAX package does. prefill_devices (or
         # prefill_workers) = N puts N prefill workers on this server's
         # device; disagg_mesh (a parallel.mesh.DisaggregatedMesh) may name
-        # other devices; the batcher decodes on this server's one device, so
-        # decode_devices > 1 is refused at load() (ROADMAP Queue A 9b)
+        # other devices; the batcher decodes on this server's one device,
+        # which a decode slice of several devices (decode_devices > 1, or a
+        # disagg_mesh naming them) must contain, as the JAX batcher decodes
+        # on the default device inside its slice
         self.disaggregation = disaggregation
         self.prefill_devices = int(prefill_devices)
         self.decode_devices = int(decode_devices)
@@ -657,11 +659,6 @@ class LLMServer(SeldonComponent):
             raise ValueError(f"prefill_devices={self.prefill_devices} / decode_devices="
                              f"{self.decode_devices} / prefill_workers={self.prefill_workers} "
                              f"must be >= 0")
-        if self.decode_devices > 1:
-            raise NotImplementedError(
-                f"LLMServer(decode_devices={self.decode_devices}) is not ported yet: a decode "
-                f"slice over several devices arrives with ROADMAP Queue A 9b (the batcher "
-                f"decodes on the server's one device)")
         self._build_mesh()
         if self.lora_rank < 0:
             raise ValueError(f"lora_rank={self.lora_rank} must be >= 0 (0 = adapters off)")
@@ -714,6 +711,8 @@ class LLMServer(SeldonComponent):
             # quantized before sharding (the JAX package's order): each
             # rank's int8 leaves are cuts of the whole leaf's codes
             module = module.shard(self.mesh)
+        # a tied int8 head's transposed copy, which its card route reads
+        module.prepare_head_()
         self._module = module
         self._cfg = module.cfg
         self._model_build = (name, kwargs)
@@ -734,20 +733,15 @@ class LLMServer(SeldonComponent):
 
     def _build_mesh(self) -> None:
         """The serving mesh (``parallel/topology.build_serving_mesh``: ``{"data":
-        -1, "seq": sp, "model": tp}``), before any weight moves. LoRA and
-        speculative decoding over a mesh raise, naming ROADMAP Queue A 9b."""
+        -1, "seq": sp, "model": tp}``), before any weight moves. LoRA reads
+        the one adapter pool on every rank (``models/sharded.py``); a draft
+        model stays one unsharded model on the server's device, as in the
+        JAX package."""
         from seldon_core_tpu_torch.parallel.topology import build_serving_mesh
 
         self.mesh, self.topology = build_serving_mesh(
             self.device, self.mesh, self.topology, self.tensor_parallel,
             sequence_parallel=self.sequence_parallel)
-        if self.mesh is None:
-            return
-        for name, on in (("lora_rank > 0", self.lora_rank > 0),
-                         (f"spec_mode={self.spec_mode!r}", self.spec_mode != "off")):
-            if on:
-                raise NotImplementedError(
-                    f"LLMServer({name}) over a mesh arrives with ROADMAP Queue A 9b")
 
     @staticmethod
     def _read_checkpoint(uri: str, name: Optional[str], kwargs: Dict[str, Any]):
@@ -948,7 +942,7 @@ class LLMServer(SeldonComponent):
                     module.quantize_()
                 module.to_empty(device=device)
                 module.load_state_dict(self._module.state_dict())
-                module.eval()
+                module.eval().prepare_head_()
                 self._device_params[device] = module
             return module
 
@@ -1255,8 +1249,9 @@ class LLMServer(SeldonComponent):
             rpos = torch.where(rej, next_pos[:, None] + rcols, PAD_POS)
             entry, off = paged_write_targets(block_tables, rpos, pools[0][0].shape[1])
             pad = torch.full_like(rpos, PAD_POS)
-            for layer in pools:
-                layer[-1][entry, off] = pad
+            for layers, local in module.pool_ranks(pools, entry):
+                for layer in layers:
+                    layer[-1][local, off] = pad
             if draft:
                 width = draft_caches[0][-1].shape[1] - 1
                 rows = torch.arange(S, device=dev)[:, None]

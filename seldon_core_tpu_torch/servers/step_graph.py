@@ -86,8 +86,9 @@ def launch_counts() -> Dict[Tuple[Any, str], int]:
     """Every kernel wrapper's launch counters: (wrapper, attribute) -> count."""
     from seldon_core_tpu_torch.ops import fused_norm, fused_resnet, int8_matmul, paged_attention
 
-    wrappers = (paged_attention.paged_attention, fused_norm.fused_residual_rmsnorm,
-                int8_matmul.int8_matmul, fused_resnet.fused_identity_chain)
+    wrappers = (paged_attention.paged_attention, paged_attention.paged_attention_partial,
+                fused_norm.fused_residual_rmsnorm, int8_matmul.int8_matmul,
+                fused_resnet.fused_identity_chain)
     return {(fn, name): n for fn in wrappers for name, n in vars(fn).items()
             if name.startswith("launches")}
 
@@ -300,7 +301,7 @@ def capture_cow_copy(server, pools, args: torch.Tensor) -> ReplayGraph:
     from seldon_core_tpu_torch.runtime.batcher import cow_page_copy
 
     def program():
-        cow_page_copy(pools, args[0:1], args[1:2], args[2:3])
+        cow_page_copy(pools, args[0:1], args[1:2], args[2:3], server._module)
 
     with _on_capture_stream(server._graph_stream(), args.device):
         args.fill_(TRASH_PAGE)

@@ -423,10 +423,10 @@ class LeakSweep:
         # while a shot is left EVERY allocation fails: the admission takes
         # its exhaustion unwind (shed or wait), not the trie-eviction retry
         def wrapper(real):
-            def _alloc_pages(n):
+            def _alloc_pages(*args):
                 if self._take_shot():
                     return None
-                return real(n)
+                return real(*args)
             return _alloc_pages
 
         self._wrap(self.batcher, "_alloc_pages", wrapper)

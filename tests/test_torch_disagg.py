@@ -593,19 +593,47 @@ def test_decode_devices_must_hold_the_server_device(pairs):
                           **BKW)
 
 
-def test_multi_device_decode_refused(pairs):
-    """The batcher decodes on the server's one device: a decode slice of
-    several devices (decode_devices > 1, or a mesh naming two) raises
-    naming ROADMAP Queue A 9b instead of decoding on one of them."""
+def test_multi_device_decode_slice_serves():
+    """A decode slice of two devices (decode_devices=2): the port's one
+    card names it twice and decodes on it, as the JAX batcher decodes on the
+    default device inside its two-device slice; tokens equal JAX's, the
+    scaling snapshot counts 2 decode devices on both, and the autoscaler's
+    rebalance decision on that snapshot equals JAX's (a backlog now moves
+    the split up under the default ``min_decode_devices``). An explicit
+    slice naming two devices decodes on the server's."""
+    from seldon_core_tpu.controlplane import autoscaler as jax_auto
+    from seldon_core_tpu.observability.timeline import scaling_snapshot as jax_snapshot
+    from seldon_core_tpu_torch.controlplane import autoscaler as auto
+    from seldon_core_tpu_torch.observability.timeline import scaling_snapshot
     from seldon_core_tpu_torch.parallel.mesh import DisaggregatedMesh
 
-    with pytest.raises(NotImplementedError, match="Queue A 9b"):
-        LLMServer(device="cpu", **dict(COMMON, decode_devices=2, init_random=True)).load()
-    LLMServer(device="cpu", **dict(COMMON, decode_devices=1, init_random=True)).load()
-    _, p = pairs("float")
-    with pytest.raises(NotImplementedError, match="Queue A 9b"):
-        ContinuousBatcher(p, device="cpu",
-                          disagg_mesh=DisaggregatedMesh(["cpu"], ["cpu", "cpu"]), **BKW)
+    j, p = _pair(prefill_devices=1, decode_devices=2)
+    outs, stats, pages, b = port_batch(p, PROMPTS)
+    assert len(b.disagg_mesh.decode_devices) == 2 and stats["handoffs_total"] == len(PROMPTS)
+
+    async def go():
+        jb = JaxBatcher(j, layout="paged", **BKW)
+        jouts = await asyncio.gather(*[jb.submit(q, max_new_tokens=8) for q in PROMPTS])
+        snap = jax_snapshot(j, batcher=jb)
+        await jb.close()
+        return jouts, snap
+
+    jouts, jsnap = asyncio.run(go())
+    assert outs == jouts
+    snap = scaling_snapshot(p, batcher=b)
+    assert snap["decode_devices"] == jsnap["decode_devices"] == 2
+    assert snap["prefill_devices"] == jsnap["prefill_devices"] == 1
+    kw = dict(rebalance=True, rebalance_stable_ticks=1, rebalance_cooldown_s=0.0)
+    for s in (snap, dict(snap, handoff_queue_depth=6)):
+        got = [(d.action, d.target, d.reason) for d in (
+            mod.decide_rebalance([mod.ReplicaSignals.from_scaling(s)],
+                                 mod.AutoscalerConfig(**kw), mod.ControllerState(), 0.0)[0]
+            for mod in (auto, jax_auto))]
+        assert got[0] == got[1]
+    assert got[0][:2] == (auto.REBALANCE, 2)
+    two, _, _, b2 = port_batch(p, PROMPTS,
+                               disagg_mesh=DisaggregatedMesh(["cpu"], ["cpu", "cpu"]))
+    assert two == outs and len(b2.disagg_mesh.decode_devices) == 2
 
 
 # --------------------------------------------------------------- metrics

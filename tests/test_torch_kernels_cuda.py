@@ -8,7 +8,8 @@ imports no JAX, so it also runs on a machine without it:
 Tolerances: K1 (paged attention, bf16 q and out, bf16 or int8 K/V, float32
 inside) within one bf16 ulp + 1e-5 of the plain version run on float32
 copies of the same inputs (an int8 pool dequantized in float32) — the
-kernel rounds its float32 result once; K2 (fused residual + RMSNorm, bf16,
+kernel rounds its float32 result once; its partial mode's float32 state,
+merged over the 'seq' ranks and rounded once to bf16, within the same; K2 (fused residual + RMSNorm, bf16,
 f16 or float32) ``y`` bit-equal and ``o`` within one ulp of its dtype
 (float32: 1e-6 + 1e-6 * |o|); K4 (int8 GEMM, float32
 accumulation; its decode and its prefill kernel alike, split K included)
@@ -24,7 +25,7 @@ import pytest
 import torch
 
 from seldon_core_tpu_torch.models.transformer import (NULL_PAGE, PAD_POS, RESERVED_PAGES,
-                                                      quantize_kv)
+                                                      TRASH_PAGE, quantize_kv)
 from seldon_core_tpu_torch.ops import fused_norm, fused_resnet, int8_matmul, paged_attention
 from seldon_core_tpu_torch.ops._build import sm_count
 
@@ -649,14 +650,39 @@ def test_int8_matmul_kernel_rejects_what_it_does_not_take(dev):
         int8_matmul.int8_matmul(x, q.t(), scale)
 
 
-def test_tied_int8_head_raises_on_card(dev):
+@pytest.mark.parametrize("cfg", ["llama-tiny", "7b-wide"])
+def test_tied_int8_head_through_k4_on_card(dev, cfg):
+    """A tied head over int8 embeddings serves on the card through K4 (the
+    transposed int8 copy ``prepare_head_`` makes, the K scale folded into
+    the activations as a bf16 head and remainder), within K4's tolerance of
+    the plain ``x.float() @ dequantize(emb).float().t()``; at llama-tiny and
+    at a tied model of Llama-2-7B's width and vocabulary."""
     from seldon_core_tpu_torch.models import get_model
+    from seldon_core_tpu_torch.models.transformer import tied_int8_logits_ref
 
-    m = get_model("llama-tiny", device="cuda", dtype="bfloat16", param_dtype="auto")
+    kw = (dict(vocab_size=32000, dim=4096, n_layers=1, n_heads=32, n_kv_heads=32,
+               ffn_dim=256, tie_embeddings=True, dtype="bfloat16") if cfg == "7b-wide"
+          else dict(dtype="bfloat16"))
+    name = "transformer" if cfg == "7b-wide" else "llama-tiny"
+    m = get_model(name, device="meta", **kw).quantize_().to_empty(device=dev)
     m.init_params(torch.Generator(device=dev).manual_seed(0))
-    m.quantize_()
-    with pytest.raises(NotImplementedError, match="tied"):
-        m(torch.zeros((1, 2), dtype=torch.int64, device=dev))
+    with pytest.raises(RuntimeError, match="prepare_head_"):
+        m._logits(torch.zeros((1, 1, m.cfg.dim), dtype=m.cfg.dtype, device=dev))
+    m.prepare_head_()
+    emb = m.tok_embeddings
+    before = int8_matmul.int8_matmul.launches
+    for rows in (1, 8, 130):
+        x = torch.randn((rows, 1, m.cfg.dim), generator=torch.Generator(device=dev).manual_seed(
+            rows), device=dev).to(torch.bfloat16)
+        got = m._logits(x)
+        torch.cuda.synchronize()
+        want = tied_int8_logits_ref(x, emb)
+        tol = 1e-5 * (x.float().abs() @ (emb.q.float() * emb.scale).abs().t())
+        assert got.dtype == torch.float32 and got.shape == want.shape
+        assert ((got - want).abs() <= tol).all(), (got - want).abs().max().item()
+    assert int8_matmul.int8_matmul.launches == before + 3
+    tokens = torch.zeros((1, 2), dtype=torch.int64, device=dev)
+    assert torch.isfinite(m(tokens)[0]).all()
 
 
 def test_int8_batcher_on_card_runs_every_kernel(dev):
@@ -2631,6 +2657,81 @@ def test_paged_attention_tp_shard_heads_match_plain(dev, h, kvh, kv):
     torch.cuda.synchronize()
     assert torch.isfinite(out.float()).all()
     _assert_within_ulp(out, _ref32(q, cache, bt, qpos))
+
+
+@pytest.mark.parametrize("h,kvh", [(16, 16), (8, 8), (16, 4)],
+                         ids=["7b-tp2", "7b-tp4", "mixtral-tp2"])
+@pytest.mark.parametrize("sp", [2, 4])
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+def test_paged_attention_partial_over_seq_ranks_matches_plain(dev, h, kvh, sp, kv):
+    """K1's partial mode at a rank's heads: each 'seq' rank reads its table
+    columns ``s::sp`` (pages s, s + sp, ...), the ranks merged by
+    ``softmax_merge``, within K1's tolerance of the plain version over the
+    whole table; row 1 has one page, so ranks 1.. hold none of it and write
+    the empty state (max -FLT_MAX, sum 0); with one rank (stride 1) the
+    partial state normalised is the one-rank launch bit for bit."""
+    from seldon_core_tpu_torch.parallel import collectives
+
+    ctx = [200, 64, 1, 129, 0, 255, 30, 100]
+    q, cache, bt, qpos = _k1_case(dev, 8, h, kvh, 128, 64, 4, ctx, kv, h + kvh + sp)
+    parts = [paged_attention.paged_attention_partial(q, cache, bt[:, s::sp].contiguous(), qpos,
+                                                     sp, s) for s in range(sp)]
+    torch.cuda.synchronize()
+    for s in range(1, sp):
+        m, l, acc = parts[s]
+        assert (l[1] == 0).all() and (acc[1] == 0).all() and (m[1] < -1e38).all()
+    merged = collectives.softmax_merge(parts, torch.float32)[0]
+    assert torch.isfinite(merged).all()
+    _assert_within_ulp(merged.to(torch.bfloat16), _ref32(q, cache, bt, qpos))
+    m, l, acc = paged_attention.paged_attention_partial(q, cache, bt, qpos)
+    one = (acc / l.transpose(1, 2)[..., None]).to(torch.bfloat16)
+    assert torch.equal(one, paged_attention.paged_attention(q, cache, bt, qpos))
+
+
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+def test_seq2_tp2_decode_graph_replay_bit_equals_eager(dev, kv):
+    """The batcher over {seq 2, model 2} (four ranks on this card): a
+    sequence's pages round robin over the two 'seq' pools; one replay of
+    the captured decode step is bit-equal to the eager program from
+    identical copies of every rank's pools (every page but TRASH) and the
+    state, and adds what its capture counted: per step one K1 partial
+    launch and one K2 a layer a rank."""
+    from seldon_core_tpu_torch.parallel.topology import Topology
+    from seldon_core_tpu_torch.runtime.batcher import ContinuousBatcher
+    from seldon_core_tpu_torch.servers.llmserver import LLMServer
+    from seldon_core_tpu_torch.servers.step_graph import launch_counts
+
+    s = LLMServer(model="transformer", model_kwargs=SMALL_LLM, init_random=True,
+                  param_dtype="auto", max_new_tokens=12, eos_id=-1, len_buckets=(16,),
+                  device="cuda", mesh=Topology(devices=["cuda"] * 4).mesh(
+                      {"data": 1, "seq": 2, "model": 2}), **INT8_KNOBS[kv])
+    s.load()
+    b = ContinuousBatcher(s, max_slots=3, page_size=8, device="cuda")
+    assert sorted(b._graphs) == [1] and len(b._caches) == 4 * SMALL_LLM["n_layers"]
+    _admit(b, ([5, 9, 17, 2, 40, 3, 22, 8, 11, 60], [7, 7, 1]))
+    n = SMALL_LLM["n_layers"] * 4
+    copy = _state_copy(b)
+    before = launch_counts()
+    toks = b._graphs[1].replay().clone()
+    after = launch_counts()
+    eager = s._get_decode_step_paged(b.S, b.n_pages, 1)(*copy, b._temp, b._block_tables)
+    torch.cuda.synchronize()
+    assert torch.equal(toks, eager)
+    # every page but TRASH: a 'seq' rank that does not hold a token's page
+    # writes it there, several slots to one offset in no set order
+    keep = torch.ones(b._caches[0][0].shape[0], dtype=torch.bool, device=dev)
+    keep[TRASH_PAGE] = False
+    assert torch.equal(b._last_tok, copy[1]) and torch.equal(b._next_pos, copy[2])
+    assert torch.equal(b._keys, copy[3])
+    assert all(torch.equal(x[keep], y[keep]) for la, lb in zip(b._caches, copy[0])
+               for x, y in zip(la, lb))
+    delta = {key: c - before[key] for key, c in after.items() if c != before[key]}
+    assert delta == dict(b._graphs[1].counts)
+    k1 = paged_attention.paged_attention_partial
+    assert delta[(k1, "launches_int8" if kv == "int8" else "launches")] == n
+    assert (paged_attention.paged_attention, "launches") not in delta
+    assert delta[(fused_norm.fused_residual_rmsnorm, "launches")] == n
+    b.close()
 
 
 @pytest.mark.parametrize("kv", ["bf16", "int8"])

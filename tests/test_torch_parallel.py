@@ -377,10 +377,8 @@ def test_distinct_device_mesh_raises_before_weights_move(monkeypatch):
 
 
 @pytest.mark.parametrize("kw,err,match", [
-    (dict(lora_rank=2), NotImplementedError, "lora_rank > 0.*Queue A 9b"),
-    (dict(spec_mode="ngram"), NotImplementedError, "spec_mode='ngram'.*Queue A 9b"),
     (dict(disaggregation="remote_prefill"), ValueError, "does not yet compose"),
-], ids=["lora", "spec", "disagg"])
+], ids=["disagg"])
 def test_mesh_refusals_name_queue_9b(kw, err, match):
     from seldon_core_tpu_torch.servers.llmserver import LLMServer
 
@@ -402,16 +400,3 @@ def test_config_mesh_points_to_shard():
 
     with pytest.raises(ValueError, match=r"Transformer.shard\(mesh\)"):
         get_model("transformer", device="cpu", **dict(TINY, mesh=_cpu(2).mesh({"model": 2})))
-
-
-@pytest.mark.parametrize("axes", [{"data": 1, "seq": 2, "model": 2}, {"data": 2, "model": 2}],
-                         ids=["seq2", "data2"])
-def test_batcher_under_seq_or_data_raises_naming_9b(axes):
-    from seldon_core_tpu_torch.runtime.batcher import ContinuousBatcher
-    from seldon_core_tpu_torch.servers.llmserver import LLMServer
-
-    s = LLMServer(device="cpu", mesh=_cpu(4).mesh(axes), **COMMON)
-    s.load()
-    with pytest.raises(NotImplementedError, match="'seq' or 'data' above 1.*Queue A 9b"):
-        ContinuousBatcher(s, device="cpu", max_slots=2)
-    assert len(s.generate([[5, 9, 17]])["tokens"][0]) == 4

@@ -11,7 +11,8 @@ models/convert.py) held against the JAX package on the CPU:
   gives the JAX model's logits (float32, within 1e-4) cache-less and through
   int8 KV caches;
 - inside the port: the streamed (layout-first) init equals init then
-  ``quantize_``, and the tied int8 head refuses any device but the CPU.
+  ``quantize_``, and the tied int8 head refuses a card without its
+  transposed copy (``prepare_head_``).
 The CUDA kernel itself runs only on a card: tests/test_torch_kernels_cuda.py."""
 
 import numpy as np
@@ -378,8 +379,21 @@ def test_streamed_init_equals_init_then_quantize(param_dtype):
 
 def test_tied_int8_head_refuses_a_card():
     """The tied head's int8 scale sits on K, which the GEMM kernel does not
-    take: the CPU computes the plain product, any other device raises (the
-    meta device stands in for the card here)."""
+    take: the CPU computes the plain product; any other device reads the
+    transposed int8 copy ``prepare_head_`` makes and refuses without it (the
+    meta device stands in for the card here). The copy is the codes
+    transposed, with a scale of ones, and stays out of the state dict."""
     m = get_model("llama-tiny", device="meta").quantize_()
-    with pytest.raises(NotImplementedError, match="tied"):
+    with pytest.raises(RuntimeError, match="tied int8 head.*prepare_head_"):
         m._logits(torch.zeros((1, 2, 64), device="meta"))
+    cpu = get_model("llama-tiny", device="cpu")
+    cpu.init_params(torch.Generator().manual_seed(0))
+    cpu.quantize_()
+    keys = list(cpu.state_dict())
+    qt, ones = cpu.prepare_head_()._head_t
+    emb = cpu.tok_embeddings
+    assert torch.equal(qt, emb.q.t()) and qt.is_contiguous() and torch.equal(ones, torch.ones(256))
+    assert list(cpu.state_dict()) == keys
+    x = torch.randn((1, 2, 64), generator=torch.Generator().manual_seed(1))
+    torch.testing.assert_close(cpu._logits(x), x @ (emb.q.float() * emb.scale).t(), rtol=0,
+                               atol=1e-5)
