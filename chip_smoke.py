@@ -25,6 +25,9 @@ kernel of that path against its plain PyTorch version.
     python3 chip_smoke.py --tracing    # only: build, then the traced parts: [bf16 tracing],
                                        # the fleet phase (its faults traced) and the
                                        # disaggregation phase's traced (a) / (c) runs
+    python3 chip_smoke.py --dense      # only: build, then the [dense] runs on their own
+                                       # bf16 and int8 loads, the dense handoff (device,
+                                       # network), rebalance_disagg, LoRA, a draft, meshes
 
 Phases (any failure exits non-zero; nothing swallows an error):
 
@@ -161,7 +164,17 @@ Phases (any failure exits non-zero; nothing swallows an error):
    forward, draft overhead, the step per dispatch and per token beside the
    plain step, the replay's host and device time beside the eager
    program's, the spec graph's pool, peak memory, and with a draft its
-   forwards' share of the step. The radix prefix cache (``prefix_phase``),
+   forwards' share of the step. [dense] (``dense_phase``, after the
+   n-gram run on the same server): kv_cache_layout="dense" through the
+   graph batcher at the default max_len, bf16 at K = 1, K = FUSED_K and
+   n-gram, int8 weights + int8 KV at K = 1: the N_REQUESTS prompts over
+   REST; every dispatch a replay, each admission one eager prefill into
+   its slot's row, no K1, K2 one a layer a forward, K4 one a product a
+   forward (the admissions' on the prefill route); tokens teacher-forced
+   and equal to the paged run's up to a near-tie; on live state each
+   replay bit-equal to the eager program (every slot row but the trash
+   column); nothing left allocated after the service stops; the step and
+   replay device time beside the paged step. The radix prefix cache (``prefix_phase``),
    once on a bf16 server and once on int8 weights + int8 KV, each loaded
    with prefix_cache_size=PREFIX_CACHE_SIZE and a dense budget of one 7B
    entry: N_REQUESTS conversations x PREFIX_TURNS turns over a
@@ -1768,13 +1781,16 @@ def read_counts(server) -> dict:
             "eager": server._prefill_eager}
 
 
-def post_all(url: str, texts):
-    """POST one /v1/generate per text, all at once. Returns (the results,
-    the wall time)."""
+def post_all(url: str, texts, adapters=None):
+    """POST one /v1/generate per text (with ``adapters``, each its
+    adapter's, None for the base model), all at once. Returns (the
+    results, the wall time)."""
     results = [None] * len(texts)
 
     def client(i):
-        results[i] = post(url + "/v1/generate", {"prompt": texts[i]})
+        adapter = adapters[i] if adapters else None
+        results[i] = post(url + "/v1/generate",
+                          {"prompt": texts[i], **({"adapter": adapter} if adapter else {})})
 
     t0 = time.perf_counter()
     threads = [threading.Thread(target=client, args=(i,)) for i in range(len(texts))]
@@ -3167,8 +3183,9 @@ def serve(label: str, card: str, server, weight_bytes: int, fuse: int = 0,
 # ---------------------------------------------------------------------------
 # Speculative decoding: the spec step as one CUDA graph per batcher
 # ---------------------------------------------------------------------------
-def rest_serve(label: str, card: str, server, texts, **batcher_kw):
-    """``texts`` through REST, all at once, on a new BatcherService of
+def rest_serve(label: str, card: str, server, texts, adapters=None, **batcher_kw):
+    """``texts`` through REST, all at once (each with its adapter of
+    ``adapters``), on a new BatcherService of
     ``server`` with ``batcher_kw`` (built, its graphs warmed up and
     captured, under ``set_sync_debug_mode("error")``), after one warm-up
     request; every launch counter and the server's dispatch counters
@@ -3204,7 +3221,7 @@ def rest_serve(label: str, card: str, server, texts, **batcher_kw):
         zero_counts(server)
         server._decode_replays = server._decode_eager = 0
         before = b._spec.snapshot() if b._spec is not None else None
-        results, wall = post_all(url, texts)
+        results, wall = post_all(url, texts, adapters)
         launches = read_counts(server)
         dispatches = (server._decode_replays, server._decode_eager)
         after = b._spec.snapshot() if b._spec is not None else None
@@ -3558,6 +3575,434 @@ def spec_phase(label: str, card: str, server, mode: str, plain: Optional[dict] =
     gc.collect()
     torch.cuda.empty_cache()
     return records, m
+
+
+# ---------------------------------------------------------------------------
+# The dense batcher layout: the slot pool, one-shot admission, dense graphs
+# ---------------------------------------------------------------------------
+DENSE_LEFT_GB = 0.1   # what a stopped dense service may leave: its loop thread's cuBLAS workspaces
+
+
+def dense_pool_like(pools, layers):
+    """``layers`` (copies of a slot pool's tuples) as caches of ``pools``'
+    kind: a ``SlotCaches``, or a sharded model's ``RankCaches``."""
+    from seldon_core_tpu_torch.models.sharded import RankCaches
+    from seldon_core_tpu_torch.models.transformer import SlotCaches
+
+    if isinstance(pools, RankCaches):
+        return RankCaches(layers, pools.lead, pools.width)
+    return SlotCaches(layers, pools.width)
+
+
+def dense_state(b):
+    """Copies of a dense batcher's pool, slot state, history and draft caches."""
+    pools = dense_pool_like(b._caches, [tuple(t.clone() for t in layer) for layer in b._caches])
+    draft = None if b._draft_caches is None else [tuple(t.clone() for t in layer)
+                                                  for layer in b._draft_caches]
+    hist = None if b._hist is None else b._hist.clone()
+    return pools, b._last_tok.clone(), b._next_pos.clone(), b._keys.clone(), hist, draft
+
+
+def dense_equal(b, copy) -> bool:
+    """The batcher's state against ``copy`` (an eager run from identical
+    copies): slot state, history, draft caches and every slot row of the
+    pool but its trash column (each buffer's last; a dropped write lands
+    there in no set order)."""
+    import torch
+
+    pools, last_tok, next_pos, keys, hist, draft = copy
+    return (torch.equal(b._last_tok, last_tok) and torch.equal(b._next_pos, next_pos)
+            and torch.equal(b._keys, keys)
+            and (hist is None or torch.equal(b._hist, hist))
+            and all(torch.equal(x[:, :-1], y[:, :-1]) for la, lb in zip(b._caches, pools)
+                    for x, y in zip(la, lb))
+            and all(torch.equal(x, y) for la, lb in zip(b._draft_caches or (), draft or ())
+                    for x, y in zip(la, lb)))
+
+
+def dense_replays(label: str, card: str, server, b, texts, adapter_ids=None,
+                  ranks: int = 1) -> dict:
+    """On live state: the served prompts admitted again (the loop stopped;
+    each a one-shot prefill into its slot's row), then each captured
+    program (K = 1 and K, or the spec step at full caps) replayed against
+    the same program run eagerly from identical copies: tokens, slot state
+    and every slot row but the trash column must be bit-equal; a decode
+    graph must hold one K2 kernel a layer a step, one K4 decode kernel a
+    product in the int8 model and no K1. Then each replay's host time
+    (median of REPS replay() calls) and device time (CUDA events)."""
+    from concurrent.futures import Future
+
+    import torch
+
+    from seldon_core_tpu_torch.runtime.scheduler import PendingRequest
+
+    for i, text in enumerate(texts):
+        req = PendingRequest(ids=server._tokenizer.encode(text), max_new=MAX_NEW, fut=Future(),
+                             adapter_id=0 if adapter_ids is None else adapter_ids[i])
+        if not b._admit(req):
+            fail(f"[{label}] no free slot to admit prompt {i} again")
+    graphs = ({k: b._graphs[k] for k in sorted(b._graphs)} if b._spec_graph is None
+              else {"spec": b._spec_graph})
+    lora = b._lora(b._adapter_ids)
+    n_layers = server._cfg.n_layers
+    k4_step = k4_per_forward(server._cfg) * ranks if server.quantize == "int8" else 0
+    out = {}
+    for k, g in graphs.items():
+        if k == "spec":
+            b._draft_cap.fill_(SPEC_K)
+        copy = dense_state(b)
+        toks = g.replay().clone()
+        pools, last_tok, next_pos, keys, hist, draft = copy
+        if k == "spec":
+            eager = server._get_spec_step(b.S, SPEC_K, b.hist_len, mode=b.spec_mode,
+                                          layout="dense", lora=bool(lora))(
+                pools, last_tok, next_pos, keys, b._temp, None, hist, b._draft_cap, draft,
+                **lora)
+        else:
+            eager = server._get_decode_step(b.S, b.max_len, k, bool(lora))(
+                pools, last_tok, next_pos, keys, b._temp, **lora)
+        torch.cuda.synchronize()
+        same_tokens = torch.equal(toks, eager)
+        same = same_tokens and dense_equal(b, copy)
+        print(f"[{label}] replay vs eager, {'the spec step' if k == 'spec' else f'K = {k}'}, "
+              f"from identical copies of the slot pool ({b._cache_nbytes / 1e9:.2f} GB) and "
+              f"slot state, {b.S} live slots: tokens {'bit-equal' if same_tokens else 'DIFFER'}, "
+              f"tokens + state + every slot row but the trash column "
+              f"{'bit-equal' if same else 'DIFFER'} [{card}]", flush=True)
+        if not same:
+            fail(f"[{label}] the dense {k} graph replay and the eager program differ")
+        del copy, pools, draft, eager
+        torch.cuda.empty_cache()
+        seen = node_counts(graph_kernel_names(g.graph))
+        if k != "spec":
+            want = (n_layers * ranks * k, 0, k4_step * k, 0)
+            if seen != want:
+                fail(f"[{label}] the dense K = {k} graph holds (K2, K4 prefill, K4 decode, K1) "
+                     f"kernel nodes {seen}, expected {want}")
+        elif seen[3] or seen[1] or not seen[0]:
+            fail(f"[{label}] the dense spec graph holds (K2, K4 prefill, K4 decode, K1) kernel "
+                 f"nodes {seen}: K2 expected, no K1 and no K4 prefill route")
+        # host and device time of a replay, each the median over the reps
+        # (fewer for a fused graph: each replay runs K steps)
+        reps = REPS if k in (1, "spec") else 5
+        g.replay()
+        hosts, devs = [], []
+        for _ in range(reps):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            t0 = time.perf_counter()
+            g.replay()
+            hosts.append(time.perf_counter() - t0)
+            end.record()
+            end.synchronize()
+            devs.append(start.elapsed_time(end))
+        out[k] = {"host_ms": statistics.median(hosts) * 1e3, "dev_ms": statistics.median(devs),
+                  "nodes": seen}
+        print(f"[{label}] dense graph replay of {'the spec step' if k == 'spec' else f'K = {k}'}"
+              f" at {b.S} live slots: host {out[k]['host_ms']:.4f} ms, device "
+              f"{out[k]['dev_ms']:.3f} ms (CUDA events), medians of {reps}; kernel nodes (K2, "
+              f"K4 prefill, K4 decode, K1) {seen} [{card}]", flush=True)
+        if k in (1, "spec"):
+            # where the replay's device time goes, by kernel (torch.profiler)
+            _, traced, ops, _ = profile_step(g.replay, K2_KERNEL, reps=3)
+            out[k]["traced_ms"] = traced if ops else None
+            out[k]["top"] = [(e.key, e.count, dev_us(e) / 1e3) for e in ops[:8]]
+            print(f"[{label}] the replay in torch.profiler: "
+                  + (f"{traced:.3f} ms in {sum(e.count for e in ops)} kernels and copies; "
+                     f"by time: " + "; ".join(f"{e.key[:70]} x{e.count} {dev_us(e) / 1e3:.3f} ms"
+                                              for e in ops[:8]) if ops else
+                     "no device event seen") + f" [{card}]", flush=True)
+    return out
+
+
+def dense_run(label: str, card: str, server, texts, plain, adapters=None, adapter_ids=None,
+              ranks: int = 1, exact: bool = True, **batcher_kw):
+    """One [dense] run: ``texts`` (each with its adapter of ``adapters``)
+    through REST on a dense BatcherService of ``server`` (``rest_serve``:
+    built and captured under set_sync_debug_mode("error"), counters zeroed
+    just before the requests). Fails unless every dispatch was a replay;
+    each admission was one prefill (eager: on this thread, or on a prefill
+    worker with disaggregation); no K1 launched (the dense read is the
+    masked einsum) and, with ``exact``, K2 and K4 launched exactly what the
+    forwards need (one K2 a layer a forward; in int8 one K4 a product a
+    forward, the admissions' on the prefill route); every served token is
+    teacher-forced and equals ``plain`` (the paged batcher's on this
+    server) up to a near-tie; the replays are bit-equal to the eager
+    programs on live state (``dense_replays``); and nothing is left
+    allocated once the service has stopped. Returns (launch counts,
+    metrics)."""
+    import gc
+
+    import torch
+
+    release_server_memory(workspaces=False)
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    b, served, counts, m = rest_serve(label, card, server, texts, adapters=adapters,
+                                      layout="dense", **batcher_kw)
+    if b.paged or b._allocator is not None or b._prefill_graphs:
+        fail(f"[{label}] the batcher is not the dense layout's")
+    if m["dispatches"][1] or not m["dispatches"][0]:
+        fail(f"[{label}] dense dispatches as (graph replays, eager runs) {m['dispatches']}: "
+             f"every dispatch must be a replay")
+    per = server._cfg.n_layers * ranks
+    remote = b._remote is not None
+    if any(counts[k] for k in ("k1", "k1_int8", "k1p", "k1p_int8")) or counts["replays"]:
+        fail(f"[{label}] launches {counts}: the dense read launches no K1, and admission "
+             f"replays no prefill graph")
+    if counts["eager"] != (0 if remote else len(texts)):
+        fail(f"[{label}] {counts['eager']} eager admission prefills on this server, expected "
+             f"{0 if remote else len(texts)}")
+    forwards = counts["k2"] // per
+    steps = forwards - len(texts)
+    if (counts["k2"] % per or steps <= 0) if exact else not counts["k2"]:
+        fail(f"[{label}] K2 launches {counts['k2']}: not {per} a forward over the "
+             f"{len(texts)} admissions and some decode forwards")
+    plens = [b._truncate_prompt(server._tokenizer.encode(t), MAX_NEW, None)[1] for t in texts]
+    wide = sum(p >= 64 for p in plens)
+    k4 = k4_per_forward(server._cfg) * ranks if server.quantize == "int8" else 0
+    if exact and (counts["k4"] != k4 * forwards or counts["k4_wgmma"] != k4 * wide):
+        fail(f"[{label}] K4 launches {counts['k4']} (prefill route {counts['k4_wgmma']}): "
+             f"expected {k4} x {forwards} forwards, {k4} x {wide} admissions of >= 64 rows on "
+             f"the prefill route")
+    print(f"[{label}] launches: K1 0 (the dense read is the masked einsum); "
+          f"fused_residual_rmsnorm {counts['k2']} "
+          f"{f'= {forwards} forwards x {per}' if exact else '(the target and draft forwards)'}; "
+          f"int8_matmul {counts['k4']}: "
+          f"prefill route {counts['k4_wgmma']} ({wide} one-shot admission prefills of plen "
+          f"{sorted(set(plens))}), decode route {counts['k4'] - counts['k4_wgmma']}; "
+          f"{len(texts)} eager admission prefills "
+          f"({'on the prefill workers' if remote else 'on the batcher thread'}) [{card}]",
+          flush=True)
+    teacher_check(label, card, server, texts, served, adapter_ids)
+    equal = near_tie_check(f"{label} vs paged", card, server, texts, served, plain, adapter_ids)
+    live = dense_replays(label, card, server, b, texts, adapter_ids, ranks)
+    spec = b._spec_graph is not None
+    pool_gb = b._cache_nbytes / 1e9
+    graph_gb = graph_pool_gb(list(b._graphs.values()) + ([b._spec_graph] if spec else []))
+    del b
+    gc.collect()
+    release_server_memory(workspaces=False)
+    torch.cuda.synchronize()
+    left = (torch.cuda.memory_allocated() - mem0) / 1e9
+    if left > DENSE_LEFT_GB:
+        fail(f"[{label}] {left:.3f} GB still allocated after the dense service stopped")
+    m.update(live=live, pool_gb=pool_gb, graph_gb=graph_gb, left_gb=left, equal=equal,
+             steps=steps, served=served)
+    print(f"[{label}] dense: {len(texts)} requests x {MAX_NEW} tokens in {m['wall_s']:.3f} s; "
+          f"step wall median {m['step_ms']:.2f} ms; host per dispatch {m['dispatch_ms']:.4f} ms; "
+          f"TTFT median {m['ttft_med_ms']:.1f} ms; {len(texts)} eager prefills; slot pool "
+          f"{pool_gb:.3f} GB; graph pool {gb_text(graph_gb)}; peak {m['peak_gb']:.2f} GB; "
+          f"tokens equal to the paged batcher's for {equal} of {len(texts)} requests "
+          f"throughout, the rest up to a near-tie; allocated after the service stopped "
+          f"{left:+.4f} GB [{card}]", flush=True)
+    return counts, m
+
+
+def dense_phase(card: str, server, model: str, paged: dict, spec_runs: dict) -> tuple:
+    """[dense] on a loaded section-4 server: bf16 at K = 1, K = FUSED_K and
+    n-gram speculation, int8 weights + int8 KV at K = 1, each beside the
+    paged run of the same server and K (``paged``: the serving runs,
+    ``spec_runs``: the paged n-gram run). Returns ([(label, counts)],
+    {label: metrics with the paged step beside})."""
+    t_phase = time.perf_counter()
+    texts = prompts(N_REQUESTS)
+    plans = [(model, model, dict(fuse_steps=0, spec_mode="off"))]
+    if model == "bf16":
+        plans += [(f"bf16 K={FUSED_K}", f"bf16 K={FUSED_K}",
+                   dict(fuse_steps=FUSED_K, spec_mode="off")),
+                  ("bf16 spec ngram", "bf16 spec ngram",
+                   dict(fuse_steps=0, spec_mode="ngram", spec_k=SPEC_K))]
+    records, out = [], {}
+    for name, ref, kw in plans:
+        label = f"{name} dense"
+        spec = kw["spec_mode"] != "off"
+        plain = paged[model][1]["served"] if spec else paged[ref][1]["served"]
+        counts, m = dense_run(label, card, server, texts, plain, **kw)
+        records.append((label, counts))
+        if spec:
+            p = spec_runs[ref]
+            m["paged_step_ms"], m["paged_dev_ms"] = p["step_ms"], p["replay_dev_ms"]
+        else:
+            p = paged[ref][1]
+            k = kw["fuse_steps"] or 1
+            dev = p.get("step", {}).get(k, {}).get("dev_ms")
+            m["paged_step_ms"], m["paged_dev_ms"] = p["step_ms"], None if dev is None else dev / k
+        out[label] = m
+    print(f"[{model} dense] phase_s {time.perf_counter() - t_phase:.1f} [{card}]", flush=True)
+    return records, out
+
+
+def print_dense(card: str, dense_runs: dict, records) -> None:
+    """The dense runs beside the paged ones, and their K2 / K4 launches."""
+    print(f"dense runs (Llama-2-7B, kv_cache_layout='dense', {N_REQUESTS} concurrent requests x "
+          f"{MAX_NEW} tokens; step wall drain to drain; replay device a step, CUDA events; the "
+          f"paged run of the same server beside) [{card}]:", flush=True)
+    for label, m in dense_runs.items():
+        if "live" not in m:
+            continue
+        live = m["live"]
+        dev = " ".join(f"{'spec' if k == 'spec' else f'K={k}'} "
+                       f"{v['dev_ms'] / (1 if k == 'spec' else k):.3f} ms "
+                       f"(host {v['host_ms']:.4f} ms a replay);" for k, v in live.items())
+        paged_dev = m.get("paged_dev_ms")
+        print(f"  {label:26s} step {m['step_ms']:.2f} ms vs paged {m['paged_step_ms']:.2f} ms "
+              f"({m['step_ms'] / m['paged_step_ms']:.2f}x); replay device a step {dev} paged "
+              f"{'not measured' if paged_dev is None else f'{paged_dev:.3f} ms'}; host per "
+              f"dispatch {m['dispatch_ms']:.4f} ms; TTFT median {m['ttft_med_ms']:.1f} ms; slot "
+              f"pool {m['pool_gb']:.3f} GB, graph pool {gb_text(m['graph_gb'])}, peak "
+              f"{m['peak_gb']:.2f} GB; {m['equal']}/{N_REQUESTS} equal to paged throughout "
+              f"[{card}]", flush=True)
+    dense = [c for label, c in records if label.endswith("dense")
+             or label.startswith("bf16 dense disagg")]
+    print(f"dense runs' launches: fused_residual_rmsnorm "
+          f"{sum(c['k2'] for c in dense)}, int8_matmul {sum(c['k4'] for c in dense)} "
+          f"(prefill route {sum(c['k4_wgmma'] for c in dense)}), paged_attention "
+          f"{sum(c['k1'] + c['k1_int8'] + c['k1p'] + c['k1p_int8'] for c in dense)} over "
+          f"{len(dense)} runs [{card}]", flush=True)
+
+
+def dense_rebalance(label: str, card: str, server, texts, plain) -> dict:
+    """``rebalance_disagg`` on a dense batcher with disaggregation: 2
+    workers, the requests submitted, the pool swapped to 1 worker while
+    jobs are staged on the outgoing one; every request served (tokens equal
+    to ``plain`` up to a near-tie), every slot back, the old workers'
+    staging rows freed."""
+    import torch
+
+    from seldon_core_tpu_torch.runtime.batcher import ContinuousBatcher
+
+    b = ContinuousBatcher(server, max_slots=N_REQUESTS, layout="dense", device="cuda",
+                          disaggregation="remote_prefill", prefill_workers=2)
+    try:
+        old = b._remote
+        t0 = time.perf_counter()
+        futs = [b.submit(t, MAX_NEW) for t in texts]
+        while b.handoff_stats()["handoff_queue_depth"] == 0 and time.perf_counter() - t0 < 10:
+            time.sleep(0.001)   # a job staged on the outgoing pool
+        staged = b.handoff_stats()["handoff_queue_depth"]
+        t1 = time.perf_counter()
+        if not b.rebalance_disagg(1):
+            fail(f"[{label}] rebalance_disagg(1) refused")
+        swap_s = time.perf_counter() - t1
+        served = [f.result(600) for f in futs]
+        wall = time.perf_counter() - t0
+        if any(w._staging is not None for w in old.workers) or len(b._remote.workers) != 1:
+            fail(f"[{label}] the outgoing workers kept their staging rows, or the pool is not "
+                 f"one worker")
+        if any(s.active or s.prefilling for s in b._slots) or b._remote_jobs:
+            fail(f"[{label}] slots still held after every request finished")
+        handoffs = b.handoff_stats()["handoffs_total"]
+    finally:
+        b.close()
+    del b, old
+    release_server_memory(workspaces=False)
+    if handoffs != len(texts):
+        fail(f"[{label}] {handoffs} handoffs for {len(texts)} requests")
+    equal = near_tie_check(label, card, server, texts, served, plain)
+    print(f"[{label}] rebalance_disagg 2 -> 1 worker with {staged} job(s) staged: swap "
+          f"{swap_s:.3f} s, {len(texts)} requests in {wall:.3f} s, {handoffs} handoffs, "
+          f"{equal}/{len(texts)} equal to paged throughout; allocated now "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB [{card}]", flush=True)
+    return {"swap_s": swap_s, "wall_s": wall, "equal": equal}
+
+
+def dense_flag_phase(card: str) -> tuple:
+    """``--dense``: the [dense] runs of the full run on an int8 and a bf16
+    7B server loaded here (each beside paged runs of the same server at
+    the same K), then on the bf16 server the dense handoff over the device
+    and the network transports and ``rebalance_disagg`` on a dense
+    batcher; then LoRA over dense (rank LORA_RANK adapters and base traffic
+    in one batch), the draft spec over dense (a TinyLlama-wide draft), and
+    dense on {model 2} and {data 1, seq 2, model 2} (the bf16 weights),
+    each against the paged batcher of its own server. Returns ([(label,
+    counts)], {label: metrics})."""
+    texts = prompts(N_REQUESTS)
+    records, out = [], {}
+
+    def paged_run(label, server, **kw):
+        pb, served, counts, pm = rest_serve(f"{label} paged", card, server, texts, **kw)
+        del pb
+        release_server_memory(workspaces=False)
+        records.append((f"{label} paged", counts))
+        return counts, dict(pm, served=served)
+
+    tree = None
+    # int8 first: its load's peak check counts what is allocated before it
+    for model, knobs in (("int8", dict(quantize="int8", kv_cache_dtype="int8")), ("bf16", {})):
+        server, _ = load_llm(model, card, knobs)
+        paged = {model: paged_run(model, server, fuse_steps=0, spec_mode="off")}
+        spec_runs = {}
+        if model == "bf16":
+            paged[f"bf16 K={FUSED_K}"] = paged_run(f"bf16 K={FUSED_K}", server,
+                                                   fuse_steps=FUSED_K, spec_mode="off")
+            spec_runs["bf16 spec ngram"] = dict(paged_run("bf16 spec ngram", server,
+                                                          spec_mode="ngram", spec_k=SPEC_K)[1],
+                                                replay_dev_ms=None)
+        rec, runs = dense_phase(card, server, model, paged, spec_runs)
+        records += rec
+        out.update(runs)
+        if model == "bf16":
+            plain = paged["bf16"][1]["served"]
+            for transport in ("device", "network"):
+                label = f"bf16 dense disagg {transport}"
+                counts, out[label] = dense_run(
+                    label, card, server, texts, plain, fuse_steps=0, spec_mode="off",
+                    disaggregation="remote_prefill", prefill_workers=2,
+                    handoff_transport=transport)
+                records.append((label, counts))
+                out[label].update(paged_step_ms=paged["bf16"][1]["step_ms"])
+            out["bf16 dense rebalance"] = dense_rebalance("bf16 dense rebalance", card, server,
+                                                          texts, plain)
+            tree = server._module.param_tree()
+            plain_bf16 = plain
+        del server
+        release_server_memory()
+    # LoRA over dense: base traffic and PAR_ADAPTERS adapters in one batch
+    names = [f"tenant-{i}" for i in range(PAR_ADAPTERS)]
+    weights = par_adapter_weights(names)
+    assign = [None if i % 4 == 3 else names[i % PAR_ADAPTERS] for i in range(N_REQUESTS)]
+    server, _ = par_load("bf16 lora", card, {}, params=tree, lora_rank=LORA_RANK,
+                         lora_max_adapters=PAR_ADAPTERS + 1)
+    for name in names:
+        server.adapter_registry.load(name, weights[name], alpha=LORA_ALPHA)
+    ids = [0 if a is None else server.adapter_registry.resolve(a) for a in assign]
+    _, lpaged = paged_run("bf16 lora", server, adapters=assign, fuse_steps=0, spec_mode="off")
+    counts, out["bf16 lora dense"] = dense_run("bf16 lora dense", card, server, texts,
+                                               lpaged["served"], adapters=assign, adapter_ids=ids,
+                                               fuse_steps=0, spec_mode="off")
+    records.append(("bf16 lora dense", counts))
+    out["bf16 lora dense"].update(paged_step_ms=lpaged["step_ms"])
+    del server
+    release_server_memory(workspaces=False)
+    # the draft spec over dense: a TinyLlama-wide draft beside the bf16 target
+    server, _ = par_load("bf16 draft tinyllama", card, {}, params=tree, spec_mode="draft",
+                         spec_k=SPEC_K, draft_model="transformer",
+                         draft_model_kwargs=TINYLLAMA_1B,
+                         continuous_batching_max_len=SPEC_MAX_LEN)
+    _, dpaged = paged_run("bf16 spec draft tinyllama", server)
+    counts, out["bf16 spec draft tinyllama dense"] = dense_run(
+        "bf16 spec draft tinyllama dense", card, server, texts, dpaged["served"], exact=False)
+    records.append(("bf16 spec draft tinyllama dense", counts))
+    out["bf16 spec draft tinyllama dense"].update(paged_step_ms=dpaged["step_ms"])
+    del server
+    release_server_memory(workspaces=False)
+    # dense over meshes whose ranks share this card
+    for label, mesh_kw in ((f"bf16 tp={PAR_TP} dense",
+                            dict(tensor_parallel=PAR_TP, topology=par_topology(PAR_TP))),
+                           ("bf16 seq=2 model=2 dense",
+                            dict(mesh=par_topology(4).mesh(PAR_SEQ_MESH)))):
+        server, _ = par_load(label, card, {}, params=tree, **mesh_kw)
+        ranks = server.mesh.size
+        counts, out[label] = dense_run(label, card, server, texts, plain_bf16, ranks=ranks,
+                                       fuse_steps=0, spec_mode="off")
+        records.append((label, counts))
+        out[label].update(paged_step_ms=out["bf16 dense"]["paged_step_ms"])
+        del server
+        release_server_memory(workspaces=False)
+    del tree
+    release_server_memory()
+    return records, out
 
 
 # ---------------------------------------------------------------------------
@@ -9610,6 +10055,11 @@ def main() -> int:
         parallel_predict(card, model)
         print(f"total_s {time.perf_counter() - t_start:.1f}", flush=True)
         return 0
+    if sys.argv[1:] == ["--dense"]:
+        records, dense_runs = dense_flag_phase(card)
+        print_dense(card, dense_runs, records)
+        print(f"total_s {time.perf_counter() - t_start:.1f}", flush=True)
+        return 0
     if sys.argv[1:] == ["--moe"]:
         moe_phase(card)
         print(f"total_s {time.perf_counter() - t_start:.1f}", flush=True)
@@ -9765,6 +10215,7 @@ def main() -> int:
     # int8 weights + int8 KV load
     runs, spec_runs, spec_launches = {}, {}, []
     par_records, par_summary = [], {}
+    dense_runs, dense_records = {}, []
     for model, knobs, fuses in (("bf16", {}, (0, FUSED_K)),
                                 ("int8", dict(quantize="int8", kv_cache_dtype="int8"), (0,))):
         server, weight_bytes = load_llm(model, card, knobs)
@@ -9788,6 +10239,11 @@ def main() -> int:
         records, spec_runs[label] = spec_phase(label, card, server, "ngram",
                                                plain=runs[model][1])
         spec_launches += records
+        # [dense]: the dense batcher layout on the same loaded server
+        records, runs_d = dense_phase(card, server, model, runs, spec_runs)
+        spec_launches += records
+        dense_records += records
+        dense_runs.update(runs_d)
         del server
         release_server_memory()
     # (c) the perfect drafter (a draft configured like the target: a copy)
@@ -9867,6 +10323,7 @@ def main() -> int:
     print_prefix_runs(card, prefix_runs)
     print_lora_runs(card, lora_runs)
     print_disagg(card, disagg_runs)
+    print_dense(card, dense_runs, dense_records)
 
     def total(key):
         # every run's: each counter is one kernel's (K1's bf16 and int8

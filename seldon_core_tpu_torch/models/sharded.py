@@ -55,6 +55,16 @@ log-sum-exp. A batch 'data' does not divide (the one-row prefill chunk)
 runs on every data rank, the others' writes land in their TRASH_PAGE,
 and each row's logits come from the rank that owns its first page.
 
+The dense batcher's slot pool (``init_slot_caches``): rows over 'data',
+and under 'seq' each rank holds ``n = ceil(width / sp)`` positions and a
+trash column of its own (a ``RankCaches`` with ``width``), so the global
+length always splits and every rank drops its out-of-range writes there.
+``slot_rows`` gives one slot's row on every rank (the one-row admission
+prefill runs on every data rank: each reads and writes its peer's row on
+the owning data rank, the same values, since the ranks share the device
+and the data ranks the weights); ``slot_columns`` places positions for the
+verify's reject repair.
+
 LoRA (``adapters``, the pool of ``runtime/adapters.py``): each rank reads
 views of the one pool, so a row written in place reaches every rank.
 On a column-parallel projection (q, w1, w3) a rank adds ``x A B[:, its
@@ -86,11 +96,14 @@ from seldon_core_tpu_torch.parallel.sharding import DEFAULT_LOGICAL_RULES, shard
 class RankCaches(list):
     """The caches of a sharded model: ``[rank * n_layers + layer]`` is that
     rank's layer tuple (rank-local shapes); ``lead`` is the global (rows,
-    positions) a dense cache covers, (pages, page_size) for a pool."""
+    positions) a dense cache covers, (pages, page_size) for a pool.
+    ``width``: a dense slot pool's positions (``init_slot_caches``), whose
+    buffers each end in a trash column; None otherwise."""
 
-    def __init__(self, layers, lead: Tuple[int, int]):
+    def __init__(self, layers, lead: Tuple[int, int], width: Optional[int] = None):
         super().__init__(layers)
         self.lead = tuple(int(x) for x in lead)
+        self.width = None if width is None else int(width)
 
 
 def _split(n: int, size: int) -> bool:
@@ -353,8 +366,68 @@ class ShardedTransformer(nn.Module):
     @staticmethod
     def cache_lead(caches) -> Tuple[int, ...]:
         """The global (rows, positions) or (pages, page_size) ``caches``
-        cover."""
-        return caches.lead
+        cover (a slot pool's positions: its ``width``)."""
+        return caches.lead if caches.width is None else (caches.lead[0], caches.width)
+
+    def init_slot_caches(self, slots: int, width: int, kv_cache_dtype: Optional[str] = None,
+                         device=None) -> RankCaches:
+        """The batcher's dense slot pool over the mesh (``Transformer.
+        init_slot_caches``): rows over 'data', positions over 'seq'. Each
+        'seq' rank holds ``n = ceil(width / sp)`` positions, ``[seq * n,
+        (seq + 1) * n)``, and a trash column of its own after them, so the
+        global length ``sp * (n + 1)`` always splits (``width + 1`` may not)
+        and every rank drops its out-of-range writes into its own trash
+        column, whose position stays PAD_POS."""
+        width, sp = int(width), self.mesh.axis_size("seq")
+        caches = self.init_caches((slots, sp * (-(-width // sp) + 1)), kv_cache_dtype, device)
+        caches.width = width
+        return caches
+
+    def _row_blocks(self, rows: int) -> int:
+        """Rows a 'data' rank holds of a cache of ``rows`` (all of them
+        where 'data' does not divide it)."""
+        dp = self.mesh.axis_size("data")
+        return rows // dp if _split(rows, dp) else rows
+
+    def slot_rows(self, caches: RankCaches, slot: int) -> RankCaches:
+        """Row ``slot`` of a slot pool as a pool of one row, on every rank
+        (``Transformer.slot_rows``): the row lives on one 'data' rank, and
+        a one-row forward runs on every data rank (``_rows``), so each
+        rank's entry is its (seq, model) peer's view of the row on the
+        owning data rank. The ranks share one device and the data ranks
+        the same weights, so the duplicate writes of the same values are
+        harmless, and each rank reads what the owner holds."""
+        L, per = self.cfg.n_layers, self._row_blocks(caches.lead[0])
+        owner, local = divmod(int(slot), per)
+        peers = {}
+        for r in range(self.mesh.size):
+            c = self.mesh.coords(r)
+            peers[tuple(sorted(c.items()))] = r
+        out: List[tuple] = []
+        for r in range(self.mesh.size):
+            c = dict(self.mesh.coords(r))
+            if "data" in c:
+                c["data"] = owner
+            r0 = peers[tuple(sorted(c.items()))]
+            out += [tuple(t[local:local + 1] for t in layer)
+                    for layer in caches[r0 * L:(r0 + 1) * L]]
+        return RankCaches(out, (1, caches.lead[1]), caches.width)
+
+    def slot_columns(self, caches: RankCaches, positions: torch.Tensor):
+        """[(layer tuples, rows, columns)] (``Transformer.slot_columns``):
+        each rank's layers, its rows of ``positions`` [slots, c] and their
+        local columns in its range, the rest at its trash column."""
+        from seldon_core_tpu_torch.models.transformer import _per_sequence_columns
+
+        L, w = self.cfg.n_layers, caches.width
+        out = []
+        for r in range(self.mesh.size):
+            n = caches[r * L][-1].shape[1] - 1
+            rows = self._rows(r, positions.shape[0])
+            cols = _per_sequence_columns(positions[rows].long(),
+                                         self.mesh.coords(r).get("seq", 0) * n, n, w)
+            out.append((caches[r * L:(r + 1) * L], rows, cols))
+        return out
 
     # ------------------------------------------------------------------
     def _reduce(self, parts: List[torch.Tensor], axes) -> List[torch.Tensor]:
@@ -415,6 +488,7 @@ class ShardedTransformer(nn.Module):
         if verify and (block_tables is None or caches is None):
             raise ValueError("verify=True reads a paged pool: pass caches and block_tables")
         sp = mesh.axis_size("seq")
+        trash = getattr(caches, "width", None) is not None   # a slot pool
         seq_split = (caches is not None and block_tables is None and sp > 1
                      and caches[0][-1].shape[1] * sp == caches.lead[1])
         rows = [self._rows(r, b) for r in range(R)]
@@ -452,7 +526,8 @@ class ShardedTransformer(nn.Module):
                 hs = [layers[r].attention(normed[r], pos[r],
                                           None if caches is None else caches[r * L + i],
                                           index[r], tables[r], adapters=la[r],
-                                          adapter_ids=ids[r], paged_rows=folded[r])[0]
+                                          adapter_ids=ids[r], paged_rows=folded[r],
+                                          trash=trash)[0]
                       for r in range(R)]
             hs = self._reduce(hs, ("model",) if self.heads_split else ())
             ffn_in = []
@@ -528,17 +603,20 @@ class ShardedTransformer(nn.Module):
                        ids) -> List[torch.Tensor]:
         """Attention over a dense cache whose positions split over 'seq':
         every rank projects its heads and writes the tokens whose cache slot
-        lies in its range (``write_dense`` with the range), attends over its
-        range, and the ranges merge by log-sum-exp; then ``wo``."""
+        lies in its range (``write_dense`` with the range; a slot pool's
+        ranks each end in a trash column, ``init_slot_caches``), attends
+        over its range, and the ranges merge by log-sum-exp; then ``wo``."""
         mesh, L, R = self.mesh, self.cfg.n_layers, self.mesh.size
         dt = self.local_cfg.dtype
+        trash = caches.width is not None
         parts = []
         for r in range(R):
             att, p, cache = layers[r].attention, pos[r], caches[r * L + i]
             q, k, v = att.project(normed[r], p, la[r], ids[r])
-            span = cache[-1].shape[1]
+            n = cache[-1].shape[1] - trash
             write_dense(cache, cache_values(cache, k, v, p), index[r],
-                        lo=mesh.coords(r)["seq"] * span, total=caches.lead[1])
+                        lo=mesh.coords(r)["seq"] * n,
+                        total=caches.width if trash else caches.lead[1], trash=trash)
             logits, v_all = attention_logits(q, *dense_view(cache, dt),
                                              cache[-1][:, None, :] <= p[:, :, None])
             parts.append(collectives.softmax_partial(logits, v_all))

@@ -19,6 +19,10 @@ What changes with the framework:
   rows of one call. A prefill chunk (``s > 1``) is the plain masked
   matmul + softmax over the gathered view, as the JAX package leaves it to
   XLA.
+- The dense batcher's slot pool (``SlotCaches``) ends each row in a trash
+  column: PyTorch has no dropping scatter, so a per-sequence write the JAX
+  package drops (``mode="drop"``: past the row, or a PAD_POS column) lands
+  there with position PAD_POS (``write_dense``).
 - ``fused_norm=True`` routes each block's residual add + ffn RMSNorm through
   ``ops/fused_norm.py`` (a CUDA C++ kernel on a card, ``csrc/fused_norm.cu``).
 - int8 KV caches (``kv_cache_dtype="int8"``) are the JAX package's 5-tuple
@@ -405,46 +409,88 @@ def cache_values(cache, k: torch.Tensor, v: torch.Tensor, positions: torch.Tenso
     return (k, v, positions)
 
 
-def write_dense(cache, values, cache_index, lo: int = 0, total: Optional[int] = None) -> None:
+class SlotCaches(list):
+    """Dense caches whose rows end in a trash column: the batcher's dense
+    slot pool (``init_slot_caches``: one layer tuple a layer, ``[slots,
+    width + 1, ...]``) and its row views (``Transformer.slot_rows``). A row
+    holds positions ``[0, width)`` in its first ``width`` columns; a
+    per-sequence write (``write_dense`` with a tensor ``cache_index``) of a
+    token outside them lands in column ``width`` with position PAD_POS,
+    where the JAX package drops it (``mode="drop"``): a free slot that
+    steps past its row, or a verify's PAD_POS column, writes nothing a
+    query attends."""
+
+    def __init__(self, layers, width: int):
+        super().__init__(layers)
+        self.width = int(width)
+
+
+def _per_sequence_columns(idx: torch.Tensor, lo: int, n: int, total: int) -> torch.Tensor:
+    """Local columns of the absolute cache slots ``idx`` in a buffer that
+    holds slots ``[lo, lo + n)`` in its first ``n`` columns and a trash
+    column ``n``: a slot outside that range or outside ``[0, total)`` goes
+    to the trash column."""
+    at = idx - lo
+    keep = (idx >= 0) & (idx < total) & (at >= 0) & (at < n)
+    return torch.where(keep, at, n)
+
+
+def write_dense(cache, values, cache_index, lo: int = 0, total: Optional[int] = None,
+                trash: bool = False) -> None:
     """Write ``values`` (``cache_values``) into a dense cache in place (the
     JAX package donated the cache to the step). ``cache_index`` is an int
     (the same offset for the whole batch, clamped as
-    ``lax.dynamic_update_slice`` clamps; a prefill) or a [b] tensor with
-    s == 1 (per-sequence offsets; decode). ``lo`` / ``total``: the cache
-    holds positions [lo, lo + its length) of a cache of ``total``
-    positions (a 'seq' rank's range, ``models/sharded.py``); the tokens
-    whose slot falls outside it are not written."""
+    ``lax.dynamic_update_slice`` clamps; a prefill) or a [b] tensor
+    (per-sequence: with s == 1 each row's write offset, a decode; with s >
+    1 each token is written at its own position, a speculative verify, as
+    the JAX package's scatter does). ``lo`` / ``total``: the cache holds
+    positions [lo, lo + its length) of a cache of ``total`` positions (a
+    'seq' rank's range, ``models/sharded.py``); the tokens whose slot falls
+    outside it are not written.
+
+    ``trash``: the buffer's last column is a trash column (a
+    ``SlotCaches`` pool, each 'seq' rank's buffer its own): it holds the
+    positions before it, and a per-sequence token outside them, or outside
+    ``[0, total)``, is written there with position PAD_POS, in one scatter.
+    Without one, a per-sequence write of s > 1 tokens writes column by
+    column, each token clamped into the range and written only where it
+    belongs there (a clamped token writes back what it read), which keeps
+    the JAX package's dropping scatter without a trash column."""
     span = cache[-1].shape[1]
-    total = span if total is None else int(total)
+    n = span - 1 if trash else span
+    total = n if total is None else int(total)
     b, s = values[-1].shape[:2]
     if not torch.is_tensor(cache_index) or cache_index.dim() == 0:
         start = max(0, min(int(cache_index), total - s))
-        a, e = max(start, lo), min(start + s, lo + span)
+        a, e = max(start, lo), min(start + s, lo + n)
         for buf, val in zip(cache, values):
             if (a, e) == (start, start + s):
                 buf[:, a - lo:e - lo] = val.to(buf.dtype)
             elif a < e:
                 buf[:, a - lo:e - lo] = val[:, a - start:e - start].to(buf.dtype)
-    elif s == 1:
-        bidx = torch.arange(b, device=cache_index.device)
-        idx = cache_index.long()
-        if (lo, total) == (0, span):
-            for buf, val in zip(cache, values):
-                buf[bidx, idx] = val[:, 0].to(buf.dtype)
-            return
-        at = idx - lo
-        inside = (at >= 0) & (at < span)
-        at = at.clamp(0, span - 1)
+        return
+    idx = cache_index.long()[:, None] if s == 1 else values[-1].long()
+    bidx = torch.arange(b, device=idx.device)[:, None].expand(b, s)
+    if trash:
+        at = _per_sequence_columns(idx, lo, n, total)
+        drop = at == n
+        for buf, val in zip(cache, values[:-1]):
+            buf[bidx, at] = val.to(buf.dtype)
+        cache[-1][bidx, at] = torch.where(drop, PAD_POS, values[-1].to(cache[-1].dtype))
+        return
+    if s == 1 and (lo, total) == (0, span):
         for buf, val in zip(cache, values):
-            new = val[:, 0].to(buf.dtype)
-            keep = inside.view(-1, *([1] * (new.dim() - 1)))
-            buf[bidx, at] = torch.where(keep, new, buf[bidx, at])
-    else:
-        raise NotImplementedError(
-            "per-sequence multi-token dense writes (a speculative verify over "
-            "a dense slot cache) arrive with the dense batcher layout "
-            "(kv_cache_layout='dense'); the port's batcher verifies over the "
-            "paged pool")
+            buf[bidx[:, 0], idx[:, 0]] = val[:, 0].to(buf.dtype)
+        return
+    at = idx - lo
+    inside = (idx >= 0) & (idx < total) & (at >= 0) & (at < span)
+    at = at.clamp(0, span - 1)
+    rows = bidx[:, 0]
+    for j in range(s):
+        for buf, val in zip(cache, values):
+            new = val[:, j].to(buf.dtype)
+            keep = inside[:, j].view(-1, *([1] * (new.dim() - 1)))
+            buf[rows, at[:, j]] = torch.where(keep, new, buf[rows, at[:, j]])
 
 
 def lora_delta(x: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
@@ -489,11 +535,13 @@ class Attention(nn.Module):
         self.wo = _param((cfg.n_heads * hd, cfg.dim), param_dtype, device)
 
     def forward(self, x, positions, cache=None, cache_index=None,
-                block_tables=None, adapters=None, adapter_ids=None, paged_rows=None):
+                block_tables=None, adapters=None, adapter_ids=None, paged_rows=None,
+                trash=False):
         """x: [b, s, d]. With cache=(k_cache, v_cache, pos_cache) of
         [b, max_len, kvh, hd] / [b, max_len], writes this call's K/V at
         ``cache_index`` (an int: same offset for the whole batch — prefill;
-        or a [b] tensor with s == 1: per-sequence offsets — decode) and
+        or a [b] tensor: per-sequence, a decode's offsets with s == 1, a
+        verify's tokens each at its position with s > 1) and
         returns (out, cache) with the cache tensors updated in place.
         pos_cache holds each slot's absolute position (PAD_POS when empty),
         so causal masking is exact under right-padding. The int8 layout
@@ -516,6 +564,9 @@ class Attention(nn.Module):
         [b] adds each sequence's delta to q (after ``wq``) and to the
         output (after ``wo``), never to k or v: the KV written is the base
         model's for every adapter.
+
+        ``trash``: the dense cache's rows end in a trash column
+        (``SlotCaches``, ``write_dense``).
 
         Without a cache: full causal attention, returns (out, (k, v))."""
         cfg = self.cfg
@@ -551,7 +602,7 @@ class Attention(nn.Module):
                 mask = pos_view[:, None, :] <= positions[:, :, None]
                 out = masked_attention(q, k_all, v_all, mask)
         elif cache is not None:
-            write_dense(cache, values, cache_index)
+            write_dense(cache, values, cache_index, trash=trash)
             new_cache = cache
             # pos_cache marks empty slots with PAD_POS, so one predicate
             # covers causality, the unfilled suffix and right-padding.
@@ -698,11 +749,13 @@ class TransformerBlock(nn.Module):
             self.ffn = DenseFFN(cfg, **kw)
 
     def forward(self, x, positions, cache=None, cache_index=None,
-                block_tables=None, paged_rows=None, adapters=None, adapter_ids=None):
+                block_tables=None, paged_rows=None, adapters=None, adapter_ids=None,
+                trash=False):
         cfg = self.cfg
         h, new_cache = self.attention(self.attention_norm(x), positions, cache,
                                       cache_index, block_tables, adapters=adapters,
-                                      adapter_ids=adapter_ids, paged_rows=paged_rows)
+                                      adapter_ids=adapter_ids, paged_rows=paged_rows,
+                                      trash=trash)
         if cfg.fused_norm:
             # residual-add + RMSNorm in one pass over the activation
             from seldon_core_tpu_torch.ops.fused_norm import fused_residual_rmsnorm
@@ -798,8 +851,36 @@ class Transformer(nn.Module):
 
     @staticmethod
     def cache_lead(caches) -> Tuple[int, ...]:
-        """The (rows, positions) or (pages, page_size) ``caches`` cover."""
-        return tuple(caches[0][-1].shape)
+        """The (rows, positions) or (pages, page_size) ``caches`` cover; a
+        ``SlotCaches`` pool's positions are its ``width``, its trash column
+        not counted."""
+        lead = tuple(caches[0][-1].shape)
+        width = getattr(caches, "width", None)
+        return lead if width is None else (lead[0], width)
+
+    def init_slot_caches(self, slots: int, width: int, kv_cache_dtype: Optional[str] = None,
+                         device=None) -> SlotCaches:
+        """The batcher's dense slot pool: ``slots`` rows of ``width``
+        positions and a trash column each (``SlotCaches``), empty."""
+        return SlotCaches(self.init_caches((slots, int(width) + 1), kv_cache_dtype,
+                                           device=device), width)
+
+    @staticmethod
+    def slot_rows(caches, slot: int) -> SlotCaches:
+        """Row ``slot`` of a slot pool as a pool of one row (views: a
+        write through them is a write into the pool)."""
+        return SlotCaches([tuple(t[slot:slot + 1] for t in layer) for layer in caches],
+                          caches.width)
+
+    @staticmethod
+    def slot_columns(caches, positions: torch.Tensor):
+        """[(layer tuples, rows, columns)]: where the positions
+        ``positions`` [slots, c] of a slot pool's rows lie, for code that
+        writes the pool directly (the verify's reject repair): here every
+        row of the one pool, a position outside ``[0, width)`` at the trash
+        column."""
+        w = caches.width
+        return [(caches, slice(None), _per_sequence_columns(positions.long(), 0, w, w))]
 
     @staticmethod
     def pool_ranks(caches, pages: torch.Tensor):
@@ -956,6 +1037,7 @@ class Transformer(nn.Module):
                 dim=1, keepdim=True)
             qpos = torch.where(real, positions, last)
             paged_rows = (block_tables.repeat_interleave(s, dim=0), qpos.reshape(b * s, 1))
+        trash = getattr(caches, "width", None) is not None   # a SlotCaches pool
         x = self._embed(tokens)
         new_caches = []
         for i, layer in enumerate(self.layers()):
@@ -967,7 +1049,7 @@ class Transformer(nn.Module):
                                   for proj, ab in adapters.items() if proj != "scale"}
                 layer_adapters["scale"] = adapters["scale"]
             x, nc = layer(x, positions, layer_cache, cache_index, block_tables, paged_rows,
-                          layer_adapters, adapter_ids)
+                          layer_adapters, adapter_ids, trash)
             new_caches.append(nc)
         return self._logits(self.norm(x)), new_caches
 
@@ -1111,7 +1193,7 @@ __all__ = [
     "TransformerConfig", "Transformer", "TransformerBlock", "Attention",
     "DenseFFN", "MoEFFN", "route", "RMSNorm", "rms_norm", "rotary_embedding", "apply_rotary",
     "paged_write_targets", "gather_paged_view", "dense_view", "attention_logits",
-    "masked_attention", "cache_values", "write_dense",
+    "masked_attention", "cache_values", "write_dense", "SlotCaches",
     "matmul", "lora_delta", "quantize_kv", "dequantize_kv", "tied_int8_logits",
     "tied_int8_logits_ref",
     "init_kv_caches", "init_paged_kv_caches", "reset_kv_caches", "kv_cache_bytes_per_token",

@@ -1,7 +1,7 @@
-"""Continuous batching for LLM decode over the paged KV pool, ported to
-PyTorch.
+"""Continuous batching for LLM decode over the paged KV pool (or the dense
+slot pool), ported to PyTorch.
 
-Port of ``seldon_core_tpu/runtime/batcher.py`` (paged layout). Requests join
+Port of ``seldon_core_tpu/runtime/batcher.py``. Requests join
 and leave a fixed pool of S decode slots between decode steps, so one decode
 program serves overlapping requests at arbitrary arrival times:
 
@@ -114,6 +114,21 @@ theirs. A staged remote job sheds on page exhaustion after a local prefill
 job and before any active slot, and an interactive admission may preempt a
 staged batch-class one.
 
+The dense layout (``kv_cache_layout="dense"``, the JAX package's A/B and
+parity layout). The KV lives in a slot pool of one row of ``max_len``
+positions a slot and a trash column (``transformer.SlotCaches``): no pages,
+allocator, block tables or trie (``page_stats`` all zero). An admission
+(``_admit``) is one prefill of the whole prompt into the free slot's row,
+in place and eagerly (``LLMServer._get_prefill(1, plen, max_len)``, which
+resets the row first, so the previous occupant's positions are retired),
+then the first token is read and the slot commits. A free slot rides along
+in the fixed-shape step writing its own row, which its next admission
+resets, and past the row its trash column. The dispatches are the dense
+decode program (``_get_decode_step``) and the dense spec step, captured as
+CUDA graphs as the paged ones are; a disaggregated admission's handoff is
+inserted into the slot's row (``insert_slot_row``). Over a mesh the rows
+split over 'data' and the positions over 'seq' (``models/sharded.py``).
+
 Every pool, block-table and slot-state update is an in-place tensor update
 enqueued on the same stream as the decode steps (the JAX package donated
 these buffers to jitted ops and relied on device program order in the same
@@ -183,6 +198,7 @@ from seldon_core_tpu_torch.models.transformer import (
     init_kv_caches,
     kv_cache_bytes_per_token,
     normalize_kv_cache_layout,
+    reset_kv_caches,
 )
 from seldon_core_tpu_torch.parallel.mesh import DisaggregatedMesh
 from seldon_core_tpu_torch.runtime.disagg import (HANDOFF_TRANSPORTS, HandoffReceiver,
@@ -190,7 +206,7 @@ from seldon_core_tpu_torch.runtime.disagg import (HANDOFF_TRANSPORTS, HandoffRec
                                                   TransferQueue, normalize_disaggregation,
                                                   same_device, staged_leaves)
 from seldon_core_tpu_torch.runtime.flight import (EV_FIRST_TOKEN, EV_HANDOFF_IMPORT,
-                                                  EV_HANDOFF_STAGED, EV_PAGE_GROW,
+                                                  EV_HANDOFF_STAGED, EV_PAGE_GROW, EV_PREFILL,
                                                   EV_PREFILL_CHUNK, EV_PREFIX_HIT, EV_RESUME,
                                                   EV_SHED, EV_STEP, FlightRecorder)
 from seldon_core_tpu_torch.runtime.radix import RadixPrefixCache, RankedPrefixCache
@@ -389,6 +405,19 @@ def cow_page_copy(pools, src: torch.Tensor, dst: torch.Tensor, n_valid: torch.Te
             pos.index_copy_(0, d_, row[None])
 
 
+def insert_slot_row(row, staged) -> None:
+    """The dense handoff's insert (the JAX package's donated ``insert``),
+    in place: ``row`` (one slot's row of the dense slot pool,
+    ``Transformer.slot_rows``) reset to the empty state, trash column and
+    all, so the previous occupant's positions are retired, then
+    ``staged`` (one tuple a layer of [1, c, ...] tensors: the first c
+    columns of a prefill worker's row) copied into its first c columns."""
+    reset_kv_caches(row)
+    for layer, st in zip(row, staged):
+        for t, v in zip(layer, st):
+            t[:, :v.shape[1]].copy_(v)
+
+
 def _resolve(fut: Future, result: Any = None, exc: Optional[BaseException] = None) -> None:
     """Complete ``fut`` unless it is already done: a client may cancel its
     future at any time (a stream's disconnect), and the loop must never
@@ -566,10 +595,10 @@ class ContinuousBatcher:
             raise ValueError(f"batcher device {self.device} != server device {server.device}")
         if layout is None:
             layout = getattr(server, "kv_cache_layout", "paged")
-        if normalize_kv_cache_layout(layout) != "paged":
-            raise NotImplementedError(
-                "the dense batcher layout (kv_cache_layout='dense') arrives with "
-                "a later slice; this port's batcher is paged")
+        # the KV layout (module docstring): the paged pool, or the dense
+        # slot pool (one row of max_len positions a slot, one-shot admission)
+        self.layout = normalize_kv_cache_layout(layout)
+        self.paged = self.layout == "paged"
         mesh = getattr(server, "mesh", None)
         self.server = server
         self.S = int(max_slots)
@@ -618,41 +647,14 @@ class ContinuousBatcher:
                 raise ValueError("spec_mode='draft' needs the server loaded with a draft "
                                  "model (draft_model=)")
             self._spec = SpecController(self.S, self.spec_k)
-        ps = int(page_size if page_size is not None else server.kv_page_size or 0) \
-            or DEFAULT_PAGE_SIZE
-        if ps <= 0:
-            raise ValueError(f"kv_page_size={ps} must be positive")
-        self.page_size = ps
-        self.n_pages = -(-self.max_len // ps)   # pages per slot
-        pool = int(pool_pages if pool_pages is not None else server.kv_pool_pages or 0)
-        # 0 = fully provisioned (never sheds on pages); smaller pools
-        # oversubscribe. Over a mesh the pages past the reserved ones split
-        # evenly into the (data, seq) pools: one id space, pool_pages ids
-        n_pools = self._dp * self._sp
-        per_seq = -(-self.n_pages // self._sp)   # a sequence's pages on one seq rank, at most
-        cap = ((pool - RESERVED_PAGES) // n_pools if pool
-               else self.S // self._dp * per_seq)
-        self.pool_pages = RESERVED_PAGES + n_pools * cap
-        if cap < per_seq:
-            raise ValueError(
-                f"kv_pool_pages={pool or self.pool_pages} cannot hold even one "
-                f"max_len sequence ({self.n_pages} pages of {ps} tokens "
-                f"+ {RESERVED_PAGES} reserved"
-                + (f", over {n_pools} (data, seq) pools" if n_pools > 1 else "") + ")")
-        chunk = int(prefill_chunk if prefill_chunk is not None else server.prefill_chunk or 0)
-        self.prefill_chunk = chunk or DEFAULT_PREFILL_CHUNK
-        self._allocator = PageAllocator(self.pool_pages, ps, n_pools)
-        # the radix prefix cache over the pool, when the server opts in: a
-        # hit costs block-table entries (and one CoW page copy for a partial
-        # block), not a prefill. One trie a 'data' rank, over its own pools
+        # the dense layout has no pages, chunks, allocator or trie: its
+        # slots pre-reserve whole rows (the JAX package keeps no
+        # batcher-side prefix reuse for it, even with prefix_cache_size > 0)
+        self.page_size = self.n_pages = self.pool_pages = self.prefill_chunk = 0
+        self._allocator: Optional[PageAllocator] = None
         self._radix = None
-        if int(server.prefix_cache_size) > 0:
-            bpb = ps * kv_cache_bytes_per_token(cfg, server.kv_cache_dtype)
-            tries = [RadixPrefixCache(
-                self._allocator if n_pools == 1 else
-                PoolView(self._allocator, range(d * self._sp, (d + 1) * self._sp)),
-                ps, bytes_per_block=bpb) for d in range(self._dp)]
-            self._radix = tries[0] if self._dp == 1 else RankedPrefixCache(tries)
+        if self.paged:
+            self._paged_pool(server, page_size, pool_pages, prefill_chunk)
 
         self._slots = [_Slot() for _ in range(self.S)]
         # weighted-fair admission over SLO classes and tenants, with the
@@ -718,17 +720,28 @@ class ContinuousBatcher:
             self._flight = FlightRecorder(self.S, tail_ttft_s=tail_ttft_s, tail_gap_s=tail_gap_s)
 
         dev = self.device
-        self._caches = server._module.init_caches((self.pool_pages, ps), server.kv_cache_dtype,
-                                                  device=dev, paged=True)
+        if self.paged:
+            self._caches = server._module.init_caches(
+                (self.pool_pages, self.page_size), server.kv_cache_dtype, device=dev, paged=True)
+        else:
+            # the dense slot pool: a row of max_len positions a slot, then a
+            # trash column for the writes the JAX package drops
+            # (``transformer.SlotCaches``); admission prefills a row in place
+            self._caches = server._module.init_slot_caches(self.S, self.max_len,
+                                                           server.kv_cache_dtype, device=dev)
         # the pool's bytes: what a decode step's attention may read at most
         # (``kv_bytes_per_step``, set at each drain as the JAX package does)
         self._cache_nbytes = sum(t.numel() * t.element_size()
                                  for layer in self._caches for t in layer)
-        # Block table, one row per slot, all-TRASH while a slot is free so
-        # the ride-along decode writes of inactive slots land in the trash
-        # page; rows switch to real pages at activation and back at release.
-        self._block_tables = torch.full((self.S, self.n_pages), TRASH_PAGE,
-                                        dtype=torch.int32, device=dev)
+        # Block table (paged), one row per slot, all-TRASH while a slot is
+        # free so the ride-along decode writes of inactive slots land in the
+        # trash page; rows switch to real pages at activation and back at
+        # release. The dense layout's free slots write their own rows (each
+        # admission resets its row), past the row its trash column.
+        self._block_tables: Optional[torch.Tensor] = None
+        if self.paged:
+            self._block_tables = torch.full((self.S, self.n_pages), TRASH_PAGE,
+                                            dtype=torch.int32, device=dev)
         # device-resident per-slot decode state, threaded through every step
         self._last_tok = torch.zeros((self.S,), dtype=torch.int64, device=dev)
         self._next_pos = torch.zeros((self.S,), dtype=torch.int32, device=dev)
@@ -740,20 +753,24 @@ class ContinuousBatcher:
         # the same tokens on both paths (``sample_tokens``)
         self._temp = (torch.full((), float(server.temperature), dtype=torch.float32, device=dev)
                       if float(server.temperature) > 0 else None)
-        # the prefill chunk's fixed inputs: the admitted job's block-table
-        # row, and its chunk's tokens and positions (a chunk of C uses the
-        # first C columns)
-        self._chunks = self._chunk_lengths()
-        cmax = max(self._chunks)
-        self._row = torch.full((1, self.n_pages), NULL_PAGE, dtype=torch.int32, device=dev)
-        self._chunk_tokens = torch.zeros((1, cmax), dtype=torch.int64, device=dev)
-        self._chunk_pos = torch.full((1, cmax), PAD_POS, dtype=torch.int32, device=dev)
-        # the CoW copy's fixed inputs (source page, destination page, valid
-        # tokens), staged by the host in stream order before each copy
-        self._cow_args = torch.zeros((3,), dtype=torch.int64, device=dev)
+        # the prefill chunk's fixed inputs (paged): the admitted job's
+        # block-table row, and its chunk's tokens and positions (a chunk of
+        # C uses the first C columns); the CoW copy's (source page,
+        # destination page, valid tokens), staged by the host in stream
+        # order before each copy
+        self._chunks: Tuple[int, ...] = ()
+        self._row = self._chunk_tokens = self._chunk_pos = self._cow_args = None
+        if self.paged:
+            self._chunks = self._chunk_lengths()
+            cmax = max(self._chunks)
+            self._row = torch.full((1, self.n_pages), NULL_PAGE, dtype=torch.int32, device=dev)
+            self._chunk_tokens = torch.zeros((1, cmax), dtype=torch.int64, device=dev)
+            self._chunk_pos = torch.full((1, cmax), PAD_POS, dtype=torch.int32, device=dev)
+            self._cow_args = torch.zeros((3,), dtype=torch.int64, device=dev)
         # the adapted programs' fixed inputs: each slot's adapter id (0 =
         # the identity; written at commit, reset at release) and the staged
-        # prefill job's id (written when the job is staged)
+        # prefill job's id (written when the job is staged; the dense
+        # admission's, before its prefill)
         self._adapter_ids: Optional[torch.Tensor] = None
         self._chunk_adapter: Optional[torch.Tensor] = None
         if self._adapters is not None:
@@ -784,8 +801,10 @@ class ContinuousBatcher:
         self._cow_graph: Optional[ReplayGraph] = None
         if self.device.type == "cuda" and not _eager:
             # with disaggregation on, local prefill never runs: the workers
-            # capture the chunk graphs instead
-            if self.disaggregation == "off":
+            # capture the chunk graphs instead; the dense admission prefill
+            # stays eager (a graph a length bucket would pin its float32
+            # transients)
+            if self.disaggregation == "off" and self.paged:
                 self._prefill_graphs = capture_prefill_chunks(
                     server, self._chunks, self._caches, self._row, self._chunk_tokens,
                     self._chunk_pos, lora=self._lora(self._chunk_adapter))
@@ -804,6 +823,45 @@ class ContinuousBatcher:
                                                     lora=self._lora(self._adapter_ids))
         if self.disaggregation != "off":
             self._build_remote(disagg_mesh, prefill_workers)
+
+    def _paged_pool(self, server: LLMServer, page_size: Optional[int],
+                    pool_pages: Optional[int], prefill_chunk: Optional[int]) -> None:
+        """The paged layout's page size, pool, prefill chunk, allocator and
+        (when the server opts in) radix prefix cache."""
+        ps = int(page_size if page_size is not None else server.kv_page_size or 0) \
+            or DEFAULT_PAGE_SIZE
+        if ps <= 0:
+            raise ValueError(f"kv_page_size={ps} must be positive")
+        self.page_size = ps
+        self.n_pages = -(-self.max_len // ps)   # pages per slot
+        pool = int(pool_pages if pool_pages is not None else server.kv_pool_pages or 0)
+        # 0 = fully provisioned (never sheds on pages); smaller pools
+        # oversubscribe. Over a mesh the pages past the reserved ones split
+        # evenly into the (data, seq) pools: one id space, pool_pages ids
+        n_pools = self._dp * self._sp
+        per_seq = -(-self.n_pages // self._sp)   # a sequence's pages on one seq rank, at most
+        cap = ((pool - RESERVED_PAGES) // n_pools if pool
+               else self.S // self._dp * per_seq)
+        self.pool_pages = RESERVED_PAGES + n_pools * cap
+        if cap < per_seq:
+            raise ValueError(
+                f"kv_pool_pages={pool or self.pool_pages} cannot hold even one "
+                f"max_len sequence ({self.n_pages} pages of {ps} tokens "
+                f"+ {RESERVED_PAGES} reserved"
+                + (f", over {n_pools} (data, seq) pools" if n_pools > 1 else "") + ")")
+        chunk = int(prefill_chunk if prefill_chunk is not None else server.prefill_chunk or 0)
+        self.prefill_chunk = chunk or DEFAULT_PREFILL_CHUNK
+        self._allocator = PageAllocator(self.pool_pages, ps, n_pools)
+        # the radix prefix cache over the pool, when the server opts in: a
+        # hit costs block-table entries (and one CoW page copy for a partial
+        # block), not a prefill. One trie a 'data' rank, over its own pools
+        if int(server.prefix_cache_size) > 0:
+            bpb = ps * kv_cache_bytes_per_token(server._cfg, server.kv_cache_dtype)
+            tries = [RadixPrefixCache(
+                self._allocator if n_pools == 1 else
+                PoolView(self._allocator, range(d * self._sp, (d + 1) * self._sp)),
+                ps, bytes_per_block=bpb) for d in range(self._dp)]
+            self._radix = tries[0] if self._dp == 1 else RankedPrefixCache(tries)
 
     def _lora(self, ids: Optional[torch.Tensor]) -> dict:
         """The adapted programs' extra arguments: ``adapters`` (the pool)
@@ -854,7 +912,7 @@ class ContinuousBatcher:
             receiver_addr = self._receiver.addr
         try:
             self._remote = PrefillWorkerPool(
-                server, devices, self.device, layout="paged", max_len=self.max_len,
+                server, devices, self.device, layout=self.layout, max_len=self.max_len,
                 page_size=self.page_size, n_pages=self.n_pages,
                 prefill_chunk=self.prefill_chunk, chunks=self._chunks, queue=queue,
                 transport=self.handoff_transport, receiver_addr=receiver_addr)
@@ -905,7 +963,7 @@ class ContinuousBatcher:
                    else [self.device] * n)
         old = self._remote
         new_pool = PrefillWorkerPool(
-            self.server, devices, self.device, layout="paged", max_len=self.max_len,
+            self.server, devices, self.device, layout=self.layout, max_len=self.max_len,
             page_size=self.page_size, n_pages=self.n_pages, prefill_chunk=self.prefill_chunk,
             chunks=self._chunks, queue=self._transfer, transport=old.transport,
             receiver_addr=old.receiver_addr)
@@ -993,14 +1051,15 @@ class ContinuousBatcher:
     def retry_after_hint(self) -> float:
         """``Retry-After`` for shed responses from the live backlog: the
         drain capacity is S slots per wave, so ``base x ceil(queued / S)``,
-        doubled near page-pool exhaustion, clamped to [base, 30 s]."""
+        doubled near page-pool exhaustion (paged), clamped to [base, 30 s]."""
         base = float(DEFAULT_RETRY_AFTER_S)
         queued = len(self._pending)
         queued += sum(1 for s in self._slots if s.active or s.prefilling)
         hint = base * max(-(-queued // max(self.S, 1)), 1)
-        total, in_use, _ = self._allocator.stats()
-        if in_use / max(total - RESERVED_PAGES, 1) >= 0.9:
-            hint *= 2
+        if self.paged:
+            total, in_use, _ = self._allocator.stats()
+            if in_use / max(total - RESERVED_PAGES, 1) >= 0.9:
+                hint *= 2
         return float(min(max(hint, base), max(30.0, base)))
 
     def page_stats(self, radix_stats: Optional[dict] = None) -> dict:
@@ -1009,7 +1068,11 @@ class ContinuousBatcher:
         Each page's tokens count once: slots count their OWNED pages'
         tokens, trie blocks (shared ones included) count whole, from
         ``radix_stats`` (a ``RadixPrefixCache.stats()`` snapshot, to spare
-        a second trie walk a scrape) or a fresh walk."""
+        a second trie walk a scrape) or a fresh walk. All zeros under the
+        dense layout (no pool exists)."""
+        if not self.paged:
+            return {"kv_pages_total": 0, "kv_pages_in_use": 0, "kv_page_size": 0,
+                    "kv_page_fragmentation": 0.0, "kv_page_sheds": 0}
         total, in_use, sheds = self._allocator.stats()
         ps = self.page_size
         used = 0
@@ -1492,6 +1555,44 @@ class ContinuousBatcher:
         self._prefill = None
         self._commit_slot(job.slot, first, key, job.ids, job.req)
 
+    def _admit(self, req: PendingRequest) -> bool:
+        """Dense admission (the JAX package's ``_admit``): the one-shot
+        prefill of the whole prompt into the free slot's row of the pool,
+        in place (``_get_prefill(1, plen, max_len)``, which resets the row
+        first, trash column and all, so the previous occupant's positions
+        are retired; the adapted program for an adapter pool), eagerly: a
+        graph a length bucket would pin its float32 transients. Stream
+        order puts it after every dispatch already enqueued, which still
+        write the old occupant's row. The first token is read here, one
+        host sync an admission; then the slot commits. True when a slot
+        was free (the request is consumed)."""
+        free = self._free_slot()
+        if free is None:
+            return False
+        ids, plen = self._truncate_prompt(req.ids, req.max_new, req.info)
+        L = len(ids)
+        slot = self._slots[free]
+        slot.on_token = req.on_token
+        if self._flight is not None:
+            self._flight.begin(free, req.trace, req.t_arrival, L, tags=self._flight_tags(req))
+        toks = np.zeros((1, plen), np.int64)
+        pos = np.full((1, plen), PAD_POS, np.int32)
+        toks[0, :L] = ids
+        pos[0, :L] = np.arange(L)
+        t0 = time.perf_counter()
+        lora = self._adapters is not None
+        if lora:
+            self._chunk_adapter.fill_(req.adapter_id)
+        logits = self.server._get_prefill(1, plen, self.max_len, lora)(
+            self.server._module.slot_rows(self._caches, free), self._to_device(toks),
+            self._to_device(pos), **self._lora(self._chunk_adapter))
+        self.server._prefill_eager += 1
+        first, key = self._sample_first(logits[0, L - 1], req.seed, req.resume_tokens)
+        if self._flight is not None:
+            self._flight.record(free, EV_PREFILL, tokens=L, dur_s=time.perf_counter() - t0)
+        self._commit_slot(free, first, key, ids, req)
+        return True
+
     # ------------------------------------------------------------------
     # Disaggregated admission: stage remote jobs, consume handoffs
     # ------------------------------------------------------------------
@@ -1509,11 +1610,12 @@ class ContinuousBatcher:
             return False
         ids, plen = self._truncate_prompt(req.ids, req.max_new, req.info)
         L = len(ids)
-        n0 = -(-L // self.page_size)
+        n0 = -(-L // self.page_size) if self.paged else 0
         k0, shared = 0, []
         if self._radix is not None and req.adapter_id == 0:
             k0, shared, _ = self._radix.match_and_pin(ids, limit=L - 1, full_blocks_only=True)
-        pages = self._alloc_pages(free, len(shared), n0 - len(shared))
+        # the dense layout's slot holds its whole row: no pages to fund
+        pages = self._alloc_pages(free, len(shared), n0 - len(shared)) if self.paged else []
         if pages is None:
             if shared:
                 self._allocator.free(shared)  # drop the pins: retry later
@@ -1525,8 +1627,10 @@ class ContinuousBatcher:
                          f"{self._allocator.capacity}, {self._allocator.stats()[1]} in use)")
                 return True
             return False
-        row = np.full((self.n_pages,), NULL_PAGE, np.int32)
-        row[:n0] = shared + pages
+        row = None
+        if self.paged:
+            row = np.full((self.n_pages,), NULL_PAGE, np.int32)
+            row[:n0] = shared + pages
         prefix, prefix_event = (self._export_pages(shared) if shared else (None, None))
         slot = self._slots[free]
         slot.pages = list(pages)
@@ -1561,7 +1665,9 @@ class ContinuousBatcher:
         event the bucket was written under (no host wait), the bucket is
         marked used on this stream (its memory is not reused before the
         import has run), the suffix pages are imported and the slot's
-        block-table row written."""
+        block-table row written. Dense: the bucket (the prompt's columns
+        of the worker's row) goes into the slot's row, reset first
+        (``insert_slot_row``), the JAX package's insert."""
         if h.first_token is None or h.first_key is None:
             raise ValueError(f"handoff for job {job.job_id} carries no first token")
         staged = h.staged
@@ -1571,6 +1677,9 @@ class ContinuousBatcher:
                 stream.wait_event(h.event)
             for t in staged_leaves(staged):
                 t.record_stream(stream)
+        if not self.paged:
+            insert_slot_row(self.server._module.slot_rows(self._caches, job.slot), staged)
+            return
         n_suffix = -(-job.L // self.page_size) - job.prefix_pages
         row_suffix = np.full((self.n_pages,), NULL_PAGE, np.int64)
         row_suffix[:n_suffix] = job.row[job.prefix_pages:job.prefix_pages + n_suffix]
@@ -1831,6 +1940,8 @@ class ContinuousBatcher:
             self._adapters.unpin(slot.adapter_id)
             self._adapter_ids[i].fill_(0)
             slot.adapter_id = 0
+        if not self.paged:
+            return   # a dense slot owns no pages; its next admission resets its row
         if slot.pages:
             self._allocator.free(slot.pages)
             slot.pages = []
@@ -1902,23 +2013,30 @@ class ContinuousBatcher:
         if self._spec is not None:
             return self._dispatch_spec()
         k = self._pick_k()
-        # grow every eligible slot's pages to cover this dispatch's k writes,
-        # positions dispatched_pos() .. dispatched_pos() + k - 1; a shed
-        # inside the loop can deactivate a later slot of the snapshot
-        for i in self._dispatch_eligible():
-            if self._slots[i].active:
-                self._ensure_slot_pages(i, self._slots[i].dispatched_pos() + k - 1)
-        if not self._dispatch_eligible():
-            return
+        if self.paged:
+            # grow every eligible slot's pages to cover this dispatch's k
+            # writes, positions dispatched_pos() .. dispatched_pos() + k - 1;
+            # a shed inside the loop can deactivate a later slot of the
+            # snapshot
+            for i in self._dispatch_eligible():
+                if self._slots[i].active:
+                    self._ensure_slot_pages(i, self._slots[i].dispatched_pos() + k - 1)
+            if not self._dispatch_eligible():
+                return
         t0 = time.perf_counter()
+        lora = self._adapters is not None
         if self._graphs:
             toks = self._graphs[k].replay()
             self.server._decode_replays += 1
-        else:
-            toks = self.server._get_decode_step_paged(self.S, self.n_pages, k,
-                                                      self._adapters is not None)(
+        elif self.paged:
+            toks = self.server._get_decode_step_paged(self.S, self.n_pages, k, lora)(
                 self._caches, self._last_tok, self._next_pos, self._keys, self._temp,
                 self._block_tables, **self._lora(self._adapter_ids))
+            self.server._decode_eager += 1
+        else:
+            toks = self.server._get_decode_step(self.S, self.max_len, k, lora)(
+                self._caches, self._last_tok, self._next_pos, self._keys, self._temp,
+                **self._lora(self._adapter_ids))
             self.server._decode_eager += 1
         self.server._decode_dispatch_times.append(time.perf_counter() - t0)
         host, event = self._stage_to_host(toks)
@@ -1945,13 +2063,14 @@ class ContinuousBatcher:
             cap = min(self._spec.cap(i), K, s.max_new - s.disp_new - 1,
                       (self.max_len - 1) - s.dispatched_pos())
             caps[i] = max(int(cap), 0)
-        # pages to the step's furthest possible write; a shed inside the
-        # loop can deactivate a later slot of the snapshot
-        for i in self._dispatch_eligible():
-            if self._slots[i].active:
-                self._ensure_slot_pages(i, self._slots[i].dispatched_pos() + int(caps[i]))
-        if not self._dispatch_eligible():
-            return
+        if self.paged:
+            # pages to the step's furthest possible write; a shed inside the
+            # loop can deactivate a later slot of the snapshot
+            for i in self._dispatch_eligible():
+                if self._slots[i].active:
+                    self._ensure_slot_pages(i, self._slots[i].dispatched_pos() + int(caps[i]))
+            if not self._dispatch_eligible():
+                return
         self._draft_cap.copy_(self._to_device(caps))
         t0 = time.perf_counter()
         if self._spec_graph is not None:
@@ -1959,7 +2078,7 @@ class ContinuousBatcher:
             self.server._decode_replays += 1
         else:
             out = self.server._get_spec_step(
-                self.S, K, self.hist_len, mode=self.spec_mode, layout="paged",
+                self.S, K, self.hist_len, mode=self.spec_mode, layout=self.layout,
                 n_pages=self.n_pages, lora=self._adapters is not None)(
                     self._caches, self._last_tok, self._next_pos, self._keys, self._temp,
                     self._block_tables, self._hist, self._draft_cap, self._draft_caches,
@@ -2083,8 +2202,10 @@ class ContinuousBatcher:
                 return
             if self._remote is not None:
                 admitted = self._admit_remote(req)
-            else:
+            elif self.paged:
                 admitted = self._prefill is None and self._admit_begin(req)
+            else:
+                admitted = self._admit(req)
             if not admitted:
                 if req.slo_class == INTERACTIVE and self._preempt_for_interactive():
                     continue

@@ -73,7 +73,14 @@ no handed-off job is dropped and the old pool's device memory is free when
 ``close()`` returns (a worker whose thread outlived the join timeout keeps
 its state).
 
-Not here: the dense-layout handoff (the batcher is paged)."""
+The dense layout (``kv_cache_layout="dense"``): a worker holds one staging
+row of the batcher's slot-pool geometry (``max_len`` positions and a trash
+column, ``Transformer.init_slot_caches(1, max_len)``), reused job after job,
+and runs the local dense admission's one-shot prefill into it
+(``_get_prefill(1, plen, max_len)``, eager everywhere: the same program over
+the same row shape, so the same KV bits); the handoff is a copy of the
+prompt's ``plen`` columns, which the batcher inserts into the slot's row
+(``runtime/batcher.insert_slot_row``) over either transport."""
 
 from __future__ import annotations
 
@@ -292,7 +299,8 @@ class PrefillWorker:
     """One prefill worker: a thread that owns a stream, a staging page pool,
     fixed chunk buffers and (on a card) the chunk graphs over them, built on
     its own thread before its first job (the constructor waits for that and
-    raises what it raised). Its jobs come through ``submit``; each publishes
+    raises what it raised); under the dense layout a staging row instead,
+    and no graphs (module docstring). Its jobs come through ``submit``; each publishes
     one handoff. The backlog and closing flag live under ``self._cond``;
     everything else is the worker thread's. ``replays`` / ``eager_runs``
     count its chunks as graph replays (a card) and eager program runs (the
@@ -309,9 +317,8 @@ class PrefillWorker:
         if transport == "network" and receiver_addr is None:
             raise ValueError("network handoff transport needs the decode side's "
                              "HandoffReceiver address")
-        if layout != "paged":
-            raise NotImplementedError("the dense-layout handoff arrives with the dense batcher "
-                                      "layout; this port's prefill workers are paged")
+        if layout not in ("paged", "dense"):
+            raise ValueError(f"unknown kv_cache_layout {layout!r} for a prefill worker")
         self.server = server
         self.queue = queue
         self.device = torch.device(device)
@@ -436,16 +443,20 @@ class PrefillWorker:
 
         server, dev = self.server, self.device
         self._params = server._params_on(dev)
+        # the batcher's temperature form (a 0-dim tensor on this device, or
+        # None for greedy), so the first token samples as local admission's
+        self._temp = (torch.full((), float(server.temperature), dtype=torch.float32, device=dev)
+                      if float(server.temperature) > 0 else None)
+        if self.layout == "dense":
+            self._staging = self._params.init_slot_caches(1, self.max_len,
+                                                          server.kv_cache_dtype, device=dev)
+            return
         self._staging = server._get_staging_pool_init(RESERVED_PAGES + self.n_pages,
                                                       self.page_size)(dev)
         cmax = max(self.chunks)
         self._row = torch.full((1, self.n_pages), NULL_PAGE, dtype=torch.int32, device=dev)
         self._tokens = torch.zeros((1, cmax), dtype=torch.int64, device=dev)
         self._pos = torch.full((1, cmax), PAD_POS, dtype=torch.int32, device=dev)
-        # the batcher's temperature form (a 0-dim tensor on this device, or
-        # None for greedy), so the first token samples as local admission's
-        self._temp = (torch.full((), float(server.temperature), dtype=torch.float32, device=dev)
-                      if float(server.temperature) > 0 else None)
         if dev.type == "cuda":
             self._graphs = capture_prefill_chunks(server, self.chunks, self._staging, self._row,
                                                   self._tokens, self._pos, stream=self._stream)
@@ -469,7 +480,8 @@ class PrefillWorker:
         from seldon_core_tpu_torch.runtime.flight import EV_HANDOFF_COMPUTE, EV_HANDOFF_TRANSFER
 
         t0 = time.perf_counter()
-        staged, first_logits, first, key = self._prefill_paged(req)
+        prefill = self._prefill_paged if self.layout == "paged" else self._prefill_dense
+        staged, first_logits, first, key = prefill(req)
         t1 = time.perf_counter()
         events = ([(t1, EV_HANDOFF_COMPUTE, {"worker": self.name, "dur_s": t1 - t0})]
                   if req.record_events else [])
@@ -572,6 +584,28 @@ class PrefillWorker:
         # the one host sync of a job, on this thread: the first token, and
         # the logits the frame carries
         first, key = first_token(row_logits, req.first_key, self._temp, server.top_k)
+        return staged, row_logits.float().cpu().numpy(), first, key
+
+    def _prefill_dense(self, req: PrefillRequest):
+        """The dense admission's one-shot prefill (the JAX package's
+        ``_prefill_dense``) into the staging row, which the program resets
+        first, eagerly. Returns (the bucket: a copy of the row's first
+        ``plen`` columns of every tensor; the last position's logits as a
+        float32 host array; the first token; the key after it)."""
+        from seldon_core_tpu_torch.models.transformer import PAD_POS
+        from seldon_core_tpu_torch.servers.llmserver import first_token
+
+        L = len(req.ids)
+        toks = np.zeros((1, req.plen), np.int64)
+        pos = np.full((1, req.plen), PAD_POS, np.int32)
+        toks[0, :L] = req.ids
+        pos[0, :L] = np.arange(L)
+        self.eager_runs += 1
+        logits = self.server._get_prefill(1, req.plen, self.max_len, device=self.device)(
+            self._staging, self._to_device(toks), self._to_device(pos))
+        staged = [tuple(t[:, :req.plen].clone() for t in layer) for layer in self._staging]
+        row_logits = logits[0, L - 1]
+        first, key = first_token(row_logits, req.first_key, self._temp, self.server.top_k)
         return staged, row_logits.float().cpu().numpy(), first, key
 
     # -- network transport (worker side) -------------------------------

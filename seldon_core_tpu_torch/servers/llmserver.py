@@ -327,6 +327,24 @@ class _DenseBuffer:
         return self.tok[:b], self.pos[:b], self.done[:b], self.keys[:b]
 
 
+def _decode_steps(module, k: int, top_k: int, last_tok: torch.Tensor, next_pos: torch.Tensor,
+                  keys: torch.Tensor, temperature, **forward) -> torch.Tensor:
+    """``k`` decode steps of the batcher's step programs: each feeds
+    ``last_tok`` at ``next_pos`` through ``module`` (``forward``: the caches
+    and how they are addressed, the adapters), samples with
+    ``sample_tokens`` (one key split), and updates ``keys``, ``last_tok``
+    and ``next_pos`` in place. Returns the tokens [slots, k]."""
+    tokens = torch.empty((last_tok.shape[0], k), dtype=torch.int64, device=last_tok.device)
+    for j in range(k):
+        logits, _ = module(last_tok[:, None], positions=next_pos[:, None], **forward)
+        new_keys, nxt = sample_tokens(keys, logits[:, -1], temperature, top_k)
+        keys.copy_(new_keys)
+        last_tok.copy_(nxt)
+        next_pos.add_(1)
+        tokens[:, j] = nxt
+    return tokens
+
+
 def _lora_args_bad(lora: bool, adapters, adapter_ids, rows: int) -> bool:
     """True when an adapted program (``lora``) lacks its adapter pool or
     its ``adapter_ids`` of ``rows`` entries, or a base program is given
@@ -806,14 +824,27 @@ class LLMServer(SeldonComponent):
                                                    adapter_ids=adapter_ids)
         return self._module(tokens, positions=positions, caches=caches, cache_index=0, **lora)
 
-    def _get_prefill(self, b: int, plen: int, max_len: int):
+    def _get_prefill(self, b: int, plen: int, max_len: int, lora: bool = False,
+                     device: Optional[Any] = None):
         """Port of ``_get_prefill``: the dense prefill program, cached under
         ``("prefill", b, plen, max_len)``. Its call ``prefill(caches, tokens,
         positions)`` (caches [b, max_len, ...], ``tokens`` [b, plen] int64,
         ``positions`` [b, plen], PAD_POS past each prompt) first resets the
         caches in place to what ``init_kv_caches`` makes, then writes them
-        from offset 0, and returns the logits [b, plen, vocab]."""
-        return self._dense_prefill(self._module, "prefill", b, plen, max_len)
+        from offset 0, and returns the logits [b, plen, vocab]. The caches
+        may be a slot pool's row (``Transformer.slot_rows``: the dense
+        batcher's admission), reset trash column and all. ``lora=True`` is
+        the adapted program, under ``("prefill", b, plen, max_len, True)``:
+        its call also takes ``adapters`` (the adapter pool) and
+        ``adapter_ids`` ([b] int). ``device`` (a prefill worker's) other
+        than the server's runs the same program over the weights there
+        (``_params_on``), under a key that also names the device."""
+        from seldon_core_tpu_torch.runtime.disagg import same_device
+
+        if device is None or same_device(device, self.device):
+            return self._dense_prefill(self._module, "prefill", b, plen, max_len, lora)
+        return self._dense_prefill(self._params_on(device), "prefill", b, plen, max_len, lora,
+                                   (str(torch.device(device)),))
 
     def _get_extend(self, b: int, slen: int, max_len: int):
         """Port of ``_get_extend``: the suffix prefill of a prefix-cache
@@ -857,26 +888,31 @@ class LLMServer(SeldonComponent):
             raise ValueError("no draft model loaded: pass draft_model=<registry name>")
         return self._dense_prefill(self._draft_module, "draft_prefill", b, plen, max_len)
 
-    def _dense_prefill(self, module, name: str, b: int, plen: int, max_len: int):
+    def _dense_prefill(self, module, name: str, b: int, plen: int, max_len: int,
+                       lora: bool = False, tail: Tuple[Any, ...] = ()):
         """The dense prefill program of ``module`` under ``(name, b, plen,
-        max_len)`` (``_get_prefill``, ``_get_draft_prefill``)."""
+        max_len)``, ``lora=True`` adding ``True`` to the key and ``tail``
+        the rest (``_get_prefill``, ``_get_draft_prefill``)."""
         from seldon_core_tpu_torch.models.transformer import reset_kv_caches
 
-        b, plen, max_len = int(b), int(plen), int(max_len)
-        key = (name, b, plen, max_len)
+        b, plen, max_len, lora = int(b), int(plen), int(max_len), bool(lora)
+        key = (name, b, plen, max_len) + ((True,) if lora else ()) + tuple(tail)
         with self._lock:
             fn = self._prefill_cache.get(key)
         if fn is not None:
             return fn
 
-        def prefill(caches, tokens, positions):
+        def prefill(caches, tokens, positions, adapters=None, adapter_ids=None):
             if (module.cache_lead(caches) != (b, max_len) or tuple(tokens.shape) != (b, plen)
-                    or tuple(positions.shape) != (b, plen)):
+                    or tuple(positions.shape) != (b, plen)
+                    or _lora_args_bad(lora, adapters, adapter_ids, b)):
                 raise ValueError(f"dense prefill {key}: caches {module.cache_lead(caches)}, "
                                  f"tokens {tuple(tokens.shape)}, positions "
-                                 f"{tuple(positions.shape)}")
+                                 f"{tuple(positions.shape)}, adapters "
+                                 f"{_lora_args_text(adapters, adapter_ids)}")
             reset_kv_caches(caches)
-            logits, _ = module(tokens, positions=positions, caches=caches, cache_index=0)
+            logits, _ = module(tokens, positions=positions, caches=caches, cache_index=0,
+                               adapters=adapters, adapter_ids=adapter_ids)
             return logits
 
         with self._lock:
@@ -1049,6 +1085,45 @@ class LLMServer(SeldonComponent):
         with self._lock:
             return self._prefill_cache.setdefault(key, prefill)
 
+    def _get_decode_step(self, slots: int, max_len: int, k: int = 1, lora: bool = False):
+        """Port of ``_get_decode_step``: the program of ``k`` decode steps
+        over the dense batcher's slot pool, cached under ``("pipestep",
+        slots, max_len, k, lora)`` (not generate()'s one-step ``_get_decode``).
+        Its call ``step(caches, last_tok, next_pos, keys, temperature)``
+        (``caches`` a slot pool of ``slots`` rows of ``max_len`` positions,
+        ``Transformer.init_slot_caches``) feeds each slot's ``last_tok`` at
+        ``next_pos``, also its write offset (a slot past its row, a free one
+        stepping on, writes the trash column), and otherwise runs as
+        ``_get_decode_step_paged``: sampling state on the device, ``last_tok``,
+        ``next_pos`` and ``keys`` updated in place, the tokens [slots, k]
+        returned, ``lora=True`` taking ``adapters`` and ``adapter_ids``.
+        Nothing is read back to the host, so the same call is what a CUDA
+        graph captures (``servers/step_graph.py``)."""
+        slots, max_len, k, lora = int(slots), int(max_len), int(k), bool(lora)
+        key = ("pipestep", slots, max_len, k, lora)
+        with self._lock:
+            fn = self._decode_cache.get(key)
+        if fn is not None:
+            return fn
+        module, top_k = self._module, self.top_k
+
+        def step(caches, last_tok, next_pos, keys, temperature, adapters=None,
+                 adapter_ids=None):
+            if (getattr(caches, "width", None) is None
+                    or module.cache_lead(caches) != (slots, max_len)
+                    or last_tok.shape != (slots,)
+                    or _lora_args_bad(lora, adapters, adapter_ids, slots)):
+                raise ValueError(f"decode step {key}: caches {module.cache_lead(caches)} "
+                                 f"(a slot pool: {getattr(caches, 'width', None) is not None}), "
+                                 f"last_tok {tuple(last_tok.shape)}, adapters "
+                                 f"{_lora_args_text(adapters, adapter_ids)}")
+            return _decode_steps(module, k, top_k, last_tok, next_pos, keys, temperature,
+                                 caches=caches, cache_index=next_pos, adapters=adapters,
+                                 adapter_ids=adapter_ids)
+
+        with self._lock:
+            return self._decode_cache.setdefault(key, step)
+
     def _get_decode_step_paged(self, slots: int, n_pages: int, k: int = 1, lora: bool = False):
         """Port of ``_get_decode_step_paged``: the program of ``k`` decode
         steps over the paged pool, cached under ``("pagedstep", slots,
@@ -1077,17 +1152,9 @@ class LLMServer(SeldonComponent):
                 raise ValueError(f"decode step {key}: block_tables {tuple(block_tables.shape)}, "
                                  f"last_tok {tuple(last_tok.shape)}, adapters "
                                  f"{_lora_args_text(adapters, adapter_ids)}")
-            tokens = torch.empty((slots, k), dtype=torch.int64, device=last_tok.device)
-            for j in range(k):
-                logits, _ = module(last_tok[:, None], positions=next_pos[:, None], caches=pools,
-                                   block_tables=block_tables, adapters=adapters,
-                                   adapter_ids=adapter_ids)
-                new_keys, nxt = sample_tokens(keys, logits[:, -1], temperature, top_k)
-                keys.copy_(new_keys)
-                last_tok.copy_(nxt)
-                next_pos.add_(1)
-                tokens[:, j] = nxt
-            return tokens
+            return _decode_steps(module, k, top_k, last_tok, next_pos, keys, temperature,
+                                 caches=pools, block_tables=block_tables, adapters=adapters,
+                                 adapter_ids=adapter_ids)
 
         with self._lock:
             return self._decode_cache.setdefault(key, step)
@@ -1100,6 +1167,9 @@ class LLMServer(SeldonComponent):
         chain, cached under ``("specstep", slots, spec_k, hist_len, mode,
         layout, n_pages, lora)``. Its call ``step(pools, last_tok, next_pos,
         keys, temperature, block_tables, hist, draft_cap, draft_caches=None)``
+        (``layout="dense"``: ``pools`` the dense batcher's slot pool of
+        ``hist_len`` positions a row, ``Transformer.init_slot_caches``, and
+        ``block_tables`` None)
         (``lora=True``: also ``adapters`` and ``adapter_ids`` [slots], which
         only the target's verify reads; the drafts stay base) computes, in
         order:
@@ -1117,7 +1187,10 @@ class LLMServer(SeldonComponent):
         - the target forward over ``[last_tok, d_1..d_K]`` at positions
           next_pos.. (PAD_POS past the cap), its attention through
           ``ops.paged_attention`` with the columns folded into rows
-          (``Transformer.forward(verify=True)``);
+          (``Transformer.forward(verify=True)``); over a dense slot pool a
+          K+1-column forward whose tokens write each at its position (a
+          PAD_POS column, or one past the row, to the trash column) and
+          read the plain masked attention, as the JAX package's;
         - the chain-exact accept loop: column j's logits sampled with
           ``sample_tokens`` give token j+1, the key is split only while
           accepting, and a draft is accepted while the sample equals it;
@@ -1126,8 +1199,8 @@ class LLMServer(SeldonComponent):
           ``hist`` is [slots, hist_len + 1]) and the reject repair: the
           position rows of the columns that lost verification go back to
           PAD_POS (the pool through ``paged_write_targets``, a column past
-          the table to TRASH; the draft cache by position, past its length
-          to its trash column).
+          the table to TRASH; a dense slot pool and the draft cache by
+          position, past their length to their trash column).
 
         ``last_tok``, ``next_pos``, ``keys`` and ``hist`` are updated in
         place (the JAX package donated them), the pools and draft caches
@@ -1146,23 +1219,21 @@ class LLMServer(SeldonComponent):
         mode = normalize_spec_mode(mode)
         if mode == "off":
             raise ValueError("_get_spec_step needs spec mode 'ngram' or 'draft'")
-        if normalize_kv_cache_layout(layout) != "paged":
-            raise NotImplementedError(
-                "a speculative step over a dense slot cache arrives with the dense batcher "
-                "layout (kv_cache_layout='dense'); the port's batcher verifies over the "
-                "paged pool")
+        layout = normalize_kv_cache_layout(layout)
+        paged = layout == "paged"
         S, K, H, n_pages, lora = int(slots), int(spec_k), int(hist_len), int(n_pages), bool(lora)
         if K < 1:
             raise ValueError(f"spec_k={K} must be >= 1")
         draft = mode == "draft"
         if draft and self._draft_module is None:
             raise ValueError("spec mode 'draft' needs the server loaded with draft_model=")
-        key = ("specstep", S, K, H, mode, "paged", n_pages, lora)
+        key = ("specstep", S, K, H, mode, layout, n_pages, lora)
         with self._lock:
             fn = self._decode_cache.get(key)
         if fn is not None:
             return fn
         module, dmodule, top_k = self._module, self._draft_module, self.top_k
+        lead = module.cache_lead
         ngram = max(self.spec_ngram or DEFAULT_SPEC_NGRAM, 1)
 
         def propose_ngram(hist, next_pos, cap):
@@ -1199,11 +1270,16 @@ class LLMServer(SeldonComponent):
 
         def step(pools, last_tok, next_pos, keys, temperature, block_tables, hist, draft_cap,
                  draft_caches=None, adapters=None, adapter_ids=None):
-            if (tuple(block_tables.shape) != (S, n_pages) or last_tok.shape != (S,)
+            bad_pool = (tuple(block_tables.shape) != (S, n_pages) if paged else
+                        block_tables is not None or getattr(pools, "width", None) is None
+                        or module.cache_lead(pools) != (S, H))
+            if (bad_pool or last_tok.shape != (S,)
                     or tuple(hist.shape) != (S, H + 1) or draft_cap.shape != (S,)
                     or (draft_caches is None) == draft
                     or _lora_args_bad(lora, adapters, adapter_ids, S)):
-                raise ValueError(f"spec step {key}: block_tables {tuple(block_tables.shape)}, "
+                raise ValueError(f"spec step {key}: block_tables "
+                                 f"{None if block_tables is None else tuple(block_tables.shape)}, "
+                                 f"pool {None if paged or pools is None else lead(pools)}, "
                                  f"last_tok {tuple(last_tok.shape)}, hist {tuple(hist.shape)}, "
                                  f"draft_cap {tuple(draft_cap.shape)}, draft caches "
                                  f"{'given' if draft_caches is not None else 'missing'}, "
@@ -1218,9 +1294,14 @@ class LLMServer(SeldonComponent):
             tokens_in = torch.cat([last_tok[:, None], drafts], dim=1)
             positions = torch.where(cols[None, :] <= dlen[:, None], next_pos[:, None] + cols,
                                     PAD_POS)
-            logits, _ = module(tokens_in, positions=positions, caches=pools,
-                               block_tables=block_tables, adapters=adapters,
-                               adapter_ids=adapter_ids, verify=True)
+            if paged:
+                logits, _ = module(tokens_in, positions=positions, caches=pools,
+                                   block_tables=block_tables, adapters=adapters,
+                                   adapter_ids=adapter_ids, verify=True)
+            else:
+                logits, _ = module(tokens_in, positions=positions, caches=pools,
+                                   cache_index=next_pos, adapters=adapters,
+                                   adapter_ids=adapter_ids)
             # chain-exact accept loop: sample column j -> token j+1; the key
             # advances ONLY while accepting
             out = torch.zeros((S, K + 2), dtype=torch.int64, device=dev)
@@ -1247,11 +1328,17 @@ class LLMServer(SeldonComponent):
             rcols = cols[1:]
             rej = rcols[None, :].long() >= a[:, None]
             rpos = torch.where(rej, next_pos[:, None] + rcols, PAD_POS)
-            entry, off = paged_write_targets(block_tables, rpos, pools[0][0].shape[1])
             pad = torch.full_like(rpos, PAD_POS)
-            for layers, local in module.pool_ranks(pools, entry):
-                for layer in layers:
-                    layer[-1][local, off] = pad
+            if paged:
+                entry, off = paged_write_targets(block_tables, rpos, pools[0][0].shape[1])
+                for layers, local in module.pool_ranks(pools, entry):
+                    for layer in layers:
+                        layer[-1][local, off] = pad
+            else:
+                for layers, rows, at in module.slot_columns(pools, rpos):
+                    ri = torch.arange(at.shape[0], device=dev)[:, None]
+                    for layer in layers:
+                        layer[-1][ri, at] = pad[rows]
             if draft:
                 width = draft_caches[0][-1].shape[1] - 1
                 rows = torch.arange(S, device=dev)[:, None]

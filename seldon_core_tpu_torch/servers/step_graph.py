@@ -21,7 +21,9 @@ RMSNorm, K4's two int8 GEMM routes), unchanged.
 What the capture relies on:
 
 - fixed addresses: a decode step reads and writes the batcher's pools,
-  block tables and per-slot state (``last_tok``, ``next_pos``, ``keys``),
+  block tables and per-slot state (``last_tok``, ``next_pos``, ``keys``)
+  (the dense layout's: its slot pool, which admission prefills in place,
+  and the same state),
   a prefill chunk the pools and the batcher's fixed row, token and position
   buffers, the CoW copy the pools and the batcher's fixed ``_cow_args``
   (source page, destination page, valid tokens); the batcher updates all
@@ -153,19 +155,27 @@ def _capture(program: Callable[[], torch.Tensor], pool=None) -> ReplayGraph:
 @torch.no_grad()
 def capture_decode_steps(server, ks: Sequence[int], pools, last_tok: torch.Tensor,
                          next_pos: torch.Tensor, keys: torch.Tensor,
-                         temperature: Optional[torch.Tensor], block_tables: torch.Tensor,
+                         temperature: Optional[torch.Tensor], block_tables: Optional[torch.Tensor],
                          lora: Optional[Dict[str, Any]] = None) -> Dict[int, ReplayGraph]:
     """Capture ``server._get_decode_step_paged(slots, n_pages, k, lora)``
     for each k of ``ks`` over these buffers, on the server's capture stream,
-    after a warm-up run of each (module docstring). ``lora`` (the adapted
-    program's ``adapters`` and ``adapter_ids`` keywords; empty or None for
-    the unadapted one). Returns k -> ReplayGraph (its output: the tokens
-    [slots, k]). The current stream waits for the capture stream before
-    this returns."""
+    after a warm-up run of each (module docstring); with ``block_tables``
+    None, ``pools`` is the dense batcher's slot pool and the program
+    ``server._get_decode_step(slots, width, k, lora)`` (the warm-up writes
+    the free slots' rows, which every admission resets). ``lora`` (the
+    adapted program's ``adapters`` and ``adapter_ids`` keywords; empty or
+    None for the unadapted one). Returns k -> ReplayGraph (its output: the
+    tokens [slots, k]). The current stream waits for the capture stream
+    before this returns."""
     lora = lora or {}
-    slots, n_pages = block_tables.shape
-    programs = {k: server._get_decode_step_paged(slots, n_pages, k, bool(lora)) for k in ks}
-    args = (pools, last_tok, next_pos, keys, temperature, block_tables)
+    slots = last_tok.shape[0]
+    if block_tables is None:
+        programs = {k: server._get_decode_step(slots, pools.width, k, bool(lora)) for k in ks}
+        args = (pools, last_tok, next_pos, keys, temperature)
+    else:
+        programs = {k: server._get_decode_step_paged(slots, block_tables.shape[1], k, bool(lora))
+                    for k in ks}
+        args = (pools, last_tok, next_pos, keys, temperature, block_tables)
     state = (last_tok, next_pos, keys)
     graphs = {}
     with _on_capture_stream(server._graph_stream(), last_tok.device):
@@ -250,7 +260,7 @@ def capture_generate_step(server, b: int, max_len: int, caches, tok: torch.Tenso
 @torch.no_grad()
 def capture_spec_step(server, spec_k: int, mode: str, pools, last_tok: torch.Tensor,
                       next_pos: torch.Tensor, keys: torch.Tensor,
-                      temperature: Optional[torch.Tensor], block_tables: torch.Tensor,
+                      temperature: Optional[torch.Tensor], block_tables: Optional[torch.Tensor],
                       hist: torch.Tensor, draft_cap: torch.Tensor, draft_caches=None,
                       lora: Optional[Dict[str, Any]] = None) -> ReplayGraph:
     """Capture ``server._get_spec_step(slots, spec_k, hist_len, mode=mode,
@@ -258,8 +268,10 @@ def capture_spec_step(server, spec_k: int, mode: str, pools, last_tok: torch.Ten
     state, the block tables, ``hist`` [slots, hist_len + 1], ``draft_cap``
     [slots] and in draft mode the dense draft caches) on the server's
     capture stream, in a pool of its own, after a warm-up run with
-    ``draft_cap`` zero (module docstring). The warm-up reads all-TRASH
-    block tables, so it writes only the TRASH page; the slot state and
+    ``draft_cap`` zero (module docstring); with ``block_tables`` None the
+    step of ``layout="dense"`` over the slot pool ``pools``. The warm-up
+    reads all-TRASH block tables, so it writes only the TRASH page (over a
+    slot pool: the free slots' rows, which admission resets); the slot state and
     ``hist`` are restored after it, and the draft caches reset (every
     admission rewrites its slot's row). Returns the ReplayGraph (its
     output: [slots, spec_k + 2], the tokens and, last, the advance). The
@@ -268,9 +280,11 @@ def capture_spec_step(server, spec_k: int, mode: str, pools, last_tok: torch.Ten
     from seldon_core_tpu_torch.models.transformer import reset_kv_caches
 
     lora = lora or {}
-    slots, n_pages = block_tables.shape
+    slots = last_tok.shape[0]
+    n_pages = 0 if block_tables is None else block_tables.shape[1]
     program = server._get_spec_step(slots, spec_k, hist.shape[1] - 1, mode=mode,
-                                    layout="paged", n_pages=n_pages, lora=bool(lora))
+                                    layout="dense" if block_tables is None else "paged",
+                                    n_pages=n_pages, lora=bool(lora))
     args = (pools, last_tok, next_pos, keys, temperature, block_tables, hist, draft_cap,
             draft_caches)
     state = (last_tok, next_pos, keys, hist)

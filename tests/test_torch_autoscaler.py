@@ -412,6 +412,47 @@ def test_rebalance_moves_workers_mid_stream_tokens_equal_local_and_jax(pair):
     assert stats["handoffs_total"] == 3 * len(PROMPTS) and stats["handoff_queue_depth"] == 0
 
 
+def test_rebalance_over_a_dense_batcher_tokens_equal_local_and_jax(pair):
+    """``rebalance_disagg`` on a dense batcher (JAX ``tests/test_autoscaler.
+    py``'s dense case): jobs staged on the outgoing pool still deliver
+    through the shared queue, the new workers hold a staging row each, and
+    every token equals the local dense batcher's and JAX's."""
+    j, p = pair
+    kw = dict(BKW, layout="dense")
+    kw.pop("page_size")
+
+    async def jax_run():
+        b = JaxBatcher(j, **kw)
+        outs = await asyncio.gather(*[b.submit(q, max_new_tokens=8) for q in PROMPTS * 2])
+        await b.close()
+        return outs
+
+    local = ContinuousBatcher(p, device="cpu", disaggregation="off", **kw)
+    try:
+        want = [f.result(TIMEOUT) for f in [local.submit(q, 8) for q in PROMPTS * 2]]
+    finally:
+        local.close()
+    assert want == asyncio.run(jax_run())
+    b = ContinuousBatcher(p, device="cpu", **kw)
+    try:
+        old = b._remote
+        gate = hold_pool(b)
+        futs = [b.submit(q, 8) for q in PROMPTS]
+        while b.handoff_stats()["handoff_queue_depth"] == 0:
+            pass     # a job is staged on the outgoing pool
+        threading.Timer(0.2, gate.set).start()
+        assert b.rebalance_disagg(1) and len(b._remote.workers) == 1
+        assert all(w._staging is None for w in old.workers)
+        assert tuple(b._remote.workers[0]._staging[0][-1].shape) == (1, kw["max_len"] + 1)
+        outs = [f.result(TIMEOUT) for f in futs]
+        outs += [f.result(TIMEOUT) for f in [b.submit(q, 8) for q in PROMPTS]]
+        assert b.handoff_stats()["handoffs_total"] == 2 * len(PROMPTS)
+        assert not any(s.active or s.prefilling for s in b._slots)
+    finally:
+        b.close()
+    assert outs == want
+
+
 def test_rebalance_refusals_change_nothing(pair):
     _, p = pair
     b = ContinuousBatcher(p, device="cpu", **dict(BKW, max_slots=2))

@@ -22,6 +22,9 @@ on the JAX server's weights:
   batch-class remote job;
 - load validation raises JAX's messages; the four handoff series reach
   ``/metrics`` with JAX's names, help texts and values after the same run;
+- the dense layout's handoff: tokens == local dense == JAX's dense
+  ``remote_prefill``, one staging row a worker; a mesh keeps JAX's
+  refusal word for word;
 - the one-card pins: one device is accepted (the JAX package needs two)
   and a worker on the server's device holds the server's own weight
   tensors (``data_ptr`` equal); a decode slice of several devices is
@@ -98,9 +101,9 @@ def port_batch(server, prompts, n=8, seeds=None, **kw):
     return outs, stats[0], stats[1], b
 
 
-def jax_batch(server, prompts, n=8, **kw):
+def jax_batch(server, prompts, n=8, layout="paged", **kw):
     async def go():
-        b = JaxBatcher(server, layout="paged", **dict(BKW, **kw))
+        b = JaxBatcher(server, layout=layout, **dict(BKW, **kw))
         outs = await asyncio.gather(*[b.submit(p, max_new_tokens=n) for p in prompts])
         stats = b.handoff_stats(), b.page_stats()
         await b.close()
@@ -125,6 +128,49 @@ def test_greedy_remote_equals_jax_and_local(pairs, kv, workers):
     assert stats["handoff_transfer_bytes_total"] > 0
     assert lstats["handoffs_total"] == 0 and lstats["disaggregation"] == "off"
     assert pages["kv_pages_in_use"] == jpages["kv_pages_in_use"] == 0
+
+
+@pytest.mark.parametrize("kv", ["float", "int8"])
+def test_dense_remote_equals_jax_and_local(pairs, kv):
+    """The dense layout's handoff (``PrefillWorker._prefill_dense``, the
+    batcher's ``insert_slot_row``): tokens equal the local dense batcher's
+    and JAX's dense ``remote_prefill``, with 2 workers and more requests
+    than slots (rows reused); each worker prefilled into its one staging
+    row, of the slot pool's geometry; every slot back. The handoff carries
+    the prompt's columns, where JAX's carries the whole row, so the bytes
+    differ."""
+    j, p = pairs(kv)
+    local, _, _, _ = port_batch(p, PROMPTS, disaggregation="off", layout="dense")
+    b = ContinuousBatcher(p, device="cpu", prefill_workers=2, layout="dense", **BKW)
+    try:
+        rows = [w._staging for w in b._remote.workers]
+        assert all(tuple(r[0][-1].shape) == (1, BKW["max_len"] + 1) for r in rows)
+        outs = [f.result(TIMEOUT) for f in [b.submit(q, 8) for q in PROMPTS]]
+        stats, pages = b.handoff_stats(), b.page_stats()
+        assert all(w._staging is r for w, r in zip(b._remote.workers, rows))   # reused
+        assert sum(w.eager_runs for w in b._remote.workers) == len(PROMPTS)
+    finally:
+        b.close()
+    jouts, jstats, _ = jax_batch(j, PROMPTS, prefill_workers=2, layout="dense")
+    assert outs == jouts == local
+    assert stats["handoffs_total"] == jstats["handoffs_total"] == len(PROMPTS)
+    assert stats["handoff_queue_depth"] == 0 and stats["handoff_transfer_bytes_total"] > 0
+    assert pages["kv_pages_total"] == 0
+    assert not any(s.active or s.prefilling for s in b._slots) and not b._remote_jobs
+
+
+def test_dense_disagg_over_a_mesh_keeps_jax_error():
+    """Disaggregation with a mesh refuses with the JAX package's message,
+    word for word, under the dense layout too."""
+    from seldon_core_tpu_torch.parallel.topology import Topology
+
+    kw = dict(COMMON, kv_cache_layout="dense", tensor_parallel=2)
+    with pytest.raises(ValueError) as jerr:
+        JaxLLMServer(init_random=True, **kw).load()
+    with pytest.raises(ValueError) as perr:
+        LLMServer(device="cpu", init_random=True, topology=Topology(devices=["cpu"] * 2),
+                  **kw).load()
+    assert str(perr.value) == str(jerr.value)
 
 
 def test_admission_mid_decode_steps_in_flight(pairs):

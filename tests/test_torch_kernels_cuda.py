@@ -1021,6 +1021,149 @@ def test_spec_batcher_through_graph_equals_eager_batcher(dev, mode):
     assert outs["graph"] == outs["eager"]
 
 
+def _dense_admit(b, prompts):
+    """One-shot admissions into a dense batcher's slots on this thread (its
+    loop never starts): live slot rows and state for direct steps."""
+    from concurrent.futures import Future
+
+    from seldon_core_tpu_torch.runtime.scheduler import PendingRequest
+
+    for p in prompts:
+        assert b._admit(PendingRequest(ids=list(p), max_new=12, fut=Future()))
+
+
+def _slot_pool_copy(b):
+    """Copies of a dense batcher's slot pool (a ``SlotCaches``), slot
+    state, history and draft caches."""
+    from seldon_core_tpu_torch.models.transformer import SlotCaches
+
+    pools = SlotCaches([tuple(t.clone() for t in layer) for layer in b._caches], b.max_len)
+    draft = None if b._draft_caches is None else [tuple(t.clone() for t in layer)
+                                                  for layer in b._draft_caches]
+    hist = None if b._hist is None else b._hist.clone()
+    return pools, b._last_tok.clone(), b._next_pos.clone(), b._keys.clone(), hist, draft
+
+
+def _assert_dense_equal(b, copy):
+    """Slot state, history, draft caches and every slot row but the trash
+    column (where dropped writes land in no set order) equal ``copy``."""
+    pools, last_tok, next_pos, keys, hist, draft = copy
+    assert torch.equal(b._last_tok, last_tok) and torch.equal(b._next_pos, next_pos)
+    assert torch.equal(b._keys, keys)
+    assert hist is None or torch.equal(b._hist, hist)
+    for la, lb in zip(b._caches, pools):
+        for x, y in zip(la, lb):
+            assert torch.equal(x[:, :-1], y[:, :-1])
+    for la, lb in zip(b._draft_caches or (), draft or ()):
+        for x, y in zip(la, lb):
+            assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+def test_dense_decode_graph_replay_bit_equals_eager(dev, kv):
+    """The dense layout's decode step (``_get_decode_step``) captured at K
+    = 1 and 4 under ``set_sync_debug_mode("error")``: from identical copies
+    of the slot pool and state (two live slots, one free slot stepping on
+    in its own row), one replay and one eager call give bit-equal tokens,
+    state and every slot row but the trash column; each replay adds what
+    its capture counted: one K2 a layer a step, in the int8 model one K4
+    decode launch a product, no K1 (the dense read is the masked einsum)."""
+    from seldon_core_tpu_torch.servers.step_graph import launch_counts
+
+    s, b = _graph_batcher(dev, kv, temperature=0.7, layout="dense")
+    assert sorted(b._graphs) == [1, 4] and not b._prefill_graphs and b._block_tables is None
+    _dense_admit(b, ([5, 9, 17, 2, 40, 3, 22, 8, 11, 60], [7, 7, 1]))
+    n_layers = SMALL_LLM["n_layers"]
+    for k in (1, 4, 1):
+        copy = _slot_pool_copy(b)
+        before = launch_counts()
+        toks = b._graphs[k].replay().clone()
+        after = launch_counts()
+        eager = s._get_decode_step(b.S, b.max_len, k)(*copy[:4], b._temp)
+        torch.cuda.synchronize()
+        assert torch.equal(toks, eager) and toks.shape == (3, k)
+        _assert_dense_equal(b, copy)
+        delta = {key: n - before[key] for key, n in after.items() if n != before[key]}
+        assert delta == dict(b._graphs[k].counts)
+        k1 = paged_attention.paged_attention
+        assert not delta.get((k1, "launches"), 0) and not delta.get((k1, "launches_int8"), 0)
+        assert delta[(fused_norm.fused_residual_rmsnorm, "launches")] == n_layers * k
+        k4 = delta.get((int8_matmul.int8_matmul, "launches"), 0)
+        assert k4 == ((7 * n_layers + 1) * k if kv == "int8" else 0)
+
+
+@pytest.mark.parametrize("mode,kv", [("ngram", "bf16"), ("ngram", "int8"), ("draft", "bf16")])
+def test_dense_spec_graph_replay_bit_equals_eager(dev, mode, kv):
+    """The dense spec step (a K+1-column verify over the slot pool, the
+    rejected columns' positions reset) captured under
+    ``set_sync_debug_mode("error")``: at three sets of caps, one replay and
+    one eager call from identical copies give bit-equal tokens and advance,
+    state, history, draft caches and every slot row but the trash column;
+    each replay adds what its capture counted: one K2 a layer (and one a
+    layer of each of the K+1 draft forwards), in the int8 model one K4
+    decode launch a product, no K1."""
+    from seldon_core_tpu_torch.servers.step_graph import launch_counts
+
+    s, b = _spec_batcher(dev, kv, mode, layout="dense")
+    assert b._spec_graph is not None and not b._graphs
+    _dense_admit(b, ([5, 9, 17, 2, 40, 3, 22, 8, 11, 60], [7, 7, 1, 7, 7, 1], [3, 3, 3, 3]))
+    assert all(slot.active for slot in b._slots)
+    n_layers = SMALL_LLM["n_layers"]
+    prog = s._get_spec_step(b.S, 4, b.hist_len, mode=mode, layout="dense")
+    for caps in ((4, 4, 4), (1, 0, 3), (4, 2, 4)):
+        b._draft_cap.copy_(torch.tensor(caps, dtype=torch.int32))
+        copy = _slot_pool_copy(b)
+        before = launch_counts()
+        out = b._spec_graph.replay().clone()
+        after = launch_counts()
+        eager = prog(*copy[:4], b._temp, None, copy[4], b._draft_cap, copy[5])
+        torch.cuda.synchronize()
+        assert out.shape == (3, 6) and torch.equal(out, eager)
+        adv = out[:, 5].cpu()
+        assert bool((adv >= 1).all()) and bool((adv <= torch.tensor(caps) + 1).all())
+        _assert_dense_equal(b, copy)
+        delta = {key: n - before[key] for key, n in after.items() if n != before[key]}
+        assert delta == dict(b._spec_graph.counts)
+        k1 = paged_attention.paged_attention
+        assert not delta.get((k1, "launches"), 0) and not delta.get((k1, "launches_int8"), 0)
+        drafts = 5 * n_layers if mode == "draft" else 0
+        assert delta[(fused_norm.fused_residual_rmsnorm, "launches")] == n_layers + drafts
+        k4 = delta.get((int8_matmul.int8_matmul, "launches"), 0)
+        assert k4 == (7 * n_layers + 1 if kv == "int8" else 0)
+
+
+@pytest.mark.parametrize("mode", ["plain", "ngram"])
+def test_dense_batcher_through_graphs_equals_eager_batcher(dev, mode):
+    """The same requests, one after another and four at once, through the
+    dense graphs and the eager dense programs (the private ``_eager``
+    switch), rows of 24 positions: the same tokens, every dispatch of the
+    graph batcher a replay; the free slots step past their rows on the
+    card without a device-side error (their writes go to the trash
+    column)."""
+    from seldon_core_tpu_torch.runtime.batcher import ContinuousBatcher
+
+    kw = dict(layout="dense", max_len=24, pipeline_depth=2)
+    s, b = (_spec_batcher(dev, "bf16", "ngram", **kw) if mode == "ngram"
+            else _graph_batcher(dev, "bf16", **kw))
+    prompts = ("hi", "hello there", "a", "four requests")
+    outs = {}
+    for name, batcher in (("graph", b), ("eager", ContinuousBatcher(
+            s, max_slots=3, fuse_steps=0 if mode == "ngram" else 4, device="cuda",
+            _eager=True, **kw))):
+        s._decode_replays = s._decode_eager = 0
+        try:
+            outs[name] = [batcher.submit(p, 10).result(120) for p in prompts]
+            outs[name] += [f.result(120) for f in [batcher.submit(p, 10) for p in prompts]]
+            torch.cuda.synchronize()
+        finally:
+            batcher.close()
+        assert int(batcher._next_pos.max()) > 24 and batcher.crashed is None
+        replays, eager = s._decode_replays, s._decode_eager
+        assert (replays > 0 and eager == 0) if name == "graph" else (replays == 0 and eager > 0)
+    assert [len(o) for o in outs["graph"]] == [10] * 8
+    assert outs["graph"] == outs["eager"]
+
+
 def test_sse_stream_through_graph_batcher(dev):
     """A stream over REST through the graph batcher (K = 4, 3 slots): each
     stream's token events equal its ``done`` tokens and its greedy tokens

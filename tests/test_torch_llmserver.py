@@ -7,6 +7,8 @@ and against itself, on the CPU at llama-tiny widths:
 - inside the port, the paged continuous batcher (pipeline depth 2,
   mid-stream admission, chunked prefill) gives exactly ``generate()``'s
   greedy tokens, and a seeded sampled request gives ``generate(seed=)``'s;
+- a server of ``kv_cache_layout="dense"`` serves through the dense slot
+  pool with ``generate()``'s tokens;
 - page-pool exhaustion sheds the newest request with 503 and returns every
   page; the stdlib REST server answers /ready and /v1/generate;
 - int8 serving: greedy ``generate()`` equals JAX's for ``kv_cache_dtype=
@@ -301,10 +303,20 @@ def test_later_slice_knobs_raise(kw, slice_name):
     assert not s.ready
 
 
-def test_dense_batcher_layout_raises(jax_params):
+def test_dense_batcher_layout_serves(jax_params):
+    """A server configured for the dense layout gives its batcher the dense
+    slot pool, which serves greedy and seeded requests with ``generate()``'s
+    tokens (tests/test_torch_dense_batcher.py holds it to JAX's)."""
     s = port_server(jax_params[1], kv_cache_layout="dense")
-    with pytest.raises(NotImplementedError, match="dense"):
-        ContinuousBatcher(s, device="cpu")
+    b = ContinuousBatcher(s, device="cpu", max_slots=2)
+    try:
+        assert not b.paged and b.page_stats()["kv_pages_total"] == 0
+        prompts = [[5, 9, 17], list(range(1, 21)), [7]]
+        futs = [b.submit(q, 6) for q in prompts]
+        assert [f.result(60) for f in futs] == [s.generate([q], max_new_tokens=6)["tokens"][0]
+                                                for q in prompts]
+    finally:
+        b.close()
 
 
 def test_rest_app_device_defaults_to_cuda(monkeypatch, server):

@@ -5,7 +5,9 @@ on the CPU, at ``tests/test_network_handoff.py``'s sizes:
 
 - greedy tokens over the socket == the device transport == JAX's network
   transport, the bytes really crossing the wire (the device transport
-  reports none); seeded tokens over the socket == the device transport's;
+  reports none), for the paged and the dense layout (the dense one also
+  == the local dense batcher); seeded tokens over the socket == the device
+  transport's;
   ``handoff_transport`` set on the server reaches the batcher;
 - a frame truncated in flight fails its own request, and the batch serves
   on;
@@ -85,6 +87,28 @@ def test_network_greedy_equals_device_and_jax(pair):
     assert nstats["handoff_network_bytes_total"] > dstats["handoff_transfer_bytes_total"]
     assert dstats["handoff_network_bytes_total"] == 0
     assert pages["kv_pages_in_use"] == 0
+
+
+def test_dense_network_equals_device_local_and_jax(pair):
+    """The dense layout's handoff over the socket: the worker's prompt
+    columns framed, received and inserted into the slot's row; tokens equal
+    the device transport's, the local dense batcher's and JAX's dense
+    network transport; every slot back."""
+    j, p = pair
+    dev, _, _ = port_batch(p, PROMPTS, "device", layout="dense")
+    net, nstats, pages = port_batch(p, PROMPTS, "network", layout="dense")
+    local, _, _ = port_batch(p, PROMPTS, "device", layout="dense", disaggregation="off")
+
+    async def go():
+        b = JaxBatcher(j, layout="dense", handoff_transport="network", **BKW)
+        outs = await asyncio.gather(*[b.submit(pr, max_new_tokens=8) for pr in PROMPTS])
+        await b.close()
+        return outs
+
+    assert net == dev == local == asyncio.run(go())
+    assert nstats["handoffs_total"] == len(PROMPTS) and nstats["handoff_queue_depth"] == 0
+    assert nstats["handoff_network_bytes_total"] > 0
+    assert pages["kv_pages_total"] == 0
 
 
 def test_network_seeded_equals_device():

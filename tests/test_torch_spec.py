@@ -27,8 +27,8 @@ tokens compare exactly:
   walk, which has entered its cycle) more than 1.5 tokens a forward, with
   the JAX batcher's exact counters;
 - the refusals: fused steps with speculation, a draft of another vocab,
-  ``draft_model_uri``, the LoRA and dense-layout spec steps, bad knobs at
-  ``load()``."""
+  ``draft_model_uri``, a LoRA spec step without its pool and a dense one
+  given block tables, bad knobs at ``load()``."""
 
 import asyncio
 
@@ -455,15 +455,25 @@ def test_draft_model_uri_names_checkpoint_loading(tmp_path):
 def test_lora_and_dense_spec_steps_name_their_slices(server):
     """The adapted (``lora=True``) spec step is served under the JAX key and
     refuses a call without the adapter pool (tests/test_torch_lora_batcher.py
-    serves it); the dense layout still names its slice."""
+    serves it); so is the dense layout's, which verifies over a slot pool
+    (``tests/test_torch_dense_batcher.py`` serves it) and refuses a paged
+    pool's block tables."""
     prog = server._get_spec_step(S, K, MAX_LEN, n_pages=N_PAGES, lora=True)
     assert ("specstep", S, K, MAX_LEN, "ngram", "paged", N_PAGES, True) in server._decode_cache
     with pytest.raises(ValueError, match="adapters none"):
         prog(None, torch.zeros(S, dtype=torch.long), None, None, None,
              torch.zeros((S, N_PAGES), dtype=torch.int32),
              torch.zeros((S, MAX_LEN + 1), dtype=torch.long), torch.zeros(S, dtype=torch.int32))
-    with pytest.raises(NotImplementedError, match="dense batcher layout"):
-        server._get_spec_step(S, K, MAX_LEN, layout="dense")
+    dense = server._get_spec_step(S, K, MAX_LEN, layout="dense")
+    assert ("specstep", S, K, MAX_LEN, "ngram", "dense", 0, False) in server._decode_cache
+    pool = server._module.init_slot_caches(S, MAX_LEN, device="cpu")
+    state = (torch.zeros(S, dtype=torch.long), torch.zeros(S, dtype=torch.int32),
+             torch.zeros(S, dtype=torch.long), None)
+    hist, cap = torch.zeros((S, MAX_LEN + 1), dtype=torch.long), torch.zeros(S, dtype=torch.int32)
+    with pytest.raises(ValueError, match="block_tables"):
+        dense(pool, *state, torch.zeros((S, N_PAGES), dtype=torch.int32), hist, cap)
+    out = dense(pool, *state, None, hist, cap)
+    assert tuple(out.shape) == (S, K + 2) and torch.equal(out[:, K + 1], torch.ones(S).long())
 
 
 def test_spec_knobs_validated_at_load():

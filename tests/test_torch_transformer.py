@@ -207,15 +207,71 @@ def test_adapters_raise(models):
         tmod(torch.zeros((1, 2), dtype=torch.int64), adapters={}, adapter_ids=None)
 
 
+def _verify_write_inputs():
+    """Two sequences prefilled with 3 and 6 tokens, then a 4-column
+    per-sequence write: row 0 at positions 3..5 and a PAD_POS column, row 1
+    at 6, 7, then 8 (one past an 8-position row) and PAD_POS."""
+    prompt = _prompt(2, 6, 3)
+    ppos = np.tile(np.arange(6, dtype=np.int32), (2, 1))
+    ppos[0, 3:] = jt.PAD_POS
+    cols = _prompt(2, 4, 4)
+    cpos = np.array([[3, 4, 5, jt.PAD_POS], [6, 7, 8, jt.PAD_POS]], np.int32)
+    return prompt, ppos, cols, cpos, np.array([3, 6], np.int32)
+
+
 @pytest.mark.parametrize("kvd", ["bf16", "int8"])
-def test_dense_multi_token_per_sequence_write_raises(models, kvd):
-    """The s > 1 per-sequence dense write (the speculative verify step) is
-    a later slice's, for either cache dtype."""
-    _, _, tmod, _ = models
-    cache = tt.init_kv_caches(tmod.cfg, 1, 8, kvd, device="cpu")
-    with pytest.raises(NotImplementedError, match="speculative"):
-        tmod(torch.zeros((1, 2), dtype=torch.int64), positions=torch.tensor([[0, 1]]),
-             caches=cache, cache_index=torch.tensor([0]))
+def test_dense_multi_token_per_sequence_write_matches_jax(models, kvd):
+    """The s > 1 per-sequence dense write (the verify over a dense cache)
+    against the JAX package's dropping scatter: each token at its own
+    position, the PAD_POS column and the one past the row dropped, for a
+    plain cache (column by column) and a slot pool (one scatter, the
+    dropped tokens into the trash column); logits within 1e-4, positions
+    exactly, the cache values within 1e-4 (int8: dequantized)."""
+    jmod, jvars, tmod, _ = models
+    prompt, ppos, cols, cpos, idx = _verify_write_inputs()
+    jc = jt.init_kv_caches(jmod.cfg, 2, 8, kvd)
+    _, jc = jmod.apply(jvars, jnp.asarray(prompt), positions=jnp.asarray(ppos), caches=jc,
+                       cache_index=0)
+    want, jc = jmod.apply(jvars, jnp.asarray(cols), positions=jnp.asarray(cpos), caches=jc,
+                          cache_index=jnp.asarray(idx))
+    for caches in (tt.init_kv_caches(tmod.cfg, 2, 8, kvd, device="cpu"),
+                   tmod.init_slot_caches(2, 8, kvd, device="cpu")):
+        tmod(torch.from_numpy(prompt), positions=torch.from_numpy(ppos), caches=caches,
+             cache_index=0)
+        got, _ = tmod(torch.from_numpy(cols), positions=torch.from_numpy(cpos), caches=caches,
+                      cache_index=torch.from_numpy(idx))
+        real = cpos != jt.PAD_POS
+        np.testing.assert_allclose(_np(got)[real], np.asarray(want)[real], **TOL)
+        for tl, jl in zip(caches, jc):
+            np.testing.assert_array_equal(_np(tl[-1][:, :8]), np.asarray(jl[-1]))
+            tk, tv = tt.dense_view(tl, torch.float32)
+            jk, jv = (jt.dequantize_kv(jl[0], jl[1], jnp.float32),
+                      jt.dequantize_kv(jl[2], jl[3], jnp.float32)) if kvd == "int8" else jl[:2]
+            np.testing.assert_allclose(_np(tk[:, :8]), np.asarray(jk), **TOL)
+            np.testing.assert_allclose(_np(tv[:, :8]), np.asarray(jv), **TOL)
+            if isinstance(caches, tt.SlotCaches):
+                assert torch.all(tl[-1][:, 8] == tt.PAD_POS)   # the trash column
+
+
+@pytest.mark.parametrize("kvd", ["bf16", "int8"])
+def test_slot_pool_decode_past_its_row_drops_into_trash(models, kvd):
+    """The s == 1 per-sequence write into a slot pool: a row stepping at or
+    past its width (a free batcher slot) writes only its trash column
+    (position PAD_POS), the other row's write lands as the plain cache's;
+    the row the JAX package's dropping scatter leaves unwritten."""
+    jmod, jvars, tmod, _ = models
+    pool = tmod.init_slot_caches(2, 8, kvd, device="cpu")
+    plain = tt.init_kv_caches(tmod.cfg, 2, 8, kvd, device="cpu")
+    toks = torch.tensor([[7], [9]])
+    idx = torch.tensor([5, 11], dtype=torch.int32)
+    for caches in (pool, plain):
+        tmod(toks, positions=idx[:, None].clamp(max=7) if caches is plain else idx[:, None],
+             caches=caches, cache_index=idx.clamp(max=7) if caches is plain else idx)
+    for pl, cl in zip(pool, plain):
+        assert int(pl[-1][0, 5]) == 5 and torch.all(pl[-1][1, :8] == tt.PAD_POS)
+        assert int(pl[-1][1, 8]) == tt.PAD_POS
+        for a, b in zip(pl[:-1], cl[:-1]):
+            assert torch.equal(a[0, :8], b[0])
 
 
 def test_registry_names():
