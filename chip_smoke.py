@@ -25,6 +25,10 @@ kernel of that path against its plain PyTorch version.
     python3 chip_smoke.py --tracing    # only: build, then the traced parts: [bf16 tracing],
                                        # the fleet phase (its faults traced) and the
                                        # disaggregation phase's traced (a) / (c) runs
+    python3 chip_smoke.py --train      # only: build, then the [train] phase and its fuller
+                                       # set: 8 layers x 10 steps, {data 2, seq 2, model 2}
+                                       # (full and ring attention), the MoE FFN at
+                                       # Mixtral-8x7B widths over {expert 2, seq 2, model 2}
     python3 chip_smoke.py --dense      # only: build, then the [dense] runs on their own
                                        # bf16 and int8 loads, the dense handoff (device,
                                        # network), rebalance_disagg, LoRA, a draft, meshes
@@ -74,6 +78,24 @@ Phases (any failure exits non-zero; nothing swallows an error):
    exactly those kernel nodes, and its replay must agree too), timed in
    turns with, for information, the eager cuDNN chain of the same blocks
    (several PyTorch calls);
+[train] (``train_phase``, lines ``[train] ...``), after the kernel phase:
+   the port's training path at Llama-2-7B widths on the one card, float32
+   master weights, bf16 compute, fused_norm=True, batch 2 x 2,048,
+   adamw(1e-4) with optax's defaults. (a) 4 layers: the graph-cut check
+   (one step's gradients through K2 under autograd, every leaf finite and
+   non-zero and within TRAIN_GRAD_RTOL (relative, Frobenius) of the same
+   step through K2's plain version on the same tensors), K2's explicit
+   backward on
+   layer 0's saved input against autograd through the plain version, then
+   5 steps on one batch (counts zeroed just before, read just after: K2 one
+   a layer a forward, no other kernel; the loss falls), the step wall,
+   tokens/s, peak memory and one profiled step's device split; (b) 2
+   layers with ring attention over a co-located {seq 2, model 2} mesh: one
+   step's loss and grad_norm against the unsharded step's; (c) GPipe over
+   {pipe 2}, two 7B-wide blocks as stages, 4 microbatches: bit-equal to the
+   stages applied in order, within TRAIN_PIPE_RTOL of the whole batch at
+   once; K2 at the training shape [4096, 4096] bf16 with a float32 weight,
+   timed beside its plain version and its bound; nothing left allocated.
 4. serving phase — the port's REST server in-process on an ephemeral
    port, an LLMServer at Llama-2-7B widths and depth (random weights from a
    seed, fused_norm=True, paged continuous batching over 8 slots), five
@@ -351,10 +373,12 @@ Phases (any failure exits non-zero; nothing swallows an error):
    (``handoff_split``).
 
 The line before the last is the kernel table as JSON (K1 over a bf16 pool,
-K1 over an int8 pool, K2, K3, K4's decode kernel, K4's prefill kernel; K2's
+K1 over an int8 pool, K2, K2 at the training shape (its launches the
+[train] phase's), K3, K4's decode kernel, K4's prefill kernel; K2's
 launches are every LLM run's together (the speculative, prefix, LoRA,
 tenant, checkpoint, fleet and disaggregation phases' and the engine's LLM
-request included; the workers' chunk replays count as every replay does), K3's
+request included, and the [train] phase's; the workers' chunk replays count
+as every replay does), K3's
 the predict serving run's and the engine, remote and
 micro-batch phases');
 the last line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -365,6 +389,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -9955,6 +9980,457 @@ def parallel_predict(card: str, model) -> int:
     return k3
 
 
+# [train]: the training path (parallel/train.py, ops/ring_attention.py,
+# parallel/pipeline.py) at Llama-2-7B widths on one card. The depth is cut:
+# float32 master weights, their gradients and AdamW's two moments are 16
+# bytes a param, ~17.2 GB at 4 layers (1.07 B params) where 32 layers would
+# need ~108 GB. bf16 compute, fused_norm=True (K2 under autograd), a batch
+# of TRAIN_ROWS x TRAIN_SEQ tokens, adamw(TRAIN_LR) with optax's defaults.
+TRAIN_LAYERS = 4
+TRAIN_ROWS, TRAIN_SEQ = 2, 2048
+TRAIN_STEPS = 5
+TRAIN_LR = 1e-4
+TRAIN_SEED = 11
+# (a) the graph-cut check: each leaf's gradient through K2 within
+# TRAIN_GRAD_RTOL of the same step through K2's plain version on the same
+# tensors, as |g - g_plain| / |g_plain| (Frobenius norms). K2's o is within
+# one bf16 ulp of the plain o, its backward adds in float32 where autograd
+# rounds to bf16 first, and bf16 products carry both through the layers (a
+# CPU rehearsal at tiny widths: ~1e-2 of max|g| elementwise); a graph cut at
+# K2 leaves a leaf's gradient 0 or ~100 % off
+TRAIN_GRAD_RTOL = 0.05
+# (a) K2's explicit backward on one saved input against autograd through
+# the plain version: within TRAIN_BWD_ULPS bf16 ulps of max|g| (autograd
+# rounds the norm's cotangent to bf16 before it adds the residual's; the
+# formula adds in float32 and rounds once)
+TRAIN_BWD_ULPS = 2
+# (b) the ring over a co-located mesh against the unsharded step (ring too:
+# one block), TRAIN_MESH_LAYERS layers: the loss within TRAIN_LOSS_RTOL and
+# grad_norm within TRAIN_NORM_RTOL relative (bf16 row-parallel partials over
+# 'model' are summed in float32 and rounded once, where the unsharded
+# product rounds its whole sum once)
+TRAIN_MESH = {"seq": 2, "model": 2}
+TRAIN_MESH_LAYERS = 2
+TRAIN_LOSS_RTOL = 5e-3
+TRAIN_NORM_RTOL = 5e-2
+# (c) GPipe over {pipe 2}, two 7B-wide blocks as stages, TRAIN_MICRO
+# microbatches of one row: bit-equal to the stages applied in order to the
+# same microbatches; within TRAIN_PIPE_RTOL * max|y| of the whole batch at
+# once (other row counts take other GEMM kernels, which round differently)
+TRAIN_MICRO = 4
+TRAIN_PIPE_RTOL = 2e-2
+# --train: 8 layers and more steps; the {data 2, seq 2, model 2} mesh (full
+# and ring attention); the MoE FFN at Mixtral-8x7B widths, one layer, over
+# {expert 2, seq 2, model 2}
+TRAIN_FULL_LAYERS, TRAIN_FULL_STEPS = 8, 10
+TRAIN_FULL_MESH = {"data": 2, "seq": 2, "model": 2}
+TRAIN_MOE_MESH = {"expert": 2, "seq": 2, "model": 2}
+TRAIN_IDLE_GB = 0.1   # device memory the phase may leave allocated
+
+
+def train_model(cfg: dict, seed: int):
+    """A float32-stored transformer on the card, weights drawn from ``seed``."""
+    import torch
+
+    from seldon_core_tpu_torch.models import get_model
+
+    model = get_model("transformer", device="cuda", **cfg)
+    model.init_params(torch.Generator(device="cuda").manual_seed(seed))
+    return model
+
+
+def train_tokens(seed: int, rows: int = TRAIN_ROWS):
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randint(0, LLAMA2_7B["vocab_size"], (rows, TRAIN_SEQ), generator=g,
+                         device="cuda")
+
+
+@contextlib.contextmanager
+def k2_swapped(fn):
+    """``fn`` in the place of K2's wrapper while the block runs (the models
+    import the wrapper at each call): K2's plain version as the graph-cut
+    check's reference. Never a path of the port itself."""
+    from seldon_core_tpu_torch.ops import fused_norm
+
+    wrapper = fused_norm.fused_residual_rmsnorm
+    fused_norm.fused_residual_rmsnorm = fn
+    try:
+        yield
+    finally:
+        fused_norm.fused_residual_rmsnorm = wrapper
+
+
+def timed_step(step, state, tokens):
+    """One training step: (state, loss, grad_norm, wall ms to the metrics
+    on the host)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, m = step(state, tokens)
+    loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+    return state, loss, gnorm, (time.perf_counter() - t0) * 1e3
+
+
+def k2_grad_check(label: str, x, hh, w) -> float:
+    """K2's Function on one saved input: the forward through the kernel
+    (y bit-equal, o within one bf16 ulp of the plain version), then its
+    explicit backward against autograd through the plain version on the
+    same tensors and cotangents. Returns the worst error over max|g|."""
+    import torch
+
+    from seldon_core_tpu_torch.ops.fused_norm import (fused_residual_rmsnorm,
+                                                      residual_rmsnorm_ref)
+
+    g = torch.Generator(device="cuda").manual_seed(TRAIN_SEED)
+    d_y = torch.randn(x.shape, generator=g, device="cuda").to(x.dtype)
+    d_o = torch.randn(x.shape, generator=g, device="cuda").to(x.dtype)
+    leaves = [t.clone().requires_grad_() for t in (x, hh, w)]
+    y, o = fused_residual_rmsnorm(*leaves, K2_EPS)
+    if y.grad_fn is None or o.grad_fn is None:
+        fail(f"{label}: K2 under grad returned outputs without a grad_fn")
+    ref_leaves = [t.clone().requires_grad_() for t in (x, hh, w)]
+    y_ref, o_ref = residual_rmsnorm_ref(*ref_leaves, K2_EPS)
+    k2_check(label, y.detach(), o.detach(), y_ref.detach(), o_ref.detach())
+    got = torch.autograd.grad((y, o), leaves, (d_y, d_o))
+    want = torch.autograd.grad((y_ref, o_ref), ref_leaves, (d_y, d_o))
+    worst = 0.0
+    for name, a, b in zip(("d_x", "d_h", "d_weight"), got, want):
+        scale = b.float().abs().max().item()
+        err = (a.float() - b.float()).abs().max().item()
+        if not torch.isfinite(a.float()).all() or err > TRAIN_BWD_ULPS * 2.0 ** -8 * scale:
+            fail(f"{label}: the explicit backward's {name} is {err:.3e} from autograd through "
+                 f"the plain version (max |g| {scale:.3e})")
+        worst = max(worst, err / scale)
+    return worst
+
+
+def k2_train_case(flush) -> dict:
+    """K2 at the training shape [TRAIN_ROWS * TRAIN_SEQ, dim] bf16 with a
+    float32 weight (the master weight): checked, timed in turns with its
+    plain version; its explicit backward (plain PyTorch) timed for
+    information."""
+    import torch
+
+    from seldon_core_tpu_torch.ops.fused_norm import (fused_residual_rmsnorm,
+                                                      residual_rmsnorm_backward,
+                                                      residual_rmsnorm_ref)
+
+    rows, d = TRAIN_ROWS * TRAIN_SEQ, K2_D
+    x, hh, _ = k2_inputs(rows, d, seed=rows)
+    w = 1.0 + 0.1 * torch.randn((d,), device="cuda")
+    label = f"K2 [{rows},{d}] bf16, float32 weight"
+    y, o = fused_residual_rmsnorm(x, hh, w, K2_EPS)
+    err = k2_check(label, y, o, *residual_rmsnorm_ref(x, hh, w, K2_EPS))
+    (ms, _), (plain_ms, _) = time_turns([lambda: fused_residual_rmsnorm(x, hh, w, K2_EPS),
+                                         lambda: residual_rmsnorm_ref(x, hh, w, K2_EPS)], flush)
+    y32 = y.float()
+    rstd = torch.rsqrt(torch.mean(y32 * y32, dim=-1, keepdim=True) + K2_EPS)
+    del y32
+    d_y, d_o = torch.randn_like(x), torch.randn_like(x)
+    bwd_ms = time_ms(lambda: residual_rmsnorm_backward(y, w, rstd, d_y, d_o), flush)
+    nbytes = 4 * rows * d * 2 + d * 4
+    bytes_s, flops_s = nbytes / HBM_BYTES_PER_S, 5 * rows * d / BF16_FLOPS_PER_S
+    # the backward reads y, d_y, d_o, rstd and the weight, writes d_x and d_w
+    bwd_bound = (3 * rows * d * 2 + rows * 4 + d * 4 + rows * d * 2 + d * 4) / HBM_BYTES_PER_S
+    return dict(err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
+                bound_ms=max(bytes_s, flops_s) * 1e3,
+                bound_by="bytes" if bytes_s >= flops_s else "operations",
+                bwd_ms=bwd_ms, bwd_bound_ms=bwd_bound * 1e3)
+
+
+def train_single(card: str, layers: int, steps: int) -> tuple:
+    """(a): Llama-2-7B widths at ``layers`` layers on one card. The
+    graph-cut check, K2's explicit backward on the first layer's saved
+    input, then ``steps`` AdamW steps on one repeated batch (counts zeroed
+    just before, read just after: K2 once a layer a forward, no other
+    kernel; the loss falls), then one profiled step. Returns (counts,
+    summary)."""
+    import torch
+
+    from seldon_core_tpu_torch.ops import fused_norm
+    from seldon_core_tpu_torch.parallel import train
+
+    label = f"[train] (a) 7B widths x {layers} layers"
+    model = train_model(dict(LLAMA2_7B, n_layers=layers, fused_norm=True), TRAIN_SEED)
+    n_params = sum(p.numel() for p in model.parameters())
+    tokens = train_tokens(TRAIN_SEED)
+    tx = train.adamw(TRAIN_LR)
+    state = train.init_train_state(model, tx, device="cuda")
+    names, params = zip(*model.named_parameters())
+    with torch.no_grad():   # layer 0's K2 input: the embedding and its attention output
+        layer = model.layer_0
+        x0 = model._embed(tokens)
+        pos = torch.arange(TRAIN_SEQ, device="cuda")[None, :].expand(TRAIN_ROWS, -1)
+        saved = (x0, layer.attention(layer.attention_norm(x0), pos)[0],
+                 layer.ffn_norm.weight.detach().clone())
+    g_kernel = torch.autograd.grad(train.next_token_loss(model, tokens), params)
+    with k2_swapped(fused_norm.residual_rmsnorm_ref):
+        g_plain = torch.autograd.grad(train.next_token_loss(model, tokens), params)
+    worst, worst_max, zero = (0.0, ""), 0.0, []
+    for name, a, b in zip(names, g_kernel, g_plain):
+        if not torch.isfinite(a).all():
+            fail(f"{label}: {name}'s gradient through K2 is not finite")
+        if a.abs().max().item() == 0:
+            zero.append(name)
+        worst = max(worst, ((a - b).norm().item() / b.norm().item(), name))
+        worst_max = max(worst_max, (a - b).abs().max().item() / b.abs().max().item())
+    del g_kernel, g_plain
+    if zero:
+        fail(f"{label}: the gradient through K2 is zero for {zero} (a cut graph)")
+    if worst[0] > TRAIN_GRAD_RTOL:
+        fail(f"{label}: {worst[1]}'s gradient through K2 is {worst[0]:.3e} (relative, "
+             f"Frobenius) from the plain-K2 step's (tolerance {TRAIN_GRAD_RTOL})")
+    bwd_err = k2_grad_check(f"{label} K2 backward", *saved)
+    del saved, x0
+    step = train.make_train_step(tx)
+    release_server_memory(workspaces=False)
+    torch.cuda.reset_peak_memory_stats()
+    zero_kernel_counts()
+    losses, norms, walls = [], [], []
+    for _ in range(steps):
+        state, loss, gnorm, ms = timed_step(step, state, tokens)
+        losses.append(loss)
+        norms.append(gnorm)
+        walls.append(ms)
+    counts = kernel_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    if counts["k2"] != layers * steps or counts["k1"] or counts["k1_int8"] or counts["k4"]:
+        fail(f"{label}: launches {counts} over {steps} steps, expected K2 {layers * steps} "
+             f"(one a layer a forward) and no other kernel")
+    if not all(map(math.isfinite, losses + norms)) or not losses[-1] < losses[0]:
+        fail(f"{label}: the loss did not fall over {steps} steps on one batch: {losses}")
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        state, _, _, prof_ms = timed_step(step, state, tokens)
+    split = profile_split(prof)
+    del prof
+    # the step's halves on the host clock, the card drained around each:
+    # loss and gradients (forward + backward), then the optimizer's update
+    tensors = [t for _, t, _ in train.trained_tensors(state.params)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    grads = torch.autograd.grad(train.next_token_loss(model, tokens), tensors)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    updates, _ = tx.update(grads, state.opt_state, tensors)
+    train.apply_updates(tensors, updates)
+    torch.cuda.synchronize()
+    fwd_bwd_ms, opt_ms = (t1 - t0) * 1e3, (time.perf_counter() - t1) * 1e3
+    del tensors, grads, updates
+    wall = statistics.median(walls[1:])
+    tokens_n = TRAIN_ROWS * TRAIN_SEQ
+    flops = 6 * n_params * tokens_n
+    print(f"{label} ({n_params / 1e9:.3f} B params, float32 master weights, bf16 compute, "
+          f"batch {TRAIN_ROWS} x {TRAIN_SEQ}, adamw({TRAIN_LR})): graph-cut check: every "
+          f"leaf's gradient through K2 finite, non-zero and within {worst[0]:.3e} (relative, "
+          f"Frobenius; worst {worst[1]}; tolerance {TRAIN_GRAD_RTOL}) of the plain-K2 step, "
+          f"elementwise within {worst_max:.3e} x max|g|; K2's explicit "
+          f"backward on layer 0's input within {bwd_err:.3e} x max|g| of autograd through the "
+          f"plain version; losses {' '.join(f'{v:.4f}' for v in losses)}; grad_norm "
+          f"{' '.join(f'{v:.4f}' for v in norms)}; step wall {wall:.1f} ms (median of steps "
+          f"2-{steps}; first {walls[0]:.1f}) = {tokens_n / wall * 1e3:.0f} tokens/s, "
+          f"{flops / wall / 1e9:.1f} TFLOP/s of products (6 x params x tokens); peak "
+          f"{peak:.2f} GB; K2 launches {counts['k2']} = {layers} layers x {steps} forwards; "
+          f"one profiled step ({prof_ms:.1f} ms wall): {split}; a step's halves: forward + "
+          f"backward {fwd_bwd_ms:.1f} ms, the optimizer's update {opt_ms:.1f} ms [{card}]",
+          flush=True)
+    del state, model, params, step
+    return counts, dict(layers=layers, params_b=n_params / 1e9, losses=losses, wall_ms=wall,
+                        tokens_s=tokens_n / wall * 1e3, peak_gb=peak, grad_rtol=worst[0],
+                        grad_max=worst_max, bwd_err=bwd_err, split=split,
+                        fwd_bwd_ms=fwd_bwd_ms, opt_ms=opt_ms)
+
+
+def profile_split(prof) -> str:
+    """A profiled step's device time by kernel class (the trace's device
+    rows: kernels, copies): GEMMs (cuBLAS), K2, softmax and the loss, the
+    rest (elementwise, the optimizer's, copies)."""
+    classes = {"gemm": 0.0, "K2": 0.0, "softmax / cross-entropy": 0.0, "other": 0.0}
+    for e in prof.key_averages():
+        if not str(e.device_type).endswith("CUDA"):
+            continue
+        name = e.key.lower()
+        if "fused_residual_rmsnorm" in name:
+            key = "K2"
+        elif any(k in name for k in ("gemm", "nvjet", "cutlass", "sm90_xmma", "gemv")):
+            key = "gemm"
+        elif "softmax" in name or "nll" in name:
+            key = "softmax / cross-entropy"
+        else:
+            key = "other"
+        classes[key] += dev_us(e) / 1e3
+    total = sum(classes.values())
+    if total == 0:
+        return "not measured (the trace holds no device event)"
+    return f"kernels {total:.1f} ms: " + ", ".join(f"{k} {v:.1f} ms" for k, v in classes.items())
+
+
+def train_mesh(card: str, label: str, axes: dict, cfg: dict, seed: int, rows: int = TRAIN_ROWS
+               ) -> tuple:
+    """(b): one step of ``cfg`` over the co-located mesh ``axes`` against
+    the same step unsharded, from the same weights and tokens (the sharded
+    state first, dropped before the unsharded one is made): the loss within
+    TRAIN_LOSS_RTOL and grad_norm within TRAIN_NORM_RTOL relative. K2 once
+    a layer a rank, then once a layer. Returns (counts, summary)."""
+    import torch
+
+    from seldon_core_tpu_torch.parallel import train
+
+    model = train_model(cfg, seed)
+    tokens = train_tokens(seed + 1, rows)
+    tx = train.adamw(TRAIN_LR)
+    ranks = math.prod(axes.values())
+    step = train.make_train_step(tx)
+    release_server_memory(workspaces=False)
+    torch.cuda.reset_peak_memory_stats()
+    zero_kernel_counts()
+    state = train.init_train_state(model, tx, par_topology(ranks).mesh(axes), device="cuda")
+    state, loss_s, norm_s, ms_s = timed_step(step, state, tokens)
+    counts = kernel_counts()
+    peak_s = torch.cuda.max_memory_allocated() / 1e9
+    del state
+    release_server_memory(workspaces=False)
+    torch.cuda.reset_peak_memory_stats()
+    zero_kernel_counts()
+    state = train.init_train_state(model, tx, device="cuda")
+    state, loss_u, norm_u, ms_u = timed_step(step, state, tokens)
+    unsharded = kernel_counts()
+    peak_u = torch.cuda.max_memory_allocated() / 1e9
+    del state, model
+    layers = cfg["n_layers"]
+    if counts["k2"] != ranks * layers or unsharded["k2"] != layers:
+        fail(f"{label}: K2 launches {counts['k2']} sharded / {unsharded['k2']} unsharded, "
+             f"expected {ranks * layers} / {layers}")
+    loss_rel, norm_rel = abs(loss_s - loss_u) / abs(loss_u), abs(norm_s - norm_u) / norm_u
+    if not (math.isfinite(loss_s) and math.isfinite(norm_s)) or loss_rel > TRAIN_LOSS_RTOL \
+            or norm_rel > TRAIN_NORM_RTOL:
+        fail(f"{label}: loss {loss_s} / grad_norm {norm_s} over the mesh against {loss_u} / "
+             f"{norm_u} unsharded (relative {loss_rel:.3e} / {norm_rel:.3e}, tolerances "
+             f"{TRAIN_LOSS_RTOL} / {TRAIN_NORM_RTOL})")
+    print(f"{label}: one step over {axes} ({ranks} ranks on this card) loss {loss_s:.5f} "
+          f"grad_norm {norm_s:.5f} vs unsharded {loss_u:.5f} / {norm_u:.5f} (relative "
+          f"{loss_rel:.3e} / {norm_rel:.3e}; tolerances {TRAIN_LOSS_RTOL} / {TRAIN_NORM_RTOL}); "
+          f"step wall {ms_s:.1f} ms vs {ms_u:.1f} ms; peak {peak_s:.2f} / {peak_u:.2f} GB; K2 "
+          f"launches {counts['k2']} / {unsharded['k2']} [{card}]", flush=True)
+    add_counts(counts, unsharded)
+    return counts, dict(loss_rel=loss_rel, norm_rel=norm_rel, ms=ms_s, unsharded_ms=ms_u,
+                        peak_gb=peak_s)
+
+
+def train_pipeline(card: str) -> tuple:
+    """(c): two 7B-wide blocks (bf16 compute) as the stages of
+    ``pipeline_apply`` over {pipe 2}, TRAIN_MICRO microbatches of one row of
+    TRAIN_SEQ positions, under no_grad: bit-equal to the stages applied in
+    order to the same microbatches, within TRAIN_PIPE_RTOL * max|y| of the
+    whole batch at once; K2 once a stage a microbatch. Returns (counts,
+    summary)."""
+    import torch
+    from torch.func import functional_call
+
+    from seldon_core_tpu_torch.parallel.pipeline import pipeline_apply, stack_stage_params
+
+    label = "[train] (c) GPipe"
+    model = train_model(dict(LLAMA2_7B, n_layers=2, fused_norm=True), TRAIN_SEED + 3)
+    blocks = model.layers()
+    stacked = stack_stage_params([dict(b.named_parameters()) for b in blocks])
+    template = blocks[0]
+    per_stage = [{k: v[s] for k, v in stacked.items()} for s in range(2)]
+
+    def stage_fn(p, hh):
+        pos = torch.arange(hh.shape[1], device=hh.device)[None, :].expand(hh.shape[0], -1)
+        return functional_call(template, p, (hh, pos))[0]
+
+    g = torch.Generator(device="cuda").manual_seed(TRAIN_SEED + 4)
+    x = torch.randn((TRAIN_MICRO, TRAIN_SEQ, K2_D), generator=g, device="cuda").to(
+        torch.bfloat16)
+    mesh = par_topology(2).mesh({"pipe": 2})
+    with torch.no_grad():
+        zero_kernel_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = pipeline_apply(stage_fn, stacked, x, mesh, TRAIN_MICRO)
+        torch.cuda.synchronize()
+        pipe_ms = (time.perf_counter() - t0) * 1e3
+        counts = kernel_counts()
+        t0 = time.perf_counter()
+        seq = torch.cat([stage_fn(per_stage[1], stage_fn(per_stage[0], mb))
+                         for mb in x.chunk(TRAIN_MICRO)])
+        torch.cuda.synchronize()
+        seq_ms = (time.perf_counter() - t0) * 1e3
+        whole = stage_fn(per_stage[1], stage_fn(per_stage[0], x))
+    if counts["k2"] != 2 * TRAIN_MICRO:
+        fail(f"{label}: K2 launches {counts['k2']}, expected {2 * TRAIN_MICRO}")
+    if not torch.equal(got, seq):
+        fail(f"{label}: the pipelined output is not bit-equal to the stages applied in order")
+    err = (got.float() - whole.float()).abs().max().item()
+    scale = whole.float().abs().max().item()
+    if not torch.isfinite(got.float()).all() or err > TRAIN_PIPE_RTOL * scale:
+        fail(f"{label}: {err:.3e} from the whole batch at once (max |y| {scale:.3e})")
+    print(f"{label} over {{pipe 2}}, two 7B-wide blocks, {TRAIN_MICRO} microbatches of 1 x "
+          f"{TRAIN_SEQ}: bit-equal to the stages applied in order to the same microbatches; "
+          f"{err:.3e} from the whole batch at once (max |y| {scale:.3e}, tolerance "
+          f"{TRAIN_PIPE_RTOL} x); {TRAIN_MICRO + 1} schedule steps {pipe_ms:.1f} ms wall vs the "
+          f"stages in order {seq_ms:.1f} ms; K2 launches {counts['k2']} [{card}]", flush=True)
+    del model, stacked, per_stage, x, got, seq, whole
+    return counts, dict(err=err, pipe_ms=pipe_ms, seq_ms=seq_ms)
+
+
+def train_phase(card: str, full: bool = False) -> tuple:
+    """The [train] phase: (a), (b), (c); ``full`` (``--train``) adds the
+    deeper run, the {data 2, seq 2, model 2} mesh and the MoE case. Returns
+    (one launch record, summary); nothing is left allocated."""
+    import torch
+
+    t_phase = time.perf_counter()
+    release_server_memory()
+    total, summary = {}, {}
+    counts, summary["a"] = train_single(card, TRAIN_LAYERS, TRAIN_STEPS)
+    add_counts(total, counts)
+    release_server_memory(workspaces=False)
+    mesh_cfg = dict(LLAMA2_7B, n_layers=TRAIN_MESH_LAYERS, fused_norm=True, attention_impl="ring")
+    counts, summary["b"] = train_mesh(card, "[train] (b) ring, 7B widths x "
+                                      f"{TRAIN_MESH_LAYERS} layers", TRAIN_MESH, mesh_cfg,
+                                      TRAIN_SEED + 1)
+    add_counts(total, counts)
+    release_server_memory(workspaces=False)
+    counts, summary["c"] = train_pipeline(card)
+    add_counts(total, counts)
+    release_server_memory(workspaces=False)
+    if full:
+        counts, summary["a_full"] = train_single(card, TRAIN_FULL_LAYERS, TRAIN_FULL_STEPS)
+        add_counts(total, counts)
+        release_server_memory(workspaces=False)
+        for impl in ("full", "ring"):
+            counts, summary[f"b_{impl}"] = train_mesh(
+                card, f"[train] --train {impl}, 7B widths x {TRAIN_MESH_LAYERS} layers",
+                TRAIN_FULL_MESH, dict(mesh_cfg, attention_impl=impl), TRAIN_SEED + 5)
+            add_counts(total, counts)
+            release_server_memory(workspaces=False)
+        counts, summary["moe"] = train_mesh(
+            card, "[train] --train MoE, Mixtral-8x7B widths x 1 layer", TRAIN_MOE_MESH,
+            dict(MIXTRAL_8X7B, n_layers=1, fused_norm=True), TRAIN_SEED + 7, rows=1)
+        add_counts(total, counts)
+    scratch = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    summary["k2"] = k2 = k2_train_case(lambda: scratch.fill_(1))
+    del scratch
+    print(f"K2 fused_residual_rmsnorm [{TRAIN_ROWS * TRAIN_SEQ},{K2_D}] bf16 (float32 weight, "
+          f"the training shape): kernel_ms {k2['ms']:.4f} plain_ms {k2['plain_ms']:.4f} "
+          f"bound_ms {k2['bound_ms']:.4f} ({k2['bound_by']}) library_ms null; its explicit "
+          f"backward (plain PyTorch) {k2['bwd_ms']:.4f} ms, bound {k2['bwd_bound_ms']:.4f}; "
+          f"max_abs_err {k2['err']:.3e} (y bit-equal, o within 1 bf16 ulp) [{card}]", flush=True)
+    release_server_memory()
+    left = torch.cuda.memory_allocated() / 1e9
+    if left > TRAIN_IDLE_GB:
+        fail(f"[train]: {left:.3f} GB left allocated after the phase")
+    summary["k2"]["launches"] = total["k2"]
+    print(f"[train] phase_s {time.perf_counter() - t_phase:.1f}; K2 launches {total['k2']} "
+          f"[{card}]", flush=True)
+    return ("train", total), summary
+
+
 def main() -> int:
     try:
         import torch
@@ -10058,6 +10534,10 @@ def main() -> int:
     if sys.argv[1:] == ["--dense"]:
         records, dense_runs = dense_flag_phase(card)
         print_dense(card, dense_runs, records)
+        print(f"total_s {time.perf_counter() - t_start:.1f}", flush=True)
+        return 0
+    if sys.argv[1:] == ["--train"]:
+        train_phase(card, full=True)
         print(f"total_s {time.perf_counter() - t_start:.1f}", flush=True)
         return 0
     if sys.argv[1:] == ["--moe"]:
@@ -10210,10 +10690,13 @@ def main() -> int:
               f"{sum(r['bound_ms'] for r in rows):.3f} ms [{card}]", flush=True)
     del scratch
 
+    # [train]: the training path (the train step, ring attention, GPipe)
+    train_record, train_summary = train_phase(card)
+
     # 4. serving phase: per model, the eager programs first, then the graphs;
     # bf16 also with K = FUSED_K fused steps a dispatch; bf16 is freed before
     # int8 weights + int8 KV load
-    runs, spec_runs, spec_launches = {}, {}, []
+    runs, spec_runs, spec_launches = {}, {}, [train_record]
     par_records, par_summary = [], {}
     dense_runs, dense_records = {}, []
     for model, knobs, fuses in (("bf16", {}, (0, FUSED_K)),
@@ -10371,6 +10854,10 @@ def main() -> int:
         entry("fused_residual_rmsnorm", "cuda", "seldon_core_tpu_torch/csrc/fused_norm.cu",
               "seldon_core_tpu/ops/fused_norm.py:137",
               total("k2"), k2[8]),
+        entry("fused_residual_rmsnorm (training: [4096, 4096] bf16, float32 weight, under "
+              "autograd)", "cuda", "seldon_core_tpu_torch/csrc/fused_norm.cu",
+              "seldon_core_tpu/ops/fused_norm.py:137", train_summary["k2"]["launches"],
+              train_summary["k2"]),
         entry("fused_identity_chain", "cuda", "seldon_core_tpu_torch/csrc/fused_resnet_wgmma.cu",
               "seldon_core_tpu/ops/fused_resnet.py:239", k3_launches, k3[RESNET_BATCH, 56]),
         entry("int8_matmul", "cuda", "seldon_core_tpu_torch/csrc/int8_matmul.cu",

@@ -71,6 +71,14 @@ On a column-parallel projection (q, w1, w3) a rank adds ``x A B[:, its
 columns]``; on a row-parallel one (o, w2) it adds ``x_r A[its rows] B``,
 a share of the delta, so the delta enters the float32 all-reduce once.
 
+Training (``train_blocks``, driven by ``parallel/train.py``): the
+cache-less forward with rows over 'data' and positions over 'seq', each
+rank holding its block of activations; attention gathers K/V over 'seq'
+(``"full"``) or runs the ring (``"ring"``). One ``nn.Parameter`` a distinct
+shard (ranks that hold the same tensor share it), so autograd sums a
+replicated shard's partial gradients into one ``.grad``; ``leaf_shards``
+maps each logical leaf to its shards.
+
 Not here (ROADMAP Queue A 9b): ranks on distinct devices (their
 transport).
 """
@@ -196,22 +204,34 @@ class ShardedTransformer(nn.Module):
             f32_partials=True)
         self.local_cfg = local
         ranks = []
+        # the KV columns a rank selects where 'model' splits the query heads
+        # but not the KV heads (ranks of one group share the selection),
+        # and one Parameter a shard: ranks that hold the same tensor hold
+        # the same Parameter, so a training step's partial gradients of a
+        # replicated shard accumulate into one .grad
+        self._kv_columns: Dict[int, int] = {}
+        selected: Dict[Tuple[str, int], object] = {}
+        shared: Dict[int, nn.Parameter] = {}
         for r, tree in enumerate(self.rank_trees):
             if not split_kv and split_h:
-                start = _kv_start(cfg, mesh, mesh.coords(r))
+                start = self._kv_columns[r] = _kv_start(cfg, mesh, mesh.coords(r)) * hd
                 tree = dict(tree)
                 for i in range(cfg.n_layers):
                     for w in ("wk", "wv"):
                         name = f"layer_{i}.attention.{w}"
-                        tree[name] = _select_columns(tree[name], start * hd, hd)
-            ranks.append(self._rank_module(local, tree))
+                        if (name, start) not in selected:
+                            selected[name, start] = _select_columns(tree[name], start, hd)
+                        tree[name] = selected[name, start]
+            ranks.append(self._rank_module(local, tree, shared))
         self.ranks = nn.ModuleList(ranks)
         self.eval()
 
     @staticmethod
-    def _rank_module(local: TransformerConfig, tree: Dict[str, object]) -> Transformer:
+    def _rank_module(local: TransformerConfig, tree: Dict[str, object],
+                     shared: Dict[int, nn.Parameter]) -> Transformer:
         """A rank-local ``Transformer`` whose leaves are ``tree``'s tensors
-        (no copy: built on the meta device, then each leaf installed)."""
+        (no copy: built on the meta device, then each leaf installed; a
+        float leaf as the Parameter ``shared`` holds for that tensor)."""
         module = Transformer(local, device=torch.device("meta"))
         for name, t in tree.items():
             owner, leaf = module._owner(name)
@@ -219,8 +239,36 @@ class ShardedTransformer(nn.Module):
             if isinstance(t, QuantizedTensor):
                 owner.add_module(leaf, t)
             else:
-                owner.register_parameter(leaf, nn.Parameter(t, requires_grad=False))
+                if id(t) not in shared:
+                    shared[id(t)] = nn.Parameter(t, requires_grad=False)
+                owner.register_parameter(leaf, shared[id(t)])
         return module
+
+    def leaf_shards(self) -> Dict[str, List[Tuple[nn.Parameter, Tuple[slice, ...]]]]:
+        """``{leaf name: [(shard, its index in the logical leaf)]}``: each
+        distinct float shard once, in rank order. The indices of a leaf's
+        shards cover the logical leaf once, so a leaf gathers, scatters and
+        counts (a gradient's norm) from them."""
+        specs, hd = self.rank_trees.specs, self.cfg.head_dim
+        out: Dict[str, List[Tuple[nn.Parameter, Tuple[slice, ...]]]] = {}
+        seen = set()
+        for r, module in enumerate(self.ranks):
+            coords = self.mesh.coords(r)
+            for name, t in module.leaves().items():
+                if isinstance(t, QuantizedTensor) or id(t) in seen:
+                    continue
+                seen.add(id(t))
+                index = []
+                for dim, axis in enumerate(specs[name]):
+                    n = t.shape[dim]
+                    split = axis is not None and self.mesh.axis_size(axis) > 1
+                    index.append(slice(coords[axis] * n, (coords[axis] + 1) * n) if split
+                                 else slice(None))
+                if r in self._kv_columns and name.endswith(("attention.wk", "attention.wv")):
+                    start = self._kv_columns[r]
+                    index[1] = slice(start, start + hd)
+                out.setdefault(name, []).append((t, tuple(index)))
+        return out
 
     # ------------------------------------------------------------------
     # The caches: ``Transformer``'s four calls, one set a rank
@@ -477,7 +525,7 @@ class ShardedTransformer(nn.Module):
         vocab] float32, caches)."""
         if adapters is not None and adapter_ids is None:
             raise ValueError("adapters need adapter_ids (one id per sequence; 0 = identity)")
-        cfg, mesh, L = self.cfg, self.mesh, self.cfg.n_layers
+        mesh, L = self.mesh, self.cfg.n_layers
         R = mesh.size
         b, s = tokens.shape
         if positions is None:
@@ -529,28 +577,8 @@ class ShardedTransformer(nn.Module):
                                           adapter_ids=ids[r], paged_rows=folded[r],
                                           trash=trash)[0]
                       for r in range(R)]
-            hs = self._reduce(hs, ("model",) if self.heads_split else ())
-            ffn_in = []
-            for r in range(R):
-                if cfg.fused_norm:
-                    from seldon_core_tpu_torch.ops.fused_norm import fused_residual_rmsnorm
-
-                    xs[r], o = fused_residual_rmsnorm(xs[r], hs[r], layers[r].ffn_norm.weight,
-                                                      cfg.norm_eps)
-                else:
-                    xs[r] = xs[r] + hs[r]
-                    o = layers[r].ffn_norm(xs[r])
-                ffn_in.append(o)
-            if cfg.n_experts > 0:
-                fs = self._moe(layers, ffn_in)
-            else:
-                fs = [layers[r].ffn(ffn_in[r], la[r], ids[r]) for r in range(R)]
-            fs = self._reduce(fs, (("model",) if self.mlp_split else ())
-                              + (("expert",) if self.expert_split else ()))
-            xs = [xs[r] + fs[r] for r in range(R)]
-        logits = [self.ranks[r]._logits(self.ranks[r].norm(xs[r])) for r in range(R)]
-        if self.vocab_split:
-            logits = self._gather(logits, ("model",))
+            xs = self._finish_layer(layers, xs, hs, la, ids)
+        logits = self._head(xs)
         firsts: Dict[Optional[int], int] = {}
         for r in range(R):
             firsts.setdefault(rows[r].start, r)
@@ -568,6 +596,105 @@ class ShardedTransformer(nn.Module):
             if d and all(mesh.coords(q).get("data", 0) != d for q in range(r)):
                 out = torch.where(owner == d, logits[r], out)
         return out, caches
+
+    def _finish_layer(self, layers, xs: List[torch.Tensor], hs: List[torch.Tensor], la,
+                      ids) -> List[torch.Tensor]:
+        """A layer after each rank's attention output ``hs``: the sum over
+        'model', K2's residual add + norm on every rank, the FFN (dense or
+        MoE) and its sum over 'model' and 'expert', the residual add.
+        Returns each rank's new activation."""
+        cfg, R = self.cfg, self.mesh.size
+        hs = self._reduce(hs, ("model",) if self.heads_split else ())
+        xs, ffn_in = list(xs), []
+        for r in range(R):
+            if cfg.fused_norm:
+                from seldon_core_tpu_torch.ops.fused_norm import fused_residual_rmsnorm
+
+                xs[r], o = fused_residual_rmsnorm(xs[r], hs[r], layers[r].ffn_norm.weight,
+                                                  cfg.norm_eps)
+            else:
+                xs[r] = xs[r] + hs[r]
+                o = layers[r].ffn_norm(xs[r])
+            ffn_in.append(o)
+        if cfg.n_experts > 0:
+            fs = self._moe(layers, ffn_in)
+        else:
+            fs = [layers[r].ffn(ffn_in[r], la[r], ids[r]) for r in range(R)]
+        fs = self._reduce(fs, (("model",) if self.mlp_split else ())
+                          + (("expert",) if self.expert_split else ()))
+        return [xs[r] + fs[r] for r in range(R)]
+
+    def _head(self, xs: List[torch.Tensor]) -> List[torch.Tensor]:
+        """Each rank's float32 logits over the whole vocabulary: the final
+        norm, its head (a vocab shard, gathered over 'model')."""
+        logits = [self.ranks[r]._logits(self.ranks[r].norm(xs[r])) for r in range(self.mesh.size)]
+        return self._gather(logits, ("model",)) if self.vocab_split else logits
+
+    # ------------------------------------------------------------------
+    # The cache-less training forward
+    def _cols(self, r: int, s: int) -> slice:
+        sp = self.mesh.axis_size("seq")
+        if sp == 1:
+            return slice(0, s)
+        if s % sp:
+            raise ValueError(f"a training batch of {s} positions does not split over the "
+                             f"{sp} 'seq' ranks")
+        q = self.mesh.coords(r)["seq"]
+        return slice(q * (s // sp), (q + 1) * (s // sp))
+
+    def train_blocks(self, tokens: torch.Tensor) -> List[Tuple[slice, slice, torch.Tensor]]:
+        """The cache-less forward of a training step (the counterpart of
+        GSPMD under ``parallel/train.TRAIN_RULES``): rows over 'data' (where
+        it divides the batch), positions over 'seq' (which must divide
+        them): each rank embeds, projects and norms only its block of
+        activations. Attention ``"full"`` gathers K, V and their positions
+        over 'seq' before the masked read, as GSPMD inserts; ``"ring"`` runs
+        ``ops/ring_attention.ring_attention_ranks`` over each 'seq' group.
+        Heads, ffn columns, vocab and experts split over 'model' and
+        'expert' as in ``forward``. Returns one (rows, positions, float32
+        logits [rows, positions, vocab]) a distinct block of the batch, in
+        rank order; ranks that differ along another axis compute the same
+        block, and its first rank's logits stand for it."""
+        from seldon_core_tpu_torch.ops.ring_attention import ring_attention_ranks
+        from seldon_core_tpu_torch.models.transformer import masked_attention
+
+        mesh, L, R = self.mesh, self.cfg.n_layers, self.mesh.size
+        dt = self.local_cfg.dtype
+        b, s = tokens.shape
+        blocks = [(self._rows(r, b), self._cols(r, s)) for r in range(R)]
+        positions = torch.arange(s, device=tokens.device)[None, :].expand(b, s)
+        pos = [positions[sl] for sl in blocks]
+        xs = [self._embed(r, tokens[blocks[r]]) for r in range(R)]
+        if self.vocab_split:
+            xs = self._reduce(xs, ("model",))
+        none = [None] * R
+        for i in range(L):
+            layers = [self.ranks[r].layers()[i] for r in range(R)]
+            qkv = [layers[r].attention.project(layers[r].attention_norm(xs[r]), pos[r])
+                   for r in range(R)]
+            outs: List[Optional[torch.Tensor]] = [None] * R
+            for group in mesh.groups(("seq",)):
+                qs = [qkv[r][0] for r in group]
+                ks = [qkv[r][1].to(dt) for r in group]
+                vs = [qkv[r][2].to(dt) for r in group]
+                ps = [pos[r] for r in group]
+                if self.cfg.attention_impl == "ring":
+                    got = ring_attention_ranks(qs, ks, vs, ps, ps)
+                else:
+                    k_all = collectives.all_gather(ks, dim=1)[0]
+                    v_all = collectives.all_gather(vs, dim=1)[0]
+                    p_all = collectives.all_gather(ps, dim=1)[0]
+                    got = [masked_attention(q, k_all, v_all, p_all[:, None, :] <= p[:, :, None])
+                           for q, p in zip(qs, ps)]
+                for r, o in zip(group, got):
+                    outs[r] = o
+            hs = [layers[r].attention.output(outs[r].flatten(2)) for r in range(R)]
+            xs = self._finish_layer(layers, xs, hs, none, none)
+        logits = self._head(xs)
+        firsts: Dict[Tuple, int] = {}
+        for r, (rows, cols) in enumerate(blocks):
+            firsts.setdefault((rows.start, rows.stop, cols.start), r)
+        return [(*blocks[r], logits[r]) for r in firsts.values()]
 
     def _moe(self, layers, ffn_in: List[torch.Tensor]) -> List[torch.Tensor]:
         """Each rank's MoE partial: the router's logits (gathered over

@@ -46,8 +46,15 @@ What changes with the framework:
 A mesh (``parallel/mesh.py``) shards the filled model through
 ``Transformer.shard`` (``models/sharded.py``: every rank's heads, ffn
 columns, vocab and experts, run by one controller; the table of logical
-axes is ``Transformer.logical_axes``). Ring attention raises
-``NotImplementedError`` naming ROADMAP Queue A 9b.
+axes is ``Transformer.logical_axes``).
+
+Training: the parameters are built with ``requires_grad=False``, so serving
+holds no gradient state; ``parallel/train.py`` turns them on. The
+cache-less forward returns float32 logits at every position, as the JAX
+package's ``module.apply(params, tokens)``; with ``attention_impl="ring"``
+it attends through ``ops/ring_attention.py`` (one block unsharded; the ring
+over a 'seq' mesh in ``models/sharded.py``). A call that passes a KV cache
+reads the cache as before, whichever ``attention_impl`` is set.
 """
 
 from __future__ import annotations
@@ -568,7 +575,8 @@ class Attention(nn.Module):
         ``trash``: the dense cache's rows end in a trash column
         (``SlotCaches``, ``write_dense``).
 
-        Without a cache: full causal attention, returns (out, (k, v))."""
+        Without a cache: full causal attention (``attention_impl="ring"``:
+        through ``ops.ring_attention``), returns (out, (k, v))."""
         cfg = self.cfg
         b, s, _ = x.shape
         hd = cfg.head_dim
@@ -608,6 +616,14 @@ class Attention(nn.Module):
             # covers causality, the unfilled suffix and right-padding.
             mask = cache[-1][:, None, :] <= positions[:, :, None]
             out = masked_attention(q, *dense_view(cache, dt), mask)
+        elif cfg.attention_impl == "ring":
+            from seldon_core_tpu_torch.ops.ring_attention import ring_attention
+
+            # the cache-less forward (training): GQA-aware, the unrepeated
+            # K/V ride the ring; one block here, the ring itself over a
+            # 'seq' mesh (models/sharded.py)
+            out = ring_attention(q, k.to(dt), v.to(dt), positions, positions)
+            new_cache = (k, v)
         else:
             mask = positions[:, None, :] <= positions[:, :, None]
             out = masked_attention(q, k, v, mask)
@@ -1131,12 +1147,7 @@ def kv_cache_bytes_per_token(cfg: TransformerConfig,
 
 
 def _build(cfg: TransformerConfig, device, param_dtype) -> Transformer:
-    if cfg.attention_impl == "ring":
-        raise NotImplementedError(
-            "attention_impl='ring' (sequence-parallel ring attention over a cache-less "
-            "forward, ops/ring_attention.py) arrives with ROADMAP Queue A 9b; the port "
-            "shards the served KV cache over 'seq' instead (LLMServer(sequence_parallel=))")
-    if cfg.attention_impl != "full":
+    if cfg.attention_impl not in ("full", "ring"):
         raise ValueError(f"unknown attention_impl {cfg.attention_impl!r}")
     if cfg.mesh is not None:
         raise ValueError(

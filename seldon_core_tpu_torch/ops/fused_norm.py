@@ -25,6 +25,14 @@ PyTorch's own add), the norm in float32 over the added value, divided by
 the true ``d``, the weight multiply in float32, the result cast back to the
 model dtype. ``y`` is therefore bit-equal to the plain version; ``o``
 differs only by the reduction order of the mean, within one bf16 ulp.
+
+Training: under autograd the call is a ``torch.autograd.Function`` whose
+forward is the same launch and whose backward is one explicit float32
+formula in plain PyTorch (``residual_rmsnorm_backward``), the same code on
+the CPU and on the card. The JAX package has no backward kernel to port:
+off the TPU ``jax.grad`` differentiates ``residual_rmsnorm_ref``. Without
+it the kernel's outputs would carry no ``grad_fn``, and a training step
+would stop at every layer's norm without an error.
 """
 
 from __future__ import annotations
@@ -165,14 +173,9 @@ def _kernel(x, h, weight, y, o, eps, plan=None):
                   y.data_ptr(), o.data_ptr(), eps, params)
 
 
-def fused_residual_rmsnorm(x: torch.Tensor, h: torch.Tensor, weight: torch.Tensor,
-                           eps: float):
-    """x, h: [..., d] activations; weight: [d]. Returns (y, normed) =
-    (x + h, rms_norm(x + h, weight, eps)), both in x.dtype.
-
-    CPU tensors take the plain version; CUDA tensors launch the kernel on
-    the current stream (one launch, no synchronisation), or raise. ``y``
-    and ``normed`` are views of one allocation."""
+def _forward(x: torch.Tensor, h: torch.Tensor, weight: torch.Tensor, eps: float):
+    """(y, normed): the plain version for CPU tensors, one kernel launch
+    (counted) for CUDA tensors, which are checked first."""
     d = x.shape[-1]
     if h.shape != x.shape or tuple(weight.shape) != (d,):
         raise ValueError(f"shape mismatch: x {tuple(x.shape)}, h {tuple(h.shape)}, "
@@ -197,7 +200,69 @@ def fused_residual_rmsnorm(x: torch.Tensor, h: torch.Tensor, weight: torch.Tenso
     return y, o
 
 
+def residual_rmsnorm_backward(y: torch.Tensor, weight: torch.Tensor, rstd: torch.Tensor,
+                              d_y, d_o):
+    """The gradient of (y, o) = (x + h, rms_norm(x + h, weight, eps)), in
+    float32, from what the forward keeps: ``y`` [..., d], the weight [d] and
+    ``rstd`` [..., 1] = rsqrt(mean(y * y) + eps) in float32. With n = y *
+    rstd and g = d_o * weight: d_x = d_h = d_y + rstd * (g - n * mean(g *
+    n)), d_weight = the sum of d_o * n over the rows. Returns (d_x in y's
+    dtype, d_weight in float32); a cotangent that is None counts as zero."""
+    n = y.float() * rstd
+    d_x = torch.zeros_like(n) if d_y is None else d_y.float()
+    d_w = None
+    if d_o is not None:
+        do32 = d_o.float()
+        g = do32 * weight.float()
+        d_x = d_x + rstd * (g - n * (g * n).mean(dim=-1, keepdim=True))
+        d_w = (do32 * n).reshape(-1, n.shape[-1]).sum(dim=0)
+    return d_x.to(y.dtype), d_w
+
+
+class _Differentiable(torch.autograd.Function):
+    """``fused_residual_rmsnorm`` under autograd: the forward is the
+    kernel (the plain version for CPU tensors), the backward
+    ``residual_rmsnorm_backward`` in plain PyTorch on either device. The
+    JAX package defines no backward for its Pallas kernel: ``jax.grad``
+    differentiates ``residual_rmsnorm_ref`` off the TPU, which the explicit
+    float32 formula follows."""
+
+    @staticmethod
+    def forward(ctx, x, h, weight, eps):
+        y, o = _forward(x, h, weight, eps)
+        y32 = y.float()
+        rstd = torch.rsqrt(torch.mean(y32 * y32, dim=-1, keepdim=True) + eps)
+        ctx.save_for_backward(y, weight, rstd)
+        return y, o
+
+    @staticmethod
+    def backward(ctx, d_y, d_o):
+        y, weight, rstd = ctx.saved_tensors
+        d_x, d_w = residual_rmsnorm_backward(y, weight, rstd, d_y, d_o)
+        d_w = d_w.to(weight.dtype) if d_w is not None and ctx.needs_input_grad[2] else None
+        return d_x, d_x, d_w, None
+
+
+def fused_residual_rmsnorm(x: torch.Tensor, h: torch.Tensor, weight: torch.Tensor,
+                           eps: float):
+    """x, h: [..., d] activations; weight: [d]. Returns (y, normed) =
+    (x + h, rms_norm(x + h, weight, eps)), both in x.dtype.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel on
+    the current stream (one launch, no synchronisation), or raise. ``y``
+    and ``normed`` are views of one allocation. Where autograd records
+    (grad mode on and an input requiring a gradient: training) the call
+    goes through ``_Differentiable``, whose forward is the same launch and
+    whose backward is ``residual_rmsnorm_backward``; otherwise (serving,
+    a CUDA-graph capture under ``no_grad``) nothing else runs."""
+    if torch.is_grad_enabled() and (x.requires_grad or h.requires_grad
+                                    or weight.requires_grad):
+        return _Differentiable.apply(x, h, weight, eps)
+    return _forward(x, h, weight, eps)
+
+
 fused_residual_rmsnorm.launches = 0
 
 
-__all__ = ["fused_residual_rmsnorm", "fused_residual_rmsnorm_emulated", "residual_rmsnorm_ref"]
+__all__ = ["fused_residual_rmsnorm", "fused_residual_rmsnorm_emulated", "residual_rmsnorm_backward",
+           "residual_rmsnorm_ref"]

@@ -1,7 +1,9 @@
 """Meshes, sharding and the multi-host bootstrap: the port of
-``seldon_core_tpu/parallel`` for serving (topology, mesh, multihost,
-sharding) plus the explicit collectives of the single-controller rank loop
-(``collectives``). Training (``train``, ``pipeline``) and ring attention
+``seldon_core_tpu/parallel`` (topology, mesh, multihost, sharding), the
+explicit collectives of the single-controller rank loop (``collectives``),
+and training over a co-located mesh (``train``: the sharded train step,
+AdamW / Adam, checkpoints; ``pipeline``: the GPipe schedule over 'pipe';
+ring attention is ``ops/ring_attention.py``). Ranks on distinct devices
 wait for ROADMAP Queue A 9b; ``compat`` (JAX version shims for
 ``shard_map`` / ``axis_size``) has nothing to port."""
 

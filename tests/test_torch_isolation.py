@@ -7,7 +7,8 @@ package, and it never falls back to the CPU on its own.
   spec, the metrics registry, the radix prefix cache, the adapter pool,
   the scheduler, the disaggregation module, the frame codec and the
   parallel package among them), serves one CPU ``generate()``, one over a
-  co-located {"seq": 2, "model": 2} mesh, and the same prompt through a
+  co-located {"seq": 2, "model": 2} mesh, takes one training step of a
+  ring-attention model over that mesh, and the same prompt through a
   disaggregated batcher over the network handoff, writes an LLM
   checkpoint and serves it through ``LLMServer(model_uri=...)`` with an
   adapter pool, writes, loads and serves a ResNet checkpoint through
@@ -17,8 +18,9 @@ package, and it never falls back to the CPU on its own.
   it requires);
 - an AST walk over the package and ``chip_smoke.py`` finds no import of
   ``jax``, ``flax``, ``msgpack`` or ``seldon_core_tpu`` / ``seldon_core_tpu.*``;
-- ``LLMServer()``, ``GraphEngine()`` and ``make_engine_app()`` with no
-  ``device`` raise when no CUDA device is present.
+- ``LLMServer()``, ``GraphEngine()``, ``make_engine_app()`` and
+  ``init_train_state()`` with no ``device`` raise when no CUDA device is
+  present.
 """
 
 import ast
@@ -56,7 +58,8 @@ need |= {"seldon_core_tpu_torch." + m for m in (
     "analytics.outliers", "analytics.canary")}
 need |= {"seldon_core_tpu_torch." + m for m in (
     "parallel", "parallel.topology", "parallel.mesh", "parallel.multihost",
-    "parallel.sharding", "parallel.collectives", "models.sharded")}
+    "parallel.sharding", "parallel.collectives", "models.sharded", "parallel.train",
+    "parallel.pipeline", "ops.ring_attention")}
 assert need <= set(mods), need - set(mods)
 from seldon_core_tpu_torch.servers.llmserver import LLMServer
 s = LLMServer(model="llama-tiny", init_random=True, max_new_tokens=4, eos_id=-1,
@@ -68,6 +71,14 @@ tp = LLMServer(model="llama-tiny", init_random=True, max_new_tokens=4, eos_id=-1
                len_buckets=(16,), batch_buckets=(1,), device="cpu", tensor_parallel=2,
                sequence_parallel=2, topology=Topology(devices=["cpu"] * 4))
 assert len(tp.generate(["hi"])["tokens"][0]) == 4
+import torch
+from seldon_core_tpu_torch.models import get_model
+from seldon_core_tpu_torch.parallel import train
+m = get_model("llama-tiny", device="cpu", attention_impl="ring", fused_norm=True)
+st = train.init_train_state(m, train.adamw(1e-3), Topology(devices=["cpu"] * 4).mesh(
+    {"seq": 2, "model": 2}), seed=0, device="cpu")
+st, met = train.make_train_step(train.adamw(1e-3))(st, torch.randint(0, 255, (2, 8)))
+assert st.step == 1 and bool(torch.isfinite(met["loss"])), met
 from seldon_core_tpu_torch.runtime.batcher import ContinuousBatcher
 d = LLMServer(model="llama-tiny", init_random=True, max_new_tokens=4, eos_id=-1,
               len_buckets=(16,), batch_buckets=(1,), device="cpu",
@@ -177,6 +188,9 @@ def test_default_device_raises_without_cuda(monkeypatch):
         get_model("resnet50", fused=True)
     with pytest.raises(RuntimeError, match="cuda"):
         resolve_device(None)
+    from seldon_core_tpu_torch.parallel.train import adamw, init_train_state
+    with pytest.raises(RuntimeError, match="cuda"):
+        init_train_state(get_model("llama-tiny", device="cpu"), adamw(1e-3))
     assert resolve_device("cpu") == torch.device("cpu")
     with pytest.raises(ValueError):
         resolve_device("mps")

@@ -11,7 +11,9 @@ copies of the same inputs (an int8 pool dequantized in float32) — the
 kernel rounds its float32 result once; its partial mode's float32 state,
 merged over the 'seq' ranks and rounded once to bf16, within the same; K2 (fused residual + RMSNorm, bf16,
 f16 or float32) ``y`` bit-equal and ``o`` within one ulp of its dtype
-(float32: 1e-6 + 1e-6 * |o|); K4 (int8 GEMM, float32
+(float32: 1e-6 + 1e-6 * |o|), and under autograd its explicit backward
+within 1e-5 * max|g| (float32) or two bf16 ulps of max|g| (bf16) of
+autograd through the plain version; K4 (int8 GEMM, float32
 accumulation; its decode and its prefill kernel alike, split K included)
 within 1e-5 * (|x| @ |q * scale|) elementwise of the plain version, the
 reach of float32 summation order, plus one bf16 ulp for bf16 output; K3
@@ -446,6 +448,70 @@ def test_fused_norm_rejects_what_it_does_not_take(dev):
                                           1e-5)
     with pytest.raises(ValueError):
         fused_norm.fused_residual_rmsnorm(x, x, torch.ones(64), 1e-5)
+
+
+@pytest.mark.parametrize("rows,d", [(8, 4096), (300, 4096), (17, 200)])
+@pytest.mark.parametrize("x_dtype,w_dtype", [(torch.bfloat16, torch.float32),
+                                             (torch.bfloat16, torch.bfloat16),
+                                             (torch.float32, torch.float32)])
+def test_fused_norm_function_grads_equal_plain_autograd(dev, rows, d, x_dtype, w_dtype):
+    """K2 under autograd: the forward is one launch of the kernel (``y``
+    bit-equal to the plain version, ``o`` within its ulp) carrying a
+    ``grad_fn``; the explicit float32 backward equals autograd through the
+    plain version on the same tensors: float32 within 1e-5 * max|g|, bf16
+    within two bf16 ulps of max|g| (autograd rounds the norm's cotangent to
+    bf16 before it adds the residual's; the formula adds in float32)."""
+    x, h, w = _k2_inputs(dev, rows, d, x_dtype, w_dtype, seed=rows + d)
+    g = torch.Generator(device=dev).manual_seed(7)
+    d_y = torch.randn((rows, d), generator=g, device=dev).to(x_dtype)
+    d_o = torch.randn((rows, d), generator=g, device=dev).to(x_dtype)
+    leaves = [t.clone().requires_grad_() for t in (x, h, w)]
+    before = fused_norm.fused_residual_rmsnorm.launches
+    y, o = fused_norm.fused_residual_rmsnorm(*leaves, 1e-5)
+    assert fused_norm.fused_residual_rmsnorm.launches == before + 1
+    assert y.grad_fn is not None and o.grad_fn is not None
+    _assert_k2_close(y.detach(), o.detach(), x, h, w)
+    got = torch.autograd.grad((y, o), leaves, (d_y, d_o))
+    ref_leaves = [t.clone().requires_grad_() for t in (x, h, w)]
+    want = torch.autograd.grad(fused_norm.residual_rmsnorm_ref(*ref_leaves, 1e-5), ref_leaves,
+                               (d_y, d_o))
+    for a, b, t in zip(got, want, (x, h, w)):
+        assert a.dtype == t.dtype and torch.isfinite(a.float()).all()
+        scale = b.float().abs().max().item()
+        tol = 1e-5 * scale if x_dtype == torch.float32 else 2 * 2.0 ** -8 * scale
+        assert (a.float() - b.float()).abs().max().item() <= tol
+
+
+def test_two_trainable_blocks_get_every_gradient_on_card(dev):
+    """A float32 two-layer model with ``fused_norm=True`` trains through K2
+    on the card: one launch a layer in the forward, every parameter's
+    gradient finite and non-zero, and within 1e-4 * max|g| + 1e-6 of the
+    same step with the plain add + RMSNorm (``fused_norm=False``, the same
+    weights)."""
+    from seldon_core_tpu_torch.models import get_model
+    from seldon_core_tpu_torch.parallel import train
+
+    kw = dict(vocab_size=256, dim=256, n_layers=2, n_heads=4, n_kv_heads=2, ffn_dim=512,
+              max_seq_len=128, dtype="float32")
+    fused = get_model("transformer", device=dev, fused_norm=True, **kw)
+    fused.init_params(torch.Generator(device=dev).manual_seed(0))
+    plain = get_model("transformer", device=dev, **kw)
+    plain.load_state_dict(fused.state_dict())
+    tokens = torch.randint(0, 256, (2, 64), generator=torch.Generator(device=dev).manual_seed(1),
+                           device=dev)
+    grads = []
+    for model in (fused, plain):
+        model.requires_grad_(True)
+        before = fused_norm.fused_residual_rmsnorm.launches
+        loss = train.next_token_loss(model, tokens)
+        grads.append(dict(zip([n for n, _ in model.named_parameters()],
+                              torch.autograd.grad(loss, list(model.parameters())))))
+        launched = fused_norm.fused_residual_rmsnorm.launches - before
+        assert launched == (kw["n_layers"] if model is fused else 0)
+    for name, g in grads[0].items():
+        ref = grads[1][name]
+        assert torch.isfinite(g).all() and g.abs().max() > 0, name
+        assert (g - ref).abs().max() <= 1e-4 * ref.abs().max() + 1e-6, name
 
 
 def test_batcher_on_card_runs_both_kernels(dev):

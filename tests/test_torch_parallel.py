@@ -16,9 +16,10 @@ the JAX package's, on the CPU: JAX over its 8 virtual devices
 - the collectives: all-reduce in float32 in rank order, all-gather, and the
   'seq' softmax merge equal to one softmax over every key (float32, 1e-6);
 - the refusals that remain name ROADMAP Queue A 9b: distinct-device
-  meshes (before any weight moves), ring attention, LoRA and speculation
-  over a mesh, the batcher under 'seq' / 'data'; disaggregation with a mesh
-  keeps the JAX package's error.
+  meshes (before any weight moves), LoRA and speculation over a mesh, the
+  batcher under 'seq' / 'data'; disaggregation with a mesh keeps the JAX
+  package's error (ring attention, which this list named until it was
+  ported, is held to JAX's in ``tests/test_torch_ring_attention.py``).
 """
 
 import numpy as np
@@ -384,13 +385,6 @@ def test_mesh_refusals_name_queue_9b(kw, err, match):
 
     with pytest.raises(err, match=match):
         LLMServer(device="cpu", tensor_parallel=2, topology=_cpu(2), **COMMON, **kw).load()
-
-
-def test_ring_attention_raises_naming_9b():
-    from seldon_core_tpu_torch.models import get_model
-
-    with pytest.raises(NotImplementedError, match="ring.*Queue A 9b"):
-        get_model("transformer", device="cpu", **dict(TINY, attention_impl="ring"))
 
 
 def test_config_mesh_points_to_shard():

@@ -194,9 +194,26 @@ def test_kv_bytes_per_token_matches_jax():
 @pytest.mark.parametrize("kw,what", [
     (dict(attention_impl="ring"), "ring"),
 ])
-def test_later_slices_raise(kw, what):
-    with pytest.raises(NotImplementedError, match=what):
-        get_model("transformer", device="cpu", **dict(KW, **kw))
+def test_later_slices_raise(kw, what, models):
+    """Held the refusal of each option whose slice was not ported yet. The
+    one it named, ``attention_impl="ring"``, is ported: the model builds,
+    its cache-less forward equals the JAX model's with the same option
+    (float32, TOL), and a call with a cache reads the cache as the "full"
+    model does, bit for bit. An unknown ``attention_impl`` raises."""
+    jmod, jvars, tmod, params = models
+    jring = jax_get_model("transformer", **dict(KW, **kw))
+    tring = params_from_jax({"params": params},
+                            get_model("transformer", device="cpu", **dict(KW, **kw)))
+    assert tring.cfg.attention_impl == what
+    toks = _prompt(2, 12, 5)
+    want, _ = jring.apply(jvars, jnp.asarray(toks))
+    got, _ = tring(torch.from_numpy(toks))
+    np.testing.assert_allclose(_np(got), np.asarray(want), **TOL)
+    cached = [m(torch.from_numpy(toks), caches=tt.init_kv_caches(m.cfg, 2, 16, device="cpu"),
+                cache_index=0)[0] for m in (tmod, tring)]
+    assert torch.equal(*cached)
+    with pytest.raises(ValueError, match="attention_impl"):
+        get_model("transformer", device="cpu", **dict(KW, attention_impl="flash"))
 
 
 def test_adapters_raise(models):
