@@ -363,7 +363,7 @@ Phases (any failure exits non-zero; nothing swallows an error):
    (c) the same over the network transport on 127.0.0.1 —
    frame bytes, encode / decode time, the scraped network bytes; (b) 8
    streams decoding, then a burst of 4 prompts of ~2,000 tokens (12
-   slots), local and with 1 and 2 workers, each setting in 3 rounds — the
+   slots), local and with 1 and 2 workers, each setting in 2 rounds — the
    gap before and during the burst, the burst's TTFT, per round; (e) 4 chats over a 1,024-token system prompt
    with the trie on — chunks a stage (the suffix only), hit tokens; (d)
    int8 weights and KV. Tokens equal to local up to a near-tie (teacher
@@ -1183,14 +1183,15 @@ def k2_sweep(card, flush):
 def k4_case(m, k, n, out_dtype, seed, flush):
     """The int8 GEMM at one shape: bf16 activations, int8 codes and
     per-column scales of the size quantize_array gives a lecun-normal
-    weight. M >= PREFILL_MIN_M takes the prefill kernel; there the decode
-    kernel is also run through its own entry point (uncounted: a
+    weight. M >= PREFILL_MIN_M takes the prefill kernel where TMA can
+    address the operands (``_uses_wgmma``); there the decode kernel is also
+    run through its own entry point (uncounted: a
     measurement, not a route the server takes), checked and timed in turns
     with the prefill kernel and the library call."""
     import torch
 
-    from seldon_core_tpu_torch.ops.int8_matmul import (PREFILL_MIN_M, _decode_kernel,
-                                                       _decode_plan, _wgmma_plan, int8_matmul,
+    from seldon_core_tpu_torch.ops.int8_matmul import (_decode_kernel, _decode_plan,
+                                                       _uses_wgmma, _wgmma_plan, int8_matmul,
                                                        int8_matmul_ref)
 
     dev = torch.device("cuda")
@@ -1199,7 +1200,7 @@ def k4_case(m, k, n, out_dtype, seed, flush):
     q = torch.randint(-128, 128, (k, n), generator=g, device=dev, dtype=torch.int8)
     scale = (torch.rand((n,), generator=g, device=dev) + 0.5) * (2.0 / 127 / k ** 0.5)
     label = f"K4 [{m},{k}]x[{k},{n}] -> {str(out_dtype).split('.')[-1]}"
-    prefill = m >= PREFILL_MIN_M
+    prefill = _uses_wgmma(m, n, k, x.data_ptr(), q.data_ptr())
     before, before_wgmma = int8_matmul.launches, int8_matmul.launches_wgmma
     out = int8_matmul(x, q, scale, out_dtype)
     torch.cuda.synchronize()
@@ -7314,8 +7315,9 @@ DISAGG_STREAM_NEW = 256
 DISAGG_BURST = (2000, 1980, 2040, 1960)
 DISAGG_SLOTS_B = DISAGG_STREAMS + len(DISAGG_BURST)
 # (b) runs each setting this many times, the order of the settings reversed
-# every other round, so a spread is read beside each number
-DISAGG_B_ROUNDS = 3
+# every other round, so a spread is read beside each number (two rounds,
+# so that the full run stays well inside its time limit)
+DISAGG_B_ROUNDS = 2
 # (e): DISAGG_CHATS conversations over one PREFIX_SYSTEM-token system prompt,
 # two turns of PREFIX_USER user tokens
 DISAGG_CHATS = 4
@@ -10431,6 +10433,581 @@ def train_phase(card: str, full: bool = False) -> tuple:
     return ("train", total), summary
 
 
+
+# [vit]: the predict path's remainder: ViT-B/16 at 224 x 224 (its
+# published widths: 12 layers of d = 768, 12 heads, mlp 3,072, patch 16,
+# 1,000 classes) and the MLP through TorchServer in bf16 and int8, a folded
+# ResNet-50 in int8, SaliencyExplainer over them, and the ViT over a
+# co-located {data 1, model 2} mesh. Weights are seeded random weights
+# written by the port's export_checkpoint; nothing is downloaded.
+VIT_INPUT = [224, 224, 3]
+VIT_SEED = 16
+VIT_PRODUCTS = 12 * 4 + 1   # K4 launches an int8 forward: 4 products a block + the head
+MLP_KW = dict(features=[128, 128], num_classes=3)
+MLP_BATCHES = (8, 128)
+# saliency: the kernels' attributions against autograd through their plain
+# versions on the same tensors: within SALIENCY_RTOL, relative Frobenius.
+# Where the attribution itself is ill-conditioned in bf16 (a random ResNet-50's
+# input gradient at few steps: relus after the first K3 chain flip with one
+# ulp, and the flips compound over the chains; the distance falls about as
+# 1/sqrt(steps)), both bf16 paths lie farther than that from each other.
+# There, where K3 ran, the kernels' attributions must lie no farther (times
+# 1 + SALIENCY_RTOL) from a float32 witness than the plain versions' do:
+# autograd through a float32-compute forward of the same folded weights.
+SALIENCY_RTOL = 0.05
+SALIENCY_STEPS = (1, 8, 32)
+VIT_MESH = {"data": 1, "model": 2}
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """K3's and K4's plain versions in the place of their wrappers while
+    the block runs (the forwards look the wrappers up at each call): the
+    saliency check's reference, autograd through ``identity_chain_ref`` and
+    ``int8_matmul_ref``. Never a path of the port itself."""
+    from seldon_core_tpu_torch.models import resnet_infer
+    from seldon_core_tpu_torch.ops import quantize
+    from seldon_core_tpu_torch.ops.fused_resnet import identity_chain_ref
+    from seldon_core_tpu_torch.ops.int8_matmul import int8_matmul_ref
+
+    def dense_ref(x, qt, out_dtype=None):
+        y = int8_matmul_ref(x.reshape(-1, x.shape[-1]), qt.q, qt.scale,
+                            out_dtype or qt.orig_dtype)
+        return y.reshape(*x.shape[:-1], y.shape[-1])
+
+    saved = resnet_infer.fused_identity_chain, quantize.int8_dense
+    resnet_infer.fused_identity_chain = lambda x, blocks: identity_chain_ref(x, blocks)
+    quantize.int8_dense = dense_ref
+    try:
+        yield
+    finally:
+        resnet_infer.fused_identity_chain, quantize.int8_dense = saved
+
+
+def k4_counts():
+    from seldon_core_tpu_torch.ops.int8_matmul import int8_matmul
+
+    return int8_matmul.launches, int8_matmul.launches_wgmma
+
+
+def serve_rest(server, bodies):
+    """``bodies`` POSTed at once to /api/v0.1/predictions of a component app
+    over ``server``, after one warm-up request: [(code, body)], the walls
+    (s)."""
+    from seldon_core_tpu_torch.transport.rest import make_component_app, start
+
+    httpd, _ = start(make_component_app(server, device="cuda"))
+    url = f"http://127.0.0.1:{httpd.server_address[1]}/api/v0.1/predictions"
+    results, walls = [None] * len(bodies), [None] * len(bodies)
+    try:
+        code, body = post(url, bodies[0])
+        if code != 200:
+            fail(f"[vit] warm-up request answered {code}: {body}")
+
+        def client(i):
+            t = time.perf_counter()
+            results[i] = post(url, bodies[i])
+            walls[i] = time.perf_counter() - t
+
+        threads = [threading.Thread(target=client, args=(i,)) for i in range(len(bodies))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    return results, walls
+
+
+def tensor_body(x, puid: str) -> dict:
+    return {"meta": {"puid": puid},
+            "data": {"tensor": {"shape": list(x.shape), "values": x.ravel().tolist()}}}
+
+
+def check_rest(label: str, results, xs, n_classes: int):
+    """Every response 200 with the JAX package's names (t:0..) and the
+    request's puid; returns the logits as tensors."""
+    import numpy as np
+    import torch
+
+    names = [f"t:{i}" for i in range(n_classes)]
+    out = []
+    for i, (res, x) in enumerate(zip(results, xs)):
+        if res is None:
+            fail(f"{label}: request {i} did not complete")
+        code, body = res
+        data = body.get("data", {})
+        if code != 200 or data.get("names") != names:
+            fail(f"{label}: request {i} answered {code} with names {data.get('names')}")
+        if body.get("meta", {}).get("puid") != f"{label}-{i}":
+            fail(f"{label}: request {i}'s meta {body.get('meta')} does not echo its puid")
+        got = np.asarray(data["tensor"]["values"]).reshape(data["tensor"]["shape"])
+        if got.shape != (x.shape[0], n_classes):
+            fail(f"{label}: request {i}'s logits shaped {got.shape}")
+        out.append(torch.from_numpy(got).float())
+    return out
+
+
+def load_server(uri: str, **knobs):
+    """A TorchServer as the CLI builds it (typed unit parameters), loaded;
+    its load wall (s) and the load's peak device memory above what was
+    allocated before it (GB)."""
+    import torch
+
+    from seldon_core_tpu_torch.contracts.parameters import parse_parameters
+    from seldon_core_tpu_torch.servers.torchserver import TorchServer
+
+    params = [{"name": "model_uri", "value": uri, "type": "STRING"}]
+    params += [{"name": k, "value": v, "type": "STRING"} for k, v in knobs.items()]
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    server = TorchServer(device="cuda", **parse_parameters(json.dumps(params)))
+    server.load()
+    torch.cuda.synchronize()
+    return server, time.perf_counter() - t0, (torch.cuda.max_memory_allocated() - base) / 1e9
+
+
+def vit_images(n: int, seed: int):
+    import numpy as np
+
+    return np.round(np.random.default_rng(seed).standard_normal((n, *VIT_INPUT)), 2).astype(
+        np.float32)
+
+
+def rel_frobenius(got, want) -> float:
+    return ((got.float() - want.float()).norm() / want.float().norm()).item()
+
+
+def float32_attribution(explainer, x):
+    """The witness of a folded ResNet's explanation: the same attribution
+    through a float32-compute forward of the explainer's own folded weights
+    (cuDNN convs and the head in float32, TF32 off; no kernel), autograd
+    for the input gradient."""
+    import torch
+
+    from seldon_core_tpu_torch.models.resnet_infer import forward_operands, serving_operands
+
+    m = explainer._module
+    ops32 = serving_operands(m.param_tree(), m.stage_sizes, x.device, torch.float32)
+    saved = (explainer._fn, torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    explainer._fn = lambda _, xx: forward_operands(ops32, xx.float(), m.stage_sizes,
+                                                   torch.float32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        return explainer.attribute(x)
+    finally:
+        (explainer._fn, torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
+
+
+def saliency_case(label: str, card: str, explainer, x, want_k3: int, want_k4: int) -> dict:
+    """One explanation of ``x`` (on the card) through the kernels: every
+    attribution finite and non-zero, K3's and K4's launches as the forwards
+    say, and within SALIENCY_RTOL of autograd through the plain versions
+    on the same tensors (where it is not and K3 ran: no farther, times 1 +
+    SALIENCY_RTOL, from ``float32_attribution`` than the plain versions'
+    attributions lie), over the rows whose explained class is clear: the
+    same top-1 through the kernels and the plain versions, its margin over
+    the second above FWD_TOL x max|logit| (where the two are near a tie,
+    "max" may explain another class). Returns its numbers."""
+    import torch
+
+    from seldon_core_tpu_torch.ops.fused_resnet import fused_identity_chain
+
+    k3, (k4, _) = fused_identity_chain.launches, k4_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = explainer.attribute(x)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k3, k4 = fused_identity_chain.launches - k3, k4_counts()[0] - k4
+    if not torch.isfinite(got).all() or got.abs().max().item() == 0:
+        fail(f"[vit] (d) {label}: attributions not finite or all zero")
+    if (k3, k4) != (want_k3, want_k4):
+        fail(f"[vit] (d) {label}: K3 / K4 launched {k3} / {k4} times, the forwards say "
+             f"{want_k3} / {want_k4}")
+    with torch.no_grad():
+        logits = explainer._fn(explainer._module, x).float()
+    with plain_kernels():
+        want = explainer.attribute(x)
+        with torch.no_grad():
+            plain = explainer._fn(explainer._module, x).float()
+    top2 = plain.topk(2, dim=-1).values
+    clear = (((top2[:, 0] - top2[:, 1]) > FWD_TOL * plain.abs().max())
+             & (logits.argmax(-1) == plain.argmax(-1)))
+    rows = ((got - want).flatten(1).norm(dim=1) / want.flatten(1).norm(dim=1)).tolist()
+    rel = rel_frobenius(got[clear], want[clear]) if clear.any() else float("nan")
+    witness, ok = "", rel <= SALIENCY_RTOL
+    if k3 and not ok and clear.any():   # is bf16 the noisy side? the float32 witness says
+        w32 = float32_attribution(explainer, x)[clear]
+        e_k, e_p = rel_frobenius(got[clear], w32), rel_frobenius(want[clear], w32)
+        ok = e_k <= (1 + SALIENCY_RTOL) * e_p
+        witness = (f"; from the float32 witness: the kernels {e_k:.4g}, the plain versions "
+                   f"{e_p:.4g} (kernels <= {(1 + SALIENCY_RTOL) * e_p:.4g})")
+    print(f"[vit] (d) saliency {label}: {wall * 1e3:.1f} ms (gradient x input over "
+          f"{x.shape[0]} inputs, steps {explainer.steps}); K3 {k3} / K4 {k4} launches, as the "
+          f"forwards say; attributions finite, max |a| {got.abs().max().item():.4g}; against "
+          f"autograd through the plain versions: {rel:.4g} (relative, Frobenius) over the "
+          f"{int(clear.sum())} rows of a clear class (<= {SALIENCY_RTOL}), "
+          f"{rel_frobenius(got, want):.4g} over all, by row "
+          f"{' '.join(f'{r:.3g}' for r in rows)}{witness} [{card}]", flush=True)
+    return dict(ms=wall * 1e3, rel=rel, k3=k3, k4=k4,
+                ok=2 * int(clear.sum()) >= len(rows) and ok)
+
+
+def vit_phase(card: str, model, full: bool = False) -> dict:
+    """[vit] (a)-(e) on the folded ResNet-50 ``model`` (live weights) and a
+    seeded ViT-B/16 and MLP. Returns the launches of K3 and both K4 routes
+    in the phase, and its numbers."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from seldon_core_tpu_torch.analytics.explainers import SaliencyExplainer
+    from seldon_core_tpu_torch.models import get_model
+    from seldon_core_tpu_torch.models.convert import params_from_jax
+    from seldon_core_tpu_torch.models.resnet_infer import (dequantize_operands,
+                                                           resnet_serve_forward)
+    from seldon_core_tpu_torch.ops.fused_resnet import fused_identity_chain
+    from seldon_core_tpu_torch.ops.int8_matmul import int8_matmul
+    from seldon_core_tpu_torch.ops.quantize import dequantize_params, quantized_bytes
+    from seldon_core_tpu_torch.parallel.topology import Topology
+    from seldon_core_tpu_torch.servers.torchserver import TorchServer, export_checkpoint
+    from seldon_core_tpu_torch.transport.cli import build_component
+
+    t_phase = time.perf_counter()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = {}
+    fused_identity_chain.launches = 0
+    int8_matmul.launches = int8_matmul.launches_wgmma = 0
+    with tempfile.TemporaryDirectory(prefix="vit-ckpt-") as root:
+        # ---- (a) ViT-B/16, bf16 compute, over REST
+        vit = get_model("vit-b16", input_shape=VIT_INPUT, device="cuda")
+        vit.init_params(torch.Generator(device="cuda").manual_seed(VIT_SEED))
+        vit_uri = os.path.join(root, "vit-b16")
+        t0 = time.perf_counter()
+        export_checkpoint(vit_uri, "vit-b16", {"params": vit.param_tree()}, input_shape=VIT_INPUT)
+        export_s = time.perf_counter() - t0
+        n_params = sum(p.numel() for p in vit.parameters())
+        del vit
+        bf16, load_s, load_gb = load_server(vit_uri)
+        xs = [vit_images(PREDICT_BATCH, 20 + i) for i in range(PREDICT_REQUESTS)]
+        results, walls = serve_rest(bf16, [tensor_body(x, f"vit-bf16-{i}")
+                                           for i, x in enumerate(xs)])
+        served = check_rest("vit-bf16", results, xs, 1000)
+        x8 = torch.from_numpy(xs[0]).cuda()
+        f32 = get_model("vit-b16", dtype="float32", input_shape=VIT_INPUT, device="cuda")
+        f32.load_state_dict(bf16._module.state_dict())
+        with torch.no_grad():
+            ref32 = f32(x8).cpu()
+            mine = bf16._module(x8).float().cpu()
+        del f32
+        err, bound, clear, agree = check_logits("[vit] (a) bf16 vs the float32 forward", mine, ref32)
+        check_logits("[vit] (a) REST vs the in-process forward", served[0], mine)
+        x128 = torch.from_numpy(vit_images(RESNET_BATCH, 30)).cuda()
+        with torch.no_grad():
+            (ms, enq), = time_turns([lambda: bf16._module(x128)])
+        print(f"[vit] (a) ViT-B/16 bf16 ({n_params / 1e6:.1f} M params, float32 storage; "
+              f"checkpoint export {export_s:.2f} s, TorchServer load {load_s:.2f} s, load peak "
+              f"{load_gb:.3f} GB): forward at B={RESNET_BATCH} 224x224 {ms:.3f} ms = "
+              f"{RESNET_BATCH / ms * 1e3:.1f} images/s (host enqueue {enq:.3f} ms); "
+              f"{PREDICT_REQUESTS} concurrent POSTs of {PREDICT_BATCH} images: latency median "
+              f"{statistics.median(walls) * 1e3:.1f} ms max {max(walls) * 1e3:.1f} ms, every "
+              f"response 200 with names t:0..t:999 and its puid; logits at B={PREDICT_BATCH} "
+              f"within {err:.4g} of the float32 forward (bound {bound:.4g} = {FWD_TOL} x "
+              f"max|logit|), top-1 equal in {agree} of {clear} clear rows [{card}]", flush=True)
+        out["a"] = dict(ms=ms, ips=RESNET_BATCH / ms * 1e3, lat_med_ms=statistics.median(walls)
+                        * 1e3, err=err)
+
+        # ---- (b) ViT-B/16 int8: K4 on every product and the head
+        int8, load8_s, load8_gb = load_server(vit_uri, quantize="int8")
+        auto, _, _ = load_server(vit_uri, param_dtype="auto")
+        wbytes = {k: quantized_bytes(s._module) / 1e9
+                  for k, s in (("float32", bf16), ("bf16", auto), ("int8", int8))}
+        del auto
+        deq = get_model("vit-b16", input_shape=VIT_INPUT, device="cuda")
+        params_from_jax({k: v for k, v in dequantize_params(int8._module).items()}, deq)
+        before = k4_counts()
+        with torch.no_grad():
+            got8 = int8._module(x8).float().cpu()
+            torch.cuda.synchronize()
+            per_fwd = k4_counts()[0] - before[0]
+            wg = k4_counts()[1] - before[1]
+            ref8 = deq(x8).float().cpu()
+        del deq
+        if per_fwd != VIT_PRODUCTS:
+            fail(f"[vit] (b) int8 ViT-B/16: {per_fwd} K4 launches a forward, the model runs "
+                 f"{VIT_PRODUCTS} products")
+        err8, bound8, clear8, agree8 = check_logits("[vit] (b) int8 vs bf16 over the dequantized "
+                                                    "weights", got8, ref8)
+        rest8 = ""
+        if full:   # the int8 ViT over REST too (the default run's REST is (a)'s)
+            results, walls8 = serve_rest(int8, [tensor_body(x, f"vit-int8-{i}")
+                                                for i, x in enumerate(xs)])
+            check_rest("vit-int8", results, xs, 1000)
+            rest8 = f"; REST latency median {statistics.median(walls8) * 1e3:.1f} ms"
+        with torch.no_grad():
+            (ms8, _), (msb, _) = time_turns([lambda: int8._module(x128),
+                                             lambda: bf16._module(x128)])
+        print(f"[vit] (b) ViT-B/16 int8 (load {load8_s:.2f} s, load peak {load8_gb:.3f} GB): "
+              f"weights on the device {wbytes['int8']:.4f} GB int8 vs {wbytes['bf16']:.4f} GB "
+              f"bf16 (param_dtype=auto) vs {wbytes['float32']:.4f} GB float32; K4 {per_fwd} "
+              f"launches a forward ({wg} on the prefill route at M = {PREDICT_BATCH} x 197), = "
+              f"the products it runs; logits within {err8:.4g} of the bf16 forward over the "
+              f"dequantized weights (bound {bound8:.4g}), top-1 equal in {agree8} of {clear8} "
+              f"clear rows; forward at B={RESNET_BATCH} {ms8:.3f} ms vs bf16 {msb:.3f} ms, in "
+              f"turns{rest8} [{card}]", flush=True)
+        out["b"] = dict(ms=ms8, bf16_ms=msb, gb=wbytes, load_gb=load8_gb, err=err8)
+        # the MLP at its shapes (K = 4, N = 3), bf16 and int8, over REST
+        mlp = get_model("mlp", input_shape=[4], device="cuda", **MLP_KW)
+        mlp.init_params(torch.Generator(device="cuda").manual_seed(VIT_SEED + 1))
+        mlp_uri = os.path.join(root, "mlp")
+        export_checkpoint(mlp_uri, "mlp", {"params": mlp.param_tree()}, kwargs=MLP_KW,
+                          input_shape=[4])
+        del mlp
+        rng = np.random.default_rng(40)
+        mx = [rng.standard_normal((b, 4)).astype(np.float32) for b in MLP_BATCHES]
+        answers = {}
+        for label, knobs in (("mlp-bf16", {}), ("mlp-int8", dict(quantize="int8"))):
+            srv, _, _ = load_server(mlp_uri, **knobs)
+            before = k4_counts()[0]
+            results, _ = serve_rest(srv, [tensor_body(x, f"{label}-{i}")
+                                          for i, x in enumerate(mx)])
+            answers[label] = check_rest(label, results, mx, 3)
+            k4 = k4_counts()[0] - before
+            want = 3 * (len(MLP_BATCHES) + 1) if knobs else 0   # + the warm-up request
+            if k4 != want:
+                fail(f"[vit] (b) {label}: {k4} K4 launches over {len(MLP_BATCHES) + 1} "
+                     f"requests, expected {want}")
+        mlp_err = max((a - b).abs().max().item()
+                      for a, b in zip(answers["mlp-int8"], answers["mlp-bf16"]))
+        if not mlp_err <= FWD_TOL:
+            fail(f"[vit] (b) the int8 MLP's probabilities are {mlp_err:.4g} from bf16's")
+        print(f"[vit] (b) MLP (4 -> 128 -> 128 -> 3) over REST at B = {MLP_BATCHES}: bf16 and "
+              f"int8 answer 200 with names t:0..t:2; int8 through K4 at [B,4]x[4,128], "
+              f"[B,128]x[128,128], [B,128]x[128,3] (3 launches a request); probabilities within "
+              f"{mlp_err:.3g} of bf16's [{card}]", flush=True)
+
+        # ---- (c) ResNet-50 int8: codes on the device, K3 on the dequantized operands
+        rn_uri = os.path.join(root, "resnet50")
+        export_checkpoint(rn_uri, "resnet50", {"params": model.param_tree()},
+                          kwargs={"fused": True}, input_shape=VIT_INPUT)
+        rn8, rn_load_s, rn_load_gb = load_server(rn_uri, quantize="int8")
+        m8 = rn8._module
+        xr = torch.from_numpy(vit_images(PREDICT_BATCH, 50)).cuda()
+        k3 = fused_identity_chain.launches
+        with torch.no_grad():
+            got = m8(xr).float()
+            torch.cuda.synchronize()
+            k3 = fused_identity_chain.launches - k3
+            ref = resnet_serve_forward(m8, xr, pallas_stages=()).float()
+            ops = m8.serving_operands(xr.device)
+            deq_ms = time_ms(lambda: dequantize_operands(ops, torch.bfloat16))
+            (fwd8_ms, _), (fwd_bf16_ms, _) = time_turns([lambda: m8(xr), lambda: model(xr)])
+        if k3 != k3_forward_launches(PREDICT_BATCH, sms):
+            fail(f"[vit] (c) int8 ResNet-50: {k3} K3 launches, expected_launches says "
+                 f"{k3_forward_launches(PREDICT_BATCH, sms)}")
+        errc, boundc, clearc, agreec = check_logits("[vit] (c) int8 ResNet-50 K3 vs the cuDNN "
+                                                    "chain on the same dequantized weights",
+                                                    got.cpu(), ref.cpu())
+        print(f"[vit] (c) ResNet-50 folded int8 (load {rn_load_s:.2f} s, peak {rn_load_gb:.3f} "
+              f"GB; weights on the device {quantized_bytes(m8) / 1e9:.4f} GB vs "
+              f"{quantized_bytes(model) / 1e9:.4f} GB float32): K3 {k3} launches at "
+              f"B={PREDICT_BATCH}, as expected_launches says; logits within {errc:.4g} of the "
+              f"cuDNN chain over the same dequantized weights (bound {boundc:.4g}), top-1 equal "
+              f"in {agreec} of {clearc} clear rows; the per-forward dequantize alone {deq_ms:.4f} "
+              f"ms; forward {fwd8_ms:.3f} ms vs bf16 weights {fwd_bf16_ms:.3f} ms, in turns "
+              f"[{card}]", flush=True)
+        out["c"] = dict(deq_ms=deq_ms, ms=fwd8_ms, bf16_ms=fwd_bf16_ms, err=errc)
+        del rn8, m8, ops
+
+        # ---- (d) saliency through K3's and K4's backward
+        sal = {}
+        rexp = SaliencyExplainer(model_uri=rn_uri, device="cuda")
+        rexp.load()
+        per = k3_forward_launches(PREDICT_BATCH, sms)
+        for steps in SALIENCY_STEPS:
+            rexp.steps = steps
+            sal[f"resnet50 steps {steps}"] = saliency_case(
+                f"ResNet-50 B={PREDICT_BATCH} steps {steps}", card, rexp, xr, steps * per, 0)
+        # the int8 ViT's explainer: the same weights, quantize="int8" in its
+        # config.json (the explainer's server reads the checkpoint alone)
+        vit8_uri = os.path.join(root, "vit-b16-int8")
+        os.makedirs(vit8_uri)
+        os.symlink(os.path.join(vit_uri, "params.msgpack"),
+                   os.path.join(vit8_uri, "params.msgpack"))
+        with open(os.path.join(vit_uri, "config.json")) as fh:
+            cfg = dict(json.load(fh), quantize="int8")
+        with open(os.path.join(vit8_uri, "config.json"), "w") as fh:
+            json.dump(cfg, fh)
+        vexp = SaliencyExplainer(model_uri=vit8_uri, device="cuda")
+        vexp.load()
+        sal["vit-b16 int8 steps 1"] = saliency_case(f"ViT-B/16 int8 B={PREDICT_BATCH} steps 1",
+                                                    card, vexp, x8, 0, VIT_PRODUCTS)
+        bad = [k for k, v in sal.items() if not v["ok"]]
+        if bad:
+            fail(f"[vit] (d) saliency beyond {SALIENCY_RTOL} of the plain versions and "
+                 f"farther than they are from the float32 witness, or under half its rows of "
+                 f"a clear class: {bad}")
+        del rexp, vexp
+        prev = os.environ.get("PREDICTIVE_UNIT_PARAMETERS")
+        os.environ["PREDICTIVE_UNIT_PARAMETERS"] = json.dumps(
+            [{"name": "model_uri", "value": rn_uri, "type": "STRING"}])
+        try:
+            comp = build_component("seldon_core_tpu_torch.analytics.explainers.SaliencyExplainer",
+                                   "cuda")
+        finally:
+            if prev is None:
+                os.environ.pop("PREDICTIVE_UNIT_PARAMETERS")
+            else:
+                os.environ["PREDICTIVE_UNIT_PARAMETERS"] = prev
+        xe = vit_images(2, 60)
+        results, ewalls = serve_rest(comp, [tensor_body(xe, "explain-0")])
+        code, body = results[0]
+        if code != 200 or body["data"]["tensor"]["shape"] != [2, *VIT_INPUT]:
+            fail(f"[vit] (d) the explainer microservice answered {code}")
+        attr = np.asarray(body["data"]["tensor"]["values"])
+        if not np.isfinite(attr).all() or np.abs(attr).max() == 0:
+            fail("[vit] (d) the explainer microservice's attributions are not finite or zero")
+        print(f"[vit] (d) SaliencyExplainer built by the CLI's microservice from its class path "
+              f"over the ResNet-50 checkpoint: POST of 2 images answered 200 with attributions "
+              f"[2, 224, 224, 3] in {ewalls[0] * 1e3:.1f} ms [{card}]", flush=True)
+        out["d"] = sal
+        del comp
+
+        # ---- (e) ViT-B/16 over a co-located {data 1, model 2}
+        for axes in ((VIT_MESH, {"data": 2, "model": 2}) if full else (VIT_MESH,)):
+            mesh = Topology(devices=["cuda"] * (axes["data"] * axes["model"])).mesh(axes)
+            tp = TorchServer(model_uri=vit_uri, mesh=mesh, strict_sharding=True, device="cuda")
+            tp.load()
+            with torch.no_grad():
+                got = tp._module(x8).float().cpu()
+            erre, bounde, cleare, agreee = check_logits(f"[vit] (e) {axes} vs unsharded", got,
+                                                        mine)
+            print(f"[vit] (e) ViT-B/16 bf16 over a co-located {axes} (every rank on this card, "
+                  f"strict_sharding): logits within {erre:.4g} of the unsharded forward (bound "
+                  f"{bounde:.4g}), top-1 equal in {agreee} of {cleare} clear rows [{card}]",
+                  flush=True)
+            del tp
+        if full:
+            vit_full_extras(card, model, rn_uri, bf16, int8)
+        del bf16, int8
+    out["launches"] = dict(k3=fused_identity_chain.launches, k4=int8_matmul.launches,
+                           k4_wgmma=int8_matmul.launches_wgmma)
+    release_server_memory(workspaces=False)
+    out["s"] = time.perf_counter() - t_phase
+    print(f"[vit] phase {out['s']:.1f} s; launches in it: K3 {out['launches']['k3']}, K4 "
+          f"{out['launches']['k4']} ({out['launches']['k4_wgmma']} on the prefill route) "
+          f"[{card}]", flush=True)
+    return out
+
+
+def vit_full_extras(card: str, model, rn_uri: str, bf16, int8) -> None:
+    """``--vit``: the forwards at B = 1, 8 and 128 for both models in both
+    weight types (in turns per batch), and ResNet-50 served with
+    ``param_dtype="bfloat16"`` against its float32-stored weights."""
+    import torch
+
+    rn8, _, _ = load_server(rn_uri, quantize="int8")
+    rnb, _, _ = load_server(rn_uri, param_dtype="bfloat16")
+    xs = torch.from_numpy(vit_images(RESNET_BATCH, 70)).cuda()
+    with torch.no_grad():
+        err, bound, _, _ = check_logits("[vit] --vit ResNet-50 param_dtype=bfloat16",
+                                        rnb._module(xs[:PREDICT_BATCH]),
+                                        model(xs[:PREDICT_BATCH]))
+        for b in (1, PREDICT_BATCH, RESNET_BATCH):
+            x = xs[:b].contiguous()
+            t = time_turns([lambda: bf16._module(x), lambda: int8._module(x),
+                            lambda: model(x), lambda: rn8._module(x)])
+            print(f"[vit] --vit B={b}: ViT-B/16 bf16 {t[0][0]:.3f} ms, int8 {t[1][0]:.3f} ms; "
+                  f"ResNet-50 bf16 weights {t[2][0]:.3f} ms, int8 {t[3][0]:.3f} ms (in turns) "
+                  f"[{card}]", flush=True)
+    print(f"[vit] --vit ResNet-50 param_dtype=bfloat16: logits within {err:.4g} of the "
+          f"float32-stored weights' (bound {bound:.4g}) [{card}]", flush=True)
+    del rn8, rnb
+
+
+# K4 at the int8 predict path's products (label, M, K, N, out dtype): ViT-B/16's
+# block products at B = 8 and 128 (197 tokens an image), its float32 head,
+# the MLP's three products at B = 8 and 128
+K4_PREDICT = ([(f"vit {name} M={8 * 197 if b == 8 else 128 * 197}", 197 * b, k, n, "bfloat16")
+               for b in (PREDICT_BATCH, RESNET_BATCH)
+               for name, k, n in (("wqkv", 768, 2304), ("wo", 768, 768), ("w1", 768, 3072),
+                                  ("w2", 3072, 768))]
+              + [(f"vit head M={b}", b, 768, 1000, "float32") for b in (PREDICT_BATCH,
+                                                                        RESNET_BATCH)]
+              + [(f"mlp [{k},{n}] M={b}", b, k, n, "bfloat16") for b in MLP_BATCHES
+                 for k, n in ((4, 128), (128, 128), (128, 3))])
+
+
+def predict_kernel_cases(card: str, flush) -> dict:
+    """K4 at ``K4_PREDICT`` (``k4_case``: the kernel against its plain
+    version, bound, library call); the explicit backward of K4 (at ViT's
+    wqkv, B = 8) and of K3 (the four ResNet-50 chains at B = 8), each timed
+    beside its bound and the library's backward: plain PyTorch, no kernel
+    of their own."""
+    import torch
+
+    from seldon_core_tpu_torch.ops.fused_resnet import identity_chain_backward
+    from seldon_core_tpu_torch.ops.int8_matmul import int8_matmul_backward
+
+    out = {}
+    for i, (label, m, k, n, dt) in enumerate(K4_PREDICT):
+        r = k4_case(m, k, n, getattr(torch, dt), seed=100 + i, flush=flush)
+        out[label] = r
+        print(f"K4 int8_matmul {label} [{m},{k}]x[{k},{n}] -> {dt} ({'prefill' if r['decode_ms'] is not None else 'decode'} "
+              f"route): kernel_ms {r['ms']:.4f} plain_ms {r['plain_ms']:.4f} bound_ms "
+              f"{r['bound_ms']:.4f} ({r['bound_by']}) library_ms {r['library_ms']:.4f} "
+              f"(torch.matmul on a dequantized bf16 copy) max_abs_err {r['err']:.3e} "
+              f"({K4_TOL_REASON}) [{card}]", flush=True)
+    # K4's backward: dy @ (q * scale)^T in bf16, the weight dequantized per call
+    g = torch.Generator(device="cuda").manual_seed(7)
+    m, k, n = 197 * PREDICT_BATCH, 768, 2304
+    q = torch.randint(-128, 128, (k, n), generator=g, device="cuda", dtype=torch.int8)
+    scale = (torch.rand((n,), generator=g, device="cuda") + 0.5) / 127
+    dy = torch.randn((m, n), generator=g, device="cuda").to(torch.bfloat16)
+    w = q.to(torch.bfloat16) * scale.to(torch.bfloat16)
+    (ms, _), (lib, _) = time_turns([lambda: int8_matmul_backward(dy, q, scale, torch.bfloat16),
+                                    lambda: dy @ w.t()], flush)
+    nbytes = m * n * 2 + k * n + n * 4 + m * k * 2
+    bytes_s, flops_s = nbytes / HBM_BYTES_PER_S, 2 * m * n * k / BF16_FLOPS_PER_S
+    out["k4 backward"] = dict(ms=ms, library_ms=lib, bound_ms=max(bytes_s, flops_s) * 1e3,
+                              bound_by="bytes" if bytes_s >= flops_s else "operations")
+    print(f"K4 backward (int8_matmul_backward, plain PyTorch: the weight dequantized in bf16, "
+          f"then dy @ w^T) at ViT-B/16 wqkv, dy [{m},{n}]: {ms:.4f} ms, bound "
+          f"{out['k4 backward']['bound_ms']:.4f} ms ({out['k4 backward']['bound_by']}), "
+          f"torch.matmul on a dequantized bf16 copy {lib:.4f} ms, in turns [{card}]", flush=True)
+    # K3's backward: identity_chain_ref recomputed from x, autograd for dx
+    for hw, c, f, n_blocks in RESNET50_CHAINS:
+        x, blocks = k3_chain_inputs(PREDICT_BATCH, hw, c, f, n_blocks, seed=hw)
+        dyc = torch.randn(x.shape, generator=g, device="cuda").to(torch.bfloat16)
+        xg = x.clone().requires_grad_()
+        y_lib = cudnn_chain_fn(xg, blocks)()
+        (ms, _), (lib, _) = time_turns([
+            lambda: identity_chain_backward(x, blocks, dyc),
+            lambda: torch.autograd.grad(y_lib, xg, dyc, retain_graph=True)], flush)
+        mm = PREDICT_BATCH * hw * hw
+        nbytes = 3 * x.numel() * 2 + n_blocks * (2 * c * f + 9 * f * f) * 2
+        flops = 2 * 2 * mm * (2 * c * f + 9 * f * f) * n_blocks   # recompute + input grad
+        bytes_s, flops_s = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S
+        out[f"k3 backward {hw}"] = dict(ms=ms, library_ms=lib, bound_ms=max(bytes_s, flops_s)
+                                        * 1e3, bound_by="bytes" if bytes_s >= flops_s
+                                        else "operations")
+        print(f"K3 backward (identity_chain_backward, plain PyTorch: identity_chain_ref "
+              f"recomputed in float32 from x, autograd for dx) {hw}x{hw}x{c} F={f} x{n_blocks} "
+              f"blocks, B={PREDICT_BATCH}: {ms:.4f} ms, bound "
+              f"{out[f'k3 backward {hw}']['bound_ms']:.4f} ms "
+              f"({out[f'k3 backward {hw}']['bound_by']}), autograd's backward through the "
+              f"cuDNN chain {lib:.4f} ms, in turns [{card}]", flush=True)
+        del x, blocks, xg, y_lib
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -10534,6 +11111,14 @@ def main() -> int:
     if sys.argv[1:] == ["--dense"]:
         records, dense_runs = dense_flag_phase(card)
         print_dense(card, dense_runs, records)
+        print(f"total_s {time.perf_counter() - t_start:.1f}", flush=True)
+        return 0
+    if sys.argv[1:] == ["--vit"]:
+        scratch = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+        predict_kernel_cases(card, lambda: scratch.fill_(1))
+        del scratch
+        model, _ = resnet_forward_phase(card)
+        vit_phase(card, model, full=True)
         print(f"total_s {time.perf_counter() - t_start:.1f}", flush=True)
         return 0
     if sys.argv[1:] == ["--train"]:
@@ -10688,6 +11273,8 @@ def main() -> int:
               f"kernel {sum(r['ms'] for r in rows):.3f} ms ({sum(r['launches'] for r in rows)} "
               f"launches), cuDNN chain {sum(r['cudnn_ms'] for r in rows):.3f} ms, bound "
               f"{sum(r['bound_ms'] for r in rows):.3f} ms [{card}]", flush=True)
+    # K4 at the int8 predict path's shapes; K3's and K4's backward
+    kp = predict_kernel_cases(card, flush)
     del scratch
 
     # [train]: the training path (the train step, ring attention, GPipe)
@@ -10826,6 +11413,9 @@ def main() -> int:
     k3_launches += remote_phase(card, model)
     # [parallel] (d): TorchServer over a co-located mesh, through a spec
     k3_launches += parallel_predict(card, model)
+    # [vit]: ViT-B/16 and the MLP in bf16 and int8, int8 ResNet-50, the
+    # saliency explainer, the ViT over a mesh (its own counts)
+    vit = vit_phase(card, model)
     del model
     persistence_phase(card, router)
     servers_phase(card)
@@ -10880,6 +11470,20 @@ def main() -> int:
               "seldon_core_tpu_torch/csrc/paged_attention.cu",
               "seldon_core_tpu/ops/paged_attention.py:253", par_total("k1p_int8"),
               par_summary["kernels"]["k1p seq2 rank int8"]),
+    ]
+    kernels += [
+        entry("int8_matmul (ViT-B/16 int8 predict, prefill route: wqkv [1576,768]x[768,2304])",
+              "cuda", "seldon_core_tpu_torch/csrc/int8_matmul_wgmma.cu",
+              "seldon_core_tpu/ops/pallas_int8.py:127", vit["launches"]["k4_wgmma"],
+              kp["vit wqkv M=1576"]),
+        entry("int8_matmul (ViT-B/16 head and MLP, decode route: head [8,768]x[768,1000] -> "
+              "f32)", "cuda", "seldon_core_tpu_torch/csrc/int8_matmul.cu",
+              "seldon_core_tpu/ops/pallas_int8.py:127",
+              vit["launches"]["k4"] - vit["launches"]["k4_wgmma"], kp["vit head M=8"]),
+        entry("fused_identity_chain (int8 ResNet-50 predict and saliency, B=8)", "cuda",
+              "seldon_core_tpu_torch/csrc/fused_resnet_wgmma.cu",
+              "seldon_core_tpu/ops/fused_resnet.py:239", vit["launches"]["k3"],
+              k3[PREDICT_BATCH, 56]),
     ]
     idle = [k["name"] for k in kernels if k["launches"] == 0]
     if idle:

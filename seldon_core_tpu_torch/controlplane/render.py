@@ -7,7 +7,7 @@ carrying the base64 predictor spec, Services, ingress annotations, HPA), as
 a pure function for the operator loop (``controlplane/operator.py``) and the
 CLI's ``render``.
 
-Its manifests equal the JAX package's but for three differences, each
+Its manifests equal the JAX package's but for the differences below, each
 pinned by a test that diffs the two outputs (``tests/test_torch_controlplane.py``):
 
 - the engine container runs the port's CLI: ``command: ["python", "-m",
@@ -20,9 +20,12 @@ pinned by a test that diffs the two outputs (``tests/test_torch_controlplane.py`
   an optional ``gpu_product`` under the ``nvidia.com/gpu.product`` node
   label (what the NVIDIA GPU feature discovery labels a node with).
 
-A predictor with an ``explainer`` raises ``NotImplementedError``: the
-explainer is not ported yet (it arrives with the analytics slice), and a
-manifest must not point at a class the port lacks.
+A predictor with an ``explainer`` gets the JAX package's explainer
+Deployment and Service; its default container runs the port's CLI as the
+engine's does (the same ``command``) and serves the port's
+``seldon_core_tpu_torch.analytics.explainers.SaliencyExplainer`` where the
+JAX package names its own class. A ``containerSpec`` replaces that
+container wholesale, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ import json
 from typing import Any, Dict, List, Optional
 
 from seldon_core_tpu_torch.contracts.graph import PredictorSpec, SeldonDeploymentSpec
+from seldon_core_tpu_torch.contracts.payload import SeldonError
 from seldon_core_tpu_torch.controlplane.validate import require_valid
 
 DEFAULT_ENGINE_IMAGE = "seldon-core-tpu/engine:latest"
@@ -230,14 +234,76 @@ def _virtual_service(sdep: SeldonDeploymentSpec, namespace: str) -> Dict[str, An
     return vs
 
 
-def _explainer_objects(sdep: SeldonDeploymentSpec, p: PredictorSpec) -> List[Dict[str, Any]]:
-    """The JAX package renders an explainer Deployment + Service serving
-    its ``SaliencyExplainer``; the port has no explainer yet, so a
-    predictor carrying one raises instead of pointing a manifest at a
-    class that does not exist."""
-    raise NotImplementedError(
-        f"predictor {p.name!r} of {sdep.name!r} has an explainer: the explainer is not ported "
-        f"yet, it arrives with the analytics slice of the port")
+EXPLAINER_CLASS = "seldon_core_tpu_torch.analytics.explainers.SaliencyExplainer"
+
+
+def _explainer_objects(
+    sdep: SeldonDeploymentSpec, p: PredictorSpec, namespace: str, engine_image: str
+) -> List[Dict[str, Any]]:
+    """Explainer Deployment + Service for a predictor carrying the CRD
+    ``explainer`` field (`proto/seldon_deployment.proto:45-51,63`). Default
+    container serves the port's ``SaliencyExplainer`` over the predictor's
+    modelUri through the port's CLI; ``containerSpec`` overrides it
+    wholesale."""
+    exp = p.explainer
+    exp_type = exp.get("type", "saliency") or "saliency"
+    if not exp.get("containerSpec") and exp_type not in ("saliency",):
+        raise SeldonError(
+            f"unsupported explainer type {exp_type!r}: built-in support is "
+            "'saliency'; other explainers need an explicit containerSpec",
+            reason="BAD_GRAPH",
+        )
+    name = f"{sdep.name}-{p.name}-explainer"
+    labels = {**_dep_labels(sdep, p), "seldon-explainer": p.name}
+    # copy: the spec's nested dict must not accumulate mutations (envFrom)
+    # across renders of the same held spec object
+    container = dict(exp["containerSpec"]) if exp.get("containerSpec") else None
+    if not container:
+        model_uri = exp.get("modelUri") or p.graph.model_uri or ""
+        container = {
+            "name": "explainer",
+            "image": engine_image,
+            "command": list(ENGINE_COMMAND),
+            "args": ["microservice", EXPLAINER_CLASS, "REST"],
+            "env": [
+                {"name": "PREDICTIVE_UNIT_SERVICE_PORT", "value": str(ENGINE_HTTP_PORT)},
+                {"name": "PREDICTIVE_UNIT_PARAMETERS", "value": json.dumps([
+                    {"name": "model_uri", "value": model_uri, "type": "STRING"},
+                ])},
+            ],
+            "ports": [{"name": "http", "containerPort": ENGINE_HTTP_PORT}],
+        }
+    pod_spec: Dict[str, Any] = {"containers": [container]}
+    if exp.get("serviceAccountName"):
+        pod_spec["serviceAccountName"] = exp["serviceAccountName"]
+    if exp.get("envSecretRefName"):
+        container["envFrom"] = list(container.get("envFrom", [])) + [
+            {"secretRef": {"name": exp["envSecretRefName"]}}
+        ]
+    deployment = {
+        "apiVersion": "apps/v1",
+        "kind": "Deployment",
+        "metadata": {"name": name, "namespace": namespace, "labels": labels},
+        "spec": {
+            "replicas": 1,
+            "selector": {"matchLabels": {"seldon-explainer-app": name}},
+            "template": {
+                "metadata": {"labels": {**labels, "seldon-explainer-app": name}},
+                "spec": pod_spec,
+            },
+        },
+    }
+    service = {
+        "apiVersion": "v1",
+        "kind": "Service",
+        "metadata": {"name": name, "namespace": namespace, "labels": labels},
+        "spec": {
+            "selector": {"seldon-explainer-app": name},
+            "ports": [{"name": "http", "port": ENGINE_HTTP_PORT,
+                       "targetPort": ENGINE_HTTP_PORT}],
+        },
+    }
+    return [deployment, service]
 
 
 def render_manifests(
@@ -260,7 +326,7 @@ def render_manifests(
         if p.hpa_spec.get("maxReplicas"):
             out.append(_hpa(sdep, p, namespace))
         if p.explainer:
-            out.extend(_explainer_objects(sdep, p))
+            out.extend(_explainer_objects(sdep, p, namespace, engine_image))
     if len([p for p in sdep.predictors if not p.shadow]) > 1 or any(
         p.shadow for p in sdep.predictors
     ):

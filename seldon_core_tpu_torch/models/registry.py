@@ -1,8 +1,8 @@
 """Model registry: names -> torch module constructors.
 
 Port of ``seldon_core_tpu/models/registry.py``. ``LLMServer`` and
-``TorchServer`` resolve their ``model`` name here (the transformer family
-and ResNet-18/50/101 are built in); users register their own architectures with
+``TorchServer`` resolve their ``model`` name here (the transformer family,
+ResNet-18/50/101, the MLP and ViT-B/16 / ViT-tiny are built in); users register their own architectures with
 ``register_model``.
 """
 
@@ -28,8 +28,10 @@ def register_model(name: str, ctor: Callable[..., Any] = None):
 def get_model(name: str, **kwargs: Any):
     if name not in _REGISTRY:
         # Import built-in model families lazily so registry import stays light.
+        import seldon_core_tpu_torch.models.mlp  # noqa: F401
         import seldon_core_tpu_torch.models.resnet  # noqa: F401
         import seldon_core_tpu_torch.models.transformer  # noqa: F401
+        import seldon_core_tpu_torch.models.vit  # noqa: F401
     if name not in _REGISTRY:
         raise KeyError(f"Unknown model {name!r}; registered: {sorted(_REGISTRY)}")
     return _REGISTRY[name](**kwargs)

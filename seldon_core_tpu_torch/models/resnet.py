@@ -22,6 +22,13 @@ TPU XLA's fused conv graph beat it. The port has no XLA; its counterpart of
 ``resnet_serve_forward`` with every stage's identity chain on the
 hand-written kernel (``ops/fused_resnet``). ``resnet_serve_forward(module,
 x, pallas_stages=())`` runs the same weights through the cuDNN chain.
+
+The forward records autograd only for an input that requires a gradient
+(the weights never do): a saliency explanation takes the input gradient
+through K3's own backward (``ops/fused_resnet``). ``TorchServer`` casts the
+weights (``param_dtype``) and quantizes them (``quantize="int8"``: the
+conv kernels and the head, ``ops/quantize.quantize_params``) after they
+load; ``resnet_infer`` says how int8 operands run.
 """
 
 from __future__ import annotations
@@ -34,11 +41,13 @@ import torch
 from torch import nn
 
 from seldon_core_tpu_torch.device import resolve_device
+from seldon_core_tpu_torch.models.layers import param_tree
 from seldon_core_tpu_torch.models.registry import register_model
 from seldon_core_tpu_torch.models.resnet_infer import (conv, conv_weight, head, max_pool,
                                                        resnet_serve_forward, same_pads,
                                                        serving_operands, space_to_depth)
 from seldon_core_tpu_torch.models.transformer import to_torch_dtype
+from seldon_core_tpu_torch.ops.quantize import leaf
 
 BN_EPS = 1e-5  # flax BatchNorm epsilon of the JAX module
 
@@ -149,16 +158,10 @@ class ResNet(nn.Module):
 
     # -- parameters -------------------------------------------------------
     def param_tree(self) -> Dict[str, Any]:
-        """The parameters as flax's nested ``params`` dict of tensors
-        (batch statistics excluded)."""
-        tree: Dict[str, Any] = {}
-        for name, p in self.named_parameters():
-            node = tree
-            *path, leaf = name.split(".")
-            for part in path:
-                node = node.setdefault(part, {})
-            node[leaf] = p
-        return tree
+        """The parameters as flax's nested ``params`` dict of tensors (an
+        int8 kernel as its ``QuantizedTensor``; batch statistics
+        excluded)."""
+        return param_tree(self)
 
     @torch.no_grad()
     def init_params(self, generator: Optional[torch.Generator] = None) -> "ResNet":
@@ -192,11 +195,12 @@ class ResNet(nn.Module):
     def serving_operands(self, device) -> Dict[str, Any]:
         """The folded forward's operands on ``device`` (see
         ``resnet_infer.serving_operands``), cached until a parameter is
-        changed in place or replaced."""
+        changed in place or replaced (int8 codes and scales included)."""
         if not self.fused:
             raise ValueError("serving operands exist for the folded model (fused=True) only")
         device = torch.device(device)
-        key = (device, tuple((id(p), p._version) for p in self.parameters()))
+        key = (device, tuple((id(p), p._version)
+                             for p in [*self.parameters(), *self.buffers()]))
         with self._ops_lock:
             if self._ops is None or self._ops[0] != key:
                 self._ops = (key, serving_operands(self.param_tree(), self.stage_sizes, device,
@@ -204,7 +208,6 @@ class ResNet(nn.Module):
             return self._ops[1]
 
     # -- forward ----------------------------------------------------------
-    @torch.no_grad()
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         if train:
             if self.fused:
@@ -219,8 +222,8 @@ class ResNet(nn.Module):
     def _forward_bn(self, x: torch.Tensor) -> torch.Tensor:
         dtype, dev = self.dtype, x.device
 
-        def c(m: Conv, y, stride, pads):
-            return conv(y, conv_weight(m.kernel, dev, dtype), None, stride, pads)
+        def c(m: Conv, y, stride, pads):   # an int8 kernel dequantized, as JAX's forward does
+            return conv(y, conv_weight(leaf(m.kernel, dtype), dev, dtype), None, stride, pads)
 
         x = c(self.conv_init, x.to(dtype), 2, ((3, 3), (3, 3)))
         x = max_pool(torch.relu(self.bn_init(x)))

@@ -28,6 +28,16 @@ order, the K3 operands of every identity block, biases in their working
 types — are built once (``serving_operands``) and reused: a contiguous NHWC
 activation permuted to NCHW is already channels-last for cuDNN, so no
 layout copy happens per request.
+
+Int8 (``ops/quantize.quantize_params``: every conv kernel and the head):
+the codes stay on the device as int8, already in each operand's layout
+(a ``QuantizedTensor`` whose scale is shaped to follow the output channel
+there: dim 0 of an OIHW weight, the last dim of a K3 operand). Each
+forward dequantizes them (``dequantize_operands``), in the
+JAX package's order, ``q * scale`` in the leaf's ``orig_dtype`` then cast
+to the compute dtype: plain PyTorch, where the JAX package's dequantize is
+XLA's. K3 still gets bf16 weights and float32 biases; the head runs on K4
+(``ops/quantize.float32_head``).
 """
 
 from __future__ import annotations
@@ -38,7 +48,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from seldon_core_tpu_torch.ops.fused_resnet import folded_block_params, fused_identity_chain
+from seldon_core_tpu_torch.ops.fused_resnet import fused_identity_chain
+from seldon_core_tpu_torch.ops.quantize import QuantizedTensor, float32_head, leaf
 
 Pads = Tuple[Tuple[int, int], Tuple[int, int]]
 
@@ -58,11 +69,42 @@ def _tensor(v, device, dtype=None) -> torch.Tensor:
     return t.detach().to(device=device, dtype=dtype or torch.float32)
 
 
-def conv_weight(kernel, device, dtype) -> torch.Tensor:
+def conv_weight(kernel, device, dtype):
     """An HWIO kernel as the OIHW weight ``F.conv2d`` takes, stored
-    channels-last (O, H, W, I in memory) in ``dtype``."""
+    channels-last (O, H, W, I in memory) in ``dtype``; a quantized kernel
+    as a ``QuantizedTensor`` in that layout, its scale over dim 0."""
+    if isinstance(kernel, QuantizedTensor):
+        q = kernel.q.detach().to(device).permute(3, 0, 1, 2).contiguous().permute(0, 3, 1, 2)
+        return QuantizedTensor(q, kernel.scale.detach().to(device).view(-1, 1, 1, 1),
+                               kernel.orig_dtype)
     k = _tensor(kernel, device, dtype)
     return k.permute(3, 0, 1, 2).contiguous().permute(0, 3, 1, 2)
+
+
+def _k3_weight(kernel, device, dtype):
+    """A folded block's kernel as its K3 operand (1x1 kernels lose their
+    unit dims, the 3x3 stays HWIO), contiguous in ``dtype``; quantized, a
+    ``QuantizedTensor`` whose scale stays on the last (output) dim."""
+    if isinstance(kernel, QuantizedTensor):
+        q = kernel.q.detach().to(device)
+        q = (q.reshape(q.shape[-2:]) if q.shape[0] == 1 else q).contiguous()
+        return QuantizedTensor(q, kernel.scale.detach().to(device), kernel.orig_dtype)
+    k = _tensor(kernel, device, dtype)
+    return (k.reshape(k.shape[-2:]) if k.shape[0] == 1 else k).contiguous()
+
+
+def dequantize_operands(ops, dtype):
+    """``ops`` with every quantized conv and K3 weight dequantized to
+    ``dtype`` (the forward's weights, made anew each call); the head, a
+    ``(kernel, bias)`` tuple, is not walked and stays int8 for K4. An
+    unquantized tree comes back as it is."""
+    if isinstance(ops, QuantizedTensor):
+        return leaf(ops, dtype)
+    if isinstance(ops, dict):
+        return {k: dequantize_operands(v, dtype) for k, v in ops.items()}
+    if isinstance(ops, list):
+        return [dequantize_operands(v, dtype) for v in ops]
+    return ops
 
 
 def conv(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor], stride: int,
@@ -102,10 +144,13 @@ def _conv_ops(scope, device, dtype) -> Dict[str, torch.Tensor]:
 def serving_operands(params: Dict[str, Any], stage_sizes: Sequence[int], device,
                      dtype=torch.bfloat16) -> Dict[str, Any]:
     """Every operand the folded forward needs, built once from a folded
-    param tree (flax names, HWIO kernels; numpy arrays or tensors): conv
-    weights in channels-last OIHW and ``dtype``, their biases in ``dtype``,
-    the K3 dict of every identity block (weights in ``dtype`` and
-    contiguous, biases float32) and the float32 head."""
+    param tree (flax names, HWIO kernels; numpy arrays or tensors, or
+    ``QuantizedTensor`` kernels): conv weights in channels-last OIHW and
+    ``dtype``, their biases in ``dtype``, the K3 dict of every identity
+    block (weights in ``dtype`` and contiguous, biases float32) and the
+    float32 head. A quantized kernel stays int8 (a re-laid-out
+    ``QuantizedTensor``) until ``dequantize_operands``; a quantized head
+    stays a ``QuantizedTensor`` for K4."""
     device = torch.device(device)
     ops: Dict[str, Any] = {}
     if "conv_init_s2d" in params:
@@ -118,12 +163,18 @@ def serving_operands(params: Dict[str, Any], stage_sizes: Sequence[int], device,
         blk = {name: _conv_ops(scope[name], device, dtype)
                for name in ("Conv_0", "Conv_1", "Conv_2", "conv_proj") if name in scope}
         if "conv_proj" not in scope:
-            k3 = folded_block_params(scope)
-            blk["k3"] = {k: _tensor(v, device, dtype if k[0] == "w" else torch.float32).contiguous()
-                         for k, v in k3.items()}
+            blk["k3"] = {f"w{j + 1}": _k3_weight(scope[f"Conv_{j}"]["kernel"], device, dtype)
+                         for j in range(3)}
+            blk["k3"].update({f"b{j + 1}": _tensor(scope[f"Conv_{j}"]["bias"], device).contiguous()
+                              for j in range(3)})
         blocks.append(blk)
     ops["blocks"] = blocks
-    ops["head"] = (_tensor(params["head"]["kernel"], device), _tensor(params["head"]["bias"], device))
+    kernel = params["head"]["kernel"]
+    if isinstance(kernel, QuantizedTensor):
+        kernel = QuantizedTensor(kernel.q.to(device), kernel.scale.to(device), kernel.orig_dtype)
+    else:
+        kernel = _tensor(kernel, device)
+    ops["head"] = (kernel, _tensor(params["head"]["bias"], device))
     return ops
 
 
@@ -160,12 +211,14 @@ def head(ops: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:
     float32 classifier."""
     x = x.float().mean(dim=(1, 2)).to(x.dtype)
     kernel, bias = ops["head"]
-    return x.float() @ kernel + bias
+    return float32_head(x, kernel) + bias
 
 
 def forward_operands(ops: Dict[str, Any], x: torch.Tensor, stage_sizes: Sequence[int],
                      dtype=torch.bfloat16, pallas_stages: Sequence[int] = ()) -> torch.Tensor:
-    """The folded forward over prepared ``serving_operands``."""
+    """The folded forward over prepared ``serving_operands`` (int8 ones
+    dequantized first, for this call)."""
+    ops = dequantize_operands(ops, dtype)
     x = stem(ops, x.to(dtype))
     idx = 0
     for i, n_blocks in enumerate(stage_sizes):
@@ -204,5 +257,5 @@ def resnet_serve_forward(variables_or_module, x: torch.Tensor, *,
     return forward_operands(ops, x, stage_sizes, dtype, pallas_stages)
 
 
-__all__ = ["conv", "conv_weight", "forward_operands", "max_pool", "resnet_serve_forward",
-           "same_pads", "serving_operands", "space_to_depth"]
+__all__ = ["conv", "conv_weight", "dequantize_operands", "forward_operands", "max_pool",
+           "resnet_serve_forward", "same_pads", "serving_operands", "space_to_depth"]

@@ -318,6 +318,53 @@ def _gemm_chain(x: torch.Tensor, params: Sequence[torch.Tensor], plans) -> torch
     return out
 
 
+def _forward(x: torch.Tensor, blocks: Sequence[dict]) -> torch.Tensor:
+    """The chain: its plain version for CPU tensors, the kernel for CUDA
+    tensors (checked first), or raise."""
+    params = _block_param_list(blocks)
+    if x.device.type == "cpu":
+        return identity_chain_ref(x, blocks)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_identity_chain: unsupported device {x.device}")
+    _check(x, params)
+    from seldon_core_tpu_torch.ops._build import sm_count
+
+    b, h, w, c = x.shape
+    sms = sm_count(x.device.index)
+    return _gemm_chain(x, params, [_k3_plan(b, h, w, c, params[i].shape[1], sms)
+                                   for i in range(0, len(params), 6)])
+
+
+def identity_chain_backward(x: torch.Tensor, blocks: Sequence[dict],
+                            dy: torch.Tensor) -> torch.Tensor:
+    """The input gradient of the chain at ``x`` against ``dy``: autograd
+    through ``identity_chain_ref`` recomputed from ``x``, the same code on
+    both devices. The JAX package defines no backward for its Pallas kernel
+    (``jax.grad`` differentiates the flax module), so there is no kernel to
+    port; the chain's relus and bf16 hand-offs are the plain version's."""
+    with torch.enable_grad():
+        xr = x.detach().requires_grad_()
+        y = identity_chain_ref(xr, blocks)
+        return torch.autograd.grad(y, xr, dy)[0]
+
+
+class _Differentiable(torch.autograd.Function):
+    """``fused_identity_chain`` under autograd: the forward is the kernel
+    (the plain version for CPU tensors), the backward
+    ``identity_chain_backward``."""
+
+    @staticmethod
+    def forward(ctx, x, blocks):
+        ctx.save_for_backward(x)
+        ctx.blocks = blocks
+        return _forward(x, blocks)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, = ctx.saved_tensors
+        return identity_chain_backward(x, ctx.blocks, dy), None
+
+
 def fused_identity_chain(x: torch.Tensor, blocks: Sequence[dict], *,
                          group: int = 1) -> torch.Tensor:
     """Run consecutive folded-BN identity bottleneck blocks over x (B, H, W,
@@ -331,25 +378,28 @@ def fused_identity_chain(x: torch.Tensor, blocks: Sequence[dict], *,
     prepared once, at load, never per call. Three launches per block, plus
     a reduce per split conv, as ``_k3_plan`` plans them; ``launches``
     counts them, is safe to read while other threads serve, and
-    ``expected_launches`` gives what one call adds."""
-    b, h, w, c = x.shape
+    ``expected_launches`` gives what one call adds.
+
+    Where autograd records (grad mode on and ``x`` requiring a gradient: a
+    saliency explanation) the call goes through ``_Differentiable``: the
+    same launches forward, ``identity_chain_backward`` for ``x``'s
+    gradient. The weights are not trained: one requiring a gradient
+    raises. Otherwise (serving under ``no_grad``) nothing else runs."""
+    b = x.shape[0]
     if b % group:
         raise ValueError(f"batch {b} not divisible by group {group}")
-    params = _block_param_list(blocks)
-    if x.device.type == "cpu":
-        return identity_chain_ref(x, blocks)
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_identity_chain: unsupported device {x.device}")
-    _check(x, params)
-    from seldon_core_tpu_torch.ops._build import sm_count
-
-    sms = sm_count(x.device.index)
-    return _gemm_chain(x, params, [_k3_plan(b, h, w, c, params[i].shape[1], sms)
-                                   for i in range(0, len(params), 6)])
+    if not torch.is_grad_enabled():
+        return _forward(x, blocks)
+    if any(t.requires_grad for blk in blocks for t in blk.values()):
+        raise ValueError("fused_identity_chain: the folded weights are not trained; only x "
+                         "takes a gradient")
+    if x.requires_grad:
+        return _Differentiable.apply(x, blocks)
+    return _forward(x, blocks)
 
 
 fused_identity_chain.launches = 0
 
 
 __all__ = ["expected_launches", "folded_block_params", "fused_identity_chain",
-           "gemm_chain_emulated", "identity_chain_ref"]
+           "gemm_chain_emulated", "identity_chain_backward", "identity_chain_ref"]

@@ -310,15 +310,56 @@ int8_matmul.launches = 0
 int8_matmul.launches_wgmma = 0
 
 
+def int8_matmul_backward(dy: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
+                         x_dtype) -> torch.Tensor:
+    """The input gradient of ``x @ (q * scale)``: ``dy @ (q * scale)^T``,
+    the weight dequantized in ``dy``'s dtype, cast to ``x_dtype``. Plain
+    PyTorch on either device: the JAX package has no backward kernel to
+    port (``jax.grad`` differentiates the dequantized product)."""
+    w = q.to(dy.dtype) * scale.to(dy.dtype)
+    return (dy @ w.t()).to(x_dtype)
+
+
+class _Differentiable(torch.autograd.Function):
+    """``int8_matmul`` under autograd: the forward is the launch (the plain
+    version for CPU tensors), the backward ``int8_matmul_backward`` in
+    plain PyTorch, the same code on both devices. The codes and scales are
+    not trained: a gradient for them raises."""
+
+    @staticmethod
+    def forward(ctx, x, q, scale, out_dtype):
+        ctx.save_for_backward(q, scale)
+        ctx.x_dtype = x.dtype
+        return int8_matmul(x, q, scale, out_dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        q, scale = ctx.saved_tensors
+        return int8_matmul_backward(dy, q, scale, ctx.x_dtype), None, None, None
+
+
 def int8_dense(x: torch.Tensor, qt, out_dtype=None) -> torch.Tensor:
     """Apply a quantized [K, N] weight (``ops/quantize.QuantizedTensor``:
     ``q``, ``scale``, ``orig_dtype``) to activations [..., K]; leading dims
     are flattened around the kernel. Output dtype defaults to the weight's
-    ``orig_dtype``, as in the JAX package."""
+    ``orig_dtype``, as in the JAX package.
+
+    Where autograd records (grad mode on and ``x`` requiring a gradient: a
+    saliency explanation) the product goes through ``_Differentiable``,
+    whose forward is the same launch and whose backward gives ``x`` its
+    gradient; otherwise (serving, a CUDA-graph capture under ``no_grad``)
+    nothing else runs."""
     out_dtype = out_dtype or qt.orig_dtype
     lead = x.shape[:-1]
-    out = int8_matmul(x.reshape(-1, x.shape[-1]).contiguous(), qt.q, qt.scale, out_dtype)
+    x2 = x.reshape(-1, x.shape[-1]).contiguous()
+    if torch.is_grad_enabled() and qt.scale.requires_grad:
+        raise ValueError("int8_dense: the int8 codes and scales are not trained; only x takes "
+                         "a gradient")
+    if torch.is_grad_enabled() and x.requires_grad:
+        out = _Differentiable.apply(x2, qt.q, qt.scale, out_dtype)
+    else:
+        out = int8_matmul(x2, qt.q, qt.scale, out_dtype)
     return out.reshape(*lead, out.shape[-1])
 
 
-__all__ = ["int8_dense", "int8_matmul", "int8_matmul_ref"]
+__all__ = ["int8_dense", "int8_matmul", "int8_matmul_backward", "int8_matmul_ref"]

@@ -29,11 +29,27 @@ a transformer checkpoint runs the sharded cache-less forward
 (``models/sharded.py``); a ResNet declares no logical axes, so it
 replicates (``strict_sharding`` then raises, as in the JAX package) and
 each 'data' rank runs K3 on its block of the batch, whose buckets round up
-to multiples of the 'data' axis. The mesh's ranks must share the server's
-device (two-card meshes: ROADMAP Queue A 9b). The int8 and param-dtype
-knobs of ``JAXServer`` arrive with a later slice: setting one raises
-``NotImplementedError`` naming it. The port reads no orbax checkpoint (the
-card's machine has no orbax).
+to multiples of the 'data' axis; a ViT shards its heads, mlp and classes
+over 'model' (``models/vit.ShardedViT``). The mesh's ranks must share the
+server's device (two-card meshes: ROADMAP Queue A 9b). The port reads no
+orbax checkpoint (the card's machine has no orbax).
+
+Load-time transforms, in ``JAXServer``'s order and with its precedence
+(``param_dtype`` from config.json over the constructor's, ``quantize``
+from the constructor over config.json's):
+
+- ``param_dtype``: every float32 leaf (biases and running statistics
+  included) cast to the dtype, ``"auto"`` meaning the module's compute
+  dtype; a float32 target changes nothing;
+- ``quantize="int8"``: weight-only int8 of every float leaf of two or more
+  dims (``ops/quantize.quantize_params``), after the cast, so a cast leaf's
+  ``orig_dtype`` is the cast dtype. Under bf16 compute the products run on
+  K4; a folded ResNet keeps its codes on the device and dequantizes them
+  into K3's and cuDNN's operands each forward (``models/resnet_infer``).
+
+The MLP and the ViT size some parameters from the input, as flax's
+``init`` does from its example: ``load()`` gives them the checkpoint's
+``input_shape`` (``size_from_input``).
 """
 
 from __future__ import annotations
@@ -52,20 +68,17 @@ from seldon_core_tpu_torch.codec.staging import DEFAULT_BUCKETS, stage_to_device
 from seldon_core_tpu_torch.components.component import SeldonComponent
 from seldon_core_tpu_torch.contracts.payload import SeldonError
 from seldon_core_tpu_torch.device import resolve_device
+from seldon_core_tpu_torch.ops.quantize import quantize_params
 from seldon_core_tpu_torch.parallel.topology import build_serving_mesh
 
 logger = logging.getLogger(__name__)
-
-_LATER = {
-    "quantize": "int8 predict models arrive with the int8-predict slice",
-    "param_dtype": "load-time param casts arrive with the int8-predict slice",
-}
 
 
 class TorchServer(SeldonComponent):
     """One model from a checkpoint directory, served on ``device`` (default
     "cuda": raises without a card; "cpu" only when asked). Constructor
-    arguments are ``JAXServer``'s, plus ``device``. Where ``JAXServer``
+    arguments are ``JAXServer``'s, plus ``device``; ``quantize="int8"``
+    and ``param_dtype`` as the module docstring says. Where ``JAXServer``
     runs XLA's graph of the flax module, a folded ResNet here runs the
     port's eager forward with every identity chain on the K3 kernel;
     ``resnet_infer.resnet_serve_forward(module, x, pallas_stages=())`` is
@@ -87,9 +100,6 @@ class TorchServer(SeldonComponent):
         **kwargs: Any,
     ):
         super().__init__(**kwargs)
-        for name, value in (("quantize", quantize), ("param_dtype", param_dtype)):
-            if value:
-                raise NotImplementedError(f"TorchServer({name}=...): {_LATER[name]} of the port")
         self.model_uri = model_uri
         self.mesh = mesh
         self.topology = topology
@@ -98,6 +108,10 @@ class TorchServer(SeldonComponent):
         # spec-reachable: a typed unit parameter builds the ('data', 'model')
         # serving mesh at load()
         self.tensor_parallel = int(tensor_parallel)
+        # "int8": weight-only int8 (ops/quantize.py); "auto" or a dtype:
+        # the load-time cast of every float32 leaf
+        self.quantize = str(quantize or "")
+        self.param_dtype = param_dtype
         self.model_name = model
         self.device = resolve_device(device)
         self.batch_buckets = tuple(batch_buckets) if batch_buckets else DEFAULT_BUCKETS
@@ -126,14 +140,31 @@ class TorchServer(SeldonComponent):
                                   status_code=500)
             with open(cfg_path) as f:
                 self._config = json.load(f)
-            for key in ("quantize", "param_dtype"):
-                if self._config.get(key):
-                    raise NotImplementedError(f"config.json {key}: {_LATER[key]} of the port")
             name = self.model_name or self._config["model"]
             self.mesh, self.topology = build_serving_mesh(self.device, self.mesh, self.topology,
                                                           self.tensor_parallel)
             module = get_model(name, device=self.device, **self._config.get("kwargs", {}))
+            if hasattr(module, "size_from_input"):
+                shape = self._config.get("input_shape")
+                if shape is None:
+                    raise SeldonError(f"config.json needs input_shape to size {name!r}",
+                                      status_code=500)
+                module.size_from_input(shape)
             params_from_jax(load_params(path), module)
+            param_dtype = self._config.get("param_dtype", self.param_dtype)
+            module_dtype = getattr(module, "dtype", None)
+            if param_dtype and (param_dtype != "auto" or module_dtype is not None):
+                # only "auto" needs the module's compute dtype
+                cast_params_(module, param_dtype, module_dtype or torch.float32)
+            quantize = self.quantize or self._config.get("quantize", "")
+            if quantize:
+                if quantize != "int8":
+                    raise SeldonError(f"unsupported quantize={quantize!r} (int8 only)",
+                                      status_code=500)
+                if hasattr(module, "quantize_"):
+                    module.quantize_()
+                else:
+                    quantize_params(module)
             if getattr(module, "fused", False) and hasattr(module, "serving_operands"):
                 module.serving_operands(self.device)
             self._apply_kwargs = self._config.get("apply_kwargs", {})
@@ -169,7 +200,9 @@ class TorchServer(SeldonComponent):
         """The fusion hook (``jax_fn`` of ``JAXServer``): ``(fn, module)``
         where ``fn(module, x)`` is ``predict``'s forward on a float32 tensor
         already on ``device``, without the bucket padding (as ``jax_fn``
-        applies the model to the batch it is given)."""
+        applies the model to the batch it is given): the cast and quantized
+        model's too. It records autograd for an ``x`` that requires a
+        gradient (``analytics/explainers.SaliencyExplainer``)."""
         if not self.ready:
             self.load()
         apply_kwargs, run = self._apply_kwargs, self._run
@@ -186,6 +219,31 @@ class TorchServer(SeldonComponent):
     def input_dtype(self) -> np.dtype:
         """Declared request dtype from the checkpoint config."""
         return np.dtype(self._config.get("input_dtype", "float32"))
+
+
+@torch.no_grad()
+def cast_params_(module: torch.nn.Module, param_dtype: str, module_dtype) -> torch.nn.Module:
+    """``JAXServer``'s ``_cast_params`` on a module, in place: every float32
+    parameter and BatchNorm running statistic becomes ``param_dtype``
+    (``"auto"``: ``module_dtype``, the compute dtype); a float32 target
+    changes nothing."""
+    from seldon_core_tpu_torch.models.resnet import BatchNorm
+    from seldon_core_tpu_torch.models.transformer import to_torch_dtype
+
+    target = to_torch_dtype(module_dtype if param_dtype == "auto" else param_dtype)
+    if target == torch.float32:
+        return module
+    for name, p in list(module.named_parameters()):
+        if p.dtype == torch.float32:
+            path, _, attr = name.rpartition(".")
+            owner = module.get_submodule(path) if path else module
+            setattr(owner, attr, torch.nn.Parameter(p.to(target), requires_grad=False))
+    for m in module.modules():
+        if isinstance(m, BatchNorm):
+            for b in ("mean", "var"):
+                if getattr(m, b).dtype == torch.float32:
+                    setattr(m, b, getattr(m, b).to(target))
+    return module
 
 
 def _apply(module, x, **kwargs):
@@ -229,4 +287,4 @@ def export_checkpoint(
     return out_dir
 
 
-__all__ = ["TorchServer", "export_checkpoint"]
+__all__ = ["TorchServer", "cast_params_", "export_checkpoint"]

@@ -12,7 +12,8 @@ quantity, validate, render) held against the JAX package on the CPU:
   container's ``command`` naming the port's CLI, ``nvidia.com/gpu`` for
   ``google.com/tpu`` at the same count, and ``nvidia.com/gpu.product`` for
   the TPU-topology node label; nothing else differs. A predictor with an
-  explainer raises naming the analytics slice.
+  explainer renders the JAX package's explainer objects, its default
+  container running the port's CLI and explainer class.
 """
 
 import copy
@@ -31,8 +32,9 @@ from seldon_core_tpu.controlplane.validate import validate_deployment as jax_val
 from seldon_core_tpu_torch.contracts.graph import SeldonDeploymentSpec
 from seldon_core_tpu_torch.contracts.payload import SeldonError
 from seldon_core_tpu_torch.controlplane import quantity
-from seldon_core_tpu_torch.controlplane.render import (ENGINE_COMMAND, GPU_PRODUCT_LABEL,
-                                                       GPU_RESOURCE, render_manifests)
+from seldon_core_tpu_torch.controlplane.render import (ENGINE_COMMAND, EXPLAINER_CLASS,
+                                                       GPU_PRODUCT_LABEL, GPU_RESOURCE,
+                                                       render_manifests)
 from seldon_core_tpu_torch.controlplane.validate import (default_deployment, require_valid,
                                                          validate_deployment)
 
@@ -107,11 +109,20 @@ ALL = dict(CASES, **{f"example {k}": v for k, v in example_crs().items()})
 
 
 def to_jax_form(manifests, gpus=1):
-    """A port manifest list in the JAX package's form: render's three
-    differences undone, each checked where it must appear."""
+    """A port manifest list in the JAX package's form: render's documented
+    differences undone, each checked where it must appear (an explainer's
+    default container: the port's CLI and explainer class)."""
     out = copy.deepcopy(manifests)
     for m in out:
-        if m["kind"] != "Deployment" or m["metadata"]["name"].endswith("-explainer"):
+        if m["kind"] != "Deployment":
+            continue
+        if m["metadata"]["name"].endswith("-explainer"):
+            container = m["spec"]["template"]["spec"]["containers"][0]
+            if container.get("name") == "explainer" and "command" in container:
+                assert container["command"] == ENGINE_COMMAND
+                del container["command"]
+                assert container["args"][1] == EXPLAINER_CLASS
+                container["args"][1] = "seldon_core_tpu.analytics.explainers.SaliencyExplainer"
             continue
         pod = m["spec"]["template"]["spec"]
         engine = pod["containers"][0]
@@ -217,9 +228,24 @@ def test_render_without_validation_equals_jax():
     assert to_jax_form(got) == jax_render(JaxSpec.from_dict(cr), validate=False)
 
 
-def test_explainer_raises_naming_the_analytics_slice():
-    cr = sdep([dict(SIMPLE, explainer={"type": "saliency", "modelUri": "gs://b/m"})])
-    assert any(m["kind"] == "Deployment" and m["metadata"]["name"].endswith("-explainer")
-               for m in jax_render(JaxSpec.from_dict(cr)))
-    with pytest.raises(NotImplementedError, match="analytics slice"):
-        render_manifests(SeldonDeploymentSpec.from_dict(cr))
+@pytest.mark.parametrize("explainer", [
+    {"type": "saliency", "modelUri": "gs://b/m"},
+    {"type": "saliency", "serviceAccountName": "sa", "envSecretRefName": "creds"},
+    {"type": "anchors", "containerSpec": {"name": "x", "image": "my/explainer:1"},
+     "envSecretRefName": "creds"}])
+def test_explainer_raises_naming_the_analytics_slice(explainer):
+    """The analytics slice is here: a predictor's explainer renders the JAX
+    package's Deployment and Service, the port's CLI and class in its
+    default container, a ``containerSpec`` untouched; an unsupported type
+    without one raises the JAX package's error word for word."""
+    graph = dict(SIMPLE["graph"], modelUri="gs://b/graph")
+    cr = sdep([dict(SIMPLE, graph=graph, explainer=explainer)])
+    got = render_manifests(SeldonDeploymentSpec.from_dict(cr), namespace="ns", engine_image="e:1")
+    assert to_jax_form(got) == jax_render(JaxSpec.from_dict(cr), namespace="ns",
+                                          engine_image="e:1")
+    assert [m["kind"] for m in got if m["metadata"]["name"].endswith("-explainer")] == [
+        "Deployment", "Service"]
+    bad = sdep([dict(SIMPLE, explainer={"type": "anchors"})])
+    assert (outcome(lambda: render_manifests(SeldonDeploymentSpec.from_dict(bad)))
+            == outcome(lambda: jax_render(JaxSpec.from_dict(bad))))
+    assert outcome(lambda: render_manifests(SeldonDeploymentSpec.from_dict(bad)))[0] == "error"

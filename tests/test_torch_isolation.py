@@ -12,14 +12,16 @@ package, and it never falls back to the CPU on its own.
   disaggregated batcher over the network handoff, writes an LLM
   checkpoint and serves it through ``LLMServer(model_uri=...)`` with an
   adapter pool, writes, loads and serves a ResNet checkpoint through
-  ``TorchServer``, and boots the ``engine`` CLI on its default SIMPLE_MODEL
+  ``TorchServer``, a ViT checkpoint in int8 and its saliency explainer,
+  and boots the ``engine`` CLI on its default SIMPLE_MODEL
   graph and serves a prediction through it (the graph engine, its
   builtins, bandit routers, resilience and no-op tracer among the modules
   it requires);
 - an AST walk over the package and ``chip_smoke.py`` finds no import of
   ``jax``, ``flax``, ``msgpack`` or ``seldon_core_tpu`` / ``seldon_core_tpu.*``;
-- ``LLMServer()``, ``GraphEngine()``, ``make_engine_app()`` and
-  ``init_train_state()`` with no ``device`` raise when no CUDA device is
+- ``LLMServer()``, ``GraphEngine()``, ``make_engine_app()``,
+  ``init_train_state()``, the predict models and ``SaliencyExplainer()``
+  with no ``device`` raise when no CUDA device is
   present.
 """
 
@@ -60,6 +62,8 @@ need |= {"seldon_core_tpu_torch." + m for m in (
     "parallel", "parallel.topology", "parallel.mesh", "parallel.multihost",
     "parallel.sharding", "parallel.collectives", "models.sharded", "parallel.train",
     "parallel.pipeline", "ops.ring_attention")}
+need |= {"seldon_core_tpu_torch." + m for m in (
+    "models.mlp", "models.vit", "models.layers", "analytics.explainers")}
 assert need <= set(mods), need - set(mods)
 from seldon_core_tpu_torch.servers.llmserver import LLMServer
 s = LLMServer(model="llama-tiny", init_random=True, max_new_tokens=4, eos_id=-1,
@@ -105,6 +109,18 @@ with tempfile.TemporaryDirectory() as d:
     srv.load()
 x = np.random.default_rng(0).standard_normal((3, 32, 32, 3)).astype(np.float32)
 assert srv.predict(x, []).shape == (3, 5)
+from seldon_core_tpu_torch.analytics.explainers import SaliencyExplainer
+v = get_model("vit-tiny", num_classes=3, input_shape=[8, 8, 3], device="cpu")
+v.init_params(torch.Generator().manual_seed(0))
+with tempfile.TemporaryDirectory() as d:
+    export_checkpoint(d, "vit-tiny", {"params": v.param_tree()}, kwargs={"num_classes": 3},
+                      input_shape=[8, 8, 3])
+    vs = TorchServer(model_uri=d, quantize="int8", device="cpu")
+    vs.load()
+    ex = SaliencyExplainer(model_uri=d, device="cpu")
+    ex.load()
+xv = np.random.default_rng(1).standard_normal((2, 8, 8, 3)).astype(np.float32)
+assert vs.predict(xv, []).shape == (2, 3) and ex.predict(xv, []).shape == (2, 8, 8, 3)
 # the engine CLI on its default SIMPLE_MODEL graph, over REST
 import json, socket, threading, time, urllib.request
 from seldon_core_tpu_torch.transport import cli
@@ -186,6 +202,12 @@ def test_default_device_raises_without_cuda(monkeypatch):
         TorchServer(model_uri="/nowhere")
     with pytest.raises(RuntimeError, match="cuda"):
         get_model("resnet50", fused=True)
+    for name in ("vit-b16", "mlp"):
+        with pytest.raises(RuntimeError, match="cuda"):
+            get_model(name)
+    from seldon_core_tpu_torch.analytics.explainers import SaliencyExplainer
+    with pytest.raises(RuntimeError, match="cuda"):
+        SaliencyExplainer(model_uri="/nowhere")
     with pytest.raises(RuntimeError, match="cuda"):
         resolve_device(None)
     from seldon_core_tpu_torch.parallel.train import adamw, init_train_state

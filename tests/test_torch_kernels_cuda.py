@@ -2986,3 +2986,101 @@ def test_tp2_decode_graph_replay_bit_equals_eager(dev, kv):
         k4 = delta.get((int8_matmul.int8_matmul, "launches"), 0)
         assert k4 == ((7 * SMALL_LLM["n_layers"] + 1) * 2 * k if kv == "int8" else 0)
     b.close()
+
+
+# ----------------------------------------------- predict models (ViT, MLP)
+# K4 at the int8 predict path's products: ViT-B/16's four block products at
+# M = 8 x 197 and 128 x 197 tokens, its head [768, 1000] (N % 16 != 0: the
+# decode kernel at any M, float32 out) at B = 8 and 128, the MLP's [4, 128]
+# (K % 8 != 0), [128, 128] and [128, 3] (N = 3) at B = 8 and 128
+VIT_B16_PRODUCTS = [(768, 2304), (768, 768), (768, 3072), (3072, 768)]
+PREDICT_K4_SHAPES = ([(m, k, n, torch.bfloat16) for m in (8 * 197, 128 * 197)
+                      for k, n in VIT_B16_PRODUCTS]
+                     + [(m, 768, 1000, torch.float32) for m in (8, 128)]
+                     + [(m, k, n, torch.bfloat16) for m in (8, 128)
+                        for k, n in ((4, 128), (128, 128), (128, 3))])
+
+
+@pytest.mark.parametrize("m,k,n,out_dtype", PREDICT_K4_SHAPES)
+def test_int8_matmul_predict_shapes_match_plain(dev, m, k, n, out_dtype):
+    x, q, scale = _k4_case(dev, m, k, n, m + k + n)
+    before = int8_matmul.int8_matmul.launches_wgmma
+    out = int8_matmul.int8_matmul(x, q, scale, out_dtype)
+    torch.cuda.synchronize()
+    assert int8_matmul.int8_matmul.launches_wgmma - before == int(
+        m >= 64 and k % 8 == 0 and n % 16 == 0)
+    assert out.dtype == out_dtype and out.shape == (m, n)
+    _assert_k4_close(out, x, q, scale)
+
+
+def test_k4_and_k3_backward_on_the_card_equal_autograd_through_plain(dev):
+    """The input gradients through K4's and K3's Functions on CUDA tensors
+    (the kernels forward, the explicit plain backward) against autograd
+    through ``int8_matmul_ref`` and ``identity_chain_ref``: K4's within two
+    bf16 ulps of max|g| (its backward dequantizes in bf16, the reference in
+    float32), K3's bit-equal (the same plain code on the same saved
+    input); the forwards launch the kernels once each."""
+    x, q, scale = _k4_case(dev, 8 * 197, 768, 2304, 3)
+    qt = type("QT", (), {"q": q, "scale": scale, "orig_dtype": torch.bfloat16})()
+    dy = torch.randn(x.shape[0], 2304, device=dev).to(torch.bfloat16)
+    xa = x.clone().requires_grad_()
+    before = int8_matmul.int8_matmul.launches
+    y = int8_matmul.int8_dense(xa, qt)
+    (got,) = torch.autograd.grad(y, xa, dy)
+    assert int8_matmul.int8_matmul.launches == before + 1
+    xb = x.clone().requires_grad_()
+    (want,) = torch.autograd.grad(int8_matmul.int8_matmul_ref(xb, q, scale), xb, dy)
+    tol = 2 * float(_bf16_ulp(np.array(want.float().abs().max().item())))
+    assert (got.float() - want.float()).abs().max().item() <= tol
+    xc, blocks = _k3_case(dev, 2, 14, 14, 1024, 256, 2, seed=7)
+    dyc = torch.randn(xc.shape, device=dev).to(torch.bfloat16)
+    xa = xc.clone().requires_grad_()
+    before = fused_resnet.fused_identity_chain.launches
+    out = fused_resnet.fused_identity_chain(xa, blocks)
+    (got,) = torch.autograd.grad(out, xa, dyc)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert fused_resnet.fused_identity_chain.launches - before == fused_resnet.expected_launches(
+        2, 14, 14, 1024, 256, 2, sms)
+    assert _k3_within(out, fused_resnet.identity_chain_ref(xc, blocks), 2)
+    xb = xc.clone().requires_grad_()
+    (want,) = torch.autograd.grad(fused_resnet.identity_chain_ref(xb, blocks), xb, dyc)
+    assert torch.equal(got, want) and got.float().abs().max() > 0
+
+
+def test_int8_resnet_operands_equal_a_dequantize_at_load(dev):
+    """A folded two-stage ResNet at K3's widths (64 filters), quantized:
+    each forward's dequantize into K3's and cuDNN's operands is bit-equal
+    to the operands built once from the dequantized weights, and the int8
+    forward runs K3 on them (its logits within 1e-4 of max|logit| of that
+    float forward's: only the head differs, K4 against a float32 product)."""
+    from seldon_core_tpu_torch.models.layers import param_tree
+    from seldon_core_tpu_torch.models.resnet import ResNet
+    from seldon_core_tpu_torch.models.resnet_infer import (dequantize_operands, forward_operands,
+                                                           serving_operands)
+    from seldon_core_tpu_torch.ops.quantize import dequantize_params, quantize_params
+
+    m = ResNet((2, 2), num_classes=10, fused=True, device=dev)
+    m.init_params(torch.Generator(device=dev).manual_seed(0))
+    quantize_params(m)
+    ops = dequantize_operands(m.serving_operands(dev), torch.bfloat16)
+    once = serving_operands(param_tree(dequantize_params(m)), (2, 2), dev)
+    for got, want in zip(ops["blocks"], once["blocks"]):
+        for conv in ("Conv_0", "Conv_1", "Conv_2", "conv_proj"):
+            if conv in want:
+                assert torch.equal(got[conv]["w"], want[conv]["w"])
+                assert got[conv]["w"].stride() == want[conv]["w"].stride()
+        if "k3" in want:
+            for key in want["k3"]:
+                assert torch.equal(got["k3"][key], want["k3"][key]), key
+    x = torch.randn(4, 32, 32, 3, device=dev)
+    before = fused_resnet.fused_identity_chain.launches
+    with torch.no_grad():
+        logits = m(x)
+        torch.cuda.synchronize()
+        launched = fused_resnet.fused_identity_chain.launches - before
+        want = forward_operands(once, x, (2, 2), pallas_stages=(0, 1))
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert launched == (fused_resnet.expected_launches(4, 8, 8, 256, 64, 1, sms)
+                        + fused_resnet.expected_launches(4, 4, 4, 512, 128, 1, sms))
+    # the same K3 chains; the head on K4 against a float32 product
+    assert (logits - want).abs().max().item() <= 1e-4 * want.abs().max().item()

@@ -397,3 +397,83 @@ def test_tied_int8_head_refuses_a_card():
     x = torch.randn((1, 2, 64), generator=torch.Generator().manual_seed(1))
     torch.testing.assert_close(cpu._logits(x), x @ (emb.q.float() * emb.scale).t(), rtol=0,
                                atol=1e-5)
+
+
+# ------------------------------------------- predict models (MLP, ViT)
+def test_quantize_params_over_a_module_equals_jax_tree():
+    """``quantize_params`` over a vit-tiny's leaves: the codes and scales
+    of JAX's ``quantize_params`` over the same tree, the 3-D ``cls`` /
+    ``pos_embed`` and the 4-D patch kernel included, the 1-D leaves left
+    float; ``dequantize_params`` JAX's dequantized tree; ``quantized_bytes``
+    JAX's count from metadata."""
+    jm = jax_get_model("vit-tiny", num_classes=4)
+    variables = jax.jit(jm.init)(jax.random.PRNGKey(0), jnp.zeros((1, 16, 16, 3)))
+    rng = np.random.default_rng(0)
+    params = jax.tree.map(lambda a: np.asarray(a) + rng.normal(0, 0.1, a.shape).astype(np.float32),
+                          variables["params"])
+    port = get_model("vit-tiny", num_classes=4, input_shape=[16, 16, 3], device="cpu")
+    params_from_jax({"params": params}, port)
+    want = jq.quantize_params(params)
+    tq.quantize_params(port)
+    flat = {".".join(k.key for k in path): leaf for path, leaf in
+            jax.tree_util.tree_flatten_with_path(
+                want, is_leaf=lambda v: isinstance(v, jq.QuantizedTensor))[0]}
+    leaves = port.leaves()
+    assert set(flat) == set(leaves)
+    for name, leaf in flat.items():
+        got = leaves[name]
+        if isinstance(leaf, jq.QuantizedTensor):
+            assert isinstance(got, tq.QuantizedTensor), name
+            np.testing.assert_array_equal(got.q.numpy(), np.asarray(leaf.q))
+            np.testing.assert_array_equal(got.scale.numpy(), np.asarray(leaf.scale))
+        else:
+            assert not isinstance(got, tq.QuantizedTensor) and got.dim() == 1, name
+    deq = tq.dequantize_params(port)
+    jdeq = jq.dequantize_params(want)
+    np.testing.assert_array_equal(deq["pos_embed"].numpy(), np.asarray(jdeq["pos_embed"]))
+    np.testing.assert_array_equal(deq["patch_embed.kernel"].numpy(),
+                                  np.asarray(jdeq["patch_embed"]["kernel"]))
+    assert tq.quantized_bytes(port) == jq.quantized_bytes(want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k4_backward_equals_autograd_through_plain(dtype):
+    """K4's Function on a CPU tensor (forward: the plain version; backward:
+    ``int8_matmul_backward``) against autograd through ``int8_matmul_ref``
+    on one saved input, at the MLP's ragged shapes; the codes and scales
+    take no gradient, and a scale asking for one raises."""
+    g = torch.Generator().manual_seed(1)
+    for k, n in ((4, 128), (128, 3)):
+        qt = tq.quantize_array(torch.randn(k, n, generator=g))
+        x = torch.randn(3, 5, k, generator=g).to(dtype)
+        dy = torch.randn(3, 5, n, generator=g).to(dtype)
+        xa = x.clone().requires_grad_()
+        y = k4.int8_dense(xa, qt, dtype)
+        assert y.grad_fn is not None
+        (got,) = torch.autograd.grad(y, xa, dy)
+        xb = x.clone().requires_grad_()
+        ref = k4.int8_matmul_ref(xb.reshape(-1, k), qt.q, qt.scale, dtype).reshape(3, 5, n)
+        (want,) = torch.autograd.grad(ref, xb, dy)
+        tol = 1e-6 if dtype == torch.float32 else 2 ** -7
+        torch.testing.assert_close(got, want, rtol=tol, atol=tol * want.abs().max().item())
+        torch.testing.assert_close(y, ref, rtol=0, atol=0)
+    with torch.no_grad():
+        assert k4.int8_dense(xa, qt, dtype).grad_fn is None
+    qt.scale.requires_grad_()
+    with pytest.raises(ValueError, match="not trained"):
+        k4.int8_dense(xa, qt, dtype)
+
+
+def test_linear_routes_by_the_activation_dtype(monkeypatch):
+    """bf16 activations take K4 (``int8_dense``); float32 ones the
+    dequantized weight and ``torch.matmul``, JAX's expression."""
+    qt = tq.quantize_array(torch.randn(8, 6, generator=torch.Generator().manual_seed(2)))
+    calls = []
+    real = tq.int8_dense
+    monkeypatch.setattr(tq, "int8_dense", lambda *a: calls.append(1) or real(*a))
+    x = torch.randn(2, 8)
+    torch.testing.assert_close(tq.linear(x, qt), x @ tq.dequantize_array(qt), rtol=0, atol=0)
+    assert not calls
+    tq.linear(x.to(torch.bfloat16), qt)
+    head = tq.float32_head(x.to(torch.bfloat16), qt)
+    assert len(calls) == 2 and head.dtype == torch.float32

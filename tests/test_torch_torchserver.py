@@ -330,9 +330,17 @@ def test_prepackaged_and_later_slice_knobs(ckpt):
     # its load, naming the missing file
     with pytest.raises(SeldonError, match="model.joblib"):
         make_prepackaged_server(UnitImplementation.SKLEARN_SERVER, ckpt["path"]).load()
-    for knob in (dict(quantize="int8"), dict(param_dtype="auto")):
-        with pytest.raises(NotImplementedError, match="slice"):
-            TorchServer(model_uri=ckpt["path"], device="cpu", **knob)
+    # the int8 and param-dtype knobs serve as JAXServer's do (the cast
+    # first, then int8): the folded ResNet's conv kernels and head held as
+    # int8, every identity chain still through K3's wrapper on bf16
+    # weights and float32 biases (cast to bf16 and back: exact)
+    knob = dict(param_dtype="auto", quantize="int8")
+    port = TorchServer(model_uri=ckpt["path"], device="cpu", **knob)
+    check_logits(port.predict(ckpt["x"], []),
+                 JAXServer(model_uri=ckpt["path"], **knob).predict(ckpt["x"], []))
+    k3 = port._module.serving_operands("cpu")["blocks"][1]["k3"]
+    assert k3["w2"].q.dtype == torch.int8 and k3["w2"].orig_dtype == torch.bfloat16
+    assert all(k3[b].dtype == torch.float32 for b in ("b1", "b2", "b3"))
     # a mesh over ranks on distinct devices raises at load(), naming
     # two-card meshes (co-located meshes: tests/test_torch_tensor_parallel.py)
     from seldon_core_tpu_torch.parallel.topology import Topology
@@ -386,3 +394,50 @@ def test_storage_and_staging(tmp_path):
     assert n == jn == 3
     t, n = stage_to_device(arr, "cpu", pad=True)
     assert isinstance(t, torch.Tensor) and tuple(t.shape) == (4, 2) and n == 3
+
+
+@pytest.fixture(scope="module")
+def unfolded_ckpt(tmp_path_factory):
+    """An unfolded ResNet-18 checkpoint (params and live batch_stats, the
+    registry's default fused=False) written by the JAX package."""
+    init_model = jax_get_model("resnet18", num_classes=10)
+    raw = jax.jit(init_model.init)(jax.random.PRNGKey(2), jnp.zeros((1, 32, 32, 3)))
+    path = str(tmp_path_factory.mktemp("resnet18-unfolded"))
+    jax_export(path, "resnet18", _live(raw), kwargs={"num_classes": 10},
+               input_shape=[32, 32, 3], use_orbax=False)
+    return path
+
+
+@pytest.mark.parametrize("knob", [dict(quantize="int8"), dict(param_dtype="auto"),
+                                  dict(param_dtype="auto", quantize="int8")],
+                         ids=["int8", "auto", "auto-int8"])
+def test_unfolded_resnet_knobs_match_jaxserver(ckpt, unfolded_ckpt, knob):
+    """The int8 and param-dtype knobs on an unfolded ResNet (BatchNorm kept,
+    its conv kernels and head quantized): the port's logits equal
+    JAXServer's within FWD_TOL of max|logit|."""
+    x = ckpt["x"]
+    port = TorchServer(model_uri=unfolded_ckpt, device="cpu", **knob)
+    check_logits(port.predict(x, []), JAXServer(model_uri=unfolded_ckpt, **knob).predict(x, []))
+    if "quantize" in knob:
+        assert port._module.conv_init.kernel.q.dtype == torch.int8
+        assert port._module.head.kernel.q.dtype == torch.int8
+
+
+@pytest.mark.parametrize("knob", [dict(quantize="int8"), dict(param_dtype="auto"),
+                                  dict(param_dtype="bfloat16", quantize="int8")],
+                         ids=["int8", "auto", "bf16-int8"])
+def test_transformer_checkpoint_knobs_match_jaxserver(tmp_path, knob):
+    """A transformer checkpoint through both servers' int8 and param-dtype
+    knobs (the port's ``Transformer.quantize_`` layout): logits within
+    1e-5 of max|logit| in float32, FWD_TOL once the weights are bf16."""
+    model = jax_get_model("llama-tiny")
+    variables = jax.jit(model.init)(jax.random.PRNGKey(0), np.zeros((1, 8), np.int32))
+    path = str(tmp_path / "llm")
+    jax_export(path, model="llama-tiny", params=variables, input_shape=[8], input_dtype="int32",
+               use_orbax=False)
+    x = np.random.default_rng(3).integers(0, 256, size=(3, 8))
+    want = JAXServer(model_uri=path, **knob).predict(x, [])
+    got = TorchServer(model_uri=path, device="cpu", **knob).predict(x, [])
+    tol = FWD_TOL if knob.get("param_dtype") == "bfloat16" else 1e-5
+    assert got.shape == want.shape
+    assert np.abs(got - want).max() <= tol * np.abs(want).max()
