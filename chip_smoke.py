@@ -29,6 +29,7 @@ kernel of that path against its plain PyTorch version.
                                        # set: 8 layers x 10 steps, {data 2, seq 2, model 2}
                                        # (full and ring attention), the MoE FFN at
                                        # Mixtral-8x7B widths over {expert 2, seq 2, model 2}
+    python3 chip_smoke.py --analytics  # only: build, then the [analytics] phase
     python3 chip_smoke.py --dense      # only: build, then the [dense] runs on their own
                                        # bf16 and int8 loads, the dense handoff (device,
                                        # network), rebalance_disagg, LoRA, a draft, meshes
@@ -371,6 +372,22 @@ Phases (any failure exits non-zero; nothing swallows an error):
    say, every page back. The remote runs of (a) and (c) are traced: every
    timeline's handoff events in order, and the handoff's split printed
    (``handoff_split``).
+[analytics] (``analytics_phase``, lines ``[analytics] ...``), after the
+   [vit] phase: (a) the VAE (hidden 64, latent 2) and the seq2seq detector
+   (T 8, hidden 32) fitted on the card for 200 epochs on 2,048 seeded rows
+   of 4 features (a 2-d latent mixed into 4, plus noise), then scoring the
+   same rows with 16 moved 8 sigma off that plane: the scores within 1e-3
+   (relative) of the same weights scored on the CPU, the flags equal off
+   the threshold, every planted row flagged; the isolation forest where
+   sklearn is installed, else its error naming sklearn; (b) the fitted VAE
+   as the TRANSFORMER in front of the int8 MLP (a JAX_SERVER leaf, 8 rows a
+   request: K4's decode route at M = 8) behind the engine app and the gRPC
+   engine server: the answer's data and tags equal ``predict_sync``'s; (c)
+   the port's load generator (``client/loadgen.py``), REST 16 clients x 5 s
+   and gRPC 8 clients x 3 s, each after 1 s of warm-up: no error; (d)
+   ``SeldonClient`` over both equal to ``predict_sync``, the api-tester, and
+   a second engine app posting each pair to the port's request logger. K4
+   three launches a request, counted from zero after the engine's build.
 
 The line before the last is the kernel table as JSON (K1 over a bf16 pool,
 K1 over an int8 pool, K2, K2 at the training shape (its launches the
@@ -380,7 +397,8 @@ tenant, checkpoint, fleet and disaggregation phases' and the engine's LLM
 request included, and the [train] phase's; the workers' chunk replays count
 as every replay does), K3's
 the predict serving run's and the engine, remote and
-micro-batch phases');
+micro-batch phases'; the [vit] phase's K3 and K4 rows and the [analytics]
+graph's K4 decode row count their own phases);
 the last line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 port's package beside it, the script exits non-zero and prints no result.
 """
@@ -10570,6 +10588,21 @@ def load_server(uri: str, **knobs):
     return server, time.perf_counter() - t0, (torch.cuda.max_memory_allocated() - base) / 1e9
 
 
+def write_mlp_checkpoint(root: str) -> str:
+    """The seeded MLP (4 -> 128 -> 128 -> 3, ``MLP_KW``) written as a
+    checkpoint under ``root``; its path."""
+    import torch
+
+    from seldon_core_tpu_torch.models import get_model
+    from seldon_core_tpu_torch.servers.torchserver import export_checkpoint
+
+    mlp = get_model("mlp", input_shape=[4], device="cuda", **MLP_KW)
+    mlp.init_params(torch.Generator(device="cuda").manual_seed(VIT_SEED + 1))
+    uri = os.path.join(root, "mlp")
+    export_checkpoint(uri, "mlp", {"params": mlp.param_tree()}, kwargs=MLP_KW, input_shape=[4])
+    return uri
+
+
 def vit_images(n: int, seed: int):
     import numpy as np
 
@@ -10764,12 +10797,7 @@ def vit_phase(card: str, model, full: bool = False) -> dict:
               f"turns{rest8} [{card}]", flush=True)
         out["b"] = dict(ms=ms8, bf16_ms=msb, gb=wbytes, load_gb=load8_gb, err=err8)
         # the MLP at its shapes (K = 4, N = 3), bf16 and int8, over REST
-        mlp = get_model("mlp", input_shape=[4], device="cuda", **MLP_KW)
-        mlp.init_params(torch.Generator(device="cuda").manual_seed(VIT_SEED + 1))
-        mlp_uri = os.path.join(root, "mlp")
-        export_checkpoint(mlp_uri, "mlp", {"params": mlp.param_tree()}, kwargs=MLP_KW,
-                          input_shape=[4])
-        del mlp
+        mlp_uri = write_mlp_checkpoint(root)
         rng = np.random.default_rng(40)
         mx = [rng.standard_normal((b, 4)).astype(np.float32) for b in MLP_BATCHES]
         answers = {}
@@ -11008,6 +11036,306 @@ def predict_kernel_cases(card: str, flush) -> dict:
     return out
 
 
+# [analytics]: the outlier detectors fitted and scored on the card, then
+# served as a graph's transformer in front of the int8 MLP, driven by the
+# port's own clients
+OD_ROWS = 2048           # clean rows each detector is fitted on
+OD_PLANTED = 16          # rows of the scored data moved OD_SIGMA in every feature
+OD_SIGMA = 8.0
+OD_EPOCHS = 200
+OD_RTOL = 1e-3           # the card's scores against the CPU's, relative (float32, TF32 off)
+OD_BATCH = 8             # rows a request: the MLP's products on K4's decode route at M = 8
+OD_K4_PER_REQUEST = 3    # the int8 MLP's three products
+LOAD_REST = (16, 5.0)    # clients, seconds
+LOAD_GRPC = (8, 3.0)
+LOAD_WARMUP_S = 1.0
+LOGGED_REQUESTS = 4
+
+
+class _Lines:
+    """A text sink the request logger writes to; ``records(n)`` waits for
+    ``n`` lines and parses them."""
+
+    def __init__(self):
+        self.text = ""
+        self.cv = threading.Condition()
+
+    def write(self, s: str) -> None:
+        with self.cv:
+            self.text += s
+            self.cv.notify_all()
+
+    def flush(self) -> None:
+        pass
+
+    def records(self, n: int, timeout: float = 30.0) -> list:
+        with self.cv:
+            self.cv.wait_for(lambda: self.text.count("\n") >= n, timeout)
+            return [json.loads(line) for line in self.text.splitlines()]
+
+
+def od_data(seed: int):
+    """(clean rows, the same rows with OD_PLANTED of them moved OD_SIGMA
+    off the data's manifold, the moved rows' indices). A clean row is a
+    2-d latent mixed into 4 features of unit variance, plus noise of 0.05;
+    a planted row moves OD_SIGMA (in units of a feature's deviation) along
+    a random unit direction orthogonal to the mixing plane."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    a = 2 ** -0.5
+    mix = np.array([[1.0, 0.0, a, a], [0.0, 1.0, a, -a]])
+    clean = (rng.standard_normal((OD_ROWS, 2)) @ mix
+             + 0.05 * rng.standard_normal((OD_ROWS, 4))).astype(np.float32)
+    off = np.linalg.svd(mix)[2][2:]                  # the plane's orthogonal complement
+    w = rng.standard_normal((OD_PLANTED, 2))
+    w /= np.linalg.norm(w, axis=1, keepdims=True)
+    planted = np.sort(rng.choice(OD_ROWS, OD_PLANTED, replace=False))
+    data = clean.copy()
+    data[planted] += (OD_SIGMA * w @ off).astype(np.float32)
+    return clean, data, planted
+
+
+def detector_case(label: str, card: str, det, cpu_cls, dims: dict, seed: int) -> None:
+    """Fit ``det`` on the card for OD_EPOCHS on clean rows; its threshold
+    the clean rows' highest score. Hard checks: its scores of the planted
+    data within OD_RTOL of the same weights scored on the CPU, the flags
+    equal on every row farther than that from the threshold, every planted
+    row flagged (through ``transform_input`` and ``tags``)."""
+    import numpy as np
+    import torch
+
+    clean, data, planted = od_data(seed)
+    t0 = time.perf_counter()
+    det.fit(clean, epochs=OD_EPOCHS)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    det.threshold = float(det.score(clean).max())
+    walls = {}
+    for rows in (OD_BATCH, OD_ROWS):
+        det.score(data[:rows])
+        ts = []
+        for _ in range(20):
+            t0 = time.perf_counter()
+            det.score(data[:rows])
+            ts.append(time.perf_counter() - t0)
+        walls[rows] = statistics.median(ts) * 1e3
+    det.transform_input(data, [])
+    tags = det.tags()
+    got = np.asarray(tags["outlier_score"])
+    cpu = cpu_cls(device="cpu", **dims).adopt(det.params())
+    want = cpu.score(data).astype(np.float64)
+    err = float(np.max(np.abs(got - want) / np.maximum(np.abs(want), 1e-6)))
+    if not err <= OD_RTOL:
+        fail(f"[analytics] (a) {label}: the card's scores are {err:.3g} (relative) from the "
+             f"same weights scored on the CPU (tolerance {OD_RTOL})")
+    flags = np.asarray(tags["is_outlier"], dtype=bool)
+    far = np.abs(want - det.threshold) > OD_RTOL * abs(det.threshold)
+    if ((got > det.threshold) != flags).any() or (flags != (want > det.threshold))[far].any():
+        fail(f"[analytics] (a) {label}: is_outlier differs from the CPU's on a row farther "
+             f"than {OD_RTOL} from the threshold")
+    if not flags[planted].all():
+        fail(f"[analytics] (a) {label}: planted rows {planted[~flags[planted]].tolist()} not "
+             f"flagged (scores {got[planted].tolist()}, threshold {det.threshold:.4g})")
+    print(f"[analytics] (a) {label} {dims} fitted on {OD_ROWS} clean rows x 4 for {OD_EPOCHS} "
+          f"epochs in {fit_s:.2f} s; threshold (the clean rows' highest score) "
+          f"{det.threshold:.4g}; score of {OD_BATCH} rows {walls[OD_BATCH]:.3f} ms, of {OD_ROWS} "
+          f"rows {walls[OD_ROWS]:.3f} ms (host wall, median of 20); {OD_PLANTED} rows planted "
+          f"at {OD_SIGMA:g} sigma all flagged ({int(flags.sum())} rows flagged), scores within "
+          f"{err:.3g} (relative) of the CPU's, flags equal off the threshold [{card}]",
+          flush=True)
+
+
+def isolation_forest_case(card: str) -> None:
+    """The isolation forest where sklearn is installed; else its fit must
+    raise naming sklearn."""
+    import numpy as np
+
+    from seldon_core_tpu_torch.analytics.outliers import IsolationForestOutlierDetector
+
+    clean, data, planted = od_data(3)
+    det = IsolationForestOutlierDetector(seed=0)
+    try:
+        import sklearn  # noqa: F401
+    except ImportError:
+        try:
+            det.fit(clean)
+        except ImportError as e:
+            if "sklearn" not in str(e):
+                fail(f"[analytics] (a) isolation forest: the error names no sklearn: {e}")
+            print(f"[analytics] (a) isolation forest: sklearn is not installed here; fit() "
+                  f"raises ImportError naming it: {e} [{card}]", flush=True)
+            return
+        fail("[analytics] (a) isolation forest: fit() without sklearn did not raise")
+    det.fit(clean)
+    det.threshold = float(det.score(clean).max())
+    scores = det.score(data)
+    if scores.shape != (OD_ROWS,) or not np.isfinite(scores).all():
+        fail(f"[analytics] (a) isolation forest: scores shaped {scores.shape}, finite "
+             f"{np.isfinite(scores).all()}")
+    print(f"[analytics] (a) isolation forest (sklearn, on the host): fitted and scored "
+          f"{OD_ROWS} rows; {int((scores[planted] > det.threshold).sum())} of the {OD_PLANTED} "
+          f"planted rows above the clean rows' highest score (axis-aligned splits; the planted "
+          f"rows sit off a plane, inside the features' ranges) [{card}]", flush=True)
+
+
+def analytics_phase(card: str) -> int:
+    """[analytics] (a) the VAE and seq2seq detectors fitted and checked on
+    the card (``detector_case``), the isolation forest (``isolation_forest_case``);
+    (b) the fitted VAE as the TRANSFORMER in front of the int8 MLP
+    (``JAX_SERVER`` leaf, K4 decode route at M = 8) in a ``GraphEngine``
+    behind the engine app and the gRPC engine server on 127.0.0.1: a
+    request's data and tags equal to ``predict_sync``'s; (c) the port's
+    load generator, REST then gRPC; (d) ``SeldonClient`` over both, the
+    api-tester, and a second engine app logging each pair to the port's
+    request logger. Every request must launch K4 OD_K4_PER_REQUEST times
+    (counted from zero after the engine is built). Returns K4's launches."""
+    import tempfile
+
+    from seldon_core_tpu_torch.analytics.outliers import Seq2SeqOutlierDetector, VAEOutlierDetector
+    from seldon_core_tpu_torch.client.client import SeldonClient
+    from seldon_core_tpu_torch.client.loadgen import run_grpc_load, run_rest_load
+    from seldon_core_tpu_torch.client.testers import run_contract_test
+    from seldon_core_tpu_torch.contracts.graph import PredictorSpec
+    from seldon_core_tpu_torch.contracts.payload import SeldonMessage
+    from seldon_core_tpu_torch.observability.request_logger import make_logger_app
+    from seldon_core_tpu_torch.ops.int8_matmul import int8_matmul
+    from seldon_core_tpu_torch.runtime.engine import GraphEngine
+    from seldon_core_tpu_torch.transport.grpc_server import make_engine_server
+    from seldon_core_tpu_torch.transport.rest import make_engine_app, start
+
+    t_phase = time.perf_counter()
+    vae_dims = dict(hidden_dim=64, latent_dim=2)
+    vae = VAEOutlierDetector(seed=1, device="cuda", **vae_dims)
+    detector_case("VAE", card, vae, VAEOutlierDetector, vae_dims, 1)
+    s2s_dims = dict(timesteps=8, hidden_dim=32)
+    detector_case("seq2seq", card, Seq2SeqOutlierDetector(seed=2, device="cuda", **s2s_dims),
+                  Seq2SeqOutlierDetector, s2s_dims, 2)
+    isolation_forest_case(card)
+
+    stops, served = [], 0
+    with tempfile.TemporaryDirectory(prefix="analytics-") as root:
+        spec = {"name": "od-mlp", "graph": {
+            "name": "od", "type": "TRANSFORMER", "children": [{
+                "name": "mlp", "type": "MODEL", "implementation": "JAX_SERVER",
+                "modelUri": write_mlp_checkpoint(root),
+                "parameters": [{"name": "quantize", "value": "int8", "type": "STRING"}]}]}}
+        engine = GraphEngine(PredictorSpec.from_dict(spec), components={"od": vae}, device="cuda")
+        try:
+            httpd, _ = start(make_engine_app(engine, device="cuda"))
+            stops.append(lambda: (httpd.shutdown(), httpd.server_close()))
+            srv = make_engine_server(engine, host="127.0.0.1", port=None)
+            gport = srv.add_insecure_port("127.0.0.1:0")
+            srv.start()
+            stops.append(lambda: srv.stop(None))
+            rest_port = httpd.server_address[1]
+            url = f"http://127.0.0.1:{rest_port}/api/v0.1/predictions"
+            _, x8, planted = od_data(1)
+            x8 = x8[planted[0]:planted[0] + OD_BATCH]   # a planted row first
+            body = {"meta": {"puid": "analytics-b"},
+                    "data": {"tensor": {"shape": [OD_BATCH, 4], "values": x8.ravel().tolist()}}}
+            int8_matmul.launches = int8_matmul.launches_wgmma = 0
+
+            # ---- (b) one request over REST against predict_sync
+            code, answer = post(url, body)
+            want = engine.predict_sync(SeldonMessage.from_dict(body)).to_dict()
+            served += 2
+            tags = answer.get("meta", {}).get("tags", {})
+            if code != 200 or answer.get("data") != want["data"] or tags != want["meta"]["tags"]:
+                fail(f"[analytics] (b) REST answered {code}: data / tags differ from "
+                     f"predict_sync's: {answer} vs {want}")
+            if tags["is_outlier"][0] != 1 or len(tags["outlier_score"]) != OD_BATCH:
+                fail(f"[analytics] (b) the planted row is not flagged: {tags}")
+            if int8_matmul.launches != OD_K4_PER_REQUEST * served or int8_matmul.launches_wgmma:
+                fail(f"[analytics] (b) K4 launched {int8_matmul.launches} times (decode route; "
+                     f"{int8_matmul.launches_wgmma} prefill) over {served} requests, expected "
+                     f"{OD_K4_PER_REQUEST} a request on the decode route")
+            print(f"[analytics] (b) VAE (TRANSFORMER) -> int8 MLP (JAX_SERVER, {OD_BATCH} rows "
+                  f"a request) behind the engine app: the answer's data and meta.tags "
+                  f"(outlier_score, is_outlier {tags['is_outlier']}) equal predict_sync's; K4 "
+                  f"{OD_K4_PER_REQUEST} decode launches a request [{card}]", flush=True)
+
+            # ---- (c) the port's load generator, REST then gRPC
+            payload = {"data": body["data"]}
+            msg = SeldonMessage.from_dict(payload)
+            for transport, (clients, seconds) in (("rest", LOAD_REST), ("grpc", LOAD_GRPC)):
+                before, warm = int8_matmul.launches, {}
+                if transport == "rest":
+                    r = run_rest_load(url, lambda: payload, clients=clients, duration_s=seconds,
+                                      warmup_s=LOAD_WARMUP_S, warmup_stats=warm)
+                else:
+                    r = run_grpc_load(f"127.0.0.1:{gport}", lambda: msg, clients=clients,
+                                      duration_s=seconds, warmup_s=LOAD_WARMUP_S,
+                                      warmup_stats=warm)
+                n = r["requests"] + warm["requests"]
+                served += n
+                k4 = int8_matmul.launches - before
+                if r["errors"] or warm["errors"] or not r["requests"] or k4 != OD_K4_PER_REQUEST * n:
+                    fail(f"[analytics] (c) {transport}: {r} (warm-up {warm}); K4 launched {k4} "
+                         f"times for {n} requests")
+                print(f"[analytics] (c) loadgen {transport}: {clients} clients x {seconds:g} s "
+                      f"after {LOAD_WARMUP_S:g} s of warm-up ({warm['requests']} requests): "
+                      f"{json.dumps(r)}; K4 {k4} launches = {OD_K4_PER_REQUEST} x {n} requests "
+                      f"[{card}]", flush=True)
+
+            # ---- (d) SeldonClient, the api-tester, the request logger
+            for transport, port in (("rest", rest_port), ("grpc", gport)):
+                got = SeldonClient(port=port, transport=transport).predict(x8)
+                want = engine.predict_sync(SeldonMessage.from_array(x8)).to_dict()
+                served += 2
+                if not got.success or got.raw["data"] != want["data"] or \
+                        got.raw["meta"]["tags"] != want["meta"]["tags"]:
+                    fail(f"[analytics] (d) SeldonClient over {transport}: {got} vs {want}")
+            contract = os.path.join(root, "contract.json")
+            with open(contract, "w") as f:
+                json.dump({"features": [{"name": "x", "ftype": "continuous", "range": [-3, 3],
+                                         "shape": [4]}]}, f)
+            if run_contract_test(contract, "127.0.0.1", rest_port, n_requests=4,
+                                 batch_size=OD_BATCH, endpoint_kind="engine", seed=5):
+                fail("[analytics] (d) api-tester: a request failed")
+            served += 4
+            lines = _Lines()
+            lhttpd, _ = start(make_logger_app(lines))
+            stops.append(lambda: (lhttpd.shutdown(), lhttpd.server_close()))
+            prior = os.environ.get("REQUEST_LOGGER_URL")
+            os.environ["REQUEST_LOGGER_URL"] = f"http://127.0.0.1:{lhttpd.server_address[1]}/"
+            try:
+                logged = make_engine_app(engine, device="cuda")
+            finally:
+                if prior is None:
+                    del os.environ["REQUEST_LOGGER_URL"]
+                else:
+                    os.environ["REQUEST_LOGGER_URL"] = prior
+            l2, _ = start(logged)
+            stops.append(lambda: (l2.shutdown(), l2.server_close()))
+            for i in range(LOGGED_REQUESTS):
+                code, _ = post(f"http://127.0.0.1:{l2.server_address[1]}/api/v0.1/predictions",
+                               dict(body, meta={"puid": f"logged-{i}"}))
+                if code != 200:
+                    fail(f"[analytics] (d) the logged engine app answered {code}")
+            served += LOGGED_REQUESTS
+            records = lines.records(LOGGED_REQUESTS * OD_BATCH)
+            ids = {}
+            for rec in records:
+                ids.setdefault(rec["request.id"], []).append(rec["request.elem"])
+            if ids != {f"logged-{i}": list(range(OD_BATCH)) for i in range(LOGGED_REQUESTS)} \
+                    or any(rec["ce-type"] != "seldon.message.pair" for rec in records):
+                fail(f"[analytics] (d) the request logger's lines: {ids}")
+            if int8_matmul.launches != OD_K4_PER_REQUEST * served or int8_matmul.launches_wgmma:
+                fail(f"[analytics] K4 launched {int8_matmul.launches} times over {served} "
+                     f"requests, expected {OD_K4_PER_REQUEST} a request")
+            print(f"[analytics] (d) SeldonClient predict over REST and gRPC equal to "
+                  f"predict_sync (data and tags); api-tester 4 x {OD_BATCH} rows passed; the "
+                  f"request logger wrote one pair ({OD_BATCH} lines) for each of "
+                  f"{LOGGED_REQUESTS} requests to a second engine app [{card}]", flush=True)
+        finally:
+            for stop in reversed(stops):
+                stop()
+    print(f"[analytics] phase_s {time.perf_counter() - t_phase:.1f}: {served} requests served, "
+          f"K4 {int8_matmul.launches} launches [{card}]", flush=True)
+    return int8_matmul.launches
+
+
 def main() -> int:
     try:
         import torch
@@ -11119,6 +11447,10 @@ def main() -> int:
         del scratch
         model, _ = resnet_forward_phase(card)
         vit_phase(card, model, full=True)
+        print(f"total_s {time.perf_counter() - t_start:.1f}", flush=True)
+        return 0
+    if sys.argv[1:] == ["--analytics"]:
+        analytics_phase(card)
         print(f"total_s {time.perf_counter() - t_start:.1f}", flush=True)
         return 0
     if sys.argv[1:] == ["--train"]:
@@ -11417,6 +11749,9 @@ def main() -> int:
     # saliency explainer, the ViT over a mesh (its own counts)
     vit = vit_phase(card, model)
     del model
+    # [analytics]: the outlier detectors, the VAE -> int8 MLP graph and the
+    # port's clients (K4's decode route, its own counts)
+    k4_analytics = analytics_phase(card)
     persistence_phase(card, router)
     servers_phase(card)
     # [controlplane] (d): validate / render / operator through the CLI
@@ -11484,6 +11819,9 @@ def main() -> int:
               "seldon_core_tpu_torch/csrc/fused_resnet_wgmma.cu",
               "seldon_core_tpu/ops/fused_resnet.py:239", vit["launches"]["k3"],
               k3[PREDICT_BATCH, 56]),
+        entry("int8_matmul (the outlier detector -> int8 MLP graph, decode route: "
+              "[8,4]x[4,128] -> bf16)", "cuda", "seldon_core_tpu_torch/csrc/int8_matmul.cu",
+              "seldon_core_tpu/ops/pallas_int8.py:127", k4_analytics, kp["mlp [4,128] M=8"]),
     ]
     idle = [k["name"] for k in kernels if k["launches"] == 0]
     if idle:

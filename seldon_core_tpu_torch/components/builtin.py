@@ -99,16 +99,13 @@ class AverageCombiner(SeldonComponent):
         return stacked.mean(dim=0)
 
 
-_OUTLIER_DETECTORS = (UnitImplementation.MAHALANOBIS_OD, UnitImplementation.ISOLATION_FOREST_OD,
-                      UnitImplementation.VAE_OD, UnitImplementation.SEQ2SEQ_OD)
-
-
 def make_builtin(implementation: UnitImplementation,
                  parameters: Optional[Dict[str, Any]] = None,
                  device: Any = None) -> SeldonComponent:
     """A built-in unit for a graph spec's implementation; ValueError when
     the implementation is not a built-in (a prepackaged server). The
-    Mahalanobis detector keeps its state on ``device`` (the engine's)."""
+    Mahalanobis, VAE and seq2seq detectors keep their state on ``device``
+    (the engine's); the isolation forest is sklearn on the host."""
     parameters = parameters or {}
     if implementation == UnitImplementation.SIMPLE_MODEL:
         return SimpleModel()
@@ -124,13 +121,19 @@ def make_builtin(implementation: UnitImplementation,
         cls = (EpsilonGreedy if implementation == UnitImplementation.EPSILON_GREEDY
                else ThompsonSampling)
         return cls(**parameters)
-    if implementation == UnitImplementation.MAHALANOBIS_OD:
-        from seldon_core_tpu_torch.analytics.outliers import MahalanobisOutlierDetector
+    if implementation == UnitImplementation.ISOLATION_FOREST_OD:
+        from seldon_core_tpu_torch.analytics.outliers import IsolationForestOutlierDetector
 
-        return MahalanobisOutlierDetector(device=device, **parameters)
-    if implementation in _OUTLIER_DETECTORS:
-        raise NotImplementedError(f"{implementation.value} arrives with the analytics slice of "
-                                  f"the port")
+        return IsolationForestOutlierDetector(**parameters)
+    on_device = {
+        UnitImplementation.MAHALANOBIS_OD: "MahalanobisOutlierDetector",
+        UnitImplementation.VAE_OD: "VAEOutlierDetector",
+        UnitImplementation.SEQ2SEQ_OD: "Seq2SeqOutlierDetector",
+    }
+    if implementation in on_device:
+        from seldon_core_tpu_torch.analytics import outliers
+
+        return getattr(outliers, on_device[implementation])(device=device, **parameters)
     raise ValueError(f"No in-process builtin for implementation {implementation}")
 
 

@@ -77,21 +77,12 @@ import torch
 from seldon_core_tpu_torch.components.component import SeldonComponent
 from seldon_core_tpu_torch.contracts.payload import SeldonError
 from seldon_core_tpu_torch.device import resolve_device
+from seldon_core_tpu_torch.utils import bucket
 
 logger = logging.getLogger(__name__)
 
 DEFAULT_LEN_BUCKETS = (32, 128, 512, 2048)
 DEFAULT_BATCH_BUCKETS = (1, 4, 8)
-
-
-def bucket(n: int, buckets: Sequence[int]) -> int:
-    """Smallest bucket >= n; beyond the largest bucket, round up to a
-    multiple of it (copied from ``seldon_core_tpu/utils.py``)."""
-    for b in buckets:
-        if n <= b:
-            return b
-    top = buckets[-1]
-    return ((n + top - 1) // top) * top
 
 
 class ByteTokenizer:

@@ -38,8 +38,18 @@ The control plane (host-only, the JAX CLI's arguments but ``--gpus`` and
 [--values FILE]`` renders a ``deploy/charts`` chart without helm. PyYAML is
 imported where it is needed (a YAML CR, ``--format yaml``, a chart); where
 it is missing the command raises naming it, and JSON CRs with ``--format
-json`` need none. The other subcommands of the JAX package's CLI arrive
-with later slices.
+json`` need none.
+
+The host-side tools, with the JAX CLI's arguments: ``tester`` and
+``api-tester`` fuzz a microservice or an engine with a contract's payloads
+(``client/testers.py``); ``loadtest <host> <port> [--clients N]
+[--duration S] [--grpc]`` drives the port's closed-loop load generator
+(``client/loadgen.py``) and prints its JSON report; ``request-logger``
+serves the CloudEvents pair logger (``observability/request_logger.py``);
+``analytics --out DIR`` writes the Prometheus and Grafana artifacts
+(PyYAML needed). ``edge``, ``loadtest-native``, ``loadtest-worker`` and
+``loadtest-fleet`` drive the native C++ edge and exit naming the
+native-edge slice of the port; ``convert-llama`` is not ported.
 """
 
 from __future__ import annotations
@@ -293,6 +303,32 @@ def run_render_chart(args: argparse.Namespace) -> None:
         print(text)
 
 
+def run_analytics(args: argparse.Namespace) -> None:
+    from seldon_core_tpu_torch.observability.dashboards import write_artifacts
+
+    for path in write_artifacts(args.out):
+        print(path)
+
+
+def run_request_logger(args: argparse.Namespace) -> None:
+    setup_logging()
+    from seldon_core_tpu_torch.observability.request_logger import make_logger_app
+    from seldon_core_tpu_torch.transport.rest import serve
+
+    serve(make_logger_app(), host=args.host, port=args.port)
+
+
+def run_loadtest(args: argparse.Namespace) -> None:
+    from seldon_core_tpu_torch.client import loadgen
+
+    loadgen.main(args)
+
+
+def run_native_edge(args: argparse.Namespace) -> None:
+    raise SystemExit(f"'{args.command}' drives the native C++ edge, which arrives with the "
+                     f"native-edge slice of the port; use 'loadtest' (REST or --grpc)")
+
+
 def main(argv: Optional[list] = None) -> None:
     parser = argparse.ArgumentParser(prog="seldon-core-tpu-torch")
     sub = parser.add_subparsers(dest="command", required=True)
@@ -338,7 +374,39 @@ def main(argv: Optional[list] = None) -> None:
     rc.add_argument("--values", default=None, help="values override YAML file")
     rc.add_argument("--namespace", default="seldon-system")
     rc.set_defaults(func=run_render_chart)
-    args = parser.parse_args(argv)
+
+    from seldon_core_tpu_torch.client.testers import add_tester_args, tester_main
+
+    tester = sub.add_parser(
+        "tester", help="contract-fuzz a microservice (seldon-core-tester equivalent)")
+    add_tester_args(tester, endpoint_kind="microservice")
+    tester.set_defaults(func=tester_main)
+    api_tester = sub.add_parser(
+        "api-tester", help="contract-fuzz an engine/gateway (seldon-core-api-tester equivalent)")
+    add_tester_args(api_tester, endpoint_kind="engine")
+    api_tester.set_defaults(func=tester_main)
+    an = sub.add_parser("analytics", help="write Prometheus rules + Grafana dashboard artifacts")
+    an.add_argument("--out", default="deploy/analytics")
+    an.set_defaults(func=run_analytics)
+    rl = sub.add_parser("request-logger", help="CloudEvents message-pair logger service")
+    rl.add_argument("--port", type=int, default=2222)
+    rl.add_argument("--host", default="0.0.0.0")
+    rl.set_defaults(func=run_request_logger)
+    lt = sub.add_parser("loadtest", help="closed-loop load generator (locust equivalent)")
+    lt.add_argument("host")
+    lt.add_argument("port", type=int)
+    lt.add_argument("--clients", type=int, default=16)
+    lt.add_argument("--duration", type=float, default=10.0)
+    lt.add_argument("--batch", type=int, default=1)
+    lt.add_argument("--contract", default=None)
+    lt.add_argument("--grpc", action="store_true")
+    lt.set_defaults(func=run_loadtest)
+    for name in ("edge", "loadtest-native", "loadtest-worker", "loadtest-fleet"):
+        native = sub.add_parser(name, help="the native C++ edge (the native-edge slice)")
+        native.set_defaults(func=run_native_edge)
+    args, extra = parser.parse_known_args(argv)
+    if extra and args.func is not run_native_edge:   # the JAX arguments of a native command
+        parser.error(f"unrecognized arguments: {' '.join(extra)}")
     args.func(args)
 
 

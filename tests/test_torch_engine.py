@@ -469,8 +469,9 @@ def test_later_slices_raise(case, tmp_path):
     """What a later slice serves raises naming it; the remote-node slice's
     cases now build (a list is one cached ReplicaSet, an endpoint a
     RemoteComponent, SKLEARN_SERVER loads its artifact), and the frame wire
-    format of a remote hop still raises naming the native-edge slice; a
-    MAHALANOBIS_OD unit builds its detector, VAE_OD still raises."""
+    format of a remote hop still raises naming the native-edge slice; all
+    four outlier detector units build (the analytics slice), and an
+    unfitted VAE raises "needs fit()" at its first score, as JAX's does."""
     from seldon_core_tpu_torch.runtime.engine import ReplicaSet
     from seldon_core_tpu_torch.runtime.remote import RemoteComponent
 
@@ -489,16 +490,27 @@ def test_later_slices_raise(case, tmp_path):
             GraphEngine(spec(), annotations={"seldon.io/wire-format": "frame"}, device="cpu")
         return
     if case == "outlier detector":
-        # the control-plane slice serves the Mahalanobis detector (the canary
-        # router's); the other detectors still raise naming the analytics slice
-        from seldon_core_tpu_torch.analytics.outliers import MahalanobisOutlierDetector
+        from seldon_core_tpu_torch.analytics import outliers
 
-        graph["implementation"] = "MAHALANOBIS_OD"
-        assert isinstance(GraphEngine(spec(), device="cpu").state.root.component,
-                          MahalanobisOutlierDetector)
+        graph["type"] = "TRANSFORMER"
+        for impl, cls in (("MAHALANOBIS_OD", outliers.MahalanobisOutlierDetector),
+                          ("ISOLATION_FOREST_OD", outliers.IsolationForestOutlierDetector),
+                          ("VAE_OD", outliers.VAEOutlierDetector),
+                          ("SEQ2SEQ_OD", outliers.Seq2SeqOutlierDetector)):
+            graph["implementation"] = impl
+            unit = GraphEngine(spec(), device="cpu").state.root.component
+            assert isinstance(unit, cls)
+            if impl in ("MAHALANOBIS_OD", "VAE_OD", "SEQ2SEQ_OD"):
+                assert unit.device == torch.device("cpu")
         graph["implementation"] = "VAE_OD"
-        with pytest.raises(NotImplementedError, match="analytics slice"):
-            GraphEngine(spec(), device="cpu")
+        jax_unit = JaxEngine(JaxSpec.from_dict({"name": "p", "graph": graph})).state.root.component
+        body = {"data": {"ndarray": [[1.0, 2.0]]}}
+        with pytest.raises(Exception, match="needs fit") as port_err:
+            GraphEngine(spec(), device="cpu").predict_sync(SeldonMessage.from_dict(body))
+        with pytest.raises(Exception, match="needs fit") as jax_err:
+            jax_unit.transform_input(np.array([[1.0, 2.0]]), [])
+        assert "VAEOutlierDetector needs fit() before scoring" in str(port_err.value)
+        assert "VAEOutlierDetector needs fit() before scoring" in str(jax_err.value)
         return
     graph["implementation"] = "SKLEARN_SERVER"
     graph["modelUri"] = str(tmp_path)  # no model.joblib in it

@@ -64,6 +64,10 @@ need |= {"seldon_core_tpu_torch." + m for m in (
     "parallel.pipeline", "ops.ring_attention")}
 need |= {"seldon_core_tpu_torch." + m for m in (
     "models.mlp", "models.vit", "models.layers", "analytics.explainers")}
+need |= {"seldon_core_tpu_torch." + m for m in (
+    "analytics.threefry", "utils", "client", "client.client", "client.contract",
+    "client.testers", "client.loadgen", "observability.request_logger",
+    "observability.dashboards", "packaging.wrap", "integrations.sagemaker")}
 assert need <= set(mods), need - set(mods)
 from seldon_core_tpu_torch.servers.llmserver import LLMServer
 s = LLMServer(model="llama-tiny", init_random=True, max_new_tokens=4, eos_id=-1,
@@ -208,6 +212,10 @@ def test_default_device_raises_without_cuda(monkeypatch):
     from seldon_core_tpu_torch.analytics.explainers import SaliencyExplainer
     with pytest.raises(RuntimeError, match="cuda"):
         SaliencyExplainer(model_uri="/nowhere")
+    from seldon_core_tpu_torch.analytics.outliers import Seq2SeqOutlierDetector, VAEOutlierDetector
+    for detector in (VAEOutlierDetector, Seq2SeqOutlierDetector):
+        with pytest.raises(RuntimeError, match="cuda"):
+            detector()
     with pytest.raises(RuntimeError, match="cuda"):
         resolve_device(None)
     from seldon_core_tpu_torch.parallel.train import adamw, init_train_state

@@ -3084,3 +3084,44 @@ def test_int8_resnet_operands_equal_a_dequantize_at_load(dev):
                         + fused_resnet.expected_launches(4, 4, 4, 512, 128, 1, sms))
     # the same K3 chains; the head on K4 against a float32 product
     assert (logits - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+
+
+@pytest.mark.parametrize("kind", ["vae", "seq2seq"])
+def test_outlier_detector_step_and_score_on_the_card_equal_the_cpu(dev, kind):
+    """The VAE and seq2seq detectors (float32 nn.Modules, no kernel of
+    their own) on the card: one Adam step from the same weights and inputs
+    and the scores after it within 1e-5 (relative; 1e-6 absolute for
+    weights near zero) of the same on the CPU. TF32 is off for the run."""
+    from seldon_core_tpu_torch.analytics import outliers
+    from seldon_core_tpu_torch.parallel.train import adam
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(4)
+    if kind == "vae":
+        cls, dims, loss_fn = outliers.VAEOutlierDetector, dict(hidden_dim=64), outliers.vae_loss
+        x = rng.standard_normal((256, 4)).astype(np.float32)
+        extra = (torch.from_numpy(rng.standard_normal((256, 2)).astype(np.float32)), 1e-3)
+    else:
+        cls, dims = outliers.Seq2SeqOutlierDetector, dict(timesteps=8, hidden_dim=32)
+        loss_fn = outliers.seq2seq_loss
+        x = rng.standard_normal((32, 8, 4)).astype(np.float32)
+        extra = ()
+    seed_det = cls(device="cpu", **dims)
+    seed_det._d = 4
+    weights = {k: v.numpy() for k, v in seed_det._new_net(torch.Generator().manual_seed(3))
+               .state_dict().items()}
+    results = []
+    for where in ("cpu", dev):
+        det = cls(device=where, **dims).adopt(weights)
+        net = det._ready()
+        tx = adam(1e-2)
+        opt = tx.init(list(net.parameters()))
+        inputs = [torch.from_numpy(x).to(where)] + [e.to(where) if torch.is_tensor(e) else e
+                                                    for e in extra]
+        _, loss = outliers.train_step(net, tx, opt, loss_fn, *inputs)
+        results.append((float(loss), det.params(), det.score(x)))
+    (l_cpu, p_cpu, s_cpu), (l_dev, p_dev, s_dev) = results
+    assert abs(l_dev - l_cpu) <= 1e-5 * abs(l_cpu)
+    for k in p_cpu:
+        np.testing.assert_allclose(p_dev[k], p_cpu[k], rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(s_dev, s_cpu, rtol=1e-5, atol=1e-7)
